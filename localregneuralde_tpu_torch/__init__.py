@@ -1,0 +1,38 @@
+"""localregneuralde_tpu_torch — the PyTorch and CUDA port of
+``localregneuralde_tpu`` for NVIDIA Hopper GPUs.
+
+It mirrors the JAX package's layout and names (``ode/``, ``nn/``,
+``models/``, ``ops/``, ``harness/``) and keeps its public shapes: states are
+batch-major ``(B, F)``, a Dense weight is ``(in, out)``, and the time channel
+is the last input row. The JAX package is the reference the port is tested
+against; this package never imports JAX.
+
+Ported so far: the inference path of the MNIST MLP Neural ODE, with
+hand-written CUDA kernels (``csrc/``) for the TD-MLP evaluation, the Tsit5
+step and the persistent adaptive solve.
+
+Importing the package turns TF32 off for matmuls and cuDNN: the solver's
+embedded error estimate is a cancelling sum that TF32 rounding swamps at
+tight tolerances.
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .core import ArrayAndTime, get_array  # noqa: E402
+from .models import NeuralODE, TDChain, diffeqsol_to_array  # noqa: E402
+from .ode import ODESolution, PIController, odesolve  # noqa: E402
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ArrayAndTime",
+    "NeuralODE",
+    "ODESolution",
+    "PIController",
+    "TDChain",
+    "diffeqsol_to_array",
+    "get_array",
+    "odesolve",
+]

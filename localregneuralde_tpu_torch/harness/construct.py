@@ -1,0 +1,113 @@
+"""Factories: config → model and loss (reference
+``experiments/src/construct.jl``); counterpart of
+``localregneuralde_tpu/harness/construct.py`` for the MNIST MLP Neural ODE.
+The other model types and the optimizers come with later slices."""
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ..models import NeuralODE, TDChain, diffeqsol_to_array
+from ..nn import Chain, Dense, Flatten, WrappedFunction
+from .config import ExperimentConfig
+from .losses import logitcrossentropy
+from .schedulers import Constant, ExponentialDecay
+
+
+def construct_model(cfg: ExperimentConfig, *, device=None,
+                    generator: Optional[torch.Generator] = None):
+    """Build the model of ``cfg`` with weights drawn from ``generator``
+    (default: a CPU generator seeded with ``cfg.seed``), on ``device``."""
+    m = cfg.model
+    if m.model_type != "mlp" or m.sde:
+        raise NotImplementedError(
+            f"model_type={m.model_type!r} sde={m.sde} is not ported yet; only "
+            "the MLP Neural ODE is (ROADMAP Queue 1 items 8-10)"
+        )
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    return _construct_mlp_ode(cfg, device, generator)
+
+
+def _node_kwargs(cfg: ExperimentConfig):
+    s = cfg.model.solver
+    return dict(
+        rtol=s.reltol,
+        atol=s.abstol,
+        max_steps=s.max_steps,
+        checkpoint_every=s.checkpoint_every,
+        regularize=cfg.model.regularize,
+        regularize_type=cfg.model.regularize_type,
+        solver=s.ode_solver,
+        adjoint=s.adjoint,
+        precision=s.precision,
+        grad_precision=s.grad_precision,
+        use_persistent=s.use_persistent,
+        knot_window=s.knot_window if s.knot_window > 0 else None,
+        compute_dtype=cfg.model.dynamics_compute_dtype,
+    )
+
+
+def _construct_mlp_ode(cfg: ExperimentConfig, device, generator):
+    """Flatten → NeuralODE(TDChain MLP) → classifier
+    (reference ``construct.jl:180-200``)."""
+    m = cfg.model
+    hsize = m.mlp_hidden_state_size
+    td = 1 if m.mlp_time_dependent else 0
+    insize = m.image_size[0] * m.image_size[1] * m.in_channels
+    kw = dict(generator=generator, device=device)
+    layers = [Dense(insize + td, hsize, "tanh", **kw)]
+    for _ in range(m.mlp_num_hidden_layers - 1):
+        layers.append(Dense(hsize + td, hsize, "tanh", **kw))
+    layers.append(Dense(hsize + td, insize, **kw))
+    dynamics = TDChain(*layers) if m.mlp_time_dependent else Chain(*layers)
+    kernels_ok = m.mlp_time_dependent and m.mlp_num_hidden_layers == 1
+    use_pallas = m.use_pallas if kernels_ok or m.use_pallas == "on" else "off"
+    return Chain(
+        flatten=Flatten(),
+        neural_ode=NeuralODE(dynamics, use_pallas=use_pallas, **_node_kwargs(cfg)),
+        sol_to_arr=WrappedFunction(diffeqsol_to_array),
+        classifier=Dense(insize, m.num_classes, **kw),
+    )
+
+
+def construct_loss(cfg: ExperimentConfig) -> Tuple[Callable, object]:
+    """Return ``(loss_fn, w_reg_schedule)`` for classification (reference
+    ``construct.jl:78-102``)."""
+    if cfg.model.model_type != "mlp" or cfg.model.sde:
+        raise NotImplementedError(
+            f"the loss of model_type={cfg.model.model_type!r} "
+            f"sde={cfg.model.sde} is not ported yet"
+        )
+    if cfg.loss.w_reg_decay == "exponential":
+        w_reg = ExponentialDecay(
+            cfg.loss.w_reg_start, cfg.loss.w_reg_end, cfg.train.total_steps
+        )
+    else:
+        w_reg = Constant(cfg.loss.w_reg_start)
+    return _classification_loss(cfg), w_reg
+
+
+def _classification_loss(cfg: ExperimentConfig):
+    regularized = cfg.model.regularize != "none"
+
+    def loss_fn(model, params, state, data, w_reg, *, training=True):
+        x, y = data
+        y_pred, st_ = torch.func.functional_call(
+            model, params, (x, state), {"training": training}
+        )
+        ce_loss = logitcrossentropy(y_pred, y)
+        node_st = st_["neural_ode"]
+        reg_val = node_st["reg_val"] if regularized else torch.zeros((), device=x.device)
+        loss = ce_loss + w_reg * reg_val if regularized else ce_loss
+        stats = {
+            "y_pred": y_pred,
+            "nfe": node_st["nfe"],
+            "ce_loss": ce_loss,
+            "reg_val": reg_val,
+            "solver_success": node_st["success"],
+        }
+        return loss, st_, stats
+
+    return loss_fn

@@ -1,0 +1,16 @@
+from .controller import PIController, initial_step_size
+from .solve import ODESolution, odesolve
+from .step import Tsit5StepResult, tsit5_step
+from .tableaus import Tsit5Tableau, tsit5_interp_weights, tsit5_interpolate
+
+__all__ = [
+    "PIController",
+    "initial_step_size",
+    "ODESolution",
+    "odesolve",
+    "Tsit5StepResult",
+    "tsit5_step",
+    "Tsit5Tableau",
+    "tsit5_interp_weights",
+    "tsit5_interpolate",
+]

@@ -1,0 +1,119 @@
+"""Build the package's CUDA kernels and bind them with ctypes.
+
+The sources in ``localregneuralde_tpu_torch/csrc`` are compiled by ``nvcc``
+for Hopper (``sm_90a``) into one shared library with a plain C interface, at
+first use, into ``build/`` at the repository root. The library's name carries
+a hash of the sources and flags, so an edited source builds anew and an
+unchanged one is reused. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# C entry -> argument types; every entry returns cudaGetLastError() as int
+_SIGNATURES = {
+    "lrnde_tdmlp": [_P] * 7 + [_I] * 3 + [_P],
+    "lrnde_tsit5_step": [_P] * 16 + [_I] * 3 + [_P],
+    "lrnde_persistent_tsit5": (
+        [_P] * 4 + [_I] + [_P] * 11 + [_I] * 4 + [_F] * 3 + [_P]
+    ),
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found: set CUDA_HOME or put nvcc on PATH to build the "
+        "CUDA kernels"
+    )
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"liblrnde_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists.
+    The ptxas report (registers, shared memory, spills) is kept beside the
+    library as ``.log``."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    lib.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with its argument
+    types declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.lrnde_rows_per_block.argtypes = []
+    lib.lrnde_rows_per_block.restype = ctypes.c_int
+    lib.lrnde_error_string.argtypes = [ctypes.c_int]
+    lib.lrnde_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise if a C entry returned a CUDA error."""
+    if err != 0:
+        msg = lib.lrnde_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

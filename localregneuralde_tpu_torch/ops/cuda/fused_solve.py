@@ -1,0 +1,126 @@
+"""The whole adaptive Tsit5 solve of the TD-MLP dynamics in one CUDA launch.
+
+Counterpart of ``localregneuralde_tpu/ops/pallas/fused_solve.py``
+(``persistent_tsit5_solve``, family ``("tdmlp",)``) for inference: the
+accept/reject loop, PI control, the shared-batch RMS error norm and the
+speculative saveat output with its post-loop revert run in one cooperative
+kernel (``csrc/persistent_solve.cu``). As in the reference, the initial
+derivative k1 and the Hairer initial dt are computed outside, through the
+fused dynamics kernel (2 NFE), and NFE = 2 + 6·attempts.
+
+The knots, two-level checkpoints and reservoir sample of the reference are
+training features and are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...ode.controller import initial_step_size
+from ...ode.solve import adaptive_loop
+from . import _build
+from .fused_mlp import (
+    TDMLPWeights,
+    check_operands,
+    device_scalars,
+    fused_tdmlp,
+    tdmlp_plain,
+    tsit5_step_plain,
+)
+
+
+def _start(tdmlp, w: TDMLPWeights, u0, t0: float, t_end: float, rtol, atol):
+    """k1 at t0 and the first step from the Hairer probe, clipped to the
+    span: two evaluations of ``tdmlp``. Returns (k1_0, dt_init, nfe0)."""
+    k1_0 = tdmlp(w, u0, t0)
+    t0_dev, span = device_scalars([t0, t_end - t0], u0)
+    dt_init, extra = initial_step_size(
+        lambda u, t: tdmlp(w, u, t), u0, t0_dev, order=5, rtol=rtol,
+        atol=atol, f0=k1_0,
+    )
+    return k1_0, torch.minimum(dt_init, span), 1 + extra
+
+
+def _result(out, nfe0, ts):
+    return dict(
+        y_final=out["y_final"], ys=out["ys"], naccept=out["naccept"],
+        nreject=out["nreject"], success=out["success"],
+        nfe=nfe0 + 6 * out["natt"], t_final=out["t_final"], ts=ts,
+    )
+
+
+def persistent_tsit5_solve_plain(w: TDMLPWeights, u0, tspan, *, rtol, atol,
+                                 saveat_arr, max_steps):
+    """The plain version of the persistent solve: the eager loop of
+    ``ode/solve.py`` with the plain TD-MLP step."""
+    t0, t_end = float(tspan[0]), float(tspan[1])
+    k1_0, dt_init, nfe0 = _start(tdmlp_plain, w, u0, t0, t_end, rtol, atol)
+
+    def step(fn, u, t, dt, k1, f_st):
+        from ...ode.step import Tsit5StepResult
+
+        u_new, utilde, *ks, g6 = tsit5_step_plain(w, u, t, dt, k1)
+        return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, f_st)
+
+    out = adaptive_loop(
+        None, u0, k1_0, None, t0, t_end, dt_init, saveat=saveat_arr,
+        rtol=rtol, atol=atol, max_steps=max_steps, step_fn=step,
+    )
+    return _result(out, nfe0, saveat_arr)
+
+
+def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
+                           rtol: float, atol: float, saveat_arr: torch.Tensor,
+                           max_steps: int, record_knots=False,
+                           reservoir_key=None):
+    """Run the whole adaptive solve of ``du/dt = tdmlp(u, t)``.
+
+    Returns a dict of ``y_final``, ``ys`` (n_save, B, F), ``naccept``,
+    ``nreject``, ``success``, ``nfe``, ``t_final`` and ``ts``, as device
+    tensors (no host sync). A CUDA tensor launches the kernel; a CPU tensor
+    runs ``persistent_tsit5_solve_plain``.
+    """
+    if record_knots or reservoir_key is not None:
+        raise NotImplementedError(
+            "knot recording and reservoir sampling of the persistent solve "
+            "are training features, not ported yet (ROADMAP Queue 2 item 4)"
+        )
+    if u0.device.type == "cpu":
+        return persistent_tsit5_solve_plain(
+            w, u0, tspan, rtol=rtol, atol=atol, saveat_arr=saveat_arr,
+            max_steps=max_steps,
+        )
+    B, F, H = check_operands(w, u0)
+    t0, t_end = float(tspan[0]), float(tspan[1])
+    k1_0, dt_init, nfe0 = _start(fused_tdmlp, w, u0, t0, t_end, rtol, atol)
+    sc = device_scalars([t0, t_end, dt_init], u0)
+    saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
+    n_save = saveat.shape[0]
+
+    lib = _build.load_library()
+    n_blocks = -(-B // lib.lrnde_rows_per_block())
+    dev = u0.device
+    y_final = torch.empty_like(u0)
+    ys = torch.empty((n_save, B, F), dtype=torch.float32, device=dev)
+    stats_i = torch.empty(4, dtype=torch.int32, device=dev)
+    stats_f = torch.empty(1, dtype=torch.float32, device=dev)
+    scratch = torch.empty((8, B, F), dtype=torch.float32, device=dev)
+    slots = torch.empty(2 * n_blocks, dtype=torch.float32, device=dev)
+    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    p = _build.ptr
+    err = lib.lrnde_persistent_tsit5(
+        p(u0), p(k1_0), p(sc), p(saveat), n_save,
+        p(w.w1), p(w.b1), p(w.w2), p(w.b2),
+        p(y_final), p(ys), p(stats_i), p(stats_f), p(scratch), p(slots),
+        p(barrier), B, F, H, int(max_steps), float(rtol), float(atol),
+        1.0 / float(B * F), _build.stream_ptr(dev),
+    )
+    _build.check(lib, err, "persistent_tsit5_solve")
+    persistent_tsit5_solve.launches += 1
+    return dict(
+        y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
+        success=stats_i[2].bool(), nfe=nfe0 + 6 * stats_i[3],
+        t_final=stats_f[0], ts=saveat_arr,
+    )
+
+
+persistent_tsit5_solve.launches = 0

@@ -1,0 +1,112 @@
+"""Package-level checks of the port: it imports without JAX, its config
+schema is the JAX package's, every shared experiment YAML loads into both,
+and what is not ported yet says so."""
+import ast
+import dataclasses
+import glob
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import localregneuralde_tpu.harness.config as jax_config
+import localregneuralde_tpu_torch
+import localregneuralde_tpu_torch.harness.config as torch_config
+from localregneuralde_tpu_torch.harness import construct_model
+from localregneuralde_tpu_torch.models import NeuralODE, TDChain
+from localregneuralde_tpu_torch.nn import Dense
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = pathlib.Path(localregneuralde_tpu_torch.__file__).parent
+
+
+def test_imports_with_jax_blocked():
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import localregneuralde_tpu_torch, localregneuralde_tpu_torch.harness\n"
+        "import localregneuralde_tpu_torch.ops.cuda, localregneuralde_tpu_torch.parity\n"
+        "import torch\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_no_module_imports_jax():
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            assert not any(
+                n == "jax" or n.startswith(("jax.", "localregneuralde_tpu."))
+                or n == "localregneuralde_tpu" for n in names
+            ), f"{path} imports {names}"
+
+
+def _schema(module):
+    def default(f):
+        v = (f.default if f.default is not dataclasses.MISSING
+             else f.default_factory())
+        return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+
+    def fields(cls):
+        return [(f.name, str(f.type), default(f))
+                for f in dataclasses.fields(cls)]
+
+    return {
+        name: fields(getattr(module, name))
+        for name in dir(module)
+        if dataclasses.is_dataclass(getattr(module, name))
+    }
+
+
+def test_config_schema_matches_jax():
+    ours, ref = _schema(torch_config), _schema(jax_config)
+    assert ours.keys() == ref.keys() and "ExperimentConfig" in ours
+    for name in ref:
+        assert ours[name] == ref[name], name
+
+
+@pytest.mark.parametrize(
+    "path", sorted(glob.glob(str(ROOT / "experiments" / "*" / "*.yaml")))
+)
+def test_experiment_yaml_loads_into_both(path):
+    args = ["--model.solver.reltol=1e-4", "--train.total_steps=5"]
+    ours = torch_config.define_configuration(args, path)
+    ref = jax_config.define_configuration(args, path)
+    assert torch_config.flatten_config(ours) == jax_config.flatten_config(ref)
+
+
+def test_unported_paths_raise():
+    cfg = torch_config.define_configuration(
+        ["--model.model_type=cifar10_cnn"], None
+    )
+    with pytest.raises(NotImplementedError):
+        construct_model(cfg)
+    node = NeuralODE(TDChain(Dense(5, 3, "tanh"), Dense(4, 4)),
+                     regularize="none")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        node(torch.zeros(2, 4), training=True)
+    with pytest.raises(ValueError):
+        NeuralODE(Dense(4, 4), use_pallas="on")
+
+
+def test_kernel_dispatch():
+    node = NeuralODE(TDChain(Dense(5, 3, "tanh"), Dense(4, 4)))
+    x = torch.zeros(2, 4)
+    assert node.use_pallas == "auto" and not node.uses_kernels(x)
+    assert NeuralODE(TDChain(Dense(5, 3, "tanh"), Dense(4, 4)),
+                     use_pallas=True).uses_kernels(x)
+    # a dynamics the kernels do not cover never dispatches to them
+    assert NeuralODE(Dense(4, 4)).use_pallas == "off"
