@@ -2,17 +2,30 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It drives the
-port's serving path (``localregneuralde_tpu_torch``, no JAX) on the card:
+port's serving and training paths (``localregneuralde_tpu_torch``, no JAX)
+on the card:
 
 1. builds the CUDA kernels from ``localregneuralde_tpu_torch/csrc`` and
    prints the card's name and power limit;
-2. holds each kernel against its plain PyTorch version at the slice's shapes
-   (B = 512, F = 784, H = 100) and times both;
+2. holds each forward kernel against its plain PyTorch version at the
+   slice's shapes (B = 512, F = 784, H = 100) and times both;
 3. checks that the persistent solve is deterministic;
 4. runs ``experiments/mnist_ode/mlp.yaml`` through ``construct_model`` →
    ``make_eval_step`` on synthetic MNIST batches at the config's tolerance
    and at the bench tolerance, counts the kernel launches of that run, and
-   holds the logits against the plain path on the card and on the CPU.
+   holds the logits against the plain path on the card and on the CPU;
+5. holds the backward kernels (the step VJP, the knot recording of the
+   persistent solve, the dense and the two-level sweep) against their plain
+   versions, checks that the two-level replay repeats the forward bitwise,
+   and times them;
+6. trains the same config with ``--model.regularize=unbiased`` through
+   ``construct_optimizer`` → ``make_train_step`` for a few Adam steps at
+   both tolerances, counts the kernel launches per step, and holds the
+   first step's gradients against the plain path on the card and on the
+   CPU.
+
+``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
+kernel.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error and times. Any failed check
@@ -31,6 +44,7 @@ BENCH = ["--model.solver.reltol=1e-4", "--model.solver.abstol=1e-4",
          "--model.solver.max_steps=64"]
 TOLERANCES = (("mlp.yaml", []), ("bench", BENCH))
 N_BATCHES = 3
+TRAIN_STEPS = 5
 
 
 def check(ok, what):
@@ -338,6 +352,383 @@ def phase_slice(device):
     return counts
 
 
+def rel_err(a, b):
+    """max-abs difference relative to the largest magnitude of b."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def phase_backward_kernels(device, w, x):
+    """The step VJP, knot recording and both sweeps against their plain
+    versions at the slice's shapes."""
+    import torch
+
+    from localregneuralde_tpu_torch.ode.stored_adjoint import knot_layout
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_step_bwd, fused_step_bwd_plain, fused_tdmlp, fused_tsit5_step,
+        persistent_stored_sweep, persistent_stored_sweep_plain,
+        persistent_tsit5_solve, persistent_two_level_sweep,
+        persistent_two_level_sweep_plain, tdmlp_plain,
+    )
+    from localregneuralde_tpu_torch.ops.cuda.fused_mlp_bwd import (
+        weight_grad_size,
+    )
+
+    res = {}
+    g = torch.Generator(device=device).manual_seed(7)
+
+    # kernel 3 — against the autograd VJP of the plain step; FP32 sums in
+    # another order: expect ≤ 1e-5 of the largest value
+    t = torch.tensor(0.2, device=device)
+    dt = torch.tensor(0.05, device=device)
+    k1 = tdmlp_plain(w, x, t)
+    cts = [torch.randn(x.shape, generator=g, device=device) for _ in range(9)]
+    ours = fused_step_bwd(w, x, t, dt, k1, cts)
+    ref = fused_step_bwd_plain(w, x, t, dt, k1, cts)
+    names = ["d_u", "d_k1", "d_w1", "d_b1", "d_w2", "d_b2"]
+    pairs = list(zip([ours[1], ours[2], *ours[0]], [ref[1], ref[2], *ref[0]]))
+    rels = {n: rel_err(a, b) for n, (a, b) in zip(names, pairs)}
+    err = max(max_abs(a, b) for a, b in pairs)
+    print(f"[step_bwd] relative max-abs vs plain {rels}")
+    check(max(rels.values()) <= 1e-4, f"step_bwd vs plain: {rels}")
+    again = fused_step_bwd(w, x, t, dt, k1, cts)
+    check(all(torch.equal(a, b) for a, b in zip(again[0], ours[0])),
+          "step_bwd weight gradients are not deterministic")
+    from localregneuralde_tpu_torch.ops.cuda import _build
+    lib = _build.load_library()
+    n_blocks = -(-B // lib.lrnde_rows_per_block())
+    raw = raw_launch(
+        "lrnde_tsit5_step_bwd", x, k1, torch.stack([t, dt]), *w, *cts,
+        torch.empty_like(x), torch.empty_like(x),
+        torch.empty(weight_grad_size(F, H), device=device),
+        torch.empty(lib.lrnde_bwd_scratch_floats(B, F, H), device=device),
+        torch.empty((n_blocks, weight_grad_size(F, H)), device=device),
+        B, F, H)
+    check(raw() == 0, "step_bwd: raw launch failed")
+    ms, plain = back_to_back_ms(
+        [raw, lambda: fused_step_bwd_plain(w, x, t, dt, k1, cts)], n=50)
+    res["tsit5_step_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    print(f"[step_bwd] bitwise-deterministic weight gradients; device "
+          f"{ms:.4f} ms per launch, plain {plain:.4f} ms")
+
+    # kernel 4 with recording, at both tolerances
+    saveat = torch.tensor([0.5, 1.0], device=device)
+    recs = {}
+    for name, tol, max_steps in (("bench", 1e-4, 64),
+                                 ("mlp.yaml", 1.4e-8, 10000)):
+        dense_cap, _, stride = knot_layout(max_steps)
+        kw = dict(rtol=tol, atol=tol, saveat_arr=saveat, max_steps=max_steps)
+        rec_kw = dict(record_knots=True, knot_dense_cap=dense_cap,
+                      knot_stride=stride)
+        bare = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw)
+        rec = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw, **rec_kw)
+        n = int(rec["naccept"])
+        check(n == int(bare["naccept"]) and int(rec["nfe"]) == int(bare["nfe"])
+              and torch.equal(rec["y_final"], bare["y_final"])
+              and torch.equal(rec["ys"], bare["ys"]),
+              f"recording {name} changed the solve")
+        ts = rec["knot_ts"]
+        step_err = 0.0
+        for j in range(n):
+            u_j = rec["knot_us"][j]
+            step = fused_tsit5_step(w, u_j, ts[j], ts[j + 1] - ts[j],
+                                    fused_tdmlp(w, u_j, ts[j]))
+            step_err = max(step_err, max_abs(step[0], rec["knot_us"][j + 1]))
+        check(step_err <= 1e-5, f"knots {name} do not reconstruct: {step_err}")
+        check(bool(ts[0] == 0.0) and bool(ts[n] == 1.0)
+              and torch.equal(rec["knot_us"][n], rec["y_final"]),
+              f"knots {name}: wrong ends")
+        # checkpoints every W = 4 accepts (bench only: the checkpoint
+        # buffers scale with max_steps / W)
+        w4 = None
+        if max_steps == 64:
+            w4 = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw,
+                                        record_knots=True,
+                                        knot_dense_cap=dense_cap,
+                                        knot_stride=4)
+            check(all(torch.equal(w4["ckpt_us"][c], w4["knot_us"][4 * c])
+                      for c in range(n // 4 + 1)),
+                  f"checkpoints {name} differ from the dense knots")
+        else:
+            check(torch.equal(rec["ckpt_us"][0], x)
+                  and torch.equal(rec["ckpt_ks"][0], fused_tdmlp(w, x, 0.0)),
+                  f"checkpoint 0 {name} differs from (u0, k1_0)")
+        rec_ms, bare_ms = median_ms(
+            [lambda: persistent_tsit5_solve(w, x, (0.0, 1.0), **kw, **rec_kw),
+             lambda: persistent_tsit5_solve(w, x, (0.0, 1.0), **kw)],
+            n=10, warmup=1)
+        print(f"[record {name}] naccept {n}, y_final/ys/nfe bitwise equal "
+              f"without recording; knots reconstruct their steps to "
+              f"{step_err:.2e}; checkpoints bitwise the dense knots; "
+              f"{rec_ms:.3f} ms recording vs {bare_ms:.3f} ms not")
+        recs[name] = (rec, w4, kw)
+
+    ct_ys = torch.randn((2, B, F), generator=g, device=device)
+    ct_y = torch.randn((B, F), generator=g, device=device)
+
+    def sweep_args(rec):
+        return (w, rec["knot_ts"], rec["knot_us"], rec["naccept"], saveat,
+                ct_ys, ct_y)
+
+    def ckpt_args(rec):
+        return tuple(rec[k] for k in ("ckpt_ts", "ckpt_us", "ckpt_ks",
+                                      "ckpt_dts", "ckpt_qolds"))
+
+    def flat(out):
+        return [out[0], out[1], *out[2]]
+
+    # kernel 7 — the dense sweep over the bench-tolerance knots
+    rec = recs["bench"][0]
+    dense = persistent_stored_sweep(*sweep_args(rec))
+    plain_d = persistent_stored_sweep_plain(*sweep_args(rec))
+    rel = max(rel_err(a, b) for a, b in zip(flat(dense), flat(plain_d)))
+    err = max(max_abs(a, b) for a, b in zip(flat(dense), flat(plain_d)))
+    print(f"[sweep dense] {int(rec['naccept'])} steps: relative max-abs vs "
+          f"plain {rel:.3e}")
+    check(rel <= 1e-4, f"dense sweep vs plain: {rel}")
+    again = persistent_stored_sweep(*sweep_args(rec))
+    check(all(torch.equal(a, b) for a, b in zip(flat(again), flat(dense))),
+          "dense sweep is not deterministic")
+    ms, plain = median_ms(
+        [lambda: persistent_stored_sweep(*sweep_args(rec)),
+         lambda: persistent_stored_sweep_plain(*sweep_args(rec))],
+        n=10, warmup=1)
+    res["persistent_stored_sweep"] = dict(max_abs_err=err, ms=ms,
+                                          plain_ms=plain)
+    print(f"[sweep dense] bitwise-deterministic; {ms:.3f} ms, plain "
+          f"{plain:.3f} ms")
+
+    # kernel 8 — at the mlp.yaml tolerance with dense capacity 8 the replay
+    # branch runs: one window from checkpoint 0 (W = 100)
+    rec, _, kw = recs["mlp.yaml"]
+    n = int(rec["naccept"])
+    dense_cap, _, stride = knot_layout(10000)
+    tl = dict(t_end=1.0, rtol=kw["rtol"], atol=kw["atol"], max_steps=10000,
+              stride=stride)
+    dense = persistent_stored_sweep(*sweep_args(rec))
+    win, replay = persistent_two_level_sweep(
+        *sweep_args(rec), *ckpt_args(rec), **tl, dense_cap=8,
+        return_replay=True)
+    check(n > 8, "the mlp.yaml solve is too short to force the replay")
+    check(torch.equal(replay[:n + 1], rec["knot_us"][:n + 1]),
+          "the replay does not repeat the forward bitwise")
+    rel = max(rel_err(a, b) for a, b in zip(flat(win), flat(dense)))
+    bitwise = all(torch.equal(a, b) for a, b in zip(flat(win), flat(dense)))
+    print(f"[sweep two-level] {n} accepts replayed from checkpoint 0, "
+          f"bitwise equal to the dense knots; gradients vs the dense sweep: "
+          f"relative max-abs {rel:.3e}, bitwise {bitwise}")
+    check(rel <= 1e-6, f"two-level sweep vs dense: {rel}")
+    # against the plain two-level sweep at the bench tolerance, where the
+    # plain replay takes the kernel forward's steps (stride 4, capacity 2)
+    rec_b, w4, kw_b = recs["bench"]
+    tl_b = dict(t_end=1.0, rtol=kw_b["rtol"], atol=kw_b["atol"], max_steps=64,
+                stride=4, dense_cap=2)
+    win_b = persistent_two_level_sweep(*sweep_args(w4), *ckpt_args(w4), **tl_b)
+    plain_b = persistent_two_level_sweep_plain(*sweep_args(w4), *ckpt_args(w4),
+                                               **tl_b)
+    rel_b = max(rel_err(a, b) for a, b in zip(flat(win_b), flat(plain_b)))
+    err = max(max_abs(a, b) for a, b in zip(flat(win_b), flat(plain_b)))
+    print(f"[sweep two-level] bench tolerance, replay forced: relative "
+          f"max-abs vs plain {rel_b:.3e}")
+    check(rel_b <= 1e-3, f"two-level sweep vs plain: {rel_b}")
+    ms, plain = median_ms(
+        [lambda: persistent_two_level_sweep(*sweep_args(rec), *ckpt_args(rec),
+                                            **tl, dense_cap=8),
+         lambda: persistent_two_level_sweep_plain(
+             *sweep_args(rec), *ckpt_args(rec), **tl, dense_cap=8)],
+        n=5, warmup=1)
+    res["persistent_two_level_sweep"] = dict(max_abs_err=err, ms=ms,
+                                             plain_ms=plain)
+    print(f"[sweep two-level] mlp.yaml tolerance with replay: {ms:.3f} ms, "
+          f"plain {plain:.3f} ms")
+    return res
+
+
+def _train_setup(overrides, device, params=None):
+    from localregneuralde_tpu_torch.harness import (
+        construct_loss, construct_model, construct_optimizer,
+        create_train_state, define_configuration, make_train_step,
+    )
+
+    cfg = define_configuration(
+        overrides + ["--model.regularize=unbiased"], CONFIG)
+    model = construct_model(cfg, device=device)
+    if params is not None:
+        model.load_state_dict(params)
+    loss_fn, w_reg = construct_loss(cfg)
+    opt, sched = construct_optimizer(cfg)
+    ts = create_train_state(model, opt)
+    return model, loss_fn, make_train_step(model, loss_fn, opt), ts, w_reg, sched
+
+
+def _grads(model, loss_fn, params, data, w_reg):
+    """Loss, stats and parameter gradients of one training forward from a
+    fresh layer state."""
+    import torch
+
+    ps = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    loss, _, stats = loss_fn(model, ps, model.init_state(), data, w_reg,
+                             training=True)
+    grads = torch.autograd.grad(loss, list(ps.values()), allow_unused=True)
+    return loss, stats, dict(zip(ps, grads))
+
+
+def phase_train(device, profile=False):
+    """A few train steps at both tolerances, with launch counts per step and
+    the first step's gradients against the plain path."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import (
+        one_hot, synthetic_classification, warmup_model,
+    )
+    from localregneuralde_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts,
+    )
+
+    x_train, y_train, _, _ = synthetic_classification((28, 28), 1, 10, seed=0)
+    batches = [
+        (torch.tensor(x_train[i * B:(i + 1) * B], device=device),
+         torch.tensor(one_hot(y_train[i * B:(i + 1) * B], 10), device=device))
+        for i in range(TRAIN_STEPS)
+    ]
+    runs = []
+    for name, overrides in TOLERANCES:
+        model, loss_fn, step, ts, w_reg, sched = _train_setup(overrides, device)
+        params0 = {k: v.detach().clone() for k, v in ts.params.items()}
+        warmup_model(step, None, ts, batches[0], w_reg(1), sched(1))
+        runs.append((name, overrides, model, loss_fn, step, ts, w_reg, sched,
+                     params0))
+    torch.cuda.synchronize()
+
+    # --- the training path: every launch from here to launch_counts() counts
+    reset_launch_counts()
+    results = []
+    per_step = []
+    for name, overrides, model, loss_fn, step, ts, w_reg, sched, _ in runs:
+        for i, data in enumerate(batches):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            ts, loss, stats = step(ts, data, w_reg(i + 1), sched(i + 1))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            after = launch_counts()
+            per_step.append((name, {k: after[k] - before[k] for k in after}))
+            results.append((name, i, loss, stats, ms))
+    counts = launch_counts()
+
+    sweep_of = {"mlp.yaml": "persistent_two_level_sweep",
+                "bench": "persistent_stored_sweep"}
+    for (name, i, loss, stats, ms), (_, c) in zip(results, per_step):
+        nfe = int(stats["nfe"])
+        reg = float(stats["reg_val"])
+        print(f"[train {name}] step {i}: loss {float(loss):.6f} reg_val "
+              f"{reg:.6e} nfe {nfe} success {bool(stats['solver_success'])} "
+              f"{ms:.3f} ms {nfe / (ms / 1e3):.1f} dynamics evals/s | "
+              f"launches {c}")
+        check(bool(torch.isfinite(loss)) and reg > 0 and reg < float("inf")
+              and bool(stats["solver_success"])
+              and tuple(stats["y_pred"].shape) == (B, 10),
+              f"train {name} step {i}: bad output")
+        want = {"persistent_tsit5_solve": 1, "tsit5_step": 1,
+                "tsit5_step_bwd": 1, sweep_of[name]: 1, "tdmlp": 4}
+        check(all(c[k] == v for k, v in want.items())
+              and sum(c.values()) == sum(want.values()),
+              f"train {name} step {i}: launches {c}, expected {want}")
+    print(f"[train] launch counts {counts}")
+
+    # --- the first step's gradients against the plain path, on the card
+    # and (8 images) on the CPU
+    for name, overrides, model, loss_fn, _, _, w_reg, _, params0 in runs:
+        sd = model.state_dict()
+        small = (batches[0][0][:8], batches[0][1][:8])
+        plain = _train_setup(overrides + ["--model.use_pallas=off"], device, sd)
+        cpu = _train_setup(overrides, "cpu", {k: v.cpu() for k, v in sd.items()})
+        for where, data, ref_model, ref_loss, ref_dev in (
+            ("the card's plain path", batches[0], plain[0], plain[1], device),
+            ("the CPU, 8 images", small, cpu[0], cpu[1], "cpu"),
+        ):
+            ref_params = {k: v.to(ref_dev) for k, v in params0.items()}
+            ref_data = tuple(d.to(ref_dev) for d in data)
+            # the gradient of the cross-entropy alone (w_reg = 0), and of
+            # the whole loss
+            g = {}
+            for part, wr in (("ce", 0.0), ("loss", w_reg(1))):
+                g[part] = (_grads(model, loss_fn, params0, data, wr),
+                           _grads(ref_model, ref_loss, ref_params, ref_data,
+                                  wr))
+            (_, s_ours, g_ours), (_, s_ref, g_ref) = g["ce"]
+            n_ours, n_ref = int(s_ours["nfe"]), int(s_ref["nfe"])
+            ce_ours = float(s_ours["ce_loss"].detach())
+            ce_ref = float(s_ref["ce_loss"].detach())
+            head = (f"[train {name}] first step vs {where}: NFE {n_ours} vs "
+                    f"{n_ref}, cross-entropy {ce_ours:.6f} vs {ce_ref:.6f}, "
+                    f"reg_val {float(s_ours['reg_val'].detach()):.6e} vs "
+                    f"{float(s_ref['reg_val'].detach()):.6e}")
+            # the solves agree to solver accuracy whatever their step counts
+            # (the logits agree to 1e-6, phase 4)
+            check(abs(ce_ours - ce_ref) <= 1e-4,
+                  f"train {name}: cross-entropy disagrees with {where}")
+            if n_ours != n_ref:
+                print(f"{head}; the step sequences differ (f32 noise in the "
+                      f"error estimate), gradients not compared")
+                continue
+            rel = max(rel_err(g_ours[k].cpu(), g_ref[k].cpu()) for k in g_ours)
+            (_, _, gl_ours), (_, _, gl_ref) = g["loss"]
+            rel_l = max(rel_err(gl_ours[k].cpu(), gl_ref[k].cpu())
+                        for k in gl_ours)
+            print(f"{head}; gradients of the cross-entropy relative max-abs "
+                  f"{rel:.3e}; of the loss with the regulariser {rel_l:.3e} "
+                  f"(reg_val's error estimate is f32 rounding noise here)")
+            check(rel <= 1e-3, f"train {name}: gradients disagree with {where}")
+    # --- the replay branch through the model: --model.solver.knot_window=8
+    # at the mlp.yaml tolerance (~25 accepts) makes the stored adjoint
+    # replay from the checkpoints; the replay repeats the forward, so the
+    # gradients equal those of the dense branch
+    name, overrides, model, loss_fn, _, _, w_reg, _, params0 = runs[0]
+    windowed = _train_setup(overrides + ["--model.solver.knot_window=8"],
+                            device, model.state_dict())
+    _, s_d, g_d = _grads(model, loss_fn, params0, batches[0], w_reg(1))
+    _, s_w, g_w = _grads(windowed[0], windowed[1], params0, batches[0],
+                         w_reg(1))
+    rel = max(rel_err(g_w[k], g_d[k]) for k in g_d)
+    bitwise = all(torch.equal(g_w[k], g_d[k]) for k in g_d)
+    print(f"[train {name}] knot_window 8 (replay) vs 512 (dense): NFE "
+          f"{int(s_w['nfe'])} vs {int(s_d['nfe'])}, gradients relative "
+          f"max-abs {rel:.3e}, bitwise {bitwise}")
+    check(int(s_w["nfe"]) == int(s_d["nfe"]) and rel <= 1e-6,
+          f"train {name}: the replayed sweep disagrees with the dense one")
+    if profile:
+        _profile_train(runs, batches)
+    return counts
+
+
+def _profile_train(runs, batches):
+    """Device time by kernel over three train steps per tolerance."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, _, _, _, step, ts, w_reg, sched, _ in runs:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(3):
+                ts, loss, _ = step(ts, batches[i], w_reg(1), sched(1))
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / 3
+        # device kernels only: the CPU-side ops report their kernels' time
+        # again
+        rows = [(e.key, e.device_time_total / 1e3 / 3, e.count / 3)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.device_time_total > 0]
+        rows.sort(key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        print(f"[profile {name}] {wall:.3f} ms per train step, device busy "
+              f"{busy:.3f} ms ({100 * busy / wall:.1f}%)")
+        for key, ms, cnt in rows[:14]:
+            print(f"[profile {name}]   {ms:9.3f} ms  x{cnt:6.1f}  {key[:90]}")
+
+
 def main():
     import torch
 
@@ -352,7 +743,13 @@ def main():
     phase_build()
     w, x, res = phase_kernels(device)
     phase_determinism(w, x)
-    counts = phase_slice(device)
+    serve_counts = phase_slice(device)
+    res.update(phase_backward_kernels(device, w, x))
+    train_counts = phase_train(device, profile="--profile" in sys.argv[1:])
+    # each path's launches were counted from zero just before it ran
+    counts = {k: serve_counts[k] + train_counts[k] for k in train_counts}
+    check(all(v > 0 for v in counts.values()),
+          f"a kernel was never launched on the main paths: {counts}")
 
     sources = {
         "tdmlp": ("localregneuralde_tpu_torch/csrc/tdmlp.cu",
@@ -362,6 +759,15 @@ def main():
         "persistent_tsit5_solve": (
             "localregneuralde_tpu_torch/csrc/persistent_solve.cu",
             "localregneuralde_tpu/ops/pallas/fused_solve.py:285"),
+        "tsit5_step_bwd": (
+            "localregneuralde_tpu_torch/csrc/tsit5_step_bwd.cu",
+            "localregneuralde_tpu/ops/pallas/fused_mlp_bwd.py:54"),
+        "persistent_stored_sweep": (
+            "localregneuralde_tpu_torch/csrc/adjoint_sweep.cu",
+            "localregneuralde_tpu/ops/pallas/fused_solve_bwd.py:350"),
+        "persistent_two_level_sweep": (
+            "localregneuralde_tpu_torch/csrc/adjoint_sweep.cu",
+            "localregneuralde_tpu/ops/pallas/fused_solve_bwd.py:783"),
     }
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

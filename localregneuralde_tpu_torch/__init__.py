@@ -7,9 +7,11 @@ batch-major ``(B, F)``, a Dense weight is ``(in, out)``, and the time channel
 is the last input row. The JAX package is the reference the port is tested
 against; this package never imports JAX.
 
-Ported so far: the inference path of the MNIST MLP Neural ODE, with
-hand-written CUDA kernels (``csrc/``) for the TD-MLP evaluation, the Tsit5
-step and the persistent adaptive solve.
+Ported so far: the serving and training paths of the MNIST MLP Neural ODE
+(the unbiased local regulariser, the stored adjoint, the optimizers and the
+train step), with hand-written CUDA kernels (``csrc/``) for the TD-MLP
+evaluation, the Tsit5 step and its VJP, the persistent adaptive solve with
+knot recording, and the dense and two-level adjoint sweeps.
 
 Importing the package turns TF32 off for matmuls and cuDNN: the solver's
 embedded error estimate is a cancelling sum that TF32 rounding swamps at

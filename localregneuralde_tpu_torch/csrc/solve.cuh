@@ -1,0 +1,206 @@
+// Shared device code of the whole-solve kernels: the grid barrier, the PI
+// controller, the Tsit5 interpolant weights and ONE ATTEMPT of the adaptive
+// loop over the whole batch.
+//
+// The persistent forward solve (persistent_solve.cu, kernel 4) and the
+// two-level window replay of the adjoint sweep (adjoint_sweep.cu, kernel 8)
+// both call attempt_eest(), the counterpart of the reference's
+// fused_solve.py::run_attempt_tiles. Each row block's squared scaled
+// residuals go into a slot of its own, and thread 0 of every CTA sums the
+// slots in row-block order, so the error norm does not depend on the grid
+// size or on which CTA ran which row block. A replay from a checkpoint
+// therefore repeats its forward's accept decisions and dt sequence bitwise.
+#pragma once
+
+#include "tdmlp.cuh"
+
+namespace lrnde {
+
+// PIController defaults of ode/controller.py, rounded like the reference.
+constexpr float kGamma = static_cast<float>(0.9);
+constexpr float kBeta1 = static_cast<float>(0.14);
+constexpr float kBeta2 = static_cast<float>(0.08);
+constexpr float kInvQmax = static_cast<float>(1.0 / 10.0);
+constexpr float kInvQmin = static_cast<float>(1.0 / 0.2);
+constexpr float kQoldInit = static_cast<float>(1e-4);
+
+// Grid-wide barrier on a monotonically increasing arrival counter; needs
+// every CTA co-resident, which the cooperative launch guarantees. A CTA that
+// waits far longer than any solve needs traps instead of hanging the card.
+__device__ inline void grid_barrier(unsigned int* counter, unsigned int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    unsigned int polls = 0, seen = 0;
+    while (true) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(seen) : "l"(counter) : "memory");
+      if (seen >= target) break;
+      __nanosleep(128);
+      if (++polls > (1u << 27)) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__device__ inline void propose(float eest, float dt, float qold, float* dt_acc,
+                               float* dt_rej, float* qold_acc) {
+  const bool finite = isfinite(eest);
+  const float e = finite ? fmaxf(eest, 0.f) : 1.f;
+  const float q11 = powf(e, kBeta1);
+  float q = q11 / powf(qold, kBeta2);
+  q = fmaxf(kInvQmax, fminf(kInvQmin, q / kGamma));
+  *dt_acc = finite ? dt / q : dt * 0.5f;
+  *dt_rej = finite ? dt / fminf(kInvQmin, q11 / kGamma) : dt * 0.5f;
+  *qold_acc = fmaxf(e, kQoldInit);
+}
+
+// Tsit5 free-interpolant weights b_i(θ) (ode/tableaus.py).
+__device__ inline void interp_weights(float t, float (&b)[7]) {
+  const float t2 = t * t;
+  b[0] = static_cast<float>(-1.0530884977290216) * t *
+         (t - static_cast<float>(1.3299890189751412)) *
+         (t2 - static_cast<float>(1.4364028541716351) * t +
+          static_cast<float>(0.7139816917074209));
+  b[1] = static_cast<float>(0.1017) * t2 *
+         (t2 - static_cast<float>(2.1966568338249754) * t +
+          static_cast<float>(1.2949852507374631));
+  b[2] = static_cast<float>(2.490627285651252793) * t2 *
+         (t2 - static_cast<float>(2.38535645472061657) * t +
+          static_cast<float>(1.57803468208092486));
+  b[3] = static_cast<float>(-16.54810288924490272) *
+         (t - static_cast<float>(1.21712927295533244)) *
+         (t - static_cast<float>(0.61620406037800089)) * t2;
+  b[4] = static_cast<float>(47.37952196281928122) *
+         (t - static_cast<float>(1.203071208372362603)) *
+         (t - static_cast<float>(0.658047292653547382)) * t2;
+  b[5] = static_cast<float>(-34.87065786149660974) *
+         (t - static_cast<float>(1.2)) *
+         (t - static_cast<float>(0.666666666666666667)) * t2;
+  b[6] = static_cast<float>(2.5) * (t - 1.f) * (t - static_cast<float>(0.6)) * t2;
+}
+
+// The working buffers of an attempt, full batch, row-major (B, F):
+// u is the committed state, k + j·BF holds k_{j+1} (k[0] the FSAL k1, read;
+// k1..k6 receive k2..k7), unew the candidate state.
+struct AttemptBufs {
+  float* u;
+  float* k;
+  float* unew;
+  size_t BF;
+  int B;
+};
+
+// The step an attempt takes: dt clipped to the span, and the time reached.
+struct AttemptPlan {
+  float dt_c, t_new;
+  int is_last;
+};
+
+__device__ inline AttemptPlan plan_attempt(float t, float dt, float t_end) {
+  const float t_rem = t_end - t;
+  AttemptPlan p;
+  p.dt_c = fminf(dt, t_rem);
+  p.is_last = dt >= t_rem;
+  p.t_new = p.is_last ? t_end : t + p.dt_c;
+  return p;
+}
+
+struct NoHook {
+  __device__ void operator()(int, const StepRows&, int) const {}
+};
+
+// One attempt over the whole batch from (u, t) with step dt_c: every CTA
+// runs the Tsit5 step of its row blocks, calls hook(rb, rows, nrows) after
+// each, stores the row block's error partial into its slot, then waits at
+// the grid barrier. Returns the scaled error norm in thread 0 (0 elsewhere).
+// The slots are double-buffered by the parity of the barrier count, so a
+// CTA that runs ahead into the next attempt never overwrites slots another
+// is still summing.
+template <typename Hook>
+__device__ inline float attempt_eest(const TDMLP& w, const Smem& sm,
+                                     const AttemptBufs& b, float t,
+                                     float dt_c, float atol, float rtol,
+                                     float inv_n, float* slots,
+                                     unsigned int* barrier,
+                                     unsigned int& epoch, Hook hook) {
+  const int F = w.F;
+  const int n_blocks = (b.B + kRows - 1) / kRows;
+  float* const s = slots + (epoch & 1u) * n_blocks;
+  for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
+    const size_t off = static_cast<size_t>(rb) * kRows * F;
+    const int nrows = min(kRows, b.B - rb * kRows);
+    StepRows p;
+    p.u = b.u + off;
+    for (int j = 0; j < 7; ++j) p.k[j] = b.k + j * b.BF + off;
+    p.unew = b.unew + off;
+    p.utilde = nullptr;
+    p.g6 = nullptr;
+    const float err = tsit5_rows(w, sm, p, t, dt_c, nrows, true, atol, rtol);
+    hook(rb, p, nrows);
+    if (threadIdx.x == 0) __stcg(s + rb, err);
+  }
+  ++epoch;
+  grid_barrier(barrier, epoch * gridDim.x);
+  float eest = 0.f;
+  if (threadIdx.x == 0) {
+    float err_sq = 0.f;
+    for (int i = 0; i < n_blocks; ++i) err_sq += __ldcg(s + i);
+    eest = sqrtf(err_sq * inv_n);
+  }
+  return eest;
+}
+
+// Commit an accepted attempt for this CTA's row blocks: u <- unew and
+// k1 <- k7.
+__device__ inline void commit_rows(const AttemptBufs& b, int F) {
+  const int n_blocks = (b.B + kRows - 1) / kRows;
+  for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
+    const size_t off = static_cast<size_t>(rb) * kRows * F;
+    const int n = min(kRows, b.B - rb * kRows) * F;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      b.u[off + i] = b.unew[off + i];
+      b.k[off + i] = b.k[6 * b.BF + off + i];
+    }
+  }
+}
+
+// Copy this CTA's row blocks of src (B, F) to dst (B, F).
+__device__ inline void copy_rows(float* dst, const float* src, int B, int F) {
+  const int n_blocks = (B + kRows - 1) / kRows;
+  for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
+    const size_t off = static_cast<size_t>(rb) * kRows * F;
+    const int n = min(kRows, B - rb * kRows) * F;
+    for (int i = threadIdx.x; i < n; i += kThreads) dst[off + i] = src[off + i];
+  }
+}
+
+// Cooperative launch of a whole-grid kernel: one CTA per row block, capped
+// at what can be co-resident; the launch refuses a grid that cannot be.
+template <typename Kernel, typename Args>
+inline cudaError_t launch_cooperative(Kernel kernel, Args* args, int B,
+                                      size_t smem, cudaStream_t stream,
+                                      int* grid_out) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int n_blocks = (B + kRows - 1) / kRows;
+  const int grid = min(n_blocks, per_sm * n_sm);
+  if (grid_out != nullptr) *grid_out = grid;
+  void* kargs[] = {args};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                    dim3(grid), dim3(kThreads), kargs, smem,
+                                    stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace lrnde

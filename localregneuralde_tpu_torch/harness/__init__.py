@@ -4,13 +4,21 @@ from .config import (
     experiment_name,
     flatten_config,
 )
-from .construct import construct_loss, construct_model
+from .construct import construct_loss, construct_model, construct_optimizer
 from .data import load_mnist, one_hot, synthetic_classification
 from .losses import accuracy, logitcrossentropy
 from .schedulers import Constant, ExponentialDecay
-from .train import TrainState, create_train_state, make_eval_step
+from .optim import Adamax, OptimizerSpec
+from .train import (
+    TrainState,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+    warmup_model,
+)
 
 __all__ = [
+    "Adamax",
     "Constant",
     "ExperimentConfig",
     "ExponentialDecay",
@@ -18,6 +26,7 @@ __all__ = [
     "accuracy",
     "construct_loss",
     "construct_model",
+    "construct_optimizer",
     "create_train_state",
     "define_configuration",
     "experiment_name",
@@ -25,6 +34,9 @@ __all__ = [
     "load_mnist",
     "logitcrossentropy",
     "make_eval_step",
+    "make_train_step",
     "one_hot",
+    "OptimizerSpec",
     "synthetic_classification",
+    "warmup_model",
 ]

@@ -1,7 +1,7 @@
-"""Factories: config → model and loss (reference
+"""Factories: config → model, loss and optimizer (reference
 ``experiments/src/construct.jl``); counterpart of
 ``localregneuralde_tpu/harness/construct.py`` for the MNIST MLP Neural ODE.
-The other model types and the optimizers come with later slices."""
+The other model types come with later slices."""
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
@@ -12,7 +12,14 @@ from ..models import NeuralODE, TDChain, diffeqsol_to_array
 from ..nn import Chain, Dense, Flatten, WrappedFunction
 from .config import ExperimentConfig
 from .losses import logitcrossentropy
-from .schedulers import Constant, ExponentialDecay
+from .optim import OptimizerSpec
+from .schedulers import (
+    Constant,
+    CosineAnneal,
+    ExponentialDecay,
+    InverseDecay,
+    Step,
+)
 
 
 def construct_model(cfg: ExperimentConfig, *, device=None,
@@ -46,6 +53,7 @@ def _node_kwargs(cfg: ExperimentConfig):
         use_persistent=s.use_persistent,
         knot_window=s.knot_window if s.knot_window > 0 else None,
         compute_dtype=cfg.model.dynamics_compute_dtype,
+        rng_seed=cfg.seed,
     )
 
 
@@ -111,3 +119,46 @@ def _classification_loss(cfg: ExperimentConfig):
         return loss, st_, stats
 
     return loss_fn
+
+
+def construct_optimizer(cfg: ExperimentConfig):
+    """Return ``(optimizer, lr_schedule)``: an ``OptimizerSpec`` (adam,
+    adamw, adamax or sgd with momentum/nesterov, plus ``weight_decay`` and
+    ``gradient_clip_norm``, with optax's semantics, ``harness/optim.py``)
+    and the schedule whose value the train step takes as its learning rate
+    (reference ``construct.jl:104-152``)."""
+    o = cfg.optimizer
+    opt = OptimizerSpec(
+        name=o.optimizer.lower(), momentum=float(o.momentum),
+        nesterov=bool(o.nesterov), weight_decay=float(o.weight_decay),
+        gradient_clip_norm=float(getattr(o, "gradient_clip_norm", 0.0)),
+    )
+    if opt.name not in ("adam", "adamw", "adamax", "sgd"):
+        raise ValueError(
+            f"unknown optimizer {o.optimizer!r}; supported: adam, adamw, "
+            "adamax, sgd"
+        )
+    s = o.scheduler
+    kind = s.lr_scheduler.lower()
+    if kind == "cosine":
+        sched = CosineAnneal(
+            o.learning_rate, o.learning_rate / s.cosine_lr_div_factor,
+            s.cosine_cycle_length, restart=True, dampen=s.cosine_dampen,
+        )
+    elif kind == "constant":
+        sched = Constant(o.learning_rate)
+    elif kind == "step":
+        sched = Step(o.learning_rate, s.step_lr_step_decay, s.step_lr_steps)
+    elif kind == "inverse":
+        sched = InverseDecay(o.learning_rate, s.inverse_decay_factor)
+    elif kind == "exponential":
+        sched = ExponentialDecay(
+            o.learning_rate, o.learning_rate / s.exponential_lr_div_factor,
+            cfg.train.total_steps,
+        )
+    else:
+        raise ValueError(
+            f"unknown scheduler {s.lr_scheduler!r}; supported: constant, "
+            "step, exponential, inverse, cosine"
+        )
+    return opt, sched

@@ -1,9 +1,20 @@
-"""NeuralODE — the locally regularised neural ODE layer, in eval mode.
+"""NeuralODE — the locally regularised neural ODE layer.
 
 Counterpart of ``localregneuralde_tpu/models/neural_ode.py`` (reference
-``src/layers/neural_ode.jl``). In eval mode the layer solves with adjoint
-``'none'`` and no regulariser, and returns the layer state
-``{"model", "nfe", "reg_val", "success"}`` under the reference's keys.
+``src/layers/neural_ode.jl``). The layer returns the state
+``{"model", "nfe", "reg_val", "rng", "success"}`` under the reference's
+keys; ``rng`` is a ``torch.Generator`` where the reference keeps a JAX key.
+
+- Eval mode solves with adjoint ``'none'`` and no regulariser.
+- Training solves with the stored adjoint (``ode/stored_adjoint.py``).
+  With ``regularize='unbiased'`` it draws t1 ~ U(t0, t2) from ``rng``,
+  appends t1 to the saveat grid (and strips it from the outputs), and takes
+  one more Tsit5 step from ``(u(t1), t1)`` with a fresh Hairer dt. Its
+  error (or stiffness) estimate is ``reg_val``; u(t1), t1, the step's k1
+  and dt are all detached, so the regulariser's gradient reaches the
+  parameters only, never the layer input. NFE is the solve's + 8 (six
+  stages, k1 and the dt probe). The biased mode, whose t1 is a reservoir
+  sample of the accepted steps, is not ported yet.
 
 Kernel dispatch (``use_pallas``, the reference's config name): when the
 dynamics is a ``TDChain`` of two Dense layers, ``'on'`` routes the solve
@@ -13,25 +24,40 @@ CUDA inputs; ``'off'`` runs the dynamics module in the eager loop. With
 without it the loop calls the fused Tsit5 step kernel per attempt. The
 wrappers run their plain versions on CPU tensors.
 
-Training (the unbiased/biased regulariser and the adjoints) is not ported
-yet: ``training=True`` raises.
+In training the kernel route runs the forward as one launch of the
+persistent solve with knot recording, the backward as one launch of the
+sweep kernel (dense, or two-level beyond ``knot_window``), and the
+regulariser step through the step kernel with the step-VJP kernel as its
+backward (``ops/cuda/fused_mlp_bwd.py``). Without ``use_persistent`` the
+loop calls the step kernel per attempt and the sweep the step-VJP kernel
+per accepted step. ``grad_precision='default'`` is accepted for the
+reference's configs; every tier computes in FP32 here.
 """
 from __future__ import annotations
 
 from typing import Optional, Union
 
+import dataclasses
+
 import torch
 
 from ..nn.basic import Dense, resolve_solver_precision
 from ..nn.module import Module
-from ..ode.solve import ODESolution, odesolve
-from ..ode.step import Tsit5StepResult
+from ..ode.controller import initial_step_size
+from ..ode.solve import ODESolution, device_scalar, odesolve
+from ..ode.step import Tsit5StepResult, regularization_value, tsit5_step
 from ..core.containers import ArrayAndTime, get_array
 from .common import TDChain
 
 _VALID_REGULARIZE = ("none", "unbiased", "biased")
 _VALID_REG_TYPE = ("error_estimate", "stiffness_estimate")
 _VALID_USE_PALLAS = ("auto", "on", "off")
+
+
+def sample_t1(generator: torch.Generator, t0: float, t2: float) -> float:
+    """The unbiased regulariser's time, t1 ~ U(t0, t2), from the layer's
+    CPU generator (so drawing it never waits for the device)."""
+    return t0 + (t2 - t0) * float(torch.rand((), generator=generator))
 
 
 def is_tdmlp(model) -> bool:
@@ -64,6 +90,7 @@ class NeuralODE(Module):
         grad_precision: str = "match",
         compute_dtype: Optional[str] = None,
         knot_window: Optional[int] = None,
+        rng_seed: int = 0,
     ):
         super().__init__()
         if isinstance(regularize, bool):
@@ -112,6 +139,7 @@ class NeuralODE(Module):
         self.use_pallas = use_pallas if is_tdmlp(model) else "off"
         self.use_persistent = bool(use_persistent)
         self.knot_window = None if knot_window is None else int(knot_window)
+        self.rng_seed = int(rng_seed)
         # recorded for parity with the reference; every tier is FP32 here
         self.mm_precision = resolve_solver_precision(precision, self.rtol)
 
@@ -120,6 +148,7 @@ class NeuralODE(Module):
             "model": self.model.init_state(),
             "nfe": torch.tensor(-1, dtype=torch.int32),
             "reg_val": torch.tensor(0.0),
+            "rng": torch.Generator().manual_seed(self.rng_seed),
             "success": torch.tensor(True),
         }
 
@@ -156,29 +185,88 @@ class NeuralODE(Module):
             return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, f_st)
 
         def persistent(u0, tspan, *, saveat_arr, rtol, atol, max_steps,
-                       f_state):
+                       f_state, **record):
             if u0.ndim != 2 or u0.dtype != torch.float32:
                 return None  # decline: the loop with the step kernel runs
             out = persistent_tsit5_solve(
                 w, u0.contiguous(), tspan, rtol=rtol, atol=atol,
-                saveat_arr=saveat_arr, max_steps=max_steps,
+                saveat_arr=saveat_arr, max_steps=max_steps, **record,
             )
             # the fused family is stateless: its state passes through
-            return ODESolution(
-                ts=saveat_arr, ys=out["ys"], t_final=out["t_final"],
-                y_final=out["y_final"], nfe=out["nfe"],
-                naccept=out["naccept"], nreject=out["nreject"],
-                success=out["success"], f_state=f_state,
-            )
+            return _solution(out, f_state)
 
         return f, step, (persistent if self.use_persistent else None)
 
-    def apply_layer(self, x, state, *, training: bool = False):
-        if training:
-            raise NotImplementedError(
-                "NeuralODE training (regularised solve, stored adjoint) is not "
-                "ported yet: it is the next slice, ROADMAP Queue 1 items 5-6"
+    def _stored_kwargs(self, kernels: bool, names):
+        """The dynamics and replacements ``stored_odesolve`` takes, for the
+        kernel route or the generic one; every callable gets the parameters
+        explicitly, since the backward runs after the caller returns."""
+        if not kernels:
+            model = self.model
+
+            def f(u, t, params):
+                y, _ = torch.func.functional_call(
+                    model, dict(zip(names, params)),
+                    (ArrayAndTime(u, t), model.init_state()),
+                )
+                return get_array(y)
+
+            return dict(f=f)
+        from ..ops.cuda import (
+            TDMLPWeights, fused_step_bwd, fused_tdmlp, fused_tsit5_step,
+            persistent_stored_sweep, persistent_tsit5_solve,
+            persistent_two_level_sweep, tdmlp_plain,
+        )
+
+        def f(u, t, params):
+            return fused_tdmlp(TDMLPWeights(*params), u, t)
+
+        def fsal_fn(u, t, params):
+            # the closure of the FSAL chain is plain autograd, as the
+            # reference leaves it to XLA
+            return tdmlp_plain(TDMLPWeights(*params), u, t)
+
+        def step_fn(params, u, t, dt, k1):
+            u_new, utilde, *ks, g6 = fused_tsit5_step(
+                TDMLPWeights(*params), u, t, dt, k1)
+            return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, None)
+
+        def step_vjp(params, u, t, dt, k1, d_unew, d_ks):
+            zero = torch.zeros_like(u)
+            d_w, d_u, d_k1 = fused_step_bwd(
+                TDMLPWeights(*params), u, t, dt, k1,
+                (d_unew, zero, *d_ks, zero),
             )
+            return list(d_w), d_u, d_k1
+
+        def persistent_fn(u0, params, tspan, **kw):
+            out = persistent_tsit5_solve(TDMLPWeights(*params),
+                                         u0.contiguous(), tspan, **kw)
+            return _solution(out, None)
+
+        def sweep_fn(params, knot_ts, knot_us, naccept, saveat_arr, ct_ys,
+                     ct_y, two_level_ctx=None):
+            w = TDMLPWeights(*params)
+            if two_level_ctx is None:
+                a_u, a_k, d_w = persistent_stored_sweep(
+                    w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y)
+            else:
+                c = two_level_ctx
+                a_u, a_k, d_w = persistent_two_level_sweep(
+                    w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y,
+                    c["ckpt_ts"], c["ckpt_us"], c["ckpt_ks"], c["ckpt_dts"],
+                    c["ckpt_qolds"], t_end=c["t_end"], rtol=c["rtol"],
+                    atol=c["atol"], max_steps=c["max_steps"],
+                    stride=c["stride"], dense_cap=c["dense_cap"],
+                )
+            return a_u, a_k, list(d_w)
+
+        kw = dict(f=f, fsal_fn=fsal_fn, step_fn=step_fn, step_vjp=step_vjp)
+        if self.use_persistent:
+            kw.update(persistent_fn=persistent_fn, sweep_fn=sweep_fn)
+        return kw
+
+    def _eval_solve(self, x, state):
         if self.uses_kernels(x):
             f, step_fn, persistent_fn = self._kernel_solvers()
         else:
@@ -190,10 +278,94 @@ class NeuralODE(Module):
             f_state=state["model"], step_fn=step_fn,
             persistent_fn=persistent_fn,
         )
-        new_state = {
-            "model": sol.f_state,
-            "nfe": sol.nfe,
-            "reg_val": torch.zeros((), device=x.device),
-            "success": sol.success,
-        }
+        new_state = dict(state)
+        new_state.update(model=sol.f_state, nfe=sol.nfe,
+                         reg_val=torch.zeros((), device=x.device),
+                         success=sol.success)
         return sol, new_state
+
+    def apply_layer(self, x, state, *, training: bool = False):
+        if not training:
+            return self._eval_solve(x, state)
+        if self.adjoint != "stored":
+            raise NotImplementedError(
+                f"training with adjoint={self.adjoint!r} is not ported yet: "
+                "only the stored adjoint is (ROADMAP Queue 1 item 11)"
+            )
+        if self.regularize == "biased":
+            raise NotImplementedError(
+                "the biased regulariser (reservoir sample of the accepted "
+                "steps) is not ported yet: it is the next slice, ROADMAP "
+                "Queue 1 item 6 and Queue 2 item 4"
+            )
+        t0, t2 = self.tspan
+        kernels = self.uses_kernels(x)
+        names, params = zip(*self.model.named_parameters())
+        kw = self._stored_kwargs(kernels, names)
+        user_saveat = (
+            self.saveat.to(x.device) if self.saveat is not None
+            else device_scalar(t2, x).reshape(1)
+        )
+        unbiased = self.regularize == "unbiased"
+        saveat = user_saveat
+        if unbiased:
+            t1 = sample_t1(state["rng"], t0, t2)
+            saveat = torch.cat([user_saveat, device_scalar(t1, x).reshape(1)])
+        sol = odesolve(
+            kw.pop("f"), x, self.tspan, rtol=self.rtol, atol=self.atol,
+            saveat=saveat, max_steps=self.max_steps, adjoint="stored",
+            params=list(params), knot_window=self.knot_window, **kw,
+        )
+        new_state = dict(state)
+        new_state.update(model=state["model"], nfe=sol.nfe,
+                         reg_val=torch.zeros((), device=x.device),
+                         success=sol.success)
+        if not unbiased:
+            return sol, new_state
+        u1 = sol.ys[-1].detach()
+        sol = dataclasses.replace(sol, ys=sol.ys[:-1], ts=user_saveat)
+        step, dt_r = self._reg_step(x, u1, device_scalar(t1, x), kernels)
+        new_state.update(
+            reg_val=regularization_value(self.regularize_type, step, u1,
+                                         dt_r, self.atol, self.rtol),
+            nfe=sol.nfe + 8,  # 6 stages + k1 + the dt probe
+        )
+        return sol, new_state
+
+    def _reg_step(self, x, u1, t1, kernels: bool):
+        """The regulariser's step from the fenced ``(u1, t1)``: k1 and dt
+        under no_grad, then one differentiable Tsit5 step (the step kernel
+        with its VJP kernel on the kernel route). Returns (step, dt)."""
+        t2 = self.tspan[1]
+        if kernels:
+            from ..ops.cuda import differentiable_step, fused_tdmlp
+
+            w = self.tdmlp_weights()
+
+            def f(u, t):
+                return fused_tdmlp(w, u, t)
+        else:
+            dyn, st = self._generic_dynamics(), self.model.init_state()
+
+            def f(u, t):
+                return dyn(u, t, st)[0]
+        with torch.no_grad():
+            k1 = f(u1, t1)
+            dt_r, _ = initial_step_size(f, u1, t1, order=5, rtol=self.rtol,
+                                        atol=self.atol, f0=k1)
+            dt_r = torch.minimum(dt_r, device_scalar(t2, x) - t1)
+        if kernels:
+            u_new, utilde, *ks, g6 = differentiable_step(
+                w, u1.contiguous(), t1, dt_r, k1)
+            return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, None), dt_r
+        return tsit5_step(dyn, u1, t1, dt_r, k1, st), dt_r
+
+
+def _solution(out, f_state) -> ODESolution:
+    """An ``ODESolution`` from the persistent solve's output dict."""
+    return ODESolution(
+        ts=out["ts"], ys=out["ys"], t_final=out["t_final"],
+        y_final=out["y_final"], nfe=out["nfe"], naccept=out["naccept"],
+        nreject=out["nreject"], success=out["success"], f_state=f_state,
+        **{k: out[k] for k in out if k.startswith(("knot_", "ckpt_"))},
+    )

@@ -1,6 +1,6 @@
 from .controller import PIController, initial_step_size
 from .solve import ODESolution, odesolve
-from .step import Tsit5StepResult, tsit5_step
+from .step import Tsit5StepResult, regularization_value, tsit5_step
 from .tableaus import Tsit5Tableau, tsit5_interp_weights, tsit5_interpolate
 
 __all__ = [
@@ -9,6 +9,7 @@ __all__ = [
     "ODESolution",
     "odesolve",
     "Tsit5StepResult",
+    "regularization_value",
     "tsit5_step",
     "Tsit5Tableau",
     "tsit5_interp_weights",

@@ -1,7 +1,8 @@
 """One explicit Tsit5 step.
 
 Counterpart of ``localregneuralde_tpu/ode/step.py`` (reference
-``src/perform_step.jl:3-32``). The dynamics convention is
+``src/perform_step.jl:3-47``): the step and the local regulariser computed
+from it. The dynamics convention is
 ``f(u, t, st) -> (du, st)``, where ``st`` is carried layer state; stateless
 dynamics return it unchanged.
 """
@@ -9,6 +10,9 @@ from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
+import torch
+
+from ..ops.residuals import error_residuals, internal_norm
 from .tableaus import Tsit5Tableau as T
 
 
@@ -47,3 +51,35 @@ def tsit5_step(f: Callable, u, t, dt, k1, f_state) -> Tsit5StepResult:
         + T.btilde7 * k7
     )
     return Tsit5StepResult(u_new, utilde, (k1, k2, k3, k4, k5, k6, k7), g6, st)
+
+
+def regularization_value(reg_type: str, step: Tsit5StepResult, u_prev, dt,
+                         atol, rtol) -> torch.Tensor:
+    """The local regulariser of one step.
+
+    ``error_estimate``: rms(ũ / (atol + max(|u₀|, |u₁|)·rtol)) · dt.
+    ``stiffness_estimate``: rms(k7 − k6) / (rms(u_new − g6) + eps) /
+    stability_size, not scaled by dt, and 0 where the denominator is zero
+    or an operand is not finite. The fence sits on the norm inputs and on
+    the output (a double ``where``), so the zeroed branch has zero, not NaN,
+    gradients.
+    """
+    if reg_type == "error_estimate":
+        res = error_residuals(step.utilde, u_prev, step.u_new, atol, rtol)
+        return internal_norm(res) * dt
+    if reg_type == "stiffness_estimate":
+        eps = torch.finfo(step.u_new.dtype).eps
+        num_x = step.ks[6] - step.ks[5]
+        den_x = step.u_new - step.g6
+        finite_in = torch.isfinite(num_x).all() & torch.isfinite(den_x).all()
+        num = internal_norm(torch.where(finite_in, num_x, 0.0))
+        den = internal_norm(torch.where(finite_in, den_x, 1.0))
+        bad = ~finite_in | (den == 0.0) | ~torch.isfinite(num + den)
+        num_s = torch.where(bad, 0.0, num)
+        den_s = torch.where(bad, 1.0, den)
+        est = torch.abs(num_s / (den_s + eps)) / T.stability_size
+        return torch.where(bad, torch.zeros_like(est), est)
+    raise ValueError(
+        f"unknown regularize_type {reg_type!r}; expected 'error_estimate' or "
+        "'stiffness_estimate'"
+    )

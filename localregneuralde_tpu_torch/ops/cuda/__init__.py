@@ -10,12 +10,27 @@ from .fused_mlp import (
     tdmlp_plain,
     tsit5_step_plain,
 )
+from .fused_mlp_bwd import (
+    FusedTsit5Step,
+    differentiable_step,
+    fused_step_bwd,
+    fused_step_bwd_plain,
+)
 from .fused_solve import persistent_tsit5_solve, persistent_tsit5_solve_plain
+from .fused_solve_bwd import (
+    persistent_stored_sweep,
+    persistent_stored_sweep_plain,
+    persistent_two_level_sweep,
+    persistent_two_level_sweep_plain,
+)
 
 KERNELS = {
     "tdmlp": fused_tdmlp,
     "tsit5_step": fused_tsit5_step,
     "persistent_tsit5_solve": persistent_tsit5_solve,
+    "tsit5_step_bwd": fused_step_bwd,
+    "persistent_stored_sweep": persistent_stored_sweep,
+    "persistent_two_level_sweep": persistent_two_level_sweep,
 }
 
 
@@ -29,13 +44,21 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "FusedTsit5Step",
     "KERNELS",
     "TDMLPWeights",
+    "differentiable_step",
+    "fused_step_bwd",
+    "fused_step_bwd_plain",
     "fused_tdmlp",
     "fused_tsit5_step",
     "launch_counts",
+    "persistent_stored_sweep",
+    "persistent_stored_sweep_plain",
     "persistent_tsit5_solve",
     "persistent_tsit5_solve_plain",
+    "persistent_two_level_sweep",
+    "persistent_two_level_sweep_plain",
     "reset_launch_counts",
     "tdmlp_plain",
     "tsit5_step_plain",

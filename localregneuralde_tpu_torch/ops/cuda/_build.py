@@ -2,8 +2,9 @@
 
 The sources in ``localregneuralde_tpu_torch/csrc`` are compiled by ``nvcc``
 for Hopper (``sm_90a``) into one shared library with a plain C interface, at
-first use, into ``build/`` at the repository root. The library's name carries
-a hash of the sources and flags, so an edited source builds anew and an
+first use, into ``build/`` at the repository root: one ``nvcc -c`` per
+source, all started together, then one link. The library's name carries a
+hash of the sources and flags, so an edited source builds anew and an
 unchanged one is reused. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ BUILD_DIR = _PKG.parent / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -32,8 +33,20 @@ _SIGNATURES = {
     "lrnde_tdmlp": [_P] * 7 + [_I] * 3 + [_P],
     "lrnde_tsit5_step": [_P] * 16 + [_I] * 3 + [_P],
     "lrnde_persistent_tsit5": (
-        [_P] * 4 + [_I] + [_P] * 11 + [_I] * 4 + [_F] * 3 + [_P]
+        [_P] * 4 + [_I] + [_P] * 11 + [_I] * 4 + [_F] * 3
+        + [_P, _P, _I] + [_P] * 5 + [_I, _I] + [_P]
     ),
+    "lrnde_tsit5_step_bwd": [_P] * 21 + [_I] * 3 + [_P],
+    "lrnde_adjoint_sweep": (
+        [_I] + [_P] * 8 + [_I] + [_P] * 7 + [_F] * 3 + [_I] * 3 + [_P] * 9
+        + [_I] * 3 + [_F] + [_P]
+    ),
+}
+
+# C entry -> argument types of the size queries, which return long long
+_SIZES = {
+    "lrnde_bwd_scratch_floats": [_I] * 3,
+    "lrnde_sweep_scratch_floats": [_I] * 3,
 }
 
 
@@ -65,23 +78,39 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists.
-    The ptxas report (registers, shared memory, spills) is kept beside the
-    library as ``.log``."""
+    The sources compile in parallel, one ``nvcc`` each; the ptxas reports
+    (registers, shared memory, spills) are kept beside the library as
+    ``.log``."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    lib.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+    nvcc = _nvcc()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            for src, o in zip(cu, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
+    failed = [o for p, o in zip(procs, outs) if p.returncode != 0]
+    tmp = lib.with_name(f"{tag}.tmp")
+    if not failed:
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              check=False)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed = log[-1:]
+    lib.with_suffix(".log").write_text("\n".join(log))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)
     return lib
 
@@ -95,6 +124,10 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in _SIZES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     lib.lrnde_rows_per_block.argtypes = []
     lib.lrnde_rows_per_block.restype = ctypes.c_int
     lib.lrnde_error_string.argtypes = [ctypes.c_int]

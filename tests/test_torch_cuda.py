@@ -71,3 +71,98 @@ def test_persistent_kernel_matches_loop_and_is_deterministic(cuda_device):
     again = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw)
     assert torch.equal(out["ys"], again["ys"])
     assert int(out["nfe"]) == int(again["nfe"])
+
+
+def _rel(a, b):
+    """max-abs difference relative to the largest magnitude of b."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 32, 16), (13, 40, 7), (512, 784, 100)])
+def test_step_bwd_matches_plain_on_card(cuda_device, shape):
+    # FP32 sums in another order than the autograd VJP's cuBLAS products:
+    # relative to the largest magnitude, well under 1e-4
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_step_bwd, fused_step_bwd_plain,
+    )
+
+    w, x = _card_setup(cuda_device, *shape)
+    t = torch.tensor(0.2, device=cuda_device)
+    dt = torch.tensor(0.05, device=cuda_device)
+    k1 = tdmlp_plain(w, x, t)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    cts = [torch.randn(x.shape, generator=g, device=cuda_device)
+           for _ in range(9)]
+    ours = fused_step_bwd(w, x, t, dt, k1, cts)
+    ref = fused_step_bwd_plain(w, x, t, dt, k1, cts)
+    for a, b in zip([ours[1], ours[2], *ours[0]], [ref[1], ref[2], *ref[0]]):
+        assert _rel(a, b) <= 1e-4
+    again = fused_step_bwd(w, x, t, dt, k1, cts)
+    for a, b in zip(again[0], ours[0]):
+        assert torch.equal(a, b)
+
+
+def _recorded(w, x, rtol, **kw):
+    return persistent_tsit5_solve(
+        w, x, (0.0, 1.0), rtol=rtol, atol=rtol, max_steps=64,
+        saveat_arr=torch.tensor([0.5, 1.0], device=x.device),
+        record_knots=True, **kw,
+    )
+
+
+@pytest.mark.cuda
+def test_persistent_recording_on_card(cuda_device):
+    w, x = _card_setup(cuda_device, 64, 784, 100)
+    plain = persistent_tsit5_solve(
+        w, x, (0.0, 1.0), rtol=1e-6, atol=1e-6, max_steps=64,
+        saveat_arr=torch.tensor([0.5, 1.0], device=cuda_device),
+    )
+    rec = _recorded(w, x, 1e-6, knot_stride=4)
+    n = int(rec["naccept"])
+    assert n == int(plain["naccept"]) and n >= 5
+    assert torch.equal(rec["y_final"], plain["y_final"])
+    assert torch.equal(rec["knot_us"][n], rec["y_final"])
+    ts = rec["knot_ts"]
+    for i in range(n):
+        step = fused_tsit5_step(w, rec["knot_us"][i], ts[i], ts[i + 1] - ts[i],
+                                tdmlp_plain(w, rec["knot_us"][i], ts[i]))
+        torch.testing.assert_close(step[0], rec["knot_us"][i + 1], atol=1e-5,
+                                   rtol=0)
+    for c in range(n // 4 + 1):
+        assert torch.equal(rec["ckpt_us"][c], rec["knot_us"][4 * c])
+
+
+@pytest.mark.cuda
+def test_sweeps_match_plain_on_card(cuda_device):
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_stored_sweep, persistent_stored_sweep_plain,
+        persistent_two_level_sweep,
+    )
+
+    w, x = _card_setup(cuda_device, 64, 784, 100)
+    rec = _recorded(w, x, 1e-6, knot_stride=4)
+    n = int(rec["naccept"])
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    ct_ys = torch.randn((2, 64, 784), generator=g, device=cuda_device)
+    ct_y = torch.randn((64, 784), generator=g, device=cuda_device)
+    args = (w, rec["knot_ts"], rec["knot_us"], rec["naccept"],
+            torch.tensor([0.5, 1.0], device=cuda_device), ct_ys, ct_y)
+    dense = persistent_stored_sweep(*args)
+    ref = persistent_stored_sweep_plain(*args)
+    for a, b in zip([dense[0], dense[1], *dense[2]],
+                    [ref[0], ref[1], *ref[2]]):
+        assert _rel(a, b) <= 1e-4
+    again = persistent_stored_sweep(*args)
+    for a, b in zip([again[0], *again[2]], [dense[0], *dense[2]]):
+        assert torch.equal(a, b)
+    (win, replay) = persistent_two_level_sweep(
+        *args, rec["ckpt_ts"], rec["ckpt_us"], rec["ckpt_ks"],
+        rec["ckpt_dts"], rec["ckpt_qolds"], t_end=1.0, rtol=1e-6, atol=1e-6,
+        max_steps=64, stride=4, dense_cap=2, return_replay=True,
+    )
+    assert n > 2
+    assert torch.equal(replay[:5], rec["knot_us"][:5])
+    for a, b in zip([win[0], win[1], *win[2]],
+                    [dense[0], dense[1], *dense[2]]):
+        assert _rel(a, b) <= 1e-6

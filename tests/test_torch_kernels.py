@@ -103,9 +103,11 @@ def test_wrappers_run_plain_versions_on_cpu():
 
 
 def test_persistent_rejects_training_features():
+    # knot recording is ported; the reservoir sample of the biased mode is not
     _, w, x = _setup()
     with pytest.raises(NotImplementedError):
         persistent_tsit5_solve(
             w, torch.tensor(x), (0.0, 1.0), rtol=1e-4, atol=1e-4,
             saveat_arr=torch.tensor([1.0]), max_steps=8, record_knots=True,
+            reservoir_key=0,
         )

@@ -94,10 +94,11 @@ def test_unported_paths_raise():
     )
     with pytest.raises(NotImplementedError):
         construct_model(cfg)
-    node = NeuralODE(TDChain(Dense(5, 3, "tanh"), Dense(4, 4)),
-                     regularize="none")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        node(torch.zeros(2, 4), training=True)
+    # the biased regulariser and the non-stored adjoints are not ported
+    for kw in (dict(regularize="biased"), dict(adjoint="direct")):
+        node = NeuralODE(TDChain(Dense(5, 3, "tanh"), Dense(4, 4)), **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            node(torch.zeros(2, 4), training=True)
     with pytest.raises(ValueError):
         NeuralODE(Dense(4, 4), use_pallas="on")
 
