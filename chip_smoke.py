@@ -22,7 +22,19 @@ on the card:
    ``construct_optimizer`` → ``make_train_step`` for a few Adam steps at
    both tolerances, counts the kernel launches per step, and holds the
    first step's gradients against the plain path on the card and on the
-   CPU.
+   CPU;
+7. holds the SDE kernels against their plain versions at the MNIST-SDE
+   width (B = 512, F = 32, H = 64) and the ``mlp.yaml`` tolerance: the
+   persistent SRI solve with its Brownian tree (states, step counts, knots
+   that reconstruct their steps, determinism, the increments' moments) and
+   the stored-adjoint sweep on its knots, and checks the reservoir sample of
+   the persistent Tsit5 solve;
+8. serves ``experiments/mnist_sde/mlp.yaml`` through ``make_eval_step``
+   (three batches of 512) and trains it with ``--model.regularize=unbiased``
+   and ``=biased`` through ``make_train_step``, with launch counts per step
+   and the first step's cross-entropy gradients against the plain path;
+9. takes one biased training step of the ODE at rtol 1e-4 through the
+   persistent solve with its reservoir.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
 kernel.
@@ -40,6 +52,8 @@ import time
 
 B, F, H = 512, 784, 100
 CONFIG = "experiments/mnist_ode/mlp.yaml"
+SDE_CONFIG = "experiments/mnist_sde/mlp.yaml"
+SDE_TOL = 0.14  # the rtol = atol of SDE_CONFIG
 BENCH = ["--model.solver.reltol=1e-4", "--model.solver.abstol=1e-4",
          "--model.solver.max_steps=64"]
 TOLERANCES = (("mlp.yaml", []), ("bench", BENCH))
@@ -543,14 +557,15 @@ def phase_backward_kernels(device, w, x):
     return res
 
 
-def _train_setup(overrides, device, params=None):
+def _train_setup(overrides, device, params=None, regularize="unbiased",
+                 config=CONFIG):
     from localregneuralde_tpu_torch.harness import (
         construct_loss, construct_model, construct_optimizer,
         create_train_state, define_configuration, make_train_step,
     )
 
     cfg = define_configuration(
-        overrides + ["--model.regularize=unbiased"], CONFIG)
+        overrides + [f"--model.regularize={regularize}"], config)
     model = construct_model(cfg, device=device)
     if params is not None:
         model.load_state_dict(params)
@@ -729,6 +744,402 @@ def _profile_train(runs, batches):
             print(f"[profile {name}]   {ms:9.3f} ms  x{cnt:6.1f}  {key[:90]}")
 
 
+def _sde_model(device, overrides=(), params=None):
+    """The MNIST-SDE model of SDE_CONFIG with random weights from its seed,
+    its loss and its train state."""
+    from localregneuralde_tpu_torch.harness import (
+        construct_loss, construct_model, create_train_state,
+        define_configuration,
+    )
+
+    cfg = define_configuration(list(overrides), SDE_CONFIG)
+    model = construct_model(cfg, device=device)
+    if params is not None:
+        model.load_state_dict(params)
+    loss_fn, w_reg = construct_loss(cfg)
+    return model, loss_fn, create_train_state(model), w_reg
+
+
+def _mnist_batches(device, n, train=False):
+    import torch
+
+    from localregneuralde_tpu_torch.harness import (
+        one_hot, synthetic_classification,
+    )
+
+    x_tr, y_tr, x_te, y_te = synthetic_classification((28, 28), 1, 10, seed=0)
+    xs, ys = (x_tr, y_tr) if train else (x_te, y_te)
+    return [(torch.tensor(xs[i * B:(i + 1) * B], device=device),
+             torch.tensor(one_hot(ys[i * B:(i + 1) * B], 10), device=device))
+            for i in range(n)]
+
+
+def phase_sde_kernels(device, ode_w, ode_x):
+    """Kernels 10 and 12 against their plain versions at the MNIST-SDE
+    width on the layer's real input (the downsampled images), and kernel
+    4's reservoir against the plain loop."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        SDEWeights, persistent_sde_solve, persistent_sde_solve_plain,
+        persistent_sde_sweep, persistent_sde_sweep_plain,
+        persistent_tsit5_solve, persistent_tsit5_solve_plain,
+    )
+    from localregneuralde_tpu_torch.ops.cuda.fused_sde_solve import (
+        diffusion_plain, drift_plain,
+    )
+    from localregneuralde_tpu_torch.sde import (
+        PhiloxNormals, get_sri_tableau, sri_step,
+    )
+
+    res = {}
+    model, _, _, _ = _sde_model(device)
+    node = model.neural_dsde
+    w = SDEWeights(*(p.detach() for p in
+                     list(node.drift.parameters())
+                     + list(node.diffusion.parameters())))
+    x = _mnist_batches(device, 1)[0][0]
+    with torch.no_grad():
+        u0 = model.downsample(model.flatten(x, {})[0], {})[0].contiguous()
+    Fs = u0.shape[1]
+    saveat = torch.tensor([0.5, 1.0], device=device)
+    kw = dict(noise=PhiloxNormals(1234, B, Fs, device=device), rtol=SDE_TOL,
+              atol=SDE_TOL, solver="sosri", delta=1 / 6, saveat_arr=saveat,
+              max_steps=10000, record_knots=True)
+
+    # kernel 10 — same seed, so the same Brownian path: the uniforms are
+    # bitwise equal, the normals differ by the tails' logf, and the step
+    # times by the error norm's summation order
+    out = persistent_sde_solve(w, u0, (0.0, 1.0), **kw)
+    ref = persistent_sde_solve_plain(w, u0, (0.0, 1.0), **kw)
+    na, nb = int(out["naccept"]), int(ref["naccept"])
+    ta, tb = int(out["natt"]), int(ref["natt"])
+    err = max_abs(out["ys"], ref["ys"])
+    print(f"[sde solve] kernel {na} accepts / {ta} attempts, loop {nb} / "
+          f"{tb}; ys max-abs {err:.3e}, y_final max-abs "
+          f"{max_abs(out['y_final'], ref['y_final']):.3e}")
+    check(bool(out["success"]) and bool(ref["success"]),
+          "sde solve: not successful")
+    check(abs(na - nb) <= 2 and abs(ta - tb) <= 2,
+          f"sde solve: step counts {na}/{ta} vs {nb}/{tb}")
+    # a Hölder-1/2 path: a step time one ulp apart moves W by ~2e-4
+    # (tests/test_torch_sde.py), so with equal counts the states agree to
+    # 1e-3 (measured 1.0e-5); after an ulp-level accept flip the two step
+    # sequences still solve the same path, and y_final is held to 5e-2
+    yf_err = max_abs(out["y_final"], ref["y_final"])
+    if ta == tb:
+        check(max(err, yf_err) <= 1e-3,
+              f"sde solve vs plain: ys max-abs {err}, y_final {yf_err}")
+    else:
+        check(yf_err <= 5e-2, f"sde solve vs plain after an accept flip: "
+              f"y_final max-abs {yf_err}")
+    n = na
+    ts = out["knot_ts"][: n + 1]
+    tab = get_sri_tableau("sosri")
+    step_err = 0.0
+    for j in range(n):
+        st = sri_step(lambda u, t: drift_plain(w, u),
+                      lambda u, t: diffusion_plain(w, u), out["knot_us"][j],
+                      ts[j], ts[j + 1] - ts[j], out["knot_dws"][j],
+                      out["knot_dzs"][j], SDE_TOL, SDE_TOL, 1 / 6, tab)
+        step_err = max(step_err, max_abs(st.u_new, out["knot_us"][j + 1]))
+    check(step_err <= 1e-4, f"sde knots do not reconstruct: {step_err}")
+    check(float(ts[0]) == 0.0 and float(ts[n]) == 1.0
+          and torch.equal(out["knot_us"][n], out["y_final"]),
+          "sde knots: wrong ends")
+    again = persistent_sde_solve(w, u0, (0.0, 1.0), **kw)
+    check(int(again["natt"]) == ta and torch.equal(again["ys"], out["ys"])
+          and torch.equal(again["knot_dws"][:n], out["knot_dws"][:n]),
+          "sde solve is not deterministic")
+    dts = (ts[1:] - ts[:-1]).reshape(-1, 1, 1)
+    moments = []
+    for name in ("knot_dws", "knot_dzs"):
+        z = out[name][:n] / torch.sqrt(dts)
+        moments.append((float(z.mean()), float((z * z).mean())))
+    print(f"[sde solve] knots reconstruct their steps to {step_err:.2e}; "
+          f"bitwise deterministic; increments over √dt: dW mean "
+          f"{moments[0][0]:.4f} var {moments[0][1]:.4f}, dZ mean "
+          f"{moments[1][0]:.4f} var {moments[1][1]:.4f} "
+          f"({n * B * Fs} samples each)")
+    check(all(abs(m) < 0.01 and abs(v - 1) < 0.03 for m, v in moments),
+          f"sde increments are not N(0, dt): {moments}")
+    call, plain = median_ms(
+        [lambda: persistent_sde_solve(w, u0, (0.0, 1.0), **kw),
+         lambda: persistent_sde_solve_plain(w, u0, (0.0, 1.0), **kw)],
+        n=3, warmup=1)
+    ms, = back_to_back_ms(
+        [lambda: persistent_sde_solve(w, u0, (0.0, 1.0), **kw)], n=20,
+        warmup=2)
+    print(f"[sde solve] kernel {ms:.3f} ms per call back to back "
+          f"({ms / ta:.4f} ms per attempt), one call {call:.3f} ms; loop "
+          f"{plain:.3f} ms")
+    res["persistent_sde_solve"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+
+    # kernel 12 — on kernel 10's own knots
+    g = torch.Generator(device=device).manual_seed(11)
+    args = (out["knot_ts"], out["knot_us"], out["knot_dws"], out["knot_dzs"],
+            out["naccept"], saveat,
+            torch.randn((2, B, Fs), generator=g, device=device),
+            torch.randn((B, Fs), generator=g, device=device))
+    sw = dict(solver="sosri", delta=1 / 6)
+    ours = persistent_sde_sweep(w, *args, **sw)
+    plain_s = persistent_sde_sweep_plain(w, *args, **sw)
+    flat = lambda o: [o[0], *o[1]]  # noqa: E731
+    rel = max(rel_err(a, b) for a, b in zip(flat(ours), flat(plain_s)))
+    err = max(max_abs(a, b) for a, b in zip(flat(ours), flat(plain_s)))
+    again = persistent_sde_sweep(w, *args, **sw)
+    bitwise = all(torch.equal(a, b) for a, b in zip(flat(again), flat(ours)))
+    print(f"[sde sweep] {n} steps: relative max-abs vs plain {rel:.3e}, "
+          f"bitwise deterministic {bitwise}")
+    check(rel <= 1e-4, f"sde sweep vs plain: {rel}")
+    check(bitwise, "sde sweep is not deterministic")
+    call, plain = median_ms(
+        [lambda: persistent_sde_sweep(w, *args, **sw),
+         lambda: persistent_sde_sweep_plain(w, *args, **sw)], n=5, warmup=1)
+    ms, = back_to_back_ms([lambda: persistent_sde_sweep(w, *args, **sw)],
+                          n=20, warmup=2)
+    print(f"[sde sweep] kernel {ms:.3f} ms per call back to back "
+          f"({ms / n:.4f} ms per step), one call {call:.3f} ms; plain "
+          f"{plain:.3f} ms")
+    res["persistent_sde_sweep"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+
+    # kernel 4's reservoir — the sample is the start of an accepted step.
+    # Without rejects, accept k decides on uniform k, so the uniforms alone
+    # name the step: the last k with u[k]·(k + 1) < 1. Each side is held to
+    # that step. The step times are not compared: at rtol 1e-4 the first
+    # step's error norm is f32 rounding noise, so the second step's dt
+    # differs between the kernel, the cuBLAS loop and a float64 loop
+    # (printed; the float64 loop shows the f32 times' spread is noise)
+    u = torch.rand(64, generator=torch.Generator().manual_seed(3)).to(device)
+    okw = dict(rtol=1e-4, atol=1e-4, max_steps=64, record_knots=True)
+    picks = []
+    for name, solve, dtype in (
+            ("kernel", persistent_tsit5_solve, torch.float32),
+            ("loop", persistent_tsit5_solve_plain, torch.float32),
+            ("float64 loop", persistent_tsit5_solve_plain, torch.float64)):
+        o = solve(type(ode_w)(*(t.to(dtype) for t in ode_w)), ode_x.to(dtype),
+                  (0.0, 1.0), saveat_arr=torch.ones(1, dtype=dtype,
+                                                    device=device),
+                  reservoir=u.to(dtype), **okw)
+        n, nrej = int(o["naccept"]), int(o["nreject"])
+        kts = o["knot_ts"][: n + 1]
+        res_t = o["reservoir_t"].to(kts.dtype)  # the loop records f32 times
+        j = int(torch.argmin((kts[:n] - res_t).abs()))
+        check(float(kts[j]) == float(res_t) < 1.0
+              and torch.equal(o["knot_us"][j], o["reservoir_u"]),
+              f"reservoir ({name}): not the start of an accepted step")
+        k = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+        want = int(torch.nonzero(u[:n] * k < 1.0).max())
+        check(nrej > 0 or j == want,
+              f"reservoir ({name}): step {j}, the uniforms pick {want}")
+        picks.append((n, nrej, j))
+        print(f"[reservoir] {name}: step {j} of {n} accepts, {nrej} rejects "
+              f"(the uniforms pick {want} without rejects); knot times "
+              f"{[round(float(v), 6) for v in kts]}")
+    if picks[0][:2] == picks[1][:2]:
+        check(picks[0][2] == picks[1][2], f"reservoir picks differ: {picks}")
+    okw.update(saveat_arr=torch.ones(1, device=device), reservoir=u)
+    bare = dict(okw, reservoir=None)
+    with_res, without = back_to_back_ms(
+        [lambda: persistent_tsit5_solve(ode_w, ode_x, (0.0, 1.0), **okw),
+         lambda: persistent_tsit5_solve(ode_w, ode_x, (0.0, 1.0), **bare)],
+        n=20, warmup=2)
+    print(f"[reservoir] kernel 4 recording at rtol 1e-4: {with_res:.3f} ms per "
+          f"call with the reservoir, {without:.3f} ms without")
+    return res
+
+
+def phase_sde_serving(device):
+    """The MNIST-SDE serving path: three eval batches through
+    make_eval_step, with launch counts; logits against the plain path."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import make_eval_step
+    from localregneuralde_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts,
+    )
+
+    batches = _mnist_batches(device, N_BATCHES)
+    model, loss_fn, ts, w_reg = _sde_model(device)
+    # the loss logs the drift NFE in both slots (the reference's quirk), so
+    # the diffusion NFE is read from the layer's own state
+    layer = []
+
+    def loss_reading_layer(*args, **kw):
+        loss, st_, stats = loss_fn(*args, **kw)
+        layer.append(st_["neural_dsde"])
+        return loss, st_, stats
+
+    step = make_eval_step(model, loss_reading_layer)
+    step(ts, batches[0], w_reg(1))  # first-call set-up
+    torch.cuda.synchronize()
+    ts.state = model.init_state()
+    layer.clear()
+
+    # --- the main path: every launch from here to launch_counts() counts
+    reset_launch_counts()
+    results = []
+    for i, data in enumerate(batches):
+        t0 = time.perf_counter()
+        loss, stats = step(ts, data, w_reg(1))
+        torch.cuda.synchronize()
+        results.append((loss, stats, 1e3 * (time.perf_counter() - t0)))
+    counts = launch_counts()
+    for i, ((loss, stats, ms), st) in enumerate(zip(results, layer)):
+        nfe, nfe_g = int(st["nfe_drift"]), int(st["nfe_diffusion"])
+        ok = bool(stats["solver_success"])
+        print(f"[sde serve] batch {i}: loss {float(loss):.6f} nfe drift "
+              f"{nfe} diffusion {nfe_g} success {ok} {ms:.3f} ms "
+              f"{B / (ms / 1e3):.1f} images/s")
+        check(ok and bool(torch.isfinite(loss))
+              and tuple(stats["y_pred"].shape) == (B, 10)
+              and bool(torch.isfinite(stats["y_pred"]).all())
+              and int(stats["nfe"][0]) == nfe and nfe_g == nfe - 1,
+              f"sde serve batch {i}: bad output")
+    print(f"[sde serve] launch counts {counts}")
+    check(counts["persistent_sde_solve"] == N_BATCHES
+          and sum(counts.values()) == N_BATCHES,
+          "the SDE kernel did not run once per batch, alone")
+
+    # the first batch again on the plain path (same seed, same noise), and
+    # 8 images on the card against the CPU
+    sd = model.state_dict()
+    plain = _sde_model(device, ["--model.use_pallas=off"], sd)
+    ours = make_eval_step(model, loss_fn)(_fresh(ts, model), batches[0],
+                                          w_reg(1))[1]
+    ref = make_eval_step(plain[0], plain[1])(plain[2], batches[0], w_reg(1))[1]
+    err = max_abs(ours["y_pred"], ref["y_pred"])
+    same_path = int(ours["nfe"][0]) == int(ref["nfe"][0])
+    print(f"[sde serve] batch 0 logits vs the plain path max-abs {err:.3e}, "
+          f"nfe {int(ours['nfe'][0])} vs {int(ref['nfe'][0])}")
+    check(err <= (1e-3 if same_path else 5e-2),
+          f"sde serve: logits disagree with the plain path: {err}")
+    cpu = _sde_model("cpu", [], {k: v.cpu() for k, v in sd.items()})
+    xs, ys = batches[0][0][:8], batches[0][1][:8]
+    on_card = make_eval_step(model, loss_fn)(_fresh(ts, model), (xs, ys),
+                                             w_reg(1))[1]
+    on_cpu = make_eval_step(cpu[0], cpu[1])(cpu[2], (xs.cpu(), ys.cpu()),
+                                            w_reg(1))[1]
+    err = max_abs(on_card["y_pred"].cpu(), on_cpu["y_pred"])
+    print(f"[sde serve] 8 images, card kernel vs CPU plain: logits max-abs "
+          f"{err:.3e}, nfe {int(on_card['nfe'][0])} vs "
+          f"{int(on_cpu['nfe'][0])}")
+    check(err <= 5e-2, "sde serve: card disagrees with the CPU")
+    return counts
+
+
+def _fresh(ts, model):
+    """``ts`` with the layer state (and its generator) of a new model."""
+    import dataclasses
+
+    return dataclasses.replace(ts, state=model.init_state())
+
+
+def phase_sde_train(device, profile=False):
+    """Five train steps each with the unbiased and the biased regulariser,
+    with launches per step, and the first step's gradients against the
+    plain path."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import warmup_model
+    from localregneuralde_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts,
+    )
+
+    batches = _mnist_batches(device, TRAIN_STEPS, train=True)
+    runs = []
+    for mode in ("unbiased", "biased"):
+        model, loss_fn, step, ts, w_reg, sched = _train_setup(
+            [], device, regularize=mode, config=SDE_CONFIG)
+        params0 = {k: v.detach().clone() for k, v in ts.params.items()}
+        warmup_model(step, None, ts, batches[0], w_reg(1), sched(1))
+        runs.append((mode, model, loss_fn, step, ts, w_reg, sched, params0))
+    torch.cuda.synchronize()
+
+    # --- the training path: every launch from here to launch_counts() counts
+    reset_launch_counts()
+    for mode, model, loss_fn, step, ts, w_reg, sched, _ in runs:
+        for i, data in enumerate(batches):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            ts, loss, stats = step(ts, data, w_reg(i + 1), sched(i + 1))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            after = launch_counts()
+            c = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            nfe = int(stats["nfe"][0])
+            reg = float(stats["reg_val"])
+            print(f"[sde train {mode}] step {i}: loss {float(loss):.6f} "
+                  f"reg_val {reg:.6e} nfe drift {nfe} success "
+                  f"{bool(stats['solver_success'])} {ms:.3f} ms | launches "
+                  f"{c} (the sweep's call includes its partials' sum)")
+            check(bool(torch.isfinite(loss)) and 0 < reg < float("inf")
+                  and bool(stats["solver_success"]),
+                  f"sde train {mode} step {i}: bad output")
+            check(c == {"persistent_sde_solve": 1, "persistent_sde_sweep": 1},
+                  f"sde train {mode} step {i}: launches {c}")
+    counts = launch_counts()
+    print(f"[sde train] launch counts {counts}")
+
+    # the first step's cross-entropy gradients against the plain path on
+    # the card: the same seed gives the same Brownian path
+    for mode, model, loss_fn, _, _, w_reg, _, params0 in runs:
+        plain = _train_setup(["--model.use_pallas=off"], device,
+                             model.state_dict(), regularize=mode,
+                             config=SDE_CONFIG)
+        _, s_o, g_o = _grads(model, loss_fn, params0, batches[0], 0.0)
+        _, s_r, g_r = _grads(plain[0], plain[1], params0, batches[0], 0.0)
+        rel = max(rel_err(g_o[k], g_r[k]) for k in g_o)
+        same_path = int(s_o["nfe"][0]) == int(s_r["nfe"][0])
+        print(f"[sde train {mode}] first step vs the card's plain path: NFE "
+              f"{int(s_o['nfe'][0])} vs {int(s_r['nfe'][0])}, cross-entropy "
+              f"{float(s_o['ce_loss'].detach()):.6f} vs "
+              f"{float(s_r['ce_loss'].detach()):.6f}, "
+              f"reg_val {float(s_o['reg_val'].detach()):.6e} vs "
+              f"{float(s_r['reg_val'].detach()):.6e}; cross-entropy gradients "
+              f"relative max-abs {rel:.3e}")
+        # the same accepts give the same path up to the error norm's
+        # summation order (measured 5.5e-7); an accept flip moves it more
+        check(rel <= (1e-3 if same_path else 5e-2),
+              f"sde train {mode}: gradients disagree with plain: {rel}")
+    if profile:
+        _profile_train([(r[0], None, None, None, r[3], r[4], r[5], r[6], None)
+                        for r in runs], batches)
+    return counts
+
+
+def phase_ode_biased(device):
+    """One biased training step of the ODE at rtol 1e-4: the persistent
+    solve with the reservoir, the sweep, and the regulariser's step."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts,
+    )
+
+    batches = _mnist_batches(device, 1, train=True)
+    model, loss_fn, step, ts, w_reg, sched = _train_setup(
+        BENCH, device, regularize="biased")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ts, loss, stats = step(ts, batches[0], w_reg(1), sched(1))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = launch_counts()
+    reg = float(stats["reg_val"])
+    print(f"[ode biased] loss {float(loss):.6f} reg_val {reg:.6e} nfe "
+          f"{int(stats['nfe'])} {ms:.3f} ms (first call) | launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    want = {"persistent_tsit5_solve": 1, "tsit5_step": 1, "tsit5_step_bwd": 1,
+            "persistent_stored_sweep": 1, "tdmlp": 4}
+    check(bool(torch.isfinite(loss)) and 0 < reg < float("inf")
+          and all(counts[k] == v for k, v in want.items())
+          and sum(counts.values()) == sum(want.values()),
+          f"ode biased step: launches {counts}, reg_val {reg}")
+    return counts
+
+
 def main():
     import torch
 
@@ -739,15 +1150,20 @@ def main():
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    profile = "--profile" in sys.argv[1:]
 
     phase_build()
     w, x, res = phase_kernels(device)
     phase_determinism(w, x)
-    serve_counts = phase_slice(device)
+    path_counts = [phase_slice(device)]
     res.update(phase_backward_kernels(device, w, x))
-    train_counts = phase_train(device, profile="--profile" in sys.argv[1:])
+    path_counts.append(phase_train(device, profile=profile))
+    res.update(phase_sde_kernels(device, w, x))
+    path_counts.append(phase_sde_serving(device))
+    path_counts.append(phase_sde_train(device, profile=profile))
+    path_counts.append(phase_ode_biased(device))
     # each path's launches were counted from zero just before it ran
-    counts = {k: serve_counts[k] + train_counts[k] for k in train_counts}
+    counts = {k: sum(c[k] for c in path_counts) for k in path_counts[0]}
     check(all(v > 0 for v in counts.values()),
           f"a kernel was never launched on the main paths: {counts}")
 
@@ -768,6 +1184,12 @@ def main():
         "persistent_two_level_sweep": (
             "localregneuralde_tpu_torch/csrc/adjoint_sweep.cu",
             "localregneuralde_tpu/ops/pallas/fused_solve_bwd.py:783"),
+        "persistent_sde_solve": (
+            "localregneuralde_tpu_torch/csrc/sde_solve.cu",
+            "localregneuralde_tpu/ops/pallas/fused_sde_solve.py:251"),
+        "persistent_sde_sweep": (
+            "localregneuralde_tpu_torch/csrc/sde_sweep.cu",
+            "localregneuralde_tpu/ops/pallas/fused_sde_sweep.py:68"),
     }
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -1,6 +1,6 @@
 // Kernel 4: the whole adaptive Tsit5 solve of the TD-MLP dynamics in one
 // cooperative launch, with the knot and checkpoint recording of the stored
-// adjoint (no reservoir sample yet).
+// adjoint and the reservoir sample of the biased regulariser.
 //
 // Replaces localregneuralde_tpu/ops/pallas/fused_solve.py::_make_kernel
 // (family ("tdmlp",), built by _build_call and called from
@@ -28,6 +28,12 @@
 // only copies committed values, so it changes no accept decision, and with
 // n_dense = n_ckpt = 0 the kernel runs exactly the eval solve.
 //
+// Reservoir (rand not null): an accepted attempt number natt replaces the
+// sample with its step-start (t, u) when rand[natt]·(naccept + 1) < 1, the
+// uniforms drawn in advance by the caller (fused_solve.py:424-432 of the
+// reference). The decision is grid-uniform, so each CTA copies its own rows
+// before the commit.
+//
 // What bounds it: per attempt, six TD-MLP evaluations (see tdmlp.cuh) plus
 // one grid barrier. Measured on an H100 at B = 512, an attempt takes 0.21 ms,
 // the time of one launch of the step kernel (six 35 µs evaluations), so the
@@ -47,7 +53,7 @@ struct SolveArgs {
   float* u;             // (B, F) working state; y_final on exit
   float* ys;            // (n_save, B, F)
   int* stats_i;         // naccept, nreject, done, natt
-  float* stats_f;       // t_final
+  float* stats_f;       // t_final, reservoir_t
   float* scratch;       // 8 (B, F) buffers: k1, k2..k7, u_new
   float* slots;         // (2, n_blocks) row-block error partials
   unsigned int* barrier;  // arrival counter, zero at launch
@@ -67,12 +73,14 @@ struct SolveArgs {
   float* ckpt_qolds;    // (n_ckpt)
   int n_ckpt;
   int stride;
+  const float* rand;    // (max_steps) reservoir uniforms, or null
+  float* res_u;         // (B, F) reservoir sample, or null
 };
 
 struct Ctl {
-  float t, dt, qold;
+  float t, dt, qold, res_t;
   AttemptPlan plan;
-  int accept, done, natt, nacc, nrej;
+  int accept, take, done, natt, nacc, nrej;
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -95,6 +103,7 @@ persistent_tsit5_kernel(SolveArgs a) {
       bufs.k[off + i] = a.k10[off + i];
       for (int s = 0; s < a.n_save; ++s) a.ys[s * BF + off + i] = v;
       if (a.n_dense > 0) a.knot_us[off + i] = v;
+      if (a.res_u != nullptr) a.res_u[off + i] = v;
       if (a.n_ckpt > 0) {
         a.ckpt_us[off + i] = v;
         a.ckpt_ks[off + i] = a.k10[off + i];
@@ -114,6 +123,7 @@ persistent_tsit5_kernel(SolveArgs a) {
     ctl.t = a.sc[0];
     ctl.dt = a.sc[2];
     ctl.qold = kQoldInit;
+    ctl.res_t = ctl.t;
     ctl.done = ctl.t >= t_end;
     ctl.natt = ctl.nacc = ctl.nrej = 0;
   }
@@ -151,7 +161,10 @@ persistent_tsit5_kernel(SolveArgs a) {
       float dt_acc, dt_rej, qold_acc;
       propose(eest, dt_c, ctl.qold, &dt_acc, &dt_rej, &qold_acc);
       ctl.accept = accept;
+      ctl.take = accept && a.rand != nullptr &&
+                 a.rand[ctl.natt] * static_cast<float>(ctl.nacc + 1) < 1.f;
       if (accept) {
+        if (ctl.take) ctl.res_t = t;
         ctl.t = t_new;
         ctl.dt = dt_acc;
         ctl.qold = qold_acc;
@@ -165,6 +178,7 @@ persistent_tsit5_kernel(SolveArgs a) {
     }
     __syncthreads();
     if (ctl.accept) {
+      if (ctl.take) copy_rows(a.res_u, a.u, B, F);
       commit_rows(bufs, F);
       const int cnt = ctl.nacc;
       if (cnt < a.n_dense) {
@@ -199,6 +213,7 @@ persistent_tsit5_kernel(SolveArgs a) {
     a.stats_i[2] = ctl.done;
     a.stats_i[3] = ctl.natt;
     a.stats_f[0] = ctl.t;
+    a.stats_f[1] = ctl.res_t;
   }
 }
 
@@ -207,7 +222,9 @@ persistent_tsit5_kernel(SolveArgs a) {
 // The whole adaptive solve from (u0, k1_0) with sc = (t0, t_end, dt0) on the
 // device. scratch holds 8·B·F floats, slots 2·ceil(B / kRows), barrier one
 // zeroed unsigned int. With n_dense > 0 it records knots, with n_ckpt > 0
-// checkpoints every `stride` accepts (null pointers otherwise). Fails with
+// checkpoints every `stride` accepts (null pointers otherwise). With rand
+// (max_steps uniforms) it keeps the reservoir sample in res_u (B, F) and
+// stats_f[1] (both null otherwise; stats_f holds 2 floats). Fails with
 // cudaErrorCooperativeLaunchTooLarge when not even one CTA fits on an SM.
 // Returns cudaGetLastError().
 extern "C" int lrnde_persistent_tsit5(
@@ -218,13 +235,14 @@ extern "C" int lrnde_persistent_tsit5(
     int max_steps, float rtol, float atol, float inv_n, float* knot_ts,
     float* knot_us, int n_dense, float* ckpt_ts, float* ckpt_us,
     float* ckpt_ks, float* ckpt_dts, float* ckpt_qolds, int n_ckpt,
-    int stride, void* stream) {
+    int stride, const float* rand, float* res_u, void* stream) {
   using namespace lrnde;
-  if (n_ckpt > 0 && stride < 1) return cudaErrorInvalidValue;
+  if ((n_ckpt > 0 && stride < 1) || (rand == nullptr) != (res_u == nullptr))
+    return cudaErrorInvalidValue;
   SolveArgs a{u0, k10, sc, saveat, n_save, TDMLP{w1, b1, w2, b2, F, H},
               u, ys, stats_i, stats_f, scratch, slots, barrier, B, max_steps,
               rtol, atol, inv_n, knot_ts, knot_us, n_dense, ckpt_ts, ckpt_us,
-              ckpt_ks, ckpt_dts, ckpt_qolds, n_ckpt, stride};
+              ckpt_ks, ckpt_dts, ckpt_qolds, n_ckpt, stride, rand, res_u};
   const size_t smem = smem_floats(F, H) * sizeof(float);
   static size_t granted = 0;
   cudaError_t err = allow_smem(persistent_tsit5_kernel, smem, &granted);

@@ -1,14 +1,14 @@
 """Factories: config → model, loss and optimizer (reference
 ``experiments/src/construct.jl``); counterpart of
-``localregneuralde_tpu/harness/construct.py`` for the MNIST MLP Neural ODE.
-The other model types come with later slices."""
+``localregneuralde_tpu/harness/construct.py`` for the MNIST MLP Neural ODE
+and the MNIST Neural SDE. The other model types come with later slices."""
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..models import NeuralODE, TDChain, diffeqsol_to_array
+from ..models import NeuralDSDE, NeuralODE, TDChain, diffeqsol_to_array
 from ..nn import Chain, Dense, Flatten, WrappedFunction
 from .config import ExperimentConfig
 from .losses import logitcrossentropy
@@ -27,13 +27,15 @@ def construct_model(cfg: ExperimentConfig, *, device=None,
     """Build the model of ``cfg`` with weights drawn from ``generator``
     (default: a CPU generator seeded with ``cfg.seed``), on ``device``."""
     m = cfg.model
-    if m.model_type != "mlp" or m.sde:
+    if m.model_type != "mlp":
         raise NotImplementedError(
-            f"model_type={m.model_type!r} sde={m.sde} is not ported yet; only "
-            "the MLP Neural ODE is (ROADMAP Queue 1 items 8-10)"
+            f"model_type={m.model_type!r} is not ported yet; only the MLP "
+            "Neural ODE and SDE are (ROADMAP Queue 1 items 9-10)"
         )
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
+    if m.sde:
+        return _construct_mlp_sde(cfg, device, generator)
     return _construct_mlp_ode(cfg, device, generator)
 
 
@@ -80,13 +82,40 @@ def _construct_mlp_ode(cfg: ExperimentConfig, device, generator):
     )
 
 
+def _construct_mlp_sde(cfg: ExperimentConfig, device, generator):
+    """Flatten → Dense(784 → 32) → NeuralDSDE(drift Chain(Dense(32 → 64,
+    tanh), Dense(64 → 32)), diffusion Dense(32 → 32)) → classifier
+    (reference ``construct.jl:202-210``)."""
+    m = cfg.model
+    s = m.solver
+    insize = m.image_size[0] * m.image_size[1] * m.in_channels
+    kw = dict(generator=generator, device=device)
+    drift = Chain(Dense(32, 64, "tanh", **kw), Dense(64, 32, **kw))
+    diffusion = Dense(32, 32 * (m.sde_noise_dims or 1), **kw)
+    return Chain(
+        flatten=Flatten(),
+        downsample=Dense(insize, 32, **kw),
+        neural_dsde=NeuralDSDE(
+            drift, diffusion, rtol=s.reltol, atol=s.abstol,
+            max_steps=s.max_steps, checkpoint_every=s.checkpoint_every,
+            regularize=m.regularize, adjoint=s.adjoint,
+            precision=s.precision, grad_precision=s.grad_precision,
+            solver=m.sde_solver, noise_dims=m.sde_noise_dims or None,
+            use_pallas=m.use_pallas, use_persistent=s.use_persistent,
+            rng_seed=cfg.seed,
+        ),
+        sol_to_arr=WrappedFunction(diffeqsol_to_array),
+        classifier=Dense(32, m.num_classes, **kw),
+    )
+
+
 def construct_loss(cfg: ExperimentConfig) -> Tuple[Callable, object]:
     """Return ``(loss_fn, w_reg_schedule)`` for classification (reference
     ``construct.jl:78-102``)."""
-    if cfg.model.model_type != "mlp" or cfg.model.sde:
+    if cfg.model.model_type != "mlp":
         raise NotImplementedError(
-            f"the loss of model_type={cfg.model.model_type!r} "
-            f"sde={cfg.model.sde} is not ported yet"
+            f"the loss of model_type={cfg.model.model_type!r} is not ported "
+            "yet"
         )
     if cfg.loss.w_reg_decay == "exponential":
         w_reg = ExponentialDecay(
@@ -99,6 +128,7 @@ def construct_loss(cfg: ExperimentConfig) -> Tuple[Callable, object]:
 
 def _classification_loss(cfg: ExperimentConfig):
     regularized = cfg.model.regularize != "none"
+    sde = cfg.model.sde
 
     def loss_fn(model, params, state, data, w_reg, *, training=True):
         x, y = data
@@ -106,12 +136,19 @@ def _classification_loss(cfg: ExperimentConfig):
             model, params, (x, state), {"training": training}
         )
         ce_loss = logitcrossentropy(y_pred, y)
-        node_st = st_["neural_ode"]
+        if sde:
+            node_st = st_["neural_dsde"]
+            # as-is reference quirk (construct.jl:9,24): the logged
+            # diffusion NFE mirrors the drift NFE
+            nfe = (node_st["nfe_drift"], node_st["nfe_drift"])
+        else:
+            node_st = st_["neural_ode"]
+            nfe = node_st["nfe"]
         reg_val = node_st["reg_val"] if regularized else torch.zeros((), device=x.device)
         loss = ce_loss + w_reg * reg_val if regularized else ce_loss
         stats = {
             "y_pred": y_pred,
-            "nfe": node_st["nfe"],
+            "nfe": nfe,
             "ce_loss": ce_loss,
             "reg_val": reg_val,
             "solver_success": node_st["success"],

@@ -13,8 +13,10 @@ keys; ``rng`` is a ``torch.Generator`` where the reference keeps a JAX key.
   error (or stiffness) estimate is ``reg_val``; u(t1), t1, the step's k1
   and dt are all detached, so the regulariser's gradient reaches the
   parameters only, never the layer input. NFE is the solve's + 8 (six
-  stages, k1 and the dt probe). The biased mode, whose t1 is a reservoir
-  sample of the accepted steps, is not ported yet.
+  stages, k1 and the dt probe). With ``regularize='biased'`` the point
+  ``(t1, u(t1))`` is instead a reservoir sample of the accepted steps'
+  starting points (so never t_end), kept by the solve from ``max_steps``
+  uniforms drawn in advance from ``rng``.
 
 Kernel dispatch (``use_pallas``, the reference's config name): when the
 dynamics is a ``TDChain`` of two Dense layers, ``'on'`` routes the solve
@@ -44,7 +46,7 @@ import torch
 from ..nn.basic import Dense, resolve_solver_precision
 from ..nn.module import Module
 from ..ode.controller import initial_step_size
-from ..ode.solve import ODESolution, device_scalar, odesolve
+from ..ode.solve import ODESolution, device_scalar, host_to_device, odesolve
 from ..ode.step import Tsit5StepResult, regularization_value, tsit5_step
 from ..core.containers import ArrayAndTime, get_array
 from .common import TDChain
@@ -58,6 +60,12 @@ def sample_t1(generator: torch.Generator, t0: float, t2: float) -> float:
     """The unbiased regulariser's time, t1 ~ U(t0, t2), from the layer's
     CPU generator (so drawing it never waits for the device)."""
     return t0 + (t2 - t0) * float(torch.rand((), generator=generator))
+
+
+def sample_reservoir_uniforms(generator: torch.Generator, n: int):
+    """The biased regulariser's uniforms, one per attempt of the solve,
+    from the layer's CPU generator."""
+    return torch.rand(n, generator=generator)
 
 
 def is_tdmlp(model) -> bool:
@@ -292,12 +300,6 @@ class NeuralODE(Module):
                 f"training with adjoint={self.adjoint!r} is not ported yet: "
                 "only the stored adjoint is (ROADMAP Queue 1 item 11)"
             )
-        if self.regularize == "biased":
-            raise NotImplementedError(
-                "the biased regulariser (reservoir sample of the accepted "
-                "steps) is not ported yet: it is the next slice, ROADMAP "
-                "Queue 1 item 6 and Queue 2 item 4"
-            )
         t0, t2 = self.tspan
         kernels = self.uses_kernels(x)
         names, params = zip(*self.model.named_parameters())
@@ -307,24 +309,31 @@ class NeuralODE(Module):
             else device_scalar(t2, x).reshape(1)
         )
         unbiased = self.regularize == "unbiased"
-        saveat = user_saveat
+        saveat, reservoir = user_saveat, None
         if unbiased:
             t1 = sample_t1(state["rng"], t0, t2)
             saveat = torch.cat([user_saveat, device_scalar(t1, x).reshape(1)])
+        elif self.regularize == "biased":
+            reservoir = host_to_device(
+                sample_reservoir_uniforms(state["rng"], self.max_steps), x)
         sol = odesolve(
             kw.pop("f"), x, self.tspan, rtol=self.rtol, atol=self.atol,
             saveat=saveat, max_steps=self.max_steps, adjoint="stored",
-            params=list(params), knot_window=self.knot_window, **kw,
+            params=list(params), knot_window=self.knot_window,
+            reservoir=reservoir, **kw,
         )
         new_state = dict(state)
         new_state.update(model=state["model"], nfe=sol.nfe,
                          reg_val=torch.zeros((), device=x.device),
                          success=sol.success)
-        if not unbiased:
+        if self.regularize == "none":
             return sol, new_state
-        u1 = sol.ys[-1].detach()
-        sol = dataclasses.replace(sol, ys=sol.ys[:-1], ts=user_saveat)
-        step, dt_r = self._reg_step(x, u1, device_scalar(t1, x), kernels)
+        if unbiased:
+            u1, t1 = sol.ys[-1].detach(), device_scalar(t1, x)
+            sol = dataclasses.replace(sol, ys=sol.ys[:-1], ts=user_saveat)
+        else:
+            u1, t1 = sol.reservoir_u.detach(), sol.reservoir_t.detach()
+        step, dt_r = self._reg_step(x, u1, t1, kernels)
         new_state.update(
             reg_val=regularization_value(self.regularize_type, step, u1,
                                          dt_r, self.atol, self.rtol),
@@ -367,5 +376,6 @@ def _solution(out, f_state) -> ODESolution:
         ts=out["ts"], ys=out["ys"], t_final=out["t_final"],
         y_final=out["y_final"], nfe=out["nfe"], naccept=out["naccept"],
         nreject=out["nreject"], success=out["success"], f_state=f_state,
-        **{k: out[k] for k in out if k.startswith(("knot_", "ckpt_"))},
+        **{k: out[k] for k in out
+           if k.startswith(("knot_", "ckpt_", "reservoir_"))},
     )

@@ -1,0 +1,332 @@
+"""NeuralDSDE — the locally regularised neural SDE layer (drift + diagonal
+diffusion).
+
+Counterpart of ``localregneuralde_tpu/models/neural_sde.py`` (reference
+``src/layers/neural_sde.jl``). The layer returns the state ``{"drift",
+"diffusion", "nfe_drift", "nfe_diffusion", "reg_val", "rng", "success"}``
+under the reference's keys, NFE counted per closure; ``rng`` is a
+``torch.Generator`` where the reference keeps a JAX key. The solver is
+``'sosri'`` (default) or ``'sri'``; Milstein, Lamba–Euler–Heun and
+non-diagonal noise (``noise_dims``) are not ported yet and raise.
+
+- Every call draws the noise seed of its Brownian tree from ``rng``
+  (``sample_noise_seed``); the tree's normals come from ``noise_source``,
+  the counter-based Philox source by default.
+- Eval mode solves with adjoint ``'none'`` and no regulariser.
+- Training solves with the stored adjoint (``sde/stored_adjoint.py``).
+  ``regularize='unbiased'`` draws t1 ~ U(t0, t2), appends it to the saveat
+  grid and strips it from the outputs; ``'biased'`` takes ``(t1, u(t1))``
+  from a reservoir sample of the accepted steps' starting points (never
+  t_end), from ``max_steps`` uniforms drawn in advance. Either way one more
+  SRI step from the fenced ``(u(t1), t1)`` — dt from the drift-magnitude
+  heuristic under ``no_grad``, fresh ``dW, dZ ~ N(0, dt)`` from ``rng`` — is
+  taken through autograd, and ``reg_val = eest · dt``; its gradient reaches
+  the parameters only. NFE adds 4 + 1 drift (the stages and the dt probe)
+  and 4 diffusion evaluations.
+
+Kernel dispatch (``use_pallas``): for the kernel family of the reference's
+MNIST SDE (``_is_fused_family``: drift ``Chain(Dense(F, H, tanh), Dense(H,
+F))``, diffusion ``Dense(F, F)``), ``'on'`` routes the solves through the
+fused wrappers and ``'auto'`` does so for CUDA inputs, when
+``use_persistent`` is set: the forward is one launch of the persistent SDE
+solve (``ops/cuda/fused_sde_solve.py``), the backward one launch of the
+sweep (``ops/cuda/fused_sde_sweep.py``). The wrappers run their plain
+versions on CPU tensors. Otherwise the eager loop runs the drift and
+diffusion modules. The regulariser's step is plain PyTorch on either route,
+as the reference leaves it to XLA.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Optional, Union
+
+import dataclasses
+
+import torch
+
+from ..nn.basic import _ACTIVATIONS, Chain, Dense, resolve_solver_precision
+from ..nn.module import Module
+from ..ode.solve import device_scalar, host_to_device
+from ..ops.residuals import internal_norm
+from ..sde.brownian import PhiloxNormals
+from ..sde.solve import SDESolution, check_solver, sdesolve, solution_from
+from ..sde.step import sri_step
+from ..sde.tableaus import get_sri_tableau
+from .neural_ode import sample_reservoir_uniforms, sample_t1
+
+_VALID_REGULARIZE = ("none", "unbiased", "biased")
+_VALID_USE_PALLAS = ("auto", "on", "off")
+
+
+def sample_noise_seed(generator: torch.Generator) -> int:
+    """The 32-bit seed of a solve's Brownian tree, from the layer's CPU
+    generator."""
+    return int(torch.randint(0, 2 ** 32, (), generator=generator))
+
+
+def noise_source(seed: int, x: torch.Tensor):
+    """The normal source of the tree of a solve from ``x``."""
+    return PhiloxNormals(seed, x.shape[0], x.shape[-1], device=x.device)
+
+
+def sample_reg_noise(generator: torch.Generator, shape) -> torch.Tensor:
+    """Standard normals ``(2, *shape)`` for the regulariser's step; scaled
+    by √dt they are its ``(dW, dZ)``."""
+    return torch.randn((2,) + tuple(shape), generator=generator)
+
+
+def _identity(layer) -> bool:
+    return any(layer.activation is _ACTIVATIONS[k] for k in (None, "identity"))
+
+
+def is_sde_family(drift, diffusion) -> bool:
+    """True for drift ``Chain(Dense(F, H, tanh), Dense(H, F))`` and
+    diffusion ``Dense(F, F)``, all with biases: the SDE kernels' family.
+    The activations are checked by identity, since the parameter shapes
+    cannot tell them apart."""
+    layers = list(getattr(drift, "layers", {}).values())
+    if not (isinstance(drift, Chain) and len(layers) == 2):
+        return False
+    l0, l1 = layers
+    if not all(isinstance(x, Dense) and x.use_bias for x in (l0, l1, diffusion)):
+        return False
+    F = l0.in_dim
+    return (l0.activation is torch.tanh and _identity(l1) and _identity(diffusion)
+            and l1.in_dim == l0.out_dim and l1.out_dim == F
+            and diffusion.in_dim == F and diffusion.out_dim == F)
+
+
+class NeuralDSDE(Module):
+    def __init__(
+        self,
+        drift: Module,
+        diffusion: Module,
+        *,
+        tspan=(0.0, 1.0),
+        regularize: Union[bool, str] = "unbiased",
+        rtol: float = 1e-2,
+        atol: float = 1e-2,
+        max_steps: int = 256,
+        checkpoint_every: int = 16,
+        saveat=None,
+        adjoint: str = "stored",
+        solver: str = "sosri",
+        delta: float = 1 / 6,
+        noise_dims: Optional[int] = None,
+        precision: str = "auto",
+        grad_precision: str = "match",
+        use_pallas: Union[bool, str] = "auto",
+        use_persistent: bool = True,
+        rng_seed: int = 0,
+    ):
+        super().__init__()
+        if isinstance(regularize, bool):
+            regularize = "unbiased" if regularize else "none"
+        if regularize not in _VALID_REGULARIZE:
+            raise ValueError(f"regularize must be one of {_VALID_REGULARIZE}")
+        check_solver(solver)
+        if noise_dims is not None:
+            raise NotImplementedError(
+                "non-diagonal noise (noise_dims) needs the commutative "
+                "Milstein step, which is not ported yet (ROADMAP Queue 1, "
+                "the SDE items left)"
+            )
+        if grad_precision not in ("match", "default"):
+            raise ValueError(
+                f"grad_precision must be 'match' or 'default', got "
+                f"{grad_precision!r}"
+            )
+        if isinstance(use_pallas, bool):
+            use_pallas = "on" if use_pallas else "off"
+        if use_pallas not in _VALID_USE_PALLAS:
+            raise ValueError(f"use_pallas must be one of {_VALID_USE_PALLAS}")
+        if use_pallas == "on" and not is_sde_family(drift, diffusion):
+            raise ValueError(
+                "use_pallas='on' requires drift Chain(Dense(F, H, tanh), "
+                "Dense(H, F)) and diffusion Dense(F, F) (the SDE kernels' "
+                "family)"
+            )
+        self.drift = drift
+        self.diffusion = diffusion
+        self.tspan = (float(tspan[0]), float(tspan[1]))
+        self.regularize = regularize
+        self.rtol = float(rtol)
+        self.atol = float(atol)
+        self.max_steps = int(max_steps)
+        self.checkpoint_every = int(checkpoint_every)
+        self.saveat = None if saveat is None else torch.as_tensor(
+            saveat, dtype=torch.float32
+        )
+        self.adjoint = adjoint
+        self.solver = solver
+        self.delta = float(delta)
+        self.use_pallas = use_pallas if is_sde_family(drift, diffusion) else "off"
+        self.use_persistent = bool(use_persistent)
+        self.rng_seed = int(rng_seed)
+        # recorded for parity with the reference; every tier is FP32 here
+        self.mm_precision = resolve_solver_precision(precision, self.rtol)
+        if grad_precision == "default" and self.mm_precision is not None:
+            warnings.warn(
+                "solver.grad_precision='default' has no effect on the "
+                "NeuralDSDE family: its backward recomputes the stages at "
+                f"the forward's matmul precision ({self.mm_precision!r}).",
+                stacklevel=2,
+            )
+
+    def init_state(self) -> dict:
+        return {
+            "drift": self.drift.init_state(),
+            "diffusion": self.diffusion.init_state(),
+            "nfe_drift": torch.tensor(-1, dtype=torch.int32),
+            "nfe_diffusion": torch.tensor(-1, dtype=torch.int32),
+            "reg_val": torch.tensor(0.0),
+            "rng": torch.Generator().manual_seed(self.rng_seed),
+            "success": torch.tensor(True),
+        }
+
+    def uses_kernels(self, x: torch.Tensor) -> bool:
+        """Whether a solve from ``x`` goes through the persistent SDE
+        kernels."""
+        if not self.use_persistent:
+            return False
+        return self.use_pallas == "on" or (self.use_pallas == "auto"
+                                           and x.is_cuda)
+
+    def _params(self):
+        return (list(self.drift.named_parameters()),
+                list(self.diffusion.named_parameters()))
+
+    def _dynamics(self):
+        """``f(u, t, params)`` and ``g(u, t, params)`` of the modules, with
+        the drift's parameters first in ``params``."""
+        d_params, g_params = self._params()
+        dn, gn = [n for n, _ in d_params], [n for n, _ in g_params]
+        n_d = len(dn)
+
+        def call(module, names, params, u, t):
+            y, _ = torch.func.functional_call(
+                module, dict(zip(names, params)), (u, module.init_state()))
+            return y
+
+        def f(u, t, params):
+            return call(self.drift, dn, params[:n_d], u, t)
+
+        def g(u, t, params):
+            return call(self.diffusion, gn, params[n_d:], u, t)
+
+        return f, g
+
+    def _kernel_fns(self):
+        """The kernel route's replacements: the persistent solve and its
+        sweep."""
+        from ..ops.cuda import SDEWeights, persistent_sde_solve, persistent_sde_sweep
+
+        def persistent_fn(u0, params, tspan, *, saveat_arr, **kw):
+            out = persistent_sde_solve(SDEWeights(*params), u0.contiguous(),
+                                       tspan, saveat_arr=saveat_arr, **kw)
+            return solution_from(out, saveat_arr)
+
+        def sweep_fn(params, knot_ts, knot_us, knot_dws, knot_dzs, naccept,
+                     saveat_arr, ct_ys, ct_y):
+            a_u, d_w = persistent_sde_sweep(
+                SDEWeights(*params), knot_ts, knot_us, knot_dws, knot_dzs,
+                naccept, saveat_arr, ct_ys, ct_y, solver=self.solver,
+                delta=self.delta)
+            return a_u, list(d_w)
+
+        return persistent_fn, sweep_fn
+
+    def apply_layer(self, x, state, *, training: bool = False):
+        t0, t2 = self.tspan
+        gen = state["rng"]
+        noise = noise_source(sample_noise_seed(gen), x)
+        params = [p for _, p in self._params()[0] + self._params()[1]]
+        # on the kernel route the replacements run the whole solve and
+        # sweep, and the modules' dynamics are never called
+        f, g = self._dynamics()
+        persistent_fn, sweep_fn = (self._kernel_fns() if self.uses_kernels(x)
+                                   else (None, None))
+        common = dict(noise=noise, rtol=self.rtol, atol=self.atol,
+                      solver=self.solver, delta=self.delta,
+                      max_steps=self.max_steps)
+        saveat = None if self.saveat is None else self.saveat.to(x.device)
+        mode = self.regularize if training else "none"
+        if not training:
+            with torch.no_grad():
+                sol = sdesolve(
+                    lambda u, t: f(u, t, params), lambda u, t: g(u, t, params),
+                    x, self.tspan, saveat=saveat, adjoint="none",
+                    persistent_fn=None if persistent_fn is None else (
+                        lambda u0, tspan, **kw: persistent_fn(u0, params,
+                                                              tspan, **kw)),
+                    **common,
+                )
+            return sol, self._new_state(state, sol, x)
+        if self.adjoint != "stored":
+            raise NotImplementedError(
+                f"training with adjoint={self.adjoint!r} is not ported yet: "
+                "only the stored adjoint is (ROADMAP Queue 1 item 11)"
+            )
+        user_saveat = (saveat if saveat is not None
+                       else device_scalar(t2, x).reshape(1))
+        reservoir = None
+        solve_saveat = user_saveat
+        if mode == "unbiased":
+            t1 = sample_t1(gen, t0, t2)
+            solve_saveat = torch.cat([user_saveat,
+                                      device_scalar(t1, x).reshape(1)])
+        elif mode == "biased":
+            reservoir = host_to_device(
+                sample_reservoir_uniforms(gen, self.max_steps), x)
+        sol = sdesolve(
+            f, g, x, self.tspan, saveat=solve_saveat, adjoint="stored",
+            params=params, persistent_fn=persistent_fn, sweep_fn=sweep_fn,
+            reservoir=reservoir, **common,
+        )
+        if mode == "none":
+            return sol, self._new_state(state, sol, x)
+        if mode == "unbiased":
+            u1, t1 = sol.ys[-1].detach(), device_scalar(t1, x)
+            sol = dataclasses.replace(sol, ys=sol.ys[:-1], ts=user_saveat)
+        else:
+            u1, t1 = sol.reservoir_u.detach(), sol.reservoir_t.detach()
+        reg_val = self._reg_value(u1, t1, gen, x)
+        new_state = self._new_state(state, sol, x)
+        new_state.update(
+            nfe_drift=sol.nfe_drift + 4 + 1,  # the step's stages, the dt probe
+            nfe_diffusion=sol.nfe_diffusion + 4,
+            reg_val=reg_val,
+        )
+        return sol, new_state
+
+    def _reg_value(self, u1, t1, gen, x):
+        """``eest · dt`` of one SRI step from the fenced ``(u1, t1)`` with
+        fresh noise, differentiable in the parameters only."""
+        t2 = self.tspan[1]
+
+        def f(u, t):
+            return self.drift(u, self.drift.init_state())[0]
+
+        def g(u, t):
+            return self.diffusion(u, self.diffusion.init_state())[0]
+
+        with torch.no_grad():
+            f0 = f(u1, t1)
+            sc = self.atol + torch.abs(u1) * self.rtol
+            d0, d1 = internal_norm(u1 / sc), internal_norm(f0 / sc)
+            dt = torch.where((d0 < 1e-5) | (d1 < 1e-5), 1e-6,
+                             0.01 * d0 / torch.where(d1 == 0, 1.0, d1))
+            dt = torch.minimum(dt, device_scalar(t2, x) - t1)
+        z = host_to_device(sample_reg_noise(gen, u1.shape), x)
+        sqdt = torch.sqrt(dt)
+        step = sri_step(f, g, u1, t1, dt, z[0] * sqdt, z[1] * sqdt, self.atol,
+                        self.rtol, self.delta, get_sri_tableau(self.solver))
+        return step.eest * dt
+
+    def _new_state(self, state, sol: SDESolution, x) -> dict:
+        new_state = dict(state)
+        new_state.update(
+            nfe_drift=sol.nfe_drift, nfe_diffusion=sol.nfe_diffusion,
+            reg_val=torch.zeros((), device=x.device), success=sol.success,
+        )
+        return new_state

@@ -12,7 +12,12 @@ It is the plain version that the persistent CUDA solve
 kernel is not used. With ``record_knots`` it records the knots and two-level
 checkpoints that the stored adjoint (``ode/stored_adjoint.py``,
 ``adjoint='stored'``) sweeps; the ``direct``, interpolating and backsolve
-adjoints are not ported yet.
+adjoints are not ported yet. With ``reservoir`` (one uniform per attempt,
+drawn in advance) it keeps a reservoir sample of the accepted steps'
+starting points, the biased regulariser's ``(t1, u(t1))``: accepted attempt
+number ``natt`` takes its step start when ``reservoir[natt]·(naccept + 1)
+< 1``, so every accepted step start is equally likely and ``t_end`` never
+is.
 """
 from __future__ import annotations
 
@@ -41,6 +46,9 @@ class ODESolution:
     nreject: torch.Tensor
     success: torch.Tensor
     f_state: Any = None
+    # the biased regulariser's reservoir sample (``reservoir`` given)
+    reservoir_t: Any = None
+    reservoir_u: Any = None
     # knots of a recording solve (``record_knots``), read by the stored
     # adjoint: dense (t, u, k1) at accepted steps, and with a knot stride
     # W > 1 checkpoints every W-th accept with the controller state
@@ -57,6 +65,7 @@ class ODESolution:
 
 KNOT_FIELDS = ("knot_ts", "knot_us", "knot_ks", "ckpt_ts", "ckpt_us",
                "ckpt_ks", "ckpt_dts", "ckpt_qolds")
+RESERVOIR_FIELDS = ("reservoir_t", "reservoir_u")
 
 
 def device_scalar(x, like: torch.Tensor) -> torch.Tensor:
@@ -66,6 +75,15 @@ def device_scalar(x, like: torch.Tensor) -> torch.Tensor:
     if isinstance(x, (int, float)):
         return torch.full((), float(x), dtype=torch.float32, device=like.device)
     return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+def host_to_device(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A CPU tensor on ``like``'s device. A card gets it through pinned
+    memory without blocking, so the copy does not wait for the device's
+    queued work."""
+    if like.device.type == "cpu":
+        return t
+    return t.pin_memory().to(like.device, non_blocking=True)
 
 
 class Attempt(NamedTuple):
@@ -158,12 +176,13 @@ def adaptive_loop(fn: Callable, u0, k1_0, f_st0, t0, t_end, dt_init, *,
                   saveat, rtol, atol, max_steps,
                   step_fn: Optional[Callable] = None,
                   record_knots: bool = False, knot_dense_cap=None,
-                  knot_stride: int = 1):
+                  knot_stride: int = 1, reservoir=None):
     """The accept/reject loop from ``(u0, k1_0)`` at ``t0`` with first step
     ``dt_init``; ``fn(u, t, st) -> (du, st)``. Returns a dict with ``ys``,
     ``y_final``, ``t_final``, ``naccept``, ``nreject``, ``natt``,
     ``success`` and ``f_state``; with ``record_knots`` also the knot and
-    checkpoint buffers of ``_knot_buffers``."""
+    checkpoint buffers of ``_knot_buffers``, and with ``reservoir`` (one
+    uniform per attempt) ``reservoir_t`` and ``reservoir_u``."""
     controller = PIController()
     t = device_scalar(t0, u0)
     t_end = device_scalar(t_end, u0)
@@ -185,7 +204,9 @@ def adaptive_loop(fn: Callable, u0, k1_0, f_st0, t0, t_end, dt_init, *,
             return step_fn(fn, u_, t_, dt_, k1_, st_)
     done = bool(t >= t_end)
     naccept = nreject = 0
+    res_t, res_u = t, u0
     while not done and naccept + nreject < max_steps:
+        natt = naccept + nreject
         a = attempt(step, controller, u, t, dt, qold, t_end, k1, f_st,
                     atol=atol, rtol=rtol)
         if not a.accept:
@@ -197,6 +218,8 @@ def adaptive_loop(fn: Callable, u0, k1_0, f_st0, t0, t_end, dt_init, *,
             theta = torch.clamp((saveat - t) / a.dt_c, 0.0, 1.0)
             y_interp = tsit5_interpolate(u, a.dt_c, a.res.ks, theta)
             ys = torch.where(hit.reshape((-1,) + (1,) * u.ndim), y_interp, ys)
+        if reservoir is not None and bool(reservoir[natt] * (naccept + 1) < 1.0):
+            res_t, res_u = t, u
         naccept += 1
         if kb is not None:
             _record(kb, naccept, stride, a)
@@ -209,6 +232,8 @@ def adaptive_loop(fn: Callable, u0, k1_0, f_st0, t0, t_end, dt_init, *,
         nreject=as_int(nreject), natt=as_int(naccept + nreject),
         success=torch.tensor(done, device=u0.device), f_state=f_st,
         **(kb or {}),
+        **(dict(reservoir_t=res_t, reservoir_u=res_u) if reservoir is not None
+           else {}),
     )
 
 
@@ -229,6 +254,7 @@ def odesolve(
     record_knots: bool = False,
     knot_dense_cap: Optional[int] = None,
     knot_stride: int = 1,
+    reservoir: Optional[torch.Tensor] = None,
     **stored_kwargs,
 ) -> ODESolution:
     """Integrate ``du/dt = f(u, t)`` over ``tspan`` with adaptive Tsit5.
@@ -252,6 +278,8 @@ def odesolve(
       record_knots, knot_dense_cap, knot_stride: record dense knots for the
         first ``knot_dense_cap`` accepts and, with a stride W > 1, a
         checkpoint every W-th accept (``_knot_buffers``).
+      reservoir: ``max_steps`` uniforms for the reservoir sample of the
+        accepted step starts (the biased regulariser), or None.
     """
     if adjoint == "stored":
         from .stored_adjoint import stored_odesolve
@@ -259,7 +287,7 @@ def odesolve(
         return stored_odesolve(
             f, u0, tspan, rtol=rtol, atol=atol, saveat=saveat,
             max_steps=max_steps, step_fn=step_fn, persistent_fn=persistent_fn,
-            **stored_kwargs,
+            reservoir=reservoir, **stored_kwargs,
         )
     if adjoint != "none":
         raise NotImplementedError(
@@ -274,7 +302,7 @@ def odesolve(
         else torch.atleast_1d(device_scalar(saveat, u0))
     )
     record = dict(record_knots=record_knots, knot_dense_cap=knot_dense_cap,
-                  knot_stride=knot_stride)
+                  knot_stride=knot_stride, reservoir=reservoir)
     if persistent_fn is not None:
         sol = persistent_fn(
             u0, (t0, t_end), saveat_arr=saveat_arr, rtol=rtol, atol=atol,
@@ -299,5 +327,5 @@ def odesolve(
         y_final=out["y_final"], nfe=nfe0 + 6 * out["natt"],
         naccept=out["naccept"], nreject=out["nreject"],
         success=out["success"], f_state=out["f_state"],
-        **{k: out.get(k) for k in KNOT_FIELDS},
+        **{k: out.get(k) for k in KNOT_FIELDS + RESERVOIR_FIELDS},
     )

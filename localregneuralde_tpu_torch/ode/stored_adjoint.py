@@ -30,7 +30,14 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from .controller import PIController, initial_step_size
-from .solve import KNOT_FIELDS, ODESolution, adaptive_loop, attempt, device_scalar
+from .solve import (
+    KNOT_FIELDS,
+    RESERVOIR_FIELDS,
+    ODESolution,
+    adaptive_loop,
+    attempt,
+    device_scalar,
+)
 from .step import tsit5_step
 from .tableaus import tsit5_interp_weights
 
@@ -222,7 +229,7 @@ class _Spec:
     def run(self, u0, params):
         """The forward solve with knots; returns ``(sol, from_kernel)``."""
         rec = dict(record_knots=True, knot_dense_cap=self.dense_cap,
-                   knot_stride=self.stride)
+                   knot_stride=self.stride, reservoir=self.reservoir)
         if self.persistent_fn is not None:
             sol = self.persistent_fn(
                 u0, params, (self.t0, self.t_end), saveat_arr=self.saveat_arr,
@@ -253,7 +260,8 @@ class _Spec:
             ts=self.saveat_arr, ys=out["ys"], t_final=out["t_final"],
             y_final=out["y_final"], nfe=1 + nfe_dt + 6 * out["natt"],
             naccept=out["naccept"], nreject=out["nreject"],
-            success=out["success"], **{k: out.get(k) for k in KNOT_FIELDS},
+            success=out["success"],
+            **{k: out.get(k) for k in KNOT_FIELDS + RESERVOIR_FIELDS},
         ), False
 
     def two_level_ctx(self, knots):
@@ -282,6 +290,7 @@ def stored_odesolve(
     persistent_fn: Optional[Callable] = None,
     sweep_fn: Optional[Callable] = None,
     fsal_fn: Optional[Callable] = None,
+    reservoir: Optional[torch.Tensor] = None,
 ) -> ODESolution:
     """Integrate ``du/dt = f(u, t, params)`` with gradients with respect to
     ``u0`` and ``params`` through the stored adjoint.
@@ -295,12 +304,17 @@ def stored_odesolve(
       (d_params, d_u, d_k1)`` for its transpose (default: autograd of the
       step);
     - ``persistent_fn(u0, params, tspan, *, saveat_arr, rtol, atol,
-      max_steps, record_knots, knot_dense_cap, knot_stride) -> ODESolution``
+      max_steps, record_knots, knot_dense_cap, knot_stride, reservoir) ->
+      ODESolution``
       for the whole forward, and ``sweep_fn(params, knot_ts, knot_us,
       naccept, saveat_arr, ct_ys, ct_y, two_level_ctx) -> (a_u, a_k,
       d_params)`` for the whole sweep of that forward;
     - ``fsal_fn(u, t, params)``, a differentiable twin of ``f`` for the
       closure of the FSAL chain at t0 (default ``f``).
+
+    ``reservoir`` (``max_steps`` uniforms) makes the forward keep the
+    biased regulariser's reservoir sample (``reservoir_t``,
+    ``reservoir_u``, both fenced).
     """
     t0, t_end = float(tspan[0]), float(tspan[1])
     saveat_arr = (
@@ -312,7 +326,8 @@ def stored_odesolve(
         f=f, t0=t0, t_end=t_end, saveat_arr=saveat_arr, rtol=rtol, atol=atol,
         max_steps=max_steps, dense_cap=dense_cap, two_level=two_level,
         stride=stride, step_fn=step_fn, persistent_fn=persistent_fn,
-        sweep_fn=sweep_fn, fsal_fn=fsal_fn or f, sol=None,
+        sweep_fn=sweep_fn, fsal_fn=fsal_fn or f, reservoir=reservoir,
+        sol=None,
     )
     spec.step_vjp = step_vjp or autograd_step_vjp(spec.raw_step)
     ys, y_final = _StoredSolve.apply(spec, u0, *params)
@@ -320,5 +335,6 @@ def stored_odesolve(
     return ODESolution(
         ts=saveat_arr, ys=ys, t_final=sol.t_final, y_final=y_final,
         nfe=sol.nfe, naccept=sol.naccept, nreject=sol.nreject,
-        success=sol.success,
+        success=sol.success, reservoir_t=sol.reservoir_t,
+        reservoir_u=sol.reservoir_u,
     )

@@ -16,6 +16,12 @@ from .fused_mlp_bwd import (
     fused_step_bwd,
     fused_step_bwd_plain,
 )
+from .fused_sde_solve import (
+    SDEWeights,
+    persistent_sde_solve,
+    persistent_sde_solve_plain,
+)
+from .fused_sde_sweep import persistent_sde_sweep, persistent_sde_sweep_plain
 from .fused_solve import persistent_tsit5_solve, persistent_tsit5_solve_plain
 from .fused_solve_bwd import (
     persistent_stored_sweep,
@@ -31,6 +37,8 @@ KERNELS = {
     "tsit5_step_bwd": fused_step_bwd,
     "persistent_stored_sweep": persistent_stored_sweep,
     "persistent_two_level_sweep": persistent_two_level_sweep,
+    "persistent_sde_solve": persistent_sde_solve,
+    "persistent_sde_sweep": persistent_sde_sweep,
 }
 
 
@@ -46,6 +54,7 @@ def reset_launch_counts() -> None:
 __all__ = [
     "FusedTsit5Step",
     "KERNELS",
+    "SDEWeights",
     "TDMLPWeights",
     "differentiable_step",
     "fused_step_bwd",
@@ -53,6 +62,10 @@ __all__ = [
     "fused_tdmlp",
     "fused_tsit5_step",
     "launch_counts",
+    "persistent_sde_solve",
+    "persistent_sde_solve_plain",
+    "persistent_sde_sweep",
+    "persistent_sde_sweep_plain",
     "persistent_stored_sweep",
     "persistent_stored_sweep_plain",
     "persistent_tsit5_solve",

@@ -27,6 +27,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U = ctypes.c_uint
 
 # C entry -> argument types; every entry returns cudaGetLastError() as int
 _SIGNATURES = {
@@ -34,19 +35,27 @@ _SIGNATURES = {
     "lrnde_tsit5_step": [_P] * 16 + [_I] * 3 + [_P],
     "lrnde_persistent_tsit5": (
         [_P] * 4 + [_I] + [_P] * 11 + [_I] * 4 + [_F] * 3
-        + [_P, _P, _I] + [_P] * 5 + [_I, _I] + [_P]
+        + [_P, _P, _I] + [_P] * 5 + [_I, _I] + [_P] * 2 + [_P]
     ),
     "lrnde_tsit5_step_bwd": [_P] * 21 + [_I] * 3 + [_P],
     "lrnde_adjoint_sweep": (
         [_I] + [_P] * 8 + [_I] + [_P] * 7 + [_F] * 3 + [_I] * 3 + [_P] * 9
         + [_I] * 3 + [_F] + [_P]
     ),
+    "lrnde_sde_solve": (
+        [_I] + [_P] * 3 + [_I] + [_P] * 6 + [_U, _I] + [_P] * 15 + [_I] * 4
+        + [_F] * 4 + [_P]
+    ),
+    "lrnde_sde_sweep": [_I] + [_P] * 12 + [_I] + [_P] * 5 + [_I] * 3 + [_P],
 }
 
 # C entry -> argument types of the size queries, which return long long
 _SIZES = {
     "lrnde_bwd_scratch_floats": [_I] * 3,
     "lrnde_sweep_scratch_floats": [_I] * 3,
+    "lrnde_sde_solve_smem_floats": [_I] * 2,
+    "lrnde_sde_sweep_smem_floats": [_I] * 2,
+    "lrnde_sde_grad_floats": [_I] * 2,
 }
 
 
@@ -128,8 +137,9 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_longlong
-    lib.lrnde_rows_per_block.argtypes = []
-    lib.lrnde_rows_per_block.restype = ctypes.c_int
+    for name in ("lrnde_rows_per_block", "lrnde_sde_rows_per_block"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
     lib.lrnde_error_string.argtypes = [ctypes.c_int]
     lib.lrnde_error_string.restype = ctypes.c_char_p
     return lib

@@ -15,8 +15,12 @@ state goes to the dense knot buffer while ``naccept < dense_cap``, and with
 a stride W > 1 every W-th accept also goes to the checkpoint buffers with
 ``(t, dt_next, qold)``. No k1 knots are stored (the sweep recomputes k1),
 and F is not padded. Recording only copies committed values, so it changes
-no accept decision. The reservoir sample of the biased mode is not ported
-yet.
+no accept decision.
+
+With ``reservoir`` (``max_steps`` uniforms, drawn in advance by the caller)
+the kernel keeps the biased regulariser's reservoir sample: an accepted
+attempt number ``natt`` takes its step start ``(t, u)`` when
+``reservoir[natt]·(naccept + 1) < 1`` (``reservoir_t``, ``reservoir_u``).
 """
 from __future__ import annotations
 
@@ -25,7 +29,12 @@ import ctypes
 import torch
 
 from ...ode.controller import initial_step_size
-from ...ode.solve import KNOT_FIELDS, adaptive_loop, knot_counts
+from ...ode.solve import (
+    KNOT_FIELDS,
+    RESERVOIR_FIELDS,
+    adaptive_loop,
+    knot_counts,
+)
 from ...ode.step import Tsit5StepResult
 from . import _build
 from .fused_mlp import (
@@ -62,7 +71,8 @@ def plain_step(w: TDMLPWeights):
 
 def persistent_tsit5_solve_plain(w: TDMLPWeights, u0, tspan, *, rtol, atol,
                                  saveat_arr, max_steps, record_knots=False,
-                                 knot_dense_cap=None, knot_stride=1):
+                                 knot_dense_cap=None, knot_stride=1,
+                                 reservoir=None):
     """The plain version of the persistent solve: the eager loop of
     ``ode/solve.py`` with the plain TD-MLP step, recording as the kernel
     does (no k1 knots)."""
@@ -72,14 +82,15 @@ def persistent_tsit5_solve_plain(w: TDMLPWeights, u0, tspan, *, rtol, atol,
         None, u0, k1_0, None, t0, t_end, dt_init, saveat=saveat_arr,
         rtol=rtol, atol=atol, max_steps=max_steps, step_fn=plain_step(w),
         record_knots=record_knots, knot_dense_cap=knot_dense_cap,
-        knot_stride=knot_stride,
+        knot_stride=knot_stride, reservoir=reservoir,
     )
     res = dict(
         y_final=out["y_final"], ys=out["ys"], naccept=out["naccept"],
         nreject=out["nreject"], success=out["success"],
         nfe=nfe0 + 6 * out["natt"], t_final=out["t_final"], ts=saveat_arr,
     )
-    res.update({k: out.get(k) for k in KNOT_FIELDS if k != "knot_ks"})
+    res.update({k: out.get(k) for k in KNOT_FIELDS + RESERVOIR_FIELDS
+                if k != "knot_ks"})
     return res
 
 
@@ -87,7 +98,7 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
                            rtol: float, atol: float, saveat_arr: torch.Tensor,
                            max_steps: int, record_knots=False,
                            knot_dense_cap=None, knot_stride=1,
-                           reservoir_key=None):
+                           reservoir=None):
     """Run the whole adaptive solve of ``du/dt = tdmlp(u, t)``.
 
     Returns a dict of ``y_final``, ``ys`` (n_save, B, F), ``naccept``,
@@ -95,17 +106,14 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
     tensors (no host sync); with ``record_knots`` also ``knot_ts``
     (dense_cap + 1), ``knot_us`` (dense_cap + 1, B, F) and, with a
     ``knot_stride`` W > 1, ``ckpt_ts``, ``ckpt_us``, ``ckpt_ks``,
-    ``ckpt_dts`` and ``ckpt_qolds`` (max_steps // W + 1 entries). A CUDA
-    tensor launches the kernel; a CPU tensor runs
-    ``persistent_tsit5_solve_plain``.
+    ``ckpt_dts`` and ``ckpt_qolds`` (max_steps // W + 1 entries); with
+    ``reservoir`` (float32, at least ``max_steps`` uniforms) also
+    ``reservoir_t`` and ``reservoir_u``. A CUDA tensor launches the kernel;
+    a CPU tensor runs ``persistent_tsit5_solve_plain``.
     """
-    if reservoir_key is not None:
-        raise NotImplementedError(
-            "reservoir sampling of the persistent solve (the biased "
-            "regulariser) is not ported yet (ROADMAP Queue 2 item 4)"
-        )
+    check_reservoir(reservoir, max_steps)
     rec = dict(record_knots=record_knots, knot_dense_cap=knot_dense_cap,
-               knot_stride=knot_stride)
+               knot_stride=knot_stride, reservoir=reservoir)
     if u0.device.type == "cpu":
         return persistent_tsit5_solve_plain(
             w, u0, tspan, rtol=rtol, atol=atol, saveat_arr=saveat_arr,
@@ -124,11 +132,14 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
     y_final = torch.empty_like(u0)
     ys = torch.empty((n_save, B, F), dtype=torch.float32, device=dev)
     stats_i = torch.empty(4, dtype=torch.int32, device=dev)
-    stats_f = torch.empty(1, dtype=torch.float32, device=dev)
+    stats_f = torch.empty(2, dtype=torch.float32, device=dev)
     scratch = torch.empty((8, B, F), dtype=torch.float32, device=dev)
     slots = torch.empty(2 * n_blocks, dtype=torch.float32, device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
-    knots = _knot_outputs(u0, max_steps, **rec)
+    knots = _knot_outputs(u0, max_steps, record_knots=record_knots,
+                          knot_dense_cap=knot_dense_cap,
+                          knot_stride=knot_stride)
+    rand, res_u = reservoir_operands(reservoir, u0)
     n_dense = knots["knot_ts"].shape[0] if knots else 0
     n_ckpt = knots["ckpt_ts"].shape[0] if "ckpt_ts" in knots else 0
     stride = max(1, int(knot_stride))
@@ -144,6 +155,8 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
         kp("knot_ts"), kp("knot_us"), n_dense,
         kp("ckpt_ts"), kp("ckpt_us"), kp("ckpt_ks"), kp("ckpt_dts"),
         kp("ckpt_qolds"), n_ckpt, stride,
+        p(rand) if rand is not None else null,
+        p(res_u) if res_u is not None else null,
         _build.stream_ptr(dev),
     )
     _build.check(lib, err, "persistent_tsit5_solve")
@@ -152,10 +165,30 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
         y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
         success=stats_i[2].bool(), nfe=nfe0 + 6 * stats_i[3],
         t_final=stats_f[0], ts=saveat_arr, **knots,
+        **(dict(reservoir_t=stats_f[1], reservoir_u=res_u)
+           if res_u is not None else {}),
     )
 
 
 persistent_tsit5_solve.launches = 0
+
+
+def check_reservoir(reservoir, max_steps: int) -> None:
+    """Raise unless ``reservoir`` is None or holds one uniform per
+    attempt."""
+    if reservoir is not None and (reservoir.ndim != 1
+                                  or reservoir.shape[0] < max_steps):
+        raise ValueError(f"reservoir: needs {max_steps} uniforms, got "
+                         f"{tuple(reservoir.shape)}")
+
+
+def reservoir_operands(reservoir, u0):
+    """(uniforms, sample buffer) of a kernel solve with a reservoir, or
+    (None, None) without one; the caller has checked ``reservoir``."""
+    if reservoir is None:
+        return None, None
+    rand = reservoir.to(device=u0.device, dtype=torch.float32).contiguous()
+    return rand, torch.empty_like(u0)
 
 
 def _knot_outputs(u0, max_steps, *, record_knots, knot_dense_cap,

@@ -19,6 +19,15 @@ def error_residuals(utilde, u0, u1, atol, rtol):
     return utilde / (atol + torch.maximum(torch.abs(u0), torch.abs(u1)) * rtol)
 
 
+def sde_error_residuals(E1, E2, u0, u1, atol, rtol, delta):
+    """(δ·E1 + E2) / (atol + max(|u0|, |u1|)·rtol): the SRI step's
+    δ-weighted drift and diffusion error parts (reference
+    ``src/perform_step.jl:98-103``)."""
+    return (delta * E1 + E2) / (
+        atol + torch.maximum(torch.abs(u0), torch.abs(u1)) * rtol
+    )
+
+
 def scaled_error_norm(utilde, u0, u1, atol, rtol) -> torch.Tensor:
     """RMS of the tolerance-scaled residuals: the solver's EEst."""
     return internal_norm(error_residuals(utilde, u0, u1, atol, rtol))

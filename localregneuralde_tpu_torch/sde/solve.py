@@ -1,0 +1,253 @@
+"""Adaptive SDE integration: the eager accept/reject loop over the virtual
+Brownian tree.
+
+Counterpart of ``localregneuralde_tpu/sde/solve.py`` for the diagonal-noise
+SRI family (``'sri'``, ``'sosri'``). The whole batch shares one dt and one
+error norm. Per attempt the loop reads the increments ``(dW, dZ)`` over
+``[t, t + dt]`` from the tree, which is consistent under rejection, takes
+one SRI step, and lets the I-controller (γ 0.9, qmin 0.2, qmax 1.2,
+β1 = 1/(order + 1), β2 = 0) judge it. The first dt is the drift-magnitude
+heuristic (one drift evaluation). Accepted steps write the saveat outputs by
+linear interpolation, may replace the reservoir sample of the biased
+regulariser (``reservoir`` holds one uniform per attempt, drawn in
+advance), and with ``record_knots`` record the knots ``(t, u)`` at the
+accepted boundaries and the increments ``(dW, dZ)`` of each accepted step,
+which the stored adjoint (``sde/stored_adjoint.py``) sweeps. NFE: drift
+1 + 4·attempts, diffusion 4·attempts.
+
+The loop runs on the host and reads the accept decision once per attempt.
+It is the plain version the persistent CUDA solve
+(``ops/cuda/fused_sde_solve.py``) is held against; ``persistent_fn`` hands
+an ``adjoint='none'`` solve to that kernel. The Milstein and Euler–Heun
+solvers and non-diagonal noise are not ported yet (ROADMAP).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch
+
+from ..ode.controller import PIController
+from ..ode.solve import device_scalar
+from ..ops.residuals import internal_norm
+from .brownian import VirtualBrownianTree
+from .step import sri_step
+from .tableaus import get_sri_tableau
+
+SRI_SOLVERS = ("sri", "sosri")
+UNPORTED_SOLVERS = ("milstein", "euler_heun")
+SRI_ORDER = 1.5
+
+
+@dataclass
+class SDESolution:
+    """Result of an adaptive SDE solve; ``ys[i] ≈ u(ts[i])`` by linear
+    interpolation. With ``record_knots`` the knot fields hold at least
+    ``naccept + 1`` knots and ``naccept`` increments (the entries past
+    them are unspecified)."""
+
+    ts: torch.Tensor
+    ys: torch.Tensor
+    t_final: torch.Tensor
+    y_final: torch.Tensor
+    nfe_drift: torch.Tensor
+    nfe_diffusion: torch.Tensor
+    naccept: torch.Tensor
+    nreject: torch.Tensor
+    success: torch.Tensor
+    reservoir_t: Any = None
+    reservoir_u: Any = None
+    knot_ts: Any = None
+    knot_us: Any = None
+    knot_dws: Any = None
+    knot_dzs: Any = None
+
+
+def check_solver(solver: str) -> None:
+    if solver in UNPORTED_SOLVERS:
+        raise NotImplementedError(
+            f"SDE solver {solver!r} is not ported yet: only the SRI family "
+            "('sri', 'sosri') is (ROADMAP Queue 1, the SDE items left)"
+        )
+    if solver not in SRI_SOLVERS:
+        raise ValueError(f"unknown SDE solver {solver!r}; one of "
+                         f"{SRI_SOLVERS + UNPORTED_SOLVERS}")
+
+
+def sde_controller() -> PIController:
+    """The SDE loop's I-controller for the order-1.5 SRI family."""
+    return PIController(gamma=0.9, qmin=0.2, qmax=1.2,
+                        beta1=1.0 / (SRI_ORDER + 1.0), beta2=0.0)
+
+
+def initial_dt(u0, f0, rtol, atol, t0: float, t_end: float):
+    """The first step: 0.01·‖u0‖/‖f0‖ in the tolerance-scaled RMS norm
+    (1e-6 when either is below 1e-5), at most half the span. Detached."""
+    span = device_scalar(t_end, u0) - device_scalar(t0, u0)
+    sc = atol + torch.abs(u0) * rtol
+    d0 = internal_norm(u0 / sc)
+    d1 = internal_norm(f0 / sc)
+    dt = torch.where((d0 < 1e-5) | (d1 < 1e-5), 1e-6,
+                     0.01 * d0 / torch.where(d1 == 0, 1.0, d1))
+    return torch.minimum(dt, span / 2).detach()
+
+
+def sde_loop(f: Callable, g: Callable, u0, t0: float, t_end: float, dt_init,
+             *, noise, saveat, rtol, atol, solver, delta, max_steps,
+             reservoir=None, brownian_depth=24, record_knots=False):
+    """The accept/reject loop from ``u0`` at ``t0`` with first step
+    ``dt_init``; ``f(u, t)``, ``g(u, t)``. Returns a dict with ``ys``,
+    ``y_final``, ``t_final``, ``naccept``, ``nreject``, ``natt``,
+    ``success``, ``reservoir_t``, ``reservoir_u`` and, with
+    ``record_knots``, ``knot_ts`` (naccept + 1), ``knot_us`` (naccept + 1,
+    B, F), ``knot_dws`` and ``knot_dzs`` (naccept, B, F)."""
+    controller = sde_controller()
+    tableau = get_sri_tableau(solver)
+    tree = VirtualBrownianTree(noise, t0, t_end, brownian_depth)
+    t = device_scalar(t0, u0)
+    t_end_d = device_scalar(t_end, u0)
+    saveat = device_scalar(saveat, u0)
+    bshape = (-1,) + (1,) * u0.ndim
+    dt, qold = dt_init, device_scalar(controller.qoldinit, u0)
+    u = u0
+    wz = torch.zeros((2,) + tuple(u0.shape), dtype=u0.dtype, device=u0.device)
+    ys = u0.unsqueeze(0).repeat((saveat.shape[0],) + (1,) * u0.ndim)
+    res_t, res_u = t, u0
+    knots = ([t], [u0], [], [])
+    done = t0 >= t_end
+    naccept = nreject = 0
+    while not done and naccept + nreject < max_steps:
+        natt = naccept + nreject
+        t_rem = t_end_d - t
+        dt_c = torch.minimum(dt, t_rem)
+        is_last = bool(dt >= t_rem)
+        wz_new = tree.wz(t + dt_c)
+        dW, dZ = wz_new[0] - wz[0], wz_new[1] - wz[1]
+        res = sri_step(f, g, u, t, dt_c, dW, dZ, atol, rtol, delta, tableau)
+        eest = res.eest.detach()
+        dt_acc, dt_rej, qold_acc = controller.propose(eest, dt_c, qold)
+        if not bool(eest <= 1.0):
+            nreject += 1
+            dt = dt_rej
+            continue
+        t_new = t_end_d if is_last else t + dt_c
+        hit = (saveat > t) & (saveat <= t_new)
+        if bool(hit.any()):
+            theta = torch.clamp((saveat - t) / dt_c, 0.0, 1.0).reshape(bshape)
+            ys = torch.where(hit.reshape(bshape), u + theta * (res.u_new - u),
+                             ys)
+        if reservoir is not None and bool(reservoir[natt] * (naccept + 1) < 1.0):
+            res_t, res_u = t, u
+        naccept += 1
+        if record_knots:
+            for buf, v in zip(knots, (t_new, res.u_new, dW, dZ)):
+                buf.append(v)
+        u, t, dt, qold, wz = res.u_new, t_new, dt_acc, qold_acc, wz_new
+        done = is_last
+    as_int = lambda n: torch.tensor(n, dtype=torch.int32, device=u0.device)  # noqa: E731
+    out = dict(
+        ys=ys, y_final=u, t_final=t, naccept=as_int(naccept),
+        nreject=as_int(nreject), natt=as_int(naccept + nreject),
+        success=torch.tensor(done, device=u0.device),
+        reservoir_t=res_t if reservoir is not None else None,
+        reservoir_u=res_u if reservoir is not None else None,
+    )
+    if record_knots:
+        empty = u0.new_zeros((0,) + tuple(u0.shape))
+        ts, us, dws, dzs = knots
+        out.update(knot_ts=torch.stack(ts), knot_us=torch.stack(us),
+                   knot_dws=torch.stack(dws) if dws else empty,
+                   knot_dzs=torch.stack(dzs) if dzs else empty)
+    return out
+
+
+def solution_from(out: dict, saveat_arr) -> SDESolution:
+    """An ``SDESolution`` from a loop's or a kernel's output dict (NFE:
+    the first dt's drift evaluation and four of each per attempt)."""
+    natt = out["natt"]
+    return SDESolution(
+        ts=saveat_arr, ys=out["ys"], t_final=out["t_final"],
+        y_final=out["y_final"], nfe_drift=1 + 4 * natt,
+        nfe_diffusion=4 * natt, naccept=out["naccept"],
+        nreject=out["nreject"], success=out["success"],
+        reservoir_t=out.get("reservoir_t"), reservoir_u=out.get("reservoir_u"),
+        knot_ts=out.get("knot_ts"), knot_us=out.get("knot_us"),
+        knot_dws=out.get("knot_dws"), knot_dzs=out.get("knot_dzs"),
+    )
+
+
+def saveat_array(saveat, t_end: float, like: torch.Tensor) -> torch.Tensor:
+    if saveat is None:
+        return device_scalar(t_end, like).reshape(1)
+    return torch.atleast_1d(device_scalar(saveat, like))
+
+
+def sdesolve(
+    f: Callable,
+    g: Callable,
+    u0: torch.Tensor,
+    tspan,
+    *,
+    noise,
+    rtol: float = 1e-2,
+    atol: float = 1e-2,
+    solver: str = "sri",
+    delta: float = 1 / 6,
+    saveat=None,
+    max_steps: int = 256,
+    adjoint: str = "none",
+    reservoir: Optional[torch.Tensor] = None,
+    brownian_depth: int = 24,
+    record_knots: bool = False,
+    persistent_fn: Optional[Callable] = None,
+    **stored_kwargs,
+) -> SDESolution:
+    """Integrate ``du = f(u, t) dt + g(u, t) dW`` (diagonal Itô noise) over
+    ``tspan``.
+
+    Args:
+      noise: the tree's normal source, ``noise(node) -> (2, B, F)``
+        (``brownian.PhiloxNormals`` by default in the model).
+      saveat: 1-D output times (default ``[t_end]``); times ≤ t0 return u0.
+      adjoint: ``'none'`` (not differentiable) or ``'stored'``; under
+        ``'stored'`` the dynamics take the parameters, ``f(u, t, params)``,
+        and ``stored_kwargs`` carry ``params`` and the kernel callbacks
+        (see ``stored_sdesolve``).
+      reservoir: one uniform per attempt (``max_steps``) for the reservoir
+        sample of accepted step starts; None for no reservoir.
+      persistent_fn: whole-solve replacement (the persistent CUDA solve)
+        for ``adjoint='none'``; when given, the eager loop does not run.
+    """
+    check_solver(solver)
+    if adjoint == "stored":
+        from .stored_adjoint import stored_sdesolve
+
+        return stored_sdesolve(
+            f, g, u0, tspan, noise=noise, rtol=rtol, atol=atol,
+            solver=solver, delta=delta, saveat=saveat, max_steps=max_steps,
+            reservoir=reservoir, brownian_depth=brownian_depth,
+            persistent_fn=persistent_fn, **stored_kwargs,
+        )
+    if adjoint != "none":
+        raise NotImplementedError(
+            f"SDE adjoint={adjoint!r} is not ported yet: inference "
+            "(adjoint='none') and the stored adjoint are (ROADMAP Queue 1)"
+        )
+    t0, t_end = float(tspan[0]), float(tspan[1])
+    saveat_arr = saveat_array(saveat, t_end, u0)
+    kw = dict(noise=noise, saveat_arr=saveat_arr, rtol=rtol, atol=atol,
+              solver=solver, delta=delta, max_steps=max_steps,
+              record_knots=record_knots, reservoir=reservoir,
+              brownian_depth=brownian_depth)
+    if persistent_fn is not None:
+        return persistent_fn(u0, (t0, t_end), **kw)
+    dt_init = initial_dt(u0, f(u0, device_scalar(t0, u0)), rtol, atol, t0,
+                         t_end)
+    out = sde_loop(
+        f, g, u0, t0, t_end, dt_init, noise=noise, saveat=saveat_arr,
+        rtol=rtol, atol=atol, solver=solver, delta=delta,
+        max_steps=max_steps, reservoir=reservoir,
+        brownian_depth=brownian_depth, record_knots=record_knots,
+    )
+    return solution_from(out, saveat_arr)

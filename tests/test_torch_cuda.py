@@ -166,3 +166,90 @@ def test_sweeps_match_plain_on_card(cuda_device):
     for a, b in zip([win[0], win[1], *win[2]],
                     [dense[0], dense[1], *dense[2]]):
         assert _rel(a, b) <= 1e-6
+
+
+def _sde_setup(device, batch, seed=0, features=32, hidden=64):
+    from localregneuralde_tpu_torch.ops.cuda import SDEWeights
+
+    g = torch.Generator().manual_seed(seed)
+    n = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    w = SDEWeights(0.3 * n(features, hidden), 0.1 * n(hidden),
+                   0.3 * n(hidden, features), 0.1 * n(features),
+                   0.05 * n(features, features), 0.01 + 0.01 * n(features))
+    x = 0.5 * n(batch, features)
+    return SDEWeights(*(t.to(device) for t in w)), x.to(device)
+
+
+def _sde_kw(device, batch, features=32, **extra):
+    from localregneuralde_tpu_torch.sde import PhiloxNormals
+
+    return dict(noise=PhiloxNormals(5, batch, features, device=device),
+                rtol=0.14, atol=0.14, solver="sosri", delta=1 / 6,
+                saveat_arr=torch.tensor([0.5, 1.0], device=device),
+                max_steps=64, **extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [8, 13, 512])
+def test_sde_solve_matches_plain_on_card(cuda_device, batch):
+    # the uniforms are bitwise the plain version's; the normals differ by
+    # the inverse CDF's logf in the tails and the products by their FP32
+    # summation order, and the path is Hölder-1/2 in the step times, so
+    # states agree to 1e-3 (tests/test_torch_sde.py) with equal step counts
+    # up to an accept flip at the boundary
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_sde_solve, persistent_sde_solve_plain,
+    )
+
+    w, x = _sde_setup(cuda_device, batch)
+    kw = _sde_kw(cuda_device, batch, record_knots=True,
+                 reservoir=torch.rand(64, device=cuda_device))
+    out = persistent_sde_solve(w, x, (0.0, 1.0), **kw)
+    ref = persistent_sde_solve_plain(w, x, (0.0, 1.0), **kw)
+    assert bool(out["success"]) and bool(ref["success"])
+    assert abs(int(out["naccept"]) - int(ref["naccept"])) <= 1
+    if int(out["natt"]) == int(ref["natt"]):
+        torch.testing.assert_close(out["ys"], ref["ys"], atol=1e-3, rtol=0)
+    again = persistent_sde_solve(w, x, (0.0, 1.0), **kw)
+    assert torch.equal(out["ys"], again["ys"])
+    n = int(out["naccept"])
+    ts = out["knot_ts"][: n + 1]
+    j = int(torch.argmin((ts[:n] - out["reservoir_t"]).abs()))
+    assert torch.equal(out["knot_us"][j], out["reservoir_u"])
+    assert float(ts[0]) == 0.0 and float(ts[n]) == 1.0
+    assert torch.equal(out["knot_us"][n], out["y_final"])
+
+
+@pytest.mark.cuda
+def test_sde_sweep_matches_plain_on_card(cuda_device):
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_sde_solve, persistent_sde_sweep, persistent_sde_sweep_plain,
+    )
+
+    w, x = _sde_setup(cuda_device, 64)
+    kw = _sde_kw(cuda_device, 64, record_knots=True)
+    out = persistent_sde_solve(w, x, (0.0, 1.0), **kw)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    args = (out["knot_ts"], out["knot_us"], out["knot_dws"], out["knot_dzs"],
+            out["naccept"], kw["saveat_arr"],
+            torch.randn((2, 64, 32), generator=g, device=cuda_device),
+            torch.randn((64, 32), generator=g, device=cuda_device))
+    ours = persistent_sde_sweep(w, *args, solver="sosri", delta=1 / 6)
+    ref = persistent_sde_sweep_plain(w, *args, solver="sosri", delta=1 / 6)
+    for a, b in zip([ours[0], *ours[1]], [ref[0], *ref[1]]):
+        assert _rel(a, b) <= 1e-4
+    again = persistent_sde_sweep(w, *args, solver="sosri", delta=1 / 6)
+    for a, b in zip([again[0], *again[1]], [ours[0], *ours[1]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_persistent_reservoir_on_card(cuda_device):
+    w, x = _card_setup(cuda_device, 64, 784, 100)
+    u = torch.rand(64, device=cuda_device)
+    rec = _recorded(w, x, 1e-4, reservoir=u)
+    n = int(rec["naccept"])
+    ts = rec["knot_ts"][:n]
+    j = int(torch.argmin((ts - rec["reservoir_t"]).abs()))
+    assert float(ts[j]) == float(rec["reservoir_t"]) < 1.0
+    assert torch.equal(rec["knot_us"][j], rec["reservoir_u"])

@@ -103,11 +103,24 @@ def test_wrappers_run_plain_versions_on_cpu():
 
 
 def test_persistent_rejects_training_features():
-    # knot recording is ported; the reservoir sample of the biased mode is not
+    """The reservoir sample of the biased mode (kernel 4's plain version
+    on the CPU): it is the start of an accepted step, never t_end, and it
+    changes nothing else; too few uniforms are refused."""
     _, w, x = _setup()
-    with pytest.raises(NotImplementedError):
-        persistent_tsit5_solve(
-            w, torch.tensor(x), (0.0, 1.0), rtol=1e-4, atol=1e-4,
-            saveat_arr=torch.tensor([1.0]), max_steps=8, record_knots=True,
-            reservoir_key=0,
-        )
+    kw = dict(rtol=1e-4, atol=1e-4, saveat_arr=torch.tensor([1.0]),
+              max_steps=16, record_knots=True)
+    bare = persistent_tsit5_solve(w, torch.tensor(x), (0.0, 1.0), **kw)
+    for seed in range(3):
+        u = torch.rand(16, generator=torch.Generator().manual_seed(seed))
+        out = persistent_tsit5_solve(w, torch.tensor(x), (0.0, 1.0), **kw,
+                                     reservoir=u)
+        n = int(out["naccept"])
+        assert n == int(bare["naccept"]) and torch.equal(out["y_final"],
+                                                         bare["y_final"])
+        ts = out["knot_ts"][:n]
+        j = int(torch.argmin((ts - out["reservoir_t"]).abs()))
+        assert float(ts[j]) == float(out["reservoir_t"]) < 1.0
+        assert torch.equal(out["knot_us"][j], out["reservoir_u"])
+    with pytest.raises(ValueError, match="uniforms"):
+        persistent_tsit5_solve(w, torch.tensor(x), (0.0, 1.0), **kw,
+                               reservoir=torch.rand(4))

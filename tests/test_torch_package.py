@@ -94,11 +94,19 @@ def test_unported_paths_raise():
     )
     with pytest.raises(NotImplementedError):
         construct_model(cfg)
-    # the biased regulariser and the non-stored adjoints are not ported
-    for kw in (dict(regularize="biased"), dict(adjoint="direct")):
-        node = NeuralODE(TDChain(Dense(5, 3, "tanh"), Dense(4, 4)), **kw)
+    # the non-stored adjoints are not ported
+    node = NeuralODE(TDChain(Dense(5, 3, "tanh"), Dense(4, 4)),
+                     adjoint="direct")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        node(torch.zeros(2, 4), training=True)
+    # nor the SDE solvers outside the SRI family, nor non-diagonal noise
+    for extra in (["--model.sde_solver=milstein"],
+                  ["--model.sde_solver=euler_heun"],
+                  ["--model.sde_solver=milstein", "--model.sde_noise_dims=2"]):
+        cfg = torch_config.define_configuration(extra, None)
+        cfg.model.sde = True
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            node(torch.zeros(2, 4), training=True)
+            construct_model(cfg)
     with pytest.raises(ValueError):
         NeuralODE(Dense(4, 4), use_pallas="on")
 
