@@ -34,14 +34,29 @@ on the card:
    and ``=biased`` through ``make_train_step``, with launch counts per step
    and the first step's cross-entropy gradients against the plain path;
 9. takes one biased training step of the ODE at rtol 1e-4 through the
-   persistent solve with its reservoir.
+   persistent solve with its reservoir;
+10. holds the Dense-chain kernels of the PhysioNet latent ODE against their
+    plain versions at its full width (B = 512, F = 20, eight layers 20 <-> 40,
+    the 49-point grid and t1 as saveat, from the encoder's latent states):
+    the persistent solve at rtol 1e-4 and at the config's 1.4e-8, its knots,
+    and the dense and the two-level sweep on its own knots (the replay
+    bitwise the forward), with determinism and times;
+11. trains ``experiments/physionet/physionet.yaml`` as shipped for three
+    steps and evaluates the 410-series test split through the port's
+    ``run_latent_ode_experiment``, with launches per step and per eval
+    batch, and holds the first step's gradients against the plain path on
+    the card and the eval MSE against the CPU.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
-kernel.
+kernel, and the latent encoder's share of the latent train step.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists every kernel with its launches, error and times. Any failed check
-exits non-zero without that line, as does a machine without a CUDA device.
+lists every kernel with its launches, error, times and bound. A bound is
+the larger of the kernel's FP32 product FLOPs (counted from its shapes and
+this run's step counts) over the H100's 67 TFLOP/s and the bytes it must
+move (each input read once, each output written once) over 3.35 TB/s. Any
+failed check exits non-zero without that line, as does a machine without a
+CUDA device.
 """
 import json
 import os
@@ -59,6 +74,32 @@ BENCH = ["--model.solver.reltol=1e-4", "--model.solver.abstol=1e-4",
 TOLERANCES = (("mlp.yaml", []), ("bench", BENCH))
 N_BATCHES = 3
 TRAIN_STEPS = 5
+LATENT_CONFIG = "experiments/physionet/physionet.yaml"
+LATENT_TOL = 1.4e-8  # the rtol = atol of LATENT_CONFIG
+LATENT_STEPS = 3
+# NVIDIA H100 SXM, dense (NVIDIA's data sheet): FP32 outside the tensor
+# cores, and HBM3
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(flops, nbytes):
+    """The least time the card could take for work of ``flops`` FP32
+    operations that must move ``nbytes`` bytes: the larger of the two
+    times at the card's peaks, and which one it is."""
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None)
+
+
+def tdmlp_flops(b=B, f=F, h=H):
+    """Product FLOPs of one TD-MLP evaluation of b rows."""
+    return 2 * b * ((f + 1) * h + (h + 1) * f)
+
+
+def tdmlp_weight_bytes(f=F, h=H):
+    return 4 * ((f + 1) * h + h + (h + 1) * f + f)
 
 
 def check(ok, what):
@@ -177,7 +218,8 @@ def phase_kernels(device):
     check(raw() == 0, "tdmlp: raw launch failed")
     ms, plain = back_to_back_ms([raw, lambda: tdmlp_plain(w, x, 0.3)])
     call, = median_ms([lambda: fused_tdmlp(w, x, 0.3)])
-    res["tdmlp"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, call_ms=call)
+    res["tdmlp"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, call_ms=call,
+                        **bound(tdmlp_flops(), 8 * B * F + tdmlp_weight_bytes()))
 
     # kernel 2 — all nine outputs
     t = torch.tensor(0.2, device=device)
@@ -193,7 +235,9 @@ def phase_kernels(device):
     ms, plain = back_to_back_ms([raw, lambda: tsit5_step_plain(w, x, t, dt, k1)])
     call, = median_ms([lambda: fused_tsit5_step(w, x, t, dt, k1)])
     res["tsit5_step"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                             call_ms=call)
+                             call_ms=call,
+                             **bound(6 * tdmlp_flops(),
+                                     44 * B * F + tdmlp_weight_bytes()))
 
     # kernel 4 — the whole solve against the eager loop with the plain step
     saveat = torch.tensor([0.5, 1.0], device=device)
@@ -232,8 +276,13 @@ def phase_kernels(device):
         )
         print(f"[solve {name}] kernel {ms:.3f} ms, loop {plain:.3f} ms")
         if overrides:
+            # the kernel's six evaluations per attempt; in u0 and k1_0, out
+            # ys and y_final
             res["persistent_tsit5_solve"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, call_ms=ms
+                max_abs_err=err, ms=ms, plain_ms=plain, call_ms=ms,
+                **bound(6 * tdmlp_flops() * (fa - 2) // 6,
+                        4 * (3 + saveat.shape[0]) * B * F
+                        + tdmlp_weight_bytes()),
             )
     for name, r in res.items():
         print(f"[kernel {name}] max-abs {r['max_abs_err']:.3e} | device "
@@ -420,7 +469,11 @@ def phase_backward_kernels(device, w, x):
     check(raw() == 0, "step_bwd: raw launch failed")
     ms, plain = back_to_back_ms(
         [raw, lambda: fused_step_bwd_plain(w, x, t, dt, k1, cts)], n=50)
-    res["tsit5_step_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    # recompute six evaluations, transpose them (two products a stage) and
+    # the stage-batched weight gradients: 18 evaluations' products
+    res["tsit5_step_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                 **bound(18 * tdmlp_flops(),
+                                         52 * B * F + 2 * tdmlp_weight_bytes()))
     print(f"[step_bwd] bitwise-deterministic weight gradients; device "
           f"{ms:.4f} ms per launch, plain {plain:.4f} ms")
 
@@ -506,8 +559,13 @@ def phase_backward_kernels(device, w, x):
         [lambda: persistent_stored_sweep(*sweep_args(rec)),
          lambda: persistent_stored_sweep_plain(*sweep_args(rec))],
         n=10, warmup=1)
-    res["persistent_stored_sweep"] = dict(max_abs_err=err, ms=ms,
-                                          plain_ms=plain)
+    # per step k1, six stages, their transpose and the weight gradients:
+    # 19 evaluations' products; knots, saveat and final cotangents in
+    n_b = int(rec["naccept"])
+    res["persistent_stored_sweep"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        **bound(19 * n_b * tdmlp_flops(),
+                4 * (n_b + 1 + 3 + 2) * B * F + 2 * tdmlp_weight_bytes()))
     print(f"[sweep dense] bitwise-deterministic; {ms:.3f} ms, plain "
           f"{plain:.3f} ms")
 
@@ -550,8 +608,13 @@ def phase_backward_kernels(device, w, x):
          lambda: persistent_two_level_sweep_plain(
              *sweep_args(rec), *ckpt_args(rec), **tl, dense_cap=8)],
         n=5, warmup=1)
-    res["persistent_two_level_sweep"] = dict(max_abs_err=err, ms=ms,
-                                             plain_ms=plain)
+    # the window replay (six evaluations an attempt) and the sweep of its
+    # n steps; one checkpoint (u, k1) in
+    att = (int(rec["nfe"]) - 2) // 6
+    res["persistent_two_level_sweep"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        **bound((6 * att + 19 * n) * tdmlp_flops(),
+                4 * (2 + 3 + 2) * B * F + 2 * tdmlp_weight_bytes()))
     print(f"[sweep two-level] mlp.yaml tolerance with replay: {ms:.3f} ms, "
           f"plain {plain:.3f} ms")
     return res
@@ -873,7 +936,15 @@ def phase_sde_kernels(device, ode_w, ode_x):
     print(f"[sde solve] kernel {ms:.3f} ms per call back to back "
           f"({ms / ta:.4f} ms per attempt), one call {call:.3f} ms; loop "
           f"{plain:.3f} ms")
-    res["persistent_sde_solve"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    # four drift and four diffusion evaluations an attempt (the Brownian
+    # tree's integer and transcendental work is not counted); out ys,
+    # y_final and the knots (u, dW, dZ)
+    mlp_sde = 2 * B * (2 * Fs * 64 + Fs * Fs)
+    res["persistent_sde_solve"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        **bound(4 * ta * mlp_sde,
+                4 * ((1 + 3 + 3 * n + 1) * B * Fs
+                     + 2 * Fs * 64 + 64 + Fs * Fs + 2 * Fs)))
 
     # kernel 12 — on kernel 10's own knots
     g = torch.Generator(device=device).manual_seed(11)
@@ -901,7 +972,13 @@ def phase_sde_kernels(device, ode_w, ode_x):
     print(f"[sde sweep] kernel {ms:.3f} ms per call back to back "
           f"({ms / n:.4f} ms per step), one call {call:.3f} ms; plain "
           f"{plain:.3f} ms")
-    res["persistent_sde_sweep"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    # per step the stages' recompute, their transpose and the weight
+    # gradients (three times the step's products); knots and cotangents in
+    res["persistent_sde_sweep"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        **bound(12 * n * mlp_sde,
+                4 * ((3 * n + 1 + 3 + 1) * B * Fs
+                     + 2 * (2 * Fs * 64 + 64 + Fs * Fs + 2 * Fs))))
 
     # kernel 4's reservoir — the sample is the start of an accepted step.
     # Without rejects, accept k decides on uniform k, so the uniforms alone
@@ -1140,6 +1217,435 @@ def phase_ode_biased(device):
     return counts
 
 
+def _latent_setup(device, overrides=(), params=None):
+    """The PhysioNet latent ODE of LATENT_CONFIG with random weights from
+    its seed (or ``params``), its loss, its data splits and grid."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import (
+        construct_loss, construct_time_series, define_configuration,
+    )
+    from localregneuralde_tpu_torch.harness.latent_runner import (
+        build_physionet_arrays,
+    )
+
+    cfg = define_configuration(list(overrides), LATENT_CONFIG)
+    train, test, tgrid, _ = build_physionet_arrays(cfg)
+    model = construct_time_series(cfg, saveat=torch.from_numpy(tgrid),
+                                  device=device)
+    if params is not None:
+        model.load_state_dict(params)
+    return cfg, model, construct_loss(cfg), train, test, tgrid
+
+
+def _host_batch(arrays, device, n=B, shuffle=False):
+    """The first batch of n series as the runner's loader gives it."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import make_dataloader
+
+    loader = make_dataloader(arrays, n, shuffle=shuffle, cycle=True, seed=0)
+    return tuple(torch.from_numpy(a).to(device) for a in next(iter(loader)))
+
+
+def chain_flops(dims, b=B):
+    """Product FLOPs of one Dense-chain evaluation of b rows."""
+    return 2 * b * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+
+
+def phase_chain_kernels(device):
+    """Kernels 5 and 9 against their plain versions at the PhysioNet width,
+    on the encoder's latent states of 512 training series."""
+    import torch
+
+    from localregneuralde_tpu_torch.ode.step import tsit5_step
+    from localregneuralde_tpu_torch.ode.stored_adjoint import knot_layout
+    from localregneuralde_tpu_torch.ops.cuda import (
+        chain_eval, persistent_chain_solve, persistent_chain_solve_plain,
+        persistent_chain_sweep, persistent_chain_sweep_plain,
+    )
+
+    _, model, _, train, test, tgrid = _latent_setup(device)
+    node = model.neural_ode
+    params = [p.detach() for p in node.chain_params()]
+    chain = node.chain
+
+    def latents(arrays, n):
+        """The eval-mode latent states of the first n series."""
+        x = torch.cat(_host_batch(arrays, device, n=n), dim=-1)
+        with torch.no_grad():
+            st = model.init_state()
+            h = model.gru(x, st["gru"])[0]
+            h = model.rec_to_gen(h, st["rec_to_gen"])[0]
+            return model.reparam(h, st["reparam"])[0].contiguous()
+
+    u0 = latents(train, B)
+    Fc = u0.shape[1]
+    # the training solve's saveat: the 49-point grid (its first time is
+    # t0) and the regulariser's t1, appended unsorted
+    saveat = torch.cat([torch.from_numpy(tgrid), torch.tensor([0.37])]).to(
+        device)
+    n_save = saveat.shape[0]
+    print(f"[chain] B = {u0.shape[0]}, dims {chain.dims}, lead tanh "
+          f"{chain.lead}, {n_save} saveat times")
+    res = {}
+    for name, tol in (("rtol 1e-4", 1e-4), ("physionet.yaml", LATENT_TOL)):
+        kw = dict(rtol=tol, atol=tol, saveat_arr=saveat, max_steps=10000)
+        out = persistent_chain_solve(params, chain, u0, (0.0, 1.0), **kw)
+        ref = persistent_chain_solve_plain(params, chain, u0, (0.0, 1.0), **kw)
+        na, nb = int(out["naccept"]), int(ref["naccept"])
+        fa, fb = int(out["nfe"]), int(ref["nfe"])
+        err = max_abs(out["ys"], ref["ys"])
+        print(f"[chain solve {name}] kernel naccept {na} nreject "
+              f"{int(out['nreject'])} nfe {fa} | loop naccept {nb} nreject "
+              f"{int(ref['nreject'])} nfe {fb} | ys max-abs {err:.3e}")
+        check(bool(out["success"]) and bool(ref["success"]),
+              f"chain solve {name}: not successful")
+        check(torch.equal(out["ys"][0], u0), "chain solve: the t0 entry")
+        if tol == 1e-4:
+            # FP32 sums in another order: step for step up to an ulp-level
+            # accept flip
+            check(err <= 2e-4 and abs(na - nb) <= 1 and abs(fa - fb) <= 12,
+                  f"chain solve {name} disagrees with the loop")
+        else:
+            # below the f32 noise of ũ the step counts follow each side's
+            # summation order (ROADMAP Queue 3): a band, as for kernel 4
+            check(err <= 1e-4 and 0.75 <= na / nb <= 1.34,
+                  f"chain solve {name} disagrees with the loop")
+    a = persistent_chain_solve(params, chain, u0, (0.0, 1.0), **kw)
+    check(torch.equal(a["ys"], out["ys"]) and int(a["nfe"]) == fa,
+          "chain solve is not deterministic")
+    solve_err = err
+
+    # the eval path's own shape: the whole test split (410 series, so the
+    # last row block is partial) on the 49-point grid, as for the B = 512
+    # solve at the config's tolerance
+    u_ev = latents(test, test[0].shape[0])
+    kw_ev = dict(kw, saveat_arr=torch.from_numpy(tgrid).to(device))
+    out_ev = persistent_chain_solve(params, chain, u_ev, (0.0, 1.0), **kw_ev)
+    ref_ev = persistent_chain_solve_plain(params, chain, u_ev, (0.0, 1.0),
+                                          **kw_ev)
+    na_ev, nb_ev = int(out_ev["naccept"]), int(ref_ev["naccept"])
+    err_ev = max_abs(out_ev["ys"], ref_ev["ys"])
+    print(f"[chain solve eval] B = {u_ev.shape[0]}, {len(tgrid)} saveat "
+          f"times: kernel naccept {na_ev} nfe {int(out_ev['nfe'])} | loop "
+          f"naccept {nb_ev} nfe {int(ref_ev['nfe'])} | ys max-abs "
+          f"{err_ev:.3e}")
+    check(bool(out_ev["success"]) and bool(ref_ev["success"])
+          and torch.equal(out_ev["ys"][0], u_ev)
+          and err_ev <= 1e-4 and 0.75 <= na_ev / nb_ev <= 1.34,
+          "chain solve at the eval shape disagrees with the loop")
+    solve_err = max(solve_err, err_ev)
+
+    # the training forward: recording with the stored adjoint's layout
+    dense_cap, _, stride = knot_layout(10000)
+    rec_kw = dict(kw, record_knots=True, knot_dense_cap=dense_cap,
+                  knot_stride=stride)
+    rec = persistent_chain_solve(params, chain, u0, (0.0, 1.0), **rec_kw)
+    n = int(rec["naccept"])
+    check(n == na and int(rec["nfe"]) == fa
+          and torch.equal(rec["ys"], out["ys"])
+          and torch.equal(rec["y_final"], out["y_final"]),
+          "chain recording changed the solve")
+    f = lambda u, t, s: (chain_eval(params, chain, u), s)  # noqa: E731
+    ts = rec["knot_ts"]
+    step_err = 0.0
+    for j in range(n):
+        u = rec["knot_us"][j]
+        stp = tsit5_step(f, u, ts[j], ts[j + 1] - ts[j], f(u, 0, None)[0], None)
+        step_err = max(step_err, max_abs(stp.u_new, rec["knot_us"][j + 1]))
+    check(step_err <= 1e-5 and float(ts[0]) == 0.0 and float(ts[n]) == 1.0
+          and torch.equal(rec["knot_us"][n], rec["y_final"])
+          and torch.equal(rec["ckpt_us"][0], u0),
+          f"chain knots do not reconstruct their steps: {step_err}")
+    print(f"[chain record] {n} accepts; ys, y_final and NFE bitwise equal "
+          f"without recording; knots reconstruct their steps to "
+          f"{step_err:.2e}; bitwise deterministic")
+
+    # kernel 9 on kernel 5's own knots
+    g = torch.Generator(device=device).manual_seed(13)
+    ct_ys = torch.randn((n_save, u0.shape[0], Fc), generator=g, device=device)
+    ct_y = torch.randn(u0.shape, generator=g, device=device)
+    args = (params, chain, rec["knot_ts"], rec["knot_us"], rec["naccept"],
+            saveat, ct_ys, ct_y)
+    ctx = {k: rec[k] for k in rec if k.startswith("ckpt_")}
+    ctx.update(t_end=1.0, rtol=LATENT_TOL, atol=LATENT_TOL, max_steps=10000,
+               stride=stride, dense_cap=dense_cap)
+    flat = lambda o: [o[0], o[1], *o[2]]  # noqa: E731
+    dense = persistent_chain_sweep(*args, two_level_ctx=ctx)
+    plain = persistent_chain_sweep_plain(*args, two_level_ctx=ctx)
+    rel = max(rel_err(p, q) for p, q in zip(flat(dense), flat(plain)))
+    sweep_err = max(max_abs(p, q) for p, q in zip(flat(dense), flat(plain)))
+    again = persistent_chain_sweep(*args, two_level_ctx=ctx)
+    bitwise = all(torch.equal(p, q) for p, q in zip(flat(again), flat(dense)))
+    print(f"[chain sweep dense] {n} steps: relative max-abs vs plain "
+          f"{rel:.3e}, bitwise deterministic {bitwise}")
+    check(rel <= 1e-4 and bitwise, f"chain sweep vs plain: {rel}")
+    # the two-level branch, forced with a dense capacity of 8: the replay
+    # repeats kernel 5's windows bitwise
+    check(n > 8, "the chain solve is too short to force the replay")
+    win, replay = persistent_chain_sweep(*args, two_level_ctx=dict(
+        ctx, dense_cap=8), return_replay=True)
+    m = min(n, stride)
+    check(torch.equal(replay[:m + 1], rec["knot_us"][:m + 1]),
+          "the chain replay does not repeat the forward bitwise")
+    rel_w = max(rel_err(p, q) for p, q in zip(flat(win), flat(dense)))
+    print(f"[chain sweep two-level] {n} accepts replayed from "
+          f"{(n - 1) // stride + 1} checkpoint(s), bitwise equal to the "
+          f"dense knots; gradients vs the dense branch relative max-abs "
+          f"{rel_w:.3e}, bitwise "
+          f"{all(torch.equal(p, q) for p, q in zip(flat(win), flat(dense)))}")
+    check(rel_w <= 1e-6, f"chain two-level sweep vs dense: {rel_w}")
+
+    # device times: back to back, and one call between CUDA events
+    solve = lambda: persistent_chain_solve(  # noqa: E731
+        params, chain, u0, (0.0, 1.0), **rec_kw)
+    sweep = lambda: persistent_chain_sweep(  # noqa: E731
+        *args, two_level_ctx=ctx)
+    solve_b2b, sweep_b2b = back_to_back_ms([solve, sweep], n=20, warmup=2)
+    solve_call, sweep_call = median_ms([solve, sweep], n=10, warmup=1)
+    solve_plain, sweep_plain = median_ms(
+        [lambda: persistent_chain_solve_plain(params, chain, u0, (0.0, 1.0),
+                                              **rec_kw),
+         lambda: persistent_chain_sweep_plain(*args, two_level_ctx=ctx)],
+        n=3, warmup=1)
+    att = (fa - 2) // 6
+    print(f"[chain solve] recording at {LATENT_TOL}: kernel {solve_b2b:.3f} ms "
+          f"per call back to back ({solve_b2b / att:.4f} ms per attempt), one "
+          f"call {solve_call:.3f} ms; loop {solve_plain:.3f} ms")
+    print(f"[chain sweep] kernel {sweep_b2b:.3f} ms per call back to back "
+          f"({sweep_b2b / n:.4f} ms per step), one call {sweep_call:.3f} ms; "
+          f"plain {sweep_plain:.3f} ms")
+    n_params = sum(p.numel() for p in params)
+    BF = u0.numel()
+    # in u0, k1_0 and the weights; out ys, y_final, the knots and the
+    # checkpoints (u, k1) written
+    res["persistent_chain_solve"] = dict(
+        max_abs_err=solve_err, ms=solve_b2b, plain_ms=solve_plain,
+        call_ms=solve_call,
+        **bound(6 * att * chain_flops(chain.dims),
+                4 * ((2 + n_save + 1 + n + 1 + 2 * (n // stride + 1)) * BF
+                     + n_params)))
+    # per step k1, six stages, their transpose and the weight gradients
+    # (19 evaluations' products); in the knots, the cotangents and the
+    # weights, out a_u, a_k and the gradients
+    res["persistent_chain_sweep"] = dict(
+        max_abs_err=sweep_err, ms=sweep_b2b, plain_ms=sweep_plain,
+        call_ms=sweep_call,
+        **bound(19 * n * chain_flops(chain.dims),
+                4 * ((n + 1 + n_save + 1 + 2) * BF + 2 * n_params)))
+    return res
+
+
+def phase_latent(device, profile=False):
+    """physionet.yaml as shipped through the port's latent runner: three
+    train steps and one eval pass, with launches per step and per eval
+    batch; then the first step's gradients against the plain path and the
+    eval MSE against the CPU."""
+    import tempfile
+
+    import torch
+
+    from localregneuralde_tpu_torch.harness import (
+        define_configuration, latent_runner,
+    )
+    from localregneuralde_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts,
+    )
+
+    steps, evals = [], []
+    make, evaluate = latent_runner.make_train_step, latent_runner.eval_forward
+
+    def delta(before):
+        after = launch_counts()
+        return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    def timed_make(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(ts, batch, w, lr):
+            torch.cuda.synchronize()
+            before, t0 = launch_counts(), time.perf_counter()
+            ts, loss, stats = step(ts, batch, w, lr)
+            torch.cuda.synchronize()
+            steps.append((1e3 * (time.perf_counter() - t0), delta(before),
+                          loss, stats))
+            return ts, loss, stats
+
+        return timed
+
+    def timed_eval(model, ts, batch):
+        torch.cuda.synchronize()
+        before, t0 = launch_counts(), time.perf_counter()
+        mse, nfe = evaluate(model, ts, batch)
+        torch.cuda.synchronize()
+        evals.append((1e3 * (time.perf_counter() - t0), delta(before),
+                      float(mse), int(nfe), int(batch[0].shape[0])))
+        return mse, nfe
+
+    latent_runner.make_train_step = timed_make
+    latent_runner.eval_forward = timed_eval
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = define_configuration([
+                f"--train.total_steps={LATENT_STEPS}",
+                "--train.print_frequency=1",
+                f"--train.evaluate_every={LATENT_STEPS}",
+                f"--train.checkpoint_dir={tmp}/ckpt",
+                f"--train.log_dir={tmp}/logs",
+            ], LATENT_CONFIG)
+            torch.cuda.synchronize()
+            # --- the main path: every launch from here to launch_counts()
+            reset_launch_counts()
+            summary = latent_runner.run_latent_ode_experiment(cfg, "physionet")
+            counts = launch_counts()
+    finally:
+        latent_runner.make_train_step = make
+        latent_runner.eval_forward = evaluate
+
+    want = {"persistent_chain_solve": 1, "persistent_chain_sweep": 1}
+    for i, (ms, c, loss, stats) in enumerate(steps):
+        nfe = int(stats["nfe"])
+        print(f"[latent train] step {i + 1}: {ms:.3f} ms, nfe {nfe}, "
+              f"{nfe / (ms / 1e3):.1f} dynamics evals/s | loss "
+              f"{float(loss):.6f} nll {float(stats['neg_log_likelihood']):.6f}"
+              f" kl {float(stats['kl_div']):.6f} reg_val "
+              f"{float(stats['reg_val']):.6e} success "
+              f"{bool(stats['solver_success'])} | launches {c}")
+        check(bool(torch.isfinite(loss)) and bool(stats["solver_success"])
+              and 0 < float(stats["reg_val"]) < float("inf"),
+              f"latent train step {i + 1}: bad output")
+        check(c == want, f"latent train step {i + 1}: launches {c}, "
+              f"expected {want}")
+    for ms, c, mse, nfe, bs in evals:
+        print(f"[latent eval] batch of {bs}: masked MSE {mse:.6f}, nfe {nfe}, "
+              f"{ms:.3f} ms, {bs / (ms / 1e3):.1f} series/s | launches {c}")
+        check(c == {"persistent_chain_solve": 1} and mse == mse,
+              f"latent eval: launches {c}, mse {mse}")
+    check(len(steps) == LATENT_STEPS and len(evals) == 1
+          and abs(summary["final_eval_mse"] - evals[0][2])
+          <= 1e-12 * evals[0][2],
+          f"latent runner: {len(steps)} steps, {len(evals)} eval batches, "
+          f"summary {summary}")
+    print(f"[latent] runner summary {summary}; launch counts "
+          f"{ {k: v for k, v in counts.items() if v} }")
+
+    # the first step's gradients against the plain path on the card, with
+    # the same draws (t1 and ε from the same seeds); w_reg = 0: at the
+    # config's tolerance the regulariser is f32 noise (ROADMAP Queue 3)
+    from localregneuralde_tpu_torch.harness.latent_runner import eval_forward
+
+    for name, over in (("rtol 1e-4", ["--model.solver.reltol=1e-4",
+                                      "--model.solver.abstol=1e-4"]),
+                       ("physionet.yaml", [])):
+        _, model, (loss_fn, _), train, test, _ = _latent_setup(device, over)
+        sd = model.state_dict()
+        _, plain_model, (plain_loss, _), _, _, _ = _latent_setup(
+            device, over + ["--model.use_pallas=off"], sd)
+        batch = _host_batch(train, device, shuffle=True)
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        w = (0.0, 0.5)
+        _, s_o, g_o = _grads(model, loss_fn, params, batch, w)
+        _, s_r, g_r = _grads(plain_model, plain_loss, params, batch, w)
+        n_o, n_r = int(s_o["nfe"]), int(s_r["nfe"])
+        nll_o = float(s_o["neg_log_likelihood"].detach())
+        nll_r = float(s_r["neg_log_likelihood"].detach())
+        head = (f"[latent train {name}] first step vs the card's plain path:"
+                f" NFE {n_o} vs {n_r}, NLL {nll_o:.6f} vs {nll_r:.6f}, "
+                f"reg_val {float(s_o['reg_val'].detach()):.6e} vs "
+                f"{float(s_r['reg_val'].detach()):.6e}")
+        check(abs(nll_o - nll_r) <= 1e-5 * max(1.0, abs(nll_r)),
+              f"latent {name}: NLL disagrees with the plain path")
+        if n_o != n_r:
+            check(name != "rtol 1e-4",
+                  f"latent {name}: NFE {n_o} vs {n_r}")
+            print(f"{head}; the step sequences differ (f32 noise in the "
+                  f"error estimate), gradients not compared")
+            continue
+        rel = max(rel_err(g_o[k], g_r[k]) for k in g_o)
+        print(f"{head}; gradients of NLL + 0.5 KL relative max-abs {rel:.3e}")
+        check(rel <= 1e-3, f"latent {name}: gradients disagree: {rel}")
+    # 8 test series: the card's kernel path against the CPU
+    cpu = _latent_setup("cpu", [], {k: v.cpu() for k, v in sd.items()})[1]
+    small = _host_batch(test, device, n=8)
+    from localregneuralde_tpu_torch.harness import create_train_state
+
+    mse_card, nfe_card = eval_forward(model, create_train_state(model), small)
+    mse_cpu, nfe_cpu = eval_forward(cpu, create_train_state(cpu),
+                                    tuple(a.cpu() for a in small))
+    print(f"[latent eval] 8 series, card kernel vs CPU plain: masked MSE "
+          f"{float(mse_card):.7f} vs {float(mse_cpu):.7f}, nfe "
+          f"{int(nfe_card)} vs {int(nfe_cpu)}")
+    check(abs(float(mse_card) - float(mse_cpu)) <= 1e-4 * float(mse_cpu),
+          "latent eval: the card disagrees with the CPU")
+    if profile:
+        _profile_latent(device)
+    return counts
+
+
+def _profile_latent(device):
+    """Device time by kernel over three latent train steps, and the
+    encoder's share of a step (its 49 eager GRU steps, forward and
+    autograd)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from localregneuralde_tpu_torch.harness import (
+        construct_optimizer, create_train_state, make_train_step,
+    )
+
+    cfg, model, (loss_fn, (w_reg, w_kl)), train, _, _ = _latent_setup(device)
+    opt, sched = construct_optimizer(cfg)
+    ts = create_train_state(model, opt)
+    step = make_train_step(model, loss_fn, opt)
+    batch = _host_batch(train, device, shuffle=True)
+    w = (w_reg(1), w_kl(1))
+    ts, _, _ = step(ts, batch, w, sched(1))  # first-call set-up
+    # the step, and the encoder alone (its forward and the backward of its
+    # output), in turns on the same host
+    x = torch.cat(batch, dim=-1)
+    enc = [p for n, p in model.named_parameters() if n.startswith("gru.")]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    times = []
+    for i in range(10):
+        (ts, _, _), t_step = timed(lambda: step(ts, batch, w, sched(i + 2)))
+        y, t_fwd = timed(lambda: model.gru(x, model.init_state()["gru"])[0])
+        _, t_bwd = timed(lambda: torch.autograd.grad(y.sum(), enc))
+        times.append((t_step, t_fwd, t_bwd,
+                      100 * (t_fwd + t_bwd) / t_step))
+    spread = [(min(t), statistics.median(t), max(t)) for t in zip(*times)]
+    (step_ms, fwd_ms, bwd_ms, share) = (
+        "{:.3f} / {:.3f} / {:.3f}".format(*s) for s in spread)
+    print(f"[profile latent] without the profiler, 10 rounds in turns, min / "
+          f"median / max: train step {step_ms} ms; the encoder alone (49 "
+          f"eager GRU steps) forward {fwd_ms} ms, backward {bwd_ms} ms; "
+          f"encoder share of its round's step {share}%")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3):
+            ts, loss, _ = step(ts, batch, w, sched(i + 7))
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / 3
+    rows = [(e.key, e.device_time_total / 1e3 / 3, e.count / 3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f"[profile latent] {wall:.3f} ms per train step under the "
+          f"profiler, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
+    for key, ms, cnt in rows[:14]:
+        print(f"[profile latent]   {ms:9.3f} ms  x{cnt:6.1f}  {key[:90]}")
+
+
 def main():
     import torch
 
@@ -1162,6 +1668,15 @@ def main():
     path_counts.append(phase_sde_serving(device))
     path_counts.append(phase_sde_train(device, profile=profile))
     path_counts.append(phase_ode_biased(device))
+    res.update(phase_chain_kernels(device))
+    path_counts.append(phase_latent(device, profile=profile))
+    for name in ("persistent_chain_solve", "persistent_chain_sweep"):
+        r = res[name]
+        print(f"[kernel {name}] max-abs {r['max_abs_err']:.3e} | device time "
+              f"per call back to back {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms | one wrapper call "
+              f"{r.pop('call_ms'):.4f} ms | bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
     # each path's launches were counted from zero just before it ran
     counts = {k: sum(c[k] for c in path_counts) for k in path_counts[0]}
     check(all(v > 0 for v in counts.values()),
@@ -1190,6 +1705,12 @@ def main():
         "persistent_sde_sweep": (
             "localregneuralde_tpu_torch/csrc/sde_sweep.cu",
             "localregneuralde_tpu/ops/pallas/fused_sde_sweep.py:68"),
+        "persistent_chain_solve": (
+            "localregneuralde_tpu_torch/csrc/chain_solve.cu",
+            "localregneuralde_tpu/ops/pallas/fused_solve.py:865"),
+        "persistent_chain_sweep": (
+            "localregneuralde_tpu_torch/csrc/chain_sweep.cu",
+            "localregneuralde_tpu/ops/pallas/fused_solve_bwd.py:850"),
     }
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -7,11 +7,21 @@ batch-major ``(B, F)``, a Dense weight is ``(in, out)``, and the time channel
 is the last input row. The JAX package is the reference the port is tested
 against; this package never imports JAX.
 
-Ported so far: the serving and training paths of the MNIST MLP Neural ODE
-(the unbiased local regulariser, the stored adjoint, the optimizers and the
-train step), with hand-written CUDA kernels (``csrc/``) for the TD-MLP
-evaluation, the Tsit5 step and its VJP, the persistent adaptive solve with
-knot recording, and the dense and two-level adjoint sweeps.
+Ported so far, with hand-written CUDA kernels (``csrc/``) on every path:
+
+- the serving and training paths of the MNIST MLP Neural ODE (the unbiased
+  and biased local regulariser, the stored adjoint, the optimizers and the
+  train step): the TD-MLP evaluation, the Tsit5 step and its VJP, the
+  persistent adaptive solve with knot recording and the reservoir, and the
+  dense and two-level adjoint sweeps;
+- the MNIST Neural SDE, serving and training: the persistent SRI/SOSRI
+  solve with its Brownian tree and the SDE adjoint sweep;
+- the PhysioNet latent ODE, training and evaluation through its runner
+  (``harness/latent_runner.py``): the persistent solve and the dense and
+  two-level sweep of its Dense-chain dynamics.
+
+The entry points build on the CUDA device unless the caller passes
+``device="cpu"``.
 
 Importing the package turns TF32 off for matmuls and cuDNN: the solver's
 embedded error estimate is a cancelling sum that TF32 rounding swamps at

@@ -17,7 +17,7 @@
 //
 // Two-level mode, when naccept > dense_cap: one W-step window at a time, in
 // reverse, every CTA replays the window from its checkpoint with the forward
-// kernel's own attempt (solve.cuh::attempt_eest, one grid barrier per
+// kernel's own attempt (solve.cuh::replay_window, one grid barrier per
 // attempt, so this mode is a cooperative launch), recording the accepted
 // states of its rows, and then sweeps the count the replay actually
 // accepted, min(replayed, n_steps). The replay repeats the forward's accept
@@ -67,12 +67,6 @@ struct StepWeights {
   float wt[kMaxSave][7];  // dt·b_m(θ_s)·hit_s
   float hit[kMaxSave];
   float t, dt;
-};
-
-struct ReplayCtl {
-  float t, dt, qold;
-  AttemptPlan plan;
-  int i, att, accept;
 };
 
 // Transpose accepted steps n_hi-1 .. 0 whose start times are ts[j] and start
@@ -185,49 +179,13 @@ adjoint_sweep_kernel(SweepArgs a) {
   unsigned int epoch = 0;
   for (int w = (n - 1) / W; w >= 0; --w) {
     const int n_steps = min(max(n - w * W, 0), W);
-    copy_rows(bufs.u, a.ckpt_us + w * BF, B, F);
-    copy_rows(bufs.k, a.ckpt_ks + w * BF, B, F);
-    copy_rows(a.local_us, a.ckpt_us + w * BF, B, F);
-    if (tid == 0) {
-      ctl.t = a.ckpt_ts[w];
-      ctl.dt = a.ckpt_dts[w];
-      ctl.qold = a.ckpt_qolds[w];
-      ctl.i = ctl.att = 0;
-      lts[0] = ctl.t;
-    }
-    __syncthreads();
-    while (ctl.i < n_steps && ctl.att < a.max_steps) {
-      if (tid == 0) ctl.plan = plan_attempt(ctl.t, ctl.dt, a.t_end);
-      __syncthreads();
-      const float eest = attempt_eest(a.w, bs.base, bufs, ctl.t,
-                                      ctl.plan.dt_c, a.atol, a.rtol, a.inv_n,
-                                      a.slots, a.barrier, epoch, NoHook{});
-      if (tid == 0) {
-        const bool accept = eest <= 1.f;
-        float dt_acc, dt_rej, qold_acc;
-        propose(eest, ctl.plan.dt_c, ctl.qold, &dt_acc, &dt_rej, &qold_acc);
-        ctl.accept = accept;
-        if (accept) {
-          ctl.t = ctl.plan.t_new;
-          ctl.dt = dt_acc;
-          ctl.qold = qold_acc;
-          ++ctl.i;
-          lts[ctl.i] = ctl.t;
-        } else {
-          ctl.dt = dt_rej;
-        }
-        ++ctl.att;
-      }
-      __syncthreads();
-      if (ctl.accept) {
-        commit_rows(bufs, F);
-        copy_rows(a.local_us + ctl.i * BF, bufs.u, B, F);
-      }
-      __syncthreads();
-    }
+    const int got = replay_window(
+        a.w, bs.base, bufs, a.ckpt_ts, a.ckpt_us, a.ckpt_ks, a.ckpt_dts,
+        a.ckpt_qolds, w, n_steps, a.max_steps, a.t_end, a.atol, a.rtol,
+        a.inv_n, a.slots, a.barrier, epoch, ctl, lts, a.local_us);
     // sweep what the replay accepted: an accept flip must not sweep slots
     // it never wrote
-    sweep_range(a, bs, sw, min(ctl.i, n_steps), lts, a.local_us, g);
+    sweep_range(a, bs, sw, min(got, n_steps), lts, a.local_us, g);
   }
 }
 

@@ -2,14 +2,17 @@
 // controller, the Tsit5 interpolant weights and ONE ATTEMPT of the adaptive
 // loop over the whole batch.
 //
-// The persistent forward solve (persistent_solve.cu, kernel 4) and the
-// two-level window replay of the adjoint sweep (adjoint_sweep.cu, kernel 8)
-// both call attempt_eest(), the counterpart of the reference's
-// fused_solve.py::run_attempt_tiles. Each row block's squared scaled
-// residuals go into a slot of its own, and thread 0 of every CTA sums the
-// slots in row-block order, so the error norm does not depend on the grid
-// size or on which CTA ran which row block. A replay from a checkpoint
-// therefore repeats its forward's accept decisions and dt sequence bitwise.
+// The persistent forward solves (persistent.cuh: kernel 4 for the TD-MLP,
+// kernel 5 for the Dense chain) and the two-level window replays of the
+// adjoint sweeps (replay_window: kernel 8 in adjoint_sweep.cu, kernel 9 in
+// chain_sweep.cu) all call attempt_eest(), the counterpart of the
+// reference's fused_solve.py::run_attempt_tiles, templated on the dynamics
+// type (tdmlp.cuh::TDMLP, chain.cuh::DenseChain). Each row block's squared
+// scaled residuals go into a slot of its own, and thread 0 of every CTA
+// sums the slots in row-block order, so the error norm does not depend on
+// the grid size or on which CTA ran which row block. A replay from a
+// checkpoint therefore repeats its forward's accept decisions and dt
+// sequence bitwise.
 #pragma once
 
 #include "tdmlp.cuh"
@@ -113,25 +116,27 @@ struct NoHook {
 };
 
 // One attempt over the whole batch from (u, t) with step dt_c: every CTA
-// runs the Tsit5 step of its row blocks, calls hook(rb, rows, nrows) after
-// each, stores the row block's error partial into its slot, then waits at
-// the grid barrier. Returns the scaled error norm in thread 0 (0 elsewhere).
-// The slots are double-buffered by the parity of the barrier count, so a
-// CTA that runs ahead into the next attempt never overwrites slots another
-// is still summing.
-template <typename Hook>
-__device__ inline float attempt_eest(const TDMLP& w, const Smem& sm,
+// runs the Tsit5 step of the dynamics D (tdmlp.cuh::tsit5_rows) on its row
+// blocks of D::rows rows, calls hook(rb, rows, nrows) after each, stores the
+// row block's error partial into its slot, then waits at the grid barrier.
+// Returns the scaled error norm in thread 0 (0 elsewhere). The slots are
+// double-buffered by the parity of the barrier count, so a CTA that runs
+// ahead into the next attempt never overwrites slots another is still
+// summing.
+template <typename D, typename Hook>
+__device__ inline float attempt_eest(const D& w, const typename D::Shared& sm,
                                      const AttemptBufs& b, float t,
                                      float dt_c, float atol, float rtol,
                                      float inv_n, float* slots,
                                      unsigned int* barrier,
                                      unsigned int& epoch, Hook hook) {
+  constexpr int R = D::rows;
   const int F = w.F;
-  const int n_blocks = (b.B + kRows - 1) / kRows;
+  const int n_blocks = (b.B + R - 1) / R;
   float* const s = slots + (epoch & 1u) * n_blocks;
   for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
-    const size_t off = static_cast<size_t>(rb) * kRows * F;
-    const int nrows = min(kRows, b.B - rb * kRows);
+    const size_t off = static_cast<size_t>(rb) * R * F;
+    const int nrows = min(R, b.B - rb * R);
     StepRows p;
     p.u = b.u + off;
     for (int j = 0; j < 7; ++j) p.k[j] = b.k + j * b.BF + off;
@@ -155,12 +160,14 @@ __device__ inline float attempt_eest(const TDMLP& w, const Smem& sm,
 
 // Commit an accepted attempt for this CTA's row blocks: u <- unew and
 // k1 <- k7.
+template <typename D = TDMLP>
 __device__ inline void commit_rows(const AttemptBufs& b, int F) {
-  const int n_blocks = (b.B + kRows - 1) / kRows;
+  constexpr int R = D::rows;
+  const int n_blocks = (b.B + R - 1) / R;
   for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
-    const size_t off = static_cast<size_t>(rb) * kRows * F;
-    const int n = min(kRows, b.B - rb * kRows) * F;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
+    const size_t off = static_cast<size_t>(rb) * R * F;
+    const int n = min(R, b.B - rb * R) * F;
+    for (int i = threadIdx.x; i < n; i += D::threads) {
       b.u[off + i] = b.unew[off + i];
       b.k[off + i] = b.k[6 * b.BF + off + i];
     }
@@ -168,18 +175,88 @@ __device__ inline void commit_rows(const AttemptBufs& b, int F) {
 }
 
 // Copy this CTA's row blocks of src (B, F) to dst (B, F).
+template <typename D = TDMLP>
 __device__ inline void copy_rows(float* dst, const float* src, int B, int F) {
-  const int n_blocks = (B + kRows - 1) / kRows;
+  constexpr int R = D::rows;
+  const int n_blocks = (B + R - 1) / R;
   for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
-    const size_t off = static_cast<size_t>(rb) * kRows * F;
-    const int n = min(kRows, B - rb * kRows) * F;
-    for (int i = threadIdx.x; i < n; i += kThreads) dst[off + i] = src[off + i];
+    const size_t off = static_cast<size_t>(rb) * R * F;
+    const int n = min(R, B - rb * R) * F;
+    for (int i = threadIdx.x; i < n; i += D::threads) dst[off + i] = src[off + i];
   }
 }
 
-// Cooperative launch of a whole-grid kernel: one CTA per row block, capped
-// at what can be co-resident; the launch refuses a grid that cannot be.
-template <typename Kernel, typename Args>
+// The controller state of a two-level window replay (adjoint sweeps).
+struct ReplayCtl {
+  float t, dt, qold;
+  AttemptPlan plan;
+  int i, att, accept;
+};
+
+// Replay window w of a two-level solve from its checkpoint: re-run the
+// forward's attempts (attempt_eest at the forward's row blocking) until
+// n_steps are accepted or max_steps attempted, recording the accepted
+// states of this CTA's rows in local_us (W + 1, B, F) and their times in
+// lts (thread 0 of each CTA keeps its own copy). The replay repeats the
+// forward's accept decisions and dt sequence bitwise. Returns the number
+// of steps accepted.
+template <typename D>
+__device__ inline int replay_window(
+    const D& w, const typename D::Shared& sm, const AttemptBufs& bufs,
+    const float* ckpt_ts, const float* ckpt_us, const float* ckpt_ks,
+    const float* ckpt_dts, const float* ckpt_qolds, int win, int n_steps,
+    int max_steps, float t_end, float atol, float rtol, float inv_n,
+    float* slots, unsigned int* barrier, unsigned int& epoch,
+    ReplayCtl& ctl, float* lts, float* local_us) {
+  const int B = bufs.B, F = w.F, tid = threadIdx.x;
+  const size_t BF = bufs.BF;
+  copy_rows<D>(bufs.u, ckpt_us + win * BF, B, F);
+  copy_rows<D>(bufs.k, ckpt_ks + win * BF, B, F);
+  copy_rows<D>(local_us, ckpt_us + win * BF, B, F);
+  if (tid == 0) {
+    ctl.t = ckpt_ts[win];
+    ctl.dt = ckpt_dts[win];
+    ctl.qold = ckpt_qolds[win];
+    ctl.i = ctl.att = 0;
+    lts[0] = ctl.t;
+  }
+  __syncthreads();
+  while (ctl.i < n_steps && ctl.att < max_steps) {
+    if (tid == 0) ctl.plan = plan_attempt(ctl.t, ctl.dt, t_end);
+    __syncthreads();
+    const float eest = attempt_eest(w, sm, bufs, ctl.t, ctl.plan.dt_c, atol,
+                                    rtol, inv_n, slots, barrier, epoch,
+                                    NoHook{});
+    if (tid == 0) {
+      const bool accept = eest <= 1.f;
+      float dt_acc, dt_rej, qold_acc;
+      propose(eest, ctl.plan.dt_c, ctl.qold, &dt_acc, &dt_rej, &qold_acc);
+      ctl.accept = accept;
+      if (accept) {
+        ctl.t = ctl.plan.t_new;
+        ctl.dt = dt_acc;
+        ctl.qold = qold_acc;
+        ++ctl.i;
+        lts[ctl.i] = ctl.t;
+      } else {
+        ctl.dt = dt_rej;
+      }
+      ++ctl.att;
+    }
+    __syncthreads();
+    if (ctl.accept) {
+      commit_rows<D>(bufs, F);
+      copy_rows<D>(local_us + ctl.i * BF, bufs.u, B, F);
+    }
+    __syncthreads();
+  }
+  return ctl.i;
+}
+
+// Cooperative launch of a whole-grid kernel: one CTA of D::threads threads
+// per row block of D::rows rows, capped at what can be co-resident; the
+// launch refuses a grid that cannot be.
+template <typename D = TDMLP, typename Kernel, typename Args>
 inline cudaError_t launch_cooperative(Kernel kernel, Args* args, int B,
                                       size_t smem, cudaStream_t stream,
                                       int* grid_out) {
@@ -189,15 +266,15 @@ inline cudaError_t launch_cooperative(Kernel kernel, Args* args, int B,
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+                                                      D::threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int n_blocks = (B + kRows - 1) / kRows;
+  const int n_blocks = (B + D::rows - 1) / D::rows;
   const int grid = min(n_blocks, per_sm * n_sm);
   if (grid_out != nullptr) *grid_out = grid;
   void* kargs[] = {args};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(grid), dim3(kThreads), kargs, smem,
+                                    dim3(grid), dim3(D::threads), kargs, smem,
                                     stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

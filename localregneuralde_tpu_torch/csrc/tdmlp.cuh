@@ -77,7 +77,15 @@ constexpr float BT5 = static_cast<float>(0.5823571654525552);
 constexpr float BT6 = static_cast<float>(-0.45808210592918697);
 constexpr float BT7 = static_cast<float>(0.015151515151515152);
 
+struct Smem;
+
+// A dynamics type of the Tsit5 attempt code (tsit5_rows, solve.cuh) names
+// its row blocking (rows per CTA, threads per CTA) and its shared memory
+// type, and has an eval_rows() overload.
 struct TDMLP {
+  static constexpr int rows = kRows;
+  static constexpr int threads = kThreads;
+  using Shared = Smem;
   const float* w1;  // (F + 1, H)
   const float* b1;  // (H)
   const float* w2;  // (H + 1, F)
@@ -116,6 +124,18 @@ __device__ inline Smem carve_smem(float* base, int F, int H) {
   s.red = s.hid + static_cast<size_t>(H) * kRows;
   return s;
 }
+
+// The dynamics-type interface of persistent.cuh: the TD-MLP reads its
+// weights from L2 and keeps nothing in shared memory for the whole solve.
+__host__ __device__ inline size_t shared_floats(const TDMLP& w) {
+  return smem_floats(w.F, w.H);
+}
+
+__device__ inline Smem carve_shared(const TDMLP& w, float* raw) {
+  return carve_smem(raw, w.F, w.H);
+}
+
+__device__ inline void load_shared(const TDMLP&, const Smem&) {}
 
 // Load rows [0, nrows) of x (row-major, stride F) into sm.xs; rows past
 // nrows are zero.
@@ -200,14 +220,20 @@ __device__ inline void tdmlp_rows(const TDMLP& w, const Smem& sm, float s,
   }
 }
 
+__device__ inline void eval_rows(const TDMLP& w, const Smem& sm, float s,
+                                 float* out, int nrows) {
+  tdmlp_rows(w, sm, s, out, nrows);
+}
+
 // Stage input u + dt·(a[0]·k[0] + ... + a[N-1]·k[N-1]) of the row block into
-// sm.xs (summed left to right, as the reference does); also stored row-major
-// into `keep` when it is not null.
-template <int N>
-__device__ inline void stage_input(const Smem& sm, const float* u,
+// xs ([F][D::rows], transposed; summed left to right, as the reference
+// does); also stored row-major into `keep` when it is not null.
+template <typename D, int N>
+__device__ inline void stage_input(float* xs, const float* u,
                                    const float* const* k, const float (&a)[N],
                                    float dt, int F, int nrows, float* keep) {
-  for (int i = threadIdx.x; i < kRows * F; i += kThreads) {
+  constexpr int R = D::rows;
+  for (int i = threadIdx.x; i < R * F; i += D::threads) {
     const int r = i / F, c = i - r * F;
     float v = 0.f;
     if (r < nrows) {
@@ -218,15 +244,18 @@ __device__ inline void stage_input(const Smem& sm, const float* u,
       v = u[o] + dt * acc;
       if (keep != nullptr) keep[o] = v;
     }
-    sm.xs[c * kRows + r] = v;
+    xs[c * R + r] = v;
   }
 }
 
-// Sum of v over the CTA in a fixed tree order; every thread gets the sum.
+// Sum of v over the CTA of T threads in a fixed tree order; every thread
+// gets the sum.
+template <int T>
 __device__ inline float block_sum(float v, float* red) {
+  static_assert((T & (T - 1)) == 0, "block_sum needs a power of two");
   red[threadIdx.x] = v;
   __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
+  for (int s = T / 2; s > 0; s >>= 1) {
     if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
     __syncthreads();
   }
@@ -247,10 +276,11 @@ struct StepRows {
 };
 
 // One Tsit5 step of the row block from (u, t) with step dt: the six stage
-// evaluations, u_new, and optionally ũ and g6. With want_err it returns the
-// block's Σ (ũ / (atol + max(|u|, |u_new|)·rtol))² to every thread, summed
-// in a fixed order; otherwise 0.
-__device__ inline float tsit5_rows(const TDMLP& w, const Smem& sm,
+// evaluations of the dynamics D (eval_rows), u_new, and optionally ũ and g6.
+// With want_err it returns the block's Σ (ũ / (atol + max(|u|,
+// |u_new|)·rtol))² to every thread, summed in a fixed order; otherwise 0.
+template <typename D>
+__device__ inline float tsit5_rows(const D& w, const typename D::Shared& sm,
                                    const StepRows& p, float t, float dt,
                                    int nrows, bool want_err, float atol,
                                    float rtol) {
@@ -258,48 +288,48 @@ __device__ inline float tsit5_rows(const TDMLP& w, const Smem& sm,
   const float* k[7] = {p.k[0], p.k[1], p.k[2], p.k[3], p.k[4], p.k[5], p.k[6]};
   {
     const float a[1] = {A21};
-    stage_input(sm, p.u, k, a, dt, F, nrows, nullptr);
+    stage_input<D>(sm.xs, p.u, k, a, dt, F, nrows, nullptr);
   }
   __syncthreads();
-  tdmlp_rows(w, sm, t + C1 * dt, p.k[1], nrows);
+  eval_rows(w, sm, t + C1 * dt, p.k[1], nrows);
   __syncthreads();
   {
     const float a[2] = {A31, A32};
-    stage_input(sm, p.u, k, a, dt, F, nrows, nullptr);
+    stage_input<D>(sm.xs, p.u, k, a, dt, F, nrows, nullptr);
   }
   __syncthreads();
-  tdmlp_rows(w, sm, t + C2 * dt, p.k[2], nrows);
+  eval_rows(w, sm, t + C2 * dt, p.k[2], nrows);
   __syncthreads();
   {
     const float a[3] = {A41, A42, A43};
-    stage_input(sm, p.u, k, a, dt, F, nrows, nullptr);
+    stage_input<D>(sm.xs, p.u, k, a, dt, F, nrows, nullptr);
   }
   __syncthreads();
-  tdmlp_rows(w, sm, t + C3 * dt, p.k[3], nrows);
+  eval_rows(w, sm, t + C3 * dt, p.k[3], nrows);
   __syncthreads();
   {
     const float a[4] = {A51, A52, A53, A54};
-    stage_input(sm, p.u, k, a, dt, F, nrows, nullptr);
+    stage_input<D>(sm.xs, p.u, k, a, dt, F, nrows, nullptr);
   }
   __syncthreads();
-  tdmlp_rows(w, sm, t + C4 * dt, p.k[4], nrows);
+  eval_rows(w, sm, t + C4 * dt, p.k[4], nrows);
   __syncthreads();
   {
     const float a[5] = {A61, A62, A63, A64, A65};
-    stage_input(sm, p.u, k, a, dt, F, nrows, p.g6);
+    stage_input<D>(sm.xs, p.u, k, a, dt, F, nrows, p.g6);
   }
   __syncthreads();
-  tdmlp_rows(w, sm, t + dt, p.k[5], nrows);
+  eval_rows(w, sm, t + dt, p.k[5], nrows);
   __syncthreads();
   {
     const float a[6] = {A71, A72, A73, A74, A75, A76};
-    stage_input(sm, p.u, k, a, dt, F, nrows, p.unew);
+    stage_input<D>(sm.xs, p.u, k, a, dt, F, nrows, p.unew);
   }
   __syncthreads();
-  tdmlp_rows(w, sm, t + dt, p.k[6], nrows);
+  eval_rows(w, sm, t + dt, p.k[6], nrows);
   __syncthreads();
   float err = 0.f;
-  for (int i = threadIdx.x; i < nrows * F; i += kThreads) {
+  for (int i = threadIdx.x; i < nrows * F; i += D::threads) {
     float acc = BT1 * k[0][i];
     acc = acc + BT2 * k[1][i];
     acc = acc + BT3 * k[2][i];
@@ -316,7 +346,7 @@ __device__ inline float tsit5_rows(const TDMLP& w, const Smem& sm,
     }
   }
   if (!want_err) return 0.f;
-  return block_sum(err, sm.red);
+  return block_sum<D::threads>(err, sm.red);
 }
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.

@@ -4,9 +4,27 @@ from .config import (
     experiment_name,
     flatten_config,
 )
-from .construct import construct_loss, construct_model, construct_optimizer
-from .data import load_mnist, one_hot, synthetic_classification
-from .losses import accuracy, logitcrossentropy
+from .construct import (
+    construct_loss,
+    construct_model,
+    construct_optimizer,
+    construct_time_series,
+    resolve_device,
+)
+from .data import (
+    Dataloader,
+    load_mnist,
+    make_dataloader,
+    one_hot,
+    synthetic_classification,
+    synthetic_physionet,
+)
+from .losses import (
+    accuracy,
+    kl_divergence,
+    log_likelihood_loss,
+    logitcrossentropy,
+)
 from .schedulers import Constant, ExponentialDecay
 from .optim import Adamax, OptimizerSpec
 from .train import (
@@ -20,6 +38,7 @@ from .train import (
 __all__ = [
     "Adamax",
     "Constant",
+    "Dataloader",
     "ExperimentConfig",
     "ExponentialDecay",
     "TrainState",
@@ -27,16 +46,22 @@ __all__ = [
     "construct_loss",
     "construct_model",
     "construct_optimizer",
+    "construct_time_series",
     "create_train_state",
     "define_configuration",
     "experiment_name",
     "flatten_config",
+    "kl_divergence",
+    "log_likelihood_loss",
     "load_mnist",
     "logitcrossentropy",
+    "make_dataloader",
     "make_eval_step",
     "make_train_step",
     "one_hot",
     "OptimizerSpec",
+    "resolve_device",
     "synthetic_classification",
+    "synthetic_physionet",
     "warmup_model",
 ]

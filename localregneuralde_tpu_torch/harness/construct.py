@@ -1,17 +1,30 @@
 """Factories: config → model, loss and optimizer (reference
 ``experiments/src/construct.jl``); counterpart of
-``localregneuralde_tpu/harness/construct.py`` for the MNIST MLP Neural ODE
-and the MNIST Neural SDE. The other model types come with later slices."""
+``localregneuralde_tpu/harness/construct.py`` for the MNIST MLP Neural ODE,
+the MNIST Neural SDE and the PhysioNet latent ODE. The CIFAR model comes
+with a later slice.
+
+The models are built on the CUDA device unless the caller passes another
+``device`` (``device="cpu"``, as the tests do); asking for CUDA where there
+is none raises."""
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..models import NeuralDSDE, NeuralODE, TDChain, diffeqsol_to_array
-from ..nn import Chain, Dense, Flatten, WrappedFunction
+from ..models import (
+    LatentGRUCell,
+    NeuralDSDE,
+    NeuralODE,
+    ReparameterizeLayer,
+    TDChain,
+    diffeqsol_to_array,
+    diffeqsol_to_timeseries,
+)
+from ..nn import Chain, Dense, Flatten, Lambda, Recurrence, WrappedFunction
 from .config import ExperimentConfig
-from .losses import logitcrossentropy
+from .losses import kl_divergence, log_likelihood_loss, logitcrossentropy
 from .optim import OptimizerSpec
 from .schedulers import (
     Constant,
@@ -22,16 +35,33 @@ from .schedulers import (
 )
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds on: the CUDA device unless the
+    caller names another. Raises when CUDA is asked for and none exists."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU; pass device='cpu' to "
+            "run on the CPU"
+        )
+    return device
+
+
 def construct_model(cfg: ExperimentConfig, *, device=None,
                     generator: Optional[torch.Generator] = None):
     """Build the model of ``cfg`` with weights drawn from ``generator``
-    (default: a CPU generator seeded with ``cfg.seed``), on ``device``."""
+    (default: a CPU generator seeded with ``cfg.seed``), on ``device``
+    (default: the CUDA device)."""
     m = cfg.model
+    if m.model_type == "time_series":
+        raise ValueError(
+            "time_series models need construct_time_series(cfg, saveat)")
     if m.model_type != "mlp":
         raise NotImplementedError(
-            f"model_type={m.model_type!r} is not ported yet; only the MLP "
-            "Neural ODE and SDE are (ROADMAP Queue 1 items 9-10)"
+            f"model_type={m.model_type!r} is not ported yet; the MLP Neural "
+            "ODE and SDE and the latent ODE are (ROADMAP Queue 1 item 10)"
         )
+    device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     if m.sde:
@@ -109,10 +139,44 @@ def _construct_mlp_sde(cfg: ExperimentConfig, device, generator):
     )
 
 
+def construct_time_series(cfg: ExperimentConfig, saveat, *, device=None,
+                          generator: Optional[torch.Generator] = None):
+    """Recurrence(LatentGRUCell) → rec_to_gen → Reparameterize →
+    NeuralODE(the Dense-chain generative dynamics, saveat = the observation
+    grid) → time series → decoder (reference ``construct.jl:230-252``),
+    with weights drawn from ``generator`` (default: a CPU generator seeded
+    with ``cfg.seed``), on ``device`` (default: the CUDA device)."""
+    m = cfg.model
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    kw = dict(generator=generator, device=device)
+    N, H, L = m.ts_node_dims, m.ts_hidden_dims, m.ts_latent_dims
+    gru = Recurrence(LatentGRUCell(m.ts_in_dims, H, L, **kw))
+    rec_to_gen = Chain(Dense(2 * L, L, "tanh", **kw), Dense(L, 2 * N, **kw))
+    gen_dynamics = Chain(
+        Lambda(torch.tanh),
+        *[Dense(N, H, "tanh", **kw) if i % 2 == 0 else Dense(H, N, "tanh", **kw)
+          for i in range(8)],
+    )
+    return Chain(
+        gru=gru,
+        rec_to_gen=rec_to_gen,
+        # a generator of its own, not the NeuralODE's (which draws t1)
+        reparam=ReparameterizeLayer(rng_seed=cfg.seed + 1),
+        # the generative dynamics is kernel 5's and 9's Dense-chain family
+        neural_ode=NeuralODE(gen_dynamics, saveat=saveat,
+                             use_pallas=m.use_pallas, **_node_kwargs(cfg)),
+        sol_to_ts=WrappedFunction(diffeqsol_to_timeseries),
+        gen_to_data=Dense(N, m.ts_in_dims, **kw),
+    )
+
+
 def construct_loss(cfg: ExperimentConfig) -> Tuple[Callable, object]:
-    """Return ``(loss_fn, w_reg_schedule)`` for classification (reference
-    ``construct.jl:78-102``)."""
-    if cfg.model.model_type != "mlp":
+    """Return ``(loss_fn, w_reg_schedule)``; for time-series models the
+    schedule is ``(w_reg, w_kl)``, with the KL weight annealed as
+    max(0, 1 − 0.99^(t−100)) (reference ``construct.jl:78-102``)."""
+    if cfg.model.model_type not in ("mlp", "time_series"):
         raise NotImplementedError(
             f"the loss of model_type={cfg.model.model_type!r} is not ported "
             "yet"
@@ -123,6 +187,9 @@ def construct_loss(cfg: ExperimentConfig) -> Tuple[Callable, object]:
         )
     else:
         w_reg = Constant(cfg.loss.w_reg_start)
+    if cfg.model.model_type == "time_series":
+        w_kl = lambda t: max(0.0, 1 - 0.99 ** (t - 100))  # noqa: E731
+        return _latent_ode_loss(cfg), (w_reg, w_kl)
     return _classification_loss(cfg), w_reg
 
 
@@ -150,6 +217,41 @@ def _classification_loss(cfg: ExperimentConfig):
             "y_pred": y_pred,
             "nfe": nfe,
             "ce_loss": ce_loss,
+            "reg_val": reg_val,
+            "solver_success": node_st["success"],
+        }
+        return loss, st_, stats
+
+    return loss_fn
+
+
+def _latent_ode_loss(cfg: ExperimentConfig):
+    """Masked Gaussian NLL (σ = 0.01) plus the KL term weighted by w_kl,
+    plus w_reg·reg_val when regularised (reference ``construct.jl:9-31``);
+    ``data`` is ``(data, mask, dt)``, each (B, T, ·)."""
+    regularized = cfg.model.regularize != "none"
+
+    def loss_fn(model, params, state, data, w, *, training=True):
+        w_reg, w_kl = w
+        data_arr, mask, dt = data
+        x = torch.cat([data_arr, mask, dt], dim=-1)
+        y, st_ = torch.func.functional_call(
+            model, params, (x, state), {"training": training}
+        )
+        dpred = y * mask - data_arr * mask
+        ll = log_likelihood_loss(dpred, mask)
+        kl = kl_divergence(st_["reparam"]["mu"], st_["reparam"]["logvar"])
+        loss = -torch.mean(ll - w_kl * kl)
+        node_st = st_["neural_ode"]
+        reg_val = (node_st["reg_val"] if regularized
+                   else torch.zeros((), device=x.device))
+        if regularized:
+            loss = loss + w_reg * reg_val
+        stats = {
+            "y_pred": y,
+            "neg_log_likelihood": -torch.mean(ll),
+            "kl_div": torch.mean(kl),
+            "nfe": node_st["nfe"],
             "reg_val": reg_val,
             "solver_success": node_st["success"],
         }

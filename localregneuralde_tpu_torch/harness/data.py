@@ -1,16 +1,20 @@
-"""What evaluation needs of the data pipeline: the MNIST loader, the
-deterministic synthetic stand-in and one-hot labels.
+"""The host data pipeline: the MNIST loader, the deterministic synthetic
+stand-ins (classification and PhysioNet-like series), one-hot labels and
+the shuffling batcher.
 
 Copied from ``localregneuralde_tpu/harness/data.py`` (numpy only, so the
-two packages make the same arrays from the same seed). The batching and
-prefetch machinery comes with the training slice.
+two packages make the same arrays and batches from the same seed). The
+batcher is the Python one; the reference's native C++ loader and device
+prefetch are not ported (ROADMAP Queue 1 items 7 and 13).
 """
 from __future__ import annotations
 
 import gzip
 import os
+import queue
 import struct
-from typing import Optional, Sequence
+import threading
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -110,3 +114,121 @@ def one_hot(y: np.ndarray, num_classes: int) -> np.ndarray:
     out = np.zeros((y.shape[0], num_classes), np.float32)
     out[np.arange(y.shape[0]), y] = 1.0
     return out
+
+
+def synthetic_physionet(
+    n=1024, t_steps=49, features=37, seed=0, observe_prob=0.5,
+    difficulty="easy",
+):
+    """Irregularly observed multivariate series from a latent oscillator,
+    shaped like the PhysioNet tuples of the reference
+    (``experiments/physionet/main.jl:15-30``): returns (data (N, T, F),
+    mask (N, T, F), tgrid (T,)), batch-major. ``difficulty='easy'``: a 2-D
+    oscillator; ``'hard'``: a 4-D multi-scale latent with 5× the
+    observation noise (see the reference's docstring)."""
+    rng = np.random.RandomState(seed)
+    tgrid = np.sort(rng.rand(t_steps).astype(np.float32))
+    tgrid[0] = 0.0
+    hard = difficulty == "hard"
+    d_latent = 4 if hard else 2
+    decoder = rng.randn(d_latent, features).astype(np.float32) * 0.5
+    phase = rng.rand(n, 1).astype(np.float32) * 2 * np.pi
+    freqs = 1.0 + rng.rand(n, 1).astype(np.float32)
+    z1 = np.sin(2 * np.pi * freqs * tgrid[None, :] + phase)
+    z2 = np.cos(2 * np.pi * freqs * tgrid[None, :] + phase)
+    comps = [z1, z2]
+    if hard:
+        phase_f = rng.rand(n, 1).astype(np.float32) * 2 * np.pi
+        freqs_f = 4.0 + 4.0 * rng.rand(n, 1).astype(np.float32)
+        amp = 0.4
+        comps.append(amp * np.sin(2 * np.pi * freqs_f * tgrid[None, :] + phase_f))
+        comps.append(amp * np.cos(2 * np.pi * freqs_f * tgrid[None, :] + phase_f))
+    latent = np.stack(comps, axis=-1)  # (N, T, d_latent)
+    data = latent @ decoder  # (N, T, F)
+    noise = 0.25 if hard else 0.05
+    data += noise * rng.randn(*data.shape).astype(np.float32)
+    mask = (rng.rand(n, t_steps, features) < observe_prob).astype(np.float32)
+    return data.astype(np.float32), mask, tgrid
+
+
+def make_dataloader(arrays, batch_size, *, backend: str = "auto", **kwargs):
+    """The batch loader: the Python ``Dataloader`` (``backend`` 'auto' or
+    'python'; the reference's native loader is not ported)."""
+    if backend not in ("auto", "python"):
+        raise NotImplementedError(
+            f"dataloader backend {backend!r} is not ported: only the Python "
+            "loader is (ROADMAP Queue 1 item 7)"
+        )
+    return Dataloader(arrays, batch_size, **kwargs)
+
+
+class Dataloader:
+    """Shuffling batcher with background-thread prefetch into a bounded
+    queue (the reference's ``eachobsparallel`` buffered channel,
+    ``utils.jl:155-166``). ``cycle=True`` repeats forever; epoch e is
+    shuffled with ``RandomState(seed + e)``. ``skip_batches`` fast-forwards
+    the stream by whole batches (exact resume from a checkpoint). A loader
+    that does not cycle and skips all its batches yields nothing (the
+    reference's loader yields a later epoch there, ROADMAP Queue 3)."""
+
+    def __init__(
+        self,
+        arrays: Tuple[np.ndarray, ...],
+        batch_size: int,
+        *,
+        shuffle: bool = False,
+        cycle: bool = False,
+        seed: int = 0,
+        prefetch: int = 4,
+        drop_last: bool = True,
+        skip_batches: int = 0,
+    ):
+        self.arrays = arrays
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.cycle = cycle
+        self.seed = seed
+        self.prefetch = prefetch
+        self.skip_batches = max(0, int(skip_batches))
+        n = arrays[0].shape[0]
+        if drop_last:
+            self.n_batches = n // batch_size
+        else:
+            self.n_batches = -(-n // batch_size)
+        self.n = n
+
+    def __len__(self):
+        return self.n_batches
+
+    def _indices(self, epoch: int) -> np.ndarray:
+        idx = np.arange(self.n)
+        if self.shuffle:
+            np.random.RandomState(self.seed + epoch).shuffle(idx)
+        return idx
+
+    def _produce(self, q: "queue.Queue"):
+        nb = self.n_batches
+        if nb == 0 or (not self.cycle and self.skip_batches >= nb):
+            q.put(None)
+            return
+        epoch, b0 = divmod(self.skip_batches, nb)
+        while True:
+            idx = self._indices(epoch)
+            for b in range(b0, nb):
+                sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+                q.put(tuple(a[sel] for a in self.arrays))
+            if not self.cycle:
+                q.put(None)
+                return
+            epoch += 1
+            b0 = 0
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, ...]]:
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        thread = threading.Thread(target=self._produce, args=(q,), daemon=True)
+        thread.start()
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            yield item

@@ -1,0 +1,300 @@
+"""The latent-ODE (PhysioNet-style) experiment runner.
+
+Counterpart of ``localregneuralde_tpu/harness/latent_runner.py``
+(reference ``experiments/physionet/main.jl``), on one device: training
+minimises the masked Gaussian NLL, the annealed KL term and the local
+regulariser; evaluation reports the masked MSE. The data tuples are
+``(data, mask, dt)``, the Δt channel the forward differences of the
+observation grid with a trailing zero (``physionet/main.jl:22-29``).
+
+As in the reference, the best checkpoint is the one with the lowest
+masked MSE (``<=``; the reference's Julia code compares ``>=``,
+``physionet/main.jl:188``), and a resumed run skips the batches it has
+already seen, so it consumes the batches an uninterrupted run would have.
+
+Run on the GPU with::
+
+    python -m localregneuralde_tpu_torch.harness.latent_runner \\
+        experiments/physionet/physionet.yaml [--a.b.c=value ...] [--device=cpu]
+
+Not ported (they raise): ``train.steps_per_call`` other than 0 (auto, which
+is 1 here) or 1, ``grad_accumulation``, ``ema_decay`` (ROADMAP Queue 1 item
+13) and ``data_parallel`` (item 14). The reference's per-window phase
+probes are not run; the ``fwd_time``, ``bwd_time`` and ``opt_time``
+columns read NaN.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..ode.solve import host_to_device
+from .checkpoint import from_host, load_checkpoint, save_checkpoint, to_host
+from .config import (
+    ExperimentConfig,
+    define_configuration,
+    experiment_name,
+    flatten_config,
+)
+from .construct import (
+    construct_loss,
+    construct_optimizer,
+    construct_time_series,
+    resolve_device,
+)
+from .data import make_dataloader, synthetic_physionet
+from .logging import create_logger, get_loggable_values, reset_meters
+from .train import TrainState, create_train_state, make_train_step
+
+_STAT_KEYS = ("net_loss", "neg_log_likelihood", "kl_div", "reg_val", "nfe")
+
+
+def build_physionet_arrays(cfg: ExperimentConfig):
+    """PhysioNet-like arrays: the real artifact (``physionet.npz`` with keys
+    observed_data, observed_mask and observed_tp, feature-major) when
+    ``data_root`` holds one, else the synthetic latent-oscillator stand-in
+    (2048 series). Returns batch-major ``(data, mask, dt)`` train and test
+    splits (80/20 by a permutation seeded with ``cfg.seed``), the 49-point
+    saveat grid and whether the data is real."""
+    root = cfg.dataset.data_root
+    npz_path = os.path.join(root, "physionet.npz") if root else ""
+    if npz_path and os.path.exists(npz_path):
+        d = np.load(npz_path)
+        # feature-major (F, T, N) -> batch-major (N, T, F)
+        data = np.transpose(d["observed_data"], (2, 1, 0)).astype(np.float32)
+        mask = np.transpose(d["observed_mask"], (2, 1, 0)).astype(np.float32)
+        tgrid = d["observed_tp"].astype(np.float32)[:, 0]
+        real = True
+    else:
+        data, mask, tgrid = synthetic_physionet(
+            n=2048, t_steps=49, features=cfg.model.ts_in_dims, seed=cfg.seed,
+            difficulty=getattr(cfg.dataset, "difficulty", "easy"),
+        )
+        real = False
+    dt = np.concatenate([tgrid[1:] - tgrid[:-1], [0.0]]).astype(np.float32)
+    dt = np.ascontiguousarray(
+        np.broadcast_to(dt[None, :, None], (data.shape[0], data.shape[1], 1)))
+    n = data.shape[0]
+    n_train = int(0.8 * n)
+    idx = np.random.RandomState(cfg.seed).permutation(n)
+    tr, te = idx[:n_train], idx[n_train:]
+    return ((data[tr], mask[tr], dt[tr]), (data[te], mask[te], dt[te]),
+            tgrid, real)
+
+
+def check_supported(cfg: ExperimentConfig) -> None:
+    """Raise for the train-loop options the port does not run yet."""
+    t = cfg.train
+    if int(t.steps_per_call) not in (0, 1):
+        raise NotImplementedError(
+            f"train.steps_per_call={t.steps_per_call}: K steps per call are "
+            "not ported (ROADMAP Queue 1 item 13); 0 (auto) and 1 run one "
+            "step per call"
+        )
+    if int(t.grad_accumulation) != 1 or float(t.ema_decay) != 0.0:
+        raise NotImplementedError(
+            "train.grad_accumulation and train.ema_decay are not ported "
+            "(ROADMAP Queue 1 item 13)"
+        )
+    if t.data_parallel != "none" or int(t.tensor_parallel) != 1:
+        raise NotImplementedError(
+            f"train.data_parallel={t.data_parallel!r}, tensor_parallel="
+            f"{t.tensor_parallel}: the parallel layer is not ported (ROADMAP "
+            "Queue 1 items 13-14); the runner uses one device"
+        )
+
+
+def train_state_to_host(ts: TrainState) -> dict:
+    """What a checkpoint keeps of the train state: the parameters, the
+    optimizer's state, the layer state (with its generators) and the
+    step."""
+    return to_host({"params": ts.params, "opt": ts.opt_state.state_dict(),
+                    "state": ts.state, "step": ts.step})
+
+
+def restore_train_state(ts: TrainState, host: dict, device) -> TrainState:
+    """``ts`` with a checkpoint's values: the parameters are copied into
+    the leaves the optimizer is bound to."""
+    with torch.no_grad():
+        for name, value in host["params"].items():
+            ts.params[name].copy_(torch.from_numpy(np.array(value)))
+    ts.opt_state.load_state_dict(from_host(host["opt"], device))
+    return TrainState(params=ts.params, state=from_host(host["state"], device),
+                      opt_state=ts.opt_state, step=int(host["step"]))
+
+
+def eval_forward(model, ts: TrainState, batch):
+    """The masked MSE of one batch, summed per series over time and
+    features, divided by its observed count, averaged over the batch
+    (``latent_runner.py:117-125`` of the reference), and the batch's NFE."""
+    data, mask, dt = batch
+    x = torch.cat([data, mask, dt], dim=-1)
+    with torch.no_grad():
+        y, st_ = torch.func.functional_call(
+            model, ts.params, (x, ts.state), {"training": False})
+    mse = torch.sum(
+        torch.sum(torch.square((y - data) * mask), dim=(1, 2))
+        / torch.sum(mask, dim=(1, 2))
+    ) / data.shape[0]
+    return mse, st_["neural_ode"]["nfe"]
+
+
+def _to_device(batch, device):
+    """A host batch on ``device`` (through pinned memory on a card, so the
+    copy does not wait for the queued step)."""
+    like = torch.empty(0, device=device)
+    return tuple(host_to_device(torch.from_numpy(np.asarray(a)), like)
+                 for a in batch)
+
+
+def run_latent_ode_experiment(cfg: ExperimentConfig,
+                              config_name: str = "physionet", *,
+                              device=None) -> dict:
+    """Train and evaluate the latent ODE of ``cfg`` on ``device`` (default:
+    the CUDA device). Returns the summary of the reference's runner: the
+    best and final masked MSE, the final eval NFE, whether the data is
+    real, and the checkpoint and log directories."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    name = experiment_name(cfg, config_name)
+    ckpt_dir = os.path.join(cfg.train.checkpoint_dir, cfg.train.expt_subdir,
+                            name)
+    log_dir = os.path.join(cfg.train.log_dir, cfg.train.expt_subdir, name)
+
+    train_arrays, test_arrays, tgrid, is_real = build_physionet_arrays(cfg)
+    model = construct_time_series(cfg, saveat=torch.from_numpy(tgrid),
+                                  device=device)
+    loss_fn, (w_reg_sched, w_kl_sched) = construct_loss(cfg)
+    optimizer, lr_sched = construct_optimizer(cfg)
+    ts = create_train_state(model, optimizer)
+    train_step = make_train_step(model, loss_fn, optimizer)
+
+    initial_step, restored_best = 1, None
+    resume_path = cfg.train.resume or os.path.join(ckpt_dir,
+                                                   "model_current.ckpt")
+    if os.path.exists(resume_path):
+        restored = load_checkpoint(resume_path)
+        if restored is not None:
+            ts = restore_train_state(ts, restored["tstate"], device)
+            initial_step = int(restored["step"]) + 1
+            restored_best = restored.get("best")
+
+    # after the resume: skip_batches fast-forwards the seeded stream
+    train_loader = make_dataloader(
+        train_arrays, cfg.dataset.train_batchsize, shuffle=True, cycle=True,
+        seed=cfg.seed, skip_batches=initial_step - 1,
+    )
+    # the eval batch is clamped to the test split (with drop_last a larger
+    # one would yield no batch: 410 series at the shipped eval size 512)
+    eval_bs = min(int(cfg.dataset.eval_batchsize), int(test_arrays[0].shape[0]))
+
+    loggers = create_logger(log_dir, cfg.train.total_steps, latent_ode=True,
+                            expt_name=name, config=flatten_config(cfg))
+    tm = loggers["train_meters"]
+    best = np.inf if restored_best is None else float(restored_best)
+    final_mse, final_nfe = np.inf, 0.0
+    data_iter = iter(train_loader)
+    sums = ok = None
+    window_n, data_time = 0, 0.0
+    t_window = time.perf_counter()
+    for step in range(initial_step, cfg.train.total_steps + 1):
+        t0 = time.perf_counter()
+        batch = _to_device(next(data_iter), device)
+        data_time += time.perf_counter() - t0
+        w = (float(w_reg_sched(step)), float(w_kl_sched(step)))
+        ts, loss, stats = train_step(ts, batch, w, float(lr_sched(step)))
+        vals = torch.stack([loss, stats["neg_log_likelihood"],
+                            stats["kl_div"], stats["reg_val"],
+                            stats["nfe"].float()])
+        # accumulated on the device: one host read per print window
+        success = stats["solver_success"]
+        sums = vals if sums is None else sums + vals
+        ok = success if ok is None else ok & success
+        window_n += 1
+        if step % cfg.train.print_frequency == 0:
+            sums_h = sums.tolist()
+            wall = time.perf_counter() - t_window
+            bs = int(batch[0].shape[0])
+            for k, v in zip(_STAT_KEYS, sums_h):
+                tm[k].update(v / window_n, window_n * bs)
+            tm["batch_time"].update(wall / window_n, window_n)
+            tm["data_time"].update(data_time / window_n, window_n)
+            tm["step_time"].update(wall / window_n, window_n)
+            for k in ("fwd_time", "bwd_time", "opt_time"):
+                tm[k].update(float("nan"), window_n)
+            if not bool(ok):
+                print(f"WARNING [{step}]: adaptive solve exhausted max_steps "
+                      "within this window", flush=True)
+            row = get_loggable_values(tm, loggers["train_header"], step)
+            loggers["csv_train"].log(row)
+            print(f"[{step}/{cfg.train.total_steps}] " + " ".join(
+                f"{k}={tm[k].average:.4f}"
+                for k in loggers["train_header"][1:]), flush=True)
+            reset_meters(tm)
+            sums, ok, window_n, data_time = None, None, 0, 0.0
+            t_window = time.perf_counter()
+        if (step % cfg.train.evaluate_every == 0
+                or step == cfg.train.total_steps):
+            best, final_mse, final_nfe = _eval_and_checkpoint(
+                model, ts, test_arrays, eval_bs, step, best, loggers,
+                ckpt_dir, device)
+    return {
+        "best_eval_mse": float(best),
+        "final_eval_mse": float(final_mse),
+        "final_eval_nfe": float(final_nfe),
+        "real_data": bool(is_real),
+        "ckpt_dir": ckpt_dir,
+        "log_dir": log_dir,
+    }
+
+
+def _eval_and_checkpoint(model, ts, test_arrays, eval_bs, step, best,
+                         loggers, ckpt_dir, device):
+    """The masked MSE over the test split, then the step's checkpoint
+    (``model_best`` when its MSE is the lowest so far). Returns the best
+    MSE, this evaluation's MSE and its mean NFE."""
+    mses, nfes, count = 0.0, 0.0, 0
+    for host_batch in make_dataloader(test_arrays, eval_bs, drop_last=True):
+        mse, nfe = eval_forward(model, ts, _to_device(host_batch, device))
+        bs = host_batch[0].shape[0]
+        mses += float(mse) * bs
+        nfes += float(nfe) * bs
+        count += bs
+    eval_mse = mses / count
+    print(f"[eval @ {step}] masked_mse={eval_mse:.5f} nfe={nfes / count:.1f}",
+          flush=True)
+    loggers["wandb"].log({"eval_masked_mse": eval_mse}, step=step)
+    is_best = eval_mse <= best
+    best = min(best, eval_mse)
+    save_checkpoint(
+        {"tstate": train_state_to_host(ts), "step": step, "best": float(best)},
+        fdir=ckpt_dir, fname=f"model_step_{step}.ckpt", is_best=is_best,
+    )
+    return best, eval_mse, nfes / count
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0].startswith("--"):
+        print("usage: python -m localregneuralde_tpu_torch.harness."
+              "latent_runner CONFIG.yaml [--a.b.c=value ...] [--device=cpu]",
+              file=sys.stderr)
+        return 2
+    device = None
+    for arg in list(argv[1:]):
+        if arg.startswith("--device="):
+            device = arg.split("=", 1)[1]
+            argv.remove(arg)
+    cfg = define_configuration(argv[1:], argv[0])
+    config_name = os.path.splitext(os.path.basename(argv[0]))[0]
+    summary = run_latent_ode_experiment(cfg, config_name, device=device)
+    print("summary:", summary, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,19 @@
-from .common import TDChain, diffeqsol_to_array
+from .common import (
+    ReparameterizeLayer,
+    TDChain,
+    diffeqsol_to_array,
+    diffeqsol_to_timeseries,
+)
+from .latent_ode import LatentGRUCell
 from .neural_ode import NeuralODE
 from .neural_sde import NeuralDSDE
 
-__all__ = ["NeuralDSDE", "NeuralODE", "TDChain", "diffeqsol_to_array"]
+__all__ = [
+    "LatentGRUCell",
+    "NeuralDSDE",
+    "NeuralODE",
+    "ReparameterizeLayer",
+    "TDChain",
+    "diffeqsol_to_array",
+    "diffeqsol_to_timeseries",
+]

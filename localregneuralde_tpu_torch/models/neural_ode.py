@@ -19,12 +19,20 @@ keys; ``rng`` is a ``torch.Generator`` where the reference keeps a JAX key.
   uniforms drawn in advance from ``rng``.
 
 Kernel dispatch (``use_pallas``, the reference's config name): when the
-dynamics is a ``TDChain`` of two Dense layers, ``'on'`` routes the solve
-through the fused TD-MLP wrappers (``ops/cuda``) and ``'auto'`` does so for
-CUDA inputs; ``'off'`` runs the dynamics module in the eager loop. With
-``use_persistent`` the whole solve is one launch of the persistent kernel;
-without it the loop calls the fused Tsit5 step kernel per attempt. The
-wrappers run their plain versions on CPU tensors.
+dynamics is a kernel family, ``'on'`` routes the solve through its wrappers
+(``ops/cuda``) and ``'auto'`` does so for CUDA inputs; ``'off'`` runs the
+dynamics module in the eager loop. The families are the TD-MLP (a
+``TDChain`` of two Dense layers) and the autonomous Dense chain of the
+latent ODE (``Chain([Lambda(tanh)], Dense...)``, ``match_dense_chain``).
+With ``use_persistent`` the whole solve is one launch of the persistent
+kernel; without it the loop calls the fused Tsit5 step kernel per attempt
+(TD-MLP) or the generic step of the plain chain. The wrappers run their
+plain versions on CPU tensors.
+
+The chain family, as in the reference (``neural_ode.py:196-201,
+271-272``), has kernels for the whole solve (kernel 5) and the whole sweep
+(kernel 9) only: k1, the dt probe, the FSAL closure and the regulariser's
+step are plain autograd through ``chain_eval``.
 
 In training the kernel route runs the forward as one launch of the
 persistent solve with knot recording, the backward as one launch of the
@@ -125,10 +133,17 @@ class NeuralODE(Module):
             use_pallas = "on" if use_pallas else "off"
         if use_pallas not in _VALID_USE_PALLAS:
             raise ValueError(f"use_pallas must be one of {_VALID_USE_PALLAS}")
-        if use_pallas == "on" and not is_tdmlp(model):
+        from ..ops.cuda.fused_solve import match_dense_chain
+
+        self.chain = None if is_tdmlp(model) else match_dense_chain(model)
+        self.family = ("tdmlp" if is_tdmlp(model)
+                       else "chain" if self.chain is not None else None)
+        if use_pallas == "on" and self.family is None:
             raise ValueError(
                 "use_pallas='on' requires a TDChain of two Dense layers (the "
-                "fused TD-MLP family); the other kernel families are not "
+                "fused TD-MLP family) or an autonomous Dense chain (the "
+                "latent ODE's generative dynamics, ops/cuda/fused_solve.py::"
+                "match_dense_chain); the other kernel families are not "
                 "ported yet"
             )
         self.model = model
@@ -144,7 +159,7 @@ class NeuralODE(Module):
         )
         self.adjoint = adjoint
         self.solver = solver
-        self.use_pallas = use_pallas if is_tdmlp(model) else "off"
+        self.use_pallas = use_pallas if self.family is not None else "off"
         self.use_persistent = bool(use_persistent)
         self.knot_window = None if knot_window is None else int(knot_window)
         self.rng_seed = int(rng_seed)
@@ -161,7 +176,7 @@ class NeuralODE(Module):
         }
 
     def uses_kernels(self, x: torch.Tensor) -> bool:
-        """Whether a solve from ``x`` goes through the fused TD-MLP family."""
+        """Whether a solve from ``x`` goes through the kernel family."""
         if self.use_pallas == "on":
             return True
         return self.use_pallas == "auto" and x.is_cuda
@@ -179,8 +194,14 @@ class NeuralODE(Module):
 
         return f
 
+    def chain_params(self):
+        """The chain family's parameters, ``[W_0, b_0, W_1, ...]``."""
+        return [p for _, p in self.model.named_parameters()]
+
     def _kernel_solvers(self):
-        """(dynamics, step_fn, persistent_fn) of the fused TD-MLP family."""
+        """(dynamics, step_fn, persistent_fn) of the kernel family."""
+        if self.family == "chain":
+            return self._chain_solvers()
         from ..ops.cuda import fused_tdmlp, fused_tsit5_step, persistent_tsit5_solve
 
         w = self.tdmlp_weights()
@@ -205,6 +226,62 @@ class NeuralODE(Module):
 
         return f, step, (persistent if self.use_persistent else None)
 
+    def _chain_solvers(self):
+        """(dynamics, step_fn, persistent_fn) of the chain family: the plain
+        chain for the loop, kernel 5 for the whole solve."""
+        from ..ops.cuda import chain_eval, persistent_chain_solve
+
+        params, chain = self.chain_params(), self.chain
+
+        def f(u, t, st):
+            return chain_eval(params, chain, u), st
+
+        def persistent(u0, tspan, *, saveat_arr, rtol, atol, max_steps,
+                       f_state, **record):
+            if u0.ndim != 2 or u0.dtype != torch.float32:
+                return None  # decline: the eager loop runs
+            out = persistent_chain_solve(
+                params, chain, u0.contiguous(), tspan, rtol=rtol, atol=atol,
+                saveat_arr=saveat_arr, max_steps=max_steps, **record,
+            )
+            return _solution(out, f_state)
+
+        return f, None, (persistent if self.use_persistent else None)
+
+    def _chain_stored_kwargs(self):
+        """``stored_odesolve``'s callables for the chain family: the plain
+        chain for f (and so for the FSAL closure and any eager step), kernel
+        5 for the recorded forward and kernel 9 for the sweep. The forward
+        declines where the sweep cannot run, so an eager forward is swept
+        by the eager sweep."""
+        from ..ops.cuda import (
+            chain_eval, chain_sweep_feasible, persistent_chain_solve,
+            persistent_chain_sweep,
+        )
+
+        chain = self.chain
+
+        def f(u, t, params):
+            return chain_eval(params, chain, u)
+
+        def persistent_fn(u0, params, tspan, *, saveat_arr, **kw):
+            if not chain_sweep_feasible(chain, saveat_arr.shape[0], u0.device):
+                return None
+            out = persistent_chain_solve(list(params), chain, u0.contiguous(),
+                                         tspan, saveat_arr=saveat_arr, **kw)
+            return _solution(out, None)
+
+        def sweep_fn(params, knot_ts, knot_us, naccept, saveat_arr, ct_ys,
+                     ct_y, two_level_ctx=None):
+            return persistent_chain_sweep(
+                list(params), chain, knot_ts, knot_us, naccept, saveat_arr,
+                ct_ys, ct_y, two_level_ctx=two_level_ctx)
+
+        kw = dict(f=f)
+        if self.use_persistent:
+            kw.update(persistent_fn=persistent_fn, sweep_fn=sweep_fn)
+        return kw
+
     def _stored_kwargs(self, kernels: bool, names):
         """The dynamics and replacements ``stored_odesolve`` takes, for the
         kernel route or the generic one; every callable gets the parameters
@@ -220,6 +297,8 @@ class NeuralODE(Module):
                 return get_array(y)
 
             return dict(f=f)
+        if self.family == "chain":
+            return self._chain_stored_kwargs()
         from ..ops.cuda import (
             TDMLPWeights, fused_step_bwd, fused_tdmlp, fused_tsit5_step,
             persistent_stored_sweep, persistent_tsit5_solve,
@@ -333,7 +412,10 @@ class NeuralODE(Module):
             sol = dataclasses.replace(sol, ys=sol.ys[:-1], ts=user_saveat)
         else:
             u1, t1 = sol.reservoir_u.detach(), sol.reservoir_t.detach()
-        step, dt_r = self._reg_step(x, u1, t1, kernels)
+        # the chain family has no step kernel: its regulariser step is the
+        # generic one, as in the reference
+        step, dt_r = self._reg_step(x, u1, t1,
+                                    kernels and self.family == "tdmlp")
         new_state.update(
             reg_val=regularization_value(self.regularize_type, step, u1,
                                          dt_r, self.atol, self.rtol),
@@ -343,8 +425,9 @@ class NeuralODE(Module):
 
     def _reg_step(self, x, u1, t1, kernels: bool):
         """The regulariser's step from the fenced ``(u1, t1)``: k1 and dt
-        under no_grad, then one differentiable Tsit5 step (the step kernel
-        with its VJP kernel on the kernel route). Returns (step, dt)."""
+        under no_grad, then one differentiable Tsit5 step (the TD-MLP's
+        step kernel with its VJP kernel on the kernel route, the generic
+        step otherwise). Returns (step, dt)."""
         t2 = self.tspan[1]
         if kernels:
             from ..ops.cuda import differentiable_step, fused_tdmlp

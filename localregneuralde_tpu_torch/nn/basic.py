@@ -1,4 +1,4 @@
-"""Basic layers: Dense, Flatten, WrappedFunction, Chain.
+"""Basic layers: Dense, Flatten, WrappedFunction (alias Lambda), Chain.
 
 Counterpart of ``localregneuralde_tpu/nn/basic.py``. Layout is the
 reference's: batch-major ``(B, F)``, and a Dense weight is ``(in, out)``
@@ -103,6 +103,10 @@ class WrappedFunction(Module):
 
     def apply_layer(self, x, state, *, training: bool = False):
         return self.fn(x), state
+
+
+# the reference's name for a function layer (``nn/basic.py:238``)
+Lambda = WrappedFunction
 
 
 class Chain(Module):

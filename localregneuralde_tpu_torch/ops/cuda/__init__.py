@@ -22,8 +22,19 @@ from .fused_sde_solve import (
     persistent_sde_solve_plain,
 )
 from .fused_sde_sweep import persistent_sde_sweep, persistent_sde_sweep_plain
-from .fused_solve import persistent_tsit5_solve, persistent_tsit5_solve_plain
+from .fused_solve import (
+    DenseChainSpec,
+    chain_eval,
+    match_dense_chain,
+    persistent_chain_solve,
+    persistent_chain_solve_plain,
+    persistent_tsit5_solve,
+    persistent_tsit5_solve_plain,
+)
 from .fused_solve_bwd import (
+    chain_sweep_feasible,
+    persistent_chain_sweep,
+    persistent_chain_sweep_plain,
     persistent_stored_sweep,
     persistent_stored_sweep_plain,
     persistent_two_level_sweep,
@@ -39,6 +50,8 @@ KERNELS = {
     "persistent_two_level_sweep": persistent_two_level_sweep,
     "persistent_sde_solve": persistent_sde_solve,
     "persistent_sde_sweep": persistent_sde_sweep,
+    "persistent_chain_solve": persistent_chain_solve,
+    "persistent_chain_sweep": persistent_chain_sweep,
 }
 
 
@@ -52,16 +65,24 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "DenseChainSpec",
     "FusedTsit5Step",
     "KERNELS",
     "SDEWeights",
     "TDMLPWeights",
+    "chain_eval",
+    "chain_sweep_feasible",
     "differentiable_step",
     "fused_step_bwd",
     "fused_step_bwd_plain",
     "fused_tdmlp",
     "fused_tsit5_step",
     "launch_counts",
+    "match_dense_chain",
+    "persistent_chain_solve",
+    "persistent_chain_solve_plain",
+    "persistent_chain_sweep",
+    "persistent_chain_sweep_plain",
     "persistent_sde_solve",
     "persistent_sde_solve_plain",
     "persistent_sde_sweep",

@@ -47,6 +47,14 @@ _SIGNATURES = {
         + [_F] * 4 + [_P]
     ),
     "lrnde_sde_sweep": [_I] + [_P] * 12 + [_I] + [_P] * 5 + [_I] * 3 + [_P],
+    "lrnde_persistent_chain": (
+        [_P] * 4 + [_I] + [_P] * 2 + [_I, _U, _I] + [_P] * 7 + [_I] * 2
+        + [_F] * 3 + [_P] * 2 + [_I] + [_P] * 5 + [_I] * 2 + [_P] * 3
+    ),
+    "lrnde_chain_sweep": (
+        [_I] + [_P] * 2 + [_I, _U, _I] + [_P] * 4 + [_I] + [_P] * 7
+        + [_F] * 3 + [_I] * 3 + [_P] * 9 + [_I] + [_F] + [_P]
+    ),
 }
 
 # C entry -> argument types of the size queries, which return long long
@@ -56,6 +64,8 @@ _SIZES = {
     "lrnde_sde_solve_smem_floats": [_I] * 2,
     "lrnde_sde_sweep_smem_floats": [_I] * 2,
     "lrnde_sde_grad_floats": [_I] * 2,
+    "lrnde_chain_solve_smem_floats": [_P, _I],
+    "lrnde_chain_sweep_smem_floats": [_P, _I],
 }
 
 
@@ -137,7 +147,8 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_longlong
-    for name in ("lrnde_rows_per_block", "lrnde_sde_rows_per_block"):
+    for name in ("lrnde_rows_per_block", "lrnde_sde_rows_per_block",
+                 "lrnde_chain_rows_per_block"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.lrnde_error_string.argtypes = [ctypes.c_int]

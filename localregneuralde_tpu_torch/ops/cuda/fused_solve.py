@@ -21,10 +21,18 @@ With ``reservoir`` (``max_steps`` uniforms, drawn in advance by the caller)
 the kernel keeps the biased regulariser's reservoir sample: an accepted
 attempt number ``natt`` takes its step start ``(t, u)`` when
 ``reservoir[natt]·(naccept + 1) < 1`` (``reservoir_t``, ``reservoir_u``).
+
+Kernel 5 (``persistent_chain_solve``, ``csrc/chain_solve.cu``) is the same
+solve for the autonomous Dense chain of the latent ODE (the reference's
+``persistent_chain_solve``, family ``("chain", dims, acts, lead)``), with
+the same recording and reservoir; its plain version is the eager loop with
+the plain chain (``chain_eval``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,14 +55,13 @@ from .fused_mlp import (
 )
 
 
-def _start(tdmlp, w: TDMLPWeights, u0, t0: float, t_end: float, rtol, atol):
+def _start(f, u0, t0: float, t_end: float, rtol, atol):
     """k1 at t0 and the first step from the Hairer probe, clipped to the
-    span: two evaluations of ``tdmlp``. Returns (k1_0, dt_init, nfe0)."""
-    k1_0 = tdmlp(w, u0, t0)
+    span: two evaluations of ``f(u, t)``. Returns (k1_0, dt_init, nfe0)."""
+    k1_0 = f(u0, t0)
     t0_dev, span = device_scalars([t0, t_end - t0], u0)
     dt_init, extra = initial_step_size(
-        lambda u, t: tdmlp(w, u, t), u0, t0_dev, order=5, rtol=rtol,
-        atol=atol, f0=k1_0,
+        f, u0, t0_dev, order=5, rtol=rtol, atol=atol, f0=k1_0,
     )
     return k1_0, torch.minimum(dt_init, span), 1 + extra
 
@@ -76,13 +83,24 @@ def persistent_tsit5_solve_plain(w: TDMLPWeights, u0, tspan, *, rtol, atol,
     """The plain version of the persistent solve: the eager loop of
     ``ode/solve.py`` with the plain TD-MLP step, recording as the kernel
     does (no k1 knots)."""
-    t0, t_end = float(tspan[0]), float(tspan[1])
-    k1_0, dt_init, nfe0 = _start(tdmlp_plain, w, u0, t0, t_end, rtol, atol)
-    out = adaptive_loop(
-        None, u0, k1_0, None, t0, t_end, dt_init, saveat=saveat_arr,
-        rtol=rtol, atol=atol, max_steps=max_steps, step_fn=plain_step(w),
+    return _plain_solve(
+        lambda u, t: tdmlp_plain(w, u, t), u0, tspan, rtol=rtol, atol=atol,
+        saveat_arr=saveat_arr, max_steps=max_steps, step_fn=plain_step(w),
         record_knots=record_knots, knot_dense_cap=knot_dense_cap,
         knot_stride=knot_stride, reservoir=reservoir,
+    )
+
+
+def _plain_solve(f, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
+                 step_fn=None, **record):
+    """The eager loop from u0 with the dynamics ``f(u, t)`` (and a step
+    replacement), in the persistent solves' return contract."""
+    t0, t_end = float(tspan[0]), float(tspan[1])
+    k1_0, dt_init, nfe0 = _start(f, u0, t0, t_end, rtol, atol)
+    out = adaptive_loop(
+        lambda u, t, st: (f(u, t), st), u0, k1_0, None, t0, t_end, dt_init,
+        saveat=saveat_arr, rtol=rtol, atol=atol, max_steps=max_steps,
+        step_fn=step_fn, **record,
     )
     res = dict(
         y_final=out["y_final"], ys=out["ys"], naccept=out["naccept"],
@@ -121,7 +139,8 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
         )
     B, F, H = check_operands(w, u0)
     t0, t_end = float(tspan[0]), float(tspan[1])
-    k1_0, dt_init, nfe0 = _start(fused_tdmlp, w, u0, t0, t_end, rtol, atol)
+    k1_0, dt_init, nfe0 = _start(lambda u, t: fused_tdmlp(w, u, t), u0, t0,
+                                 t_end, rtol, atol)
     sc = device_scalars([t0, t_end, dt_init], u0)
     saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
     n_save = saveat.shape[0]
@@ -214,3 +233,255 @@ def _knot_outputs(u0, max_steps, *, record_knots, knot_dense_cap,
             ckpt_qolds=torch.empty(n_ckpt, device=dev),
         )
     return out
+
+
+# ---------------------------------------------------------------------------
+# kernel 5: the autonomous Dense chain (the latent ODE's generative dynamics)
+
+# at most this many layers (csrc/chain.cuh::kChainMaxLayers)
+CHAIN_MAX_LAYERS = 16
+# the dynamic shared memory a CTA may use on Hopper, less a margin for the
+# kernels' static shared memory
+CHAIN_SMEM_BYTES = 227 * 1024 - 1024
+# at most this many saveat times in kernel 9 (csrc/chain_sweep.cu::
+# kChainMaxSave; the reference's _MAX_NSAVE_CHAIN)
+CHAIN_MAX_SAVE = 64
+
+
+class DenseChainSpec(NamedTuple):
+    """The shape of an autonomous Dense chain ``Chain([Lambda(tanh)],
+    Dense(d0 → d1, act), ..., Dense(d_{L-1} → d_L, act))`` with d_L = d0:
+    the widths ``dims``, a tanh flag per layer ``acts`` and the leading tanh
+    ``lead``. Its parameters are the list ``[W_0, b_0, W_1, b_1, ...]``, W_l
+    of shape (d_l, d_{l+1})."""
+
+    dims: tuple
+    acts: tuple
+    lead: bool
+
+
+def match_dense_chain(model) -> Optional[DenseChainSpec]:
+    """The chain's spec when ``model`` is ``Chain([Lambda(tanh)], Dense...)``
+    with biases, tanh or identity activations and d_L = d_0; None otherwise
+    (the reference's ``fused_solve.py:760-797``; the leading function is
+    recognised by identity, ``torch.tanh``)."""
+    from ...nn.basic import _ACTIVATIONS, Chain, Dense, Lambda
+
+    if not isinstance(model, Chain):
+        return None
+    items = list(model.layers.values())
+    lead = False
+    if items and isinstance(items[0], Lambda):
+        if items[0].fn is not torch.tanh:
+            return None
+        lead = True
+        items = items[1:]
+    if not items or not all(isinstance(l, Dense) for l in items):
+        return None
+    ident = (_ACTIVATIONS[None], _ACTIVATIONS["identity"])
+    dims, acts = [items[0].in_dim], []
+    for layer in items:
+        if not layer.use_bias or layer.in_dim != dims[-1]:
+            return None
+        if layer.activation is torch.tanh:
+            acts.append(True)
+        elif any(layer.activation is fn for fn in ident):
+            acts.append(False)
+        else:
+            return None
+        dims.append(layer.out_dim)
+    if dims[0] != dims[-1]:
+        return None
+    return DenseChainSpec(tuple(dims), tuple(acts), lead)
+
+
+def chain_eval(params, chain: DenseChainSpec, x: torch.Tensor) -> torch.Tensor:
+    """The plain chain evaluation (the reference's ``chain_eval_pure``):
+    k1_0, the dt probe, and the plain versions of kernels 5 and 9."""
+    a = torch.tanh(x) if chain.lead else x
+    for i, act in enumerate(chain.acts):
+        z = a @ params[2 * i] + params[2 * i + 1]
+        a = torch.tanh(z) if act else z
+    return a
+
+
+def chain_param_sizes(chain: DenseChainSpec):
+    """Shapes of the chain's parameters, ``[W_0, b_0, W_1, ...]``."""
+    d = chain.dims
+    out = []
+    for i in range(len(d) - 1):
+        out += [(d[i], d[i + 1]), (d[i + 1],)]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_smem_bytes(dims: tuple, query: str) -> int:
+    """A CTA's dynamic shared memory for the chain of widths ``dims``, from
+    the library's C size query ``query``; asked once per chain."""
+    lib = _build.load_library()
+    L = len(dims) - 1
+    arr = (ctypes.c_int * (L + 1))(*dims)
+    return 4 * getattr(lib, query)(ctypes.cast(arr, ctypes.c_void_p), L)
+
+
+def chain_limits(chain: DenseChainSpec, n_save=None, *,
+                 cuda=True) -> Optional[str]:
+    """Why the chain kernels cannot take ``chain``, or None when they can:
+    kernel 5 alone, or kernels 5 and 9 for a sweep of ``n_save`` saveat
+    times. The limits: 1 to ``CHAIN_MAX_LAYERS`` layers, at most
+    ``CHAIN_MAX_SAVE`` saveat times in the sweep, and each kernel's shared
+    memory within ``CHAIN_SMEM_BYTES`` (left out with ``cuda=False``, where
+    the plain versions run)."""
+    L = len(chain.dims) - 1
+    if not 1 <= L <= CHAIN_MAX_LAYERS:
+        return f"chain: {L} layers, the kernels take 1 to {CHAIN_MAX_LAYERS}"
+    queries = ["lrnde_chain_solve_smem_floats"]
+    if n_save is not None:
+        if n_save > CHAIN_MAX_SAVE:
+            return (f"{n_save} saveat times, kernel 9 takes at most "
+                    f"{CHAIN_MAX_SAVE}")
+        queries.append("lrnde_chain_sweep_smem_floats")
+    for q in queries if cuda else ():
+        need = _chain_smem_bytes(chain.dims, q)
+        if not 0 < need <= CHAIN_SMEM_BYTES:
+            return (f"chain {chain.dims}: needs {need} bytes of shared memory "
+                    f"per CTA ({q}), the kernels take at most "
+                    f"{CHAIN_SMEM_BYTES}")
+    return None
+
+
+def check_chain_operands(params, chain: DenseChainSpec, *states,
+                         n_save=None) -> tuple:
+    """Validate the chain's kernel operands: float32, contiguous, on one
+    CUDA device, states (B, F), weights matching ``chain.dims``, and the
+    chain (with a sweep's ``n_save``) inside ``chain_limits``. Returns
+    (B, F)."""
+    B, F = states[0].shape
+    reason = chain_limits(chain, n_save)
+    if reason is not None:
+        raise ValueError(reason)
+    shapes = chain_param_sizes(chain)
+    if len(params) != len(shapes):
+        raise ValueError(f"{len(params)} parameters for a chain of "
+                         f"{len(shapes) // 2} layers")
+    named = ([(f"param {i}", p, want)
+              for i, (p, want) in enumerate(zip(params, shapes))]
+             + [("state", s, (B, F)) for s in states])
+    for name, t, want in named:
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {want}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: needs contiguous float32")
+        if t.device != states[0].device:
+            raise ValueError(f"{name}: on {t.device}, state on {states[0].device}")
+    if B < 1 or F != chain.dims[0]:
+        raise ValueError(f"state {(B, F)} for a chain of width "
+                         f"{chain.dims[0]}")
+    return B, F
+
+
+def chain_operands(params, chain: DenseChainSpec):
+    """The chain's C operands (weight pointer array, dims array, L, acts
+    bit mask, lead); ``check_chain_operands`` has checked them."""
+    L = len(chain.dims) - 1
+    dims = (ctypes.c_int * (L + 1))(*chain.dims)
+    wb =(ctypes.c_void_p * (2 * L))(*[p.data_ptr() for p in params])
+    acts = sum(1 << i for i, a in enumerate(chain.acts) if a)
+    return (ctypes.cast(wb, ctypes.c_void_p), ctypes.cast(dims, ctypes.c_void_p),
+            L, acts, int(chain.lead))
+
+
+def persistent_chain_solve_plain(params, chain: DenseChainSpec, u0, tspan, *,
+                                 rtol, atol, saveat_arr, max_steps,
+                                 record_knots=False, knot_dense_cap=None,
+                                 knot_stride=1, reservoir=None):
+    """The plain version of kernel 5: the eager loop of ``ode/solve.py``
+    (``adaptive_loop``) with the generic Tsit5 step of the plain chain,
+    recording as the kernel does (no k1 knots)."""
+    return _plain_solve(
+        lambda u, t: chain_eval(params, chain, u), u0, tspan, rtol=rtol,
+        atol=atol, saveat_arr=saveat_arr, max_steps=max_steps,
+        record_knots=record_knots, knot_dense_cap=knot_dense_cap,
+        knot_stride=knot_stride, reservoir=reservoir,
+    )
+
+
+def persistent_chain_solve(params, chain: DenseChainSpec, u0: torch.Tensor,
+                           tspan, *, rtol: float, atol: float,
+                           saveat_arr: torch.Tensor, max_steps: int,
+                           record_knots=False, knot_dense_cap=None,
+                           knot_stride=1, reservoir=None):
+    """Run the whole adaptive solve of ``du/dt = chain(u)`` (kernel 5).
+
+    The contract and return dict of ``persistent_tsit5_solve``: ``params``
+    are the chain's ``[W_0, b_0, ...]`` and ``chain`` its
+    ``match_dense_chain`` spec. As in the reference, k1_0 and the Hairer dt
+    probe are plain evaluations outside the kernel, so NFE = 2 +
+    6·attempts. A CUDA tensor launches the kernel; a CPU tensor runs
+    ``persistent_chain_solve_plain``.
+
+    Limits of the kernel (``chain_limits``; it raises outside them): at
+    most ``CHAIN_MAX_LAYERS`` layers, and the chain's weights with a CTA's
+    working rows within ``CHAIN_SMEM_BYTES`` of shared memory (the
+    PhysioNet chain, 8 layers 20 ↔ 40, takes 29 KB). Any batch size, any
+    number of saveat times, unsorted; times ≤ t0 return u0.
+    """
+    check_reservoir(reservoir, max_steps)
+    rec = dict(record_knots=record_knots, knot_dense_cap=knot_dense_cap,
+               knot_stride=knot_stride, reservoir=reservoir)
+    if u0.device.type == "cpu":
+        return persistent_chain_solve_plain(
+            params, chain, u0, tspan, rtol=rtol, atol=atol,
+            saveat_arr=saveat_arr, max_steps=max_steps, **rec,
+        )
+    B, F = check_chain_operands(params, chain, u0)
+    lib = _build.load_library()
+    chain_args = chain_operands(params, chain)
+    t0, t_end = float(tspan[0]), float(tspan[1])
+    k1_0, dt_init, nfe0 = _start(lambda u, t: chain_eval(params, chain, u),
+                                 u0, t0, t_end, rtol, atol)
+    sc = device_scalars([t0, t_end, dt_init], u0)
+    saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
+    n_save = saveat.shape[0]
+    n_blocks = -(-B // lib.lrnde_chain_rows_per_block())
+    dev = u0.device
+    y_final = torch.empty_like(u0)
+    ys = torch.empty((n_save, B, F), dtype=torch.float32, device=dev)
+    stats_i = torch.empty(4, dtype=torch.int32, device=dev)
+    stats_f = torch.empty(2, dtype=torch.float32, device=dev)
+    scratch = torch.empty((8, B, F), dtype=torch.float32, device=dev)
+    slots = torch.empty(2 * n_blocks, dtype=torch.float32, device=dev)
+    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    knots = _knot_outputs(u0, max_steps, record_knots=record_knots,
+                          knot_dense_cap=knot_dense_cap,
+                          knot_stride=knot_stride)
+    rand, res_u = reservoir_operands(reservoir, u0)
+    n_dense = knots["knot_ts"].shape[0] if knots else 0
+    n_ckpt = knots["ckpt_ts"].shape[0] if "ckpt_ts" in knots else 0
+    p = _build.ptr
+    null = ctypes.c_void_p(0)
+    kp = lambda k: p(knots[k]) if k in knots else null  # noqa: E731
+    err = lib.lrnde_persistent_chain(
+        p(u0), p(k1_0), p(sc), p(saveat), n_save, *chain_args,
+        p(y_final), p(ys), p(stats_i), p(stats_f), p(scratch), p(slots),
+        p(barrier), B, int(max_steps), float(rtol), float(atol),
+        1.0 / float(B * F),
+        kp("knot_ts"), kp("knot_us"), n_dense,
+        kp("ckpt_ts"), kp("ckpt_us"), kp("ckpt_ks"), kp("ckpt_dts"),
+        kp("ckpt_qolds"), n_ckpt, max(1, int(knot_stride)),
+        p(rand) if rand is not None else null,
+        p(res_u) if res_u is not None else null,
+        _build.stream_ptr(dev),
+    )
+    _build.check(lib, err, "persistent_chain_solve")
+    persistent_chain_solve.launches += 1
+    return dict(
+        y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
+        success=stats_i[2].bool(), nfe=nfe0 + 6 * stats_i[3],
+        t_final=stats_f[0], ts=saveat_arr, **knots,
+        **(dict(reservoir_t=stats_f[1], reservoir_u=res_u)
+           if res_u is not None else {}),
+    )
+
+
+persistent_chain_solve.launches = 0

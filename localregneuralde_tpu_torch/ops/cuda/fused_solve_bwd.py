@@ -17,14 +17,20 @@ k1_0 (the caller closes it through the VJP of f(u0, t0)), and the weight
 gradients as ``TDMLPWeights``. The plain versions are the eager sweeps of
 ``ode/stored_adjoint.py`` with the plain step and its autograd VJP; a
 replay repeats the plain forward (``persistent_tsit5_solve_plain``) there.
+
+Kernel 9 (``persistent_chain_sweep``, ``csrc/chain_sweep.cu``) is the same
+sweep, dense and two-level, for the autonomous Dense chain of the latent
+ODE; it returns the gradients of the chain's ``[W_0, b_0, ...]``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from ...ode.stored_adjoint import eager_sweep
+from ...ode.step import tsit5_step
+from ...ode.stored_adjoint import autograd_step_vjp, eager_sweep
 from . import _build
 from .fused_mlp import TDMLPWeights, check_operands, tdmlp_plain
 from .fused_mlp_bwd import (
@@ -32,7 +38,15 @@ from .fused_mlp_bwd import (
     split_weight_grad,
     weight_grad_size,
 )
-from .fused_solve import plain_step
+from .fused_solve import (
+    DenseChainSpec,
+    chain_eval,
+    chain_limits,
+    chain_operands,
+    chain_param_sizes,
+    check_chain_operands,
+    plain_step,
+)
 
 
 def _plain_sweep(w: TDMLPWeights, knots, naccept, saveat_arr, ct_ys, ct_y,
@@ -175,3 +189,128 @@ def persistent_two_level_sweep(w: TDMLPWeights, knot_ts, knot_us, naccept,
 
 
 persistent_two_level_sweep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 9: the sweep of the autonomous Dense chain
+
+def chain_sweep_feasible(chain: DenseChainSpec, n_save: int, device) -> bool:
+    """Whether kernels 5 and 9 take this chain and saveat count on
+    ``device`` (``chain_limits``; on the CPU, where the plain versions run,
+    without the shared-memory plan): the recorded forward declines when the
+    sweep cannot run, as the reference's ``chain_sweep_feasible`` makes
+    it."""
+    return chain_limits(chain, n_save,
+                        cuda=torch.device(device).type != "cpu") is None
+
+
+def persistent_chain_sweep_plain(params, chain: DenseChainSpec, knot_ts,
+                                 knot_us, naccept, saveat_arr, ct_ys, ct_y, *,
+                                 two_level_ctx=None):
+    """Plain version of kernel 9: the eager sweep of
+    ``ode/stored_adjoint.py`` with the generic Tsit5 step of the plain chain
+    and its autograd VJP, k1 recomputed from each knot; two-level when
+    ``two_level_ctx`` is given (the replay repeats the plain forward)."""
+
+    def step(ps, u, t, dt, k1):
+        return tsit5_step(lambda u_, t_, st: (chain_eval(ps, chain, u_), st),
+                          u, t, dt, k1, None)
+
+    c = two_level_ctx or {}
+    knots = dict(knot_ts=knot_ts, knot_us=knot_us,
+                 **{k: c[k] for k in c if k.startswith("ckpt_")})
+    return eager_sweep(
+        step, autograd_step_vjp(step), list(params), knots, naccept,
+        saveat_arr, ct_ys, ct_y, two_level=bool(c),
+        t_end=torch.full((), float(c.get("t_end", 1.0)), device=ct_y.device),
+        rtol=c.get("rtol"), atol=c.get("atol"), max_steps=c.get("max_steps"),
+        stride=c.get("stride"), dense_cap=c.get("dense_cap"),
+        k1_of=lambda us, ts, ks, j: chain_eval(params, chain, us[j]),
+    )
+
+
+def persistent_chain_sweep(params, chain: DenseChainSpec, knot_ts, knot_us,
+                           naccept, saveat_arr, ct_ys, ct_y, *,
+                           two_level_ctx=None, return_replay=False):
+    """The stored-adjoint sweep of the chain (kernel 9), dense and two-level
+    in one entry point as in the reference (``fused_solve_bwd.py:850``):
+    without ``two_level_ctx`` (or with ``naccept <= dense_cap``, decided on
+    the device) it sweeps the dense knots; otherwise it replays each window
+    from its checkpoint with kernel 5's attempt code, which repeats a kernel-5
+    forward bitwise. ``two_level_ctx`` holds ``ckpt_ts``, ``ckpt_us``,
+    ``ckpt_ks``, ``ckpt_dts``, ``ckpt_qolds``, ``t_end``, ``rtol``,
+    ``atol``, ``max_steps``, ``stride`` and ``dense_cap``.
+
+    Returns ``(a_u, a_k, d_params)``: the state cotangent at t0, the
+    cotangent on k1_0 and the gradients of ``[W_0, b_0, ...]``. With
+    ``return_replay`` (CUDA only) it also returns the replay buffer (stride
+    + 1, B, F), which after a windowed sweep holds the states replayed from
+    checkpoint 0. A CPU tensor runs ``persistent_chain_sweep_plain``.
+
+    Limits (``chain_limits``; it raises outside them): those of
+    ``persistent_chain_solve``, at most ``CHAIN_MAX_SAVE`` saveat times, and
+    the backward's shared memory (the weights, the gradient partial and
+    every stage's activations of a 4-row block; 127 KB for the PhysioNet
+    chain) within ``CHAIN_SMEM_BYTES``.
+    """
+    if ct_y.device.type == "cpu":
+        return persistent_chain_sweep_plain(
+            params, chain, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y,
+            two_level_ctx=two_level_ctx)
+    ct_ys, ct_y = ct_ys.contiguous(), ct_y.contiguous()
+    if not knot_us.is_contiguous():
+        raise ValueError("knot_us: needs a contiguous buffer")
+    n_save = ct_ys.shape[0]
+    B, F = check_chain_operands(params, chain, ct_y, *ct_ys, *knot_us[:1],
+                                n_save=n_save)
+    dev = ct_y.device
+    lib = _build.load_library()
+    chain_args = chain_operands(params, chain)
+    n_blocks = -(-B // lib.lrnde_chain_rows_per_block())
+    sizes = chain_param_sizes(chain)
+    n_params = sum(math.prod(s) for s in sizes)
+    saveat = saveat_arr.to(device=dev, dtype=torch.float32).contiguous()
+    naccept = naccept.to(device=dev, dtype=torch.int32).reshape(1)
+    a_u, a_k = torch.empty_like(ct_y), torch.empty_like(ct_y)
+    d_w = torch.empty(n_params, device=dev)
+    part = torch.empty((n_blocks, n_params), device=dev)
+    p = _build.ptr
+    null = ctypes.c_void_p(0)
+    tl = two_level_ctx
+    if tl is not None:
+        stride = int(tl["stride"])
+        scratch = torch.empty((9, B, F), device=dev)
+        slots = torch.empty(2 * n_blocks, device=dev)
+        barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+        local_ts = torch.empty(n_blocks * (stride + 1), device=dev)
+        local_us = torch.empty((stride + 1, B, F), device=dev)
+        ckpts = [tl[k].contiguous() for k in
+                 ("ckpt_ts", "ckpt_us", "ckpt_ks", "ckpt_dts", "ckpt_qolds")]
+        ck = [p(c) for c in ckpts]
+        extra = [p(scratch), p(part), p(slots), p(barrier), p(local_ts),
+                 p(local_us)]
+        scalars = (float(tl["t_end"]), float(tl["rtol"]), float(tl["atol"]),
+                   int(tl["max_steps"]), stride, int(tl["dense_cap"]))
+    else:
+        local_us = None
+        ck = [null] * 5
+        extra = [null, p(part), null, null, null, null]
+        scalars = (0.0, 0.0, 0.0, 0, 1, 0)
+    err = lib.lrnde_chain_sweep(
+        int(tl is not None), *chain_args, p(knot_ts.contiguous()),
+        p(knot_us), p(naccept), p(saveat), n_save, p(ct_ys), p(ct_y), *ck,
+        *scalars, p(a_u), p(a_k), p(d_w), *extra, B, 1.0 / float(B * F),
+        _build.stream_ptr(dev),
+    )
+    _build.check(lib, err, "persistent_chain_sweep")
+    persistent_chain_sweep.launches += 1
+    grads, off = [], 0
+    for s in sizes:
+        n = math.prod(s)
+        grads.append(d_w[off:off + n].view(s))
+        off += n
+    out = a_u, a_k, grads
+    return (out, local_us) if return_replay else out
+
+
+persistent_chain_sweep.launches = 0

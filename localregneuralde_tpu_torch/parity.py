@@ -46,3 +46,14 @@ def load_jax_params(model: torch.nn.Module, tree) -> None:
                 f"{tuple(own[name].shape)}"
             )
         own[name].copy_(value)
+
+
+def latent_tree(tree) -> dict:
+    """The JAX latent ODE's parameter tree (``construct_time_series``) in
+    the port's names: the reference's ``Recurrence`` returns its cell's
+    parameters at its own level, the port's keeps them under ``cell``
+    (``gru.update_gate...`` → ``gru.cell.update_gate...``). The three GRU
+    gate chains, ``rec_to_gen``, the eight Dense layers of the generative
+    chain and ``gen_to_data`` then load with ``load_jax_params``, in the
+    ``(in, out)`` layout."""
+    return {**tree, "gru": {"cell": tree["gru"]}}

@@ -253,3 +253,99 @@ def test_persistent_reservoir_on_card(cuda_device):
     j = int(torch.argmin((ts - rec["reservoir_t"]).abs()))
     assert float(ts[j]) == float(rec["reservoir_t"]) < 1.0
     assert torch.equal(rec["knot_us"][j], rec["reservoir_u"])
+
+
+def _chain_setup(device, batch, features=20, hidden=40, layers=8, seed=0):
+    """The latent ODE's generative chain (leading tanh, ``layers`` tanh
+    Dense layers alternating features -> hidden -> features) with Glorot
+    weights and small biases, and a state batch."""
+    from localregneuralde_tpu_torch.nn import glorot_uniform
+    from localregneuralde_tpu_torch.ops.cuda import DenseChainSpec
+
+    g = torch.Generator().manual_seed(seed)
+    dims = [features] + [hidden if i % 2 == 0 else features
+                         for i in range(layers)]
+    params = []
+    for i in range(layers):
+        params += [glorot_uniform((dims[i], dims[i + 1]), g),
+                   0.1 * torch.randn(dims[i + 1], generator=g)]
+    chain = DenseChainSpec(tuple(dims), (True,) * layers, True)
+    x = torch.randn(batch, features, generator=g)
+    return [p.to(device) for p in params], chain, x.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [13, 512])
+def test_chain_solve_matches_plain_on_card(cuda_device, batch):
+    # kernel 5 against the eager loop with the plain chain: FP32 sums in
+    # another order, so at rtol 1e-4 the two agree step for step up to an
+    # ulp-level accept flip; the saveat times are unsorted and one is t0
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_chain_solve, persistent_chain_solve_plain,
+    )
+
+    params, chain, x = _chain_setup(cuda_device, batch)
+    saveat = torch.tensor([1.0, 0.0, 0.3, 0.7, 0.5], device=cuda_device)
+    kw = dict(rtol=1e-4, atol=1e-4, max_steps=256, saveat_arr=saveat)
+    out = persistent_chain_solve(params, chain, x, (0.0, 1.0), **kw)
+    ref = persistent_chain_solve_plain(params, chain, x, (0.0, 1.0), **kw)
+    assert bool(out["success"]) and bool(ref["success"])
+    assert abs(int(out["naccept"]) - int(ref["naccept"])) <= 1
+    assert abs(int(out["nfe"]) - int(ref["nfe"])) <= 12
+    torch.testing.assert_close(out["ys"], ref["ys"], atol=2e-4, rtol=0)
+    assert torch.equal(out["ys"][1], x)
+    again = persistent_chain_solve(params, chain, x, (0.0, 1.0), **kw)
+    assert torch.equal(out["ys"], again["ys"])
+    assert int(out["nfe"]) == int(again["nfe"])
+
+
+@pytest.mark.cuda
+def test_chain_recording_and_sweeps_on_card(cuda_device):
+    # the knots of kernel 5 reconstruct their steps; kernel 9 against the
+    # autograd sweep on those knots (FP32 sums in another order: relative
+    # 1e-4), bitwise from run to run, and its two-level branch replays
+    # kernel 5's windows bitwise, so it matches the dense branch
+    from localregneuralde_tpu_torch.ode.step import tsit5_step
+    from localregneuralde_tpu_torch.ops.cuda import (
+        chain_eval, persistent_chain_solve, persistent_chain_sweep,
+        persistent_chain_sweep_plain,
+    )
+
+    params, chain, x = _chain_setup(cuda_device, 64)
+    saveat = torch.linspace(0.0, 1.0, 7, device=cuda_device)
+    rec = persistent_chain_solve(params, chain, x, (0.0, 1.0), rtol=1e-6,
+                                 atol=1e-6, saveat_arr=saveat, max_steps=64,
+                                 record_knots=True, knot_stride=4)
+    n = int(rec["naccept"])
+    assert n > 4 and bool(rec["success"])
+    ts = rec["knot_ts"]
+    f = lambda u, t, st: (chain_eval(params, chain, u), st)  # noqa: E731
+    for i in range(n):
+        u = rec["knot_us"][i]
+        step = tsit5_step(f, u, ts[i], ts[i + 1] - ts[i], f(u, 0, None)[0],
+                          None)
+        torch.testing.assert_close(step.u_new, rec["knot_us"][i + 1],
+                                   atol=1e-5, rtol=0)
+    for c in range(n // 4 + 1):
+        assert torch.equal(rec["ckpt_us"][c], rec["knot_us"][4 * c])
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    ct_ys = torch.randn((7, 64, 20), generator=g, device=cuda_device)
+    ct_y = torch.randn((64, 20), generator=g, device=cuda_device)
+    args = (params, chain, rec["knot_ts"], rec["knot_us"], rec["naccept"],
+            saveat, ct_ys, ct_y)
+    dense = persistent_chain_sweep(*args)
+    ref = persistent_chain_sweep_plain(*args)
+    flat = lambda o: [o[0], o[1], *o[2]]  # noqa: E731
+    for a, b in zip(flat(dense), flat(ref)):
+        assert _rel(a, b) <= 1e-4
+    again = persistent_chain_sweep(*args)
+    for a, b in zip(flat(again), flat(dense)):
+        assert torch.equal(a, b)
+    ctx = {k: rec[k] for k in rec if k.startswith("ckpt_")}
+    ctx.update(t_end=1.0, rtol=1e-6, atol=1e-6, max_steps=64, stride=4,
+               dense_cap=2)
+    win, replay = persistent_chain_sweep(*args, two_level_ctx=ctx,
+                                         return_replay=True)
+    assert torch.equal(replay[:5], rec["knot_us"][:5])
+    for a, b in zip(flat(win), flat(dense)):
+        assert _rel(a, b) <= 1e-6

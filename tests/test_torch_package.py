@@ -27,6 +27,11 @@ def test_imports_with_jax_blocked():
         "import sys; sys.modules['jax'] = None\n"
         "import localregneuralde_tpu_torch, localregneuralde_tpu_torch.harness\n"
         "import localregneuralde_tpu_torch.ops.cuda, localregneuralde_tpu_torch.parity\n"
+        "import localregneuralde_tpu_torch.harness.latent_runner\n"
+        "import localregneuralde_tpu_torch.harness.checkpoint\n"
+        "import localregneuralde_tpu_torch.harness.logging\n"
+        "import localregneuralde_tpu_torch.models.latent_ode\n"
+        "import localregneuralde_tpu_torch.nn.recurrence\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
@@ -38,6 +43,33 @@ def test_imports_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_latent_runner_entry_point_runs_without_jax(tmp_path):
+    """``python -m localregneuralde_tpu_torch.harness.latent_runner`` with
+    JAX made unimportable: one small step on the CPU, to its summary."""
+    code = (
+        "import runpy, sys; sys.modules['jax'] = None\n"
+        "sys.argv = sys.argv[1:]\n"
+        "runpy.run_module('localregneuralde_tpu_torch.harness.latent_runner',"
+        " run_name='__main__')\n"
+    )
+    args = [
+        "latent_runner", "experiments/physionet/physionet.yaml",
+        "--device=cpu", "--model.ts_in_dims=3", "--model.ts_hidden_dims=4",
+        "--model.ts_latent_dims=3", "--model.ts_node_dims=2",
+        "--model.solver.reltol=1e-2", "--model.solver.abstol=1e-2",
+        "--model.solver.max_steps=32", "--dataset.train_batchsize=4",
+        "--dataset.eval_batchsize=410", "--train.total_steps=1",
+        f"--train.checkpoint_dir={tmp_path}/ckpt",
+        f"--train.log_dir={tmp_path}/logs",
+    ]
+    out = subprocess.run(
+        [sys.executable, "-c", code, *args], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "summary:" in out.stdout and "masked_mse" in out.stdout
 
 
 def test_no_module_imports_jax():
@@ -93,7 +125,7 @@ def test_unported_paths_raise():
         ["--model.model_type=cifar10_cnn"], None
     )
     with pytest.raises(NotImplementedError):
-        construct_model(cfg)
+        construct_model(cfg, device="cpu")
     # the non-stored adjoints are not ported
     node = NeuralODE(TDChain(Dense(5, 3, "tanh"), Dense(4, 4)),
                      adjoint="direct")
@@ -106,7 +138,7 @@ def test_unported_paths_raise():
         cfg = torch_config.define_configuration(extra, None)
         cfg.model.sde = True
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            construct_model(cfg)
+            construct_model(cfg, device="cpu")
     with pytest.raises(ValueError):
         NeuralODE(Dense(4, 4), use_pallas="on")
 

@@ -236,7 +236,7 @@ def test_mnist_sde_train_step_matches_jax(mode, use_pallas, monkeypatch):
 
     inject_sde_draws(monkeypatch, rng_key, use_pallas == "on", MAX_STEPS)
     cfg = _cfg(define_configuration, mode, use_pallas)
-    model = construct_model(cfg)
+    model = construct_model(cfg, device="cpu")
     load_jax_params(model, p0)
     loss_fn, w_reg = construct_loss(cfg)
     opt, sched = construct_optimizer(cfg)

@@ -72,7 +72,7 @@ def test_eval_slice_matches_jax(jax_reference, use_pallas, use_persistent):
         f"--model.use_pallas={use_pallas}",
         f"--model.solver.use_persistent={str(use_persistent).lower()}",
     ])
-    model = construct_model(cfg)
+    model = construct_model(cfg, device="cpu")
     load_jax_params(model, params)
     loss_fn, w_reg = construct_loss(cfg)
     loss, stats = make_eval_step(model, loss_fn)(
@@ -91,7 +91,7 @@ def test_eval_slice_matches_jax(jax_reference, use_pallas, use_persistent):
 def test_parameter_names_carry_over(jax_reference):
     params = jax_reference[0]
     cfg = _cfg(define_configuration)
-    names = dict(construct_model(cfg).named_parameters())
+    names = dict(construct_model(cfg, device="cpu").named_parameters())
     assert set(names) == {
         "neural_ode.model.layer_0.w", "neural_ode.model.layer_0.b",
         "neural_ode.model.layer_1.w", "neural_ode.model.layer_1.b",

@@ -230,7 +230,7 @@ def test_train_step_matches_jax(use_pallas, monkeypatch):
 
     monkeypatch.setattr(neural_ode, "sample_t1", lambda g, t0, t2: t1)
     cfg = _cfg(define_configuration, [f"--model.use_pallas={use_pallas}"])
-    model = construct_model(cfg)
+    model = construct_model(cfg, device="cpu")
     load_jax_params(model, p0)
     loss_fn, w_reg = construct_loss(cfg)
     opt, sched = construct_optimizer(cfg)
