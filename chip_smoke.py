@@ -45,10 +45,25 @@ on the card:
     steps and evaluates the 410-series test split through the port's
     ``run_latent_ode_experiment``, with launches per step and per eval
     batch, and holds the first step's gradients against the plain path on
-    the card and the eval MSE against the CPU.
+    the card and the eval MSE against the CPU;
+12. holds the conv kernels of the CIFAR-10 Neural ODE (the Tsit5 step and
+    its VJP) against their plain versions at ``experiments/cifar10/cnn.yaml``'s
+    full width (B = 32, 32x32, 8 and 64 channels), from a state made by the
+    model's own augmenter and BatchNorm: the step in training mode, in eval
+    mode with the running stats and with batch statistics, the VJP, both
+    bitwise deterministic, and the plain step in FP32 against FP64;
+13. serves ``cnn.yaml`` through ``make_eval_step`` (three batches of 32) and
+    trains it for three steps per arm (``regularize`` none and unbiased)
+    through ``make_train_step``, with launches per batch and step, and holds
+    the first step's gradients and BatchNorm state against the plain path on
+    the card (each step-kernel call's EMA chain against the plain step's, and
+    each VJP-kernel call of the sweep, with the FP32 plain VJP, against the
+    FP64 one on the same knots) and the logits of four images against the
+    CPU.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
-kernel, and the latent encoder's share of the latent train step.
+kernel, the latent encoder's share of the latent train step, and the CIFAR
+train step's kernels.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound. A bound is
@@ -58,6 +73,7 @@ move (each input read once, each output written once) over 3.35 TB/s. Any
 failed check exits non-zero without that line, as does a machine without a
 CUDA device.
 """
+import functools
 import json
 import os
 import statistics
@@ -77,6 +93,9 @@ TRAIN_STEPS = 5
 LATENT_CONFIG = "experiments/physionet/physionet.yaml"
 LATENT_TOL = 1.4e-8  # the rtol = atol of LATENT_CONFIG
 LATENT_STEPS = 3
+CIFAR_CONFIG = "experiments/cifar10/cnn.yaml"
+CIFAR_BATCHES = 3  # eval batches of 32
+CIFAR_STEPS = 3    # train steps per arm
 # NVIDIA H100 SXM, dense (NVIDIA's data sheet): FP32 outside the tensor
 # cores, and HBM3
 PEAK_FP32 = 67e12
@@ -1646,6 +1665,468 @@ def _profile_latent(device):
         print(f"[profile latent]   {ms:9.3f} ms  x{cnt:6.1f}  {key[:90]}")
 
 
+def _cifar_setup(device, overrides=(), params=None, regularize="none"):
+    """cnn.yaml's model (weights from its seed), loss, optimizer, train
+    state and steps, on ``device``."""
+    from localregneuralde_tpu_torch.harness import (
+        construct_loss, construct_model, construct_optimizer,
+        create_train_state, define_configuration, make_eval_step,
+        make_train_step,
+    )
+
+    cfg = define_configuration(
+        list(overrides) + [f"--model.regularize={regularize}"], CIFAR_CONFIG)
+    model = construct_model(cfg, device=device)
+    if params is not None:
+        model.load_state_dict(params)
+    loss_fn, w_reg = construct_loss(cfg)
+    opt, sched = construct_optimizer(cfg)
+    return dict(model=model, loss_fn=loss_fn, w_reg=w_reg, sched=sched,
+                ts=create_train_state(model, opt),
+                train=make_train_step(model, loss_fn, opt),
+                eval=make_eval_step(model, loss_fn))
+
+
+@functools.lru_cache(maxsize=1)
+def _cifar_data():
+    """The runner's CIFAR-10 arrays (the synthetic stand-in: the real set is
+    not in the repository)."""
+    from localregneuralde_tpu_torch.harness import (
+        define_configuration, get_classification_data,
+    )
+
+    return get_classification_data(define_configuration([], CIFAR_CONFIG))
+
+
+def _cifar_batches(device, split, n, bs=32):
+    """``n`` batches of the runner's CIFAR-10 data, normalised as
+    ``experiments/cifar10/main.py`` does."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import one_hot
+    from localregneuralde_tpu_torch.harness.runner import cifar_normalize
+
+    x_tr, y_tr, x_te, y_te, _ = _cifar_data()
+    x, y = (x_tr, y_tr) if split == "train" else (x_te, y_te)
+    return [(torch.tensor(cifar_normalize(x[i * bs:(i + 1) * bs]),
+                          device=device),
+             torch.tensor(one_hot(y[i * bs:(i + 1) * bs], 10), device=device))
+            for i in range(n)]
+
+
+def conv_flops(B_, H_, W_, Cs, Ch):
+    """Product FLOPs of one conv-dynamics evaluation: three 3x3 convs."""
+    return 2 * B_ * H_ * W_ * 9 * (Cs * Ch + Ch * Ch + Ch * Cs)
+
+
+def phase_conv_kernels(device):
+    """Kernels 13 and 14 against their plain versions at cnn.yaml's full
+    width, on a state from the model's own augmenter and BatchNorm."""
+    import torch
+
+    from localregneuralde_tpu_torch.core import ArrayAndTime
+    from localregneuralde_tpu_torch.ops.cuda import (
+        _build, conv_step_plain, fused_conv_step, fused_conv_step_bwd,
+        fused_conv_step_bwd_plain,
+    )
+    from localregneuralde_tpu_torch.ops.cuda.fused_conv import running_stats
+
+    s = _cifar_setup(device)
+    model = s["model"]
+    node = model.neural_ode
+    spec, w = node.conv, node.conv_weights()
+    x, _ = _cifar_batches(device, "train", 1)[0]
+    st0 = model.init_state()
+    t = torch.tensor(0.2, device=device)
+    dt = torch.tensor(0.05, device=device)
+    with torch.no_grad():
+        a, _ = model.augment(x, st0["augment"])
+        u, _ = model.bn(a, st0["bn"], training=True)
+        u = u.contiguous()
+        dyn_st = st0["neural_ode"]["model"]
+        k1 = node.model(ArrayAndTime(u, t), dyn_st,
+                        training=True)[0].array.contiguous()
+        rstats = running_stats(spec, dyn_st)
+    B_, H_, W_, Cs = u.shape
+    Ch = spec.Ch
+    res = {}
+    step_err = 0.0
+    for mode in ("train", "running", "batch"):
+        sp = spec._replace(eval_stats="batch") if mode == "batch" else spec
+        training = mode == "train"
+        with torch.no_grad():
+            out = fused_conv_step(w, sp, u, t, dt, k1, training=training,
+                                  rstats=rstats)
+            ref = conv_step_plain(w, sp, u, t, dt, k1, training=training,
+                                  rstats=rstats)
+            again = fused_conv_step(w, sp, u, t, dt, k1, training=training,
+                                    rstats=rstats)
+        # u~ cancels: held to 1e-5 of dt * max |k|
+        kscale = float(dt) * max(float(k.abs().max()) for k in ref[2:8])
+        ut_err = max_abs(out[1], ref[1]) / kscale
+        rel = max(rel_err(out[i], ref[i]) for i in (0, *range(2, 9)))
+        stats_rel = (max(rel_err(a_, b_) for a_, b_ in zip(out[9], ref[9]))
+                     if training else 0.0)
+        bitwise = all(torch.equal(p, q) for p, q in zip(out[:9], again[:9]))
+        step_err = max(step_err, max(max_abs(p, q) for p, q in
+                                     zip(out[:9], ref[:9])))
+        print(f"[conv step {mode}] vs plain: relative max-abs {rel:.3e} "
+              f"(u_new, k2..k7, g6), u~ {ut_err:.3e} of dt*max|k|, running "
+              f"stats {stats_rel:.3e}; bitwise deterministic {bitwise}")
+        check(rel <= 1e-5 and ut_err <= 1e-5 and stats_rel <= 1e-5
+              and bitwise, f"conv step {mode} disagrees with plain")
+    # the plain step runs in FP32 (cuDNN TF32 off): against FP64
+    with torch.no_grad():
+        ref32 = conv_step_plain(w, spec, u, t, dt, k1, training=True,
+                                rstats=rstats)
+        ref64 = conv_step_plain(
+            type(w)(*(p.double() for p in w)), spec, u.double(), t.double(),
+            dt.double(), k1.double(), training=True,
+            rstats=tuple(r.double() for r in rstats))
+    rel64 = rel_err(ref32[0].double(), ref64[0])
+    print(f"[conv step] plain step in FP32 vs FP64: u_new relative max-abs "
+          f"{rel64:.3e} (TF32 products would give ~1e-3)")
+    check(rel64 <= 1e-5, "the plain conv step does not run in FP32")
+
+    g = torch.Generator(device=device).manual_seed(17)
+    cts = [torch.randn(u.shape, generator=g, device=device) for _ in range(9)]
+    ours = fused_conv_step_bwd(w, spec, u, t, dt, k1, cts)
+    ref = fused_conv_step_bwd_plain(w, spec, u, t, dt, k1, cts)
+    names = ["d_u", "d_k1", *("d_" + f for f in w._fields)]
+    pairs = list(zip([ours[1], ours[2], *ours[0]], [ref[1], ref[2], *ref[0]]))
+    rels = {n: rel_err(p, q) for n, (p, q) in zip(names, pairs)}
+    again = fused_conv_step_bwd(w, spec, u, t, dt, k1, cts)
+    bitwise = all(torch.equal(p, q) for p, q in zip(
+        [again[1], again[2], *again[0]], [ours[1], ours[2], *ours[0]]))
+    print(f"[conv step_bwd] relative max-abs vs autograd of the plain step "
+          f"{ {k: float(f'{v:.3e}') for k, v in rels.items()} }; bitwise "
+          f"deterministic {bitwise}")
+    check(max(rels.values()) <= 1e-4 and bitwise,
+          f"conv step_bwd vs plain: {rels}")
+    bwd_err = max(max_abs(p, q) for p, q in pairs)
+
+    # device times: raw launches back to back, one wrapper call, plain
+    lib = _build.load_library()
+    sc = torch.stack([t, dt])
+    outs = [torch.empty_like(u) for _ in range(9)]
+    rs = torch.stack(rstats).contiguous()
+    rs_out = torch.empty_like(rs)
+    scr13 = torch.empty(lib.lrnde_conv_step_scratch_floats(B_, H_, W_, Cs, Ch),
+                        device=device)
+    raw13 = raw_launch("lrnde_conv_step", u, k1, sc, *w, *outs, rs, rs_out,
+                       scr13, 0, spec.momentum, 1.0 - spec.momentum, spec.eps,
+                       B_, H_, W_, Cs, Ch)
+    grads = [torch.empty_like(p) for p in (u, u, *w)]
+    scr14 = torch.empty(
+        lib.lrnde_conv_step_bwd_scratch_floats(B_, H_, W_, Cs, Ch),
+        device=device)
+    raw14 = raw_launch("lrnde_conv_step_bwd", u, k1, sc, *w, *cts, *grads,
+                       scr14, spec.eps, B_, H_, W_, Cs, Ch)
+    check(raw13() == 0 and raw14() == 0, "conv kernels: raw launch failed")
+    ms13, ms14 = back_to_back_ms([raw13, raw14], n=20, warmup=3)
+    call13, call14 = median_ms(
+        [lambda: fused_conv_step(w, spec, u, t, dt, k1, training=True,
+                                 rstats=rstats),
+         lambda: fused_conv_step_bwd(w, spec, u, t, dt, k1, cts)],
+        n=10, warmup=2)
+    with torch.no_grad():
+        plain13, = median_ms([lambda: conv_step_plain(
+            w, spec, u, t, dt, k1, training=True, rstats=rstats)], n=10,
+            warmup=2)
+    plain14, = median_ms([lambda: fused_conv_step_bwd_plain(
+        w, spec, u, t, dt, k1, cts)], n=10, warmup=2)
+    n_w = sum(p.numel() for p in w)
+    n_u = u.numel()
+    f13 = 6 * conv_flops(B_, H_, W_, Cs, Ch)
+    # in u, k1 and the weights; out u_new, u~, k2..k7, g6
+    res["fused_conv_step"] = dict(
+        max_abs_err=step_err, ms=ms13, plain_ms=plain13, call_ms=call13,
+        **bound(f13, 4 * (11 * n_u + n_w)))
+    # the recompute, the data and the weight gradients: three steps'
+    # products; in u, k1, nine cotangents and the weights; out d_u, d_k1
+    # and the weight gradients
+    res["fused_conv_step_bwd"] = dict(
+        max_abs_err=bwd_err, ms=ms14, plain_ms=plain14, call_ms=call14,
+        **bound(3 * f13, 4 * (13 * n_u + 2 * n_w)))
+    for name in ("fused_conv_step", "fused_conv_step_bwd"):
+        r = res[name]
+        print(f"[kernel {name}] max-abs {r['max_abs_err']:.3e} | device time "
+              f"per call back to back {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms | one wrapper call "
+              f"{r.pop('call_ms'):.4f} ms | bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    return res
+
+
+def _cifar_forward(setup, params, state, data, w_reg):
+    """Loss, new layer state, stats and parameter gradients of one training
+    forward."""
+    import torch
+
+    ps = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    loss, st_, stats = setup["loss_fn"](setup["model"], ps, state, data, w_reg,
+                                        training=True)
+    grads = torch.autograd.grad(loss, list(ps.values()), allow_unused=True)
+    return loss, st_, stats, dict(zip(ps, grads))
+
+
+def _bn_leaves(state, prefix=""):
+    """The BatchNorm running stats of a layer state, by path."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update(_bn_leaves(v, f"{prefix}{k}."))
+        elif k in ("mean", "var"):
+            out[prefix + k] = v
+    return out
+
+
+def phase_cifar(device, profile=False):
+    """cnn.yaml through construct_model -> make_eval_step / make_train_step:
+    three eval batches, three train steps per arm, launches per batch and
+    step; then the first step against the plain path and the CPU."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import accuracy, warmup_model
+    from localregneuralde_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts,
+    )
+
+    test = _cifar_batches(device, "test", CIFAR_BATCHES)
+    train = _cifar_batches(device, "train", CIFAR_STEPS)
+    serve = _cifar_setup(device)
+    arms = [(reg, _cifar_setup(device, regularize=reg))
+            for reg in ("none", "unbiased")]
+    params0 = {k: v.detach().clone() for k, v in serve["ts"].params.items()}
+    # first-call set-up (cuDNN plans, the allocator's pools)
+    serve["eval"](serve["ts"], test[0], serve["w_reg"](1))
+    for _, a in arms:
+        warmup_model(a["train"], None, a["ts"], train[0], a["w_reg"](1),
+                     a["sched"](1))
+    torch.cuda.synchronize()
+
+    def delta(before):
+        after = launch_counts()
+        return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    # --- the main path: every launch from here to launch_counts() counts
+    reset_launch_counts()
+    evals, steps = [], []
+    for batch in test:
+        before, t0 = launch_counts(), time.perf_counter()
+        loss, stats = serve["eval"](serve["ts"], batch, serve["w_reg"](1))
+        torch.cuda.synchronize()
+        evals.append((1e3 * (time.perf_counter() - t0), delta(before), loss,
+                      stats, batch))
+    for reg, a in arms:
+        ts = a["ts"]
+        for i, batch in enumerate(train):
+            before, t0 = launch_counts(), time.perf_counter()
+            ts, loss, stats = a["train"](ts, batch, a["w_reg"](i + 1),
+                                         a["sched"](i + 1))
+            torch.cuda.synchronize()
+            steps.append((reg, i, 1e3 * (time.perf_counter() - t0),
+                          delta(before), loss, stats))
+        a["ts"] = ts
+    counts = launch_counts()
+
+    for i, (ms, c, loss, stats, batch) in enumerate(evals):
+        nfe = int(stats["nfe"])
+        top1 = float(accuracy(stats["y_pred"], batch[1]))
+        print(f"[cifar serve] batch {i}: loss {float(loss):.6f} top-1 "
+              f"{top1:.2f}% nfe {nfe} success {bool(stats['solver_success'])} "
+              f"{ms:.3f} ms {32 / (ms / 1e3):.1f} images/s | launches {c}")
+        # k1 and the dt probe are the plain module; every attempt kernel 13
+        check(bool(torch.isfinite(loss)) and bool(stats["solver_success"])
+              and tuple(stats["y_pred"].shape) == (32, 10)
+              and c == {"fused_conv_step": (nfe - 2) // 6},
+              f"cifar serve batch {i}: bad output or launches {c}")
+    for reg, i, ms, c, loss, stats in steps:
+        nfe = int(stats["nfe"])
+        extra = 8 if reg == "unbiased" else 0
+        attempts = (nfe - 2 - extra) // 6
+        n13 = c.get("fused_conv_step", 0)
+        n14 = c.get("fused_conv_step_bwd", 0)
+        print(f"[cifar train {reg}] step {i + 1}: loss {float(loss):.6f} "
+              f"reg_val {float(stats['reg_val']):.6e} nfe {nfe} success "
+              f"{bool(stats['solver_success'])} {ms:.3f} ms "
+              f"{nfe / (ms / 1e3):.1f} dynamics evals/s | launches {c} "
+              f"({attempts} solve attempts)")
+        # kernel 13 once per attempt (+ the regulariser's step), kernel 14
+        # once per accepted step (+ the regulariser's step's VJP)
+        check(bool(torch.isfinite(loss)) and bool(stats["solver_success"])
+              and set(c) <= {"fused_conv_step", "fused_conv_step_bwd"}
+              and n13 == attempts + extra // 8
+              and 1 + extra // 8 <= n14 <= n13,
+              f"cifar train {reg} step {i + 1}: launches {c}")
+    print(f"[cifar] launch counts { {k: v for k, v in counts.items() if v} }")
+
+    # --- the first step against the plain path on the card (same t1: both
+    # NeuralODEs draw it from a generator seeded with cfg.seed). Each of
+    # kernel 13's calls in the solve is held against the plain step on its
+    # own inputs, running stats included, each of kernel 14's calls in the
+    # sweep against autograd of the plain step on the kernel path's own
+    # knots, and the attempts' step sizes of both solves are logged.
+    import localregneuralde_tpu_torch.ode.solve as solve_mod
+    import localregneuralde_tpu_torch.ops.cuda as ops_cuda
+    from localregneuralde_tpu_torch.ops.cuda import (
+        conv_step_plain, fused_conv_step_bwd_plain,
+    )
+
+    k13, k14 = ops_cuda.fused_conv_step, ops_cuda.fused_conv_step_bwd
+    attempt = solve_mod.attempt
+    ema_errs, vjp_errs = [], []
+
+    def held(w, spec, u, t, dt, k1, *, training, rstats=None):
+        out = k13(w, spec, u, t, dt, k1, training=training, rstats=rstats)
+        if training:
+            ref = conv_step_plain(w, spec, u, t, dt, k1, training=True,
+                                  rstats=rstats)
+            ema_errs.append(max(max_abs(p, q) for p, q in zip(out[9], ref[9]))
+                            / max(float(r.abs().max()) for r in ref[9]))
+        return out
+
+    def held_vjp(w, spec, u, t, dt, k1, cts):
+        """Kernel 14 and the FP32 plain VJP, each against the FP64 one: on
+        these cotangents d_k1 is a cancelling sum of the stages' a_ej terms,
+        so both FP32 versions carry more error there than on random ones."""
+        d_w, d_u, d_k1 = k14(w, spec, u, t, dt, k1, cts)
+        r_w, r_u, r_k1 = fused_conv_step_bwd_plain(w, spec, u, t, dt, k1, cts)
+        x_w, x_u, x_k1 = fused_conv_step_bwd_plain(
+            type(w)(*(p.double() for p in w)), spec, u.double(),
+            torch.as_tensor(t).double(), torch.as_tensor(dt).double(),
+            k1.double(), [c.double() for c in cts])
+        names = ["d_u", "d_k1", *("d_" + f for f in w._fields)]
+        vjp_errs.append({n: (rel_err(p.double(), x), rel_err(q.double(), x))
+                         for n, p, q, x in zip(names, (d_u, d_k1, *d_w),
+                                               (r_u, r_k1, *r_w),
+                                               (x_u, x_k1, *x_w))})
+        return d_w, d_u, d_k1
+
+    def logged(log):
+        def fn(*args, **kw):
+            a = attempt(*args, **kw)
+            log.append(float(a.dt_c))
+            return a
+        return fn
+
+    for reg, a in arms:
+        sd = serve["model"].state_dict()
+        plain = _cifar_setup(device, ["--model.use_pallas=off"], sd, reg)
+        data = train[0]
+        dts_o, dts_r = [], []
+        try:
+            ops_cuda.fused_conv_step = held
+            ops_cuda.fused_conv_step_bwd = held_vjp
+            solve_mod.attempt = logged(dts_o)
+            _, st_o, s_o, g_o = _cifar_forward(a, params0,
+                                               a["model"].init_state(), data,
+                                               0.0)
+            solve_mod.attempt = logged(dts_r)
+            _, st_r, s_r, g_r = _cifar_forward(
+                plain, params0, plain["model"].init_state(), data, 0.0)
+        finally:
+            ops_cuda.fused_conv_step, ops_cuda.fused_conv_step_bwd = k13, k14
+            solve_mod.attempt = attempt
+        n_o, n_r = int(s_o["nfe"]), int(s_r["nfe"])
+        ce_o = float(s_o["ce_loss"].detach())
+        ce_r = float(s_r["ce_loss"].detach())
+        head = (f"[cifar train {reg}] first step vs the card's plain path: "
+                f"NFE {n_o} vs {n_r}, cross-entropy {ce_o:.6f} vs {ce_r:.6f}, "
+                f"reg_val {float(s_o['reg_val'].detach()):.6e} vs "
+                f"{float(s_r['reg_val'].detach()):.6e}; kernel 13's running "
+                f"stats vs the plain EMA chain on the same inputs, "
+                f"{len(ema_errs)} calls, relative max-abs {max(ema_errs):.3e}; "
+                f"kernel 14 and the FP32 plain VJP against the FP64 one on "
+                f"the kernel path's knots, {len(vjp_errs)} calls, relative "
+                f"max-abs (kernel, plain) "
+                f"{ {n: tuple(float(f'{max(e[n][i] for e in vjp_errs):.3e}') for i in (0, 1)) for n in vjp_errs[0]} }")
+        print(head)
+        # kernel 14 within 1e-4 of the FP64 VJP, or no worse than twice the
+        # FP32 plain VJP's own error
+        check(abs(ce_o - ce_r) <= 1e-4 * max(1.0, abs(ce_r))
+              and max(ema_errs) <= 1e-5
+              and all(ek <= max(1e-4, 2 * ep) for e in vjp_errs
+                      for ek, ep in e.values()),
+              f"cifar {reg}: cross-entropy, running stats or kernel 14 "
+              f"disagree with the plain path; kernel 14 per call: {vjp_errs}")
+        ema_errs.clear()
+        vjp_errs.clear()
+        if n_o != n_r:
+            print(f"[cifar train {reg}] the step sequences differ (f32 noise "
+                  f"in the error estimate), so the whole step's gradients "
+                  f"are not compared")
+            continue
+        # the attempts' step sizes: the error estimate at rtol 1e-4 carries
+        # f32 noise, so the controller's proposals differ slightly, and the
+        # last step (clipped to the span) by the most
+        dt_rel = max(abs(p - q) / q for p, q in zip(dts_o, dts_r))
+        # relative to the largest gradient and running stat: some are zero
+        # (the augmenter's bias: the BatchNorm after it removes it) or near
+        # it (running means)
+        rel = (max(max_abs(g_o[k], g_r[k]) for k in g_o)
+               / max(float(g.abs().max()) for g in g_r.values()))
+        bn_o, bn_r = _bn_leaves(st_o), _bn_leaves(st_r)
+        rel_bn = (max(max_abs(bn_o[k], bn_r[k]) for k in bn_r)
+                  / max(float(v.abs().max()) for v in bn_r.values()))
+        print(f"[cifar train {reg}] first step: step sizes relative max-abs "
+              f"{dt_rel:.3e}; gradients "
+              f"of the cross-entropy relative max-abs {rel:.3e}; BatchNorm "
+              f"running stats after the step {rel_bn:.3e} (the statistics "
+              f"are taken at the stages, so they follow the step sizes)")
+        check(rel <= 1e-3 and (rel_bn <= 1e-4 or dt_rel > 1e-5),
+              f"cifar {reg}: gradients or state disagree with the plain path")
+    # 4 test images: the card's kernel path against the CPU
+    cpu = _cifar_setup("cpu", [], {k: v.cpu() for k, v in
+                                   serve["model"].state_dict().items()})
+    small = (test[0][0][:4], test[0][1][:4])
+    _, on_card = serve["eval"](serve["ts"], small, serve["w_reg"](1))
+    _, on_cpu = cpu["eval"](cpu["ts"], tuple(d.cpu() for d in small),
+                            cpu["w_reg"](1))
+    err = rel_err(on_card["y_pred"].cpu(), on_cpu["y_pred"])
+    print(f"[cifar serve] 4 images, card kernels vs CPU plain: logits "
+          f"relative max-abs {err:.3e}, nfe {int(on_card['nfe'])} vs "
+          f"{int(on_cpu['nfe'])}")
+    check(err <= 1e-4, "cifar serve: the card disagrees with the CPU")
+    if profile:
+        _profile_cifar(arms, train)
+    return counts
+
+
+def _profile_cifar(arms, batches):
+    """Device time by kernel over two train steps per arm: inside the ODE
+    the conv kernels run; cuDNN serves the augmenter, the classifier, k1,
+    the dt probes and the FSAL closure."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for reg, a in arms:
+        ts = a["ts"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(2):
+                ts, _, _ = a["train"](ts, batches[i], a["w_reg"](1),
+                                      a["sched"](1))
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / 2
+        a["ts"] = ts
+        rows = [(e.key, e.device_time_total / 1e3 / 2, e.count / 2)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.device_time_total > 0]
+        rows.sort(key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        ours = sum(r[1] for r in rows if "lrnde" in r[0])
+        print(f"[profile cifar {reg}] {wall:.3f} ms per train step under the "
+              f"profiler, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)"
+              f", of which the port's kernels {ours:.3f} ms")
+        for key, ms, cnt in rows[:16]:
+            print(f"[profile cifar {reg}]   {ms:9.3f} ms  x{cnt:7.1f}  "
+                  f"{key[:90]}")
+
+
 def main():
     import torch
 
@@ -1670,6 +2151,8 @@ def main():
     path_counts.append(phase_ode_biased(device))
     res.update(phase_chain_kernels(device))
     path_counts.append(phase_latent(device, profile=profile))
+    res.update(phase_conv_kernels(device))
+    path_counts.append(phase_cifar(device, profile=profile))
     for name in ("persistent_chain_solve", "persistent_chain_sweep"):
         r = res[name]
         print(f"[kernel {name}] max-abs {r['max_abs_err']:.3e} | device time "
@@ -1711,6 +2194,12 @@ def main():
         "persistent_chain_sweep": (
             "localregneuralde_tpu_torch/csrc/chain_sweep.cu",
             "localregneuralde_tpu/ops/pallas/fused_solve_bwd.py:850"),
+        "fused_conv_step": (
+            "localregneuralde_tpu_torch/csrc/conv_step.cu",
+            "localregneuralde_tpu/ops/pallas/fused_conv.py:166"),
+        "fused_conv_step_bwd": (
+            "localregneuralde_tpu_torch/csrc/conv_step_bwd.cu",
+            "localregneuralde_tpu/ops/pallas/fused_conv_bwd.py:82"),
     }
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

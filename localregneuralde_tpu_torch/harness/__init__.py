@@ -13,6 +13,8 @@ from .construct import (
 )
 from .data import (
     Dataloader,
+    get_classification_data,
+    load_cifar10,
     load_mnist,
     make_dataloader,
     one_hot,
@@ -51,8 +53,10 @@ __all__ = [
     "define_configuration",
     "experiment_name",
     "flatten_config",
+    "get_classification_data",
     "kl_divergence",
     "log_likelihood_loss",
+    "load_cifar10",
     "load_mnist",
     "logitcrossentropy",
     "make_dataloader",

@@ -1,11 +1,11 @@
-"""The host data pipeline: the MNIST loader, the deterministic synthetic
-stand-ins (classification and PhysioNet-like series), one-hot labels and
-the shuffling batcher.
+"""The host data pipeline: the MNIST and CIFAR-10 loaders, the
+deterministic synthetic stand-ins (classification and PhysioNet-like
+series), one-hot labels and the shuffling batcher.
 
 Copied from ``localregneuralde_tpu/harness/data.py`` (numpy only, so the
 two packages make the same arrays and batches from the same seed). The
-batcher is the Python one; the reference's native C++ loader and device
-prefetch are not ported (ROADMAP Queue 1 items 7 and 13).
+batcher is the Python one; the reference's native C++ loader is not ported
+(ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -66,6 +66,39 @@ def load_mnist(data_root: str = ""):
     return None
 
 
+def load_cifar10(data_root: str = ""):
+    """(x_train, y_train, x_test, y_test); x: (N,32,32,3) float32 ∈ [0,1],
+    from ``cifar10.npz`` or the binary batches of ``cifar-10-batches-bin``
+    under ``data_root``. Returns None if no real data is present."""
+    if not data_root:
+        return None
+    npz = _find(data_root, ["cifar10.npz"])
+    if npz:
+        d = np.load(npz)
+        return (
+            d["x_train"].astype(np.float32) / 255.0,
+            d["y_train"].astype(np.int32),
+            d["x_test"].astype(np.float32) / 255.0,
+            d["y_test"].astype(np.int32),
+        )
+    batches = [
+        os.path.join(data_root, "cifar-10-batches-bin", f"data_batch_{i}.bin")
+        for i in range(1, 6)
+    ]
+    test = os.path.join(data_root, "cifar-10-batches-bin", "test_batch.bin")
+    if all(os.path.exists(b) for b in batches) and os.path.exists(test):
+        def read_bin(path):
+            raw = np.fromfile(path, dtype=np.uint8).reshape(-1, 3073)
+            y = raw[:, 0].astype(np.int32)
+            x = raw[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+            return x.astype(np.float32) / 255.0, y
+
+        xs, ys = zip(*[read_bin(b) for b in batches])
+        xte, yte = read_bin(test)
+        return np.concatenate(xs), np.concatenate(ys), xte, yte
+    return None
+
+
 def synthetic_classification(
     image_size=(28, 28), channels=1, num_classes=10,
     n_train=8192, n_test=2048, seed=0, difficulty="easy",
@@ -108,6 +141,24 @@ def synthetic_classification(
     x_train, y_train = make(n_train, seed + 1)
     x_test, y_test = make(n_test, seed + 2)
     return x_train, y_train, x_test, y_test
+
+
+def get_classification_data(cfg):
+    """(x_train, y_train, x_test, y_test, is_real) for a config: MNIST for
+    28×28×1 images and CIFAR-10 otherwise, read from
+    ``cfg.dataset.data_root`` when there, else the synthetic stand-in at the
+    config's image shape."""
+    size = tuple(cfg.model.image_size)
+    if size == (28, 28) and cfg.model.in_channels == 1:
+        real = load_mnist(cfg.dataset.data_root)
+    else:
+        real = load_cifar10(cfg.dataset.data_root)
+    if real is not None:
+        return real + (True,)
+    return synthetic_classification(
+        size, cfg.model.in_channels, cfg.model.num_classes, seed=cfg.seed,
+        difficulty=getattr(cfg.dataset, "difficulty", "easy"),
+    ) + (False,)
 
 
 def one_hot(y: np.ndarray, num_classes: int) -> np.ndarray:

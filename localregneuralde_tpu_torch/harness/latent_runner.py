@@ -143,7 +143,7 @@ def eval_forward(model, ts: TrainState, batch):
     return mse, st_["neural_ode"]["nfe"]
 
 
-def _to_device(batch, device):
+def batch_to_device(batch, device):
     """A host batch on ``device`` (through pinned memory on a card, so the
     copy does not wait for the queued step)."""
     like = torch.empty(0, device=device)
@@ -203,7 +203,7 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
     t_window = time.perf_counter()
     for step in range(initial_step, cfg.train.total_steps + 1):
         t0 = time.perf_counter()
-        batch = _to_device(next(data_iter), device)
+        batch = batch_to_device(next(data_iter), device)
         data_time += time.perf_counter() - t0
         w = (float(w_reg_sched(step)), float(w_kl_sched(step)))
         ts, loss, stats = train_step(ts, batch, w, float(lr_sched(step)))
@@ -259,7 +259,8 @@ def _eval_and_checkpoint(model, ts, test_arrays, eval_bs, step, best,
     MSE, this evaluation's MSE and its mean NFE."""
     mses, nfes, count = 0.0, 0.0, 0
     for host_batch in make_dataloader(test_arrays, eval_bs, drop_last=True):
-        mse, nfe = eval_forward(model, ts, _to_device(host_batch, device))
+        mse, nfe = eval_forward(model, ts,
+                                batch_to_device(host_batch, device))
         bs = host_batch[0].shape[0]
         mses += float(mse) * bs
         nfes += float(nfe) * bs

@@ -1,4 +1,5 @@
 from .common import (
+    AugmenterLayer,
     ReparameterizeLayer,
     TDChain,
     diffeqsol_to_array,
@@ -9,6 +10,7 @@ from .neural_ode import NeuralODE
 from .neural_sde import NeuralDSDE
 
 __all__ = [
+    "AugmenterLayer",
     "LatentGRUCell",
     "NeuralDSDE",
     "NeuralODE",

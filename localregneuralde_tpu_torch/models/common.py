@@ -1,4 +1,5 @@
-"""TDChain, ReparameterizeLayer and the solution→tensor adapters.
+"""TDChain, AugmenterLayer, ReparameterizeLayer and the solution→tensor
+adapters.
 
 Counterpart of ``localregneuralde_tpu/models/common.py`` (reference
 ``src/layers/common.jl`` and ``src/utils.jl:37-46``). Batch-major: the
@@ -10,16 +11,50 @@ from __future__ import annotations
 import torch
 
 from ..core.containers import ArrayAndTime, get_array
-from ..nn.basic import Chain
+from ..nn.basic import Chain, Conv, conv2d_nhwc_td
 from ..nn.module import Module
 from ..ode.solve import host_to_device
+
+
+def _conv_split(conv: Conv, x, t):
+    """``conv(concat(x, t·1))`` without the concat (``conv2d_nhwc_td``); the
+    parameter layout is the concat's, the last input channel time. None
+    when the weight's input count is not C + 1."""
+    if conv.w.shape[2] != x.shape[-1] + 1:
+        return None
+    y = conv2d_nhwc_td(x, conv.w, t)
+    if conv.use_bias:
+        y = y + conv.b
+    return conv.activation(y)
+
+
+def _apply_time_dependent(layer, arr, state, t, training):
+    """The concat-free path of a conv sublayer of a TDChain (a ``Conv``, or
+    a ``Chain`` that starts with one); None where the generic concat
+    applies."""
+    if isinstance(layer, Conv):
+        y = _conv_split(layer, arr, t)
+        return None if y is None else (y, state)
+    if isinstance(layer, Chain):
+        children = list(layer.named_children())
+        if not children or not isinstance(children[0][1], Conv):
+            return None
+        y = _conv_split(children[0][1], arr, t)
+        if y is None:
+            return None
+        new_state = {children[0][0]: state[children[0][0]]}
+        for name, sub in children[1:]:
+            y, new_state[name] = sub(y, state[name], training=training)
+        return y, new_state
+    return None
 
 
 class TDChain(Chain):
     """Time-dependent chain: every sublayer's input gets a ``ones·t``
     channel appended along the last axis, which is why the reference's
-    widths read ``Dense(F+1 → H), Dense(H+1 → F)``. Takes ``ArrayAndTime`` or
-    an ``(x, t)`` tuple and returns the same kind."""
+    widths read ``Dense(F+1 → H), Dense(H+1 → F)``. A conv sublayer takes
+    the concat-free path (``_conv_split``). Takes ``ArrayAndTime`` or an
+    ``(x, t)`` tuple and returns the same kind."""
 
     def apply_layer(self, x, state, *, training: bool = False):
         if isinstance(x, ArrayAndTime):
@@ -30,15 +65,34 @@ class TDChain(Chain):
             raise TypeError("TDChain expects ArrayAndTime or an (x, t) tuple")
         new_state = {}
         for name, layer in self.named_children():
-            t_channel = arr.new_ones(arr.shape[:-1] + (1,)) * t
-            arr, new_state[name] = layer(
-                torch.cat([arr, t_channel], dim=-1), state[name],
-                training=training,
-            )
+            out = _apply_time_dependent(layer, arr, state[name], t, training)
+            if out is None:
+                t_channel = arr.new_ones(arr.shape[:-1] + (1,)) * t
+                out = layer(torch.cat([arr, t_channel], dim=-1), state[name],
+                            training=training)
+            arr, new_state[name] = out
             arr = get_array(arr)
         if isinstance(x, ArrayAndTime):
             return ArrayAndTime(arr, t), new_state
         return (arr, t), new_state
+
+
+class AugmenterLayer(Module):
+    """ANODE-style augmentation (reference ``src/layers/common.jl:79-93``):
+    run ``augment`` and concatenate its output to the input along the
+    channels (the last axis; the reference's ``axis`` option is not carried,
+    no model sets it). The sublayer's parameters sit under ``augment.``."""
+
+    def __init__(self, augment: Module):
+        super().__init__()
+        self.augment = augment
+
+    def init_state(self) -> dict:
+        return self.augment.init_state()
+
+    def apply_layer(self, x, state, *, training: bool = False):
+        y, st = self.augment(x, state, training=training)
+        return torch.cat([x, y], dim=-1), st
 
 
 def reparam_noise(generator: torch.Generator, shape, like: torch.Tensor):

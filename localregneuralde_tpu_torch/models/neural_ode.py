@@ -22,8 +22,10 @@ Kernel dispatch (``use_pallas``, the reference's config name): when the
 dynamics is a kernel family, ``'on'`` routes the solve through its wrappers
 (``ops/cuda``) and ``'auto'`` does so for CUDA inputs; ``'off'`` runs the
 dynamics module in the eager loop. The families are the TD-MLP (a
-``TDChain`` of two Dense layers) and the autonomous Dense chain of the
-latent ODE (``Chain([Lambda(tanh)], Dense...)``, ``match_dense_chain``).
+``TDChain`` of two Dense layers), the autonomous Dense chain of the
+latent ODE (``Chain([Lambda(tanh)], Dense...)``, ``match_dense_chain``) and
+the CIFAR conv dynamics (``TDChain`` of Conv+BatchNorm twice and a Conv,
+``match_conv_family``).
 With ``use_persistent`` the whole solve is one launch of the persistent
 kernel; without it the loop calls the fused Tsit5 step kernel per attempt
 (TD-MLP) or the generic step of the plain chain. The wrappers run their
@@ -33,6 +35,17 @@ The chain family, as in the reference (``neural_ode.py:196-201,
 271-272``), has kernels for the whole solve (kernel 5) and the whole sweep
 (kernel 9) only: k1, the dt probe, the FSAL closure and the regulariser's
 step are plain autograd through ``chain_eval``.
+
+The conv family, as in the reference (``neural_ode.py:273-325, 349-353``),
+has a step kernel (13) and its VJP (14) and no persistent solve or sweep:
+every attempt of the eager loop, eval and training, and the regulariser's
+step run kernel 13, the sweep runs kernel 14 once per accepted step, and
+k1, the dt probe and the FSAL closure are the plain module (cuDNN, FP32).
+
+Dynamics state (the conv family's BatchNorm running stats) is threaded
+through the solve's accepted steps, in training through the stored
+adjoint as a fenced output, and then through the regulariser's step; in
+training the dynamics runs in training mode (batch statistics).
 
 In training the kernel route runs the forward as one launch of the
 persistent solve with knot recording, the backward as one launch of the
@@ -57,6 +70,9 @@ from ..ode.controller import initial_step_size
 from ..ode.solve import ODESolution, device_scalar, host_to_device, odesolve
 from ..ode.step import Tsit5StepResult, regularization_value, tsit5_step
 from ..core.containers import ArrayAndTime, get_array
+from ..ops.cuda.fused_conv import (
+    ConvWeights, match_conv_family, running_stats, with_running_stats,
+)
 from .common import TDChain
 
 _VALID_REGULARIZE = ("none", "unbiased", "biased")
@@ -136,15 +152,20 @@ class NeuralODE(Module):
         from ..ops.cuda.fused_solve import match_dense_chain
 
         self.chain = None if is_tdmlp(model) else match_dense_chain(model)
+        self.conv = None
+        if not is_tdmlp(model) and self.chain is None:
+            self.conv = match_conv_family(model)
         self.family = ("tdmlp" if is_tdmlp(model)
-                       else "chain" if self.chain is not None else None)
+                       else "chain" if self.chain is not None
+                       else "conv" if self.conv is not None else None)
         if use_pallas == "on" and self.family is None:
             raise ValueError(
                 "use_pallas='on' requires a TDChain of two Dense layers (the "
-                "fused TD-MLP family) or an autonomous Dense chain (the "
+                "fused TD-MLP family), an autonomous Dense chain (the "
                 "latent ODE's generative dynamics, ops/cuda/fused_solve.py::"
-                "match_dense_chain); the other kernel families are not "
-                "ported yet"
+                "match_dense_chain) or the CIFAR conv dynamics "
+                "(ops/cuda/fused_conv.py::match_conv_family); the score "
+                "samplers' families are not ported yet"
             )
         self.model = model
         self.tspan = (float(tspan[0]), float(tspan[1]))
@@ -187,12 +208,15 @@ class NeuralODE(Module):
         l0, l1 = self.model.layers.values()
         return TDMLPWeights(l0.w, l0.b, l1.w, l1.b)
 
-    def _generic_dynamics(self):
+    def _generic_dynamics(self, training: bool = False):
         def f(u, t, st):
-            y, st_new = self.model(ArrayAndTime(u, t), st)
+            y, st_new = self.model(ArrayAndTime(u, t), st, training=training)
             return get_array(y), st_new
 
         return f
+
+    def conv_weights(self) -> ConvWeights:
+        return ConvWeights(*self.model.parameters())
 
     def chain_params(self):
         """The chain family's parameters, ``[W_0, b_0, W_1, ...]``."""
@@ -202,6 +226,8 @@ class NeuralODE(Module):
         """(dynamics, step_fn, persistent_fn) of the kernel family."""
         if self.family == "chain":
             return self._chain_solvers()
+        if self.family == "conv":
+            return self._conv_solvers()
         from ..ops.cuda import fused_tdmlp, fused_tsit5_step, persistent_tsit5_solve
 
         w = self.tdmlp_weights()
@@ -248,6 +274,65 @@ class NeuralODE(Module):
 
         return f, None, (persistent if self.use_persistent else None)
 
+    def _conv_solvers(self):
+        """(dynamics, step_fn, None) of the conv family in eval mode: the
+        plain module for k1 and the dt probe, kernel 13 for every attempt
+        (running stats, or batch statistics under ``eval_stats='batch'``);
+        the state passes through unchanged."""
+        from ..ops.cuda import fused_conv_step
+
+        w, spec = self.conv_weights(), self.conv
+
+        def step(fn, u, t, dt, k1, f_st):
+            u_new, utilde, *ks, g6, _ = fused_conv_step(
+                w, spec, u.contiguous(), t, dt, k1.contiguous(),
+                training=False, rstats=running_stats(spec, f_st))
+            return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, f_st)
+
+        return self._generic_dynamics(), step, None
+
+    def _train_dynamics(self, names):
+        """The dynamics module in training mode as the stored adjoint's
+        stateful ``f(u, t, params, st) -> (du, st)``."""
+        model = self.model
+
+        def f(u, t, params, st):
+            y, st_new = torch.func.functional_call(
+                model, dict(zip(names, params)), (ArrayAndTime(u, t), st),
+                {"training": True},
+            )
+            return get_array(y), st_new
+
+        return f
+
+    def _conv_stored_kwargs(self, names):
+        """``stored_odesolve``'s callables for the conv family: the plain
+        module (training mode) for k1, the dt probe and the FSAL closure,
+        kernel 13 for every attempt with the running stats threaded, kernel
+        14 for the transpose of every accepted step."""
+        from ..ops.cuda import fused_conv_step, fused_conv_step_bwd
+
+        spec = self.conv
+
+        def step_fn(params, u, t, dt, k1, st):
+            u_new, utilde, *ks, g6, stats = fused_conv_step(
+                ConvWeights(*params), spec, u.contiguous(), t, dt,
+                k1.contiguous(), training=True,
+                rstats=running_stats(spec, st))
+            return Tsit5StepResult(u_new, utilde, (k1, *ks), g6,
+                                   with_running_stats(spec, st, stats))
+
+        def step_vjp(params, u, t, dt, k1, d_unew, d_ks):
+            zero = torch.zeros_like(u)
+            d_w, d_u, d_k1 = fused_conv_step_bwd(
+                ConvWeights(*params), spec, u.contiguous(), t, dt,
+                k1.contiguous(),
+                [c.contiguous() for c in (d_unew, zero, *d_ks, zero)])
+            return list(d_w), d_u, d_k1
+
+        return dict(f=self._train_dynamics(names), step_fn=step_fn,
+                    step_vjp=step_vjp, stateful=True)
+
     def _chain_stored_kwargs(self):
         """``stored_odesolve``'s callables for the chain family: the plain
         chain for f (and so for the FSAL closure and any eager step), kernel
@@ -287,18 +372,11 @@ class NeuralODE(Module):
         kernel route or the generic one; every callable gets the parameters
         explicitly, since the backward runs after the caller returns."""
         if not kernels:
-            model = self.model
-
-            def f(u, t, params):
-                y, _ = torch.func.functional_call(
-                    model, dict(zip(names, params)),
-                    (ArrayAndTime(u, t), model.init_state()),
-                )
-                return get_array(y)
-
-            return dict(f=f)
+            return dict(f=self._train_dynamics(names), stateful=True)
         if self.family == "chain":
             return self._chain_stored_kwargs()
+        if self.family == "conv":
+            return self._conv_stored_kwargs(names)
         from ..ops.cuda import (
             TDMLPWeights, fused_step_bwd, fused_tdmlp, fused_tsit5_step,
             persistent_stored_sweep, persistent_tsit5_solve,
@@ -399,10 +477,12 @@ class NeuralODE(Module):
             kw.pop("f"), x, self.tspan, rtol=self.rtol, atol=self.atol,
             saveat=saveat, max_steps=self.max_steps, adjoint="stored",
             params=list(params), knot_window=self.knot_window,
-            reservoir=reservoir, **kw,
+            reservoir=reservoir, f_state=state["model"], **kw,
         )
+        # the stateless kernel families return no state: theirs passes
+        model_state = state["model"] if sol.f_state is None else sol.f_state
         new_state = dict(state)
-        new_state.update(model=state["model"], nfe=sol.nfe,
+        new_state.update(model=model_state, nfe=sol.nfe,
                          reg_val=torch.zeros((), device=x.device),
                          success=sol.success)
         if self.regularize == "none":
@@ -414,22 +494,26 @@ class NeuralODE(Module):
             u1, t1 = sol.reservoir_u.detach(), sol.reservoir_t.detach()
         # the chain family has no step kernel: its regulariser step is the
         # generic one, as in the reference
-        step, dt_r = self._reg_step(x, u1, t1,
-                                    kernels and self.family == "tdmlp")
+        step, dt_r = self._reg_step(
+            x, u1, t1, model_state,
+            self.family if kernels and self.family != "chain" else None)
         new_state.update(
+            model=step.f_state,
             reg_val=regularization_value(self.regularize_type, step, u1,
                                          dt_r, self.atol, self.rtol),
             nfe=sol.nfe + 8,  # 6 stages + k1 + the dt probe
         )
         return sol, new_state
 
-    def _reg_step(self, x, u1, t1, kernels: bool):
-        """The regulariser's step from the fenced ``(u1, t1)``: k1 and dt
-        under no_grad, then one differentiable Tsit5 step (the TD-MLP's
-        step kernel with its VJP kernel on the kernel route, the generic
-        step otherwise). Returns (step, dt)."""
+    def _reg_step(self, x, u1, t1, st, family):
+        """The regulariser's step from the fenced ``(u1, t1)`` and the
+        dynamics state ``st`` after the solve: k1 and dt under no_grad, then
+        one differentiable Tsit5 step in training mode (the step kernel with
+        its VJP kernel on the kernel route of the TD-MLP and conv families,
+        the generic step otherwise). Returns (step, dt); ``step.f_state`` is
+        the state after the step."""
         t2 = self.tspan[1]
-        if kernels:
+        if family == "tdmlp":
             from ..ops.cuda import differentiable_step, fused_tdmlp
 
             w = self.tdmlp_weights()
@@ -437,7 +521,7 @@ class NeuralODE(Module):
             def f(u, t):
                 return fused_tdmlp(w, u, t)
         else:
-            dyn, st = self._generic_dynamics(), self.model.init_state()
+            dyn = self._generic_dynamics(training=True)
 
             def f(u, t):
                 return dyn(u, t, st)[0]
@@ -446,10 +530,19 @@ class NeuralODE(Module):
             dt_r, _ = initial_step_size(f, u1, t1, order=5, rtol=self.rtol,
                                         atol=self.atol, f0=k1)
             dt_r = torch.minimum(dt_r, device_scalar(t2, x) - t1)
-        if kernels:
+        if family == "tdmlp":
             u_new, utilde, *ks, g6 = differentiable_step(
                 w, u1.contiguous(), t1, dt_r, k1)
-            return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, None), dt_r
+            return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, st), dt_r
+        if family == "conv":
+            from ..ops.cuda import differentiable_conv_step
+
+            spec = self.conv
+            u_new, utilde, *ks, g6, stats = differentiable_conv_step(
+                self.conv_weights(), spec, u1.contiguous(), t1, dt_r,
+                k1.contiguous(), running_stats(spec, st))
+            return Tsit5StepResult(u_new, utilde, (k1, *ks), g6,
+                                   with_running_stats(spec, st, stats)), dt_r
         return tsit5_step(dyn, u1, t1, dt_r, k1, st), dt_r
 
 

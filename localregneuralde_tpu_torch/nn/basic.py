@@ -1,9 +1,10 @@
-"""Basic layers: Dense, Flatten, WrappedFunction (alias Lambda), Chain.
+"""Basic layers: Dense, Conv, BatchNorm, Flatten, WrappedFunction (alias
+Lambda), Chain.
 
 Counterpart of ``localregneuralde_tpu/nn/basic.py``. Layout is the
-reference's: batch-major ``(B, F)``, and a Dense weight is ``(in, out)``
-(not ``nn.Linear``'s ``(out, in)``), so parameters carry over unchanged.
-Conv and BatchNorm are not ported yet.
+reference's: batch-major ``(B, F)``, a Dense weight is ``(in, out)`` (not
+``nn.Linear``'s ``(out, in)``), images are NHWC and a Conv weight is HWIO
+``(kh, kw, in, out)``, so parameters carry over unchanged.
 """
 from __future__ import annotations
 
@@ -55,10 +56,14 @@ def resolve_solver_precision(precision, rtol: float):
     )
 
 
-def glorot_uniform(shape, generator: Optional[torch.Generator] = None):
+def glorot_uniform(shape, generator: Optional[torch.Generator] = None,
+                   fan_in: Optional[int] = None, fan_out: Optional[int] = None):
     """Glorot (Xavier) uniform on the CPU from ``generator``:
-    U(−l, l) with l = sqrt(6 / (fan_in + fan_out))."""
-    limit = math.sqrt(6.0 / (shape[0] + shape[1]))
+    U(−l, l) with l = sqrt(6 / (fan_in + fan_out)); the fans default to
+    ``shape[0]`` and ``shape[1]``."""
+    fan_in = shape[0] if fan_in is None else fan_in
+    fan_out = shape[1] if fan_out is None else fan_out
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
     u = torch.rand(shape, generator=generator, dtype=torch.float32)
     return (2.0 * u - 1.0) * limit
 
@@ -85,6 +90,104 @@ class Dense(Module):
         if self.use_bias:
             y = y + self.b
         return self.activation(y), state
+
+
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME, stride-1 convolution of an NHWC ``x`` with an HWIO ``w``, in
+    PyTorch's NCHW convolution. It runs in FP32 on the card: the package
+    turns cuDNN's TF32 off when it is imported."""
+    y = nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                             padding="same")
+    return y.permute(0, 2, 3, 1)
+
+
+def conv2d_nhwc_td(x: torch.Tensor, w: torch.Tensor, t) -> torch.Tensor:
+    """``conv2d_nhwc(concat(x, t·1), w)`` without the concat: by linearity
+    ``conv(x, W[:, :, :C]) + t·conv(1, W[:, :, C:])``, the time channel a
+    one-channel conv of a ones image (reference ``models/common.py:18-77``).
+    ``w``'s last input channel is the time channel."""
+    c = x.shape[-1]
+    tmap = conv2d_nhwc(x.new_ones((1,) + x.shape[1:-1] + (1,)), w[:, :, c:, :])
+    return conv2d_nhwc(x, w[:, :, :c, :]) + t * tmap
+
+
+class Conv(Module):
+    """2-D convolution in NHWC with an HWIO weight ``w`` of shape (kh, kw,
+    in, out) and an optional bias ``b``; SAME padding, stride 1 (the
+    reference's ``pad=(1, 1)`` 3×3 convolutions, ``construct.jl:212-228``).
+    Glorot-uniform weight with the fan over (kh, kw, in) → out, as the
+    reference's ``glorot_uniform(in_axis=(0, 1, 2), out_axis=3)``; zero
+    bias. The reference's ``padding`` and ``stride`` options are not
+    carried: every conv of the model zoo is SAME with stride 1."""
+
+    def __init__(self, kernel_size, in_channels: int, out_channels: int,
+                 activation=None, *, use_bias: bool = True, generator=None,
+                 device=None):
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.activation = resolve_activation(activation)
+        self.use_bias = use_bias
+        kh, kw = self.kernel_size
+        self.w = nn.Parameter(glorot_uniform(
+            (kh, kw, in_channels, out_channels), generator,
+            fan_in=kh * kw * in_channels, fan_out=out_channels).to(device))
+        if use_bias:
+            self.b = nn.Parameter(torch.zeros(out_channels, device=device))
+
+    def apply_layer(self, x, state, *, training: bool = False):
+        y = conv2d_nhwc(x, self.w)
+        if self.use_bias:
+            y = y + self.b
+        return self.activation(y), state
+
+
+class BatchNorm(Module):
+    """Batch normalisation over every axis but the last (the channels).
+
+    Parameters ``scale`` and ``bias``; state ``mean`` and ``var``, updated
+    in training as ``(1 − m)·old + m·batch`` with the **biased** batch
+    variance (``torch.nn.BatchNorm2d`` keeps the unbiased one, so it is not
+    wrapped). Eval mode normalises with the running stats, or with
+    ``eval_stats='batch'`` with the batch's own (the reference's escape
+    hatch for BatchNorm inside ODE dynamics; running stats kept). The
+    reference's ``affine=False`` is not carried: no model uses it."""
+
+    def __init__(self, features: int, activation=None, *,
+                 momentum: float = 0.1, eps: float = 1e-5,
+                 eval_stats: str = "running", device=None):
+        super().__init__()
+        if eval_stats not in ("running", "batch"):
+            raise ValueError(
+                f"eval_stats must be 'running' or 'batch', got {eval_stats!r}")
+        self.features = features
+        self.activation = resolve_activation(activation)
+        self.momentum = momentum
+        self.eps = eps
+        self.eval_stats = eval_stats
+        self.device = device
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def init_state(self) -> dict:
+        return {"mean": torch.zeros(self.features, device=self.device),
+                "var": torch.ones(self.features, device=self.device)}
+
+    def apply_layer(self, x, state, *, training: bool = False):
+        axes = tuple(range(x.ndim - 1))
+        if training or self.eval_stats == "batch":
+            mean = x.mean(dim=axes)
+            var = torch.square(x - mean).mean(dim=axes)
+        else:
+            mean, var = state["mean"], state["var"]
+        new_state = state
+        if training:
+            m = self.momentum
+            new_state = {"mean": (1 - m) * state["mean"] + m * mean.detach(),
+                         "var": (1 - m) * state["var"] + m * var.detach()}
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+        return self.activation(y), new_state
 
 
 class Flatten(Module):

@@ -262,7 +262,11 @@ def odesolve(
     Args:
       f: dynamics ``f(u, t) -> du`` or, with ``stateful=True``,
         ``f(u, t, st) -> (du, st)``. Under ``adjoint='stored'`` it is
-        ``f(u, t, params) -> du`` instead (see ``stored_odesolve``).
+        ``f(u, t, params) -> du``, or ``f(u, t, params, st) -> (du, st)``
+        when stateful (see ``stored_odesolve``).
+      f_state: the dynamics' initial state; the loop threads it through
+        the accepted steps only (a step's ``f_state`` is kept when it is
+        accepted) and returns it as ``sol.f_state``.
       saveat: 1-D output times in ``[t0, t_end]`` (need not be sorted);
         defaults to ``[t_end]``. Times ≤ t0 return ``u0``.
       max_steps: bound on attempted steps (reference ``maxiters``).
@@ -287,7 +291,8 @@ def odesolve(
         return stored_odesolve(
             f, u0, tspan, rtol=rtol, atol=atol, saveat=saveat,
             max_steps=max_steps, step_fn=step_fn, persistent_fn=persistent_fn,
-            reservoir=reservoir, **stored_kwargs,
+            reservoir=reservoir, stateful=stateful, f_state=f_state,
+            **stored_kwargs,
         )
     if adjoint != "none":
         raise NotImplementedError(

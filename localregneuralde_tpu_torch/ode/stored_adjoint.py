@@ -21,6 +21,13 @@ Counterpart of ``localregneuralde_tpu/ode/stored_adjoint.py``.
 
 Rejected attempts contribute nothing (their outputs are discarded), and
 t, dt and the controller get no cotangents: the reference's fences.
+
+Dynamics with state (``stateful=True``; BatchNorm running stats) thread it
+through the forward on accepted steps only, as the eager loop does, and
+return it as ``sol.f_state``, a fenced auxiliary output with no cotangent.
+The backward transposes every step with the initial state: exact for
+BatchNorm in training mode, which normalises with batch statistics
+(reference ``ode/stored_adjoint.py:37-47``).
 """
 from __future__ import annotations
 
@@ -220,10 +227,20 @@ class _Spec:
     def __init__(self, **kw):
         self.__dict__.update(kw)
 
+    def f_pure(self, u, t, params):
+        """``f`` as a function of ``(u, t, params)``, with the initial state
+        when it is stateful."""
+        if self.stateful:
+            return self.f(u, t, params, self.f_state)[0]
+        return self.f(u, t, params)
+
     def raw_step(self, params, u, t, dt, k1):
+        """A step from the initial state: the unit the backward transposes."""
         if self.step_fn is not None:
+            if self.stateful:
+                return self.step_fn(params, u, t, dt, k1, self.f_state)
             return self.step_fn(params, u, t, dt, k1)
-        return tsit5_step(lambda u_, t_, st: (self.f(u_, t_, params), st),
+        return tsit5_step(lambda u_, t_, st: (self.f_pure(u_, t_, params), st),
                           u, t, dt, k1, None)
 
     def run(self, u0, params):
@@ -238,21 +255,31 @@ class _Spec:
             )
             if sol is not None:
                 return sol, True
-        fn = lambda u, t, st: (self.f(u, t, params), st)  # noqa: E731
-        k1_0 = self.f(u0, self.t0, params)
+        if self.stateful:
+            def fn(u, t, st):
+                return self.f(u, t, params, st)
+        else:
+            def fn(u, t, st):
+                return self.f(u, t, params), st
+        # k1 at t0 advances the state; the dt probe sees the initial one
+        k1_0, st0 = fn(u0, self.t0, self.f_state)
         dt_init, nfe_dt = initial_step_size(
-            lambda u, t: self.f(u, t, params), u0, device_scalar(self.t0, u0),
-            order=5, rtol=self.rtol, atol=self.atol, f0=k1_0,
+            lambda u, t: self.f_pure(u, t, params), u0,
+            device_scalar(self.t0, u0), order=5, rtol=self.rtol,
+            atol=self.atol, f0=k1_0,
         )
         dt_init = torch.minimum(
             dt_init, device_scalar(self.t_end - self.t0, u0)
         )
         step_fn = None
-        if self.step_fn is not None:
+        if self.step_fn is not None and self.stateful:
             def step_fn(_fn, u, t, dt, k1, st):
-                return self.step_fn(params, u, t, dt, k1)
+                return self.step_fn(params, u, t, dt, k1, st)
+        elif self.step_fn is not None:
+            def step_fn(_fn, u, t, dt, k1, st):
+                return self.step_fn(params, u, t, dt, k1)._replace(f_state=st)
         out = adaptive_loop(
-            fn, u0, k1_0, None, self.t0, self.t_end, dt_init,
+            fn, u0, k1_0, st0, self.t0, self.t_end, dt_init,
             saveat=self.saveat_arr, rtol=self.rtol, atol=self.atol,
             max_steps=self.max_steps, step_fn=step_fn, **rec,
         )
@@ -260,7 +287,7 @@ class _Spec:
             ts=self.saveat_arr, ys=out["ys"], t_final=out["t_final"],
             y_final=out["y_final"], nfe=1 + nfe_dt + 6 * out["natt"],
             naccept=out["naccept"], nreject=out["nreject"],
-            success=out["success"],
+            success=out["success"], f_state=out["f_state"],
             **{k: out.get(k) for k in KNOT_FIELDS + RESERVOIR_FIELDS},
         ), False
 
@@ -291,6 +318,8 @@ def stored_odesolve(
     sweep_fn: Optional[Callable] = None,
     fsal_fn: Optional[Callable] = None,
     reservoir: Optional[torch.Tensor] = None,
+    stateful: bool = False,
+    f_state=None,
 ) -> ODESolution:
     """Integrate ``du/dt = f(u, t, params)`` with gradients with respect to
     ``u0`` and ``params`` through the stored adjoint.
@@ -315,6 +344,12 @@ def stored_odesolve(
     ``reservoir`` (``max_steps`` uniforms) makes the forward keep the
     biased regulariser's reservoir sample (``reservoir_t``,
     ``reservoir_u``, both fenced).
+
+    With ``stateful=True`` the dynamics carries a state, starting from
+    ``f_state``: ``f(u, t, params, st) -> (du, st)`` and ``step_fn(params,
+    u, t, dt, k1, st) -> Tsit5StepResult`` with the state after the step.
+    The forward threads it on accepted steps and returns it as
+    ``f_state``; ``fsal_fn`` and the backward see the initial state.
     """
     t0, t_end = float(tspan[0]), float(tspan[1])
     saveat_arr = (
@@ -326,15 +361,17 @@ def stored_odesolve(
         f=f, t0=t0, t_end=t_end, saveat_arr=saveat_arr, rtol=rtol, atol=atol,
         max_steps=max_steps, dense_cap=dense_cap, two_level=two_level,
         stride=stride, step_fn=step_fn, persistent_fn=persistent_fn,
-        sweep_fn=sweep_fn, fsal_fn=fsal_fn or f, reservoir=reservoir,
-        sol=None,
+        sweep_fn=sweep_fn, fsal_fn=fsal_fn, reservoir=reservoir,
+        stateful=stateful, f_state=f_state, sol=None,
     )
+    if spec.fsal_fn is None:
+        spec.fsal_fn = spec.f_pure
     spec.step_vjp = step_vjp or autograd_step_vjp(spec.raw_step)
     ys, y_final = _StoredSolve.apply(spec, u0, *params)
     sol = spec.sol
     return ODESolution(
         ts=saveat_arr, ys=ys, t_final=sol.t_final, y_final=y_final,
         nfe=sol.nfe, naccept=sol.naccept, nreject=sol.nreject,
-        success=sol.success, reservoir_t=sol.reservoir_t,
-        reservoir_u=sol.reservoir_u,
+        success=sol.success, f_state=sol.f_state,
+        reservoir_t=sol.reservoir_t, reservoir_u=sol.reservoir_u,
     )

@@ -3,6 +3,20 @@
 Every wrapper keeps a plain-integer ``launches`` counter of kernel launches;
 ``launch_counts`` reads them and ``reset_launch_counts`` zeroes them.
 """
+from .fused_conv import (
+    ConvFamilySpec,
+    ConvWeights,
+    conv_dynamics_plain,
+    conv_step_plain,
+    fused_conv_step,
+    match_conv_family,
+)
+from .fused_conv_bwd import (
+    FusedConvStep,
+    differentiable_conv_step,
+    fused_conv_step_bwd,
+    fused_conv_step_bwd_plain,
+)
 from .fused_mlp import (
     TDMLPWeights,
     fused_tdmlp,
@@ -52,6 +66,8 @@ KERNELS = {
     "persistent_sde_sweep": persistent_sde_sweep,
     "persistent_chain_solve": persistent_chain_solve,
     "persistent_chain_sweep": persistent_chain_sweep,
+    "fused_conv_step": fused_conv_step,
+    "fused_conv_step_bwd": fused_conv_step_bwd,
 }
 
 
@@ -65,19 +81,29 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "ConvFamilySpec",
+    "ConvWeights",
     "DenseChainSpec",
+    "FusedConvStep",
     "FusedTsit5Step",
     "KERNELS",
     "SDEWeights",
     "TDMLPWeights",
     "chain_eval",
     "chain_sweep_feasible",
+    "conv_dynamics_plain",
+    "conv_step_plain",
+    "differentiable_conv_step",
     "differentiable_step",
+    "fused_conv_step",
+    "fused_conv_step_bwd",
+    "fused_conv_step_bwd_plain",
     "fused_step_bwd",
     "fused_step_bwd_plain",
     "fused_tdmlp",
     "fused_tsit5_step",
     "launch_counts",
+    "match_conv_family",
     "match_dense_chain",
     "persistent_chain_solve",
     "persistent_chain_solve_plain",

@@ -55,6 +55,8 @@ _SIGNATURES = {
         [_I] + [_P] * 2 + [_I, _U, _I] + [_P] * 4 + [_I] + [_P] * 7
         + [_F] * 3 + [_I] * 3 + [_P] * 9 + [_I] + [_F] + [_P]
     ),
+    "lrnde_conv_step": [_P] * 22 + [_I] + [_F] * 3 + [_I] * 5 + [_P],
+    "lrnde_conv_step_bwd": [_P] * 29 + [_F] + [_I] * 5 + [_P],
 }
 
 # C entry -> argument types of the size queries, which return long long
@@ -66,6 +68,8 @@ _SIZES = {
     "lrnde_sde_grad_floats": [_I] * 2,
     "lrnde_chain_solve_smem_floats": [_P, _I],
     "lrnde_chain_sweep_smem_floats": [_P, _I],
+    "lrnde_conv_step_scratch_floats": [_I] * 5,
+    "lrnde_conv_step_bwd_scratch_floats": [_I] * 5,
 }
 
 

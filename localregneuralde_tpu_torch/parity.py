@@ -1,10 +1,13 @@
-"""Carry parameters over from the JAX package.
+"""Carry parameters and layer state over from the JAX package.
 
 The JAX package keeps parameters as a nested dict of arrays
 (``{"neural_ode": {"model": {"layer_0": {"w", "b"}, ...}}, "classifier":
-{...}}``). The port's modules use the same names and layouts, so a parameter
+{...}}``). The port's modules use the same names and layouts (Dense
+``(in, out)``, Conv HWIO, BatchNorm ``scale``/``bias``), so a parameter
 path joined with dots is the port's parameter name
-(``neural_ode.model.layer_0.w``) and the values carry over unchanged.
+(``neural_ode.model.layer_0.w``) and the values carry over unchanged. Layer
+state (BatchNorm's running ``mean`` and ``var``) has the same paths in both
+trees and carries over with ``state_from_jax``.
 """
 from __future__ import annotations
 
@@ -57,3 +60,28 @@ def latent_tree(tree) -> dict:
     chain and ``gen_to_data`` then load with ``load_jax_params``, in the
     ``(in, out)`` layout."""
     return {**tree, "gru": {"cell": tree["gru"]}}
+
+
+def cifar_tree(tree) -> dict:
+    """The JAX CIFAR model's parameter tree (``_construct_cifar10_cnn``) in
+    the port's names: the reference's ``AugmenterLayer`` returns its conv's
+    parameters at its own level, the port's keeps them under ``augment``
+    (``augment.w`` → ``augment.augment.w``)."""
+    return {**tree, "augment": {"augment": tree["augment"]}}
+
+
+def state_from_jax(state, tree):
+    """A copy of the port's layer state ``state`` with every tensor leaf
+    that JAX's state tree holds at the same path (BatchNorm's running
+    ``mean`` and ``var``; NFE counters and flags) taken from it, on the
+    leaf's device. Generators and leaves JAX lacks are kept."""
+    if isinstance(state, dict):
+        return {k: state_from_jax(v, tree[k]) if isinstance(tree, dict)
+                and k in tree else v for k, v in state.items()}
+    if isinstance(state, torch.Tensor):
+        value = torch.tensor(np.asarray(tree), dtype=state.dtype)
+        if value.shape != state.shape:
+            raise ValueError(f"state shape {tuple(value.shape)} from JAX, "
+                             f"{tuple(state.shape)} in the port")
+        return value.to(state.device)
+    return state

@@ -349,3 +349,94 @@ def test_chain_recording_and_sweeps_on_card(cuda_device):
     assert torch.equal(replay[:5], rec["knot_us"][:5])
     for a, b in zip(flat(win), flat(dense)):
         assert _rel(a, b) <= 1e-6
+
+
+def _conv_setup(device, batch, height, width, cs, ch, seed=0):
+    """The CIFAR conv dynamics' weights (Glorot convs, BatchNorm affine
+    near 1 and 0), running stats and a state batch (B, H, W, Cs)."""
+    from localregneuralde_tpu_torch.nn import glorot_uniform
+    from localregneuralde_tpu_torch.ops.cuda import ConvFamilySpec, ConvWeights
+
+    g = torch.Generator().manual_seed(seed)
+
+    def conv(cin, cout):
+        return glorot_uniform((3, 3, cin, cout), g, fan_in=9 * cin,
+                              fan_out=cout)
+
+    w = ConvWeights(conv(cs + 1, ch), 1 + 0.1 * torch.randn(ch, generator=g),
+                    0.1 * torch.randn(ch, generator=g), conv(ch + 1, ch),
+                    1 + 0.1 * torch.randn(ch, generator=g),
+                    0.1 * torch.randn(ch, generator=g), conv(ch + 1, cs))
+    rstats = (0.1 * torch.randn(ch, generator=g),
+              1 + 0.2 * torch.rand(ch, generator=g),
+              0.1 * torch.randn(ch, generator=g),
+              1 + 0.2 * torch.rand(ch, generator=g))
+    u = torch.randn(batch, height, width, cs, generator=g)
+    spec = ConvFamilySpec(cs, ch, 0.1, 1e-5, "running",
+                          (("layer_0", "layer_1"), ("layer_1", "layer_1")))
+    return (ConvWeights(*(t.to(device) for t in w)), spec,
+            tuple(r.to(device) for r in rstats), u.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["train", "running", "batch"])
+@pytest.mark.parametrize("shape", [(3, 8, 12, 6, 16), (2, 32, 32, 8, 64)])
+def test_conv_step_matches_plain_on_card(cuda_device, shape, mode):
+    # kernel 13 against conv_step_plain (cuDNN in FP32): the products are
+    # summed in another order, so states agree to ~1e-5 of their largest
+    # value; bitwise from run to run
+    from localregneuralde_tpu_torch.ops.cuda import (
+        conv_step_plain, fused_conv_step,
+    )
+
+    w, spec, rstats, u = _conv_setup(cuda_device, *shape)
+    if mode == "batch":
+        spec = spec._replace(eval_stats="batch")
+    training = mode == "train"
+    t = torch.tensor(0.2, device=cuda_device)
+    dt = torch.tensor(0.05, device=cuda_device)
+    k1 = 0.5 * torch.randn_like(u)
+    out = fused_conv_step(w, spec, u, t, dt, k1, training=training,
+                          rstats=rstats)
+    ref = conv_step_plain(w, spec, u, t, dt, k1, training=training,
+                          rstats=rstats)
+    # u~ is a cancelling sum of the k's: held to 1e-5 of dt * max |k|
+    kscale = 0.05 * max(float(k.abs().max()) for k in ref[2:8])
+    assert float((out[1] - ref[1]).abs().max()) <= 1e-5 * kscale
+    for i in (0, *range(2, 9)):
+        assert _rel(out[i], ref[i]) <= 1e-5
+    if training:
+        for a, b in zip(out[9], ref[9]):
+            assert _rel(a, b) <= 1e-5
+    else:
+        assert out[9] is None
+    again = fused_conv_step(w, spec, u, t, dt, k1, training=training,
+                            rstats=rstats)
+    for a, b in zip(again[:9], out[:9]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 8, 12, 6, 16), (2, 32, 32, 8, 64)])
+def test_conv_step_bwd_matches_plain_on_card(cuda_device, shape):
+    # kernel 14 against the autograd VJP of the plain training step:
+    # relative to the largest magnitude, 1e-4; bitwise from run to run
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_conv_step_bwd, fused_conv_step_bwd_plain,
+    )
+
+    w, spec, _, u = _conv_setup(cuda_device, *shape)
+    t = torch.tensor(0.1, device=cuda_device)
+    dt = torch.tensor(0.08, device=cuda_device)
+    k1 = 0.5 * torch.randn_like(u)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    cts = [torch.randn(u.shape, generator=g, device=cuda_device)
+           for _ in range(9)]
+    ours = fused_conv_step_bwd(w, spec, u, t, dt, k1, cts)
+    ref = fused_conv_step_bwd_plain(w, spec, u, t, dt, k1, cts)
+    for a, b in zip([ours[1], ours[2], *ours[0]], [ref[1], ref[2], *ref[0]]):
+        assert _rel(a, b) <= 1e-4
+    again = fused_conv_step_bwd(w, spec, u, t, dt, k1, cts)
+    for a, b in zip([again[1], again[2], *again[0]],
+                    [ours[1], ours[2], *ours[0]]):
+        assert torch.equal(a, b)

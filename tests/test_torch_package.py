@@ -28,6 +28,8 @@ def test_imports_with_jax_blocked():
         "import localregneuralde_tpu_torch, localregneuralde_tpu_torch.harness\n"
         "import localregneuralde_tpu_torch.ops.cuda, localregneuralde_tpu_torch.parity\n"
         "import localregneuralde_tpu_torch.harness.latent_runner\n"
+        "import localregneuralde_tpu_torch.harness.runner\n"
+        "import localregneuralde_tpu_torch.ops.cuda.fused_conv_bwd\n"
         "import localregneuralde_tpu_torch.harness.checkpoint\n"
         "import localregneuralde_tpu_torch.harness.logging\n"
         "import localregneuralde_tpu_torch.models.latent_ode\n"
@@ -70,6 +72,33 @@ def test_latent_runner_entry_point_runs_without_jax(tmp_path):
     )
     assert out.returncode == 0, out.stderr
     assert "summary:" in out.stdout and "masked_mse" in out.stdout
+
+
+def test_classification_runner_entry_point_runs_without_jax(tmp_path):
+    """``python -m localregneuralde_tpu_torch.harness.runner`` with JAX made
+    unimportable: one small MNIST Neural ODE step on the CPU, its eval and
+    checkpoint, to its summary."""
+    code = (
+        "import runpy, sys; sys.modules['jax'] = None\n"
+        "sys.argv = sys.argv[1:]\n"
+        "runpy.run_module('localregneuralde_tpu_torch.harness.runner',"
+        " run_name='__main__')\n"
+    )
+    args = [
+        "runner", "experiments/mnist_ode/mlp.yaml", "--device=cpu",
+        "--model.mlp_hidden_state_size=8", "--model.solver.reltol=1e-2",
+        "--model.solver.abstol=1e-2", "--model.solver.max_steps=32",
+        "--dataset.train_batchsize=8", "--dataset.eval_batchsize=1024",
+        "--train.total_steps=1", f"--train.checkpoint_dir={tmp_path}/ckpt",
+        f"--train.log_dir={tmp_path}/logs",
+    ]
+    out = subprocess.run(
+        [sys.executable, "-c", code, *args], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "summary:" in out.stdout and "accuracy_top1" in out.stdout
+    assert (tmp_path / "ckpt").exists()
 
 
 def test_no_module_imports_jax():
@@ -121,11 +150,17 @@ def test_experiment_yaml_loads_into_both(path):
 
 
 def test_unported_paths_raise():
+    # the multistep solvers are not ported (the CIFAR model is, since its
+    # slice)
     cfg = torch_config.define_configuration(
+        ["--model.solver.ode_solver=vcab3"], None
+    )
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        construct_model(cfg, device="cpu")
+    cifar = torch_config.define_configuration(
         ["--model.model_type=cifar10_cnn"], None
     )
-    with pytest.raises(NotImplementedError):
-        construct_model(cfg, device="cpu")
+    assert construct_model(cifar, device="cpu").neural_ode.family == "conv"
     # the non-stored adjoints are not ported
     node = NeuralODE(TDChain(Dense(5, 3, "tanh"), Dense(4, 4)),
                      adjoint="direct")
