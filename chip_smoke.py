@@ -59,7 +59,20 @@ on the card:
     the card (each step-kernel call's EMA chain against the plain step's, and
     each VJP-kernel call of the sweep, with the FP32 plain VJP, against the
     FP64 one on the same knots) and the logits of four images against the
-    CPU.
+    CPU;
+14. holds the score samplers' kernels against their plain versions at the
+    score demo's width (B = 4096, F = 2, TDChain 2 -> 64 -> 64 -> 2, random
+    weights from seed 0): the reverse VP-SDE solve (kernel 11, SOSRI at
+    rtol = atol = 1e-2) step for step on the same Philox path, the
+    probability-flow solve (kernel 6, rtol 1e-4, atol 1e-6) within one
+    accept, both bitwise repeatable, and the analytic N(0, I) cases of
+    s(x, t) = -x;
+15. draws three batches of 4096 samples each through ``sample_vpsde`` and
+    ``sample_probability_flow`` (one kernel launch per draw, nothing else),
+    with ms, samples/s and NFE, and a batch of 256 against the CPU;
+16. holds kernel 15, the conv-orientation probe's tap and im2col layouts,
+    against cuDNN in FP32 at (32, 32, 32, 64) and times both beside kernel
+    13's implicit GEMM and cuDNN.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
 kernel, the latent encoder's share of the latent train step, and the CIFAR
@@ -183,7 +196,14 @@ def raw_launch(name, *tensors_and_ints):
             for a in tensors_and_ints]
     args.append(_build.stream_ptr(torch.device("cuda", 0)))
     fn = getattr(lib, name)
-    return lambda: fn(*args)
+
+    def launch():
+        return fn(*args)
+
+    # the launch holds raw pointers: keep the tensors (often temporaries of
+    # the caller) from returning to the allocator
+    launch.tensors = tensors_and_ints
+    return launch
 
 
 def max_abs(a, b):
@@ -2127,6 +2147,362 @@ def _profile_cifar(arms, batches):
                   f"{key[:90]}")
 
 
+SCORE_B, SCORE_F = 4096, 2   # scripts/vpsde_ab.py:37-48, the demo's width
+SCORE_TOL = 1e-2             # rtol = atol of the SDE sampler
+SCORE_MAX_STEPS = 4096
+SCORE_DRAWS = 3              # draws per sampler
+
+
+def _score_net(device, features=SCORE_F, seed=0):
+    """The score demo's network (scripts/score_sde_demo.py:66), TDChain(
+    Dense(3, 64, tanh), Dense(65, 64, tanh), Dense(65, 2)), with the
+    Dense layers' own Glorot init from ``seed``."""
+    import torch
+
+    from localregneuralde_tpu_torch.models import TDChain
+    from localregneuralde_tpu_torch.nn import Dense
+
+    g = torch.Generator().manual_seed(seed)
+    return TDChain(Dense(features + 1, 64, "tanh", generator=g, device=device),
+                   Dense(65, 64, "tanh", generator=g, device=device),
+                   Dense(65, features, generator=g, device=device))
+
+
+def _neg_identity_net(device, features):
+    """TDChain(Dense(F + 1, F)) with s(x, t) = −x, the exact score of
+    N(0, I) data (examples/sampling.py:46-56)."""
+    import torch
+
+    from localregneuralde_tpu_torch.models import TDChain
+    from localregneuralde_tpu_torch.nn import Dense
+
+    net = TDChain(Dense(features + 1, features, device=device))
+    with torch.no_grad():
+        net.layers["layer_0"].w.zero_()
+        net.layers["layer_0"].w[:features] = -torch.eye(features)
+    return net
+
+
+def score_flops(dims, b):
+    """Product FLOPs of one score-chain evaluation of b rows."""
+    return 2 * b * sum((dims[i] + 1) * dims[i + 1]
+                       for i in range(len(dims) - 1))
+
+
+def _score_raw(ps, chain, u0, span, saveat, sched, noise):
+    """Raw launches of kernels 11 (SOSRI at SCORE_TOL) and 6 (rtol 1e-4,
+    atol 1e-6) with the wrappers' operands built once: the first
+    evaluations and the dt heuristics run here, not in the timed call. Each
+    launch zeroes its grid barrier first (one memset). Returns the two
+    launchers and their y_final buffers."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import _build
+    from localregneuralde_tpu_torch.ops.cuda import fused_sde_solve as fs
+    from localregneuralde_tpu_torch.ops.cuda import fused_solve as fo
+
+    B, F = u0.shape
+    t0, te = span
+    n_blocks = -(-B // _build.load_library().lrnde_score_rows_per_block())
+    ops = fs.score_operands(ps, chain, **sched)
+    new = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
+        shape, dtype=dtype, device=u0.device)
+    outs = [new(B, F), new(B, F)]
+    drift, _ = fs.vpsde_dynamics(ps, chain, **sched)
+    dt = fs.initial_dt(u0, drift(u0, t0), SCORE_TOL, SCORE_TOL, t0, te)
+    bar11 = torch.zeros(1, dtype=torch.int32, device=u0.device)
+    wz = new(2, 2, B, F)
+    k11 = raw_launch(
+        "lrnde_vpsde_solve", 1, u0, fs.device_scalars([t0, te, dt], u0),
+        saveat, 1, *ops, noise.seed, 24, outs[0], new(1, B, F),
+        new(4, dtype=torch.int32), new(2), new(B, F), wz[0], wz[1],
+        new(2 * n_blocks), bar11, B, SCORE_MAX_STEPS, SCORE_TOL, SCORE_TOL,
+        1 / 6, 1.0 / (B * F))
+    k1, dt, _ = fo._start(fo.pf_dynamics(ps, chain, **sched), u0, t0, te,
+                          1e-4, 1e-6)
+    bar6 = torch.zeros(1, dtype=torch.int32, device=u0.device)
+    k6 = raw_launch(
+        "lrnde_persistent_pf", u0, k1, fs.device_scalars([t0, te, dt], u0),
+        saveat, 1, *ops, outs[1], new(1, B, F), new(4, dtype=torch.int32),
+        new(2), new(8, B, F), new(2 * n_blocks), bar6, B, SCORE_MAX_STEPS,
+        1e-4, 1e-6, 1.0 / (B * F))
+    return ((lambda: (bar11.zero_(), k11())[1]),
+            (lambda: (bar6.zero_(), k6())[1])), outs
+
+
+def phase_score_kernels(device):
+    """Kernels 11 and 6 against their plain versions at the score demo's
+    width (B = 4096, F = 2, random weights from seed 0), bitwise
+    repeatability, and the analytic N(0, I) checks."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        match_td_score_chain, persistent_pf_solve, persistent_pf_solve_plain,
+        persistent_vpsde_solve, persistent_vpsde_solve_plain,
+        score_chain_params,
+    )
+    from localregneuralde_tpu_torch.sde import PhiloxNormals
+
+    net = _score_net(device)
+    chain = match_td_score_chain(net)
+    check(chain is not None, "the score demo's network is not the kernels'")
+    ps = [p.detach() for p in score_chain_params(net, chain)]
+    u0 = torch.randn((SCORE_B, SCORE_F),
+                     generator=torch.Generator().manual_seed(0)).to(device)
+    span = (0.0, 1.0 - 1e-3)
+    saveat = torch.tensor([span[1]], device=device)
+    sched = dict(beta_min=0.1, beta_max=20.0, t1=1.0)
+    n_params = sum(p.numel() for p in ps)
+    res = {}
+
+    # kernel 11 — the same Philox seed, so the same Brownian path
+    kw = dict(noise=PhiloxNormals(1234, SCORE_B, SCORE_F, device=device),
+              rtol=SCORE_TOL, atol=SCORE_TOL, solver="sosri", delta=1 / 6,
+              saveat_arr=saveat, max_steps=SCORE_MAX_STEPS, **sched)
+    out = persistent_vpsde_solve(ps, chain, u0, span, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = persistent_vpsde_solve_plain(ps, chain, u0, span, **kw)
+    torch.cuda.synchronize()
+    plain = 1e3 * (time.perf_counter() - t0)
+    na, nb = int(out["naccept"]), int(ref["naccept"])
+    ra, rb = int(out["nreject"]), int(ref["nreject"])
+    scale = float(ref["y_final"].abs().max())
+    err = max_abs(out["y_final"], ref["y_final"])
+    print(f"[vpsde solve] kernel {na} accepts {ra} rejects, loop {nb} / {rb}; "
+          f"y_final max-abs {err:.3e} of max|y| {scale:.3e} "
+          f"({err / scale:.2e}); loop {plain:.1f} ms")
+    check(bool(out["success"]) and bool(ref["success"]),
+          "vpsde solve: not successful")
+    check(na == nb and ra == rb, f"vpsde solve: steps {na}/{ra} vs {nb}/{rb}")
+    # K10's Hölder-1/2 band (tests/test_torch_sde.py), relative: the
+    # reverse drift ½β·u amplifies the path's ulp-level shifts with u
+    check(err <= 1e-3 * scale and bool(torch.isfinite(out["y_final"]).all()),
+          f"vpsde solve vs plain: {err} of {scale}")
+    again = persistent_vpsde_solve(ps, chain, u0, span, **kw)
+    check(torch.equal(again["y_final"], out["y_final"])
+          and int(again["natt"]) == int(out["natt"]),
+          "vpsde solve is not bitwise repeatable")
+    (raw11, raw6), raw_y = _score_raw(ps, chain, u0, span, saveat, sched,
+                                      kw["noise"])
+    check(raw11() == 0 and torch.equal(raw_y[0], out["y_final"]),
+          "vpsde solve: the raw launch differs from the wrapper's")
+    ms, wrapped = back_to_back_ms(
+        [raw11, lambda: persistent_vpsde_solve(ps, chain, u0, span, **kw)],
+        n=5, warmup=1)
+    natt = na + ra
+    print(f"[vpsde solve] bitwise repeatable; kernel {ms:.3f} ms per raw "
+          f"launch back to back ({1e3 * ms / natt:.2f} µs per attempt), "
+          f"{wrapped:.3f} ms per wrapper call")
+    # four drift evaluations an attempt (the tree's integer and
+    # transcendental work is not counted); in u0 and the network, out
+    # y_final and ys
+    res["persistent_vpsde_solve"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        **bound(4 * natt * score_flops(chain.dims, SCORE_B),
+                4 * (3 * SCORE_B * SCORE_F + n_params)))
+
+    # kernel 6 — the same ODE: within one accept, 5e-5 of max|y|
+    pkw = dict(rtol=1e-4, atol=1e-6, saveat_arr=saveat,
+               max_steps=SCORE_MAX_STEPS, **sched)
+    out = persistent_pf_solve(ps, chain, u0, span, **pkw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = persistent_pf_solve_plain(ps, chain, u0, span, **pkw)
+    torch.cuda.synchronize()
+    plain = 1e3 * (time.perf_counter() - t0)
+    na, nb = int(out["naccept"]), int(ref["naccept"])
+    scale = float(ref["y_final"].abs().max())
+    err = max_abs(out["y_final"], ref["y_final"])
+    print(f"[pf solve] kernel {na} accepts nfe {int(out['nfe'])}, loop {nb} "
+          f"nfe {int(ref['nfe'])}; y_final max-abs {err:.3e} of max|y| "
+          f"{scale:.3e}; loop {plain:.1f} ms")
+    check(bool(out["success"]) and bool(ref["success"]) and abs(na - nb) <= 1
+          and err <= 5e-5 * scale, "pf solve disagrees with the loop")
+    again = persistent_pf_solve(ps, chain, u0, span, **pkw)
+    check(torch.equal(again["y_final"], out["y_final"])
+          and int(again["nfe"]) == int(out["nfe"]),
+          "pf solve is not bitwise repeatable")
+    check(raw6() == 0 and torch.equal(raw_y[1], out["y_final"]),
+          "pf solve: the raw launch differs from the wrapper's")
+    ms, wrapped = back_to_back_ms(
+        [raw6, lambda: persistent_pf_solve(ps, chain, u0, span, **pkw)],
+        n=10, warmup=1)
+    natt = (int(out["nfe"]) - 2) // 6
+    print(f"[pf solve] bitwise repeatable; kernel {ms:.3f} ms per raw launch "
+          f"back to back ({1e3 * ms / natt:.2f} µs per attempt), "
+          f"{wrapped:.3f} ms per wrapper call")
+    # six evaluations an attempt; in u0, k1 and the network, out y_final, ys
+    res["persistent_pf_solve"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        **bound(6 * natt * score_flops(chain.dims, SCORE_B),
+                4 * (4 * SCORE_B * SCORE_F + n_params)))
+
+    # the analytic case: s = −x keeps N(0, I), so the reverse SDE recovers
+    # it and the probability flow does not move
+    F8 = 8
+    net8 = _neg_identity_net(device, F8)
+    c8 = match_td_score_chain(net8)
+    p8 = [p.detach() for p in score_chain_params(net8, c8)]
+    x8 = torch.randn((SCORE_B, F8),
+                     generator=torch.Generator().manual_seed(1)).to(device)
+    s = persistent_vpsde_solve(
+        p8, c8, x8, span, noise=PhiloxNormals(9, SCORE_B, F8, device=device),
+        rtol=SCORE_TOL, atol=SCORE_TOL, solver="sri", delta=1 / 6,
+        saveat_arr=saveat, max_steps=SCORE_MAX_STEPS, **sched)
+    y = persistent_pf_solve(p8, c8, x8, span, rtol=1e-4, atol=1e-6,
+                            saveat_arr=saveat, max_steps=SCORE_MAX_STEPS,
+                            **sched)
+    mean, std = float(s["y_final"].mean()), float(s["y_final"].std())
+    moved = max_abs(y["y_final"], x8)
+    print(f"[score analytic] s = -x, B = {SCORE_B}, F = {F8}: SDE samples "
+          f"mean {mean:+.4f} std {std:.4f} ({int(s['naccept'])} accepts); "
+          f"probability flow moved u_init by {moved:.2e}")
+    check(bool(s["success"]) and bool(y["success"]) and abs(mean) < 0.05
+          and abs(std - 1) < 0.05 and moved <= 1e-4,
+          "the analytic N(0, I) checks failed")
+    for name in ("persistent_vpsde_solve", "persistent_pf_solve"):
+        r = res[name]
+        print(f"[kernel {name}] max-abs {r['max_abs_err']:.3e} | device time "
+              f"per call back to back {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms | bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']})")
+    return res
+
+
+def phase_score_sampling(device):
+    """The score samplers through their entry points at the demo config:
+    three draws each of sample_vpsde and sample_probability_flow with ms,
+    samples/s, NFE and launches; then a B = 256 draw against the CPU."""
+    import torch
+
+    from localregneuralde_tpu_torch.models import (
+        sample_probability_flow, sample_vpsde,
+    )
+    from localregneuralde_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts,
+    )
+
+    net = _score_net(device)
+    # the demo's solvers: SOSRI at its default rtol = atol 1e-2
+    # (scripts/vpsde_ab.py:57), Tsit5 at rtol 1e-4, atol 1e-6
+    vp = functools.partial(sample_vpsde, solver="sosri")
+    samplers = (("vpsde", vp, "persistent_vpsde_solve"),
+                ("pf", sample_probability_flow, "persistent_pf_solve"))
+    kw = dict(max_steps=SCORE_MAX_STEPS, device=device)
+    for _, fn, _ in samplers:  # first-call set-up
+        fn(None, (SCORE_B, SCORE_F), torch.Generator().manual_seed(99),
+           score_module=net, **kw)
+    torch.cuda.synchronize()
+
+    # --- the main path: every launch from here to launch_counts() counts
+    reset_launch_counts()
+    draws = []
+    for name, fn, _ in samplers:
+        for i in range(SCORE_DRAWS):
+            before, t0 = launch_counts(), time.perf_counter()
+            s, sol = fn(None, (SCORE_B, SCORE_F),
+                        torch.Generator().manual_seed(i), score_module=net,
+                        **kw)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            after = launch_counts()
+            draws.append((name, i, ms, s, sol,
+                          {k: after[k] - before[k] for k in after
+                           if after[k] != before[k]}))
+    counts = launch_counts()
+    for name, i, ms, s, sol, c in draws:
+        nfe = (f"nfe drift {int(sol.nfe_drift)} diffusion "
+               f"{int(sol.nfe_diffusion)}" if name == "vpsde"
+               else f"nfe {int(sol.nfe)}")
+        print(f"[score sample {name}] draw {i}: {int(sol.naccept)} accepts "
+              f"{int(sol.nreject)} rejects {nfe}, {ms:.3f} ms, "
+              f"{SCORE_B / (ms / 1e3):.1f} samples/s, mean "
+              f"{float(s.mean()):+.4f} std {float(s.std()):.4f} | launches {c}")
+        kernel = dict((n, k) for n, _, k in samplers)[name]
+        check(bool(sol.success) and tuple(s.shape) == (SCORE_B, SCORE_F)
+              and bool(torch.isfinite(s).all()) and c == {kernel: 1},
+              f"score sample {name} draw {i}: bad output or launches {c}")
+    print(f"[score sample] launch counts {counts}")
+
+    # B = 256 on the card against the CPU, the same seed: the same draws,
+    # the same Philox path, so the same steps (the SDE exactly; the ODE
+    # within one accept, its state bound then ten times wider)
+    net_cpu = _score_net("cpu")
+    for name, fn, _ in samplers:
+        a, sa = fn(None, (256, SCORE_F), torch.Generator().manual_seed(5),
+                   score_module=net, **kw)
+        b, sb = fn(None, (256, SCORE_F), torch.Generator().manual_seed(5),
+                   score_module=net_cpu, max_steps=SCORE_MAX_STEPS,
+                   device="cpu")
+        scale = float(b.abs().max())
+        err = max_abs(a.cpu(), b)
+        steps = [(int(x.naccept), int(x.nreject)) for x in (sa, sb)]
+        print(f"[score sample {name}] B = 256, card vs CPU: accepts/rejects "
+              f"{steps[0]} vs {steps[1]}, max-abs {err:.3e} of max|y| "
+              f"{scale:.3e}")
+        if name == "vpsde":
+            ok = steps[0] == steps[1] and err <= 1e-3 * scale
+        else:
+            gap = abs(steps[0][0] - steps[1][0])
+            ok = gap <= 1 and err <= (5e-5 if gap == 0 else 5e-4) * scale
+        check(ok and bool(torch.isfinite(a).all()),
+              f"score sample {name}: card disagrees with the CPU")
+    return counts
+
+
+def phase_conv_orient(device):
+    """Kernel 15's two layouts at the probe's (32, 32, 32, 64) against the
+    FP32 plain conv (cuDNN), timed beside kernel 13's implicit GEMM and
+    cuDNN. Returns the kernels' entries and their launch counts."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        conv_orient_im2col, conv_orient_plain, conv_orient_tap, launch_counts,
+        reset_launch_counts,
+    )
+
+    b, h, w, c = 32, 32, 32, 64
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(b, h, w, c, generator=g).to(device)
+    wt = (0.05 * torch.randn(3, 3, c, c, generator=g)).to(device)
+    ref = conv_orient_plain(x, wt)
+    # the probe's two launches, counted
+    reset_launch_counts()
+    outs = {"conv_orient_tap": conv_orient_tap(x, wt),
+            "conv_orient_im2col": conv_orient_im2col(x, wt)}
+    counts = launch_counts()
+    scale = float(ref.abs().max())
+    errs = {k: max_abs(v, ref) for k, v in outs.items()}
+    check(all(e <= 1e-5 * scale for e in errs.values()),
+          f"conv orient vs cuDNN FP32: {errs} of {scale}")
+    sc = torch.zeros(2, device=device)
+    out = torch.empty_like(ref)
+    raws = [raw_launch(entry, x, wt, out, b, h, w, c, c)
+            for entry in ("lrnde_conv_orient_tap", "lrnde_conv_orient_im2col")]
+    raws.append(raw_launch("lrnde_conv3x3_gemm", x, wt, sc, out, b, h, w, c,
+                           c))
+    check(all(r() == 0 for r in raws), "conv orient: raw launch failed")
+    check(max_abs(out, ref) <= 1e-5 * scale, "conv3x3_kernel vs cuDNN")
+    with torch.no_grad():
+        times = back_to_back_ms(raws + [lambda: conv_orient_plain(x, wt)],
+                                n=50, warmup=5)
+    flops = 2 * b * h * w * 9 * c * c
+    for name, ms in zip(("tap", "im2col", "conv3x3_kernel<128,64> (K13)",
+                         "cuDNN FP32"), times):
+        print(f"[conv orient] {name}: {1e3 * ms:.2f} µs per conv, "
+              f"{flops / (ms / 1e3) / 1e12:.2f} TFLOP/s")
+    print(f"[conv orient] max-abs vs cuDNN FP32 {errs} (max|y| {scale:.3e})")
+    res = {}
+    for (name, err), ms in zip(errs.items(), times):
+        # in x and the weight, out y
+        r = dict(max_abs_err=err, ms=ms, plain_ms=times[3],
+                 **bound(flops, 4 * (2 * x.numel() + wt.numel())))
+        r["library_ms"] = times[3]
+        res[name] = r
+    return res, counts
+
+
 def main():
     import torch
 
@@ -2153,6 +2529,11 @@ def main():
     path_counts.append(phase_latent(device, profile=profile))
     res.update(phase_conv_kernels(device))
     path_counts.append(phase_cifar(device, profile=profile))
+    res.update(phase_score_kernels(device))
+    path_counts.append(phase_score_sampling(device))
+    orient, orient_counts = phase_conv_orient(device)
+    res.update(orient)
+    path_counts.append(orient_counts)
     for name in ("persistent_chain_solve", "persistent_chain_sweep"):
         r = res[name]
         print(f"[kernel {name}] max-abs {r['max_abs_err']:.3e} | device time "
@@ -2200,6 +2581,18 @@ def main():
         "fused_conv_step_bwd": (
             "localregneuralde_tpu_torch/csrc/conv_step_bwd.cu",
             "localregneuralde_tpu/ops/pallas/fused_conv_bwd.py:82"),
+        "persistent_vpsde_solve": (
+            "localregneuralde_tpu_torch/csrc/sde_solve.cu",
+            "localregneuralde_tpu/ops/pallas/fused_sde_solve.py:835"),
+        "persistent_pf_solve": (
+            "localregneuralde_tpu_torch/csrc/pf_solve.cu",
+            "localregneuralde_tpu/ops/pallas/fused_solve.py:1009"),
+        "conv_orient_tap": (
+            "localregneuralde_tpu_torch/csrc/conv_orient.cu",
+            "scripts/conv_orient_probe.py:93"),
+        "conv_orient_im2col": (
+            "localregneuralde_tpu_torch/csrc/conv_orient.cu",
+            "scripts/conv_orient_probe.py:120"),
     }
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -18,14 +18,23 @@ Ported so far, with hand-written CUDA kernels (``csrc/``) on every path:
   solve with its Brownian tree and the SDE adjoint sweep;
 - the PhysioNet latent ODE, training and evaluation through its runner
   (``harness/latent_runner.py``): the persistent solve and the dense and
-  two-level sweep of its Dense-chain dynamics.
+  two-level sweep of its Dense-chain dynamics;
+- the CIFAR-10 conv Neural ODE, serving and training through the
+  classification runner (``harness/runner.py``): the conv Tsit5 step and
+  its VJP;
+- the score-SDE samplers (``models/score_sde.py``): the persistent reverse
+  VP-SDE solve and the persistent probability-flow solve of a TDChain score
+  network; beside them, on no path, the conv-orientation probe's two conv
+  kernels (``ops/cuda/conv_orient.py``).
 
 The entry points build on the CUDA device unless the caller passes
 ``device="cpu"``.
 
 Importing the package turns TF32 off for matmuls and cuDNN: the solver's
 embedded error estimate is a cancelling sum that TF32 rounding swamps at
-tight tolerances.
+tight tolerances. The flags are process-wide, so the solves check them on
+CUDA below rtol 1e-4 and raise if a caller turned TF32 on again
+(``nn.basic.check_fp32_products``).
 """
 import torch
 

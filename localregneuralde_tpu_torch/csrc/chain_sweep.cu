@@ -76,18 +76,18 @@ struct ChainSweepArgs {
 struct ChainBwdSmem {
   ChainSmem base;
   float* g;     // [n_params] the CTA's gradient partial
-  float* keep;  // [6][L + 1][rows][maxw] stage activations a_0..a_L
-  float* dz;    // [6][L][rows][maxw] layer cotangents before W_l
+  float* keep;  // [6][L + 1][rows][stride] stage activations a_0..a_L
+  float* dz;    // [6][L][rows][stride] layer cotangents before W_l
   float* ks;    // [7][rows][F] k1..k7 of the row block
   float* dks;   // [7][rows][F] their cotangents
   float* du;    // [rows][F]
-  float* da;    // [2][rows][maxw] the cotangent flowing down the layers
+  float* da;    // [2][rows][stride] the cotangent flowing down the layers
   float* wt;    // [kChainMaxSave][7] dt·b_m(θ) of the saveat times hit
   int* hit;     // [kChainMaxSave] their indexes
 };
 
 __host__ __device__ inline size_t chain_bwd_smem_floats(const DenseChain& w) {
-  const size_t RM = static_cast<size_t>(kChainRows) * w.maxw;
+  const size_t RM = static_cast<size_t>(kChainRows) * chain_stride(w);
   const size_t RF = static_cast<size_t>(kChainRows) * w.F;
   return shared_floats(w) + w.n_params + 6 * (w.L + 1) * RM + 6 * w.L * RM
        + 15 * RF + 2 * RM + 8 * kChainMaxSave;
@@ -95,7 +95,7 @@ __host__ __device__ inline size_t chain_bwd_smem_floats(const DenseChain& w) {
 
 __device__ inline ChainBwdSmem carve_chain_bwd(const DenseChain& w,
                                                float* raw) {
-  const size_t RM = static_cast<size_t>(kChainRows) * w.maxw;
+  const size_t RM = static_cast<size_t>(kChainRows) * chain_stride(w);
   const size_t RF = static_cast<size_t>(kChainRows) * w.F;
   ChainBwdSmem s;
   s.base = carve_shared(w, raw);
@@ -124,7 +124,7 @@ __device__ void chain_step_bwd(const ChainSweepArgs& a, const ChainBwdSmem& bs,
                                float dt, int n_hit) {
   constexpr int R = kChainRows, T = kChainThreads;
   const DenseChain& w = a.w;
-  const int F = w.F, M = w.maxw, L = w.L, tid = threadIdx.x;
+  const int F = w.F, M = chain_stride(w), L = w.L, tid = threadIdx.x;
   const int RF = R * F, RM = R * M;
   const size_t BF = static_cast<size_t>(a.B) * F;
   float* const xs = bs.base.xs;
@@ -135,7 +135,8 @@ __device__ void chain_step_bwd(const ChainSweepArgs& a, const ChainBwdSmem& bs,
     xs[c * R + r] = r < nrows ? u[i] : 0.f;
   }
   __syncthreads();
-  chain_forward(w, bs.base.w, xs, bs.base.act, false, bs.ks, nrows);
+  chain_forward(w, bs.base.w, xs, 1, R, 0.f, bs.base.act, false, bs.ks,
+                nrows);
 
   // ---- stage cotangents from the saveat hits, and the FSAL carry on k7
   for (int i = tid; i < RF; i += T) {
@@ -166,8 +167,8 @@ __device__ void chain_step_bwd(const ChainSweepArgs& a, const ChainBwdSmem& bs,
       xs[c * R + r] = v;
     }
     __syncthreads();
-    chain_forward(w, bs.base.w, xs, bs.keep + si * (L + 1) * RM, true,
-                  bs.ks + (si + 1) * RF, nrows);
+    chain_forward(w, bs.base.w, xs, 1, R, 0.f, bs.keep + si * (L + 1) * RM,
+                  true, bs.ks + (si + 1) * RF, nrows);
   }
 
   // ---- reverse pass through the stage chain

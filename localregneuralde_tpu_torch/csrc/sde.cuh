@@ -26,10 +26,12 @@ constexpr int kSdeRows = 4;      // batch rows per row block
 
 // ---------------------------------------------------------------- tableaus
 // sde/tableaus.py, rounded from the Python floats to float32. Rows of the
-// stage coefficients are indexed [stage e = 2..4 → e-2][j].
+// stage coefficients are indexed [stage e = 2..4 → e-2][j]; c0 and c1 are
+// the stage times of the drift and diffusion evaluations (c0[0] = 0).
 struct SriTableau {
   float A0[3][3], B0[3][3], A1[3][3], B1[3][3];
   float alpha[4], beta1[4], beta2[4], beta3[4], beta4[4];
+  float c0[4], c1[4];
 };
 
 #define LRNDE_F(x) static_cast<float>(x)
@@ -48,6 +50,8 @@ __host__ __device__ inline SriTableau sri_tableau(bool sosri) {
       {-1.f, LRNDE_F(4.0 / 3.0), LRNDE_F(-1.0 / 3.0), 0.f},
       {2.f, LRNDE_F(-4.0 / 3.0), LRNDE_F(-2.0 / 3.0), 0.f},
       {-2.f, LRNDE_F(5.0 / 3.0), LRNDE_F(-2.0 / 3.0), 1.f},
+      {0.f, LRNDE_F(3.0 / 4.0), 0.f, 0.f},
+      {0.f, LRNDE_F(1.0 / 4.0), 1.f, LRNDE_F(1.0 / 4.0)},
   };
   if (sosri) {  // the re-derived drift block; the diffusion block is SRIW1's
     T.A0[0][0] = 0.5f;
@@ -58,6 +62,9 @@ __host__ __device__ inline SriTableau sri_tableau(bool sosri) {
     T.alpha[1] = LRNDE_F(0.6445940296355466);
     T.alpha[2] = LRNDE_F(0.2184638099988976);
     T.alpha[3] = LRNDE_F(0.0138551276830535);
+    T.c0[1] = 0.5f;
+    T.c0[2] = 0.75f;
+    T.c0[3] = 1.f;
   }
   return T;
 }
@@ -156,7 +163,16 @@ __device__ inline void propose_sde(float eest, float dt, float* dt_acc,
 }
 
 // ------------------------------------------------------------- the family
+struct SdeMlpShared;
+
+// A dynamics type of the solve kernel (sde_solve.cu) names its row blocking
+// and its shared memory type, and has sde_shared_floats(),
+// sde_carve_load() and sde_stage() overloads (score.cuh::VpScore is the
+// other).
 struct SdeWeights {
+  static constexpr int rows = kSdeRows;
+  static constexpr int threads = kSdeThreads;
+  using Shared = SdeMlpShared;
   const float* w1;  // (F, H)
   const float* b1;  // (H)
   const float* w2;  // (H, F)
@@ -240,17 +256,31 @@ __device__ inline void sde_stage_eval(const SdeSmemW& w, const float* xf,
   __syncthreads();
 }
 
-// Sum of v over the CTA in a fixed order; every thread gets the sum.
-__device__ inline float sde_block_sum(float v, float* red) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = kSdeThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  const float total = red[0];
-  __syncthreads();
-  return total;
+// The MLP family as a dynamics type of the solve kernel: its weights and
+// the hidden rows of a stage evaluation ([kSdeRows][H]) in shared memory.
+struct SdeMlpShared {
+  SdeSmemW w;
+  float* hid;
+};
+
+__host__ __device__ inline size_t sde_shared_floats(const SdeWeights& w) {
+  return sde_weight_smem_floats(w.F, w.H) + static_cast<size_t>(kSdeRows) * w.H;
+}
+
+// Carve and load the weights; returns the first float after the type's
+// shared memory. The caller synchronises.
+__device__ inline float* sde_carve_load(const SdeWeights& w, float* base,
+                                        SdeMlpShared* s) {
+  s->hid = load_sde_weights(w, base, &s->w);
+  return s->hid + kSdeRows * w.H;
+}
+
+// The family is autonomous: the stage times are not read.
+__device__ inline void sde_stage(const SdeWeights&, const SdeMlpShared& s,
+                                 const float* xf, const float* xg,
+                                 float /*tf*/, float /*tg*/, float* k,
+                                 float* g, int nrows) {
+  sde_stage_eval(s.w, xf, xg, s.hid, k, g, nrows);
 }
 
 inline int sde_row_blocks(int B) { return (B + kSdeRows - 1) / kSdeRows; }

@@ -1,12 +1,16 @@
-// Kernel 10: the whole adaptive SRI/SOSRI solve of the NeuralDSDE family in
-// one cooperative launch, with the virtual Brownian tree drawn inside.
+// Kernels 10 and 11: the whole adaptive SRI/SOSRI solve in one cooperative
+// launch, with the virtual Brownian tree drawn inside, templated on the
+// dynamics type: kernel 10 for the NeuralDSDE family (sde.cuh::SdeWeights),
+// kernel 11 for the reverse-time VP-SDE of the score samplers
+// (score.cuh::VpScore).
 //
 // Replaces localregneuralde_tpu/ops/pallas/fused_sde_solve.py::_make_kernel
-// (family ("mlp", H), built by _build_call and called from
-// persistent_sde_solve). On the TPU one core ran the accept/reject loop over
-// the whole batch with its state in VMEM and drew the tree from the TPU's
-// hardware PRNG. Here every CTA owns fixed row blocks for the whole solve
-// (sde.cuh), keeps the weights in shared memory, and per attempt:
+// (families ("mlp", H), called from persistent_sde_solve, and ("vpsde",
+// ...), called from persistent_vpsde_solve). On the TPU one core ran the
+// accept/reject loop over the whole batch with its state in VMEM and drew
+// the tree from the TPU's hardware PRNG. Here every CTA owns fixed row
+// blocks of D::rows rows for the whole solve, keeps the dynamics' weights in
+// shared memory, and per attempt:
 //
 // 1. descends the Brownian bridge to t + dt for its elements: 24 levels,
 //    one Philox4x32-10 draw per level per column pair, giving W and Z of two
@@ -14,8 +18,9 @@
 //    (seed, node, channel, row, column), so a retried step sees the same path
 //    and the split of rows over CTAs does not matter; W/Z at the last
 //    accepted time stay in global scratch, and dW = W(t + dt) − W(t);
-// 2. takes the four-stage SRI step of its rows with the stage inputs, the
-//    hidden rows and k1..k4, g1..g4 in shared memory, writes the candidate
+// 2. takes the four-stage SRI step of its rows with the stage inputs and
+//    k1..k4, g1..g4 in shared memory (the drift at t + c0_i·dt, the
+//    diffusion at t + c1_i·dt, as sde/step.py), writes the candidate
 //    state to global scratch, and stores its row block's sum of squared
 //    scaled residuals (δ·E1 + E2)/(atol + max(|u|, |u_new|)·rtol) into a slot
 //    of its own;
@@ -32,21 +37,26 @@
 // max_steps entries, and commits u and W/Z. The first dt (one drift
 // evaluation) is computed by the caller, as in the reference.
 //
-// What bounds it on an H100: the tree. An attempt draws 2·24·B·F normals
-// (786k at B = 512, F = 32) against 8 small products per row, so the noise
-// arithmetic (Philox, the inverse CDF with its logf in the tails) and the
-// latency of the grid barrier set the time per attempt; B = 512 gives 128
-// CTAs of 64 threads, one per SM.
+// What bounds kernel 10 on an H100: the tree. An attempt draws 2·24·B·F
+// normals (786k at B = 512, F = 32) against 8 small products per row, so the
+// noise arithmetic (Philox, the inverse CDF with its logf in the tails) and
+// the latency of the grid barrier set the time per attempt; B = 512 gives
+// 128 CTAs of 64 threads, one per SM. Kernel 11 (B = 4096, F = 2) draws one
+// column pair a row, and its four drift evaluations are three dependent
+// layer passes each (score.cuh); it records no knots and keeps no
+// reservoir.
+#include "score.cuh"
 #include "sde.cuh"
 
 namespace lrnde {
 
+template <typename D>
 struct SdeSolveArgs {
   const float* u0;
   const float* sc;        // t0, t_end, dt0
   const float* saveat;    // (n_save)
   int n_save;
-  SdeWeights w;
+  D w;
   uint32_t seed;
   int depth;
   float* u;               // (B, F) working state; y_final on exit
@@ -75,24 +85,27 @@ struct SdeCtl {
 };
 
 struct SdeStepSmem {
-  float *u, *dw, *dz, *xf, *xg, *hid, *k, *g, *red;
+  float *u, *dw, *dz, *xf, *xg, *k, *g, *red;
 };
 
-__host__ __device__ inline size_t sde_solve_smem_floats(int F, int H) {
-  const size_t RF = static_cast<size_t>(kSdeRows) * F;
-  return sde_weight_smem_floats(F, H) + 5 * RF + kSdeRows * H + 8 * RF
-       + kSdeThreads;
+// Floats of dynamic shared memory per CTA: the dynamics type's, then the
+// step's row-block buffers.
+template <typename D>
+__host__ __device__ inline size_t sde_solve_smem_floats(const D& w) {
+  const size_t RF = static_cast<size_t>(D::rows) * w.F;
+  return sde_shared_floats(w) + 13 * RF + D::threads;
 }
 
 // W/Z of this CTA's elements of row block rb at normalised time tau into
 // wz1; dW, dZ (against wz0) into the row block's shared buffers.
-__device__ void descend(const SdeSolveArgs& a, const SdeStepSmem& s, int rb,
-                        int nrows, float tau, float span) {
+template <typename D>
+__device__ void descend(const SdeSolveArgs<D>& a, const SdeStepSmem& s,
+                        int rb, int nrows, float tau, float span) {
   const int F = a.w.F, P = (F + 1) / 2;
   const size_t BF = static_cast<size_t>(a.B) * F;
   for (int item = threadIdx.x; item < nrows * P; item += blockDim.x) {
     const int r = item / P, p = item - r * P;
-    const int row = rb * kSdeRows + r;
+    const int row = rb * D::rows + r;
     const float4 e = pair_normals(a.seed, p, row, 1);
     const float root = __fsqrt_rn(span);
     float wb[4] = {__fmul_rn(e.x, root), __fmul_rn(e.y, root),
@@ -131,22 +144,31 @@ __device__ void descend(const SdeSolveArgs& a, const SdeStepSmem& s, int rb,
   }
 }
 
-// One SRI step of row block rb; returns its Σ residual² to every thread.
-__device__ float sri_rows(const SdeSolveArgs& a, const SdeSmemW& w,
-                          const SdeStepSmem& s, const SriTableau& T, int rb,
-                          int nrows, float dt) {
+// Stage time t + c·dt, rounded as sde/step.py rounds it.
+__device__ inline float stage_time(float t, float c, float dt) {
+  return __fadd_rn(t, __fmul_rn(c, dt));
+}
+
+// One SRI step of row block rb from time t; returns its Σ residual² to
+// every thread.
+template <typename D>
+__device__ float sri_rows(const SdeSolveArgs<D>& a,
+                          const typename D::Shared& w, const SdeStepSmem& s,
+                          const SriTableau& T, int rb, int nrows, float t,
+                          float dt) {
   const int F = a.w.F, n = nrows * F;
-  const size_t off = static_cast<size_t>(rb) * kSdeRows * F;
+  const size_t off = static_cast<size_t>(rb) * D::rows * F;
   const float sqdt = sqrtf(dt);
   const float sqrt3 = LRNDE_F(1.7320508075688772);
-  const int RF = kSdeRows * F;
+  const int RF = D::rows * F;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     s.u[i] = a.u[off + i];
     s.xf[i] = s.u[i];
     s.xg[i] = s.u[i];
   }
   __syncthreads();
-  sde_stage_eval(w, s.xf, s.xg, s.hid, s.k, s.g, nrows);
+  sde_stage(a.w, w, s.xf, s.xg, t, stage_time(t, T.c1[0], dt), s.k, s.g,
+            nrows);
   // stage inputs in sde/step.py's order of operations
   for (int e = 1; e < 4; ++e) {
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -169,7 +191,8 @@ __device__ float sri_rows(const SdeSolveArgs& a, const SdeSmemW& w,
       s.xg[i] = u + dt * kg + sqdt * gg;
     }
     __syncthreads();
-    sde_stage_eval(w, s.xf, s.xg, s.hid, s.k + e * RF, s.g + e * RF, nrows);
+    sde_stage(a.w, w, s.xf, s.xg, stage_time(t, T.c0[e], dt),
+              stage_time(t, T.c1[e], dt), s.k + e * RF, s.g + e * RF, nrows);
   }
   float err = 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -203,28 +226,28 @@ __device__ float sri_rows(const SdeSolveArgs& a, const SdeSmemW& w,
     err = fmaf(res, res, err);
     a.unew[off + i] = un;
   }
-  return sde_block_sum(err, s.red);
+  return block_sum<D::threads>(err, s.red);
 }
 
-template <bool kSosri>
-__global__ void __launch_bounds__(kSdeThreads)
-sde_solve_kernel(SdeSolveArgs a) {
+template <typename D, bool kSosri>
+__global__ void __launch_bounds__(D::threads)
+sde_solve_kernel(SdeSolveArgs<D> a) {
+  constexpr int R = D::rows;
   extern __shared__ float4 smem_raw[];
   __shared__ SdeCtl ctl;
-  const int F = a.w.F, H = a.w.H, B = a.B, tid = threadIdx.x;
-  const int n_blocks = (B + kSdeRows - 1) / kSdeRows;
+  const int F = a.w.F, B = a.B, tid = threadIdx.x;
+  const int n_blocks = (B + R - 1) / R;
   const size_t BF = static_cast<size_t>(B) * F;
-  const int RF = kSdeRows * F;
-  SdeSmemW w;
-  float* p = load_sde_weights(a.w, reinterpret_cast<float*>(smem_raw), &w);
+  const int RF = R * F;
+  typename D::Shared w;
+  float* p = sde_carve_load(a.w, reinterpret_cast<float*>(smem_raw), &w);
   SdeStepSmem s;
   s.u = p;
   s.dw = s.u + RF;
   s.dz = s.dw + RF;
   s.xf = s.dz + RF;
   s.xg = s.xf + RF;
-  s.hid = s.xg + RF;
-  s.k = s.hid + kSdeRows * H;
+  s.k = s.xg + RF;
   s.g = s.k + 4 * RF;
   s.red = s.g + 4 * RF;
   const SriTableau T = sri_tableau(kSosri);
@@ -232,8 +255,8 @@ sde_solve_kernel(SdeSolveArgs a) {
   const bool record = a.knot_ts != nullptr;
 
   for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
-    const size_t off = static_cast<size_t>(rb) * kSdeRows * F;
-    const int n = min(kSdeRows, B - rb * kSdeRows) * F;
+    const size_t off = static_cast<size_t>(rb) * R * F;
+    const int n = min(R, B - rb * R) * F;
     for (int i = tid; i < n; i += blockDim.x) {
       const float v = a.u0[off + i];
       a.u[off + i] = v;
@@ -270,10 +293,10 @@ sde_solve_kernel(SdeSolveArgs a) {
     const float t = ctl.t, dt_c = ctl.dt_c, t_new = ctl.t_new;
     float* const slot = a.slots + (epoch & 1u) * n_blocks;
     for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
-      const int nrows = min(kSdeRows, B - rb * kSdeRows);
+      const int nrows = min(R, B - rb * R);
       descend(a, s, rb, nrows, ctl.tau, span);
       __syncthreads();
-      const float err = sri_rows(a, w, s, T, rb, nrows, dt_c);
+      const float err = sri_rows(a, w, s, T, rb, nrows, t, dt_c);
       if (tid == 0) __stcg(slot + rb, err);
     }
     ++epoch;
@@ -305,8 +328,8 @@ sde_solve_kernel(SdeSolveArgs a) {
     if (ctl.accept) {
       const int cnt = ctl.nacc;  // knot index of the new state
       for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
-        const size_t off = static_cast<size_t>(rb) * kSdeRows * F;
-        const int n = min(kSdeRows, B - rb * kSdeRows) * F;
+        const size_t off = static_cast<size_t>(rb) * R * F;
+        const int n = min(R, B - rb * R) * F;
         for (int i = tid; i < n; i += blockDim.x) {
           const size_t o = off + i;
           const float u = a.u[o], un = a.unew[o];
@@ -342,18 +365,33 @@ sde_solve_kernel(SdeSolveArgs a) {
   }
 }
 
-}  // namespace lrnde
-
-// Floats of dynamic shared memory the solve needs per CTA at (F, H).
-extern "C" long long lrnde_sde_solve_smem_floats(int F, int H) {
-  return static_cast<long long>(lrnde::sde_solve_smem_floats(F, H));
+// Launch the solve of dynamics D (sosri: the SOSRI tableau, else SRIW1).
+template <typename D>
+static int launch_sde_solve(int sosri, SdeSolveArgs<D>* a, void* stream) {
+  const size_t smem = sde_solve_smem_floats(a->w) * sizeof(float);
+  auto kernel = sosri ? sde_solve_kernel<D, true> : sde_solve_kernel<D, false>;
+  static size_t granted[2] = {0, 0};
+  cudaError_t err = allow_smem(kernel, smem, &granted[sosri ? 1 : 0]);
+  if (err != cudaSuccess) return err;
+  return launch_cooperative<D>(kernel, a, a->B, smem,
+                               static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// The whole adaptive SRI (sosri = 0) or SOSRI (sosri = 1) solve from u0 with
-// sc = (t0, t_end, dt0) on the device. unew holds B·F floats, wz0 and wz1
-// 2·B·F each, slots 2·ceil(B / 4), barrier one zeroed unsigned int. rand and
-// res_u (the reservoir) and the four knot buffers may be null. Returns
-// cudaGetLastError().
+}  // namespace lrnde
+
+// Floats of dynamic shared memory kernel 10 needs per CTA at (F, H).
+extern "C" long long lrnde_sde_solve_smem_floats(int F, int H) {
+  lrnde::SdeWeights w{};
+  w.F = F;
+  w.H = H;
+  return static_cast<long long>(lrnde::sde_solve_smem_floats(w));
+}
+
+// Kernel 10: the whole adaptive SRI (sosri = 0) or SOSRI (sosri = 1) solve
+// from u0 with sc = (t0, t_end, dt0) on the device. unew holds B·F floats,
+// wz0 and wz1 2·B·F each, slots 2·ceil(B / 4), barrier one zeroed unsigned
+// int. rand and res_u (the reservoir) and the four knot buffers may be null.
+// Returns cudaGetLastError().
 extern "C" int lrnde_sde_solve(
     int sosri, const float* u0, const float* sc, const float* saveat,
     int n_save, const float* w1, const float* b1, const float* w2,
@@ -366,29 +404,50 @@ extern "C" int lrnde_sde_solve(
   using namespace lrnde;
   if ((rand == nullptr) != (res_u == nullptr) || depth < 0 || depth > 30)
     return cudaErrorInvalidValue;
-  SdeSolveArgs a{u0, sc, saveat, n_save,
-                 SdeWeights{w1, b1, w2, b2, wd, bd, F, H}, seed, depth, u, ys,
-                 stats_i, stats_f, unew, wz0, wz1, slots, barrier, rand, res_u,
-                 knot_ts, knot_us, knot_dws, knot_dzs, B, max_steps, rtol,
-                 atol, delta, inv_n};
-  const size_t smem = sde_solve_smem_floats(F, H) * sizeof(float);
-  auto kernel = sosri ? sde_solve_kernel<true> : sde_solve_kernel<false>;
-  static size_t granted[2] = {0, 0};
-  cudaError_t err = allow_smem(kernel, smem, &granted[sosri ? 1 : 0]);
-  if (err != cudaSuccess) return err;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kSdeThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int grid = min(sde_row_blocks(B), per_sm * n_sm);
-  void* kargs[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grid),
-                                    dim3(kSdeThreads), kargs, smem,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  SdeSolveArgs<SdeWeights> a{
+      u0, sc, saveat, n_save, SdeWeights{w1, b1, w2, b2, wd, bd, F, H}, seed,
+      depth, u, ys, stats_i, stats_f, unew, wz0, wz1, slots, barrier, rand,
+      res_u, knot_ts, knot_us, knot_dws, knot_dzs, B, max_steps, rtol, atol,
+      delta, inv_n};
+  return launch_sde_solve(sosri, &a, stream);
+}
+
+// Batch rows per CTA of kernels 6 and 11.
+extern "C" int lrnde_score_rows_per_block() { return lrnde::kScoreRows; }
+
+// Floats of dynamic shared memory of one kernel-11 CTA for the score
+// network of widths dims (L + 1); 0 outside the kernel's limits.
+extern "C" long long lrnde_vpsde_solve_smem_floats(const int* dims, int L) {
+  using namespace lrnde;
+  VpScore c;
+  const void* none[2 * kChainMaxLayers] = {};
+  if (!make_score(&c, none, dims, L, 0u, 0.f, 0.f, 0.f)) return 0;
+  return static_cast<long long>(sde_solve_smem_floats(c));
+}
+
+// Kernel 11: the whole adaptive SRI or SOSRI solve of the reverse VP-SDE on
+// the τ clock from u0 with sc = (t0, t_end, dt0), the score network given by
+// wb (2L pointers: W_0, b_0, W_1, ...; W_l the (d_l + 1, d_{l+1}) TD
+// matrix), dims (L + 1) and acts (bit l: tanh after layer l), and β(t) =
+// beta_min + t·d_beta at t = t1 − τ. The buffers are kernel 10's, with slots
+// 2·ceil(B / kScoreRows); no reservoir and no knots. Returns
+// cudaGetLastError().
+extern "C" int lrnde_vpsde_solve(
+    int sosri, const float* u0, const float* sc, const float* saveat,
+    int n_save, const void* const* wb, const int* dims, int L,
+    unsigned int acts, float beta_min, float d_beta, float t1,
+    unsigned int seed, int depth, float* u, float* ys, int* stats_i,
+    float* stats_f, float* unew, float* wz0, float* wz1, float* slots,
+    unsigned int* barrier, int B, int max_steps, float rtol, float atol,
+    float delta, float inv_n, void* stream) {
+  using namespace lrnde;
+  VpScore c;
+  if (!make_score(&c, wb, dims, L, acts, beta_min, d_beta, t1) || depth < 0
+      || depth > 30)
+    return cudaErrorInvalidValue;
+  SdeSolveArgs<VpScore> a{u0, sc, saveat, n_save, c, seed, depth, u, ys,
+                          stats_i, stats_f, unew, wz0, wz1, slots, barrier,
+                          nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, B, max_steps, rtol, atol, delta, inv_n};
+  return launch_sde_solve(sosri, &a, stream);
 }

@@ -8,6 +8,13 @@ from .common import (
 from .latent_ode import LatentGRUCell
 from .neural_ode import NeuralODE
 from .neural_sde import NeuralDSDE
+from .score_sde import (
+    VPSDE,
+    gaussian_score_fn,
+    module_score_fn,
+    sample_probability_flow,
+    sample_vpsde,
+)
 
 __all__ = [
     "AugmenterLayer",
@@ -16,6 +23,11 @@ __all__ = [
     "NeuralODE",
     "ReparameterizeLayer",
     "TDChain",
+    "VPSDE",
     "diffeqsol_to_array",
     "diffeqsol_to_timeseries",
+    "gaussian_score_fn",
+    "module_score_fn",
+    "sample_probability_flow",
+    "sample_vpsde",
 ]

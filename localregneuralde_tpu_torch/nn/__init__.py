@@ -6,6 +6,7 @@ from .basic import (
     Flatten,
     Lambda,
     WrappedFunction,
+    check_fp32_products,
     conv2d_nhwc,
     glorot_uniform,
     resolve_activation,
@@ -24,6 +25,7 @@ __all__ = [
     "Module",
     "Recurrence",
     "WrappedFunction",
+    "check_fp32_products",
     "conv2d_nhwc",
     "glorot_uniform",
     "resolve_activation",

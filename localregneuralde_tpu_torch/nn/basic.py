@@ -56,6 +56,32 @@ def resolve_solver_precision(precision, rtol: float):
     )
 
 
+def check_fp32_products(rtol: float, device) -> None:
+    """Raise if a solve at ``rtol`` below 1e-4 on a CUDA ``device`` would
+    run its cuBLAS or cuDNN products in TF32.
+
+    Importing the package turns TF32 off, but only through PyTorch's
+    process-wide flags, which a caller may turn on again (directly, or
+    through ``torch.set_float32_matmul_precision``). TF32's rounding
+    swamps the solver's embedded error estimate below rtol 1e-4, where the
+    reference forces full FP32 (``resolve_solver_precision``'s 'highest').
+    Every solve entry point calls this for its device.
+    """
+    if torch.device(device).type != "cuda" or rtol >= 1e-4:
+        return
+    on = [name for name, flag in (
+        ("torch.backends.cuda.matmul.allow_tf32",
+         torch.backends.cuda.matmul.allow_tf32),
+        ("torch.backends.cudnn.allow_tf32", torch.backends.cudnn.allow_tf32),
+    ) if flag]
+    if on:
+        raise RuntimeError(
+            f"rtol {rtol:g} < 1e-4 needs FP32 products, but {' and '.join(on)} "
+            "is True: set it to False (importing localregneuralde_tpu_torch "
+            "does) or loosen the tolerance"
+        )
+
+
 def glorot_uniform(shape, generator: Optional[torch.Generator] = None,
                    fan_in: Optional[int] = None, fan_out: Optional[int] = None):
     """Glorot (Xavier) uniform on the CPU from ``generator``:

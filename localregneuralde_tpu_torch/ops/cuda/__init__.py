@@ -3,6 +3,7 @@
 Every wrapper keeps a plain-integer ``launches`` counter of kernel launches;
 ``launch_counts`` reads them and ``reset_launch_counts`` zeroes them.
 """
+from .conv_orient import conv_orient_im2col, conv_orient_plain, conv_orient_tap
 from .fused_conv import (
     ConvFamilySpec,
     ConvWeights,
@@ -32,8 +33,14 @@ from .fused_mlp_bwd import (
 )
 from .fused_sde_solve import (
     SDEWeights,
+    ScoreChainSpec,
+    match_td_score_chain,
     persistent_sde_solve,
     persistent_sde_solve_plain,
+    persistent_vpsde_solve,
+    persistent_vpsde_solve_plain,
+    score_chain_params,
+    td_score_eval_plain,
 )
 from .fused_sde_sweep import persistent_sde_sweep, persistent_sde_sweep_plain
 from .fused_solve import (
@@ -42,6 +49,8 @@ from .fused_solve import (
     match_dense_chain,
     persistent_chain_solve,
     persistent_chain_solve_plain,
+    persistent_pf_solve,
+    persistent_pf_solve_plain,
     persistent_tsit5_solve,
     persistent_tsit5_solve_plain,
 )
@@ -68,6 +77,10 @@ KERNELS = {
     "persistent_chain_sweep": persistent_chain_sweep,
     "fused_conv_step": fused_conv_step,
     "fused_conv_step_bwd": fused_conv_step_bwd,
+    "persistent_vpsde_solve": persistent_vpsde_solve,
+    "persistent_pf_solve": persistent_pf_solve,
+    "conv_orient_tap": conv_orient_tap,
+    "conv_orient_im2col": conv_orient_im2col,
 }
 
 
@@ -88,10 +101,14 @@ __all__ = [
     "FusedTsit5Step",
     "KERNELS",
     "SDEWeights",
+    "ScoreChainSpec",
     "TDMLPWeights",
     "chain_eval",
     "chain_sweep_feasible",
     "conv_dynamics_plain",
+    "conv_orient_im2col",
+    "conv_orient_plain",
+    "conv_orient_tap",
     "conv_step_plain",
     "differentiable_conv_step",
     "differentiable_step",
@@ -105,10 +122,13 @@ __all__ = [
     "launch_counts",
     "match_conv_family",
     "match_dense_chain",
+    "match_td_score_chain",
     "persistent_chain_solve",
     "persistent_chain_solve_plain",
     "persistent_chain_sweep",
     "persistent_chain_sweep_plain",
+    "persistent_pf_solve",
+    "persistent_pf_solve_plain",
     "persistent_sde_solve",
     "persistent_sde_solve_plain",
     "persistent_sde_sweep",
@@ -119,7 +139,11 @@ __all__ = [
     "persistent_tsit5_solve_plain",
     "persistent_two_level_sweep",
     "persistent_two_level_sweep_plain",
+    "persistent_vpsde_solve",
+    "persistent_vpsde_solve_plain",
     "reset_launch_counts",
+    "score_chain_params",
+    "td_score_eval_plain",
     "tdmlp_plain",
     "tsit5_step_plain",
 ]

@@ -57,6 +57,17 @@ _SIGNATURES = {
     ),
     "lrnde_conv_step": [_P] * 22 + [_I] + [_F] * 3 + [_I] * 5 + [_P],
     "lrnde_conv_step_bwd": [_P] * 29 + [_F] + [_I] * 5 + [_P],
+    "lrnde_vpsde_solve": (
+        [_I] + [_P] * 3 + [_I, _P, _P, _I, _U] + [_F] * 3 + [_U, _I]
+        + [_P] * 9 + [_I] * 2 + [_F] * 4 + [_P]
+    ),
+    "lrnde_persistent_pf": (
+        [_P] * 4 + [_I, _P, _P, _I, _U] + [_F] * 3 + [_P] * 7 + [_I] * 2
+        + [_F] * 3 + [_P]
+    ),
+    "lrnde_conv_orient_tap": [_P] * 3 + [_I] * 5 + [_P],
+    "lrnde_conv_orient_im2col": [_P] * 3 + [_I] * 5 + [_P],
+    "lrnde_conv3x3_gemm": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 # C entry -> argument types of the size queries, which return long long
@@ -70,6 +81,9 @@ _SIZES = {
     "lrnde_chain_sweep_smem_floats": [_P, _I],
     "lrnde_conv_step_scratch_floats": [_I] * 5,
     "lrnde_conv_step_bwd_scratch_floats": [_I] * 5,
+    "lrnde_vpsde_solve_smem_floats": [_P, _I],
+    "lrnde_pf_solve_smem_floats": [_P, _I],
+    "lrnde_conv_orient_im2col_smem_floats": [_I],
 }
 
 
@@ -152,7 +166,7 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_longlong
     for name in ("lrnde_rows_per_block", "lrnde_sde_rows_per_block",
-                 "lrnde_chain_rows_per_block"):
+                 "lrnde_chain_rows_per_block", "lrnde_score_rows_per_block"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.lrnde_error_string.argtypes = [ctypes.c_int]

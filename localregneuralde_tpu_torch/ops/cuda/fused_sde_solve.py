@@ -24,19 +24,38 @@ family and any normal source; on a CPU tensor the wrapper runs it. On a CUDA
 tensor the noise source must be ``PhiloxNormals``, whose numbers the kernel
 draws itself (its uniforms bitwise, its normals to the inverse CDF's
 rounding).
+
+Kernel 11 (``persistent_vpsde_solve``, the same ``csrc/sde_solve.cu``
+instantiated for ``csrc/score.cuh::VpScore``) is the reference's
+``persistent_vpsde_solve`` (family ``("vpsde", ...)``): the reverse-time
+VP-SDE of the score sampler on the clock τ = t1 − t, with drift
+½β(t)·u + β(t)·s_θ(u, t) and diffusion √β(t), s_θ a TDChain of Dense layers
+(``match_td_score_chain``). It records no knots and keeps no reservoir; the
+first drift evaluation and the dt heuristic run outside at τ = t0. The
+kernels take any batch size (the reference declines B % 8 ≠ 0).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from ...nn.basic import check_fp32_products
 from ...sde.brownian import PhiloxNormals
+from ...ode.solve import device_scalar
 from ...sde.solve import SRI_SOLVERS, initial_dt, sde_loop
 from . import _build
 from .fused_mlp import device_scalars
-from .fused_solve import check_reservoir, reservoir_operands
+from .fused_solve import (
+    CHAIN_MAX_LAYERS,
+    CHAIN_SMEM_BYTES,
+    check_reservoir,
+    check_tensors,
+    net_operands,
+    reservoir_operands,
+    smem_bytes,
+)
 
 
 class SDEWeights(NamedTuple):
@@ -96,6 +115,7 @@ def persistent_sde_solve_plain(w: SDEWeights, u0, tspan, *, noise, rtol, atol,
                                record_knots=False, reservoir=None,
                                brownian_depth=24):
     """The plain version: the eager loop with the plain family."""
+    check_fp32_products(rtol, u0.device)
     t0, t_end = float(tspan[0]), float(tspan[1])
     dt_init = initial_dt(u0, drift_plain(w, u0), rtol, atol, t0, t_end)
     out = sde_loop(
@@ -130,6 +150,7 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
     check_reservoir(reservoir, max_steps)
     if u0.device.type == "cpu":
         return persistent_sde_solve_plain(w, u0, tspan, **kw)
+    check_fp32_products(rtol, u0.device)
     if solver not in SRI_SOLVERS:
         raise ValueError(f"the SDE kernel runs {SRI_SOLVERS}, not {solver!r}")
     if not isinstance(noise, PhiloxNormals):
@@ -191,3 +212,229 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
 
 
 persistent_sde_solve.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the score network of the samplers (kernels 6 and 11)
+
+
+class ScoreChainSpec(NamedTuple):
+    """The shape of a ``TDChain`` of biased Dense layers ``Dense(d_i + 1 →
+    d_{i+1}, act)`` with d_0 = d_L: the logical widths ``dims``, a tanh
+    flag per layer ``acts`` and the layer names ``keys``. Its parameters
+    are the list ``[W_0, b_0, W_1, b_1, ...]``, W_i the (d_i + 1, d_{i+1})
+    TD matrix whose last row is the time weight."""
+
+    dims: tuple
+    acts: tuple
+    keys: tuple
+
+
+def match_td_score_chain(module) -> Optional[ScoreChainSpec]:
+    """The spec of ``module`` when it is a ``TDChain`` of biased ``Dense``
+    layers (layer i maps d_i + 1 → d_{i+1}, the time channel appended) with
+    tanh or identity activations and d_0 = d_L ≥ 1; None otherwise (the
+    reference's ``fused_sde_solve.py:763-794``; activations recognised by
+    identity)."""
+    from ...models.common import TDChain
+    from ...nn.basic import _ACTIVATIONS, Dense
+
+    if not isinstance(module, TDChain):
+        return None
+    items = list(module.layers.items())
+    if not items or not all(isinstance(l, Dense) for _, l in items):
+        return None
+    ident = (_ACTIVATIONS[None], _ACTIVATIONS["identity"])
+    dims, acts, keys = [items[0][1].in_dim - 1], [], []
+    for key, layer in items:
+        if not layer.use_bias or layer.in_dim != dims[-1] + 1:
+            return None
+        if layer.activation is torch.tanh:
+            acts.append(True)
+        elif any(layer.activation is fn for fn in ident):
+            acts.append(False)
+        else:
+            return None
+        dims.append(layer.out_dim)
+        keys.append(key)
+    if dims[0] != dims[-1] or dims[0] < 1:
+        return None
+    return ScoreChainSpec(tuple(dims), tuple(acts), tuple(keys))
+
+
+def score_chain_params(module, chain: ScoreChainSpec) -> list:
+    """The module's parameters in the kernels' order, ``[W_0, b_0, ...]``
+    (the tensors themselves, not copies)."""
+    layers = module.layers
+    return [p for key in chain.keys for p in (layers[key].w, layers[key].b)]
+
+
+def td_score_eval_plain(params, chain: ScoreChainSpec, x: torch.Tensor, t):
+    """The score chain at time ``t`` (the reference's ``td_score_eval_pure``):
+    layer i is ``act(a·W_i[:-1] + t·W_i[-1] + b_i)``, the TD matrix's last
+    row the time weight. The plain versions of kernels 6 and 11 and their
+    first evaluations outside the kernels."""
+    a = x
+    for i, act in enumerate(chain.acts):
+        w = params[2 * i]
+        z = a @ w[:-1] + t * w[-1] + params[2 * i + 1]
+        a = torch.tanh(z) if act else z
+    return a
+
+
+def score_limits(chain: ScoreChainSpec, query: str, *,
+                 cuda=True) -> Optional[str]:
+    """Why kernel 6 (``query`` ``'lrnde_pf_solve_smem_floats'``) or 11
+    (``'lrnde_vpsde_solve_smem_floats'``) cannot take ``chain``, or None
+    when it can: 1 to ``CHAIN_MAX_LAYERS`` layers and the network with a
+    CTA's working rows within ``CHAIN_SMEM_BYTES`` of shared memory (not
+    asked with ``cuda=False``)."""
+    L = len(chain.dims) - 1
+    if not 1 <= L <= CHAIN_MAX_LAYERS:
+        return f"score chain: {L} layers, the kernels take 1 to {CHAIN_MAX_LAYERS}"
+    if cuda:
+        need = smem_bytes(chain.dims, query)
+        if not 0 < need <= CHAIN_SMEM_BYTES:
+            return (f"score chain {chain.dims}: needs {need} bytes of shared "
+                    f"memory per CTA, the kernels take at most "
+                    f"{CHAIN_SMEM_BYTES}")
+    return None
+
+
+def check_score_operands(params, chain: ScoreChainSpec, u0, query: str):
+    """Validate a score kernel's operands: float32, contiguous, on the
+    state's CUDA device, the state (B, F) and the TD matrices matching
+    ``chain.dims``, the chain inside ``score_limits``. Returns (B, F)."""
+    reason = score_limits(chain, query)
+    if reason is not None:
+        raise ValueError(reason)
+    d = chain.dims
+    shapes = [s for i in range(len(d) - 1)
+              for s in ((d[i] + 1, d[i + 1]), (d[i + 1],))]
+    if len(params) != len(shapes):
+        raise ValueError(f"{len(params)} parameters for a score chain of "
+                         f"{len(shapes) // 2} layers")
+    B, F = u0.shape
+    check_tensors([(f"param {i}", p, want)
+                   for i, (p, want) in enumerate(zip(params, shapes))]
+                  + [("state", u0, (B, d[0]))], u0)
+    if B < 1:
+        raise ValueError("empty batch")
+    return B, F
+
+
+def score_operands(params, chain: ScoreChainSpec, beta_min, beta_max, t1):
+    """The score kernels' C operands: the pointer array (W_0, b_0, ...), the
+    dims array, L, the tanh mask and the schedule (β_min, Δβ, t1) as the
+    reference rounds it (Δβ in double, then float32)."""
+    return net_operands(params, chain.dims, chain.acts) + (
+        float(beta_min), float(beta_max) - float(beta_min), float(t1))
+
+
+def vpsde_dynamics(params, chain: ScoreChainSpec, beta_min, beta_max, t1):
+    """Kernel 11's drift and diffusion on the τ clock, ``f(x, τ)`` and
+    ``g(x, τ)``: with t = t1 − τ and β = β_min + t·Δβ, the drift
+    ½β·x + β·s_θ(x, t) (the reference sampler's −(−½β·x − β·s), rounded
+    alike) and the diffusion √β."""
+    d_beta = float(beta_max) - float(beta_min)
+
+    def drift(x, tau):
+        t = float(t1) - device_scalar(tau, x)
+        b = float(beta_min) + t * d_beta
+        return (0.5 * b) * x + b * td_score_eval_plain(params, chain, x, t)
+
+    def diffusion(x, tau):
+        t = float(t1) - device_scalar(tau, x)
+        return torch.sqrt(float(beta_min) + t * d_beta) * torch.ones_like(x)
+
+    return drift, diffusion
+
+
+def persistent_vpsde_solve_plain(params, chain: ScoreChainSpec, u0, tspan, *,
+                                 noise, rtol, atol, solver, delta, saveat_arr,
+                                 max_steps, beta_min, beta_max, t1,
+                                 brownian_depth=24):
+    """The plain version of kernel 11: the eager SDE loop with the plain
+    score chain and the same noise source."""
+    check_fp32_products(rtol, u0.device)
+    t0, t_end = float(tspan[0]), float(tspan[1])
+    drift, diffusion = vpsde_dynamics(params, chain, beta_min, beta_max, t1)
+    dt_init = initial_dt(u0, drift(u0, t0), rtol, atol, t0, t_end)
+    out = sde_loop(
+        drift, diffusion, u0, t0, t_end, dt_init, noise=noise,
+        saveat=saveat_arr, rtol=rtol, atol=atol, solver=solver, delta=delta,
+        max_steps=max_steps, brownian_depth=brownian_depth,
+    )
+    return dict(out, ts=saveat_arr)
+
+
+def persistent_vpsde_solve(params, chain: ScoreChainSpec, u0: torch.Tensor,
+                           tspan, *, noise, rtol: float, atol: float,
+                           solver: str, delta: float, saveat_arr: torch.Tensor,
+                           max_steps: int, beta_min: float, beta_max: float,
+                           t1: float, brownian_depth=24):
+    """Run the whole adaptive reverse VP-SDE solve from ``u0`` (kernel 11).
+
+    ``params`` are the score chain's ``[W_0, b_0, ...]`` and ``chain`` its
+    ``match_td_score_chain`` spec. Returns a dict of device tensors (no host
+    sync): ``y_final``, ``ys`` (n_save, B, F), ``naccept``, ``nreject``,
+    ``natt``, ``success``, ``t_final`` and ``ts``; NFE is drift 1 +
+    4·natt, diffusion 4·natt (``sde.solve.solution_from``). A CUDA tensor
+    launches the kernel, which draws the Brownian tree of the
+    ``PhiloxNormals`` source ``noise`` itself; a CPU tensor runs
+    ``persistent_vpsde_solve_plain``. Any batch size and number of saveat
+    times.
+    """
+    kw = dict(noise=noise, rtol=rtol, atol=atol, solver=solver, delta=delta,
+              saveat_arr=saveat_arr, max_steps=max_steps, beta_min=beta_min,
+              beta_max=beta_max, t1=t1, brownian_depth=brownian_depth)
+    if u0.device.type == "cpu":
+        return persistent_vpsde_solve_plain(params, chain, u0, tspan, **kw)
+    check_fp32_products(rtol, u0.device)
+    if solver not in SRI_SOLVERS:
+        raise ValueError(f"the SDE kernel runs {SRI_SOLVERS}, not {solver!r}")
+    if not isinstance(noise, PhiloxNormals):
+        raise ValueError(
+            "the SDE kernel draws its own Philox noise: a CUDA solve takes "
+            f"a PhiloxNormals source, not {type(noise).__name__}"
+        )
+    B, F = check_score_operands(params, chain, u0,
+                                "lrnde_vpsde_solve_smem_floats")
+    if noise.shape != (B, F):
+        raise ValueError(f"noise source of shape {noise.shape}, state {(B, F)}")
+    lib = _build.load_library()
+    t0, t_end = float(tspan[0]), float(tspan[1])
+    drift, _ = vpsde_dynamics(params, chain, beta_min, beta_max, t1)
+    dt_init = initial_dt(u0, drift(u0, t0), rtol, atol, t0, t_end)
+    sc = device_scalars([t0, t_end, dt_init], u0)
+    saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
+    n_save = saveat.shape[0]
+    dev = u0.device
+    n_blocks = -(-B // lib.lrnde_score_rows_per_block())
+    y_final = torch.empty_like(u0)
+    ys = torch.empty((n_save, B, F), device=dev)
+    stats_i = torch.empty(4, dtype=torch.int32, device=dev)
+    stats_f = torch.empty(2, device=dev)
+    unew = torch.empty_like(u0)
+    wz = torch.empty((2, 2, B, F), device=dev)
+    slots = torch.empty(2 * n_blocks, device=dev)
+    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    p = _build.ptr
+    err = lib.lrnde_vpsde_solve(
+        int(solver == "sosri"), p(u0), p(sc), p(saveat), n_save,
+        *score_operands(params, chain, beta_min, beta_max, t1), noise.seed,
+        int(brownian_depth), p(y_final), p(ys), p(stats_i), p(stats_f),
+        p(unew), p(wz[0]), p(wz[1]), p(slots), p(barrier), B, int(max_steps),
+        float(rtol), float(atol), float(delta), 1.0 / float(B * F),
+        _build.stream_ptr(dev),
+    )
+    _build.check(lib, err, "persistent_vpsde_solve")
+    persistent_vpsde_solve.launches += 1
+    return dict(
+        y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
+        natt=stats_i[3], success=stats_i[2].bool(), t_final=stats_f[0],
+        ts=saveat_arr,
+    )
+
+
+persistent_vpsde_solve.launches = 0

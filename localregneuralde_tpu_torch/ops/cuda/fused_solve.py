@@ -27,6 +27,12 @@ solve for the autonomous Dense chain of the latent ODE (the reference's
 ``persistent_chain_solve``, family ``("chain", dims, acts, lead)``), with
 the same recording and reservoir; its plain version is the eager loop with
 the plain chain (``chain_eval``).
+
+Kernel 6 (``persistent_pf_solve``, ``csrc/pf_solve.cu``) is the same solve
+for the probability-flow ODE of the score sampler, du/dτ = ½β(t)·(u +
+s_θ(u, t)) with t = t1 − τ (the reference's ``persistent_pf_solve``, family
+``("pfode", ...)``), without knots or reservoir; the score network is
+kernel 11's (``fused_sde_solve.match_td_score_chain``).
 """
 from __future__ import annotations
 
@@ -36,9 +42,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ...nn.basic import check_fp32_products
 from ...ode.controller import initial_step_size
 from ...ode.solve import (
     KNOT_FIELDS,
+    device_scalar,
     RESERVOIR_FIELDS,
     adaptive_loop,
     knot_counts,
@@ -95,6 +103,7 @@ def _plain_solve(f, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
                  step_fn=None, **record):
     """The eager loop from u0 with the dynamics ``f(u, t)`` (and a step
     replacement), in the persistent solves' return contract."""
+    check_fp32_products(rtol, u0.device)
     t0, t_end = float(tspan[0]), float(tspan[1])
     k1_0, dt_init, nfe0 = _start(f, u0, t0, t_end, rtol, atol)
     out = adaptive_loop(
@@ -137,6 +146,7 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
             w, u0, tspan, rtol=rtol, atol=atol, saveat_arr=saveat_arr,
             max_steps=max_steps, **rec,
         )
+    check_fp32_products(rtol, u0.device)
     B, F, H = check_operands(w, u0)
     t0, t_end = float(tspan[0]), float(tspan[1])
     k1_0, dt_init, nfe0 = _start(lambda u, t: fused_tdmlp(w, u, t), u0, t0,
@@ -315,9 +325,10 @@ def chain_param_sizes(chain: DenseChainSpec):
 
 
 @functools.lru_cache(maxsize=None)
-def _chain_smem_bytes(dims: tuple, query: str) -> int:
-    """A CTA's dynamic shared memory for the chain of widths ``dims``, from
-    the library's C size query ``query``; asked once per chain."""
+def smem_bytes(dims: tuple, query: str) -> int:
+    """A CTA's dynamic shared memory for the network of widths ``dims``
+    (the Dense chain's or the score chain's), from the library's C size
+    query ``query``; asked once per network."""
     lib = _build.load_library()
     L = len(dims) - 1
     arr = (ctypes.c_int * (L + 1))(*dims)
@@ -342,12 +353,24 @@ def chain_limits(chain: DenseChainSpec, n_save=None, *,
                     f"{CHAIN_MAX_SAVE}")
         queries.append("lrnde_chain_sweep_smem_floats")
     for q in queries if cuda else ():
-        need = _chain_smem_bytes(chain.dims, q)
+        need = smem_bytes(chain.dims, q)
         if not 0 < need <= CHAIN_SMEM_BYTES:
             return (f"chain {chain.dims}: needs {need} bytes of shared memory "
                     f"per CTA ({q}), the kernels take at most "
                     f"{CHAIN_SMEM_BYTES}")
     return None
+
+
+def check_tensors(named, state: torch.Tensor) -> None:
+    """Raise unless every ``(name, tensor, shape)`` of ``named`` is a
+    contiguous float32 tensor of that shape on ``state``'s device."""
+    for name, t, want in named:
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {want}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: needs contiguous float32")
+        if t.device != state.device:
+            raise ValueError(f"{name}: on {t.device}, state on {state.device}")
 
 
 def check_chain_operands(params, chain: DenseChainSpec, *states,
@@ -364,31 +387,30 @@ def check_chain_operands(params, chain: DenseChainSpec, *states,
     if len(params) != len(shapes):
         raise ValueError(f"{len(params)} parameters for a chain of "
                          f"{len(shapes) // 2} layers")
-    named = ([(f"param {i}", p, want)
-              for i, (p, want) in enumerate(zip(params, shapes))]
-             + [("state", s, (B, F)) for s in states])
-    for name, t, want in named:
-        if tuple(t.shape) != want:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {want}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: needs contiguous float32")
-        if t.device != states[0].device:
-            raise ValueError(f"{name}: on {t.device}, state on {states[0].device}")
+    check_tensors([(f"param {i}", p, want)
+                   for i, (p, want) in enumerate(zip(params, shapes))]
+                  + [("state", s, (B, F)) for s in states], states[0])
     if B < 1 or F != chain.dims[0]:
         raise ValueError(f"state {(B, F)} for a chain of width "
                          f"{chain.dims[0]}")
     return B, F
 
 
+def net_operands(params, dims, acts) -> tuple:
+    """The C operands of a layered network: the parameter pointer array
+    (W_0, b_0, W_1, ...), the dims array, L and the tanh bit mask."""
+    L = len(dims) - 1
+    dims_arr = (ctypes.c_int * (L + 1))(*dims)
+    wb = (ctypes.c_void_p * (2 * L))(*[p.data_ptr() for p in params])
+    mask = sum(1 << i for i, a in enumerate(acts) if a)
+    return (ctypes.cast(wb, ctypes.c_void_p),
+            ctypes.cast(dims_arr, ctypes.c_void_p), L, mask)
+
+
 def chain_operands(params, chain: DenseChainSpec):
-    """The chain's C operands (weight pointer array, dims array, L, acts
-    bit mask, lead); ``check_chain_operands`` has checked them."""
-    L = len(chain.dims) - 1
-    dims = (ctypes.c_int * (L + 1))(*chain.dims)
-    wb =(ctypes.c_void_p * (2 * L))(*[p.data_ptr() for p in params])
-    acts = sum(1 << i for i, a in enumerate(chain.acts) if a)
-    return (ctypes.cast(wb, ctypes.c_void_p), ctypes.cast(dims, ctypes.c_void_p),
-            L, acts, int(chain.lead))
+    """The chain's C operands (``net_operands`` and the lead flag);
+    ``check_chain_operands`` has checked them."""
+    return net_operands(params, chain.dims, chain.acts) + (int(chain.lead),)
 
 
 def persistent_chain_solve_plain(params, chain: DenseChainSpec, u0, tspan, *,
@@ -434,6 +456,7 @@ def persistent_chain_solve(params, chain: DenseChainSpec, u0: torch.Tensor,
             params, chain, u0, tspan, rtol=rtol, atol=atol,
             saveat_arr=saveat_arr, max_steps=max_steps, **rec,
         )
+    check_fp32_products(rtol, u0.device)
     B, F = check_chain_operands(params, chain, u0)
     lib = _build.load_library()
     chain_args = chain_operands(params, chain)
@@ -485,3 +508,95 @@ def persistent_chain_solve(params, chain: DenseChainSpec, u0: torch.Tensor,
 
 
 persistent_chain_solve.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: the probability-flow ODE of the score sampler
+
+
+def pf_dynamics(params, chain, beta_min, beta_max, t1):
+    """Kernel 6's dynamics on the τ clock, ``f(u, τ)``: with t = t1 − τ and
+    β = β_min + t·Δβ, ½β·(u + s_θ(u, t)) (the reference sampler's
+    −(−½β·(u + s)), rounded alike)."""
+    from .fused_sde_solve import td_score_eval_plain
+
+    d_beta = float(beta_max) - float(beta_min)
+
+    def f(u, tau):
+        t = float(t1) - device_scalar(tau, u)
+        b = float(beta_min) + t * d_beta
+        return (0.5 * b) * (u + td_score_eval_plain(params, chain, u, t))
+
+    return f
+
+
+def persistent_pf_solve_plain(params, chain, u0, tspan, *, rtol, atol,
+                              saveat_arr, max_steps, beta_min, beta_max, t1):
+    """The plain version of kernel 6: the eager loop of ``ode/solve.py``
+    with the plain score chain."""
+    return _plain_solve(
+        pf_dynamics(params, chain, beta_min, beta_max, t1), u0, tspan,
+        rtol=rtol, atol=atol, saveat_arr=saveat_arr, max_steps=max_steps,
+    )
+
+
+def persistent_pf_solve(params, chain, u0: torch.Tensor, tspan, *,
+                        rtol: float, atol: float, saveat_arr: torch.Tensor,
+                        max_steps: int, beta_min: float, beta_max: float,
+                        t1: float):
+    """Run the whole adaptive Tsit5 solve of the probability-flow ODE
+    (kernel 6).
+
+    ``params`` are the score chain's ``[W_0, b_0, ...]`` and ``chain`` its
+    ``fused_sde_solve.match_td_score_chain`` spec. The return dict of
+    ``persistent_tsit5_solve`` without knots or reservoir. As in the
+    reference, k1 and the Hairer probe run outside the kernel, so NFE =
+    1 + 1 + 6·attempts. A CUDA tensor launches the kernel; a CPU tensor runs
+    ``persistent_pf_solve_plain``. Any batch size and number of saveat
+    times.
+    """
+    from .fused_sde_solve import check_score_operands, score_operands
+
+    kw = dict(rtol=rtol, atol=atol, saveat_arr=saveat_arr,
+              max_steps=max_steps, beta_min=beta_min, beta_max=beta_max,
+              t1=t1)
+    if u0.device.type == "cpu":
+        return persistent_pf_solve_plain(params, chain, u0, tspan, **kw)
+    check_fp32_products(rtol, u0.device)
+    B, F = check_score_operands(params, chain, u0,
+                                "lrnde_pf_solve_smem_floats")
+    lib = _build.load_library()
+    t0, t_end = float(tspan[0]), float(tspan[1])
+    k1_0, dt_init, nfe0 = _start(
+        pf_dynamics(params, chain, beta_min, beta_max, t1), u0, t0, t_end,
+        rtol, atol)
+    sc = device_scalars([t0, t_end, dt_init], u0)
+    saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
+    n_save = saveat.shape[0]
+    n_blocks = -(-B // lib.lrnde_score_rows_per_block())
+    dev = u0.device
+    y_final = torch.empty_like(u0)
+    ys = torch.empty((n_save, B, F), dtype=torch.float32, device=dev)
+    stats_i = torch.empty(4, dtype=torch.int32, device=dev)
+    stats_f = torch.empty(2, dtype=torch.float32, device=dev)
+    scratch = torch.empty((8, B, F), dtype=torch.float32, device=dev)
+    slots = torch.empty(2 * n_blocks, dtype=torch.float32, device=dev)
+    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    p = _build.ptr
+    err = lib.lrnde_persistent_pf(
+        p(u0), p(k1_0), p(sc), p(saveat), n_save,
+        *score_operands(params, chain, beta_min, beta_max, t1),
+        p(y_final), p(ys), p(stats_i), p(stats_f), p(scratch), p(slots),
+        p(barrier), B, int(max_steps), float(rtol), float(atol),
+        1.0 / float(B * F), _build.stream_ptr(dev),
+    )
+    _build.check(lib, err, "persistent_pf_solve")
+    persistent_pf_solve.launches += 1
+    return dict(
+        y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
+        success=stats_i[2].bool(), nfe=nfe0 + 6 * stats_i[3],
+        t_final=stats_f[0], ts=saveat_arr,
+    )
+
+
+persistent_pf_solve.launches = 0

@@ -28,6 +28,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..nn.basic import check_fp32_products
 from ..ode.controller import PIController
 from ..ode.solve import device_scalar
 from ..ops.residuals import internal_norm
@@ -218,8 +219,12 @@ def sdesolve(
         sample of accepted step starts; None for no reservoir.
       persistent_fn: whole-solve replacement (the persistent CUDA solve)
         for ``adjoint='none'``; when given, the eager loop does not run.
+
+    On a CUDA tensor it raises below rtol 1e-4 while TF32 is on
+    (``nn.basic.check_fp32_products``).
     """
     check_solver(solver)
+    check_fp32_products(rtol, u0.device)
     if adjoint == "stored":
         from .stored_adjoint import stored_sdesolve
 

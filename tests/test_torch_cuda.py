@@ -440,3 +440,93 @@ def test_conv_step_bwd_matches_plain_on_card(cuda_device, shape):
     for a, b in zip([again[1], again[2], *again[0]],
                     [ours[1], ours[2], *ours[0]]):
         assert torch.equal(a, b)
+
+
+def _score_setup(device, batch, features=2, hidden=64, seed=0):
+    """The score demo's network (TDChain 2 -> 64 -> 64 -> 2, tanh, tanh,
+    identity) with Glorot weights and small biases, and a state batch."""
+    from localregneuralde_tpu_torch.nn import glorot_uniform
+    from localregneuralde_tpu_torch.ops.cuda import ScoreChainSpec
+
+    g = torch.Generator().manual_seed(seed)
+    dims = (features, hidden, hidden, features)
+    params = []
+    for i in range(3):
+        params += [glorot_uniform((dims[i] + 1, dims[i + 1]), g),
+                   0.1 * torch.randn(dims[i + 1], generator=g)]
+    chain = ScoreChainSpec(dims, (True, True, False),
+                           ("layer_0", "layer_1", "layer_2"))
+    x = torch.randn(batch, features, generator=g)
+    return [p.to(device) for p in params], chain, x.to(device)
+
+
+SCHEDULE = dict(beta_min=0.1, beta_max=20.0, t1=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["sri", "sosri"])
+def test_vpsde_solve_matches_plain_on_card(cuda_device, solver):
+    # kernel 11 against the eager loop on the same Philox path, B = 24 (not
+    # a multiple of 8: the reference would decline it): the same accepts
+    # and rejects, states within 1e-3 of their largest value (the
+    # Hölder-1/2 band of kernel 10, scaled by the reverse drift's growth),
+    # bitwise from run to run
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_vpsde_solve, persistent_vpsde_solve_plain,
+    )
+    from localregneuralde_tpu_torch.sde import PhiloxNormals
+
+    params, chain, x = _score_setup(cuda_device, 24)
+    kw = dict(noise=PhiloxNormals(7, 24, 2, device=cuda_device), rtol=1e-2,
+              atol=1e-2, solver=solver, delta=1 / 6, max_steps=4096,
+              saveat_arr=torch.tensor([0.5, 0.999], device=cuda_device),
+              **SCHEDULE)
+    out = persistent_vpsde_solve(params, chain, x, (0.0, 0.999), **kw)
+    ref = persistent_vpsde_solve_plain(params, chain, x, (0.0, 0.999), **kw)
+    assert bool(out["success"]) and bool(ref["success"])
+    assert int(out["naccept"]) == int(ref["naccept"])
+    assert int(out["nreject"]) == int(ref["nreject"])
+    assert _rel(out["ys"], ref["ys"]) <= 1e-3
+    again = persistent_vpsde_solve(params, chain, x, (0.0, 0.999), **kw)
+    assert torch.equal(out["ys"], again["ys"])
+
+
+@pytest.mark.cuda
+def test_pf_solve_matches_plain_on_card(cuda_device):
+    # kernel 6 against the eager loop: within one accept and 5e-5 of the
+    # largest value (tests/test_vpsde_kernel.py:193-198), bitwise from run
+    # to run
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_pf_solve, persistent_pf_solve_plain,
+    )
+
+    params, chain, x = _score_setup(cuda_device, 24)
+    kw = dict(rtol=1e-4, atol=1e-6, max_steps=512,
+              saveat_arr=torch.tensor([0.5, 0.999], device=cuda_device),
+              **SCHEDULE)
+    out = persistent_pf_solve(params, chain, x, (0.0, 0.999), **kw)
+    ref = persistent_pf_solve_plain(params, chain, x, (0.0, 0.999), **kw)
+    assert bool(out["success"]) and bool(ref["success"])
+    assert abs(int(out["naccept"]) - int(ref["naccept"])) <= 1
+    assert _rel(out["ys"], ref["ys"]) <= 5e-5
+    again = persistent_pf_solve(params, chain, x, (0.0, 0.999), **kw)
+    assert torch.equal(out["ys"], again["ys"])
+    assert int(out["nfe"]) == int(again["nfe"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 5, 7, 16, 24), (4, 32, 32, 64, 64)])
+def test_conv_orient_matches_plain_on_card(cuda_device, shape):
+    # kernel 15's two layouts against cuDNN in FP32: 1e-5 of the largest
+    # value (FP32 sums in another order)
+    from localregneuralde_tpu_torch.ops.cuda import (
+        conv_orient_im2col, conv_orient_plain, conv_orient_tap,
+    )
+
+    b, h, w, cin, cout = shape
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(b, h, w, cin, generator=g).to(cuda_device)
+    wt = (0.05 * torch.randn(3, 3, cin, cout, generator=g)).to(cuda_device)
+    ref = conv_orient_plain(x, wt)
+    assert _rel(conv_orient_tap(x, wt), ref) <= 1e-5
+    assert _rel(conv_orient_im2col(x, wt), ref) <= 1e-5

@@ -176,6 +176,13 @@ def test_unported_paths_raise():
             construct_model(cfg, device="cpu")
     with pytest.raises(ValueError):
         NeuralODE(Dense(4, 4), use_pallas="on")
+    # nor the score sampler's other SDE solvers
+    from localregneuralde_tpu_torch.models import sample_vpsde
+
+    for solver in ("milstein", "euler_heun"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sample_vpsde(lambda u, t, p: -u, (4, 2), torch.Generator(),
+                         solver=solver, device="cpu")
 
 
 def test_kernel_dispatch():
@@ -186,3 +193,32 @@ def test_kernel_dispatch():
                      use_pallas=True).uses_kernels(x)
     # a dynamics the kernels do not cover never dispatches to them
     assert NeuralODE(Dense(4, 4)).use_pallas == "off"
+
+
+def test_tf32_guard_below_rtol_1e4():
+    """The solves refuse TF32 products below rtol 1e-4 on a CUDA device,
+    whichever of PyTorch's two flags turned them on; the CPU and looser
+    tolerances are not affected."""
+    from localregneuralde_tpu_torch.nn import check_fp32_products
+
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f in flags:
+            for g, v in zip(flags, saved):
+                g.allow_tf32 = False
+            f.allow_tf32 = True
+            with pytest.raises(RuntimeError, match="allow_tf32"):
+                check_fp32_products(1.4e-8, torch.device("cuda"))
+            check_fp32_products(1e-4, "cuda")
+            check_fp32_products(1.4e-8, "cpu")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        check_fp32_products(1.4e-8, "cuda")
+        torch.set_float32_matmul_precision("high")
+        with pytest.raises(RuntimeError, match="matmul.allow_tf32"):
+            check_fp32_products(1e-5, "cuda")
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
