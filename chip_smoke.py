@@ -71,8 +71,24 @@ on the card:
     ``sample_probability_flow`` (one kernel launch per draw, nothing else),
     with ms, samples/s and NFE, and a batch of 256 against the CPU;
 16. holds kernel 15, the conv-orientation probe's tap and im2col layouts,
-    against cuDNN in FP32 at (32, 32, 32, 64) and times both beside kernel
-    13's implicit GEMM and cuDNN.
+    against cuDNN in FP32 at (32, 32, 32, 64) and times both beside the conv
+    GEMM core's forward and cuDNN.
+
+Beside those: each persistent kernel's outputs (kernels 4 at both
+tolerances, 5, 6, 8, 9, 10 and 11) are hashed with SHA-256 and held
+against ``DIGESTS``, the digests of the kernels before their redesign for
+the H100, so a kernel change that keeps them is bitwise the old kernel;
+kernels 13 and 14 are split by kernel with ``torch.profiler``; the conv GEMM
+core of kernels 13 and 14 is timed alone in each orientation (forward, data
+and weight gradient at N = 64 and N = 8) in TFLOP/s beside cuDNN in FP32
+(``[conv core]``, a ``{"conv_core": [...]}`` line); and kernel 11's
+attempt is split into its phases by an instantiation with a compile-time
+clock (``[vpsde attribution]``).
+
+``--only=PART[,PART...]`` runs the kernel checks, digests and timings of
+some parts (``PARTS``: kernels, backward, sde, chain, conv, conv_core,
+score, attribution, orient) without the model paths, and prints neither the
+kernels line nor the ok line.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
 kernel, the latent encoder's share of the latent train step, and the CIFAR
@@ -87,6 +103,7 @@ failed check exits non-zero without that line, as does a machine without a
 CUDA device.
 """
 import functools
+import hashlib
 import json
 import os
 import statistics
@@ -210,6 +227,91 @@ def max_abs(a, b):
     return float((a - b).abs().max())
 
 
+def kernel_split(label, fn, n=5, top=12):
+    """Device time per call of ``fn`` by CUDA kernel, from torch.profiler
+    over n calls: the attribution of a launch sequence (kernels 13, 14) to
+    its kernels. Prints the largest ``top`` and returns {name: ms}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    print(f"[split {label}] device {total:.4f} ms per call over "
+          f"{sum(r[2] for r in rows):.0f} kernel launches")
+    for key, ms, cnt in rows[:top]:
+        print(f"[split {label}]   {1e3 * ms:9.2f} µs  x{cnt:5.1f}  {key[:100]}")
+    return {key: ms for key, ms, _ in rows}
+
+
+# SHA-256 of each persistent kernel's outputs at the main-path shapes (the
+# inputs are made from fixed seeds), taken on the kernels before their
+# redesign for the H100 (NVIDIA H100 80GB HBM3, 700 W): a kernel change
+# that keeps a digest keeps every output bit and every accept and reject
+# count.
+DIGESTS = {
+    "K4 mlp.yaml":
+        "e44871cbccc65b5feb83750178380cfcdbac0317ef585369813d08c465a56029",
+    "K4 bench":
+        "bf789bca4fd75e5bb07066515e9102d61196f8c56f8ac982546b2e01727976bc",
+    "K8 mlp.yaml":
+        "8d41103cabd5e1f5c0626599added5546d1ed992789c9bc0749bcefc49e0c8ca",
+    "K10":
+        "72b959a34b87650bad4b784b84c7b5dbc53c37bf70d70403fc4b2963c6fe830c",
+    "K5 rtol 1e-4":
+        "b249d5250be740ccd0e62939cbf00b89a5e82fe59c661153dbd9e3e0670eda1d",
+    "K5 physionet.yaml":
+        "2189bcf02c57a002c6ee4ddde4b2d4aec3794f97c1c66d9f7f70e8ac56d71572",
+    "K5 eval":
+        "7e135b5a96a83cca479a4a88b33c6e359ca0d245fa7aa83b813637bf25416142",
+    "K9":
+        "2d7d66925a1ab1accc4a4c344a2eeeeee3b18d5244bee80452b77aa192827eed",
+    "K11":
+        "345c6f0924ead73e5b152bc7c59d5dac3a1b527399e1b971c14fd44dbc51b404",
+    "K6":
+        "ee519b3048e636d24150dae433d8436a65634d560e3cf8e544b4aff49d16c6f6",
+}
+SEEN_DIGESTS = {}
+DIGEST_KEYS = ("y_final", "ys", "naccept", "nreject", "natt")
+
+
+def digest(name, *values):
+    """Hash the tensors (bytes, dtype, shape) and integers ``values`` (a
+    solve's dict contributes its ``DIGEST_KEYS``), print the digest, and
+    fail if it differs from ``DIGESTS[name]``."""
+    import torch
+
+    h = hashlib.sha256()
+    for v in values:
+        if isinstance(v, dict):
+            vs = [v[k] for k in DIGEST_KEYS if k in v]
+        else:
+            vs = [v]
+        for x in vs:
+            if isinstance(x, torch.Tensor):
+                x = x.detach().contiguous().cpu()
+                h.update(f"{x.dtype}{tuple(x.shape)}".encode())
+                h.update(x.numpy().tobytes())
+            else:
+                h.update(repr(int(x)).encode())
+    got = h.hexdigest()
+    SEEN_DIGESTS[name] = got
+    want = DIGESTS.get(name)
+    tag = "" if want is None else (" = the stored digest" if want == got
+                                   else f" != the stored {want}")
+    print(f"[digest {name}] {got}{tag}")
+    check(want is None or want == got, f"digest {name} changed")
+
+
 def phase_build():
     from localregneuralde_tpu_torch.ops.cuda import _build
 
@@ -285,6 +387,7 @@ def phase_kernels(device):
         kw = dict(rtol=tol, atol=tol, saveat_arr=saveat,
                   max_steps=64 if overrides else 10000)
         out = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw)
+        digest(f"K4 {name}", out)
         ref = persistent_tsit5_solve_plain(w, x, (0.0, 1.0), **kw)
         err = max_abs(out["ys"], ref["ys"])
         na, nb = int(out["naccept"]), int(ref["naccept"])
@@ -620,6 +723,7 @@ def phase_backward_kernels(device, w, x):
         *sweep_args(rec), *ckpt_args(rec), **tl, dense_cap=8,
         return_replay=True)
     check(n > 8, "the mlp.yaml solve is too short to force the replay")
+    digest("K8 mlp.yaml", *flat(win), replay[:n + 1])
     check(torch.equal(replay[:n + 1], rec["knot_us"][:n + 1]),
           "the replay does not repeat the forward bitwise")
     rel = max(rel_err(a, b) for a, b in zip(flat(win), flat(dense)))
@@ -913,6 +1017,7 @@ def phase_sde_kernels(device, ode_w, ode_x):
     # bitwise equal, the normals differ by the tails' logf, and the step
     # times by the error norm's summation order
     out = persistent_sde_solve(w, u0, (0.0, 1.0), **kw)
+    digest("K10", out)
     ref = persistent_sde_solve_plain(w, u0, (0.0, 1.0), **kw)
     na, nb = int(out["naccept"]), int(ref["naccept"])
     ta, tb = int(out["natt"]), int(ref["natt"])
@@ -1331,6 +1436,7 @@ def phase_chain_kernels(device):
     for name, tol in (("rtol 1e-4", 1e-4), ("physionet.yaml", LATENT_TOL)):
         kw = dict(rtol=tol, atol=tol, saveat_arr=saveat, max_steps=10000)
         out = persistent_chain_solve(params, chain, u0, (0.0, 1.0), **kw)
+        digest(f"K5 {name}", out)
         ref = persistent_chain_solve_plain(params, chain, u0, (0.0, 1.0), **kw)
         na, nb = int(out["naccept"]), int(ref["naccept"])
         fa, fb = int(out["nfe"]), int(ref["nfe"])
@@ -1362,6 +1468,7 @@ def phase_chain_kernels(device):
     u_ev = latents(test, test[0].shape[0])
     kw_ev = dict(kw, saveat_arr=torch.from_numpy(tgrid).to(device))
     out_ev = persistent_chain_solve(params, chain, u_ev, (0.0, 1.0), **kw_ev)
+    digest("K5 eval", out_ev)
     ref_ev = persistent_chain_solve_plain(params, chain, u_ev, (0.0, 1.0),
                                           **kw_ev)
     na_ev, nb_ev = int(out_ev["naccept"]), int(ref_ev["naccept"])
@@ -1426,6 +1533,7 @@ def phase_chain_kernels(device):
     win, replay = persistent_chain_sweep(*args, two_level_ctx=dict(
         ctx, dense_cap=8), return_replay=True)
     m = min(n, stride)
+    digest("K9", *flat(win), replay[:m + 1])
     check(torch.equal(replay[:m + 1], rec["knot_us"][:m + 1]),
           "the chain replay does not repeat the forward bitwise")
     rel_w = max(rel_err(p, q) for p, q in zip(flat(win), flat(dense)))
@@ -1844,6 +1952,8 @@ def phase_conv_kernels(device):
                        scr14, spec.eps, B_, H_, W_, Cs, Ch)
     check(raw13() == 0 and raw14() == 0, "conv kernels: raw launch failed")
     ms13, ms14 = back_to_back_ms([raw13, raw14], n=20, warmup=3)
+    kernel_split("fused_conv_step", raw13)
+    kernel_split("fused_conv_step_bwd", raw14)
     call13, call14 = median_ms(
         [lambda: fused_conv_step(w, spec, u, t, dt, k1, training=True,
                                  rstats=rstats),
@@ -2189,6 +2299,33 @@ def score_flops(dims, b):
                        for i in range(len(dims) - 1))
 
 
+def _vpsde_raw_args(ps, chain, u0, span, saveat, sched, noise):
+    """Kernel 11's C operands (SOSRI at SCORE_TOL) with the wrapper's first
+    drift evaluation and dt heuristic run here, once. Returns the argument
+    list (without the stream), the grid barrier and the y_final buffer."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import _build
+    from localregneuralde_tpu_torch.ops.cuda import fused_sde_solve as fs
+
+    B, F = u0.shape
+    t0, te = span
+    n_blocks = -(-B // _build.load_library().lrnde_score_rows_per_block())
+    new = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
+        shape, dtype=dtype, device=u0.device)
+    drift, _ = fs.vpsde_dynamics(ps, chain, **sched)
+    dt = fs.initial_dt(u0, drift(u0, t0), SCORE_TOL, SCORE_TOL, t0, te)
+    bar = torch.zeros(1, dtype=torch.int32, device=u0.device)
+    y = new(B, F)
+    wz = new(2, 2, B, F)
+    args = [1, u0, fs.device_scalars([t0, te, dt], u0), saveat, 1,
+            *fs.score_operands(ps, chain, **sched), noise.seed, 24, y,
+            new(1, B, F), new(4, dtype=torch.int32), new(2), new(B, F), wz[0],
+            wz[1], new(2 * n_blocks), bar, B, SCORE_MAX_STEPS, SCORE_TOL,
+            SCORE_TOL, 1 / 6, 1.0 / (B * F)]
+    return args, bar, y
+
+
 def _score_raw(ps, chain, u0, span, saveat, sched, noise):
     """Raw launches of kernels 11 (SOSRI at SCORE_TOL) and 6 (rtol 1e-4,
     atol 1e-6) with the wrappers' operands built once: the first
@@ -2204,30 +2341,166 @@ def _score_raw(ps, chain, u0, span, saveat, sched, noise):
     B, F = u0.shape
     t0, te = span
     n_blocks = -(-B // _build.load_library().lrnde_score_rows_per_block())
-    ops = fs.score_operands(ps, chain, **sched)
     new = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
         shape, dtype=dtype, device=u0.device)
-    outs = [new(B, F), new(B, F)]
-    drift, _ = fs.vpsde_dynamics(ps, chain, **sched)
-    dt = fs.initial_dt(u0, drift(u0, t0), SCORE_TOL, SCORE_TOL, t0, te)
-    bar11 = torch.zeros(1, dtype=torch.int32, device=u0.device)
-    wz = new(2, 2, B, F)
-    k11 = raw_launch(
-        "lrnde_vpsde_solve", 1, u0, fs.device_scalars([t0, te, dt], u0),
-        saveat, 1, *ops, noise.seed, 24, outs[0], new(1, B, F),
-        new(4, dtype=torch.int32), new(2), new(B, F), wz[0], wz[1],
-        new(2 * n_blocks), bar11, B, SCORE_MAX_STEPS, SCORE_TOL, SCORE_TOL,
-        1 / 6, 1.0 / (B * F))
+    args11, bar11, y11 = _vpsde_raw_args(ps, chain, u0, span, saveat, sched,
+                                         noise)
+    k11 = raw_launch("lrnde_vpsde_solve", *args11)
     k1, dt, _ = fo._start(fo.pf_dynamics(ps, chain, **sched), u0, t0, te,
                           1e-4, 1e-6)
     bar6 = torch.zeros(1, dtype=torch.int32, device=u0.device)
+    y6 = new(B, F)
     k6 = raw_launch(
         "lrnde_persistent_pf", u0, k1, fs.device_scalars([t0, te, dt], u0),
-        saveat, 1, *ops, outs[1], new(1, B, F), new(4, dtype=torch.int32),
-        new(2), new(8, B, F), new(2 * n_blocks), bar6, B, SCORE_MAX_STEPS,
-        1e-4, 1e-6, 1.0 / (B * F))
+        saveat, 1, *fs.score_operands(ps, chain, **sched), y6, new(1, B, F),
+        new(4, dtype=torch.int32), new(2), new(8, B, F), new(2 * n_blocks),
+        bar6, B, SCORE_MAX_STEPS, 1e-4, 1e-6, 1.0 / (B * F))
     return ((lambda: (bar11.zero_(), k11())[1]),
-            (lambda: (bar6.zero_(), k6())[1])), outs
+            (lambda: (bar6.zero_(), k6())[1])), (y11, y6)
+
+
+# sde_solve.cu::SdePhase, in order
+SDE_PHASES = ("descent", "stage 1", "stage 2", "stage 3", "stage 4",
+              "slot store", "barrier wait", "slot sum", "commit", "plan")
+
+
+def phase_vpsde_attribution(device, runs=3):
+    """Kernel 11's time per attempt by phase: the instantiation with the
+    compile-time clock (lrnde_vpsde_solve_timed, launched only here) on the
+    score demo's draw of phase_score_kernels, CTA 0's %globaltimer summed
+    over the attempts. Its result must be bitwise the untimed kernel's."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        _build, match_td_score_chain, persistent_vpsde_solve,
+        score_chain_params,
+    )
+    from localregneuralde_tpu_torch.sde import PhiloxNormals
+
+    lib = _build.load_library()
+    check(lib.lrnde_sde_phases() == len(SDE_PHASES),
+          "the kernel's phases are not SDE_PHASES")
+    net = _score_net(device)
+    chain = match_td_score_chain(net)
+    ps = [p.detach() for p in score_chain_params(net, chain)]
+    u0 = torch.randn((SCORE_B, SCORE_F),
+                     generator=torch.Generator().manual_seed(0)).to(device)
+    span = (0.0, 1.0 - 1e-3)
+    saveat = torch.tensor([span[1]], device=device)
+    sched = dict(beta_min=0.1, beta_max=20.0, t1=1.0)
+    noise = PhiloxNormals(1234, SCORE_B, SCORE_F, device=device)
+    ref = persistent_vpsde_solve(
+        ps, chain, u0, span, noise=noise, rtol=SCORE_TOL, atol=SCORE_TOL,
+        solver="sosri", delta=1 / 6, saveat_arr=saveat,
+        max_steps=SCORE_MAX_STEPS, **sched)
+    args, bar, y = _vpsde_raw_args(ps, chain, u0, span, saveat, sched, noise)
+    timing = torch.zeros(len(SDE_PHASES) + 1, dtype=torch.int64, device=device)
+    timed = raw_launch("lrnde_vpsde_solve_timed", *args, timing)
+    totals = torch.zeros(len(SDE_PHASES) + 1, dtype=torch.float64)
+    for i in range(runs + 1):
+        bar.zero_()
+        check(timed() == 0, "vpsde attribution: launch failed")
+        torch.cuda.synchronize()
+        if i > 0:  # the first launch warms up
+            totals += timing.cpu().double()
+    check(torch.equal(y, ref["y_final"]),
+          "vpsde attribution: the timed kernel's result differs")
+    natt = int(timing[-1])
+    check(natt == int(ref["natt"]), "vpsde attribution: attempt count differs")
+    per = (totals[:-1] / totals[-1] / 1e3).tolist()
+    split = {name: round(us, 3) for name, us in zip(SDE_PHASES, per)}
+    print(f"[vpsde attribution] {natt} attempts, CTA 0, µs per attempt "
+          f"(mean of {runs} launches): {split}; sum {sum(per):.3f}")
+    return split
+
+
+def phase_conv_core(device):
+    """The conv GEMM core of kernels 13 and 14 alone, one orientation at a
+    time at the CIFAR shapes (B = 32, 32x32): forward, data gradient and
+    weight gradient at N = 64 and N = 8, against cuDNN in FP32 on the same
+    conv (timed as the yardstick, never called by the port). Returns one
+    entry per orientation."""
+    import torch
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from localregneuralde_tpu_torch.ops.cuda import _build
+
+    lib = _build.load_library()
+    b, h, w = 32, 32, 32
+    M = b * h * w
+    g = torch.Generator().manual_seed(3)
+    rows = []
+    # (name, orient, cin, cout): the K14 GEMMs at cnn.yaml's width (Ch 64,
+    # Cs 8): conv2 and conv3 forward, conv2 and conv1 data gradients, conv2
+    # and conv3 weight gradients
+    cases = (("forward N=64", 0, 64, 64), ("forward N=8", 0, 64, 8),
+             ("data grad N=64", 1, 64, 64), ("data grad N=8", 1, 64, 8),
+             ("weight grad N=64", 2, 64, 64), ("weight grad N=8", 2, 64, 8))
+    sc = torch.tensor([0.37, 0.0], device=device)
+    for name, orient, cin, cout in cases:
+        x = torch.randn(b, h, w, cin, generator=g).to(device)
+        nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+        if orient == 0:
+            wt = (0.05 * torch.randn(3, 3, cin, cout, generator=g)).to(device)
+            w_l = wt.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+            lib_fn = lambda: torch.nn.functional.conv2d(  # noqa: E731
+                nchw(x), w_l, padding=1)
+            out = torch.empty(b, h, w, cout, device=device)
+            ref = lib_fn().permute(0, 2, 3, 1)
+            flops = 2 * M * 9 * cin * cout
+            ops = (x, wt)
+        elif orient == 1:
+            # the layer maps cout (+ time) channels to cin; x is its output
+            # cotangent
+            wt = (0.05 * torch.randn(3, 3, cout + 1, cin, generator=g)).to(
+                device)
+            w_l = wt[:, :, :cout].permute(3, 0, 1, 2).contiguous().permute(
+                0, 3, 1, 2)
+            lib_fn = lambda: conv2d_input(  # noqa: E731
+                (b, cout, h, w), w_l, nchw(x), padding=1)
+            out = torch.empty(b, h, w, cout, device=device)
+            ref = lib_fn().permute(0, 2, 3, 1)
+            flops = 2 * M * 9 * cin * cout
+            ops = (x, wt)
+        else:
+            dy = torch.randn(b, h, w, cout, generator=g).to(device)
+            x1 = torch.cat([x, torch.full((b, h, w, 1), float(sc[0]),
+                                          device=device)], dim=-1)
+            lib_fn = lambda: conv2d_weight(  # noqa: E731
+                nchw(x1), (cout, cin + 1, 3, 3), nchw(dy), padding=1)
+            out = torch.empty(3, 3, cin + 1, cout, device=device)
+            ref = lib_fn().permute(2, 3, 1, 0)
+            flops = 2 * M * 9 * (cin + 1) * cout
+            ops = (x, dy)
+        scratch = torch.empty(
+            lib.lrnde_conv_core_scratch_floats(orient, b, h, w, cin, cout),
+            device=device)
+        raw = raw_launch("lrnde_conv_core", orient, *ops, sc, out, scratch, b,
+                         h, w, cin, cout)
+        check(raw() == 0, f"conv core {name}: launch failed")
+        scale = float(ref.abs().max())
+        err = max_abs(out, ref)
+        check(err <= 1e-4 * scale, f"conv core {name} vs cuDNN FP32: {err} "
+              f"of {scale}")
+        again = out.clone()
+        check(raw() == 0 and torch.equal(out, again),
+              f"conv core {name} is not bitwise repeatable")
+        with torch.no_grad():
+            ms, lib_ms = back_to_back_ms([raw, lib_fn], n=50, warmup=5)
+        nbytes = 4 * (sum(t.numel() for t in ops) + out.numel())
+        row = dict(name=name, cin=cin, cout=cout, ms=ms,
+                   tflops=flops / ms / 1e9, library_ms=lib_ms,
+                   library_tflops=flops / lib_ms / 1e9,
+                   max_abs_err=err, **{k: v for k, v in bound(
+                       flops, nbytes).items() if k != "library_ms"})
+        print(f"[conv core] {name} (Cin {cin}, Cout {cout}): "
+              f"{1e3 * ms:.2f} µs, {row['tflops']:.2f} TFLOP/s | cuDNN FP32 "
+              f"{1e3 * lib_ms:.2f} µs, {row['library_tflops']:.2f} TFLOP/s | "
+              f"bound {1e3 * row['bound_ms']:.2f} µs | max-abs {err:.2e} of "
+              f"{scale:.2e}, bitwise repeatable")
+        rows.append(row)
+    print(json.dumps({"conv_core": rows}))
+    return rows
 
 
 def phase_score_kernels(device):
@@ -2260,6 +2533,7 @@ def phase_score_kernels(device):
               rtol=SCORE_TOL, atol=SCORE_TOL, solver="sosri", delta=1 / 6,
               saveat_arr=saveat, max_steps=SCORE_MAX_STEPS, **sched)
     out = persistent_vpsde_solve(ps, chain, u0, span, **kw)
+    digest("K11", out)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = persistent_vpsde_solve_plain(ps, chain, u0, span, **kw)
@@ -2306,6 +2580,7 @@ def phase_score_kernels(device):
     pkw = dict(rtol=1e-4, atol=1e-6, saveat_arr=saveat,
                max_steps=SCORE_MAX_STEPS, **sched)
     out = persistent_pf_solve(ps, chain, u0, span, **pkw)
+    digest("K6", out)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = persistent_pf_solve_plain(ps, chain, u0, span, **pkw)
@@ -2480,15 +2755,15 @@ def phase_conv_orient(device):
     out = torch.empty_like(ref)
     raws = [raw_launch(entry, x, wt, out, b, h, w, c, c)
             for entry in ("lrnde_conv_orient_tap", "lrnde_conv_orient_im2col")]
-    raws.append(raw_launch("lrnde_conv3x3_gemm", x, wt, sc, out, b, h, w, c,
-                           c))
+    raws.append(raw_launch("lrnde_conv_core", 0, x, wt, sc, out,
+                           torch.empty(1, device=device), b, h, w, c, c))
     check(all(r() == 0 for r in raws), "conv orient: raw launch failed")
-    check(max_abs(out, ref) <= 1e-5 * scale, "conv3x3_kernel vs cuDNN")
+    check(max_abs(out, ref) <= 1e-5 * scale, "conv core forward vs cuDNN")
     with torch.no_grad():
         times = back_to_back_ms(raws + [lambda: conv_orient_plain(x, wt)],
                                 n=50, warmup=5)
     flops = 2 * b * h * w * 9 * c * c
-    for name, ms in zip(("tap", "im2col", "conv3x3_kernel<128,64> (K13)",
+    for name, ms in zip(("tap", "im2col", "conv core forward (K13, K14)",
                          "cuDNN FP32"), times):
         print(f"[conv orient] {name}: {1e3 * ms:.2f} µs per conv, "
               f"{flops / (ms / 1e3) / 1e12:.2f} TFLOP/s")
@@ -2503,6 +2778,41 @@ def phase_conv_orient(device):
     return res, counts
 
 
+PARTS = ("kernels", "backward", "sde", "chain", "conv", "conv_core",
+         "score", "attribution", "orient")
+
+
+def partial_run(device, parts):
+    """``--only=PART[,PART...]``: the kernel checks, digests and timings of
+    the named parts of PARTS, without the model paths; prints no kernels
+    line and no ok line."""
+    bad = set(parts) - set(PARTS)
+    check(not bad, f"--only: unknown parts {bad}, expected some of {PARTS}")
+    w = x = None
+    if {"kernels", "backward", "sde"} & set(parts):
+        w, x, _ = phase_kernels(device)
+        phase_determinism(w, x)
+    if "backward" in parts:
+        phase_backward_kernels(device, w, x)
+    if "sde" in parts:
+        phase_sde_kernels(device, w, x)
+    if "chain" in parts:
+        phase_chain_kernels(device)
+    if "conv" in parts:
+        phase_conv_kernels(device)
+    if "conv_core" in parts:
+        phase_conv_core(device)
+    if "score" in parts:
+        phase_score_kernels(device)
+    if "attribution" in parts:
+        phase_vpsde_attribution(device)
+    if "orient" in parts:
+        phase_conv_orient(device)
+    print(json.dumps({"digests": SEEN_DIGESTS}))
+    print(f"chip_smoke: partial run of {parts}, every check passed")
+    return 0
+
+
 def main():
     import torch
 
@@ -2514,8 +2824,12 @@ def main():
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     profile = "--profile" in sys.argv[1:]
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:]
+            if a.startswith("--only=")]
 
     phase_build()
+    if only:
+        return partial_run(device, only[0])
     w, x, res = phase_kernels(device)
     phase_determinism(w, x)
     path_counts = [phase_slice(device)]
@@ -2528,8 +2842,10 @@ def main():
     res.update(phase_chain_kernels(device))
     path_counts.append(phase_latent(device, profile=profile))
     res.update(phase_conv_kernels(device))
+    phase_conv_core(device)
     path_counts.append(phase_cifar(device, profile=profile))
     res.update(phase_score_kernels(device))
+    phase_vpsde_attribution(device)
     path_counts.append(phase_score_sampling(device))
     orient, orient_counts = phase_conv_orient(device)
     res.update(orient)
@@ -2545,6 +2861,9 @@ def main():
     counts = {k: sum(c[k] for c in path_counts) for k in path_counts[0]}
     check(all(v > 0 for v in counts.values()),
           f"a kernel was never launched on the main paths: {counts}")
+    check(set(DIGESTS) <= set(SEEN_DIGESTS),
+          f"digests never taken: {set(DIGESTS) - set(SEEN_DIGESTS)}")
+    print(json.dumps({"digests": SEEN_DIGESTS}))
 
     sources = {
         "tdmlp": ("localregneuralde_tpu_torch/csrc/tdmlp.cu",

@@ -18,9 +18,9 @@
 // Work split: one CTA of Threads threads owns Rows batch rows. The chain is
 // narrow (the PhysioNet config: 8 layers alternating 20 -> 40 -> 20, 26 KB of
 // weights), so every CTA copies all weights into shared memory once per
-// launch, and an evaluation is L dependent layer passes, one thread per (row,
-// output unit), each a short FP32 FFMA sum over the layer's input from shared
-// memory. What bounds it on an H100 is that serial chain: one attempt is 6·L
+// launch, and an evaluation is L dependent layer passes, one thread per
+// (output unit, group of rows), each a short FP32 FFMA sum over the layer's
+// input from shared memory (a weight loaded once serves the thread's rows). What bounds it on an H100 is that serial chain: one attempt is 6·L
 // dependent layer passes with a __syncthreads between them, plus the grid
 // barrier; the FLOPs (13 kFLOP per row and evaluation at the PhysioNet
 // widths) are negligible. Small row blocks give many CTAs (B = 512: 128
@@ -63,19 +63,22 @@ struct DenseChainT {
 
 using DenseChain = DenseChainT<kChainRows, kChainThreads, false>;
 
-// Row stride of the activation buffers: the widest layer rounded up to an
-// odd count of floats, so the rows a warp reads in a narrow layer fall in
-// different shared-memory banks (the score chain's 2-wide last layer reads
-// 8 rows at once, which at a stride of 64 would share one bank).
+// Row stride of the activation buffers: the smallest count of floats at
+// least the widest layer that is 4 modulo 8. A multiple of 4 keeps every
+// row 16-byte aligned for chain_forward's float4 reads along a row; 4
+// modulo 8 puts rows r = 0..7 at banks 4r (mod 32), so the rows a warp
+// reads at once in a narrow layer never share a bank (the score chain's
+// 2-wide last layer reads 8 rows, which at a stride of 64 would share one).
 template <int R, int T, bool TR>
 __host__ __device__ inline int chain_stride(const DenseChainT<R, T, TR>& w) {
-  return w.maxw | 1;
+  return ((w.maxw + 3) / 8) * 8 + 4;
 }
+
 
 // Floats of the shared memory of a forward CTA (persistent.cuh).
 template <int R, int T, bool TR>
 __host__ __device__ inline size_t shared_floats(const DenseChainT<R, T, TR>& w) {
-  return static_cast<size_t>(w.n_params) + static_cast<size_t>(w.F) * R
+  return round_up4(w.n_params) + round_up4(static_cast<size_t>(w.F) * R)
        + 2 * static_cast<size_t>(R) * chain_stride(w) + T;
 }
 
@@ -84,8 +87,8 @@ __device__ inline ChainSmem carve_shared(const DenseChainT<R, T, TR>& w,
                                          float* raw) {
   ChainSmem s;
   s.w = raw;
-  s.xs = s.w + w.n_params;
-  s.act = s.xs + static_cast<size_t>(w.F) * R;
+  s.xs = s.w + round_up4(w.n_params);
+  s.act = s.xs + round_up4(static_cast<size_t>(w.F) * R);
   s.red = s.act + 2 * R * chain_stride(w);
   return s;
 }
@@ -115,13 +118,23 @@ __device__ inline float* chain_act(const DenseChainT<R, T, TR>& w, float* buf,
 // stage input x, x(r, c) at x[r·rs + c·cs]: a_0 from x, then the L layers;
 // the last writes rows [0, nrows) of out (row-major, stride F). The
 // activations a_0..a_L go to `acts` (keep = true: (L + 1) x [rows][stride],
-// for the backward) or to the two ping-pong buffers there. The caller
-// synchronises before x is loaded and after this returns.
+// for the backward) or to the two ping-pong buffers there; `acts` is
+// 16-byte aligned. The caller synchronises before x is loaded and after
+// this returns.
+//
+// A layer pass: when the CTA has fewer threads than rows x outputs (G =
+// T / d_out row groups, fewer than the rows), thread (g, o) computes output
+// o for the rows g, g + G, ..., so each weight W_l[k, o] it loads serves
+// several rows, and it reads each row's inputs four at a time (one float4);
+// otherwise one thread takes one (row, output). Every output is the sum of
+// kChainAcc interleaved accumulators over k, added as (0+1)+(2+3), whatever
+// the mapping, so both give the same bits.
 template <int R, int T, bool TR>
 __device__ inline void chain_forward(const DenseChainT<R, T, TR>& w,
                                      const float* W, const float* x, int rs,
                                      int cs, float t, float* acts, bool keep,
                                      float* out, int nrows) {
+  static_assert(kChainAcc == 4, "a float4 of inputs per accumulator round");
   const int F = w.F, M = chain_stride(w);
   float* a0 = chain_act(w, acts, 0, keep);
   for (int i = threadIdx.x; i < R * F; i += T) {
@@ -138,22 +151,63 @@ __device__ inline void chain_forward(const DenseChainT<R, T, TR>& w,
     float* aout = chain_act(w, acts, l + 1, keep);
     const bool tanh_l = (w.acts >> l) & 1u;
     const bool last = l == w.L - 1;
-    for (int i = threadIdx.x; i < R * dout; i += T) {
-      const int r = i / dout, o = i - r * dout;
-      const float* xr = ain + r * M;
-      float acc[kChainAcc] = {0.f, 0.f, 0.f, 0.f};
+    const int G = dout < T ? T / dout : 1;
+    if (G >= R) {
+      // one (row, output) per thread: nothing to share between rows
+      for (int i = threadIdx.x; i < R * dout; i += T) {
+        const int r = i / dout, o = i - r * dout;
+        const float* xr = ain + r * M;
+        float acc[kChainAcc] = {0.f, 0.f, 0.f, 0.f};
+        for (int k = 0; k < din; k += kChainAcc) {
+#pragma unroll
+          for (int q = 0; q < kChainAcc; ++q)
+            if (k + q < din) acc[q] = fmaf(xr[k + q], Wl[(k + q) * dout + o], acc[q]);
+        }
+        float z = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        // the time term, rounded as the plain version rounds it
+        if constexpr (TR) z = __fadd_rn(z, __fmul_rn(t, Wl[din * dout + o]));
+        z = z + bl[o];
+        if (tanh_l) z = tanhf(z);
+        aout[r * M + o] = z;
+        if (last && r < nrows) out[r * F + o] = z;
+      }
+      __syncthreads();
+      continue;
+    }
+    for (int it = threadIdx.x; it < G * dout; it += T) {
+      const int g = it / dout, o = it - g * dout;
+      float acc[R][kChainAcc];
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int q = 0; q < kChainAcc; ++q) acc[j][q] = 0.f;
       for (int k = 0; k < din; k += kChainAcc) {
+        float wk[kChainAcc];
 #pragma unroll
         for (int q = 0; q < kChainAcc; ++q)
-          if (k + q < din) acc[q] = fmaf(xr[k + q], Wl[(k + q) * dout + o], acc[q]);
+          wk[q] = k + q < din ? Wl[(k + q) * dout + o] : 0.f;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int r = g + j * G;
+          if (r >= R) break;
+          const float4 xv = *reinterpret_cast<const float4*>(ain + r * M + k);
+          const float xq[kChainAcc] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+          for (int q = 0; q < kChainAcc; ++q)
+            if (k + q < din) acc[j][q] = fmaf(xq[q], wk[q], acc[j][q]);
+        }
       }
-      float z = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-      // the time term, rounded as the plain version rounds it
-      if constexpr (TR) z = __fadd_rn(z, __fmul_rn(t, Wl[din * dout + o]));
-      z = z + bl[o];
-      if (tanh_l) z = tanhf(z);
-      aout[r * M + o] = z;
-      if (last && r < nrows) out[r * F + o] = z;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int r = g + j * G;
+        if (r >= R) break;
+        float z = (acc[j][0] + acc[j][1]) + (acc[j][2] + acc[j][3]);
+        if constexpr (TR) z = __fadd_rn(z, __fmul_rn(t, Wl[din * dout + o]));
+        z = z + bl[o];
+        if (tanh_l) z = tanhf(z);
+        aout[r * M + o] = z;
+        if (last && r < nrows) out[r * F + o] = z;
+      }
     }
     __syncthreads();
   }

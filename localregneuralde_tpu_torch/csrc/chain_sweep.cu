@@ -89,7 +89,7 @@ struct ChainBwdSmem {
 __host__ __device__ inline size_t chain_bwd_smem_floats(const DenseChain& w) {
   const size_t RM = static_cast<size_t>(kChainRows) * chain_stride(w);
   const size_t RF = static_cast<size_t>(kChainRows) * w.F;
-  return shared_floats(w) + w.n_params + 6 * (w.L + 1) * RM + 6 * w.L * RM
+  return shared_floats(w) + round_up4(w.n_params) + 6 * (w.L + 1) * RM + 6 * w.L * RM
        + 15 * RF + 2 * RM + 8 * kChainMaxSave;
 }
 
@@ -100,7 +100,7 @@ __device__ inline ChainBwdSmem carve_chain_bwd(const DenseChain& w,
   ChainBwdSmem s;
   s.base = carve_shared(w, raw);
   s.g = raw + shared_floats(w);
-  s.keep = s.g + w.n_params;
+  s.keep = s.g + round_up4(w.n_params);
   s.dz = s.keep + 6 * (w.L + 1) * RM;
   s.ks = s.dz + 6 * w.L * RM;
   s.dks = s.ks + 7 * RF;

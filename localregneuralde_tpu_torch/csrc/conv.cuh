@@ -14,44 +14,38 @@
 //
 // Design, against the TPU kernel:
 // - The TPU kept (C, B*H*W) channels-first for VMEM lanes and built each conv
-//   from nine (roll, mask, matmul) taps. Here a conv is one implicit GEMM:
-//   M = B*H*W output pixels, K = 9*Cin (tap-major, then input channel, the
-//   contiguous axis of NHWC), N = Cout. A CTA owns a BM x BN output tile; the
-//   A tile is gathered from the shifted pixels with the border mask computed
-//   from the pixel index (zero outside the image), the B tile from the HWIO
-//   weight. The data gradient is the same GEMM over the output cotangent with
-//   the taps flipped and the weight's channel axes swapped (read in place).
+//   from nine (roll, mask, matmul) taps. Here a conv is one implicit GEMM
+//   over NHWC (conv_core.cuh): forward, data gradient and weight gradient
+//   in tap-major K, with cp.async stages and register micro-tiles.
 // - The time channel is concat-free: conv(concat(x, s)) = conv(x, W[:, :, :C])
 //   + s * tmap with tmap[h, w, :] the sum of the time taps that fall inside
 //   the image at (h, w), computed once per call (time_map_kernel).
-// - BatchNorm-apply plus gelu(tanh) of the previous layer is applied to the A
-//   tile as it is loaded (zero padding stays zero: it pads the activation).
+// - BatchNorm-apply plus gelu(tanh) of a layer is written once per
+//   evaluation into a plain activation buffer (bn_act_kernel), which the next
+//   conv gathers (zero padding stays zero: it pads the activation).
 // - Batch statistics are two passes, as the reference's (mean, then the mean
 //   of squared deviations). Each pass writes per-block partials into fixed
 //   slots; the last block to finish (an integer ticket) sums them in block
 //   order. No float atomics, so a step is bitwise repeatable.
-// - Every product is FP32 FFMA from shared-memory tiles; TF32, wgmma and TMA
-//   are later work.
+// - Every product is FP32 FFMA; TF32, wgmma and TMA are later work.
 //
 // What bounds it on an H100: the products. One dynamics evaluation at
 // B = 32, 32x32, Cs 8, Ch 64 is 2*32768*(72*64 + 576*64 + 576*8) = 3.02 GFLOP
 // and moves ~30 MB (the activations stay in the 50 MB L2), so the step's
-// 18 GFLOP bound it at ~0.27 ms at 67 TFLOP/s; a plain FFMA tile GEMM reaches
-// a fraction of that.
+// 18 GFLOP bound it at ~0.27 ms at 67 TFLOP/s.
 #pragma once
 
+#include "conv_core.cuh"
 #include "tsit5_bwd.cuh"
 
 namespace lrnde {
 namespace conv {
 
-constexpr int kMaxC = 256;        // channels a BatchNorm transform holds
+constexpr int kMaxC = 256;         // the most channels the kernels take
 constexpr int kStatThreads = 256;  // 8 row lanes x 32 channel lanes
 constexpr int kStatRows = 256;     // rows per block of a statistics pass
 constexpr int kEw = 256;           // threads of the elementwise kernels
 constexpr int kTickets = 64;       // ticket counters carved from the scratch
-constexpr int kWgradBlocks = 264;  // weight-gradient blocks to aim for (2 per SM)
-constexpr int kSplitRows = 256;    // fewest pixels of a weight-gradient split
 
 constexpr float kGeluA = 0.7978845608028654f;  // sqrt(2 / pi)
 constexpr float kGeluB = 0.044715f;
@@ -67,170 +61,9 @@ __device__ inline float gelu_tanh_grad(float x) {
   return 0.5f * (1.f + th) + 0.5f * x * (1.f - th * th) * d_inner;
 }
 
-// gelu(BN(.)) of one channel: mean == nullptr means the identity
-struct BnIn {
-  const float* mean;
-  const float* var;
-  const float* gamma;
-  const float* beta;
-  float eps;
-};
-
 // Stage times of the six evaluations: s_e = t + c_e * dt
 __host__ __device__ inline float stage_c(int e) {
   return e == 0 ? C1 : e == 1 ? C2 : e == 2 ? C3 : e == 3 ? C4 : 1.f;
-}
-
-static inline int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
-
-// Output tiles of a weight gradient (9 (cin + 1) x cout): 256 x 8 for a thin
-// output, else 64 x 64 (launch_wgrad).
-static inline int wgrad_tiles(int cin, int cout) {
-  const int K = 9 * (cin + 1);
-  return cout <= 8 ? cdiv(K, 256) * cdiv(cout, 8) : cdiv(K, 64) * cdiv(cout, 64);
-}
-
-// Splits of the pixel axis for a weight gradient: enough blocks to fill the
-// card, each over at least kSplitRows pixels.
-static inline int wgrad_splits(int M, int cin, int cout) {
-  const int want = cdiv(kWgradBlocks, wgrad_tiles(cin, cout));
-  const int cap = M / kSplitRows < 1 ? 1 : M / kSplitRows;
-  return want < cap ? want : cap;
-}
-
-// ---------------------------------------------------------------------------
-// The convolution as an implicit GEMM
-
-struct ConvArgs {
-  const float* in;    // (M, cin), NHWC
-  int cin;
-  const float* w;     // HWIO (3, 3, w_cin, w_cout)
-  int w_cin, w_cout;
-  int dgrad;          // 0: out = conv(in, W[:, :, :cin, :]); 1: the data
-                      //    gradient, in = the cotangent (cin = w_cout),
-                      //    cout = w_cin - 1, taps flipped, channels swapped
-  int cout;
-  const float* tmap;  // (H*W, cout), added as s * tmap; may be null
-  const float* sc;    // (t, dt) on the device
-  float c;            // s = t + c * dt
-  BnIn bn;            // transform of the input as it is loaded
-  float* out;         // (M, cout)
-  int B, H, W;
-};
-
-template <int BM, int BN, int TM, int TN, int BK>
-static __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-conv3x3_kernel(ConvArgs a) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int NA = BM * BK / NT;  // A elements a thread loads per chunk
-  static_assert(NT % BK == 0 && (BM * BK) % NT == 0, "A-tile mapping");
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN];
-  __shared__ float bnm[kMaxC], bni[kMaxC], bng[kMaxC], bnb[kMaxC];
-  const int tid = threadIdx.x;
-  const int H = a.H, W = a.W, HW = H * W, M = a.B * HW;
-  const int cin = a.cin, K = 9 * cin;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const bool bn = a.bn.mean != nullptr;
-  if (bn) {
-    for (int c = tid; c < cin; c += NT) {
-      bnm[c] = a.bn.mean[c];
-      bni[c] = rsqrtf(a.bn.var[c] + a.bn.eps);
-      bng[c] = a.bn.gamma[c];
-      bnb[c] = a.bn.beta[c];
-    }
-  }
-  // this thread's A-tile column (fixed) and pixels (fixed across chunks)
-  const int kk_a = tid % BK;
-  int pix[NA], hw_h[NA], hw_w[NA];
-#pragma unroll
-  for (int i = 0; i < NA; ++i) {
-    const int p = m0 + tid / BK + i * (NT / BK);
-    pix[i] = p < M ? p : -1;
-    const int r = p % HW;
-    hw_h[i] = r / W;
-    hw_w[i] = r - (r / W) * W;
-  }
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  __syncthreads();
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    {  // A: shifted input pixels, masked at the border
-      const int k = k0 + kk_a;
-      const int tap = k / cin, ci = k - tap * cin;
-      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-#pragma unroll
-      for (int i = 0; i < NA; ++i) {
-        float v = 0.f;
-        const int hs = hw_h[i] + dy, ws = hw_w[i] + dx;
-        if (k < K && pix[i] >= 0 && hs >= 0 && hs < H && ws >= 0 && ws < W) {
-          v = a.in[static_cast<size_t>(pix[i] + dy * W + dx) * cin + ci];
-          if (bn) v = gelu_tanh(((v - bnm[ci]) * bni[ci]) * bng[ci] + bnb[ci]);
-        }
-        As[kk_a][tid / BK + i * (NT / BK)] = v;
-      }
-    }
-    // B: the weight, read in place
-    for (int e = tid; e < BK * BN; e += NT) {
-      const int kk = e / BN, n = e - kk * BN;
-      const int k = k0 + kk, co = n0 + n;
-      float v = 0.f;
-      if (k < K && co < a.cout) {
-        const int tap = k / cin, ci = k - tap * cin;
-        v = a.dgrad == 0
-                ? a.w[(static_cast<size_t>(tap) * a.w_cin + ci) * a.w_cout + co]
-                : a.w[(static_cast<size_t>(8 - tap) * a.w_cin + co) * a.w_cout + ci];
-      }
-      Bs[kk][n] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  const float s = a.sc[0] + a.c * a.sc[1];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int p = m0 + ty * TM + i;
-    if (p >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int co = n0 + tx * TN + j;
-      if (co >= a.cout) continue;
-      float v = acc[i][j];
-      if (a.tmap != nullptr) v = v + s * a.tmap[static_cast<size_t>(p % HW) * a.cout + co];
-      a.out[static_cast<size_t>(p) * a.cout + co] = v;
-    }
-  }
-}
-
-static inline cudaError_t launch_conv(const ConvArgs& a, cudaStream_t st) {
-  const int M = a.B * a.H * a.W;
-  if (a.cin > kMaxC) return cudaErrorInvalidValue;
-  if (a.cout <= 8) {
-    const dim3 grid(cdiv(M, 128), cdiv(a.cout, 8));
-    conv3x3_kernel<128, 8, 4, 2, 16><<<grid, 128, 0, st>>>(a);
-  } else {
-    const dim3 grid(cdiv(M, 128), cdiv(a.cout, 64));
-    conv3x3_kernel<128, 64, 8, 4, 16><<<grid, 256, 0, st>>>(a);
-  }
-  return cudaGetLastError();
 }
 
 // tmap[h, w, co] = sum over the taps inside the image at (h, w) of the time
@@ -326,6 +159,29 @@ static __global__ void bn_ema_kernel(const float* __restrict__ stats,
   }
 }
 
+// act = gelu(BN(z)) of one layer, elementwise over (M, C), written once
+// per evaluation for the next conv to gather (and the weight gradient).
+static __global__ void bn_act_kernel(const float* __restrict__ z,
+                                     const float* __restrict__ mean,
+                                     const float* __restrict__ var,
+                                     const float* __restrict__ gamma,
+                                     const float* __restrict__ beta, float eps,
+                                     size_t n, int C, float* __restrict__ act) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int c = static_cast<int>(i % C);
+  act[i] = gelu_tanh(((z[i] - mean[c]) * rsqrtf(var[c] + eps)) * gamma[c] + beta[c]);
+}
+
+static inline cudaError_t bn_act(const float* z, const float* mean,
+                                 const float* var, const float* gamma,
+                                 const float* beta, float eps, int M, int C,
+                                 float* act, cudaStream_t st) {
+  const size_t n = static_cast<size_t>(M) * C;
+  bn_act_kernel<<<cdiv(n, kEw), kEw, 0, st>>>(z, mean, var, gamma, beta, eps, n, C, act);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // Stage algebra (elementwise over the M*Cs state)
 
@@ -386,6 +242,8 @@ struct StepArgs {
   float* z1;                 // pre-BN conv outputs, stride z_stride
   float* z2;
   size_t z_stride;
+  float* act;                // gelu(BN(z)) of layer 1, then 2, of evaluation e
+  size_t act_stride;         //   at act + (2 e + layer) * act_stride
   float* tmap;               // H*W*(2 Ch + Cs)
   float* stats;              // 6 x (mean1, var1, mean2, var2) x Ch
   float* part;               // statistics partials: cdiv(M, kStatRows) x Ch
@@ -445,8 +303,8 @@ static inline cudaError_t forward_step(const StepArgs& a, cudaStream_t st) {
     stage_kernel<<<cdiv(n, kEw), kEw, 0, st>>>(a.u, ks, a.sc, e, x, a.g6, a.unew, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-    ConvArgs c1{x, a.Cs, a.w1, a.Cs + 1, Ch, 0, Ch, tmap_of(a, 0), a.sc, c,
-                BnIn{nullptr, nullptr, nullptr, nullptr, 0.f}, z1, a.B, a.H, a.W};
+    ConvArgs c1{x, a.Cs, a.w1, a.Cs + 1, Ch, tmap_of(a, 0), a.sc, c, z1,
+                a.B, a.H, a.W};
     if ((err = launch_conv(c1, st)) != cudaSuccess) return err;
     const float *m1 = se, *v1 = se + Ch;
     if (a.mode == kEvalRunning) {
@@ -456,8 +314,12 @@ static inline cudaError_t forward_step(const StepArgs& a, cudaStream_t st) {
       return err;
     }
 
-    ConvArgs c2{z1, Ch, a.w2, Ch + 1, Ch, 0, Ch, tmap_of(a, 1), a.sc, c,
-                BnIn{m1, v1, a.g1, a.b1, a.eps}, z2, a.B, a.H, a.W};
+    float* act1 = a.act + 2 * e * a.act_stride;
+    float* act2 = act1 + a.act_stride;
+    if ((err = bn_act(z1, m1, v1, a.g1, a.b1, a.eps, M, Ch, act1, st)) != cudaSuccess)
+      return err;
+    ConvArgs c2{act1, Ch, a.w2, Ch + 1, Ch, tmap_of(a, 1), a.sc, c, z2, a.B,
+                a.H, a.W};
     if ((err = launch_conv(c2, st)) != cudaSuccess) return err;
     const float *m2 = se + 2 * Ch, *v2 = se + 3 * Ch;
     if (a.mode == kEvalRunning) {
@@ -468,8 +330,10 @@ static inline cudaError_t forward_step(const StepArgs& a, cudaStream_t st) {
       return err;
     }
 
-    ConvArgs c3{z2, Ch, a.w3, Ch + 1, a.Cs, 0, a.Cs, tmap_of(a, 2), a.sc, c,
-                BnIn{m2, v2, a.g2, a.b2, a.eps}, a.k[e], a.B, a.H, a.W};
+    if ((err = bn_act(z2, m2, v2, a.g2, a.b2, a.eps, M, Ch, act2, st)) != cudaSuccess)
+      return err;
+    ConvArgs c3{act2, Ch, a.w3, Ch + 1, a.Cs, tmap_of(a, 2), a.sc, c, a.k[e],
+                a.B, a.H, a.W};
     if ((err = launch_conv(c3, st)) != cudaSuccess) return err;
   }
   if (a.utilde != nullptr) {

@@ -5,8 +5,8 @@
 // Replaces scripts/conv_orient_probe.py::conv_pallas_tap (:93, _tap_kernel)
 // and ::conv_pallas_im2col (:120, _im2col_kernel). The TPU probe asked
 // whether the batch-first flat layout suits the MXU; here the same two
-// layouts are timed beside K13's implicit GEMM (conv.cuh::conv3x3_kernel,
-// also exported below) and cuDNN, to ask whether the CIFAR conv kernels'
+// layouts are timed beside the conv GEMM core of K13 and K14
+// (conv_core.cuh, exported as conv_step_bwd.cu::lrnde_conv_core) and cuDNN, to ask whether the CIFAR conv kernels'
 // distance from their bound is a layout or a tiling problem.
 //
 // - tap: nine shifted (M, Cin) @ (Cin, Cout) products. Each product reads
@@ -226,19 +226,4 @@ extern "C" int lrnde_conv_orient_im2col(const float* x, const float* w,
   kernel<<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(
       x, w, out, B, H, W, cin, cout);
   return cudaGetLastError();
-}
-
-// K13's implicit GEMM alone (conv.cuh::launch_conv: conv3x3_kernel<128, 64>
-// for cout > 8) on the same function, without the time channel or a
-// BatchNorm transform; sc is any two device floats (the GEMM reads the
-// stage time from it). The probe's yardstick, on no path. Returns
-// cudaGetLastError().
-extern "C" int lrnde_conv3x3_gemm(const float* x, const float* w,
-                                  const float* sc, float* out, int B, int H,
-                                  int W, int cin, int cout, void* stream) {
-  using namespace lrnde::conv;
-  const ConvArgs a{x, cin, w, cin, cout, 0, cout, nullptr, sc, 0.f,
-                   BnIn{nullptr, nullptr, nullptr, nullptr, 0.f}, out, B, H,
-                   W};
-  return launch_conv(a, static_cast<cudaStream_t>(stream));
 }

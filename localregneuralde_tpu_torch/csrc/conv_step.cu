@@ -25,12 +25,33 @@
 namespace lrnde {
 namespace conv {
 
-// Floats of the forward scratch: x, z1, z2, the time maps, the statistics,
-// their partials, then the tickets.
-static inline size_t fwd_scratch_floats(int B, int H, int W, int Cs, int Ch) {
+// The forward scratch: x, z1, z2, the activation, the time maps, the
+// statistics, their partials, then the tickets, each 16-byte aligned.
+struct FwdLayout {
+  float *x, *z1, *z2, *act, *tmap, *stats, *part;
+  unsigned* tickets;
+  size_t total;
+};
+
+static inline FwdLayout fwd_layout(float* base, int B, int H, int W, int Cs, int Ch) {
   const size_t M = static_cast<size_t>(B) * H * W, HW = static_cast<size_t>(H) * W;
-  return M * Cs + 2 * M * Ch + HW * (2 * Ch + Cs) + 24 * static_cast<size_t>(Ch) +
-         static_cast<size_t>(cdiv(M, kStatRows)) * Ch + kTickets;
+  FwdLayout l{};
+  size_t o = 0;
+  auto take = [&](size_t n) {
+    float* q = base == nullptr ? nullptr : base + o;
+    o += round_up4(n);
+    return q;
+  };
+  l.x = take(M * Cs);
+  l.z1 = take(M * Ch);
+  l.z2 = take(M * Ch);
+  l.act = take(M * Ch);
+  l.tmap = take(HW * (2 * Ch + Cs));
+  l.stats = take(24 * static_cast<size_t>(Ch));
+  l.part = take(static_cast<size_t>(cdiv(M, kStatRows)) * Ch);
+  l.tickets = reinterpret_cast<unsigned*>(take(kTickets));
+  l.total = o;
+  return l;
 }
 
 }  // namespace conv
@@ -38,7 +59,8 @@ static inline size_t fwd_scratch_floats(int B, int H, int W, int Cs, int Ch) {
 
 extern "C" long long lrnde_conv_step_scratch_floats(int B, int H, int W, int Cs,
                                                     int Ch) {
-  return static_cast<long long>(lrnde::conv::fwd_scratch_floats(B, H, W, Cs, Ch));
+  return static_cast<long long>(
+      lrnde::conv::fwd_layout(nullptr, B, H, W, Cs, Ch).total);
 }
 
 // One Tsit5 step from (u, t) with step dt and FSAL derivative k1, NHWC
@@ -56,7 +78,7 @@ extern "C" int lrnde_conv_step(
   using namespace lrnde::conv;
   if (Cs > kMaxC || Ch > kMaxC || mode < 0 || mode > 2) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t M = static_cast<size_t>(B) * H * W, HW = static_cast<size_t>(H) * W;
+  const FwdLayout l = fwd_layout(scratch, B, H, W, Cs, Ch);
   StepArgs a{};
   a.u = u;
   a.k1 = k1;
@@ -73,22 +95,17 @@ extern "C" int lrnde_conv_step(
   a.unew = unew;
   a.utilde = utilde;
   a.g6 = g6;
-  float* p = scratch;
-  a.x = p;
+  a.x = l.x;
   a.x_stride = 0;
-  p += M * Cs;
-  a.z1 = p;
-  p += M * Ch;
-  a.z2 = p;
-  p += M * Ch;
+  a.z1 = l.z1;
+  a.z2 = l.z2;
   a.z_stride = 0;
-  a.tmap = p;
-  p += HW * (2 * Ch + Cs);
-  a.stats = p;
-  p += 24 * static_cast<size_t>(Ch);
-  a.part = p;
-  p += static_cast<size_t>(cdiv(M, kStatRows)) * Ch;
-  a.tickets = reinterpret_cast<unsigned*>(p);
+  a.act = l.act;
+  a.act_stride = 0;
+  a.tmap = l.tmap;
+  a.stats = l.stats;
+  a.part = l.part;
+  a.tickets = l.tickets;
   cudaError_t err = cudaMemsetAsync(a.tickets, 0, kTickets * sizeof(unsigned), st);
   if (err != cudaSuccess) return err;
   a.mode = mode;

@@ -8,16 +8,20 @@
 // carry the stage-chain cotangents as kernel 3 does (tsit5_bwd.cuh). The
 // TPU recomputed each evaluation's activations a second time right before
 // its transpose to fit VMEM; here the forward pass keeps every evaluation's
-// stage input and pre-BN conv outputs in global scratch (12 x 8 MB at the
-// CIFAR shapes), so the step is recomputed once.
+// stage input, pre-BN conv outputs and activations in global scratch
+// (24 x 8 MB at the CIFAR shapes), so the step is recomputed once.
 //
-// Per evaluation and conv, with dy the output cotangent:
-// - dgrad: conv3x3_kernel over dy with the taps flipped and the weight's
-//   channel axes swapped (read in place);
+// Per evaluation and conv, with dy the output cotangent, on the conv GEMM
+// core (conv_core.cuh):
+// - dgrad: the forward GEMM over dy with the weight's taps flipped and its
+//   channel axes swapped, copied once per call (transpose_w);
 // - wgrad: dW[tap, ci, co] = sum_p src[p + d_tap, ci] dy[p, co] over the
 //   pixels whose source lies in the image, the time channel (ci = Cin, value
-//   s) included, so the gradient comes out in the HWIO layout. Each block
-//   owns a (K tile, N tile, pixel split) and adds its sums into its own
+//   s) included, so the gradient comes out in the HWIO layout; src is the
+//   plain activation gelu(BN(z)), written once per evaluation by the
+//   forward (bn_act) and kept, 12 x M x Ch floats (96 MB at the CIFAR
+//   shapes) beside the 12 pre-BN outputs the BatchNorm backward needs. Each
+//   block owns a (K tile, N tile, pixel split) and adds its sums into its own
 //   partial slot; the six evaluations accumulate there, and one pass sums the
 //   splits in order at the end;
 // - BatchNorm backward on the batch statistics: with dg = da * gelu'(g),
@@ -35,140 +39,25 @@ namespace lrnde {
 namespace conv {
 
 // ---------------------------------------------------------------------------
-// Weight gradient
-
-struct WgradArgs {
-  const float* src;  // the conv's input (M, cin); the time channel is added
-  int cin;
-  BnIn bn;           // gelu(BN(.)) of src as it is loaded, or the identity
-  const float* sc;
-  float c;           // s = t + c * dt, the time channel's value
-  const float* dy;   // (M, cout)
-  int cout;
-  float* part;       // [split][9 (cin + 1)][cout], accumulated
-  int rows_per_split;
-  int B, H, W;
-};
-
-template <int BKO, int BNO, int TK, int TN, int BMS>
-static __global__ void __launch_bounds__((BKO / TK) * (BNO / TN))
-wgrad_kernel(WgradArgs a) {
-  constexpr int NT = (BKO / TK) * (BNO / TN);
-  constexpr int NA = BMS * BKO / NT;
-  static_assert(NT % BKO == 0 && (BMS * BKO) % NT == 0, "A-tile mapping");
-  __shared__ float As[BMS][BKO];
-  __shared__ float Bs[BMS][BNO];
-  __shared__ float bnm[kMaxC], bni[kMaxC], bng[kMaxC], bnb[kMaxC];
-  const int tid = threadIdx.x;
-  const int H = a.H, W = a.W, HW = H * W, M = a.B * HW;
-  const int cin = a.cin, cin1 = cin + 1, K = 9 * cin1;
-  const int k0 = blockIdx.x * BKO, n0 = blockIdx.y * BNO;
-  const int p_begin = blockIdx.z * a.rows_per_split;
-  const int p_end = min(M, p_begin + a.rows_per_split);
-  const bool bn = a.bn.mean != nullptr;
-  if (bn) {
-    for (int c = tid; c < cin; c += NT) {
-      bnm[c] = a.bn.mean[c];
-      bni[c] = rsqrtf(a.bn.var[c] + a.bn.eps);
-      bng[c] = a.bn.gamma[c];
-      bnb[c] = a.bn.beta[c];
-    }
-  }
-  const float s = a.sc[0] + a.c * a.sc[1];
-  // this thread's A column: a fixed (tap, input channel)
-  const int kk_a = tid % BKO, k = k0 + kk_a;
-  const int tap = k / cin1, ci = k - tap * cin1;
-  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-  float acc[TK][TN];
-#pragma unroll
-  for (int i = 0; i < TK; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  const int tn = tid % (BNO / TN), tk = tid / (BNO / TN);
-  __syncthreads();
-
-  for (int p0 = p_begin; p0 < p_end; p0 += BMS) {
-#pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      const int m = tid / BKO + i * (NT / BKO);
-      const int p = p0 + m;
-      float v = 0.f;
-      if (k < K && p < p_end) {
-        const int r = p % HW, h = r / W, x = r - (r / W) * W;
-        const int hs = h + dy, ws = x + dx;
-        if (hs >= 0 && hs < H && ws >= 0 && ws < W) {
-          if (ci == cin) {
-            v = s;
-          } else {
-            v = a.src[static_cast<size_t>(p + dy * W + dx) * cin + ci];
-            if (bn) v = gelu_tanh(((v - bnm[ci]) * bni[ci]) * bng[ci] + bnb[ci]);
-          }
-        }
-      }
-      As[m][kk_a] = v;
-    }
-    for (int e = tid; e < BMS * BNO; e += NT) {
-      const int m = e / BNO, n = e - m * BNO;
-      const int p = p0 + m, co = n0 + n;
-      Bs[m][n] = (p < p_end && co < a.cout) ? a.dy[static_cast<size_t>(p) * a.cout + co] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < BMS; ++m) {
-      float av[TK], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TK; ++i) av[i] = As[m][tk * TK + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[m][tn * TN + j];
-#pragma unroll
-      for (int i = 0; i < TK; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* part = a.part + static_cast<size_t>(blockIdx.z) * K * a.cout;
-#pragma unroll
-  for (int i = 0; i < TK; ++i) {
-    const int kr = k0 + tk * TK + i;
-    if (kr >= K) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int co = n0 + tn * TN + j;
-      if (co < a.cout) part[static_cast<size_t>(kr) * a.cout + co] += acc[i][j];
-    }
-  }
-}
-
-static inline cudaError_t launch_wgrad(const WgradArgs& a, int splits, cudaStream_t st) {
-  const int K = 9 * (a.cin + 1);
-  if (a.cin > kMaxC) return cudaErrorInvalidValue;
-  if (a.cout <= 8) {
-    const dim3 grid(cdiv(K, 256), cdiv(a.cout, 8), splits);
-    wgrad_kernel<256, 8, 4, 2, 16><<<grid, 256, 0, st>>>(a);
-  } else {
-    const dim3 grid(cdiv(K, 64), cdiv(a.cout, 64), splits);
-    wgrad_kernel<64, 64, 4, 4, 16><<<grid, 256, 0, st>>>(a);
-  }
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // BatchNorm backward on batch statistics
+
+constexpr int kBwdLanes = 32;                // row lanes of the reduction
+constexpr int kBwdThreads = kBwdLanes * 32;  // x 32 channel lanes
 
 // S1[c] = sum dg, S2[c] = sum dg * xhat over the M rows, with
 // xhat = (z - mean) / sqrt(var + eps), g = xhat gamma + beta and
 // dg = da * gelu'(g). Per-block sums go to part[block][2][C]; the last block
 // sums them in block order into sums (2, C) and adds S2 to dgamma, S1 to
 // dbeta.
-static __global__ void __launch_bounds__(kStatThreads)
+
+static __global__ void __launch_bounds__(kBwdThreads)
 bn_bwd_reduce_kernel(const float* __restrict__ da, const float* __restrict__ z,
                      const float* __restrict__ mean, const float* __restrict__ var,
                      const float* __restrict__ gamma, const float* __restrict__ beta,
                      float eps, int M, int C, float* part, unsigned* ticket,
                      float* __restrict__ sums, float* __restrict__ dgamma,
                      float* __restrict__ dbeta) {
-  __shared__ float red1[8][32], red2[8][32];
+  __shared__ float red1[kBwdLanes][32], red2[kBwdLanes][32];
   __shared__ bool last;
   const int tid = threadIdx.x, lane = tid & 31, rl = tid >> 5;
   const int r0 = blockIdx.x * kStatRows, r1 = min(r0 + kStatRows, M);
@@ -177,7 +66,7 @@ bn_bwd_reduce_kernel(const float* __restrict__ da, const float* __restrict__ z,
     float a1 = 0.f, a2 = 0.f;
     if (c < C) {
       const float mu = mean[c], inv = rsqrtf(var[c] + eps), g = gamma[c], b = beta[c];
-      for (int r = r0 + rl; r < r1; r += 8) {
+      for (int r = r0 + rl; r < r1; r += kBwdLanes) {
         const size_t o = static_cast<size_t>(r) * C + c;
         const float xh = (z[o] - mu) * inv;
         const float dg = da[o] * gelu_tanh_grad(xh * g + b);
@@ -190,7 +79,7 @@ bn_bwd_reduce_kernel(const float* __restrict__ da, const float* __restrict__ z,
     __syncthreads();
     if (rl == 0 && c < C) {
       float s1 = red1[0][lane], s2 = red2[0][lane];
-      for (int i = 1; i < 8; ++i) {
+      for (int i = 1; i < kBwdLanes; ++i) {
         s1 += red1[i][lane];
         s2 += red2[i][lane];
       }
@@ -205,7 +94,7 @@ bn_bwd_reduce_kernel(const float* __restrict__ da, const float* __restrict__ z,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (int c = tid; c < C; c += kStatThreads) {
+  for (int c = tid; c < C; c += kBwdThreads) {
     float s1 = 0.f, s2 = 0.f;
     for (int b = 0; b < static_cast<int>(gridDim.x); ++b) {
       s1 += __ldcg(part + (static_cast<size_t>(b) * 2) * C + c);
@@ -273,8 +162,8 @@ static __global__ void stage_bwd_kernel(const float* __restrict__ dx,
 }
 
 struct BwdLayout {
-  float *ks, *dks, *x, *z1, *z2, *tmap, *stats, *part, *sums, *da, *dz, *dx;
-  float *wp1, *wp2, *wp3;
+  float *ks, *dks, *x, *z1, *z2, *act, *tmap, *stats, *part, *sums, *da, *dz, *dx;
+  float *wt1, *wt2, *wt3, *wp1, *wp2, *wp3;
   unsigned* tickets;
   size_t total;
 };
@@ -286,7 +175,7 @@ static inline BwdLayout bwd_layout(float* base, int B, int H, int W, int Cs, int
   size_t o = 0;
   auto take = [&](size_t n) {
     float* q = base == nullptr ? nullptr : base + o;
-    o += n;
+    o += round_up4(n);
     return q;
   };
   l.ks = take(6 * M * Cs);
@@ -294,6 +183,7 @@ static inline BwdLayout bwd_layout(float* base, int B, int H, int W, int Cs, int
   l.x = take(6 * M * Cs);
   l.z1 = take(6 * M * Ch);
   l.z2 = take(6 * M * Ch);
+  l.act = take(12 * M * Ch);  // act1, act2 of each evaluation
   l.tmap = take(HW * (2 * Ch + Cs));
   l.stats = take(24 * static_cast<size_t>(Ch));
   l.part = take(static_cast<size_t>(cdiv(M, kStatRows)) * 2 * Ch);
@@ -301,9 +191,16 @@ static inline BwdLayout bwd_layout(float* base, int B, int H, int W, int Cs, int
   l.da = take(M * Ch);
   l.dz = take(M * Ch);
   l.dx = take(M * Cs);
-  l.wp1 = take(static_cast<size_t>(wgrad_splits(m, Cs, Ch)) * 9 * (Cs + 1) * Ch);
-  l.wp2 = take(static_cast<size_t>(wgrad_splits(m, Ch, Ch)) * 9 * (Ch + 1) * Ch);
-  l.wp3 = take(static_cast<size_t>(wgrad_splits(m, Ch, Cs)) * 9 * (Ch + 1) * Cs);
+  l.wt1 = take(9 * static_cast<size_t>(Ch) * Cs);
+  l.wt2 = take(9 * static_cast<size_t>(Ch) * Ch);
+  l.wt3 = take(9 * static_cast<size_t>(Cs) * Ch);
+  // the partial slots, contiguous (one memset zeroes them)
+  const size_t n1 = static_cast<size_t>(wgrad_splits(m, Cs, Ch)) * 9 * (Cs + 1) * Ch;
+  const size_t n2 = static_cast<size_t>(wgrad_splits(m, Ch, Ch)) * 9 * (Ch + 1) * Ch;
+  const size_t n3 = static_cast<size_t>(wgrad_splits(m, Ch, Cs)) * 9 * (Ch + 1) * Cs;
+  l.wp1 = take(n1 + n2 + n3);
+  l.wp2 = l.wp1 == nullptr ? nullptr : l.wp1 + n1;
+  l.wp3 = l.wp2 == nullptr ? nullptr : l.wp2 + n2;
   l.tickets = reinterpret_cast<unsigned*>(take(kTickets));
   l.total = o;
   return l;
@@ -375,6 +272,8 @@ extern "C" int lrnde_conv_step_bwd(
   a.z1 = l.z1;
   a.z2 = l.z2;
   a.z_stride = static_cast<size_t>(M) * Ch;
+  a.act = l.act;
+  a.act_stride = static_cast<size_t>(M) * Ch;
   a.tmap = l.tmap;
   a.stats = l.stats;
   a.part = l.part;
@@ -387,6 +286,11 @@ extern "C" int lrnde_conv_step_bwd(
   a.Cs = Cs;
   a.Ch = Ch;
   if ((err = forward_step(a, st)) != cudaSuccess) return err;
+  // the data gradients' weights: taps flipped, channel axes swapped
+  if ((err = transpose_w(w1, Cs + 1, Ch, l.wt1, st)) != cudaSuccess ||
+      (err = transpose_w(w2, Ch + 1, Ch, l.wt2, st)) != cudaSuccess ||
+      (err = transpose_w(w3, Ch + 1, Cs, l.wt3, st)) != cudaSuccess)
+    return err;
 
   // ---- stage cotangent seeds
   KPtrs dk_in;
@@ -404,43 +308,42 @@ extern "C" int lrnde_conv_step_bwd(
   for (int e = 5; e >= 0; --e) {
     const float c = stage_c(e);
     const float* se = l.stats + static_cast<size_t>(e) * 4 * Ch;
-    const BnIn bn1{se, se + Ch, g1, b1, eps};
-    const BnIn bn2{se + 2 * Ch, se + 3 * Ch, g2, b2, eps};
-    const BnIn none{nullptr, nullptr, nullptr, nullptr, 0.f};
+    const float *m1 = se, *v1 = se + Ch, *m2 = se + 2 * Ch, *v2 = se + 3 * Ch;
     const float* x = l.x + e * n;
     const float* z1 = l.z1 + e * MCh;
     const float* z2 = l.z2 + e * MCh;
     const float* dk = dks.k[e + 1];
     unsigned* tk = l.tickets + 24 + 2 * (5 - e);
 
+    const float* act1 = l.act + 2 * e * MCh;  // gelu(BN1(z1)), kept by the forward
+    const float* act2 = act1 + MCh;           // gelu(BN2(z2))
+
     // conv3^T
-    WgradArgs wg3{z2, Ch, bn2, sc, c, dk, Cs, l.wp3, cdiv(M, S3), B, H, W};
+    WgradArgs wg3{act2, Ch, sc, c, dk, Cs, l.wp3, cdiv(M, S3), B, H, W};
     if ((err = launch_wgrad(wg3, S3, st)) != cudaSuccess) return err;
-    ConvArgs dg3{dk, Cs, w3, Ch + 1, Cs, 1, Ch, nullptr, sc, c, none, l.da, B, H, W};
+    ConvArgs dg3{dk, Cs, l.wt3, Cs, Ch, nullptr, sc, c, l.da, B, H, W};
     if ((err = launch_conv(dg3, st)) != cudaSuccess) return err;
     // BN2 / gelu'
-    bn_bwd_reduce_kernel<<<nstat, kStatThreads, 0, st>>>(
-        l.da, z2, bn2.mean, bn2.var, g2, b2, eps, M, Ch, l.part, tk, l.sums,
-        d_g2, d_b2);
+    bn_bwd_reduce_kernel<<<nstat, kBwdThreads, 0, st>>>(
+        l.da, z2, m2, v2, g2, b2, eps, M, Ch, l.part, tk, l.sums, d_g2, d_b2);
     bn_bwd_apply_kernel<<<cdiv(MCh, kEw), kEw, 0, st>>>(
-        l.da, z2, bn2.mean, bn2.var, g2, b2, l.sums, eps, M, Ch, l.dz);
+        l.da, z2, m2, v2, g2, b2, l.sums, eps, M, Ch, l.dz);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     // conv2^T
-    WgradArgs wg2{z1, Ch, bn1, sc, c, l.dz, Ch, l.wp2, cdiv(M, S2), B, H, W};
+    WgradArgs wg2{act1, Ch, sc, c, l.dz, Ch, l.wp2, cdiv(M, S2), B, H, W};
     if ((err = launch_wgrad(wg2, S2, st)) != cudaSuccess) return err;
-    ConvArgs dg2{l.dz, Ch, w2, Ch + 1, Ch, 1, Ch, nullptr, sc, c, none, l.da, B, H, W};
+    ConvArgs dg2{l.dz, Ch, l.wt2, Ch, Ch, nullptr, sc, c, l.da, B, H, W};
     if ((err = launch_conv(dg2, st)) != cudaSuccess) return err;
     // BN1 / gelu'
-    bn_bwd_reduce_kernel<<<nstat, kStatThreads, 0, st>>>(
-        l.da, z1, bn1.mean, bn1.var, g1, b1, eps, M, Ch, l.part, tk + 1,
-        l.sums, d_g1, d_b1);
+    bn_bwd_reduce_kernel<<<nstat, kBwdThreads, 0, st>>>(
+        l.da, z1, m1, v1, g1, b1, eps, M, Ch, l.part, tk + 1, l.sums, d_g1, d_b1);
     bn_bwd_apply_kernel<<<cdiv(MCh, kEw), kEw, 0, st>>>(
-        l.da, z1, bn1.mean, bn1.var, g1, b1, l.sums, eps, M, Ch, l.dz);
+        l.da, z1, m1, v1, g1, b1, l.sums, eps, M, Ch, l.dz);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     // conv1^T
-    WgradArgs wg1{x, Cs, none, sc, c, l.dz, Ch, l.wp1, cdiv(M, S1), B, H, W};
+    WgradArgs wg1{x, Cs, sc, c, l.dz, Ch, l.wp1, cdiv(M, S1), B, H, W};
     if ((err = launch_wgrad(wg1, S1, st)) != cudaSuccess) return err;
-    ConvArgs dg1{l.dz, Ch, w1, Cs + 1, Ch, 1, Cs, nullptr, sc, c, none, l.dx, B, H, W};
+    ConvArgs dg1{l.dz, Ch, l.wt1, Ch, Cs, nullptr, sc, c, l.dx, B, H, W};
     if ((err = launch_conv(dg1, st)) != cudaSuccess) return err;
     stage_bwd_kernel<<<cdiv(n, kEw), kEw, 0, st>>>(l.dx, d_unew, d_g6, sc, e,
                                                    d_u, dks, n);
@@ -449,4 +352,50 @@ extern "C" int lrnde_conv_step_bwd(
   if ((err = reduce_partials(l.wp1, S1, nw1, d_w1, st)) != cudaSuccess) return err;
   if ((err = reduce_partials(l.wp2, S2, nw2, d_w2, st)) != cudaSuccess) return err;
   return reduce_partials(l.wp3, S3, nw3, d_w3, st);
+}
+
+// ---------------------------------------------------------------------------
+// The conv GEMM core alone, one orientation at a time, for timing each
+// against cuDNN (chip_smoke.py; on no model path). orient 0, the forward:
+// out (M, cout) = conv3x3(x (M, cin), w (3, 3, cin, cout)); 1, the data
+// gradient: x is the cotangent (M, cin), w the layer's HWIO weight
+// (3, 3, cout + 1, cin) with its time channel, out (M, cout) the gradient of
+// the first cout input channels; 2, the weight gradient: x is the layer's
+// input (M, cin), w the output cotangent (M, cout), out (3, 3, cin + 1,
+// cout) with the time channel at the value sc[0]. scratch holds
+// lrnde_conv_core_scratch_floats floats.
+extern "C" long long lrnde_conv_core_scratch_floats(int orient, int B, int H,
+                                                    int W, int cin, int cout) {
+  using namespace lrnde::conv;
+  if (orient == 1) return 9LL * cin * cout;  // the transposed weight
+  if (orient != 2) return 1;
+  return static_cast<long long>(wgrad_splits(B * H * W, cin, cout)) * 9 *
+         (cin + 1) * cout;
+}
+
+extern "C" int lrnde_conv_core(int orient, const float* x, const float* w,
+                               const float* sc, float* out, float* scratch,
+                               int B, int H, int W, int cin, int cout,
+                               void* stream) {
+  using namespace lrnde;
+  using namespace lrnde::conv;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (orient == 0) {
+    const ConvArgs a{x, cin, w, cin, cout, nullptr, sc, 0.f, out, B, H, W};
+    return launch_conv(a, st);
+  }
+  if (orient == 1) {
+    if ((err = transpose_w(w, cout + 1, cin, scratch, st)) != cudaSuccess) return err;
+    const ConvArgs a{x, cin, scratch, cin, cout, nullptr, sc, 0.f, out, B, H, W};
+    return launch_conv(a, st);
+  }
+  if (orient != 2) return cudaErrorInvalidValue;
+  const int M = B * H * W, S = wgrad_splits(M, cin, cout);
+  const size_t nw = 9 * static_cast<size_t>(cin + 1) * cout;
+  if ((err = cudaMemsetAsync(scratch, 0, S * nw * sizeof(float), st)) != cudaSuccess)
+    return err;
+  const WgradArgs a{x, cin, sc, 0.f, w, cout, scratch, cdiv(M, S), B, H, W};
+  if ((err = launch_wgrad(a, S, st)) != cudaSuccess) return err;
+  return reduce_partials(scratch, S, nw, out, st);
 }

@@ -45,3 +45,22 @@ extern "C" int lrnde_persistent_tsit5(
   return launch_cooperative(persistent_solve_kernel<TDMLP>, &a, B, smem,
                             static_cast<cudaStream_t>(stream), nullptr);
 }
+
+namespace lrnde {
+
+static __global__ void __launch_bounds__(128)
+slot_sum_kernel(const float* slots, int n, float* out) {
+  const float s = ordered_slot_sum<128>(slots, n);
+  if (threadIdx.x == 0) out[0] = s;
+}
+
+}  // namespace lrnde
+
+// solve.cuh::ordered_slot_sum alone on n slots, out[0] = the in-order sum:
+// one CTA of 128 threads, for the card tests. Returns cudaGetLastError().
+extern "C" int lrnde_slot_sum(const float* slots, int n, float* out,
+                              void* stream) {
+  lrnde::slot_sum_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      slots, n, out);
+  return cudaGetLastError();
+}

@@ -21,7 +21,8 @@
 // co-resident, each CTA running one. The demo's network (2 -> 64 -> 64 -> 2)
 // is 18 KB of shared memory, and its products 9.0 kFLOP a row and
 // evaluation; what bounds the kernels is the serial chain of layer passes
-// and the grid barrier of every attempt.
+// (their shared-memory reads: chain.cuh::chain_forward) and the grid
+// barrier with its slot sum of every attempt.
 //
 // Every scalar of the time and β arithmetic is rounded as the plain PyTorch
 // versions round it (separate multiply and add, no contraction).

@@ -17,15 +17,19 @@
 //    columns (sde.cuh::pair_normals). The noise is a pure function of
 //    (seed, node, channel, row, column), so a retried step sees the same path
 //    and the split of rows over CTAs does not matter; W/Z at the last
-//    accepted time stay in global scratch, and dW = W(t + dt) − W(t);
+//    accepted time stay in global scratch, and dW = W(t + dt) − W(t). When
+//    a row block has fewer column pairs than the CTA has threads (kernel
+//    11: 8 of 128) the walk to τ is taken once and the levels' draws spread
+//    over all threads (descend);
 // 2. takes the four-stage SRI step of its rows with the stage inputs and
 //    k1..k4, g1..g4 in shared memory (the drift at t + c0_i·dt, the
 //    diffusion at t + c1_i·dt, as sde/step.py), writes the candidate
 //    state to global scratch, and stores its row block's sum of squared
 //    scaled residuals (δ·E1 + E2)/(atol + max(|u|, |u_new|)·rtol) into a slot
 //    of its own;
-// 3. waits at the grid barrier (solve.cuh); thread 0 of every CTA then sums
-//    the slots in row-block order, so every CTA reaches the same error norm,
+// 3. waits at the grid barrier (solve.cuh); every CTA then sums the slots in
+//    row-block order (solve.cuh::ordered_slot_sum: the loads in parallel,
+//    the additions in order), so every CTA reaches the same error norm,
 //    accept decision and dt, with no float atomics, and the solve is
 //    deterministic run to run.
 //
@@ -44,7 +48,10 @@
 // 128 CTAs of 64 threads, one per SM. Kernel 11 (B = 4096, F = 2) draws one
 // column pair a row, and its four drift evaluations are three dependent
 // layer passes each (score.cuh); it records no knots and keeps no
-// reservoir.
+// reservoir. Its split per attempt on an H100 (the timed instantiation,
+// chip_smoke.py's attribution phase) was 34 µs of slot sum and 20 of
+// descent of ~99 before the parallel slot loads and the spread descent;
+// the layer passes of its four stages now take most of an attempt.
 #include "score.cuh"
 #include "sde.cuh"
 
@@ -74,6 +81,7 @@ struct SdeSolveArgs {
   float* knot_us;         // (max_steps + 1, B, F)
   float* knot_dws;        // (max_steps, B, F)
   float* knot_dzs;        // (max_steps, B, F)
+  unsigned long long* timing;  // (kPhases + 1) of the timed instantiation
   int B;
   int max_steps;
   float rtol, atol, delta, inv_n;
@@ -84,50 +92,169 @@ struct SdeCtl {
   int is_last, accept, take, done, natt, nacc, nrej;
 };
 
-struct SdeStepSmem {
-  float *u, *dw, *dz, *xf, *xg, *k, *g, *red;
+// The attribution phases of one attempt, timed by CTA 0's thread 0 on
+// %globaltimer in the instantiation with kTime (chip_smoke.py's K11
+// attribution phase only): the descent, the four stages, the residual and
+// slot store, the grid barrier's wait, the slot sum with the controller,
+// the commit, and the plan of the next attempt.
+enum SdePhase {
+  kPhDescent, kPhStage1, kPhStage2, kPhStage3, kPhStage4, kPhSlotStore,
+  kPhBarrier, kPhSlotSum, kPhCommit, kPhPlan, kPhases
 };
 
+template <bool kOn>
+struct PhaseClock {
+  unsigned long long last = 0, acc[kPhases] = {};
+  __device__ static unsigned long long now() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+  }
+  __device__ bool owner() const { return blockIdx.x == 0 && threadIdx.x == 0; }
+  __device__ void start() {
+    if constexpr (kOn) if (owner()) last = now();
+  }
+  __device__ void mark(int phase) {
+    if constexpr (kOn) {
+      if (owner()) {
+        const unsigned long long t = now();
+        acc[phase] += t - last;
+        last = t;
+      }
+    }
+  }
+  // per-phase nanoseconds, then the attempt count
+  __device__ void write(unsigned long long* out, int natt) const {
+    if constexpr (kOn) {
+      if (owner()) {
+        for (int i = 0; i < kPhases; ++i) out[i] = acc[i];
+        out[kPhases] = static_cast<unsigned long long>(natt);
+      }
+    }
+  }
+};
+
+struct SdeStepSmem {
+  float *u, *dw, *dz, *xf, *xg, *k, *g, *red;
+  float4* nrm;  // the descent's normals: [level][row][column pair]
+};
+
+// Deepest Brownian tree the kernel takes (the wrappers' default is 24).
+constexpr int kMaxDepth = 30;
+
+// The bridge's walk to τ, the same for every row (τ is grid-uniform):
+// per level the child taken and the bridge scale, and the last cell.
+struct DescentPath {
+  int node[kMaxDepth + 1];     // the node drawn at each level (level 0: 1)
+  float scale[kMaxDepth + 1];  // the bridge scale of levels 1..depth
+  unsigned int right;          // bit l - 1: level l went right
+  float lo, hi;                // the last cell
+};
+
+// The descent's normals a CTA keeps (float4s): one per (column pair, row,
+// level) when a row block has fewer column pairs than the CTA has threads
+// (kernel 11: 8 of 128), else none, and each thread descends whole
+// (column pair, row) items on its own (kernel 10: 64 of 64).
+template <typename D>
+__host__ __device__ inline int descent_buffer(const D& w) {
+  const int items = D::rows * ((w.F + 1) / 2);
+  return items < D::threads ? items * (kMaxDepth + 1) : 0;
+}
+
 // Floats of dynamic shared memory per CTA: the dynamics type's, then the
-// step's row-block buffers.
+// step's row-block buffers, then the descent's normals.
 template <typename D>
 __host__ __device__ inline size_t sde_solve_smem_floats(const D& w) {
   const size_t RF = static_cast<size_t>(D::rows) * w.F;
-  return sde_shared_floats(w) + 13 * RF + D::threads;
+  return round_up4(sde_shared_floats(w) + 13 * RF + D::threads)
+       + 4 * static_cast<size_t>(descent_buffer(w));
 }
 
-// W/Z of this CTA's elements of row block rb at normalised time tau into
-// wz1; dW, dZ (against wz0) into the row block's shared buffers.
+// W/Z of row block rb at normalised time tau into wz1; dW, dZ (against
+// wz0) into the row block's shared buffers: a bridge descent of a.depth
+// levels per (column pair, row), then linear interpolation in the last
+// cell. Synchronises the CTA.
+//
+// With a descent buffer (descent_buffer), three phases, each the work of
+// the whole CTA: thread 0 walks the bridge to τ (the walk does not depend on
+// the row: τ is grid-uniform); every thread draws its share of the (column
+// pair, row, level) normals, all independent, into shared memory; one
+// thread per (column pair, row) combines its levels in order. Without one,
+// each thread walks and draws its items level by level. Both round every
+// operation alike, so W and Z are the same bits either way.
 template <typename D>
 __device__ void descend(const SdeSolveArgs<D>& a, const SdeStepSmem& s,
-                        int rb, int nrows, float tau, float span) {
-  const int F = a.w.F, P = (F + 1) / 2;
+                        DescentPath& path, int rb, int nrows, float tau,
+                        float span) {
+  const int F = a.w.F, P = (F + 1) / 2, depth = a.depth;
+  const int items = nrows * P;
   const size_t BF = static_cast<size_t>(a.B) * F;
-  for (int item = threadIdx.x; item < nrows * P; item += blockDim.x) {
+  const bool buffered = items * (depth + 1) <= descent_buffer(a.w);
+  if (buffered) {
+    if (threadIdx.x == 0) {
+      float lo = 0.f, hi = 1.f;
+      int node = 1;
+      unsigned int right = 0u;
+      path.node[0] = 1;
+      for (int lvl = 0; lvl < depth; ++lvl) {
+        const float m = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+        path.scale[lvl + 1] =
+            __fsqrt_rn(__fmul_rn(__fmul_rn(__fadd_rn(hi, -lo), 0.25f), span));
+        path.node[lvl + 1] = 2 * node + 2;
+        const bool r = tau >= m;
+        if (r) lo = m; else hi = m;
+        right |= (r ? 1u : 0u) << lvl;
+        node = 2 * node + (r ? 1 : 0);
+      }
+      path.right = right;
+      path.lo = lo;
+      path.hi = hi;
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < items * (depth + 1); d += blockDim.x) {
+      const int lvl = d / items, item = d - lvl * items;
+      const int r = item / P, p = item - r * P;
+      s.nrm[d] = pair_normals(a.seed, p, rb * D::rows + r, path.node[lvl]);
+    }
+    __syncthreads();
+  }
+  for (int item = threadIdx.x; item < items; item += blockDim.x) {
     const int r = item / P, p = item - r * P;
     const int row = rb * D::rows + r;
-    const float4 e = pair_normals(a.seed, p, row, 1);
+    const float4 e = buffered ? s.nrm[item] : pair_normals(a.seed, p, row, 1);
     const float root = __fsqrt_rn(span);
     float wb[4] = {__fmul_rn(e.x, root), __fmul_rn(e.y, root),
                    __fmul_rn(e.z, root), __fmul_rn(e.w, root)};
     float wa[4] = {0.f, 0.f, 0.f, 0.f};
     float lo = 0.f, hi = 1.f;
     int node = 1;
-    for (int lvl = 0; lvl < a.depth; ++lvl) {
-      const float m = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
-      const float scale =
-          __fsqrt_rn(__fmul_rn(__fmul_rn(__fadd_rn(hi, -lo), 0.25f), span));
-      const float4 n = pair_normals(a.seed, p, row, 2 * node + 2);
+    for (int lvl = 0; lvl < depth; ++lvl) {
+      float scale;
+      bool right;
+      float4 n;
+      if (buffered) {
+        scale = path.scale[lvl + 1];
+        right = (path.right >> lvl) & 1u;
+        n = s.nrm[(lvl + 1) * items + item];
+      } else {
+        const float m = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+        scale = __fsqrt_rn(__fmul_rn(__fmul_rn(__fadd_rn(hi, -lo), 0.25f), span));
+        n = pair_normals(a.seed, p, row, 2 * node + 2);
+        right = tau >= m;
+        if (right) lo = m; else hi = m;
+        node = 2 * node + (right ? 1 : 0);
+      }
       const float eps[4] = {n.x, n.y, n.z, n.w};
-      const bool right = tau >= m;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const float mid = __fadd_rn(__fmul_rn(__fadd_rn(wa[c], wb[c]), 0.5f),
                                     __fmul_rn(eps[c], scale));
         if (right) wa[c] = mid; else wb[c] = mid;
       }
-      if (right) lo = m; else hi = m;
-      node = 2 * node + (right ? 1 : 0);
+    }
+    if (buffered) {
+      lo = path.lo;
+      hi = path.hi;
     }
     const float frac = hi > lo ? __fdiv_rn(__fadd_rn(tau, -lo), __fadd_rn(hi, -lo))
                                : 0.f;
@@ -142,6 +269,7 @@ __device__ void descend(const SdeSolveArgs<D>& a, const SdeStepSmem& s,
       (ch == 0 ? s.dw : s.dz)[r * F + col] = v - a.wz0[o];
     }
   }
+  __syncthreads();
 }
 
 // Stage time t + c·dt, rounded as sde/step.py rounds it.
@@ -151,11 +279,11 @@ __device__ inline float stage_time(float t, float c, float dt) {
 
 // One SRI step of row block rb from time t; returns its Σ residual² to
 // every thread.
-template <typename D>
+template <typename D, typename Clock>
 __device__ float sri_rows(const SdeSolveArgs<D>& a,
                           const typename D::Shared& w, const SdeStepSmem& s,
                           const SriTableau& T, int rb, int nrows, float t,
-                          float dt) {
+                          float dt, Clock& clock) {
   const int F = a.w.F, n = nrows * F;
   const size_t off = static_cast<size_t>(rb) * D::rows * F;
   const float sqdt = sqrtf(dt);
@@ -169,6 +297,7 @@ __device__ float sri_rows(const SdeSolveArgs<D>& a,
   __syncthreads();
   sde_stage(a.w, w, s.xf, s.xg, t, stage_time(t, T.c1[0], dt), s.k, s.g,
             nrows);
+  clock.mark(kPhStage1);
   // stage inputs in sde/step.py's order of operations
   for (int e = 1; e < 4; ++e) {
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -193,6 +322,7 @@ __device__ float sri_rows(const SdeSolveArgs<D>& a,
     __syncthreads();
     sde_stage(a.w, w, s.xf, s.xg, stage_time(t, T.c0[e], dt),
               stage_time(t, T.c1[e], dt), s.k + e * RF, s.g + e * RF, nrows);
+    clock.mark(kPhStage1 + e);
   }
   float err = 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -229,7 +359,7 @@ __device__ float sri_rows(const SdeSolveArgs<D>& a,
   return block_sum<D::threads>(err, s.red);
 }
 
-template <typename D, bool kSosri>
+template <typename D, bool kSosri, bool kTime>
 __global__ void __launch_bounds__(D::threads)
 sde_solve_kernel(SdeSolveArgs<D> a) {
   constexpr int R = D::rows;
@@ -250,6 +380,12 @@ sde_solve_kernel(SdeSolveArgs<D> a) {
   s.k = s.xg + RF;
   s.g = s.k + 4 * RF;
   s.red = s.g + 4 * RF;
+  {  // the normals start 16-byte aligned
+    const float* base = reinterpret_cast<const float*>(smem_raw);
+    const size_t o = round_up4(s.red + D::threads - base);
+    s.nrm = reinterpret_cast<float4*>(reinterpret_cast<float*>(smem_raw) + o);
+  }
+  __shared__ DescentPath path;
   const SriTableau T = sri_tableau(kSosri);
   const float t0 = a.sc[0], t_end = a.sc[1], span = t_end - t0;
   const bool record = a.knot_ts != nullptr;
@@ -281,6 +417,8 @@ sde_solve_kernel(SdeSolveArgs<D> a) {
   __syncthreads();
 
   unsigned int epoch = 0;
+  PhaseClock<kTime> clock;
+  clock.start();
   while (!ctl.done && ctl.natt < a.max_steps) {
     if (tid == 0) {
       const AttemptPlan plan = plan_attempt(ctl.t, ctl.dt, t_end);
@@ -290,20 +428,22 @@ sde_solve_kernel(SdeSolveArgs<D> a) {
       ctl.tau = fminf(fmaxf((ctl.t + plan.dt_c - t0) / span, 0.f), 1.f);
     }
     __syncthreads();
+    clock.mark(kPhPlan);
     const float t = ctl.t, dt_c = ctl.dt_c, t_new = ctl.t_new;
     float* const slot = a.slots + (epoch & 1u) * n_blocks;
     for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
       const int nrows = min(R, B - rb * R);
-      descend(a, s, rb, nrows, ctl.tau, span);
-      __syncthreads();
-      const float err = sri_rows(a, w, s, T, rb, nrows, t, dt_c);
+      descend(a, s, path, rb, nrows, ctl.tau, span);
+      clock.mark(kPhDescent);
+      const float err = sri_rows(a, w, s, T, rb, nrows, t, dt_c, clock);
       if (tid == 0) __stcg(slot + rb, err);
+      clock.mark(kPhSlotStore);
     }
     ++epoch;
     grid_barrier(a.barrier, epoch * gridDim.x);
+    clock.mark(kPhBarrier);
+    const float err_sq = ordered_slot_sum<D::threads>(slot, n_blocks);
     if (tid == 0) {
-      float err_sq = 0.f;
-      for (int i = 0; i < n_blocks; ++i) err_sq += __ldcg(slot + i);
       const float eest = sqrtf(err_sq * a.inv_n);
       const bool accept = eest <= 1.f;
       float dt_acc, dt_rej, qold_acc;
@@ -324,6 +464,7 @@ sde_solve_kernel(SdeSolveArgs<D> a) {
       }
       ++ctl.natt;
     }
+    clock.mark(kPhSlotSum);
     __syncthreads();
     if (ctl.accept) {
       const int cnt = ctl.nacc;  // knot index of the new state
@@ -354,7 +495,9 @@ sde_solve_kernel(SdeSolveArgs<D> a) {
       if (record && blockIdx.x == 0 && tid == 0) a.knot_ts[cnt] = t_new;
     }
     __syncthreads();
+    clock.mark(kPhCommit);
   }
+  clock.write(a.timing, ctl.natt);
   if (blockIdx.x == 0 && tid == 0) {
     a.stats_i[0] = ctl.nacc;
     a.stats_i[1] = ctl.nrej;
@@ -365,11 +508,13 @@ sde_solve_kernel(SdeSolveArgs<D> a) {
   }
 }
 
-// Launch the solve of dynamics D (sosri: the SOSRI tableau, else SRIW1).
-template <typename D>
+// Launch the solve of dynamics D (sosri: the SOSRI tableau, else SRIW1);
+// kTime: the instantiation that times the attempt's phases into a->timing.
+template <typename D, bool kTime = false>
 static int launch_sde_solve(int sosri, SdeSolveArgs<D>* a, void* stream) {
   const size_t smem = sde_solve_smem_floats(a->w) * sizeof(float);
-  auto kernel = sosri ? sde_solve_kernel<D, true> : sde_solve_kernel<D, false>;
+  auto kernel = sosri ? sde_solve_kernel<D, true, kTime>
+                      : sde_solve_kernel<D, false, kTime>;
   static size_t granted[2] = {0, 0};
   cudaError_t err = allow_smem(kernel, smem, &granted[sosri ? 1 : 0]);
   if (err != cudaSuccess) return err;
@@ -402,13 +547,13 @@ extern "C" int lrnde_sde_solve(
     float* knot_dws, float* knot_dzs, int B, int F, int H, int max_steps,
     float rtol, float atol, float delta, float inv_n, void* stream) {
   using namespace lrnde;
-  if ((rand == nullptr) != (res_u == nullptr) || depth < 0 || depth > 30)
+  if ((rand == nullptr) != (res_u == nullptr) || depth < 0 || depth > kMaxDepth)
     return cudaErrorInvalidValue;
   SdeSolveArgs<SdeWeights> a{
       u0, sc, saveat, n_save, SdeWeights{w1, b1, w2, b2, wd, bd, F, H}, seed,
       depth, u, ys, stats_i, stats_f, unew, wz0, wz1, slots, barrier, rand,
-      res_u, knot_ts, knot_us, knot_dws, knot_dzs, B, max_steps, rtol, atol,
-      delta, inv_n};
+      res_u, knot_ts, knot_us, knot_dws, knot_dzs, nullptr, B, max_steps,
+      rtol, atol, delta, inv_n};
   return launch_sde_solve(sosri, &a, stream);
 }
 
@@ -432,6 +577,28 @@ extern "C" long long lrnde_vpsde_solve_smem_floats(const int* dims, int L) {
 // beta_min + t·d_beta at t = t1 − τ. The buffers are kernel 10's, with slots
 // 2·ceil(B / kScoreRows); no reservoir and no knots. Returns
 // cudaGetLastError().
+static int vpsde_solve(
+    int sosri, const float* u0, const float* sc, const float* saveat,
+    int n_save, const void* const* wb, const int* dims, int L,
+    unsigned int acts, float beta_min, float d_beta, float t1,
+    unsigned int seed, int depth, float* u, float* ys, int* stats_i,
+    float* stats_f, float* unew, float* wz0, float* wz1, float* slots,
+    unsigned int* barrier, int B, int max_steps, float rtol, float atol,
+    float delta, float inv_n, unsigned long long* timing, void* stream) {
+  using namespace lrnde;
+  VpScore c;
+  if (!make_score(&c, wb, dims, L, acts, beta_min, d_beta, t1) || depth < 0
+      || depth > kMaxDepth)
+    return cudaErrorInvalidValue;
+  SdeSolveArgs<VpScore> a{u0, sc, saveat, n_save, c, seed, depth, u, ys,
+                          stats_i, stats_f, unew, wz0, wz1, slots, barrier,
+                          nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, timing, B, max_steps, rtol, atol, delta,
+                          inv_n};
+  return timing == nullptr ? launch_sde_solve<VpScore, false>(sosri, &a, stream)
+                           : launch_sde_solve<VpScore, true>(sosri, &a, stream);
+}
+
 extern "C" int lrnde_vpsde_solve(
     int sosri, const float* u0, const float* sc, const float* saveat,
     int n_save, const void* const* wb, const int* dims, int L,
@@ -440,14 +607,31 @@ extern "C" int lrnde_vpsde_solve(
     float* stats_f, float* unew, float* wz0, float* wz1, float* slots,
     unsigned int* barrier, int B, int max_steps, float rtol, float atol,
     float delta, float inv_n, void* stream) {
-  using namespace lrnde;
-  VpScore c;
-  if (!make_score(&c, wb, dims, L, acts, beta_min, d_beta, t1) || depth < 0
-      || depth > 30)
-    return cudaErrorInvalidValue;
-  SdeSolveArgs<VpScore> a{u0, sc, saveat, n_save, c, seed, depth, u, ys,
-                          stats_i, stats_f, unew, wz0, wz1, slots, barrier,
-                          nullptr, nullptr, nullptr, nullptr, nullptr,
-                          nullptr, B, max_steps, rtol, atol, delta, inv_n};
-  return launch_sde_solve(sosri, &a, stream);
+  return vpsde_solve(sosri, u0, sc, saveat, n_save, wb, dims, L, acts,
+                     beta_min, d_beta, t1, seed, depth, u, ys, stats_i,
+                     stats_f, unew, wz0, wz1, slots, barrier, B, max_steps,
+                     rtol, atol, delta, inv_n, nullptr, stream);
 }
+
+// Kernel 11 with its attempt's phases timed: lrnde_vpsde_solve's contract,
+// plus timing (kPhases + 1 unsigned 64-bit integers): CTA 0's nanoseconds
+// in each phase of sde_solve.cu's SdePhase, summed over the attempts, then
+// the attempt count. A separate instantiation; the untimed kernel carries
+// no clock reads.
+extern "C" int lrnde_vpsde_solve_timed(
+    int sosri, const float* u0, const float* sc, const float* saveat,
+    int n_save, const void* const* wb, const int* dims, int L,
+    unsigned int acts, float beta_min, float d_beta, float t1,
+    unsigned int seed, int depth, float* u, float* ys, int* stats_i,
+    float* stats_f, float* unew, float* wz0, float* wz1, float* slots,
+    unsigned int* barrier, int B, int max_steps, float rtol, float atol,
+    float delta, float inv_n, unsigned long long* timing, void* stream) {
+  if (timing == nullptr) return cudaErrorInvalidValue;
+  return vpsde_solve(sosri, u0, sc, saveat, n_save, wb, dims, L, acts,
+                     beta_min, d_beta, t1, seed, depth, u, ys, stats_i,
+                     stats_f, unew, wz0, wz1, slots, barrier, B, max_steps,
+                     rtol, atol, delta, inv_n, timing, stream);
+}
+
+// The number of attribution phases of lrnde_vpsde_solve_timed.
+extern "C" int lrnde_sde_phases() { return lrnde::kPhases; }

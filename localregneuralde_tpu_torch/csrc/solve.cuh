@@ -8,11 +8,11 @@
 // chain_sweep.cu) all call attempt_eest(), the counterpart of the
 // reference's fused_solve.py::run_attempt_tiles, templated on the dynamics
 // type (tdmlp.cuh::TDMLP, chain.cuh::DenseChain). Each row block's squared
-// scaled residuals go into a slot of its own, and thread 0 of every CTA
-// sums the slots in row-block order, so the error norm does not depend on
-// the grid size or on which CTA ran which row block. A replay from a
-// checkpoint therefore repeats its forward's accept decisions and dt
-// sequence bitwise.
+// scaled residuals go into a slot of its own, and every CTA sums the slots
+// in row-block order (ordered_slot_sum, which kernels 10 and 11 call too),
+// so the error norm does not depend on the grid size or on which CTA ran
+// which row block. A replay from a checkpoint therefore repeats its
+// forward's accept decisions and dt sequence bitwise.
 #pragma once
 
 #include "tdmlp.cuh"
@@ -46,6 +46,34 @@ __device__ inline void grid_barrier(unsigned int* counter, unsigned int target) 
     __threadfence();
   }
   __syncthreads();
+}
+
+// Slots loaded per round of ordered_slot_sum (2 KB of static shared memory).
+constexpr int kSlotChunk = 512;
+
+// The sum of slots[0, n) in index order, ((0 + s_0) + s_1) + ..., bitwise
+// the sum of a one-thread loop over them, returned in thread 0 (0
+// elsewhere). Every thread of the CTA (T of them) issues its slots' loads
+// at once, coalesced, from L2 (the slots are written by other CTAs) into
+// shared memory, and thread 0 folds them from there: one L2 round trip per
+// kSlotChunk slots instead of one per slot on the thread that sums. All
+// threads must call it; it synchronises the CTA.
+template <int T>
+__device__ inline float ordered_slot_sum(const float* slots, int n) {
+  __shared__ float buf[kSlotChunk];
+  float sum = 0.f;
+  for (int c0 = 0; c0 < n; c0 += kSlotChunk) {
+    const int m = min(kSlotChunk, n - c0);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < m; i += T) buf[i] = __ldcg(slots + c0 + i);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+#pragma unroll 8
+      for (int i = 0; i < m; ++i) sum += buf[i];
+    }
+    __syncthreads();
+  }
+  return sum;
 }
 
 __device__ inline void propose(float eest, float dt, float qold, float* dt_acc,
@@ -118,8 +146,9 @@ struct NoHook {
 // One attempt over the whole batch from (u, t) with step dt_c: every CTA
 // runs the Tsit5 step of the dynamics D (tdmlp.cuh::tsit5_rows) on its row
 // blocks of D::rows rows, calls hook(rb, rows, nrows) after each, stores the
-// row block's error partial into its slot, then waits at the grid barrier.
-// Returns the scaled error norm in thread 0 (0 elsewhere). The slots are
+// row block's error partial into its slot, then waits at the grid barrier
+// and sums the slots (ordered_slot_sum). Returns the scaled error norm in
+// thread 0 (0 elsewhere). The slots are
 // double-buffered by the parity of the barrier count, so a CTA that runs
 // ahead into the next attempt never overwrites slots another is still
 // summing.
@@ -149,13 +178,8 @@ __device__ inline float attempt_eest(const D& w, const typename D::Shared& sm,
   }
   ++epoch;
   grid_barrier(barrier, epoch * gridDim.x);
-  float eest = 0.f;
-  if (threadIdx.x == 0) {
-    float err_sq = 0.f;
-    for (int i = 0; i < n_blocks; ++i) err_sq += __ldcg(s + i);
-    eest = sqrtf(err_sq * inv_n);
-  }
-  return eest;
+  const float err_sq = ordered_slot_sum<D::threads>(s, n_blocks);
+  return threadIdx.x == 0 ? sqrtf(err_sq * inv_n) : 0.f;
 }
 
 // Commit an accepted attempt for this CTA's row blocks: u <- unew and

@@ -349,6 +349,10 @@ __device__ inline float tsit5_rows(const D& w, const typename D::Shared& sm,
   return block_sum<D::threads>(err, sm.red);
 }
 
+// n floats rounded up to a multiple of 4 (16 bytes), so that a buffer
+// carved after them can take float4 reads and 16-byte copies.
+__host__ __device__ inline size_t round_up4(size_t n) { return (n + 3) & ~size_t{3}; }
+
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 // *granted remembers the largest size opted in, so the call (tens of
 // microseconds of host time) is made once, not at every launch.

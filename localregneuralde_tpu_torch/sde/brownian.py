@@ -146,19 +146,33 @@ class VirtualBrownianTree:
 
     def wz(self, t) -> torch.Tensor:
         """The stacked ``(2, B, F)`` values (W(t), Z(t)): one bridge descent
-        of ``depth`` levels, then linear interpolation in the last cell."""
+        of ``depth`` levels, then linear interpolation in the last cell.
+
+        As the CUDA kernel's descent (``csrc/sde_solve.cu::descend``): the
+        walk to τ first (the cells, bridge scales and children, the same for
+        every element), then each level's normals, then the levels combined
+        in order. Every value rounds as a level-by-level loop's would."""
         tau = self.tau(t)
         half, quarter = np.float32(0.5), np.float32(0.25)
-        wb = self.normals(1) * float(np.sqrt(self.span))
-        wa = torch.zeros_like(wb)
         a, b, node = np.float32(0.0), np.float32(1.0), 1
+        walk = []  # per level: (node drawn, bridge scale, went right)
         for _ in range(self.depth):
             m = (a + b) * half
             scale = np.sqrt((b - a) * quarter * self.span)
-            wm = (wa + wb) * 0.5 + self.normals(2 * node + 2) * float(scale)
-            if tau >= m:
-                wa, a, node = wm, m, 2 * node + 1
+            right = bool(tau >= m)
+            walk.append((2 * node + 2, scale, right))
+            if right:
+                a, node = m, 2 * node + 1
             else:
-                wb, b, node = wm, m, 2 * node
+                b, node = m, 2 * node
+        eps = [self.normals(n) for n, _, _ in walk]
+        wb = self.normals(1) * float(np.sqrt(self.span))
+        wa = torch.zeros_like(wb)
+        for e, (_, scale, right) in zip(eps, walk):
+            wm = (wa + wb) * 0.5 + e * float(scale)
+            if right:
+                wa = wm
+            else:
+                wb = wm
         frac = (tau - a) / (b - a) if b > a else np.float32(0.0)
         return wa + (wb - wa) * float(frac)

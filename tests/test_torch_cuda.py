@@ -442,6 +442,156 @@ def test_conv_step_bwd_matches_plain_on_card(cuda_device, shape):
         assert torch.equal(a, b)
 
 
+# the conv GEMM core's tile paths (conv_core.cuh): N = 8 for an output of at
+# most 8 channels, N = 64 above; 16-byte copies when the channel counts are
+# multiples of 4, 4-byte copies otherwise; 189 pixels, not a multiple of a
+# 128-pixel tile
+CORE_SHAPES = [(3, 7, 9, 6, 16), (3, 7, 9, 8, 64), (3, 7, 9, 16, 8),
+               (3, 7, 9, 6, 6), (3, 7, 9, 64, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CORE_SHAPES)
+def test_conv_step_tile_paths_on_card(cuda_device, shape):
+    # kernels 13 and 14 over every tile path of the core, at the holds of
+    # the full-width tests above, bitwise from run to run
+    from localregneuralde_tpu_torch.ops.cuda import (
+        conv_step_plain, fused_conv_step, fused_conv_step_bwd,
+        fused_conv_step_bwd_plain,
+    )
+
+    w, spec, rstats, u = _conv_setup(cuda_device, *shape)
+    t = torch.tensor(0.2, device=cuda_device)
+    dt = torch.tensor(0.05, device=cuda_device)
+    k1 = 0.5 * torch.randn_like(u)
+    out = fused_conv_step(w, spec, u, t, dt, k1, training=True, rstats=rstats)
+    ref = conv_step_plain(w, spec, u, t, dt, k1, training=True, rstats=rstats)
+    kscale = 0.05 * max(float(k.abs().max()) for k in ref[2:8])
+    assert float((out[1] - ref[1]).abs().max()) <= 1e-5 * kscale
+    for i in (0, *range(2, 9)):
+        assert _rel(out[i], ref[i]) <= 1e-5
+    again = fused_conv_step(w, spec, u, t, dt, k1, training=True,
+                            rstats=rstats)
+    assert all(torch.equal(a, b) for a, b in zip(again[:9], out[:9]))
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    cts = [torch.randn(u.shape, generator=g, device=cuda_device)
+           for _ in range(9)]
+    ours = fused_conv_step_bwd(w, spec, u, t, dt, k1, cts)
+    ref = fused_conv_step_bwd_plain(w, spec, u, t, dt, k1, cts)
+    flat = lambda o: [o[1], o[2], *o[0]]  # noqa: E731
+    for a, b in zip(flat(ours), flat(ref)):
+        assert _rel(a, b) <= 1e-4
+    again = fused_conv_step_bwd(w, spec, u, t, dt, k1, cts)
+    assert all(torch.equal(a, b) for a, b in zip(flat(again), flat(ours)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("orient", ["forward", "data grad", "weight grad"])
+@pytest.mark.parametrize("cin,cout", [(6, 8), (8, 16), (16, 6), (64, 64),
+                                      (64, 8), (16, 64)])
+def test_conv_core_orientations_on_card(cuda_device, orient, cin, cout):
+    # the core alone (lrnde_conv_core) against PyTorch's FP32 conv and its
+    # gradients at 189 pixels: 1e-5 of the largest value, bitwise from run
+    # to run
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from localregneuralde_tpu_torch.ops.cuda import _build
+
+    lib = _build.load_library()
+    b, h, w = 3, 7, 9
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(b, h, w, cin, generator=g).to(cuda_device)
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+    sc = torch.tensor([0.37, 0.0], device=cuda_device)
+    code = ("forward", "data grad", "weight grad").index(orient)
+    if code == 0:
+        wt = torch.randn(3, 3, cin, cout, generator=g).to(cuda_device)
+        ref = torch.nn.functional.conv2d(nchw(x), wt.permute(3, 2, 0, 1),
+                                         padding=1).permute(0, 2, 3, 1)
+        ops, out = (x, wt), torch.empty(b, h, w, cout, device=cuda_device)
+    elif code == 1:
+        wt = torch.randn(3, 3, cout + 1, cin, generator=g).to(cuda_device)
+        ref = conv2d_input((b, cout, h, w), wt[:, :, :cout].permute(3, 2, 0, 1),
+                           nchw(x), padding=1).permute(0, 2, 3, 1)
+        ops, out = (x, wt), torch.empty(b, h, w, cout, device=cuda_device)
+    else:
+        dy = torch.randn(b, h, w, cout, generator=g).to(cuda_device)
+        x1 = torch.cat([x, torch.full((b, h, w, 1), 0.37, device=cuda_device)],
+                       dim=-1)
+        ref = conv2d_weight(nchw(x1), (cout, cin + 1, 3, 3), nchw(dy),
+                            padding=1).permute(2, 3, 1, 0)
+        ops, out = (x, dy), torch.empty(3, 3, cin + 1, cout,
+                                        device=cuda_device)
+    scratch = torch.empty(
+        lib.lrnde_conv_core_scratch_floats(code, b, h, w, cin, cout),
+        device=cuda_device)
+    p = _build.ptr
+
+    def run():
+        err = lib.lrnde_conv_core(code, p(ops[0]), p(ops[1]), p(sc), p(out),
+                                  p(scratch), b, h, w, cin, cout,
+                                  _build.stream_ptr(x.device))
+        _build.check(lib, err, "conv_core")
+        return out.clone()
+
+    first = run()
+    assert _rel(first, ref) <= 1e-5
+    assert torch.equal(run(), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 512, 700, 1100])
+def test_ordered_slot_sum_on_card(cuda_device, n):
+    # solve.cuh::ordered_slot_sum, the persistent kernels' error-norm sum,
+    # at slot counts that are not multiples of the warp width or of its
+    # 512-slot chunk: bitwise the one-thread left-to-right float32 sum
+    import numpy as np
+
+    from localregneuralde_tpu_torch.ops.cuda import _build
+
+    lib = _build.load_library()
+    g = torch.Generator().manual_seed(n)
+    slots = torch.rand(n, generator=g) * torch.logspace(-6, 2, n)
+    want = np.float32(0.0)
+    for v in slots.numpy():
+        want = np.float32(want + v)
+    out = torch.empty(1, device=cuda_device)
+    d = slots.to(cuda_device)
+    err = lib.lrnde_slot_sum(_build.ptr(d), n, _build.ptr(out),
+                             _build.stream_ptr(d.device))
+    _build.check(lib, err, "slot_sum")
+    assert float(out) == float(want)
+
+
+@pytest.mark.cuda
+def test_sde_kernels_repeat_at_main_path_shapes(cuda_device):
+    # kernels 10 (B = 512, F = 32, H = 64, SOSRI at 0.14) and 11 (the score
+    # demo: B = 4096, F = 2, SOSRI at 1e-2) run twice on the same inputs and
+    # Philox seed: the same outputs and step counts, bitwise
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_sde_solve, persistent_vpsde_solve,
+    )
+    from localregneuralde_tpu_torch.sde import PhiloxNormals
+
+    keys = ("y_final", "ys", "naccept", "nreject", "natt")
+    w, u0 = _sde_setup(cuda_device, 512)
+    kw = _sde_kw(cuda_device, 512)
+    a = persistent_sde_solve(w, u0, (0.0, 1.0), **kw)
+    b = persistent_sde_solve(w, u0, (0.0, 1.0), **kw)
+    assert bool(a["success"])
+    assert all(torch.equal(a[k], b[k]) for k in keys)
+    params, chain, x = _score_setup(cuda_device, 4096)
+    kw = dict(noise=PhiloxNormals(1234, 4096, 2, device=cuda_device),
+              rtol=1e-2, atol=1e-2, solver="sosri", delta=1 / 6,
+              max_steps=4096, saveat_arr=torch.tensor([0.999],
+                                                      device=cuda_device),
+              **SCHEDULE)
+    a = persistent_vpsde_solve(params, chain, x, (0.0, 0.999), **kw)
+    b = persistent_vpsde_solve(params, chain, x, (0.0, 0.999), **kw)
+    assert bool(a["success"])
+    assert all(torch.equal(a[k], b[k]) for k in keys)
+
+
 def _score_setup(device, batch, features=2, hidden=64, seed=0):
     """The score demo's network (TDChain 2 -> 64 -> 64 -> 2, tanh, tanh,
     identity) with Glorot weights and small biases, and a state batch."""

@@ -222,6 +222,41 @@ def test_default_tree_rejection_consistent_and_additive():
     assert abs(float(np.corrcoef(w, z)[0, 1])) < 0.15
 
 
+def _level_by_level_wz(tree, t):
+    """The tree's descent written level by level (draw, then combine, then
+    step into the child), the order the CUDA kernel used before it walked
+    the path first."""
+    tau = tree.tau(t)
+    half, quarter = np.float32(0.5), np.float32(0.25)
+    wb = tree.normals(1) * float(np.sqrt(tree.span))
+    wa = torch.zeros_like(wb)
+    a, b, node = np.float32(0.0), np.float32(1.0), 1
+    for _ in range(tree.depth):
+        m = (a + b) * half
+        scale = np.sqrt((b - a) * quarter * tree.span)
+        wm = (wa + wb) * 0.5 + tree.normals(2 * node + 2) * float(scale)
+        if tau >= m:
+            wa, a, node = wm, m, 2 * node + 1
+        else:
+            wb, b, node = wm, m, 2 * node
+    frac = (tau - a) / (b - a) if b > a else np.float32(0.0)
+    return wa + (wb - wa) * float(frac)
+
+
+@pytest.mark.parametrize("span", [(0.0, 1.0), (1e-3, 0.7)])
+def test_tree_path_first_descent_is_bitwise_level_by_level(span):
+    # τ = 0 and 1, τ exactly on a midpoint (the tau >= m edge: 0.5, 0.25,
+    # 0.375 at span (0, 1)), and generic times
+    t0, t1 = span
+    tree = VirtualBrownianTree(PhiloxNormals(7, 5, 3), t0, t1)
+    ts = [t0, t1, 0.5, 0.25, 0.375, 0.123456, t0 + 0.61 * (t1 - t0), 2.0]
+    for t in ts:
+        assert torch.equal(tree.wz(t), _level_by_level_wz(tree, t)), t
+    shallow = VirtualBrownianTree(PhiloxNormals(3, 4, 4), t0, t1, depth=3)
+    for t in ts:
+        assert torch.equal(shallow.wz(t), _level_by_level_wz(shallow, t)), t
+
+
 def test_uniform_clamp_and_icdf_match_jax():
     """tests/test_fused_sde.py:274 on the port: the clamp keeps every bit
     pattern inside (0, 1), and the transform is the JAX kernel's."""
