@@ -17,7 +17,10 @@ on the card:
 5. holds the backward kernels (the step VJP, the knot recording of the
    persistent solve, the dense and the two-level sweep) against their plain
    versions, checks that the two-level replay repeats the forward bitwise,
-   and times them;
+   times them (kernel 8 both replay-forced and on its dense branch at the
+   ``mlp.yaml`` knots, as the train step runs it), and holds both sweeps,
+   beside the FP32 plain sweep, against the plain sweep in float64 on the
+   same knots;
 6. trains the same config with ``--model.regularize=unbiased`` through
    ``construct_optimizer`` → ``make_train_step`` for a few Adam steps at
    both tolerances, counts the kernel launches per step, and holds the
@@ -75,15 +78,17 @@ on the card:
     GEMM core's forward and cuDNN.
 
 Beside those: each persistent kernel's outputs (kernels 4 at both
-tolerances, 5, 6, 8, 9, 10 and 11) are hashed with SHA-256 and held
-against ``DIGESTS``, the digests of the kernels before their redesign for
-the H100, so a kernel change that keeps them is bitwise the old kernel;
+tolerances, 5, 6, 8's replay and its gradients, 9, 10 and 11) are hashed
+with SHA-256 and held against ``DIGESTS``, the digests of the kernels
+before their redesign for the H100, so a kernel change that keeps them is
+bitwise the old kernel;
 kernels 13 and 14 are split by kernel with ``torch.profiler``; the conv GEMM
 core of kernels 13 and 14 is timed alone in each orientation (forward, data
 and weight gradient at N = 64 and N = 8) in TFLOP/s beside cuDNN in FP32
 (``[conv core]``, a ``{"conv_core": [...]}`` line); and kernel 11's
-attempt is split into its phases by an instantiation with a compile-time
-clock (``[vpsde attribution]``).
+attempt and kernel 7's (and 8's) transposed step are split into their
+phases by instantiations with a compile-time clock (``[vpsde
+attribution]``, ``[sweep attribution]``).
 
 ``--only=PART[,PART...]`` runs the kernel checks, digests and timings of
 some parts (``PARTS``: kernels, backward, sde, chain, conv, conv_core,
@@ -257,14 +262,19 @@ def kernel_split(label, fn, n=5, top=12):
 # inputs are made from fixed seeds), taken on the kernels before their
 # redesign for the H100 (NVIDIA H100 80GB HBM3, 700 W): a kernel change
 # that keeps a digest keeps every output bit and every accept and reject
-# count.
+# count. "K8 replay" holds kernel 8's window replay (the replayed states
+# and their count), which its cluster redesign keeps; "K8 grads" holds its
+# gradients, whose sums the redesign reordered on purpose, taken on the
+# cluster sweep.
 DIGESTS = {
     "K4 mlp.yaml":
         "e44871cbccc65b5feb83750178380cfcdbac0317ef585369813d08c465a56029",
     "K4 bench":
         "bf789bca4fd75e5bb07066515e9102d61196f8c56f8ac982546b2e01727976bc",
-    "K8 mlp.yaml":
-        "8d41103cabd5e1f5c0626599added5546d1ed992789c9bc0749bcefc49e0c8ca",
+    "K8 replay":
+        "18d61a9defd0c37a8e93b51554cd89a7c5f78ffc5c973121706f836cd6b4567f",
+    "K8 grads":
+        "3cd7a5e6ea73b811fb8ff013aefe61b326aa8130d975936a11ba0eb9037c5ced",
     "K10":
         "72b959a34b87650bad4b784b84c7b5dbc53c37bf70d70403fc4b2963c6fe830c",
     "K5 rtol 1e-4":
@@ -416,16 +426,16 @@ def phase_kernels(device):
              lambda: persistent_tsit5_solve_plain(w, x, (0.0, 1.0), **kw)],
             n=10, warmup=1,
         )
-        print(f"[solve {name}] kernel {ms:.3f} ms, loop {plain:.3f} ms")
+        # the kernel's six evaluations per attempt; in u0 and k1_0, out ys
+        # and y_final
+        b4 = bound(6 * tdmlp_flops() * (fa - 2) // 6,
+                   4 * (3 + saveat.shape[0]) * B * F + tdmlp_weight_bytes())
+        print(f"[solve {name}] kernel {ms:.3f} ms, loop {plain:.3f} ms | "
+              f"bound {b4['bound_ms']:.4f} ms ({fa - 2} evaluations, "
+              f"{b4['bound_by']})")
         if overrides:
-            # the kernel's six evaluations per attempt; in u0 and k1_0, out
-            # ys and y_final
             res["persistent_tsit5_solve"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, call_ms=ms,
-                **bound(6 * tdmlp_flops() * (fa - 2) // 6,
-                        4 * (3 + saveat.shape[0]) * B * F
-                        + tdmlp_weight_bytes()),
-            )
+                max_abs_err=err, ms=ms, plain_ms=plain, call_ms=ms, **b4)
     for name, r in res.items():
         print(f"[kernel {name}] max-abs {r['max_abs_err']:.3e} | device "
               f"time per launch {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
@@ -723,7 +733,8 @@ def phase_backward_kernels(device, w, x):
         *sweep_args(rec), *ckpt_args(rec), **tl, dense_cap=8,
         return_replay=True)
     check(n > 8, "the mlp.yaml solve is too short to force the replay")
-    digest("K8 mlp.yaml", *flat(win), replay[:n + 1])
+    digest("K8 replay", replay[:n + 1], n)
+    digest("K8 grads", *flat(win))
     check(torch.equal(replay[:n + 1], rec["knot_us"][:n + 1]),
           "the replay does not repeat the forward bitwise")
     rel = max(rel_err(a, b) for a, b in zip(flat(win), flat(dense)))
@@ -732,6 +743,59 @@ def phase_backward_kernels(device, w, x):
           f"bitwise equal to the dense knots; gradients vs the dense sweep: "
           f"relative max-abs {rel:.3e}, bitwise {bitwise}")
     check(rel <= 1e-6, f"two-level sweep vs dense: {rel}")
+    # kernel 8 as the mlp.yaml train step runs it: dense_cap 512 ≥ n, so the
+    # dense branch sweeps the recorded knots
+    check(n <= dense_cap, "the mlp.yaml solve outgrew the dense knots")
+    train_kw = dict(**tl, dense_cap=dense_cap)
+    on_path = persistent_two_level_sweep(*sweep_args(rec), *ckpt_args(rec),
+                                         **train_kw)
+    check(all(torch.equal(a, b) for a, b in zip(flat(on_path), flat(dense))),
+          "the dense branch of kernel 8 differs from kernel 7")
+    plain_m = persistent_stored_sweep_plain(*sweep_args(rec))
+    rel_m = max(rel_err(a, b) for a, b in zip(flat(on_path), flat(plain_m)))
+    err_m = max(max_abs(a, b) for a, b in zip(flat(on_path), flat(plain_m)))
+    check(rel_m <= 1e-4, f"dense kernel 8 vs plain: {rel_m}")
+    ms, plain = median_ms(
+        [lambda: persistent_two_level_sweep(*sweep_args(rec), *ckpt_args(rec),
+                                            **train_kw),
+         lambda: persistent_stored_sweep_plain(*sweep_args(rec))],
+        n=10, warmup=1)
+    res["persistent_two_level_sweep_dense"] = dict(
+        max_abs_err=err_m, ms=ms, plain_ms=plain,
+        **bound(19 * n * tdmlp_flops(),
+                4 * (n + 1 + 3 + 2) * B * F + 2 * tdmlp_weight_bytes()))
+    from localregneuralde_tpu_torch.ops.cuda.fused_solve_bwd import sweep_plan
+    clusters = lib.lrnde_sweep_clusters(B, F, H)
+    plan = sweep_plan(B, F, H)
+    check(clusters >= 1, f"sweep cluster query failed: {clusters}")
+    print(f"[sweep dense mlp.yaml] {n} steps, dense_cap {dense_cap} (the "
+          f"train step's branch): relative max-abs vs plain {rel_m:.3e}; "
+          f"{ms:.3f} ms, plain {plain:.3f} ms | {clusters} clusters of "
+          f"{plan.cluster} CTAs resident for {len(plan.row_blocks)} row "
+          f"blocks of {plan.rows}, {plan.smem_bytes} B of shared memory a CTA")
+    # both sweeps against the plain sweep in float64 on the same knots
+    for label, r_, out in (("K7 bench", recs["bench"][0],
+                            persistent_stored_sweep(*sweep_args(
+                                recs["bench"][0]))),
+                           ("K8 mlp.yaml", rec, win)):
+        args = sweep_args(r_)
+        args64 = [type(w)(*[p_.double() for p_ in w])] + [
+            a.double() if a.is_floating_point() else a for a in args[1:]]
+        ref = flat(persistent_stored_sweep_plain(*args64))
+        p32 = flat(persistent_stored_sweep_plain(*args))
+        names = ("a_u", "a_k", "d_w1", "d_b1", "d_w2", "d_b2")
+        k_err = {nm: rel_err(a.double(), b) for nm, a, b in
+                 zip(names, flat(out), ref)}
+        p_err = {nm: rel_err(a.double(), b) for nm, a, b in
+                 zip(names, p32, ref)}
+        print(f"[sweep fp64 {label}] relative max-abs vs the float64 plain "
+              f"sweep: kernel {max(k_err.values()):.3e} "
+              f"{ {k: f'{v:.2e}' for k, v in k_err.items()} }; FP32 plain "
+              f"{max(p_err.values()):.3e} "
+              f"{ {k: f'{v:.2e}' for k, v in p_err.items()} }")
+        check(max(k_err.values()) <= 1e-4,
+              f"sweep {label} vs float64: {k_err}")
+    phase_sweep_attribution(w, rec, saveat, ct_ys, ct_y, dense)
     # against the plain two-level sweep at the bench tolerance, where the
     # plain replay takes the kernel forward's steps (stride 4, capacity 2)
     rec_b, w4, kw_b = recs["bench"]
@@ -761,6 +825,49 @@ def phase_backward_kernels(device, w, x):
     print(f"[sweep two-level] mlp.yaml tolerance with replay: {ms:.3f} ms, "
           f"plain {plain:.3f} ms")
     return res
+
+
+# adjoint_sweep.cu::SweepPhase, in order
+SWEEP_PHASES = ("k1", *[f"stage {i}" for i in range(1, 7)], "seed",
+                *[f"{part} {i}" for i in range(6, 0, -1)
+                  for part in ("dh", "dz", "dx")],
+                "dW1", "dW2", "carries")
+
+
+def phase_sweep_attribution(w, rec, saveat, ct_ys, ct_y, ref, runs=3):
+    """Kernel 7's (and kernel 8's dense branch's) transposed step by phase:
+    the instantiation with the compile-time clock
+    (lrnde_adjoint_sweep_timed, launched only here) on the mlp.yaml knots,
+    CTA 0's %globaltimer summed over the steps. Its result must be bitwise
+    the untimed kernel's (``ref``)."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import _build, fused_solve_bwd
+
+    lib = _build.load_library()
+    check(lib.lrnde_sweep_phases() == len(SWEEP_PHASES),
+          "the kernel's phases are not SWEEP_PHASES")
+    timing = torch.zeros(len(SWEEP_PHASES) + 1, dtype=torch.int64,
+                         device=ct_y.device)
+    totals = torch.zeros(len(SWEEP_PHASES) + 1, dtype=torch.float64)
+    for i in range(runs + 1):
+        out = fused_solve_bwd._launch(
+            w, rec["knot_ts"], rec["knot_us"], rec["naccept"], saveat, ct_ys,
+            ct_y, timing=timing)
+        torch.cuda.synchronize()
+        if i > 0:  # the first launch warms up
+            totals += timing.cpu().double()
+    steps = int(timing[-1])
+    per = (totals[:-1] / totals[-1] / 1e3).tolist()
+    split = {name: round(us, 3) for name, us in zip(SWEEP_PHASES, per)}
+    print(f"[sweep attribution] {steps} steps, CTA 0, µs per transposed "
+          f"step (mean of {runs} launches): {split}; sum {sum(per):.3f}")
+    got = [out[0], out[1], *out[2]]
+    want = [ref[0], ref[1], *ref[2]]
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "sweep attribution: the timed kernel's result differs")
+    check(steps == int(rec["naccept"]), "sweep attribution: step count")
+    return split
 
 
 def _train_setup(overrides, device, params=None, regularize="unbiased",
@@ -2882,6 +2989,9 @@ def main():
         "persistent_two_level_sweep": (
             "localregneuralde_tpu_torch/csrc/adjoint_sweep.cu",
             "localregneuralde_tpu/ops/pallas/fused_solve_bwd.py:783"),
+        "persistent_two_level_sweep_dense": (
+            "localregneuralde_tpu_torch/csrc/adjoint_sweep.cu",
+            "localregneuralde_tpu/ops/pallas/fused_solve_bwd.py:783"),
         "persistent_sde_solve": (
             "localregneuralde_tpu_torch/csrc/sde_solve.cu",
             "localregneuralde_tpu/ops/pallas/fused_sde_solve.py:251"),
@@ -2913,6 +3023,10 @@ def main():
             "localregneuralde_tpu_torch/csrc/conv_orient.cu",
             "scripts/conv_orient_probe.py:120"),
     }
+    # kernel 8's dense branch is the same launch as kernel 8, timed on the
+    # knots the mlp.yaml train step sweeps
+    counts["persistent_two_level_sweep_dense"] = counts[
+        "persistent_two_level_sweep"]
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=counts[name], **res[name])

@@ -42,6 +42,10 @@ _SIGNATURES = {
         [_I] + [_P] * 8 + [_I] + [_P] * 7 + [_F] * 3 + [_I] * 3 + [_P] * 9
         + [_I] * 3 + [_F] + [_P]
     ),
+    "lrnde_adjoint_sweep_timed": (
+        [_I] + [_P] * 8 + [_I] + [_P] * 7 + [_F] * 3 + [_I] * 3 + [_P] * 9
+        + [_I] * 3 + [_F] + [_P, _P]
+    ),
     "lrnde_sde_solve": (
         [_I] + [_P] * 3 + [_I] + [_P] * 6 + [_U, _I] + [_P] * 15 + [_I] * 4
         + [_F] * 4 + [_P]
@@ -75,10 +79,16 @@ _SIGNATURES = {
     "lrnde_conv_orient_im2col": [_P] * 3 + [_I] * 5 + [_P],
 }
 
+# C entry -> argument types of the integer queries
+_INTS = {
+    "lrnde_sweep_clusters": [_I] * 3,
+}
+
 # C entry -> argument types of the size queries, which return long long
 _SIZES = {
     "lrnde_bwd_scratch_floats": [_I] * 3,
     "lrnde_sweep_scratch_floats": [_I] * 3,
+    "lrnde_sweep_smem_floats": [_I] * 2,
     "lrnde_sde_solve_smem_floats": [_I] * 2,
     "lrnde_sde_sweep_smem_floats": [_I] * 2,
     "lrnde_sde_grad_floats": [_I] * 2,
@@ -167,13 +177,18 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in _INTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     for name, argtypes in _SIZES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_longlong
     for name in ("lrnde_rows_per_block", "lrnde_sde_rows_per_block",
                  "lrnde_chain_rows_per_block", "lrnde_score_rows_per_block",
-                 "lrnde_sde_phases"):
+                 "lrnde_sde_phases", "lrnde_sweep_phases",
+                 "lrnde_sweep_cluster", "lrnde_sweep_rows"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.lrnde_error_string.argtypes = [ctypes.c_int]

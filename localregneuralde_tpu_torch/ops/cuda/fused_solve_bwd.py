@@ -12,6 +12,12 @@ reads ``naccept`` on the device. In two-level mode a solve longer than
 with the forward kernel's own attempt code, so the replay repeats the
 forward bitwise, and each window is swept after its replay.
 
+The sweep runs on thread-block clusters (``sweep_plan``): a cluster of
+``SWEEP_CLUSTER`` CTAs owns ``SWEEP_ROWS`` batch rows, and each CTA a slice
+of the features, with its slices of the weights and of their gradients in
+shared memory for the whole launch (a TD-MLP too wide for both adds its
+gradients into its cluster's partial in global memory).
+
 Returns ``(a_u, a_k, d_w)``: the state cotangent at t0, the cotangent on
 k1_0 (the caller closes it through the VJP of f(u0, t0)), and the weight
 gradients as ``TDMLPWeights``. The plain versions are the eager sweeps of
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -47,6 +54,69 @@ from .fused_solve import (
     check_chain_operands,
     plain_step,
 )
+
+
+# csrc/sweep_cluster.cuh: CTAs per cluster and batch rows per cluster
+SWEEP_CLUSTER = 8
+SWEEP_ROWS = 36
+# csrc/tdmlp.cuh: the replay's row blocking, K split and CTA size
+_REPLAY_ROWS, _REPLAY_SPLIT, _THREADS = 8, 16, 1024
+# shared memory a CTA can have on an H100 (227 KB), less the kernel's static
+# shared memory (the slot-sum buffer, the step weights and the replay's
+# controller: under 2.5 KB); csrc/sweep_cluster.cuh::kSweepSmemLimit
+SWEEP_SMEM_BYTES = 227 * 1024 - 2560
+
+
+class SweepPlan(NamedTuple):
+    """The cluster layout of kernels 7 and 8 at (B, F, H), as the CUDA code
+    computes it (``csrc/sweep_cluster.cuh``, ``csrc/adjoint_sweep.cu``)."""
+
+    cluster: int            # CTAs per cluster
+    rows: int               # batch rows per cluster (a row block)
+    row_blocks: tuple       # (row0, nrows) of each row block
+    slices: tuple           # (f0, n) of each CTA rank's feature slice
+    smem_bytes: int         # dynamic shared memory of a CTA
+    scratch_floats: int     # global scratch
+    max_partials: int       # clusters at most, one gradient partial each
+    grads_shared: bool      # gradient slices in shared memory (else the
+                            # CTAs add into their cluster's partial)
+
+
+def _vec_ld(n: int) -> int:
+    """A shared tile's leading dimension: a multiple of 4 floats whose
+    quotient by 4 is odd (csrc/sweep_cluster.cuh::vec_ld)."""
+    q = -(-n // 4)
+    return 4 * (q if q % 2 else q + 1)
+
+
+def _r4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def sweep_plan(B: int, F: int, H: int) -> SweepPlan:
+    """The cluster plan of the sweep: row blocks of ``SWEEP_ROWS`` rows,
+    feature slices of ceil(F / ``SWEEP_CLUSTER``) (the last ones shorter or
+    empty), and the shared memory of a CTA: its gradient slices where they
+    fit (at F = 784 up to H = 102), then the larger of its weight slices
+    with the four work tiles and the window replay's shared memory, which
+    lies over them between windows."""
+    C, R = SWEEP_CLUSTER, SWEEP_ROWS
+    S = -(-F // C)
+    ldS, ldW = _vec_ld(S), _vec_ld(H)
+    slices = tuple((min(F, c * S), min(F, (c + 1) * S) - min(F, c * S))
+                   for c in range(C))
+    row_blocks = tuple((r0, min(R, B - r0)) for r0 in range(0, B, R))
+    # the weight slices and the gradient slices have one shape
+    slice_floats = S * ldW + (H + 1) * ldS + _r4(S) + 2 * _r4(H)
+    inbox, hrow = C * (-(-(R * H) // C)), R * ldW
+    tiles = 2 * R * ldS + _r4(max(inbox, hrow)) + hrow
+    replay = (F * _REPLAY_ROWS + _REPLAY_SPLIT * H * _REPLAY_ROWS
+              + H * _REPLAY_ROWS + _THREADS)
+    work = max(slice_floats + tiles, replay)
+    shared = 4 * (slice_floats + work) <= SWEEP_SMEM_BYTES
+    smem = 4 * ((slice_floats if shared else 0) + work)
+    return SweepPlan(C, R, row_blocks, slices, smem,
+                     21 * B * F + 6 * B * H, len(row_blocks), shared)
 
 
 def _plain_sweep(w: TDMLPWeights, knots, naccept, saveat_arr, ct_ys, ct_y,
@@ -97,15 +167,30 @@ def persistent_two_level_sweep_plain(w, knot_ts, knot_us, naccept,
 
 
 def _launch(w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y, tl=None,
-            return_replay=False):
+            return_replay=False, timing=None):
+    """One launch of kernel 7 or 8 (two-level with ``tl``); with ``timing``
+    (int64, ``lrnde_sweep_phases() + 1``) the instantiation with the
+    compile-time clock, which fills it with CTA 0's nanoseconds per phase
+    and the number of steps."""
     ct_ys, ct_y = ct_ys.contiguous(), ct_y.contiguous()
     if not knot_us.is_contiguous():
         raise ValueError("knot_us: needs a contiguous buffer")
     B, F, H = check_operands(w, ct_y, *ct_ys, *knot_us[:1])
+    plan = sweep_plan(B, F, H)
+    if plan.smem_bytes > SWEEP_SMEM_BYTES:
+        raise ValueError(
+            f"adjoint_sweep: (F, H) = ({F}, {H}) needs {plan.smem_bytes} "
+            f"bytes of shared memory a CTA, over {SWEEP_SMEM_BYTES}")
     dev = ct_y.device
     lib = _build.load_library()
-    rows = lib.lrnde_rows_per_block()
-    n_blocks = -(-B // rows)
+    if (lib.lrnde_sweep_cluster(), lib.lrnde_sweep_rows(),
+            lib.lrnde_sweep_smem_floats(F, H) * 4,
+            lib.lrnde_sweep_scratch_floats(B, F, H)) != (
+            plan.cluster, plan.rows, plan.smem_bytes, plan.scratch_floats):
+        raise RuntimeError("adjoint_sweep: the library's layout differs "
+                           "from sweep_plan")
+    # the window replay's row blocks (slots) are the forward's
+    n_blocks = -(-B // lib.lrnde_rows_per_block())
     two_level = tl is not None
     stride = int(tl["stride"]) if two_level else 1
     saveat = saveat_arr.to(device=dev, dtype=torch.float32).contiguous()
@@ -113,15 +198,16 @@ def _launch(w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y, tl=None,
     naccept = naccept.to(device=dev, dtype=torch.int32).reshape(1)
     a_u, a_k = torch.empty_like(ct_y), torch.empty_like(ct_y)
     d_w = torch.empty(weight_grad_size(F, H), device=dev)
-    scratch = torch.empty(lib.lrnde_sweep_scratch_floats(B, F, H),
-                          device=dev)
-    part = torch.empty((n_blocks, weight_grad_size(F, H)), device=dev)
+    scratch = torch.empty(plan.scratch_floats, device=dev)
+    part = torch.empty((plan.max_partials, weight_grad_size(F, H)),
+                       device=dev)
     p = _build.ptr
     null = ctypes.c_void_p(0)
     if two_level:
         slots = torch.empty(2 * n_blocks, device=dev)
         barrier = torch.zeros(1, dtype=torch.int32, device=dev)
-        local_ts = torch.empty(n_blocks * (stride + 1), device=dev)
+        local_ts = torch.empty(plan.max_partials * plan.cluster * (stride + 1),
+                               device=dev)
         local_us = torch.empty((stride + 1, B, F), device=dev)
         ckpts = [tl[k].contiguous() for k in
                  ("ckpt_ts", "ckpt_us", "ckpt_ks", "ckpt_dts", "ckpt_qolds")]
@@ -133,12 +219,16 @@ def _launch(w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y, tl=None,
         ck, extra = [null] * 5, [null] * 4
         t_end = rtol = atol = 0.0
         max_steps = dense_cap = 0
-    err = lib.lrnde_adjoint_sweep(
+    entry = lib.lrnde_adjoint_sweep
+    clock = []
+    if timing is not None:
+        entry, clock = lib.lrnde_adjoint_sweep_timed, [p(timing)]
+    err = entry(
         int(two_level), *[p(x) for x in w], p(knot_ts),
         p(knot_us), p(naccept), p(saveat), saveat.shape[0],
         p(ct_ys), p(ct_y), *ck, t_end, rtol, atol, max_steps,
         stride, dense_cap, p(a_u), p(a_k), p(d_w), p(scratch), p(part),
-        *extra, B, F, H, 1.0 / float(B * F), _build.stream_ptr(dev),
+        *extra, B, F, H, 1.0 / float(B * F), *clock, _build.stream_ptr(dev),
     )
     _build.check(lib, err, "adjoint_sweep")
     out = a_u, a_k, split_weight_grad(d_w, F, H)

@@ -168,6 +168,65 @@ def test_sweeps_match_plain_on_card(cuda_device):
         assert _rel(a, b) <= 1e-6
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(13, 40, 7), (64, 784, 100),
+                                   (520, 785, 100), (13, 785, 7),
+                                   (64, 784, 150)])
+def test_cluster_sweep_ragged_on_card(cuda_device, shape):
+    """The cluster sweep where rows do not fill the last row block of 36
+    (B = 13, 64, 520), slices are odd or short (F = 40: 5 a CTA; 785: 99
+    and a last slice of 92), H = 7 or 100, and H = 150, whose gradients go
+    to the clusters' partials in global memory: dense and two-level against
+    the plain sweep, bitwise repeatable, two-level equal to dense, and the
+    layout the library reports equal to ``sweep_plan``'s."""
+    from localregneuralde_tpu_torch.ops.cuda import (
+        _build, persistent_stored_sweep, persistent_stored_sweep_plain,
+        persistent_two_level_sweep,
+    )
+    from localregneuralde_tpu_torch.ops.cuda.fused_solve_bwd import (
+        sweep_plan,
+    )
+
+    B, F, H = shape
+    lib = _build.load_library()
+    plan = sweep_plan(B, F, H)
+    assert lib.lrnde_sweep_smem_floats(F, H) * 4 == plan.smem_bytes
+    w, x = _card_setup(cuda_device, B, F, H, seed=3)
+    rec = _recorded(w, x, 1e-6, knot_stride=2)
+    n = int(rec["naccept"])
+    assert n > 2
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    ct_ys = torch.randn((2, B, F), generator=g, device=cuda_device)
+    ct_y = torch.randn((B, F), generator=g, device=cuda_device)
+    args = (w, rec["knot_ts"], rec["knot_us"], rec["naccept"],
+            torch.tensor([0.5, 1.0], device=cuda_device), ct_ys, ct_y)
+    tl = (rec["ckpt_ts"], rec["ckpt_us"], rec["ckpt_ks"], rec["ckpt_dts"],
+          rec["ckpt_qolds"])
+    kw = dict(t_end=1.0, rtol=1e-6, atol=1e-6, max_steps=64, stride=2)
+
+    def flat(out):
+        return [out[0], out[1], *out[2]]
+
+    dense = flat(persistent_stored_sweep(*args))
+    ref = flat(persistent_stored_sweep_plain(*args))
+    for a, b in zip(dense, ref):
+        assert _rel(a, b) <= 1e-4
+    on_path = flat(persistent_two_level_sweep(*args, *tl, **kw, dense_cap=n))
+    win, replay = persistent_two_level_sweep(*args, *tl, **kw, dense_cap=2,
+                                             return_replay=True)
+    win = flat(win)
+    assert torch.equal(replay[:3], rec["knot_us"][:3])
+    for a, b in zip(win, dense):
+        assert _rel(a, b) <= 1e-6
+    for a, b in zip(on_path, dense):
+        assert torch.equal(a, b)
+    again = flat(persistent_stored_sweep(*args))
+    win_again = flat(persistent_two_level_sweep(*args, *tl, **kw,
+                                                dense_cap=2))
+    for a, b in zip(again + win_again, dense + win):
+        assert torch.equal(a, b)
+
+
 def _sde_setup(device, batch, seed=0, features=32, hidden=64):
     from localregneuralde_tpu_torch.ops.cuda import SDEWeights
 
