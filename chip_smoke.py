@@ -86,14 +86,17 @@ kernels 13 and 14 are split by kernel with ``torch.profiler``; the conv GEMM
 core of kernels 13 and 14 is timed alone in each orientation (forward, data
 and weight gradient at N = 64 and N = 8) in TFLOP/s beside cuDNN in FP32
 (``[conv core]``, a ``{"conv_core": [...]}`` line); and kernel 11's
-attempt and kernel 7's (and 8's) transposed step are split into their
-phases by instantiations with a compile-time clock (``[vpsde
-attribution]``, ``[sweep attribution]``).
+attempt, kernel 4's attempt and kernel 7's (and 8's) transposed step are
+split into their phases by instantiations with a compile-time clock
+(``[vpsde attribution]``, ``[solve attribution]``, ``[sweep
+attribution]``); kernel 3 is held against the float64 VJP beside the FP32
+plain one (``[step_bwd fp64]``).
 
 ``--only=PART[,PART...]`` runs the kernel checks, digests and timings of
 some parts (``PARTS``: kernels, backward, sde, chain, conv, conv_core,
-score, attribution, orient) without the model paths, and prints neither the
-kernels line nor the ok line.
+score, attribution, orient, solve) without the model paths, and prints
+neither the kernels line nor the ok line; ``ode`` adds the MNIST ODE's
+serving and training paths (``[slice ...]``, ``[train ...]``).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
 kernel, the latent encoder's share of the latent train step, and the CIFAR
@@ -265,7 +268,9 @@ def kernel_split(label, fn, n=5, top=12):
 # count. "K8 replay" holds kernel 8's window replay (the replayed states
 # and their count), which its cluster redesign keeps; "K8 grads" holds its
 # gradients, whose sums the redesign reordered on purpose, taken on the
-# cluster sweep.
+# cluster sweep; "K3" holds kernel 3's VJP, taken on its cluster redesign
+# (a new order too). The K4 digests hold through kernel 4's cluster
+# redesign.
 DIGESTS = {
     "K4 mlp.yaml":
         "e44871cbccc65b5feb83750178380cfcdbac0317ef585369813d08c465a56029",
@@ -289,8 +294,14 @@ DIGESTS = {
         "345c6f0924ead73e5b152bc7c59d5dac3a1b527399e1b971c14fd44dbc51b404",
     "K6":
         "ee519b3048e636d24150dae433d8436a65634d560e3cf8e544b4aff49d16c6f6",
+    "K3":
+        "98440d6fa0bef5f97702c62325f4a882205ac07a0bba2c405e03241d81f69f50",
 }
 SEEN_DIGESTS = {}
+# Kernel 3's largest error relative to the float64 plain VJP, on the kernel
+# before its cluster redesign ([step_bwd fp64], NVIDIA H100 80GB HBM3, 700 W):
+# the redesign may at most double it.
+K3_FP64_BEFORE = 3.719e-7
 DIGEST_KEYS = ("y_final", "ys", "naccept", "nreject", "natt")
 
 
@@ -567,32 +578,178 @@ def phase_slice(device):
     return counts
 
 
+def phase_solve_cluster(w, x):
+    """Kernel 4's cluster layout, and its pieces bitwise the kernels whose
+    arithmetic it keeps: one cluster evaluation (``solve_eval``) against
+    kernel 1, at full and ragged B, and one attempt against kernel 2's
+    step."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_solve, fused_tdmlp, fused_tsit5_step,
+    )
+
+    lib = _build_lib()
+    plan = fused_solve.solve_plan(B, F, H)
+    clusters = lib.lrnde_solve_clusters(B, F, H)
+    check(clusters >= 1, f"solve cluster query failed: {clusters}")
+    print(f"[solve cluster] {clusters} clusters of {plan.cluster} CTAs "
+          f"resident for {len(plan.row_blocks)} row blocks of {plan.rows}; "
+          f"weight slices in shared memory {plan.weights_shared}; "
+          f"{plan.smem_bytes} B of shared memory a CTA")
+    for b in (B, 410):
+        for s in (0.0, 0.3):
+            ours = fused_solve.solve_eval(w, x[:b], s)
+            check(torch.equal(ours, fused_tdmlp(w, x[:b], s)),
+                  f"the cluster evaluation differs from kernel 1 (B = {b}, "
+                  f"s = {s}): max-abs {max_abs(ours, fused_tdmlp(w, x[:b], s))}")
+    # one attempt (max_steps 1) from the wrapper's own start
+    tol, span = 1e-4, 1.0
+    k1_0, dt0, _ = fused_solve._start(lambda u, t: fused_tdmlp(w, u, t), x,
+                                      0.0, span, tol, tol)
+    one = fused_solve._launch_solve(
+        w, x, (0.0, span), rtol=tol, atol=tol, max_steps=1,
+        saveat_arr=torch.tensor([span], device=x.device))
+    unew = fused_tsit5_step(w, x, torch.zeros((), device=x.device), dt0,
+                            k1_0)[0]
+    check(int(one["naccept"]) == 1, "the first attempt was rejected")
+    check(torch.equal(one["y_final"], unew),
+          f"kernel 4's first step differs from kernel 2's: max-abs "
+          f"{max_abs(one['y_final'], unew)}")
+    print("[solve cluster] one evaluation bitwise kernel 1 (B = 512, 410); "
+          "one accepted attempt bitwise kernel 2's step")
+
+
+# the attribution phases of kernel 4's attempt (lrnde_solve_phases), in order
+SOLVE_PHASES = (*[f"input {i}" for i in range(2, 8)],
+                *[f"product1 {i}" for i in range(2, 8)],
+                *[f"hidden {i}" for i in range(2, 8)],
+                *[f"product2 {i}" for i in range(2, 8)],
+                "error", "error wait", "error sum", "barrier", "slot sum",
+                "commit")
+
+
+def solve_raw(w, x, tol, max_steps):
+    """A raw launch of kernel 4 (lrnde_persistent_tsit5, saveat 0.5 and 1.0)
+    from the wrapper's own start, its grid barrier's counter zeroed before
+    each launch: the kernel's device time without the wrapper's work."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import fused_solve, fused_tdmlp
+
+    lib = _build_lib()
+    k1_0, dt0, _ = fused_solve._start(lambda u, t: fused_tdmlp(w, u, t), x,
+                                      0.0, 1.0, tol, tol)
+    sc = fused_solve.device_scalars([0.0, 1.0, dt0], x)
+    n_scratch = lib.lrnde_solve_scratch_floats(B, F, H)
+    barrier = torch.zeros(1, dtype=torch.int32, device=x.device)
+    fn = raw_launch(
+        "lrnde_persistent_tsit5", x, k1_0, sc,
+        torch.tensor([0.5, 1.0], device=x.device), 2, *w,
+        torch.empty_like(x), torch.empty((2, B, F), device=x.device),
+        torch.empty(4, dtype=torch.int32, device=x.device),
+        torch.empty(2, device=x.device), torch.empty(n_scratch, device=x.device),
+        torch.empty(2 * B // 8 + 2, device=x.device), barrier, B, F, H,
+        max_steps, tol, tol, 1.0 / (B * F), None, None, 0, None, None, None,
+        None, None, 0, 1, None, None)
+
+    def launch():
+        barrier.zero_()
+        return fn()
+
+    return launch
+
+
+def phase_solve_attribution(w, x, runs=3):
+    """Kernel 4's attempt by phase at the mlp.yaml tolerance: the
+    instantiation with the compile-time clock (lrnde_persistent_tsit5_timed,
+    launched only here), CTA 0's %globaltimer summed over the attempts. Its
+    result must be bitwise the untimed kernel's."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_solve, persistent_tsit5_solve,
+    )
+
+    lib = _build_lib()
+    phase_solve_cluster(w, x)
+    check(lib.lrnde_solve_phases() == len(SOLVE_PHASES),
+          "the kernel's phases are not SOLVE_PHASES")
+    kw = dict(rtol=1.4e-8, atol=1.4e-8, max_steps=10000,
+              saveat_arr=torch.tensor([0.5, 1.0], device=x.device))
+    ref = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw)
+    timing = torch.zeros(len(SOLVE_PHASES) + 1, dtype=torch.int64,
+                         device=x.device)
+    totals = torch.zeros(len(SOLVE_PHASES) + 1, dtype=torch.float64)
+    for i in range(runs + 1):
+        out = fused_solve._launch_solve(w, x, (0.0, 1.0), **kw, timing=timing)
+        torch.cuda.synchronize()
+        if i > 0:  # the first launch warms up
+            totals += timing.cpu().double()
+    attempts = int(timing[-1])
+    per = (totals[:-1] / totals[-1] / 1e3).tolist()
+    split = {name: round(us, 3) for name, us in zip(SOLVE_PHASES, per)}
+    groups = {g: round(sum(v for k, v in split.items() if k.startswith(g)), 3)
+              for g in ("input", "product1", "hidden", "product2")}
+    print(f"[solve attribution] {attempts} attempts, CTA 0, µs per attempt "
+          f"(mean of {runs} launches): {split}; by kind {groups}; sum "
+          f"{sum(per):.3f}")
+    check(all(torch.equal(out[k], ref[k]) for k in ("y_final", "ys"))
+          and all(int(out[k]) == int(ref[k])
+                  for k in ("naccept", "nreject", "nfe")),
+          "solve attribution: the timed kernel's result differs")
+    check(attempts == (int(ref["nfe"]) - 2) // 6,
+          "solve attribution: attempt count")
+    # the kernel alone, back to back, at both tolerances
+    raws = [solve_raw(w, x, 1.4e-8, 10000), solve_raw(w, x, 1e-4, 64)]
+    check(all(r() == 0 for r in raws), "solve: raw launch failed")
+    ms = back_to_back_ms(raws, n=20, warmup=2)
+    print(f"[solve attribution] the kernel alone, device ms per launch: "
+          f"mlp.yaml {ms[0]:.4f} ({1e3 * ms[0] / attempts:.1f} µs an "
+          f"attempt), bench {ms[1]:.4f}")
+    return split
+
+
 def rel_err(a, b):
     """max-abs difference relative to the largest magnitude of b."""
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
-def phase_backward_kernels(device, w, x):
-    """The step VJP, knot recording and both sweeps against their plain
-    versions at the slice's shapes."""
+def _build_lib():
+    from localregneuralde_tpu_torch.ops.cuda import _build
+
+    return _build.load_library()
+
+
+def step_bwd_raw_args(w, x, k1, sc, cts):
+    """The operands of a raw ``lrnde_tsit5_step_bwd`` launch at (B, F, H)
+    with fresh outputs and scratch."""
     import torch
 
-    from localregneuralde_tpu_torch.ode.stored_adjoint import knot_layout
-    from localregneuralde_tpu_torch.ops.cuda import (
-        fused_step_bwd, fused_step_bwd_plain, fused_tdmlp, fused_tsit5_step,
-        persistent_stored_sweep, persistent_stored_sweep_plain,
-        persistent_tsit5_solve, persistent_two_level_sweep,
-        persistent_two_level_sweep_plain, tdmlp_plain,
-    )
     from localregneuralde_tpu_torch.ops.cuda.fused_mlp_bwd import (
         weight_grad_size,
     )
+    from localregneuralde_tpu_torch.ops.cuda.fused_solve_bwd import sweep_plan
 
-    res = {}
-    g = torch.Generator(device=device).manual_seed(7)
+    plan = sweep_plan(B, F, H)
+    return (x, k1, sc, *w, *cts, torch.empty_like(x), torch.empty_like(x),
+            torch.empty(weight_grad_size(F, H), device=x.device),
+            torch.empty(plan.scratch_floats, device=x.device),
+            torch.empty((plan.max_partials, weight_grad_size(F, H)),
+                        device=x.device),
+            B, F, H)
 
-    # kernel 3 — against the autograd VJP of the plain step; FP32 sums in
-    # another order: expect ≤ 1e-5 of the largest value
+
+def phase_step_bwd(device, w, x, g):
+    """Kernel 3 against the autograd VJP of the plain step (FP32 and FP64),
+    its digest, and its time. Draws the nine cotangents from ``g``."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_step_bwd, fused_step_bwd_plain, tdmlp_plain,
+    )
+    # against the autograd VJP of the plain step; FP32 sums in another
+    # order: expect ≤ 1e-5 of the largest value
     t = torch.tensor(0.2, device=device)
     dt = torch.tensor(0.05, device=device)
     k1 = tdmlp_plain(w, x, t)
@@ -606,28 +763,57 @@ def phase_backward_kernels(device, w, x):
     print(f"[step_bwd] relative max-abs vs plain {rels}")
     check(max(rels.values()) <= 1e-4, f"step_bwd vs plain: {rels}")
     again = fused_step_bwd(w, x, t, dt, k1, cts)
-    check(all(torch.equal(a, b) for a, b in zip(again[0], ours[0])),
-          "step_bwd weight gradients are not deterministic")
-    from localregneuralde_tpu_torch.ops.cuda import _build
-    lib = _build.load_library()
-    n_blocks = -(-B // lib.lrnde_rows_per_block())
-    raw = raw_launch(
-        "lrnde_tsit5_step_bwd", x, k1, torch.stack([t, dt]), *w, *cts,
-        torch.empty_like(x), torch.empty_like(x),
-        torch.empty(weight_grad_size(F, H), device=device),
-        torch.empty(lib.lrnde_bwd_scratch_floats(B, F, H), device=device),
-        torch.empty((n_blocks, weight_grad_size(F, H)), device=device),
-        B, F, H)
+    check(all(torch.equal(a, b) for a, b in zip(
+              [*again[0], again[1], again[2]], [*ours[0], ours[1], ours[2]])),
+          "step_bwd is not bitwise repeatable")
+    digest("K3", *ours[0], ours[1], ours[2])
+    # against the float64 VJP on the same inputs, beside the FP32 plain one
+    w64 = type(w)(*[p_.double() for p_ in w])
+    ref64 = fused_step_bwd_plain(w64, x.double(), t.double(), dt.double(),
+                                 k1.double(), [c.double() for c in cts])
+    flat64 = [ref64[1], ref64[2], *ref64[0]]
+    k_err = {n: rel_err(a.double(), b) for n, a, b in
+             zip(names, [ours[1], ours[2], *ours[0]], flat64)}
+    p_err = {n: rel_err(a.double(), b) for n, a, b in
+             zip(names, [ref[1], ref[2], *ref[0]], flat64)}
+    k64 = max(k_err.values())
+    print(f"[step_bwd fp64] relative max-abs vs the float64 plain VJP: "
+          f"kernel {k64:.3e} {({k: f'{v:.2e}' for k, v in k_err.items()})}; "
+          f"FP32 plain {max(p_err.values()):.3e} "
+          f"{({k: f'{v:.2e}' for k, v in p_err.items()})}")
+    check(k64 <= 2 * K3_FP64_BEFORE,
+          f"step_bwd vs float64: {k64:.3e}, over 2x the old kernel's "
+          f"{K3_FP64_BEFORE:.3e}")
+    raw = raw_launch("lrnde_tsit5_step_bwd", *step_bwd_raw_args(
+        w, x, k1, torch.stack([t, dt]), cts))
     check(raw() == 0, "step_bwd: raw launch failed")
     ms, plain = back_to_back_ms(
         [raw, lambda: fused_step_bwd_plain(w, x, t, dt, k1, cts)], n=50)
     # recompute six evaluations, transpose them (two products a stage) and
     # the stage-batched weight gradients: 18 evaluations' products
-    res["tsit5_step_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                 **bound(18 * tdmlp_flops(),
-                                         52 * B * F + 2 * tdmlp_weight_bytes()))
-    print(f"[step_bwd] bitwise-deterministic weight gradients; device "
-          f"{ms:.4f} ms per launch, plain {plain:.4f} ms")
+    print(f"[step_bwd] bitwise repeatable; device {ms:.4f} ms per launch, "
+          f"plain {plain:.4f} ms")
+    return {"tsit5_step_bwd": dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        **bound(18 * tdmlp_flops(), 52 * B * F + 2 * tdmlp_weight_bytes()))}
+
+
+def phase_backward_kernels(device, w, x):
+    """The step VJP, knot recording and both sweeps against their plain
+    versions at the slice's shapes."""
+    import torch
+
+    from localregneuralde_tpu_torch.ode.stored_adjoint import knot_layout
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_tdmlp, fused_tsit5_step, persistent_stored_sweep,
+        persistent_stored_sweep_plain, persistent_tsit5_solve,
+        persistent_two_level_sweep, persistent_two_level_sweep_plain,
+    )
+
+    # the generator's draws: K3's nine cotangents, then the sweeps'
+    g = torch.Generator(device=device).manual_seed(7)
+    res = phase_step_bwd(device, w, x, g)
+    lib = _build_lib()
 
     # kernel 4 with recording, at both tolerances
     saveat = torch.tensor([0.5, 1.0], device=device)
@@ -2886,19 +3072,28 @@ def phase_conv_orient(device):
 
 
 PARTS = ("kernels", "backward", "sde", "chain", "conv", "conv_core",
-         "score", "attribution", "orient")
+         "score", "attribution", "orient", "solve", "ode")
 
 
-def partial_run(device, parts):
+def partial_run(device, parts, profile=False):
     """``--only=PART[,PART...]``: the kernel checks, digests and timings of
     the named parts of PARTS, without the model paths; prints no kernels
     line and no ok line."""
     bad = set(parts) - set(PARTS)
     check(not bad, f"--only: unknown parts {bad}, expected some of {PARTS}")
+    import torch
+
     w = x = None
-    if {"kernels", "backward", "sde"} & set(parts):
+    if {"kernels", "backward", "sde", "solve"} & set(parts):
         w, x, _ = phase_kernels(device)
         phase_determinism(w, x)
+    if "solve" in parts:
+        phase_step_bwd(device, w, x,
+                       torch.Generator(device=device).manual_seed(7))
+        phase_solve_attribution(w, x)
+    if "ode" in parts:
+        phase_slice(device)
+        phase_train(device, profile=profile)
     if "backward" in parts:
         phase_backward_kernels(device, w, x)
     if "sde" in parts:
@@ -2936,9 +3131,10 @@ def main():
 
     phase_build()
     if only:
-        return partial_run(device, only[0])
+        return partial_run(device, only[0], profile)
     w, x, res = phase_kernels(device)
     phase_determinism(w, x)
+    phase_solve_attribution(w, x)
     path_counts = [phase_slice(device)]
     res.update(phase_backward_kernels(device, w, x))
     path_counts.append(phase_train(device, profile=profile))

@@ -78,118 +78,11 @@ struct SweepArgs {
   unsigned long long* timing;  // timed instantiation: (kSwPhases + 1)
 };
 
-// Global scratch of the sweep: k1..k7 and their cotangents (7 (B, F)
-// each), d_u and the six stage inputs ((B, F) each), and the six stages'
-// hidden rows (6 (B, H)). The window replay's working buffers (u, k1..k7,
-// u_new) lie over the first nine (B, F).
-__host__ __device__ inline size_t sweep_scratch_floats(int B, int F, int H) {
-  return 21 * static_cast<size_t>(B) * F + 6 * static_cast<size_t>(B) * H;
-}
-
-// The attribution phases of one transposed step, timed by CTA 0's thread 0
-// on %globaltimer in the instantiation with kTime (chip_smoke.py's
-// [sweep attribution] only): the k1 recompute, the six stage recomputes,
-// the seeding of the stage cotangents, each reverse stage's dh, dz and dx
-// (stage 6 first), the two weight-gradient updates and the carries.
-enum SweepPhase {
-  kSwK1, kSwStage1, kSwSeed = kSwStage1 + 6, kSwRev,
-  kSwDW1 = kSwRev + 18, kSwDW2, kSwCarry, kSwPhases
-};
-
-template <bool kOn>
-struct SweepClock {
-  unsigned long long last = 0, acc[kSwPhases] = {};
-  __device__ static unsigned long long now() {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    return t;
-  }
-  __device__ bool owner() const { return blockIdx.x == 0 && threadIdx.x == 0; }
-  __device__ void start() {
-    if constexpr (kOn) if (owner()) last = now();
-  }
-  // the timed instantiation waits for the whole CTA first; the untimed one
-  // does nothing
-  __device__ void mark(int phase) {
-    if constexpr (kOn) {
-      __syncthreads();
-      if (owner()) {
-        const unsigned long long t = now();
-        acc[phase] += t - last;
-        last = t;
-      }
-    }
-  }
-  __device__ void stage(int i) { mark(kSwStage1 + i); }
-  __device__ void rev(int i, int part) { mark(kSwRev + 3 * (5 - i) + part); }
-  __device__ void grad(int which) { mark(kSwDW1 + which); }
-  // per-phase nanoseconds, then the number of steps transposed
-  __device__ void write(unsigned long long* out, int steps) const {
-    if constexpr (kOn) {
-      if (owner()) {
-        for (int i = 0; i < kSwPhases; ++i) out[i] = acc[i];
-        out[kSwPhases] = static_cast<unsigned long long>(steps);
-      }
-    }
-  }
-};
-
 struct StepWeights {
   float wt[kMaxSave][7];  // dt·b_m(θ_s)·hit_s
   float hit[kMaxSave];
   float t, dt;
 };
-
-// The time of stage i + 2 (i = 0..5) of a step from t with step dt.
-__device__ inline float stage_time(int i, float t, float dt) {
-  const float c = i == 0 ? C1 : i == 1 ? C2 : i == 2 ? C3 : C4;
-  return i < 4 ? fmaf(c, dt, t) : __fadd_rn(t, dt);
-}
-
-// Passes over this CTA's slice of a row block (nrows × Sn elements, at
-// rows of stride F in global memory): loads first, then stores, through
-// __restrict__ pointers and unrolled, so each thread has several global
-// loads in flight. Products and sums are written out (fmaf, __fmul_rn,
-// __fadd_rn): the compiler contracts nothing, so the timed instantiation
-// computes the same bits.
-
-// tile[r][f] = src[r·F + f]
-__device__ inline void load_tile(const float* __restrict__ src, int tile,
-                                 int ld, int nrows, int Sn, int F) {
-  const int nel = nrows * Sn;
-#pragma unroll 2
-  for (int idx = threadIdx.x; idx < nel; idx += kSweepThreads) {
-    const int r = idx / Sn, f = idx - r * Sn;
-    sweep_smem[tile + r * ld + f] = src[static_cast<size_t>(r) * F + f];
-  }
-}
-
-// The input of stage i + 2: x = u + dt·Σ_{q ≤ i} a_iq·k_q, into the tile
-// xa and into xs.
-__device__ inline void stage_input_pass(int i, float dt,
-                                        const float* __restrict__ u,
-                                        const float* __restrict__ ks,
-                                        size_t BF, float* __restrict__ xs,
-                                        int xa, int ld, int nrows, int Sn,
-                                        int F) {
-  const int nel = nrows * Sn;
-#pragma unroll 2
-  for (int idx = threadIdx.x; idx < nel; idx += kSweepThreads) {
-    const int r = idx / Sn, f = idx - r * Sn;
-    const size_t o = static_cast<size_t>(r) * F + f;
-    float kv[6];
-#pragma unroll
-    for (int q = 0; q < 6; ++q) kv[q] = q <= i ? ks[q * BF + o] : 0.f;
-    const float uv = u[o];
-    float acc = __fmul_rn(kA[i][0], kv[0]);
-#pragma unroll
-    for (int q = 1; q < 6; ++q)
-      if (q <= i) acc = fmaf(kA[i][q], kv[q], acc);
-    const float v = fmaf(dt, acc, uv);
-    sweep_smem[xa + r * ld + f] = v;
-    xs[o] = v;
-  }
-}
 
 // The seed of the stage cotangents: column m of the saveat hits (weights
 // sw.wt) at one element, Σ_q wt[q][m]·ct_q in q order.
@@ -208,90 +101,43 @@ __device__ inline void load_cts(const float* __restrict__ ct_ys, size_t o,
   for (int q = 0; q < kMaxSave; ++q) ct[q] = q < n_save ? ct_ys[q * BF + o] : 0.f;
 }
 
-// The cotangent on k7 (the last stage's output), into the tile ka: its
-// saveat seed plus the FSAL carry a_k.
-__device__ inline void seed_k7_pass(const StepWeights& sw, int n_save,
-                                    const float* __restrict__ ct_ys,
-                                    const float* __restrict__ a_k, size_t BF,
-                                    int ka, int ld, int nrows, int Sn, int F) {
-  const int nel = nrows * Sn;
-#pragma unroll 2
-  for (int idx = threadIdx.x; idx < nel; idx += kSweepThreads) {
-    const int r = idx / Sn, f = idx - r * Sn;
-    const size_t o = static_cast<size_t>(r) * F + f;
+// The seed of the sweep's transposed step (sweep_cluster.cuh::
+// transpose_rows) at one row block: the saveat cotangents through the
+// interpolant weights (sw), the FSAL carry a_k on k7 and the state carry
+// a_u on u_new; it writes the carries of the step before.
+struct SweepSeed {
+  const StepWeights& sw;
+  int n_save;
+  size_t BF;
+  const float* __restrict__ ct_ys;  // offset to the CTA's corner
+  float* a_u;
+  float* a_k;
+  __device__ float k7(size_t o) const {
     float ct[kMaxSave];
     load_cts(ct_ys, o, BF, n_save, ct);
-    const float ak = a_k[o];
-    sweep_smem[ka + r * ld + f] = __fadd_rn(seed_of(sw, n_save, ct, 6), ak);
+    return __fadd_rn(seed_of(sw, n_save, ct, 6), a_k[o]);
   }
-}
-
-// The cotangent dx of stage input i (in the tile xa) flows to u (du; at
-// stage i = 5, which is u_new, with the carried a_u) and to the k_q it was
-// built from. At i = 5 the cotangents on k1..k6 start from their saveat
-// seeds, computed here rather than stored and read back.
-__device__ inline void dx_pass(int i, float dt, int xa, int ld,
-                               const StepWeights& sw, int n_save,
-                               const float* __restrict__ ct_ys,
-                               const float* __restrict__ a_u,
-                               float* __restrict__ du,
-                               float* __restrict__ dks, size_t BF, int nrows,
-                               int Sn, int F) {
-  const int nel = nrows * Sn;
-#pragma unroll 2
-  for (int idx = threadIdx.x; idx < nel; idx += kSweepThreads) {
-    const int r = idx / Sn, f = idx - r * Sn;
-    const size_t o = static_cast<size_t>(r) * F + f;
-    float dk[6];
-    if (i == 5) {
-      float ct[kMaxSave];
-      load_cts(ct_ys, o, BF, n_save, ct);
-#pragma unroll
-      for (int q = 0; q < 6; ++q) dk[q] = seed_of(sw, n_save, ct, q);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 6; ++q) dk[q] = q <= i ? dks[q * BF + o] : 0.f;
-    }
-    const float prev = i == 5 ? a_u[o] : du[o];
-    float dx = sweep_smem[xa + r * ld + f];
-    float dup;
-    if (i == 5) {
-      dx = __fadd_rn(dx, prev);
-      dup = dx;
-    } else {
-      dup = __fadd_rn(prev, dx);
-    }
-    du[o] = dup;
-#pragma unroll
-    for (int q = 0; q < 6; ++q)
-      if (q <= i) dks[q * BF + o] = fmaf(__fmul_rn(dt, kA[i][q]), dx, dk[q]);
-  }
-}
-
-// a_u <- d_u + Σ_hit ct_ys ; a_k <- d_k1
-__device__ inline void carry_pass(const StepWeights& sw, int n_save,
-                                  const float* __restrict__ ct_ys,
-                                  const float* __restrict__ du,
-                                  const float* __restrict__ dk1, size_t BF,
-                                  float* __restrict__ a_u,
-                                  float* __restrict__ a_k, int nrows, int Sn,
-                                  int F) {
-  const int nel = nrows * Sn;
-#pragma unroll 2
-  for (int idx = threadIdx.x; idx < nel; idx += kSweepThreads) {
-    const int r = idx / Sn, f = idx - r * Sn;
-    const size_t o = static_cast<size_t>(r) * F + f;
+  __device__ void ks(size_t o, float (&dk)[6]) const {
     float ct[kMaxSave];
     load_cts(ct_ys, o, BF, n_save, ct);
-    const float duv = du[o], dk1v = dk1[o];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) dk[q] = seed_of(sw, n_save, ct, q);
+  }
+  __device__ float x(int i, size_t o, float dx) const {
+    return i == 5 ? __fadd_rn(dx, a_u[o]) : dx;
+  }
+  // a_u <- d_u + Σ_hit ct_ys ; a_k <- d_k1
+  __device__ void finish(size_t o, float du, float dk1) const {
+    float ct[kMaxSave];
+    load_cts(ct_ys, o, BF, n_save, ct);
     float dint = 0.f;
 #pragma unroll
     for (int q = 0; q < kMaxSave; ++q)
       if (q < n_save) dint = fmaf(ct[q], sw.hit[q], dint);
-    a_u[o] = __fadd_rn(duv, dint);
-    a_k[o] = dk1v;
+    a_u[o] = __fadd_rn(du, dint);
+    a_k[o] = dk1;
   }
-}
+};
 
 // Transpose accepted steps n_hi-1 .. 0 whose start times are ts[j] and start
 // states us + j·BF, for this cluster's row blocks and this CTA's slice,
@@ -301,23 +147,13 @@ __device__ void sweep_range(const SweepArgs& a, const SweepSmem& s,
                             const GradSink<kShared>& gs, StepWeights& sw,
                             int n_hi, const float* ts, const float* us,
                             SweepClock<kTime>& clk) {
-  const int F = a.w.F, H = a.w.H, B = a.B, tid = threadIdx.x;
+  const int F = a.w.F, B = a.B, tid = threadIdx.x;
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const SweepSlice sl = sweep_slice(F, rank);
   const int n_rb = (B + kSweepRows - 1) / kSweepRows;
   const int cid = blockIdx.x / kSweepCluster;
   const int ncl = gridDim.x / kSweepCluster;
-  const int ldS = s.ldS, ldW = s.ldW, Sn = sl.n;
-  const int xa = s.xa, ka = s.ka, zp = s.zp, hb = s.hb;
-  const Inbox in = sweep_inbox(s, H, rank);
-  float* const sm = sweep_smem;
   const size_t BF = static_cast<size_t>(B) * F;
-  const size_t BH = static_cast<size_t>(B) * H;
-  float* const ks = a.scratch;             // k1..k7: 7 (B, F)
-  float* const dks = a.scratch + 7 * BF;   // cotangents on k1..k7
-  float* const du = a.scratch + 14 * BF;   // (B, F)
-  float* const xs = a.scratch + 15 * BF;   // stage inputs: 6 (B, F)
-  float* const hs = a.scratch + 21 * BF;   // hidden rows: 6 (B, H)
   const int n_save = a.n_save;
   for (int j = n_hi - 1; j >= 0; --j) {
     clk.start();
@@ -336,95 +172,14 @@ __device__ void sweep_range(const SweepArgs& a, const SweepSmem& s,
       }
     }
     __syncthreads();
-    const float t = sw.t, dt = sw.dt;
     for (int rb = cid; rb < n_rb; rb += ncl) {
       const int row0 = rb * kSweepRows;
       const int nrows = min(kSweepRows, B - row0);
-      // this CTA's corner (row0, f0) of a (B, F) array
       const size_t off = static_cast<size_t>(row0) * F + sl.f0;
-      const float* const u = us + j * BF + off;
-      // k1 of the step, recomputed from its knot
-      load_tile(u, xa, ldS, nrows, Sn, F);
-      __syncthreads();
-      cluster_eval(s, in, sl, H, F, nrows, t, nullptr, ks + off);
-      clk.mark(kSwK1);
-      // the six stages, keeping x_i (global) and h_i (global, per cluster)
-      for (int i = 0; i < 6; ++i) {
-        stage_input_pass(i, dt, u, ks + off, BF, xs + i * BF + off, xa, ldS,
-                         nrows, Sn, F);
-        __syncthreads();
-        cluster_eval(s, in, sl, H, F, nrows, stage_time(i, t, dt),
-                     hs + i * BH + static_cast<size_t>(row0) * H,
-                     ks + (i + 1) * BF + off);
-        clk.stage(i);
-      }
-      // (the saveat seeds of the stage cotangents enter at stage 6 below)
-      clk.mark(kSwSeed);
-      // ---- reverse pass through the stage chain
-      for (int i = 5; i >= 0; --i) {
-        const float st = stage_time(i, t, dt);
-        // dh = dk·W2ᵀ: this slice's partial, pushed to the summing CTAs
-        if (i == 5) {
-          seed_k7_pass(sw, n_save, a.ct_ys + off, a.a_k + off, BF, ka, ldS,
-                       nrows, Sn, F);
-        } else {
-          load_tile(dks + (i + 1) * BF + off, ka, ldS, nrows, Sn, F);
-        }
-        __syncthreads();
-        tile_gemm<3, false, false>(
-            nrows, H, Sn, ka, ldS, s.w2, ldS,
-            [=](int m, int n, float v) { push_partial(in, m * H + n, v); });
-        clk.rev(i, 0);
-        // dz = dh·(1 − h²), from the h_i this CTA reduced in the recompute
-        const float* const hsi = hs + i * BH + static_cast<size_t>(row0) * H;
-        cluster_reduce(in, hb, H, ldW, nrows * H, hsi,
-                       [=](int e, float d, float hv) {
-                         return __fmul_rn(d, fmaf(-hv, hv, 1.f));
-                       });
-        clk.rev(i, 1);
-        // dx = dz·W1ᵀ on the slice, into xa; then its flow to u and k
-        tile_gemm<3, false, false>(
-            nrows, Sn, H, hb, ldW, s.w1, ldW,
-            [=](int m, int n, float v) { sm[xa + m * ldS + n] = v; });
-        __syncthreads();
-        dx_pass(i, dt, xa, ldS, sw, n_save, a.ct_ys + off, a.a_u + off,
-                du + off, dks + off, BF, nrows, Sn, F);
-        __syncthreads();
-        // x_i of the slice for dW1, and h_i of the cluster's rows for dW2
-        // in the inbox (free until the cluster barrier that ends the stage)
-        load_tile(xs + i * BF + off, xa, ldS, nrows, Sn, F);
-        load_tile(hsi, zp, ldW, nrows, H, H);
-        __syncthreads();
-        clk.rev(i, 2);
-        // dW1[S_c, :] += x_iᵀ·dz_i; rank 0: db1 and dw1t
-        tile_gemm<4, true, true>(
-            Sn, H, nrows, xa, ldS, hb, ldW,
-            [=](int m, int n, float v) { gs.w1(m, n, v); });
-        if (rank == 0) {
-          for (int h = tid; h < H; h += kSweepThreads) {
-            float sum = 0.f;
-            for (int r = 0; r < nrows; ++r) sum += sm[hb + r * ldW + h];
-            gs.b1(h, sum, st);
-          }
-        }
-        clk.grad(0);
-        // dW2[:, S_c] += h_iᵀ·dk_i, with its time row and db2
-        tile_gemm<4, true, true>(
-            H, Sn, nrows, zp, ldW, ka, ldS,
-            [=](int m, int n, float v) { gs.w2(m, n, v); });
-        for (int f = tid; f < Sn; f += kSweepThreads) {
-          float sum = 0.f;
-          for (int r = 0; r < nrows; ++r) sum += sm[ka + r * ldS + f];
-          gs.b2(f, sum, st);
-        }
-        // no CTA pushes into this inbox before every CTA is done with h_i
-        cg::this_cluster().sync();
-        clk.grad(1);
-      }
-      carry_pass(sw, n_save, a.ct_ys + off, du + off, dks + off, BF,
-                 a.a_u + off, a.a_k + off, nrows, Sn, F);
-      __syncthreads();
-      clk.mark(kSwCarry);
+      const SweepSeed seed{sw, n_save, BF, a.ct_ys + off, a.a_u + off,
+                           a.a_k + off};
+      transpose_rows(a.w, s, sl, gs, rank, B, row0, nrows, sw.t, sw.dt,
+                     us + j * BF + off, nullptr, a.scratch, seed, clk);
     }
   }
 }

@@ -1,17 +1,20 @@
 // The whole adaptive Tsit5 solve in one cooperative launch, templated on
-// the dynamics type: kernel 4 (tdmlp.cuh::TDMLP, persistent_solve.cu) and
-// kernel 5 (chain.cuh::DenseChain, chain_solve.cu), with the knot and
-// checkpoint recording of the stored adjoint and the reservoir sample of
-// the biased regulariser.
+// the dynamics type: kernel 5 (chain.cuh::DenseChain, chain_solve.cu) and
+// kernel 6 (score.cuh::PfScore, pf_solve.cu), with the knot and checkpoint
+// recording of the stored adjoint and the reservoir sample of the biased
+// regulariser. Kernel 4 (the TD-MLP) ran here too; it now runs on
+// thread-block clusters (persistent_solve.cu), which keep its arithmetic
+// bit for bit, and its attempt at this row blocking remains the sweeps'
+// window replay (sweep_cluster.cuh::TDMLPSweep).
 //
 // Replaces localregneuralde_tpu/ops/pallas/fused_solve.py::_make_kernel
-// (built by _build_call for the ("tdmlp",) and ("chain", ...) families). On
+// (built by _build_call for the ("chain", ...) and ("pfode", ...) families). On
 // the TPU one core ran the accept/reject loop with the state resident in
 // VMEM. Here every CTA owns fixed row blocks (D::rows rows) for the whole
 // solve and loops over them; the state u (the y_final output), the FSAL
 // derivative k1, the stage derivatives k2..k7 and the candidate u_new live
-// in global scratch (8·B·F f32: 13 MB at B = 512, F = 784; 0.33 MB for the
-// latent chain at F = 20), which stays in the 50 MB L2.
+// in global scratch (8·B·F f32: 0.33 MB for the latent chain at B = 512,
+// F = 20), which stays in the 50 MB L2.
 //
 // One attempt (solve.cuh::attempt_eest): each CTA runs the Tsit5 step of its
 // rows, writes the speculative dense output of every saveat time the

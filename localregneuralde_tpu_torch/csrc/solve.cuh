@@ -2,9 +2,10 @@
 // controller, the Tsit5 interpolant weights and ONE ATTEMPT of the adaptive
 // loop over the whole batch.
 //
-// The persistent forward solves (persistent.cuh: kernel 4 for the TD-MLP,
-// kernel 5 for the Dense chain) and the two-level window replays of the
-// adjoint sweeps (replay_window: kernel 8 in adjoint_sweep.cu, kernel 9 in
+// The persistent forward solves (persistent.cuh: kernel 5 for the Dense
+// chain, kernel 6 for the probability flow) and the two-level window
+// replays of the adjoint sweeps (replay_window: kernel 8 in adjoint_sweep.cu,
+// replaying the TD-MLP with the arithmetic of kernel 4, kernel 9 in
 // chain_sweep.cu) all call attempt_eest(), the counterpart of the
 // reference's fused_solve.py::run_attempt_tiles, templated on the dynamics
 // type (tdmlp.cuh::TDMLP, chain.cuh::DenseChain). Each row block's squared

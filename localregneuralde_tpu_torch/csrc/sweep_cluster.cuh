@@ -1,5 +1,6 @@
 // The transposed Tsit5 step of the TD-MLP on a thread-block cluster: the
-// step transpose of kernels 7 and 8 (adjoint_sweep.cu).
+// step transpose of kernels 7 and 8 (adjoint_sweep.cu) and of kernel 3
+// (tsit5_step_bwd.cu), one function (transpose_rows) with a seed argument.
 //
 // Layout. A cluster of kSweepCluster CTAs owns a block of kSweepRows batch
 // rows. CTA c of the cluster owns a slice S_c of the F state features
@@ -526,6 +527,305 @@ __device__ inline void cluster_eval(const SweepSmem& s, const Inbox& in,
                                   fmaf(st, sm[w2t + n], __fadd_rn(v, sm[b2 + n]));
                             });
   __syncthreads();
+}
+
+// ---- the transposed step of one row block (kernels 3, 7 and 8)
+
+// Global scratch of a transposed step: k1..k7 and their cotangents (7
+// (B, F) each), d_u and the six stage inputs ((B, F) each), and the six
+// stages' hidden rows (6 (B, H)). The sweep's window replay lays its
+// working buffers (u, k1..k7, u_new) over the first nine (B, F).
+__host__ __device__ inline size_t sweep_scratch_floats(int B, int F, int H) {
+  return 21 * static_cast<size_t>(B) * F + 6 * static_cast<size_t>(B) * H;
+}
+
+// The attribution phases of one transposed step, timed by CTA 0's thread 0
+// on %globaltimer in the instantiation with kTime (chip_smoke.py's
+// [sweep attribution] only): the k1 recompute, the six stage recomputes,
+// the seeding of the stage cotangents, each reverse stage's dh, dz and dx
+// (stage 6 first), the two weight-gradient updates and the carries.
+enum SweepPhase {
+  kSwK1, kSwStage1, kSwSeed = kSwStage1 + 6, kSwRev,
+  kSwDW1 = kSwRev + 18, kSwDW2, kSwCarry, kSwPhases
+};
+
+template <bool kOn>
+struct SweepClock {
+  unsigned long long last = 0, acc[kSwPhases] = {};
+  __device__ static unsigned long long now() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+  }
+  __device__ bool owner() const { return blockIdx.x == 0 && threadIdx.x == 0; }
+  __device__ void start() {
+    if constexpr (kOn) if (owner()) last = now();
+  }
+  // the timed instantiation waits for the whole CTA first; the untimed one
+  // does nothing
+  __device__ void mark(int phase) {
+    if constexpr (kOn) {
+      __syncthreads();
+      if (owner()) {
+        const unsigned long long t = now();
+        acc[phase] += t - last;
+        last = t;
+      }
+    }
+  }
+  __device__ void stage(int i) { mark(kSwStage1 + i); }
+  __device__ void rev(int i, int part) { mark(kSwRev + 3 * (5 - i) + part); }
+  __device__ void grad(int which) { mark(kSwDW1 + which); }
+  // per-phase nanoseconds, then the number of steps transposed
+  __device__ void write(unsigned long long* out, int steps) const {
+    if constexpr (kOn) {
+      if (owner()) {
+        for (int i = 0; i < kSwPhases; ++i) out[i] = acc[i];
+        out[kSwPhases] = static_cast<unsigned long long>(steps);
+      }
+    }
+  }
+};
+
+// The time of stage i + 2 (i = 0..5) of a step from t with step dt.
+__device__ inline float stage_time(int i, float t, float dt) {
+  const float c = i == 0 ? C1 : i == 1 ? C2 : i == 2 ? C3 : C4;
+  return i < 4 ? fmaf(c, dt, t) : __fadd_rn(t, dt);
+}
+
+// Passes over this CTA's slice of a row block (nrows × Sn elements, at
+// rows of stride F in global memory): loads first, then stores, through
+// __restrict__ pointers and unrolled, so each thread has several global
+// loads in flight. Products and sums are written out (fmaf, __fmul_rn,
+// __fadd_rn): the compiler contracts nothing, so the timed instantiation
+// computes the same bits.
+
+// tile[r][f] = src[r·F + f]
+__device__ inline void load_tile(const float* __restrict__ src, int tile,
+                                 int ld, int nrows, int Sn, int F) {
+  const int nel = nrows * Sn;
+#pragma unroll 2
+  for (int idx = threadIdx.x; idx < nel; idx += kSweepThreads) {
+    const int r = idx / Sn, f = idx - r * Sn;
+    sweep_smem[tile + r * ld + f] = src[static_cast<size_t>(r) * F + f];
+  }
+}
+
+// dst[r·F + f] = src[r·F + f] on the slice
+__device__ inline void copy_slice(const float* __restrict__ src,
+                                  float* __restrict__ dst, int nrows, int Sn,
+                                  int F) {
+  const int nel = nrows * Sn;
+  for (int idx = threadIdx.x; idx < nel; idx += kSweepThreads) {
+    const size_t o = static_cast<size_t>(idx / Sn) * F + idx % Sn;
+    dst[o] = src[o];
+  }
+}
+
+// The input of stage i + 2: x = u + dt·Σ_{q ≤ i} a_iq·k_q, into the tile
+// xa and into xs.
+__device__ inline void stage_input_pass(int i, float dt,
+                                        const float* __restrict__ u,
+                                        const float* __restrict__ ks,
+                                        size_t BF, float* __restrict__ xs,
+                                        int xa, int ld, int nrows, int Sn,
+                                        int F) {
+  const int nel = nrows * Sn;
+#pragma unroll 2
+  for (int idx = threadIdx.x; idx < nel; idx += kSweepThreads) {
+    const int r = idx / Sn, f = idx - r * Sn;
+    const size_t o = static_cast<size_t>(r) * F + f;
+    float kv[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) kv[q] = q <= i ? ks[q * BF + o] : 0.f;
+    const float uv = u[o];
+    float acc = __fmul_rn(kA[i][0], kv[0]);
+#pragma unroll
+    for (int q = 1; q < 6; ++q)
+      if (q <= i) acc = fmaf(kA[i][q], kv[q], acc);
+    const float v = fmaf(dt, acc, uv);
+    sweep_smem[xa + r * ld + f] = v;
+    xs[o] = v;
+  }
+}
+
+// The seed of a transposed step: what its caller (kernels 7 and 8:
+// adjoint_sweep.cu::SweepSeed; kernel 3: tsit5_step_bwd.cu::StepSeed)
+// injects, at element o of the CTA's corner of the row block (a (B, F)
+// offset), provides
+//   float k7(o)                   the cotangent on k7;
+//   void ks(o, float (&dk)[6])    the cotangents on k1..k6;
+//   float x(i, o, dx)             dx plus the direct cotangent on stage
+//                                 input i (i = 5 is u_new, i = 4 is g6);
+//   void finish(o, du, dk1)       the step's results: the cotangents on u
+//                                 and k1.
+
+// The cotangent dx of stage input i (in the tile xa) with its seed flows to
+// u (du) and to the k_q it was built from. At i = 5 the cotangents on
+// k1..k6 start from their seeds, computed here rather than stored and read
+// back.
+template <typename Seed>
+__device__ inline void dx_pass(int i, float dt, int xa, int ld,
+                               const Seed& seed, float* __restrict__ du,
+                               float* __restrict__ dks, size_t BF, int nrows,
+                               int Sn, int F) {
+  const int nel = nrows * Sn;
+#pragma unroll 2
+  for (int idx = threadIdx.x; idx < nel; idx += kSweepThreads) {
+    const int r = idx / Sn, f = idx - r * Sn;
+    const size_t o = static_cast<size_t>(r) * F + f;
+    float dk[6];
+    if (i == 5) {
+      seed.ks(o, dk);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) dk[q] = q <= i ? dks[q * BF + o] : 0.f;
+    }
+    const float prev = i == 5 ? 0.f : du[o];
+    const float dx = seed.x(i, o, sweep_smem[xa + r * ld + f]);
+    du[o] = i == 5 ? dx : __fadd_rn(prev, dx);
+#pragma unroll
+    for (int q = 0; q < 6; ++q)
+      if (q <= i) dks[q * BF + o] = fmaf(__fmul_rn(dt, kA[i][q]), dx, dk[q]);
+  }
+}
+
+// The cotangent on k7 into the tile ka.
+template <typename Seed>
+__device__ inline void seed_k7_pass(const Seed& seed, int ka, int ld,
+                                    int nrows, int Sn, int F) {
+  const int nel = nrows * Sn;
+#pragma unroll 2
+  for (int idx = threadIdx.x; idx < nel; idx += kSweepThreads) {
+    const int r = idx / Sn, f = idx - r * Sn;
+    sweep_smem[ka + r * ld + f] = seed.k7(static_cast<size_t>(r) * F + f);
+  }
+}
+
+// seed.finish with the step's cotangents on u and k1
+template <typename Seed>
+__device__ inline void finish_pass(const Seed& seed,
+                                   const float* __restrict__ du,
+                                   const float* __restrict__ dk1, int nrows,
+                                   int Sn, int F) {
+  const int nel = nrows * Sn;
+#pragma unroll 2
+  for (int idx = threadIdx.x; idx < nel; idx += kSweepThreads) {
+    const int r = idx / Sn, f = idx - r * Sn;
+    const size_t o = static_cast<size_t>(r) * F + f;
+    seed.finish(o, du[o], dk1[o]);
+  }
+}
+
+// The transpose of one Tsit5 step from (u, t) with step dt for this
+// cluster's row block (row0, nrows) and this CTA's slice, started from the
+// seed's cotangents (see above), with its weight gradient added into gs.
+// u, k1 and the seed are offset to the CTA's corner (row0, f0) of a (B, F)
+// array; k1 null recomputes k1 from u (the sweep's knots), otherwise it is
+// copied into the scratch (sweep_scratch_floats).
+template <bool kTime, bool kShared, typename Seed>
+__device__ void transpose_rows(const TDMLP& w, const SweepSmem& s,
+                               SweepSlice sl, const GradSink<kShared>& gs,
+                               int rank, int B, int row0, int nrows, float t,
+                               float dt, const float* u, const float* k1,
+                               float* scratch, const Seed& seed,
+                               SweepClock<kTime>& clk) {
+  const int F = w.F, H = w.H, tid = threadIdx.x;
+  const int ldS = s.ldS, ldW = s.ldW, Sn = sl.n;
+  const int xa = s.xa, ka = s.ka, zp = s.zp, hb = s.hb;
+  const Inbox in = sweep_inbox(s, H, rank);
+  float* const sm = sweep_smem;
+  const size_t BF = static_cast<size_t>(B) * F;
+  const size_t BH = static_cast<size_t>(B) * H;
+  // this CTA's corner (row0, f0) of a (B, F) array
+  const size_t off = static_cast<size_t>(row0) * F + sl.f0;
+  float* const ks = scratch + off;             // k1..k7: 7 (B, F)
+  float* const dks = scratch + 7 * BF + off;   // cotangents on k1..k7
+  float* const du = scratch + 14 * BF + off;   // (B, F)
+  float* const xs = scratch + 15 * BF + off;   // stage inputs: 6 (B, F)
+  float* const hs = scratch + 21 * BF + static_cast<size_t>(row0) * H;
+  if (k1 == nullptr) {
+    // k1 of the step, recomputed from its knot
+    load_tile(u, xa, ldS, nrows, Sn, F);
+    __syncthreads();
+    cluster_eval(s, in, sl, H, F, nrows, t, nullptr, ks);
+  } else {
+    copy_slice(k1, ks, nrows, Sn, F);
+    __syncthreads();
+  }
+  clk.mark(kSwK1);
+  // the six stages, keeping x_i (global) and h_i (global, per cluster)
+  for (int i = 0; i < 6; ++i) {
+    stage_input_pass(i, dt, u, ks, BF, xs + i * BF, xa, ldS, nrows, Sn, F);
+    __syncthreads();
+    cluster_eval(s, in, sl, H, F, nrows, stage_time(i, t, dt), hs + i * BH,
+                 ks + (i + 1) * BF);
+    clk.stage(i);
+  }
+  // (the seeds of the stage cotangents enter at stage 6 below)
+  clk.mark(kSwSeed);
+  // ---- reverse pass through the stage chain
+  for (int i = 5; i >= 0; --i) {
+    const float st = stage_time(i, t, dt);
+    // dh = dk·W2ᵀ: this slice's partial, pushed to the summing CTAs
+    if (i == 5) {
+      seed_k7_pass(seed, ka, ldS, nrows, Sn, F);
+    } else {
+      load_tile(dks + (i + 1) * BF, ka, ldS, nrows, Sn, F);
+    }
+    __syncthreads();
+    tile_gemm<3, false, false>(
+        nrows, H, Sn, ka, ldS, s.w2, ldS,
+        [=](int m, int n, float v) { push_partial(in, m * H + n, v); });
+    clk.rev(i, 0);
+    // dz = dh·(1 − h²), from the h_i this CTA reduced in the recompute
+    const float* const hsi = hs + i * BH;
+    cluster_reduce(in, hb, H, ldW, nrows * H, hsi,
+                   [=](int e, float d, float hv) {
+                     return __fmul_rn(d, fmaf(-hv, hv, 1.f));
+                   });
+    clk.rev(i, 1);
+    // dx = dz·W1ᵀ on the slice, into xa; then its flow to u and k
+    tile_gemm<3, false, false>(
+        nrows, Sn, H, hb, ldW, s.w1, ldW,
+        [=](int m, int n, float v) { sm[xa + m * ldS + n] = v; });
+    __syncthreads();
+    dx_pass(i, dt, xa, ldS, seed, du, dks, BF, nrows, Sn, F);
+    __syncthreads();
+    // x_i of the slice for dW1, and h_i of the cluster's rows for dW2
+    // in the inbox (free until the cluster barrier that ends the stage)
+    load_tile(xs + i * BF, xa, ldS, nrows, Sn, F);
+    load_tile(hsi, zp, ldW, nrows, H, H);
+    __syncthreads();
+    clk.rev(i, 2);
+    // dW1[S_c, :] += x_iᵀ·dz_i; rank 0: db1 and dw1t
+    tile_gemm<4, true, true>(
+        Sn, H, nrows, xa, ldS, hb, ldW,
+        [=](int m, int n, float v) { gs.w1(m, n, v); });
+    if (rank == 0) {
+      for (int h = tid; h < H; h += kSweepThreads) {
+        float sum = 0.f;
+        for (int r = 0; r < nrows; ++r) sum += sm[hb + r * ldW + h];
+        gs.b1(h, sum, st);
+      }
+    }
+    clk.grad(0);
+    // dW2[:, S_c] += h_iᵀ·dk_i, with its time row and db2
+    tile_gemm<4, true, true>(
+        H, Sn, nrows, zp, ldW, ka, ldS,
+        [=](int m, int n, float v) { gs.w2(m, n, v); });
+    for (int f = tid; f < Sn; f += kSweepThreads) {
+      float sum = 0.f;
+      for (int r = 0; r < nrows; ++r) sum += sm[ka + r * ldS + f];
+      gs.b2(f, sum, st);
+    }
+    // no CTA pushes into this inbox before every CTA is done with h_i
+    cg::this_cluster().sync();
+    clk.grad(1);
+  }
+  finish_pass(seed, du, dks, nrows, Sn, F);
+  __syncthreads();
+  clk.mark(kSwCarry);
 }
 
 // ---- the window replay at the sweep's thread count

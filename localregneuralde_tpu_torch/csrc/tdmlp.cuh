@@ -30,9 +30,12 @@
 // evaluation. B = 512 gives 64 CTAs, one per SM, so the CTA is made as wide
 // as an SM allows (1024 threads) to keep the most loads in flight: measured
 // on an H100, 1024 threads ran one evaluation in 35 µs where 256 took 67 µs,
-// and the Tsit5 step in 0.22 ms where 256 took 0.62 ms. Staging the weights
-// in shared memory across a cluster (DSMEM), more rows per CTA or
-// tensor-core products are left to later work.
+// and the Tsit5 step in 0.22 ms where 256 took 0.62 ms. Kernels 1 and 2
+// run this way. The persistent solve (kernel 4, persistent_solve.cu) keeps
+// this arithmetic bit for bit on thread-block clusters instead, each CTA
+// with its residue slice of the weights resident in shared memory; the
+// stored-adjoint kernels 3, 7 and 8 run on the clusters of
+// sweep_cluster.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -124,18 +127,6 @@ __device__ inline Smem carve_smem(float* base, int F, int H) {
   s.red = s.hid + static_cast<size_t>(H) * kRows;
   return s;
 }
-
-// The dynamics-type interface of persistent.cuh: the TD-MLP reads its
-// weights from L2 and keeps nothing in shared memory for the whole solve.
-__host__ __device__ inline size_t shared_floats(const TDMLP& w) {
-  return smem_floats(w.F, w.H);
-}
-
-__device__ inline Smem carve_shared(const TDMLP& w, float* raw) {
-  return carve_smem(raw, w.F, w.H);
-}
-
-__device__ inline void load_shared(const TDMLP&, const Smem&) {}
 
 // Load rows [0, nrows) of x (row-major, stride F) into sm.xs; rows past
 // nrows are zero.

@@ -37,6 +37,11 @@ _SIGNATURES = {
         [_P] * 4 + [_I] + [_P] * 11 + [_I] * 4 + [_F] * 3
         + [_P, _P, _I] + [_P] * 5 + [_I, _I] + [_P] * 2 + [_P]
     ),
+    "lrnde_persistent_tsit5_timed": (
+        [_P] * 4 + [_I] + [_P] * 11 + [_I] * 4 + [_F] * 3
+        + [_P, _P, _I] + [_P] * 5 + [_I, _I] + [_P] * 2 + [_P, _P]
+    ),
+    "lrnde_solve_eval": [_P] * 8 + [_I] * 3 + [_P],
     "lrnde_tsit5_step_bwd": [_P] * 21 + [_I] * 3 + [_P],
     "lrnde_adjoint_sweep": (
         [_I] + [_P] * 8 + [_I] + [_P] * 7 + [_F] * 3 + [_I] * 3 + [_P] * 9
@@ -82,13 +87,17 @@ _SIGNATURES = {
 # C entry -> argument types of the integer queries
 _INTS = {
     "lrnde_sweep_clusters": [_I] * 3,
+    "lrnde_solve_clusters": [_I] * 3,
+    "lrnde_solve_rows": [_I] * 2,
+    "lrnde_solve_weights_shared": [_I] * 2,
 }
 
 # C entry -> argument types of the size queries, which return long long
 _SIZES = {
-    "lrnde_bwd_scratch_floats": [_I] * 3,
     "lrnde_sweep_scratch_floats": [_I] * 3,
     "lrnde_sweep_smem_floats": [_I] * 2,
+    "lrnde_solve_smem_floats": [_I] * 2,
+    "lrnde_solve_scratch_floats": [_I] * 3,
     "lrnde_sde_solve_smem_floats": [_I] * 2,
     "lrnde_sde_sweep_smem_floats": [_I] * 2,
     "lrnde_sde_grad_floats": [_I] * 2,
@@ -187,7 +196,7 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_longlong
     for name in ("lrnde_rows_per_block", "lrnde_sde_rows_per_block",
                  "lrnde_chain_rows_per_block", "lrnde_score_rows_per_block",
-                 "lrnde_sde_phases", "lrnde_sweep_phases",
+                 "lrnde_sde_phases", "lrnde_sweep_phases", "lrnde_solve_phases",
                  "lrnde_sweep_cluster", "lrnde_sweep_rows"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int

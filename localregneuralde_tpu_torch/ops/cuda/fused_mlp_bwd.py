@@ -10,10 +10,12 @@ Counterpart of ``localregneuralde_tpu/ops/pallas/fused_mlp_bwd.py``
     dW1 += xᵀ·dz ; db1 += Σ_rows dz ; dw1t += s·Σ_rows dz
     dW2 += hᵀ·dk ; db2 += Σ_rows dk ; dw2t += s·Σ_rows dk
 
-The kernel (``csrc/tsit5_step_bwd.cu``) recomputes the six stages, runs the
-reverse pass and the stage-batched weight gradients per row block, and
-reduces the per-block weight-gradient partials in a fixed order, so its
-gradients are the same from run to run.
+The kernel (``csrc/tsit5_step_bwd.cu``) runs on thread-block clusters
+through the transposed step of the stored-adjoint sweep (laid out by
+``fused_solve_bwd.sweep_plan``): it recomputes the six stages, runs the
+reverse pass seeded with the nine cotangents, adds the weight gradients
+into each cluster's slices, and reduces the clusters' partials in a fixed
+order, so its gradients are the same from run to run.
 
 The cotangents of t and dt are zero: inside the solver both come from the
 controller under a fence, so their true cotangents are dropped upstream and
@@ -67,17 +69,17 @@ def fused_step_bwd(w: TDMLPWeights, u, t, dt, k1, cts):
     tensors."""
     if u.device.type == "cpu":
         return fused_step_bwd_plain(w, u, t, dt, k1, cts)
+    from .fused_solve_bwd import sweep_layout
+
     B, F, H = check_operands(w, u, k1, *cts)
     sc = device_scalars([t, dt], u)
-    lib = _build.load_library()
-    rows = lib.lrnde_rows_per_block()
-    n_blocks = -(-B // rows)
+    lib, plan = sweep_layout(B, F, H, "tsit5_step_bwd")
     d_u, d_k1 = torch.empty_like(u), torch.empty_like(u)
     d_w = torch.empty(weight_grad_size(F, H), dtype=torch.float32,
                       device=u.device)
-    scratch = torch.empty(lib.lrnde_bwd_scratch_floats(B, F, H),
-                          dtype=torch.float32, device=u.device)
-    part = torch.empty((n_blocks, weight_grad_size(F, H)),
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                          device=u.device)
+    part = torch.empty((plan.max_partials, weight_grad_size(F, H)),
                        dtype=torch.float32, device=u.device)
     p = _build.ptr
     err = lib.lrnde_tsit5_step_bwd(

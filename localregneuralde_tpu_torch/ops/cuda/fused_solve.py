@@ -4,10 +4,14 @@ Counterpart of ``localregneuralde_tpu/ops/pallas/fused_solve.py``
 (``persistent_tsit5_solve``, family ``("tdmlp",)``), for inference and as
 the stored adjoint's forward: the accept/reject loop, PI control, the
 shared-batch RMS error norm and the speculative saveat output with its
-post-loop revert run in one cooperative kernel
-(``csrc/persistent_solve.cu``). As in the reference, the initial
-derivative k1 and the Hairer initial dt are computed outside, through the
-fused dynamics kernel (2 NFE), and NFE = 2 + 6·attempts.
+post-loop revert run in one kernel on thread-block clusters
+(``csrc/persistent_solve.cu``; ``solve_plan`` sizes it): a cluster of
+``CLUSTER_CTAS`` CTAs owns a block of batch rows, each CTA the features
+k ≡ rank (mod 8) with its slices of the weights in shared memory, and the
+kernel keeps every bit of the one-CTA-per-8-rows kernel it replaced. As
+in the reference, the initial derivative k1 and the Hairer initial dt are
+computed outside, through the fused dynamics kernel (2 NFE), and NFE = 2
++ 6·attempts.
 
 With ``record_knots`` the kernel also records what the stored adjoint
 sweeps (``ops/cuda/fused_solve_bwd.py``): on every accept the committed
@@ -61,6 +65,97 @@ from .fused_mlp import (
     tdmlp_plain,
     tsit5_step_plain,
 )
+
+
+# CTAs per thread-block cluster (csrc/sweep_cluster.cuh::kSweepCluster), and
+# the dynamic shared memory a cluster kernel's CTA may have on an H100
+# (227 KB) less its static shared memory (under 2.5 KB;
+# csrc/sweep_cluster.cuh::kSweepSmemLimit)
+CLUSTER_CTAS = 8
+CLUSTER_SMEM_BYTES = 227 * 1024 - 2560
+# csrc/persistent_solve.cu: the most rows of a cluster, the old kernel's
+# error blocks (csrc/tdmlp.cuh::kRows) and the CTA's threads
+SOLVE_ROWS_MAX = 40
+SOLVE_ERROR_ROWS = 8
+_SOLVE_THREADS = 512
+
+
+def vec_ld(n: int) -> int:
+    """A shared tile's leading dimension: a multiple of 4 floats whose
+    quotient by 4 is odd (csrc/sweep_cluster.cuh::vec_ld)."""
+    q = -(-n // 4)
+    return 4 * (q if q % 2 else q + 1)
+
+
+def round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+class SolvePlan(NamedTuple):
+    """The cluster layout of kernel 4 at (B, F, H), as the CUDA code
+    computes it (``csrc/persistent_solve.cu``)."""
+
+    cluster: int            # CTAs per cluster
+    rows: int               # batch rows per cluster (a row block)
+    row_blocks: tuple       # (row0, nrows) of each row block
+    features: tuple         # per CTA rank: its features in segment order,
+                            # the even ones (k ≡ rank mod 16), then the odd
+    odd0: int               # offset of the odd features in a segment
+    seg: int                # segment width (floats)
+    error_blocks: tuple     # per row block: (slot, rank) of its 8-row blocks
+    weights_shared: bool    # weight slices in shared memory (else read
+                            # from global memory in the same order)
+    smem_bytes: int         # dynamic shared memory of a CTA
+    scratch_floats: int     # global scratch: u, u_new, k1..k7
+
+
+def _solve_tiles(H: int, R: int, seg: int) -> int:
+    """Floats of the vectors and work tiles of a CTA at R rows: b1, w1t,
+    b2 and w2t; the stage input, the hidden rows, the inbox (16 partials of
+    each group of 4 hidden units a CTA sums), the residual tile (8 rows of
+    every CTA's segment) and the error tree."""
+    inbox = 2 * CLUSTER_CTAS * 4 * (-(-(R * (-(-H // 4))) // CLUSTER_CTAS))
+    return (2 * round4(H) + 2 * seg + R * vec_ld(seg) + R * vec_ld(H)
+            + inbox + SOLVE_ERROR_ROWS * CLUSTER_CTAS * seg + _SOLVE_THREADS)
+
+
+@functools.lru_cache(maxsize=64)
+def solve_plan(B: int, F: int, H: int) -> SolvePlan:
+    """The cluster plan of kernel 4: CTA c owns the features k ≡ c (mod
+    ``CLUSTER_CTAS``), even ones (k ≡ c mod 16) first; a cluster owns
+    ``SOLVE_ROWS_MAX`` rows with the weight slices in shared memory where
+    they fit beside the work tiles, otherwise the weights stay in global
+    memory and a cluster takes the most rows (a multiple of 8) whose tiles
+    fit. Raises ValueError where not even 8 rows fit a CTA."""
+    C = CLUSTER_CTAS
+    counts = [max(0, -(-(F - c) // C)) for c in range(C)]
+    odd0 = round4((counts[0] + 1) // 2)
+    seg = odd0 + round4(counts[0] // 2)
+    weights = seg * vec_ld(H) + H * vec_ld(seg)
+    limit = CLUSTER_SMEM_BYTES // 4
+    if weights + _solve_tiles(H, SOLVE_ROWS_MAX, seg) <= limit:
+        R, shared = SOLVE_ROWS_MAX, True
+    else:
+        fits = [r for r in range(SOLVE_ROWS_MAX, 0, -SOLVE_ERROR_ROWS)
+                if _solve_tiles(H, r, seg) <= limit]
+        if not fits:
+            raise ValueError(
+                f"persistent_tsit5_solve: (F, H) = ({F}, {H}) needs "
+                f"{4 * _solve_tiles(H, SOLVE_ERROR_ROWS, seg)} bytes of "
+                f"shared memory a CTA at 8 rows a cluster, over "
+                f"{CLUSTER_SMEM_BYTES}")
+        R, shared = fits[0], False
+    features = tuple(
+        tuple(range(c, F, 2 * C)) + tuple(range(c + C, F, 2 * C))
+        for c in range(C))
+    row_blocks = tuple((r0, min(R, B - r0)) for r0 in range(0, B, R))
+    error_blocks = tuple(
+        tuple((r0 // SOLVE_ERROR_ROWS + j, j)
+              for j in range(-(-n // SOLVE_ERROR_ROWS)))
+        for r0, n in row_blocks)
+    smem = 4 * ((weights if shared else 0) + _solve_tiles(H, R, seg))
+    return SolvePlan(C, R, row_blocks, features, odd0, seg, error_blocks,
+                     shared, smem, 9 * B * C * seg)
 
 
 def _start(f, u0, t0: float, t_end: float, rtol, atol):
@@ -135,8 +230,9 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
     ``knot_stride`` W > 1, ``ckpt_ts``, ``ckpt_us``, ``ckpt_ks``,
     ``ckpt_dts`` and ``ckpt_qolds`` (max_steps // W + 1 entries); with
     ``reservoir`` (float32, at least ``max_steps`` uniforms) also
-    ``reservoir_t`` and ``reservoir_u``. A CUDA tensor launches the kernel;
-    a CPU tensor runs ``persistent_tsit5_solve_plain``.
+    ``reservoir_t`` and ``reservoir_u``. A CUDA tensor launches the kernel
+    (laid out by ``solve_plan``, which raises for a TD-MLP too wide for a
+    CTA); a CPU tensor runs ``persistent_tsit5_solve_plain``.
     """
     check_reservoir(reservoir, max_steps)
     rec = dict(record_knots=record_knots, knot_dense_cap=knot_dense_cap,
@@ -146,8 +242,38 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
             w, u0, tspan, rtol=rtol, atol=atol, saveat_arr=saveat_arr,
             max_steps=max_steps, **rec,
         )
+    out = _launch_solve(w, u0, tspan, rtol=rtol, atol=atol,
+                        saveat_arr=saveat_arr, max_steps=max_steps, **rec)
+    persistent_tsit5_solve.launches += 1
+    return out
+
+
+def _solve_layout(B: int, F: int, H: int):
+    """``solve_plan`` at (B, F, H) (which raises for a width no CTA can
+    take) and the library, raising unless it lays the solve out the same
+    way. Returns (library, plan)."""
+    plan = solve_plan(B, F, H)
+    lib = _build.load_library()
+    if (lib.lrnde_solve_rows(F, H), bool(lib.lrnde_solve_weights_shared(F, H)),
+            lib.lrnde_solve_smem_floats(F, H) * 4,
+            lib.lrnde_solve_scratch_floats(B, F, H)) != (
+            plan.rows, plan.weights_shared, plan.smem_bytes,
+            plan.scratch_floats):
+        raise RuntimeError("persistent_tsit5_solve: the library's layout "
+                           "differs from solve_plan")
+    return lib, plan
+
+
+def _launch_solve(w, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
+                  record_knots=False, knot_dense_cap=None, knot_stride=1,
+                  reservoir=None, timing=None):
+    """One launch of kernel 4 on CUDA tensors; with ``timing`` (int64,
+    ``lrnde_solve_phases() + 1``) the instantiation with the compile-time
+    clock, which fills it with CTA 0's nanoseconds per phase and the number
+    of attempts."""
     check_fp32_products(rtol, u0.device)
     B, F, H = check_operands(w, u0)
+    lib, plan = _solve_layout(B, F, H)
     t0, t_end = float(tspan[0]), float(tspan[1])
     k1_0, dt_init, nfe0 = _start(lambda u, t: fused_tdmlp(w, u, t), u0, t0,
                                  t_end, rtol, atol)
@@ -155,14 +281,13 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
     saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
     n_save = saveat.shape[0]
 
-    lib = _build.load_library()
-    n_blocks = -(-B // lib.lrnde_rows_per_block())
+    n_blocks = -(-B // SOLVE_ERROR_ROWS)
     dev = u0.device
     y_final = torch.empty_like(u0)
     ys = torch.empty((n_save, B, F), dtype=torch.float32, device=dev)
     stats_i = torch.empty(4, dtype=torch.int32, device=dev)
     stats_f = torch.empty(2, dtype=torch.float32, device=dev)
-    scratch = torch.empty((8, B, F), dtype=torch.float32, device=dev)
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=dev)
     slots = torch.empty(2 * n_blocks, dtype=torch.float32, device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
     knots = _knot_outputs(u0, max_steps, record_knots=record_knots,
@@ -175,7 +300,10 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
     p = _build.ptr
     null = ctypes.c_void_p(0)
     kp = lambda k: p(knots[k]) if k in knots else null  # noqa: E731
-    err = lib.lrnde_persistent_tsit5(
+    entry, clock = lib.lrnde_persistent_tsit5, []
+    if timing is not None:
+        entry, clock = lib.lrnde_persistent_tsit5_timed, [p(timing)]
+    err = entry(
         p(u0), p(k1_0), p(sc), p(saveat), n_save,
         p(w.w1), p(w.b1), p(w.w2), p(w.b2),
         p(y_final), p(ys), p(stats_i), p(stats_f), p(scratch), p(slots),
@@ -186,10 +314,9 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
         kp("ckpt_qolds"), n_ckpt, stride,
         p(rand) if rand is not None else null,
         p(res_u) if res_u is not None else null,
-        _build.stream_ptr(dev),
+        *clock, _build.stream_ptr(dev),
     )
     _build.check(lib, err, "persistent_tsit5_solve")
-    persistent_tsit5_solve.launches += 1
     return dict(
         y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
         success=stats_i[2].bool(), nfe=nfe0 + 6 * stats_i[3],
@@ -200,6 +327,23 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
 
 
 persistent_tsit5_solve.launches = 0
+
+
+def solve_eval(w: TDMLPWeights, x: torch.Tensor, s) -> torch.Tensor:
+    """One dynamics evaluation of CUDA tensors through kernel 4's cluster
+    path (the products, the cluster sum of the hidden rows and the
+    epilogues of ``csrc/persistent_solve.cu``), for checking it against
+    kernel 1 (``fused_tdmlp``), whose arithmetic it repeats bitwise."""
+    B, F, H = check_operands(w, x)
+    lib, plan = _solve_layout(B, F, H)
+    out = torch.empty_like(x)
+    scratch = torch.empty(plan.scratch_floats // 9, device=x.device)
+    p = _build.ptr
+    err = lib.lrnde_solve_eval(
+        p(x), p(device_scalars([s], x)), *[p(t) for t in w], p(out),
+        p(scratch), B, F, H, _build.stream_ptr(x.device))
+    _build.check(lib, err, "solve_eval")
+    return out
 
 
 def check_reservoir(reservoir, max_steps: int) -> None:

@@ -46,6 +46,8 @@ from .fused_mlp_bwd import (
     weight_grad_size,
 )
 from .fused_solve import (
+    CLUSTER_CTAS,
+    CLUSTER_SMEM_BYTES,
     DenseChainSpec,
     chain_eval,
     chain_limits,
@@ -53,18 +55,20 @@ from .fused_solve import (
     chain_param_sizes,
     check_chain_operands,
     plain_step,
+    round4,
+    vec_ld,
 )
 
 
 # csrc/sweep_cluster.cuh: CTAs per cluster and batch rows per cluster
-SWEEP_CLUSTER = 8
+SWEEP_CLUSTER = CLUSTER_CTAS
 SWEEP_ROWS = 36
 # csrc/tdmlp.cuh: the replay's row blocking, K split and CTA size
 _REPLAY_ROWS, _REPLAY_SPLIT, _THREADS = 8, 16, 1024
 # shared memory a CTA can have on an H100 (227 KB), less the kernel's static
 # shared memory (the slot-sum buffer, the step weights and the replay's
 # controller: under 2.5 KB); csrc/sweep_cluster.cuh::kSweepSmemLimit
-SWEEP_SMEM_BYTES = 227 * 1024 - 2560
+SWEEP_SMEM_BYTES = CLUSTER_SMEM_BYTES
 
 
 class SweepPlan(NamedTuple):
@@ -82,17 +86,6 @@ class SweepPlan(NamedTuple):
                             # CTAs add into their cluster's partial)
 
 
-def _vec_ld(n: int) -> int:
-    """A shared tile's leading dimension: a multiple of 4 floats whose
-    quotient by 4 is odd (csrc/sweep_cluster.cuh::vec_ld)."""
-    q = -(-n // 4)
-    return 4 * (q if q % 2 else q + 1)
-
-
-def _r4(n: int) -> int:
-    return (n + 3) // 4 * 4
-
-
 def sweep_plan(B: int, F: int, H: int) -> SweepPlan:
     """The cluster plan of the sweep: row blocks of ``SWEEP_ROWS`` rows,
     feature slices of ceil(F / ``SWEEP_CLUSTER``) (the last ones shorter or
@@ -102,14 +95,14 @@ def sweep_plan(B: int, F: int, H: int) -> SweepPlan:
     lies over them between windows."""
     C, R = SWEEP_CLUSTER, SWEEP_ROWS
     S = -(-F // C)
-    ldS, ldW = _vec_ld(S), _vec_ld(H)
+    ldS, ldW = vec_ld(S), vec_ld(H)
     slices = tuple((min(F, c * S), min(F, (c + 1) * S) - min(F, c * S))
                    for c in range(C))
     row_blocks = tuple((r0, min(R, B - r0)) for r0 in range(0, B, R))
     # the weight slices and the gradient slices have one shape
-    slice_floats = S * ldW + (H + 1) * ldS + _r4(S) + 2 * _r4(H)
+    slice_floats = S * ldW + (H + 1) * ldS + round4(S) + 2 * round4(H)
     inbox, hrow = C * (-(-(R * H) // C)), R * ldW
-    tiles = 2 * R * ldS + _r4(max(inbox, hrow)) + hrow
+    tiles = 2 * R * ldS + round4(max(inbox, hrow)) + hrow
     replay = (F * _REPLAY_ROWS + _REPLAY_SPLIT * H * _REPLAY_ROWS
               + H * _REPLAY_ROWS + _THREADS)
     work = max(slice_floats + tiles, replay)
@@ -117,6 +110,26 @@ def sweep_plan(B: int, F: int, H: int) -> SweepPlan:
     smem = 4 * ((slice_floats if shared else 0) + work)
     return SweepPlan(C, R, row_blocks, slices, smem,
                      21 * B * F + 6 * B * H, len(row_blocks), shared)
+
+
+def sweep_layout(B: int, F: int, H: int, name: str):
+    """``sweep_plan`` at (B, F, H) for the transposed step's kernels (3, 7
+    and 8) and the library, raising where a CTA's shared memory cannot hold
+    the plan (before the library loads) or the library lays it out another
+    way. Returns (library, plan)."""
+    plan = sweep_plan(B, F, H)
+    if plan.smem_bytes > SWEEP_SMEM_BYTES:
+        raise ValueError(
+            f"{name}: (F, H) = ({F}, {H}) needs {plan.smem_bytes} bytes of "
+            f"shared memory a CTA, over {SWEEP_SMEM_BYTES}")
+    lib = _build.load_library()
+    if (lib.lrnde_sweep_cluster(), lib.lrnde_sweep_rows(),
+            lib.lrnde_sweep_smem_floats(F, H) * 4,
+            lib.lrnde_sweep_scratch_floats(B, F, H)) != (
+            plan.cluster, plan.rows, plan.smem_bytes, plan.scratch_floats):
+        raise RuntimeError(f"{name}: the library's layout differs from "
+                           f"sweep_plan")
+    return lib, plan
 
 
 def _plain_sweep(w: TDMLPWeights, knots, naccept, saveat_arr, ct_ys, ct_y,
@@ -176,19 +189,8 @@ def _launch(w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y, tl=None,
     if not knot_us.is_contiguous():
         raise ValueError("knot_us: needs a contiguous buffer")
     B, F, H = check_operands(w, ct_y, *ct_ys, *knot_us[:1])
-    plan = sweep_plan(B, F, H)
-    if plan.smem_bytes > SWEEP_SMEM_BYTES:
-        raise ValueError(
-            f"adjoint_sweep: (F, H) = ({F}, {H}) needs {plan.smem_bytes} "
-            f"bytes of shared memory a CTA, over {SWEEP_SMEM_BYTES}")
     dev = ct_y.device
-    lib = _build.load_library()
-    if (lib.lrnde_sweep_cluster(), lib.lrnde_sweep_rows(),
-            lib.lrnde_sweep_smem_floats(F, H) * 4,
-            lib.lrnde_sweep_scratch_floats(B, F, H)) != (
-            plan.cluster, plan.rows, plan.smem_bytes, plan.scratch_floats):
-        raise RuntimeError("adjoint_sweep: the library's layout differs "
-                           "from sweep_plan")
+    lib, plan = sweep_layout(B, F, H, "adjoint_sweep")
     # the window replay's row blocks (slots) are the forward's
     n_blocks = -(-B // lib.lrnde_rows_per_block())
     two_level = tl is not None

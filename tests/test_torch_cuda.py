@@ -739,3 +739,125 @@ def test_conv_orient_matches_plain_on_card(cuda_device, shape):
     ref = conv_orient_plain(x, wt)
     assert _rel(conv_orient_tap(x, wt), ref) <= 1e-5
     assert _rel(conv_orient_im2col(x, wt), ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hidden", [(1, 100), (410, 100), (512, 100),
+                                          (1000, 100), (410, 150)])
+def test_cluster_solve_on_card(cuda_device, batch, hidden):
+    """Kernel 4 on its clusters against the eager loop (rtol 1e-4, as
+    above), bitwise repeatable; its cluster evaluation bitwise kernel 1's.
+    B = 1000 has more row blocks than resident clusters; at H = 150 the
+    weight slices do not fit beside the tiles and stay in global memory."""
+    from localregneuralde_tpu_torch.ops.cuda import _build, fused_solve
+
+    w, x = _card_setup(cuda_device, batch, 784, hidden)
+    plan = fused_solve.solve_plan(batch, 784, hidden)
+    assert plan.weights_shared == (hidden == 100)
+    clusters = _build.load_library().lrnde_solve_clusters(batch, 784, hidden)
+    assert 1 <= clusters <= len(plan.row_blocks)
+    if batch == 1000:
+        assert clusters < len(plan.row_blocks)
+    for s in (0.0, 0.3):
+        assert torch.equal(fused_solve.solve_eval(w, x, s),
+                           fused_tdmlp(w, x, s))
+    kw = dict(rtol=1e-4, atol=1e-4, max_steps=64,
+              saveat_arr=torch.tensor([0.5, 1.0], device=cuda_device))
+    out = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw)
+    ref = persistent_tsit5_solve_plain(w, x, (0.0, 1.0), **kw)
+    torch.testing.assert_close(out["ys"], ref["ys"], atol=3e-4, rtol=0)
+    assert abs(int(out["naccept"]) - int(ref["naccept"])) <= 1
+    assert bool(out["success"]) and bool(ref["success"])
+    again = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw)
+    assert torch.equal(out["ys"], again["ys"])
+    assert torch.equal(out["y_final"], again["y_final"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hidden", [(1000, 100), (410, 150)])
+def test_cluster_solve_recording_on_card(cuda_device, batch, hidden):
+    """Knots, checkpoints and the reservoir of kernel 4 where a cluster
+    sweeps several row blocks (B = 1000) and with the weights in global
+    memory (H = 150): recording changes nothing, the knots are the accepted
+    states, the reservoir sample is one of them."""
+    w, x = _card_setup(cuda_device, batch, 784, hidden)
+    bare = persistent_tsit5_solve(
+        w, x, (0.0, 1.0), rtol=1e-5, atol=1e-5, max_steps=64,
+        saveat_arr=torch.tensor([0.5, 1.0], device=cuda_device))
+    u = torch.rand(64, device=cuda_device)
+    rec = _recorded(w, x, 1e-5, knot_stride=2, reservoir=u)
+    n = int(rec["naccept"])
+    assert n == int(bare["naccept"]) and n >= 3
+    assert torch.equal(rec["y_final"], bare["y_final"])
+    assert torch.equal(rec["ys"], bare["ys"])
+    assert torch.equal(rec["knot_us"][n], rec["y_final"])
+    assert torch.equal(rec["knot_us"][0], x)
+    for c in range(n // 2 + 1):
+        assert torch.equal(rec["ckpt_us"][c], rec["knot_us"][2 * c])
+    ts = rec["knot_ts"][:n]
+    j = int(torch.argmin((ts - rec["reservoir_t"]).abs()))
+    assert float(ts[j]) == float(rec["reservoir_t"])
+    assert torch.equal(rec["knot_us"][j], rec["reservoir_u"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hidden", [(37, 100), (410, 100), (1000, 100),
+                                          (410, 150)])
+def test_cluster_step_bwd_ragged_on_card(cuda_device, batch, hidden):
+    """Kernel 3 on the sweep's clusters at ragged B (and at H = 150, whose
+    gradient slices go to the clusters' partials in global memory) against
+    its plain version, bitwise repeatable."""
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_step_bwd, fused_step_bwd_plain,
+    )
+
+    w, x = _card_setup(cuda_device, batch, 784, hidden)
+    t = torch.tensor(0.2, device=cuda_device)
+    dt = torch.tensor(0.05, device=cuda_device)
+    k1 = tdmlp_plain(w, x, t)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    cts = [torch.randn(x.shape, generator=g, device=cuda_device)
+           for _ in range(9)]
+    ours = fused_step_bwd(w, x, t, dt, k1, cts)
+    ref = fused_step_bwd_plain(w, x, t, dt, k1, cts)
+    for a, b in zip([ours[1], ours[2], *ours[0]], [ref[1], ref[2], *ref[0]]):
+        assert _rel(a, b) <= 1e-4
+    again = fused_step_bwd(w, x, t, dt, k1, cts)
+    for a, b in zip([again[1], again[2], *again[0]],
+                    [ours[1], ours[2], *ours[0]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_step_bwd_fp64_error_on_card(cuda_device):
+    """Kernel 3 against the float64 VJP on chip_smoke.py's inputs: within
+    twice the error of the kernel before its cluster redesign (3.719e-7,
+    NVIDIA H100 80GB HBM3, 700 W)."""
+    from localregneuralde_tpu_torch.harness import synthetic_classification
+    from localregneuralde_tpu_torch.nn import glorot_uniform
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_step_bwd, fused_step_bwd_plain,
+    )
+
+    B_, F_, H_ = 512, 784, 100
+    g = torch.Generator().manual_seed(0)
+    w = TDMLPWeights(
+        glorot_uniform((F_ + 1, H_), g), 0.1 * torch.randn(H_, generator=g),
+        glorot_uniform((H_ + 1, F_), g), 0.1 * torch.randn(F_, generator=g),
+    )
+    w = TDMLPWeights(*(p.to(cuda_device) for p in w))
+    x = torch.tensor(synthetic_classification(seed=0)[2][:B_].reshape(B_, F_),
+                     device=cuda_device)
+    gd = torch.Generator(device=cuda_device).manual_seed(7)
+    t = torch.tensor(0.2, device=cuda_device)
+    dt = torch.tensor(0.05, device=cuda_device)
+    k1 = tdmlp_plain(w, x, t)
+    cts = [torch.randn(x.shape, generator=gd, device=cuda_device)
+           for _ in range(9)]
+    ours = fused_step_bwd(w, x, t, dt, k1, cts)
+    ref = fused_step_bwd_plain(TDMLPWeights(*[p.double() for p in w]),
+                               x.double(), t.double(), dt.double(),
+                               k1.double(), [c.double() for c in cts])
+    err = max(_rel(a.double(), b) for a, b in zip(
+        [ours[1], ours[2], *ours[0]], [ref[1], ref[2], *ref[0]]))
+    assert err <= 2 * 3.719e-7
