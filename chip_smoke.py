@@ -43,7 +43,10 @@ on the card:
     the 49-point grid and t1 as saveat, from the encoder's latent states):
     the persistent solve at rtol 1e-4 and at the config's 1.4e-8, its knots,
     and the dense and the two-level sweep on its own knots (the replay
-    bitwise the forward), with determinism and times;
+    bitwise the forward), with determinism, the sweep's weight gradients
+    against the float64 plain sweep, the kernels' grids, and times (the
+    solve alone at the training, eval and rtol 1e-4 shapes; the sweep's two
+    branches);
 11. trains ``experiments/physionet/physionet.yaml`` as shipped for three
     steps and evaluates the 410-series test split through the port's
     ``run_latent_ode_experiment``, with launches per step and per eval
@@ -86,17 +89,22 @@ kernels 13 and 14 are split by kernel with ``torch.profiler``; the conv GEMM
 core of kernels 13 and 14 is timed alone in each orientation (forward, data
 and weight gradient at N = 64 and N = 8) in TFLOP/s beside cuDNN in FP32
 (``[conv core]``, a ``{"conv_core": [...]}`` line); and kernel 11's
-attempt, kernel 4's attempt and kernel 7's (and 8's) transposed step are
-split into their phases by instantiations with a compile-time clock
-(``[vpsde attribution]``, ``[solve attribution]``, ``[sweep
-attribution]``); kernel 3 is held against the float64 VJP beside the FP32
-plain one (``[step_bwd fp64]``).
+attempt, kernel 4's attempt, kernel 7's (and 8's) transposed step, kernel
+5's attempt and kernel 9's step are split into their phases by
+instantiations with a compile-time clock (``[vpsde attribution]``,
+``[solve attribution]``, ``[sweep attribution]``, ``[chain solve
+attribution]``, ``[chain sweep attribution]``); kernel 3 is held against
+the float64 VJP beside the FP32 plain one (``[step_bwd fp64]``), and
+kernel 9's weight gradients against the float64 plain sweep (``[chain
+sweep fp64]``), each within twice the error of the kernel before its
+redesign.
 
 ``--only=PART[,PART...]`` runs the kernel checks, digests and timings of
 some parts (``PARTS``: kernels, backward, sde, chain, conv, conv_core,
 score, attribution, orient, solve) without the model paths, and prints
 neither the kernels line nor the ok line; ``ode`` adds the MNIST ODE's
-serving and training paths (``[slice ...]``, ``[train ...]``).
+serving and training paths (``[slice ...]``, ``[train ...]``) and
+``latent`` the latent runner's (``[latent ...]``).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
 kernel, the latent encoder's share of the latent train step, and the CIFAR
@@ -270,7 +278,10 @@ def kernel_split(label, fn, n=5, top=12):
 # gradients, whose sums the redesign reordered on purpose, taken on the
 # cluster sweep; "K3" holds kernel 3's VJP, taken on its cluster redesign
 # (a new order too). The K4 digests hold through kernel 4's cluster
-# redesign.
+# redesign. Kernel 9's outputs are held in three parts, so that a change
+# of the gradient sums' order (allowed) shows apart from the replay and
+# the per-row carries (which must keep every bit): "K9 replay", "K9
+# state" (a_u, a_k) and "K9 grads".
 DIGESTS = {
     "K4 mlp.yaml":
         "e44871cbccc65b5feb83750178380cfcdbac0317ef585369813d08c465a56029",
@@ -288,8 +299,12 @@ DIGESTS = {
         "2189bcf02c57a002c6ee4ddde4b2d4aec3794f97c1c66d9f7f70e8ac56d71572",
     "K5 eval":
         "7e135b5a96a83cca479a4a88b33c6e359ca0d245fa7aa83b813637bf25416142",
-    "K9":
-        "2d7d66925a1ab1accc4a4c344a2eeeeee3b18d5244bee80452b77aa192827eed",
+    "K9 replay":
+        "e2410e602444f526465dca083879e563db76ad79b557cd3b2a19d43326ea262a",
+    "K9 state":
+        "13638150be4d62172a79573e86c5b7238afeb73943f57afb62b9454e92d62214",
+    "K9 grads":
+        "04d56694f4173633f6994b785832b1ffb0e1ef4f2985b3e155ac313c50454c94",
     "K11":
         "345c6f0924ead73e5b152bc7c59d5dac3a1b527399e1b971c14fd44dbc51b404",
     "K6":
@@ -302,6 +317,10 @@ SEEN_DIGESTS = {}
 # before its cluster redesign ([step_bwd fp64], NVIDIA H100 80GB HBM3, 700 W):
 # the redesign may at most double it.
 K3_FP64_BEFORE = 3.719e-7
+# Kernel 9's weight gradients' largest error relative to the float64 plain
+# sweep ([chain sweep fp64], dense at physionet.yaml on kernel 5's knots), on
+# the kernel before its redesign: the redesign may at most double it.
+K9_FP64_BEFORE = 8.512e-7
 DIGEST_KEYS = ("y_final", "ys", "naccept", "nreject", "natt")
 
 
@@ -1685,6 +1704,33 @@ def _host_batch(arrays, device, n=B, shuffle=False):
     return tuple(torch.from_numpy(a).to(device) for a in next(iter(loader)))
 
 
+def chain_inputs(device):
+    """Kernels 5 and 9's inputs at the PhysioNet width: the chain of
+    LATENT_CONFIG's model (random weights from its seed) and the eval-mode
+    latent states of the first 512 training series, with the training
+    solve's saveat (the 49-point grid, whose first time is t0, and the
+    regulariser's t1, appended unsorted). Returns (params, chain, u0,
+    saveat, latents(arrays, n), the test split, the grid)."""
+    import torch
+
+    _, model, _, train, test, tgrid = _latent_setup(device)
+    node = model.neural_ode
+
+    def latents(arrays, n):
+        """The eval-mode latent states of the first n series."""
+        x = torch.cat(_host_batch(arrays, device, n=n), dim=-1)
+        with torch.no_grad():
+            st = model.init_state()
+            h = model.gru(x, st["gru"])[0]
+            h = model.rec_to_gen(h, st["rec_to_gen"])[0]
+            return model.reparam(h, st["reparam"])[0].contiguous()
+
+    saveat = torch.cat([torch.from_numpy(tgrid), torch.tensor([0.37])]).to(
+        device)
+    return ([p.detach() for p in node.chain_params()], node.chain,
+            latents(train, B), saveat, latents, test, tgrid)
+
+
 def chain_flops(dims, b=B):
     """Product FLOPs of one Dense-chain evaluation of b rows."""
     return 2 * b * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
@@ -1702,33 +1748,17 @@ def phase_chain_kernels(device):
         persistent_chain_sweep, persistent_chain_sweep_plain,
     )
 
-    _, model, _, train, test, tgrid = _latent_setup(device)
-    node = model.neural_ode
-    params = [p.detach() for p in node.chain_params()]
-    chain = node.chain
-
-    def latents(arrays, n):
-        """The eval-mode latent states of the first n series."""
-        x = torch.cat(_host_batch(arrays, device, n=n), dim=-1)
-        with torch.no_grad():
-            st = model.init_state()
-            h = model.gru(x, st["gru"])[0]
-            h = model.rec_to_gen(h, st["rec_to_gen"])[0]
-            return model.reparam(h, st["reparam"])[0].contiguous()
-
-    u0 = latents(train, B)
+    params, chain, u0, saveat, latents, test, tgrid = chain_inputs(device)
     Fc = u0.shape[1]
-    # the training solve's saveat: the 49-point grid (its first time is
-    # t0) and the regulariser's t1, appended unsorted
-    saveat = torch.cat([torch.from_numpy(tgrid), torch.tensor([0.37])]).to(
-        device)
     n_save = saveat.shape[0]
     print(f"[chain] B = {u0.shape[0]}, dims {chain.dims}, lead tanh "
           f"{chain.lead}, {n_save} saveat times")
-    res = {}
+    _print_chain_grids(chain, u0.shape[0], test[0].shape[0])
+    res, res_4 = {}, None
     for name, tol in (("rtol 1e-4", 1e-4), ("physionet.yaml", LATENT_TOL)):
         kw = dict(rtol=tol, atol=tol, saveat_arr=saveat, max_steps=10000)
         out = persistent_chain_solve(params, chain, u0, (0.0, 1.0), **kw)
+        res_4 = out if tol == 1e-4 else res_4
         digest(f"K5 {name}", out)
         ref = persistent_chain_solve_plain(params, chain, u0, (0.0, 1.0), **kw)
         na, nb = int(out["naccept"]), int(ref["naccept"])
@@ -1826,7 +1856,9 @@ def phase_chain_kernels(device):
     win, replay = persistent_chain_sweep(*args, two_level_ctx=dict(
         ctx, dense_cap=8), return_replay=True)
     m = min(n, stride)
-    digest("K9", *flat(win), replay[:m + 1])
+    digest("K9 replay", replay[:m + 1])
+    digest("K9 state", win[0], win[1])
+    digest("K9 grads", *win[2])
     check(torch.equal(replay[:m + 1], rec["knot_us"][:m + 1]),
           "the chain replay does not repeat the forward bitwise")
     rel_w = max(rel_err(p, q) for p, q in zip(flat(win), flat(dense)))
@@ -1837,12 +1869,38 @@ def phase_chain_kernels(device):
           f"{all(torch.equal(p, q) for p, q in zip(flat(win), flat(dense)))}")
     check(rel_w <= 1e-6, f"chain two-level sweep vs dense: {rel_w}")
 
-    # device times: back to back, and one call between CUDA events
+    # the weight gradients' FP64 error: the dense branch against the plain
+    # sweep in float64 on the same knots, beside the FP32 plain sweep
+    args64 = ([p_.double() for p_ in params], chain) + tuple(
+        a_.double() if a_.is_floating_point() else a_ for a_ in args[2:])
+    ref64 = flat(persistent_chain_sweep_plain(*args64))
+    k64 = [rel_err(a_.double(), b_) for a_, b_ in zip(flat(dense), ref64)]
+    p64 = [rel_err(a_.double(), b_) for a_, b_ in zip(flat(plain), ref64)]
+    sweep_fp64 = max(k64[2:])
+    print(f"[chain sweep fp64] relative max-abs vs the float64 plain sweep: "
+          f"weight gradients kernel {sweep_fp64:.3e}, FP32 plain "
+          f"{max(p64[2:]):.3e}; a_u, a_k kernel {k64[0]:.2e}, {k64[1]:.2e}, "
+          f"FP32 plain {p64[0]:.2e}, {p64[1]:.2e}")
+    check(K9_FP64_BEFORE is None or sweep_fp64 <= 2 * K9_FP64_BEFORE,
+          f"chain sweep vs float64: {sweep_fp64:.3e}, over 2x the old "
+          f"kernel's {K9_FP64_BEFORE}")
+    phase_chain_attribution(params, chain, u0, rec_kw, rec, args)
+
+    # device times: the kernel alone (raw launches) at the recorded
+    # training forward, the eval batch and rtol 1e-4; the sweep's two
+    # branches back to back; one wrapper call of each between CUDA events
+    raws = [chain_raw(params, chain, u0, saveat, LATENT_TOL, record=True),
+            chain_raw(params, chain, u_ev, kw_ev["saveat_arr"], LATENT_TOL),
+            chain_raw(params, chain, u0, saveat, 1e-4)]
+    check(all(r() == 0 for r in raws), "chain solve: raw launch failed")
+    raw_ms = back_to_back_ms(raws, n=20, warmup=2)
     solve = lambda: persistent_chain_solve(  # noqa: E731
         params, chain, u0, (0.0, 1.0), **rec_kw)
     sweep = lambda: persistent_chain_sweep(  # noqa: E731
         *args, two_level_ctx=ctx)
-    solve_b2b, sweep_b2b = back_to_back_ms([solve, sweep], n=20, warmup=2)
+    sweep_tl = lambda: persistent_chain_sweep(  # noqa: E731
+        *args, two_level_ctx=dict(ctx, dense_cap=8))
+    sweep_b2b, tl_b2b = back_to_back_ms([sweep, sweep_tl], n=20, warmup=2)
     solve_call, sweep_call = median_ms([solve, sweep], n=10, warmup=1)
     solve_plain, sweep_plain = median_ms(
         [lambda: persistent_chain_solve_plain(params, chain, u0, (0.0, 1.0),
@@ -1850,11 +1908,19 @@ def phase_chain_kernels(device):
          lambda: persistent_chain_sweep_plain(*args, two_level_ctx=ctx)],
         n=3, warmup=1)
     att = (fa - 2) // 6
-    print(f"[chain solve] recording at {LATENT_TOL}: kernel {solve_b2b:.3f} ms "
-          f"per call back to back ({solve_b2b / att:.4f} ms per attempt), one "
-          f"call {solve_call:.3f} ms; loop {solve_plain:.3f} ms")
+    att_ev = (int(out_ev["nfe"]) - 2) // 6
+    att_4 = (int(res_4["nfe"]) - 2) // 6
+    solve_b2b = raw_ms[0]
+    print(f"[chain solve] the kernel alone, device ms per launch: "
+          f"physionet.yaml recording {raw_ms[0]:.4f} ({1e3 * raw_ms[0] / att:.2f}"
+          f" µs an attempt, {att} attempts), eval B = {u_ev.shape[0]} "
+          f"{raw_ms[1]:.4f} ({1e3 * raw_ms[1] / att_ev:.2f} µs, {att_ev}), "
+          f"rtol 1e-4 {raw_ms[2]:.4f} ({1e3 * raw_ms[2] / att_4:.2f} µs, "
+          f"{att_4}); one wrapper call {solve_call:.3f} ms; loop "
+          f"{solve_plain:.3f} ms")
     print(f"[chain sweep] kernel {sweep_b2b:.3f} ms per call back to back "
-          f"({sweep_b2b / n:.4f} ms per step), one call {sweep_call:.3f} ms; "
+          f"({1e3 * sweep_b2b / n:.2f} µs per step), two-level (replay forced,"
+          f" dense_cap 8) {tl_b2b:.3f} ms; one call {sweep_call:.3f} ms; "
           f"plain {sweep_plain:.3f} ms")
     n_params = sum(p.numel() for p in params)
     BF = u0.numel()
@@ -1875,6 +1941,173 @@ def phase_chain_kernels(device):
         **bound(19 * n * chain_flops(chain.dims),
                 4 * ((n + 1 + n_save + 1 + 2) * BF + 2 * n_params)))
     return res
+
+
+def _print_chain_grids(chain, *batches):
+    """Kernels 5 and 9's grids at each batch size, from the library
+    (``lrnde_chain_solve_grid``, ``lrnde_chain_sweep_grid``), held against
+    the plan model of ``fused_solve.chain_plan`` at the library's J."""
+    import ctypes
+
+    from localregneuralde_tpu_torch.ops.cuda import fused_solve
+
+    lib = _build_lib()
+    L = len(chain.dims) - 1
+    dims = (ctypes.c_int * (L + 1))(*chain.dims)
+    dp = ctypes.cast(dims, ctypes.c_void_p)
+    for b in batches:
+        out = (ctypes.c_int * 2)()
+        op = ctypes.cast(out, ctypes.c_void_p)
+        check(lib.lrnde_chain_solve_grid(dp, L, b, op) == 0,
+              "the chain solve's grid query failed")
+        j5, g5 = out[0], out[1]
+        grids = []
+        for tl in (0, 1):
+            check(lib.lrnde_chain_sweep_grid(dp, L, b, tl, op) == 0,
+                  "the chain sweep's grid query failed")
+            grids.append((out[0], out[1]))
+        check(fused_solve.chain_smem_floats(chain.dims, 1)
+              == lib.lrnde_chain_solve_smem_floats(dp, L)
+              and fused_solve.chain_smem_floats(chain.dims, 1, sweep=True)
+              == lib.lrnde_chain_sweep_smem_floats(dp, L),
+              "the chain kernels' shared memory differs from chain_plan's")
+        smem5 = 4 * fused_solve.chain_smem_floats(chain.dims, j5)
+        smem9 = 4 * fused_solve.chain_smem_floats(chain.dims, 1, sweep=True)
+        print(f"[chain grid] B = {b}: kernel 5 {g5} CTAs of {j5} error "
+              f"block(s) ({smem5} B of shared memory a CTA); kernel 9 dense "
+              f"{grids[0][1]} CTAs, two-level {grids[1][1]} CTAs of "
+              f"{grids[1][0]} ({smem9} B a CTA at one block)")
+
+
+def chain_raw(params, chain, u, saveat, tol, record=False):
+    """A raw launch of kernel 5 (lrnde_persistent_chain, max_steps 10000)
+    from the wrapper's own start, with the stored adjoint's recording when
+    ``record``, its grid barrier's counter zeroed before each launch: the
+    kernel's device time without the wrapper's work."""
+    import torch
+
+    from localregneuralde_tpu_torch.ode.stored_adjoint import knot_layout
+    from localregneuralde_tpu_torch.ops.cuda import chain_eval, fused_solve
+
+    Bc, Fc = u.shape
+    dev = u.device
+    k1_0, dt0, _ = fused_solve._start(
+        lambda x, t: chain_eval(params, chain, x), u, 0.0, 1.0, tol, tol)
+    sc = fused_solve.device_scalars([0.0, 1.0, dt0], u)
+    knots, stride = {}, 1
+    if record:
+        dense_cap, _, stride = knot_layout(10000)
+        knots = fused_solve._knot_outputs(u, 10000, record_knots=True,
+                                          knot_dense_cap=dense_cap,
+                                          knot_stride=stride)
+    n_dense = knots["knot_ts"].shape[0] if knots else 0
+    n_ckpt = knots["ckpt_ts"].shape[0] if "ckpt_ts" in knots else 0
+    n_save = saveat.shape[0]
+    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    fn = raw_launch(
+        "lrnde_persistent_chain", u, k1_0, sc, saveat.contiguous(), n_save,
+        *fused_solve.chain_operands(params, chain), torch.empty_like(u),
+        torch.empty((n_save, Bc, Fc), device=dev),
+        torch.empty(4, dtype=torch.int32, device=dev),
+        torch.empty(2, device=dev),
+        torch.empty(2 * -(-Bc // 4) + 2, device=dev), barrier, Bc, 10000,
+        tol, tol, 1.0 / (Bc * Fc), knots.get("knot_ts"), knots.get("knot_us"),
+        n_dense, knots.get("ckpt_ts"), knots.get("ckpt_us"),
+        knots.get("ckpt_ks"), knots.get("ckpt_dts"), knots.get("ckpt_qolds"),
+        n_ckpt, stride, None, None)
+
+    def launch():
+        barrier.zero_()
+        return fn()
+
+    return launch
+
+
+def _phase_names(lib, query):
+    """The attribution phases of a clocked instantiation, as the library
+    names them (a comma-separated C string)."""
+    import ctypes
+
+    fn = getattr(lib, query)
+    fn.argtypes, fn.restype = [], ctypes.c_char_p
+    return fn().decode().split(",")
+
+
+def _clocked(launch, n_phases, device, runs=3):
+    """Run a clocked launch ``runs + 1`` times (the first warms up) into a
+    timing buffer of n_phases nanosecond sums, a count and, past them, each
+    CTA's SM index + 1 where the kernel records it; returns (the last
+    launch's result, µs per counted unit by phase, the count, the CTAs on
+    the busiest SM and the SMs used, or None)."""
+    import torch
+
+    timing = torch.zeros(n_phases + 1 + 1024, dtype=torch.int64,
+                         device=device)
+    totals = torch.zeros(n_phases + 1, dtype=torch.float64)
+    for i in range(runs + 1):
+        out = launch(timing)
+        torch.cuda.synchronize()
+        if i > 0:
+            totals += timing[:n_phases + 1].cpu().double()
+    sms = [v for v in timing[n_phases + 1:].tolist() if v]
+    spread = (max(sms.count(v) for v in sms), len(set(sms))) if sms else None
+    return (out, (totals[:-1] / totals[-1] / 1e3).tolist(),
+            int(timing[n_phases]), spread)
+
+
+def phase_chain_attribution(params, chain, u0, rec_kw, rec, args, runs=3):
+    """Kernel 5's attempt and kernel 9's dense step by phase at
+    physionet.yaml (B = 512): the instantiations with the compile-time
+    clock (lrnde_persistent_chain_timed, lrnde_chain_sweep_timed, launched
+    only here), CTA 0's %globaltimer summed over the attempts or steps, in
+    the library's own phases. Each result must be bitwise its untimed
+    kernel's. Then kernel 9's launches by kernel (the sweep and the fold of
+    its partials) from torch.profiler."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_solve, fused_solve_bwd, persistent_chain_sweep,
+    )
+
+    lib = _build_lib()
+    names = _phase_names(lib, "lrnde_chain_solve_phase_names")
+    out, per, attempts, spread = _clocked(
+        lambda tm: fused_solve._launch_chain(params, chain, u0, (0.0, 1.0),
+                                             **rec_kw, timing=tm),
+        len(names), u0.device, runs)
+    split = {k: round(v, 3) for k, v in zip(names, per)}
+    print(f"[chain solve attribution] {attempts} attempts, CTA 0, µs per "
+          f"attempt (mean of {runs} launches): {split}; sum {sum(per):.3f}"
+          + (f"; at most {spread[0]} CTA(s) an SM, {spread[1]} SMs"
+             if spread else ""))
+    # the knots past naccept and the checkpoints past naccept / stride are
+    # never written
+    n = int(rec["naccept"])
+    n_ck = n // rec_kw["knot_stride"] + 1
+    written = dict(y_final=None, ys=None, knot_ts=None, knot_us=n + 1,
+                   ckpt_ts=n_ck, ckpt_us=n_ck, ckpt_ks=n_ck)
+    check(all(torch.equal(out[k][:m], rec[k][:m]) for k, m in written.items())
+          and all(int(out[k]) == int(rec[k])
+                  for k in ("naccept", "nreject", "nfe")),
+          "chain solve attribution: the timed kernel's result differs")
+    check(attempts == (int(rec["nfe"]) - 2) // 6,
+          "chain solve attribution: attempt count")
+    names = _phase_names(lib, "lrnde_chain_sweep_phase_names")
+    ref = persistent_chain_sweep(*args)
+    got, per, steps, spread = _clocked(
+        lambda tm: fused_solve_bwd._launch_chain_sweep(*args, timing=tm),
+        len(names), u0.device, runs)
+    split = {k: round(v, 3) for k, v in zip(names, per)}
+    print(f"[chain sweep attribution] {steps} steps, CTA 0, µs per step "
+          f"(mean of {runs} launches): {split}; sum {sum(per):.3f}"
+          + (f"; at most {spread[0]} CTA(s) an SM, {spread[1]} SMs"
+             if spread else ""))
+    check(all(torch.equal(a, b) for a, b in
+              zip([got[0], got[1], *got[2]], [ref[0], ref[1], *ref[2]])),
+          "chain sweep attribution: the timed kernel's result differs")
+    check(steps == int(rec["naccept"]), "chain sweep attribution: step count")
+    kernel_split("persistent_chain_sweep",
+                 lambda: persistent_chain_sweep(*args), n=5, top=4)
 
 
 def phase_latent(device, profile=False):
@@ -3071,8 +3304,8 @@ def phase_conv_orient(device):
     return res, counts
 
 
-PARTS = ("kernels", "backward", "sde", "chain", "conv", "conv_core",
-         "score", "attribution", "orient", "solve", "ode")
+PARTS = ("kernels", "backward", "sde", "chain", "latent", "conv",
+         "conv_core", "score", "attribution", "orient", "solve", "ode")
 
 
 def partial_run(device, parts, profile=False):
@@ -3100,6 +3333,8 @@ def partial_run(device, parts, profile=False):
         phase_sde_kernels(device, w, x)
     if "chain" in parts:
         phase_chain_kernels(device)
+    if "latent" in parts:
+        phase_latent(device, profile=profile)
     if "conv" in parts:
         phase_conv_kernels(device)
     if "conv_core" in parts:

@@ -1,6 +1,5 @@
 // The Dense chain as a dynamics type of the Tsit5 attempt code
-// (tdmlp.cuh::tsit5_rows, solve.cuh::attempt_eest, persistent.cuh): the
-// latent ODE's generative dynamics,
+// (tdmlp.cuh::tsit5_rows, solve.cuh::attempt_eest, persistent.cuh):
 //   f(x) = a_L,  a_0 = tanh(x) (or x),  a_{l+1} = act_l(a_l·W_l + b_l),
 // with act_l tanh or the identity and d_0 = d_L = F. Weights are in the JAX
 // layout, W_l (d_l, d_{l+1}) row-major.
@@ -10,29 +9,23 @@
 // fused_solve_bwd.py::_family_hooks).
 //
 // DenseChainT<Rows, Threads, TimeRow> is the chain with its row blocking as
-// template parameters; DenseChain is kernels 5 and 9's. With TimeRow, W_l is
-// a (d_l + 1, d_{l+1}) TD matrix whose last row is the time weight, and a
-// layer reads the time t: a_{l+1} = act_l(a_l·W_l[0:d_l] + t·W_l[d_l] + b_l)
-// (the score network of kernels 6 and 11, score.cuh).
+// template parameters. With TimeRow, W_l is a (d_l + 1, d_{l+1}) TD matrix
+// whose last row is the time weight, and a layer reads the time t:
+// a_{l+1} = act_l(a_l·W_l[0:d_l] + t·W_l[d_l] + b_l) (the score network of
+// kernels 6 and 11, score.cuh). The latent ODE's kernels 5 and 9 evaluate
+// the chain a warp a row instead (chain_rows.cuh), with the same sums.
 //
-// Work split: one CTA of Threads threads owns Rows batch rows. The chain is
-// narrow (the PhysioNet config: 8 layers alternating 20 -> 40 -> 20, 26 KB of
-// weights), so every CTA copies all weights into shared memory once per
-// launch, and an evaluation is L dependent layer passes, one thread per
-// (output unit, group of rows), each a short FP32 FFMA sum over the layer's
-// input from shared memory (a weight loaded once serves the thread's rows). What bounds it on an H100 is that serial chain: one attempt is 6·L
-// dependent layer passes with a __syncthreads between them, plus the grid
-// barrier; the FLOPs (13 kFLOP per row and evaluation at the PhysioNet
-// widths) are negligible. Small row blocks give many CTAs (B = 512: 128
-// CTAs, one per SM), which keeps every pass short.
+// Work split of chain_forward: one CTA of Threads threads owns Rows batch
+// rows and keeps the whole chain in shared memory; an evaluation is L
+// dependent layer passes, one thread per (output unit, group of rows), each
+// a short FP32 FFMA sum over the layer's input from shared memory (a weight
+// loaded once serves the thread's rows), with a CTA barrier between passes.
 #pragma once
 
 #include "tdmlp.cuh"
 
 namespace lrnde {
 
-constexpr int kChainRows = 4;       // batch rows per CTA of kernels 5 and 9
-constexpr int kChainThreads = 256;  // threads per CTA
 constexpr int kChainMaxLayers = 16;
 // interleaved accumulators of a layer's sum, added as (0+1)+(2+3)
 constexpr int kChainAcc = 4;
@@ -60,8 +53,6 @@ struct DenseChainT {
   int maxw;           // the widest layer
   int n_params;       // floats of the packed weights
 };
-
-using DenseChain = DenseChainT<kChainRows, kChainThreads, false>;
 
 // Row stride of the activation buffers: the smallest count of floats at
 // least the widest layer that is 4 modulo 8. A multiple of 4 keeps every
@@ -211,13 +202,6 @@ __device__ inline void chain_forward(const DenseChainT<R, T, TR>& w,
     }
     __syncthreads();
   }
-}
-
-// The eval of the Tsit5 attempt code (tsit5_rows) for kernel 5: the chain is
-// autonomous, so the stage time s is not read.
-__device__ inline void eval_rows(const DenseChain& w, const ChainSmem& sm,
-                                 float /*s*/, float* out, int nrows) {
-  chain_forward(w, sm.w, sm.xs, 1, kChainRows, 0.f, sm.act, false, out, nrows);
 }
 
 // A chain from its host description: weight pointers (W_0, b_0, W_1, b_1,

@@ -1,20 +1,18 @@
 // The whole adaptive Tsit5 solve in one cooperative launch, templated on
-// the dynamics type: kernel 5 (chain.cuh::DenseChain, chain_solve.cu) and
-// kernel 6 (score.cuh::PfScore, pf_solve.cu), with the knot and checkpoint
-// recording of the stored adjoint and the reservoir sample of the biased
-// regulariser. Kernel 4 (the TD-MLP) ran here too; it now runs on
-// thread-block clusters (persistent_solve.cu), which keep its arithmetic
-// bit for bit, and its attempt at this row blocking remains the sweeps'
-// window replay (sweep_cluster.cuh::TDMLPSweep).
+// the dynamics type: kernel 6 (score.cuh::PfScore, pf_solve.cu). Kernel 4
+// (the TD-MLP) ran here before it moved to thread-block clusters
+// (persistent_solve.cu), and kernel 5 (the Dense chain) before it moved to
+// a warp a row (chain_solve.cu); both kept their arithmetic bit for bit,
+// and kernel 4's attempt at this row blocking remains the sweeps' window
+// replay (sweep_cluster.cuh::TDMLPSweep).
 //
 // Replaces localregneuralde_tpu/ops/pallas/fused_solve.py::_make_kernel
-// (built by _build_call for the ("chain", ...) and ("pfode", ...) families). On
+// (built by _build_call for the ("pfode", ...) family). On
 // the TPU one core ran the accept/reject loop with the state resident in
 // VMEM. Here every CTA owns fixed row blocks (D::rows rows) for the whole
 // solve and loops over them; the state u (the y_final output), the FSAL
 // derivative k1, the stage derivatives k2..k7 and the candidate u_new live
-// in global scratch (8·B·F f32: 0.33 MB for the latent chain at B = 512,
-// F = 20), which stays in the 50 MB L2.
+// in global scratch (8·B·F f32), which stays in the 50 MB L2.
 //
 // One attempt (solve.cuh::attempt_eest): each CTA runs the Tsit5 step of its
 // rows, writes the speculative dense output of every saveat time the
@@ -26,20 +24,7 @@
 // qold stay f32, as in the reference, and the controller follows
 // fused_solve.py::_propose. The saveat times need not be sorted; an entry
 // at t ≤ t0 keeps u0, and entries past the last accepted step revert to u0
-// after the loop.
-//
-// Recording (n_dense > 0): on every accept each CTA copies its rows of the
-// committed u to the dense knot buffer while naccept < n_dense, and with a
-// stride W > 1 every W-th accept also to the checkpoint buffers with k1;
-// CTA 0 writes the times and the controller state (dt_next, qold). Recording
-// only copies committed values, so it changes no accept decision, and with
-// n_dense = n_ckpt = 0 the kernel runs exactly the eval solve.
-//
-// Reservoir (rand not null): an accepted attempt number natt replaces the
-// sample with its step-start (t, u) when rand[natt]·(naccept + 1) < 1, the
-// uniforms drawn in advance by the caller (fused_solve.py:424-432 of the
-// reference). The decision is grid-uniform, so each CTA copies its own rows
-// before the commit.
+// after the loop. Sampling is never differentiated, so nothing is recorded.
 //
 // A dynamics type D provides, besides what tsit5_rows needs, carve_shared()
 // (its shared memory from the dynamic buffer), load_shared() (what it keeps
@@ -62,7 +47,7 @@ struct SolveArgs {
   float* u;             // (B, F) working state; y_final on exit
   float* ys;            // (n_save, B, F)
   int* stats_i;         // naccept, nreject, done, natt
-  float* stats_f;       // t_final, reservoir_t
+  float* stats_f;       // t_final
   float* scratch;       // 8 (B, F) buffers: k1, k2..k7, u_new
   float* slots;         // (2, n_blocks) row-block error partials
   unsigned int* barrier;  // arrival counter, zero at launch
@@ -71,25 +56,6 @@ struct SolveArgs {
   float rtol;
   float atol;
   float inv_n;          // 1 / (B·F)
-  // recording (n_dense = 0: none; n_ckpt = 0: no checkpoints)
-  float* knot_ts;       // (n_dense)
-  float* knot_us;       // (n_dense, B, F)
-  int n_dense;
-  float* ckpt_ts;       // (n_ckpt)
-  float* ckpt_us;       // (n_ckpt, B, F)
-  float* ckpt_ks;       // (n_ckpt, B, F)
-  float* ckpt_dts;      // (n_ckpt)
-  float* ckpt_qolds;    // (n_ckpt)
-  int n_ckpt;
-  int stride;
-  const float* rand;    // (max_steps) reservoir uniforms, or null
-  float* res_u;         // (B, F) reservoir sample, or null
-};
-
-struct Ctl {
-  float t, dt, qold, res_t;
-  AttemptPlan plan;
-  int accept, take, done, natt, nacc, nrej;
 };
 
 template <typename D>
@@ -115,28 +81,12 @@ persistent_solve_kernel(SolveArgs<D> a) {
       a.u[off + i] = v;
       bufs.k[off + i] = a.k10[off + i];
       for (int s = 0; s < a.n_save; ++s) a.ys[s * BF + off + i] = v;
-      if (a.n_dense > 0) a.knot_us[off + i] = v;
-      if (a.res_u != nullptr) a.res_u[off + i] = v;
-      if (a.n_ckpt > 0) {
-        a.ckpt_us[off + i] = v;
-        a.ckpt_ks[off + i] = a.k10[off + i];
-      }
-    }
-  }
-  if (blockIdx.x == 0) {
-    for (int i = tid; i < a.n_dense; i += T)
-      a.knot_ts[i] = i == 0 ? a.sc[0] : t_end;
-    for (int i = tid; i < a.n_ckpt; i += T) {
-      a.ckpt_ts[i] = i == 0 ? a.sc[0] : t_end;
-      a.ckpt_dts[i] = i == 0 ? a.sc[2] : 0.f;
-      a.ckpt_qolds[i] = kQoldInit;
     }
   }
   if (tid == 0) {
     ctl.t = a.sc[0];
     ctl.dt = a.sc[2];
     ctl.qold = kQoldInit;
-    ctl.res_t = ctl.t;
     ctl.done = ctl.t >= t_end;
     ctl.natt = ctl.nacc = ctl.nrej = 0;
   }
@@ -174,10 +124,7 @@ persistent_solve_kernel(SolveArgs<D> a) {
       float dt_acc, dt_rej, qold_acc;
       propose(eest, dt_c, ctl.qold, &dt_acc, &dt_rej, &qold_acc);
       ctl.accept = accept;
-      ctl.take = accept && a.rand != nullptr &&
-                 a.rand[ctl.natt] * static_cast<float>(ctl.nacc + 1) < 1.f;
       if (accept) {
-        if (ctl.take) ctl.res_t = t;
         ctl.t = t_new;
         ctl.dt = dt_acc;
         ctl.qold = qold_acc;
@@ -190,27 +137,7 @@ persistent_solve_kernel(SolveArgs<D> a) {
       ++ctl.natt;
     }
     __syncthreads();
-    if (ctl.accept) {
-      if (ctl.take) copy_rows<D>(a.res_u, a.u, B, F);
-      commit_rows<D>(bufs, F);
-      const int cnt = ctl.nacc;
-      if (cnt < a.n_dense) {
-        __syncthreads();
-        copy_rows<D>(a.knot_us + cnt * BF, a.u, B, F);
-        if (blockIdx.x == 0 && tid == 0) a.knot_ts[cnt] = ctl.t;
-      }
-      if (a.n_ckpt > 0 && cnt % a.stride == 0) {
-        const int ci = cnt / a.stride;
-        __syncthreads();
-        copy_rows<D>(a.ckpt_us + ci * BF, a.u, B, F);
-        copy_rows<D>(a.ckpt_ks + ci * BF, bufs.k, B, F);
-        if (blockIdx.x == 0 && tid == 0) {
-          a.ckpt_ts[ci] = ctl.t;
-          a.ckpt_dts[ci] = ctl.dt;
-          a.ckpt_qolds[ci] = ctl.qold;
-        }
-      }
-    }
+    if (ctl.accept) commit_rows<D>(bufs, F);
     __syncthreads();
   }
 
@@ -226,7 +153,6 @@ persistent_solve_kernel(SolveArgs<D> a) {
     a.stats_i[2] = ctl.done;
     a.stats_i[3] = ctl.natt;
     a.stats_f[0] = ctl.t;
-    a.stats_f[1] = ctl.res_t;
   }
 }
 

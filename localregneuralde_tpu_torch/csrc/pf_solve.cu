@@ -48,8 +48,7 @@ extern "C" int lrnde_persistent_pf(
     return cudaErrorInvalidValue;
   SolveArgs<PfScore> a{u0, k10, sc, saveat, n_save, c, u, ys, stats_i,
                        stats_f, scratch, slots, barrier, B, max_steps, rtol,
-                       atol, inv_n, nullptr, nullptr, 0, nullptr, nullptr,
-                       nullptr, nullptr, nullptr, 0, 1, nullptr, nullptr};
+                       atol, inv_n};
   const size_t smem = shared_floats(c) * sizeof(float);
   static size_t granted = 0;
   cudaError_t err = allow_smem(persistent_solve_kernel<PfScore>, smem, &granted);

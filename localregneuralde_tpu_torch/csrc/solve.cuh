@@ -2,18 +2,19 @@
 // controller, the Tsit5 interpolant weights and ONE ATTEMPT of the adaptive
 // loop over the whole batch.
 //
-// The persistent forward solves (persistent.cuh: kernel 5 for the Dense
-// chain, kernel 6 for the probability flow) and the two-level window
-// replays of the adjoint sweeps (replay_window: kernel 8 in adjoint_sweep.cu,
-// replaying the TD-MLP with the arithmetic of kernel 4, kernel 9 in
-// chain_sweep.cu) all call attempt_eest(), the counterpart of the
-// reference's fused_solve.py::run_attempt_tiles, templated on the dynamics
-// type (tdmlp.cuh::TDMLP, chain.cuh::DenseChain). Each row block's squared
-// scaled residuals go into a slot of its own, and every CTA sums the slots
-// in row-block order (ordered_slot_sum, which kernels 10 and 11 call too),
-// so the error norm does not depend on the grid size or on which CTA ran
-// which row block. A replay from a checkpoint therefore repeats its
-// forward's accept decisions and dt sequence bitwise.
+// The persistent forward solve of persistent.cuh (kernel 6, the probability
+// flow) and the two-level window replay of kernel 8 (replay_window in
+// adjoint_sweep.cu, replaying the TD-MLP with the arithmetic of kernel 4)
+// call attempt_eest(), the counterpart of the reference's
+// fused_solve.py::run_attempt_tiles, templated on the dynamics type
+// (sweep_cluster.cuh::TDMLPSweep, score.cuh::PfScore). Each row block's
+// squared scaled residuals go into a slot of its own, and every CTA sums
+// the slots in row-block order (ordered_slot_sum, which kernels 4, 5, 9, 10
+// and 11 call too), so the error norm does not depend on the grid size or
+// on which CTA ran which row block. A replay from a checkpoint therefore
+// repeats its forward's accept decisions and dt sequence bitwise. Kernels 5
+// and 9 (the Dense chain) run their own attempt a warp a row
+// (chain_rows.cuh::chain_attempt) on the same barrier, slots and sum.
 #pragma once
 
 #include "tdmlp.cuh"
@@ -139,6 +140,13 @@ __device__ inline AttemptPlan plan_attempt(float t, float dt, float t_end) {
   p.t_new = p.is_last ? t_end : t + p.dt_c;
   return p;
 }
+
+// The controller state of a whole solve, in shared memory.
+struct Ctl {
+  float t, dt, qold, res_t;
+  AttemptPlan plan;
+  int accept, take, done, natt, nacc, nrej;
+};
 
 struct NoHook {
   __device__ void operator()(int, const StepRows&, int) const {}

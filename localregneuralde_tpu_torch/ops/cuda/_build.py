@@ -57,13 +57,23 @@ _SIGNATURES = {
     ),
     "lrnde_sde_sweep": [_I] + [_P] * 12 + [_I] + [_P] * 5 + [_I] * 3 + [_P],
     "lrnde_persistent_chain": (
-        [_P] * 4 + [_I] + [_P] * 2 + [_I, _U, _I] + [_P] * 7 + [_I] * 2
+        [_P] * 4 + [_I] + [_P] * 2 + [_I, _U, _I] + [_P] * 6 + [_I] * 2
         + [_F] * 3 + [_P] * 2 + [_I] + [_P] * 5 + [_I] * 2 + [_P] * 3
+    ),
+    "lrnde_persistent_chain_timed": (
+        [_P] * 4 + [_I] + [_P] * 2 + [_I, _U, _I] + [_P] * 6 + [_I] * 2
+        + [_F] * 3 + [_P] * 2 + [_I] + [_P] * 5 + [_I] * 2 + [_P] * 4
     ),
     "lrnde_chain_sweep": (
         [_I] + [_P] * 2 + [_I, _U, _I] + [_P] * 4 + [_I] + [_P] * 7
-        + [_F] * 3 + [_I] * 3 + [_P] * 9 + [_I] + [_F] + [_P]
+        + [_F] * 3 + [_I] * 3 + [_P] * 8 + [_I] + [_F] + [_P]
     ),
+    "lrnde_chain_sweep_timed": (
+        [_I] + [_P] * 2 + [_I, _U, _I] + [_P] * 4 + [_I] + [_P] * 7
+        + [_F] * 3 + [_I] * 3 + [_P] * 8 + [_I] + [_F] + [_P] * 2
+    ),
+    "lrnde_chain_solve_grid": [_P, _I, _I, _P],
+    "lrnde_chain_sweep_grid": [_P, _I, _I, _I, _P],
     "lrnde_conv_step": [_P] * 22 + [_I] + [_F] * 3 + [_I] * 5 + [_P],
     "lrnde_conv_step_bwd": [_P] * 29 + [_F] + [_I] * 5 + [_P],
     "lrnde_vpsde_solve": (
@@ -195,11 +205,15 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_longlong
     for name in ("lrnde_rows_per_block", "lrnde_sde_rows_per_block",
-                 "lrnde_chain_rows_per_block", "lrnde_score_rows_per_block",
+                 "lrnde_chain_error_rows", "lrnde_score_rows_per_block",
                  "lrnde_sde_phases", "lrnde_sweep_phases", "lrnde_solve_phases",
                  "lrnde_sweep_cluster", "lrnde_sweep_rows"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
+    for name in ("lrnde_chain_solve_phase_names",
+                 "lrnde_chain_sweep_phase_names"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_char_p
     lib.lrnde_error_string.argtypes = [ctypes.c_int]
     lib.lrnde_error_string.restype = ctypes.c_char_p
     return lib

@@ -29,8 +29,9 @@ attempt number ``natt`` takes its step start ``(t, u)`` when
 Kernel 5 (``persistent_chain_solve``, ``csrc/chain_solve.cu``) is the same
 solve for the autonomous Dense chain of the latent ODE (the reference's
 ``persistent_chain_solve``, family ``("chain", dims, acts, lead)``), with
-the same recording and reservoir; its plain version is the eager loop with
-the plain chain (``chain_eval``).
+the same recording and reservoir, a warp a row (``chain_plan`` models its
+layout); its plain version is the eager loop with the plain chain
+(``chain_eval``).
 
 Kernel 6 (``persistent_pf_solve``, ``csrc/pf_solve.cu``) is the same solve
 for the probability-flow ODE of the score sampler, du/dτ = ½β(t)·(u +
@@ -394,12 +395,83 @@ def _knot_outputs(u0, max_steps, *, record_knots, knot_dense_cap,
 
 # at most this many layers (csrc/chain.cuh::kChainMaxLayers)
 CHAIN_MAX_LAYERS = 16
-# the dynamic shared memory a CTA may use on Hopper, less a margin for the
-# kernels' static shared memory
-CHAIN_SMEM_BYTES = 227 * 1024 - 1024
+# the dynamic shared memory a CTA may use on Hopper, less the kernels' static
+# shared memory (the slot-sum buffer, the controller and the clock: under
+# 2.5 KB)
+CHAIN_SMEM_BYTES = 227 * 1024 - 2560
 # at most this many saveat times in kernel 9 (csrc/chain_sweep.cu::
 # kChainMaxSave; the reference's _MAX_NSAVE_CHAIN)
 CHAIN_MAX_SAVE = 64
+# csrc/chain_rows.cuh: the rows of an error block (a CTA's unit, a warp a
+# row) and the most error blocks a CTA of kernel 5 or of kernel 9's
+# two-level mode takes (chain_solve.cu::kChainMaxJ,
+# chain_sweep.cu::kChainSweepMaxJ)
+CHAIN_ROWS = 4
+CHAIN_MAX_J = 128
+CHAIN_SWEEP_MAX_J = 32
+
+
+class ChainPlan(NamedTuple):
+    """The grid of kernel 5 (or of kernel 9) at B rows, as the CUDA code
+    computes it (``csrc/chain_rows.cuh::chain_grid``)."""
+
+    J: int                 # error blocks a CTA
+    grid: int              # CTAs (kernel 9: gradient partials)
+    blocks: tuple          # per CTA: its error blocks (first, count)
+    smem_bytes: int        # dynamic shared memory of a CTA
+
+
+def _stage_stash(dims) -> int:
+    """Floats of kernel 9's stash of one row and stage: a_0..a_{L-1} and
+    dz_0..dz_{L-1}, each rounded up to 4 (``chain_sweep.cu::chain_stash``)."""
+    L = len(dims) - 1
+    return sum(round4(dims[l]) + round4(dims[l + 1]) for l in range(L))
+
+
+def chain_smem_floats(dims, J: int, sweep: bool = False) -> int:
+    """A CTA's dynamic shared memory (floats) at J error blocks: kernel 5's
+    (``chain_solve_smem_floats``) or kernel 9's
+    (``chain_sweep_smem_floats``). The weights are held as W_lᵀ with b_l
+    (the forward) and, in kernel 9, as W_l (the transpose), each row padded
+    to ``vec_ld`` (``csrc/chain_rows.cuh::ChainLayout``)."""
+    L, F, R = len(dims) - 1, dims[0], CHAIN_ROWS
+    n_params = sum(dims[l] * dims[l + 1] + dims[l + 1] for l in range(L))
+    fwd = sum(dims[l + 1] * vec_ld(dims[l]) + round4(dims[l + 1])
+              for l in range(L))
+    aw = round4(max(dims))
+    blocks = J * (9 * R * F + R * F)
+    if not sweep:
+        return fwd + 2 * R * aw + blocks
+    rev = sum(dims[l] * vec_ld(dims[l + 1]) for l in range(L))
+    return (fwd + rev + round4(n_params)
+            + R * (6 * _stage_stash(dims) + 15 * round4(F) + 2 * aw)
+            + blocks + 8 * CHAIN_MAX_SAVE)
+
+
+def chain_plan(B: int, dims, resident, *, sweep=False,
+               two_level=True) -> ChainPlan:
+    """The grid of kernel 5 (or, with ``sweep``, kernel 9) for B rows:
+    CTAs of ``CHAIN_ROWS`` warps, each owning J consecutive error blocks of
+    ``CHAIN_ROWS`` rows, J the least that lets every CTA be resident at
+    once, where ``resident(smem_bytes)`` is the CTAs an H100 holds at that
+    shared memory (the card's occupancy query). Kernel 9's dense mode
+    needs no residency: a CTA a block. Raises ValueError where no J fits."""
+    n_blk = -(-B // CHAIN_ROWS)
+    max_J = CHAIN_SWEEP_MAX_J if sweep else CHAIN_MAX_J
+    if sweep and not two_level:
+        max_J = 1
+    for J in range(1, max_J + 1):
+        smem = 4 * chain_smem_floats(dims, J, sweep)
+        fits = smem <= CHAIN_SMEM_BYTES and resident(smem) > 0
+        if not fits:
+            break
+        grid = -(-n_blk // J)
+        if (sweep and not two_level) or grid <= resident(smem):
+            blocks = tuple((g * J, min(J, n_blk - g * J))
+                           for g in range(grid))
+            return ChainPlan(J, grid, blocks, smem)
+    raise ValueError(f"chain {tuple(dims)}: B = {B} does not fit the "
+                     f"resident CTAs of kernel {9 if sweep else 5}")
 
 
 class DenseChainSpec(NamedTuple):
@@ -588,9 +660,11 @@ def persistent_chain_solve(params, chain: DenseChainSpec, u0: torch.Tensor,
 
     Limits of the kernel (``chain_limits``; it raises outside them): at
     most ``CHAIN_MAX_LAYERS`` layers, and the chain's weights with a CTA's
-    working rows within ``CHAIN_SMEM_BYTES`` of shared memory (the
-    PhysioNet chain, 8 layers 20 ↔ 40, takes 29 KB). Any batch size, any
-    number of saveat times, unsorted; times ≤ t0 return u0.
+    rows within ``CHAIN_SMEM_BYTES`` of shared memory (the PhysioNet chain,
+    8 layers 20 ↔ 40, takes 31 KB a 4-row block). Any batch size the card
+    holds resident (``chain_plan``: a CTA takes more blocks when the grid
+    would not fit), any number of saveat times, unsorted; times ≤ t0
+    return u0.
     """
     check_reservoir(reservoir, max_steps)
     rec = dict(record_knots=record_knots, knot_dense_cap=knot_dense_cap,
@@ -600,6 +674,19 @@ def persistent_chain_solve(params, chain: DenseChainSpec, u0: torch.Tensor,
             params, chain, u0, tspan, rtol=rtol, atol=atol,
             saveat_arr=saveat_arr, max_steps=max_steps, **rec,
         )
+    out = _launch_chain(params, chain, u0, tspan, rtol=rtol, atol=atol,
+                        saveat_arr=saveat_arr, max_steps=max_steps, **rec)
+    persistent_chain_solve.launches += 1
+    return out
+
+
+def _launch_chain(params, chain, u0, tspan, *, rtol, atol, saveat_arr,
+                  max_steps, record_knots=False, knot_dense_cap=None,
+                  knot_stride=1, reservoir=None, timing=None):
+    """One launch of kernel 5 on CUDA tensors; with ``timing`` (int64,
+    one entry a phase of ``lrnde_chain_solve_phase_names`` and one more) the
+    instantiation with the compile-time clock, which fills it with CTA 0's
+    nanoseconds per phase and the number of attempts."""
     check_fp32_products(rtol, u0.device)
     B, F = check_chain_operands(params, chain, u0)
     lib = _build.load_library()
@@ -610,13 +697,12 @@ def persistent_chain_solve(params, chain: DenseChainSpec, u0: torch.Tensor,
     sc = device_scalars([t0, t_end, dt_init], u0)
     saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
     n_save = saveat.shape[0]
-    n_blocks = -(-B // lib.lrnde_chain_rows_per_block())
+    n_blocks = -(-B // lib.lrnde_chain_error_rows())
     dev = u0.device
     y_final = torch.empty_like(u0)
     ys = torch.empty((n_save, B, F), dtype=torch.float32, device=dev)
     stats_i = torch.empty(4, dtype=torch.int32, device=dev)
     stats_f = torch.empty(2, dtype=torch.float32, device=dev)
-    scratch = torch.empty((8, B, F), dtype=torch.float32, device=dev)
     slots = torch.empty(2 * n_blocks, dtype=torch.float32, device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
     knots = _knot_outputs(u0, max_steps, record_knots=record_knots,
@@ -628,9 +714,12 @@ def persistent_chain_solve(params, chain: DenseChainSpec, u0: torch.Tensor,
     p = _build.ptr
     null = ctypes.c_void_p(0)
     kp = lambda k: p(knots[k]) if k in knots else null  # noqa: E731
-    err = lib.lrnde_persistent_chain(
+    entry, clock = lib.lrnde_persistent_chain, []
+    if timing is not None:
+        entry, clock = lib.lrnde_persistent_chain_timed, [p(timing)]
+    err = entry(
         p(u0), p(k1_0), p(sc), p(saveat), n_save, *chain_args,
-        p(y_final), p(ys), p(stats_i), p(stats_f), p(scratch), p(slots),
+        p(y_final), p(ys), p(stats_i), p(stats_f), p(slots),
         p(barrier), B, int(max_steps), float(rtol), float(atol),
         1.0 / float(B * F),
         kp("knot_ts"), kp("knot_us"), n_dense,
@@ -638,10 +727,9 @@ def persistent_chain_solve(params, chain: DenseChainSpec, u0: torch.Tensor,
         kp("ckpt_qolds"), n_ckpt, max(1, int(knot_stride)),
         p(rand) if rand is not None else null,
         p(res_u) if res_u is not None else null,
-        _build.stream_ptr(dev),
+        *clock, _build.stream_ptr(dev),
     )
     _build.check(lib, err, "persistent_chain_solve")
-    persistent_chain_solve.launches += 1
     return dict(
         y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
         success=stats_i[2].bool(), nfe=nfe0 + 6 * stats_i[3],
@@ -722,7 +810,7 @@ def persistent_pf_solve(params, chain, u0: torch.Tensor, tspan, *,
     y_final = torch.empty_like(u0)
     ys = torch.empty((n_save, B, F), dtype=torch.float32, device=dev)
     stats_i = torch.empty(4, dtype=torch.int32, device=dev)
-    stats_f = torch.empty(2, dtype=torch.float32, device=dev)
+    stats_f = torch.empty(1, dtype=torch.float32, device=dev)
     scratch = torch.empty((8, B, F), dtype=torch.float32, device=dev)
     slots = torch.empty(2 * n_blocks, dtype=torch.float32, device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)

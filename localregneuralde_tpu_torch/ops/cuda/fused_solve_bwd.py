@@ -26,7 +26,8 @@ replay repeats the plain forward (``persistent_tsit5_solve_plain``) there.
 
 Kernel 9 (``persistent_chain_sweep``, ``csrc/chain_sweep.cu``) is the same
 sweep, dense and two-level, for the autonomous Dense chain of the latent
-ODE; it returns the gradients of the chain's ``[W_0, b_0, ...]``.
+ODE, a warp a row; its two-level replay runs kernel 5's attempt code. It
+returns the gradients of the chain's ``[W_0, b_0, ...]``.
 """
 from __future__ import annotations
 
@@ -341,14 +342,30 @@ def persistent_chain_sweep(params, chain: DenseChainSpec, knot_ts, knot_us,
 
     Limits (``chain_limits``; it raises outside them): those of
     ``persistent_chain_solve``, at most ``CHAIN_MAX_SAVE`` saveat times, and
-    the backward's shared memory (the weights, the gradient partial and
-    every stage's activations of a 4-row block; 127 KB for the PhysioNet
-    chain) within ``CHAIN_SMEM_BYTES``.
+    the backward's shared memory (the weights and their transpose, the
+    gradient partial and every stage's activations and layer cotangents of
+    a 4-row block; 137 KB for the PhysioNet chain) within
+    ``CHAIN_SMEM_BYTES``.
     """
     if ct_y.device.type == "cpu":
         return persistent_chain_sweep_plain(
             params, chain, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y,
             two_level_ctx=two_level_ctx)
+    a_u, a_k, grads, local_us = _launch_chain_sweep(
+        params, chain, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y,
+        two_level_ctx=two_level_ctx)
+    persistent_chain_sweep.launches += 1
+    out = a_u, a_k, grads
+    return (out, local_us) if return_replay else out
+
+
+def _launch_chain_sweep(params, chain, knot_ts, knot_us, naccept, saveat_arr,
+                        ct_ys, ct_y, *, two_level_ctx=None, timing=None):
+    """One launch of kernel 9 on CUDA tensors: ``(a_u, a_k, grads,
+    local_us)``; with ``timing`` (int64, one entry a phase of
+    ``lrnde_chain_sweep_phase_names`` and one more) the instantiation with
+    the compile-time clock, which fills it with CTA 0's nanoseconds per
+    phase and the number of steps."""
     ct_ys, ct_y = ct_ys.contiguous(), ct_y.contiguous()
     if not knot_us.is_contiguous():
         raise ValueError("knot_us: needs a contiguous buffer")
@@ -358,51 +375,65 @@ def persistent_chain_sweep(params, chain: DenseChainSpec, knot_ts, knot_us,
     dev = ct_y.device
     lib = _build.load_library()
     chain_args = chain_operands(params, chain)
-    n_blocks = -(-B // lib.lrnde_chain_rows_per_block())
+    tl = two_level_ctx
+    grid = _chain_sweep_grid(lib, chain, B, tl is not None)
+    n_blocks = -(-B // lib.lrnde_chain_error_rows())
     sizes = chain_param_sizes(chain)
     n_params = sum(math.prod(s) for s in sizes)
     saveat = saveat_arr.to(device=dev, dtype=torch.float32).contiguous()
     naccept = naccept.to(device=dev, dtype=torch.int32).reshape(1)
     a_u, a_k = torch.empty_like(ct_y), torch.empty_like(ct_y)
     d_w = torch.empty(n_params, device=dev)
-    part = torch.empty((n_blocks, n_params), device=dev)
+    part = torch.empty((grid, n_params), device=dev)
     p = _build.ptr
     null = ctypes.c_void_p(0)
-    tl = two_level_ctx
     if tl is not None:
         stride = int(tl["stride"])
-        scratch = torch.empty((9, B, F), device=dev)
         slots = torch.empty(2 * n_blocks, device=dev)
         barrier = torch.zeros(1, dtype=torch.int32, device=dev)
-        local_ts = torch.empty(n_blocks * (stride + 1), device=dev)
+        local_ts = torch.empty(grid * (stride + 1), device=dev)
         local_us = torch.empty((stride + 1, B, F), device=dev)
         ckpts = [tl[k].contiguous() for k in
                  ("ckpt_ts", "ckpt_us", "ckpt_ks", "ckpt_dts", "ckpt_qolds")]
         ck = [p(c) for c in ckpts]
-        extra = [p(scratch), p(part), p(slots), p(barrier), p(local_ts),
-                 p(local_us)]
+        extra = [p(part), p(slots), p(barrier), p(local_ts), p(local_us)]
         scalars = (float(tl["t_end"]), float(tl["rtol"]), float(tl["atol"]),
                    int(tl["max_steps"]), stride, int(tl["dense_cap"]))
     else:
         local_us = None
         ck = [null] * 5
-        extra = [null, p(part), null, null, null, null]
+        extra = [p(part), null, null, null, null]
         scalars = (0.0, 0.0, 0.0, 0, 1, 0)
-    err = lib.lrnde_chain_sweep(
+    entry, clock = lib.lrnde_chain_sweep, []
+    if timing is not None:
+        entry, clock = lib.lrnde_chain_sweep_timed, [p(timing)]
+    err = entry(
         int(tl is not None), *chain_args, p(knot_ts.contiguous()),
         p(knot_us), p(naccept), p(saveat), n_save, p(ct_ys), p(ct_y), *ck,
         *scalars, p(a_u), p(a_k), p(d_w), *extra, B, 1.0 / float(B * F),
-        _build.stream_ptr(dev),
+        *clock, _build.stream_ptr(dev),
     )
     _build.check(lib, err, "persistent_chain_sweep")
-    persistent_chain_sweep.launches += 1
     grads, off = [], 0
     for s in sizes:
         n = math.prod(s)
         grads.append(d_w[off:off + n].view(s))
         off += n
-    out = a_u, a_k, grads
-    return (out, local_us) if return_replay else out
+    return a_u, a_k, grads, local_us
+
+
+def _chain_sweep_grid(lib, chain: DenseChainSpec, B: int,
+                      two_level: bool) -> int:
+    """Kernel 9's CTAs at B rows (one gradient partial each), from the
+    library's plan (``lrnde_chain_sweep_grid``)."""
+    L = len(chain.dims) - 1
+    dims = (ctypes.c_int * (L + 1))(*chain.dims)
+    out = (ctypes.c_int * 2)()
+    err = lib.lrnde_chain_sweep_grid(ctypes.cast(dims, ctypes.c_void_p), L,
+                                     B, int(two_level),
+                                     ctypes.cast(out, ctypes.c_void_p))
+    _build.check(lib, err, "persistent_chain_sweep: the grid")
+    return out[1]
 
 
 persistent_chain_sweep.launches = 0

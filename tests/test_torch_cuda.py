@@ -334,11 +334,13 @@ def _chain_setup(device, batch, features=20, hidden=40, layers=8, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [13, 512])
+@pytest.mark.parametrize("batch", [7, 13, 410, 512, 1000])
 def test_chain_solve_matches_plain_on_card(cuda_device, batch):
     # kernel 5 against the eager loop with the plain chain: FP32 sums in
     # another order, so at rtol 1e-4 the two agree step for step up to an
-    # ulp-level accept flip; the saveat times are unsorted and one is t0
+    # ulp-level accept flip; the saveat times are unsorted and one is t0.
+    # B = 7, 13 and 410 end in a partial 4-row block; 1000 rows are 250
+    # blocks, more than an H100's SMs
     from localregneuralde_tpu_torch.ops.cuda import (
         persistent_chain_solve, persistent_chain_solve_plain,
     )
@@ -408,6 +410,172 @@ def test_chain_recording_and_sweeps_on_card(cuda_device):
     assert torch.equal(replay[:5], rec["knot_us"][:5])
     for a, b in zip(flat(win), flat(dense)):
         assert _rel(a, b) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [7, 410, 1000])
+def test_chain_sweeps_at_ragged_batches_on_card(cuda_device, batch):
+    # kernel 9's dense and two-level branches against the autograd sweep on
+    # kernel 5's knots, bitwise from run to run; the two-level replay repeats
+    # the forward bitwise (at B = 1000 a two-level CTA may hold two blocks,
+    # so its rows loop)
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_chain_solve, persistent_chain_sweep,
+        persistent_chain_sweep_plain,
+    )
+
+    params, chain, x = _chain_setup(cuda_device, batch, seed=batch)
+    saveat = torch.tensor([0.9, 0.0, 0.25, 0.5, 1.0], device=cuda_device)
+    rec = persistent_chain_solve(params, chain, x, (0.0, 1.0), rtol=1e-5,
+                                 atol=1e-5, saveat_arr=saveat, max_steps=64,
+                                 record_knots=True, knot_stride=3)
+    n = int(rec["naccept"])
+    assert n > 3 and bool(rec["success"])
+    g = torch.Generator(device=cuda_device).manual_seed(batch)
+    ct_ys = torch.randn((5, batch, 20), generator=g, device=cuda_device)
+    ct_y = torch.randn((batch, 20), generator=g, device=cuda_device)
+    args = (params, chain, rec["knot_ts"], rec["knot_us"], rec["naccept"],
+            saveat, ct_ys, ct_y)
+    flat = lambda o: [o[0], o[1], *o[2]]  # noqa: E731
+    dense = persistent_chain_sweep(*args)
+    ref = persistent_chain_sweep_plain(*args)
+    for a, b in zip(flat(dense), flat(ref)):
+        assert _rel(a, b) <= 1e-4
+    ctx = {k: rec[k] for k in rec if k.startswith("ckpt_")}
+    ctx.update(t_end=1.0, rtol=1e-5, atol=1e-5, max_steps=64, stride=3,
+               dense_cap=2)
+    win, replay = persistent_chain_sweep(*args, two_level_ctx=ctx,
+                                         return_replay=True)
+    m = min(n, 3)
+    assert torch.equal(replay[:m + 1], rec["knot_us"][:m + 1])
+    # the per-row carries match bitwise; the gradients agree to FP32
+    # rounding, since at B = 1000 a two-level CTA holds two blocks and so
+    # groups the partials otherwise (measured 1.04e-6 on an H100)
+    for a, b in zip(flat(win)[:2], flat(dense)[:2]):
+        assert torch.equal(a, b)
+    for a, b in zip(flat(win)[2:], flat(dense)[2:]):
+        assert _rel(a, b) <= 1e-5
+    again = persistent_chain_sweep(*args, two_level_ctx=ctx)
+    for a, b in zip(flat(again), flat(win)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("features, hidden", [(13, 30), (20, 70)])
+def test_chain_kernels_at_odd_widths_on_card(cuda_device, features, hidden):
+    # widths that are not multiples of 4 (the sums' last, partial float4)
+    # and a layer wider than 64 (three outputs a lane): kernel 5 against
+    # the eager loop, kernel 9 dense and two-level against the autograd
+    # sweep, the replay bitwise the forward
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_chain_solve, persistent_chain_solve_plain,
+        persistent_chain_sweep, persistent_chain_sweep_plain,
+    )
+
+    params, chain, x = _chain_setup(cuda_device, 37, features, hidden,
+                                    layers=4)
+    saveat = torch.tensor([0.5, 1.0, 0.2], device=cuda_device)
+    kw = dict(rtol=1e-4, atol=1e-4, max_steps=128, saveat_arr=saveat)
+    out = persistent_chain_solve(params, chain, x, (0.0, 1.0), **kw)
+    ref = persistent_chain_solve_plain(params, chain, x, (0.0, 1.0), **kw)
+    assert bool(out["success"]) and bool(ref["success"])
+    assert abs(int(out["naccept"]) - int(ref["naccept"])) <= 1
+    torch.testing.assert_close(out["ys"], ref["ys"], atol=2e-4, rtol=0)
+    rec = persistent_chain_solve(params, chain, x, (0.0, 1.0), rtol=1e-6,
+                                 atol=1e-6, saveat_arr=saveat, max_steps=128,
+                                 record_knots=True, knot_stride=3)
+    n = int(rec["naccept"])
+    assert n > 3
+    g = torch.Generator(device=cuda_device).manual_seed(features)
+    ct_ys = torch.randn((3, 37, features), generator=g, device=cuda_device)
+    ct_y = torch.randn((37, features), generator=g, device=cuda_device)
+    args = (params, chain, rec["knot_ts"], rec["knot_us"], rec["naccept"],
+            saveat, ct_ys, ct_y)
+    flat = lambda o: [o[0], o[1], *o[2]]  # noqa: E731
+    dense = persistent_chain_sweep(*args)
+    for a, b in zip(flat(dense), flat(persistent_chain_sweep_plain(*args))):
+        assert _rel(a, b) <= 1e-4
+    ctx = {k: rec[k] for k in rec if k.startswith("ckpt_")}
+    ctx.update(t_end=1.0, rtol=1e-6, atol=1e-6, max_steps=128, stride=3,
+               dense_cap=2)
+    win, replay = persistent_chain_sweep(*args, two_level_ctx=ctx,
+                                         return_replay=True)
+    assert torch.equal(replay[:4], rec["knot_us"][:4])
+    for a, b in zip(flat(win), flat(dense)):
+        assert _rel(a, b) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_chain_sweep_fp64_error_on_card(cuda_device):
+    # kernel 9's weight gradients against the float64 plain sweep on the
+    # PhysioNet chain's knots (chip_smoke.py's [chain sweep fp64] inputs):
+    # within twice the error of the kernel before its redesign
+    import chip_smoke
+    from localregneuralde_tpu_torch.ode.stored_adjoint import knot_layout
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_chain_solve, persistent_chain_sweep,
+        persistent_chain_sweep_plain,
+    )
+
+    params, chain, u0, saveat, _, _, _ = chip_smoke.chain_inputs(cuda_device)
+    dense_cap, _, stride = knot_layout(10000)
+    tol = chip_smoke.LATENT_TOL
+    rec = persistent_chain_solve(params, chain, u0, (0.0, 1.0), rtol=tol,
+                                 atol=tol, saveat_arr=saveat, max_steps=10000,
+                                 record_knots=True, knot_dense_cap=dense_cap,
+                                 knot_stride=stride)
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    ct_ys = torch.randn((saveat.shape[0], *u0.shape), generator=g,
+                        device=cuda_device)
+    ct_y = torch.randn(u0.shape, generator=g, device=cuda_device)
+    args = (params, chain, rec["knot_ts"], rec["knot_us"], rec["naccept"],
+            saveat, ct_ys, ct_y)
+    args64 = ([p.double() for p in params], chain) + tuple(
+        a.double() if a.is_floating_point() else a for a in args[2:])
+    grads = persistent_chain_sweep(*args)[2]
+    ref = persistent_chain_sweep_plain(*args64)[2]
+    err = max(_rel(a.double(), b) for a, b in zip(grads, ref))
+    assert err <= 2 * chip_smoke.K9_FP64_BEFORE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(20, 40, 20, 40, 20, 40, 20, 40, 20),
+                                  (13, 7, 13), (64, 96, 64, 96, 64)])
+def test_chain_grid_matches_plan_on_card(cuda_device, dims):
+    # the library's shared memory and grids against chain_plan's model:
+    # the same bytes a CTA at one block, and grids that cover every block
+    import ctypes
+
+    from localregneuralde_tpu_torch.ops.cuda import _build
+    from localregneuralde_tpu_torch.ops.cuda.fused_solve import (
+        CHAIN_ROWS, CHAIN_SMEM_BYTES, chain_smem_floats,
+    )
+
+    lib = _build.load_library()
+    L = len(dims) - 1
+    arr = (ctypes.c_int * (L + 1))(*dims)
+    dp = ctypes.cast(arr, ctypes.c_void_p)
+    assert lib.lrnde_chain_solve_smem_floats(dp, L) == chain_smem_floats(dims, 1)
+    assert lib.lrnde_chain_sweep_smem_floats(dp, L) == chain_smem_floats(
+        dims, 1, sweep=True)
+    # (64, 96, 64, 96, 64): kernel 9's weights, their transpose and the
+    # gradient partial outgrow a CTA's shared memory, and its grid is refused
+    sweep_fits = (4 * chain_smem_floats(dims, 1, sweep=True)
+                  <= CHAIN_SMEM_BYTES)
+    assert sweep_fits == (dims != (64, 96, 64, 96, 64))
+    out = (ctypes.c_int * 2)()
+    op = ctypes.cast(out, ctypes.c_void_p)
+    for B in (7, 410, 512, 1000, 5000):
+        n_blk = -(-B // CHAIN_ROWS)
+        assert lib.lrnde_chain_solve_grid(dp, L, B, op) == 0
+        assert out[1] == -(-n_blk // out[0])
+        if not sweep_fits:
+            assert lib.lrnde_chain_sweep_grid(dp, L, B, 0, op) != 0
+            continue
+        assert lib.lrnde_chain_sweep_grid(dp, L, B, 0, op) == 0
+        assert tuple(out) == (1, n_blk)
+        assert lib.lrnde_chain_sweep_grid(dp, L, B, 1, op) == 0
+        assert out[1] == -(-n_blk // out[0])
 
 
 def _conv_setup(device, batch, height, width, cs, ch, seed=0):
