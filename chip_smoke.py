@@ -81,13 +81,24 @@ on the card:
     GEMM core's forward and cuDNN.
 
 Beside those: each persistent kernel's outputs (kernels 4 at both
-tolerances, 5, 6, 8's replay and its gradients, 9, 10 and 11) are hashed
-with SHA-256 and held against ``DIGESTS``, the digests of the kernels
-before their redesign for the H100, so a kernel change that keeps them is
-bitwise the old kernel;
-kernels 13 and 14 are split by kernel with ``torch.profiler``; the conv GEMM
+tolerances, 5, 6, 8's replay and its gradients, 9, 10, 11 and 12, and
+kernels 13 and 14) are hashed with SHA-256 and held against ``DIGESTS``,
+the digests of the kernels before their redesign for the H100 (or, where
+a redesign changed a sum's order on purpose, after it), so a kernel change
+that keeps them is bitwise the old kernel;
+kernels 13 and 14 are split by kernel with ``torch.profiler``, and kernel
+13's launch sequence by role in training and in eval with the running stats
+(``[conv attribution ...]``: its conv1, conv2, conv3, bn_act, stage, time
+maps and the gaps between launches); kernel 13's BatchNorm statistics are
+held against float64 statistics of the same z (``[conv stats fp64]``) and
+kernel 12's weight gradients against the float64 plain sweep (``[sde sweep
+fp64]``), each within twice the error of the kernel before its Hopper
+redesign; kernel 12's step is split into its phases by an instantiation
+with a compile-time clock (``[sde sweep attribution]``); the conv GEMM
 core of kernels 13 and 14 is timed alone in each orientation (forward, data
-and weight gradient at N = 64 and N = 8) in TFLOP/s beside cuDNN in FP32
+and weight gradient at N = 64 and N = 8, the thin ones on the halo tile
+and held bitwise against the gather tile, and the forward with the
+statistics epilogue level by level) in TFLOP/s beside cuDNN in FP32
 (``[conv core]``, a ``{"conv_core": [...]}`` line); and kernel 11's
 attempt, kernel 4's attempt, kernel 7's (and 8's) transposed step, kernel
 5's attempt and kernel 9's step are split into their phases by
@@ -104,7 +115,9 @@ some parts (``PARTS``: kernels, backward, sde, chain, conv, conv_core,
 score, attribution, orient, solve) without the model paths, and prints
 neither the kernels line nor the ok line; ``ode`` adds the MNIST ODE's
 serving and training paths (``[slice ...]``, ``[train ...]``) and
-``latent`` the latent runner's (``[latent ...]``).
+``latent`` the latent runner's (``[latent ...]``), ``sde_train`` the
+MNIST-SDE train steps (``[sde train ...]``) and ``cifar`` the CIFAR-10
+serving and training paths (``[cifar ...]``).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
 kernel, the latent encoder's share of the latent train step, and the CIFAR
@@ -269,6 +282,76 @@ def kernel_split(label, fn, n=5, top=12):
     return {key: ms for key, ms, _ in rows}
 
 
+def sequence_split(label, fn, role, call_ms, n=5):
+    """One call of a launch sequence (kernels 13, 12) by role: ``fn`` runs
+    n times under torch.profiler, whose trace gives each kernel's device
+    time; ``role(name, seen)`` names a kernel from its name and the roles
+    before it in the call. Prints and returns {role: µs per call}, with
+    "gaps" the call's device time back to back (``call_ms``) less its
+    kernels' and "launches" their number."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.zeros(1, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    # a fill between calls marks where each begins (the trace may drop the
+    # first events of a window): only calls between two marks are counted
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n + 1):
+            marker.fill_(float(i))
+            if i < n:
+                fn()
+        torch.cuda.synchronize()
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", f"trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    os.unlink(path)
+    ks = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memset")
+                 and "dur" in e), key=lambda e: float(e["ts"]))
+    marks = [i for i, e in enumerate(ks) if "FillFunctor" in e["name"]]
+    calls = [ks[a + 1:b] for a, b in zip(marks, marks[1:])]
+    check(calls and len({len(c) for c in calls}) == 1,
+          f"{label}: calls of {[len(c) for c in calls]} device events")
+    split = {}
+    for call in calls:
+        seen = []
+        for e in call:
+            name = "memset" if e["cat"] == "gpu_memset" else role(e["name"], seen)
+            seen.append(name)
+            split[name] = split.get(name, 0.0) + float(e["dur"]) / len(calls)
+    busy = sum(split.values())
+    split = {k: round(v, 2) for k, v in split.items()}
+    split["gaps"] = round(1e3 * call_ms - busy, 2)
+    split["launches"] = len(calls[0])
+    print(f"[{label}] µs per call: {split}; kernels {busy:.1f} of "
+          f"{1e3 * call_ms:.1f} back to back")
+    return split
+
+
+def conv_role(name, seen):
+    """The role of a kernel in kernel 13's or 14's launch sequence: the
+    N = 64 GEMMs of an evaluation are conv1 then conv2, the N = 8 one conv3;
+    the rest by name."""
+    for key, r in (("time_map", "time maps"), ("stage", "stage"),
+                   ("bn_stats", "BN statistics"), ("bn_act", "bn_act"),
+                   ("utilde", "utilde"), ("bn_ema", "EMA"),
+                   ("reduce_partials", "partial sums"),
+                   ("transpose_w", "transpose_w"), ("wgrad_time", "wgrad time"),
+                   ("wgrad", "wgrad"), ("bn_bwd", "BN backward"),
+                   ("seed", "seed")):
+        if key in name:
+            return r
+    if "conv" in name and ("<128, 8," in name or "halo" in name):
+        return "conv3"
+    if "conv" in name:
+        convs = [x for x in seen if x in ("conv1", "conv2", "conv3")]
+        return "conv1" if not convs or convs[-1] != "conv1" else "conv2"
+    return name[:60]
+
+
 # SHA-256 of each persistent kernel's outputs at the main-path shapes (the
 # inputs are made from fixed seeds), taken on the kernels before their
 # redesign for the H100 (NVIDIA H100 80GB HBM3, 700 W): a kernel change
@@ -281,7 +364,12 @@ def kernel_split(label, fn, n=5, top=12):
 # redesign. Kernel 9's outputs are held in three parts, so that a change
 # of the gradient sums' order (allowed) shows apart from the replay and
 # the per-row carries (which must keep every bit): "K9 replay", "K9
-# state" (a_u, a_k) and "K9 grads".
+# state" (a_u, a_k) and "K9 grads". Kernel 12's, "K12 state" (a_u) and
+# "K12 grads", hold through its twelve-warp redesign. Kernel 13's are taken
+# on its Hopper redesign, whose BatchNorm statistics come from the convs'
+# tile moments (a new order): "K13 train" and "K13 eval batch" (and "K14",
+# whose recompute is kernel 13's forward) new, "K13 eval" (the running
+# stats, no statistics) bitwise the first port's.
 DIGESTS = {
     "K4 mlp.yaml":
         "e44871cbccc65b5feb83750178380cfcdbac0317ef585369813d08c465a56029",
@@ -311,6 +399,18 @@ DIGESTS = {
         "ee519b3048e636d24150dae433d8436a65634d560e3cf8e544b4aff49d16c6f6",
     "K3":
         "98440d6fa0bef5f97702c62325f4a882205ac07a0bba2c405e03241d81f69f50",
+    "K12 state":
+        "a912e956ef195bffddc48954ddee91beeef13fab15a4091bd8b3a6b29e51dd0d",
+    "K12 grads":
+        "4b59f81c42858e2183612bff7554859bae1f7dc2ab8b4fc369ae5a35ced49dd0",
+    "K13 train":
+        "e671ffde7f09884869a4be91571dec3172d1fb81646e0d063c79ac19a4e0c284",
+    "K13 eval":
+        "96bcb09f75939c214289cc939a748aac9292873a4539ed819ee48cda31c7a424",
+    "K13 eval batch":
+        "ca9f88fe5ce6a853a9ba2a6b0659dfe20b46d5692ae23c964ac63511093b45f5",
+    "K14":
+        "250f93031de4b10a367798498581d9e3701cd576dd5fcef85d4a2b4ea66b64ab",
 }
 SEEN_DIGESTS = {}
 # Kernel 3's largest error relative to the float64 plain VJP, on the kernel
@@ -321,6 +421,22 @@ K3_FP64_BEFORE = 3.719e-7
 # sweep ([chain sweep fp64], dense at physionet.yaml on kernel 5's knots), on
 # the kernel before its redesign: the redesign may at most double it.
 K9_FP64_BEFORE = 8.512e-7
+# Kernel 13's BatchNorm statistics (the last evaluation's mean and variance
+# of z1 and z2 in training mode) against float64 two-pass statistics of the
+# same z, largest |mean error| / std and |var error| / var, on the kernel
+# before its Hopper redesign ([conv stats fp64]): the redesign may at most
+# double them.
+K13_STATS_FP64_BEFORE = (5.064e-7, 4.848e-7)
+# Kernel 12's weight gradients' largest error relative to the float64 plain
+# sweep on kernel 10's knots ([sde sweep fp64]), on the kernel before its
+# Hopper redesign: the redesign may at most double it.
+K12_FP64_BEFORE = 4.438e-7
+# Device ms per call back to back of kernels 13 (training, eval with the
+# running stats), 14 and 12 before their Hopper redesign, measured by this
+# script's [conv attribution] and [sde sweep] on the parent tree (NVIDIA
+# H100 80GB HBM3, 700 W), printed beside this run's.
+PARENT_MS = {"K13 train": 1.2836, "K13 eval": 1.0128, "K14": 3.7444,
+             "K12": 1.908}
 DIGEST_KEYS = ("y_final", "ys", "naccept", "nreject", "natt")
 
 
@@ -1410,8 +1526,26 @@ def phase_sde_kernels(device, ode_w, ode_x):
             torch.randn((B, Fs), generator=g, device=device))
     sw = dict(solver="sosri", delta=1 / 6)
     ours = persistent_sde_sweep(w, *args, **sw)
+    digest("K12 state", ours[0])
+    digest("K12 grads", *ours[1])
     plain_s = persistent_sde_sweep_plain(w, *args, **sw)
     flat = lambda o: [o[0], *o[1]]  # noqa: E731
+    # the weight gradients' FP64 error: against the plain sweep in float64
+    # on the same knots, beside the FP32 plain sweep
+    args64 = tuple(a_.double() if a_.is_floating_point() else a_
+                   for a_ in args)
+    ref64 = flat(persistent_sde_sweep_plain(
+        SDEWeights(*(p_.double() for p_ in w)), *args64, **sw))
+    k64 = [rel_err(a_.double(), b_) for a_, b_ in zip(flat(ours), ref64)]
+    p64 = [rel_err(a_.double(), b_) for a_, b_ in zip(flat(plain_s), ref64)]
+    print(f"[sde sweep fp64] relative max-abs vs the float64 plain sweep: "
+          f"weight gradients kernel {max(k64[1:]):.3e}, FP32 plain "
+          f"{max(p64[1:]):.3e}; a_u kernel {k64[0]:.2e}, FP32 plain "
+          f"{p64[0]:.2e}")
+    check(K12_FP64_BEFORE is None or max(k64[1:]) <= 2 * K12_FP64_BEFORE,
+          f"sde sweep vs float64: {max(k64[1:]):.3e}, over 2x the old "
+          f"kernel's {K12_FP64_BEFORE}")
+    phase_sde_sweep_attribution(w, args, ours, device)
     rel = max(rel_err(a, b) for a, b in zip(flat(ours), flat(plain_s)))
     err = max(max_abs(a, b) for a, b in zip(flat(ours), flat(plain_s)))
     again = persistent_sde_sweep(w, *args, **sw)
@@ -1426,8 +1560,8 @@ def phase_sde_kernels(device, ode_w, ode_x):
     ms, = back_to_back_ms([lambda: persistent_sde_sweep(w, *args, **sw)],
                           n=20, warmup=2)
     print(f"[sde sweep] kernel {ms:.3f} ms per call back to back "
-          f"({ms / n:.4f} ms per step), one call {call:.3f} ms; plain "
-          f"{plain:.3f} ms")
+          f"({ms / n:.4f} ms per step; before the redesign "
+          f"{PARENT_MS['K12']}), one call {call:.3f} ms; plain {plain:.3f} ms")
     # per step the stages' recompute, their transpose and the weight
     # gradients (three times the step's products); knots and cotangents in
     res["persistent_sde_sweep"] = dict(
@@ -1480,6 +1614,47 @@ def phase_sde_kernels(device, ode_w, ode_x):
     print(f"[reservoir] kernel 4 recording at rtol 1e-4: {with_res:.3f} ms per "
           f"call with the reservoir, {without:.3f} ms without")
     return res
+
+
+def phase_sde_sweep_attribution(w, args, ref, device, runs=3):
+    """Kernel 12's step by phase: the instantiation with the compile-time
+    clock (lrnde_sde_sweep_timed, launched only here), CTA 0's
+    %globaltimer summed over the steps, bitwise the untimed kernel; then
+    the untimed launch split into the sweep and its partials' sum."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import _build
+
+    lib = _build.load_library()
+    names = _phase_names(lib, "lrnde_sde_sweep_phase_names")
+    knot_ts, knot_us, knot_dws, knot_dzs, naccept, saveat, ct_ys, ct_y = args
+    Bs, Fs = ct_y.shape
+    Hs = w.b1.shape[0]
+    n_grad = lib.lrnde_sde_grad_floats(Fs, Hs)
+    a_u = torch.empty_like(ct_y)
+    d_w = torch.empty(n_grad, device=device)
+    part = torch.empty((-(-Bs // lib.lrnde_sde_rows_per_block()), n_grad),
+                       device=device)
+    nacc = naccept.to(device=device, dtype=torch.int32).reshape(1)
+    raw = (1, *w, knot_ts, knot_us, knot_dws, knot_dzs, nacc, saveat,
+           saveat.shape[0], ct_ys, ct_y, a_u, d_w, part, Bs, Fs, Hs)
+    timed = lambda timing: raw_launch(  # noqa: E731
+        "lrnde_sde_sweep_timed", *raw, timing)()
+    err, per, steps, _ = _clocked(timed, len(names), device, runs)
+    check(err == 0, "sde sweep attribution: launch failed")
+    check(torch.equal(a_u, ref[0]) and torch.equal(
+        d_w, torch.cat([g.reshape(-1) for g in ref[1]])),
+        "sde sweep attribution: the timed kernel's result differs")
+    split = {n_: round(us, 3) for n_, us in zip(names, per)}
+    print(f"[sde sweep attribution] {steps} steps, CTA 0, µs per step (the "
+          f"partial write: per step of the sweep) (mean of {runs} launches): "
+          f"{split}; sum {sum(per):.3f}; bitwise the untimed kernel")
+    untimed = raw_launch("lrnde_sde_sweep", *raw)
+    ms, = back_to_back_ms([untimed], n=20, warmup=2)
+    sequence_split("sde sweep attribution launches", untimed,
+                   lambda name, seen: ("partial sums" if "reduce_partials"
+                                       in name else "sweep"), ms)
+    return split
 
 
 def phase_sde_serving(device):
@@ -2424,6 +2599,9 @@ def phase_conv_kernels(device):
         bitwise = all(torch.equal(p, q) for p, q in zip(out[:9], again[:9]))
         step_err = max(step_err, max(max_abs(p, q) for p, q in
                                      zip(out[:9], ref[:9])))
+        digest({"train": "K13 train", "running": "K13 eval",
+                "batch": "K13 eval batch"}[mode], *out[:9],
+               *(out[9] if training else ()))
         print(f"[conv step {mode}] vs plain: relative max-abs {rel:.3e} "
               f"(u_new, k2..k7, g6), u~ {ut_err:.3e} of dt*max|k|, running "
               f"stats {stats_rel:.3e}; bitwise deterministic {bitwise}")
@@ -2449,6 +2627,7 @@ def phase_conv_kernels(device):
     names = ["d_u", "d_k1", *("d_" + f for f in w._fields)]
     pairs = list(zip([ours[1], ours[2], *ours[0]], [ref[1], ref[2], *ref[0]]))
     rels = {n: rel_err(p, q) for n, (p, q) in zip(names, pairs)}
+    digest("K14", ours[1], ours[2], *ours[0])
     again = fused_conv_step_bwd(w, spec, u, t, dt, k1, cts)
     bitwise = all(torch.equal(p, q) for p, q in zip(
         [again[1], again[2], *again[0]], [ours[1], ours[2], *ours[0]]))
@@ -2476,8 +2655,21 @@ def phase_conv_kernels(device):
         device=device)
     raw14 = raw_launch("lrnde_conv_step_bwd", u, k1, sc, *w, *cts, *grads,
                        scr14, spec.eps, B_, H_, W_, Cs, Ch)
-    check(raw13() == 0 and raw14() == 0, "conv kernels: raw launch failed")
-    ms13, ms14 = back_to_back_ms([raw13, raw14], n=20, warmup=3)
+    raw13_eval = raw_launch("lrnde_conv_step", u, k1, sc, *w, *outs, rs,
+                            None, scr13, 1, spec.momentum,
+                            1.0 - spec.momentum, spec.eps, B_, H_, W_, Cs, Ch)
+    check(raw13() == 0, "conv kernels: raw launch failed")
+    torch.cuda.synchronize()
+    phase_conv_stats(lib, scr13, B_, H_, W_, Cs, Ch)
+    check(raw14() == 0 and raw13_eval() == 0, "conv kernels: raw launch failed")
+    ms13, ms14, ms13_eval = back_to_back_ms([raw13, raw14, raw13_eval], n=20,
+                                            warmup=3)
+    print(f"[conv attribution] kernel 13 back to back: train {ms13:.4f} ms, "
+          f"eval (running stats) {ms13_eval:.4f} ms; kernel 14 {ms14:.4f} ms "
+          f"(before the redesign: {PARENT_MS['K13 train']}, "
+          f"{PARENT_MS['K13 eval']}, {PARENT_MS['K14']})")
+    sequence_split("conv attribution train", raw13, conv_role, ms13)
+    sequence_split("conv attribution eval", raw13_eval, conv_role, ms13_eval)
     kernel_split("fused_conv_step", raw13)
     kernel_split("fused_conv_step_bwd", raw14)
     call13, call14 = median_ms(
@@ -2512,6 +2704,40 @@ def phase_conv_kernels(device):
               f"{r.pop('call_ms'):.4f} ms | bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
     return res
+
+
+def phase_conv_stats(lib, scratch, B_, H_, W_, Cs, Ch):
+    """Kernel 13's BatchNorm statistics of its last evaluation (training
+    mode: z1 and z2 and their batch mean and variance stay in the scratch)
+    against float64 two-pass statistics of the same z: the largest |mean
+    error| / std and |var error| / var over the channels."""
+    import torch
+
+    M = B_ * H_ * W_
+    at = lambda which: lib.lrnde_conv_step_offset(  # noqa: E731
+        which, B_, H_, W_, Cs, Ch)
+    st = scratch[at(2) + 20 * Ch: at(2) + 24 * Ch].double().view(4, Ch)
+    errs = []
+    for layer in (0, 1):
+        z = scratch[at(layer): at(layer) + M * Ch].double().view(M, Ch)
+        mean = z.mean(0)
+        var = ((z - mean) ** 2).mean(0)
+        errs.append((float(((st[2 * layer] - mean).abs() / var.sqrt()).max()),
+                     float(((st[2 * layer + 1] - var).abs() / var).max())))
+    e_mean = max(e[0] for e in errs)
+    e_var = max(e[1] for e in errs)
+    print(f"[conv stats fp64] the last evaluation's batch statistics vs "
+          f"float64 two-pass statistics of the same z: mean error / std "
+          f"{errs[0][0]:.3e} (BN1), {errs[1][0]:.3e} (BN2); var relative "
+          f"{errs[0][1]:.3e}, {errs[1][1]:.3e}")
+    if K13_STATS_FP64_BEFORE is not None:
+        before = K13_STATS_FP64_BEFORE
+        print(f"[conv stats fp64] before the redesign: mean {before[0]:.3e}, "
+              f"var {before[1]:.3e}")
+        check(e_mean <= 2 * before[0] and e_var <= 2 * before[1],
+              f"conv stats vs float64: {e_mean:.3e}, {e_var:.3e}, over 2x "
+              f"the old kernel's {before}")
+    return e_mean, e_var
 
 
 def _cifar_forward(setup, params, state, data, w_reg):
@@ -2959,14 +3185,16 @@ def phase_conv_core(device):
     # (name, orient, cin, cout): the K14 GEMMs at cnn.yaml's width (Ch 64,
     # Cs 8): conv2 and conv3 forward, conv2 and conv1 data gradients, conv2
     # and conv3 weight gradients
-    cases = (("forward N=64", 0, 64, 64), ("forward N=8", 0, 64, 8),
+    cases = (("forward N=64", 0, 64, 64),
+             ("forward N=64 + BN statistics", 5, 64, 64),
+             ("forward N=8", 0, 64, 8),
              ("data grad N=64", 1, 64, 64), ("data grad N=8", 1, 64, 8),
              ("weight grad N=64", 2, 64, 64), ("weight grad N=8", 2, 64, 8))
     sc = torch.tensor([0.37, 0.0], device=device)
     for name, orient, cin, cout in cases:
         x = torch.randn(b, h, w, cin, generator=g).to(device)
         nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
-        if orient == 0:
+        if orient in (0, 5):
             wt = (0.05 * torch.randn(3, 3, cin, cout, generator=g)).to(device)
             w_l = wt.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
             lib_fn = lambda: torch.nn.functional.conv2d(  # noqa: E731
@@ -3011,8 +3239,42 @@ def phase_conv_core(device):
         again = out.clone()
         check(raw() == 0 and torch.equal(out, again),
               f"conv core {name} is not bitwise repeatable")
+        if orient == 5:  # the epilogue's statistics against float64
+            z = out.reshape(-1, cout).double()
+            mean, var = z.mean(0), z.var(0, unbiased=False)
+            st = scratch[:2 * cout].double()
+            s_err = max(float(((st[:cout] - mean).abs() / var.sqrt()).max()),
+                        float(((st[cout:] - var).abs() / var).max()))
+            print(f"[conv core] {name}: statistics vs float64 {s_err:.2e}")
+            check(s_err <= 1e-5, f"conv core {name}: statistics {s_err}")
+            # the statistics' cost by level: tile moments, the groups' fold,
+            # the final fold
+            cuts = [raw_launch("lrnde_conv_core", o, *ops, sc, out, scratch, b,
+                               h, w, cin, cout) for o in (6, 7)]
+            check(all(c() == 0 for c in cuts), f"conv core {name}: probe")
+            plain = raw_launch("lrnde_conv_core", 0, *ops, sc,
+                               torch.empty_like(out), scratch, b, h, w, cin,
+                               cout)
+            t_full, t_groups, t_tiles, t_plain = back_to_back_ms(
+                [raw] + cuts + [plain], n=50, warmup=5)
+            print(f"[conv core] {name} by level: plain {1e3 * t_plain:.2f} µs, "
+                  f"+ tile moments {1e3 * t_tiles:.2f}, + group folds "
+                  f"{1e3 * t_groups:.2f}, + final fold {1e3 * t_full:.2f}")
+        fns = [raw, lib_fn]
+        if cout <= 8 and orient < 2:
+            # the thin convs run on the halo tile: bitwise the gather tile
+            out_g = torch.empty_like(out)
+            fns.append(raw_launch("lrnde_conv_core", orient + 3, *ops, sc,
+                                  out_g, scratch, b, h, w, cin, cout))
+            check(fns[-1]() == 0 and torch.equal(out, out_g),
+                  f"conv core {name}: the halo tile differs from the gather "
+                  f"tile")
         with torch.no_grad():
-            ms, lib_ms = back_to_back_ms([raw, lib_fn], n=50, warmup=5)
+            ms, lib_ms, *gather = back_to_back_ms(fns, n=50, warmup=5)
+        if gather:
+            print(f"[conv core] {name}: halo tile {1e3 * ms:.2f} µs, bitwise "
+                  f"the gather tile's outputs, which take "
+                  f"{1e3 * gather[0]:.2f} µs")
         nbytes = 4 * (sum(t.numel() for t in ops) + out.numel())
         row = dict(name=name, cin=cin, cout=cout, ms=ms,
                    tflops=flops / ms / 1e9, library_ms=lib_ms,
@@ -3305,7 +3567,8 @@ def phase_conv_orient(device):
 
 
 PARTS = ("kernels", "backward", "sde", "chain", "latent", "conv",
-         "conv_core", "score", "attribution", "orient", "solve", "ode")
+         "conv_core", "score", "attribution", "orient", "solve", "ode",
+         "cifar", "sde_train")
 
 
 def partial_run(device, parts, profile=False):
@@ -3335,8 +3598,12 @@ def partial_run(device, parts, profile=False):
         phase_chain_kernels(device)
     if "latent" in parts:
         phase_latent(device, profile=profile)
+    if "sde_train" in parts:
+        phase_sde_train(device, profile=profile)
     if "conv" in parts:
         phase_conv_kernels(device)
+    if "cifar" in parts:
+        phase_cifar(device, profile=profile)
     if "conv_core" in parts:
         phase_conv_core(device)
     if "score" in parts:

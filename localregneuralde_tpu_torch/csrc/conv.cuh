@@ -22,11 +22,18 @@
 //   the image at (h, w), computed once per call (time_map_kernel).
 // - BatchNorm-apply plus gelu(tanh) of a layer is written once per
 //   evaluation into a plain activation buffer (bn_act_kernel), which the next
-//   conv gathers (zero padding stays zero: it pads the activation).
-// - Batch statistics are two passes, as the reference's (mean, then the mean
-//   of squared deviations). Each pass writes per-block partials into fixed
-//   slots; the last block to finish (an integer ticket) sums them in block
-//   order. No float atomics, so a step is bitwise repeatable.
+//   conv gathers (zero padding stays zero: it pads the activation); in eval
+//   with the running stats the conv's epilogue writes it instead of z.
+// - Batch statistics come from the conv's epilogue: each 128-pixel tile's
+//   per-channel sum and M2 in a fixed slot, folded in tile order by the last
+//   CTA to finish (an integer ticket) into the mean and the variance
+//   (conv_core.cuh::tile_stats). No float atomics, so a step is bitwise
+//   repeatable. The reference's are two passes (mean, then the mean of
+//   squared deviations); the tile moments are as accurate (chip_smoke.py's
+//   [conv stats fp64] holds them against float64).
+// - The stage algebra rides on the convs: evaluation e's last conv writes
+//   k_{e+2} and, from it, the next evaluation's input (g6, u_new, and after
+//   the sixth ũ); only the first input has a launch of its own.
 // - Every product is FP32 FFMA; TF32, wgmma and TMA are later work.
 //
 // What bounds it on an H100: the products. One dynamics evaluation at
@@ -42,16 +49,18 @@ namespace lrnde {
 namespace conv {
 
 constexpr int kMaxC = 256;         // the most channels the kernels take
-constexpr int kStatThreads = 256;  // 8 row lanes x 32 channel lanes
-constexpr int kStatRows = 256;     // rows per block of a statistics pass
+constexpr int kStatRows = 256;     // rows per block of the BatchNorm backward
+constexpr int kStatTile = 128;     // rows of a statistics tile (the N = 64 tile's)
 constexpr int kEw = 256;           // threads of the elementwise kernels
-constexpr int kTickets = 64;       // ticket counters carved from the scratch
+// ticket counters carved from the scratch: the forward's statistics (12
+// convs), then kernel 14's BatchNorm backward
+constexpr int kFwdTickets = 12 * kStatTickets;
+constexpr int kTickets = kFwdTickets + 16;
 
-constexpr float kGeluA = 0.7978845608028654f;  // sqrt(2 / pi)
-constexpr float kGeluB = 0.044715f;
-
-__device__ inline float gelu_tanh(float x) {
-  return 0.5f * x * (1.f + tanhf(kGeluA * (x + kGeluB * x * x * x)));
+// Floats of the statistics' slots at M pixels and C channels: a tile's
+// moments each, then a group's.
+inline size_t stat_slot_floats(int M, int C) {
+  return static_cast<size_t>(cdiv(M, kStatTile) + kStatGroups) * 2 * C;
 }
 
 // d gelu / dx of the tanh form (fused_conv_bwd.py::_gelu_grad)
@@ -66,13 +75,23 @@ __host__ __device__ inline float stage_c(int e) {
   return e == 0 ? C1 : e == 1 ? C2 : e == 2 ? C3 : e == 3 ? C4 : 1.f;
 }
 
-// tmap[h, w, co] = sum over the taps inside the image at (h, w) of the time
-// channel's weight W[dy, dx, w_cin - 1, co]
-static __global__ void time_map_kernel(const float* __restrict__ w, int w_cin,
-                                       int cout, int H, int W,
+// The three layers' time maps, one after the other in tmap:
+// tmap_l[h, w, co] = sum over the taps inside the image at (h, w) of the
+// time channel's weight W_l[dy, dx, w_cin - 1, co]
+struct TimeMaps {
+  const float* w[3];
+  int w_cin[3], cout[3];
+};
+
+static __global__ void time_map_kernel(TimeMaps m, int H, int W,
                                        float* __restrict__ tmap) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= H * W * cout) return;
+  int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int HW = H * W;
+  int l = 0;
+  while (l < 3 && idx >= HW * m.cout[l]) idx -= HW * m.cout[l++];
+  if (l == 3) return;
+  const int cout = m.cout[l], w_cin = m.w_cin[l];
+  const float* w = m.w[l];
   const int hw = idx / cout, co = idx - hw * cout;
   const int h = hw / W, x = hw - h * W;
   float s = 0.f;
@@ -81,82 +100,7 @@ static __global__ void time_map_kernel(const float* __restrict__ w, int w_cin,
     if (hs >= 0 && hs < H && ws >= 0 && ws < W)
       s += w[(static_cast<size_t>(tap) * w_cin + (w_cin - 1)) * cout + co];
   }
-  tmap[idx] = s;
-}
-
-// ---------------------------------------------------------------------------
-// BatchNorm statistics: deterministic two-level per-channel sums
-
-// One pass over z (M, C): with mean == nullptr out[c] = mean of column c,
-// else out[c] = mean of (z - mean[c])^2. Per-block sums go to part[block][c];
-// the last block to take a ticket sums them in block order.
-static __global__ void __launch_bounds__(kStatThreads)
-bn_stats_kernel(const float* __restrict__ z, int M, int C,
-                const float* __restrict__ mean, float* part,
-                unsigned* ticket, float* __restrict__ out) {
-  __shared__ float red[8][32];
-  __shared__ bool last;
-  const int tid = threadIdx.x, lane = tid & 31, rl = tid >> 5;
-  const int r0 = blockIdx.x * kStatRows, r1 = min(r0 + kStatRows, M);
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    const int c = c0 + lane;
-    float acc = 0.f;
-    if (c < C) {
-      const float mu = mean != nullptr ? mean[c] : 0.f;
-      for (int r = r0 + rl; r < r1; r += 8) {
-        const float v = z[static_cast<size_t>(r) * C + c];
-        if (mean != nullptr) {
-          const float d = v - mu;
-          acc = fmaf(d, d, acc);
-        } else {
-          acc += v;
-        }
-      }
-    }
-    red[rl][lane] = acc;
-    __syncthreads();
-    if (rl == 0 && c < C) {
-      float s = red[0][lane];
-      for (int i = 1; i < 8; ++i) s += red[i][lane];
-      part[static_cast<size_t>(blockIdx.x) * C + c] = s;
-    }
-    __syncthreads();
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int c = tid; c < C; c += kStatThreads) {
-    float s = 0.f;
-    for (int b = 0; b < static_cast<int>(gridDim.x); ++b)
-      s += __ldcg(part + static_cast<size_t>(b) * C + c);
-    out[c] = s / static_cast<float>(M);
-  }
-}
-
-static inline cudaError_t launch_bn_stats(const float* z, int M, int C,
-                                   const float* mean, float* part,
-                                   unsigned* ticket, float* out,
-                                   cudaStream_t st) {
-  bn_stats_kernel<<<cdiv(M, kStatRows), kStatThreads, 0, st>>>(
-      z, M, C, mean, part, ticket, out);
-  return cudaGetLastError();
-}
-
-// The running-stat EMA chain of one step, in evaluation order:
-// r = (1 - m) r + m stat_e for e = 0..5. stats holds per evaluation
-// (mean1, var1, mean2, var2), each C; rin/rout are (4, C) in that order.
-static __global__ void bn_ema_kernel(const float* __restrict__ stats,
-                                     const float* __restrict__ rin,
-                                     float* __restrict__ rout, int C,
-                                     float mom, float omm) {
-  for (int idx = threadIdx.x; idx < 4 * C; idx += blockDim.x) {
-    float r = rin[idx];
-    for (int e = 0; e < 6; ++e) r = omm * r + mom * stats[e * 4 * C + idx];
-    rout[idx] = r;
-  }
+  tmap[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
 // act = gelu(BN(z)) of one layer, elementwise over (M, C), written once
@@ -170,7 +114,7 @@ static __global__ void bn_act_kernel(const float* __restrict__ z,
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int c = static_cast<int>(i % C);
-  act[i] = gelu_tanh(((z[i] - mean[c]) * rsqrtf(var[c] + eps)) * gamma[c] + beta[c]);
+  act[i] = bn_gelu(z[i], mean[c], rsqrtf(var[c] + eps), gamma[c], beta[c]);
 }
 
 static inline cudaError_t bn_act(const float* z, const float* mean,
@@ -189,32 +133,17 @@ struct KPtrs {
   const float* k[7];  // k1..k7
 };
 
-// x = u + dt * sum_{j <= e} a_ej k_j, written to x (and g6 at e = 4, u_new at
-// e = 5 when given)
-static __global__ void stage_kernel(const float* __restrict__ u, KPtrs ks,
-                                    const float* __restrict__ sc, int e,
-                                    float* __restrict__ x, float* g6,
-                                    float* unew, size_t n) {
+// x = u + dt * a_00 k1, the first evaluation's input (the others come from
+// the convs' epilogue, conv_core.cuh::conv_store)
+static __global__ void stage_kernel(const float* __restrict__ u,
+                                    const float* __restrict__ k1,
+                                    const float* __restrict__ sc,
+                                    float* __restrict__ x, size_t n) {
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float dt = sc[1];
-  float acc = kA[e][0] * ks.k[0][i];
-  for (int j = 1; j <= e; ++j) acc = acc + kA[e][j] * ks.k[j][i];
-  const float v = u[i] + dt * acc;
-  x[i] = v;
-  if (e == 4 && g6 != nullptr) g6[i] = v;
-  if (e == 5 && unew != nullptr) unew[i] = v;
-}
-
-// u~ = dt * sum_j btilde_j k_j
-static __global__ void utilde_kernel(KPtrs ks, const float* __restrict__ sc,
-                                     float* __restrict__ ut, size_t n) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float acc = BT1 * ks.k[0][i] + BT2 * ks.k[1][i] + BT3 * ks.k[2][i] +
-                    BT4 * ks.k[3][i] + BT5 * ks.k[4][i] + BT6 * ks.k[5][i] +
-                    BT7 * ks.k[6][i];
-  ut[i] = sc[1] * acc;
+  const float k = k1[i];
+  const float kv[7] = {k, k, k, k, k, k, k};
+  x[i] = stage_input(0, u[i], kv, sc[1]);
 }
 
 // ---------------------------------------------------------------------------
@@ -243,11 +172,13 @@ struct StepArgs {
   float* z2;
   size_t z_stride;
   float* act;                // gelu(BN(z)) of layer 1, then 2, of evaluation e
-  size_t act_stride;         //   at act + (2 e + layer) * act_stride
+  size_t act_stride;         //   at act + e * act_eval_stride + layer * act_stride
+  size_t act_eval_stride;    //   (two buffers at least: a layer's conv in eval
+                             //   writes its activation while its input's is read)
   float* tmap;               // H*W*(2 Ch + Cs)
   float* stats;              // 6 x (mean1, var1, mean2, var2) x Ch
-  float* part;               // statistics partials: cdiv(M, kStatRows) x Ch
-  unsigned* tickets;         // 24, zero
+  float* part;               // statistics slots: stat_slot_floats(M, Ch)
+  unsigned* tickets;         // kFwdTickets, zero (modes 0 and 2)
   int mode;
   const float* rstats;       // (4, Ch): running stats (eval) or EMA seeds
   float* rstats_out;         // (4, Ch) EMA chain (training), may be null
@@ -256,16 +187,10 @@ struct StepArgs {
 };
 
 static inline cudaError_t time_maps(const StepArgs& a, cudaStream_t st) {
-  const int HW = a.H * a.W;
-  const float* ws[3] = {a.w1, a.w2, a.w3};
-  const int wcin[3] = {a.Cs + 1, a.Ch + 1, a.Ch + 1};
-  const int cout[3] = {a.Ch, a.Ch, a.Cs};
-  float* t = a.tmap;
-  for (int l = 0; l < 3; ++l) {
-    time_map_kernel<<<cdiv(static_cast<long long>(HW) * cout[l], kEw), kEw, 0, st>>>(
-        ws[l], wcin[l], cout[l], a.H, a.W, t);
-    t += static_cast<size_t>(HW) * cout[l];
-  }
+  const TimeMaps m{{a.w1, a.w2, a.w3}, {a.Cs + 1, a.Ch + 1, a.Ch + 1},
+                   {a.Ch, a.Ch, a.Cs}};
+  const long long n = static_cast<long long>(a.H) * a.W * (2 * a.Ch + a.Cs);
+  time_map_kernel<<<cdiv(n, kEw), kEw, 0, st>>>(m, a.H, a.W, a.tmap);
   return cudaGetLastError();
 }
 
@@ -274,76 +199,73 @@ static inline const float* tmap_of(const StepArgs& a, int layer) {
   return a.tmap + (layer == 0 ? 0 : layer == 1 ? HW * a.Ch : 2 * HW * a.Ch);
 }
 
-// The batch statistics of z (M, Ch) into mean/var, or nothing in eval mode
-// with running stats.
-static inline cudaError_t batch_stats(const StepArgs& a, const float* z, float* mean,
-                               float* var, unsigned* tickets,
-                               cudaStream_t st) {
-  const int M = a.B * a.H * a.W;
-  cudaError_t err = launch_bn_stats(z, M, a.Ch, nullptr, a.part, tickets, mean, st);
-  if (err != cudaSuccess) return err;
-  return launch_bn_stats(z, M, a.Ch, mean, a.part, tickets + 1, var, st);
+// Layer `layer` (0, 1) of evaluation e: with batch statistics the conv
+// writes z and the statistics of the evaluation's slot se (mean, var), and
+// bn_act writes the activation; with the running stats the conv writes the
+// activation. After the sixth evaluation's second statistics the EMA chain
+// (training with rstats_out).
+static inline cudaError_t conv_bn_layer(const StepArgs& a, int e, int layer,
+                                        const float* in, cudaStream_t st) {
+  const int M = a.B * a.H * a.W, Ch = a.Ch;
+  const bool batch = a.mode != kEvalRunning;
+  const int cin = layer == 0 ? a.Cs : Ch;
+  float* z = (layer == 0 ? a.z1 : a.z2) + e * a.z_stride;
+  float* act = a.act + e * a.act_eval_stride + layer * a.act_stride;
+  const float* gamma = layer == 0 ? a.g1 : a.g2;
+  const float* beta = layer == 0 ? a.b1 : a.b2;
+  float* se = a.stats + static_cast<size_t>(e) * 4 * Ch + 2 * layer * Ch;
+  ConvArgs c{in, cin, layer == 0 ? a.w1 : a.w2, cin + 1, Ch, tmap_of(a, layer),
+             a.sc, stage_c(e), batch ? z : act, a.B, a.H, a.W};
+  if (batch) {
+    c.epi.part = a.part;
+    c.epi.ticket = a.tickets + (2 * e + layer) * kStatTickets;
+    c.epi.stats = se;
+    if (e == 5 && layer == 1 && a.mode == kTrain && a.rstats_out != nullptr) {
+      c.epi.ema_stats = a.stats;
+      c.epi.ema_in = a.rstats;
+      c.epi.ema_out = a.rstats_out;
+      c.epi.mom = a.mom;
+      c.epi.omm = a.omm;
+    }
+  } else {
+    c.epi.bn_mean = a.rstats + 2 * layer * Ch;
+    c.epi.bn_var = a.rstats + (2 * layer + 1) * Ch;
+    c.epi.gamma = gamma;
+    c.epi.beta = beta;
+    c.epi.eps = a.eps;
+  }
+  cudaError_t err = launch_conv(c, st);
+  if (err != cudaSuccess || !batch) return err;
+  return bn_act(z, se, se + Ch, gamma, beta, a.eps, M, Ch, act, st);
 }
 
 static inline cudaError_t forward_step(const StepArgs& a, cudaStream_t st) {
   const int M = a.B * a.H * a.W;
   const size_t n = static_cast<size_t>(M) * a.Cs;
-  const int Ch = a.Ch;
   cudaError_t err = time_maps(a, st);
   if (err != cudaSuccess) return err;
-  KPtrs ks;
-  ks.k[0] = a.k1;
-  for (int j = 0; j < 6; ++j) ks.k[j + 1] = a.k[j];
+  stage_kernel<<<cdiv(n, kEw), kEw, 0, st>>>(a.u, a.k1, a.sc, a.x, n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   for (int e = 0; e < 6; ++e) {
-    float* x = a.x + e * a.x_stride;
-    float* z1 = a.z1 + e * a.z_stride;
-    float* z2 = a.z2 + e * a.z_stride;
-    float* se = a.stats + static_cast<size_t>(e) * 4 * Ch;
-    const float c = stage_c(e);
-    stage_kernel<<<cdiv(n, kEw), kEw, 0, st>>>(a.u, ks, a.sc, e, x, a.g6, a.unew, n);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-    ConvArgs c1{x, a.Cs, a.w1, a.Cs + 1, Ch, tmap_of(a, 0), a.sc, c, z1,
-                a.B, a.H, a.W};
-    if ((err = launch_conv(c1, st)) != cudaSuccess) return err;
-    const float *m1 = se, *v1 = se + Ch;
-    if (a.mode == kEvalRunning) {
-      m1 = a.rstats;
-      v1 = a.rstats + Ch;
-    } else if ((err = batch_stats(a, z1, se, se + Ch, a.tickets + 4 * e, st)) != cudaSuccess) {
+    const float* x = a.x + e * a.x_stride;
+    float* act1 = a.act + e * a.act_eval_stride;
+    if ((err = conv_bn_layer(a, e, 0, x, st)) != cudaSuccess ||
+        (err = conv_bn_layer(a, e, 1, act1, st)) != cudaSuccess)
       return err;
-    }
-
-    float* act1 = a.act + 2 * e * a.act_stride;
-    float* act2 = act1 + a.act_stride;
-    if ((err = bn_act(z1, m1, v1, a.g1, a.b1, a.eps, M, Ch, act1, st)) != cudaSuccess)
-      return err;
-    ConvArgs c2{act1, Ch, a.w2, Ch + 1, Ch, tmap_of(a, 1), a.sc, c, z2, a.B,
-                a.H, a.W};
-    if ((err = launch_conv(c2, st)) != cudaSuccess) return err;
-    const float *m2 = se + 2 * Ch, *v2 = se + 3 * Ch;
-    if (a.mode == kEvalRunning) {
-      m2 = a.rstats + 2 * Ch;
-      v2 = a.rstats + 3 * Ch;
-    } else if ((err = batch_stats(a, z2, se + 2 * Ch, se + 3 * Ch,
-                                  a.tickets + 4 * e + 2, st)) != cudaSuccess) {
-      return err;
-    }
-
-    if ((err = bn_act(z2, m2, v2, a.g2, a.b2, a.eps, M, Ch, act2, st)) != cudaSuccess)
-      return err;
-    ConvArgs c3{act2, Ch, a.w3, Ch + 1, a.Cs, tmap_of(a, 2), a.sc, c, a.k[e],
-                a.B, a.H, a.W};
+    // conv3 writes k_{e+2} and, from it, the next input (or u~ after the
+    // sixth evaluation)
+    ConvArgs c3{act1 + a.act_stride, a.Ch, a.w3, a.Ch + 1, a.Cs, tmap_of(a, 2),
+                a.sc, stage_c(e), a.k[e], a.B, a.H, a.W};
+    ConvEpilogue& ep = c3.epi;
+    ep.stage = e < 5 || a.utilde != nullptr ? e + 1 : 0;
+    ep.u = a.u;
+    ep.k[0] = a.k1;
+    for (int j = 0; j < 6; ++j) ep.k[j + 1] = a.k[j];
+    ep.x = e < 5 ? a.x + (e + 1) * a.x_stride : nullptr;
+    ep.g6 = a.g6;
+    ep.unew = a.unew;
+    ep.utilde = a.utilde;
     if ((err = launch_conv(c3, st)) != cudaSuccess) return err;
-  }
-  if (a.utilde != nullptr) {
-    utilde_kernel<<<cdiv(n, kEw), kEw, 0, st>>>(ks, a.sc, a.utilde, n);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  if (a.mode == kTrain && a.rstats_out != nullptr) {
-    bn_ema_kernel<<<1, 256, 0, st>>>(a.stats, a.rstats, a.rstats_out, Ch,
-                                     a.mom, a.omm);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
 }

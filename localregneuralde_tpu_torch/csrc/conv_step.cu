@@ -6,13 +6,20 @@
 // (called at fused_conv.py:349 through conv_step_apply and
 // make_fused_conv_step). The TPU ran the step as one program in VMEM; on the
 // H100 it is a fixed sequence of this file's launches behind one C call
-// (conv.cuh::forward_step): per evaluation the stage input, three
-// implicit-GEMM convolutions and, for batch statistics, two deterministic
-// reduction passes per BatchNorm. A persistent kernel with grid barriers
-// would save the ~8 launch gaps per evaluation but holds every SM for the
+// (conv.cuh::forward_step): the time maps and the first stage input, then
+// per evaluation three implicit-GEMM convolutions and, with batch
+// statistics, two BatchNorm-apply passes. The first port (its sequence,
+// 65 launches a training call) also had two reduction passes per BatchNorm
+// and a launch per stage input; measured on an H100 (PERF.md §6) those, the
+// launch gaps and the thin conv3's gather took 0.57 of its 1.31 ms. Now the
+// statistics come from conv1's and conv2's epilogue (per-tile moments
+// folded by the last CTA), conv3's epilogue writes the next stage input
+// (and u~), conv3 runs on the halo tile, and in eval with the running
+// stats conv1 and conv2 write the activation themselves: 32 launches a
+// training call, 20 in eval with the running stats. A persistent kernel
+// with grid barriers would save the remaining gaps but hold every SM for the
 // whole step, and its tiles would have to fit the worst of three GEMM
-// shapes; separate launches let each GEMM pick its tile (Cout 64 or 8), and
-// the gaps are a few microseconds against a step of about a millisecond.
+// shapes.
 //
 // Modes: 0 training (batch statistics, EMA chain of the running stats into
 // rstats_out), 1 eval with the running stats, 2 eval with batch statistics
@@ -25,8 +32,8 @@
 namespace lrnde {
 namespace conv {
 
-// The forward scratch: x, z1, z2, the activation, the time maps, the
-// statistics, their partials, then the tickets, each 16-byte aligned.
+// The forward scratch: x, z1, z2, the two activations, the time maps, the
+// statistics, their tiles' slots, then the tickets, each 16-byte aligned.
 struct FwdLayout {
   float *x, *z1, *z2, *act, *tmap, *stats, *part;
   unsigned* tickets;
@@ -45,10 +52,10 @@ static inline FwdLayout fwd_layout(float* base, int B, int H, int W, int Cs, int
   l.x = take(M * Cs);
   l.z1 = take(M * Ch);
   l.z2 = take(M * Ch);
-  l.act = take(M * Ch);
+  l.act = take(2 * M * Ch);  // act1, act2
   l.tmap = take(HW * (2 * Ch + Cs));
   l.stats = take(24 * static_cast<size_t>(Ch));
-  l.part = take(static_cast<size_t>(cdiv(M, kStatRows)) * Ch);
+  l.part = take(stat_slot_floats(static_cast<int>(M), Ch));
   l.tickets = reinterpret_cast<unsigned*>(take(kTickets));
   l.total = o;
   return l;
@@ -61,6 +68,18 @@ extern "C" long long lrnde_conv_step_scratch_floats(int B, int H, int W, int Cs,
                                                     int Ch) {
   return static_cast<long long>(
       lrnde::conv::fwd_layout(nullptr, B, H, W, Cs, Ch).total);
+}
+
+// Where a buffer of the forward scratch starts, in floats: which = 0 the
+// last evaluation's z1, 1 its z2, 2 the statistics (6 x (mean1, var1,
+// mean2, var2) x Ch). For holding the statistics against z (chip_smoke.py).
+extern "C" long long lrnde_conv_step_offset(int which, int B, int H, int W,
+                                            int Cs, int Ch) {
+  using namespace lrnde::conv;
+  float* const base = reinterpret_cast<float*>(alignof(float4));  // not null
+  const FwdLayout l = fwd_layout(base, B, H, W, Cs, Ch);
+  const float* q = which == 0 ? l.z1 : which == 1 ? l.z2 : l.stats;
+  return static_cast<long long>(q - base);
 }
 
 // One Tsit5 step from (u, t) with step dt and FSAL derivative k1, NHWC
@@ -101,13 +120,17 @@ extern "C" int lrnde_conv_step(
   a.z2 = l.z2;
   a.z_stride = 0;
   a.act = l.act;
-  a.act_stride = 0;
+  a.act_stride = static_cast<size_t>(B) * H * W * Ch;
+  a.act_eval_stride = 0;
   a.tmap = l.tmap;
   a.stats = l.stats;
   a.part = l.part;
   a.tickets = l.tickets;
-  cudaError_t err = cudaMemsetAsync(a.tickets, 0, kTickets * sizeof(unsigned), st);
-  if (err != cudaSuccess) return err;
+  if (mode != kEvalRunning) {  // the statistics' tickets
+    const cudaError_t err =
+        cudaMemsetAsync(a.tickets, 0, kTickets * sizeof(unsigned), st);
+    if (err != cudaSuccess) return err;
+  }
   a.mode = mode;
   a.rstats = rstats;
   a.rstats_out = rstats_out;

@@ -31,6 +31,11 @@
 // Cotangents for t and dt are not produced (the controller fence makes them
 // zero). No float atomics: the gradients are the same from run to run.
 //
+// The recompute is kernel 13's forward (conv.cuh::forward_step), so the
+// VJP is of exactly the function kernel 13 computes: its BatchNorm
+// statistics from the convs' tile moments, its stage inputs from conv3's
+// epilogue, its thin data gradient (conv1^T, N = 8) on the halo tile.
+//
 // Bound: the products, about three forward steps' worth (the recompute, the
 // data and the weight gradients): ~54 GFLOP, 0.8 ms at 67 TFLOP/s FP32.
 #include "conv.cuh"
@@ -186,7 +191,9 @@ static inline BwdLayout bwd_layout(float* base, int B, int H, int W, int Cs, int
   l.act = take(12 * M * Ch);  // act1, act2 of each evaluation
   l.tmap = take(HW * (2 * Ch + Cs));
   l.stats = take(24 * static_cast<size_t>(Ch));
-  l.part = take(static_cast<size_t>(cdiv(M, kStatRows)) * 2 * Ch);
+  // the forward's statistics slots, later the BatchNorm backward's partials
+  static_assert(kStatTile <= kStatRows, "the partials fit the slots");
+  l.part = take(stat_slot_floats(m, Ch));
   l.sums = take(2 * static_cast<size_t>(Ch));
   l.da = take(M * Ch);
   l.dz = take(M * Ch);
@@ -274,6 +281,7 @@ extern "C" int lrnde_conv_step_bwd(
   a.z_stride = static_cast<size_t>(M) * Ch;
   a.act = l.act;
   a.act_stride = static_cast<size_t>(M) * Ch;
+  a.act_eval_stride = 2 * a.act_stride;
   a.tmap = l.tmap;
   a.stats = l.stats;
   a.part = l.part;
@@ -313,7 +321,7 @@ extern "C" int lrnde_conv_step_bwd(
     const float* z1 = l.z1 + e * MCh;
     const float* z2 = l.z2 + e * MCh;
     const float* dk = dks.k[e + 1];
-    unsigned* tk = l.tickets + 24 + 2 * (5 - e);
+    unsigned* tk = l.tickets + kFwdTickets + 2 * (5 - e);
 
     const float* act1 = l.act + 2 * e * MCh;  // gelu(BN1(z1)), kept by the forward
     const float* act2 = act1 + MCh;           // gelu(BN2(z2))
@@ -362,12 +370,19 @@ extern "C" int lrnde_conv_step_bwd(
 // (3, 3, cout + 1, cin) with its time channel, out (M, cout) the gradient of
 // the first cout input channels; 2, the weight gradient: x is the layer's
 // input (M, cin), w the output cotangent (M, cout), out (3, 3, cin + 1,
-// cout) with the time channel at the value sc[0]. scratch holds
+// cout) with the time channel at the value sc[0]; 3 and 4, orientations 0
+// and 1 on the N = 8 gather tile where a thin conv would take the halo
+// tile (its outputs must be bitwise the halo tile's); 5, the forward with
+// the BatchNorm statistics epilogue (the tickets' memset included), the
+// statistics (mean, var) at scratch; 6 and 7, the same without the final
+// fold, and without the groups' fold either (timing probes). scratch holds
 // lrnde_conv_core_scratch_floats floats.
 extern "C" long long lrnde_conv_core_scratch_floats(int orient, int B, int H,
                                                     int W, int cin, int cout) {
   using namespace lrnde::conv;
-  if (orient == 1) return 9LL * cin * cout;  // the transposed weight
+  if (orient == 1 || orient == 4) return 9LL * cin * cout;  // the transposed weight
+  if (orient >= 5)  // the statistics, the tickets, the slots
+    return 2LL * cout + kStatTickets + stat_slot_floats(B * H * W, cout);
   if (orient != 2) return 1;
   return static_cast<long long>(wgrad_splits(B * H * W, cin, cout)) * 9 *
          (cin + 1) * cout;
@@ -380,15 +395,28 @@ extern "C" int lrnde_conv_core(int orient, const float* x, const float* w,
   using namespace lrnde;
   using namespace lrnde::conv;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool gather = orient == 3 || orient == 4;
+  if (gather) orient -= 3;
   cudaError_t err;
+  if (orient >= 5 && orient <= 7) {
+    ConvArgs a{x, cin, w, cin, cout, nullptr, sc, 0.f, out, B, H, W};
+    a.epi.probe_levels = orient - 5;
+    a.epi.stats = scratch;
+    a.epi.ticket = reinterpret_cast<unsigned*>(scratch + 2 * cout);
+    a.epi.part = scratch + 2 * cout + kStatTickets;
+    if ((err = cudaMemsetAsync(a.epi.ticket, 0, kStatTickets * sizeof(unsigned), st)) !=
+        cudaSuccess)
+      return err;
+    return launch_conv(a, st);
+  }
   if (orient == 0) {
     const ConvArgs a{x, cin, w, cin, cout, nullptr, sc, 0.f, out, B, H, W};
-    return launch_conv(a, st);
+    return launch_conv(a, st, gather);
   }
   if (orient == 1) {
     if ((err = transpose_w(w, cout + 1, cin, scratch, st)) != cudaSuccess) return err;
     const ConvArgs a{x, cin, scratch, cin, cout, nullptr, sc, 0.f, out, B, H, W};
-    return launch_conv(a, st);
+    return launch_conv(a, st, gather);
   }
   if (orient != 2) return cudaErrorInvalidValue;
   const int M = B * H * W, S = wgrad_splits(M, cin, cout);

@@ -24,9 +24,21 @@
 // A second kernel sums the partials in CTA order (tsit5_bwd.cuh), so the
 // gradients are deterministic with no float atomics.
 //
-// What bounds it on an H100: latency. Per step a CTA of 64 threads runs
-// eight small products forward, eight transposed and three weight-gradient
-// contractions of K = 16; at B = 512 the 128 CTAs use one SM each.
+// What bounds it on an H100: latency. Per step a CTA runs eight small
+// products forward, eight transposed and three weight-gradient contractions
+// of K = 16; at B = 512 the 128 CTAs use one SM each, so each SM has only
+// its CTA's work in flight. The first port ran it on 64 threads: every
+// product's outputs came four or eight to a thread, one after the other,
+// and the 5,248 gradient elements 82 to a thread (half the step's time).
+// The Hopper design keeps the row blocks, the shared-memory layout and
+// every sum (each output and each gradient element is still one thread's
+// left-to-right sum, so a_u and the gradients keep their bits) and gives
+// the CTA twelve warps: the H-wide outputs of a product run beside the
+// independent diffusion outputs (8 + 4 warps), the drift outputs next, and
+// the gradient elements fourteen to a thread, two at a time.
+//
+// The clocked instantiation (kTime) splits CTA 0's step by phase for
+// chip_smoke.py's [sde sweep attribution]; its arithmetic is the same.
 #include "sde.cuh"
 #include "tsit5_bwd.cuh"
 
@@ -46,6 +58,52 @@ struct SdeSweepArgs {
   float* a_u;             // (B, F)
   float* part;            // (gridDim.x, sde_grad_floats)
   int B;
+  unsigned long long* timing;  // kTime: (kSdeSwPhases + 1)
+};
+
+// The phases of a step (CTA 0, each closed by a CTA barrier): the
+// recompute of the four stages, the saveat split with the seeding of the
+// stage cotangents, the reverse through the stages, the weight-gradient
+// contractions; then, once, the write of the CTA's partial.
+enum SdeSweepPhase {
+  kSdeRecompute, kSdeSaveat, kSdeReverse, kSdeWgrad, kSdePartial,
+  kSdeSwPhases
+};
+
+// CTA 0's nanoseconds per phase (%globaltimer), read by thread 0 after a
+// CTA barrier; a no-op unless kOn.
+template <bool kOn>
+struct SdeClock {
+  unsigned long long acc[kOn ? kSdeSwPhases + 1 : 1];
+  __device__ static unsigned long long now() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+  }
+  __device__ void start() {
+    if constexpr (kOn) {
+      for (int i = 0; i < kSdeSwPhases; ++i) acc[i] = 0;
+      acc[kSdeSwPhases] = now();
+    }
+  }
+  __device__ void mark(int phase) {
+    if constexpr (kOn) {
+      __syncthreads();
+      if (blockIdx.x == 0 && threadIdx.x == 0) {
+        const unsigned long long t = now();
+        acc[phase] += t - acc[kSdeSwPhases];
+        acc[kSdeSwPhases] = t;
+      }
+    }
+  }
+  __device__ void write(unsigned long long* out, int count) const {
+    if constexpr (kOn) {
+      if (blockIdx.x == 0 && threadIdx.x == 0) {
+        for (int i = 0; i < kSdeSwPhases; ++i) out[i] = acc[i];
+        out[kSdeSwPhases] = static_cast<unsigned long long>(count);
+      }
+    }
+  }
 };
 
 __host__ __device__ inline size_t sde_grad_floats(int F, int H) {
@@ -63,11 +121,90 @@ __host__ __device__ inline size_t sde_sweep_smem_floats(int F, int H) {
        + 2 * 4 * RH;       // hidden rows and their cotangents per stage
 }
 
-template <bool kSosri>
-__global__ void __launch_bounds__(kSdeThreads)
+// The CTA: kSwThreads threads in three groups. Each product output is one
+// thread's left-to-right FP32 sum, as in sde.cuh::sde_stage_eval, so the
+// outputs keep their bits at any mapping; the groups only decide who runs
+// which sums at the same time:
+// - the H-wide outputs (the hidden rows, their cotangents) on the first
+//   kSwHidThreads threads, while the F-wide diffusion outputs (g, and the
+//   transposed diffusion dxg) run on the last kSwDiffThreads;
+// - then the drift outputs (k, and the transposed first layer dxf) on all;
+// - the weight-gradient elements of the CTA's partial on all, each
+//   element's K = 4 stages x rows sum unchanged.
+constexpr int kSwHidThreads = 256;   // 8 warps: 4 rows x H = 64 at once
+constexpr int kSwDiffThreads = 128;  // 4 warps: 4 rows x F = 32 at once
+constexpr int kSwThreads = kSwHidThreads + kSwDiffThreads;
+
+// k = drift(xf), g = diffusion(xg) of one stage of the row block, with the
+// hidden rows in hid: sde_stage_eval's sums on the thread groups above.
+__device__ __forceinline__ void sweep_stage_eval(const SdeSmemW& w, int F, int H,
+                                                 const float* xf, const float* xg,
+                                                 float* hid, float* k, float* g,
+                                                 int nrows) {
+  const int tid = threadIdx.x;
+  if (tid < kSwHidThreads) {
+    for (int i = tid; i < nrows * H; i += kSwHidThreads) {
+      const int r = i / H, h = i - r * H;
+      const float* x = xf + r * F;
+      float acc = 0.f;
+      for (int c = 0; c < F; ++c) acc = fmaf(x[c], w.w1[c * (H + 1) + h], acc);
+      hid[i] = tanhf(acc + w.b1[h]);
+    }
+  } else {
+    for (int i = tid - kSwHidThreads; i < nrows * F; i += kSwDiffThreads) {
+      const int r = i / F, j = i - r * F;
+      const float* x = xg + r * F;
+      float acc = 0.f;
+      for (int c = 0; c < F; ++c) acc = fmaf(x[c], w.wd[c * (F + 1) + j], acc);
+      g[i] = acc + w.bd[j];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < nrows * F; i += kSwThreads) {
+    const int r = i / F, j = i - r * F;
+    const float* hr = hid + r * H;
+    float acc = 0.f;
+    for (int h = 0; h < H; ++h) acc = fmaf(hr[h], w.w2[h * (F + 1) + j], acc);
+    k[i] = acc + w.b2[j];
+  }
+  __syncthreads();
+}
+
+// g[i] += Σ_{e < 4, r < nrows} A[e·SA + r·LA + i / ncol] · Bv[e·SB + r·LB +
+// i % ncol] for the gradient elements i ≡ tid (mod kSwThreads), i < n,
+// summed in that order (the first port's); two elements at a time, so two
+// independent chains are in flight.
+__device__ __forceinline__ void grad_contract(const float* A, int SA, int LA,
+                                     const float* Bv, int SB, int LB, int ncol,
+                                     int n, int nrows, float* g) {
+  for (int i = threadIdx.x; i < n; i += 2 * kSwThreads) {
+    const int i2 = i + kSwThreads;
+    const bool two = i2 < n;
+    const int a1 = i / ncol, b1 = i - a1 * ncol;
+    const int a2 = two ? i2 / ncol : a1, b2 = two ? i2 - a2 * ncol : b1;
+    float acc1 = 0.f, acc2 = 0.f;
+    for (int e = 0; e < 4; ++e)
+      for (int r = 0; r < nrows; ++r) {
+        const float* ar = A + e * SA + r * LA;
+        const float* br = Bv + e * SB + r * LB;
+        acc1 = fmaf(ar[a1], br[b1], acc1);
+        acc2 = fmaf(ar[a2], br[b2], acc2);
+      }
+    g[i] += acc1;
+    if (two) g[i2] += acc2;
+  }
+}
+
+// kF, kH > 0: the widths at compile time (the MNIST-SDE width), so the
+// products' loops unroll with immediate offsets; 0: read from the arguments.
+template <bool kSosri, bool kTime, int kF, int kH>
+__global__ void __launch_bounds__(kSwThreads)
 sde_sweep_kernel(SdeSweepArgs a) {
+  SdeClock<kTime> clk;
+  clk.start();
   extern __shared__ float4 smem_raw[];
-  const int F = a.w.F, H = a.w.H, B = a.B, tid = threadIdx.x;
+  const int F = kF > 0 ? kF : a.w.F, H = kH > 0 ? kH : a.w.H;
+  const int B = a.B, tid = threadIdx.x;
   const int n_blocks = (B + kSdeRows - 1) / kSdeRows;
   const size_t BF = static_cast<size_t>(B) * F;
   const int RF = kSdeRows * F, RH = kSdeRows * H;
@@ -93,7 +230,7 @@ sde_sweep_kernel(SdeSweepArgs a) {
   float* dg = dk + 4 * RF;
   float* hid = dg + 4 * RF;  // [4][RH]
   float* dzh = hid + 4 * RH;
-  for (size_t i = tid; i < sde_grad_floats(F, H); i += blockDim.x) gw1[i] = 0.f;
+  for (size_t i = tid; i < sde_grad_floats(F, H); i += kSwThreads) gw1[i] = 0.f;
   const SriTableau T = sri_tableau(kSosri);
   const float sqrt3 = LRNDE_F(1.7320508075688772);
   const int n_steps = *a.naccept;
@@ -102,12 +239,12 @@ sde_sweep_kernel(SdeSweepArgs a) {
   for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
     const size_t off = static_cast<size_t>(rb) * kSdeRows * F;
     const int nrows = min(kSdeRows, B - rb * kSdeRows), n = nrows * F;
-    for (int i = tid; i < n; i += blockDim.x) a.a_u[off + i] = a.ct_y[off + i];
+    for (int i = tid; i < n; i += kSwThreads) a.a_u[off + i] = a.ct_y[off + i];
     for (int j = n_steps - 1; j >= 0; --j) {
       const float t = a.knot_ts[j], tn = a.knot_ts[j + 1];
       const float dt = tn - t, sqdt = sqrtf(dt);
       // ---- forward recompute of the step
-      for (int i = tid; i < n; i += blockDim.x) {
+      for (int i = tid; i < n; i += kSwThreads) {
         const size_t o = j * BF + off + i;
         u[i] = a.knot_us[o];
         dw[i] = a.knot_dws[o];
@@ -116,9 +253,9 @@ sde_sweep_kernel(SdeSweepArgs a) {
         xg[i] = u[i];
       }
       __syncthreads();
-      sde_stage_eval(w, xf, xg, hid, k, g, nrows);
+      sweep_stage_eval(w, F, H, xf, xg, hid, k, g, nrows);
       for (int e = 1; e < 4; ++e) {
-        for (int i = tid; i < n; i += blockDim.x) {
+        for (int i = tid; i < n; i += kSwThreads) {
           const float chi2 = (dw[i] + dz[i] / sqrt3) / 2.f;
           float f_in, g_in;
           if (e == 1) {
@@ -140,11 +277,12 @@ sde_sweep_kernel(SdeSweepArgs a) {
           xg[e * RF + i] = g_in;
         }
         __syncthreads();
-        sde_stage_eval(w, xf + e * RF, xg + e * RF, hid + e * RH, k + e * RF,
-                       g + e * RF, nrows);
+        sweep_stage_eval(w, F, H, xf + e * RF, xg + e * RF, hid + e * RH,
+                         k + e * RF, g + e * RF, nrows);
       }
+      clk.mark(kSdeRecompute);
       // ---- saveat split and the cotangents of the u_new expression
-      for (int i = tid; i < n; i += blockDim.x) {
+      for (int i = tid; i < n; i += kSwThreads) {
         const size_t o = off + i;
         float d_unew = 0.f, d_int = 0.f;
         for (int q = 0; q < a.n_save; ++q) {
@@ -169,33 +307,39 @@ sde_sweep_kernel(SdeSweepArgs a) {
         dint[i] = d_int;
       }
       __syncthreads();
-      // ---- reverse through the stages
+      clk.mark(kSdeSaveat);
+      // ---- reverse through the stages: the hidden cotangents beside the
+      // transposed diffusion, then the transposed first layer, then the
+      // carries
       for (int e = 3; e >= 0; --e) {
         const float* dke = dk + e * RF;
         const float* dge = dg + e * RF;
-        for (int i = tid; i < nrows * H; i += blockDim.x) {
-          const int r = i / H, h = i - r * H;
-          float acc = 0.f;
-          for (int c = 0; c < F; ++c) acc = fmaf(dke[r * F + c], w.W2(h, c), acc);
-          const float hv = hid[e * RH + i];
-          dzh[e * RH + i] = acc * (1.f - hv * hv);
-        }
-        for (int i = tid; i < n; i += blockDim.x) {
-          const int r = i / F, c = i - r * F;
-          float acc = 0.f;
-          for (int q = 0; q < F; ++q) acc = fmaf(dge[r * F + q], w.Wd(c, q), acc);
-          dxg[i] = acc;
+        if (tid < kSwHidThreads) {
+          for (int i = tid; i < nrows * H; i += kSwHidThreads) {
+            const int r = i / H, h = i - r * H;
+            float acc = 0.f;
+            for (int c = 0; c < F; ++c) acc = fmaf(dke[r * F + c], w.w2[h * (F + 1) + c], acc);
+            const float hv = hid[e * RH + i];
+            dzh[e * RH + i] = acc * (1.f - hv * hv);
+          }
+        } else {
+          for (int i = tid - kSwHidThreads; i < n; i += kSwDiffThreads) {
+            const int r = i / F, c = i - r * F;
+            float acc = 0.f;
+            for (int q = 0; q < F; ++q) acc = fmaf(dge[r * F + q], w.wd[c * (F + 1) + q], acc);
+            dxg[i] = acc;
+          }
         }
         __syncthreads();
-        for (int i = tid; i < n; i += blockDim.x) {
+        for (int i = tid; i < n; i += kSwThreads) {
           const int r = i / F, c = i - r * F;
           const float* dzr = dzh + e * RH + r * H;
           float acc = 0.f;
-          for (int h = 0; h < H; ++h) acc = fmaf(dzr[h], w.W1(c, h), acc);
+          for (int h = 0; h < H; ++h) acc = fmaf(dzr[h], w.w1[c * (H + 1) + h], acc);
           dxf[i] = acc;
         }
         __syncthreads();
-        for (int i = tid; i < n; i += blockDim.x) {
+        for (int i = tid; i < n; i += kSwThreads) {
           const float xf_ = dxf[i], xg_ = dxg[i];
           du[i] = du[i] + xf_ + xg_;
           if (e == 0) continue;
@@ -211,39 +355,20 @@ sde_sweep_kernel(SdeSweepArgs a) {
         }
         __syncthreads();
       }
-      for (int i = tid; i < n; i += blockDim.x) a.a_u[off + i] = du[i] + dint[i];
-      // ---- stage-batched weight gradients of this step
-      for (int i = tid; i < F * H; i += blockDim.x) {
-        const int c = i / H, h = i - c * H;
-        float acc = 0.f;
-        for (int e = 0; e < 4; ++e)
-          for (int r = 0; r < nrows; ++r)
-            acc = fmaf(xf[e * RF + r * F + c], dzh[e * RH + r * H + h], acc);
-        gw1[i] += acc;
-      }
-      for (int i = tid; i < H * F; i += blockDim.x) {
-        const int h = i / F, c = i - h * F;
-        float acc = 0.f;
-        for (int e = 0; e < 4; ++e)
-          for (int r = 0; r < nrows; ++r)
-            acc = fmaf(hid[e * RH + r * H + h], dk[e * RF + r * F + c], acc);
-        gw2[i] += acc;
-      }
-      for (int i = tid; i < F * F; i += blockDim.x) {
-        const int c = i / F, q = i - c * F;
-        float acc = 0.f;
-        for (int e = 0; e < 4; ++e)
-          for (int r = 0; r < nrows; ++r)
-            acc = fmaf(xg[e * RF + r * F + c], dg[e * RF + r * F + q], acc);
-        gwd[i] += acc;
-      }
-      for (int i = tid; i < H; i += blockDim.x) {
+      for (int i = tid; i < n; i += kSwThreads) a.a_u[off + i] = du[i] + dint[i];
+      clk.mark(kSdeReverse);
+      // ---- stage-batched weight gradients of this step: every element of
+      // the partial on one thread, its K = 4 stages x rows sum as before
+      grad_contract(xf, RF, F, dzh, RH, H, H, F * H, nrows, gw1);
+      grad_contract(hid, RH, H, dk, RF, F, F, H * F, nrows, gw2);
+      grad_contract(xg, RF, F, dg, RF, F, F, F * F, nrows, gwd);
+      for (int i = tid; i < H; i += kSwThreads) {
         float acc = 0.f;
         for (int e = 0; e < 4; ++e)
           for (int r = 0; r < nrows; ++r) acc += dzh[e * RH + r * H + i];
         gb1[i] += acc;
       }
-      for (int i = tid; i < F; i += blockDim.x) {
+      for (int i = tid; i < F; i += kSwThreads) {
         float ak = 0.f, ag = 0.f;
         for (int e = 0; e < 4; ++e)
           for (int r = 0; r < nrows; ++r) {
@@ -254,10 +379,13 @@ sde_sweep_kernel(SdeSweepArgs a) {
         gbd[i] += ag;
       }
       __syncthreads();
+      clk.mark(kSdeWgrad);
     }
   }
   float* out = a.part + blockIdx.x * sde_grad_floats(F, H);
-  for (size_t i = tid; i < sde_grad_floats(F, H); i += blockDim.x) out[i] = gw1[i];
+  for (size_t i = tid; i < sde_grad_floats(F, H); i += kSwThreads) out[i] = gw1[i];
+  clk.mark(kSdePartial);
+  clk.write(a.timing, n_steps);
 }
 
 }  // namespace lrnde
@@ -271,34 +399,68 @@ extern "C" long long lrnde_sde_sweep_smem_floats(int F, int H) {
   return static_cast<long long>(lrnde::sde_sweep_smem_floats(F, H));
 }
 
+// Threads of a sweep CTA: the hidden group, then the diffusion group.
+extern "C" int lrnde_sde_sweep_threads() { return lrnde::kSwThreads; }
+extern "C" int lrnde_sde_sweep_hid_threads() { return lrnde::kSwHidThreads; }
+
 extern "C" long long lrnde_sde_grad_floats(int F, int H) {
   return static_cast<long long>(lrnde::sde_grad_floats(F, H));
 }
+
+#define LRNDE_SDE_SWEEP_PARAMS                                              \
+  int sosri, const float *w1, const float *b1, const float *w2,             \
+      const float *b2, const float *wd, const float *bd,                    \
+      const float *knot_ts, const float *knot_us, const float *knot_dws,    \
+      const float *knot_dzs, const int *naccept, const float *saveat,       \
+      int n_save, const float *ct_ys, const float *ct_y, float *a_u,        \
+      float *d_w, float *part, int B, int F, int H
+#define LRNDE_SDE_SWEEP_ARGS                                                \
+  sosri, w1, b1, w2, b2, wd, bd, knot_ts, knot_us, knot_dws, knot_dzs,      \
+      naccept, saveat, n_save, ct_ys, ct_y, a_u, d_w, part, B, F, H
+
+namespace lrnde {
+
+template <bool kTime>
+static int sde_sweep(LRNDE_SDE_SWEEP_PARAMS, unsigned long long* timing,
+                     void* stream) {
+  SdeSweepArgs a{SdeWeights{w1, b1, w2, b2, wd, bd, F, H}, knot_ts, knot_us,
+                 knot_dws, knot_dzs, naccept, saveat, n_save, ct_ys, ct_y,
+                 a_u, part, B, timing};
+  const size_t smem = sde_sweep_smem_floats(F, H) * sizeof(float);
+  const bool mnist = F == 32 && H == 64;  // experiments/mnist_sde/mlp.yaml
+  auto kernel = sosri ? (mnist ? sde_sweep_kernel<true, kTime, 32, 64>
+                               : sde_sweep_kernel<true, kTime, 0, 0>)
+                      : (mnist ? sde_sweep_kernel<false, kTime, 32, 64>
+                               : sde_sweep_kernel<false, kTime, 0, 0>);
+  static size_t granted[4] = {0, 0, 0, 0};
+  cudaError_t err = allow_smem(kernel, smem, &granted[2 * sosri + mnist]);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = sde_row_blocks(B);
+  kernel<<<grid, kSwThreads, smem, s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return reduce_partials(part, grid, sde_grad_floats(F, H), d_w, s);
+}
+
+}  // namespace lrnde
 
 // The reverse sweep over *naccept recorded SRI (sosri = 0) or SOSRI
 // (sosri = 1) steps: writes a_u and the flat weight gradient d_w
 // (dW1, db1, dW2, db2, dWd, dbd); part holds ceil(B / 4) partials. Two
 // launches on the stream: the sweep and the ordered sum of its partials.
 // Returns cudaGetLastError().
-extern "C" int lrnde_sde_sweep(
-    int sosri, const float* w1, const float* b1, const float* w2,
-    const float* b2, const float* wd, const float* bd, const float* knot_ts,
-    const float* knot_us, const float* knot_dws, const float* knot_dzs,
-    const int* naccept, const float* saveat, int n_save, const float* ct_ys,
-    const float* ct_y, float* a_u, float* d_w, float* part, int B, int F,
-    int H, void* stream) {
-  using namespace lrnde;
-  SdeSweepArgs a{SdeWeights{w1, b1, w2, b2, wd, bd, F, H}, knot_ts, knot_us,
-                 knot_dws, knot_dzs, naccept, saveat, n_save, ct_ys, ct_y,
-                 a_u, part, B};
-  const size_t smem = sde_sweep_smem_floats(F, H) * sizeof(float);
-  auto kernel = sosri ? sde_sweep_kernel<true> : sde_sweep_kernel<false>;
-  static size_t granted[2] = {0, 0};
-  cudaError_t err = allow_smem(kernel, smem, &granted[sosri ? 1 : 0]);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = sde_row_blocks(B);
-  kernel<<<grid, kSdeThreads, smem, s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return reduce_partials(part, grid, sde_grad_floats(F, H), d_w, s);
+extern "C" int lrnde_sde_sweep(LRNDE_SDE_SWEEP_PARAMS, void* stream) {
+  return lrnde::sde_sweep<false>(LRNDE_SDE_SWEEP_ARGS, nullptr, stream);
+}
+
+// The same sweep with CTA 0's nanoseconds per phase (kSdeSwPhases) and the
+// number of steps in timing. A separate instantiation.
+extern "C" int lrnde_sde_sweep_timed(LRNDE_SDE_SWEEP_PARAMS,
+                                     unsigned long long* timing,
+                                     void* stream) {
+  return lrnde::sde_sweep<true>(LRNDE_SDE_SWEEP_ARGS, timing, stream);
+}
+
+extern "C" const char* lrnde_sde_sweep_phase_names() {
+  return "recompute,saveat split,reverse,weight gradients,partial write";
 }

@@ -228,7 +228,10 @@ class NeuralODE(Module):
             return self._chain_solvers()
         if self.family == "conv":
             return self._conv_solvers()
-        from ..ops.cuda import fused_tdmlp, fused_tsit5_step, persistent_tsit5_solve
+        from ..ops.cuda import (
+            fused_tdmlp, fused_tsit5_step, persistent_tsit5_solve,
+            solve_feasible,
+        )
 
         w = self.tdmlp_weights()
 
@@ -241,7 +244,8 @@ class NeuralODE(Module):
 
         def persistent(u0, tspan, *, saveat_arr, rtol, atol, max_steps,
                        f_state, **record):
-            if u0.ndim != 2 or u0.dtype != torch.float32:
+            if (u0.ndim != 2 or u0.dtype != torch.float32
+                    or not solve_feasible(*u0.shape, w.b1.shape[0])):
                 return None  # decline: the loop with the step kernel runs
             out = persistent_tsit5_solve(
                 w, u0.contiguous(), tspan, rtol=rtol, atol=atol,
@@ -367,9 +371,10 @@ class NeuralODE(Module):
             kw.update(persistent_fn=persistent_fn, sweep_fn=sweep_fn)
         return kw
 
-    def _stored_kwargs(self, kernels: bool, names):
+    def _stored_kwargs(self, kernels: bool, names, x, n_save: int):
         """The dynamics and replacements ``stored_odesolve`` takes, for the
-        kernel route or the generic one; every callable gets the parameters
+        kernel route or the generic one, for a solve from ``x`` with
+        ``n_save`` saveat times; every callable gets the parameters
         explicitly, since the backward runs after the caller returns."""
         if not kernels:
             return dict(f=self._train_dynamics(names), stateful=True)
@@ -378,10 +383,14 @@ class NeuralODE(Module):
         if self.family == "conv":
             return self._conv_stored_kwargs(names)
         from ..ops.cuda import (
-            TDMLPWeights, fused_step_bwd, fused_tdmlp, fused_tsit5_step,
+            TDMLPWeights, fused_tdmlp, fused_tsit5_step,
             persistent_stored_sweep, persistent_tsit5_solve,
-            persistent_two_level_sweep, tdmlp_plain,
+            persistent_two_level_sweep, sweep_feasible, tdmlp_plain,
         )
+
+        B, F = x.shape
+        H = self.tdmlp_weights().b1.shape[0]
+        step_bwd = tdmlp_step_vjp(F, H)
 
         def f(u, t, params):
             return fused_tdmlp(TDMLPWeights(*params), u, t)
@@ -398,7 +407,7 @@ class NeuralODE(Module):
 
         def step_vjp(params, u, t, dt, k1, d_unew, d_ks):
             zero = torch.zeros_like(u)
-            d_w, d_u, d_k1 = fused_step_bwd(
+            d_w, d_u, d_k1 = step_bwd(
                 TDMLPWeights(*params), u, t, dt, k1,
                 (d_unew, zero, *d_ks, zero),
             )
@@ -427,7 +436,10 @@ class NeuralODE(Module):
             return a_u, a_k, list(d_w)
 
         kw = dict(f=f, fsal_fn=fsal_fn, step_fn=step_fn, step_vjp=step_vjp)
-        if self.use_persistent:
+        # a planned decline, as the reference's: where kernel 4 or the sweep
+        # cannot take the width, neither runs, so the plain loop records
+        # unpadded knots for the plain sweep
+        if self.use_persistent and sweep_feasible(B, F, H, n_save):
             kw.update(persistent_fn=persistent_fn, sweep_fn=sweep_fn)
         return kw
 
@@ -460,7 +472,6 @@ class NeuralODE(Module):
         t0, t2 = self.tspan
         kernels = self.uses_kernels(x)
         names, params = zip(*self.model.named_parameters())
-        kw = self._stored_kwargs(kernels, names)
         user_saveat = (
             self.saveat.to(x.device) if self.saveat is not None
             else device_scalar(t2, x).reshape(1)
@@ -473,6 +484,7 @@ class NeuralODE(Module):
         elif self.regularize == "biased":
             reservoir = host_to_device(
                 sample_reservoir_uniforms(state["rng"], self.max_steps), x)
+        kw = self._stored_kwargs(kernels, names, x, saveat.shape[0])
         sol = odesolve(
             kw.pop("f"), x, self.tspan, rtol=self.rtol, atol=self.atol,
             saveat=saveat, max_steps=self.max_steps, adjoint="stored",
@@ -532,7 +544,8 @@ class NeuralODE(Module):
             dt_r = torch.minimum(dt_r, device_scalar(t2, x) - t1)
         if family == "tdmlp":
             u_new, utilde, *ks, g6 = differentiable_step(
-                w, u1.contiguous(), t1, dt_r, k1)
+                w, u1.contiguous(), t1, dt_r, k1,
+                tdmlp_step_vjp(w.b2.shape[0], w.b1.shape[0]))
             return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, st), dt_r
         if family == "conv":
             from ..ops.cuda import differentiable_conv_step
@@ -544,6 +557,18 @@ class NeuralODE(Module):
             return Tsit5StepResult(u_new, utilde, (k1, *ks), g6,
                                    with_running_stats(spec, st, stats)), dt_r
         return tsit5_step(dyn, u1, t1, dt_r, k1, st), dt_r
+
+
+def tdmlp_step_vjp(F: int, H: int):
+    """The TD-MLP step's VJP at (F, H): kernel 3 where its transposed step
+    fits a CTA, else its plain twin. The reference's VJP kernel takes any
+    width (its tile shrinks); kernel 3 has no plan for a wide one yet
+    (README, documented deviations)."""
+    from ..ops.cuda import (
+        fused_step_bwd, fused_step_bwd_plain, step_bwd_feasible,
+    )
+
+    return fused_step_bwd if step_bwd_feasible(F, H) else fused_step_bwd_plain
 
 
 def _solution(out, f_state) -> ODESolution:

@@ -53,6 +53,7 @@ from .fused_solve import (
     persistent_pf_solve_plain,
     persistent_tsit5_solve,
     persistent_tsit5_solve_plain,
+    solve_feasible,
 )
 from .fused_solve_bwd import (
     chain_sweep_feasible,
@@ -62,6 +63,8 @@ from .fused_solve_bwd import (
     persistent_stored_sweep_plain,
     persistent_two_level_sweep,
     persistent_two_level_sweep_plain,
+    step_bwd_feasible,
+    sweep_feasible,
 )
 
 KERNELS = {
@@ -105,6 +108,9 @@ __all__ = [
     "TDMLPWeights",
     "chain_eval",
     "chain_sweep_feasible",
+    "solve_feasible",
+    "step_bwd_feasible",
+    "sweep_feasible",
     "conv_dynamics_plain",
     "conv_orient_im2col",
     "conv_orient_plain",

@@ -56,6 +56,9 @@ _SIGNATURES = {
         + [_F] * 4 + [_P]
     ),
     "lrnde_sde_sweep": [_I] + [_P] * 12 + [_I] + [_P] * 5 + [_I] * 3 + [_P],
+    "lrnde_sde_sweep_timed": (
+        [_I] + [_P] * 12 + [_I] + [_P] * 5 + [_I] * 3 + [_P, _P]
+    ),
     "lrnde_persistent_chain": (
         [_P] * 4 + [_I] + [_P] * 2 + [_I, _U, _I] + [_P] * 6 + [_I] * 2
         + [_F] * 3 + [_P] * 2 + [_I] + [_P] * 5 + [_I] * 2 + [_P] * 3
@@ -114,6 +117,7 @@ _SIZES = {
     "lrnde_chain_solve_smem_floats": [_P, _I],
     "lrnde_chain_sweep_smem_floats": [_P, _I],
     "lrnde_conv_step_scratch_floats": [_I] * 5,
+    "lrnde_conv_step_offset": [_I] * 6,
     "lrnde_conv_step_bwd_scratch_floats": [_I] * 5,
     "lrnde_vpsde_solve_smem_floats": [_P, _I],
     "lrnde_pf_solve_smem_floats": [_P, _I],
@@ -207,11 +211,13 @@ def load_library() -> ctypes.CDLL:
     for name in ("lrnde_rows_per_block", "lrnde_sde_rows_per_block",
                  "lrnde_chain_error_rows", "lrnde_score_rows_per_block",
                  "lrnde_sde_phases", "lrnde_sweep_phases", "lrnde_solve_phases",
-                 "lrnde_sweep_cluster", "lrnde_sweep_rows"):
+                 "lrnde_sweep_cluster", "lrnde_sweep_rows",
+                 "lrnde_sde_sweep_threads", "lrnde_sde_sweep_hid_threads"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     for name in ("lrnde_chain_solve_phase_names",
-                 "lrnde_chain_sweep_phase_names"):
+                 "lrnde_chain_sweep_phase_names",
+                 "lrnde_sde_sweep_phase_names"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_char_p
     lib.lrnde_error_string.argtypes = [ctypes.c_int]

@@ -16,8 +16,11 @@ runs the six evaluations of one step, the stage sums and ũ, with the
 convolutions as implicit GEMMs, the time channel concat-free (``s·tmap``)
 and BatchNorm either on batch statistics (training: the running-stat EMA
 chain of the six evaluations comes out too; eval with
-``eval_stats='batch'``) or on the running stats (eval). The weights are read
-in place.
+``eval_stats='batch'``) or on the running stats (eval). The batch
+statistics come from the convs' epilogue: per-tile sums and M2 folded in
+tile order (Chan's combination), where the plain version takes torch's
+two-pass mean and variance, so the two agree to float32 rounding, not
+bitwise. The weights are read in place.
 
 The wrapper runs the plain version for a tensor on the CPU and launches the
 kernel for a CUDA tensor; ``fused_conv_step.launches`` counts the launches.

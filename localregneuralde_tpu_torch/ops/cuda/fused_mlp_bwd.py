@@ -96,14 +96,16 @@ fused_step_bwd.launches = 0
 
 
 class FusedTsit5Step(torch.autograd.Function):
-    """``(u, t, dt, k1, w1, b1, w2, b2) -> (u_new, utilde, k2..k7, g6)``
-    through the step kernel, with the backward kernel as its VJP (the
+    """``(step_vjp, u, t, dt, k1, w1, b1, w2, b2) -> (u_new, utilde, k2..k7,
+    g6)`` through the step kernel, with ``step_vjp`` (the backward kernel,
+    or its plain twin where the route declines the kernel) as its VJP (the
     counterpart of the reference's ``jax.custom_vjp`` around the fused
     step). On CPU tensors both directions run their plain versions."""
 
     @staticmethod
-    def forward(ctx, u, t, dt, k1, w1, b1, w2, b2):
+    def forward(ctx, step_vjp, u, t, dt, k1, w1, b1, w2, b2):
         w = TDMLPWeights(w1, b1, w2, b2)
+        ctx.step_vjp = step_vjp
         ctx.save_for_backward(u, t, dt, k1, w1, b1, w2, b2)
         return fused_tsit5_step(w, u.contiguous(), t, dt, k1.contiguous())
 
@@ -111,12 +113,13 @@ class FusedTsit5Step(torch.autograd.Function):
     def backward(ctx, *cts):
         u, t, dt, k1, *w = ctx.saved_tensors
         cts = [c.contiguous() for c in cts]
-        d_w, d_u, d_k1 = fused_step_bwd(TDMLPWeights(*w), u, t, dt, k1, cts)
-        return (d_u, None, None, d_k1, *d_w)
+        d_w, d_u, d_k1 = ctx.step_vjp(TDMLPWeights(*w), u, t, dt, k1, cts)
+        return (None, d_u, None, None, d_k1, *d_w)
 
 
-def differentiable_step(w: TDMLPWeights, u, t, dt, k1):
+def differentiable_step(w: TDMLPWeights, u, t, dt, k1,
+                        step_vjp=fused_step_bwd):
     """One differentiable Tsit5 step of the TD-MLP through ``FusedTsit5Step``
-    (``t`` and ``dt`` get no gradient)."""
+    (``t`` and ``dt`` get no gradient); ``step_vjp`` is its VJP."""
     t, dt = device_scalars([t, dt], u).detach()
-    return FusedTsit5Step.apply(u, t, dt, k1, *w)
+    return FusedTsit5Step.apply(step_vjp, u, t, dt, k1, *w)

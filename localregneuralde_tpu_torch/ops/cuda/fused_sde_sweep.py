@@ -8,13 +8,18 @@ device: per step it recomputes the stages from the knot ``(u, dW, dZ)``,
 splits the saveat cotangents linearly, reverses through the stage structure
 and adds the stage-batched weight gradients to a per-CTA partial; a second
 kernel sums the partials in CTA order. Any forward's knots will do, since
-the increments are recorded.
+the increments are recorded. ``sde_sweep_plan`` mirrors its CTA layout: a
+CTA a block of ``SDE_ROWS`` rows, twelve warps in two groups (the H-wide
+outputs of a product on one, the diffusion outputs beside them on the
+other), and its shared memory.
 
 Returns ``(a_u, d_w)``: the state cotangent at t0 and the weight gradients
 as ``SDEWeights``. The plain version is the eager sweep of
 ``sde/stored_adjoint.py`` with the autograd VJP of the plain step.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -23,10 +28,53 @@ from . import _build
 from .fused_sde_solve import (
     SDEWeights,
     check_sde_operands,
-    check_smem,
     diffusion_plain,
     drift_plain,
 )
+
+
+# csrc/sde.cuh::kSdeRows and csrc/sde_sweep.cu::kSwHidThreads, kSwThreads
+SDE_ROWS = 4
+SDE_SWEEP_HID_THREADS, SDE_SWEEP_THREADS = 256, 384
+# shared memory a block can have on an H100
+SDE_SMEM_BYTES = 232448
+
+
+class SdeSweepPlan(NamedTuple):
+    """Kernel 12's CTA layout at (B, F, H), as ``csrc/sde_sweep.cu`` lays it
+    out: one CTA a block of ``rows`` rows; thread ``t`` of the hidden group
+    takes the H-wide outputs ``i ≡ t (mod hid_threads)`` of a product, the
+    diffusion group's thread ``t`` the F-wide diffusion outputs ``i ≡ t −
+    hid_threads (mod threads − hid_threads)``, and every thread the drift
+    outputs and gradient elements ``i ≡ t (mod threads)``."""
+
+    rows: int
+    ctas: int
+    threads: int
+    hid_threads: int
+    smem_bytes: int
+    grad_floats: int
+
+
+def sde_grad_floats(F: int, H: int) -> int:
+    """Floats of one flat weight gradient (dW1, db1, dW2, db2, dWd, dbd)."""
+    return F * H + H + H * F + F + F * F + F
+
+
+def sde_sweep_plan(B: int, F: int, H: int) -> SdeSweepPlan:
+    """The CTA layout of kernel 12; raises ValueError where a CTA's shared
+    memory (the weights, the gradient partial, the row block's stage
+    buffers) exceeds an H100's block."""
+    R = SDE_ROWS
+    smem = 4 * (F * (H + 1) + H + H * (F + 1) + F + F * (F + 1) + F
+                + sde_grad_floats(F, H) + 7 * R * F + 24 * R * F + 8 * R * H)
+    if smem > SDE_SMEM_BYTES:
+        raise ValueError(
+            f"persistent_sde_sweep: F={F}, H={H} needs {smem} bytes of "
+            f"shared memory a CTA, over {SDE_SMEM_BYTES} (the weights and "
+            f"the gradient partial stay in shared memory)")
+    return SdeSweepPlan(R, -(-B // R), SDE_SWEEP_THREADS,
+                        SDE_SWEEP_HID_THREADS, smem, sde_grad_floats(F, H))
 
 
 def persistent_sde_sweep_plain(w: SDEWeights, knot_ts, knot_us, knot_dws,
@@ -66,15 +114,21 @@ def persistent_sde_sweep(w: SDEWeights, knot_ts, knot_us, knot_dws, knot_dzs,
         if not k.is_contiguous() or tuple(k.shape[1:]) != (B, F):
             raise ValueError(f"{name}: needs a contiguous (n, {B}, {F}) buffer")
     dev = ct_y.device
+    plan = sde_sweep_plan(B, F, H)
     lib = _build.load_library()
-    check_smem(lib, "lrnde_sde_sweep_smem_floats", F, H)
-    n_blocks = -(-B // lib.lrnde_sde_rows_per_block())
+    if (lib.lrnde_sde_rows_per_block(), lib.lrnde_sde_sweep_threads(),
+            lib.lrnde_sde_sweep_hid_threads(),
+            4 * lib.lrnde_sde_sweep_smem_floats(F, H),
+            lib.lrnde_sde_grad_floats(F, H)) != (
+            plan.rows, plan.threads, plan.hid_threads, plan.smem_bytes,
+            plan.grad_floats):
+        raise RuntimeError("persistent_sde_sweep: the library's layout "
+                           "differs from sde_sweep_plan")
     saveat = saveat_arr.to(device=dev, dtype=torch.float32).contiguous()
     naccept = naccept.to(device=dev, dtype=torch.int32).reshape(1)
     a_u = torch.empty_like(ct_y)
-    n_grad = lib.lrnde_sde_grad_floats(F, H)
-    d_w = torch.empty(n_grad, device=dev)
-    part = torch.empty((n_blocks, n_grad), device=dev)
+    d_w = torch.empty(plan.grad_floats, device=dev)
+    part = torch.empty((plan.ctas, plan.grad_floats), device=dev)
     knot_ts = knot_ts.contiguous()
     p = _build.ptr
     err = lib.lrnde_sde_sweep(

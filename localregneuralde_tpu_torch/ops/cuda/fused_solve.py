@@ -159,6 +159,15 @@ def solve_plan(B: int, F: int, H: int) -> SolvePlan:
                      shared, smem, 9 * B * C * seg)
 
 
+def solve_feasible(B: int, F: int, H: int) -> bool:
+    """Whether kernel 4 takes (B, F, H): ``solve_plan`` lays it out."""
+    try:
+        solve_plan(B, F, H)
+    except ValueError:
+        return False
+    return True
+
+
 def _start(f, u0, t0: float, t_end: float, rtol, atol):
     """k1 at t0 and the first step from the Hairer probe, clipped to the
     span: two evaluations of ``f(u, t)``. Returns (k1_0, dt_init, nfe0)."""

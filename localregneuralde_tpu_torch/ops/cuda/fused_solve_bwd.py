@@ -57,6 +57,7 @@ from .fused_solve import (
     check_chain_operands,
     plain_step,
     round4,
+    solve_feasible,
     vec_ld,
 )
 
@@ -70,6 +71,8 @@ _REPLAY_ROWS, _REPLAY_SPLIT, _THREADS = 8, 16, 1024
 # shared memory (the slot-sum buffer, the step weights and the replay's
 # controller: under 2.5 KB); csrc/sweep_cluster.cuh::kSweepSmemLimit
 SWEEP_SMEM_BYTES = CLUSTER_SMEM_BYTES
+# csrc/adjoint_sweep.cu::kMaxSave: the most saveat times kernels 7 and 8 take
+SWEEP_MAX_SAVE = 8
 
 
 class SweepPlan(NamedTuple):
@@ -111,6 +114,25 @@ def sweep_plan(B: int, F: int, H: int) -> SweepPlan:
     smem = 4 * ((slice_floats if shared else 0) + work)
     return SweepPlan(C, R, row_blocks, slices, smem,
                      21 * B * F + 6 * B * H, len(row_blocks), shared)
+
+
+def step_bwd_feasible(F: int, H: int) -> bool:
+    """Whether the transposed step's CTA (kernels 3, 7 and 8) fits a CTA's
+    shared memory at (F, H); ``sweep_layout`` raises where it does not."""
+    return sweep_plan(1, F, H).smem_bytes <= SWEEP_SMEM_BYTES
+
+
+def sweep_feasible(B: int, F: int, H: int, n_save: int) -> bool:
+    """Whether the recorded persistent solve (kernel 4, ``solve_plan``) and
+    its sweep (kernel 7 or 8, ``sweep_plan``) both take (B, F, H) with
+    ``n_save`` saveat times. The TD-MLP route asks up front and hands over
+    neither kernel where the answer is no, so the plain loop's knots meet
+    the plain sweep, as the reference's ``sweep_feasible`` gates its
+    persistent forward. The plans are Python: the answer is the same on
+    every device. (The window replay's shared memory is in every plan, so
+    the two-level sweep fits wherever the dense one does.)"""
+    return (n_save <= SWEEP_MAX_SAVE and step_bwd_feasible(F, H)
+            and solve_feasible(B, F, H))
 
 
 def sweep_layout(B: int, F: int, H: int, name: str):

@@ -1029,3 +1029,44 @@ def test_step_bwd_fp64_error_on_card(cuda_device):
     err = max(_rel(a.double(), b) for a, b in zip(
         [ours[1], ours[2], *ours[0]], [ref[1], ref[2], *ref[0]]))
     assert err <= 2 * 3.719e-7
+
+
+@pytest.mark.cuda
+def test_wide_tdmlp_trains_on_the_plain_route(cuda_device):
+    """mlp.yaml at H = 184, beyond the sweep's plan, with the regulariser,
+    under use_pallas: auto: the route declines the persistent solve, the
+    sweep and kernel 3 (the plain loop with the step kernel, the plain
+    sweep, the plain step VJP), and two train steps complete with finite
+    losses and parameters."""
+    from localregneuralde_tpu_torch import ops
+    from localregneuralde_tpu_torch.harness import (
+        construct_loss, construct_model, construct_optimizer,
+        create_train_state, define_configuration, make_train_step, one_hot,
+        synthetic_classification,
+    )
+
+    cfg = define_configuration(
+        ["--model.mlp_hidden_state_size=184", "--model.use_pallas=auto",
+         "--model.regularize=unbiased",
+         "--model.solver.reltol=1e-4", "--model.solver.abstol=1e-4"],
+        "experiments/mnist_ode/mlp.yaml")
+    model = construct_model(cfg, device=cuda_device)
+    loss_fn, w_reg = construct_loss(cfg)
+    opt, sched = construct_optimizer(cfg)
+    ts = create_train_state(model, opt)
+    step = make_train_step(model, loss_fn, opt)
+    x_tr, y_tr, _, _ = synthetic_classification((28, 28), 1, 10, seed=0)
+    names = ("persistent_tsit5_solve", "persistent_stored_sweep",
+             "persistent_two_level_sweep", "fused_step_bwd",
+             "fused_tsit5_step")
+    before = {n: getattr(ops.cuda, n).launches for n in names}
+    for i in range(2):
+        batch = (torch.tensor(x_tr[i * 64:(i + 1) * 64], device=cuda_device),
+                 torch.tensor(one_hot(y_tr[i * 64:(i + 1) * 64], 10),
+                              device=cuda_device))
+        ts, loss, stats = step(ts, batch, w_reg(i + 1), sched(i + 1))
+        assert bool(torch.isfinite(loss))
+        assert all(bool(torch.isfinite(p).all()) for p in ts.params.values())
+    launched = {n: getattr(ops.cuda, n).launches - before[n] for n in names}
+    assert launched["fused_tsit5_step"] > 0
+    assert all(launched[n] == 0 for n in names[:4]), launched
