@@ -101,10 +101,14 @@ and held bitwise against the gather tile, and the forward with the
 statistics epilogue level by level) in TFLOP/s beside cuDNN in FP32
 (``[conv core]``, a ``{"conv_core": [...]}`` line); and kernel 11's
 attempt, kernel 4's attempt, kernel 7's (and 8's) transposed step, kernel
-5's attempt and kernel 9's step are split into their phases by
-instantiations with a compile-time clock (``[vpsde attribution]``,
-``[solve attribution]``, ``[sweep attribution]``, ``[chain solve
-attribution]``, ``[chain sweep attribution]``); kernel 3 is held against
+5's attempt, kernel 9's step, kernel 10's attempt and kernel 6's attempt
+are split into their phases by instantiations with a compile-time clock
+(``[vpsde attribution]``, ``[solve attribution]``, ``[sweep
+attribution]``, ``[chain solve attribution]``, ``[chain sweep
+attribution]``, ``[sde solve attribution]``, ``[pf solve attribution]``),
+kernel 6 runs in each layout of its probe (``[pf probe]``), and kernels
+10 and 11 print their bound with and without the Brownian tree's draws
+(the kernels line takes the one with them); kernel 3 is held against
 the float64 VJP beside the FP32 plain one (``[step_bwd fp64]``), and
 kernel 9's weight gradients against the float64 plain sweep (``[chain
 sweep fp64]``), each within twice the error of the kernel before its
@@ -127,7 +131,9 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound. A bound is
 the larger of the kernel's FP32 product FLOPs (counted from its shapes and
 this run's step counts) over the H100's 67 TFLOP/s and the bytes it must
-move (each input read once, each output written once) over 3.35 TB/s. Any
+move (each input read once, each output written once) over 3.35 TB/s;
+for kernels 10 and 11 the FP32 and INT32 work of the tree's draws counts
+too (``tree_bound``). Any
 failed check exits non-zero without that line, as does a machine without a
 CUDA device.
 """
@@ -169,6 +175,33 @@ def bound(flops, nbytes):
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=None)
+
+
+# The Brownian tree of kernels 10 and 11 as work of the card's own pipes
+# (Hopper SM: 128 FP32 lanes and 64 INT32 lanes a clock; PEAK_FP32 counts
+# an FFMA as two operations, so 33.5 T FP32 instructions/s and 16.7 T
+# 32-bit integer multiplies/s at the same clock). A draw of
+# sde.cuh::pair_normals is one Philox4x32-10 (two 32x32 -> 64 multiplies a
+# round: 20) and four inverse CDFs (counted at their central branch: 28
+# FP32 instructions each, the division as one, with the uniform's scaling);
+# the bridge's midpoint of four channels adds 16 a draw.
+PEAK_FP32_INSTR = PEAK_FP32 / 2
+PEAK_INT32_MUL = PEAK_FP32 / 4
+PHILOX_MULS = 20
+TREE_FP32 = 4 * 28 + 16
+
+
+def tree_bound(draws, flops, nbytes):
+    """``bound`` with the Brownian tree's work counted beside the products:
+    ``draws`` Philox draws, their integer multiplies on the INT32 pipe and
+    their inverse CDFs on the FP32 pipe with the products' ``flops``; the
+    largest of the two pipes' times and the bytes' time."""
+    t_int = draws * PHILOX_MULS / PEAK_INT32_MUL
+    t_fp = flops / PEAK_FP32 + draws * TREE_FP32 / PEAK_FP32_INSTR
+    t_bytes = nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_int, t_fp, t_bytes),
+                bound_by="operations" if max(t_int, t_fp) >= t_bytes
+                else "bytes", library_ms=None)
 
 
 def tdmlp_flops(b=B, f=F, h=H):
@@ -432,11 +465,14 @@ K13_STATS_FP64_BEFORE = (5.064e-7, 4.848e-7)
 # Hopper redesign: the redesign may at most double it.
 K12_FP64_BEFORE = 4.438e-7
 # Device ms per call back to back of kernels 13 (training, eval with the
-# running stats), 14 and 12 before their Hopper redesign, measured by this
-# script's [conv attribution] and [sde sweep] on the parent tree (NVIDIA
-# H100 80GB HBM3, 700 W), printed beside this run's.
+# running stats), 14, 12, 10 and 6 before their Hopper redesign, measured by
+# this script's [conv attribution], [sde sweep], [sde solve] and [pf solve]
+# (the last two as raw launches) on the parent tree (NVIDIA H100 80GB HBM3,
+# 700 W), printed beside this run's.
 PARENT_MS = {"K13 train": 1.2836, "K13 eval": 1.0128, "K14": 3.7444,
-             "K12": 1.908}
+             "K12": 1.908, "K10": 0.9097, "K6": 0.9225}
+# Rows of kernel 6's error blocks (the slots of its error norm)
+PF_ERROR_ROWS = 8
 DIGEST_KEYS = ("y_final", "ys", "naccept", "nreject", "natt")
 
 
@@ -1502,21 +1538,28 @@ def phase_sde_kernels(device, ode_w, ode_x):
         [lambda: persistent_sde_solve(w, u0, (0.0, 1.0), **kw),
          lambda: persistent_sde_solve_plain(w, u0, (0.0, 1.0), **kw)],
         n=3, warmup=1)
-    ms, = back_to_back_ms(
+    wrapped, = back_to_back_ms(
         [lambda: persistent_sde_solve(w, u0, (0.0, 1.0), **kw)], n=20,
         warmup=2)
-    print(f"[sde solve] kernel {ms:.3f} ms per call back to back "
-          f"({ms / ta:.4f} ms per attempt), one call {call:.3f} ms; loop "
-          f"{plain:.3f} ms")
-    # four drift and four diffusion evaluations an attempt (the Brownian
-    # tree's integer and transcendental work is not counted); out ys,
-    # y_final and the knots (u, dW, dZ)
+    ms = phase_sde_solve_attribution(w, u0, kw, out)
+    print(f"[sde solve] kernel {ms:.4f} ms per raw launch back to back "
+          f"({1e3 * ms / ta:.2f} µs per attempt; before the redesign "
+          f"{PARENT_MS.get('K10')}), {wrapped:.3f} ms per wrapper call back "
+          f"to back, one call {call:.3f} ms; loop {plain:.3f} ms")
+    # four drift and four diffusion evaluations an attempt; out ys, y_final
+    # and the knots (u, dW, dZ). The products alone, and with the Brownian
+    # tree's draws: (depth + 1) a (column pair, row) an attempt
     mlp_sde = 2 * B * (2 * Fs * 64 + Fs * Fs)
-    res["persistent_sde_solve"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain,
-        **bound(4 * ta * mlp_sde,
-                4 * ((1 + 3 + 3 * n + 1) * B * Fs
-                     + 2 * Fs * 64 + 64 + Fs * Fs + 2 * Fs)))
+    nbytes = 4 * ((1 + 3 + 3 * n + 1) * B * Fs
+                  + 2 * Fs * 64 + 64 + Fs * Fs + 2 * Fs)
+    products = bound(4 * ta * mlp_sde, nbytes)
+    tree = tree_bound(ta * 25 * B * (-(-Fs // 2)), 4 * ta * mlp_sde, nbytes)
+    print(f"[sde solve] bound: products only {products['bound_ms']:.5f} ms "
+          f"(share {100 * products['bound_ms'] / ms:.2f}%), with the tree's "
+          f"draws {tree['bound_ms']:.5f} ms (share "
+          f"{100 * tree['bound_ms'] / ms:.2f}%; the kernels line's)")
+    res["persistent_sde_solve"] = dict(max_abs_err=err, ms=ms,
+                                       plain_ms=plain, **tree)
 
     # kernel 12 — on kernel 10's own knots
     g = torch.Generator(device=device).manual_seed(11)
@@ -1614,6 +1657,86 @@ def phase_sde_kernels(device, ode_w, ode_x):
     print(f"[reservoir] kernel 4 recording at rtol 1e-4: {with_res:.3f} ms per "
           f"call with the reservoir, {without:.3f} ms without")
     return res
+
+
+def _sde_raw_args(w, u0, kw):
+    """Kernel 10's C operands as persistent_sde_solve passes them (knots
+    recorded, no reservoir), the first drift evaluation and the dt heuristic
+    run here, once; without the stream. Returns the arguments, the grid
+    barrier and the output buffers by the wrapper's names."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import _build
+    from localregneuralde_tpu_torch.ops.cuda import fused_sde_solve as fs
+
+    Bs, Fs = u0.shape
+    dev, m = u0.device, kw["max_steps"]
+    new = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
+        shape, dtype=dtype, device=dev)
+    saveat = kw["saveat_arr"]
+    dt = fs.initial_dt(u0, fs.drift_plain(w, u0), kw["rtol"], kw["atol"],
+                       0.0, 1.0)
+    n_blocks = -(-Bs // _build.load_library().lrnde_sde_rows_per_block())
+    out = dict(y_final=new(Bs, Fs), ys=new(saveat.shape[0], Bs, Fs),
+               stats_i=new(4, dtype=torch.int32), stats_f=new(2),
+               knot_ts=new(m + 1), knot_us=new(m + 1, Bs, Fs),
+               knot_dws=new(m, Bs, Fs), knot_dzs=new(m, Bs, Fs))
+    wz = new(2, 2, Bs, Fs)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = [int(kw["solver"] == "sosri"), u0,
+            fs.device_scalars([0.0, 1.0, dt], u0), saveat, saveat.shape[0],
+            *w, kw["noise"].seed, 24, out["y_final"], out["ys"],
+            out["stats_i"], out["stats_f"], new(Bs, Fs), wz[0], wz[1],
+            new(2 * n_blocks), bar, None, None, out["knot_ts"],
+            out["knot_us"], out["knot_dws"], out["knot_dzs"], Bs, Fs,
+            w.b1.shape[0], m, kw["rtol"], kw["atol"], kw["delta"],
+            1.0 / (Bs * Fs)]
+    return args, bar, out
+
+
+def phase_sde_solve_attribution(w, u0, kw, ref, runs=3):
+    """Kernel 10's attempt by phase: the instantiation with the compile-time
+    clock (lrnde_sde_solve_timed, launched only here), CTA 0's %globaltimer
+    summed over the attempts, bitwise the untimed kernel (outputs, knots and
+    step counts) and of its attempt count; then the untimed kernel as a raw
+    launch back to back. Returns its device ms per call."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import _build
+
+    lib = _build.load_library()
+    check(lib.lrnde_sde_phases() == len(SDE_PHASES),
+          "the kernel's phases are not SDE_PHASES")
+    args, bar, out = _sde_raw_args(w, u0, kw)
+    n = int(ref["naccept"])
+
+    def same():
+        return (torch.equal(out["y_final"], ref["y_final"])
+                and torch.equal(out["ys"], ref["ys"])
+                and int(out["stats_i"][0]) == n
+                and int(out["stats_i"][3]) == int(ref["natt"])
+                and all(torch.equal(out[k][:n + 1], ref[k][:n + 1])
+                        for k in ("knot_ts", "knot_us"))
+                and all(torch.equal(out[k][:n], ref[k][:n])
+                        for k in ("knot_dws", "knot_dzs")))
+
+    def timed(tm):
+        bar.zero_()
+        return raw_launch("lrnde_sde_solve_timed", *args, tm)()
+
+    err, per, natt, _ = _clocked(timed, len(SDE_PHASES), u0.device, runs)
+    check(err == 0, "sde solve attribution: launch failed")
+    check(same(), "sde solve attribution: the timed kernel's result differs")
+    check(natt == int(ref["natt"]), "sde solve attribution: attempt count")
+    split = {k: round(v, 3) for k, v in zip(SDE_PHASES, per)}
+    print(f"[sde solve attribution] {natt} attempts, CTA 0, µs per attempt "
+          f"(mean of {runs} launches): {split}; sum {sum(per):.3f}; bitwise "
+          f"the untimed kernel")
+    raw = raw_launch("lrnde_sde_solve", *args)
+    check((bar.zero_(), raw())[1] == 0 and same(),
+          "sde solve: the raw launch differs from the wrapper's")
+    ms, = back_to_back_ms([lambda: (bar.zero_(), raw())[1]], n=20, warmup=2)
+    return ms
 
 
 def phase_sde_sweep_attribution(w, args, ref, device, runs=3):
@@ -3084,36 +3207,108 @@ def _score_raw(ps, chain, u0, span, saveat, sched, noise):
     evaluations and the dt heuristics run here, not in the timed call. Each
     launch zeroes its grid barrier first (one memset). Returns the two
     launchers and their y_final buffers."""
+    args11, bar11, y11 = _vpsde_raw_args(ps, chain, u0, span, saveat, sched,
+                                         noise)
+    k11 = raw_launch("lrnde_vpsde_solve", *args11)
+    args6, bar6, y6 = _pf_raw_args(ps, chain, u0, span, saveat, sched)
+    k6 = raw_launch("lrnde_persistent_pf", *args6)
+    return ((lambda: (bar11.zero_(), k11())[1]),
+            (lambda: (bar6.zero_(), k6())[1])), (y11, y6)
+
+
+def _pf_raw_args(ps, chain, u0, span, saveat, sched):
+    """Kernel 6's C operands (rtol 1e-4, atol 1e-6) as persistent_pf_solve
+    passes them, k1 and the dt heuristic run here, once; without the
+    stream. Returns the arguments, the grid barrier and y_final."""
     import torch
 
-    from localregneuralde_tpu_torch.ops.cuda import _build
     from localregneuralde_tpu_torch.ops.cuda import fused_sde_solve as fs
     from localregneuralde_tpu_torch.ops.cuda import fused_solve as fo
 
     B, F = u0.shape
     t0, te = span
-    n_blocks = -(-B // _build.load_library().lrnde_score_rows_per_block())
     new = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
         shape, dtype=dtype, device=u0.device)
-    args11, bar11, y11 = _vpsde_raw_args(ps, chain, u0, span, saveat, sched,
-                                         noise)
-    k11 = raw_launch("lrnde_vpsde_solve", *args11)
     k1, dt, _ = fo._start(fo.pf_dynamics(ps, chain, **sched), u0, t0, te,
                           1e-4, 1e-6)
-    bar6 = torch.zeros(1, dtype=torch.int32, device=u0.device)
-    y6 = new(B, F)
-    k6 = raw_launch(
-        "lrnde_persistent_pf", u0, k1, fs.device_scalars([t0, te, dt], u0),
-        saveat, 1, *fs.score_operands(ps, chain, **sched), y6, new(1, B, F),
-        new(4, dtype=torch.int32), new(2), new(8, B, F), new(2 * n_blocks),
-        bar6, B, SCORE_MAX_STEPS, 1e-4, 1e-6, 1.0 / (B * F))
-    return ((lambda: (bar11.zero_(), k11())[1]),
-            (lambda: (bar6.zero_(), k6())[1])), (y11, y6)
+    bar = torch.zeros(1, dtype=torch.int32, device=u0.device)
+    y = new(B, F)
+    n_blocks = -(-B // PF_ERROR_ROWS)
+    args = [u0, k1, fs.device_scalars([t0, te, dt], u0), saveat,
+            saveat.shape[0], *fs.score_operands(ps, chain, **sched), y,
+            new(saveat.shape[0], B, F), new(4, dtype=torch.int32), new(2),
+            new(2 * n_blocks), bar, B, SCORE_MAX_STEPS, 1e-4, 1e-6,
+            1.0 / (B * F)]
+    return args, bar, y
 
 
-# sde_solve.cu::SdePhase, in order
-SDE_PHASES = ("descent", "stage 1", "stage 2", "stage 3", "stage 4",
-              "slot store", "barrier wait", "slot sum", "commit", "plan")
+# lrnde_pf_solve_probe's layouts of kernel 6, in order
+PF_PROBES = ("the kernel's: 4 rows a warp, 64 -> 64 weights in registers, "
+             "the last layer's accumulators on 4 lanes",
+             "4 rows a warp, 64 -> 64 weights in registers",
+             "4 rows a warp, a lane an output",
+             "8 rows a warp, a lane an output",
+             "2 rows a warp, a lane an output")
+
+
+def phase_pf_probe(ps, chain, u0, span, saveat, sched, ref):
+    """Kernel 6 in each layout of lrnde_pf_solve_probe at the score demo's
+    draw: bitwise the kernel's result, then device ms per raw launch back
+    to back, in turns."""
+    import torch
+
+    args, bar, y = _pf_raw_args(ps, chain, u0, span, saveat, sched)
+    fns = []
+    for v, name in enumerate(PF_PROBES):
+        fn = raw_launch("lrnde_pf_solve_probe", v, *args)
+        y.zero_()
+        check((bar.zero_(), fn())[1] == 0 and torch.equal(y, ref["y_final"]),
+              f"pf probe {name}: the result differs from the kernel's")
+        fns.append(lambda fn=fn: (bar.zero_(), fn())[1])
+    ms = back_to_back_ms(fns, n=10, warmup=1)
+    print("[pf probe] device ms per raw launch back to back, bitwise the "
+          "kernel: " + ", ".join(f"{n} {m:.4f}" for n, m in zip(PF_PROBES,
+                                                                 ms)))
+    return ms
+
+
+def phase_pf_solve_attribution(ps, chain, u0, span, saveat, sched, ref,
+                               runs=3):
+    """Kernel 6's attempt by phase at the score demo's draw: the clocked
+    instantiation (lrnde_persistent_pf_timed, launched only here), CTA 0's
+    %globaltimer summed over the attempts in the library's phases, bitwise
+    the untimed kernel and of its attempt count."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import _build
+
+    lib = _build.load_library()
+    names = _phase_names(lib, "lrnde_pf_solve_phase_names")
+    args, bar, y = _pf_raw_args(ps, chain, u0, span, saveat, sched)
+
+    def timed(tm):
+        bar.zero_()
+        return raw_launch("lrnde_persistent_pf_timed", *args, tm)()
+
+    err, per, natt, spread = _clocked(timed, len(names), u0.device, runs)
+    check(err == 0, "pf solve attribution: launch failed")
+    check(torch.equal(y, ref["y_final"]),
+          "pf solve attribution: the timed kernel's result differs")
+    check(natt == (int(ref["nfe"]) - 2) // 6,
+          "pf solve attribution: attempt count")
+    split = {k: round(v, 3) for k, v in zip(names, per)}
+    print(f"[pf solve attribution] {natt} attempts, CTA 0, µs per attempt "
+          f"(mean of {runs} launches): {split}; sum {sum(per):.3f}"
+          + (f"; at most {spread[0]} CTA(s) an SM, {spread[1]} SMs"
+             if spread else "") + "; bitwise the untimed kernel")
+    return split
+
+
+# sde_solve.cu::SdePhase, in order (the descent's walk to τ, its draws and
+# their combination with the increments)
+SDE_PHASES = ("walk", "draws", "combine", "stage 1", "stage 2", "stage 3",
+              "stage 4", "slot store", "barrier wait", "slot sum", "commit",
+              "plan")
 
 
 def phase_vpsde_attribution(device, runs=3):
@@ -3356,13 +3551,20 @@ def phase_score_kernels(device):
     print(f"[vpsde solve] bitwise repeatable; kernel {ms:.3f} ms per raw "
           f"launch back to back ({1e3 * ms / natt:.2f} µs per attempt), "
           f"{wrapped:.3f} ms per wrapper call")
-    # four drift evaluations an attempt (the tree's integer and
-    # transcendental work is not counted); in u0 and the network, out
-    # y_final and ys
-    res["persistent_vpsde_solve"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain,
-        **bound(4 * natt * score_flops(chain.dims, SCORE_B),
-                4 * (3 * SCORE_B * SCORE_F + n_params)))
+    # four drift evaluations an attempt; in u0 and the network, out y_final
+    # and ys. The products alone, and with the Brownian tree's draws:
+    # (depth + 1) a (column pair, row) an attempt
+    nbytes = 4 * (3 * SCORE_B * SCORE_F + n_params)
+    flops = 4 * natt * score_flops(chain.dims, SCORE_B)
+    products = bound(flops, nbytes)
+    tree = tree_bound(natt * 25 * SCORE_B * (-(-SCORE_F // 2)), flops,
+                      nbytes)
+    print(f"[vpsde solve] bound: products only {products['bound_ms']:.5f} ms "
+          f"(share {100 * products['bound_ms'] / ms:.2f}%), with the tree's "
+          f"draws {tree['bound_ms']:.5f} ms (share "
+          f"{100 * tree['bound_ms'] / ms:.2f}%; the kernels line's)")
+    res["persistent_vpsde_solve"] = dict(max_abs_err=err, ms=ms,
+                                         plain_ms=plain, **tree)
 
     # kernel 6 — the same ODE: within one accept, 5e-5 of max|y|
     pkw = dict(rtol=1e-4, atol=1e-6, saveat_arr=saveat,
@@ -3388,13 +3590,16 @@ def phase_score_kernels(device):
           "pf solve is not bitwise repeatable")
     check(raw6() == 0 and torch.equal(raw_y[1], out["y_final"]),
           "pf solve: the raw launch differs from the wrapper's")
+    phase_pf_solve_attribution(ps, chain, u0, span, saveat, sched, out)
+    phase_pf_probe(ps, chain, u0, span, saveat, sched, out)
     ms, wrapped = back_to_back_ms(
         [raw6, lambda: persistent_pf_solve(ps, chain, u0, span, **pkw)],
         n=10, warmup=1)
     natt = (int(out["nfe"]) - 2) // 6
-    print(f"[pf solve] bitwise repeatable; kernel {ms:.3f} ms per raw launch "
-          f"back to back ({1e3 * ms / natt:.2f} µs per attempt), "
-          f"{wrapped:.3f} ms per wrapper call")
+    print(f"[pf solve] bitwise repeatable; kernel {ms:.4f} ms per raw launch "
+          f"back to back ({1e3 * ms / natt:.2f} µs per attempt; before the "
+          f"redesign {PARENT_MS.get('K6')}), {wrapped:.3f} ms per wrapper "
+          f"call")
     # six evaluations an attempt; in u0, k1 and the network, out y_final, ys
     res["persistent_pf_solve"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain,

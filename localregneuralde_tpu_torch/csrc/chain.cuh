@@ -1,5 +1,4 @@
-// The Dense chain as a dynamics type of the Tsit5 attempt code
-// (tdmlp.cuh::tsit5_rows, solve.cuh::attempt_eest, persistent.cuh):
+// The Dense chain:
 //   f(x) = a_L,  a_0 = tanh(x) (or x),  a_{l+1} = act_l(a_l·W_l + b_l),
 // with act_l tanh or the identity and d_0 = d_L = F. Weights are in the JAX
 // layout, W_l (d_l, d_{l+1}) row-major.
@@ -12,8 +11,10 @@
 // template parameters. With TimeRow, W_l is a (d_l + 1, d_{l+1}) TD matrix
 // whose last row is the time weight, and a layer reads the time t:
 // a_{l+1} = act_l(a_l·W_l[0:d_l] + t·W_l[d_l] + b_l) (the score network of
-// kernels 6 and 11, score.cuh). The latent ODE's kernels 5 and 9 evaluate
-// the chain a warp a row instead (chain_rows.cuh), with the same sums.
+// kernels 6 and 11, score.cuh). Kernel 11 evaluates it with chain_forward,
+// below; the latent ODE's kernels 5 and 9 evaluate the chain a warp a row
+// (chain_rows.cuh) and kernel 6 a warp a group of rows (score_rows.cuh),
+// with the same sums.
 //
 // Work split of chain_forward: one CTA of Threads threads owns Rows batch
 // rows and keeps the whole chain in shared memory; an evaluation is L
@@ -32,7 +33,6 @@ constexpr int kChainAcc = 4;
 
 struct ChainSmem {
   float* w;    // the packed weights: per layer W_l, then b_l
-  float* xs;   // [F][rows] stage input, transposed
   float* act;  // 2 x [rows][stride] activations, ping-pong
   float* red;  // [threads] block reduction
 };
@@ -66,11 +66,11 @@ __host__ __device__ inline int chain_stride(const DenseChainT<R, T, TR>& w) {
 }
 
 
-// Floats of the shared memory of a forward CTA (persistent.cuh).
+// Floats of the shared memory of a chain_forward CTA (kernel 11).
 template <int R, int T, bool TR>
 __host__ __device__ inline size_t shared_floats(const DenseChainT<R, T, TR>& w) {
-  return round_up4(w.n_params) + round_up4(static_cast<size_t>(w.F) * R)
-       + 2 * static_cast<size_t>(R) * chain_stride(w) + T;
+  return round_up4(w.n_params) + 2 * static_cast<size_t>(R) * chain_stride(w)
+       + T;
 }
 
 template <int R, int T, bool TR>
@@ -78,8 +78,7 @@ __device__ inline ChainSmem carve_shared(const DenseChainT<R, T, TR>& w,
                                          float* raw) {
   ChainSmem s;
   s.w = raw;
-  s.xs = s.w + round_up4(w.n_params);
-  s.act = s.xs + round_up4(static_cast<size_t>(w.F) * R);
+  s.act = s.w + round_up4(w.n_params);
   s.red = s.act + 2 * R * chain_stride(w);
   return s;
 }
@@ -97,21 +96,19 @@ __device__ inline void load_shared(const DenseChainT<R, T, TR>& w,
   __syncthreads();
 }
 
-// Activation l of the row block: with `keep`, slot l of keep ((L + 1) x
-// [rows][stride]); otherwise one of the two ping-pong buffers of sm.act.
+// Activation l of the row block: one of the two ping-pong buffers of
+// sm.act.
 template <int R, int T, bool TR>
 __device__ inline float* chain_act(const DenseChainT<R, T, TR>& w, float* buf,
-                                   int l, bool keep) {
-  return buf + static_cast<size_t>(keep ? l : (l & 1)) * R * chain_stride(w);
+                                   int l) {
+  return buf + static_cast<size_t>(l & 1) * R * chain_stride(w);
 }
 
 // One evaluation of the chain at time t (read with TimeRow only) on the
-// stage input x, x(r, c) at x[r·rs + c·cs]: a_0 from x, then the L layers;
-// the last writes rows [0, nrows) of out (row-major, stride F). The
-// activations a_0..a_L go to `acts` (keep = true: (L + 1) x [rows][stride],
-// for the backward) or to the two ping-pong buffers there; `acts` is
-// 16-byte aligned. The caller synchronises before x is loaded and after
-// this returns.
+// stage input x ([rows][F] row-major): a_0 from x, then the L layers; the
+// last writes rows [0, nrows) of out (row-major, stride F). The activations
+// a_0..a_L go to the two ping-pong buffers at `acts` (16-byte aligned). The
+// caller synchronises before x is loaded and after this returns.
 //
 // A layer pass: when the CTA has fewer threads than rows x outputs (G =
 // T / d_out row groups, fewer than the rows), thread (g, o) computes output
@@ -122,15 +119,15 @@ __device__ inline float* chain_act(const DenseChainT<R, T, TR>& w, float* buf,
 // the mapping, so both give the same bits.
 template <int R, int T, bool TR>
 __device__ inline void chain_forward(const DenseChainT<R, T, TR>& w,
-                                     const float* W, const float* x, int rs,
-                                     int cs, float t, float* acts, bool keep,
-                                     float* out, int nrows) {
+                                     const float* W, const float* x,
+                                     float t, float* acts, float* out,
+                                     int nrows) {
   static_assert(kChainAcc == 4, "a float4 of inputs per accumulator round");
   const int F = w.F, M = chain_stride(w);
-  float* a0 = chain_act(w, acts, 0, keep);
+  float* a0 = chain_act(w, acts, 0);
   for (int i = threadIdx.x; i < R * F; i += T) {
     const int r = i / F, c = i - r * F;
-    const float v = x[r * rs + c * cs];
+    const float v = x[r * F + c];
     a0[r * M + c] = w.lead ? tanhf(v) : v;
   }
   __syncthreads();
@@ -138,8 +135,8 @@ __device__ inline void chain_forward(const DenseChainT<R, T, TR>& w,
     const int din = w.dims[l], dout = w.dims[l + 1];
     const float* Wl = W + w.off[l];
     const float* bl = Wl + (din + TR) * dout;
-    const float* ain = chain_act(w, acts, l, keep);
-    float* aout = chain_act(w, acts, l + 1, keep);
+    const float* ain = chain_act(w, acts, l);
+    float* aout = chain_act(w, acts, l + 1);
     const bool tanh_l = (w.acts >> l) & 1u;
     const bool last = l == w.L - 1;
     const int G = dout < T ? T / dout : 1;

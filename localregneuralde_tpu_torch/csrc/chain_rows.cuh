@@ -410,30 +410,10 @@ __device__ inline void warp_step(const ChainNet& w, const ChainMeta& meta,
 }
 
 // The error partial of one block from its n scaled residuals (row-major),
-// as the old kernel's 256 threads summed them: thread t's fmaf chain over
-// elements t, t + 256, ..., then block_sum<256>'s tree (red[t] += red[t +
-// s] for s = 128, ..., 1). Lane l of the calling warp holds the threads t ≡
-// l (mod 32): the tree's first three levels in registers, the last five as
-// shuffles. The sum is in lane 0.
+// as the old kernel's 256 threads summed them (tdmlp.cuh::
+// warp_block_sum_sq). The sum is in lane 0.
 __device__ inline float block_error(const float* res, int n, int lane) {
-  constexpr int M = kChainOldThreads / 32;
-  static_assert(M == 8, "three register levels, then five shuffles");
-  float e[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    e[m] = 0.f;
-    for (int i = lane + 32 * m; i < n; i += kChainOldThreads)
-      e[m] = fmaf(res[i], res[i], e[m]);
-  }
-#pragma unroll
-  for (int m = 0; m < 4; ++m) e[m] = e[m] + e[m + 4];
-  e[0] = e[0] + e[2];
-  e[1] = e[1] + e[3];
-  e[0] = e[0] + e[1];
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1)
-    e[0] = e[0] + __shfl_down_sync(0xffffffffu, e[0], s);
-  return e[0];
+  return warp_block_sum_sq<kChainOldThreads>(res, n, lane);
 }
 
 // What an attempt needs of a CTA: its shared buffers and its blocks.
@@ -492,12 +472,14 @@ __device__ inline float chain_attempt(const ChainNet& w,
   return threadIdx.x == 0 ? sqrtf(err_sq * inv_n) : 0.f;
 }
 
-// CTAs of a kernel resident on one SM at a shared memory size, remembered
-// per (kernel, size): the query costs host time, the launches repeat. The
-// kernel's opt-in to dynamic shared memory only grows (a kernel has one
-// limit, and a smaller chain must not lower it below a larger one's).
+// CTAs of a kernel of `threads` threads resident on one SM at a shared
+// memory size, remembered per (kernel, size): the query costs host time,
+// the launches repeat. The kernel's opt-in to dynamic shared memory only
+// grows (a kernel has one limit, and a smaller chain must not lower it
+// below a larger one's).
 inline cudaError_t chain_occupancy(const void* kernel, size_t bytes,
-                                   int* per_sm) {
+                                   int* per_sm,
+                                   int threads = kChainThreads) {
   struct Entry {
     const void* fn;
     size_t bytes;
@@ -508,7 +490,7 @@ inline cudaError_t chain_occupancy(const void* kernel, size_t bytes,
     size_t bytes;
   };
   static Entry cache[8] = {};
-  static Granted granted[8] = {};
+  static Granted granted[16] = {};
   static int next = 0;
   for (const Entry& e : cache)
     if (e.fn == kernel && e.bytes == bytes) {
@@ -536,7 +518,7 @@ inline cudaError_t chain_occupancy(const void* kernel, size_t bytes,
       g->bytes = bytes;
     }
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
-                                                        kChainThreads, bytes);
+                                                        threads, bytes);
     if (err != cudaSuccess) return err;
   }
   cache[next] = Entry{kernel, bytes, *per_sm};

@@ -62,7 +62,7 @@
 //
 // The clocked instantiation (kTime) splits CTA 0's attempt by phase for
 // chip_smoke.py's [solve attribution]; its arithmetic is the same.
-#include "persistent.cuh"
+#include "solve.cuh"
 #include "sweep_cluster.cuh"
 
 namespace lrnde {

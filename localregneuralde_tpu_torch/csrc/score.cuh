@@ -1,6 +1,7 @@
 // The score network of the score-SDE samplers as dynamics types of the
-// whole-solve kernels: PfScore for kernel 6 (persistent.cuh, pf_solve.cu)
-// and VpScore for kernel 11 (sde_solve.cu).
+// whole-solve kernels: PfScore for kernel 6 (pf_solve.cu, evaluated a warp a
+// group of rows by score_rows.cuh) and VpScore for kernel 11 (sde_solve.cu,
+// evaluated CTA-wide by chain.cuh::chain_forward).
 //
 // s_θ is a TDChain of biased Dense layers (the reference's time-appended
 // channel, fused_sde_solve.py::match_td_score_chain): the Dense chain of
@@ -16,13 +17,13 @@
 // padded, so there is no mask, and the error norm divides by the logical
 // B·F (inv_n).
 //
-// Row blocking: the state is narrow (F = 2) and the batch wide (B = 4096),
-// so a CTA of kScoreThreads threads owns kScoreRows rows: 512 row blocks, all
-// co-resident, each CTA running one. The demo's network (2 -> 64 -> 64 -> 2)
-// is 18 KB of shared memory, and its products 9.0 kFLOP a row and
-// evaluation; what bounds the kernels is the serial chain of layer passes
-// (their shared-memory reads: chain.cuh::chain_forward) and the grid
-// barrier with its slot sum of every attempt.
+// Row blocking of kernel 11: the state is narrow (F = 2) and the batch wide
+// (B = 4096), so a CTA of kScoreThreads threads owns kScoreRows rows: 512
+// row blocks, all co-resident, each CTA running one. The demo's network
+// (2 -> 64 -> 64 -> 2) is 18 KB of shared memory, and its products 9.0
+// kFLOP a row and evaluation; what bounds the kernel is the serial chain of
+// layer passes (their shared-memory reads: chain.cuh::chain_forward) and
+// the grid barrier with its slot sum of every attempt.
 //
 // Every scalar of the time and β arithmetic is rounded as the plain PyTorch
 // versions round it (separate multiply and add, no contraction).
@@ -33,8 +34,8 @@
 
 namespace lrnde {
 
-constexpr int kScoreRows = 8;       // batch rows per CTA
-constexpr int kScoreThreads = 128;  // threads per CTA
+constexpr int kScoreRows = 8;       // batch rows per CTA of kernel 11
+constexpr int kScoreThreads = 128;  // threads per CTA of kernel 11
 
 using ScoreChain = DenseChainT<kScoreRows, kScoreThreads, true>;
 
@@ -54,22 +55,6 @@ __device__ inline float score_time(const ScoreNet& w, float tau) {
 
 __device__ inline float score_beta(const ScoreNet& w, float t) {
   return __fadd_rn(w.beta_min, __fmul_rn(t, w.d_beta));
-}
-
-// Kernel 6's evaluation for the Tsit5 attempt code (tdmlp.cuh::tsit5_rows):
-// the stage input in sm.xs ([F][rows], transposed), stage time s on the τ
-// clock; writes rows [0, nrows) of out (row-major, stride F).
-__device__ inline void eval_rows(const PfScore& w, const ChainSmem& sm,
-                                 float s, float* out, int nrows) {
-  constexpr int R = kScoreRows;
-  const float t = score_time(w, s);
-  const float hb = __fmul_rn(0.5f, score_beta(w, t));
-  chain_forward(w, sm.w, sm.xs, 1, R, t, sm.act, false, out, nrows);
-  const int F = w.F;
-  for (int i = threadIdx.x; i < nrows * F; i += kScoreThreads) {
-    const int r = i / F, c = i - r * F;
-    out[i] = __fmul_rn(hb, __fadd_rn(sm.xs[c * R + r], out[i]));
-  }
 }
 
 // Kernel 11's dynamics-type interface of sde_solve.cu: the type's shared
@@ -97,7 +82,7 @@ __device__ inline void sde_stage(const VpScore& w, const ChainSmem& sm,
   const float hb = __fmul_rn(0.5f, b);
   const float sg = __fsqrt_rn(score_beta(w, score_time(w, tg)));
   const int F = w.F;
-  chain_forward(w, sm.w, xf, F, 1, t, sm.act, false, k, nrows);
+  chain_forward(w, sm.w, xf, t, sm.act, k, nrows);
   for (int i = threadIdx.x; i < nrows * F; i += kScoreThreads) {
     k[i] = __fadd_rn(__fmul_rn(hb, xf[i]), __fmul_rn(b, k[i]));
     g[i] = sg;

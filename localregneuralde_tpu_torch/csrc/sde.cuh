@@ -6,12 +6,12 @@
 //   diffusion(x) = x·Wd + bd                    Wd (F, F)
 // with the weights in the JAX layout, (in, out) row-major.
 //
-// Work split: a CTA of kSdeThreads threads owns blocks of kSdeRows batch
-// rows. The state is narrow (F = 32 at the MNIST-SDE width), so every CTA
-// keeps all six weights in shared memory for the whole launch, each matrix
-// row padded by one float: a padded stride makes both the forward (over
-// output columns) and the transposed (over input rows) products free of
-// bank conflicts.
+// Work split: a CTA of kSdeThreads threads (twelve warps) owns blocks of
+// kSdeRows batch rows. The state is narrow (F = 32 at the MNIST-SDE width),
+// so every CTA keeps all six weights in shared memory for the whole launch,
+// each matrix row padded by one float: a padded stride makes both the
+// forward (over output columns) and the transposed (over input rows)
+// products free of bank conflicts.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,8 +21,17 @@
 
 namespace lrnde {
 
-constexpr int kSdeThreads = 64;  // threads per CTA
-constexpr int kSdeRows = 4;      // batch rows per row block
+constexpr int kSdeRows = 4;  // batch rows per row block
+// The CTA of both SDE kernels: twelve warps in two groups. A product's
+// H-wide outputs run on the first kSdeHidThreads threads while the F-wide
+// diffusion outputs run on the last kSdeDiffThreads; the drift outputs, the
+// sweep's weight-gradient elements and the elementwise passes on all.
+constexpr int kSdeHidThreads = 256;   // 8 warps: 4 rows x H = 64 at once
+constexpr int kSdeDiffThreads = 128;  // 4 warps: 4 rows x F = 32 at once
+constexpr int kSdeThreads = kSdeHidThreads + kSdeDiffThreads;
+// The first port's kernel 10 ran 64 threads a CTA: its error partial was
+// their fmaf chains and block_sum<64>'s tree, which the redesign emulates
+constexpr int kSdeOldThreads = 64;
 
 // ---------------------------------------------------------------- tableaus
 // sde/tableaus.py, rounded from the Python floats to float32. Rows of the
@@ -168,7 +177,7 @@ struct SdeMlpShared;
 // A dynamics type of the solve kernel (sde_solve.cu) names its row blocking
 // and its shared memory type, and has sde_shared_floats(),
 // sde_carve_load() and sde_stage() overloads (score.cuh::VpScore is the
-// other).
+// other). Kernel 10 runs SdeNet, below.
 struct SdeWeights {
   static constexpr int rows = kSdeRows;
   static constexpr int threads = kSdeThreads;
@@ -187,9 +196,6 @@ struct SdeWeights {
 struct SdeSmemW {
   float *w1, *b1, *w2, *b2, *wd, *bd;
   int F, H;
-  __device__ float W1(int k, int h) const { return w1[k * (H + 1) + h]; }
-  __device__ float W2(int h, int j) const { return w2[h * (F + 1) + j]; }
-  __device__ float Wd(int k, int j) const { return wd[k * (F + 1) + j]; }
 };
 
 __host__ __device__ inline size_t sde_weight_smem_floats(int F, int H) {
@@ -225,32 +231,41 @@ __device__ inline float* load_sde_weights(const SdeWeights& w, float* base,
 }
 
 // One stage of the row block: k = drift(xf), g = diffusion(xg) for rows
-// [0, nrows), all [kSdeRows][F] (hid [kSdeRows][H]) in shared memory, each
-// product summed left to right in FP32. Synchronises before returning.
-__device__ inline void sde_stage_eval(const SdeSmemW& w, const float* xf,
-                                      const float* xg, float* hid, float* k,
-                                      float* g, int nrows) {
-  const int F = w.F, H = w.H;
-  for (int i = threadIdx.x; i < nrows * H; i += blockDim.x) {
-    const int r = i / H, h = i - r * H;
-    const float* x = xf + r * F;
-    float acc = 0.f;
-    for (int c = 0; c < F; ++c) acc = fmaf(x[c], w.W1(c, h), acc);
-    hid[i] = tanhf(acc + w.b1[h]);
-  }
-  for (int i = threadIdx.x; i < nrows * F; i += blockDim.x) {
-    const int r = i / F, j = i - r * F;
-    const float* x = xg + r * F;
-    float acc = 0.f;
-    for (int c = 0; c < F; ++c) acc = fmaf(x[c], w.Wd(c, j), acc);
-    g[i] = acc + w.bd[j];
+// [0, nrows), all [kSdeRows][F] (hid [kSdeRows][H]) in shared memory, on
+// the kSdeThreads threads of a CTA: the hidden rows on the first group
+// beside the diffusion outputs on the second, then the drift outputs. Each
+// output is one thread's left-to-right FP32 sum, so it has the same bits at
+// any mapping. F and H are compile-time constants where the caller's are
+// (the MNIST-SDE width). Synchronises before returning.
+__device__ __forceinline__ void sde_stage_eval(const SdeSmemW& w, int F, int H,
+                                               const float* xf,
+                                               const float* xg, float* hid,
+                                               float* k, float* g,
+                                               int nrows) {
+  const int tid = threadIdx.x;
+  if (tid < kSdeHidThreads) {
+    for (int i = tid; i < nrows * H; i += kSdeHidThreads) {
+      const int r = i / H, h = i - r * H;
+      const float* x = xf + r * F;
+      float acc = 0.f;
+      for (int c = 0; c < F; ++c) acc = fmaf(x[c], w.w1[c * (H + 1) + h], acc);
+      hid[i] = tanhf(acc + w.b1[h]);
+    }
+  } else {
+    for (int i = tid - kSdeHidThreads; i < nrows * F; i += kSdeDiffThreads) {
+      const int r = i / F, j = i - r * F;
+      const float* x = xg + r * F;
+      float acc = 0.f;
+      for (int c = 0; c < F; ++c) acc = fmaf(x[c], w.wd[c * (F + 1) + j], acc);
+      g[i] = acc + w.bd[j];
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < nrows * F; i += blockDim.x) {
+  for (int i = tid; i < nrows * F; i += kSdeThreads) {
     const int r = i / F, j = i - r * F;
     const float* hr = hid + r * H;
     float acc = 0.f;
-    for (int h = 0; h < H; ++h) acc = fmaf(hr[h], w.W2(h, j), acc);
+    for (int h = 0; h < H; ++h) acc = fmaf(hr[h], w.w2[h * (F + 1) + j], acc);
     k[i] = acc + w.b2[j];
   }
   __syncthreads();
@@ -275,12 +290,21 @@ __device__ inline float* sde_carve_load(const SdeWeights& w, float* base,
   return s->hid + kSdeRows * w.H;
 }
 
+// Kernel 10's dynamics type: the family with its widths at compile time
+// where kF, kH > 0 (the MNIST-SDE width, F = 32, H = 64, whose products'
+// loops then unroll with immediate offsets), else read from F and H.
+template <int kF, int kH>
+struct SdeNet : SdeWeights {};
+
 // The family is autonomous: the stage times are not read.
-__device__ inline void sde_stage(const SdeWeights&, const SdeMlpShared& s,
-                                 const float* xf, const float* xg,
-                                 float /*tf*/, float /*tg*/, float* k,
-                                 float* g, int nrows) {
-  sde_stage_eval(s.w, xf, xg, s.hid, k, g, nrows);
+template <int kF, int kH>
+__device__ inline void sde_stage(const SdeNet<kF, kH>& w,
+                                 const SdeMlpShared& s, const float* xf,
+                                 const float* xg, float /*tf*/,
+                                 float /*tg*/, float* k, float* g,
+                                 int nrows) {
+  sde_stage_eval(s.w, kF > 0 ? kF : w.F, kH > 0 ? kH : w.H, xf, xg, s.hid,
+                 k, g, nrows);
 }
 
 inline int sde_row_blocks(int B) { return (B + kSdeRows - 1) / kSdeRows; }

@@ -1,6 +1,6 @@
 // Kernels 10 and 11: the whole adaptive SRI/SOSRI solve in one cooperative
 // launch, with the virtual Brownian tree drawn inside, templated on the
-// dynamics type: kernel 10 for the NeuralDSDE family (sde.cuh::SdeWeights),
+// dynamics type: kernel 10 for the NeuralDSDE family (sde.cuh::SdeNet),
 // kernel 11 for the reverse-time VP-SDE of the score samplers
 // (score.cuh::VpScore).
 //
@@ -19,8 +19,8 @@
 //    and the split of rows over CTAs does not matter; W/Z at the last
 //    accepted time stay in global scratch, and dW = W(t + dt) − W(t). When
 //    a row block has fewer column pairs than the CTA has threads (kernel
-//    11: 8 of 128) the walk to τ is taken once and the levels' draws spread
-//    over all threads (descend);
+//    11: 8 of 128, kernel 10: 64 of 384) the walk to τ is taken once and the
+//    levels' draws spread over all threads (descend);
 // 2. takes the four-stage SRI step of its rows with the stage inputs and
 //    k1..k4, g1..g4 in shared memory (the drift at t + c0_i·dt, the
 //    diffusion at t + c1_i·dt, as sde/step.py), writes the candidate
@@ -41,11 +41,20 @@
 // max_steps entries, and commits u and W/Z. The first dt (one drift
 // evaluation) is computed by the caller, as in the reference.
 //
-// What bounds kernel 10 on an H100: the tree. An attempt draws 2·24·B·F
-// normals (786k at B = 512, F = 32) against 8 small products per row, so the
-// noise arithmetic (Philox, the inverse CDF with its logf in the tails) and
-// the latency of the grid barrier set the time per attempt; B = 512 gives
-// 128 CTAs of 64 threads, one per SM. Kernel 11 (B = 4096, F = 2) draws one
+// What bounds kernel 10 on an H100: latency. An attempt draws 2·25·B·F
+// normals (819k at B = 512, F = 32; ~0.8 µs of the card's FP32 and INT32
+// pipes) against 8 small products per row, and B = 512 gives 128 CTAs, one
+// an SM, so each SM has one row block's dependent chain in flight. The first
+// port ran a CTA of 64 threads: each walked its own (column pair, row) down
+// the tree, 25 Philox draws and 100 inverse CDFs in one chain, and summed
+// its stage outputs four or two at a time. The Hopper design keeps the row
+// blocks, the shared-memory layout and every sum, and gives the CTA twelve
+// warps (SdeNet, sde.cuh): the descent takes its buffered form (the levels'
+// draws spread over all 384 threads), a stage's hidden outputs run on eight
+// warps beside the diffusion outputs on four (sde.cuh::sde_stage_eval, the
+// evaluator kernel 12 shares), and the error partial is the first port's
+// 64-thread sum emulated by one warp (tdmlp.cuh::warp_block_sum_sq), so
+// every output keeps its bits. Kernel 11 (B = 4096, F = 2) draws one
 // column pair a row, and its four drift evaluations are three dependent
 // layer passes each (score.cuh); it records no knots and keeps no
 // reservoir. Its split per attempt on an H100 (the timed instantiation,
@@ -93,13 +102,15 @@ struct SdeCtl {
 };
 
 // The attribution phases of one attempt, timed by CTA 0's thread 0 on
-// %globaltimer in the instantiation with kTime (chip_smoke.py's K11
-// attribution phase only): the descent, the four stages, the residual and
-// slot store, the grid barrier's wait, the slot sum with the controller,
-// the commit, and the plan of the next attempt.
+// %globaltimer in the instantiation with kTime (chip_smoke.py's K10 and K11
+// attribution phases only): the descent's walk to τ, its draws and its
+// combination of the levels with the increments (the buffered descent; the
+// other counts as the last), the four stages, the residual and slot store,
+// the grid barrier's wait, the slot sum with the controller, the commit,
+// and the plan of the next attempt.
 enum SdePhase {
-  kPhDescent, kPhStage1, kPhStage2, kPhStage3, kPhStage4, kPhSlotStore,
-  kPhBarrier, kPhSlotSum, kPhCommit, kPhPlan, kPhases
+  kPhWalk, kPhDraws, kPhDescent, kPhStage1, kPhStage2, kPhStage3, kPhStage4,
+  kPhSlotStore, kPhBarrier, kPhSlotSum, kPhCommit, kPhPlan, kPhases
 };
 
 template <bool kOn>
@@ -153,20 +164,30 @@ struct DescentPath {
 
 // The descent's normals a CTA keeps (float4s): one per (column pair, row,
 // level) when a row block has fewer column pairs than the CTA has threads
-// (kernel 11: 8 of 128), else none, and each thread descends whole
-// (column pair, row) items on its own (kernel 10: 64 of 64).
+// (kernel 11: 8 of 128, kernel 10: 64 of 384), else none, and each thread
+// descends whole (column pair, row) items on its own.
 template <typename D>
 __host__ __device__ inline int descent_buffer(const D& w) {
   const int items = D::rows * ((w.F + 1) / 2);
   return items < D::threads ? items * (kMaxDepth + 1) : 0;
 }
 
+// Kernel 10's own forms of the shared code (kernel 11 keeps the first
+// port's): the walk to τ on one warp's lanes, and the error partial of the
+// first port's 64 threads emulated by one warp.
+template <typename D>
+constexpr bool kWideSde = false;
+template <int kF, int kH>
+constexpr bool kWideSde<SdeNet<kF, kH>> = true;
+
 // Floats of dynamic shared memory per CTA: the dynamics type's, then the
-// step's row-block buffers, then the descent's normals.
+// step's row-block buffers (the last one the block reduction's, or kernel
+// 10's scaled residuals), then the descent's normals.
 template <typename D>
 __host__ __device__ inline size_t sde_solve_smem_floats(const D& w) {
   const size_t RF = static_cast<size_t>(D::rows) * w.F;
-  return round_up4(sde_shared_floats(w) + 13 * RF + D::threads)
+  const size_t red = RF > D::threads ? RF : D::threads;
+  return round_up4(sde_shared_floats(w) + 13 * RF + red)
        + 4 * static_cast<size_t>(descent_buffer(w));
 }
 
@@ -182,15 +203,48 @@ __host__ __device__ inline size_t sde_solve_smem_floats(const D& w) {
 // thread per (column pair, row) combines its levels in order. Without one,
 // each thread walks and draws its items level by level. Both round every
 // operation alike, so W and Z are the same bits either way.
-template <typename D>
+template <typename D, typename Clock>
 __device__ void descend(const SdeSolveArgs<D>& a, const SdeStepSmem& s,
                         DescentPath& path, int rb, int nrows, float tau,
-                        float span) {
+                        float span, Clock& clock) {
   const int F = a.w.F, P = (F + 1) / 2, depth = a.depth;
   const int items = nrows * P;
   const size_t BF = static_cast<size_t>(a.B) * F;
   const bool buffered = items * (depth + 1) <= descent_buffer(a.w);
-  if (buffered) {
+  if (buffered && kWideSde<D>) {
+    // kernel 10: lane l of warp 0 walks to level l, keeping that level's
+    // cell, and takes its bridge scale, so the 30 square roots run side by
+    // side (the same operations as one thread's walk)
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      float lo = 0.f, hi = 1.f, my_lo = 0.f, my_hi = 1.f;
+      int node = 1, my_node = 1;
+      unsigned int right = 0u;
+      for (int lvl = 0; lvl < depth; ++lvl) {
+        if (lvl == lane) {
+          my_lo = lo;
+          my_hi = hi;
+          my_node = node;
+        }
+        const float m = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+        const bool r = tau >= m;
+        if (r) lo = m; else hi = m;
+        right |= (r ? 1u : 0u) << lvl;
+        node = 2 * node + (r ? 1 : 0);
+      }
+      if (lane < depth) {
+        path.scale[lane + 1] = __fsqrt_rn(
+            __fmul_rn(__fmul_rn(__fadd_rn(my_hi, -my_lo), 0.25f), span));
+        path.node[lane + 1] = 2 * my_node + 2;
+      }
+      if (lane == 0) {
+        path.node[0] = 1;
+        path.right = right;
+        path.lo = lo;
+        path.hi = hi;
+      }
+    }
+  } else if (buffered) {
     if (threadIdx.x == 0) {
       float lo = 0.f, hi = 1.f;
       int node = 1;
@@ -210,13 +264,17 @@ __device__ void descend(const SdeSolveArgs<D>& a, const SdeStepSmem& s,
       path.lo = lo;
       path.hi = hi;
     }
+  }
+  if (buffered) {
     __syncthreads();
+    clock.mark(kPhWalk);
     for (int d = threadIdx.x; d < items * (depth + 1); d += blockDim.x) {
       const int lvl = d / items, item = d - lvl * items;
       const int r = item / P, p = item - r * P;
       s.nrm[d] = pair_normals(a.seed, p, rb * D::rows + r, path.node[lvl]);
     }
     __syncthreads();
+    clock.mark(kPhDraws);
   }
   for (int item = threadIdx.x; item < items; item += blockDim.x) {
     const int r = item / P, p = item - r * P;
@@ -277,8 +335,10 @@ __device__ inline float stage_time(float t, float c, float dt) {
   return __fadd_rn(t, __fmul_rn(c, dt));
 }
 
-// One SRI step of row block rb from time t; returns its Σ residual² to
-// every thread.
+// One SRI step of row block rb from time t; returns its Σ residual² in
+// thread 0, summed as the kernel's first port summed it: kernel 11 as its
+// CTA does (block_sum over its threads), kernel 10's twelve warps as the
+// first port's 64 threads did (one warp emulating them).
 template <typename D, typename Clock>
 __device__ float sri_rows(const SdeSolveArgs<D>& a,
                           const typename D::Shared& w, const SdeStepSmem& s,
@@ -289,6 +349,7 @@ __device__ float sri_rows(const SdeSolveArgs<D>& a,
   const float sqdt = sqrtf(dt);
   const float sqrt3 = LRNDE_F(1.7320508075688772);
   const int RF = D::rows * F;
+  constexpr int PT = kWideSde<D> ? kSdeOldThreads : D::threads;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     s.u[i] = a.u[off + i];
     s.xf[i] = s.u[i];
@@ -353,10 +414,19 @@ __device__ float sri_rows(const SdeSolveArgs<D>& a,
     const float E1 = dt * (k[0] + k[1] + k[2] + k[3]);
     const float res =
         (a.delta * E1 + E2) / (a.atol + fmaxf(fabsf(u), fabsf(un)) * a.rtol);
-    err = fmaf(res, res, err);
+    if constexpr (PT == D::threads)
+      err = fmaf(res, res, err);
+    else
+      s.red[i] = res;
     a.unew[off + i] = un;
   }
-  return block_sum<D::threads>(err, s.red);
+  if constexpr (PT == D::threads) {
+    return block_sum<D::threads>(err, s.red);
+  } else {
+    __syncthreads();
+    return threadIdx.x < 32 ? warp_block_sum_sq<PT>(s.red, n, threadIdx.x)
+                            : 0.f;
+  }
 }
 
 template <typename D, bool kSosri, bool kTime>
@@ -433,7 +503,7 @@ sde_solve_kernel(SdeSolveArgs<D> a) {
     float* const slot = a.slots + (epoch & 1u) * n_blocks;
     for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
       const int nrows = min(R, B - rb * R);
-      descend(a, s, path, rb, nrows, ctl.tau, span);
+      descend(a, s, path, rb, nrows, ctl.tau, span, clock);
       clock.mark(kPhDescent);
       const float err = sri_rows(a, w, s, T, rb, nrows, t, dt_c, clock);
       if (tid == 0) __stcg(slot + rb, err);
@@ -526,10 +596,43 @@ static int launch_sde_solve(int sosri, SdeSolveArgs<D>* a, void* stream) {
 
 // Floats of dynamic shared memory kernel 10 needs per CTA at (F, H).
 extern "C" long long lrnde_sde_solve_smem_floats(int F, int H) {
-  lrnde::SdeWeights w{};
+  lrnde::SdeNet<0, 0> w{};
   w.F = F;
   w.H = H;
   return static_cast<long long>(lrnde::sde_solve_smem_floats(w));
+}
+
+// Threads of a kernel-10 CTA.
+extern "C" int lrnde_sde_solve_threads() { return lrnde::kSdeThreads; }
+
+// Kernel 10's grid for B rows at (F, H): out = (CTAs, CTAs an SM resident
+// at its shared memory), the CTAs looping over the row blocks past the
+// resident ones. Returns the occupancy query's error.
+extern "C" int lrnde_sde_solve_grid(int F, int H, int B, int* out) {
+  using namespace lrnde;
+  SdeNet<0, 0> w{};
+  w.F = F;
+  w.H = H;
+  const size_t smem = sde_solve_smem_floats(w) * sizeof(float);
+  const bool mnist = F == 32 && H == 64;
+  const void* kernel =
+      mnist ? reinterpret_cast<const void*>(
+                  sde_solve_kernel<SdeNet<32, 64>, true, false>)
+            : reinterpret_cast<const void*>(
+                  sde_solve_kernel<SdeNet<0, 0>, true, false>);
+  static size_t granted[2] = {0, 0};
+  cudaError_t err = allow_smem(kernel, smem, &granted[mnist ? 1 : 0]);
+  if (err != cudaSuccess) return err;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kSdeThreads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = min((B + kSdeRows - 1) / kSdeRows, per_sm * n_sm);
+  out[1] = per_sm;
+  return cudaSuccess;
 }
 
 // Kernel 10: the whole adaptive SRI (sosri = 0) or SOSRI (sosri = 1) solve
@@ -537,27 +640,59 @@ extern "C" long long lrnde_sde_solve_smem_floats(int F, int H) {
 // wz0 and wz1 2·B·F each, slots 2·ceil(B / 4), barrier one zeroed unsigned
 // int. rand and res_u (the reservoir) and the four knot buffers may be null.
 // Returns cudaGetLastError().
-extern "C" int lrnde_sde_solve(
-    int sosri, const float* u0, const float* sc, const float* saveat,
-    int n_save, const float* w1, const float* b1, const float* w2,
-    const float* b2, const float* wd, const float* bd, unsigned int seed,
-    int depth, float* u, float* ys, int* stats_i, float* stats_f,
-    float* unew, float* wz0, float* wz1, float* slots, unsigned int* barrier,
-    const float* rand, float* res_u, float* knot_ts, float* knot_us,
-    float* knot_dws, float* knot_dzs, int B, int F, int H, int max_steps,
-    float rtol, float atol, float delta, float inv_n, void* stream) {
-  using namespace lrnde;
+#define LRNDE_SDE_SOLVE_PARAMS                                              \
+  int sosri, const float *u0, const float *sc, const float *saveat,         \
+      int n_save, const float *w1, const float *b1, const float *w2,        \
+      const float *b2, const float *wd, const float *bd, unsigned int seed, \
+      int depth, float *u, float *ys, int *stats_i, float *stats_f,         \
+      float *unew, float *wz0, float *wz1, float *slots,                    \
+      unsigned int *barrier, const float *rand, float *res_u,               \
+      float *knot_ts, float *knot_us, float *knot_dws, float *knot_dzs,     \
+      int B, int F, int H, int max_steps, float rtol, float atol,           \
+      float delta, float inv_n
+#define LRNDE_SDE_SOLVE_ARGS                                                \
+  sosri, u0, sc, saveat, n_save, w1, b1, w2, b2, wd, bd, seed, depth, u,    \
+      ys, stats_i, stats_f, unew, wz0, wz1, slots, barrier, rand, res_u,    \
+      knot_ts, knot_us, knot_dws, knot_dzs, B, F, H, max_steps, rtol, atol, \
+      delta, inv_n
+
+namespace lrnde {
+
+static int sde_solve(LRNDE_SDE_SOLVE_PARAMS, unsigned long long* timing,
+                     void* stream) {
   if ((rand == nullptr) != (res_u == nullptr) || depth < 0 || depth > kMaxDepth)
     return cudaErrorInvalidValue;
-  SdeSolveArgs<SdeWeights> a{
-      u0, sc, saveat, n_save, SdeWeights{w1, b1, w2, b2, wd, bd, F, H}, seed,
-      depth, u, ys, stats_i, stats_f, unew, wz0, wz1, slots, barrier, rand,
-      res_u, knot_ts, knot_us, knot_dws, knot_dzs, nullptr, B, max_steps,
-      rtol, atol, delta, inv_n};
-  return launch_sde_solve(sosri, &a, stream);
+  const SdeWeights w{w1, b1, w2, b2, wd, bd, F, H};
+  auto run = [&](auto net) {
+    using D = decltype(net);
+    SdeSolveArgs<D> a{
+        u0, sc, saveat, n_save, net, seed, depth, u, ys, stats_i, stats_f,
+        unew, wz0, wz1, slots, barrier, rand, res_u, knot_ts, knot_us,
+        knot_dws, knot_dzs, timing, B, max_steps, rtol, atol, delta, inv_n};
+    return timing == nullptr ? launch_sde_solve<D, false>(sosri, &a, stream)
+                             : launch_sde_solve<D, true>(sosri, &a, stream);
+  };
+  // experiments/mnist_sde/mlp.yaml's widths at compile time
+  return F == 32 && H == 64 ? run(SdeNet<32, 64>{w}) : run(SdeNet<0, 0>{w});
 }
 
-// Batch rows per CTA of kernels 6 and 11.
+}  // namespace lrnde
+
+extern "C" int lrnde_sde_solve(LRNDE_SDE_SOLVE_PARAMS, void* stream) {
+  return lrnde::sde_solve(LRNDE_SDE_SOLVE_ARGS, nullptr, stream);
+}
+
+// Kernel 10 with its attempt's phases timed (sde_solve.cu's SdePhase, CTA
+// 0's nanoseconds summed over the attempts, then the attempt count, in
+// timing): a separate instantiation; the untimed kernel carries no clock.
+extern "C" int lrnde_sde_solve_timed(LRNDE_SDE_SOLVE_PARAMS,
+                                     unsigned long long* timing,
+                                     void* stream) {
+  if (timing == nullptr) return cudaErrorInvalidValue;
+  return lrnde::sde_solve(LRNDE_SDE_SOLVE_ARGS, timing, stream);
+}
+
+// Batch rows per CTA of kernel 11.
 extern "C" int lrnde_score_rows_per_block() { return lrnde::kScoreRows; }
 
 // Floats of dynamic shared memory of one kernel-11 CTA for the score

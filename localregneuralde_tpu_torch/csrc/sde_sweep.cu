@@ -121,64 +121,15 @@ __host__ __device__ inline size_t sde_sweep_smem_floats(int F, int H) {
        + 2 * 4 * RH;       // hidden rows and their cotangents per stage
 }
 
-// The CTA: kSwThreads threads in three groups. Each product output is one
-// thread's left-to-right FP32 sum, as in sde.cuh::sde_stage_eval, so the
-// outputs keep their bits at any mapping; the groups only decide who runs
-// which sums at the same time:
-// - the H-wide outputs (the hidden rows, their cotangents) on the first
-//   kSwHidThreads threads, while the F-wide diffusion outputs (g, and the
-//   transposed diffusion dxg) run on the last kSwDiffThreads;
-// - then the drift outputs (k, and the transposed first layer dxf) on all;
-// - the weight-gradient elements of the CTA's partial on all, each
-//   element's K = 4 stages x rows sum unchanged.
-constexpr int kSwHidThreads = 256;   // 8 warps: 4 rows x H = 64 at once
-constexpr int kSwDiffThreads = 128;  // 4 warps: 4 rows x F = 32 at once
-constexpr int kSwThreads = kSwHidThreads + kSwDiffThreads;
-
-// k = drift(xf), g = diffusion(xg) of one stage of the row block, with the
-// hidden rows in hid: sde_stage_eval's sums on the thread groups above.
-__device__ __forceinline__ void sweep_stage_eval(const SdeSmemW& w, int F, int H,
-                                                 const float* xf, const float* xg,
-                                                 float* hid, float* k, float* g,
-                                                 int nrows) {
-  const int tid = threadIdx.x;
-  if (tid < kSwHidThreads) {
-    for (int i = tid; i < nrows * H; i += kSwHidThreads) {
-      const int r = i / H, h = i - r * H;
-      const float* x = xf + r * F;
-      float acc = 0.f;
-      for (int c = 0; c < F; ++c) acc = fmaf(x[c], w.w1[c * (H + 1) + h], acc);
-      hid[i] = tanhf(acc + w.b1[h]);
-    }
-  } else {
-    for (int i = tid - kSwHidThreads; i < nrows * F; i += kSwDiffThreads) {
-      const int r = i / F, j = i - r * F;
-      const float* x = xg + r * F;
-      float acc = 0.f;
-      for (int c = 0; c < F; ++c) acc = fmaf(x[c], w.wd[c * (F + 1) + j], acc);
-      g[i] = acc + w.bd[j];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < nrows * F; i += kSwThreads) {
-    const int r = i / F, j = i - r * F;
-    const float* hr = hid + r * H;
-    float acc = 0.f;
-    for (int h = 0; h < H; ++h) acc = fmaf(hr[h], w.w2[h * (F + 1) + j], acc);
-    k[i] = acc + w.b2[j];
-  }
-  __syncthreads();
-}
-
 // g[i] += Σ_{e < 4, r < nrows} A[e·SA + r·LA + i / ncol] · Bv[e·SB + r·LB +
-// i % ncol] for the gradient elements i ≡ tid (mod kSwThreads), i < n,
+// i % ncol] for the gradient elements i ≡ tid (mod kSdeThreads), i < n,
 // summed in that order (the first port's); two elements at a time, so two
 // independent chains are in flight.
 __device__ __forceinline__ void grad_contract(const float* A, int SA, int LA,
                                      const float* Bv, int SB, int LB, int ncol,
                                      int n, int nrows, float* g) {
-  for (int i = threadIdx.x; i < n; i += 2 * kSwThreads) {
-    const int i2 = i + kSwThreads;
+  for (int i = threadIdx.x; i < n; i += 2 * kSdeThreads) {
+    const int i2 = i + kSdeThreads;
     const bool two = i2 < n;
     const int a1 = i / ncol, b1 = i - a1 * ncol;
     const int a2 = two ? i2 / ncol : a1, b2 = two ? i2 - a2 * ncol : b1;
@@ -198,7 +149,7 @@ __device__ __forceinline__ void grad_contract(const float* A, int SA, int LA,
 // kF, kH > 0: the widths at compile time (the MNIST-SDE width), so the
 // products' loops unroll with immediate offsets; 0: read from the arguments.
 template <bool kSosri, bool kTime, int kF, int kH>
-__global__ void __launch_bounds__(kSwThreads)
+__global__ void __launch_bounds__(kSdeThreads)
 sde_sweep_kernel(SdeSweepArgs a) {
   SdeClock<kTime> clk;
   clk.start();
@@ -230,7 +181,7 @@ sde_sweep_kernel(SdeSweepArgs a) {
   float* dg = dk + 4 * RF;
   float* hid = dg + 4 * RF;  // [4][RH]
   float* dzh = hid + 4 * RH;
-  for (size_t i = tid; i < sde_grad_floats(F, H); i += kSwThreads) gw1[i] = 0.f;
+  for (size_t i = tid; i < sde_grad_floats(F, H); i += kSdeThreads) gw1[i] = 0.f;
   const SriTableau T = sri_tableau(kSosri);
   const float sqrt3 = LRNDE_F(1.7320508075688772);
   const int n_steps = *a.naccept;
@@ -239,12 +190,12 @@ sde_sweep_kernel(SdeSweepArgs a) {
   for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
     const size_t off = static_cast<size_t>(rb) * kSdeRows * F;
     const int nrows = min(kSdeRows, B - rb * kSdeRows), n = nrows * F;
-    for (int i = tid; i < n; i += kSwThreads) a.a_u[off + i] = a.ct_y[off + i];
+    for (int i = tid; i < n; i += kSdeThreads) a.a_u[off + i] = a.ct_y[off + i];
     for (int j = n_steps - 1; j >= 0; --j) {
       const float t = a.knot_ts[j], tn = a.knot_ts[j + 1];
       const float dt = tn - t, sqdt = sqrtf(dt);
       // ---- forward recompute of the step
-      for (int i = tid; i < n; i += kSwThreads) {
+      for (int i = tid; i < n; i += kSdeThreads) {
         const size_t o = j * BF + off + i;
         u[i] = a.knot_us[o];
         dw[i] = a.knot_dws[o];
@@ -253,9 +204,9 @@ sde_sweep_kernel(SdeSweepArgs a) {
         xg[i] = u[i];
       }
       __syncthreads();
-      sweep_stage_eval(w, F, H, xf, xg, hid, k, g, nrows);
+      sde_stage_eval(w, F, H, xf, xg, hid, k, g, nrows);
       for (int e = 1; e < 4; ++e) {
-        for (int i = tid; i < n; i += kSwThreads) {
+        for (int i = tid; i < n; i += kSdeThreads) {
           const float chi2 = (dw[i] + dz[i] / sqrt3) / 2.f;
           float f_in, g_in;
           if (e == 1) {
@@ -277,12 +228,12 @@ sde_sweep_kernel(SdeSweepArgs a) {
           xg[e * RF + i] = g_in;
         }
         __syncthreads();
-        sweep_stage_eval(w, F, H, xf + e * RF, xg + e * RF, hid + e * RH,
+        sde_stage_eval(w, F, H, xf + e * RF, xg + e * RF, hid + e * RH,
                          k + e * RF, g + e * RF, nrows);
       }
       clk.mark(kSdeRecompute);
       // ---- saveat split and the cotangents of the u_new expression
-      for (int i = tid; i < n; i += kSwThreads) {
+      for (int i = tid; i < n; i += kSdeThreads) {
         const size_t o = off + i;
         float d_unew = 0.f, d_int = 0.f;
         for (int q = 0; q < a.n_save; ++q) {
@@ -314,8 +265,8 @@ sde_sweep_kernel(SdeSweepArgs a) {
       for (int e = 3; e >= 0; --e) {
         const float* dke = dk + e * RF;
         const float* dge = dg + e * RF;
-        if (tid < kSwHidThreads) {
-          for (int i = tid; i < nrows * H; i += kSwHidThreads) {
+        if (tid < kSdeHidThreads) {
+          for (int i = tid; i < nrows * H; i += kSdeHidThreads) {
             const int r = i / H, h = i - r * H;
             float acc = 0.f;
             for (int c = 0; c < F; ++c) acc = fmaf(dke[r * F + c], w.w2[h * (F + 1) + c], acc);
@@ -323,7 +274,7 @@ sde_sweep_kernel(SdeSweepArgs a) {
             dzh[e * RH + i] = acc * (1.f - hv * hv);
           }
         } else {
-          for (int i = tid - kSwHidThreads; i < n; i += kSwDiffThreads) {
+          for (int i = tid - kSdeHidThreads; i < n; i += kSdeDiffThreads) {
             const int r = i / F, c = i - r * F;
             float acc = 0.f;
             for (int q = 0; q < F; ++q) acc = fmaf(dge[r * F + q], w.wd[c * (F + 1) + q], acc);
@@ -331,7 +282,7 @@ sde_sweep_kernel(SdeSweepArgs a) {
           }
         }
         __syncthreads();
-        for (int i = tid; i < n; i += kSwThreads) {
+        for (int i = tid; i < n; i += kSdeThreads) {
           const int r = i / F, c = i - r * F;
           const float* dzr = dzh + e * RH + r * H;
           float acc = 0.f;
@@ -339,7 +290,7 @@ sde_sweep_kernel(SdeSweepArgs a) {
           dxf[i] = acc;
         }
         __syncthreads();
-        for (int i = tid; i < n; i += kSwThreads) {
+        for (int i = tid; i < n; i += kSdeThreads) {
           const float xf_ = dxf[i], xg_ = dxg[i];
           du[i] = du[i] + xf_ + xg_;
           if (e == 0) continue;
@@ -355,20 +306,20 @@ sde_sweep_kernel(SdeSweepArgs a) {
         }
         __syncthreads();
       }
-      for (int i = tid; i < n; i += kSwThreads) a.a_u[off + i] = du[i] + dint[i];
+      for (int i = tid; i < n; i += kSdeThreads) a.a_u[off + i] = du[i] + dint[i];
       clk.mark(kSdeReverse);
       // ---- stage-batched weight gradients of this step: every element of
       // the partial on one thread, its K = 4 stages x rows sum as before
       grad_contract(xf, RF, F, dzh, RH, H, H, F * H, nrows, gw1);
       grad_contract(hid, RH, H, dk, RF, F, F, H * F, nrows, gw2);
       grad_contract(xg, RF, F, dg, RF, F, F, F * F, nrows, gwd);
-      for (int i = tid; i < H; i += kSwThreads) {
+      for (int i = tid; i < H; i += kSdeThreads) {
         float acc = 0.f;
         for (int e = 0; e < 4; ++e)
           for (int r = 0; r < nrows; ++r) acc += dzh[e * RH + r * H + i];
         gb1[i] += acc;
       }
-      for (int i = tid; i < F; i += kSwThreads) {
+      for (int i = tid; i < F; i += kSdeThreads) {
         float ak = 0.f, ag = 0.f;
         for (int e = 0; e < 4; ++e)
           for (int r = 0; r < nrows; ++r) {
@@ -383,7 +334,7 @@ sde_sweep_kernel(SdeSweepArgs a) {
     }
   }
   float* out = a.part + blockIdx.x * sde_grad_floats(F, H);
-  for (size_t i = tid; i < sde_grad_floats(F, H); i += kSwThreads) out[i] = gw1[i];
+  for (size_t i = tid; i < sde_grad_floats(F, H); i += kSdeThreads) out[i] = gw1[i];
   clk.mark(kSdePartial);
   clk.write(a.timing, n_steps);
 }
@@ -400,8 +351,8 @@ extern "C" long long lrnde_sde_sweep_smem_floats(int F, int H) {
 }
 
 // Threads of a sweep CTA: the hidden group, then the diffusion group.
-extern "C" int lrnde_sde_sweep_threads() { return lrnde::kSwThreads; }
-extern "C" int lrnde_sde_sweep_hid_threads() { return lrnde::kSwHidThreads; }
+extern "C" int lrnde_sde_sweep_threads() { return lrnde::kSdeThreads; }
+extern "C" int lrnde_sde_sweep_hid_threads() { return lrnde::kSdeHidThreads; }
 
 extern "C" long long lrnde_sde_grad_floats(int F, int H) {
   return static_cast<long long>(lrnde::sde_grad_floats(F, H));
@@ -437,7 +388,7 @@ static int sde_sweep(LRNDE_SDE_SWEEP_PARAMS, unsigned long long* timing,
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = sde_row_blocks(B);
-  kernel<<<grid, kSwThreads, smem, s>>>(a);
+  kernel<<<grid, kSdeThreads, smem, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return reduce_partials(part, grid, sde_grad_floats(F, H), d_w, s);
 }

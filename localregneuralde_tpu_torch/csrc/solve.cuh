@@ -2,19 +2,19 @@
 // controller, the Tsit5 interpolant weights and ONE ATTEMPT of the adaptive
 // loop over the whole batch.
 //
-// The persistent forward solve of persistent.cuh (kernel 6, the probability
-// flow) and the two-level window replay of kernel 8 (replay_window in
+// The two-level window replay of kernel 8 (replay_window in
 // adjoint_sweep.cu, replaying the TD-MLP with the arithmetic of kernel 4)
-// call attempt_eest(), the counterpart of the reference's
+// calls attempt_eest(), the counterpart of the reference's
 // fused_solve.py::run_attempt_tiles, templated on the dynamics type
-// (sweep_cluster.cuh::TDMLPSweep, score.cuh::PfScore). Each row block's
-// squared scaled residuals go into a slot of its own, and every CTA sums
-// the slots in row-block order (ordered_slot_sum, which kernels 4, 5, 9, 10
-// and 11 call too), so the error norm does not depend on the grid size or
-// on which CTA ran which row block. A replay from a checkpoint therefore
-// repeats its forward's accept decisions and dt sequence bitwise. Kernels 5
-// and 9 (the Dense chain) run their own attempt a warp a row
-// (chain_rows.cuh::chain_attempt) on the same barrier, slots and sum.
+// (sweep_cluster.cuh::TDMLPSweep). Each row block's squared scaled
+// residuals go into a slot of its own, and every CTA sums the slots in
+// row-block order (ordered_slot_sum, which kernels 4, 5, 6, 9, 10 and 11
+// call too), so the error norm does not depend on the grid size or on which
+// CTA ran which row block. A replay from a checkpoint therefore repeats its
+// forward's accept decisions and dt sequence bitwise. Kernels 5 and 9 (the
+// Dense chain) run their own attempt a warp a row (chain_rows.cuh::
+// chain_attempt), kernel 6 a warp a group of rows (pf_solve.cu), on the same
+// barrier, slots and sum.
 #pragma once
 
 #include "tdmlp.cuh"

@@ -255,6 +255,32 @@ __device__ inline float block_sum(float v, float* red) {
   return total;
 }
 
+// The sum block_sum<T> formed in a kernel of T threads over a block's n
+// values v (row-major), each thread t holding the fmaf chain of v[i]² over
+// i = t, t + T, ... in increasing i; emulated by the calling warp, lane l
+// holding the chains of threads l + 32m (m < T / 32): the tree's levels s
+// >= 32 in registers (e[m] += e[m + s / 32]), the last five as shuffles,
+// so the same additions in the same order. The sum is in lane 0.
+template <int T>
+__device__ inline float warp_block_sum_sq(const float* v, int n, int lane) {
+  constexpr int M = T / 32;
+  static_assert(M >= 1 && (M & (M - 1)) == 0, "T a power of two, >= 32");
+  float e[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    e[m] = 0.f;
+    for (int i = lane + 32 * m; i < n; i += T) e[m] = fmaf(v[i], v[i], e[m]);
+  }
+#pragma unroll
+  for (int h = M / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int m = 0; m < h; ++m) e[m] = e[m] + e[m + h];
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1)
+    e[0] = e[0] + __shfl_down_sync(0xffffffffu, e[0], s);
+  return e[0];
+}
+
 // Row-block pointers of one Tsit5 step (row-major, stride F). k[0] is the
 // FSAL derivative k1 (read); k[1..6] receive k2..k7. utilde and g6 may be
 // null.

@@ -55,6 +55,10 @@ _SIGNATURES = {
         [_I] + [_P] * 3 + [_I] + [_P] * 6 + [_U, _I] + [_P] * 15 + [_I] * 4
         + [_F] * 4 + [_P]
     ),
+    "lrnde_sde_solve_timed": (
+        [_I] + [_P] * 3 + [_I] + [_P] * 6 + [_U, _I] + [_P] * 15 + [_I] * 4
+        + [_F] * 4 + [_P, _P]
+    ),
     "lrnde_sde_sweep": [_I] + [_P] * 12 + [_I] + [_P] * 5 + [_I] * 3 + [_P],
     "lrnde_sde_sweep_timed": (
         [_I] + [_P] * 12 + [_I] + [_P] * 5 + [_I] * 3 + [_P, _P]
@@ -90,9 +94,19 @@ _SIGNATURES = {
     "lrnde_conv_core": [_I] + [_P] * 5 + [_I] * 5 + [_P],
     "lrnde_slot_sum": [_P, _I, _P, _P],
     "lrnde_persistent_pf": (
-        [_P] * 4 + [_I, _P, _P, _I, _U] + [_F] * 3 + [_P] * 7 + [_I] * 2
+        [_P] * 4 + [_I, _P, _P, _I, _U] + [_F] * 3 + [_P] * 6 + [_I] * 2
         + [_F] * 3 + [_P]
     ),
+    "lrnde_persistent_pf_timed": (
+        [_P] * 4 + [_I, _P, _P, _I, _U] + [_F] * 3 + [_P] * 6 + [_I] * 2
+        + [_F] * 3 + [_P, _P]
+    ),
+    "lrnde_pf_solve_probe": (
+        [_I] + [_P] * 4 + [_I, _P, _P, _I, _U] + [_F] * 3 + [_P] * 6
+        + [_I] * 2 + [_F] * 3 + [_P]
+    ),
+    "lrnde_pf_solve_grid": [_P, _I, _I, _P],
+    "lrnde_sde_solve_grid": [_I, _I, _I, _P],
     "lrnde_conv_orient_tap": [_P] * 3 + [_I] * 5 + [_P],
     "lrnde_conv_orient_im2col": [_P] * 3 + [_I] * 5 + [_P],
 }
@@ -212,11 +226,14 @@ def load_library() -> ctypes.CDLL:
                  "lrnde_chain_error_rows", "lrnde_score_rows_per_block",
                  "lrnde_sde_phases", "lrnde_sweep_phases", "lrnde_solve_phases",
                  "lrnde_sweep_cluster", "lrnde_sweep_rows",
-                 "lrnde_sde_sweep_threads", "lrnde_sde_sweep_hid_threads"):
+                 "lrnde_sde_sweep_threads", "lrnde_sde_sweep_hid_threads",
+                 "lrnde_sde_solve_threads", "lrnde_pf_error_rows",
+                 "lrnde_pf_solve_threads", "lrnde_pf_warp_rows"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     for name in ("lrnde_chain_solve_phase_names",
                  "lrnde_chain_sweep_phase_names",
+                 "lrnde_pf_solve_phase_names",
                  "lrnde_sde_sweep_phase_names"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_char_p

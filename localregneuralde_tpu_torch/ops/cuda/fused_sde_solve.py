@@ -54,8 +54,75 @@ from .fused_solve import (
     check_tensors,
     net_operands,
     reservoir_operands,
+    round4,
     smem_bytes,
 )
+
+
+# csrc/sde.cuh: the rows of a row block (a CTA's unit, one error slot), the
+# CTA of both SDE kernels (twelve warps: the hidden group of a product's
+# H-wide outputs, then the diffusion group), the first port's CTA width
+# whose error partial kernel 10 keeps; the deepest Brownian tree
+# (csrc/sde_solve.cu::kMaxDepth) and the shared memory a block can have on
+# an H100
+SDE_ROWS = 4
+SDE_HID_THREADS, SDE_THREADS = 256, 384
+SDE_OLD_THREADS = 64
+SDE_MAX_DEPTH = 30
+SDE_SMEM_BYTES = 232448
+
+
+class SdeSolvePlan(NamedTuple):
+    """Kernel 10's layout at (B, F, H), as ``csrc/sde_solve.cu`` lays it
+    out: one CTA of ``threads`` a row block of ``rows`` rows, ``grid`` CTAs
+    (at most the resident ones; a CTA then loops over the row blocks
+    ``b ≡ blockIdx (mod grid)``); per attempt the descent's draws of the
+    ``items`` (column pair, row) items spread over every thread when the
+    descent is buffered, one thread an item combining its levels."""
+
+    rows: int
+    n_blocks: int
+    grid: int
+    threads: int
+    hid_threads: int
+    items: int             # (column pair, row) items of a row block
+    buffered: bool         # the descent's draws in shared memory
+    smem_bytes: int
+
+
+def sde_solve_smem_floats(F: int, H: int) -> int:
+    """Floats of a kernel-10 CTA's dynamic shared memory
+    (``csrc/sde_solve.cu::sde_solve_smem_floats``): the weights with rows
+    padded by one float and the hidden rows, the row block's 13 buffers of
+    R·F floats and the reduction's (or the residuals'), then the descent's
+    normals, a float4 each (level, item)."""
+    R = SDE_ROWS
+    weights = F * (H + 1) + H + H * (F + 1) + F + F * (F + 1) + F + R * H
+    items = R * (-(-F // 2))
+    descent = items * (SDE_MAX_DEPTH + 1) if items < SDE_THREADS else 0
+    return (round4(weights + 13 * R * F + max(SDE_THREADS, R * F))
+            + 4 * descent)
+
+
+def sde_solve_plan(B: int, F: int, H: int, resident=None) -> SdeSolvePlan:
+    """Kernel 10's layout for B rows at (F, H); ``resident(smem_bytes)`` is
+    the CTAs the card holds at once at that shared memory (the occupancy
+    query; None: every row block resident). Raises ValueError where a
+    CTA's shared memory exceeds an H100's block."""
+    smem = 4 * sde_solve_smem_floats(F, H)
+    if smem > SDE_SMEM_BYTES:
+        raise ValueError(
+            f"persistent_sde_solve: F={F}, H={H} needs {smem} bytes of "
+            f"shared memory a CTA, over {SDE_SMEM_BYTES} (the weights stay "
+            f"in shared memory)")
+    n_blocks = -(-B // SDE_ROWS)
+    grid = n_blocks if resident is None else min(n_blocks, resident(smem))
+    if grid < 1:
+        raise ValueError(f"persistent_sde_solve: no CTA of {smem} bytes "
+                         f"is resident")
+    items = SDE_ROWS * (-(-F // 2))
+    return SdeSolvePlan(SDE_ROWS, n_blocks, grid, SDE_THREADS,
+                        SDE_HID_THREADS, items, items < SDE_THREADS, smem)
 
 
 class SDEWeights(NamedTuple):
@@ -96,18 +163,6 @@ def check_sde_operands(w: SDEWeights, *states: torch.Tensor) -> tuple:
     if B < 1:
         raise ValueError("empty batch")
     return B, F, H
-
-
-def check_smem(lib, query: str, F: int, H: int) -> None:
-    """Raise if a CTA's shared memory at (F, H) exceeds what an H100 grants
-    a block (227 KB)."""
-    need = getattr(lib, query)(F, H) * 4
-    if need > 232448:
-        raise ValueError(
-            f"F={F}, H={H} needs {need} bytes of shared memory per block; "
-            "the SDE kernels hold the weights in shared memory (at most "
-            "227 KB)"
-        )
 
 
 def persistent_sde_solve_plain(w: SDEWeights, u0, tspan, *, noise, rtol, atol,
@@ -161,22 +216,26 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
     B, F, H = check_sde_operands(w, u0)
     if noise.shape != (B, F):
         raise ValueError(f"noise source of shape {noise.shape}, state {(B, F)}")
+    plan = sde_solve_plan(B, F, H)
     lib = _build.load_library()
-    check_smem(lib, "lrnde_sde_solve_smem_floats", F, H)
+    if (lib.lrnde_sde_rows_per_block(), lib.lrnde_sde_solve_threads(),
+            4 * lib.lrnde_sde_solve_smem_floats(F, H)) != (
+            plan.rows, plan.threads, plan.smem_bytes):
+        raise RuntimeError("persistent_sde_solve: the library's layout "
+                           "differs from sde_solve_plan")
     t0, t_end = float(tspan[0]), float(tspan[1])
     dt_init = initial_dt(u0, drift_plain(w, u0), rtol, atol, t0, t_end)
     sc = device_scalars([t0, t_end, dt_init], u0)
     saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
     n_save = saveat.shape[0]
     dev = u0.device
-    n_blocks = -(-B // lib.lrnde_sde_rows_per_block())
     y_final = torch.empty_like(u0)
     ys = torch.empty((n_save, B, F), device=dev)
     stats_i = torch.empty(4, dtype=torch.int32, device=dev)
     stats_f = torch.empty(2, device=dev)
     unew = torch.empty_like(u0)
     wz = torch.empty((2, 2, B, F), device=dev)
-    slots = torch.empty(2 * n_blocks, device=dev)
+    slots = torch.empty(2 * plan.n_blocks, device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
     rand, res_u = reservoir_operands(reservoir, u0)
     knots = {}

@@ -26,6 +26,10 @@ import torch
 from ...sde.stored_adjoint import autograd_step_vjp, eager_sde_sweep
 from . import _build
 from .fused_sde_solve import (
+    SDE_HID_THREADS,
+    SDE_ROWS,
+    SDE_SMEM_BYTES,
+    SDE_THREADS,
     SDEWeights,
     check_sde_operands,
     diffusion_plain,
@@ -33,11 +37,6 @@ from .fused_sde_solve import (
 )
 
 
-# csrc/sde.cuh::kSdeRows and csrc/sde_sweep.cu::kSwHidThreads, kSwThreads
-SDE_ROWS = 4
-SDE_SWEEP_HID_THREADS, SDE_SWEEP_THREADS = 256, 384
-# shared memory a block can have on an H100
-SDE_SMEM_BYTES = 232448
 
 
 class SdeSweepPlan(NamedTuple):
@@ -73,8 +72,8 @@ def sde_sweep_plan(B: int, F: int, H: int) -> SdeSweepPlan:
             f"persistent_sde_sweep: F={F}, H={H} needs {smem} bytes of "
             f"shared memory a CTA, over {SDE_SMEM_BYTES} (the weights and "
             f"the gradient partial stay in shared memory)")
-    return SdeSweepPlan(R, -(-B // R), SDE_SWEEP_THREADS,
-                        SDE_SWEEP_HID_THREADS, smem, sde_grad_floats(F, H))
+    return SdeSweepPlan(R, -(-B // R), SDE_THREADS, SDE_HID_THREADS, smem,
+                        sde_grad_floats(F, H))
 
 
 def persistent_sde_sweep_plain(w: SDEWeights, knot_ts, knot_us, knot_dws,

@@ -37,7 +37,8 @@ Kernel 6 (``persistent_pf_solve``, ``csrc/pf_solve.cu``) is the same solve
 for the probability-flow ODE of the score sampler, du/dτ = ½β(t)·(u +
 s_θ(u, t)) with t = t1 − τ (the reference's ``persistent_pf_solve``, family
 ``("pfode", ...)``), without knots or reservoir; the score network is
-kernel 11's (``fused_sde_solve.match_td_score_chain``).
+kernel 11's (``fused_sde_solve.match_td_score_chain``), evaluated a warp a
+group of ``PF_WARP_ROWS`` rows (``pf_plan`` models its grid).
 """
 from __future__ import annotations
 
@@ -754,6 +755,67 @@ persistent_chain_solve.launches = 0
 # ---------------------------------------------------------------------------
 # kernel 6: the probability-flow ODE of the score sampler
 
+# csrc/pf_solve.cu: the rows of an error block (one slot of the error norm,
+# the first port's CTA), the first port's CTA width whose block sum the
+# error partial keeps, the rows a warp carries (score_rows.cuh::
+# kScoreWarpRows), the warps of a CTA and the most error blocks a CTA takes
+PF_ERROR_ROWS = 8
+PF_OLD_THREADS = 128
+PF_WARP_ROWS = 4
+PF_WARPS = 8
+PF_THREADS = 32 * PF_WARPS
+PF_MAX_J = 128
+# streaming multiprocessors of an H100 SXM
+H100_SMS = 132
+
+
+class PfPlan(NamedTuple):
+    """The grid of kernel 6 at B rows, as ``csrc/pf_solve.cu::pf_grid``
+    computes it: CTAs of ``PF_WARPS`` warps, CTA g owning the J error blocks
+    from g·J, warp w of it the 4-row groups q ≡ w (mod ``PF_WARPS``) of
+    them (group q: block q // 2, rows 4·(q % 2) ... of it)."""
+
+    J: int                 # error blocks a CTA
+    grid: int              # CTAs
+    blocks: tuple          # per CTA: its error blocks (first, count)
+    threads: int
+    smem_bytes: int        # dynamic shared memory of a CTA
+
+
+def pf_smem_floats(dims, J: int) -> int:
+    """A kernel-6 CTA's dynamic shared memory (floats) at J error blocks:
+    the network (W_lᵀ with rows of ``vec_ld(d_l)`` floats, the time row and
+    the bias, each padded to 4; ``csrc/score_rows.cuh::score_layout``), each
+    warp's stage-input rows (padded to 4) and two activation buffers (rows
+    of ``vec_ld`` of the widest layer), the blocks' state (u, k1..k7, u_new)
+    and scaled residuals."""
+    L, F = len(dims) - 1, dims[0]
+    net = sum(dims[l + 1] * vec_ld(dims[l]) + 2 * round4(dims[l + 1])
+              for l in range(L))
+    warps = PF_WARPS * PF_WARP_ROWS * (round4(F) + 2 * vec_ld(max(dims)))
+    return net + warps + J * 10 * PF_ERROR_ROWS * F
+
+
+def pf_plan(B: int, dims, resident, n_sm: int = H100_SMS) -> PfPlan:
+    """The grid of kernel 6 for B rows: J error blocks a CTA, the least
+    that keeps the grid within one CTA an SM (fewer grid arrivals an
+    attempt), raised until every CTA is resident at once, where
+    ``resident(smem_bytes)`` is the CTAs the card holds at that shared
+    memory (the occupancy query). Raises ValueError where no J up to
+    ``PF_MAX_J`` fits."""
+    n_blk = -(-B // PF_ERROR_ROWS)
+    for J in range(max(1, -(-n_blk // n_sm)), PF_MAX_J + 1):
+        smem = 4 * pf_smem_floats(dims, J)
+        if smem > CHAIN_SMEM_BYTES or resident(smem) <= 0:
+            break
+        grid = -(-n_blk // J)
+        if grid <= resident(smem):
+            blocks = tuple((g * J, min(J, n_blk - g * J))
+                           for g in range(grid))
+            return PfPlan(J, grid, blocks, PF_THREADS, smem)
+    raise ValueError(f"score chain {tuple(dims)}: B = {B} does not fit the "
+                     f"resident CTAs of kernel 6")
+
 
 def pf_dynamics(params, chain, beta_min, beta_max, t1):
     """Kernel 6's dynamics on the τ clock, ``f(u, τ)``: with t = t1 − τ and
@@ -807,6 +869,13 @@ def persistent_pf_solve(params, chain, u0: torch.Tensor, tspan, *,
     B, F = check_score_operands(params, chain, u0,
                                 "lrnde_pf_solve_smem_floats")
     lib = _build.load_library()
+    if (lib.lrnde_pf_error_rows(), lib.lrnde_pf_solve_threads(),
+            lib.lrnde_pf_warp_rows(),
+            smem_bytes(chain.dims, "lrnde_pf_solve_smem_floats")) != (
+            PF_ERROR_ROWS, PF_THREADS, PF_WARP_ROWS,
+            4 * pf_smem_floats(chain.dims, 1)):
+        raise RuntimeError("persistent_pf_solve: the library's layout "
+                           "differs from pf_plan's")
     t0, t_end = float(tspan[0]), float(tspan[1])
     k1_0, dt_init, nfe0 = _start(
         pf_dynamics(params, chain, beta_min, beta_max, t1), u0, t0, t_end,
@@ -814,22 +883,21 @@ def persistent_pf_solve(params, chain, u0: torch.Tensor, tspan, *,
     sc = device_scalars([t0, t_end, dt_init], u0)
     saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
     n_save = saveat.shape[0]
-    n_blocks = -(-B // lib.lrnde_score_rows_per_block())
+    n_blocks = -(-B // PF_ERROR_ROWS)
     dev = u0.device
     y_final = torch.empty_like(u0)
     ys = torch.empty((n_save, B, F), dtype=torch.float32, device=dev)
     stats_i = torch.empty(4, dtype=torch.int32, device=dev)
     stats_f = torch.empty(1, dtype=torch.float32, device=dev)
-    scratch = torch.empty((8, B, F), dtype=torch.float32, device=dev)
     slots = torch.empty(2 * n_blocks, dtype=torch.float32, device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
     p = _build.ptr
     err = lib.lrnde_persistent_pf(
         p(u0), p(k1_0), p(sc), p(saveat), n_save,
         *score_operands(params, chain, beta_min, beta_max, t1),
-        p(y_final), p(ys), p(stats_i), p(stats_f), p(scratch), p(slots),
-        p(barrier), B, int(max_steps), float(rtol), float(atol),
-        1.0 / float(B * F), _build.stream_ptr(dev),
+        p(y_final), p(ys), p(stats_i), p(stats_f), p(slots), p(barrier), B,
+        int(max_steps), float(rtol), float(atol), 1.0 / float(B * F),
+        _build.stream_ptr(dev),
     )
     _build.check(lib, err, "persistent_pf_solve")
     persistent_pf_solve.launches += 1

@@ -249,7 +249,7 @@ def _sde_kw(device, batch, features=32, **extra):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [8, 13, 512])
+@pytest.mark.parametrize("batch", [8, 13, 512, 1000])
 def test_sde_solve_matches_plain_on_card(cuda_device, batch):
     # the uniforms are bitwise the plain version's; the normals differ by
     # the inverse CDF's logf in the tails and the products by their FP32
@@ -277,6 +277,70 @@ def test_sde_solve_matches_plain_on_card(cuda_device, batch):
     assert torch.equal(out["knot_us"][j], out["reservoir_u"])
     assert float(ts[0]) == 0.0 and float(ts[n]) == 1.0
     assert torch.equal(out["knot_us"][n], out["y_final"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("features, hidden", [(13, 40), (33, 70)])
+def test_sde_solve_odd_widths_on_card(cuda_device, features, hidden):
+    # kernel 10's generic instantiation (widths read at run time) against
+    # the eager loop, with the library's layout against sde_solve_plan
+    import ctypes
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        _build, persistent_sde_solve, persistent_sde_solve_plain,
+    )
+    from localregneuralde_tpu_torch.ops.cuda.fused_sde_solve import (
+        sde_solve_plan,
+    )
+
+    lib = _build.load_library()
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    out = (ctypes.c_int * 2)()
+    op = ctypes.cast(out, ctypes.c_void_p)
+    for B in (7, 410, 4096):
+        assert lib.lrnde_sde_solve_grid(features, hidden, B, op) == 0
+        plan = sde_solve_plan(B, features, hidden,
+                              lambda smem: out[1] * n_sm)
+        assert out[0] == plan.grid
+    assert 4 * lib.lrnde_sde_solve_smem_floats(features, hidden) == (
+        plan.smem_bytes)
+    w, x = _sde_setup(cuda_device, 37, features=features, hidden=hidden)
+    kw = _sde_kw(cuda_device, 37, features=features, record_knots=True)
+    got = persistent_sde_solve(w, x, (0.0, 1.0), **kw)
+    ref = persistent_sde_solve_plain(w, x, (0.0, 1.0), **kw)
+    assert bool(got["success"]) and bool(ref["success"])
+    assert abs(int(got["naccept"]) - int(ref["naccept"])) <= 1
+    if int(got["natt"]) == int(ref["natt"]):
+        torch.testing.assert_close(got["ys"], ref["ys"], atol=1e-3, rtol=0)
+    again = persistent_sde_solve(w, x, (0.0, 1.0), **kw)
+    assert torch.equal(got["ys"], again["ys"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("features, hidden", [(32, 64), (13, 40)])
+def test_sde_solve_grid_matches_plan_on_card(cuda_device, features, hidden):
+    # kernel 10's grid at the resident CTAs the card reports, against
+    # sde_solve_plan at the batches of tests/test_torch_sde_solve_plan.py
+    import ctypes
+
+    from localregneuralde_tpu_torch.ops.cuda import _build
+    from localregneuralde_tpu_torch.ops.cuda.fused_sde_solve import (
+        SDE_THREADS, sde_solve_plan,
+    )
+
+    lib = _build.load_library()
+    assert lib.lrnde_sde_solve_threads() == SDE_THREADS
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    out = (ctypes.c_int * 2)()
+    op = ctypes.cast(out, ctypes.c_void_p)
+    for B in (7, 13, 410, 512, 1000, 4096):
+        assert lib.lrnde_sde_solve_grid(features, hidden, B, op) == 0
+        assert out[1] >= 1
+        plan = sde_solve_plan(B, features, hidden,
+                              lambda smem: out[1] * n_sm)
+        assert out[0] == plan.grid
+        assert plan.smem_bytes == 4 * lib.lrnde_sde_solve_smem_floats(
+            features, hidden)
 
 
 @pytest.mark.cuda
@@ -889,6 +953,106 @@ def test_pf_solve_matches_plain_on_card(cuda_device):
     again = persistent_pf_solve(params, chain, x, (0.0, 0.999), **kw)
     assert torch.equal(out["ys"], again["ys"])
     assert int(out["nfe"]) == int(again["nfe"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [4096, 1001])
+def test_pf_solve_at_batches_on_card(cuda_device, batch):
+    # kernel 6 at the score demo's batch and a ragged one (a last 8-row
+    # block of one row, a last 4-row group of one): within one accept and
+    # 5e-5 of the largest value of the eager loop, bitwise from run to run
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_pf_solve, persistent_pf_solve_plain,
+    )
+
+    params, chain, x = _score_setup(cuda_device, batch)
+    kw = dict(rtol=1e-4, atol=1e-6, max_steps=512,
+              saveat_arr=torch.tensor([0.5, 0.999], device=cuda_device),
+              **SCHEDULE)
+    out = persistent_pf_solve(params, chain, x, (0.0, 0.999), **kw)
+    ref = persistent_pf_solve_plain(params, chain, x, (0.0, 0.999), **kw)
+    assert bool(out["success"]) and bool(ref["success"])
+    assert abs(int(out["naccept"]) - int(ref["naccept"])) <= 1
+    assert _rel(out["ys"], ref["ys"]) <= 5e-5
+    again = persistent_pf_solve(params, chain, x, (0.0, 0.999), **kw)
+    assert torch.equal(out["ys"], again["ys"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("features, hidden", [(3, 13), (5, 70)])
+def test_pf_solve_odd_widths_on_card(cuda_device, features, hidden):
+    # kernel 6 at widths the demo does not have: a layer narrower than 32
+    # outputs (a lane an output, and the last layer a lane a (row,
+    # output)) and one wider than 64 (three outputs a lane)
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_pf_solve, persistent_pf_solve_plain,
+    )
+
+    params, chain, x = _score_setup(cuda_device, 45, features=features,
+                                    hidden=hidden)
+    kw = dict(rtol=1e-4, atol=1e-6, max_steps=512,
+              saveat_arr=torch.tensor([0.999], device=cuda_device),
+              **SCHEDULE)
+    out = persistent_pf_solve(params, chain, x, (0.0, 0.999), **kw)
+    ref = persistent_pf_solve_plain(params, chain, x, (0.0, 0.999), **kw)
+    assert bool(out["success"]) and bool(ref["success"])
+    assert abs(int(out["naccept"]) - int(ref["naccept"])) <= 1
+    assert _rel(out["ys"], ref["ys"]) <= 5e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(2, 64, 64, 2), (3, 13, 13, 3),
+                                  (5, 70, 5)])
+def test_pf_grid_matches_plan_on_card(cuda_device, dims):
+    # kernel 6's shared memory and grid against pf_plan's model, one CTA
+    # an SM being resident at these sizes
+    import ctypes
+
+    from localregneuralde_tpu_torch.ops.cuda import _build
+    from localregneuralde_tpu_torch.ops.cuda.fused_solve import (
+        PF_THREADS, pf_plan, pf_smem_floats,
+    )
+
+    lib = _build.load_library()
+    assert lib.lrnde_pf_solve_threads() == PF_THREADS
+    L = len(dims) - 1
+    arr = (ctypes.c_int * (L + 1))(*dims)
+    dp = ctypes.cast(arr, ctypes.c_void_p)
+    assert lib.lrnde_pf_solve_smem_floats(dp, L) == pf_smem_floats(dims, 1)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    out = (ctypes.c_int * 2)()
+    op = ctypes.cast(out, ctypes.c_void_p)
+    for B in (7, 13, 410, 512, 1000, 4096):
+        assert lib.lrnde_pf_solve_grid(dp, L, B, op) == 0
+        plan = pf_plan(B, dims, lambda smem: n_sm, n_sm)
+        assert (out[0], out[1]) == (plan.J, plan.grid)
+
+
+@pytest.mark.cuda
+def test_attribution_clocks_bitwise_on_card(cuda_device):
+    # the clocked instantiations of kernels 10 and 6 (chip_smoke.py's [sde
+    # solve attribution] and [pf solve attribution]) against their untimed
+    # kernels: the same outputs, knots and attempt counts, bitwise
+    import chip_smoke
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_pf_solve, persistent_sde_solve,
+    )
+
+    w, x = _sde_setup(cuda_device, 512)
+    kw = _sde_kw(cuda_device, 512, record_knots=True)
+    ref = persistent_sde_solve(w, x, (0.0, 1.0), **kw)
+    assert chip_smoke.phase_sde_solve_attribution(w, x, kw, ref, runs=1) > 0
+    params, chain, u0 = _score_setup(cuda_device, 4096)
+    saveat = torch.tensor([0.999], device=cuda_device)
+    pkw = dict(rtol=1e-4, atol=1e-6, max_steps=chip_smoke.SCORE_MAX_STEPS,
+               saveat_arr=saveat, **SCHEDULE)
+    ref = persistent_pf_solve(params, chain, u0, (0.0, 0.999), **pkw)
+    split = chip_smoke.phase_pf_solve_attribution(
+        params, chain, u0, (0.0, 0.999), saveat, SCHEDULE, ref, runs=1)
+    assert sum(split.values()) > 0
+    # kernel 6's other layouts keep the bits too
+    chip_smoke.phase_pf_probe(params, chain, u0, (0.0, 0.999), saveat,
+                              SCHEDULE, ref)
 
 
 @pytest.mark.cuda
