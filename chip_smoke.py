@@ -82,7 +82,7 @@ on the card:
 
 Beside those: each persistent kernel's outputs (kernels 4 at both
 tolerances, 5, 6, 8's replay and its gradients, 9, 10, 11 and 12, and
-kernels 13 and 14) are hashed with SHA-256 and held against ``DIGESTS``,
+kernels 1, 2, 13 and 14) are hashed with SHA-256 and held against ``DIGESTS``,
 the digests of the kernels before their redesign for the H100 (or, where
 a redesign changed a sum's order on purpose, after it), so a kernel change
 that keeps them is bitwise the old kernel;
@@ -106,7 +106,11 @@ are split into their phases by instantiations with a compile-time clock
 (``[vpsde attribution]``, ``[solve attribution]``, ``[sweep
 attribution]``, ``[chain solve attribution]``, ``[chain sweep
 attribution]``, ``[sde solve attribution]``, ``[pf solve attribution]``),
-kernel 6 runs in each layout of its probe (``[pf probe]``), and kernels
+kernel 6 runs in each layout of its probe (``[pf probe]``), kernel 4's
+first attempt is held bitwise against kernels 1 and 2 on the same state
+(``[solve cluster]``), kernel 2's step is split into its phases
+(``[tdmlp attribution]``) and both kernels' grids are timed (``[tdmlp
+probe]``), and kernels
 10 and 11 print their bound with and without the Brownian tree's draws
 (the kernels line takes the one with them); kernel 3 is held against
 the float64 VJP beside the FP32 plain one (``[step_bwd fp64]``), and
@@ -124,8 +128,9 @@ MNIST-SDE train steps (``[sde train ...]``) and ``cifar`` the CIFAR-10
 serving and training paths (``[cifar ...]``).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
-kernel, the latent encoder's share of the latent train step, and the CIFAR
-train step's kernels.
+kernel, the ``mlp.yaml`` serving batch by part (``[profile serve]``), the
+latent encoder's share of the latent train step, and the CIFAR train
+step's kernels.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound. A bound is
@@ -402,8 +407,15 @@ def conv_role(name, seen):
 # on its Hopper redesign, whose BatchNorm statistics come from the convs'
 # tile moments (a new order): "K13 train" and "K13 eval batch" (and "K14",
 # whose recompute is kernel 13's forward) new, "K13 eval" (the running
-# stats, no statistics) bitwise the first port's.
+# stats, no statistics) bitwise the first port's. "K1" (kernel 1 at B = 512
+# and 410, s = 0 and 0.3) and "K2" (kernel 2's nine outputs at B = 512 and
+# 410, t = 0.2, dt = 0.05, from kernel 1's k1) are taken on the first ports
+# and hold through their cluster redesign.
 DIGESTS = {
+    "K1":
+        "a54e79251265007d0f4ae5849a5a03985be719f3e334dcbacdf718e01035aa65",
+    "K2":
+        "60dd02473c7d3b05e83524d341f72a27056f05a6fbfb8724d79c8b46ae07b67b",
     "K4 mlp.yaml":
         "e44871cbccc65b5feb83750178380cfcdbac0317ef585369813d08c465a56029",
     "K4 bench":
@@ -465,12 +477,13 @@ K13_STATS_FP64_BEFORE = (5.064e-7, 4.848e-7)
 # Hopper redesign: the redesign may at most double it.
 K12_FP64_BEFORE = 4.438e-7
 # Device ms per call back to back of kernels 13 (training, eval with the
-# running stats), 14, 12, 10 and 6 before their Hopper redesign, measured by
-# this script's [conv attribution], [sde sweep], [sde solve] and [pf solve]
-# (the last two as raw launches) on the parent tree (NVIDIA H100 80GB HBM3,
-# 700 W), printed beside this run's.
+# running stats), 14, 12, 10, 6, 1 and 2 before their Hopper redesign,
+# measured by this script's [conv attribution], [sde sweep], [sde solve],
+# [pf solve] and [kernel ...] (the last four as raw launches) on the parent
+# tree (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's.
 PARENT_MS = {"K13 train": 1.2836, "K13 eval": 1.0128, "K14": 3.7444,
-             "K12": 1.908, "K10": 0.9097, "K6": 0.9225}
+             "K12": 1.908, "K10": 0.9097, "K6": 0.9225, "K1": 0.0349,
+             "K2": 0.2169}
 # Rows of kernel 6's error blocks (the slots of its error norm)
 PF_ERROR_ROWS = 8
 DIGEST_KEYS = ("y_final", "ys", "naccept", "nreject", "natt")
@@ -547,12 +560,14 @@ def phase_kernels(device):
     err = max_abs(fused_tdmlp(w, x, 0.3), tdmlp_plain(w, x, 0.3))
     check(err <= 1e-4, f"tdmlp vs plain: max-abs {err}")
     raw = raw_launch("lrnde_tdmlp", x, torch.tensor([0.3], device=device),
-                     *w, torch.empty_like(x), B, F, H)
+                     *w, torch.empty_like(x), B, F, H, 0)
     check(raw() == 0, "tdmlp: raw launch failed")
     ms, plain = back_to_back_ms([raw, lambda: tdmlp_plain(w, x, 0.3)])
     call, = median_ms([lambda: fused_tdmlp(w, x, 0.3)])
     res["tdmlp"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, call_ms=call,
                         **bound(tdmlp_flops(), 8 * B * F + tdmlp_weight_bytes()))
+    digest("K1", *[fused_tdmlp(w, x[:b], s) for b in (B, 410)
+                   for s in (0.0, 0.3)])
 
     # kernel 2 — all nine outputs
     t = torch.tensor(0.2, device=device)
@@ -562,8 +577,10 @@ def phase_kernels(device):
         fused_tsit5_step(w, x, t, dt, k1), tsit5_step_plain(w, x, t, dt, k1)
     ))
     check(err <= 1e-4, f"tsit5_step vs plain: max-abs {err}")
-    raw = raw_launch("lrnde_tsit5_step", x, k1, torch.stack([t, dt]), *w,
-                     *[torch.empty_like(x) for _ in range(9)], B, F, H)
+    # the digest's k1 is kernel 1's (held by "K1"), as on the main path
+    digest("K2", *[o for b in (B, 410) for o in fused_tsit5_step(
+        w, x[:b], t, dt, fused_tdmlp(w, x[:b], t))])
+    raw = raw_launch("lrnde_tsit5_step", *step_raw_args(w, x, k1, t, dt))
     check(raw() == 0, "tsit5_step: raw launch failed")
     ms, plain = back_to_back_ms([raw, lambda: tsit5_step_plain(w, x, t, dt, k1)])
     call, = median_ms([lambda: fused_tsit5_step(w, x, t, dt, k1)])
@@ -621,8 +638,29 @@ def phase_kernels(device):
     for name, r in res.items():
         print(f"[kernel {name}] max-abs {r['max_abs_err']:.3e} | device "
               f"time per launch {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
-              f" | one wrapper call {r.pop('call_ms'):.4f} ms")
+              f" | one wrapper call {r['call_ms']:.4f} ms"
+              + (f" (parent {PARENT_MS[k]:.4f} ms)" if (
+                  k := {"tdmlp": "K1", "tsit5_step": "K2"}.get(name))
+                 else ""))
+    res["persistent_tsit5_solve"].pop("call_ms")
     return w, x, res
+
+
+def step_raw_args(w, x, k1, t, dt, rows=0, timing=None):
+    """The operands of a raw ``lrnde_tsit5_step`` launch (kernel 2) from
+    (x, t) with step dt, fresh outputs and scratch: ``rows`` rows a
+    cluster (0: the wrapper's grid), ``timing`` the clocked
+    instantiation's counters (None: the untimed kernel)."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda.fused_solve import eval_layout
+
+    b = x.shape[0]
+    plan = eval_layout(b, F, H)[1]
+    return (x, k1, torch.stack([t, dt]), *w,
+            *[torch.empty_like(x) for _ in range(9)],
+            torch.empty(plan.scratch_floats, device=x.device), b, F, H, rows,
+            timing)
 
 
 def phase_determinism(w, x):
@@ -656,8 +694,9 @@ def _slice_model(overrides, device, params=None):
     return model, make_eval_step(model, loss_fn), create_train_state(model), w_reg(1)
 
 
-def phase_slice(device):
-    """The serving path at both tolerances, with launch counts."""
+def phase_slice(device, profile=False):
+    """The serving path at both tolerances, with launch counts; with
+    ``profile`` the mlp.yaml batch by part (``_profile_serve``)."""
     import torch
 
     from localregneuralde_tpu_torch.harness import (
@@ -746,14 +785,93 @@ def phase_slice(device):
         print(f"[slice {name}] 8 images, card kernels vs CPU plain: "
               f"logits max-abs {err:.3e}")
         check(err <= 1e-4, f"slice {name}: card disagrees with the CPU")
+    if profile:
+        _profile_serve(runs[0], batches)
     return counts
 
 
+def _profile_serve(run, batches, rounds=10):
+    """The mlp.yaml serving batch by part. Host clocks, each part ending
+    in a synchronise, ``rounds`` rounds in turns (min / median / max): the
+    whole eval step; the solve's wrapper call alone; its start (k1_0 and
+    the Hairer probe: kernel 1 twice and the small torch ops around it).
+    Then three batches under torch.profiler: the device time of kernel 4,
+    of kernel 1 and of every other device operation (count and time), and
+    the rest of the batch's wall time, which the host spends."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_solve, fused_tdmlp, persistent_tsit5_solve,
+    )
+
+    name, _, model, step, ts, w_reg, _ = run
+    node = model.neural_ode
+    w = node.tdmlp_weights()
+    x, y = batches[0]
+    u0 = x.reshape(B, F).contiguous()
+    kw = dict(rtol=node.rtol, atol=node.atol, max_steps=node.max_steps,
+              saveat_arr=torch.tensor([node.tspan[1]], device=x.device))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    parts = {
+        "eval step": lambda: step(ts, (x, y), w_reg),
+        "solve call": lambda: persistent_tsit5_solve(w, u0, node.tspan, **kw),
+        "start": lambda: fused_solve._start(
+            lambda u, t: fused_tdmlp(w, u, t), u0, node.tspan[0],
+            node.tspan[1], node.rtol, node.atol),
+    }
+    times = {k: [] for k in parts}
+    for _ in range(rounds):
+        for k, fn in parts.items():
+            times[k].append(timed(fn))
+    spread = {k: "{:.3f} / {:.3f} / {:.3f}".format(
+        min(v), statistics.median(v), max(v)) for k, v in times.items()}
+    print(f"[profile serve {name}] host ms, {rounds} rounds in turns, min / "
+          f"median / max: {spread}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3):
+            step(ts, batches[i], w_reg)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / 3
+    groups = {"kernel 4": [0.0, 0.0], "kernel 1": [0.0, 0.0],
+              "other device ops": [0.0, 0.0]}
+    rows = []
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.device_time_total <= 0):
+            continue
+        ms, cnt = e.device_time_total / 1e3 / 3, e.count / 3
+        g = ("kernel 4" if "cluster_solve_kernel" in e.key
+             else "kernel 1" if "tdmlp" in e.key else "other device ops")
+        groups[g][0] += ms
+        groups[g][1] += cnt
+        rows.append((ms, cnt, e.key))
+    busy = sum(v[0] for v in groups.values())
+    print(f"[profile serve {name}] {wall:.3f} ms a batch under the profiler; "
+          + "; ".join(f"{g} {v[0]:.4f} ms x{v[1]:.1f}"
+                      for g, v in groups.items())
+          + f"; host beyond the device {wall - busy:.3f} ms")
+    for ms, cnt, key in sorted(rows, reverse=True)[:12]:
+        print(f"[profile serve {name}]   {1e3 * ms:9.2f} µs  x{cnt:5.1f}  "
+              f"{key[:90]}")
+
+
 def phase_solve_cluster(w, x):
-    """Kernel 4's cluster layout, and its pieces bitwise the kernels whose
-    arithmetic it keeps: one cluster evaluation (``solve_eval``) against
-    kernel 1, at full and ragged B, and one attempt against kernel 2's
-    step."""
+    """Kernel 4's cluster layout, and kernels 1 and 2 on it against kernel
+    4's own arithmetic, at B = 512 and 410: one attempt of kernel 4
+    (max_steps 1, from the wrapper's own start) against kernel 2's step
+    from the same state, u_new and k2..k7 bitwise (kernel 4's buffers read
+    from its scratch through ``fused_solve.segment_index``); and kernel 1
+    at (u_new, dt) bitwise kernel 4's k7, the attempt's last evaluation."""
     import torch
 
     from localregneuralde_tpu_torch.ops.cuda import (
@@ -768,27 +886,116 @@ def phase_solve_cluster(w, x):
           f"resident for {len(plan.row_blocks)} row blocks of {plan.rows}; "
           f"weight slices in shared memory {plan.weights_shared}; "
           f"{plan.smem_bytes} B of shared memory a CTA")
-    for b in (B, 410):
-        for s in (0.0, 0.3):
-            ours = fused_solve.solve_eval(w, x[:b], s)
-            check(torch.equal(ours, fused_tdmlp(w, x[:b], s)),
-                  f"the cluster evaluation differs from kernel 1 (B = {b}, "
-                  f"s = {s}): max-abs {max_abs(ours, fused_tdmlp(w, x[:b], s))}")
-    # one attempt (max_steps 1) from the wrapper's own start
     tol, span = 1e-4, 1.0
-    k1_0, dt0, _ = fused_solve._start(lambda u, t: fused_tdmlp(w, u, t), x,
-                                      0.0, span, tol, tol)
-    one = fused_solve._launch_solve(
-        w, x, (0.0, span), rtol=tol, atol=tol, max_steps=1,
-        saveat_arr=torch.tensor([span], device=x.device))
-    unew = fused_tsit5_step(w, x, torch.zeros((), device=x.device), dt0,
-                            k1_0)[0]
-    check(int(one["naccept"]) == 1, "the first attempt was rejected")
-    check(torch.equal(one["y_final"], unew),
-          f"kernel 4's first step differs from kernel 2's: max-abs "
-          f"{max_abs(one['y_final'], unew)}")
-    print("[solve cluster] one evaluation bitwise kernel 1 (B = 512, 410); "
-          "one accepted attempt bitwise kernel 2's step")
+    idx = fused_solve.segment_index(F).to(x.device)
+    for b in (B, 410):
+        xb = x[:b].contiguous()
+        k1_0, dt0, _ = fused_solve._start(lambda u, t: fused_tdmlp(w, u, t),
+                                          xb, 0.0, span, tol, tol)
+        scratch = torch.empty(fused_solve.solve_plan(b, F, H).scratch_floats,
+                              device=x.device)
+        one = fused_solve._launch_solve(
+            w, xb, (0.0, span), rtol=tol, atol=tol, max_steps=1,
+            saveat_arr=torch.tensor([span], device=x.device), scratch=scratch)
+        check(int(one["naccept"]) == 1, "the first attempt was rejected")
+        # u, u_new, k1..k7 of the attempt, row-major
+        bufs = scratch.view(9, b, -1)[:, :, idx]
+        check(torch.equal(bufs[0], xb) and torch.equal(bufs[2], k1_0)
+              and torch.equal(bufs[1], one["y_final"]),
+              f"kernel 4's scratch is not in the segment layout (B = {b})")
+        step = fused_tsit5_step(w, xb, torch.zeros((), device=x.device), dt0,
+                                k1_0)
+        check(torch.equal(one["y_final"], step[0]),
+              f"kernel 4's first step differs from kernel 2's (B = {b}): "
+              f"max-abs {max_abs(one['y_final'], step[0])}")
+        for j in range(6):
+            check(torch.equal(bufs[3 + j], step[2 + j]),
+                  f"k{j + 2} of kernel 4's attempt differs from kernel 2's "
+                  f"(B = {b}): max-abs {max_abs(bufs[3 + j], step[2 + j])}")
+        k7 = fused_tdmlp(w, one["y_final"], dt0)
+        check(torch.equal(k7, bufs[8]),
+              f"kernel 1 differs from kernel 4's evaluation (B = {b}): "
+              f"max-abs {max_abs(k7, bufs[8])}")
+    print("[solve cluster] B = 512, 410: kernel 4's first attempt bitwise "
+          "kernel 2's step (u_new, k2..k7); kernel 1 at (u_new, dt) bitwise "
+          "kernel 4's k7")
+
+
+# kernel 2's step by phase (lrnde_step_phases), in order
+STEP_PHASES = (*[f"input {i}" for i in range(2, 8)],
+               *[f"product1 {i}" for i in range(2, 8)],
+               *[f"hidden {i}" for i in range(2, 8)],
+               *[f"product2 {i}" for i in range(2, 8)],
+               "weights", "layout in", "layout out")
+def phase_tdmlp_attribution(w, x, runs=3):
+    """Kernels 1 and 2 on their clusters at the mlp.yaml width: their grids
+    (``eval_plan``, checked against the library) at B = 512 and 410;
+    kernel 2's step by phase from the clocked instantiation (CTA 0's
+    %globaltimer, the mean of ``runs`` launches), bitwise its untimed self;
+    then the grid probe (the rows that fill the resident clusters against
+    40 a cluster) of both kernels, each bitwise the wrapper's result,
+    device ms per launch back to back."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_tdmlp, fused_tsit5_step,
+    )
+    from localregneuralde_tpu_torch.ops.cuda.fused_solve import eval_layout
+
+    lib = _build_lib()
+    check(lib.lrnde_step_phases() == len(STEP_PHASES),
+          "the step kernel's phases are not STEP_PHASES")
+    for b in (B, 410):
+        plan = eval_layout(b, F, H)[1]
+        print(f"[tdmlp attribution] B = {b}: {plan.clusters} clusters of "
+              f"{plan.cluster} CTAs, {plan.rows} rows a cluster (at most "
+              f"{plan.rows_max}), {len(plan.row_blocks)} row blocks; weight "
+              f"slices in shared memory {plan.weights_shared}; "
+              f"{plan.smem_bytes} B of shared memory a CTA")
+    t = torch.tensor(0.2, device=x.device)
+    dt = torch.tensor(0.05, device=x.device)
+    k1 = fused_tdmlp(w, x, t)
+    ref = fused_tsit5_step(w, x, t, dt, k1)
+    timing = torch.zeros(len(STEP_PHASES) + 1, dtype=torch.int64,
+                         device=x.device)
+    totals = torch.zeros(len(STEP_PHASES) + 1, dtype=torch.float64)
+    for i in range(runs + 1):
+        args = step_raw_args(w, x, k1, t, dt, timing=timing)
+        check(raw_launch("lrnde_tsit5_step", *args)() == 0,
+              "tdmlp attribution: the timed launch failed")
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(args[7:16], ref)),
+              "tdmlp attribution: the timed step's result differs")
+        if i > 0:  # the first launch warms up
+            totals += timing.cpu().double()
+    per = (totals[:-1] / totals[-1] / 1e3).tolist()
+    split = {name: round(us, 3) for name, us in zip(STEP_PHASES, per)}
+    groups = {g: round(sum(v for k, v in split.items() if k.startswith(g)), 3)
+              for g in ("input", "product1", "hidden", "product2", "weights",
+                        "layout")}
+    print(f"[tdmlp attribution] kernel 2's step at B = {B}, CTA 0, µs (mean "
+          f"of {runs} launches): {split}; by kind {groups}; sum "
+          f"{sum(per):.3f}; bitwise the untimed kernel")
+    want = fused_tdmlp(w, x, 0.3)
+    s_dev = torch.tensor([0.3], device=x.device)
+    probes = []
+    for rows in (0, 40):
+        out = torch.empty_like(x)
+        fn = raw_launch("lrnde_tdmlp", x, s_dev, *w, out, B, F, H, rows)
+        check(fn() == 0 and torch.equal(out, want),
+              f"kernel 1, rows {rows}: differs from the wrapper")
+        probes.append((f"K1 {rows or 'filled'} rows", fn))
+        args = step_raw_args(w, x, k1, t, dt, rows=rows)
+        fn = raw_launch("lrnde_tsit5_step", *args)
+        check(fn() == 0 and all(torch.equal(a, b)
+                                for a, b in zip(args[7:16], ref)),
+              f"kernel 2, rows {rows}: differs from the wrapper")
+        probes.append((f"K2 {rows or 'filled'} rows", fn))
+    ms = back_to_back_ms([fn for _, fn in probes], n=50)
+    print("[tdmlp probe] device ms per launch back to back, each bitwise "
+          "the wrapper's: " + "; ".join(
+              f"{label} {m:.4f}" for (label, _), m in zip(probes, ms)))
+    return split
 
 
 # the attribution phases of kernel 4's attempt (lrnde_solve_phases), in order
@@ -3785,7 +3992,7 @@ def partial_run(device, parts, profile=False):
     import torch
 
     w = x = None
-    if {"kernels", "backward", "sde", "solve"} & set(parts):
+    if {"kernels", "backward", "sde", "solve", "ode"} & set(parts):
         w, x, _ = phase_kernels(device)
         phase_determinism(w, x)
     if "solve" in parts:
@@ -3793,7 +4000,10 @@ def partial_run(device, parts, profile=False):
                        torch.Generator(device=device).manual_seed(7))
         phase_solve_attribution(w, x)
     if "ode" in parts:
-        phase_slice(device)
+        if "solve" not in parts:
+            phase_solve_cluster(w, x)
+        phase_tdmlp_attribution(w, x)
+        phase_slice(device, profile=profile)
         phase_train(device, profile=profile)
     if "backward" in parts:
         phase_backward_kernels(device, w, x)
@@ -3842,7 +4052,8 @@ def main():
     w, x, res = phase_kernels(device)
     phase_determinism(w, x)
     phase_solve_attribution(w, x)
-    path_counts = [phase_slice(device)]
+    phase_tdmlp_attribution(w, x)
+    path_counts = [phase_slice(device, profile=profile)]
     res.update(phase_backward_kernels(device, w, x))
     path_counts.append(phase_train(device, profile=profile))
     res.update(phase_sde_kernels(device, w, x))
@@ -3876,9 +4087,9 @@ def main():
     print(json.dumps({"digests": SEEN_DIGESTS}))
 
     sources = {
-        "tdmlp": ("localregneuralde_tpu_torch/csrc/tdmlp.cu",
+        "tdmlp": ("localregneuralde_tpu_torch/csrc/tdmlp_cluster.cu",
                   "localregneuralde_tpu/ops/pallas/fused_mlp.py:60"),
-        "tsit5_step": ("localregneuralde_tpu_torch/csrc/tsit5_step.cu",
+        "tsit5_step": ("localregneuralde_tpu_torch/csrc/tdmlp_cluster.cu",
                        "localregneuralde_tpu/ops/pallas/fused_mlp.py:69"),
         "persistent_tsit5_solve": (
             "localregneuralde_tpu_torch/csrc/persistent_solve.cu",

@@ -153,7 +153,7 @@ struct NoHook {
 };
 
 // One attempt over the whole batch from (u, t) with step dt_c: every CTA
-// runs the Tsit5 step of the dynamics D (tdmlp.cuh::tsit5_rows) on its row
+// runs the Tsit5 step of the dynamics D (its tsit5_rows overload) on its row
 // blocks of D::rows rows, calls hook(rb, rows, nrows) after each, stores the
 // row block's error partial into its slot, then waits at the grid barrier
 // and sums the slots (ordered_slot_sum). Returns the scaled error norm in
@@ -193,7 +193,7 @@ __device__ inline float attempt_eest(const D& w, const typename D::Shared& sm,
 
 // Commit an accepted attempt for this CTA's row blocks: u <- unew and
 // k1 <- k7.
-template <typename D = TDMLP>
+template <typename D>
 __device__ inline void commit_rows(const AttemptBufs& b, int F) {
   constexpr int R = D::rows;
   const int n_blocks = (b.B + R - 1) / R;
@@ -208,7 +208,7 @@ __device__ inline void commit_rows(const AttemptBufs& b, int F) {
 }
 
 // Copy this CTA's row blocks of src (B, F) to dst (B, F).
-template <typename D = TDMLP>
+template <typename D>
 __device__ inline void copy_rows(float* dst, const float* src, int B, int F) {
   constexpr int R = D::rows;
   const int n_blocks = (B + R - 1) / R;
@@ -289,7 +289,7 @@ __device__ inline int replay_window(
 // Cooperative launch of a whole-grid kernel: one CTA of D::threads threads
 // per row block of D::rows rows, capped at what can be co-resident; the
 // launch refuses a grid that cannot be.
-template <typename D = TDMLP, typename Kernel, typename Args>
+template <typename D, typename Kernel, typename Args>
 inline cudaError_t launch_cooperative(Kernel kernel, Args* args, int B,
                                       size_t smem, cudaStream_t stream,
                                       int* grid_out) {

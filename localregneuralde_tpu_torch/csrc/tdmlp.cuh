@@ -1,5 +1,7 @@
-// Shared device code of the TD-MLP kernels: one dynamics evaluation of a
-// row block, the Tsit5 stage algebra around it, and the Tsit5 constants.
+// Shared device code of the TD-MLP kernels: the Tsit5 constants, the
+// weights, and the first port's row block (8 rows a CTA of 1,024 threads),
+// whose arithmetic the Hopper kernels keep bitwise and which kernel 8's
+// window replay still runs at 512 threads (sweep_cluster.cuh::TDMLPSweep).
 //
 // The dynamics is TDChain(Dense(F+1 -> H, tanh), Dense(H+1 -> F)):
 //   y = tanh(x·W1 + b1 + s·w1t)·W2 + b2 + s·w2t
@@ -8,12 +10,13 @@
 // w1t its row F; W2 is rows 0..H-1 of the (H+1, F) weight and w2t its row H.
 // No copy or padding of the weights is made.
 //
-// Work split: one CTA of kThreads threads owns a block of kRows batch rows.
-// The stage input of the block sits transposed in shared memory ([F][kRows],
-// so one k reads the kRows values as two float4s), the hidden row
-// tanh(x·W1 + ...) sits in shared memory ([H][kRows]); H is not padded, the
-// loops run to H. The weights are read through the read-only path and stay
-// L2-resident (0.63 MB at F = 784, H = 100). Every product is true FP32 FFMA.
+// The first port's work split: one CTA of kThreads threads owned a block of
+// kRows batch rows. The stage input of the block sat transposed in shared
+// memory ([F][kRows], so one k reads the kRows values as two float4s), the
+// hidden row tanh(x·W1 + ...) in shared memory ([H][kRows]); H is not
+// padded, the loops run to H. The weights were read through the read-only
+// path from L2 (0.63 MB at F = 784, H = 100). Every product is true FP32
+// FFMA.
 //
 // Summation order is part of the design. Below rtol ~1e-6 the solver's
 // embedded error estimate ũ, a cancelling sum of the stage derivatives, is
@@ -25,15 +28,12 @@
 // That sums more accurately than one running sum, and the independent
 // accumulators keep several L2 loads in flight per thread.
 //
-// What bounds it on an H100: the weight loads from L2 are latency-bound, and
-// each CTA streams the whole of W1 and W2 (0.63 MB) from L2 once per
-// evaluation. B = 512 gives 64 CTAs, one per SM, so the CTA is made as wide
-// as an SM allows (1024 threads) to keep the most loads in flight: measured
-// on an H100, 1024 threads ran one evaluation in 35 µs where 256 took 67 µs,
-// and the Tsit5 step in 0.22 ms where 256 took 0.62 ms. Kernels 1 and 2
-// run this way. The persistent solve (kernel 4, persistent_solve.cu) keeps
-// this arithmetic bit for bit on thread-block clusters instead, each CTA
-// with its residue slice of the weights resident in shared memory; the
+// What bounded it on an H100: the weight loads from L2 were latency-bound,
+// and each CTA streamed the whole of W1 and W2 (0.63 MB) from L2 once per
+// evaluation, at B = 512 on 64 CTAs (measured: one evaluation 35 µs, a
+// Tsit5 step 0.22 ms). Kernels 1, 2 and 4 keep this arithmetic bit for bit
+// on thread-block clusters instead (solve_cluster.cuh), each CTA with its
+// residue slice of the weights resident in shared memory; the
 // stored-adjoint kernels 3, 7 and 8 run on the clusters of
 // sweep_cluster.cuh.
 #pragma once
@@ -42,8 +42,8 @@
 
 namespace lrnde {
 
-constexpr int kThreads = 1024;  // threads per CTA (so at most 64 registers)
-constexpr int kRows = 8;       // batch rows per CTA (row block)
+constexpr int kThreads = 1024;  // threads per CTA of the first port
+constexpr int kRows = 8;       // batch rows per CTA (row block, error block)
 
 // Tsitouras 5(4) coefficients, rounded from the double values exactly as
 // the reference rounds its Python floats to f32.
@@ -80,15 +80,8 @@ constexpr float BT5 = static_cast<float>(0.5823571654525552);
 constexpr float BT6 = static_cast<float>(-0.45808210592918697);
 constexpr float BT7 = static_cast<float>(0.015151515151515152);
 
-struct Smem;
-
-// A dynamics type of the Tsit5 attempt code (tsit5_rows, solve.cuh) names
-// its row blocking (rows per CTA, threads per CTA) and its shared memory
-// type, and has an eval_rows() overload.
+// The TD-MLP's weights, read in place.
 struct TDMLP {
-  static constexpr int rows = kRows;
-  static constexpr int threads = kThreads;
-  using Shared = Smem;
   const float* w1;  // (F + 1, H)
   const float* b1;  // (H)
   const float* w2;  // (H + 1, F)
@@ -102,7 +95,7 @@ struct TDMLP {
 constexpr int kSplit = 16;
 // Interleaved accumulators of the second product, added pairwise.
 constexpr int kAcc2 = 4;
-static_assert(kAcc2 == 4, "tdmlp_rows adds the accumulators as (0+1)+(2+3)");
+static_assert(kAcc2 == 4, "the accumulators are added as (0+1)+(2+3)");
 
 // Dynamic shared memory of one CTA, in floats. Every part is a multiple of
 // kRows floats, so each part stays 32-byte aligned.
@@ -126,94 +119,6 @@ __device__ inline Smem carve_smem(float* base, int F, int H) {
   s.hid = s.part + static_cast<size_t>(kSplit) * H * kRows;
   s.red = s.hid + static_cast<size_t>(H) * kRows;
   return s;
-}
-
-// Load rows [0, nrows) of x (row-major, stride F) into sm.xs; rows past
-// nrows are zero.
-__device__ inline void load_rows(const Smem& sm, const float* x, int F,
-                                 int nrows) {
-  for (int i = threadIdx.x; i < kRows * F; i += kThreads) {
-    const int r = i / F, c = i - r * F;
-    sm.xs[c * kRows + r] = r < nrows ? x[static_cast<size_t>(r) * F + c] : 0.f;
-  }
-}
-
-// One TD-MLP evaluation of the stage input in sm.xs at stage time s; writes
-// rows [0, nrows) of out (row-major, stride F). The caller synchronises
-// before sm.xs is loaded and after this returns.
-__device__ inline void tdmlp_rows(const TDMLP& w, const Smem& sm, float s,
-                                  float* out, int nrows) {
-  const int F = w.F, H = w.H;
-  for (int item = threadIdx.x; item < H * kSplit; item += kThreads) {
-    const int h = item % H, q = item / H;
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-#pragma unroll 4
-    for (int k = q; k < F; k += kSplit) {
-      const float wv = __ldg(w.w1 + static_cast<size_t>(k) * H + h);
-      const float4 x0 = *reinterpret_cast<const float4*>(sm.xs + k * kRows);
-      const float4 x1 = *reinterpret_cast<const float4*>(sm.xs + k * kRows + 4);
-      acc[0] = fmaf(x0.x, wv, acc[0]);
-      acc[1] = fmaf(x0.y, wv, acc[1]);
-      acc[2] = fmaf(x0.z, wv, acc[2]);
-      acc[3] = fmaf(x0.w, wv, acc[3]);
-      acc[4] = fmaf(x1.x, wv, acc[4]);
-      acc[5] = fmaf(x1.y, wv, acc[5]);
-      acc[6] = fmaf(x1.z, wv, acc[6]);
-      acc[7] = fmaf(x1.w, wv, acc[7]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) sm.part[(q * H + h) * kRows + r] = acc[r];
-  }
-  __syncthreads();
-  const float* w1t = w.w1 + static_cast<size_t>(F) * H;
-  for (int i = threadIdx.x; i < H * kRows; i += kThreads) {
-    const int h = i / kRows, r = i - h * kRows;
-    float z = 0.f;
-    for (int q = 0; q < kSplit; ++q) z += sm.part[(q * H + h) * kRows + r];
-    z = z + __ldg(w.b1 + h) + s * __ldg(w1t + h);
-    sm.hid[h * kRows + r] = tanhf(z);
-  }
-  __syncthreads();
-  const float* w2t = w.w2 + static_cast<size_t>(H) * F;
-  for (int j = threadIdx.x; j < F; j += kThreads) {
-    float acc[kAcc2][kRows];
-#pragma unroll
-    for (int a = 0; a < kAcc2; ++a)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[a][r] = 0.f;
-    for (int h0 = 0; h0 < H; h0 += kAcc2) {
-#pragma unroll
-      for (int a = 0; a < kAcc2; ++a) {
-        const int h = h0 + a;
-        if (h < H) {
-          const float wv = __ldg(w.w2 + static_cast<size_t>(h) * F + j);
-          const float4 h0v = *reinterpret_cast<const float4*>(sm.hid + h * kRows);
-          const float4 h1v = *reinterpret_cast<const float4*>(sm.hid + h * kRows + 4);
-          acc[a][0] = fmaf(h0v.x, wv, acc[a][0]);
-          acc[a][1] = fmaf(h0v.y, wv, acc[a][1]);
-          acc[a][2] = fmaf(h0v.z, wv, acc[a][2]);
-          acc[a][3] = fmaf(h0v.w, wv, acc[a][3]);
-          acc[a][4] = fmaf(h1v.x, wv, acc[a][4]);
-          acc[a][5] = fmaf(h1v.y, wv, acc[a][5]);
-          acc[a][6] = fmaf(h1v.z, wv, acc[a][6]);
-          acc[a][7] = fmaf(h1v.w, wv, acc[a][7]);
-        }
-      }
-    }
-    const float bias = __ldg(w.b2 + j), tw = __ldg(w2t + j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float y = (acc[0][r] + acc[1][r]) + (acc[2][r] + acc[3][r]);
-      if (r < nrows) out[static_cast<size_t>(r) * F + j] = y + bias + s * tw;
-    }
-  }
-}
-
-__device__ inline void eval_rows(const TDMLP& w, const Smem& sm, float s,
-                                 float* out, int nrows) {
-  tdmlp_rows(w, sm, s, out, nrows);
 }
 
 // Stage input u + dt·(a[0]·k[0] + ... + a[N-1]·k[N-1]) of the row block into
@@ -291,80 +196,6 @@ struct StepRows {
   float* utilde;
   float* g6;
 };
-
-// One Tsit5 step of the row block from (u, t) with step dt: the six stage
-// evaluations of the dynamics D (eval_rows), u_new, and optionally ũ and g6.
-// With want_err it returns the block's Σ (ũ / (atol + max(|u|,
-// |u_new|)·rtol))² to every thread, summed in a fixed order; otherwise 0.
-template <typename D>
-__device__ inline float tsit5_rows(const D& w, const typename D::Shared& sm,
-                                   const StepRows& p, float t, float dt,
-                                   int nrows, bool want_err, float atol,
-                                   float rtol) {
-  const int F = w.F;
-  const float* k[7] = {p.k[0], p.k[1], p.k[2], p.k[3], p.k[4], p.k[5], p.k[6]};
-  {
-    const float a[1] = {A21};
-    stage_input<D>(sm.xs, p.u, k, a, dt, F, nrows, nullptr);
-  }
-  __syncthreads();
-  eval_rows(w, sm, t + C1 * dt, p.k[1], nrows);
-  __syncthreads();
-  {
-    const float a[2] = {A31, A32};
-    stage_input<D>(sm.xs, p.u, k, a, dt, F, nrows, nullptr);
-  }
-  __syncthreads();
-  eval_rows(w, sm, t + C2 * dt, p.k[2], nrows);
-  __syncthreads();
-  {
-    const float a[3] = {A41, A42, A43};
-    stage_input<D>(sm.xs, p.u, k, a, dt, F, nrows, nullptr);
-  }
-  __syncthreads();
-  eval_rows(w, sm, t + C3 * dt, p.k[3], nrows);
-  __syncthreads();
-  {
-    const float a[4] = {A51, A52, A53, A54};
-    stage_input<D>(sm.xs, p.u, k, a, dt, F, nrows, nullptr);
-  }
-  __syncthreads();
-  eval_rows(w, sm, t + C4 * dt, p.k[4], nrows);
-  __syncthreads();
-  {
-    const float a[5] = {A61, A62, A63, A64, A65};
-    stage_input<D>(sm.xs, p.u, k, a, dt, F, nrows, p.g6);
-  }
-  __syncthreads();
-  eval_rows(w, sm, t + dt, p.k[5], nrows);
-  __syncthreads();
-  {
-    const float a[6] = {A71, A72, A73, A74, A75, A76};
-    stage_input<D>(sm.xs, p.u, k, a, dt, F, nrows, p.unew);
-  }
-  __syncthreads();
-  eval_rows(w, sm, t + dt, p.k[6], nrows);
-  __syncthreads();
-  float err = 0.f;
-  for (int i = threadIdx.x; i < nrows * F; i += D::threads) {
-    float acc = BT1 * k[0][i];
-    acc = acc + BT2 * k[1][i];
-    acc = acc + BT3 * k[2][i];
-    acc = acc + BT4 * k[3][i];
-    acc = acc + BT5 * k[4][i];
-    acc = acc + BT6 * k[5][i];
-    acc = acc + BT7 * k[6][i];
-    const float ut = dt * acc;
-    if (p.utilde != nullptr) p.utilde[i] = ut;
-    if (want_err) {
-      const float res =
-          ut / (atol + fmaxf(fabsf(p.u[i]), fabsf(p.unew[i])) * rtol);
-      err = fmaf(res, res, err);
-    }
-  }
-  if (!want_err) return 0.f;
-  return block_sum<D::threads>(err, sm.red);
-}
 
 // n floats rounded up to a multiple of 4 (16 bytes), so that a buffer
 // carved after them can take float4 reads and 16-byte copies.

@@ -31,8 +31,8 @@ _U = ctypes.c_uint
 
 # C entry -> argument types; every entry returns cudaGetLastError() as int
 _SIGNATURES = {
-    "lrnde_tdmlp": [_P] * 7 + [_I] * 3 + [_P],
-    "lrnde_tsit5_step": [_P] * 16 + [_I] * 3 + [_P],
+    "lrnde_tdmlp": [_P] * 7 + [_I] * 4 + [_P],
+    "lrnde_tsit5_step": [_P] * 17 + [_I] * 4 + [_P, _P],
     "lrnde_persistent_tsit5": (
         [_P] * 4 + [_I] + [_P] * 11 + [_I] * 4 + [_F] * 3
         + [_P, _P, _I] + [_P] * 5 + [_I, _I] + [_P] * 2 + [_P]
@@ -41,7 +41,6 @@ _SIGNATURES = {
         [_P] * 4 + [_I] + [_P] * 11 + [_I] * 4 + [_F] * 3
         + [_P, _P, _I] + [_P] * 5 + [_I, _I] + [_P] * 2 + [_P, _P]
     ),
-    "lrnde_solve_eval": [_P] * 8 + [_I] * 3 + [_P],
     "lrnde_tsit5_step_bwd": [_P] * 21 + [_I] * 3 + [_P],
     "lrnde_adjoint_sweep": (
         [_I] + [_P] * 8 + [_I] + [_P] * 7 + [_F] * 3 + [_I] * 3 + [_P] * 9
@@ -117,6 +116,9 @@ _INTS = {
     "lrnde_solve_clusters": [_I] * 3,
     "lrnde_solve_rows": [_I] * 2,
     "lrnde_solve_weights_shared": [_I] * 2,
+    "lrnde_eval_rows": [_I] * 2,
+    "lrnde_eval_weights_shared": [_I] * 2,
+    "lrnde_eval_grid": [_I] * 5 + [_P],
 }
 
 # C entry -> argument types of the size queries, which return long long
@@ -125,6 +127,8 @@ _SIZES = {
     "lrnde_sweep_smem_floats": [_I] * 2,
     "lrnde_solve_smem_floats": [_I] * 2,
     "lrnde_solve_scratch_floats": [_I] * 3,
+    "lrnde_eval_smem_floats": [_I] * 2,
+    "lrnde_step_scratch_floats": [_I] * 2,
     "lrnde_sde_solve_smem_floats": [_I] * 2,
     "lrnde_sde_sweep_smem_floats": [_I] * 2,
     "lrnde_sde_grad_floats": [_I] * 2,
@@ -225,6 +229,7 @@ def load_library() -> ctypes.CDLL:
     for name in ("lrnde_rows_per_block", "lrnde_sde_rows_per_block",
                  "lrnde_chain_error_rows", "lrnde_score_rows_per_block",
                  "lrnde_sde_phases", "lrnde_sweep_phases", "lrnde_solve_phases",
+                 "lrnde_step_phases",
                  "lrnde_sweep_cluster", "lrnde_sweep_rows",
                  "lrnde_sde_sweep_threads", "lrnde_sde_sweep_hid_threads",
                  "lrnde_sde_solve_threads", "lrnde_pf_error_rows",

@@ -7,8 +7,13 @@ dynamics is ``TDChain(Dense(F+1 → H, tanh), Dense(H+1 → F))``:
     y = tanh(x·W1 + b1 + s·w1t)·W2 + b2 + s·w2t
 
 with the weights in the reference layout, ``(in, out)``, whose last input
-row is the time channel. The kernels (``csrc/tdmlp.cu``,
-``csrc/tsit5_step.cu``) read the full Dense weights in place.
+row is the time channel. Both kernels (``csrc/tdmlp_cluster.cu``) run on
+the thread-block clusters of the persistent solve (kernel 4,
+``csrc/solve_cluster.cuh``): its evaluation, and for the step its six
+stages, bitwise the first port's one-CTA-per-8-rows kernels; they read the
+full Dense weights in place. ``fused_solve.eval_plan`` models their grid
+and refuses (ValueError) only a width whose tiles overflow a CTA at one
+row a cluster, far past any the first port took.
 
 Each wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor; there is no fallback between the
@@ -83,14 +88,16 @@ def fused_tdmlp(w: TDMLPWeights, x: torch.Tensor, s) -> torch.Tensor:
     CUDA kernel for a CUDA tensor, ``tdmlp_plain`` for a CPU tensor."""
     if x.device.type == "cpu":
         return tdmlp_plain(w, x, s)
+    from .fused_solve import eval_layout
+
     B, F, H = check_operands(w, x)
+    lib, _ = eval_layout(B, F, H)
     s_dev = device_scalars([s], x)
     out = torch.empty_like(x)
-    lib = _build.load_library()
     p = _build.ptr
     err = lib.lrnde_tdmlp(
         p(x), p(s_dev), p(w.w1), p(w.b1), p(w.w2), p(w.b2), p(out),
-        B, F, H, _build.stream_ptr(x.device),
+        B, F, H, 0, _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "tdmlp")
     fused_tdmlp.launches += 1
@@ -106,14 +113,18 @@ def fused_tsit5_step(w: TDMLPWeights, u, t, dt, k1):
     ``tsit5_step_plain`` for CPU tensors."""
     if u.device.type == "cpu":
         return tsit5_step_plain(w, u, t, dt, k1)
+    from .fused_solve import eval_layout
+
     B, F, H = check_operands(w, u, k1)
+    lib, plan = eval_layout(B, F, H)
     sc = device_scalars([t, dt], u)
     outs = [torch.empty_like(u) for _ in range(9)]
-    lib = _build.load_library()
+    scratch = torch.empty(plan.scratch_floats, device=u.device)
     p = _build.ptr
     err = lib.lrnde_tsit5_step(
         p(u), p(k1), p(sc), p(w.w1), p(w.b1), p(w.w2), p(w.b2),
-        *[p(o) for o in outs], B, F, H, _build.stream_ptr(u.device),
+        *[p(o) for o in outs], p(scratch), B, F, H, 0, None,
+        _build.stream_ptr(u.device),
     )
     _build.check(lib, err, "tsit5_step")
     fused_tsit5_step.launches += 1

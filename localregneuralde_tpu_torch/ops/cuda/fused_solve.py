@@ -111,14 +111,69 @@ class SolvePlan(NamedTuple):
     scratch_floats: int     # global scratch: u, u_new, k1..k7
 
 
-def _solve_tiles(H: int, R: int, seg: int) -> int:
-    """Floats of the vectors and work tiles of a CTA at R rows: b1, w1t,
-    b2 and w2t; the stage input, the hidden rows, the inbox (16 partials of
-    each group of 4 hidden units a CTA sums), the residual tile (8 rows of
-    every CTA's segment) and the error tree."""
+# ---- the cluster layout of kernels 1, 2 and 4 (csrc/solve_cluster.cuh)
+
+
+def solve_count(F: int, c: int) -> int:
+    """The features of CTA rank c: k = 8m + c, m < solve_count(F, c)."""
+    return max(0, -(-(F - c) // CLUSTER_CTAS))
+
+
+def solve_odd0(F: int) -> int:
+    """Offset of the odd features (k ≡ c + 8 mod 16) in a segment."""
+    return round4((solve_count(F, 0) + 1) // 2)
+
+
+def solve_seg(F: int) -> int:
+    """The width of a CTA's segment of a row (floats)."""
+    return solve_odd0(F) + round4(solve_count(F, 0) // 2)
+
+
+def solve_local(ne: int, odd0: int, j: int) -> int:
+    """The segment position of a CTA's j-th feature, ``ne`` of them even."""
+    return j if j < ne else odd0 + (j - ne)
+
+
+def slice_feature(c: int, odd0: int, l: int) -> int:
+    """The feature at segment position l of CTA rank c."""
+    return 16 * l + c if l < odd0 else 16 * (l - odd0) + 8 + c
+
+
+def cta_features(F: int, c: int) -> tuple:
+    """CTA c's features in segment order: the even ones, then the odd."""
+    n, odd0 = solve_count(F, c), solve_odd0(F)
+    return tuple(slice_feature(c, odd0, solve_local((n + 1) // 2, odd0, j))
+                 for j in range(n))
+
+
+def segment_index(F: int) -> torch.Tensor:
+    """Each feature's position in a row of the segment layout (the 8
+    segments of ``solve_seg(F)`` floats side by side): ``rows[:, idx]``
+    reads a (B, 8·seg) segment buffer row-major, and assigning to it writes
+    one."""
+    idx = torch.empty(F, dtype=torch.long)
+    odd0, seg = solve_odd0(F), solve_seg(F)
+    for c in range(CLUSTER_CTAS):
+        n = solve_count(F, c)
+        for j in range(n):
+            l = solve_local((n + 1) // 2, odd0, j)
+            idx[slice_feature(c, odd0, l)] = c * seg + l
+    return idx
+
+
+def _eval_tiles(H: int, R: int, seg: int) -> int:
+    """Floats of the vectors and tiles of one evaluation at R rows: b1,
+    w1t, b2 and w2t; the stage input, the hidden rows and the inbox (16
+    partials of each group of 4 hidden units a CTA sums)."""
     inbox = 2 * CLUSTER_CTAS * 4 * (-(-(R * (-(-H // 4))) // CLUSTER_CTAS))
-    return (2 * round4(H) + 2 * seg + R * vec_ld(seg) + R * vec_ld(H)
-            + inbox + SOLVE_ERROR_ROWS * CLUSTER_CTAS * seg + _SOLVE_THREADS)
+    return 2 * round4(H) + 2 * seg + R * vec_ld(seg) + R * vec_ld(H) + inbox
+
+
+def _solve_tiles(H: int, R: int, seg: int) -> int:
+    """The solve's tiles: an evaluation's, the residual tile (8 rows of
+    every CTA's segment) and the error tree."""
+    return (_eval_tiles(H, R, seg) + SOLVE_ERROR_ROWS * CLUSTER_CTAS * seg
+            + _SOLVE_THREADS)
 
 
 @functools.lru_cache(maxsize=64)
@@ -130,9 +185,7 @@ def solve_plan(B: int, F: int, H: int) -> SolvePlan:
     memory and a cluster takes the most rows (a multiple of 8) whose tiles
     fit. Raises ValueError where not even 8 rows fit a CTA."""
     C = CLUSTER_CTAS
-    counts = [max(0, -(-(F - c) // C)) for c in range(C)]
-    odd0 = round4((counts[0] + 1) // 2)
-    seg = odd0 + round4(counts[0] // 2)
+    odd0, seg = solve_odd0(F), solve_seg(F)
     weights = seg * vec_ld(H) + H * vec_ld(seg)
     limit = CLUSTER_SMEM_BYTES // 4
     if weights + _solve_tiles(H, SOLVE_ROWS_MAX, seg) <= limit:
@@ -147,9 +200,7 @@ def solve_plan(B: int, F: int, H: int) -> SolvePlan:
                 f"shared memory a CTA at 8 rows a cluster, over "
                 f"{CLUSTER_SMEM_BYTES}")
         R, shared = fits[0], False
-    features = tuple(
-        tuple(range(c, F, 2 * C)) + tuple(range(c + C, F, 2 * C))
-        for c in range(C))
+    features = tuple(cta_features(F, c) for c in range(C))
     row_blocks = tuple((r0, min(R, B - r0)) for r0 in range(0, B, R))
     error_blocks = tuple(
         tuple((r0 // SOLVE_ERROR_ROWS + j, j)
@@ -158,6 +209,91 @@ def solve_plan(B: int, F: int, H: int) -> SolvePlan:
     smem = 4 * ((weights if shared else 0) + _solve_tiles(H, R, seg))
     return SolvePlan(C, R, row_blocks, features, odd0, seg, error_blocks,
                      shared, smem, 9 * B * C * seg)
+
+
+class EvalPlan(NamedTuple):
+    """The cluster grid of kernels 1 and 2 at (B, F, H) on a card that keeps
+    ``resident`` clusters at once, as ``csrc/tdmlp_cluster.cu`` computes
+    it: no error norm, so a cluster may own any count of rows."""
+
+    cluster: int            # CTAs per cluster
+    rows_max: int           # the most rows of a cluster (the tiles' size)
+    rows: int               # rows of a cluster in this launch
+    clusters: int           # clusters launched, at most resident
+    row_blocks: tuple       # (row0, nrows) of each row block
+    blocks_of: tuple        # per cluster, its row blocks in order
+    weights_shared: bool    # weight slices in shared memory
+    smem_bytes: int         # dynamic shared memory of a CTA
+    scratch_floats: int     # kernel 2's global scratch: u, u_new, g6, k1..k7
+
+
+def _eval_rows(F: int, H: int) -> tuple:
+    """(the most rows of a cluster, whether the weight slices fit) at (F,
+    H), as ``solve_cluster.cuh::eval_plan``; raises ValueError where not
+    even one row fits a CTA."""
+    seg = solve_seg(F)
+    weights = seg * vec_ld(H) + H * vec_ld(seg)
+    limit = CLUSTER_SMEM_BYTES // 4
+    if weights + _eval_tiles(H, SOLVE_ROWS_MAX, seg) <= limit:
+        return SOLVE_ROWS_MAX, True
+    fits = [r for r in range(SOLVE_ROWS_MAX, 0, -1)
+            if _eval_tiles(H, r, seg) <= limit]
+    if not fits:
+        raise ValueError(
+            f"fused_tdmlp: (F, H) = ({F}, {H}) needs "
+            f"{4 * _eval_tiles(H, 1, seg)} bytes of shared memory a CTA at "
+            f"one row a cluster, over {CLUSTER_SMEM_BYTES}")
+    return fits[0], False
+
+
+def eval_plan(B: int, F: int, H: int, resident: int, rows: int = 0
+              ) -> EvalPlan:
+    """The grid of kernels 1 and 2: ``rows`` rows a cluster (at most the
+    plan's) when positive, else the fewest that fill the ``resident``
+    clusters in one wave; never more clusters than are resident (a larger
+    batch loops its clusters over the row blocks, cluster c taking blocks
+    c, c + clusters, ...). Raises ValueError where not even one row fits a
+    CTA."""
+    if resident < 1:
+        raise ValueError("no cluster can be resident")
+    rows_max, shared = _eval_rows(F, H)
+    R = (min(rows, rows_max) if rows > 0
+         else min(rows_max, -(-B // min(B, resident))))
+    row_blocks = tuple((r0, min(R, B - r0)) for r0 in range(0, B, R))
+    n = min(len(row_blocks), resident)
+    seg = solve_seg(F)
+    smem = (seg * vec_ld(H) + H * vec_ld(seg) if shared else 0) + _eval_tiles(
+        H, rows_max, seg)
+    return EvalPlan(CLUSTER_CTAS, rows_max, R, n, row_blocks,
+                    tuple(tuple(range(c, len(row_blocks), n)) for c in range(n)),
+                    shared, 4 * smem, 10 * B * CLUSTER_CTAS * seg)
+
+
+@functools.lru_cache(maxsize=64)
+def eval_layout(B: int, F: int, H: int):
+    """``eval_plan`` at (B, F, H) with this card's resident clusters (which
+    raises for a width no CTA can take, before the library loads), and the
+    library, raising unless it lays kernels 1 and 2 out the same way.
+    Returns (library, plan)."""
+    _eval_rows(F, H)
+    lib = _build.load_library()
+
+    def grid(b, rows, step):
+        out = (ctypes.c_int * 2)()
+        _build.check(lib, lib.lrnde_eval_grid(b, F, H, rows, step, out),
+                     "eval_layout")
+        return tuple(out)
+
+    plan = eval_plan(B, F, H, grid(1 << 20, 1, 0)[1])
+    if ((lib.lrnde_eval_rows(F, H), bool(lib.lrnde_eval_weights_shared(F, H)),
+         lib.lrnde_eval_smem_floats(F, H) * 4,
+         lib.lrnde_step_scratch_floats(B, F))
+            != (plan.rows_max, plan.weights_shared, plan.smem_bytes,
+                plan.scratch_floats)
+            or {grid(B, 0, 0), grid(B, 0, 1)} != {(plan.rows, plan.clusters)}):
+        raise RuntimeError("fused_tdmlp: the library's layout differs from "
+                           "eval_plan")
+    return lib, plan
 
 
 def solve_feasible(B: int, F: int, H: int) -> bool:
@@ -277,11 +413,14 @@ def _solve_layout(B: int, F: int, H: int):
 
 def _launch_solve(w, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
                   record_knots=False, knot_dense_cap=None, knot_stride=1,
-                  reservoir=None, timing=None):
+                  reservoir=None, timing=None, scratch=None):
     """One launch of kernel 4 on CUDA tensors; with ``timing`` (int64,
     ``lrnde_solve_phases() + 1``) the instantiation with the compile-time
     clock, which fills it with CTA 0's nanoseconds per phase and the number
-    of attempts."""
+    of attempts. ``scratch`` (``plan.scratch_floats``), when given, is the
+    kernel's global scratch, so that a check can read its buffers after
+    the launch: u, u_new and k1..k7 in the segment layout (each (B, 8 ·
+    seg); accepting swaps only the kernel's pointers)."""
     check_fp32_products(rtol, u0.device)
     B, F, H = check_operands(w, u0)
     lib, plan = _solve_layout(B, F, H)
@@ -298,7 +437,9 @@ def _launch_solve(w, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
     ys = torch.empty((n_save, B, F), dtype=torch.float32, device=dev)
     stats_i = torch.empty(4, dtype=torch.int32, device=dev)
     stats_f = torch.empty(2, dtype=torch.float32, device=dev)
-    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=dev)
+    if scratch is None:
+        scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                              device=dev)
     slots = torch.empty(2 * n_blocks, dtype=torch.float32, device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
     knots = _knot_outputs(u0, max_steps, record_knots=record_knots,
@@ -338,23 +479,6 @@ def _launch_solve(w, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
 
 
 persistent_tsit5_solve.launches = 0
-
-
-def solve_eval(w: TDMLPWeights, x: torch.Tensor, s) -> torch.Tensor:
-    """One dynamics evaluation of CUDA tensors through kernel 4's cluster
-    path (the products, the cluster sum of the hidden rows and the
-    epilogues of ``csrc/persistent_solve.cu``), for checking it against
-    kernel 1 (``fused_tdmlp``), whose arithmetic it repeats bitwise."""
-    B, F, H = check_operands(w, x)
-    lib, plan = _solve_layout(B, F, H)
-    out = torch.empty_like(x)
-    scratch = torch.empty(plan.scratch_floats // 9, device=x.device)
-    p = _build.ptr
-    err = lib.lrnde_solve_eval(
-        p(x), p(device_scalars([s], x)), *[p(t) for t in w], p(out),
-        p(scratch), B, F, H, _build.stream_ptr(x.device))
-    _build.check(lib, err, "solve_eval")
-    return out
 
 
 def check_reservoir(reservoir, max_steps: int) -> None:

@@ -1078,9 +1078,11 @@ def test_conv_orient_matches_plain_on_card(cuda_device, shape):
                                           (1000, 100), (410, 150)])
 def test_cluster_solve_on_card(cuda_device, batch, hidden):
     """Kernel 4 on its clusters against the eager loop (rtol 1e-4, as
-    above), bitwise repeatable; its cluster evaluation bitwise kernel 1's.
-    B = 1000 has more row blocks than resident clusters; at H = 150 the
-    weight slices do not fit beside the tiles and stay in global memory."""
+    above), bitwise repeatable; its first attempt's evaluations bitwise
+    kernels 1 and 2 (``_kernel4_attempt_is_kernels_1_and_2``). B = 1000 has
+    more row blocks
+    than resident clusters; at H = 150 the weight slices do not fit beside
+    the tiles and stay in global memory."""
     from localregneuralde_tpu_torch.ops.cuda import _build, fused_solve
 
     w, x = _card_setup(cuda_device, batch, 784, hidden)
@@ -1090,9 +1092,7 @@ def test_cluster_solve_on_card(cuda_device, batch, hidden):
     assert 1 <= clusters <= len(plan.row_blocks)
     if batch == 1000:
         assert clusters < len(plan.row_blocks)
-    for s in (0.0, 0.3):
-        assert torch.equal(fused_solve.solve_eval(w, x, s),
-                           fused_tdmlp(w, x, s))
+    _kernel4_attempt_is_kernels_1_and_2(w, x)
     kw = dict(rtol=1e-4, atol=1e-4, max_steps=64,
               saveat_arr=torch.tensor([0.5, 1.0], device=cuda_device))
     out = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw)
@@ -1103,6 +1103,127 @@ def test_cluster_solve_on_card(cuda_device, batch, hidden):
     again = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw)
     assert torch.equal(out["ys"], again["ys"])
     assert torch.equal(out["y_final"], again["y_final"])
+
+
+def _kernel4_attempt_is_kernels_1_and_2(w, x):
+    """One attempt of kernel 4 (max_steps 1) from the wrapper's own start,
+    its buffers read from its scratch (segment layout) through
+    ``fused_solve.segment_index``: kernel 2's step from the same state has
+    its u_new and k2..k7 bitwise, and kernel 1 at (u_new, dt) its k7 (the
+    attempt's last evaluation)."""
+    from localregneuralde_tpu_torch.ops.cuda import fused_solve
+
+    B, F = x.shape
+    k1_0, dt0, _ = fused_solve._start(lambda u, t: fused_tdmlp(w, u, t), x,
+                                      0.0, 1.0, 1e-4, 1e-4)
+    scratch = torch.empty(fused_solve.solve_plan(B, F, w.b1.shape[0])
+                          .scratch_floats, device=x.device)
+    one = fused_solve._launch_solve(
+        w, x, (0.0, 1.0), rtol=1e-4, atol=1e-4, max_steps=1,
+        saveat_arr=torch.ones(1, device=x.device), scratch=scratch)
+    assert int(one["naccept"]) == 1
+    bufs = scratch.view(9, B, -1)[:, :, fused_solve.segment_index(F)
+                                  .to(x.device)]
+    assert torch.equal(bufs[0], x) and torch.equal(bufs[2], k1_0)
+    step = fused_tsit5_step(w, x, torch.zeros((), device=x.device), dt0,
+                            k1_0)
+    assert torch.equal(step[0], one["y_final"])
+    assert torch.equal(bufs[1], one["y_final"])
+    for j in range(6):
+        assert torch.equal(bufs[3 + j], step[2 + j])
+    assert torch.equal(fused_tdmlp(w, one["y_final"], dt0), bufs[8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 784, 100), (7, 784, 100),
+                                   (410, 784, 100), (1000, 784, 100),
+                                   (13, 13, 30), (410, 784, 150),
+                                   (410, 784, 160), (64, 784, 373)])
+def test_cluster_tdmlp_and_step_on_card(cuda_device, shape):
+    """Kernels 1 and 2 on their clusters against their plain versions
+    (FP32 sums in another order than cuBLAS's, as above), bitwise
+    repeatable, each call one launch. B = 1 and 7 take one row a cluster;
+    B = 1000 loops its clusters over the row blocks; at H = 150 the weight
+    slices still fit beside the tiles, from H = 160 they stay in global
+    memory; H = 373 is the widest the first port took at F = 784."""
+    from localregneuralde_tpu_torch.ops.cuda import fused_solve
+
+    batch, features, hidden = shape
+    w, x = _card_setup(cuda_device, *shape)
+    plan = fused_solve.eval_layout(batch, features, hidden)[1]
+    assert plan.weights_shared == (hidden < 160)
+    assert 1 <= plan.clusters and plan.clusters * plan.rows >= min(
+        batch, plan.clusters * plan.rows_max)
+    t = torch.tensor(0.2, device=cuda_device)
+    dt = torch.tensor(0.05, device=cuda_device)
+    before = (fused_tdmlp.launches, fused_tsit5_step.launches)
+    y = fused_tdmlp(w, x, 0.3)
+    k1 = fused_tdmlp(w, x, t)
+    out = fused_tsit5_step(w, x, t, dt, k1)
+    assert (fused_tdmlp.launches - before[0],
+            fused_tsit5_step.launches - before[1]) == (2, 1)
+    torch.testing.assert_close(y, tdmlp_plain(w, x, 0.3), atol=1e-5, rtol=0)
+    for a, b in zip(out, tsit5_step_plain(w, x, t, dt, k1)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    assert torch.equal(fused_tdmlp(w, x, 0.3), y)
+    assert all(torch.equal(a, b)
+               for a, b in zip(fused_tsit5_step(w, x, t, dt, k1), out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hidden", [(512, 100), (410, 160)])
+def test_cluster_tdmlp_grid_and_clock_on_card(cuda_device, batch, hidden):
+    """Both kernels at 40 rows a cluster are bitwise the wrappers'
+    results; the library's grid is ``eval_plan``'s; kernel 2's clocked
+    instantiation is bitwise its untimed self; and kernel 4's first attempt
+    is bitwise kernels 1 and 2."""
+    import ctypes
+
+    from localregneuralde_tpu_torch.ops.cuda import _build, fused_solve
+
+    w, x = _card_setup(cuda_device, batch, 784, hidden)
+    lib, plan = fused_solve.eval_layout(batch, 784, hidden)
+    grid = (ctypes.c_int * 2)()
+    assert lib.lrnde_eval_grid(batch, 784, hidden, 40, 1, grid) == 0
+    resident = _resident(lib, hidden)
+    assert tuple(grid) == fused_solve.eval_plan(batch, 784, hidden, resident,
+                                                rows=40)[2:4]
+    assert (plan.rows, plan.clusters) == fused_solve.eval_plan(
+        batch, 784, hidden, resident)[2:4]
+    p, stream = _build.ptr, _build.stream_ptr(x.device)
+    s = torch.tensor([0.3], device=cuda_device)
+    want = fused_tdmlp(w, x, 0.3)
+    for rows in (0, 40):
+        out = torch.empty_like(x)
+        assert lib.lrnde_tdmlp(p(x), p(s), *[p(t) for t in w], p(out), batch,
+                               784, hidden, rows, stream) == 0
+        assert torch.equal(out, want), rows
+    t = torch.tensor(0.2, device=cuda_device)
+    dt = torch.tensor(0.05, device=cuda_device)
+    k1 = fused_tdmlp(w, x, t)
+    ref = fused_tsit5_step(w, x, t, dt, k1)
+    sc = torch.stack([t, dt])
+    timing = torch.zeros(lib.lrnde_step_phases() + 1, dtype=torch.int64,
+                         device=cuda_device)
+    for rows, clock in ((40, None), (0, timing)):
+        outs = [torch.empty_like(x) for _ in range(9)]
+        scratch = torch.empty(plan.scratch_floats, device=cuda_device)
+        assert lib.lrnde_tsit5_step(
+            p(x), p(k1), p(sc), *[p(t_) for t_ in w], *[p(o) for o in outs],
+            p(scratch), batch, 784, hidden, rows,
+            None if clock is None else p(clock), stream) == 0
+        assert all(torch.equal(a, b) for a, b in zip(outs, ref)), rows
+    assert int(timing[-1]) == 1 and int(timing[:-1].sum()) > 0
+    _kernel4_attempt_is_kernels_1_and_2(w, x)
+
+
+def _resident(lib, hidden):
+    """The clusters this card keeps resident for kernels 1 and 2."""
+    import ctypes
+
+    grid = (ctypes.c_int * 2)()
+    assert lib.lrnde_eval_grid(1 << 20, 784, hidden, 1, 0, grid) == 0
+    return grid[1]
 
 
 @pytest.mark.cuda
