@@ -76,16 +76,19 @@ on the card:
 15. draws three batches of 4096 samples each through ``sample_vpsde`` and
     ``sample_probability_flow`` (one kernel launch per draw, nothing else),
     with ms, samples/s and NFE, and a batch of 256 against the CPU;
-16. holds kernel 15, the conv-orientation probe's tap and im2col layouts,
-    against cuDNN in FP32 at (32, 32, 32, 64) and times both beside the conv
-    GEMM core's forward and cuDNN.
+16. holds kernel 15, the conv-orientation probe's tap and im2col layouts
+    on the tensor cores (3xTF32 ``wgmma``), against cuDNN in FP32 at (32,
+    32, 32, 64) and against a float64 conv (within twice the first port's
+    error), bitwise repeatable and against its digests, and times both
+    beside the conv GEMM core's forward and cuDNN, with a clocked split by
+    phase and its probe variants (``[conv orient ...]``).
 
 Beside those: each persistent kernel's outputs (kernels 4 at both
 tolerances, 5, 6, 8's replay and its gradients, 9, 10, 11 and 12, and
-kernels 1, 2, 13 and 14) are hashed with SHA-256 and held against ``DIGESTS``,
-the digests of the kernels before their redesign for the H100 (or, where
-a redesign changed a sum's order on purpose, after it), so a kernel change
-that keeps them is bitwise the old kernel;
+kernels 1, 2, 13, 14 and 15) are hashed with SHA-256 and held against
+``DIGESTS``, the digests of the kernels before their redesign for the H100
+(or, where a redesign changed a sum's order on purpose, after it), so a
+kernel change that keeps them is bitwise the old kernel;
 kernels 13 and 14 are split by kernel with ``torch.profiler``, and kernel
 13's launch sequence by role in training and in eval with the running stats
 (``[conv attribution ...]``: its conv1, conv2, conv3, bn_act, stage, time
@@ -167,16 +170,17 @@ CIFAR_CONFIG = "experiments/cifar10/cnn.yaml"
 CIFAR_BATCHES = 3  # eval batches of 32
 CIFAR_STEPS = 3    # train steps per arm
 # NVIDIA H100 SXM, dense (NVIDIA's data sheet): FP32 outside the tensor
-# cores, and HBM3
+# cores, TF32 on them, and HBM3
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 
-def bound(flops, nbytes):
-    """The least time the card could take for work of ``flops`` FP32
-    operations that must move ``nbytes`` bytes: the larger of the two
-    times at the card's peaks, and which one it is."""
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_FP32):
+    """The least time the card could take for work of ``flops`` operations
+    at ``peak`` (FP32 by default) that must move ``nbytes`` bytes: the
+    larger of the two times at the card's peaks, and which one it is."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=None)
@@ -410,7 +414,11 @@ def conv_role(name, seen):
 # stats, no statistics) bitwise the first port's. "K1" (kernel 1 at B = 512
 # and 410, s = 0 and 0.3) and "K2" (kernel 2's nine outputs at B = 512 and
 # 410, t = 0.2, dt = 0.05, from kernel 1's k1) are taken on the first ports
-# and hold through their cluster redesign.
+# and hold through their cluster redesign. "K15 tap" and "K15 im2col" (both
+# layouts' outputs at [conv orient]'s inputs) are taken on kernel 15's
+# tensor-core redesign, whose 3xTF32 sums run in wgmma's order (a new order
+# on purpose; the first port's were 870e470e... and 78a25b53...); the two
+# are equal, the layouts doing the same sums.
 DIGESTS = {
     "K1":
         "a54e79251265007d0f4ae5849a5a03985be719f3e334dcbacdf718e01035aa65",
@@ -456,6 +464,10 @@ DIGESTS = {
         "ca9f88fe5ce6a853a9ba2a6b0659dfe20b46d5692ae23c964ac63511093b45f5",
     "K14":
         "250f93031de4b10a367798498581d9e3701cd576dd5fcef85d4a2b4ea66b64ab",
+    "K15 tap":
+        "2eb4880f6f150bedab40cad3b4ef33ba1fe90239f1e0452bd0f712b075070687",
+    "K15 im2col":
+        "2eb4880f6f150bedab40cad3b4ef33ba1fe90239f1e0452bd0f712b075070687",
 }
 SEEN_DIGESTS = {}
 # Kernel 3's largest error relative to the float64 plain VJP, on the kernel
@@ -477,13 +489,14 @@ K13_STATS_FP64_BEFORE = (5.064e-7, 4.848e-7)
 # Hopper redesign: the redesign may at most double it.
 K12_FP64_BEFORE = 4.438e-7
 # Device ms per call back to back of kernels 13 (training, eval with the
-# running stats), 14, 12, 10, 6, 1 and 2 before their Hopper redesign,
+# running stats), 14, 12, 10, 6, 1, 2 and 15 before their Hopper redesign,
 # measured by this script's [conv attribution], [sde sweep], [sde solve],
-# [pf solve] and [kernel ...] (the last four as raw launches) on the parent
-# tree (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's.
+# [pf solve], [kernel ...] and [conv orient] (the last five as raw
+# launches) on the parent tree (NVIDIA H100 80GB HBM3, 700 W), printed
+# beside this run's.
 PARENT_MS = {"K13 train": 1.2836, "K13 eval": 1.0128, "K14": 3.7444,
              "K12": 1.908, "K10": 0.9097, "K6": 0.9225, "K1": 0.0349,
-             "K2": 0.2169}
+             "K2": 0.2169, "K15 tap": 0.09052, "K15 im2col": 0.26503}
 # Rows of kernel 6's error blocks (the slots of its error norm)
 PF_ERROR_ROWS = 8
 DIGEST_KEYS = ("y_final", "ys", "naccept", "nreject", "natt")
@@ -3926,10 +3939,32 @@ def phase_score_sampling(device):
     return counts
 
 
+# Kernel 15's layouts before their Hopper redesign (the first port's FFMA
+# kernels): each one's max-abs error against a float64 conv of
+# [conv orient]'s inputs (max|y| 3.14), measured by this script's [conv
+# orient fp64] on the first port (NVIDIA H100 80GB HBM3, 700 W): the
+# redesign may at most double them.
+K15_FP64_BEFORE = {"conv_orient_tap": 7.0203e-07,
+                   "conv_orient_im2col": 3.2514e-06}
+# The probe variants of lrnde_conv_orient_probe after the kernel itself
+# (variant 0), in order
+ORIENT_PROBES = ("64-pixel tiles", "hi·hi only (1xTF32)",
+                 "A tiles by the threads' 4-byte copies",
+                 "one wgmma accumulator")
+# the probe variants that change the sums (printed against float64, not
+# held bitwise to the kernel)
+ORIENT_INEXACT = (2, 4)
+
+
 def phase_conv_orient(device):
-    """Kernel 15's two layouts at the probe's (32, 32, 32, 64) against the
-    FP32 plain conv (cuDNN), timed beside kernel 13's implicit GEMM and
-    cuDNN. Returns the kernels' entries and their launch counts."""
+    """Kernel 15's two layouts at the probe's (32, 32, 32, 64): against the
+    FP32 plain conv (cuDNN, 1e-5 of max|y|) and a float64 conv (twice the
+    first port's error), bitwise repeatable, digested; timed beside kernel
+    13's implicit GEMM and cuDNN; each layout's clocked instantiation
+    (bitwise its untimed self) splits CTA 0's time by phase, and the probe
+    variants (64-pixel tiles, hi·hi only, the threads' A path, one
+    accumulator) are timed beside it. Returns the kernels' entries and their
+    launch counts."""
     import torch
 
     from localregneuralde_tpu_torch.ops.cuda import (
@@ -3942,15 +3977,33 @@ def phase_conv_orient(device):
     x = torch.rand(b, h, w, c, generator=g).to(device)
     wt = (0.05 * torch.randn(3, 3, c, c, generator=g)).to(device)
     ref = conv_orient_plain(x, wt)
+    ref64 = conv_orient_plain(x.double(), wt.double())
+    wrappers = {"conv_orient_tap": conv_orient_tap,
+                "conv_orient_im2col": conv_orient_im2col}
     # the probe's two launches, counted
     reset_launch_counts()
-    outs = {"conv_orient_tap": conv_orient_tap(x, wt),
-            "conv_orient_im2col": conv_orient_im2col(x, wt)}
+    outs = {k: fn(x, wt) for k, fn in wrappers.items()}
     counts = launch_counts()
     scale = float(ref.abs().max())
     errs = {k: max_abs(v, ref) for k, v in outs.items()}
     check(all(e <= 1e-5 * scale for e in errs.values()),
           f"conv orient vs cuDNN FP32: {errs} of {scale}")
+    errs64 = {k: max_abs(v.double(), ref64) for k, v in outs.items()}
+    print(f"[conv orient fp64] max-abs vs a float64 conv: "
+          + ", ".join(f"{k} {e:.4e}" for k, e in errs64.items())
+          + f"; cuDNN FP32 {max_abs(ref.double(), ref64):.4e} (max|y| "
+          f"{float(ref64.abs().max()):.4e})"
+          + ("" if K15_FP64_BEFORE is None else
+             f"; the first port's {K15_FP64_BEFORE}"))
+    if K15_FP64_BEFORE is not None:
+        check(all(errs64[k] <= 2 * K15_FP64_BEFORE[k] for k in errs64),
+              f"conv orient fp64: {errs64} past twice {K15_FP64_BEFORE}")
+    for (k, fn), layout in zip(wrappers.items(), ("tap", "im2col")):
+        check(torch.equal(fn(x, wt), outs[k]),
+              f"conv orient {layout}: two launches differ")
+        digest(f"K15 {layout}", outs[k])
+    print("[conv orient] tap and im2col bitwise equal: "
+          f"{torch.equal(*outs.values())}")
     sc = torch.zeros(2, device=device)
     out = torch.empty_like(ref)
     raws = [raw_launch(entry, x, wt, out, b, h, w, c, c)
@@ -3962,20 +4015,90 @@ def phase_conv_orient(device):
     with torch.no_grad():
         times = back_to_back_ms(raws + [lambda: conv_orient_plain(x, wt)],
                                 n=50, warmup=5)
+        calls = median_ms([lambda: fn(x, wt) for fn in wrappers.values()])
     flops = 2 * b * h * w * 9 * c * c
     for name, ms in zip(("tap", "im2col", "conv core forward (K13, K14)",
                          "cuDNN FP32"), times):
+        parent = PARENT_MS.get(f"K15 {name}")
         print(f"[conv orient] {name}: {1e3 * ms:.2f} µs per conv, "
-              f"{flops / (ms / 1e3) / 1e12:.2f} TFLOP/s")
+              f"{flops / (ms / 1e3) / 1e12:.2f} TFLOP/s"
+              + ("" if parent is None else f" (parent {1e3 * parent:.2f})"))
     print(f"[conv orient] max-abs vs cuDNN FP32 {errs} (max|y| {scale:.3e})")
+    # in x and the weight, out y; the products as 3xTF32 on the tensor
+    # cores, beside the FFMA bound of the first port's kind
+    nbytes = 4 * (2 * x.numel() + wt.numel())
+    ffma = bound(flops, nbytes)
     res = {}
-    for (name, err), ms in zip(errs.items(), times):
-        # in x and the weight, out y
-        r = dict(max_abs_err=err, ms=ms, plain_ms=times[3],
-                 **bound(flops, 4 * (2 * x.numel() + wt.numel())))
+    for (name, err), ms, call in zip(errs.items(), times, calls):
+        r = dict(max_abs_err=err, ms=ms, plain_ms=times[3], call_ms=call,
+                 **bound(3 * flops, nbytes, PEAK_TF32))
         r["library_ms"] = times[3]
         res[name] = r
+        print(f"[conv orient] {name}: bound {r['bound_ms']:.4f} ms as 3xTF32 "
+              f"(share {r['bound_ms'] / ms:.1%}), {ffma['bound_ms']:.4f} ms "
+              f"as FFMA (share {ffma['bound_ms'] / ms:.1%}); one wrapper "
+              f"call {call:.4f} ms")
+    lib = _build_lib()
+    if hasattr(lib, "lrnde_conv_orient_probe"):
+        phase_orient_probe(lib, x, wt, outs, ref64, flops)
     return res, counts
+
+
+def phase_orient_probe(lib, x, wt, outs, ref64, flops, runs=3):
+    """Kernel 15 by phase and in its probe variants: each layout's clocked
+    instantiation (CTA 0's consumer warpgroup 0, %globaltimer, the mean of
+    ``runs`` launches) bitwise its untimed self; then each variant of
+    ORIENT_PROBES (the threads' A path and 64-pixel tiles bitwise the
+    kernel, hi·hi only and one accumulator against float64) timed back to
+    back beside the kernel."""
+    import torch
+
+    b, h, w, c = x.shape
+    phases = _phase_names(lib, "lrnde_conv_orient_phase_names")
+    fns, labels = [], []
+    for layout, name in enumerate(("tap", "im2col")):
+        want = outs[f"conv_orient_{name}"]
+
+        def timed(timing, layout=layout):
+            y = torch.empty_like(want)
+            check(raw_launch("lrnde_conv_orient_probe", layout, 0, x, wt, y,
+                             b, h, w, c, c, timing)() == 0,
+                  f"conv orient {name}: the clocked launch failed")
+            return y
+
+        y, per, _, _ = _clocked(timed, len(phases), x.device, runs)
+        check(torch.equal(y, want),
+              f"conv orient {name}: the clocked kernel's result differs")
+        print(f"[conv orient attribution] {name}, CTA 0, µs (mean of {runs} "
+              f"launches): " + ", ".join(f"{p} {v:.3f}"
+                                         for p, v in zip(phases, per))
+              + f"; sum {sum(per):.3f}; bitwise the untimed kernel")
+        for variant, probe in enumerate(("the kernel", *ORIENT_PROBES)):
+            y = torch.empty_like(want)
+            fn = raw_launch("lrnde_conv_orient_probe", layout, variant, x,
+                            wt, y, b, h, w, c, c, None)
+            check(fn() == 0, f"conv orient {name} {probe}: launch failed")
+            torch.cuda.synchronize()
+            if variant in ORIENT_INEXACT:
+                print(f"[conv orient probe] {name} {probe}: max-abs vs "
+                      f"float64 {max_abs(y.double(), ref64):.4e}")
+            else:
+                check(torch.equal(y, want),
+                      f"conv orient {name} {probe}: differs from the kernel")
+            fns.append(fn)
+            labels.append(f"{name} {probe}")
+    ms = back_to_back_ms(fns, n=50, warmup=5)
+    print("[conv orient probe] µs per conv back to back (TFLOP/s), the "
+          "exact variants bitwise the kernel: " + "; ".join(
+              f"{label} {1e3 * m:.2f} ({flops / (m / 1e3) / 1e12:.1f})"
+              for label, m in zip(labels, ms)))
+    n = len(ORIENT_PROBES) + 1
+    for layout, name in enumerate(("tap", "im2col")):
+        kernel, rows64 = ms[layout * n], ms[layout * n + 1]
+        print(f"[conv orient grid] {name}: 128-pixel tiles (the kernel's) "
+              f"{1e3 * kernel:.2f} µs, 64-pixel tiles {1e3 * rows64:.2f} µs: "
+              + ("the kernel's tiles are faster" if kernel <= rows64
+                 else "64-pixel tiles would be faster"))
 
 
 PARTS = ("kernels", "backward", "sde", "chain", "latent", "conv",

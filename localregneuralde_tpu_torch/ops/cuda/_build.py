@@ -108,6 +108,8 @@ _SIGNATURES = {
     "lrnde_sde_solve_grid": [_I, _I, _I, _P],
     "lrnde_conv_orient_tap": [_P] * 3 + [_I] * 5 + [_P],
     "lrnde_conv_orient_im2col": [_P] * 3 + [_I] * 5 + [_P],
+    "lrnde_conv_orient_probe": [_I, _I] + [_P] * 3 + [_I] * 5 + [_P, _P],
+    "lrnde_conv_orient_tile_test": [_P] * 3 + [_I, _I, _P],
 }
 
 # C entry -> argument types of the integer queries
@@ -139,7 +141,6 @@ _SIZES = {
     "lrnde_conv_step_bwd_scratch_floats": [_I] * 5,
     "lrnde_vpsde_solve_smem_floats": [_P, _I],
     "lrnde_pf_solve_smem_floats": [_P, _I],
-    "lrnde_conv_orient_im2col_smem_floats": [_I],
     "lrnde_conv_core_scratch_floats": [_I] * 6,
 }
 
@@ -239,7 +240,8 @@ def load_library() -> ctypes.CDLL:
     for name in ("lrnde_chain_solve_phase_names",
                  "lrnde_chain_sweep_phase_names",
                  "lrnde_pf_solve_phase_names",
-                 "lrnde_sde_sweep_phase_names"):
+                 "lrnde_sde_sweep_phase_names",
+                 "lrnde_conv_orient_phase_names"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_char_p
     lib.lrnde_error_string.argtypes = [ctypes.c_int]

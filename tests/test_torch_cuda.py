@@ -1055,13 +1055,65 @@ def test_attribution_clocks_bitwise_on_card(cuda_device):
                               SCHEDULE, ref)
 
 
+def _orient_tile_test(device, a, b, split, tma):
+    """d = a · bᵀ on one 64 x 64 tile through kernel 15's swizzle, lo split
+    and wgmma descriptors (``lrnde_conv_orient_tile_test``)."""
+    from localregneuralde_tpu_torch.ops.cuda import _build
+
+    lib = _build.load_library()
+    d = torch.empty(64, 64, device=device)
+    p = _build.ptr
+    err = lib.lrnde_conv_orient_tile_test(p(a), p(b), p(d), int(split),
+                                          int(tma), _build.stream_ptr(device))
+    _build.check(lib, err, "lrnde_conv_orient_tile_test")
+    torch.cuda.synchronize()
+    return d
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 5, 7, 16, 24), (4, 32, 32, 64, 64)])
+@pytest.mark.parametrize("tma", [False, True])
+@pytest.mark.parametrize("split", [False, True])
+def test_conv_orient_wgmma_tile_on_card(cuda_device, split, tma):
+    # one 64 x 64 x 32 tile of known matrices: small integers are exact in
+    # TF32 and in every partial sum, so any fault of the descriptors (start
+    # address, SBO, swizzle) or of TMA's swizzle against the threads' shows
+    # as a wrong element; then random floats, where 3xTF32 keeps ~1e-6 of
+    # the products' scale and hi·hi alone ~1e-3
+    g = torch.Generator().manual_seed(3)
+    a = torch.randint(-8, 9, (64, 32), generator=g).float()
+    b = torch.randint(-8, 9, (64, 32), generator=g).float()
+    want = a.double() @ b.double().T
+    got = _orient_tile_test(cuda_device, a.to(cuda_device),
+                            b.to(cuda_device), split, tma)
+    assert torch.equal(got.cpu().double(), want)
+    a = torch.randn(64, 32, generator=g)
+    b = torch.randn(64, 32, generator=g)
+    want = a.double() @ b.double().T
+    scale = float((a.double().abs() @ b.double().abs().T).max())
+    got = _orient_tile_test(cuda_device, a.to(cuda_device),
+                            b.to(cuda_device), split, tma)
+    err = float((got.cpu().double() - want).abs().max()) / scale
+    if split:
+        assert err <= 1e-6
+    else:
+        assert 1e-5 <= err <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 5, 7, 16, 24), (4, 32, 32, 64, 64),
+                                   (2, 6, 9, 3, 16), (1, 9, 11, 20, 30),
+                                   (2, 7, 5, 13, 21), (1, 3, 130, 12, 9)])
 def test_conv_orient_matches_plain_on_card(cuda_device, shape):
     # kernel 15's two layouts against cuDNN in FP32: 1e-5 of the largest
-    # value (FP32 sums in another order)
+    # value (3xTF32 products, sums in another order); against a float64
+    # conv within twice the error of the CPU model of the kernel's
+    # arithmetic (test_torch_conv_orient_plan.kernel_model, floored at
+    # 2**-22 of the largest value); bitwise repeatable, and the threads' A
+    # path (Cin = 3 and 13 take it anyway) bitwise TMA's; one launch a call
+    from test_torch_conv_orient_plan import model_error
+
     from localregneuralde_tpu_torch.ops.cuda import (
-        conv_orient_im2col, conv_orient_plain, conv_orient_tap,
+        _build, conv_orient_im2col, conv_orient_plain, conv_orient_tap,
     )
 
     b, h, w, cin, cout = shape
@@ -1069,8 +1121,24 @@ def test_conv_orient_matches_plain_on_card(cuda_device, shape):
     x = torch.rand(b, h, w, cin, generator=g).to(cuda_device)
     wt = (0.05 * torch.randn(3, 3, cin, cout, generator=g)).to(cuda_device)
     ref = conv_orient_plain(x, wt)
-    assert _rel(conv_orient_tap(x, wt), ref) <= 1e-5
-    assert _rel(conv_orient_im2col(x, wt), ref) <= 1e-5
+    ref64 = conv_orient_plain(x.double(), wt.double())
+    scale = float(ref64.abs().max())
+    lib = _build.load_library()
+    for layout, fn in enumerate((conv_orient_tap, conv_orient_im2col)):
+        base = max(model_error(shape, ("tap", "im2col")[layout]),
+                   2**-22 * scale)
+        before = fn.launches
+        y = fn(x, wt)
+        assert fn.launches == before + 1
+        assert _rel(y, ref) <= 1e-5
+        assert float((y.double() - ref64).abs().max()) <= 2 * base
+        assert torch.equal(fn(x, wt), y)
+        threads = torch.empty_like(y)
+        err = lib.lrnde_conv_orient_probe(
+            layout, 3, _build.ptr(x), _build.ptr(wt), _build.ptr(threads), b,
+            h, w, cin, cout, None, _build.stream_ptr(cuda_device))
+        _build.check(lib, err, "lrnde_conv_orient_probe")
+        assert torch.equal(threads, y)
 
 
 @pytest.mark.cuda
