@@ -81,7 +81,17 @@ on the card:
     32, 32, 64) and against a float64 conv (within twice the first port's
     error), bitwise repeatable and against its digests, and times both
     beside the conv GEMM core's forward and cuDNN, with a clocked split by
-    phase and its probe variants (``[conv orient ...]``).
+    phase and its probe variants (``[conv orient ...]``);
+17. trains ``mlp.yaml`` and the bench tolerance (unbiased), the MNIST SDE
+    (unbiased), PhysioNet as shipped and CIFAR-10 (unbiased) through the
+    K-step train call (``make_multi_train_step``, K = auto = 5): one call
+    against five ``make_train_step`` calls from a copy of the same state,
+    bitwise where the call is one CUDA-graph replay (every path but CIFAR,
+    whose eager call is held bitwise with cuDNN deterministic), the port
+    kernels of one replay against the eager steps' (``torch.profiler``),
+    ms a step both ways and the replay's busy share, and one captured call
+    with ``grad_accumulation=2`` and ``ema_decay=0.999`` (``[capture
+    ...]``, ``--only=capture``).
 
 Beside those: each persistent kernel's outputs (kernels 4 at both
 tolerances, 5, 6, 8's replay and its gradients, 9, 10, 11 and 12, and
@@ -127,8 +137,9 @@ score, attribution, orient, solve) without the model paths, and prints
 neither the kernels line nor the ok line; ``ode`` adds the MNIST ODE's
 serving and training paths (``[slice ...]``, ``[train ...]``) and
 ``latent`` the latent runner's (``[latent ...]``), ``sde_train`` the
-MNIST-SDE train steps (``[sde train ...]``) and ``cifar`` the CIFAR-10
-serving and training paths (``[cifar ...]``).
+MNIST-SDE train steps (``[sde train ...]``), ``cifar`` the CIFAR-10
+serving and training paths (``[cifar ...]``) and ``capture`` the K-step
+train calls (``[capture ...]``).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
 kernel, the ``mlp.yaml`` serving batch by part (``[profile serve]``), the
@@ -146,6 +157,7 @@ failed check exits non-zero without that line, as does a machine without a
 CUDA device.
 """
 import functools
+import gc
 import hashlib
 import json
 import os
@@ -1905,7 +1917,7 @@ def _sde_raw_args(w, u0, kw):
     bar = torch.zeros(1, dtype=torch.int32, device=dev)
     args = [int(kw["solver"] == "sosri"), u0,
             fs.device_scalars([0.0, 1.0, dt], u0), saveat, saveat.shape[0],
-            *w, kw["noise"].seed, 24, out["y_final"], out["ys"],
+            *w, kw["noise"].seed_word(dev), 24, out["y_final"], out["ys"],
             out["stats_i"], out["stats_f"], new(Bs, Fs), wz[0], wz[1],
             new(2 * n_blocks), bar, None, None, out["knot_ts"],
             out["knot_us"], out["knot_dws"], out["knot_dzs"], Bs, Fs,
@@ -3414,7 +3426,8 @@ def _vpsde_raw_args(ps, chain, u0, span, saveat, sched, noise):
     y = new(B, F)
     wz = new(2, 2, B, F)
     args = [1, u0, fs.device_scalars([t0, te, dt], u0), saveat, 1,
-            *fs.score_operands(ps, chain, **sched), noise.seed, 24, y,
+            *fs.score_operands(ps, chain, **sched),
+            noise.seed_word(u0.device), 24, y,
             new(1, B, F), new(4, dtype=torch.int32), new(2), new(B, F), wz[0],
             wz[1], new(2 * n_blocks), bar, B, SCORE_MAX_STEPS, SCORE_TOL,
             SCORE_TOL, 1 / 6, 1.0 / (B * F)]
@@ -4101,9 +4114,359 @@ def phase_orient_probe(lib, x, wt, outs, ref64, flops, runs=3):
                  else "64-pixel tiles would be faster"))
 
 
+# ---------------------------------------------------------------------------
+# the K-step train call: one CUDA-graph replay of K captured train steps
+
+CAPTURE_CALLS = 5      # timed calls per side (the median is printed)
+
+
+def _generators(tree):
+    import torch
+
+    if isinstance(tree, torch.Generator):
+        return [tree]
+    if isinstance(tree, dict):
+        return [g for v in tree.values() for g in _generators(v)]
+    return []
+
+
+def _train_leaves(ts):
+    """(name, tensor) of everything a train step updates, in order: the
+    parameters, the optimizer's state, the EMA and the layer state."""
+    from localregneuralde_tpu_torch.harness.graph import _leaves
+
+    out = [(f"param {k}", v) for k, v in ts.params.items()]
+    for k, p in ts.params.items():
+        out += [(f"opt {k} {n}", v)
+                for n, v in ts.opt_state.state[p].items()]
+    if ts.ema is not None:
+        out += [(f"ema {k}", v) for k, v in ts.ema.items()]
+    return out + [(f"state {i}", v) for i, v in enumerate(_leaves(ts.state))]
+
+
+def _port_kernels(prof):
+    """Launches of the port's kernels (``lrnde::``) in a profile."""
+    import collections
+
+    import torch
+
+    counts = collections.Counter()
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "lrnde" in e.name):
+            counts[e.name.split("(")[0][:80]] += 1
+    return dict(counts)
+
+
+def _device_ms(prof):
+    """Device time (kernels, copies, memsets) in a profile, in ms."""
+    import torch
+
+    return sum(e.device_time for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def _capture_configs(device):
+    """(name, model, loss_fn, optimizer, w_regs, lrs, batches, reduce_fn)
+    of each configuration the capture phase runs, with K = auto."""
+    import numpy as np
+    import torch
+
+    from localregneuralde_tpu_torch.harness import (
+        construct_loss, construct_model, construct_optimizer,
+        construct_time_series, define_configuration, make_dataloader,
+    )
+    from localregneuralde_tpu_torch.harness.latent_runner import (
+        build_physionet_arrays,
+    )
+
+    def cls_reduce(loss, stats, data):
+        nfe = stats["nfe"]
+        nfe = nfe[0] if isinstance(nfe, tuple) else nfe
+        return {"loss": loss, "reg_val": stats["reg_val"],
+                "nfe": nfe.float()}
+
+    def cls(name, config, overrides, batches):
+        cfg = define_configuration(overrides, config)
+        model = construct_model(cfg, device=device)
+        loss_fn, w_reg = construct_loss(cfg)
+        opt, sched = construct_optimizer(cfg)
+        return (name, cfg, model, loss_fn, opt,
+                lambda k: np.asarray([w_reg(s + 1) for s in range(k)],
+                                     np.float32),
+                lambda k: np.asarray([sched(s + 1) for s in range(k)],
+                                     np.float32), batches, cls_reduce)
+
+    unb = ["--model.regularize=unbiased"]
+    out = [cls("mlp.yaml", CONFIG, unb, lambda k: _mnist_batches(device, k,
+                                                                 True)),
+           cls("bench", CONFIG, BENCH + unb,
+               lambda k: _mnist_batches(device, k, True)),
+           cls("mnist_sde", SDE_CONFIG, unb,
+               lambda k: _mnist_batches(device, k, True))]
+
+    cfg = define_configuration([], LATENT_CONFIG)
+    train, _, tgrid, _ = build_physionet_arrays(cfg)
+    model = construct_time_series(cfg, saveat=torch.from_numpy(tgrid),
+                                  device=device)
+    loss_fn, (w_reg, w_kl) = construct_loss(cfg)
+    opt, sched = construct_optimizer(cfg)
+
+    def latent_batches(k):
+        it = iter(make_dataloader(train, cfg.dataset.train_batchsize,
+                                  shuffle=True, cycle=True, seed=cfg.seed))
+        return [tuple(torch.from_numpy(a).to(device) for a in next(it))
+                for _ in range(k)]
+
+    def latent_reduce(loss, stats, data):
+        return {"loss": loss, "reg_val": stats["reg_val"],
+                "nfe": stats["nfe"].float()}
+
+    out.append(("physionet", cfg, model, loss_fn, opt,
+                lambda k: (np.asarray([w_reg(s + 1) for s in range(k)],
+                                      np.float32),
+                           np.asarray([w_kl(s + 1) for s in range(k)],
+                                      np.float32)),
+                lambda k: np.asarray([sched(s + 1) for s in range(k)],
+                                     np.float32),
+                latent_batches, latent_reduce))
+    out.append(cls("cifar", CIFAR_CONFIG, unb,
+                   lambda k: _cifar_batches(device, "train", k)))
+    return out
+
+
+def _eager_k(step, ts, batches, ws, lrs, reduce_fn):
+    """K single train steps; the reduction summed in the K-step call's
+    order."""
+    red = None
+    for k, data in enumerate(batches):
+        w = (tuple(float(x[k]) for x in ws) if isinstance(ws, tuple)
+             else float(ws[k]))
+        ts, loss, stats = step(ts, data, w, float(lrs[k]))
+        r = reduce_fn(loss, stats, data)
+        red = r if red is None else {key: red[key] + r[key] for key in red}
+    return ts, loss, red
+
+
+def _compare_states(a, b, red_a, red_b):
+    """The largest relative difference between two train states' tensors
+    and reductions, and whether every tensor and generator is bitwise
+    equal."""
+    import torch
+
+    la, lb = _train_leaves(a), _train_leaves(b)
+    check([n for n, _ in la] == [n for n, _ in lb]
+          and all(x.shape == y.shape and x.dtype == y.dtype
+                  for (_, x), (_, y) in zip(la, lb)),
+          "capture: the train states differ in layout")
+    pairs = [(x, y) for (_, x), (_, y) in zip(la, lb)]
+    pairs += [(red_a[k], red_b[k]) for k in red_a]
+    bitwise = all(torch.equal(x, y) for x, y in pairs)
+    gens = all(torch.equal(g.get_state(), h.get_state())
+               for g, h in zip(_generators(a.state), _generators(b.state)))
+    worst = 0.0
+    for x, y in pairs:
+        if x.is_floating_point():
+            scale = max(float(y.abs().max()), 1e-30)
+            worst = max(worst, float((x - y).abs().max()) / scale)
+    return bitwise, gens, worst
+
+
+def _param_spread(a, b, red_a, red_b):
+    """The largest difference of the parameters and the summed loss
+    between two train states, relative to the largest value of each."""
+    pairs = [(a.params[k], b.params[k]) for k in a.params]
+    pairs.append((red_a["loss"], red_b["loss"]))
+    return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+               for x, y in pairs)
+
+
+def phase_capture(device):
+    """The K-step train call against K eager train steps at full width:
+    ``mlp.yaml`` and the bench tolerance (both unbiased), the MNIST SDE
+    (unbiased), PhysioNet as shipped and CIFAR-10 (unbiased), each with K =
+    auto. Holds the call's train state (parameters, optimizer state, layer
+    state, the CPU generators) and its summed loss, reg_val and NFE
+    against K ``make_train_step`` calls from a copy of the same state on
+    the same batches, w_reg and learning rates: bitwise where the call is
+    one CUDA-graph replay; CIFAR's call is eager, and since cuDNN's FP32
+    convs are not repeatable run to run, its spread is printed and it is
+    held bitwise with cuDNN deterministic. Counts the port's
+    kernels of one replay and of K eager steps with ``torch.profiler``,
+    times both (the median of CAPTURE_CALLS calls a side) and prints the
+    replay's device-busy share; then one captured call with
+    ``grad_accumulation=2`` and ``ema_decay=0.999`` on ``mlp.yaml`` against
+    its eager twin. Returns the port kernels' launch counts of the
+    captured calls, by wrapper."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from localregneuralde_tpu_torch.harness import (
+        create_train_state, init_ema, make_multi_train_step, make_train_step,
+    )
+    from localregneuralde_tpu_torch.harness.graph import capturable
+    from localregneuralde_tpu_torch.harness.loop import (
+        resolve_steps_per_call,
+    )
+    from localregneuralde_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts,
+    )
+
+    reset_launch_counts()
+    rows = []
+    for (name, cfg, model, loss_fn, opt, ws_of, lrs_of, batches_of,
+         reduce_fn) in _capture_configs(device):
+        t = cfg.train
+        bs = cfg.dataset.train_batchsize
+        cap = capturable(model, bs, device)
+        K = resolve_steps_per_call(0, t.print_frequency, t.evaluate_every,
+                                   capturable=True)
+        check(K == 5, f"capture {name}: auto K is {K}, expected 5")
+        check(cap == (name != "cifar"),
+              f"capture {name}: the route predicate says {cap}")
+        batches = batches_of(2 * K)
+        ws, lrs = ws_of(K), lrs_of(K)
+        stack = tuple(torch.stack([b[i] for b in batches[:K]])
+                      for i in range(len(batches[0])))
+        step = make_train_step(model, loss_fn, opt)
+        multi = make_multi_train_step(model, loss_fn, opt, reduce_fn)
+        ts0 = create_train_state(model, opt)
+        a, loss_a, red_a = _eager_k(step, copy.deepcopy(ts0), batches[:K],
+                                    ws, lrs, reduce_fn)
+        b, loss_b, red_b = multi(copy.deepcopy(ts0), stack, ws, lrs)
+        torch.cuda.synchronize()
+        check(multi.captured == cap,
+              f"capture {name}: captured {multi.captured}, expected {cap}")
+        bitwise, gens, worst = _compare_states(a, b, red_a, red_b)
+        check(gens, f"capture {name}: the CPU generators differ")
+        nfe_a, nfe_b = int(red_a["nfe"]), int(red_b["nfe"])
+        head = (f"[capture {name}] K={K} captured={multi.captured}: summed "
+                f"loss {float(red_b['loss']):.6f} vs eager "
+                f"{float(red_a['loss']):.6f}, reg_val "
+                f"{float(red_b['reg_val']):.6e} vs "
+                f"{float(red_a['reg_val']):.6e}, NFE {nfe_b} vs {nfe_a}")
+        if cap:
+            print(f"{head}; bitwise {bitwise} (parameters, optimizer and "
+                  "layer state, generators, loss, reg_val, NFE)")
+            check(bitwise, f"capture {name}: the replay differs from "
+                  f"{K} eager steps (largest relative difference {worst:.3e})")
+        else:
+            # cuDNN's FP32 convs are not repeatable run to run (ROADMAP
+            # Queue 3): a second eager run measures that spread on the
+            # parameters and the summed loss; the call is then held
+            # bitwise against eager steps with cuDNN made deterministic
+            a2, _, red_a2 = _eager_k(step, copy.deepcopy(ts0), batches[:K],
+                                     ws, lrs, reduce_fn)
+            spread = _param_spread(a, a2, red_a, red_a2)
+            off = _param_spread(a, b, red_a, red_b)
+            torch.backends.cudnn.deterministic = True
+            try:
+                d_a, _, d_red_a = _eager_k(step, copy.deepcopy(ts0),
+                                           batches[:K], ws, lrs, reduce_fn)
+                d_b, _, d_red_b = multi(copy.deepcopy(ts0), stack, ws, lrs)
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            det, gens, _ = _compare_states(d_a, d_b, d_red_a, d_red_b)
+            print(f"{head}; with cuDNN's default convs the parameters and "
+                  f"summed loss differ by {off:.3e} of their largest value "
+                  f"(eager against eager {spread:.3e}: cuDNN's FP32 convs "
+                  "are not repeatable run to run); with cuDNN deterministic "
+                  f"the call is bitwise {det} (generators {gens})")
+            check(det and gens, f"capture {name}: the K-step call differs "
+                  "from eager steps with cuDNN deterministic")
+            del a2, d_a, d_b
+        # launches of the port's kernels: K eager steps against one call,
+        # from the same state on the same batches
+        nxt = batches[K:]
+        nstack = tuple(torch.stack([x[i] for x in nxt])
+                       for i in range(len(nxt[0])))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as pa:
+            a, _, _ = _eager_k(step, a, nxt, ws, lrs, reduce_fn)
+            torch.cuda.synchronize()
+        before = launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as pb:
+            t0 = time.perf_counter()
+            b, _, _ = multi(b, nstack, ws, lrs)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        ka, kb = _port_kernels(pa), _port_kernels(pb)
+        busy = _device_ms(pb)
+        print(f"[capture {name}] port kernels of {K} eager steps {ka}; of "
+              f"one call {kb}; the call {wall:.3f} ms under the profiler, "
+              f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
+        check(bool(kb), f"capture {name}: the profiler saw no port kernel")
+        if cap:
+            check(ka == kb, f"capture {name}: the replay's kernels differ "
+                  "from the eager steps'")
+            check(launch_counts() == before,
+                  f"capture {name}: a replay went through a wrapper")
+        else:
+            check(set(ka) == set(kb), f"capture {name}: kernels differ")
+        # ms a step, eager and captured (the median of CAPTURE_CALLS calls)
+        times = {"eager": [], "call": []}
+        for _ in range(CAPTURE_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a, _, _ = _eager_k(step, a, nxt, ws, lrs, reduce_fn)
+            torch.cuda.synchronize()
+            times["eager"].append(1e3 * (time.perf_counter() - t0) / K)
+            t0 = time.perf_counter()
+            b, _, _ = multi(b, nstack, ws, lrs)
+            torch.cuda.synchronize()
+            times["call"].append(1e3 * (time.perf_counter() - t0) / K)
+        e_ms = statistics.median(times["eager"])
+        c_ms = statistics.median(times["call"])
+        print(f"[capture {name}] ms a step: eager {e_ms:.3f} (min "
+              f"{min(times['eager']):.3f}, max {max(times['eager']):.3f}), "
+              f"K-step call {c_ms:.3f} (min {min(times['call']):.3f}, max "
+              f"{max(times['call']):.3f}); device busy a step "
+              f"{busy / K:.3f} ms")
+        rows.append(dict(name=name, K=K, captured=multi.captured,
+                         bitwise=bitwise, eager_ms=e_ms, call_ms=c_ms,
+                         busy_ms=busy / K, busy_share=busy / wall))
+        del a, b, multi, step, ts0, batches, stack, nstack, nxt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # grad_accumulation=2 and the params-EMA on mlp.yaml, captured
+    name, cfg, model, loss_fn, opt, ws_of, lrs_of, batches_of, reduce_fn = (
+        _capture_configs(device)[0])
+    K = 5
+    batches = batches_of(K)
+    ws, lrs = ws_of(K), lrs_of(K)
+    stack = tuple(torch.stack([x[i] for x in batches])
+                  for i in range(len(batches[0])))
+    kw = dict(grad_accumulation=2, ema_decay=0.999)
+    step = make_train_step(model, loss_fn, opt, **kw)
+    multi = make_multi_train_step(model, loss_fn, opt, reduce_fn, **kw)
+    ts0 = init_ema(create_train_state(model, opt))
+    a, _, red_a = _eager_k(step, copy.deepcopy(ts0), batches, ws, lrs,
+                           reduce_fn)
+    b, _, red_b = multi(copy.deepcopy(ts0), stack, ws, lrs)
+    torch.cuda.synchronize()
+    bitwise, gens, worst = _compare_states(a, b, red_a, red_b)
+    print(f"[capture mlp.yaml ga=2 ema=0.999] captured={multi.captured}: "
+          f"summed loss {float(red_b['loss']):.6f} vs eager "
+          f"{float(red_a['loss']):.6f}, NFE {int(red_b['nfe'])} vs "
+          f"{int(red_a['nfe'])}; bitwise {bitwise} (EMA included), "
+          f"generators {gens}")
+    check(multi.captured and bitwise and gens,
+          "capture: grad_accumulation=2 with the EMA differs from eager "
+          f"(largest relative difference {worst:.3e})")
+    del a, b, multi, step, ts0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"capture": rows}))
+    return launch_counts()
+
+
 PARTS = ("kernels", "backward", "sde", "chain", "latent", "conv",
          "conv_core", "score", "attribution", "orient", "solve", "ode",
-         "cifar", "sde_train")
+         "cifar", "sde_train", "capture")
 
 
 def partial_run(device, parts, profile=False):
@@ -4150,6 +4513,8 @@ def partial_run(device, parts, profile=False):
         phase_vpsde_attribution(device)
     if "orient" in parts:
         phase_conv_orient(device)
+    if "capture" in parts:
+        phase_capture(device)
     print(json.dumps({"digests": SEEN_DIGESTS}))
     print(f"chip_smoke: partial run of {parts}, every check passed")
     return 0
@@ -4188,6 +4553,7 @@ def main():
     res.update(phase_conv_kernels(device))
     phase_conv_core(device)
     path_counts.append(phase_cifar(device, profile=profile))
+    path_counts.append(phase_capture(device))
     res.update(phase_score_kernels(device))
     phase_vpsde_attribution(device)
     path_counts.append(phase_score_sampling(device))

@@ -73,7 +73,7 @@ struct SdeSolveArgs {
   const float* saveat;    // (n_save)
   int n_save;
   D w;
-  uint32_t seed;
+  const unsigned int* seed;  // the tree's Philox key word, in device memory
   int depth;
   float* u;               // (B, F) working state; y_final on exit
   float* ys;              // (n_save, B, F)
@@ -206,7 +206,7 @@ __host__ __device__ inline size_t sde_solve_smem_floats(const D& w) {
 template <typename D, typename Clock>
 __device__ void descend(const SdeSolveArgs<D>& a, const SdeStepSmem& s,
                         DescentPath& path, int rb, int nrows, float tau,
-                        float span, Clock& clock) {
+                        float span, uint32_t seed, Clock& clock) {
   const int F = a.w.F, P = (F + 1) / 2, depth = a.depth;
   const int items = nrows * P;
   const size_t BF = static_cast<size_t>(a.B) * F;
@@ -271,7 +271,7 @@ __device__ void descend(const SdeSolveArgs<D>& a, const SdeStepSmem& s,
     for (int d = threadIdx.x; d < items * (depth + 1); d += blockDim.x) {
       const int lvl = d / items, item = d - lvl * items;
       const int r = item / P, p = item - r * P;
-      s.nrm[d] = pair_normals(a.seed, p, rb * D::rows + r, path.node[lvl]);
+      s.nrm[d] = pair_normals(seed, p, rb * D::rows + r, path.node[lvl]);
     }
     __syncthreads();
     clock.mark(kPhDraws);
@@ -279,7 +279,7 @@ __device__ void descend(const SdeSolveArgs<D>& a, const SdeStepSmem& s,
   for (int item = threadIdx.x; item < items; item += blockDim.x) {
     const int r = item / P, p = item - r * P;
     const int row = rb * D::rows + r;
-    const float4 e = buffered ? s.nrm[item] : pair_normals(a.seed, p, row, 1);
+    const float4 e = buffered ? s.nrm[item] : pair_normals(seed, p, row, 1);
     const float root = __fsqrt_rn(span);
     float wb[4] = {__fmul_rn(e.x, root), __fmul_rn(e.y, root),
                    __fmul_rn(e.z, root), __fmul_rn(e.w, root)};
@@ -297,7 +297,7 @@ __device__ void descend(const SdeSolveArgs<D>& a, const SdeStepSmem& s,
       } else {
         const float m = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
         scale = __fsqrt_rn(__fmul_rn(__fmul_rn(__fadd_rn(hi, -lo), 0.25f), span));
-        n = pair_normals(a.seed, p, row, 2 * node + 2);
+        n = pair_normals(seed, p, row, 2 * node + 2);
         right = tau >= m;
         if (right) lo = m; else hi = m;
         node = 2 * node + (right ? 1 : 0);
@@ -458,6 +458,8 @@ sde_solve_kernel(SdeSolveArgs<D> a) {
   __shared__ DescentPath path;
   const SriTableau T = sri_tableau(kSosri);
   const float t0 = a.sc[0], t_end = a.sc[1], span = t_end - t0;
+  // read at launch, so a replayed graph draws the seed of its replay
+  const uint32_t seed = *a.seed;
   const bool record = a.knot_ts != nullptr;
 
   for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
@@ -503,7 +505,7 @@ sde_solve_kernel(SdeSolveArgs<D> a) {
     float* const slot = a.slots + (epoch & 1u) * n_blocks;
     for (int rb = blockIdx.x; rb < n_blocks; rb += gridDim.x) {
       const int nrows = min(R, B - rb * R);
-      descend(a, s, path, rb, nrows, ctl.tau, span, clock);
+      descend(a, s, path, rb, nrows, ctl.tau, span, seed, clock);
       clock.mark(kPhDescent);
       const float err = sri_rows(a, w, s, T, rb, nrows, t, dt_c, clock);
       if (tid == 0) __stcg(slot + rb, err);
@@ -638,13 +640,16 @@ extern "C" int lrnde_sde_solve_grid(int F, int H, int B, int* out) {
 // Kernel 10: the whole adaptive SRI (sosri = 0) or SOSRI (sosri = 1) solve
 // from u0 with sc = (t0, t_end, dt0) on the device. unew holds B·F floats,
 // wz0 and wz1 2·B·F each, slots 2·ceil(B / 4), barrier one zeroed unsigned
-// int. rand and res_u (the reservoir) and the four knot buffers may be null.
+// int, seed the Brownian tree's Philox key word (one unsigned int in device
+// memory, read at launch, so a captured launch takes each replay's seed).
+// rand and res_u (the reservoir) and the four knot buffers may be null.
 // Returns cudaGetLastError().
 #define LRNDE_SDE_SOLVE_PARAMS                                              \
   int sosri, const float *u0, const float *sc, const float *saveat,         \
       int n_save, const float *w1, const float *b1, const float *w2,        \
-      const float *b2, const float *wd, const float *bd, unsigned int seed, \
-      int depth, float *u, float *ys, int *stats_i, float *stats_f,         \
+      const float *b2, const float *wd, const float *bd,                    \
+      const unsigned int *seed, int depth, float *u, float *ys,             \
+      int *stats_i, float *stats_f,                                         \
       float *unew, float *wz0, float *wz1, float *slots,                    \
       unsigned int *barrier, const float *rand, float *res_u,               \
       float *knot_ts, float *knot_us, float *knot_dws, float *knot_dzs,     \
@@ -716,7 +721,7 @@ static int vpsde_solve(
     int sosri, const float* u0, const float* sc, const float* saveat,
     int n_save, const void* const* wb, const int* dims, int L,
     unsigned int acts, float beta_min, float d_beta, float t1,
-    unsigned int seed, int depth, float* u, float* ys, int* stats_i,
+    const unsigned int* seed, int depth, float* u, float* ys, int* stats_i,
     float* stats_f, float* unew, float* wz0, float* wz1, float* slots,
     unsigned int* barrier, int B, int max_steps, float rtol, float atol,
     float delta, float inv_n, unsigned long long* timing, void* stream) {
@@ -738,7 +743,7 @@ extern "C" int lrnde_vpsde_solve(
     int sosri, const float* u0, const float* sc, const float* saveat,
     int n_save, const void* const* wb, const int* dims, int L,
     unsigned int acts, float beta_min, float d_beta, float t1,
-    unsigned int seed, int depth, float* u, float* ys, int* stats_i,
+    const unsigned int* seed, int depth, float* u, float* ys, int* stats_i,
     float* stats_f, float* unew, float* wz0, float* wz1, float* slots,
     unsigned int* barrier, int B, int max_steps, float rtol, float atol,
     float delta, float inv_n, void* stream) {
@@ -757,7 +762,7 @@ extern "C" int lrnde_vpsde_solve_timed(
     int sosri, const float* u0, const float* sc, const float* saveat,
     int n_save, const void* const* wb, const int* dims, int L,
     unsigned int acts, float beta_min, float d_beta, float t1,
-    unsigned int seed, int depth, float* u, float* ys, int* stats_i,
+    const unsigned int* seed, int depth, float* u, float* ys, int* stats_i,
     float* stats_f, float* unew, float* wz0, float* wz1, float* slots,
     unsigned int* barrier, int B, int max_steps, float rtol, float atol,
     float delta, float inv_n, unsigned long long* timing, void* stream) {

@@ -29,11 +29,15 @@ from .losses import (
 )
 from .schedulers import Constant, ExponentialDecay
 from .optim import Adamax, OptimizerSpec
+from .loop import resolve_steps_per_call
 from .train import (
     TrainState,
     create_train_state,
+    init_ema,
     make_eval_step,
+    make_multi_train_step,
     make_train_step,
+    swap_ema_params,
     warmup_model,
 )
 
@@ -54,6 +58,7 @@ __all__ = [
     "experiment_name",
     "flatten_config",
     "get_classification_data",
+    "init_ema",
     "kl_divergence",
     "log_likelihood_loss",
     "load_cifar10",
@@ -61,11 +66,14 @@ __all__ = [
     "logitcrossentropy",
     "make_dataloader",
     "make_eval_step",
+    "make_multi_train_step",
     "make_train_step",
     "one_hot",
     "OptimizerSpec",
     "resolve_device",
+    "resolve_steps_per_call",
     "synthetic_classification",
+    "swap_ema_params",
     "synthetic_physionet",
     "warmup_model",
 ]

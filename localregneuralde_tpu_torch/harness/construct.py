@@ -204,7 +204,7 @@ def construct_time_series(cfg: ExperimentConfig, saveat, *, device=None,
         gru=gru,
         rec_to_gen=rec_to_gen,
         # a generator of its own, not the NeuralODE's (which draws t1)
-        reparam=ReparameterizeLayer(rng_seed=cfg.seed + 1),
+        reparam=ReparameterizeLayer(rng_seed=cfg.seed + 1, latent_dims=N),
         # the generative dynamics is kernel 5's and 9's Dense-chain family
         neural_ode=NeuralODE(gen_dynamics, saveat=saveat,
                              use_pallas=m.use_pallas, **_node_kwargs(cfg)),

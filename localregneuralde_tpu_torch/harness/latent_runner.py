@@ -17,11 +17,15 @@ Run on the GPU with::
     python -m localregneuralde_tpu_torch.harness.latent_runner \\
         experiments/physionet/physionet.yaml [--a.b.c=value ...] [--device=cpu]
 
-Not ported (they raise): ``train.steps_per_call`` other than 0 (auto, which
-is 1 here) or 1, ``grad_accumulation``, ``ema_decay`` (ROADMAP Queue 1 item
-13) and ``data_parallel`` (item 14). The reference's per-window phase
-probes are not run; the ``fwd_time``, ``bwd_time`` and ``opt_time``
-columns read NaN.
+``train.steps_per_call`` = K > 1 trains K steps a call: on CUDA one replay
+of a captured CUDA graph (the encoder's eager GRU steps, kernels 5 and 9
+and the optimizer in one graph), on the CPU K eager steps; 0 picks K by the
+JAX runner's auto rule with the captured call in the TPU's place.
+``train.grad_accumulation`` and ``train.ema_decay`` work as in the
+classification runner (``loop.py``); with an EMA, evaluation and the best
+checkpoint see the averaged weights. ``data_parallel`` (ROADMAP Queue 1 item
+14) raises. The reference's per-window phase probes are not run; the
+``fwd_time``, ``bwd_time`` and ``opt_time`` columns read NaN.
 """
 from __future__ import annotations
 
@@ -32,7 +36,6 @@ import time
 import numpy as np
 import torch
 
-from ..ode.solve import host_to_device
 from .checkpoint import from_host, load_checkpoint, save_checkpoint, to_host
 from .config import (
     ExperimentConfig,
@@ -47,8 +50,25 @@ from .construct import (
     resolve_device,
 )
 from .data import make_dataloader, synthetic_physionet
+from .graph import capturable
 from .logging import create_logger, get_loggable_values, reset_meters
-from .train import TrainState, create_train_state, make_train_step
+from .loop import (
+    batch_to_device,
+    check_steps_per_call,
+    check_train_options,
+    device_batches,
+    host_stacks,
+    resolve_steps_per_call,
+    run_block_loop,
+)
+from .train import (
+    TrainState,
+    create_train_state,
+    init_ema,
+    make_multi_train_step,
+    make_train_step,
+    swap_ema_params,
+)
 
 _STAT_KEYS = ("net_loss", "neg_log_likelihood", "kl_div", "reg_val", "nfe")
 
@@ -87,44 +107,38 @@ def build_physionet_arrays(cfg: ExperimentConfig):
 
 
 def check_supported(cfg: ExperimentConfig) -> None:
-    """Raise for the train-loop options the port does not run yet."""
+    """Raise for the train-loop options the port does not run yet: the
+    parallel layer."""
     t = cfg.train
-    if int(t.steps_per_call) not in (0, 1):
-        raise NotImplementedError(
-            f"train.steps_per_call={t.steps_per_call}: K steps per call are "
-            "not ported (ROADMAP Queue 1 item 13); 0 (auto) and 1 run one "
-            "step per call"
-        )
-    if int(t.grad_accumulation) != 1 or float(t.ema_decay) != 0.0:
-        raise NotImplementedError(
-            "train.grad_accumulation and train.ema_decay are not ported "
-            "(ROADMAP Queue 1 item 13)"
-        )
     if t.data_parallel != "none" or int(t.tensor_parallel) != 1:
         raise NotImplementedError(
             f"train.data_parallel={t.data_parallel!r}, tensor_parallel="
             f"{t.tensor_parallel}: the parallel layer is not ported (ROADMAP "
-            "Queue 1 items 13-14); the runner uses one device"
+            "Queue 1 item 14); the runner uses one device"
         )
 
 
 def train_state_to_host(ts: TrainState) -> dict:
     """What a checkpoint keeps of the train state: the parameters, the
-    optimizer's state, the layer state (with its generators) and the
-    step."""
+    optimizer's state, the layer state (with its generators), the step and
+    the params-EMA (None without one)."""
     return to_host({"params": ts.params, "opt": ts.opt_state.state_dict(),
-                    "state": ts.state, "step": ts.step})
+                    "state": ts.state, "step": ts.step, "ema": ts.ema})
 
 
 def restore_train_state(ts: TrainState, host: dict, device) -> TrainState:
     """``ts`` with a checkpoint's values: the parameters are copied into
-    the leaves the optimizer is bound to."""
+    the leaves the optimizer is bound to. A checkpoint without an EMA
+    (written before it existed, or without one) restores ``ema=None``; the
+    runner then seeds it at the parameters (``init_ema``)."""
     with torch.no_grad():
         for name, value in host["params"].items():
             ts.params[name].copy_(torch.from_numpy(np.array(value)))
     ts.opt_state.load_state_dict(from_host(host["opt"], device))
+    ema = host.get("ema")
     return TrainState(params=ts.params, state=from_host(host["state"], device),
-                      opt_state=ts.opt_state, step=int(host["step"]))
+                      opt_state=ts.opt_state, step=int(host["step"]),
+                      ema=None if ema is None else from_host(ema, device))
 
 
 def eval_forward(model, ts: TrainState, batch):
@@ -143,22 +157,16 @@ def eval_forward(model, ts: TrainState, batch):
     return mse, st_["neural_ode"]["nfe"]
 
 
-def batch_to_device(batch, device):
-    """A host batch on ``device`` (through pinned memory on a card, so the
-    copy does not wait for the queued step)."""
-    like = torch.empty(0, device=device)
-    return tuple(host_to_device(torch.from_numpy(np.asarray(a)), like)
-                 for a in batch)
-
-
 def run_latent_ode_experiment(cfg: ExperimentConfig,
                               config_name: str = "physionet", *,
                               device=None) -> dict:
     """Train and evaluate the latent ODE of ``cfg`` on ``device`` (default:
     the CUDA device). Returns the summary of the reference's runner: the
     best and final masked MSE, the final eval NFE, whether the data is
-    real, and the checkpoint and log directories."""
+    real, the checkpoint and log directories, ``steps_per_call`` and
+    whether the K-step calls were ``captured`` CUDA graphs."""
     check_supported(cfg)
+    ga, ed = check_train_options(cfg)
     device = resolve_device(device)
     name = experiment_name(cfg, config_name)
     ckpt_dir = os.path.join(cfg.train.checkpoint_dir, cfg.train.expt_subdir,
@@ -171,7 +179,16 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
     loss_fn, (w_reg_sched, w_kl_sched) = construct_loss(cfg)
     optimizer, lr_sched = construct_optimizer(cfg)
     ts = create_train_state(model, optimizer)
-    train_step = make_train_step(model, loss_fn, optimizer)
+    train_step = make_train_step(model, loss_fn, optimizer,
+                                 grad_accumulation=ga, ema_decay=ed)
+    spc = resolve_steps_per_call(
+        cfg.train.steps_per_call, cfg.train.print_frequency,
+        cfg.train.evaluate_every,
+        capturable(model, cfg.dataset.train_batchsize // ga, device))
+    check_steps_per_call(cfg, spc)
+    if int(cfg.train.steps_per_call) == 0 and spc > 1:
+        print(f"steps_per_call=auto -> K={spc} (one CUDA-graph replay a "
+              "call)", flush=True)
 
     initial_step, restored_best = 1, None
     resume_path = cfg.train.resume or os.path.join(ckpt_dir,
@@ -182,6 +199,9 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
             ts = restore_train_state(ts, restored["tstate"], device)
             initial_step = int(restored["step"]) + 1
             restored_best = restored.get("best")
+    if ed > 0.0 and ts.ema is None:
+        # a fresh start, or a checkpoint written without an EMA
+        ts = init_ema(ts)
 
     # after the resume: skip_batches fast-forwards the seeded stream
     train_loader = make_dataloader(
@@ -192,64 +212,94 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
     # one would yield no batch: 410 series at the shipped eval size 512)
     eval_bs = min(int(cfg.dataset.eval_batchsize), int(test_arrays[0].shape[0]))
 
-    loggers = create_logger(log_dir, cfg.train.total_steps, latent_ode=True,
+    total_steps = cfg.train.total_steps
+    loggers = create_logger(log_dir, total_steps, latent_ode=True,
                             expt_name=name, config=flatten_config(cfg))
     tm = loggers["train_meters"]
     best = np.inf if restored_best is None else float(restored_best)
     final_mse, final_nfe = np.inf, 0.0
-    data_iter = iter(train_loader)
-    sums = ok = None
-    window_n, data_time = 0, 0.0
-    t_window = time.perf_counter()
-    for step in range(initial_step, cfg.train.total_steps + 1):
-        t0 = time.perf_counter()
-        batch = batch_to_device(next(data_iter), device)
-        data_time += time.perf_counter() - t0
-        w = (float(w_reg_sched(step)), float(w_kl_sched(step)))
-        ts, loss, stats = train_step(ts, batch, w, float(lr_sched(step)))
-        vals = torch.stack([loss, stats["neg_log_likelihood"],
+
+    def print_window(step, sums, window_n, ok, wall, data_time, bs):
+        for k, v in zip(_STAT_KEYS, sums):
+            tm[k].update(v / window_n, window_n * bs)
+        tm["batch_time"].update(wall / window_n, window_n)
+        tm["data_time"].update(data_time / window_n, window_n)
+        tm["step_time"].update(wall / window_n, window_n)
+        for k in ("fwd_time", "bwd_time", "opt_time"):
+            tm[k].update(float("nan"), window_n)
+        if not ok:
+            print(f"WARNING [{step}]: adaptive solve exhausted max_steps "
+                  "within this window", flush=True)
+        row = get_loggable_values(tm, loggers["train_header"], step)
+        loggers["csv_train"].log(row)
+        print(f"[{step}/{total_steps}] " + " ".join(
+            f"{k}={tm[k].average:.4f}"
+            for k in loggers["train_header"][1:]), flush=True)
+        reset_meters(tm)
+
+    def eval_and_checkpoint(step, w, ts):
+        nonlocal best, final_mse, final_nfe
+        best, final_mse, final_nfe = _eval_and_checkpoint(
+            model, ts, test_arrays, eval_bs, step, best, loggers, ckpt_dir,
+            device)
+
+    def stat_row(loss, stats):
+        return torch.stack([loss, stats["neg_log_likelihood"],
                             stats["kl_div"], stats["reg_val"],
                             stats["nfe"].float()])
-        # accumulated on the device: one host read per print window
-        success = stats["solver_success"]
-        sums = vals if sums is None else sums + vals
-        ok = success if ok is None else ok & success
-        window_n += 1
-        if step % cfg.train.print_frequency == 0:
-            sums_h = sums.tolist()
-            wall = time.perf_counter() - t_window
-            bs = int(batch[0].shape[0])
-            for k, v in zip(_STAT_KEYS, sums_h):
-                tm[k].update(v / window_n, window_n * bs)
-            tm["batch_time"].update(wall / window_n, window_n)
-            tm["data_time"].update(data_time / window_n, window_n)
-            tm["step_time"].update(wall / window_n, window_n)
-            for k in ("fwd_time", "bwd_time", "opt_time"):
-                tm[k].update(float("nan"), window_n)
-            if not bool(ok):
-                print(f"WARNING [{step}]: adaptive solve exhausted max_steps "
-                      "within this window", flush=True)
-            row = get_loggable_values(tm, loggers["train_header"], step)
-            loggers["csv_train"].log(row)
-            print(f"[{step}/{cfg.train.total_steps}] " + " ".join(
-                f"{k}={tm[k].average:.4f}"
-                for k in loggers["train_header"][1:]), flush=True)
-            reset_meters(tm)
-            sums, ok, window_n, data_time = None, None, 0, 0.0
-            t_window = time.perf_counter()
-        if (step % cfg.train.evaluate_every == 0
-                or step == cfg.train.total_steps):
-            best, final_mse, final_nfe = _eval_and_checkpoint(
-                model, ts, test_arrays, eval_bs, step, best, loggers,
-                ckpt_dir, device)
-    return {
-        "best_eval_mse": float(best),
-        "final_eval_mse": float(final_mse),
-        "final_eval_nfe": float(final_nfe),
-        "real_data": bool(is_real),
-        "ckpt_dir": ckpt_dir,
-        "log_dir": log_dir,
-    }
+
+    summary = {"real_data": bool(is_real), "ckpt_dir": ckpt_dir,
+               "log_dir": log_dir, "steps_per_call": spc, "captured": False}
+    data_iter = iter(train_loader)
+    if spc > 1:
+        multi_step = make_multi_train_step(
+            model, loss_fn, optimizer,
+            lambda loss, stats, data: {
+                "row": stat_row(loss, stats),
+                "n_fail": (~stats["solver_success"]).float()},
+            grad_accumulation=ga, ema_decay=ed)
+        stacks = device_batches(
+            host_stacks(data_iter, initial_step, total_steps, spc), device,
+            int(cfg.train.device_prefetch))
+        run_block_loop(
+            multi_step, ts, stacks, initial_step=initial_step,
+            total_steps=total_steps,
+            print_frequency=cfg.train.print_frequency,
+            evaluate_every=cfg.train.evaluate_every,
+            w_of=lambda steps: (
+                np.asarray([w_reg_sched(s) for s in steps], np.float32),
+                np.asarray([w_kl_sched(s) for s in steps], np.float32)),
+            lr_of=lambda steps: np.asarray([lr_sched(s) for s in steps],
+                                           np.float32),
+            on_window=print_window, on_eval=eval_and_checkpoint)
+        summary["captured"] = bool(multi_step.captured)
+    else:
+        sums = ok = None
+        window_n, data_time = 0, 0.0
+        t_window = time.perf_counter()
+        for step in range(initial_step, total_steps + 1):
+            t0 = time.perf_counter()
+            batch = batch_to_device(next(data_iter), device)
+            data_time += time.perf_counter() - t0
+            w = (float(w_reg_sched(step)), float(w_kl_sched(step)))
+            ts, loss, stats = train_step(ts, batch, w, float(lr_sched(step)))
+            # accumulated on the device: one host read per print window
+            vals = stat_row(loss, stats)
+            success = stats["solver_success"]
+            sums = vals if sums is None else sums + vals
+            ok = success if ok is None else ok & success
+            window_n += 1
+            if step % cfg.train.print_frequency == 0:
+                print_window(step, sums.tolist(), window_n, bool(ok),
+                             time.perf_counter() - t_window, data_time,
+                             int(batch[0].shape[0]))
+                sums, ok, window_n, data_time = None, None, 0, 0.0
+                t_window = time.perf_counter()
+            if step % cfg.train.evaluate_every == 0 or step == total_steps:
+                eval_and_checkpoint(step, w, ts)
+    return dict(summary, best_eval_mse=float(best),
+                final_eval_mse=float(final_mse),
+                final_eval_nfe=float(final_nfe))
 
 
 def _eval_and_checkpoint(model, ts, test_arrays, eval_bs, step, best,
@@ -258,8 +308,10 @@ def _eval_and_checkpoint(model, ts, test_arrays, eval_bs, step, best,
     (``model_best`` when its MSE is the lowest so far). Returns the best
     MSE, this evaluation's MSE and its mean NFE."""
     mses, nfes, count = 0.0, 0.0, 0
+    # with an EMA, evaluation and the best checkpoint see the averaged
+    # weights; the checkpoint keeps both
     for host_batch in make_dataloader(test_arrays, eval_bs, drop_last=True):
-        mse, nfe = eval_forward(model, ts,
+        mse, nfe = eval_forward(model, swap_ema_params(ts),
                                 batch_to_device(host_batch, device))
         bs = host_batch[0].shape[0]
         mses += float(mse) * bs

@@ -18,15 +18,20 @@ Run on the GPU with::
 which normalises CIFAR-10 inputs with the per-channel mean and std of
 ``experiments/cifar10/main.py`` for ``model_type: cifar10_cnn``.
 
-Not ported (they raise): ``train.steps_per_call`` other than 0 (auto, which
-is 1 here) or 1, ``grad_accumulation``, ``ema_decay`` (ROADMAP Queue 1 item
-13) and ``data_parallel`` (item 14). The reference's per-window phase probes
-are not run; the ``fwd_time``, ``bwd_time`` and ``opt_time`` columns read
-NaN.
+``train.steps_per_call`` = K > 1 trains K steps a call
+(``train.make_multi_train_step``): on CUDA one replay of a captured CUDA
+graph where every solve and sweep of the step is a persistent kernel (the
+MNIST ODE and SDE), K eager steps otherwise (CIFAR-10, the CPU); 0 picks
+K as the JAX runner's auto rule does, with the captured call in the TPU's
+place (``loop.resolve_steps_per_call``). ``train.grad_accumulation`` splits
+each batch into sequential microbatches with one update on their mean
+gradient; ``train.ema_decay`` keeps a params-EMA, which evaluation and the
+best checkpoint use. ``data_parallel`` (ROADMAP Queue 1 item 14) raises.
+The reference's per-window phase probes are not run; the ``fwd_time``,
+``bwd_time`` and ``opt_time`` columns read NaN.
 """
 from __future__ import annotations
 
-import collections
 import os
 import sys
 import time
@@ -49,18 +54,30 @@ from .construct import (
     resolve_device,
 )
 from .data import get_classification_data, make_dataloader, one_hot
+from .graph import capturable
 from .latent_runner import (
-    batch_to_device,
     check_supported,
     restore_train_state,
     train_state_to_host,
 )
 from .logging import create_logger, get_loggable_values, reset_meters
+from .loop import (
+    batch_to_device,
+    check_steps_per_call,
+    check_train_options,
+    device_batches,
+    host_stacks,
+    resolve_steps_per_call,
+    run_block_loop,
+)
 from .losses import accuracy
 from .train import (
     create_train_state,
+    init_ema,
     make_eval_step,
+    make_multi_train_step,
     make_train_step,
+    swap_ema_params,
     warmup_model,
 )
 
@@ -85,20 +102,6 @@ def _stat_row(loss, stats, y, sde: bool) -> torch.Tensor:
     nfe = list(stats["nfe"]) if sde else [stats["nfe"]]
     return torch.stack([loss, stats["ce_loss"], stats["reg_val"], a1, a5]
                        + [n.float() for n in nfe])
-
-
-def device_batches(host_iter, device, size: int):
-    """Batches on ``device``, ``size`` of them copied ahead of the one in
-    use (``train.device_prefetch``; 0 or 1 copies on demand). The copies go
-    through pinned memory without blocking, so they overlap the running
-    step."""
-    queue = collections.deque()
-    for batch in host_iter:
-        queue.append(batch_to_device(batch, device))
-        if len(queue) >= max(1, size):
-            yield queue.popleft()
-    while queue:
-        yield queue.popleft()
 
 
 def evaluate_classification(cfg: ExperimentConfig, eval_step, ts, data,
@@ -126,8 +129,11 @@ def run_classification_experiment(
         normalize: Optional[Callable[[np.ndarray], np.ndarray]] = None,
         max_steps_override: Optional[int] = None, device=None) -> dict:
     """Train and evaluate the classification model of ``cfg`` on ``device``
-    (default: the CUDA device); returns the reference runner's summary."""
+    (default: the CUDA device); returns the reference runner's summary,
+    with ``steps_per_call`` and whether the K-step calls were ``captured``
+    CUDA graphs."""
     check_supported(cfg)
+    ga, ed = check_train_options(cfg)
     device = resolve_device(device)
     name = experiment_name(cfg, config_name)
     ckpt_dir = os.path.join(cfg.train.checkpoint_dir, cfg.train.expt_subdir,
@@ -138,8 +144,17 @@ def run_classification_experiment(
     loss_fn, w_reg_sched = construct_loss(cfg)
     optimizer, lr_sched = construct_optimizer(cfg)
     ts = create_train_state(model, optimizer)
-    train_step = make_train_step(model, loss_fn, optimizer)
+    train_step = make_train_step(model, loss_fn, optimizer,
+                                 grad_accumulation=ga, ema_decay=ed)
     eval_step = make_eval_step(model, loss_fn)
+    bs = cfg.dataset.train_batchsize
+    spc = resolve_steps_per_call(
+        cfg.train.steps_per_call, cfg.train.print_frequency,
+        cfg.train.evaluate_every, capturable(model, bs // ga, device))
+    check_steps_per_call(cfg, spc)
+    if int(cfg.train.steps_per_call) == 0 and spc > 1:
+        print(f"steps_per_call=auto -> K={spc} (one CUDA-graph replay a "
+              "call)", flush=True)
 
     x_train, y_train, x_test, y_test, is_real = get_classification_data(cfg)
     if normalize is not None:
@@ -158,23 +173,27 @@ def run_classification_experiment(
             restored_best = restored.get("best")
             print(f"resumed from {resume_path} at step {initial_step}",
                   flush=True)
+    if ed > 0.0 and ts.ema is None:
+        # a fresh start, or a checkpoint written without an EMA
+        ts = init_ema(ts)
 
     if cfg.train.evaluate:
-        metrics = evaluate_classification(cfg, eval_step, ts, eval_data,
-                                          float(w_reg_sched(1)), device)
+        metrics = evaluate_classification(cfg, eval_step, swap_ema_params(ts),
+                                          eval_data, float(w_reg_sched(1)),
+                                          device)
         print(f"[evaluate] {metrics}", flush=True)
         return {"eval": metrics, "real_data": bool(is_real)}
 
     # after the resume: skip_batches fast-forwards the seeded stream
     train_loader = make_dataloader(
-        (x_train, one_hot(y_train, nc)), cfg.dataset.train_batchsize,
+        (x_train, one_hot(y_train, nc)), bs,
         shuffle=True, cycle=True, seed=cfg.seed, skip_batches=initial_step - 1,
     )
-    bs = cfg.dataset.train_batchsize
     warm = batch_to_device((x_train[:bs], one_hot(y_train[:bs], nc)), device)
-    # first-call set-up (kernel build, cuDNN plans) before the clock starts
-    warmup_model(train_step, eval_step, ts, warm, float(w_reg_sched(1)),
-                 float(lr_sched(1)))
+    # first-call set-up (kernel build, cuDNN plans) before the clock starts;
+    # a K-step call warms itself up on its first call
+    warmup_model(train_step if spc == 1 else None, eval_step, ts, warm,
+                 float(w_reg_sched(1)), float(lr_sched(1)))
 
     total_steps = max_steps_override or cfg.train.total_steps
     sde = cfg.model.sde
@@ -184,6 +203,79 @@ def run_classification_experiment(
     tm = loggers["train_meters"]
     best = -np.inf if restored_best is None else float(restored_best)
     final_eval: dict = {}
+
+    def print_window(step, sums, window_n, ok, wall, data_time, n_rows):
+        for k, v in zip(keys, sums):
+            tm[k].update(v / window_n, window_n * n_rows)
+        tm["batch_time"].update(wall / window_n, window_n)
+        tm["data_time"].update(data_time / window_n, window_n)
+        tm["step_time"].update(wall / window_n, window_n)
+        for k in ("fwd_time", "bwd_time", "opt_time"):
+            tm[k].update(float("nan"), window_n)
+        if not ok:
+            print(f"WARNING [{step}]: adaptive solve exhausted max_steps "
+                  "within this window (integration truncated; raise "
+                  "solver.max_steps or loosen tolerances)", flush=True)
+        row = get_loggable_values(tm, loggers["train_header"], step)
+        loggers["csv_train"].log(row)
+        print(f"[{step}/{total_steps}] " + " ".join(
+            f"{k}={tm[k].average:.4f}"
+            for k in loggers["train_header"][1:]), flush=True)
+        reset_meters(tm)
+
+    def eval_and_checkpoint(step, w_reg, ts):
+        nonlocal best, final_eval
+        # with an EMA, evaluation and the best checkpoint see the averaged
+        # weights; the raw parameters keep training
+        metrics = evaluate_classification(cfg, eval_step, swap_ema_params(ts),
+                                          eval_data, w_reg, device)
+        em = loggers["eval_meters"]
+        for k, v in metrics.items():
+            if k in em:
+                em[k].update(v)
+        loggers["csv_eval"].log(
+            get_loggable_values(em, loggers["eval_header"], step))
+        loggers["wandb"].log({f"eval_{k}": v for k, v in metrics.items()},
+                             step=step)
+        print(f"[eval @ {step}] {metrics}", flush=True)
+        reset_meters(em)
+        final_eval = dict(metrics)
+        is_best = metrics["accuracy_top1"] >= best
+        best = max(best, metrics["accuracy_top1"])
+        save_checkpoint(
+            {"tstate": train_state_to_host(ts), "step": step,
+             "best": float(best)},
+            fdir=ckpt_dir, fname=f"model_step_{step}.ckpt",
+            is_best=is_best,
+        )
+
+    summary = {"final_step": total_steps, "real_data": bool(is_real),
+               "ckpt_dir": ckpt_dir, "log_dir": log_dir,
+               "steps_per_call": spc, "captured": False}
+    if spc > 1:
+        def window_reduce(loss, stats, data):
+            return {"row": _stat_row(loss, stats, data[1], sde),
+                    "n_fail": (~stats["solver_success"]).float()}
+
+        multi_step = make_multi_train_step(
+            model, loss_fn, optimizer, window_reduce, grad_accumulation=ga,
+            ema_decay=ed)
+        stacks = device_batches(
+            host_stacks(iter(train_loader), initial_step, total_steps, spc),
+            device, int(cfg.train.device_prefetch))
+        run_block_loop(
+            multi_step, ts, stacks, initial_step=initial_step,
+            total_steps=total_steps,
+            print_frequency=cfg.train.print_frequency,
+            evaluate_every=cfg.train.evaluate_every,
+            w_of=lambda steps: np.asarray([w_reg_sched(s) for s in steps],
+                                          np.float32),
+            lr_of=lambda steps: np.asarray([lr_sched(s) for s in steps],
+                                           np.float32),
+            on_window=print_window, on_eval=eval_and_checkpoint)
+        summary["captured"] = bool(multi_step.captured)
+        return dict(summary, best_eval_acc=float(best), final_eval=final_eval)
+
     batches = device_batches(iter(train_loader), device,
                              int(cfg.train.device_prefetch))
     sums = ok = None
@@ -202,57 +294,14 @@ def run_classification_experiment(
         ok = success if ok is None else ok & success
         window_n += 1
         if step % cfg.train.print_frequency == 0:
-            wall = time.perf_counter() - t_window
-            n_rows = int(batch[0].shape[0])
-            for k, v in zip(keys, sums.tolist()):
-                tm[k].update(v / window_n, window_n * n_rows)
-            tm["batch_time"].update(wall / window_n, window_n)
-            tm["data_time"].update(data_time / window_n, window_n)
-            tm["step_time"].update(wall / window_n, window_n)
-            for k in ("fwd_time", "bwd_time", "opt_time"):
-                tm[k].update(float("nan"), window_n)
-            if not bool(ok):
-                print(f"WARNING [{step}]: adaptive solve exhausted max_steps "
-                      "within this window (integration truncated; raise "
-                      "solver.max_steps or loosen tolerances)", flush=True)
-            row = get_loggable_values(tm, loggers["train_header"], step)
-            loggers["csv_train"].log(row)
-            print(f"[{step}/{total_steps}] " + " ".join(
-                f"{k}={tm[k].average:.4f}"
-                for k in loggers["train_header"][1:]), flush=True)
-            reset_meters(tm)
+            print_window(step, sums.tolist(), window_n, bool(ok),
+                         time.perf_counter() - t_window, data_time,
+                         int(batch[0].shape[0]))
             sums, ok, window_n, data_time = None, None, 0, 0.0
             t_window = time.perf_counter()
         if step % cfg.train.evaluate_every == 0 or step == total_steps:
-            metrics = evaluate_classification(cfg, eval_step, ts, eval_data,
-                                              w_reg, device)
-            em = loggers["eval_meters"]
-            for k, v in metrics.items():
-                if k in em:
-                    em[k].update(v)
-            loggers["csv_eval"].log(
-                get_loggable_values(em, loggers["eval_header"], step))
-            loggers["wandb"].log({f"eval_{k}": v for k, v in metrics.items()},
-                                 step=step)
-            print(f"[eval @ {step}] {metrics}", flush=True)
-            reset_meters(em)
-            final_eval = dict(metrics)
-            is_best = metrics["accuracy_top1"] >= best
-            best = max(best, metrics["accuracy_top1"])
-            save_checkpoint(
-                {"tstate": train_state_to_host(ts), "step": step,
-                 "best": float(best)},
-                fdir=ckpt_dir, fname=f"model_step_{step}.ckpt",
-                is_best=is_best,
-            )
-    return {
-        "best_eval_acc": float(best),
-        "final_eval": final_eval,
-        "final_step": total_steps,
-        "real_data": bool(is_real),
-        "ckpt_dir": ckpt_dir,
-        "log_dir": log_dir,
-    }
+            eval_and_checkpoint(step, w_reg, ts)
+    return dict(summary, best_eval_acc=float(best), final_eval=final_eval)
 
 
 def main(argv=None) -> int:

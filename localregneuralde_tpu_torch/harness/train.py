@@ -1,31 +1,44 @@
-"""Train state, the train step, warmup and the eval step (reference
-``experiments/src/utils.jl:104-153``); counterpart of
-``localregneuralde_tpu/harness/train.py`` for single steps (no
-microbatching, EMA or K-step calls yet).
+"""Train state, the train step, the K-step train call, warmup and the eval
+step (reference ``experiments/src/utils.jl:104-153``); counterpart of
+``localregneuralde_tpu/harness/train.py``, with microbatched gradients
+(``grad_accumulation``) and the params-EMA (``ema_decay``).
 
-PyTorch runs eagerly, so the step is forward, ``torch.autograd.grad`` and
-the optimizer update in turn; the parameters are updated in place.
+PyTorch runs eagerly, so a step is forward, ``torch.autograd.grad`` and the
+optimizer update in turn; the parameters, the optimizer's state and the EMA
+are updated in place. Every step runs one body (``step_body``) on device
+inputs: the batch, ``w_reg`` and the learning rate as 0-d tensors, and the
+step's random draws, staged from the layers' CPU generators before the step
+(``models/draws.py``). ``make_train_step`` runs it once a call;
+``make_multi_train_step`` runs it K times a call, on CUDA as one replay of
+a captured CUDA graph where the route allows it (``harness/graph.py``).
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
+
+from ..models.draws import stage_draws, to_device, with_draws
+from .optim import device_scalar_like
 
 
 @dataclass
 class TrainState:
     """``params`` maps parameter names (``neural_ode.model.layer_0.w``, ...)
     to leaf tensors; ``state`` is the model's nested layer state;
-    ``opt_state`` the ``torch.optim`` optimizer bound to ``params`` (None
-    without an optimizer); ``step`` counts optimizer steps."""
+    ``opt_state`` the optimizer bound to ``params`` (None without an
+    optimizer); ``step`` counts optimizer steps; ``ema`` is the params-EMA
+    (None: disabled), keyed like ``params``."""
 
     params: Dict[str, torch.Tensor]
     state: Any
     opt_state: Any = None
     step: int = 0
+    ema: Optional[Dict[str, torch.Tensor]] = None
 
 
 def create_train_state(model, optimizer=None) -> TrainState:
@@ -38,32 +51,186 @@ def create_train_state(model, optimizer=None) -> TrainState:
                       opt_state=opt_state)
 
 
+def init_ema(ts: TrainState) -> TrainState:
+    """Seed the params-EMA at the current parameters (once before the first
+    EMA step; it also re-seeds after resuming a checkpoint without one)."""
+    return dataclasses.replace(
+        ts, ema={k: v.detach().clone() for k, v in ts.params.items()})
+
+
+def swap_ema_params(ts: TrainState) -> TrainState:
+    """A view of the train state with the EMA weights as ``params``: what
+    evaluation and the best checkpoint see. Without an EMA, ``ts``."""
+    if ts.ema is None:
+        return ts
+    return dataclasses.replace(ts, params=ts.ema)
+
+
 def _detached(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach()
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_detached(v) for v in tree)
     return tree
 
 
-def make_train_step(model, loss_fn, optimizer) -> Callable:
-    """``train_step(ts, (x, y), w_reg, lr) -> (ts', loss, stats)``: one
-    forward, the gradient of the loss with respect to ``ts.params`` and one
-    optimizer update at learning rate ``lr``. The parameters and optimizer
-    state are updated in place; ``ts'`` carries the new layer state."""
+def _merge_micro_stats(stats_list):
+    """One step's stats from its microbatches' (JAX ``train.py:71-87``):
+    per-row arrays (``y_pred``) concatenate, integer scalars (NFE) sum,
+    boolean scalars (``solver_success``) AND, float scalars average."""
+    first = stats_list[0]
+    if isinstance(first, dict):
+        return {k: _merge_micro_stats([s[k] for s in stats_list])
+                for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_merge_micro_stats([s[i] for s in stats_list])
+                           for i in range(len(first)))
+    if not isinstance(first, torch.Tensor):
+        return first
+    s = torch.stack(stats_list)
+    if s.ndim >= 2:
+        return s.reshape((-1,) + tuple(s.shape[2:]))
+    if s.dtype == torch.bool:
+        return torch.all(s)
+    if not s.is_floating_point():
+        return torch.sum(s, dtype=s.dtype)
+    return torch.mean(s)
+
+
+def _zeros_for_none(grads, params):
+    return [torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, params)]
+
+
+def _microbatched_grads(model, loss_fn, n_micro, ts, data, w, draws):
+    """Gradient accumulation over ``n_micro`` sequential microbatches (JAX
+    ``train.py:90-127``): the layer state threads through them as
+    ``n_micro`` smaller steps would, each microbatch solves on its own
+    adaptive grid, and the gradient is the mean of theirs. Returns
+    ``(mean loss, state, merged stats, grads)``."""
+    m = data[0].shape[0] // n_micro
+    params = list(ts.params.values())
+    state, gsum, losses, stats = ts.state, None, [], []
+    for i in range(n_micro):
+        md = tuple(a[i * m:(i + 1) * m] for a in data)
+        loss, st_, st = loss_fn(model, ts.params, with_draws(state, draws[i]),
+                                md, w, training=True)
+        g = _zeros_for_none(
+            torch.autograd.grad(loss, params, allow_unused=True), params)
+        gsum = g if gsum is None else [a + b for a, b in zip(gsum, g)]
+        state = _detached(st_)
+        losses.append(loss.detach())
+        stats.append(_detached(st))
+    inv = 1.0 / float(n_micro)
+    grads = [g * inv for g in gsum]
+    return (torch.mean(torch.stack(losses)), state,
+            _merge_micro_stats(stats), grads)
+
+
+def _ema_update(ema, params, decay: float) -> None:
+    """ema ← d·ema + (1 − d)·p in place, with d and 1 − d in float32 as
+    JAX's ``train.py:172-177`` rounds them."""
+    d = np.float32(decay)
+    om = float(np.float32(1.0) - d)
+    with torch.no_grad():
+        for k, p in params.items():
+            ema[k].mul_(float(d)).add_(p * om)
+
+
+def device_w(w, like: torch.Tensor):
+    """``w_reg`` (or the latent's ``(w_reg, w_kl)``) as 0-d float32
+    tensors on ``like``'s device."""
+    if isinstance(w, (tuple, list)):
+        return tuple(device_scalar_like(v, like) for v in w)
+    return device_scalar_like(w, like)
+
+
+def stage_step(model, state, rows: int, n_micro: int):
+    """One step's draws on the host, a ``Staged`` per microbatch of
+    ``rows // n_micro`` rows, in the order the step uses them."""
+    return [stage_draws(model, state, rows // n_micro)
+            for _ in range(n_micro)]
+
+
+def step_body(model, loss_fn, optimizer, grad_accumulation: int = 1,
+              ema_decay: float = 0.0) -> Callable:
+    """``body(ts, data, w, lr, draws) -> (ts', loss, stats)``: one forward,
+    backward and optimizer update on device inputs (``w`` and ``lr`` 0-d
+    tensors, ``draws`` a device ``Staged`` per microbatch). The shared
+    body of the single-step and K-step calls (JAX ``_fused_step_body``)."""
+    n_micro = int(grad_accumulation)
+    ema_decay = float(ema_decay)
+
+    def body(ts: TrainState, data, w, lr, draws):
+        params = list(ts.params.values())
+        if n_micro > 1:
+            loss, state, stats, grads = _microbatched_grads(
+                model, loss_fn, n_micro, ts, data, w, draws)
+        else:
+            loss, st_, stats = loss_fn(
+                model, ts.params, with_draws(ts.state, draws[0]), data, w,
+                training=True)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            loss, state, stats = (loss.detach(), _detached(st_),
+                                  _detached(stats))
+        optimizer.apply(ts.opt_state, params, grads, lr)
+        if ema_decay > 0.0:
+            _ema_update(ts.ema, ts.params, ema_decay)
+        return (dataclasses.replace(ts, state=state, step=ts.step + 1),
+                loss, stats)
+
+    body.n_micro = n_micro
+    return body
+
+
+def make_train_step(model, loss_fn, optimizer, grad_accumulation: int = 1,
+                    ema_decay: float = 0.0) -> Callable:
+    """``train_step(ts, data, w_reg, lr) -> (ts', loss, stats)``: stage the
+    step's draws, then one body (``step_body``). ``grad_accumulation=N``
+    splits the batch into N sequential microbatches and takes one update on
+    their mean gradient; ``ema_decay > 0`` updates ``ts.ema`` (seed it with
+    ``init_ema``) after the update. ``w_reg`` and ``lr`` are numbers or 0-d
+    tensors."""
+    body = step_body(model, loss_fn, optimizer, grad_accumulation, ema_decay)
 
     def train_step(ts: TrainState, data, w_reg, lr):
-        loss, st_, stats = loss_fn(
-            model, ts.params, ts.state, data, w_reg, training=True
-        )
-        params = list(ts.params.values())
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        optimizer.apply(ts.opt_state, params, grads, lr)
-        ts_new = TrainState(params=ts.params, state=_detached(st_),
-                            opt_state=ts.opt_state, step=ts.step + 1)
-        return ts_new, loss.detach(), _detached(stats)
+        like = next(iter(ts.params.values()))
+        draws = [to_device(d, like) for d in stage_step(
+            model, ts.state, data[0].shape[0], body.n_micro)]
+        return body(ts, data, device_w(w_reg, like),
+                    device_scalar_like(lr, like), draws)
 
     return train_step
+
+
+def default_reduce(loss, stats, data):
+    return {"loss": loss}
+
+
+def make_multi_train_step(model, loss_fn, optimizer,
+                          reduce_fn: Optional[Callable] = None,
+                          grad_accumulation: int = 1,
+                          ema_decay: float = 0.0):
+    """The K-step train call (JAX ``train.py:218-261``):
+    ``multi_step(ts, data_stack, w_regs, lrs) -> (ts', last_loss, red)``.
+    Every leaf of ``data_stack`` has a leading K axis, ``w_regs`` is a (K,)
+    array (the latent model's a pair of them) and ``lrs`` (K,); ``red`` is
+    ``reduce_fn(loss, stats, data)`` (default ``{"loss": loss}``) summed
+    over the K steps on the device.
+
+    The K steps are K bodies of ``make_train_step``'s step: on CUDA, where
+    every solve and sweep of the step is a persistent kernel
+    (``graph.capturable``), one replay of a CUDA graph that captured the K
+    bodies; otherwise (the CPU, the CIFAR conv family's host-driven
+    adaptive loop, a declined route) K eager bodies in the call.
+    ``multi_step.captured`` says which the last call ran."""
+    from .graph import KStepCall
+
+    return KStepCall(model, step_body(model, loss_fn, optimizer,
+                                      grad_accumulation, ema_decay),
+                     reduce_fn or default_reduce)
 
 
 def make_eval_step(model, loss_fn) -> Callable:

@@ -14,6 +14,7 @@ from ..core.containers import ArrayAndTime, get_array
 from ..nn.basic import Chain, Conv, conv2d_nhwc_td
 from ..nn.module import Module
 from ..ode.solve import host_to_device
+from .draws import pop_draws, to_device
 
 
 def _conv_split(conv: Conv, x, t):
@@ -107,13 +108,26 @@ class ReparameterizeLayer(Module):
 
     Splits the last axis into (μ₀, logσ²). In training mode it returns
     ``μ₀ + exp(logσ²/2)·ε`` with ε drawn from the layer state's generator
-    (``reparam_noise``), in eval mode μ₀. μ₀ and logσ² go into the returned
-    state for the KL term of the latent-ODE loss; in eval mode the state's
-    ``logvar`` holds μ₀, as the reference's does (``common.py:184``)."""
+    (``reparam_noise``, through ``draw``), in eval mode μ₀. μ₀ and logσ² go
+    into the returned state for the KL term of the latent-ODE loss; in eval
+    mode the state's ``logvar`` holds μ₀, as the reference's does
+    (``common.py:184``). ``latent_dims``, the width of μ₀, lets a train
+    step stage ε before the call (``models/draws.py``)."""
 
-    def __init__(self, rng_seed: int = 0):
+    def __init__(self, rng_seed: int = 0, latent_dims: int = None):
         super().__init__()
         self.rng_seed = int(rng_seed)
+        self.latent_dims = latent_dims
+
+    def draw(self, state, rows: int, width: int = None) -> dict:
+        """A training call's ε, ``(rows, width)`` standard normals on the
+        host (``width`` defaults to ``latent_dims``)."""
+        width = self.latent_dims if width is None else width
+        if width is None:
+            raise ValueError("ReparameterizeLayer.draw needs latent_dims to "
+                             "stage ε ahead of the call")
+        cpu = torch.empty(0)
+        return {"eps": reparam_noise(state["rng"], (rows, width), cpu)}
 
     def init_state(self) -> dict:
         return {
@@ -123,11 +137,13 @@ class ReparameterizeLayer(Module):
         }
 
     def apply_layer(self, x, state, *, training: bool = False):
+        draws, state = pop_draws(state)
         latent = x.shape[-1] // 2
         mu, logvar = x[..., :latent], x[..., latent:]
         if training:
-            eps = reparam_noise(state["rng"], tuple(mu.shape), mu)
-            y = mu + torch.exp(logvar / 2) * eps
+            if draws is None:
+                draws = to_device(self.draw(state, mu.shape[0], latent), mu)
+            y = mu + torch.exp(logvar / 2) * draws["eps"]
             return y, {"rng": state["rng"], "mu": mu, "logvar": logvar}
         return mu, {"rng": state["rng"], "mu": mu, "logvar": mu}
 

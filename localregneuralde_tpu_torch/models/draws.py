@@ -1,0 +1,86 @@
+"""A training step's random draws, staged ahead of the step.
+
+The stochastic layers (``NeuralODE``: the unbiased t1 or the biased
+reservoir's uniforms; ``NeuralDSDE``: the Brownian tree's seed, t1 or the
+reservoir, the regulariser's noise; ``ReparameterizeLayer``: ε) draw from
+CPU generators in their layer state. Each has one method that draws a
+call's values, ``draw(state, rows) -> {name: CPU tensor}``, through the
+module-level ``sample_*`` and ``reparam_noise`` functions, in the order the
+call uses them. The call reads the values from device tensors: given under
+the layer state's ``"draws"`` key, or, when the key is absent, drawn there
+and then by the same method.
+
+A train step stages the draws of the whole model before it runs
+(``stage_draws``), moves them to the device and inserts them into the
+state (``with_draws``). The step itself then issues device work only, so
+the K-step call can capture K steps in one CUDA graph and feed each replay
+new draws, with the arithmetic of the eager step. The generators advance as
+the eager calls would have advanced them: the same draws, in the same
+order.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from ..ode.solve import host_to_device
+
+DRAWS = "draws"
+
+Staged = Dict[Tuple[str, ...], Dict[str, torch.Tensor]]
+
+
+def pop_draws(state: dict):
+    """``(draws, state without them)``; draws is None when the state
+    carries none."""
+    if DRAWS not in state:
+        return None, state
+    state = dict(state)
+    return state.pop(DRAWS), state
+
+
+def stochastic_layers(model, state, path=()):
+    """``(path, layer, layer state)`` of every layer of ``model`` with a
+    ``draw`` method, found by walking the children whose names key the
+    state tree."""
+    if hasattr(model, "draw"):
+        yield path, model, state
+        return
+    if not isinstance(state, dict):
+        return
+    for name, child in model.named_children():
+        if name in state:
+            yield from stochastic_layers(child, state[name], path + (name,))
+
+
+def stage_draws(model, state, rows: int) -> Staged:
+    """One training call's draws of every stochastic layer for a batch of
+    ``rows``, on the host; advances the layers' generators."""
+    return {path: layer.draw(st, rows)
+            for path, layer, st in stochastic_layers(model, state)}
+
+
+def to_device(draws, like: torch.Tensor):
+    """A layer's draws (or a whole ``Staged``) on ``like``'s device,
+    copied through pinned memory without blocking."""
+    if isinstance(draws, torch.Tensor):
+        return host_to_device(draws, like)
+    return {k: to_device(v, like) for k, v in draws.items()}
+
+
+def with_draws(state, staged: Staged):
+    """The state tree with each layer's draws under its ``"draws"`` key;
+    the dicts on the way are copied, the tensors shared."""
+    for path, draws in staged.items():
+        state = _set(state, path, draws)
+    return state
+
+
+def _set(tree, path, draws):
+    tree = dict(tree)
+    if not path:
+        tree[DRAWS] = draws
+        return tree
+    tree[path[0]] = _set(tree[path[0]], path[1:], draws)
+    return tree

@@ -7,7 +7,8 @@ keys; ``rng`` is a ``torch.Generator`` where the reference keeps a JAX key.
 
 - Eval mode solves with adjoint ``'none'`` and no regulariser.
 - Training solves with the stored adjoint (``ode/stored_adjoint.py``).
-  With ``regularize='unbiased'`` it draws t1 ~ U(t0, t2) from ``rng``,
+  With ``regularize='unbiased'`` it draws t1 ~ U(t0, t2) from ``rng``
+  (``draw``; a train step stages it ahead, ``models/draws.py``),
   appends t1 to the saveat grid (and strips it from the outputs), and takes
   one more Tsit5 step from ``(u(t1), t1)`` with a fresh Hairer dt. Its
   error (or stiffness) estimate is ``reg_val``; u(t1), t1, the step's k1
@@ -67,13 +68,14 @@ import torch
 from ..nn.basic import Dense, resolve_solver_precision
 from ..nn.module import Module
 from ..ode.controller import initial_step_size
-from ..ode.solve import ODESolution, device_scalar, host_to_device, odesolve
+from ..ode.solve import ODESolution, device_scalar, odesolve
 from ..ode.step import Tsit5StepResult, regularization_value, tsit5_step
 from ..core.containers import ArrayAndTime, get_array
 from ..ops.cuda.fused_conv import (
     ConvWeights, match_conv_family, running_stats, with_running_stats,
 )
 from .common import TDChain
+from .draws import pop_draws, to_device
 
 _VALID_REGULARIZE = ("none", "unbiased", "biased")
 _VALID_REG_TYPE = ("error_estimate", "stiffness_estimate")
@@ -90,6 +92,20 @@ def sample_reservoir_uniforms(generator: torch.Generator, n: int):
     """The biased regulariser's uniforms, one per attempt of the solve,
     from the layer's CPU generator."""
     return torch.rand(n, generator=generator)
+
+
+def device_saveat(layer, device):
+    """``layer.saveat`` on ``device``, copied there once (a step copies
+    nothing from the host), or None."""
+    if layer.saveat is None:
+        return None
+    cache = layer.__dict__.setdefault("_saveat_on", {})
+    device = torch.device(device)
+    src, on_device = cache.get(device, (None, None))
+    if src is not layer.saveat:  # first use, or a new grid
+        on_device = layer.saveat.to(device)
+        cache[device] = (layer.saveat, on_device)
+    return on_device
 
 
 def is_tdmlp(model) -> bool:
@@ -195,6 +211,43 @@ class NeuralODE(Module):
             "rng": torch.Generator().manual_seed(self.rng_seed),
             "success": torch.tensor(True),
         }
+
+    def draw(self, state, rows: int) -> dict:
+        """A training call's draws from ``state["rng"]``, on the host: t1
+        (unbiased) or the reservoir's ``max_steps`` uniforms (biased);
+        nothing without the regulariser. ``rows`` is unused: no draw
+        depends on the batch."""
+        t0, t2 = self.tspan
+        if self.regularize == "unbiased":
+            return {"t1": torch.tensor(sample_t1(state["rng"], t0, t2),
+                                       dtype=torch.float32)}
+        if self.regularize == "biased":
+            return {"reservoir": sample_reservoir_uniforms(state["rng"],
+                                                           self.max_steps)}
+        return {}
+
+    def persistent_step(self, rows: int, device) -> bool:
+        """Whether a training step of a batch of ``rows`` on ``device`` runs
+        every solve and sweep of this layer as one persistent kernel launch
+        each, with no host read: the TD-MLP's K4 with K8 or K7, the chain's
+        K5 with K9. The conv family's adaptive loop (K13 per attempt,
+        accepted on the host), the plain loop of a declined or generic
+        route and the CPU are not."""
+        device = torch.device(device)
+        if (device.type != "cuda" or not self.use_persistent
+                or self.family not in ("tdmlp", "chain")
+                or self.use_pallas == "off"):
+            return False
+        n_save = (1 if self.saveat is None else self.saveat.shape[0]) + (
+            self.regularize == "unbiased")
+        if self.family == "chain":
+            from ..ops.cuda import chain_sweep_feasible
+
+            return chain_sweep_feasible(self.chain, n_save, device)
+        from ..ops.cuda import sweep_feasible
+
+        w = self.tdmlp_weights()
+        return sweep_feasible(rows, w.b2.shape[0], w.b1.shape[0], n_save)
 
     def uses_kernels(self, x: torch.Tensor) -> bool:
         """Whether a solve from ``x`` goes through the kernel family."""
@@ -448,9 +501,9 @@ class NeuralODE(Module):
             f, step_fn, persistent_fn = self._kernel_solvers()
         else:
             f, step_fn, persistent_fn = self._generic_dynamics(), None, None
-        saveat = None if self.saveat is None else self.saveat.to(x.device)
         sol = odesolve(
-            f, x, self.tspan, rtol=self.rtol, atol=self.atol, saveat=saveat,
+            f, x, self.tspan, rtol=self.rtol, atol=self.atol,
+            saveat=device_saveat(self, x.device),
             max_steps=self.max_steps, adjoint="none", stateful=True,
             f_state=state["model"], step_fn=step_fn,
             persistent_fn=persistent_fn,
@@ -462,6 +515,7 @@ class NeuralODE(Module):
         return sol, new_state
 
     def apply_layer(self, x, state, *, training: bool = False):
+        draws, state = pop_draws(state)
         if not training:
             return self._eval_solve(x, state)
         if self.adjoint != "stored":
@@ -469,21 +523,20 @@ class NeuralODE(Module):
                 f"training with adjoint={self.adjoint!r} is not ported yet: "
                 "only the stored adjoint is (ROADMAP Queue 1 item 11)"
             )
-        t0, t2 = self.tspan
+        t2 = self.tspan[1]
         kernels = self.uses_kernels(x)
         names, params = zip(*self.model.named_parameters())
         user_saveat = (
-            self.saveat.to(x.device) if self.saveat is not None
+            device_saveat(self, x.device) if self.saveat is not None
             else device_scalar(t2, x).reshape(1)
         )
+        if draws is None:
+            draws = to_device(self.draw(state, x.shape[0]), x)
         unbiased = self.regularize == "unbiased"
-        saveat, reservoir = user_saveat, None
+        saveat, reservoir = user_saveat, draws.get("reservoir")
         if unbiased:
-            t1 = sample_t1(state["rng"], t0, t2)
-            saveat = torch.cat([user_saveat, device_scalar(t1, x).reshape(1)])
-        elif self.regularize == "biased":
-            reservoir = host_to_device(
-                sample_reservoir_uniforms(state["rng"], self.max_steps), x)
+            t1 = draws["t1"]
+            saveat = torch.cat([user_saveat, t1.reshape(1)])
         kw = self._stored_kwargs(kernels, names, x, saveat.shape[0])
         sol = odesolve(
             kw.pop("f"), x, self.tspan, rtol=self.rtol, atol=self.atol,
@@ -500,7 +553,7 @@ class NeuralODE(Module):
         if self.regularize == "none":
             return sol, new_state
         if unbiased:
-            u1, t1 = sol.ys[-1].detach(), device_scalar(t1, x)
+            u1 = sol.ys[-1].detach()
             sol = dataclasses.replace(sol, ys=sol.ys[:-1], ts=user_saveat)
         else:
             u1, t1 = sol.reservoir_u.detach(), sol.reservoir_t.detach()

@@ -11,7 +11,9 @@ non-diagonal noise (``noise_dims``) are not ported yet and raise.
 
 - Every call draws the noise seed of its Brownian tree from ``rng``
   (``sample_noise_seed``); the tree's normals come from ``noise_source``,
-  the counter-based Philox source by default.
+  the counter-based Philox source by default. A call's draws (the seed,
+  t1 or the reservoir, the regulariser's noise) come from ``draw``; a
+  train step stages them ahead (``models/draws.py``).
 - Eval mode solves with adjoint ``'none'`` and no regulariser.
 - Training solves with the stored adjoint (``sde/stored_adjoint.py``).
   ``regularize='unbiased'`` draws t1 ~ U(t0, t2), appends it to the saveat
@@ -46,13 +48,14 @@ import torch
 
 from ..nn.basic import _ACTIVATIONS, Chain, Dense, resolve_solver_precision
 from ..nn.module import Module
-from ..ode.solve import device_scalar, host_to_device
+from ..ode.solve import device_scalar
 from ..ops.residuals import internal_norm
-from ..sde.brownian import PhiloxNormals
+from ..sde.brownian import PhiloxNormals, seed_to_word
 from ..sde.solve import SDESolution, check_solver, sdesolve, solution_from
 from ..sde.step import sri_step
 from ..sde.tableaus import get_sri_tableau
-from .neural_ode import sample_reservoir_uniforms, sample_t1
+from .draws import pop_draws, to_device
+from .neural_ode import device_saveat, sample_reservoir_uniforms, sample_t1
 
 _VALID_REGULARIZE = ("none", "unbiased", "biased")
 _VALID_USE_PALLAS = ("auto", "on", "off")
@@ -64,8 +67,9 @@ def sample_noise_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2 ** 32, (), generator=generator))
 
 
-def noise_source(seed: int, x: torch.Tensor):
-    """The normal source of the tree of a solve from ``x``."""
+def noise_source(seed, x: torch.Tensor):
+    """The normal source of the tree of a solve from ``x``; ``seed`` is the
+    one-element int32 tensor ``draw`` staged (or a number)."""
     return PhiloxNormals(seed, x.shape[0], x.shape[-1], device=x.device)
 
 
@@ -184,6 +188,41 @@ class NeuralDSDE(Module):
             "success": torch.tensor(True),
         }
 
+    def state_width(self) -> int:
+        """F, the width of the SDE's state: the input width of the drift's
+        first Dense layer."""
+        for m in self.drift.modules():
+            if isinstance(m, Dense):
+                return m.in_dim
+        raise ValueError("NeuralDSDE.draw: the drift has no Dense layer to "
+                         "give the state's width")
+
+    def draw(self, state, rows: int, training: bool = True) -> dict:
+        """A call's draws from ``state["rng"]``, on the host, in the order
+        the call uses them: the tree's seed (as an int32 word), then in
+        training t1 (unbiased) or the reservoir's uniforms (biased), then
+        the regulariser step's ``(2, rows, F)`` normals."""
+        gen = state["rng"]
+        seed = seed_to_word(sample_noise_seed(gen))
+        out = {"seed": torch.tensor([seed], dtype=torch.int32)}
+        mode = self.regularize if training else "none"
+        if mode == "unbiased":
+            out["t1"] = torch.tensor(sample_t1(gen, *self.tspan),
+                                     dtype=torch.float32)
+        elif mode == "biased":
+            out["reservoir"] = sample_reservoir_uniforms(gen, self.max_steps)
+        if mode != "none":
+            out["reg_noise"] = sample_reg_noise(
+                gen, (rows, self.state_width()))
+        return out
+
+    def persistent_step(self, rows: int, device) -> bool:
+        """Whether a training step on ``device`` runs the solve and the
+        sweep as one kernel launch each (K10 and K12), with no host
+        read."""
+        return torch.device(device).type == "cuda" and (
+            self.use_persistent and self.use_pallas != "off")
+
     def uses_kernels(self, x: torch.Tensor) -> bool:
         """Whether a solve from ``x`` goes through the persistent SDE
         kernels."""
@@ -237,9 +276,11 @@ class NeuralDSDE(Module):
         return persistent_fn, sweep_fn
 
     def apply_layer(self, x, state, *, training: bool = False):
-        t0, t2 = self.tspan
-        gen = state["rng"]
-        noise = noise_source(sample_noise_seed(gen), x)
+        t2 = self.tspan[1]
+        draws, state = pop_draws(state)
+        if draws is None:
+            draws = to_device(self.draw(state, x.shape[0], training), x)
+        noise = noise_source(draws["seed"], x)
         params = [p for _, p in self._params()[0] + self._params()[1]]
         # on the kernel route the replacements run the whole solve and
         # sweep, and the modules' dynamics are never called
@@ -249,7 +290,7 @@ class NeuralDSDE(Module):
         common = dict(noise=noise, rtol=self.rtol, atol=self.atol,
                       solver=self.solver, delta=self.delta,
                       max_steps=self.max_steps)
-        saveat = None if self.saveat is None else self.saveat.to(x.device)
+        saveat = device_saveat(self, x.device)
         mode = self.regularize if training else "none"
         if not training:
             with torch.no_grad():
@@ -269,15 +310,11 @@ class NeuralDSDE(Module):
             )
         user_saveat = (saveat if saveat is not None
                        else device_scalar(t2, x).reshape(1))
-        reservoir = None
+        reservoir = draws.get("reservoir")
         solve_saveat = user_saveat
         if mode == "unbiased":
-            t1 = sample_t1(gen, t0, t2)
-            solve_saveat = torch.cat([user_saveat,
-                                      device_scalar(t1, x).reshape(1)])
-        elif mode == "biased":
-            reservoir = host_to_device(
-                sample_reservoir_uniforms(gen, self.max_steps), x)
+            t1 = draws["t1"]
+            solve_saveat = torch.cat([user_saveat, t1.reshape(1)])
         sol = sdesolve(
             f, g, x, self.tspan, saveat=solve_saveat, adjoint="stored",
             params=params, persistent_fn=persistent_fn, sweep_fn=sweep_fn,
@@ -286,11 +323,11 @@ class NeuralDSDE(Module):
         if mode == "none":
             return sol, self._new_state(state, sol, x)
         if mode == "unbiased":
-            u1, t1 = sol.ys[-1].detach(), device_scalar(t1, x)
+            u1 = sol.ys[-1].detach()
             sol = dataclasses.replace(sol, ys=sol.ys[:-1], ts=user_saveat)
         else:
             u1, t1 = sol.reservoir_u.detach(), sol.reservoir_t.detach()
-        reg_val = self._reg_value(u1, t1, gen, x)
+        reg_val = self._reg_value(u1, t1, draws["reg_noise"], x)
         new_state = self._new_state(state, sol, x)
         new_state.update(
             nfe_drift=sol.nfe_drift + 4 + 1,  # the step's stages, the dt probe
@@ -299,9 +336,10 @@ class NeuralDSDE(Module):
         )
         return sol, new_state
 
-    def _reg_value(self, u1, t1, gen, x):
+    def _reg_value(self, u1, t1, z, x):
         """``eest · dt`` of one SRI step from the fenced ``(u1, t1)`` with
-        fresh noise, differentiable in the parameters only."""
+        the fresh standard normals ``z`` (2, B, F), differentiable in the
+        parameters only."""
         t2 = self.tspan[1]
 
         def f(u, t):
@@ -317,7 +355,6 @@ class NeuralDSDE(Module):
             dt = torch.where((d0 < 1e-5) | (d1 < 1e-5), 1e-6,
                              0.01 * d0 / torch.where(d1 == 0, 1.0, d1))
             dt = torch.minimum(dt, device_scalar(t2, x) - t1)
-        z = host_to_device(sample_reg_noise(gen, u1.shape), x)
         sqdt = torch.sqrt(dt)
         step = sri_step(f, g, u1, t1, dt, z[0] * sqdt, z[1] * sqdt, self.atol,
                         self.rtol, self.delta, get_sri_tableau(self.solver))

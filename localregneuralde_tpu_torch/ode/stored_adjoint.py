@@ -217,6 +217,10 @@ class _StoredSolve(torch.autograd.Function):
         )
         d_u0 = a_u + grads[0] + d_u0_pre
         d_params = [a + g for a, g in zip(a_p, grads[1:])]
+        # the outputs are sol's tensors, whose grad_fn is this node: drop
+        # the spec, so that the knots go with the step, not at the next
+        # cyclic garbage collection
+        ctx.spec = None
         return (None, d_u0, *d_params)
 
 

@@ -51,11 +51,11 @@ _SIGNATURES = {
         + [_I] * 3 + [_F] + [_P, _P]
     ),
     "lrnde_sde_solve": (
-        [_I] + [_P] * 3 + [_I] + [_P] * 6 + [_U, _I] + [_P] * 15 + [_I] * 4
+        [_I] + [_P] * 3 + [_I] + [_P] * 7 + [_I] + [_P] * 15 + [_I] * 4
         + [_F] * 4 + [_P]
     ),
     "lrnde_sde_solve_timed": (
-        [_I] + [_P] * 3 + [_I] + [_P] * 6 + [_U, _I] + [_P] * 15 + [_I] * 4
+        [_I] + [_P] * 3 + [_I] + [_P] * 7 + [_I] + [_P] * 15 + [_I] * 4
         + [_F] * 4 + [_P, _P]
     ),
     "lrnde_sde_sweep": [_I] + [_P] * 12 + [_I] + [_P] * 5 + [_I] * 3 + [_P],
@@ -83,11 +83,11 @@ _SIGNATURES = {
     "lrnde_conv_step": [_P] * 22 + [_I] + [_F] * 3 + [_I] * 5 + [_P],
     "lrnde_conv_step_bwd": [_P] * 29 + [_F] + [_I] * 5 + [_P],
     "lrnde_vpsde_solve": (
-        [_I] + [_P] * 3 + [_I, _P, _P, _I, _U] + [_F] * 3 + [_U, _I]
+        [_I] + [_P] * 3 + [_I, _P, _P, _I, _U] + [_F] * 3 + [_P, _I]
         + [_P] * 9 + [_I] * 2 + [_F] * 4 + [_P]
     ),
     "lrnde_vpsde_solve_timed": (
-        [_I] + [_P] * 3 + [_I, _P, _P, _I, _U] + [_F] * 3 + [_U, _I]
+        [_I] + [_P] * 3 + [_I, _P, _P, _I, _U] + [_F] * 3 + [_P, _I]
         + [_P] * 9 + [_I] * 2 + [_F] * 4 + [_P, _P]
     ),
     "lrnde_conv_core": [_I] + [_P] * 5 + [_I] * 5 + [_P],

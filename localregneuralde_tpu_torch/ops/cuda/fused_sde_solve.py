@@ -237,6 +237,7 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
     wz = torch.empty((2, 2, B, F), device=dev)
     slots = torch.empty(2 * plan.n_blocks, device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    seed = noise.seed_word(dev)
     rand, res_u = reservoir_operands(reservoir, u0)
     knots = {}
     if record_knots:
@@ -251,7 +252,7 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
     opt = lambda t: null if t is None else p(t)  # noqa: E731
     err = lib.lrnde_sde_solve(
         int(solver == "sosri"), p(u0), p(sc), p(saveat), n_save,
-        *[p(x) for x in w], noise.seed, int(brownian_depth),
+        *[p(x) for x in w], p(seed), int(brownian_depth),
         p(y_final), p(ys), p(stats_i), p(stats_f), p(unew), p(wz[0]),
         p(wz[1]), p(slots), p(barrier), opt(rand), opt(res_u),
         *[opt(knots.get(k)) for k in ("knot_ts", "knot_us", "knot_dws",
@@ -478,10 +479,11 @@ def persistent_vpsde_solve(params, chain: ScoreChainSpec, u0: torch.Tensor,
     wz = torch.empty((2, 2, B, F), device=dev)
     slots = torch.empty(2 * n_blocks, device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    seed = noise.seed_word(dev)
     p = _build.ptr
     err = lib.lrnde_vpsde_solve(
         int(solver == "sosri"), p(u0), p(sc), p(saveat), n_save,
-        *score_operands(params, chain, beta_min, beta_max, t1), noise.seed,
+        *score_operands(params, chain, beta_min, beta_max, t1), p(seed),
         int(brownian_depth), p(y_final), p(ys), p(stats_i), p(stats_f),
         p(unew), p(wz[0]), p(wz[1]), p(slots), p(barrier), B, int(max_steps),
         float(rtol), float(atol), float(delta), 1.0 / float(B * F),

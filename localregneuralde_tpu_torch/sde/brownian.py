@@ -99,17 +99,46 @@ def norm_icdf(p: torch.Tensor) -> torch.Tensor:
     return torch.where(pt < ICDF_P_LOW, x_t, x_c)
 
 
+def seed_to_word(seed: int) -> int:
+    """A 32-bit seed as the int32 with its bits (the kernels read the word
+    as unsigned)."""
+    seed = int(seed) & _MASK32
+    return seed - (1 << 32) if seed >= (1 << 31) else seed
+
+
 class PhiloxNormals:
     """The default normal source of a solve: ``normals(node)`` is a
     ``(2, B, F)`` float32 tensor on ``device``, a pure function of
-    ``(seed, node)`` and of each element's (channel, row, column)."""
+    ``(seed, node)`` and of each element's (channel, row, column).
 
-    def __init__(self, seed: int, batch: int, features: int, device=None):
-        self.seed = int(seed) & _MASK32
+    ``seed`` is a number, or a one-element int32 tensor holding its 32 bits
+    (a training step's draw, staged on the device). The CUDA solves read
+    it as ``seed_word``, one word in device memory; the eager draws here
+    read its value once, on first use."""
+
+    def __init__(self, seed, batch: int, features: int, device=None):
+        self._seed = seed
+        self._seed_int = None
         self.shape = (batch, features)
         pairs = -(-features // 2)
         self._pair = torch.arange(pairs, dtype=torch.int64, device=device)[None, :]
         self._row = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
+
+    @property
+    def seed(self) -> int:
+        if self._seed_int is None:
+            s = self._seed
+            if isinstance(s, torch.Tensor):
+                s = int(s.reshape(-1)[0])
+            self._seed_int = int(s) & _MASK32
+        return self._seed_int
+
+    def seed_word(self, device) -> torch.Tensor:
+        """The seed as a one-element int32 tensor on ``device``."""
+        if isinstance(self._seed, torch.Tensor):
+            return self._seed.reshape(1).to(device=device, dtype=torch.int32)
+        return torch.full((1,), seed_to_word(self.seed), dtype=torch.int32,
+                          device=device)
 
     def uniforms(self, node: int) -> torch.Tensor:
         """The (2, B, F) uniforms behind ``self(node)``."""

@@ -118,6 +118,10 @@ class _StoredSDESolve(torch.autograd.Function):
                                          rtol=spec.rtol)
             a_u, d_p = eager_sde_sweep(step_vjp, params, *knots,
                                        sol.naccept, sol.ts, ct_ys, ct_y)
+        # the outputs are sol's tensors, whose grad_fn is this node: drop
+        # the spec, so that the knots go with the step, not at the next
+        # cyclic garbage collection
+        ctx.spec = None
         return (None, a_u + d_u0_pre, *d_p)
 
 

@@ -620,8 +620,36 @@ def test_runner_resumes_the_uninterrupted_run(tmp_path, monkeypatch):
 
 
 def test_runner_refuses_unported_options(tmp_path):
-    for extra in (["--train.steps_per_call=4"], ["--train.grad_accumulation=2"],
-                  ["--train.ema_decay=0.9"], ["--train.data_parallel=gspmd"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            runner.run_classification_experiment(
-                _runner_cfg(tmp_path, 1, extra), device="cpu")
+    """The parallel layer is not ported: data_parallel raises."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        runner.run_classification_experiment(
+            _runner_cfg(tmp_path, 1, ["--train.data_parallel=gspmd"]),
+            device="cpu")
+
+
+def test_runner_k_steps_with_accumulation_and_ema(tmp_path, monkeypatch):
+    """steps_per_call=2 with grad_accumulation=2 and ema_decay=0.9 on the
+    conv family: the K-step calls run eagerly (the adaptive loop accepts on
+    the host), and end where the single-step loop ends, bitwise on the CPU;
+    the checkpoint keeps the EMA."""
+    x_tr, y_tr, x_te, y_te, real = get_classification_data(
+        _runner_cfg(tmp_path, 2))
+    monkeypatch.setattr(runner, "get_classification_data", lambda cfg: (
+        x_tr[:64], y_tr[:64], x_te[:16], y_te[:16], real))
+    out = {}
+    for spc in (1, 2):
+        out[spc] = runner.run_classification_experiment(
+            _runner_cfg(tmp_path / f"k{spc}", 2, [
+                f"--train.steps_per_call={spc}", "--train.print_frequency=2",
+                "--train.grad_accumulation=2", "--train.ema_decay=0.9",
+                "--dataset.eval_batchsize=16"]),
+            normalize=runner.cifar_normalize, device="cpu")
+    assert out[2]["steps_per_call"] == 2 and not out[2]["captured"]
+    a, b = (load_checkpoint(os.path.join(out[k]["ckpt_dir"],
+                                         "model_current.ckpt"))["tstate"]
+            for k in (1, 2))
+    for part in ("params", "ema"):
+        assert set(a[part]) == set(b[part])
+        for k, v in a[part].items():
+            np.testing.assert_array_equal(b[part][k], v)
+    assert out[1]["final_eval"] == out[2]["final_eval"]

@@ -1423,3 +1423,157 @@ def test_wide_tdmlp_trains_on_the_plain_route(cuda_device):
     launched = {n: getattr(ops.cuda, n).launches - before[n] for n in names}
     assert launched["fused_tsit5_step"] > 0
     assert all(launched[n] == 0 for n in names[:4]), launched
+
+
+# ------------------------------------------- the K-step call on the card
+
+
+def _k_step_family(device, family, K=3, B=64):
+    """(model, loss_fn, optimizer, w_regs, lrs, K batches) of a family at
+    small width on the card, regularised (unbiased)."""
+    import os
+
+    import numpy as np
+
+    from localregneuralde_tpu_torch.harness import (
+        construct_loss, construct_model, construct_optimizer,
+        construct_time_series, define_configuration, one_hot,
+        synthetic_classification,
+    )
+    from localregneuralde_tpu_torch.harness.latent_runner import (
+        build_physionet_arrays,
+    )
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    exp = os.path.join(root, "experiments")
+    unb = ["--model.regularize=unbiased"]
+    if family == "latent":
+        cfg = define_configuration(unb + [
+            "--model.ts_in_dims=5", "--model.ts_hidden_dims=16",
+            "--model.ts_latent_dims=6", "--model.ts_node_dims=8",
+            "--model.solver.max_steps=256"],
+            os.path.join(exp, "physionet", "physionet.yaml"))
+        train, _, tgrid, _ = build_physionet_arrays(cfg)
+        model = construct_time_series(cfg, saveat=torch.from_numpy(tgrid),
+                                      device=device)
+        loss_fn, (w_reg, w_kl) = construct_loss(cfg)
+        batches = [tuple(torch.from_numpy(a[i * B:(i + 1) * B]).to(device)
+                         for a in train) for i in range(K)]
+        ws = (np.asarray([w_reg(s + 1) for s in range(K)], np.float32),
+              np.asarray([w_kl(s + 1) for s in range(K)], np.float32))
+    else:
+        path = os.path.join(exp, "mnist_ode" if family == "ode"
+                            else "mnist_sde", "mlp.yaml")
+        extra = (["--model.mlp_hidden_state_size=32",
+                  "--model.solver.reltol=1e-4", "--model.solver.abstol=1e-4",
+                  "--model.solver.max_steps=64"] if family == "ode"
+                 else ["--model.solver.max_steps=256"])
+        cfg = define_configuration(unb + extra, path)
+        cfg.model.image_size = [8, 8]
+        model = construct_model(cfg, device=device)
+        loss_fn, w_reg = construct_loss(cfg)
+        x, y, _, _ = synthetic_classification((8, 8), 1, 10, n_train=B * K,
+                                              n_test=1, seed=3)
+        y1 = one_hot(y, 10)
+        batches = [(torch.tensor(x[i * B:(i + 1) * B], device=device),
+                    torch.tensor(y1[i * B:(i + 1) * B], device=device))
+                   for i in range(K)]
+        ws = np.asarray([w_reg(s + 1) for s in range(K)], np.float32)
+    opt, sched = construct_optimizer(cfg)
+    lrs = np.asarray([sched(s + 1) for s in range(K)], np.float32)
+    return model, loss_fn, opt, ws, lrs, batches
+
+
+def _generators(tree):
+    if isinstance(tree, torch.Generator):
+        return [tree]
+    if isinstance(tree, dict):
+        return [g for v in tree.values() for g in _generators(v)]
+    return []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extras", [(1, 0.0), (2, 0.999)],
+                         ids=["plain", "ga2_ema"])
+@pytest.mark.parametrize("family", ["ode", "sde", "latent"])
+def test_k_step_call_captured_equals_eager_on_card(cuda_device, family,
+                                                   extras):
+    """One CUDA-graph replay of K captured train steps against K eager
+    train steps from a copy of the same state: bitwise equal parameters,
+    optimizer state, EMA, layer state, generators and summed loss; a second
+    call replays the same graph with new draws and stays equal."""
+    import copy
+
+    from localregneuralde_tpu_torch.harness import (
+        create_train_state, init_ema, make_multi_train_step, make_train_step,
+    )
+    from localregneuralde_tpu_torch.harness.graph import state_tensors
+
+    ga, ed = extras
+    model, loss_fn, opt, ws, lrs, batches = _k_step_family(cuda_device,
+                                                           family)
+    K = len(batches)
+    ts0 = create_train_state(model, opt)
+    if ed:
+        ts0 = init_ema(ts0)
+    step = make_train_step(model, loss_fn, opt, grad_accumulation=ga,
+                           ema_decay=ed)
+    multi = make_multi_train_step(model, loss_fn, opt, grad_accumulation=ga,
+                                  ema_decay=ed)
+    stack = tuple(torch.stack([b[i] for b in batches])
+                  for i in range(len(batches[0])))
+
+    def w_at(k):
+        return (tuple(float(w[k]) for w in ws) if isinstance(ws, tuple)
+                else float(ws[k]))
+
+    a, b = copy.deepcopy(ts0), copy.deepcopy(ts0)
+    for call in range(2):
+        total = None
+        for k in range(K):
+            a, loss, _ = step(a, batches[k], w_at(k), float(lrs[k]))
+            total = loss if total is None else total + loss
+        b, _, red = multi(b, stack, ws, lrs)
+        assert multi.captured
+        assert torch.equal(total, red["loss"]), call
+        for x, y in zip(state_tensors(a), state_tensors(b)):
+            assert torch.equal(x, y), call
+        for g, h in zip(_generators(a.state), _generators(b.state)):
+            assert torch.equal(g.get_state(), h.get_state())
+
+
+@pytest.mark.cuda
+def test_k10_seed_in_device_memory_keeps_the_digest_on_card(cuda_device):
+    """Kernel 10 reads its seed from a device word: at chip_smoke.py's K10
+    digest inputs, a seed given as a number and one given as a device
+    tensor both reproduce the stored digest."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        SDEWeights, persistent_sde_solve,
+    )
+    from localregneuralde_tpu_torch.sde import PhiloxNormals
+    from localregneuralde_tpu_torch.sde.brownian import seed_to_word
+
+    model, _, _, _ = cs._sde_model(cuda_device)
+    node = model.neural_dsde
+    w = SDEWeights(*(p.detach() for p in list(node.drift.parameters())
+                     + list(node.diffusion.parameters())))
+    x = cs._mnist_batches(cuda_device, 1)[0][0]
+    with torch.no_grad():
+        u0 = model.downsample(model.flatten(x, {})[0], {})[0].contiguous()
+    word = torch.tensor([seed_to_word(1234)], dtype=torch.int32,
+                        device=cuda_device)
+    for seed in (1234, word):
+        out = persistent_sde_solve(
+            w, u0, (0.0, 1.0),
+            noise=PhiloxNormals(seed, cs.B, u0.shape[1], device=cuda_device),
+            rtol=cs.SDE_TOL, atol=cs.SDE_TOL, solver="sosri", delta=1 / 6,
+            saveat_arr=torch.tensor([0.5, 1.0], device=cuda_device),
+            max_steps=10000, record_knots=True)
+        cs.digest("K10", out)  # raises unless the stored digest

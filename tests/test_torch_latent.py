@@ -64,6 +64,7 @@ from localregneuralde_tpu_torch.harness import (
     make_train_step,
 )
 from localregneuralde_tpu_torch.harness import latent_runner
+from localregneuralde_tpu_torch.harness.checkpoint import load_checkpoint
 from localregneuralde_tpu_torch.harness.data import (
     Dataloader,
     synthetic_physionet,
@@ -599,11 +600,27 @@ def test_runner_resumes_the_uninterrupted_run(tmp_path, monkeypatch):
 
 
 def test_runner_refuses_unported_options(tmp_path):
-    for extra in (["--train.steps_per_call=4"], ["--train.grad_accumulation=2"],
-                  ["--train.ema_decay=0.9"], ["--train.data_parallel=gspmd"]):
-        cfg = define_configuration(extra, CONFIG)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            run_latent_ode_experiment(cfg, device="cpu")
+    """The parallel layer is not ported: data_parallel raises."""
+    cfg = define_configuration(["--train.data_parallel=gspmd"], CONFIG)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        run_latent_ode_experiment(cfg, device="cpu")
+
+
+def test_runner_runs_the_train_loop_options(tmp_path):
+    """steps_per_call=2, grad_accumulation=2 and ema_decay=0.9 together:
+    two K-step calls of two steps, each step on two microbatches of 4, the
+    checkpoint with its EMA, and the evaluation of the EMA weights."""
+    cfg = _runner_cfg(tmp_path, 4)
+    cfg.train.steps_per_call, cfg.train.print_frequency = 2, 2
+    cfg.train.evaluate_every = 2
+    cfg.train.grad_accumulation, cfg.train.ema_decay = 2, 0.9
+    out = run_latent_ode_experiment(cfg, device="cpu")
+    assert out["steps_per_call"] == 2 and not out["captured"]
+    assert list(_losses(out)) == [2, 4]
+    ck = load_checkpoint(os.path.join(out["ckpt_dir"], "model_current.ckpt"))
+    assert int(ck["step"]) == 4
+    assert set(ck["tstate"]["ema"]) == set(ck["tstate"]["params"])
+    assert np.isfinite(out["final_eval_mse"]) and out["final_eval_nfe"] > 0
 
 
 def test_entry_points_default_to_the_gpu():
