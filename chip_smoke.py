@@ -86,12 +86,25 @@ on the card:
     (unbiased), PhysioNet as shipped and CIFAR-10 (unbiased) through the
     K-step train call (``make_multi_train_step``, K = auto = 5): one call
     against five ``make_train_step`` calls from a copy of the same state,
-    bitwise where the call is one CUDA-graph replay (every path but CIFAR,
-    whose eager call is held bitwise with cuDNN deterministic), the port
-    kernels of one replay against the eager steps' (``torch.profiler``),
-    ms a step both ways and the replay's busy share, and one captured call
-    with ``grad_accumulation=2`` and ``ema_decay=0.999`` (``[capture
-    ...]``, ``--only=capture``).
+    bitwise (a CUDA-graph replay on every path but CIFAR, whose call is
+    eager; its convs take cuDNN's deterministic algorithms inside the port,
+    no flag is set here, and two eager runs are held bitwise too), the
+    port kernels of one replay against the eager steps'
+    (``torch.profiler``), ms a step both ways and the replay's busy share,
+    and one captured call with ``grad_accumulation=2`` and
+    ``ema_decay=0.999`` (``[capture ...]``, ``--only=capture``);
+18. drives the remaining solver modes at full width (``--only=modes``):
+    ``[modes ode ...]`` on ``mlp.yaml``'s model, the direct,
+    interpolating and backsolve adjoints and VCAB3/VCABM3 at the bench
+    tolerance, the direct adjoint at rtol 1.4e-8 and bfloat16 dynamics,
+    each with ms a step and K1/K2/K3 launches a step (``torch.profiler``),
+    its kernel route against its plain route and the direct adjoint
+    against the stored one; ``[modes sde ...]`` on the MNIST SDE with
+    Milstein, matrix Milstein (``sde_noise_dims = 3``), Euler–Heun and
+    SOSRI under the direct adjoint; ``[modes score ...]``, the VP-SDE
+    sampler with Milstein and Euler–Heun against an SOSRI draw; and
+    ``[cifar repeat]``, two eager CIFAR runs and the K-step call bitwise
+    equal with no process-wide flag.
 
 Beside those: each persistent kernel's outputs (kernels 4 at both
 tolerances, 5, 6, 8's replay and its gradients, 9, 10, 11 and 12, and
@@ -4118,6 +4131,8 @@ def phase_orient_probe(lib, x, wt, outs, ref64, flops, runs=3):
 # the K-step train call: one CUDA-graph replay of K captured train steps
 
 CAPTURE_CALLS = 5      # timed calls per side (the median is printed)
+PROFILE_EDGE = 256      # marker fills at each edge of a profiled window
+PROFILE_GUARD_S = 0.1   # host pause between an edge's fills and its mark
 
 
 def _generators(tree):
@@ -4144,26 +4159,55 @@ def _train_leaves(ts):
     return out + [(f"state {i}", v) for i, v in enumerate(_leaves(ts.state))]
 
 
-def _port_kernels(prof):
-    """Launches of the port's kernels (``lrnde::``) in a profile."""
+def _profiled(fn):
+    """``fn()`` under ``torch.profiler``: (its result, the port kernels'
+    launches, its device time in ms (kernels, copies, memsets), the edge
+    fills the trace lost at its start and at its end). The trace can lose
+    the device events at either edge of its window, never inside it
+    (``sequence_split``): a step's first kernels, or a whole burst of
+    fills launched last. So the work runs between two marks, each
+    PROFILE_GUARD_S away from a burst of PROFILE_EDGE fills of an int16
+    marker at the window's edge: opening burst, pause, opening mark,
+    ``fn``, closing mark, pause, closing burst. The trace must hold the
+    opening and the closing mark (the edges of the trace are the int16
+    fills it kept of each burst with its mark), and only what lies between
+    them is counted; the fills lost measure how near the edges came."""
     import collections
 
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    counts = collections.Counter()
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and "lrnde" in e.name):
-            counts[e.name.split("(")[0][:80]] += 1
-    return dict(counts)
-
-
-def _device_ms(prof):
-    """Device time (kernels, copies, memsets) in a profile, in ms."""
-    import torch
-
-    return sum(e.device_time for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    marker = torch.zeros(1, dtype=torch.int16, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_EDGE):
+            marker.fill_(1)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_GUARD_S)
+        marker.fill_(2)
+        out = fn()
+        marker.fill_(3)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_GUARD_S)
+        for _ in range(PROFILE_EDGE):
+            marker.fill_(4)
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    is_mark = ["FillFunctor<short>" in e.name for e in dev]
+    head = next((i for i, m in enumerate(is_mark) if not m), len(dev))
+    tail = next((i for i, m in enumerate(reversed(is_mark)) if not m),
+                len(dev))
+    check(head >= 1 and tail >= 1 and head + tail < len(dev),
+          f"profile: the trace keeps {head} and {tail} of the "
+          f"{PROFILE_EDGE + 1} int16 fills at its edges, not both marks")
+    work = dev[head:len(dev) - tail]
+    counts = collections.Counter(e.name.split("(")[0][:80] for e in work
+                                 if "lrnde" in e.name)
+    busy = sum(e.device_time for e in work) / 1e3
+    return (out, dict(counts), busy,
+            (PROFILE_EDGE + 1 - head, PROFILE_EDGE + 1 - tail))
 
 
 def _capture_configs(device):
@@ -4272,15 +4316,6 @@ def _compare_states(a, b, red_a, red_b):
     return bitwise, gens, worst
 
 
-def _param_spread(a, b, red_a, red_b):
-    """The largest difference of the parameters and the summed loss
-    between two train states, relative to the largest value of each."""
-    pairs = [(a.params[k], b.params[k]) for k in a.params]
-    pairs.append((red_a["loss"], red_b["loss"]))
-    return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
-               for x, y in pairs)
-
-
 def phase_capture(device):
     """The K-step train call against K eager train steps at full width:
     ``mlp.yaml`` and the bench tolerance (both unbiased), the MNIST SDE
@@ -4288,20 +4323,21 @@ def phase_capture(device):
     auto. Holds the call's train state (parameters, optimizer state, layer
     state, the CPU generators) and its summed loss, reg_val and NFE
     against K ``make_train_step`` calls from a copy of the same state on
-    the same batches, w_reg and learning rates: bitwise where the call is
-    one CUDA-graph replay; CIFAR's call is eager, and since cuDNN's FP32
-    convs are not repeatable run to run, its spread is printed and it is
-    held bitwise with cuDNN deterministic. Counts the port's
+    the same batches, w_reg and learning rates: bitwise, where the call is
+    one CUDA-graph replay and for CIFAR's eager call alike (its plain
+    convs take cuDNN's deterministic algorithms inside the port,
+    ``nn.basic.conv2d_nhwc``; no process-wide flag is set here, and two
+    eager runs are held bitwise against each other). Counts the port's
     kernels of one replay and of K eager steps with ``torch.profiler``,
-    times both (the median of CAPTURE_CALLS calls a side) and prints the
-    replay's device-busy share; then one captured call with
+    each in a marked window (``_profiled``), times both (the median of
+    CAPTURE_CALLS calls a side) and prints the replay's device-busy share;
+    then one captured call with
     ``grad_accumulation=2`` and ``ema_decay=0.999`` on ``mlp.yaml`` against
     its eager twin. Returns the port kernels' launch counts of the
     captured calls, by wrapper."""
     import copy
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from localregneuralde_tpu_torch.harness import (
         create_train_state, init_ema, make_multi_train_step, make_train_step,
@@ -4347,57 +4383,43 @@ def phase_capture(device):
                 f"{float(red_a['loss']):.6f}, reg_val "
                 f"{float(red_b['reg_val']):.6e} vs "
                 f"{float(red_a['reg_val']):.6e}, NFE {nfe_b} vs {nfe_a}")
-        if cap:
-            print(f"{head}; bitwise {bitwise} (parameters, optimizer and "
-                  "layer state, generators, loss, reg_val, NFE)")
-            check(bitwise, f"capture {name}: the replay differs from "
-                  f"{K} eager steps (largest relative difference {worst:.3e})")
-        else:
-            # cuDNN's FP32 convs are not repeatable run to run (ROADMAP
-            # Queue 3): a second eager run measures that spread on the
-            # parameters and the summed loss; the call is then held
-            # bitwise against eager steps with cuDNN made deterministic
+        print(f"{head}; bitwise {bitwise} (parameters, optimizer and "
+              "layer state, generators, loss, reg_val, NFE)")
+        check(bitwise, f"capture {name}: the call differs from {K} eager "
+              f"steps (largest relative difference {worst:.3e})")
+        if not cap:
+            # the eager call repeats only if eager steps repeat: a second
+            # eager run from the same state, with no flag set
             a2, _, red_a2 = _eager_k(step, copy.deepcopy(ts0), batches[:K],
                                      ws, lrs, reduce_fn)
-            spread = _param_spread(a, a2, red_a, red_a2)
-            off = _param_spread(a, b, red_a, red_b)
-            torch.backends.cudnn.deterministic = True
-            try:
-                d_a, _, d_red_a = _eager_k(step, copy.deepcopy(ts0),
-                                           batches[:K], ws, lrs, reduce_fn)
-                d_b, _, d_red_b = multi(copy.deepcopy(ts0), stack, ws, lrs)
-                torch.cuda.synchronize()
-            finally:
-                torch.backends.cudnn.deterministic = False
-            det, gens, _ = _compare_states(d_a, d_b, d_red_a, d_red_b)
-            print(f"{head}; with cuDNN's default convs the parameters and "
-                  f"summed loss differ by {off:.3e} of their largest value "
-                  f"(eager against eager {spread:.3e}: cuDNN's FP32 convs "
-                  "are not repeatable run to run); with cuDNN deterministic "
-                  f"the call is bitwise {det} (generators {gens})")
-            check(det and gens, f"capture {name}: the K-step call differs "
-                  "from eager steps with cuDNN deterministic")
-            del a2, d_a, d_b
+            rep, gens2, worst2 = _compare_states(a, a2, red_a, red_a2)
+            print(f"[capture {name}] two eager runs of {K} steps from one "
+                  f"state: bitwise {rep} (generators {gens2}, largest "
+                  f"relative difference {worst2:.3e})")
+            check(rep and gens2, f"capture {name}: eager steps are not "
+                  "repeatable")
+            del a2
         # launches of the port's kernels: K eager steps against one call,
         # from the same state on the same batches
         nxt = batches[K:]
         nstack = tuple(torch.stack([x[i] for x in nxt])
                        for i in range(len(nxt[0])))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as pa:
-            a, _, _ = _eager_k(step, a, nxt, ws, lrs, reduce_fn)
-            torch.cuda.synchronize()
+        a, ka, _, lost_a = _profiled(
+            lambda: _eager_k(step, a, nxt, ws, lrs, reduce_fn)[0])
         before = launch_counts()
-        with profile(activities=[ProfilerActivity.CUDA]) as pb:
+
+        def timed_call():
             t0 = time.perf_counter()
-            b, _, _ = multi(b, nstack, ws, lrs)
+            out = multi(b, nstack, ws, lrs)[0]
             torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
-        ka, kb = _port_kernels(pa), _port_kernels(pb)
-        busy = _device_ms(pb)
+            return out, 1e3 * (time.perf_counter() - t0)
+
+        (b, wall), kb, busy, lost_b = _profiled(timed_call)
         print(f"[capture {name}] port kernels of {K} eager steps {ka}; of "
               f"one call {kb}; the call {wall:.3f} ms under the profiler, "
-              f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
+              f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%); the "
+              f"traces lost {lost_a} and {lost_b} of the {PROFILE_EDGE + 1} "
+              "int16 fills at each edge (start, end)")
         check(bool(kb), f"capture {name}: the profiler saw no port kernel")
         if cap:
             check(ka == kb, f"capture {name}: the replay's kernels differ "
@@ -4464,9 +4486,357 @@ def phase_capture(device):
     return launch_counts()
 
 
+# ------------------------------------------------------------ solver modes
+
+MODES_STEPS = 3        # timed train steps a mode
+MODES_SCORE_TOL = {"milstein": 1e-1, "euler_heun": SCORE_TOL}
+K123 = {"tdmlp_cluster_kernel": "K1", "step_cluster_kernel": "K2",
+        "tsit5_step_bwd_kernel": "K3"}
+
+
+def _k123(kernels):
+    """Launches of K1, K2 and K3 among the port kernels of a profile
+    (``_profiled``), from their names."""
+    out = {"K1": 0, "K2": 0, "K3": 0}
+    for name, n in kernels.items():
+        for key, k in K123.items():
+            if key in name:
+                out[k] += n
+    return out
+
+
+def _mode_steps(step, ts, batches, w_reg, sched, warm=True):
+    """With ``warm`` one untimed step, then MODES_STEPS timed steps and one
+    profiled step of ``step`` from ``ts``: (ts, [(loss, stats)], [ms],
+    K1/K2/K3 launches of the profiled step, the wrappers' launches of the
+    profiled step)."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import launch_counts
+
+    if warm:
+        ts, _, _ = step(ts, batches[0], w_reg(1), sched(1))
+        torch.cuda.synchronize()
+    outs, ms = [], []
+    for i in range(MODES_STEPS):
+        t0 = time.perf_counter()
+        ts, loss, stats = step(ts, batches[i % len(batches)], w_reg(i + 2),
+                               sched(i + 2))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append((loss, stats))
+    before = launch_counts()
+    ts, kernels, _, _ = _profiled(
+        lambda: step(ts, batches[0], w_reg(1), sched(1))[0])
+    after = launch_counts()
+    wrappers = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    return ts, outs, ms, _k123(kernels), wrappers
+
+
+def _ms_band(ms):
+    return (f"{statistics.median(ms):.3f} ms a step (min {min(ms):.3f}, "
+            f"max {max(ms):.3f})")
+
+
+def _route_pair(name, overrides, device, model, loss_fn, params0, data,
+                tol):
+    """One step's cross-entropy gradients on the kernel route against the
+    plain route of the same mode, same parameters and batch; the NFE
+    equal or within a fifth of each other, the gradients compared where
+    the NFE are equal."""
+    sd = model.state_dict()
+    plain = _train_setup(overrides + ["--model.use_pallas=off"], device, sd)
+    _, s_k, g_k = _grads(model, loss_fn, params0, data, 0.0)
+    _, s_p, g_p = _grads(plain[0], plain[1], params0, data, 0.0)
+    n_k, n_p = int(s_k["nfe"]), int(s_p["nfe"])
+    ce_k, ce_p = float(s_k["ce_loss"]), float(s_p["ce_loss"])
+    head = (f"[modes ode {name}] kernel route vs plain route: NFE {n_k} vs "
+            f"{n_p}, cross-entropy {ce_k:.6f} vs {ce_p:.6f}")
+    check(abs(ce_k - ce_p) <= 1e-4 and abs(n_k - n_p) <= 0.2 * n_p,
+          f"modes {name}: the kernel route disagrees with the plain route")
+    if n_k != n_p:
+        print(f"{head}; the step sequences differ (f32 noise in the error "
+              "estimate), gradients not compared")
+        return
+    rel = max(rel_err(g_k[k].cpu(), g_p[k].cpu()) for k in g_k)
+    print(f"{head}; cross-entropy gradients relative max-abs {rel:.3e} "
+          f"(gate {tol:g})")
+    check(rel <= tol, f"modes {name}: gradients disagree with the plain "
+          "route")
+
+
+def phase_modes_ode(device):
+    """The ODE solver modes on ``mlp.yaml``'s model (B = 512, unbiased):
+    the direct, interpolating and backsolve adjoints at the bench
+    tolerance, the direct adjoint at the config's own rtol 1.4e-8, VCAB3
+    and VCABM3 (and one eval batch each), bfloat16 dynamics on the plain
+    route, each after one untimed step, MODES_STEPS timed steps and one
+    profiled; each mode's kernel route against its plain route, and the
+    direct adjoint against the stored one on one step. Prints each mode's
+    ms a step and its K1, K2 and K3 launches a step
+    (``torch.profiler``)."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import make_eval_step
+
+    batches = _mnist_batches(device, MODES_STEPS, train=True)
+    eval_batch = _mnist_batches(device, 1)[0]
+    adj = lambda a: [f"--model.solver.adjoint={a}"]  # noqa: E731
+    modes = (
+        ("stored", BENCH, 1e-3),
+        ("direct", BENCH + adj("direct"), 1e-3),
+        ("interpolating", BENCH + adj("interpolating"), 1e-2),
+        ("backsolve", BENCH + adj("backsolve"), 1e-2),
+        ("vcab3", BENCH + ["--model.solver.ode_solver=vcab3"], 1e-3),
+        ("vcabm3", BENCH + ["--model.solver.ode_solver=vcabm3"], 1e-3),
+        ("direct mlp.yaml", adj("direct"), None),
+        ("bfloat16", BENCH + ["--model.dynamics_compute_dtype=bfloat16"],
+         None),
+    )
+    rows = {}
+    for name, overrides, tol in modes:
+        model, loss_fn, step, ts, w_reg, sched = _train_setup(overrides,
+                                                              device)
+        params0 = {k: v.detach().clone() for k, v in ts.params.items()}
+        node = model.neural_ode
+        if name == "bfloat16":
+            check(node.use_pallas == "off" and node.compute_dtype is not None,
+                  "modes bfloat16: not on the plain route")
+        if name in ("vcab3", "vcabm3"):
+            loss, stats = make_eval_step(model, loss_fn)(ts, eval_batch, 0.0)
+            print(f"[modes ode {name}] eval batch of {B}: loss "
+                  f"{float(loss):.6f} NFE {int(stats['nfe'])} success "
+                  f"{bool(stats['solver_success'])}")
+            check(bool(torch.isfinite(loss)) and int(stats["nfe"]) > 0,
+                  f"modes {name}: bad eval output")
+        ts, outs, ms, k123, wrappers = _mode_steps(step, ts, batches, w_reg,
+                                                   sched)
+        for i, (loss, stats) in enumerate(outs):
+            nfe = int(stats["nfe"])
+            print(f"[modes ode {name}] step {i}: loss {float(loss):.6f} "
+                  f"reg_val {float(stats['reg_val']):.6e} NFE {nfe} success "
+                  f"{bool(stats['solver_success'])}")
+            check(bool(torch.isfinite(loss)) and nfe > 0
+                  and float(stats["reg_val"]) > 0
+                  and tuple(stats["y_pred"].shape) == (B, 10),
+                  f"modes {name} step {i}: bad output")
+        print(f"[modes ode {name}] {_ms_band(ms)}; a step launches {k123} "
+              f"(profiler), wrappers {wrappers}")
+        rows[name] = dict(ms=statistics.median(ms), k123=k123)
+        if name in ("direct", "interpolating", "backsolve"):
+            # the TD-MLP route: K1 through FusedTDMLP, K2 (and K3 for the
+            # direct scan) through FusedTsit5Step
+            need = {"direct": ("K1", "K2", "K3")}.get(name, ("K1", "K2"))
+            check(all(k123[k] > 0 for k in need),
+                  f"modes {name}: a step launched {k123}, expected {need}")
+        if tol is not None:
+            _route_pair(name, overrides, device, model, loss_fn, params0,
+                        batches[0], tol)
+        if name == "direct":
+            stored = _train_setup(BENCH, device, model.state_dict())
+            _, s_d, g_d = _grads(model, loss_fn, params0, batches[0], 0.0)
+            _, s_s, g_s = _grads(stored[0], stored[1], params0, batches[0],
+                                 0.0)
+            rel = max(rel_err(g_d[k], g_s[k]) for k in g_d)
+            print(f"[modes ode direct] vs the stored adjoint on one step: NFE "
+                  f"{int(s_d['nfe'])} vs {int(s_s['nfe'])}, cross-entropy "
+                  f"gradients relative max-abs {rel:.3e}")
+            check(int(s_d["nfe"]) == int(s_s["nfe"]) and rel <= 1e-3,
+                  "modes direct: disagrees with the stored adjoint")
+        del model, step, ts
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_modes_sde(device):
+    """The MNIST-SDE model (32 -> 64 -> 32, B = 512, unbiased) with the
+    other solvers: Milstein, Milstein with sde_noise_dims = 3 (matrix
+    noise, Dense(32, 96) diffusion) and Euler–Heun, one eval batch each and
+    MODES_STEPS timed train steps under the stored and the direct adjoint
+    (the first with its set-up), and SOSRI under the direct adjoint. These run the eager loop on the
+    modules (the SDE kernels serve SRI/SOSRI with diagonal noise under the
+    stored adjoint only, as the reference's)."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import make_eval_step
+
+    batches = _mnist_batches(device, MODES_STEPS, train=True)
+    eval_batch = _mnist_batches(device, 1)[0]
+    solvers = (("milstein", ["--model.sde_solver=milstein"]),
+               ("milstein m=3", ["--model.sde_solver=milstein",
+                                 "--model.sde_noise_dims=3"]),
+               ("euler_heun", ["--model.sde_solver=euler_heun"]),
+               ("sosri", ["--model.sde_solver=sosri"]))
+    rows = {}
+    for name, ov in solvers:
+        for adjoint in ("stored", "direct"):
+            if name == "sosri" and adjoint == "stored":
+                continue  # K10 + K12: the sde phases above
+            overrides = ov + [f"--model.solver.adjoint={adjoint}"]
+            model, loss_fn, step, ts, w_reg, sched = _train_setup(
+                overrides, device, config=SDE_CONFIG)
+            layer = model.neural_dsde
+            check(not layer.persistent_step(B, device),
+                  f"modes sde {name}: declared a persistent step")
+            if adjoint == "stored":
+                loss, stats = make_eval_step(model, loss_fn)(ts, eval_batch,
+                                                             0.0)
+                print(f"[modes sde {name}] eval batch of {B}: loss "
+                      f"{float(loss):.6f} NFE (drift) "
+                      f"{int(stats['nfe'][0])} success "
+                      f"{bool(stats['solver_success'])}")
+                check(bool(torch.isfinite(loss)),
+                      f"modes sde {name}: bad eval output")
+            ts, outs, ms, _, wrappers = _mode_steps(step, ts, batches, w_reg,
+                                                    sched, warm=False)
+            for i, (loss, stats) in enumerate(outs):
+                print(f"[modes sde {name} {adjoint}] step {i}: loss "
+                      f"{float(loss):.6f} reg_val "
+                      f"{float(stats['reg_val']):.6e} NFE (drift) "
+                      f"{int(stats['nfe'][0])} success "
+                      f"{bool(stats['solver_success'])}")
+                check(bool(torch.isfinite(loss))
+                      and float(stats["reg_val"]) >= 0
+                      and tuple(stats["y_pred"].shape) == (B, 10),
+                      f"modes sde {name} {adjoint} step {i}: bad output")
+            check(not wrappers, f"modes sde {name}: kernels {wrappers} ran")
+            print(f"[modes sde {name} {adjoint}] {_ms_band(ms)}")
+            rows[f"{name} {adjoint}"] = statistics.median(ms)
+            del model, step, ts
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_modes_score(device):
+    """``sample_vpsde`` with Milstein and Euler–Heun at B = SCORE_B on the
+    score demo's TDChain (the eager loop: kernel 11 serves SRI/SOSRI only),
+    samples/s and the first two moments against an SOSRI draw (kernel 11)
+    from the same u_init and Philox seed. Milstein runs at rtol = atol 0.1:
+    its error estimate (the scaled step difference, a reference quirk)
+    needs ~4x the attempts of Euler–Heun at 1e-2."""
+    import torch
+
+    from localregneuralde_tpu_torch.models import sample_vpsde
+
+    net = _score_net(device)
+    gen = lambda: torch.Generator().manual_seed(5)  # noqa: E731
+    kw = dict(max_steps=SCORE_MAX_STEPS, device=device, score_module=net)
+    ref, rsol = sample_vpsde(None, (SCORE_B, SCORE_F), gen(), solver="sosri",
+                             **kw)
+    m_ref, s_ref = ref.mean(0), ref.std(0)
+    rows = {}
+    for solver, tol in MODES_SCORE_TOL.items():
+        sample_vpsde(None, (64, SCORE_F), gen(), solver=solver, rtol=tol,
+                     atol=tol, **kw)  # first-call set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, sol = sample_vpsde(None, (SCORE_B, SCORE_F), gen(), solver=solver,
+                              rtol=tol, atol=tol, **kw)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        m, sd = s.mean(0), s.std(0)
+        print(f"[modes score {solver}] rtol {tol:g}: {ms:.1f} ms a draw of "
+              f"{SCORE_B}, {SCORE_B / (ms / 1e3):.1f} samples/s, accepts "
+              f"{int(sol.naccept)} rejects {int(sol.nreject)} NFE "
+              f"{int(sol.nfe_drift)}/{int(sol.nfe_diffusion)}; mean "
+              f"{m.tolist()} std {sd.tolist()} vs SOSRI's {m_ref.tolist()} "
+              f"{s_ref.tolist()} ({int(rsol.naccept)} accepts)")
+        check(bool(sol.success) and bool(torch.isfinite(s).all())
+              and tuple(s.shape) == (SCORE_B, SCORE_F),
+              f"modes score {solver}: bad draw")
+        check(bool(((m - m_ref).abs() <= 0.2 * s_ref).all())
+              and bool(((sd / s_ref - 1).abs() <= 0.2).all()),
+              f"modes score {solver}: moments disagree with SOSRI's")
+        rows[solver] = SCORE_B / (ms / 1e3)
+    return rows
+
+
+def phase_cifar_repeat(device):
+    """``[cifar repeat]``: CIFAR-10 training, eager, is repeatable with no
+    process-wide flag: two runs of MODES_STEPS ``make_train_step`` steps
+    from one state (``none`` and ``unbiased``) are bitwise equal, and the
+    K-step call (K = MODES_STEPS, eager on this family) is bitwise equal to
+    them; prints the ms a step of each arm."""
+    import copy
+
+    import torch
+
+    from localregneuralde_tpu_torch.harness import (
+        construct_loss, construct_model, construct_optimizer,
+        create_train_state, define_configuration, make_multi_train_step,
+        make_train_step,
+    )
+
+    check(not torch.backends.cudnn.deterministic
+          and not torch.backends.cudnn.benchmark,
+          "cifar repeat: a process-wide cuDNN flag is set")
+    batches = _cifar_batches(device, "train", MODES_STEPS)
+    for reg in ("none", "unbiased"):
+        cfg = define_configuration([f"--model.regularize={reg}"],
+                                   CIFAR_CONFIG)
+        model = construct_model(cfg, device=device)
+        loss_fn, w_reg = construct_loss(cfg)
+        opt, sched = construct_optimizer(cfg)
+        step = make_train_step(model, loss_fn, opt)
+        ts0 = create_train_state(model, opt)
+        ws = [w_reg(i + 1) for i in range(MODES_STEPS)]
+        lrs = [sched(i + 1) for i in range(MODES_STEPS)]
+        reduce_fn = lambda loss, stats, data: {  # noqa: E731
+            "loss": loss.detach(), "nfe": stats["nfe"]}
+        runs, ms = [], []
+        for _ in range(2):
+            ts = copy.deepcopy(ts0)
+            t0 = time.perf_counter()
+            ts, _, red = _eager_k(step, ts, batches, ws, lrs, reduce_fn)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0) / MODES_STEPS)
+            runs.append((ts, red))
+        multi = make_multi_train_step(model, loss_fn, opt, reduce_fn)
+        stack = tuple(torch.stack([b[i] for b in batches])
+                      for i in range(len(batches[0])))
+        b, _, red_b = multi(copy.deepcopy(ts0), stack, ws, lrs)
+        torch.cuda.synchronize()
+        (a, red_a), (a2, red_a2) = runs
+        rep, gens, worst = _compare_states(a, a2, red_a, red_a2)
+        call, gens_c, worst_c = _compare_states(a, b, red_a, red_b)
+        print(f"[cifar repeat {reg}] two eager runs of {MODES_STEPS} steps: "
+              f"bitwise {rep} (largest relative difference {worst:.3e}, "
+              f"generators {gens}); the K-step call (captured "
+              f"{multi.captured}) against them bitwise {call} "
+              f"({worst_c:.3e}); {ms[0]:.3f} and {ms[1]:.3f} ms a step, "
+              f"summed NFE {int(red_a['nfe'])}")
+        check(rep and gens and call and gens_c and not multi.captured,
+              f"cifar repeat {reg}: training is not repeatable")
+        del a, a2, b, ts0, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_modes(device):
+    """Every ``[modes ...]`` phase and ``[cifar repeat]``; returns the
+    wrappers' launch counts of the modes' paths (counted from zero)."""
+    from localregneuralde_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts,
+    )
+
+    reset_launch_counts()
+    ode = phase_modes_ode(device)
+    sde = phase_modes_sde(device)
+    score = phase_modes_score(device)
+    counts = launch_counts()
+    phase_cifar_repeat(device)
+    print(json.dumps({"modes": {
+        "ode_ms": {k: v["ms"] for k, v in ode.items()},
+        "ode_k123": {k: v["k123"] for k, v in ode.items()},
+        "sde_ms": sde, "score_samples_per_s": score}}))
+    return counts
+
+
 PARTS = ("kernels", "backward", "sde", "chain", "latent", "conv",
          "conv_core", "score", "attribution", "orient", "solve", "ode",
-         "cifar", "sde_train", "capture")
+         "cifar", "sde_train", "capture", "modes")
 
 
 def partial_run(device, parts, profile=False):
@@ -4515,6 +4885,8 @@ def partial_run(device, parts, profile=False):
         phase_conv_orient(device)
     if "capture" in parts:
         phase_capture(device)
+    if "modes" in parts:
+        phase_modes(device)
     print(json.dumps({"digests": SEEN_DIGESTS}))
     print(f"chip_smoke: partial run of {parts}, every check passed")
     return 0
@@ -4554,6 +4926,7 @@ def main():
     phase_conv_core(device)
     path_counts.append(phase_cifar(device, profile=profile))
     path_counts.append(phase_capture(device))
+    path_counts.append(phase_modes(device))
     res.update(phase_score_kernels(device))
     phase_vpsde_attribution(device)
     path_counts.append(phase_score_sampling(device))

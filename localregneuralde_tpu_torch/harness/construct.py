@@ -85,7 +85,19 @@ def construct_model(cfg: ExperimentConfig, *, device=None,
 
 
 def _node_kwargs(cfg: ExperimentConfig):
+    """NeuralODE's keywords from ``cfg.model.solver``, with the reference's
+    checks of ``ode_solver`` and ``adjoint`` (``construct.py:57-81``)."""
     s = cfg.model.solver
+    if s.ode_solver not in ("tsit5", "vcab3", "vcabm3"):
+        raise ValueError(
+            f"unknown ode_solver {s.ode_solver!r}; supported: tsit5, vcab3, "
+            "vcabm3 (reference construct.jl:154-164)"
+        )
+    if s.adjoint not in ("stored", "direct", "interpolating", "backsolve"):
+        raise ValueError(
+            f"unknown adjoint {s.adjoint!r}; supported: stored, direct, "
+            "interpolating, backsolve"
+        )
     return dict(
         rtol=s.reltol,
         atol=s.abstol,
@@ -218,10 +230,7 @@ def construct_loss(cfg: ExperimentConfig) -> Tuple[Callable, object]:
     schedule is ``(w_reg, w_kl)``, with the KL weight annealed as
     max(0, 1 − 0.99^(t−100)) (reference ``construct.jl:78-102``)."""
     if cfg.model.model_type not in ("mlp", "cifar10_cnn", "time_series"):
-        raise NotImplementedError(
-            f"the loss of model_type={cfg.model.model_type!r} is not ported "
-            "yet"
-        )
+        raise ValueError(f"unknown model_type {cfg.model.model_type!r}")
     if cfg.loss.w_reg_decay == "exponential":
         w_reg = ExponentialDecay(
             cfg.loss.w_reg_start, cfg.loss.w_reg_end, cfg.train.total_steps

@@ -6,7 +6,13 @@ Counterpart of ``localregneuralde_tpu/models/neural_ode.py`` (reference
 keys; ``rng`` is a ``torch.Generator`` where the reference keeps a JAX key.
 
 - Eval mode solves with adjoint ``'none'`` and no regulariser.
-- Training solves with the stored adjoint (``ode/stored_adjoint.py``).
+- Training solves with the layer's ``adjoint``: ``'stored'``
+  (``ode/stored_adjoint.py``), ``'direct'`` (autograd through the eager
+  loop), ``'interpolating'`` or ``'backsolve'`` (``ode/interp_adjoint.py``,
+  ``ode/adjoint.py``). ``solver='vcab3'`` or ``'vcabm3'`` runs the Adams
+  solvers (``ode/multistep.py``) under ``'direct'`` (the stored and the
+  continuous adjoints fall back to it, reference ``neural_ode.py:518-527``);
+  the regulariser's step is Tsit5 whatever the solver.
   With ``regularize='unbiased'`` it draws t1 ~ U(t0, t2) from ``rng``
   (``draw``; a train step stages it ahead, ``models/draws.py``),
   appends t1 to the saveat grid (and strips it from the outputs), and takes
@@ -56,6 +62,21 @@ backward (``ops/cuda/fused_mlp_bwd.py``). Without ``use_persistent`` the
 loop calls the step kernel per attempt and the sweep the step-VJP kernel
 per accepted step. ``grad_precision='default'`` is accepted for the
 reference's configs; every tier computes in FP32 here.
+
+The other modes route each family as the reference does
+(``neural_ode.py:224-303``): on the TD-MLP's kernel route the dynamics is
+kernel 1 through ``FusedTDMLP`` (its VJP the plain twin's, recomputed) and
+the step is kernel 2 with kernel 3 as its VJP (``FusedTsit5Step``); the
+conv family steps with kernel 13, kernel 14 its VJP; the chain family
+takes generic steps. The continuous adjoints' forwards take the step
+kernel and no persistent solve, and their reverse solves take VJPs of the
+dynamics (kernel 1 forward on the TD-MLP route). ``compute_dtype=
+'bfloat16'`` computes the dynamics in bfloat16 on the plain route only
+(u and the parameters cast, du cast back to float32, the solver in
+float32; reference ``neural_ode.py:146-171``): it refuses rtol < 1e-4,
+``use_pallas='on'`` raises and ``'auto'`` declines to the plain route.
+None of these modes is a persistent step (``persistent_step``), so a
+K-step call of a model that uses them runs eagerly.
 """
 from __future__ import annotations
 
@@ -68,6 +89,7 @@ import torch
 from ..nn.basic import Dense, resolve_solver_precision
 from ..nn.module import Module
 from ..ode.controller import initial_step_size
+from ..ode.multistep import adams_solve
 from ..ode.solve import ODESolution, device_scalar, odesolve
 from ..ode.step import Tsit5StepResult, regularization_value, tsit5_step
 from ..core.containers import ArrayAndTime, get_array
@@ -80,6 +102,8 @@ from .draws import pop_draws, to_device
 _VALID_REGULARIZE = ("none", "unbiased", "biased")
 _VALID_REG_TYPE = ("error_estimate", "stiffness_estimate")
 _VALID_USE_PALLAS = ("auto", "on", "off")
+_VALID_SOLVERS = ("tsit5", "vcab3", "vcabm3")
+_VALID_ADJOINTS = ("stored", "direct", "interpolating", "backsolve")
 
 
 def sample_t1(generator: torch.Generator, t0: float, t2: float) -> float:
@@ -147,15 +171,15 @@ class NeuralODE(Module):
             raise ValueError(f"regularize must be one of {_VALID_REGULARIZE}")
         if regularize_type not in _VALID_REG_TYPE:
             raise ValueError(f"regularize_type must be one of {_VALID_REG_TYPE}")
-        if solver != "tsit5":
-            raise NotImplementedError(
-                f"solver {solver!r} is not ported yet (ROADMAP Queue 1 item "
-                "11); only tsit5 is"
-            )
-        if compute_dtype not in (None, "float32"):
-            raise NotImplementedError(
-                f"compute_dtype {compute_dtype!r} is not ported yet"
-            )
+        if solver not in _VALID_SOLVERS:
+            raise ValueError(
+                "solver must be 'tsit5', 'vcab3' or 'vcabm3' (reference "
+                "construct.jl:154-164)")
+        if adjoint not in _VALID_ADJOINTS:
+            raise ValueError(f"adjoint must be one of {_VALID_ADJOINTS}")
+        if compute_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(
+                f"compute_dtype must be float32/bfloat16, got {compute_dtype!r}")
         if grad_precision not in ("match", "default"):
             raise ValueError(
                 f"grad_precision must be 'match' or 'default', got "
@@ -165,6 +189,19 @@ class NeuralODE(Module):
             use_pallas = "on" if use_pallas else "off"
         if use_pallas not in _VALID_USE_PALLAS:
             raise ValueError(f"use_pallas must be one of {_VALID_USE_PALLAS}")
+        self.compute_dtype = (torch.bfloat16 if compute_dtype == "bfloat16"
+                              else None)
+        if self.compute_dtype is not None:
+            if resolve_solver_precision(precision, float(rtol)) is not None:
+                raise ValueError(
+                    "compute_dtype='bfloat16' is incompatible with tight-"
+                    "tolerance precision='highest' (rtol < 1e-4): the bf16 "
+                    "dynamics noise would swamp the error estimate")
+            if use_pallas == "on":
+                raise ValueError(
+                    "compute_dtype='bfloat16' is not supported by the "
+                    "kernels (float32 throughout)")
+            use_pallas = "off"  # 'auto' declines to the plain route
         from ..ops.cuda.fused_solve import match_dense_chain
 
         self.chain = None if is_tdmlp(model) else match_dense_chain(model)
@@ -236,7 +273,8 @@ class NeuralODE(Module):
         device = torch.device(device)
         if (device.type != "cuda" or not self.use_persistent
                 or self.family not in ("tdmlp", "chain")
-                or self.use_pallas == "off"):
+                or self.use_pallas == "off" or self.solver != "tsit5"
+                or self.adjoint != "stored"):
             return False
         n_save = (1 if self.saveat is None else self.saveat.shape[0]) + (
             self.regularize == "unbiased")
@@ -261,10 +299,32 @@ class NeuralODE(Module):
         l0, l1 = self.model.layers.values()
         return TDMLPWeights(l0.w, l0.b, l1.w, l1.b)
 
+    def _call_model(self, u, t, st, training: bool, params=None):
+        """The dynamics module at ``(u, t)`` with state ``st`` (with
+        ``params``, a name → tensor dict, through ``functional_call``);
+        under ``compute_dtype`` u and the float32 parameters are cast to
+        it and du back to u's dtype."""
+        cdt = self.compute_dtype
+        u_in = u
+        if cdt is not None:
+            u_in = u.to(cdt)
+            if params is None:
+                params = dict(self.model.named_parameters())
+            params = {k: v.to(cdt) if v.dtype == torch.float32 else v
+                      for k, v in params.items()}
+        if params is None:
+            y, st_new = self.model(ArrayAndTime(u_in, t), st,
+                                   training=training)
+        else:
+            y, st_new = torch.func.functional_call(
+                self.model, params, (ArrayAndTime(u_in, t), st),
+                {"training": training})
+        du = get_array(y)
+        return (du if cdt is None else du.to(u.dtype)), st_new
+
     def _generic_dynamics(self, training: bool = False):
         def f(u, t, st):
-            y, st_new = self.model(ArrayAndTime(u, t), st, training=training)
-            return get_array(y), st_new
+            return self._call_model(u, t, st, training)
 
         return f
 
@@ -351,14 +411,8 @@ class NeuralODE(Module):
     def _train_dynamics(self, names):
         """The dynamics module in training mode as the stored adjoint's
         stateful ``f(u, t, params, st) -> (du, st)``."""
-        model = self.model
-
         def f(u, t, params, st):
-            y, st_new = torch.func.functional_call(
-                model, dict(zip(names, params)), (ArrayAndTime(u, t), st),
-                {"training": True},
-            )
-            return get_array(y), st_new
+            return self._call_model(u, t, st, True, dict(zip(names, params)))
 
         return f
 
@@ -501,13 +555,16 @@ class NeuralODE(Module):
             f, step_fn, persistent_fn = self._kernel_solvers()
         else:
             f, step_fn, persistent_fn = self._generic_dynamics(), None, None
-        sol = odesolve(
-            f, x, self.tspan, rtol=self.rtol, atol=self.atol,
-            saveat=device_saveat(self, x.device),
-            max_steps=self.max_steps, adjoint="none", stateful=True,
-            f_state=state["model"], step_fn=step_fn,
-            persistent_fn=persistent_fn,
-        )
+        saveat = device_saveat(self, x.device)
+        if self.solver != "tsit5":
+            sol = self._adams(f, x, state["model"], saveat, None, "none")
+        else:
+            sol = odesolve(
+                f, x, self.tspan, rtol=self.rtol, atol=self.atol,
+                saveat=saveat, max_steps=self.max_steps, adjoint="none",
+                stateful=True, f_state=state["model"], step_fn=step_fn,
+                persistent_fn=persistent_fn,
+            )
         new_state = dict(state)
         new_state.update(model=sol.f_state, nfe=sol.nfe,
                          reg_val=torch.zeros((), device=x.device),
@@ -518,11 +575,6 @@ class NeuralODE(Module):
         draws, state = pop_draws(state)
         if not training:
             return self._eval_solve(x, state)
-        if self.adjoint != "stored":
-            raise NotImplementedError(
-                f"training with adjoint={self.adjoint!r} is not ported yet: "
-                "only the stored adjoint is (ROADMAP Queue 1 item 11)"
-            )
         t2 = self.tspan[1]
         kernels = self.uses_kernels(x)
         names, params = zip(*self.model.named_parameters())
@@ -537,13 +589,17 @@ class NeuralODE(Module):
         if unbiased:
             t1 = draws["t1"]
             saveat = torch.cat([user_saveat, t1.reshape(1)])
-        kw = self._stored_kwargs(kernels, names, x, saveat.shape[0])
-        sol = odesolve(
-            kw.pop("f"), x, self.tspan, rtol=self.rtol, atol=self.atol,
-            saveat=saveat, max_steps=self.max_steps, adjoint="stored",
-            params=list(params), knot_window=self.knot_window,
-            reservoir=reservoir, f_state=state["model"], **kw,
-        )
+        if self.solver == "tsit5" and self.adjoint == "stored":
+            kw = self._stored_kwargs(kernels, names, x, saveat.shape[0])
+            sol = odesolve(
+                kw.pop("f"), x, self.tspan, rtol=self.rtol, atol=self.atol,
+                saveat=saveat, max_steps=self.max_steps, adjoint="stored",
+                params=list(params), knot_window=self.knot_window,
+                reservoir=reservoir, f_state=state["model"], **kw,
+            )
+        else:
+            sol = self._mode_solve(x, state["model"], saveat, reservoir,
+                                   kernels, names, params)
         # the stateless kernel families return no state: theirs passes
         model_state = state["model"] if sol.f_state is None else sol.f_state
         new_state = dict(state)
@@ -569,6 +625,108 @@ class NeuralODE(Module):
             nfe=sol.nfe + 8,  # 6 stages + k1 + the dt probe
         )
         return sol, new_state
+
+    def _adams(self, f, x, st, saveat, reservoir, adjoint):
+        """The Adams solve of ``f(u, t, st) -> (du, st)`` from ``x``."""
+        return adams_solve(
+            f, x, self.tspan, rtol=self.rtol, atol=self.atol,
+            moulton=self.solver == "vcabm3", saveat=saveat,
+            max_steps=self.max_steps, adjoint=adjoint, stateful=True,
+            f_state=st, reservoir=reservoir)
+
+    def _direct_solvers(self, kernels: bool):
+        """``(f(u, t, st) -> (du, st), step_fn)`` that autograd runs
+        through, on the live parameters: on the kernel route kernel 1
+        (``FusedTDMLP``) and kernels 2 + 3 (``FusedTsit5Step``) for the
+        TD-MLP, the plain module and kernels 13 + 14 for the conv family,
+        the plain chain and generic steps for the chain; else the module
+        and generic steps."""
+        if not kernels:
+            return self._generic_dynamics(training=True), None
+        if self.family == "chain":
+            from ..ops.cuda import chain_eval
+
+            params, chain = self.chain_params(), self.chain
+            return (lambda u, t, st: (chain_eval(params, chain, u), st)), None
+        if self.family == "conv":
+            from ..ops.cuda import differentiable_conv_step
+
+            w, spec = self.conv_weights(), self.conv
+
+            def conv_step(fn, u, t, dt, k1, st):
+                u_new, utilde, *ks, g6, stats = differentiable_conv_step(
+                    w, spec, u.contiguous(), t, dt, k1.contiguous(),
+                    running_stats(spec, st))
+                return Tsit5StepResult(u_new, utilde, (k1, *ks), g6,
+                                       with_running_stats(spec, st, stats))
+
+            return self._generic_dynamics(training=True), conv_step
+        from ..ops.cuda import differentiable_step, differentiable_tdmlp
+
+        w = self.tdmlp_weights()
+        vjp = tdmlp_step_vjp(w.b2.shape[0], w.b1.shape[0])
+
+        def f(u, t, st):
+            return differentiable_tdmlp(w, u.contiguous(), t), st
+
+        def step(fn, u, t, dt, k1, st):
+            u_new, utilde, *ks, g6 = differentiable_step(
+                w, u.contiguous(), t, dt, k1.contiguous(), vjp)
+            return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, st)
+
+        return f, step
+
+    def _continuous_kwargs(self, kernels: bool, names):
+        """``f(u, t, params, st)`` and ``step_fn(params, u, t, dt, k1, st)``
+        of the continuous adjoints: the forward's step is the family's step
+        kernel (under no_grad), the reverse solves take VJPs of ``f``
+        (kernel 1 forward on the TD-MLP route)."""
+        if not kernels:
+            return dict(f=self._train_dynamics(names))
+        if self.family == "chain":
+            from ..ops.cuda import chain_eval
+
+            chain = self.chain
+            return dict(f=lambda u, t, params, st: (
+                chain_eval(params, chain, u), st))
+        if self.family == "conv":
+            kw = self._conv_stored_kwargs(names)
+            return dict(f=kw["f"], step_fn=kw["step_fn"])
+        from ..ops.cuda import (
+            TDMLPWeights, differentiable_tdmlp, fused_tsit5_step,
+        )
+
+        def f(u, t, params, st):
+            return differentiable_tdmlp(TDMLPWeights(*params),
+                                        u.contiguous(), t), st
+
+        def step_fn(params, u, t, dt, k1, st):
+            u_new, utilde, *ks, g6 = fused_tsit5_step(
+                TDMLPWeights(*params), u.contiguous(), t, dt,
+                k1.contiguous())
+            return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, st)
+
+        return dict(f=f, step_fn=step_fn)
+
+    def _mode_solve(self, x, st, saveat, reservoir, kernels, names, params):
+        """A training solve other than the stored adjoint's Tsit5: the
+        Adams solvers under ``'direct'``, the direct adjoint, or a
+        continuous adjoint."""
+        if self.solver != "tsit5":
+            f, _ = self._direct_solvers(kernels)
+            return self._adams(f, x, st, saveat, reservoir, "direct")
+        if self.adjoint == "direct":
+            f, step = self._direct_solvers(kernels)
+            return odesolve(
+                f, x, self.tspan, rtol=self.rtol, atol=self.atol,
+                saveat=saveat, max_steps=self.max_steps, adjoint="direct",
+                stateful=True, f_state=st, step_fn=step, reservoir=reservoir)
+        kw = self._continuous_kwargs(kernels, names)
+        return odesolve(
+            kw.pop("f"), x, self.tspan, rtol=self.rtol, atol=self.atol,
+            saveat=saveat, max_steps=self.max_steps, adjoint=self.adjoint,
+            params=list(params), stateful=True, f_state=st,
+            reservoir=reservoir, **kw)
 
     def _reg_step(self, x, u1, t1, st, family):
         """The regulariser's step from the fenced ``(u1, t1)`` and the

@@ -1,13 +1,18 @@
-"""NeuralDSDE — the locally regularised neural SDE layer (drift + diagonal
-diffusion).
+"""NeuralDSDE — the locally regularised neural SDE layer (drift +
+diffusion, diagonal noise or, with ``noise_dims``, matrix noise).
 
 Counterpart of ``localregneuralde_tpu/models/neural_sde.py`` (reference
 ``src/layers/neural_sde.jl``). The layer returns the state ``{"drift",
 "diffusion", "nfe_drift", "nfe_diffusion", "reg_val", "rng", "success"}``
 under the reference's keys, NFE counted per closure; ``rng`` is a
 ``torch.Generator`` where the reference keeps a JAX key. The solver is
-``'sosri'`` (default) or ``'sri'``; Milstein, Lamba–Euler–Heun and
-non-diagonal noise (``noise_dims``) are not ported yet and raise.
+``'sosri'`` (default), ``'sri'``, ``'milstein'`` (commutative Milstein) or
+``'euler_heun'`` (Lamba–Euler–Heun, Stratonovich). With ``noise_dims = m``
+(``'milstein'`` only) the diffusion net emits d·m values, viewed as the
+noise-rate matrix ``u.shape + (m,)``, and the tree draws ``(B, m)``
+increments (reference ``neural_sde.py:60-80, 262-281``). Training takes
+the stored adjoint or, with ``adjoint='direct'``, autograd through the
+eager loop.
 
 - Every call draws the noise seed of its Brownian tree from ``rng``
   (``sample_noise_seed``); the tree's normals come from ``noise_source``,
@@ -20,11 +25,12 @@ non-diagonal noise (``noise_dims``) are not ported yet and raise.
   grid and strips it from the outputs; ``'biased'`` takes ``(t1, u(t1))``
   from a reservoir sample of the accepted steps' starting points (never
   t_end), from ``max_steps`` uniforms drawn in advance. Either way one more
-  SRI step from the fenced ``(u(t1), t1)`` — dt from the drift-magnitude
+  step of the layer's solver from the fenced ``(u(t1), t1)`` — dt from the drift-magnitude
   heuristic under ``no_grad``, fresh ``dW, dZ ~ N(0, dt)`` from ``rng`` — is
   taken through autograd, and ``reg_val = eest · dt``; its gradient reaches
-  the parameters only. NFE adds 4 + 1 drift (the stages and the dt probe)
-  and 4 diffusion evaluations.
+  the parameters only (the noise has the noise's shape). NFE adds the
+  step's evaluations and the dt probe's drift evaluation (4 + 1 and 4 for
+  SRI).
 
 Kernel dispatch (``use_pallas``): for the kernel family of the reference's
 MNIST SDE (``_is_fused_family``: drift ``Chain(Dense(F, H, tanh), Dense(H,
@@ -32,7 +38,10 @@ F))``, diffusion ``Dense(F, F)``), ``'on'`` routes the solves through the
 fused wrappers and ``'auto'`` does so for CUDA inputs, when
 ``use_persistent`` is set: the forward is one launch of the persistent SDE
 solve (``ops/cuda/fused_sde_solve.py``), the backward one launch of the
-sweep (``ops/cuda/fused_sde_sweep.py``). The wrappers run their plain
+sweep (``ops/cuda/fused_sde_sweep.py``). The kernels serve SRI/SOSRI with
+diagonal noise under the stored adjoint (and in eval), as the reference's
+(``neural_sde.py:164-165, 210-211``): any other solver, ``noise_dims`` or
+the direct adjoint runs the eager loop on the modules. The wrappers run their plain
 versions on CPU tensors. Otherwise the eager loop runs the drift and
 diffusion modules. The regulariser's step is plain PyTorch on either route,
 as the reference leaves it to XLA.
@@ -51,9 +60,15 @@ from ..nn.module import Module
 from ..ode.solve import device_scalar
 from ..ops.residuals import internal_norm
 from ..sde.brownian import PhiloxNormals, seed_to_word
-from ..sde.solve import SDESolution, check_solver, sdesolve, solution_from
-from ..sde.step import sri_step
-from ..sde.tableaus import get_sri_tableau
+from ..sde.solve import (
+    SRI_SOLVERS,
+    SDESolution,
+    check_solver,
+    sde_step,
+    sdesolve,
+    solution_from,
+)
+from ..sde.step import step_nfe
 from .draws import pop_draws, to_device
 from .neural_ode import device_saveat, sample_reservoir_uniforms, sample_t1
 
@@ -67,10 +82,13 @@ def sample_noise_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2 ** 32, (), generator=generator))
 
 
-def noise_source(seed, x: torch.Tensor):
-    """The normal source of the tree of a solve from ``x``; ``seed`` is the
-    one-element int32 tensor ``draw`` staged (or a number)."""
-    return PhiloxNormals(seed, x.shape[0], x.shape[-1], device=x.device)
+def noise_source(seed, x: torch.Tensor, width: Optional[int] = None):
+    """The normal source of the tree of a solve from ``x``, of ``(B,
+    width)`` increments (default the state's width; ``noise_dims`` for
+    matrix noise); ``seed`` is the one-element int32 tensor ``draw``
+    staged (or a number)."""
+    return PhiloxNormals(seed, x.shape[0], width or x.shape[-1],
+                         device=x.device)
 
 
 def sample_reg_noise(generator: torch.Generator, shape) -> torch.Tensor:
@@ -128,13 +146,11 @@ class NeuralDSDE(Module):
             regularize = "unbiased" if regularize else "none"
         if regularize not in _VALID_REGULARIZE:
             raise ValueError(f"regularize must be one of {_VALID_REGULARIZE}")
-        check_solver(solver)
-        if noise_dims is not None:
-            raise NotImplementedError(
-                "non-diagonal noise (noise_dims) needs the commutative "
-                "Milstein step, which is not ported yet (ROADMAP Queue 1, "
-                "the SDE items left)"
-            )
+        check_solver(solver, None if noise_dims is None else (noise_dims,))
+        if adjoint not in ("stored", "direct"):
+            raise ValueError(
+                f"NeuralDSDE adjoint must be 'stored' or 'direct', got "
+                f"{adjoint!r}")
         if grad_precision not in ("match", "default"):
             raise ValueError(
                 f"grad_precision must be 'match' or 'default', got "
@@ -164,6 +180,7 @@ class NeuralDSDE(Module):
         self.adjoint = adjoint
         self.solver = solver
         self.delta = float(delta)
+        self.noise_dims = None if noise_dims is None else int(noise_dims)
         self.use_pallas = use_pallas if is_sde_family(drift, diffusion) else "off"
         self.use_persistent = bool(use_persistent)
         self.rng_seed = int(rng_seed)
@@ -213,20 +230,27 @@ class NeuralDSDE(Module):
             out["reservoir"] = sample_reservoir_uniforms(gen, self.max_steps)
         if mode != "none":
             out["reg_noise"] = sample_reg_noise(
-                gen, (rows, self.state_width()))
+                gen, (rows, self.noise_dims or self.state_width()))
         return out
 
     def persistent_step(self, rows: int, device) -> bool:
         """Whether a training step on ``device`` runs the solve and the
-        sweep as one kernel launch each (K10 and K12), with no host
-        read."""
+        sweep as one kernel launch each (K10 and K12), with no host read:
+        the stored adjoint over SRI/SOSRI with diagonal noise."""
         return torch.device(device).type == "cuda" and (
-            self.use_persistent and self.use_pallas != "off")
+            self.kernel_mode() and self.adjoint == "stored"
+            and self.use_pallas != "off")
+
+    def kernel_mode(self) -> bool:
+        """Whether the persistent SDE kernels serve this layer's solver and
+        noise (SRI/SOSRI, diagonal), as the reference's gate."""
+        return (self.use_persistent and self.solver in SRI_SOLVERS
+                and self.noise_dims is None)
 
     def uses_kernels(self, x: torch.Tensor) -> bool:
         """Whether a solve from ``x`` goes through the persistent SDE
         kernels."""
-        if not self.use_persistent:
+        if not self.kernel_mode():
             return False
         return self.use_pallas == "on" or (self.use_pallas == "auto"
                                            and x.is_cuda)
@@ -251,7 +275,10 @@ class NeuralDSDE(Module):
             return call(self.drift, dn, params[:n_d], u, t)
 
         def g(u, t, params):
-            return call(self.diffusion, gn, params[n_d:], u, t)
+            gu = call(self.diffusion, gn, params[n_d:], u, t)
+            if self.noise_dims is not None:  # the noise-rate matrix
+                gu = gu.reshape(u.shape + (self.noise_dims,))
+            return gu
 
         return f, g
 
@@ -280,16 +307,19 @@ class NeuralDSDE(Module):
         draws, state = pop_draws(state)
         if draws is None:
             draws = to_device(self.draw(state, x.shape[0], training), x)
-        noise = noise_source(draws["seed"], x)
+        noise = (noise_source(draws["seed"], x) if self.noise_dims is None
+                 else noise_source(draws["seed"], x, self.noise_dims))
         params = [p for _, p in self._params()[0] + self._params()[1]]
         # on the kernel route the replacements run the whole solve and
         # sweep, and the modules' dynamics are never called
         f, g = self._dynamics()
         persistent_fn, sweep_fn = (self._kernel_fns() if self.uses_kernels(x)
                                    else (None, None))
+        noise_shape = (None if self.noise_dims is None
+                       else (x.shape[0], self.noise_dims))
         common = dict(noise=noise, rtol=self.rtol, atol=self.atol,
                       solver=self.solver, delta=self.delta,
-                      max_steps=self.max_steps)
+                      max_steps=self.max_steps, noise_shape=noise_shape)
         saveat = device_saveat(self, x.device)
         mode = self.regularize if training else "none"
         if not training:
@@ -303,11 +333,6 @@ class NeuralDSDE(Module):
                     **common,
                 )
             return sol, self._new_state(state, sol, x)
-        if self.adjoint != "stored":
-            raise NotImplementedError(
-                f"training with adjoint={self.adjoint!r} is not ported yet: "
-                "only the stored adjoint is (ROADMAP Queue 1 item 11)"
-            )
         user_saveat = (saveat if saveat is not None
                        else device_scalar(t2, x).reshape(1))
         reservoir = draws.get("reservoir")
@@ -315,11 +340,20 @@ class NeuralDSDE(Module):
         if mode == "unbiased":
             t1 = draws["t1"]
             solve_saveat = torch.cat([user_saveat, t1.reshape(1)])
-        sol = sdesolve(
-            f, g, x, self.tspan, saveat=solve_saveat, adjoint="stored",
-            params=params, persistent_fn=persistent_fn, sweep_fn=sweep_fn,
-            reservoir=reservoir, **common,
-        )
+        if self.adjoint == "direct":
+            # autograd through the eager loop on the modules (the
+            # reference's direct scan takes no persistent kernel)
+            sol = sdesolve(
+                lambda u, t: f(u, t, params), lambda u, t: g(u, t, params),
+                x, self.tspan, saveat=solve_saveat, adjoint="direct",
+                reservoir=reservoir, **common,
+            )
+        else:
+            sol = sdesolve(
+                f, g, x, self.tspan, saveat=solve_saveat, adjoint="stored",
+                params=params, persistent_fn=persistent_fn,
+                sweep_fn=sweep_fn, reservoir=reservoir, **common,
+            )
         if mode == "none":
             return sol, self._new_state(state, sol, x)
         if mode == "unbiased":
@@ -329,24 +363,29 @@ class NeuralDSDE(Module):
             u1, t1 = sol.reservoir_u.detach(), sol.reservoir_t.detach()
         reg_val = self._reg_value(u1, t1, draws["reg_noise"], x)
         new_state = self._new_state(state, sol, x)
+        nf, ng = step_nfe(self.solver, self.noise_dims)
         new_state.update(
-            nfe_drift=sol.nfe_drift + 4 + 1,  # the step's stages, the dt probe
-            nfe_diffusion=sol.nfe_diffusion + 4,
+            nfe_drift=sol.nfe_drift + nf + 1,  # the step's, the dt probe
+            nfe_diffusion=sol.nfe_diffusion + ng,
             reg_val=reg_val,
         )
         return sol, new_state
 
     def _reg_value(self, u1, t1, z, x):
-        """``eest · dt`` of one SRI step from the fenced ``(u1, t1)`` with
-        the fresh standard normals ``z`` (2, B, F), differentiable in the
-        parameters only."""
+        """``eest · dt`` of one step of the layer's solver from the fenced
+        ``(u1, t1)`` with the fresh standard normals ``z`` (2, B, F), or
+        (2, B, m) with matrix noise, differentiable in the parameters
+        only."""
         t2 = self.tspan[1]
 
         def f(u, t):
             return self.drift(u, self.drift.init_state())[0]
 
         def g(u, t):
-            return self.diffusion(u, self.diffusion.init_state())[0]
+            gu = self.diffusion(u, self.diffusion.init_state())[0]
+            if self.noise_dims is not None:
+                gu = gu.reshape(u.shape + (self.noise_dims,))
+            return gu
 
         with torch.no_grad():
             f0 = f(u1, t1)
@@ -356,8 +395,9 @@ class NeuralDSDE(Module):
                              0.01 * d0 / torch.where(d1 == 0, 1.0, d1))
             dt = torch.minimum(dt, device_scalar(t2, x) - t1)
         sqdt = torch.sqrt(dt)
-        step = sri_step(f, g, u1, t1, dt, z[0] * sqdt, z[1] * sqdt, self.atol,
-                        self.rtol, self.delta, get_sri_tableau(self.solver))
+        noise_shape = None if self.noise_dims is None else tuple(z.shape[1:])
+        step = sde_step(self.solver, noise_shape, self.delta)(
+            f, g, u1, t1, dt, z[0] * sqdt, z[1] * sqdt, self.atol, self.rtol)
         return step.eest * dt
 
     def _new_state(self, state, sol: SDESolution, x) -> dict:

@@ -9,8 +9,8 @@ VP-SDE with β(t) = β_min + t·(β_max − β_min):
     reverse:  du = [−½β(t)·u − β(t)·s_θ(u, t)] dt + √β(t) dW̄   (t: t1 → t0)
 
 Both samplers integrate on the clock τ = t1 − t, τ ∈ [0, t1 − t0]:
-``sample_vpsde`` the reverse SDE with the adaptive SRI/SOSRI loop
-(``sde/solve.py``), ``sample_probability_flow`` du/dt = −½β(t)·(u + s_θ)
+``sample_vpsde`` the reverse SDE with the adaptive SDE loop
+(``sde/solve.py``: SRI/SOSRI, commutative Milstein or Lamba–Euler–Heun), ``sample_probability_flow`` du/dt = −½β(t)·(u + s_θ)
 with adaptive Tsit5 (``ode/solve.py``), both with ``adjoint='none'`` and
 their NFE statistics.
 
@@ -24,8 +24,8 @@ another module or a score function take the eager loop.
 Draws: ``u_init`` comes from ``sample_u_init`` and the Brownian source
 from ``noise_source``, in that order, both from the caller's CPU
 ``torch.Generator``; tests replace the two functions to inject the
-reference's draws. The reference's Milstein and Euler–Heun samplers are not
-ported (ROADMAP Queue 1 item 8).
+reference's draws. Kernel 11 serves SRI/SOSRI only, as the reference's:
+``'milstein'`` and ``'euler_heun'`` run the eager loop on any device.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ import torch
 from ..core.containers import ArrayAndTime, get_array
 from ..ode.solve import ODESolution, odesolve
 from ..sde.brownian import PhiloxNormals
-from ..sde.solve import SRI_SOLVERS, UNPORTED_SOLVERS, sdesolve, solution_from
+from ..sde.solve import SRI_SOLVERS, sdesolve, solution_from
 from .neural_sde import sample_noise_seed
 
 
@@ -184,14 +184,10 @@ def sample_vpsde(
     Returns ``(samples, solution)``; the solution carries the drift and
     diffusion NFE. With a ``score_module`` the kernels take and an SRI
     solver (``'sri'``, ``'sosri'``), the solve is one launch of kernel 11
-    on a CUDA device (its plain version on the CPU). Runs on ``device``
+    on a CUDA device (its plain version on the CPU); ``'milstein'`` and
+    ``'euler_heun'`` take the eager loop. Runs on ``device``
     (default CUDA; without a GPU pass ``device='cpu'``).
     """
-    if solver in UNPORTED_SOLVERS:
-        raise NotImplementedError(
-            f"sample_vpsde with solver {solver!r} is not ported yet: only the "
-            "SRI family ('sri', 'sosri') is (ROADMAP Queue 1 item 8)"
-        )
     sde = sde or VPSDE()
     device, score, u_init = _start(shape, generator, device, score_fn,
                                    score_module)

@@ -8,6 +8,7 @@ reference's: batch-major ``(B, F)``, a Dense weight is ``(in, out)`` (not
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional
 
@@ -118,12 +119,56 @@ class Dense(Module):
         return self.activation(y), state
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, with ``benchmark`` off, for the
+    block only; the caller's flags are restored after it."""
+    flags = torch.backends.cudnn
+    saved = flags.deterministic, flags.benchmark
+    flags.deterministic, flags.benchmark = True, False
+    try:
+        yield
+    finally:
+        flags.deterministic, flags.benchmark = saved
+
+
+class _DeterministicConv(torch.autograd.Function):
+    """A SAME, stride-1 NCHW convolution whose forward and backward both run
+    inside ``deterministic_cudnn``. The scope has to be entered in each
+    direction: the backward runs later, on autograd's own thread, outside
+    any block around the forward."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with deterministic_cudnn():
+            return nn.functional.conv2d(x, w, padding="same")
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        kh, kw = w.shape[-2:]
+        with deterministic_cudnn():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, [1, 1], [(kh - 1) // 2, (kw - 1) // 2],
+                [1, 1], False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw
+
+
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """SAME, stride-1 convolution of an NHWC ``x`` with an HWIO ``w``, in
-    PyTorch's NCHW convolution. It runs in FP32 on the card: the package
-    turns cuDNN's TF32 off when it is imported."""
-    y = nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                             padding="same")
+    """SAME, stride-1 convolution of an NHWC ``x`` with an HWIO ``w`` (odd
+    kernel sizes), in PyTorch's NCHW convolution. It runs in FP32 on the
+    card: the package turns cuDNN's TF32 off when it is imported. On the
+    card it takes cuDNN's deterministic algorithms, forward and backward
+    (``_DeterministicConv``), so that a CIFAR training step repeats
+    bitwise run to run with no process-wide flag; on the CPU it is the
+    plain convolution."""
+    xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    if x.is_cuda:
+        y = _DeterministicConv.apply(xc, wc)
+    else:
+        y = nn.functional.conv2d(xc, wc, padding="same")
     return y.permute(0, 2, 3, 1)
 
 

@@ -11,8 +11,13 @@ It is the plain version that the persistent CUDA solve
 (``ops/cuda/fused_solve.py``) is held against, and the path taken when that
 kernel is not used. With ``record_knots`` it records the knots and two-level
 checkpoints that the stored adjoint (``ode/stored_adjoint.py``,
-``adjoint='stored'``) sweeps; the ``direct``, interpolating and backsolve
-adjoints are not ported yet. With ``reservoir`` (one uniform per attempt,
+``adjoint='stored'``) sweeps. ``adjoint='direct'`` differentiates through
+the loop itself with autograd (reference ``ode/solve.py:443-470``): t, dt
+and the error estimate are detached, a rejected attempt's graph is dropped
+with its result, so only the accepted steps (and the FSAL k1 at t0) stay in
+the graph. The interpolating and backsolve adjoints
+(``ode/interp_adjoint.py``, ``ode/adjoint.py``) run this loop forward and
+integrate the adjoint ODE backward. With ``reservoir`` (one uniform per attempt,
 drawn in advance) it keeps a reservoir sample of the accepted steps'
 starting points, the biased regulariser's ``(t1, u(t1))``: accepted attempt
 number ``natt`` takes its step start when ``reservoir[natt]·(naccept + 1)
@@ -177,13 +182,16 @@ def adaptive_loop(fn: Callable, u0, k1_0, f_st0, t0, t_end, dt_init, *,
                   saveat, rtol, atol, max_steps,
                   step_fn: Optional[Callable] = None,
                   record_knots: bool = False, knot_dense_cap=None,
-                  knot_stride: int = 1, reservoir=None):
+                  knot_stride: int = 1, reservoir=None,
+                  on_accept: Optional[Callable] = None):
     """The accept/reject loop from ``(u0, k1_0)`` at ``t0`` with first step
     ``dt_init``; ``fn(u, t, st) -> (du, st)``. Returns a dict with ``ys``,
     ``y_final``, ``t_final``, ``naccept``, ``nreject``, ``natt``,
     ``success`` and ``f_state``; with ``record_knots`` also the knot and
     checkpoint buffers of ``_knot_buffers``, and with ``reservoir`` (one
-    uniform per attempt) ``reservoir_t`` and ``reservoir_u``."""
+    uniform per attempt) ``reservoir_t`` and ``reservoir_u``.
+    ``on_accept(a)`` sees every accepted ``Attempt`` (the interpolating
+    adjoint's knots, held only as far as the solve goes)."""
     controller = PIController()
     t = device_scalar(t0, u0)
     t_end = device_scalar(t_end, u0)
@@ -224,6 +232,8 @@ def adaptive_loop(fn: Callable, u0, k1_0, f_st0, t0, t_end, dt_init, *,
         naccept += 1
         if kb is not None:
             _record(kb, naccept, stride, a)
+        if on_accept is not None:
+            on_accept(a)
         u, k1, f_st = a.res.u_new, a.res.ks[6], a.res.f_state
         t, dt, qold = a.t_new, a.dt_acc, a.qold_acc
         done = a.is_last
@@ -271,9 +281,17 @@ def odesolve(
       saveat: 1-D output times in ``[t0, t_end]`` (need not be sorted);
         defaults to ``[t_end]``. Times ≤ t0 return ``u0``.
       max_steps: bound on attempted steps (reference ``maxiters``).
-      adjoint: ``'none'`` (inference; not differentiable) or ``'stored'``
-        (differentiable through ``ode/stored_adjoint.py``; the other
-        arguments of ``stored_odesolve`` pass through ``stored_kwargs``).
+      adjoint: ``'none'`` (inference; not differentiable), ``'direct'``
+        (autograd through the loop; ``persistent_fn`` is not used),
+        ``'stored'`` (``ode/stored_adjoint.py``; the other arguments of
+        ``stored_odesolve`` pass through ``stored_kwargs``),
+        ``'interpolating'`` (``ode/interp_adjoint.py``) or ``'backsolve'``
+        (``ode/adjoint.py``). The last three take ``f(u, t, params)`` and
+        ``params`` in ``stored_kwargs``. The reference's direct scan
+        rematerialises chunks of ``checkpoint_every`` steps; here the
+        eager loop's graph holds each accepted step's autograd residuals
+        (those of the fused step kernels are their inputs only), so there
+        is no such option and nothing depends on it.
       step_fn: replacement for the generic Tsit5 step with the same contract,
         ``step_fn(fn, u, t, dt, k1, f_state) -> Tsit5StepResult`` (the fused
         CUDA step, ``ops/cuda/fused_mlp.py``).
@@ -299,12 +317,16 @@ def odesolve(
             reservoir=reservoir, stateful=stateful, f_state=f_state,
             **stored_kwargs,
         )
-    if adjoint != "none":
-        raise NotImplementedError(
-            f"adjoint={adjoint!r} is not ported yet: inference "
-            "(adjoint='none') and the stored adjoint are; the direct, "
-            "interpolating and backsolve adjoints are ROADMAP Queue 1 item 11"
+    if adjoint in ("interpolating", "backsolve"):
+        from .adjoint import continuous_odesolve
+
+        return continuous_odesolve(
+            adjoint, f, u0, tspan, rtol=rtol, atol=atol, saveat=saveat,
+            max_steps=max_steps, step_fn=step_fn, reservoir=reservoir,
+            stateful=stateful, f_state=f_state, **stored_kwargs,
         )
+    if adjoint not in ("none", "direct"):
+        raise ValueError(f"unknown adjoint {adjoint!r}")
     fn = f if stateful else (lambda u, t, st: (f(u, t), st))
     t0, t_end = float(tspan[0]), float(tspan[1])
     saveat_arr = (
@@ -313,7 +335,7 @@ def odesolve(
     )
     record = dict(record_knots=record_knots, knot_dense_cap=knot_dense_cap,
                   knot_stride=knot_stride, reservoir=reservoir)
-    if persistent_fn is not None:
+    if persistent_fn is not None and adjoint == "none":
         sol = persistent_fn(
             u0, (t0, t_end), saveat_arr=saveat_arr, rtol=rtol, atol=atol,
             max_steps=max_steps, f_state=f_state, **record,
@@ -321,12 +343,24 @@ def odesolve(
         if sol is not None:
             return sol
 
+    return loop_solve(fn, u0, t0, t_end, saveat_arr, f_state=f_state,
+                      rtol=rtol, atol=atol, max_steps=max_steps,
+                      step_fn=step_fn, **record)
+
+
+def loop_solve(fn: Callable, u0, t0: float, t_end: float, saveat_arr, *,
+               f_state, rtol, atol, max_steps, step_fn=None,
+               **record) -> ODESolution:
+    """The eager solve of ``odesolve``: k1 at t0 (in the graph), the Hairer
+    dt probe (fenced), then ``adaptive_loop``; ``fn(u, t, st) -> (du,
+    st)``, ``record`` as ``adaptive_loop``'s keywords."""
     k1_0, f_st0 = fn(u0, t0, f_state)
-    dt_init, nfe_dt = initial_step_size(
-        lambda u, t: fn(u, t, f_state)[0], u0, device_scalar(t0, u0), order=5,
-        rtol=rtol, atol=atol, f0=k1_0,
-    )
-    dt_init = torch.minimum(dt_init, device_scalar(t_end - t0, u0)).detach()
+    with torch.no_grad():  # the dt probe is fenced
+        dt_init, nfe_dt = initial_step_size(
+            lambda u, t: fn(u, t, f_state)[0], u0, device_scalar(t0, u0),
+            order=5, rtol=rtol, atol=atol, f0=k1_0,
+        )
+        dt_init = torch.minimum(dt_init, device_scalar(t_end - t0, u0))
     nfe0 = 1 + nfe_dt
     out = adaptive_loop(
         fn, u0, k1_0, f_st0, t0, t_end, dt_init, saveat=saveat_arr,

@@ -19,7 +19,9 @@ from .fused_conv_bwd import (
     fused_conv_step_bwd_plain,
 )
 from .fused_mlp import (
+    FusedTDMLP,
     TDMLPWeights,
+    differentiable_tdmlp,
     fused_tdmlp,
     fused_tsit5_step,
     tdmlp_plain,
@@ -101,6 +103,7 @@ __all__ = [
     "ConvWeights",
     "DenseChainSpec",
     "FusedConvStep",
+    "FusedTDMLP",
     "FusedTsit5Step",
     "KERNELS",
     "SDEWeights",
@@ -118,6 +121,7 @@ __all__ = [
     "conv_step_plain",
     "differentiable_conv_step",
     "differentiable_step",
+    "differentiable_tdmlp",
     "fused_conv_step",
     "fused_conv_step_bwd",
     "fused_conv_step_bwd_plain",

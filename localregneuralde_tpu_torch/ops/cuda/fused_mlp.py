@@ -17,7 +17,10 @@ row a cluster, far past any the first port took.
 
 Each wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor; there is no fallback between the
-two. ``<wrapper>.launches`` counts the kernel launches.
+two. ``<wrapper>.launches`` counts the kernel launches. ``FusedTDMLP``
+makes the evaluation differentiable: its backward is the autograd VJP of
+``tdmlp_plain``, recomputed, as the reference's ``custom_vjp`` transposes
+its pure twin (``fused_mlp.py:196-216`` there).
 """
 from __future__ import annotations
 
@@ -132,3 +135,33 @@ def fused_tsit5_step(w: TDMLPWeights, u, t, dt, k1):
 
 
 fused_tsit5_step.launches = 0
+
+
+class FusedTDMLP(torch.autograd.Function):
+    """``(x, s, w1, b1, w2, b2) -> dx`` through ``fused_tdmlp``, with the
+    VJP of ``tdmlp_plain`` recomputed as its backward (the time ``s`` gets
+    no gradient: inside the solver it comes from the fenced controller). On
+    CPU tensors both directions run the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, s, w1, b1, w2, b2):
+        ctx.save_for_backward(x, s, w1, b1, w2, b2)
+        return fused_tdmlp(TDMLPWeights(w1, b1, w2, b2), x.contiguous(), s)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, s, *w = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [a.detach().requires_grad_() for a in (x, *w)]
+            out = tdmlp_plain(TDMLPWeights(*ins[1:]), ins[0], s)
+            grads = torch.autograd.grad(out, ins, ct, allow_unused=True)
+        grads = [torch.zeros_like(a) if g is None else g
+                 for g, a in zip(grads, ins)]
+        return (grads[0], None, *grads[1:])
+
+
+def differentiable_tdmlp(w: TDMLPWeights, x: torch.Tensor, s) -> torch.Tensor:
+    """One differentiable dynamics evaluation through ``FusedTDMLP``
+    (kernel 1 on a CUDA tensor)."""
+    s = device_scalar(s, x).detach()
+    return FusedTDMLP.apply(x, s, *w)

@@ -28,6 +28,12 @@ def sde_error_residuals(E1, E2, u0, u1, atol, rtol, delta):
     )
 
 
+def difference_residuals(u0, u1, atol, rtol):
+    """(u1 − u0) / (atol + max(|u0|, |u1|)·rtol): the Milstein step's
+    error estimate (reference ``src/perform_step.jl:164-167``)."""
+    return (u1 - u0) / (atol + torch.maximum(torch.abs(u0), torch.abs(u1)) * rtol)
+
+
 def scaled_error_norm(utilde, u0, u1, atol, rtol) -> torch.Tensor:
     """RMS of the tolerance-scaled residuals: the solver's EEst."""
     return internal_norm(error_residuals(utilde, u0, u1, atol, rtol))

@@ -51,6 +51,18 @@ def load_jax_params(model: torch.nn.Module, tree) -> None:
         own[name].copy_(value)
 
 
+def numpy_tree(tree):
+    """A JAX parameter tree as nested dicts of float32 numpy arrays, to
+    feed the same values to both packages. The trees of the matrix-noise
+    diffusion (``Dense(d, d·m)`` under ``diffusion``) and of the multistep
+    models (``NeuralODE`` with ``solver='vcab3'``/``'vcabm3'``) have the
+    port's names and layouts, so ``load_jax_params`` takes them as they
+    are."""
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree, dtype=np.float32)
+
+
 def latent_tree(tree) -> dict:
     """The JAX latent ODE's parameter tree (``construct_time_series``) in
     the port's names: the reference's ``Recurrence`` returns its cell's

@@ -1,25 +1,35 @@
 """Adaptive SDE integration: the eager accept/reject loop over the virtual
 Brownian tree.
 
-Counterpart of ``localregneuralde_tpu/sde/solve.py`` for the diagonal-noise
-SRI family (``'sri'``, ``'sosri'``). The whole batch shares one dt and one
-error norm. Per attempt the loop reads the increments ``(dW, dZ)`` over
-``[t, t + dt]`` from the tree, which is consistent under rejection, takes
-one SRI step, and lets the I-controller (γ 0.9, qmin 0.2, qmax 1.2,
-β1 = 1/(order + 1), β2 = 0) judge it. The first dt is the drift-magnitude
-heuristic (one drift evaluation). Accepted steps write the saveat outputs by
-linear interpolation, may replace the reservoir sample of the biased
-regulariser (``reservoir`` holds one uniform per attempt, drawn in
-advance), and with ``record_knots`` record the knots ``(t, u)`` at the
-accepted boundaries and the increments ``(dW, dZ)`` of each accepted step,
-which the stored adjoint (``sde/stored_adjoint.py``) sweeps. NFE: drift
-1 + 4·attempts, diffusion 4·attempts.
+Counterpart of ``localregneuralde_tpu/sde/solve.py``: the SRI family
+(``'sri'``, ``'sosri'``, strong order 1.5), the commutative Milstein step
+(``'milstein'``, order 1.0; with ``noise_shape`` the non-diagonal branch)
+and Lamba–Euler–Heun (``'euler_heun'``, Stratonovich, order 0.5). The
+whole batch shares one dt and one error norm. Per attempt the loop reads
+the increments ``(dW, dZ)`` over ``[t, t + dt]`` from the tree, which is
+consistent under rejection, takes one step, and lets the I-controller
+(γ 0.9, qmin 0.2, qmax 1.2, β1 = 1/(order + 1), β2 = 0) judge it. The first
+dt is the drift-magnitude heuristic (one drift evaluation). Accepted steps
+write the saveat outputs by linear interpolation, may replace the
+reservoir sample of the biased regulariser (``reservoir`` holds one uniform
+per attempt, drawn in advance), and with ``record_knots`` record the knots
+``(t, u)`` at the accepted boundaries and the increments ``(dW, dZ)`` of
+each accepted step, which the stored adjoint (``sde/stored_adjoint.py``)
+sweeps. NFE: drift 1 + n_f·attempts, diffusion n_g·attempts, with the
+step's ``(n_f, n_g)`` of ``step.step_nfe``.
+
+Non-diagonal noise (``noise_shape = (B, m)``): the tree draws ``(B, m)``
+increments, the diffusion returns ``u.shape + (m,)``, and the solver must
+be ``'milstein'`` (the reference's only non-diagonal branch,
+``sde/solve.py:147-152`` there).
 
 The loop runs on the host and reads the accept decision once per attempt.
 It is the plain version the persistent CUDA solve
-(``ops/cuda/fused_sde_solve.py``) is held against; ``persistent_fn`` hands
-an ``adjoint='none'`` solve to that kernel. The Milstein and Euler–Heun
-solvers and non-diagonal noise are not ported yet (ROADMAP).
+(``ops/cuda/fused_sde_solve.py``, SRI/SOSRI with diagonal noise) is held
+against; ``persistent_fn`` hands an ``adjoint='none'`` solve to that
+kernel. ``adjoint='direct'`` differentiates through the loop with autograd
+(reference ``sde/solve.py:376-392``): dt, the error estimate and the noise
+are detached, and a rejected attempt's graph is dropped with its result.
 """
 from __future__ import annotations
 
@@ -33,12 +43,18 @@ from ..ode.controller import PIController
 from ..ode.solve import device_scalar
 from ..ops.residuals import internal_norm
 from .brownian import VirtualBrownianTree
-from .step import sri_step
+from .step import (
+    lamba_euler_heun_step,
+    milstein_commute_step,
+    milstein_commute_step_nondiag,
+    sri_step,
+    step_nfe,
+)
 from .tableaus import get_sri_tableau
 
 SRI_SOLVERS = ("sri", "sosri")
-UNPORTED_SOLVERS = ("milstein", "euler_heun")
-SRI_ORDER = 1.5
+# strong order of each solver (the controller's β1 = 1/(order + 1))
+SOLVERS = {"sri": 1.5, "sosri": 1.5, "milstein": 1.0, "euler_heun": 0.5}
 
 
 @dataclass
@@ -65,21 +81,36 @@ class SDESolution:
     knot_dzs: Any = None
 
 
-def check_solver(solver: str) -> None:
-    if solver in UNPORTED_SOLVERS:
-        raise NotImplementedError(
-            f"SDE solver {solver!r} is not ported yet: only the SRI family "
-            "('sri', 'sosri') is (ROADMAP Queue 1, the SDE items left)"
-        )
-    if solver not in SRI_SOLVERS:
+def check_solver(solver: str, noise_shape=None) -> None:
+    if solver not in SOLVERS:
         raise ValueError(f"unknown SDE solver {solver!r}; one of "
-                         f"{SRI_SOLVERS + UNPORTED_SOLVERS}")
+                         f"{tuple(SOLVERS)}")
+    if noise_shape is not None and solver != "milstein":
+        raise ValueError(
+            "non-diagonal noise (noise_shape=...) requires solver="
+            "'milstein' (the commutative RKMilCommute branch)")
 
 
-def sde_controller() -> PIController:
-    """The SDE loop's I-controller for the order-1.5 SRI family."""
+def sde_controller(solver: str = "sri") -> PIController:
+    """The SDE loop's I-controller for ``solver``'s strong order."""
     return PIController(gamma=0.9, qmin=0.2, qmax=1.2,
-                        beta1=1.0 / (SRI_ORDER + 1.0), beta2=0.0)
+                        beta1=1.0 / (SOLVERS[solver] + 1.0), beta2=0.0)
+
+
+def sde_step(solver: str, noise_shape=None, delta: float = 1 / 6):
+    """``step(f, g, u, t, dt, dW, dZ, atol, rtol) -> SDEStepResult`` of
+    ``solver`` (the non-diagonal Milstein step with ``noise_shape``)."""
+    if solver in SRI_SOLVERS:
+        tableau = get_sri_tableau(solver)
+        return lambda f, g, u, t, dt, dW, dZ, atol, rtol: sri_step(
+            f, g, u, t, dt, dW, dZ, atol, rtol, delta, tableau)
+    if solver == "milstein":
+        step = (milstein_commute_step if noise_shape is None
+                else milstein_commute_step_nondiag)
+        return lambda f, g, u, t, dt, dW, dZ, atol, rtol: step(
+            f, g, u, t, dt, dW, atol, rtol)
+    return lambda f, g, u, t, dt, dW, dZ, atol, rtol: lamba_euler_heun_step(
+        f, g, u, t, dt, dW, atol, rtol, delta)
 
 
 def initial_dt(u0, f0, rtol, atol, t0: float, t_end: float):
@@ -96,15 +127,18 @@ def initial_dt(u0, f0, rtol, atol, t0: float, t_end: float):
 
 def sde_loop(f: Callable, g: Callable, u0, t0: float, t_end: float, dt_init,
              *, noise, saveat, rtol, atol, solver, delta, max_steps,
-             reservoir=None, brownian_depth=24, record_knots=False):
+             reservoir=None, brownian_depth=24, record_knots=False,
+             noise_shape=None):
     """The accept/reject loop from ``u0`` at ``t0`` with first step
     ``dt_init``; ``f(u, t)``, ``g(u, t)``. Returns a dict with ``ys``,
     ``y_final``, ``t_final``, ``naccept``, ``nreject``, ``natt``,
     ``success``, ``reservoir_t``, ``reservoir_u`` and, with
     ``record_knots``, ``knot_ts`` (naccept + 1), ``knot_us`` (naccept + 1,
-    B, F), ``knot_dws`` and ``knot_dzs`` (naccept, B, F)."""
-    controller = sde_controller()
-    tableau = get_sri_tableau(solver)
+    B, F), ``knot_dws`` and ``knot_dzs`` (naccept, and the noise shape:
+    ``noise_shape``, default the state's)."""
+    controller = sde_controller(solver)
+    step = sde_step(solver, noise_shape, delta)
+    w_shape = tuple(u0.shape if noise_shape is None else noise_shape)
     tree = VirtualBrownianTree(noise, t0, t_end, brownian_depth)
     t = device_scalar(t0, u0)
     t_end_d = device_scalar(t_end, u0)
@@ -112,7 +146,7 @@ def sde_loop(f: Callable, g: Callable, u0, t0: float, t_end: float, dt_init,
     bshape = (-1,) + (1,) * u0.ndim
     dt, qold = dt_init, device_scalar(controller.qoldinit, u0)
     u = u0
-    wz = torch.zeros((2,) + tuple(u0.shape), dtype=u0.dtype, device=u0.device)
+    wz = torch.zeros((2,) + w_shape, dtype=u0.dtype, device=u0.device)
     ys = u0.unsqueeze(0).repeat((saveat.shape[0],) + (1,) * u0.ndim)
     res_t, res_u = t, u0
     knots = ([t], [u0], [], [])
@@ -125,7 +159,7 @@ def sde_loop(f: Callable, g: Callable, u0, t0: float, t_end: float, dt_init,
         is_last = bool(dt >= t_rem)
         wz_new = tree.wz(t + dt_c)
         dW, dZ = wz_new[0] - wz[0], wz_new[1] - wz[1]
-        res = sri_step(f, g, u, t, dt_c, dW, dZ, atol, rtol, delta, tableau)
+        res = step(f, g, u, t, dt_c, dW, dZ, atol, rtol)
         eest = res.eest.detach()
         dt_acc, dt_rej, qold_acc = controller.propose(eest, dt_c, qold)
         if not bool(eest <= 1.0):
@@ -155,7 +189,7 @@ def sde_loop(f: Callable, g: Callable, u0, t0: float, t_end: float, dt_init,
         reservoir_u=res_u if reservoir is not None else None,
     )
     if record_knots:
-        empty = u0.new_zeros((0,) + tuple(u0.shape))
+        empty = u0.new_zeros((0,) + w_shape)
         ts, us, dws, dzs = knots
         out.update(knot_ts=torch.stack(ts), knot_us=torch.stack(us),
                    knot_dws=torch.stack(dws) if dws else empty,
@@ -163,14 +197,15 @@ def sde_loop(f: Callable, g: Callable, u0, t0: float, t_end: float, dt_init,
     return out
 
 
-def solution_from(out: dict, saveat_arr) -> SDESolution:
+def solution_from(out: dict, saveat_arr, nfe_step=(4, 4)) -> SDESolution:
     """An ``SDESolution`` from a loop's or a kernel's output dict (NFE:
-    the first dt's drift evaluation and four of each per attempt)."""
+    the first dt's drift evaluation and ``nfe_step`` (drift, diffusion)
+    per attempt, four of each for SRI)."""
     natt = out["natt"]
     return SDESolution(
         ts=saveat_arr, ys=out["ys"], t_final=out["t_final"],
-        y_final=out["y_final"], nfe_drift=1 + 4 * natt,
-        nfe_diffusion=4 * natt, naccept=out["naccept"],
+        y_final=out["y_final"], nfe_drift=1 + nfe_step[0] * natt,
+        nfe_diffusion=nfe_step[1] * natt, naccept=out["naccept"],
         nreject=out["nreject"], success=out["success"],
         reservoir_t=out.get("reservoir_t"), reservoir_u=out.get("reservoir_u"),
         knot_ts=out.get("knot_ts"), knot_us=out.get("knot_us"),
@@ -202,19 +237,23 @@ def sdesolve(
     brownian_depth: int = 24,
     record_knots: bool = False,
     persistent_fn: Optional[Callable] = None,
+    noise_shape=None,
     **stored_kwargs,
 ) -> SDESolution:
-    """Integrate ``du = f(u, t) dt + g(u, t) dW`` (diagonal Itô noise) over
-    ``tspan``.
+    """Integrate ``du = f(u, t) dt + g(u, t) dW`` over ``tspan`` (Itô;
+    Stratonovich for ``'euler_heun'``).
 
     Args:
-      noise: the tree's normal source, ``noise(node) -> (2, B, F)``
+      noise: the tree's normal source, ``noise(node) -> (2, *w_shape)``
         (``brownian.PhiloxNormals`` by default in the model).
+      noise_shape: ``(B, m)`` for non-diagonal noise (``'milstein'``
+        only): ``g`` returns ``u.shape + (m,)``; None for diagonal noise.
       saveat: 1-D output times (default ``[t_end]``); times ≤ t0 return u0.
-      adjoint: ``'none'`` (not differentiable) or ``'stored'``; under
-        ``'stored'`` the dynamics take the parameters, ``f(u, t, params)``,
-        and ``stored_kwargs`` carry ``params`` and the kernel callbacks
-        (see ``stored_sdesolve``).
+      adjoint: ``'none'`` (not differentiable), ``'direct'`` (autograd
+        through the loop) or ``'stored'``; under ``'stored'`` the dynamics
+        take the parameters, ``f(u, t, params)``, and ``stored_kwargs``
+        carry ``params`` and the kernel callbacks (see
+        ``stored_sdesolve``).
       reservoir: one uniform per attempt (``max_steps``) for the reservoir
         sample of accepted step starts; None for no reservoir.
       persistent_fn: whole-solve replacement (the persistent CUDA solve)
@@ -223,7 +262,7 @@ def sdesolve(
     On a CUDA tensor it raises below rtol 1e-4 while TF32 is on
     (``nn.basic.check_fp32_products``).
     """
-    check_solver(solver)
+    check_solver(solver, noise_shape)
     check_fp32_products(rtol, u0.device)
     if adjoint == "stored":
         from .stored_adjoint import stored_sdesolve
@@ -232,27 +271,28 @@ def sdesolve(
             f, g, u0, tspan, noise=noise, rtol=rtol, atol=atol,
             solver=solver, delta=delta, saveat=saveat, max_steps=max_steps,
             reservoir=reservoir, brownian_depth=brownian_depth,
-            persistent_fn=persistent_fn, **stored_kwargs,
+            persistent_fn=persistent_fn, noise_shape=noise_shape,
+            **stored_kwargs,
         )
-    if adjoint != "none":
-        raise NotImplementedError(
-            f"SDE adjoint={adjoint!r} is not ported yet: inference "
-            "(adjoint='none') and the stored adjoint are (ROADMAP Queue 1)"
-        )
+    if adjoint not in ("none", "direct"):
+        raise ValueError(f"unknown SDE adjoint {adjoint!r}")
     t0, t_end = float(tspan[0]), float(tspan[1])
     saveat_arr = saveat_array(saveat, t_end, u0)
     kw = dict(noise=noise, saveat_arr=saveat_arr, rtol=rtol, atol=atol,
               solver=solver, delta=delta, max_steps=max_steps,
               record_knots=record_knots, reservoir=reservoir,
               brownian_depth=brownian_depth)
-    if persistent_fn is not None:
+    if persistent_fn is not None and adjoint == "none":
         return persistent_fn(u0, (t0, t_end), **kw)
-    dt_init = initial_dt(u0, f(u0, device_scalar(t0, u0)), rtol, atol, t0,
-                         t_end)
+    with torch.no_grad():  # the first dt is fenced
+        dt_init = initial_dt(u0, f(u0, device_scalar(t0, u0)), rtol, atol,
+                             t0, t_end)
     out = sde_loop(
         f, g, u0, t0, t_end, dt_init, noise=noise, saveat=saveat_arr,
         rtol=rtol, atol=atol, solver=solver, delta=delta,
         max_steps=max_steps, reservoir=reservoir,
         brownian_depth=brownian_depth, record_knots=record_knots,
+        noise_shape=noise_shape,
     )
-    return solution_from(out, saveat_arr)
+    m = None if noise_shape is None else noise_shape[-1]
+    return solution_from(out, saveat_arr, step_nfe(solver, m))

@@ -1,14 +1,18 @@
-"""One differentiable four-stage SRI step (diagonal Itô noise).
+"""Differentiable single SDE steps: the four-stage SRI step, the
+commutative Milstein step (diagonal and matrix noise) and the
+Lamba–Euler–Heun step.
 
-Counterpart of ``localregneuralde_tpu/sde/step.py::sri_step`` (reference
-``src/perform_step.jl:49-106``) for the SRIW1 and SOSRI tableaus. The step
-returns the new state and the embedded error estimate ``eest``, the
-tolerance-scaled RMS of the δ-weighted drift and diffusion error parts; the
-local regulariser is ``eest · dt``. The commutative Milstein and
-Lamba–Euler–Heun steps are not ported yet (ROADMAP).
+Counterpart of ``localregneuralde_tpu/sde/step.py`` (reference
+``src/perform_step.jl:49-206``). Each step returns the new state and its
+embedded error estimate ``eest`` (tolerance-scaled RMS; accept iff ≤ 1);
+the local regulariser is ``eest · dt``. The expressions and their order are
+the JAX package's, so both round alike.
 
-Dynamics: ``f(u, t) -> du`` and ``g(u, t) -> gu`` with ``gu`` shaped like
-``u`` (diagonal noise). Four drift and four diffusion evaluations.
+Dynamics: ``f(u, t) -> du`` and ``g(u, t) -> gu``, with ``gu`` shaped like
+``u`` (diagonal noise) or, for the non-diagonal Milstein step, the
+noise-rate matrix ``u.shape + (m,)``. Evaluations per step (drift,
+diffusion): SRI (4, 4), Milstein (1, 2), non-diagonal Milstein (1, 1 + m),
+Lamba–Euler–Heun (3, 3); ``STEP_NFE`` holds them.
 """
 from __future__ import annotations
 
@@ -17,10 +21,26 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.residuals import internal_norm, sde_error_residuals
+from ..ops.residuals import (
+    difference_residuals,
+    internal_norm,
+    sde_error_residuals,
+)
 from .tableaus import SRIW1Tableau
 
 SQRT3 = math.sqrt(3.0)
+
+# (drift, diffusion) evaluations a step; the non-diagonal Milstein step
+# takes 1 + m diffusion evaluations (``step_nfe``)
+STEP_NFE = {"sri": (4, 4), "sosri": (4, 4), "milstein": (1, 2),
+            "euler_heun": (3, 3)}
+
+
+def step_nfe(solver: str, noise_dims=None):
+    """(drift, diffusion) evaluations of one step of ``solver``."""
+    if noise_dims is not None:
+        return 1, 1 + int(noise_dims)
+    return STEP_NFE[solver]
 
 
 class SDEStepResult(NamedTuple):
@@ -78,3 +98,77 @@ def sri_step(f, g, u, t, dt, dW, dZ, atol, rtol, delta: float = 1 / 6,
     eest = internal_norm(sde_error_residuals(E1, E2, u, u_new, atol, rtol,
                                              delta))
     return SDEStepResult(u_new, eest)
+
+
+def milstein_commute_step(f, g, u, t, dt, dW, atol, rtol, *,
+                          interpretation: str = "ito") -> SDEStepResult:
+    """The diagonal-noise commutative Milstein step (reference
+    ``src/perform_step.jl:108-170``, diagonal branch). As in the
+    reference, ``eest`` is the tolerance-scaled RMS of ``u_new − u``: the
+    drift-error expression it computes first is overwritten before use
+    (``perform_step.jl:164-167``)."""
+    sqdt = torch.sqrt(torch.abs(dt))
+    J = (dW ** 2) / 2  # I_(1,1); Itô subtracts dt/2
+    if interpretation == "ito":
+        J = J - torch.abs(dt) / 2
+    du1 = f(u, t)
+    L = g(u, t)
+    K = u + dt * du1
+    base = K if interpretation == "ito" else u
+    gtmp = g(base + sqdt * L, t)
+    Dgj = (gtmp - L) / sqdt
+    u_new = K + L * dW + Dgj * J
+    return SDEStepResult(u_new, internal_norm(
+        difference_residuals(u, u_new, atol, rtol)))
+
+
+def milstein_commute_step_nondiag(f, g, u, t, dt, dW, atol, rtol, *,
+                                  interpretation: str = "ito"
+                                  ) -> SDEStepResult:
+    """The non-diagonal (matrix) commutative-noise Milstein step (reference
+    ``src/perform_step.jl:126-160``). ``u`` is (..., d), ``dW`` (..., m)
+    and ``g`` returns the noise-rate matrix (..., d, m). The iterated
+    integrals take the commutative approximation ``J = dW dWᵀ / 2`` with
+    the Itô correction ``J −= (dt/2)·I``; the correction sums the
+    per-channel ``Dg_j = (g(K + √dt·L[:, j]) − L)/√dt`` against ``J[:, j]``
+    in channel order, as the reference's loop (m diffusion evaluations).
+    ``eest`` as ``milstein_commute_step``."""
+    sqdt = torch.sqrt(torch.abs(dt))
+    m = dW.shape[-1]
+    J = 0.5 * dW[..., :, None] * dW[..., None, :]
+    if interpretation == "ito":
+        J = J - (torch.abs(dt) / 2) * torch.eye(m, dtype=J.dtype,
+                                                device=J.device)
+    du1 = f(u, t)
+    L = g(u, t)
+    K = u + dt * du1
+    correction = None
+    for j in range(m):
+        gtmp = g(K + sqdt * L[..., j], t)
+        Dgj = (gtmp - L) / sqdt
+        c = torch.einsum("...dm,...m->...d", Dgj, J[..., j])
+        correction = c if correction is None else correction + c
+    u_new = K + torch.einsum("...dm,...m->...d", L, dW) + correction
+    return SDEStepResult(u_new, internal_norm(
+        difference_residuals(u, u_new, atol, rtol)))
+
+
+def lamba_euler_heun_step(f, g, u, t, dt, dW, atol, rtol,
+                          delta: float = 1 / 6) -> SDEStepResult:
+    """The Stratonovich predictor–corrector (Lamba) Euler–Heun step
+    (reference ``src/perform_step.jl:172-206``, diagonal branch)."""
+    sqdt = torch.sqrt(torch.abs(dt))
+    du1 = f(u, t)
+    K = u + dt * du1
+    L = g(u, t)
+    tmp = K + L * dW
+    g_tmp = g(tmp, t + dt)
+    noise2 = ((L + g_tmp) / 2) * dW
+    f_tmp = f(tmp, t + dt)
+    u_new = u + (dt / 2) * (du1 + f_tmp) + noise2
+    du2 = f(K, t + dt)
+    Ed = dt * (du2 - du1) / 2
+    g_ut = g(u + L * sqdt, t)
+    En = ((g_ut - L) / sqdt) * (dW ** 2) / 2
+    return SDEStepResult(u_new, internal_norm(
+        sde_error_residuals(Ed, En, u, u_new, atol, rtol, delta)))

@@ -8,10 +8,12 @@ Counterpart of ``localregneuralde_tpu/sde/stored_adjoint.py``.
   loop otherwise. The fenced auxiliaries (NFE, success, reservoir sample)
   come from the same solve.
 - **Backward**: a reverse sweep over the ``naccept`` recorded steps. Each
-  step is transposed with its **recorded** increments, so the gradient is
-  exact for the realised trajectory whichever program drew the noise, and
-  the noise is never differentiated. SRI has no FSAL chain, so the state
-  cotangent is the only carry. The saveat cotangents split linearly:
+  step (SRI, Milstein — with matrix noise too, its knots holding the
+  ``(B, m)`` increments — or Lamba–Euler–Heun) is transposed with its
+  **recorded** increments, so the gradient is exact for the realised
+  trajectory whichever program drew the noise, and the noise is never
+  differentiated. These steps have no FSAL chain, so the state cotangent
+  is the only carry. The saveat cotangents split linearly:
   ``y_s = u + θ(u_new − u)`` gives ``d_u += (1 − θ)·ct`` and
   ``d_u_new += θ·ct``. ``sweep_fn`` replaces the eager sweep with the
   persistent sweep kernel; it reads the same recorded knots.
@@ -33,28 +35,29 @@ from .solve import (
     initial_dt,
     saveat_array,
     sde_loop,
+    sde_step,
     solution_from,
 )
-from .step import sri_step
-from .tableaus import get_sri_tableau
+from .step import step_nfe
 
 
 def _zeros_for_none(grads, like):
     return [torch.zeros_like(x) if g is None else g for g, x in zip(grads, like)]
 
 
-def autograd_step_vjp(f: Callable, g: Callable, *, solver, delta, atol, rtol):
+def autograd_step_vjp(f: Callable, g: Callable, *, solver, delta, atol, rtol,
+                      noise_shape=None):
     """``step_vjp(params, u, t, dt, dW, dZ, d_unew) -> (d_params, d_u)``:
-    the autograd VJP of the SRI step's ``u_new`` with respect to the
+    the autograd VJP of the step's ``u_new`` with respect to the
     parameters and ``u``, for ``f(u, t, params)`` and ``g(u, t, params)``."""
-    tableau = get_sri_tableau(solver)
+    step = sde_step(solver, noise_shape, delta)
 
     def step_vjp(params, u, t, dt, dW, dZ, d_unew):
         with torch.enable_grad():
             ps = [p.detach().requires_grad_() for p in params]
             u_ = u.detach().requires_grad_()
-            res = sri_step(lambda x, s: f(x, s, ps), lambda x, s: g(x, s, ps),
-                           u_, t, dt, dW, dZ, atol, rtol, delta, tableau)
+            res = step(lambda x, s: f(x, s, ps), lambda x, s: g(x, s, ps),
+                       u_, t, dt, dW, dZ, atol, rtol)
             grads = torch.autograd.grad(res.u_new, ps + [u_], d_unew,
                                         allow_unused=True)
         grads = _zeros_for_none(grads, ps + [u_])
@@ -115,7 +118,8 @@ class _StoredSDESolve(torch.autograd.Function):
         else:
             step_vjp = autograd_step_vjp(spec.f, spec.g, solver=spec.solver,
                                          delta=spec.delta, atol=spec.atol,
-                                         rtol=spec.rtol)
+                                         rtol=spec.rtol,
+                                         noise_shape=spec.noise_shape)
             a_u, d_p = eager_sde_sweep(step_vjp, params, *knots,
                                        sol.naccept, sol.ts, ct_ys, ct_y)
         # the outputs are sol's tensors, whose grad_fn is this node: drop
@@ -149,9 +153,10 @@ class _Spec:
             saveat=self.saveat_arr, rtol=self.rtol, atol=self.atol,
             solver=self.solver, delta=self.delta, max_steps=self.max_steps,
             reservoir=self.reservoir, brownian_depth=self.brownian_depth,
-            record_knots=True,
+            record_knots=True, noise_shape=self.noise_shape,
         )
-        return solution_from(out, self.saveat_arr)
+        m = None if self.noise_shape is None else self.noise_shape[-1]
+        return solution_from(out, self.saveat_arr, step_nfe(self.solver, m))
 
 
 def stored_sdesolve(
@@ -172,6 +177,7 @@ def stored_sdesolve(
     brownian_depth: int = 24,
     persistent_fn: Optional[Callable] = None,
     sweep_fn: Optional[Callable] = None,
+    noise_shape=None,
 ) -> SDESolution:
     """Integrate ``du = f(u, t, params) dt + g(u, t, params) dW`` with
     gradients with respect to ``u0`` and ``params`` through the stored
@@ -184,6 +190,7 @@ def stored_sdesolve(
     knot_ts, knot_us, knot_dws, knot_dzs, naccept, saveat_arr, ct_ys,
     ct_y) -> (a_u, d_params)`` for the sweep. When given they replace the
     eager loop and the autograd sweep; ``f`` and ``g`` are then not called.
+    ``noise_shape`` as ``sdesolve``'s (non-diagonal Milstein).
     """
     t0, t_end = float(tspan[0]), float(tspan[1])
     saveat_arr = saveat_array(saveat, t_end, u0)
@@ -191,7 +198,8 @@ def stored_sdesolve(
         f=f, g=g, t0=t0, t_end=t_end, saveat_arr=saveat_arr, rtol=rtol,
         atol=atol, solver=solver, delta=delta, max_steps=max_steps,
         noise=noise, reservoir=reservoir, brownian_depth=brownian_depth,
-        persistent_fn=persistent_fn, sweep_fn=sweep_fn, sol=None,
+        persistent_fn=persistent_fn, sweep_fn=sweep_fn,
+        noise_shape=noise_shape, sol=None,
     )
     ys, y_final = _StoredSDESolve.apply(spec, u0, *params)
     sol = spec.sol

@@ -150,39 +150,53 @@ def test_experiment_yaml_loads_into_both(path):
 
 
 def test_unported_paths_raise():
-    # the multistep solvers are not ported (the CIFAR model is, since its
-    # slice)
+    """The solver modes and SDE solvers the port once lacked build and run
+    from a config or the layers (vcab3, the direct adjoint, Milstein with
+    and without sde_noise_dims, Euler–Heun, the score sampler's solvers);
+    what is still unported (the parallel layer, the native loader) raises
+    and cites its ROADMAP item."""
     cfg = torch_config.define_configuration(
         ["--model.solver.ode_solver=vcab3"], None
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        construct_model(cfg, device="cpu")
+    assert construct_model(cfg, device="cpu").neural_ode.solver == "vcab3"
     cifar = torch_config.define_configuration(
         ["--model.model_type=cifar10_cnn"], None
     )
     assert construct_model(cifar, device="cpu").neural_ode.family == "conv"
-    # the non-stored adjoints are not ported
     node = NeuralODE(TDChain(Dense(5, 3, "tanh"), Dense(4, 4)),
                      adjoint="direct")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        node(torch.zeros(2, 4), training=True)
-    # nor the SDE solvers outside the SRI family, nor non-diagonal noise
-    for extra in (["--model.sde_solver=milstein"],
-                  ["--model.sde_solver=euler_heun"],
-                  ["--model.sde_solver=milstein", "--model.sde_noise_dims=2"]):
+    sol, st = node(torch.zeros(2, 4), node.init_state(), training=True)
+    assert sol.ys.shape == (1, 2, 4) and int(st["nfe"]) > 0
+    for extra, want in ((["--model.sde_solver=milstein"], None),
+                        (["--model.sde_solver=euler_heun"], None),
+                        (["--model.sde_solver=milstein",
+                          "--model.sde_noise_dims=2"], 2)):
         cfg = torch_config.define_configuration(extra, None)
         cfg.model.sde = True
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            construct_model(cfg, device="cpu")
+        layer = construct_model(cfg, device="cpu").neural_dsde
+        assert layer.solver == extra[0].split("=")[1]
+        assert layer.noise_dims == want
     with pytest.raises(ValueError):
         NeuralODE(Dense(4, 4), use_pallas="on")
-    # nor the score sampler's other SDE solvers
     from localregneuralde_tpu_torch.models import sample_vpsde
 
     for solver in ("milstein", "euler_heun"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sample_vpsde(lambda u, t, p: -u, (4, 2), torch.Generator(),
-                         solver=solver, device="cpu")
+        s, sol = sample_vpsde(lambda u, t, p: -u, (4, 2), torch.Generator(),
+                              solver=solver, rtol=0.5, atol=0.5,
+                              device="cpu")
+        assert s.shape == (4, 2) and int(sol.nfe_drift) > 0
+    # still unported: the parallel layer and the native loader
+    from localregneuralde_tpu_torch.harness.data import make_dataloader
+    from localregneuralde_tpu_torch.harness.latent_runner import (
+        check_supported,
+    )
+
+    dp = torch_config.define_configuration(
+        ["--train.data_parallel=gspmd"], None)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+        check_supported(dp)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        make_dataloader((torch.zeros(4, 2).numpy(),), 2, backend="native")
 
 
 def test_kernel_dispatch():

@@ -350,9 +350,12 @@ def test_sampler_arguments():
                      device="cpu")
     with pytest.raises(ValueError, match="score_fn or score_module"):
         sample_probability_flow(None, (4, F), g, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sample_vpsde(None, (4, F), g, score_module=mod, solver="milstein",
-                     device="cpu")
+    # Milstein runs the eager loop (kernel 11 serves SRI/SOSRI only)
+    s, sol = sample_vpsde(None, (4, F), g, score_module=mod,
+                          solver="milstein", rtol=0.5, atol=0.5,
+                          device="cpu")
+    assert s.shape == (4, F) and int(sol.nfe_diffusion) == 2 * (
+        int(sol.naccept) + int(sol.nreject))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             sample_vpsde(None, (4, F), g, score_module=mod)

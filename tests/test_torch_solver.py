@@ -214,7 +214,20 @@ def test_max_steps_cap_matches_jax():
 
 
 def test_gradient_adjoints_are_not_ported():
+    """The gradient adjoints are ported now: ``adjoint='direct'`` through
+    ``odesolve`` is differentiable and its forward is the ``'none'``
+    solve's, and an unknown adjoint is refused."""
     _, _, _, x, td = _setup()
-    with pytest.raises(NotImplementedError):
+    xt = torch.tensor(x, requires_grad=True)
+    sol = odesolve(_torch_dynamics(td), xt, (0.0, 1.0), adjoint="direct",
+                   stateful=True, f_state=td.init_state())
+    with torch.no_grad():
+        ref = odesolve(_torch_dynamics(td), torch.tensor(x), (0.0, 1.0),
+                       stateful=True, f_state=td.init_state())
+    assert torch.equal(sol.y_final.detach(), ref.y_final)
+    assert int(sol.nfe) == int(ref.nfe)
+    sol.y_final.sum().backward()
+    assert torch.isfinite(xt.grad).all() and bool((xt.grad != 0).any())
+    with pytest.raises(ValueError, match="adjoint"):
         odesolve(_torch_dynamics(td), torch.tensor(x), (0.0, 1.0),
-                 adjoint="direct", stateful=True, f_state=td.init_state())
+                 adjoint="scan", stateful=True, f_state=td.init_state())
