@@ -104,7 +104,16 @@ on the card:
     SOSRI under the direct adjoint; ``[modes score ...]``, the VP-SDE
     sampler with Milstein and Euler–Heun against an SOSRI draw; and
     ``[cifar repeat]``, two eager CIFAR runs and the K-step call bitwise
-    equal with no process-wide flag.
+    equal with no process-wide flag;
+19. the TD-MLP family at the TF32 'default' tier (``--only=tf32``,
+    ``[tf32 ...]``): kernels 1, 2, 4, 3, 7 and 8 at TF32 against their
+    TF32 plain versions (the FP32 checks' tolerances) and against FP32
+    across tiers (``tf32_tol``), their digests, kernel 4's refusal below
+    rtol 1e-4, the forced TF32 replay bitwise its forward; the bench
+    configuration's serving batches and train steps through 'auto' (TF32)
+    and 'highest' (FP32), and mlp.yaml's train step with grad_precision
+    'match' and 'default', each with launches by tier; with
+    ``--only=tf32`` also the K-step capture of both paths.
 
 Beside those: each persistent kernel's outputs (kernels 4 at both
 tolerances, 5, 6, 8's replay and its gradients, 9, 10, 11 and 12, and
@@ -151,8 +160,9 @@ neither the kernels line nor the ok line; ``ode`` adds the MNIST ODE's
 serving and training paths (``[slice ...]``, ``[train ...]``) and
 ``latent`` the latent runner's (``[latent ...]``), ``sde_train`` the
 MNIST-SDE train steps (``[sde train ...]``), ``cifar`` the CIFAR-10
-serving and training paths (``[cifar ...]``) and ``capture`` the K-step
-train calls (``[capture ...]``).
+serving and training paths (``[cifar ...]``), ``capture`` the K-step
+train calls (``[capture ...]``) and ``tf32`` the TF32 tier (``[tf32
+...]`` and the capture of the TD-MLP paths).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
 kernel, the ``mlp.yaml`` serving batch by part (``[profile serve]``), the
@@ -160,10 +170,13 @@ latent encoder's share of the latent train step, and the CIFAR train
 step's kernels.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists every kernel with its launches, error, times and bound. A bound is
-the larger of the kernel's FP32 product FLOPs (counted from its shapes and
-this run's step counts) over the H100's 67 TFLOP/s and the bytes it must
-move (each input read once, each output written once) over 3.35 TB/s;
+lists every kernel with its launches, error, times and bound (the TD-MLP
+family's at each tier: FP32 and ``_tf32`` rows, kernels 3, 7 and 8 by
+recompute and gradient tiers, launches by tier from the paths). A bound is
+the larger of the kernel's product FLOPs (counted from its shapes and this
+run's step counts) over the H100's 67 TFLOP/s FP32 or 495 TFLOP/s TF32,
+each product at its tier's peak, and the bytes it must move (each input
+read once, each output written once) over 3.35 TB/s;
 for kernels 10 and 11 the FP32 and INT32 work of the tree's draws counts
 too (``tree_bound``). Any
 failed check exits non-zero without that line, as does a machine without a
@@ -236,6 +249,82 @@ def tree_bound(draws, flops, nbytes):
     return dict(bound_ms=1e3 * max(t_int, t_fp, t_bytes),
                 bound_by="operations" if max(t_int, t_fp) >= t_bytes
                 else "bytes", library_ms=None)
+
+
+def mixed_bound(fp32_flops, tf32_flops, nbytes):
+    """``bound`` of a launch whose products mix tiers: each product's FLOPs
+    at its own tier's peak (FP32 outside the tensor cores, TF32 on them)."""
+    t_ops = fp32_flops / PEAK_FP32 + tf32_flops / PEAK_TF32
+    t_bytes = nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None)
+
+
+# TF32's unit roundoff: cvt.rna rounds an operand to 10 mantissa bits, a
+# relative error of at most 2^-11
+U_TF32 = 2.0 ** -11
+
+
+def tf32_tol(depth):
+    """The tolerance of a comparison across tiers (a TF32 result against an
+    FP32 one), relative to the FP32 result's largest value: each product
+    rounds both its operands by at most 2^-11, so to first order an output
+    that passes through ``depth`` products in sequence moves by at most
+    2·2^-11·depth of its scale."""
+    return 2 * U_TF32 * depth
+
+
+def tf32_sum_tol(depth, k=F + 1):
+    """The tolerance of a TF32 kernel against its TF32 plain version,
+    relative to the output's largest value. Both round the same operands
+    and their products are exact in FP32; only the FP32 sums differ, and the
+    tensor cores round theirs toward zero (PR 14), a bias: a product of K
+    terms moves by up to K·2^-24 of its scale (K = F + 1, the longest), and
+    ``depth`` products in sequence add up."""
+    return depth * k * 2.0 ** -24
+
+
+def swept_steps(nfe):
+    """The accepted steps a training solve of NFE ``nfe`` sweeps, at most:
+    its attempts, (NFE − 2 − 8) / 6 (k1 and the dt probe, the regulariser's
+    eight). A transposed step's products chain through the carries from
+    step to step, so a sweep's depth is its steps' sum."""
+    return max(1, (nfe - 10) // 6)
+
+
+def utilde_ok(ut, ut_ref, ks, ks_ref, dt):
+    """ũ = dt·Σ b̃_i k_i cancels, so its error is held to what its inputs'
+    carry, dt·max|Δk| (Σ|b̃_i| < 1), not to its own scale: the TF32 noise
+    in ũ that makes the tier unusable below rtol 1e-4."""
+    dk = max(max_abs(a, b) for a, b in zip(ks, ks_ref))
+    scale = max(float(k.abs().max()) for k in ks_ref)
+    return max_abs(ut, ut_ref) <= float(dt) * (dk + 1e-6 * scale)
+
+
+def tier_counts():
+    """``launch_counts`` with the TD-MLP wrappers' launches by tier beside
+    them, as ``name[tier]``."""
+    from localregneuralde_tpu_torch.ops.cuda import (
+        launch_counts, tier_launch_counts,
+    )
+
+    out = launch_counts()
+    for name, by_tier in tier_launch_counts().items():
+        out.update({f"{name}[{t}]": n for t, n in by_tier.items()})
+    return out
+
+
+def node_tiers(model, device):
+    """(forward, gradient) product tiers of a classifier's NeuralODE on its
+    kernel route on ``device``: the forward at ``mm_precision``, the
+    kernels' gradient products at the default tier (on the plain route
+    they are the forward's)."""
+    from localregneuralde_tpu_torch.nn import product_tier
+
+    node = model.neural_ode
+    fwd = node.forward_tier(device)
+    return fwd, fwd if node.use_pallas == "off" else product_tier(None, device)
 
 
 def tdmlp_flops(b=B, f=F, h=H):
@@ -493,6 +582,20 @@ DIGESTS = {
         "2eb4880f6f150bedab40cad3b4ef33ba1fe90239f1e0452bd0f712b075070687",
     "K15 im2col":
         "2eb4880f6f150bedab40cad3b4ef33ba1fe90239f1e0452bd0f712b075070687",
+    # the TF32 tier (the reference's 'default'), taken on the first build of
+    # the TF32 instantiations ([tf32 ...])
+    "K1 tf32":
+        "1ee235493992af8265f65c8eea0e13bca9dfe4c41844a3c6b9d0bead4c6020da",
+    "K2 tf32":
+        "7303ce96eac3826ac23b2041f7d8992e3cf27faaeedc1f942534eae7d60db829",
+    "K4 bench tf32":
+        "1decd2a9adfbcb7f6767e8e08a578d688751e818cfbd9cc99ac901434def4448",
+    "K3 tf32":
+        "279dada7e47b4c138ec63a35b220124cedb4c274d4197ee10d3a49ff3a7a32c3",
+    "K8 grads tf32":
+        "961477859a879355648da38de3590b4eed13eab9c6a2c879b87c9924eb913e33",
+    "K8 replay tf32":
+        "d313b126d352c2491e3dd7666ccd9e9a3db03da258abcc9f41221cfe7f4957ab",
 }
 SEEN_DIGESTS = {}
 # Kernel 3's largest error relative to the float64 plain VJP, on the kernel
@@ -774,7 +877,7 @@ def phase_slice(device, profile=False):
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
             results.append((name, i, loss, stats, ms))
-    counts = launch_counts()
+    counts = tier_counts()
 
     n_persistent = sum(len(r[6]) for r in runs if not r[0].endswith("loop"))
     n_loop = sum(len(r[6]) for r in runs if r[0].endswith("loop"))
@@ -812,7 +915,16 @@ def phase_slice(device, profile=False):
             err = max_abs(ours["y_pred"], ref["y_pred"])
             print(f"[slice {name}] batch {i}: logits vs plain path max-abs "
                   f"{err:.3e}, nfe {int(ours['nfe'])} vs {int(ref['nfe'])}")
-            check(err <= 1e-4, f"slice {name}: logits disagree with plain")
+            if node_tiers(model, device)[0] == "fp32":
+                check(err <= 1e-4, f"slice {name}: logits disagree with plain")
+            else:
+                # both TF32 ('auto' at rtol ≥ 1e-4): the tensor cores'
+                # truncated sums over the evaluations' products
+                rel = rel_err(ours["y_pred"], ref["y_pred"])
+                tol = tf32_sum_tol(2 * int(ref["nfe"]))
+                print(f"[slice {name}] batch {i}: both TF32, relative "
+                      f"{rel:.3e}, tolerance {tol:.3e}")
+                check(rel <= tol, f"slice {name}: logits disagree with plain")
         # a small batch: the card's kernel path against the CPU
         cpu = _slice_model(overrides, "cpu",
                            {k: v.cpu() for k, v in model.state_dict().items()})
@@ -822,7 +934,18 @@ def phase_slice(device, profile=False):
         err = max_abs(on_card["y_pred"].cpu(), on_cpu["y_pred"])
         print(f"[slice {name}] 8 images, card kernels vs CPU plain: "
               f"logits max-abs {err:.3e}")
-        check(err <= 1e-4, f"slice {name}: card disagrees with the CPU")
+        if node_tiers(model, device)[0] == "fp32":
+            check(err <= 1e-4, f"slice {name}: card disagrees with the CPU")
+        else:
+            # across tiers: the card's route is TF32 ('auto' at rtol ≥
+            # 1e-4), the CPU's FP32; every evaluation passes two products
+            rel = rel_err(on_card["y_pred"].cpu(), on_cpu["y_pred"])
+            tol = tf32_tol(2 * int(on_card["nfe"]))
+            print(f"[slice {name}] across tiers (card TF32, CPU FP32): "
+                  f"logits relative max-abs {rel:.3e}, tolerance {tol:.3e} "
+                  f"(2·2^-11 × {2 * int(on_card['nfe'])} products)")
+            check(rel <= tol, f"slice {name}: card disagrees with the CPU "
+                  "beyond TF32's rounding")
     if profile:
         _profile_serve(runs[0], batches)
     return counts
@@ -1543,7 +1666,7 @@ def phase_train(device, profile=False):
             after = launch_counts()
             per_step.append((name, {k: after[k] - before[k] for k in after}))
             results.append((name, i, loss, stats, ms))
-    counts = launch_counts()
+    counts = tier_counts()
 
     sweep_of = {"mlp.yaml": "persistent_two_level_sweep",
                 "bench": "persistent_stored_sweep"}
@@ -1572,10 +1695,12 @@ def phase_train(device, profile=False):
         small = (batches[0][0][:8], batches[0][1][:8])
         plain = _train_setup(overrides + ["--model.use_pallas=off"], device, sd)
         cpu = _train_setup(overrides, "cpu", {k: v.cpu() for k, v in sd.items()})
+        ours_t = node_tiers(model, device)
         for where, data, ref_model, ref_loss, ref_dev in (
             ("the card's plain path", batches[0], plain[0], plain[1], device),
             ("the CPU, 8 images", small, cpu[0], cpu[1], "cpu"),
         ):
+            ref_t = node_tiers(ref_model, ref_dev)
             ref_params = {k: v.to(ref_dev) for k, v in params0.items()}
             ref_data = tuple(d.to(ref_dev) for d in data)
             # the gradient of the cross-entropy alone (w_reg = 0), and of
@@ -1594,8 +1719,30 @@ def phase_train(device, profile=False):
                     f"reg_val {float(s_ours['reg_val'].detach()):.6e} vs "
                     f"{float(s_ref['reg_val'].detach()):.6e}")
             # the solves agree to solver accuracy whatever their step counts
-            # (the logits agree to 1e-6, phase 4)
-            check(abs(ce_ours - ce_ref) <= 1e-4,
+            # (the logits agree to 1e-6, phase 4); across tiers (the card's
+            # forward TF32 at the bench tolerance, its gradient products
+            # TF32 on the kernel route, as the reference's default tier)
+            # to TF32's rounding over the products passed: two an
+            # evaluation forward, thirteen a transposed step backward
+            ce_tol, g_tol = 1e-4, 1e-3
+            steps = swept_steps(n_ref)
+            depth = 13 * steps if ours_t[1] != ref_t[1] else 0
+            if ours_t[0] != ref_t[0]:
+                ce_tol = tf32_tol(2 * n_ref) * max(1.0, abs(ce_ref))
+                depth += 2 * n_ref
+            if depth:
+                g_tol = tf32_tol(depth)
+                head += (f" (across tiers: ours {'/'.join(ours_t)}, "
+                         f"reference {'/'.join(ref_t)} forward/gradients; "
+                         f"tolerances {ce_tol:.3e} and {g_tol:.3e})")
+            elif ours_t[0] == "tf32":
+                # both TF32: the tensor cores' truncated sums
+                ce_tol = max(ce_tol, tf32_sum_tol(2 * n_ref)
+                             * max(1.0, abs(ce_ref)))
+                g_tol = max(g_tol, tf32_sum_tol(2 * n_ref + 27 * steps))
+                head += (f" (both TF32; tolerances {ce_tol:.3e} and "
+                         f"{g_tol:.3e})")
+            check(abs(ce_ours - ce_ref) <= ce_tol,
                   f"train {name}: cross-entropy disagrees with {where}")
             if n_ours != n_ref:
                 print(f"{head}; the step sequences differ (f32 noise in the "
@@ -1608,7 +1755,8 @@ def phase_train(device, profile=False):
             print(f"{head}; gradients of the cross-entropy relative max-abs "
                   f"{rel:.3e}; of the loss with the regulariser {rel_l:.3e} "
                   f"(reg_val's error estimate is f32 rounding noise here)")
-            check(rel <= 1e-3, f"train {name}: gradients disagree with {where}")
+            check(rel <= g_tol,
+                  f"train {name}: gradients disagree with {where}")
     # --- the replay branch through the model: --model.solver.knot_window=8
     # at the mlp.yaml tolerance (~25 accepts) makes the stored adjoint
     # replay from the checkpoints; the replay repeats the forward, so the
@@ -2213,7 +2361,7 @@ def phase_ode_biased(device):
           and all(counts[k] == v for k, v in want.items())
           and sum(counts.values()) == sum(want.values()),
           f"ode biased step: launches {counts}, reg_val {reg}")
-    return counts
+    return tier_counts()
 
 
 def _latent_setup(device, overrides=(), params=None):
@@ -4316,7 +4464,7 @@ def _compare_states(a, b, red_a, red_b):
     return bitwise, gens, worst
 
 
-def phase_capture(device):
+def phase_capture(device, only=None):
     """The K-step train call against K eager train steps at full width:
     ``mlp.yaml`` and the bench tolerance (both unbiased), the MNIST SDE
     (unbiased), PhysioNet as shipped and CIFAR-10 (unbiased), each with K =
@@ -4333,8 +4481,9 @@ def phase_capture(device):
     CAPTURE_CALLS calls a side) and prints the replay's device-busy share;
     then one captured call with
     ``grad_accumulation=2`` and ``ema_decay=0.999`` on ``mlp.yaml`` against
-    its eager twin. Returns the port kernels' launch counts of the
-    captured calls, by wrapper."""
+    its eager twin. ``only``: the names of the configurations to run
+    (default all, and the grad_accumulation and EMA call). Returns the port
+    kernels' launch counts of the captured calls, by wrapper."""
     import copy
 
     import torch
@@ -4354,6 +4503,8 @@ def phase_capture(device):
     rows = []
     for (name, cfg, model, loss_fn, opt, ws_of, lrs_of, batches_of,
          reduce_fn) in _capture_configs(device):
+        if only is not None and name not in only:
+            continue
         t = cfg.train
         bs = cfg.dataset.train_batchsize
         cap = capturable(model, bs, device)
@@ -4454,6 +4605,9 @@ def phase_capture(device):
         gc.collect()
         torch.cuda.empty_cache()
 
+    if only is not None:
+        print(json.dumps({"capture": rows}))
+        return tier_counts()
     # grad_accumulation=2 and the params-EMA on mlp.yaml, captured
     name, cfg, model, loss_fn, opt, ws_of, lrs_of, batches_of, reduce_fn = (
         _capture_configs(device)[0])
@@ -4483,7 +4637,474 @@ def phase_capture(device):
     gc.collect()
     torch.cuda.empty_cache()
     print(json.dumps({"capture": rows}))
-    return launch_counts()
+    return tier_counts()
+
+
+# ------------------------------------------------------------ the TF32 tier
+
+def phase_tf32(device, w, x):
+    """The TD-MLP family at the TF32 tier (the reference's 'default'
+    precision, which 'auto' takes at rtol ≥ 1e-4): kernels 1, 2, 4, 3, 7
+    and 8 at TF32 against their TF32 plain versions on the same inputs (the
+    operands rounded as the kernels round them, the sums in FP32, so the
+    FP32 checks' tolerances), beside the FP32 results across tiers
+    (``tf32_tol``); the six TF32 digests; the forced TF32 replay bitwise its
+    forward; then the bench configuration's serving batches and train steps
+    through 'auto' (TF32) and 'highest' (FP32), and mlp.yaml's train step
+    under grad_precision 'match' and 'default', with launch counts by tier
+    (counted from zero before each path, read after it). Returns (the
+    kernels line's TF32 rows, the paths' launch counts with tiers)."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import warmup_model
+    from localregneuralde_tpu_torch.ode.stored_adjoint import knot_layout
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_step_bwd, fused_step_bwd_plain, fused_tdmlp, fused_tsit5_step,
+        persistent_stored_sweep, persistent_stored_sweep_plain,
+        persistent_tsit5_solve, persistent_tsit5_solve_plain,
+        persistent_two_level_sweep, persistent_two_level_sweep_plain,
+        reset_launch_counts, tdmlp_plain, tsit5_step_plain,
+    )
+
+    res = {}
+    tf = dict(precision=None)
+    wb = tdmlp_weight_bytes()
+
+    # kernel 1
+    y = fused_tdmlp(w, x, 0.3, **tf)
+    ref = tdmlp_plain(w, x, 0.3, "tf32")
+    err, rel = max_abs(y, ref), rel_err(y, ref)
+    xt = rel_err(y, tdmlp_plain(w, x, 0.3))
+    print(f"[tf32 K1] vs the TF32 plain version max-abs {err:.3e}, relative "
+          f"{rel:.3e} (tolerance {tf32_sum_tol(2):.3e}); vs FP32 (across "
+          f"tiers) relative {xt:.3e}, tolerance {tf32_tol(2):.3e}")
+    check(rel <= tf32_sum_tol(2), f"tdmlp tf32 vs plain: relative {rel}")
+    check(xt <= tf32_tol(2), f"tdmlp tf32 vs fp32: {xt}")
+    digest("K1 tf32", *[fused_tdmlp(w, x[:b], s, **tf) for b in (B, 410)
+                        for s in (0.0, 0.3)])
+    raw = raw_launch("lrnde_tdmlp_tf32", x, torch.tensor([0.3], device=device),
+                     *w, torch.empty_like(x), B, F, H, 0)
+    check(raw() == 0, "tdmlp tf32: raw launch failed")
+    ms, plain = back_to_back_ms([raw, lambda: tdmlp_plain(w, x, 0.3, "tf32")])
+    res["tdmlp_tf32"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                             **bound(tdmlp_flops(), 8 * B * F + wb, PEAK_TF32))
+
+    # kernel 2
+    t = torch.tensor(0.2, device=device)
+    dt = torch.tensor(0.05, device=device)
+    k1 = tdmlp_plain(w, x, t, "tf32")
+    out = fused_tsit5_step(w, x, t, dt, k1, **tf)
+    ref = tsit5_step_plain(w, x, t, dt, k1, "tf32")
+    fp = tsit5_step_plain(w, x, t, dt, k1)
+    # every output but ũ (out[1]) against its own scale; ũ cancels
+    err = max(max_abs(a, b) for a, b in zip(out, ref))
+    rel = max(rel_err(a, b) for i, (a, b) in enumerate(zip(out, ref))
+              if i != 1)
+    xt = max(rel_err(a, b) for i, (a, b) in enumerate(zip(out, fp))
+             if i != 1)
+    ut_ok = utilde_ok(out[1], ref[1], out[2:8], ref[2:8], dt)
+    ut_xt = utilde_ok(out[1], fp[1], out[2:8], fp[2:8], dt)
+    print(f"[tf32 K2] vs the TF32 plain version max-abs {err:.3e}, relative "
+          f"{rel:.3e} but ũ (tolerance {tf32_sum_tol(12):.3e}), ũ within "
+          f"dt·max|Δk| {ut_ok}; vs FP32 (across tiers) relative {xt:.3e} "
+          f"(tolerance {tf32_tol(12):.3e}), ũ within dt·max|Δk| {ut_xt}")
+    check(rel <= tf32_sum_tol(12) and ut_ok,
+          f"tsit5_step tf32 vs plain: relative {rel}")
+    check(xt <= tf32_tol(12) and ut_xt, f"tsit5_step tf32 vs fp32: {xt}")
+    digest("K2 tf32", *[o for b in (B, 410) for o in fused_tsit5_step(
+        w, x[:b], t, dt, fused_tdmlp(w, x[:b], t, **tf), **tf)])
+    raw = raw_launch("lrnde_tsit5_step_tf32",
+                     *step_raw_args(w, x, k1, t, dt)[:-1])
+    check(raw() == 0, "tsit5_step tf32: raw launch failed")
+    ms, plain = back_to_back_ms(
+        [raw, lambda: tsit5_step_plain(w, x, t, dt, k1, "tf32")])
+    res["tsit5_step_tf32"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        **bound(6 * tdmlp_flops(), 44 * B * F + wb, PEAK_TF32))
+
+    # kernel 4 at the bench tolerance, and its refusal below rtol 1e-4
+    saveat = torch.tensor([0.5, 1.0], device=device)
+    kw = dict(rtol=1e-4, atol=1e-4, saveat_arr=saveat, max_steps=64)
+    out = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw, **tf)
+    digest("K4 bench tf32", out)
+    ref = persistent_tsit5_solve_plain(w, x, (0.0, 1.0), **kw, tier="tf32")
+    fp = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw)
+    err, rel = max_abs(out["ys"], ref["ys"]), rel_err(out["ys"], ref["ys"])
+    na, nb, nf = (int(o["naccept"]) for o in (out, ref, fp))
+    fa, fb, ff = (int(o["nfe"]) for o in (out, ref, fp))
+    xt = rel_err(out["ys"], fp["ys"])
+    tol = tf32_sum_tol(2 * fb)
+    print(f"[tf32 K4 bench] kernel naccept {na} nfe {fa} | TF32 loop "
+          f"naccept {nb} nfe {fb} | ys max-abs {err:.3e}, relative {rel:.3e} "
+          f"(tolerance {tol:.3e}); FP32 kernel naccept {nf} nfe {ff}, ys "
+          f"relative {xt:.3e} (across tiers)")
+    check(bool(out["success"]) and bool(ref["success"])
+          and rel <= tol and abs(na - nb) <= 1 and abs(fa - fb) <= 12,
+          "persistent solve tf32 disagrees with the TF32 loop")
+    try:
+        persistent_tsit5_solve(w, x, (0.0, 1.0), rtol=1.4e-8, atol=1.4e-8,
+                               saveat_arr=saveat, max_steps=16, **tf)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "the TF32 solve ran below rtol 1e-4")
+    print("[tf32 K4] refuses rtol 1.4e-8 (ValueError)")
+    ms, plain = median_ms(
+        [lambda: persistent_tsit5_solve(w, x, (0.0, 1.0), **kw, **tf),
+         lambda: persistent_tsit5_solve_plain(w, x, (0.0, 1.0), **kw,
+                                              tier="tf32")], n=10, warmup=1)
+    res["persistent_tsit5_solve_tf32"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        **bound(tdmlp_flops() * (fa - 2), 4 * 5 * B * F + wb, PEAK_TF32))
+
+    # kernel 3: the bench's route (TF32 throughout) and mlp.yaml's (FP32
+    # recompute, TF32 gradients)
+    g = torch.Generator(device=device).manual_seed(7)
+    k1 = tdmlp_plain(w, x, t)
+    cts = [torch.randn(x.shape, generator=g, device=device) for _ in range(9)]
+    fp = fused_step_bwd(w, x, t, dt, k1, cts)
+
+    def flat3(o):
+        return [o[1], o[2], *o[0]]
+
+    for label, prec, tiers in (("tf32", None, ("tf32", "tf32")),
+                               ("tf32grads", "highest", ("fp32", "tf32"))):
+        ours = fused_step_bwd(w, x, t, dt, k1, cts, precision=prec,
+                              grad_precision=None)
+        ref = fused_step_bwd_plain(w, x, t, dt, k1, cts, *tiers)
+        rel = max(rel_err(a, b) for a, b in zip(flat3(ours), flat3(ref)))
+        err = max(max_abs(a, b) for a, b in zip(flat3(ours), flat3(ref)))
+        xt = max(rel_err(a, b) for a, b in zip(flat3(ours), flat3(fp)))
+        again = fused_step_bwd(w, x, t, dt, k1, cts, precision=prec,
+                               grad_precision=None)
+        same = all(torch.equal(a, b) for a, b in zip(flat3(again),
+                                                     flat3(ours)))
+        print(f"[tf32 K3 {'/'.join(tiers)}] (recompute/gradients) relative "
+              f"max-abs vs its plain version {rel:.3e} (tolerance "
+              f"{tf32_sum_tol(25):.3e}), bitwise repeatable {same}; vs FP32 "
+              f"(across tiers) {xt:.3e}, tolerance {tf32_tol(25):.3e}")
+        check(rel <= tf32_sum_tol(25) and same,
+              f"step_bwd {label} vs plain: {rel}")
+        check(xt <= tf32_tol(25), f"step_bwd {label} vs fp32: {xt}")
+        if label == "tf32":
+            digest("K3 tf32", *ours[0], ours[1], ours[2])
+        bits = 3 if label == "tf32" else 2
+        raw = raw_launch("lrnde_tsit5_step_bwd_tiered", bits,
+                         *step_bwd_raw_args(w, x, k1, torch.stack([t, dt]),
+                                            cts))
+        check(raw() == 0, f"step_bwd {label}: raw launch failed")
+        ms, plain = back_to_back_ms(
+            [raw, lambda: fused_step_bwd_plain(w, x, t, dt, k1, cts, *tiers)],
+            n=50)
+        # six evaluations recomputed, twelve transposed (two products a
+        # stage and the weight gradients), each at its tier
+        rec = 6 * tdmlp_flops()
+        res[f"tsit5_step_bwd_{label}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain,
+            **mixed_bound(0 if prec is None else rec,
+                          12 * tdmlp_flops() + (rec if prec is None else 0),
+                          52 * B * F + 2 * wb))
+
+    # kernel 7 over kernel 4's TF32 knots at the bench tolerance
+    ct_ys = torch.randn((2, B, F), generator=g, device=device)
+    ct_y = torch.randn((B, F), generator=g, device=device)
+    dense_cap, _, stride = knot_layout(64)
+    rec = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw, record_knots=True,
+                                 knot_dense_cap=dense_cap, knot_stride=stride,
+                                 **tf)
+
+    def sweep_args(r):
+        return (w, r["knot_ts"], r["knot_us"], r["naccept"], saveat, ct_ys,
+                ct_y)
+
+    def ckpt_args(r):
+        return tuple(r[k] for k in ("ckpt_ts", "ckpt_us", "ckpt_ks",
+                                    "ckpt_dts", "ckpt_qolds"))
+
+    def flat(o):
+        return [o[0], o[1], *o[2]]
+
+    all_tf = dict(precision=None, grad_precision=None)
+    n = int(rec["naccept"])
+    dense = persistent_stored_sweep(*sweep_args(rec), **all_tf)
+    ref = persistent_stored_sweep_plain(*sweep_args(rec),
+                                        recompute_tier="tf32",
+                                        grad_tier="tf32")
+    rel = max(rel_err(a, b) for a, b in zip(flat(dense), flat(ref)))
+    err = max(max_abs(a, b) for a, b in zip(flat(dense), flat(ref)))
+    xt = max(rel_err(a, b) for a, b in zip(
+        flat(dense), flat(persistent_stored_sweep(*sweep_args(rec)))))
+    again = persistent_stored_sweep(*sweep_args(rec), **all_tf)
+    same = all(torch.equal(a, b) for a, b in zip(flat(again), flat(dense)))
+    names = ("a_u", "a_k", "d_w1", "d_b1", "d_w2", "d_b2")
+    by = {nm: f"{rel_err(a, b):.2e}" for nm, a, b in zip(names, flat(dense),
+                                                         flat(ref))}
+    print(f"[tf32 K7 bench] {n} steps: relative max-abs vs its plain version "
+          f"{rel:.3e} {by} (tolerance {tf32_sum_tol(27 * n):.3e}), bitwise "
+          f"repeatable {same}; vs the FP32 sweep (across tiers) {xt:.3e} "
+          f"(tolerance {tf32_tol(27 * n):.3e})")
+    check(rel <= tf32_sum_tol(27 * n) and same,
+          f"dense sweep tf32 vs plain: {rel}")
+    check(xt <= tf32_tol(27 * n), f"dense sweep tf32 vs fp32: {xt}")
+    ms, plain = median_ms(
+        [lambda: persistent_stored_sweep(*sweep_args(rec), **all_tf),
+         lambda: persistent_stored_sweep_plain(
+             *sweep_args(rec), recompute_tier="tf32", grad_tier="tf32")],
+        n=10, warmup=1)
+    res["persistent_stored_sweep_tf32"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        **bound(19 * n * tdmlp_flops(),
+                4 * (n + 1 + 3 + 2) * B * F + 2 * wb, PEAK_TF32))
+
+    # kernel 8 as mlp.yaml's train step runs it (FP32 forward knots, the
+    # dense branch): TF32 gradients behind an FP32 recompute
+    # (grad_precision 'match') or a TF32 one ('default')
+    kw_m = dict(rtol=1.4e-8, atol=1.4e-8, saveat_arr=saveat, max_steps=10000)
+    cap_m, _, stride_m = knot_layout(10000)
+    rec_m = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw_m,
+                                   record_knots=True, knot_dense_cap=cap_m,
+                                   knot_stride=stride_m)
+    n_m = int(rec_m["naccept"])
+    tl = dict(t_end=1.0, rtol=1.4e-8, atol=1.4e-8, max_steps=10000,
+              stride=stride_m, dense_cap=cap_m)
+    fp32 = persistent_two_level_sweep(*sweep_args(rec_m), *ckpt_args(rec_m),
+                                      **tl)
+    for label, rp, rec_tier in (("match", "highest", "fp32"),
+                                ("default", None, "tf32")):
+        tiers = dict(precision="highest", grad_precision=None,
+                     recompute_precision=rp)
+        ours = persistent_two_level_sweep(*sweep_args(rec_m),
+                                          *ckpt_args(rec_m), **tl, **tiers)
+        ref = persistent_stored_sweep_plain(*sweep_args(rec_m),
+                                            recompute_tier=rec_tier,
+                                            grad_tier="tf32")
+        rel = max(rel_err(a, b) for a, b in zip(flat(ours), flat(ref)))
+        err = max(max_abs(a, b) for a, b in zip(flat(ours), flat(ref)))
+        xt = max(rel_err(a, b) for a, b in zip(flat(ours), flat(fp32)))
+        ms, fp_ms, plain = median_ms(
+            [lambda: persistent_two_level_sweep(
+                *sweep_args(rec_m), *ckpt_args(rec_m), **tl, **tiers),
+             lambda: persistent_two_level_sweep(
+                 *sweep_args(rec_m), *ckpt_args(rec_m), **tl),
+             lambda: persistent_stored_sweep_plain(
+                 *sweep_args(rec_m), recompute_tier=rec_tier,
+                 grad_tier="tf32")], n=10, warmup=1)
+        d_rec = 14 if rec_tier == "tf32" else 0
+        x_tol = tf32_tol((13 + d_rec) * n_m)
+        print(f"[tf32 K8 mlp.yaml grad_precision={label}] {n_m} steps "
+              f"(recompute {rec_tier}, gradients tf32): relative max-abs vs "
+              f"its plain version {rel:.3e} (tolerance "
+              f"{tf32_sum_tol(27 * n_m):.3e}); the gradients vs the FP32 "
+              f"sweep (across tiers) {xt:.3e}, tolerance {x_tol:.3e}; "
+              f"device {ms:.3f} ms a launch, the FP32 sweep {fp_ms:.3f} ms")
+        check(rel <= tf32_sum_tol(27 * n_m),
+              f"kernel 8 {label} vs plain: {rel}")
+        check(xt <= x_tol, f"kernel 8 {label} vs fp32: {xt}")
+        if label == "match":
+            digest("K8 grads tf32", *flat(ours))
+            res["persistent_two_level_sweep_dense_tf32grads"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain,
+                **mixed_bound(7 * n_m * tdmlp_flops(),
+                              12 * n_m * tdmlp_flops(),
+                              4 * (n_m + 1 + 3 + 2) * B * F + 2 * wb))
+
+    # kernel 8's replay at the TF32 tier, forced (capacity 2, W = 4) over
+    # kernel 4's TF32 forward at the bench tolerance
+    w4 = persistent_tsit5_solve(w, x, (0.0, 1.0), **kw, record_knots=True,
+                                knot_dense_cap=dense_cap, knot_stride=4, **tf)
+    n4 = int(w4["naccept"])
+    check(n4 > 2, "the bench solve is too short to force the replay")
+    tl_b = dict(t_end=1.0, rtol=1e-4, atol=1e-4, max_steps=64, stride=4,
+                dense_cap=2)
+    win, replay = persistent_two_level_sweep(
+        *sweep_args(w4), *ckpt_args(w4), **tl_b, return_replay=True,
+        **all_tf)
+    m = min(n4, 4)
+    rep_ok = torch.equal(replay[:m + 1], w4["knot_us"][:m + 1])
+    digest("K8 replay tf32", replay[:m + 1], n4)
+    dense4 = persistent_stored_sweep(*sweep_args(w4), **all_tf)
+    rel = max(rel_err(a, b) for a, b in zip(flat(win), flat(dense4)))
+    same = all(torch.equal(a, b) for a, b in zip(flat(win), flat(dense4)))
+    plain_w = persistent_two_level_sweep_plain(
+        *sweep_args(w4), *ckpt_args(w4), **tl_b, tier="tf32",
+        recompute_tier="tf32", grad_tier="tf32")
+    rel_p = max(rel_err(a, b) for a, b in zip(flat(win), flat(plain_w)))
+    err = max(max_abs(a, b) for a, b in zip(flat(win), flat(plain_w)))
+    print(f"[tf32 K8 replay] {n4} accepts, replay forced (capacity 2, W = "
+          f"4): window 0 replayed from checkpoint 0 bitwise its TF32 forward "
+          f"{rep_ok}; gradients vs the dense TF32 sweep relative max-abs "
+          f"{rel:.3e}, bitwise {same}; vs the plain TF32 two-level sweep "
+          f"{rel_p:.3e}")
+    check(rep_ok, "the TF32 replay does not repeat its forward bitwise")
+    check(rel <= 1e-6, f"two-level tf32 sweep vs dense: {rel}")
+    check(rel_p <= tf32_sum_tol(27 * n4),
+          f"two-level tf32 sweep vs plain: {rel_p}")
+    ms, plain = median_ms(
+        [lambda: persistent_two_level_sweep(*sweep_args(w4), *ckpt_args(w4),
+                                            **tl_b, **all_tf),
+         lambda: persistent_two_level_sweep_plain(
+             *sweep_args(w4), *ckpt_args(w4), **tl_b, tier="tf32",
+             recompute_tier="tf32", grad_tier="tf32")], n=5, warmup=1)
+    att = (int(w4["nfe"]) - 2) // 6
+    res["persistent_two_level_sweep_tf32"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        **bound((6 * att + 19 * n4) * tdmlp_flops(),
+                4 * (2 + 3 + 2) * B * F + 2 * wb, PEAK_TF32))
+
+    # --- the bench configuration: 'auto' (TF32) and 'highest' (FP32)
+    hi = ["--model.solver.precision=highest"]
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    batches = _mnist_batches(device, N_BATCHES)
+    m_auto = _slice_model(BENCH, device)
+    m_hi = _slice_model(BENCH + hi, device, m_auto[0].state_dict())
+    for m_ in (m_auto, m_hi):
+        m_[1](m_[2], batches[0], m_[3])
+    torch.cuda.synchronize()
+    served = {}
+    for arm, (model, step, ts, w_reg) in (("auto", m_auto), ("highest", m_hi)):
+        reset_launch_counts()
+        outs = []
+        for i, data in enumerate(batches):
+            t0 = time.perf_counter()
+            loss, stats = step(ts, data, w_reg)
+            torch.cuda.synchronize()
+            outs.append((loss, stats, 1e3 * (time.perf_counter() - t0)))
+        c = tier_counts()
+        if arm == "auto":
+            add(c)
+        served[arm] = outs
+        for i, (loss, stats, ms) in enumerate(outs):
+            print(f"[tf32 serve bench {arm}] batch {i}: loss "
+                  f"{float(loss):.6f} NFE {int(stats['nfe'])} success "
+                  f"{bool(stats['solver_success'])} {ms:.3f} ms")
+            check(bool(stats["solver_success"])
+                  and bool(torch.isfinite(stats["y_pred"]).all()),
+                  f"tf32 serve {arm} batch {i}: bad output")
+        print(f"[tf32 serve bench {arm}] launches "
+              f"{ {k: v for k, v in c.items() if '[' in k} }")
+        tier = "tf32" if arm == "auto" else "fp32"
+        nb = len(batches)
+        check(c.get(f"persistent_tsit5_solve[{tier}]") == nb
+              and c.get(f"tdmlp[{tier}]") == 2 * nb
+              and c["persistent_tsit5_solve"] == nb and c["tdmlp"] == 2 * nb,
+              f"tf32 serve {arm}: launches {c}")
+    for i in range(len(batches)):
+        a, h = served["auto"][i][1], served["highest"][i][1]
+        rel = rel_err(a["y_pred"], h["y_pred"])
+        tol = tf32_tol(2 * int(h["nfe"]))
+        print(f"[tf32 serve bench] batch {i}: NFE auto {int(a['nfe'])} vs "
+              f"highest {int(h['nfe'])}; logits relative max-abs {rel:.3e} "
+              f"(across tiers, tolerance {tol:.3e})")
+        check(rel <= tol, f"tf32 serve batch {i}: logits across tiers {rel}")
+
+    tb = _mnist_batches(device, TRAIN_STEPS, train=True)
+    tr_auto = _train_setup(BENCH, device)
+    sd = tr_auto[0].state_dict()
+    params0 = {k: v.detach().clone() for k, v in tr_auto[3].params.items()}
+    tr_hi = _train_setup(BENCH + hi, device, sd)
+    grads = {}
+    for arm, (model, loss_fn, step, ts, w_reg, sched) in (
+            ("auto", tr_auto), ("highest", tr_hi)):
+        grads[arm] = _grads(model, loss_fn, params0, tb[0], w_reg(1))
+        warmup_model(step, None, ts, tb[0], w_reg(1), sched(1))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for i, data in enumerate(tb):
+            t0 = time.perf_counter()
+            ts, loss, stats = step(ts, data, w_reg(i + 1), sched(i + 1))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            print(f"[tf32 train bench {arm}] step {i}: loss {float(loss):.6f} "
+                  f"reg_val {float(stats['reg_val']):.6e} NFE "
+                  f"{int(stats['nfe'])} success "
+                  f"{bool(stats['solver_success'])} {ms:.3f} ms")
+            check(bool(torch.isfinite(loss))
+                  and bool(stats["solver_success"]),
+                  f"tf32 train {arm} step {i}: bad output")
+        c = tier_counts()
+        print(f"[tf32 train bench {arm}] launches "
+              f"{ {k: v for k, v in c.items() if '[' in k} }")
+        if arm == "auto":
+            add(c)
+            want = {"persistent_tsit5_solve[tf32]": 1, "tsit5_step[tf32]": 1,
+                    "tdmlp[tf32]": 4, "tsit5_step_bwd[tf32/tf32]": 1,
+                    "persistent_stored_sweep[tf32/tf32]": 1}
+        else:
+            # the reference's default-tier gradients behind FP32 forwards
+            want = {"persistent_tsit5_solve[fp32]": 1, "tsit5_step[fp32]": 1,
+                    "tdmlp[fp32]": 4, "tsit5_step_bwd[fp32/tf32]": 1,
+                    "persistent_stored_sweep[fp32/tf32]": 1}
+        k = len(tb)
+        check(all(c.get(n_, 0) == v * k for n_, v in want.items()),
+              f"tf32 train {arm}: launches {c}, expected {want} a step")
+    (_, s_a, g_a), (_, s_h, g_h) = grads["auto"], grads["highest"]
+    rel = max(rel_err(g_a[k_], g_h[k_]) for k_ in g_a)
+    n_h = int(s_h["nfe"])
+    tol = tf32_tol(2 * n_h + 13 * swept_steps(n_h))
+    print(f"[tf32 train bench] first step from one state: NFE auto "
+          f"{int(s_a['nfe'])} vs highest {int(s_h['nfe'])}, loss "
+          f"{float(s_a['ce_loss']):.6f} vs {float(s_h['ce_loss']):.6f}; "
+          f"gradients relative max-abs {rel:.3e} (across tiers, tolerance "
+          f"{tol:.3e})")
+    if int(s_a["nfe"]) == int(s_h["nfe"]):
+        check(rel <= tol, f"tf32 train bench: gradients across tiers {rel}")
+
+    # --- mlp.yaml's train step: FP32 forward, TF32 gradient products
+    tr = _train_setup([], device)
+    sd = tr[0].state_dict()
+    p0 = {k: v.detach().clone() for k, v in tr[3].params.items()}
+    plain = _train_setup(["--model.use_pallas=off"], device, sd)
+    _, s_p, g_p = _grads(plain[0], plain[1], p0, tb[0], 0.0)
+    g_arm = {}
+    for gp in ("match", "default"):
+        model, loss_fn, step, ts, w_reg, sched = _train_setup(
+            [f"--model.solver.grad_precision={gp}"], device, sd)
+        _, s_o, g_arm[gp] = _grads(model, loss_fn, p0, tb[0], 0.0)
+        warmup_model(step, None, ts, tb[0], w_reg(1), sched(1))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ts, loss, stats = step(ts, tb[1], w_reg(2), sched(2))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        c = tier_counts()
+        if gp == "match":
+            add(c)
+        rel = max(rel_err(g_arm[gp][k_], g_p[k_]) for k_ in g_p)
+        print(f"[tf32 train mlp.yaml grad_precision={gp}] loss "
+              f"{float(loss):.6f} NFE {int(stats['nfe'])} {ms:.3f} ms; "
+              f"cross-entropy gradients vs the FP32 plain route (across "
+              f"tiers) relative max-abs {rel:.3e}, NFE {int(s_o['nfe'])} vs "
+              f"{int(s_p['nfe'])} | launches "
+              f"{ {k: v for k, v in c.items() if '[' in k} }")
+        rec_t = "fp32" if gp == "match" else "tf32"
+        want = {"persistent_tsit5_solve[fp32]": 1, "tsit5_step[fp32]": 1,
+                "tdmlp[fp32]": 4, "tsit5_step_bwd[fp32/tf32]": 1,
+                f"persistent_two_level_sweep[fp32/{rec_t}/tf32]": 1}
+        check(all(c.get(n_, 0) == v for n_, v in want.items())
+              and bool(stats["solver_success"]),
+              f"tf32 train mlp.yaml {gp}: launches {c}, expected {want}")
+        depth = (13 + (14 if gp == "default" else 0)) * swept_steps(
+            int(s_p["nfe"]))
+        print(f"[tf32 train mlp.yaml grad_precision={gp}] tolerance across "
+              f"tiers {tf32_tol(depth):.3e}")
+        if int(s_o["nfe"]) == int(s_p["nfe"]):
+            check(rel <= tf32_tol(depth),
+                  f"tf32 train mlp.yaml {gp}: gradients across tiers {rel}")
+    rel = max(rel_err(g_arm["default"][k_], g_arm["match"][k_])
+              for k_ in g_p)
+    print(f"[tf32 train mlp.yaml] grad_precision default vs match: "
+          f"cross-entropy gradients relative max-abs {rel:.3e}")
+    for name, r in res.items():
+        print(f"[tf32 kernel {name}] device ms a launch {r['ms']:.4f}, plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})")
+    return res, counts
 
 
 # ------------------------------------------------------------ solver modes
@@ -4552,7 +5173,14 @@ def _route_pair(name, overrides, device, model, loss_fn, params0, data,
     ce_k, ce_p = float(s_k["ce_loss"]), float(s_p["ce_loss"])
     head = (f"[modes ode {name}] kernel route vs plain route: NFE {n_k} vs "
             f"{n_p}, cross-entropy {ce_k:.6f} vs {ce_p:.6f}")
-    check(abs(ce_k - ce_p) <= 1e-4 and abs(n_k - n_p) <= 0.2 * n_p,
+    ce_tol = 1e-4
+    if node_tiers(model, device)[0] == "tf32":
+        # both routes TF32 ('auto' at the bench tolerance): the tensor
+        # cores' truncated sums over the evaluations' products
+        ce_tol = max(ce_tol, tf32_sum_tol(2 * n_p) * max(1.0, abs(ce_p)))
+        tol = max(tol, tf32_sum_tol(2 * n_p + 27 * swept_steps(n_p)))
+        head += f" (both TF32; tolerances {ce_tol:.3e} and {tol:.3e})"
+    check(abs(ce_k - ce_p) <= ce_tol and abs(n_k - n_p) <= 0.2 * n_p,
           f"modes {name}: the kernel route disagrees with the plain route")
     if n_k != n_p:
         print(f"{head}; the step sequences differ (f32 noise in the error "
@@ -4638,10 +5266,17 @@ def phase_modes_ode(device):
             _, s_s, g_s = _grads(stored[0], stored[1], params0, batches[0],
                                  0.0)
             rel = max(rel_err(g_d[k], g_s[k]) for k in g_d)
+            g_tol = 1e-3
+            if node_tiers(model, device)[0] == "tf32":
+                # both TF32: the tensor cores' truncated sums
+                n_s = int(s_s["nfe"])
+                g_tol = max(g_tol, tf32_sum_tol(2 * n_s + 27 * swept_steps(
+                    n_s)))
             print(f"[modes ode direct] vs the stored adjoint on one step: NFE "
                   f"{int(s_d['nfe'])} vs {int(s_s['nfe'])}, cross-entropy "
-                  f"gradients relative max-abs {rel:.3e}")
-            check(int(s_d["nfe"]) == int(s_s["nfe"]) and rel <= 1e-3,
+                  f"gradients relative max-abs {rel:.3e} (tolerance "
+                  f"{g_tol:.3e})")
+            check(int(s_d["nfe"]) == int(s_s["nfe"]) and rel <= g_tol,
                   "modes direct: disagrees with the stored adjoint")
         del model, step, ts
         gc.collect()
@@ -4825,7 +5460,7 @@ def phase_modes(device):
     ode = phase_modes_ode(device)
     sde = phase_modes_sde(device)
     score = phase_modes_score(device)
-    counts = launch_counts()
+    counts = tier_counts()
     phase_cifar_repeat(device)
     print(json.dumps({"modes": {
         "ode_ms": {k: v["ms"] for k, v in ode.items()},
@@ -4836,7 +5471,7 @@ def phase_modes(device):
 
 PARTS = ("kernels", "backward", "sde", "chain", "latent", "conv",
          "conv_core", "score", "attribution", "orient", "solve", "ode",
-         "cifar", "sde_train", "capture", "modes")
+         "cifar", "sde_train", "capture", "modes", "tf32")
 
 
 def partial_run(device, parts, profile=False):
@@ -4848,7 +5483,7 @@ def partial_run(device, parts, profile=False):
     import torch
 
     w = x = None
-    if {"kernels", "backward", "sde", "solve", "ode"} & set(parts):
+    if {"kernels", "backward", "sde", "solve", "ode", "tf32"} & set(parts):
         w, x, _ = phase_kernels(device)
         phase_determinism(w, x)
     if "solve" in parts:
@@ -4887,6 +5522,12 @@ def partial_run(device, parts, profile=False):
         phase_capture(device)
     if "modes" in parts:
         phase_modes(device)
+    if "tf32" in parts:
+        phase_tf32(device, w, x)
+        if "capture" not in parts:
+            # the K-step call on both TD-MLP paths, bitwise its eager steps:
+            # the bench's at TF32, mlp.yaml's with TF32 gradients
+            phase_capture(device, only=("mlp.yaml", "bench"))
     print(json.dumps({"digests": SEEN_DIGESTS}))
     print(f"chip_smoke: partial run of {parts}, every check passed")
     return 0
@@ -4916,6 +5557,9 @@ def main():
     path_counts = [phase_slice(device, profile=profile)]
     res.update(phase_backward_kernels(device, w, x))
     path_counts.append(phase_train(device, profile=profile))
+    tf32_res, tf32_counts = phase_tf32(device, w, x)
+    res.update(tf32_res)
+    path_counts.append(tf32_counts)
     res.update(phase_sde_kernels(device, w, x))
     path_counts.append(phase_sde_serving(device))
     path_counts.append(phase_sde_train(device, profile=profile))
@@ -4940,8 +5584,10 @@ def main():
               f"{r['plain_ms']:.4f} ms | one wrapper call "
               f"{r.pop('call_ms'):.4f} ms | bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
-    # each path's launches were counted from zero just before it ran
-    counts = {k: sum(c[k] for c in path_counts) for k in path_counts[0]}
+    # each path's launches were counted from zero just before it ran; the
+    # TD-MLP wrappers' also by tier (name[tier])
+    counts = {k: sum(c.get(k, 0) for c in path_counts)
+              for k in set().union(*path_counts)}
     check(all(v > 0 for v in counts.values()),
           f"a kernel was never launched on the main paths: {counts}")
     check(set(DIGESTS) <= set(SEEN_DIGESTS),
@@ -4999,13 +5645,40 @@ def main():
             "localregneuralde_tpu_torch/csrc/conv_orient.cu",
             "scripts/conv_orient_probe.py:120"),
     }
-    # kernel 8's dense branch is the same launch as kernel 8, timed on the
-    # knots the mlp.yaml train step sweeps
-    counts["persistent_two_level_sweep_dense"] = counts[
-        "persistent_two_level_sweep"]
+    # the TD-MLP family's kernels at each tier: the FP32 instantiations and
+    # the TF32 ones (kernels 3, 7 and 8 by recompute/gradient tiers, and
+    # kernel 8's replay); each row's launches are its tier's on the paths
+    tier_rows = {
+        "tdmlp": ("tdmlp", "fp32"), "tdmlp_tf32": ("tdmlp", "tf32"),
+        "tsit5_step": ("tsit5_step", "fp32"),
+        "tsit5_step_tf32": ("tsit5_step", "tf32"),
+        "persistent_tsit5_solve": ("persistent_tsit5_solve", "fp32"),
+        "persistent_tsit5_solve_tf32": ("persistent_tsit5_solve", "tf32"),
+        "tsit5_step_bwd": ("tsit5_step_bwd", "fp32/fp32"),
+        "tsit5_step_bwd_tf32grads": ("tsit5_step_bwd", "fp32/tf32"),
+        "tsit5_step_bwd_tf32": ("tsit5_step_bwd", "tf32/tf32"),
+        "persistent_stored_sweep": ("persistent_stored_sweep", "fp32/fp32"),
+        "persistent_stored_sweep_tf32": ("persistent_stored_sweep",
+                                         "tf32/tf32"),
+        "persistent_two_level_sweep": ("persistent_two_level_sweep",
+                                       "fp32/fp32/fp32"),
+        # kernel 8's dense branch, timed on the knots the mlp.yaml train
+        # step sweeps
+        "persistent_two_level_sweep_dense": ("persistent_two_level_sweep",
+                                             "fp32/fp32/fp32"),
+        "persistent_two_level_sweep_dense_tf32grads": (
+            "persistent_two_level_sweep", "fp32/fp32/tf32"),
+        "persistent_two_level_sweep_tf32": ("persistent_two_level_sweep",
+                                            "tf32/tf32/tf32"),
+    }
+    for name, (wrapper, tier) in tier_rows.items():
+        if name not in sources:
+            sources[name] = sources[wrapper]
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=counts[name], **res[name])
+             launches=(counts.get("{}[{}]".format(*tier_rows[name]), 0)
+                       if name in tier_rows else counts[name]),
+             **res[name])
         for name, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

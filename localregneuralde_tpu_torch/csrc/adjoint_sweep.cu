@@ -33,6 +33,20 @@
 // cudaOccupancyMaxActiveClusters clusters (the clusters then loop over the
 // row blocks), in both modes; a launch the card refuses raises.
 //
+// Tiers (lrnde_adjoint_sweep_tiered; sweep_cluster.cuh's kTier bits): the
+// stage recompute, the cotangent and weight-gradient products, and the
+// window replay each at FP32 or TF32, as the reference routes its
+// recompute_precision, grad_precision and precision. The TF32 replay must
+// repeat kernel 4's TF32 forward bitwise, whose products group each CTA's
+// k ≡ c (mod 8) features (solve_cluster.cuh); TDMLPSweep's attempt sums in
+// the first port's order and cannot. So it runs kernel 4's own attempt
+// inside this kernel (replay_tf32 below): kernel 4's layout with its tiles
+// over this CTA's work region and the weights read from global memory in
+// kernel 4's order (kShared false), on the sweep's clusters, one launch, no
+// host read. (The other way, a kernel-4 launch a window from the wrapper,
+// would need the window count, naccept, on the host, which a captured step
+// cannot read.)
+//
 // What bounds it on an H100: per step, 38 FP32 products of 36 × ~100 ×
 // ~100 per CTA (the seven evaluations, the six stages' dh and dx, and the
 // two weight-gradient updates) and 13 cluster reductions; ~420 µs a step on
@@ -41,8 +55,7 @@
 // per-CTA gradient partial every step) and a bound of ~46 µs (PERF.md
 // §6). The replay runs the forward's attempt at 512 threads a CTA, half
 // the forward's, on 64 of the 120 CTAs: ~2x the forward's time.
-#include "solve.cuh"
-#include "sweep_cluster.cuh"
+#include "solve_cluster.cuh"
 
 namespace lrnde {
 
@@ -142,7 +155,7 @@ struct SweepSeed {
 // Transpose accepted steps n_hi-1 .. 0 whose start times are ts[j] and start
 // states us + j·BF, for this cluster's row blocks and this CTA's slice,
 // adding the weight gradient into gs.
-template <bool kTime, bool kShared>
+template <bool kTime, bool kShared, int kTiers>
 __device__ void sweep_range(const SweepArgs& a, const SweepSmem& s,
                             const GradSink<kShared>& gs, StepWeights& sw,
                             int n_hi, const float* ts, const float* us,
@@ -178,8 +191,9 @@ __device__ void sweep_range(const SweepArgs& a, const SweepSmem& s,
       const size_t off = static_cast<size_t>(row0) * F + sl.f0;
       const SweepSeed seed{sw, n_save, BF, a.ct_ys + off, a.a_u + off,
                            a.a_k + off};
-      transpose_rows(a.w, s, sl, gs, rank, B, row0, nrows, sw.t, sw.dt,
-                     us + j * BF + off, nullptr, a.scratch, seed, clk);
+      transpose_rows<kTime, kShared, kTiers>(
+          a.w, s, sl, gs, rank, B, row0, nrows, sw.t, sw.dt, us + j * BF + off,
+          nullptr, a.scratch, seed, clk);
     }
   }
 }
@@ -198,7 +212,138 @@ __device__ __noinline__ int replay(
                        inv_n, slots, barrier, epoch, ctl, lts, local_us);
 }
 
-template <bool kTime, bool kShared>
+// The rows of a cluster in the TF32 replay: the most, a multiple of kRows,
+// whose kernel-4 tiles (without the weight slices) fit the sweep's work
+// region; 0 where none do.
+__host__ __device__ inline int replay_cluster_rows(int F, int H) {
+  for (int R = kSolveRowsMax; R >= kRows; R -= kRows)
+    if (solve_tile_floats(F, H, R) <= sweep_work_floats(F, H)) return R;
+  return 0;
+}
+
+// Window win of a two-level sweep replayed at the TF32 tier from its
+// checkpoint with kernel 4's attempt (persistent_solve.cu: solve_stages, the
+// error pass, the grid barrier, the slot sum and the controller), until
+// n_steps are accepted or max_steps attempted; R rows a cluster
+// (replay_cluster_rows), the clusters looping over the row blocks. The error
+// norm does not depend on the grid, so the replay repeats kernel 4's TF32
+// forward bitwise. It records as replay_window does: the accepted states
+// row-major in local_us, their times in lts. Returns the steps accepted.
+__device__ __noinline__ int replay_tf32(const SweepArgs& a, int work, int win,
+                                        int n_steps, unsigned int& epoch,
+                                        ReplayCtl& ctl, float* lts) {
+  const TDMLP& w = a.w;
+  const int F = w.F, H = w.H, B = a.B, tid = threadIdx.x;
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int cid = blockIdx.x / kSweepCluster;
+  const int ncl = gridDim.x / kSweepCluster;
+  const int R = replay_cluster_rows(F, H);
+  SolveSmem s = carve_solve_smem(F, H, R, false);
+  s.w1 += work;
+  s.w2 += work;
+  s.b1 += work;
+  s.w1t += work;
+  s.b2 += work;
+  s.w2t += work;
+  s.xa += work;
+  s.hb += work;
+  s.inbox += work;
+  s.rt += work;
+  s.red += work;
+  const SolveSlice sl{rank, (solve_count(F, rank) + 1) / 2,
+                      solve_count(F, rank) / 2, s.odd0};
+  const int n_el = sl.ne + sl.no;
+  const size_t rs = static_cast<size_t>(kSweepCluster) * s.seg;
+  const size_t BS = static_cast<size_t>(B) * rs;
+  const size_t BF = static_cast<size_t>(B) * F;
+  const int n_rb = (B + R - 1) / R;
+  const int n_blocks = (B + kRows - 1) / kRows;
+  SolveClock<false> clk{nullptr};
+  // kernel 4's state buffers in the segment layout, over the scratch
+  float* u = a.scratch + rank * s.seg;
+  float* unew = u + BS;
+  float* k[7];
+  for (int j = 0; j < 7; ++j) k[j] = u + (2 + j) * BS;
+  auto each = [&](auto fn) {
+    for (int rb = cid; rb < n_rb; rb += ncl) {
+      const int row0 = rb * R, nrows = min(R, B - row0);
+      for (int i = tid; i < nrows * n_el; i += kSolveThreads) {
+        const int r = row0 + i / n_el, l = solve_local(sl, i % n_el);
+        fn(static_cast<size_t>(r) * F + slice_feature(sl, l), r * rs + l);
+      }
+    }
+  };
+  load_solve_weights<false, true>(w, s, sl);
+  const float* const cu = a.ckpt_us + win * BF;
+  const float* const ck = a.ckpt_ks + win * BF;
+  each([&](size_t on, size_t o) {
+    u[o] = cu[on];
+    k[0][o] = ck[on];
+    a.local_us[on] = cu[on];
+  });
+  if (tid == 0) {
+    ctl.t = a.ckpt_ts[win];
+    ctl.dt = a.ckpt_dts[win];
+    ctl.qold = a.ckpt_qolds[win];
+    ctl.i = ctl.att = 0;
+    lts[0] = ctl.t;
+  }
+  // every CTA of the cluster runs before any remote store
+  cg::this_cluster().sync();
+  while (ctl.i < n_steps && ctl.att < a.max_steps) {
+    if (tid == 0) ctl.plan = plan_attempt(ctl.t, ctl.dt, a.t_end);
+    __syncthreads();
+    const float t = ctl.t, dt = ctl.plan.dt_c;
+    float* const slots = a.slots + (epoch & 1u) * n_blocks;
+    for (int rb = cid; rb < n_rb; rb += ncl) {
+      const int row0 = rb * R, nrows = min(R, B - row0);
+      const size_t off = row0 * rs;
+      float* kr[7];
+      for (int j = 0; j < 7; ++j) kr[j] = k[j] + off;
+      solve_stages<false, true>(w, s, sl, rank, nrows, t, dt, kr, u + off,
+                                nullptr, unew + off, rs, clk);
+      solve_push_residuals(s, sl, rank, nrows, dt, kr, u + off, unew + off,
+                           rs, a.atol, a.rtol);
+      cg::this_cluster().sync();
+      solve_block_error(s, rank, nrows, F, row0, slots);
+    }
+    ++epoch;
+    grid_barrier(a.barrier, epoch * gridDim.x);
+    const float err_sq = ordered_slot_sum<kSolveThreads>(slots, n_blocks);
+    if (tid == 0) {
+      const float eest = sqrtf(err_sq * a.inv_n);
+      float dt_acc, dt_rej, qold_acc;
+      propose(eest, dt, ctl.qold, &dt_acc, &dt_rej, &qold_acc);
+      ctl.accept = eest <= 1.f;
+      if (ctl.accept) {
+        ctl.t = ctl.plan.t_new;
+        ctl.dt = dt_acc;
+        ctl.qold = qold_acc;
+        ++ctl.i;
+        lts[ctl.i] = ctl.t;
+      } else {
+        ctl.dt = dt_rej;
+      }
+      ++ctl.att;
+    }
+    __syncthreads();
+    if (ctl.accept) {
+      // commit: u <- u_new, k1 <- k7, by swapping the buffers
+      float* const swap_u = u;
+      u = unew;
+      unew = swap_u;
+      float* const swap_k = k[0];
+      k[0] = k[6];
+      k[6] = swap_k;
+      float* const dst = a.local_us + ctl.i * BF;
+      each([&](size_t on, size_t o) { dst[on] = u[o]; });
+    }
+    __syncthreads();
+  }
+  return ctl.i;
+}
+
+template <bool kTime, bool kShared, int kTiers>
 __global__ void __launch_bounds__(kSweepThreads)
 adjoint_sweep_kernel(SweepArgs a) {
   __shared__ StepWeights sw;
@@ -232,7 +377,8 @@ adjoint_sweep_kernel(SweepArgs a) {
   cg::this_cluster().sync();
 
   if (!a.two_level || n <= a.dense_cap) {
-    sweep_range(a, s, gs, sw, n, a.knot_ts, a.knot_us, clk);
+    sweep_range<kTime, kShared, kTiers>(a, s, gs, sw, n, a.knot_ts, a.knot_us,
+                                        clk);
   } else {
     // ---- windowed replay from the checkpoints, last window first
     const int W = a.stride;
@@ -246,12 +392,16 @@ adjoint_sweep_kernel(SweepArgs a) {
       // every CTA is done with the last window's local_us and scratch
       ++epoch;
       grid_barrier(a.barrier, epoch * gridDim.x);
-      const TDMLPSweep wr{a.w.w1, a.w.b1, a.w.w2, a.w.b2, F, H};
-      const int got = replay(wr, rs, bufs, a.ckpt_ts, a.ckpt_us, a.ckpt_ks,
-                             a.ckpt_dts, a.ckpt_qolds, w, n_steps,
-                             a.max_steps, a.t_end, a.atol, a.rtol, a.inv_n,
-                             a.slots, a.barrier, epoch, ctl, lts,
-                             a.local_us);
+      int got;
+      if constexpr ((kTiers & kTierReplay) != 0) {
+        got = replay_tf32(a, s.work, w, n_steps, epoch, ctl, lts);
+      } else {
+        const TDMLPSweep wr{a.w.w1, a.w.b1, a.w.w2, a.w.b2, F, H};
+        got = replay(wr, rs, bufs, a.ckpt_ts, a.ckpt_us, a.ckpt_ks,
+                     a.ckpt_dts, a.ckpt_qolds, w, n_steps, a.max_steps,
+                     a.t_end, a.atol, a.rtol, a.inv_n, a.slots, a.barrier,
+                     epoch, ctl, lts, a.local_us);
+      }
       // every replayed row is in local_us
       ++epoch;
       grid_barrier(a.barrier, epoch * gridDim.x);
@@ -259,7 +409,8 @@ adjoint_sweep_kernel(SweepArgs a) {
       __syncthreads();
       // sweep what the replay accepted: an accept flip must not sweep slots
       // it never wrote
-      sweep_range(a, s, gs, sw, min(got, n_steps), lts, a.local_us, clk);
+      sweep_range<kTime, kShared, kTiers>(a, s, gs, sw, min(got, n_steps),
+                                          lts, a.local_us, clk);
     }
   }
   if constexpr (kShared) {
@@ -309,20 +460,19 @@ inline cudaError_t sweep_config(Kernel kernel, int B, size_t smem,
 // Launch the sweep kernel for SweepArgs a (or, with a null, only find the
 // cluster count) with the gradient slices in shared memory or not, as
 // sweep_grads_shared says for (F, H). *clusters returns the count.
-template <bool kTime, bool kShared>
+template <bool kTime, bool kShared, int kTiers = 0>
 static cudaError_t launch_sweep(const SweepArgs* a, int B, int F, int H,
                                 cudaStream_t stream, int* clusters) {
+  const auto kernel = adjoint_sweep_kernel<kTime, kShared, kTiers>;
   const size_t smem = sweep_smem_floats(F, H) * sizeof(float);
   static size_t granted = 0;
-  cudaError_t err =
-      allow_smem(adjoint_sweep_kernel<kTime, kShared>, smem, &granted);
+  cudaError_t err = allow_smem(kernel, smem, &granted);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  err = sweep_config(adjoint_sweep_kernel<kTime, kShared>, B, smem, stream,
-                     &attr, &cfg, clusters);
+  err = sweep_config(kernel, B, smem, stream, &attr, &cfg, clusters);
   if (err != cudaSuccess || a == nullptr) return err;
-  err = cudaLaunchKernelEx(&cfg, adjoint_sweep_kernel<kTime, kShared>, *a);
+  err = cudaLaunchKernelEx(&cfg, kernel, *a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -332,7 +482,7 @@ static cudaError_t launch_sweep(const SweepArgs* a, int B, int F, int H,
 // replayed from the checkpoints. Writes a_u, a_k and the flat weight
 // gradient d_w; part holds one partial per cluster (at most ceil(B /
 // kSweepRows)). Returns cudaGetLastError().
-template <bool kTime>
+template <bool kTime, int kTiers = 0>
 static int adjoint_sweep(
     int two_level, const float* w1, const float* b1, const float* w2,
     const float* b2, const float* knot_ts, const float* knot_us,
@@ -353,10 +503,13 @@ static int adjoint_sweep(
               local_ts, local_us, B, inv_n, timing};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int clusters = 0;
+  if ((kTiers & kTierReplay) != 0 && two_level &&
+      replay_cluster_rows(F, H) < kRows)
+    return cudaErrorInvalidValue;
   const cudaError_t err =
       sweep_grads_shared(F, H)
-          ? launch_sweep<kTime, true>(&a, B, F, H, s, &clusters)
-          : launch_sweep<kTime, false>(&a, B, F, H, s, &clusters);
+          ? launch_sweep<kTime, true, kTiers>(&a, B, F, H, s, &clusters)
+          : launch_sweep<kTime, false, kTiers>(&a, B, F, H, s, &clusters);
   if (err != cudaSuccess) return err;
   return reduce_partials(part, clusters, grad_floats(F, H), d_w, s);
 }
@@ -402,6 +555,52 @@ extern "C" int lrnde_adjoint_sweep(
       ct_ys, ct_y, ckpt_ts, ckpt_us, ckpt_ks, ckpt_dts, ckpt_qolds, t_end,
       rtol, atol, max_steps, stride, dense_cap, a_u, a_k, d_w, scratch, part,
       slots, barrier, local_ts, local_us, B, F, H, inv_n, nullptr, stream);
+}
+
+// lrnde_adjoint_sweep at the product tiers `tiers` (sweep_cluster.cuh's
+// kTier bits): 0 (all FP32), kTierGrad (the reference's default-tier
+// gradients behind an FP32 recompute and replay), kTierRecompute | kTierGrad
+// (also the recompute: grad_precision='default'), or all three (the forward
+// at TF32: its replay too); any other value, or a TF32 replay whose tiles
+// fit no 8 rows (lrnde_sweep_replay_rows = 0), fails with
+// cudaErrorInvalidValue.
+extern "C" int lrnde_adjoint_sweep_tiered(
+    int tiers, int two_level, const float* w1, const float* b1,
+    const float* w2, const float* b2, const float* knot_ts,
+    const float* knot_us, const int* naccept, const float* saveat, int n_save,
+    const float* ct_ys, const float* ct_y, const float* ckpt_ts,
+    const float* ckpt_us, const float* ckpt_ks, const float* ckpt_dts,
+    const float* ckpt_qolds, float t_end, float rtol, float atol,
+    int max_steps, int stride, int dense_cap, float* a_u, float* a_k,
+    float* d_w, float* scratch, float* part, float* slots,
+    unsigned int* barrier, float* local_ts, float* local_us, int B, int F,
+    int H, float inv_n, void* stream) {
+  using namespace lrnde;
+#define LRNDE_SWEEP(T)                                                        \
+  adjoint_sweep<false, T>(two_level, w1, b1, w2, b2, knot_ts, knot_us,        \
+                          naccept, saveat, n_save, ct_ys, ct_y, ckpt_ts,      \
+                          ckpt_us, ckpt_ks, ckpt_dts, ckpt_qolds, t_end,      \
+                          rtol, atol, max_steps, stride, dense_cap, a_u, a_k, \
+                          d_w, scratch, part, slots, barrier, local_ts,       \
+                          local_us, B, F, H, inv_n, nullptr, stream)
+  switch (tiers) {
+    case 0:
+      return LRNDE_SWEEP(0);
+    case kTierGrad:
+      return LRNDE_SWEEP(kTierGrad);
+    case kTierRecompute | kTierGrad:
+      return LRNDE_SWEEP(kTierRecompute | kTierGrad);
+    case kTierRecompute | kTierGrad | kTierReplay:
+      return LRNDE_SWEEP(kTierRecompute | kTierGrad | kTierReplay);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef LRNDE_SWEEP
+}
+
+// The rows of a cluster in the TF32 window replay at (F, H) (0: none fit).
+extern "C" int lrnde_sweep_replay_rows(int F, int H) {
+  return lrnde::replay_cluster_rows(F, H);
 }
 
 // The sweep with its transposed steps' phases timed: lrnde_adjoint_sweep's

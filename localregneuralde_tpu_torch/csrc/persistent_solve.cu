@@ -31,7 +31,10 @@
 // (chip_smoke.py's "K4" digests), and the sweeps' window replay, which
 // emulates the old kernel (sweep_cluster.cuh::TDMLPSweep), still repeats it.
 // Every product is true FP32 FFMA (at the mlp.yaml tolerance ũ is f32
-// rounding noise: no TF32).
+// rounding noise). The TF32 instantiation (kTf32, the reference's 'default'
+// precision, which 'auto' takes at rtol ≥ 1e-4; lrnde_persistent_tsit5_tf32)
+// runs the same attempt with solve_cluster.cuh's TF32 products; its error
+// norm, controller and recording are the FP32 kernel's.
 //
 // Per attempt and row block: six evaluations (two products of R × ~100 ×
 // ~100 a CTA and one cluster reduction each) and the error pass; then one
@@ -81,7 +84,7 @@ struct ClusterSolveArgs {
   unsigned long long* timing;  // kTime: (kSpPhases + 1)
 };
 
-template <bool kShared, bool kTime>
+template <bool kShared, bool kTime, bool kTf32>
 __global__ void __launch_bounds__(kSolveThreads, 1)
 cluster_solve_kernel(ClusterSolveArgs a) {
   __shared__ Ctl ctl;
@@ -94,8 +97,6 @@ cluster_solve_kernel(ClusterSolveArgs a) {
   const SolveSlice sl{rank, (solve_count(F, rank) + 1) / 2,
                       solve_count(F, rank) / 2, s.odd0};
   const int n_el = sl.ne + sl.no;
-  // groups of four segment positions a row: the even part's, then the odd
-  const int n_e4 = r4(sl.ne) / 4, n_g4 = n_e4 + r4(sl.no) / 4;
   const size_t rs = static_cast<size_t>(kSweepCluster) * s.seg;  // row stride
   const size_t BS = static_cast<size_t>(B) * rs;
   const size_t BF = static_cast<size_t>(B) * F;
@@ -121,7 +122,7 @@ cluster_solve_kernel(ClusterSolveArgs a) {
       }
     }
   };
-  load_solve_weights<kShared>(w, s, sl);
+  load_solve_weights<kShared, kTf32>(w, s, sl);
   each([&](int r, size_t o, int f) {
     const size_t on = static_cast<size_t>(r) * F + f;
     const float v = a.u0[on];
@@ -156,7 +157,6 @@ cluster_solve_kernel(ClusterSolveArgs a) {
   cg::this_cluster().sync();
 
   unsigned int epoch = 0;
-  const unsigned rt_addr = smem_addr(sweep_smem + s.rt);
   clk.start();
   while (!ctl.done && ctl.natt < a.max_steps) {
     if (tid == 0) ctl.plan = plan_attempt(ctl.t, ctl.dt, t_end);
@@ -169,38 +169,11 @@ cluster_solve_kernel(ClusterSolveArgs a) {
       float* kr[7];
       for (int j = 0; j < 7; ++j) kr[j] = k[j] + off;
       const float* const ur = u + off;
-      solve_stages<kShared>(w, s, sl, rank, nrows, t, dt, kr, ur, nullptr,
-                            unew + off, rs, clk);
-      // ũ and the scaled residuals, four segment positions a thread, pushed
-      // into the tile of the CTA that sums their 8-row block
-      const float* const unr = unew + off;
-      for (int i = tid; i < nrows * n_g4; i += kSolveThreads) {
-        const size_t o = solve_group(s, sl, i, n_e4, n_g4, rs);
-        const int r = i / n_g4, l0 = static_cast<int>(o - r * rs);
-        float4 kv[7];
-#pragma unroll
-        for (int j = 0; j < 7; ++j)
-          kv[j] = *reinterpret_cast<const float4*>(kr[j] + o);
-        const float4 uv = *reinterpret_cast<const float4*>(ur + o);
-        const float4 nv = *reinterpret_cast<const float4*>(unr + o);
-        float res4[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float acc = BT1 * comp(kv[0], c);
-          acc = acc + BT2 * comp(kv[1], c);
-          acc = acc + BT3 * comp(kv[2], c);
-          acc = acc + BT4 * comp(kv[3], c);
-          acc = acc + BT5 * comp(kv[4], c);
-          acc = acc + BT6 * comp(kv[5], c);
-          acc = acc + BT7 * comp(kv[6], c);
-          const float ut = dt * acc;
-          res4[c] = ut / (a.atol + fmaxf(fabsf(comp(uv, c)),
-                                         fabsf(comp(nv, c))) * a.rtol);
-        }
-        st_cluster4(rt_addr + 4u * (((r % kRows) * kSweepCluster + rank) *
-                                        s.seg + l0),
-                    r / kRows, make_float4(res4[0], res4[1], res4[2], res4[3]));
-      }
+      solve_stages<kShared, kTf32>(w, s, sl, rank, nrows, t, dt, kr, ur,
+                                   nullptr, unew + off, rs, clk);
+      // ũ and the scaled residuals into the tiles that sum their blocks
+      solve_push_residuals(s, sl, rank, nrows, dt, kr, ur, unew + off, rs,
+                           a.atol, a.rtol);
       // the speculative dense output of the saveat times this attempt
       // would cross (the accepted attempt that crosses one writes last)
       for (int q = 0; q < a.n_save; ++q) {
@@ -222,39 +195,7 @@ cluster_solve_kernel(ClusterSolveArgs a) {
       clk.mark(kSpError);
       cg::this_cluster().sync();
       clk.mark(kSpErrorWait);
-      // this CTA's 8-row block: the old kernel's 1,024 strided fmaf chains,
-      // two a thread (threads t and t + 512), then block_sum<1024>'s tree
-      const int n8 = (nrows + kRows - 1) / kRows;
-      if (rank < n8) {
-        const int n = min(kRows, nrows - rank * kRows) * F;
-        float* const sm = sweep_smem;
-        float err[2] = {0.f, 0.f};
-#pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          for (int i = tid + v * kSolveThreads; i < n; i += kThreads) {
-            // element i of the block, row-major: row r, feature f = 8m + c
-            const int r = i / F, f = i - r * F, m = f >> 3;
-            const float x = sm[s.rt + (r * kSweepCluster + (f & 7)) * s.seg +
-                               ((m & 1) ? s.odd0 : 0) + (m >> 1)];
-            err[v] = fmaf(x, x, err[v]);
-          }
-        }
-        // the tree's first level in registers, its last five in warp 0
-        float* const red = sm + s.red;
-        red[tid] = __fadd_rn(err[0], err[1]);
-        __syncthreads();
-        for (int st = kSolveThreads / 2; st >= 32; st >>= 1) {
-          if (tid < st) red[tid] = __fadd_rn(red[tid], red[tid + st]);
-          __syncthreads();
-        }
-        if (tid < 32) {
-          float v = red[tid];
-#pragma unroll
-          for (int st = 16; st > 0; st >>= 1)
-            v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, st));
-          if (tid == 0) __stcg(slots + row0 / kRows + rank, v);
-        }
-      }
+      solve_block_error(s, rank, nrows, F, row0, slots);
       clk.mark(kSpErrorSum);
     }
     ++epoch;
@@ -344,11 +285,11 @@ cluster_solve_kernel(ClusterSolveArgs a) {
 }
 
 // Launch (or, with a null, only size) the cluster solve at (B, F, H).
-template <bool kShared, bool kTime>
+template <bool kShared, bool kTime, bool kTf32>
 static cudaError_t launch_cluster_solve(const ClusterSolveArgs* a, int B,
                                         int F, int H, int R,
                                         cudaStream_t stream, int* clusters) {
-  auto kernel = cluster_solve_kernel<kShared, kTime>;
+  auto kernel = cluster_solve_kernel<kShared, kTime, kTf32>;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
   cudaError_t err =
@@ -361,19 +302,19 @@ static cudaError_t launch_cluster_solve(const ClusterSolveArgs* a, int B,
   return cudaGetLastError();
 }
 
-template <bool kTime>
+template <bool kTime, bool kTf32 = false>
 static cudaError_t cluster_solve(const ClusterSolveArgs* a, int B, int F,
                                  int H, cudaStream_t stream, int* clusters) {
   int R = 0;
   bool shared = false;
   if (!solve_plan(F, H, &R, &shared)) return cudaErrorInvalidValue;
-  return shared ? launch_cluster_solve<true, kTime>(a, B, F, H, R, stream,
-                                                    clusters)
-                : launch_cluster_solve<false, kTime>(a, B, F, H, R, stream,
-                                                     clusters);
+  return shared ? launch_cluster_solve<true, kTime, kTf32>(a, B, F, H, R,
+                                                           stream, clusters)
+                : launch_cluster_solve<false, kTime, kTf32>(a, B, F, H, R,
+                                                            stream, clusters);
 }
 
-template <bool kTime>
+template <bool kTime, bool kTf32 = false>
 static int persistent_tsit5(
     const float* u0, const float* k10, const float* sc, const float* saveat,
     int n_save, const float* w1, const float* b1, const float* w2,
@@ -396,8 +337,9 @@ static int persistent_tsit5(
       inv_n, knot_ts, knot_us, n_dense, ckpt_ts, ckpt_us, ckpt_ks, ckpt_dts,
       ckpt_qolds, n_ckpt, stride, rand, res_u, timing};
   int clusters = 0;
-  return cluster_solve<kTime>(&a, B, F, H, static_cast<cudaStream_t>(stream),
-                              &clusters);
+  return cluster_solve<kTime, kTf32>(&a, B, F, H,
+                                     static_cast<cudaStream_t>(stream),
+                                     &clusters);
 }
 
 static __global__ void __launch_bounds__(128)
@@ -428,6 +370,24 @@ extern "C" int lrnde_persistent_tsit5(
     float* ckpt_ks, float* ckpt_dts, float* ckpt_qolds, int n_ckpt,
     int stride, const float* rand, float* res_u, void* stream) {
   return lrnde::persistent_tsit5<false>(
+      u0, k10, sc, saveat, n_save, w1, b1, w2, b2, u, ys, stats_i, stats_f,
+      scratch, slots, barrier, B, F, H, max_steps, rtol, atol, inv_n, knot_ts,
+      knot_us, n_dense, ckpt_ts, ckpt_us, ckpt_ks, ckpt_dts, ckpt_qolds,
+      n_ckpt, stride, rand, res_u, nullptr, stream);
+}
+
+// lrnde_persistent_tsit5 at the TF32 tier: its products on the tensor cores
+// (solve_cluster.cuh), the rest as the FP32 kernel's.
+extern "C" int lrnde_persistent_tsit5_tf32(
+    const float* u0, const float* k10, const float* sc, const float* saveat,
+    int n_save, const float* w1, const float* b1, const float* w2,
+    const float* b2, float* u, float* ys, int* stats_i, float* stats_f,
+    float* scratch, float* slots, unsigned int* barrier, int B, int F, int H,
+    int max_steps, float rtol, float atol, float inv_n, float* knot_ts,
+    float* knot_us, int n_dense, float* ckpt_ts, float* ckpt_us,
+    float* ckpt_ks, float* ckpt_dts, float* ckpt_qolds, int n_ckpt,
+    int stride, const float* rand, float* res_u, void* stream) {
+  return lrnde::persistent_tsit5<false, true>(
       u0, k10, sc, saveat, n_save, w1, b1, w2, b2, u, ys, stats_i, stats_f,
       scratch, slots, barrier, B, F, H, max_steps, rtol, atol, inv_n, knot_ts,
       knot_us, n_dense, ckpt_ts, ckpt_us, ckpt_ks, ckpt_dts, ckpt_qolds,

@@ -35,8 +35,17 @@
 // Each output is one thread's sum in that order, whichever rows a cluster
 // holds, so the row count of a cluster does not change a bit. Every
 // product is true FP32 FFMA (at the mlp.yaml tolerance ũ is f32 rounding
-// noise: no TF32). A TD-MLP whose weight slices do not fit beside the work
-// tiles reads them from global memory in the same order (kShared false).
+// noise). A TD-MLP whose weight slices do not fit beside the work tiles
+// reads them from global memory in the same order (kShared false).
+//
+// The TF32 tier (kTf32; the reference's 'default' precision, which 'auto'
+// takes at rtol ≥ 1e-4, sweep_cluster.cuh): the same layout, reductions and
+// epilogues, the two products on the tensor cores (slice_gemm_tf32). The
+// weight slices are rounded to TF32 once as they are loaded (from global
+// memory, as they are read), the stage inputs and hidden rows as fragments
+// are built. Each output is one chain of mma.sync over k = 0, 8, 16, ... of
+// its partial (a new order on purpose, the same whichever rows a cluster
+// holds), so kernels 1, 2 and 4 and kernel 8's TF32 replay agree bitwise.
 #pragma once
 
 #include "solve.cuh"
@@ -224,9 +233,16 @@ __device__ inline size_t solve_group(const SolveSmem& s, const SolveSlice& sl,
   return r * rs + (g < n_e4 ? 4 * g : s.odd0 + 4 * (g - n_e4));
 }
 
+// A weight as its slice keeps it: rounded to TF32 at that tier.
+template <bool kTf32>
+__device__ __forceinline__ float slice_weight(float v) {
+  if constexpr (kTf32) return to_tf32(v);
+  return v;
+}
+
 // Load the weight slices (kShared) and the vectors, each CTA its own
 // (kernel 4, once a solve).
-template <bool kShared>
+template <bool kShared, bool kTf32 = false>
 __device__ inline void load_solve_weights(const TDMLP& w, const SolveSmem& s,
                                           const SolveSlice& sl) {
   const int F = w.F, H = w.H, n = sl.ne + sl.no;
@@ -234,13 +250,13 @@ __device__ inline void load_solve_weights(const TDMLP& w, const SolveSmem& s,
   if constexpr (kShared) {
     for (int i = threadIdx.x; i < n * H; i += kSolveThreads) {
       const int l = solve_local(sl, i / H), h = i % H;
-      sm[s.w1 + l * s.ldW + h] =
-          w.w1[static_cast<size_t>(slice_feature(sl, l)) * H + h];
+      sm[s.w1 + l * s.ldW + h] = slice_weight<kTf32>(
+          w.w1[static_cast<size_t>(slice_feature(sl, l)) * H + h]);
     }
     for (int i = threadIdx.x; i < H * n; i += kSolveThreads) {
       const int h = i / n, l = solve_local(sl, i % n);
-      sm[s.w2 + h * s.ldX + l] =
-          w.w2[static_cast<size_t>(h) * F + slice_feature(sl, l)];
+      sm[s.w2 + h * s.ldX + l] = slice_weight<kTf32>(
+          w.w2[static_cast<size_t>(h) * F + slice_feature(sl, l)]);
     }
   }
   for (int h = threadIdx.x; h < H; h += kSolveThreads) {
@@ -311,10 +327,16 @@ __device__ inline void copy_w1_and_vectors(const TDMLP& w, const SolveSmem& s,
 // B(k, n0 .. n0 + 3) of a product, from shared memory ([b + k·ld + n]) or
 // from the weights in global memory: W1's row of this CTA's feature k0 + k
 // (first product), or W2's row k at this CTA's features n0.. (second).
+// tf32(k, n) is B(k, n) as a TF32 operand (slice_gemm_tf32; n < N): the
+// slices in shared memory hold it already, the weights in global memory are
+// rounded as they are read.
 struct SharedB {
   int b, ld;
   __device__ float4 operator()(int k, int n0, int) const {
     return *reinterpret_cast<const float4*>(sweep_smem + b + k * ld + n0);
+  }
+  __device__ unsigned tf32(int k, int n) const {
+    return __float_as_uint(sweep_smem[b + k * ld + n]);
   }
 };
 
@@ -322,14 +344,20 @@ struct GlobalW1 {
   const float* w1;
   int H, c, k0;  // k0: 0 for the even features, odd0 for the odd ones
   int odd0;
-  __device__ float4 operator()(int k, int n0, int N) const {
+  __device__ const float* row(int k) const {
     const int l = k0 + k;
     const int f = l < odd0 ? 16 * l + c : 16 * (l - odd0) + 8 + c;
-    const float* row = w1 + static_cast<size_t>(f) * H;
+    return w1 + static_cast<size_t>(f) * H;
+  }
+  __device__ float4 operator()(int k, int n0, int N) const {
+    const float* const r = row(k);
     float v[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = __ldg(row + min(n0 + j, N - 1));
+    for (int j = 0; j < 4; ++j) v[j] = __ldg(r + min(n0 + j, N - 1));
     return make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __device__ unsigned tf32(int k, int n) const {
+    return tf32_bits(__ldg(row(k) + n));
   }
 };
 
@@ -337,16 +365,23 @@ struct GlobalW2 {
   const float* w2;
   SolveSlice sl;
   int F;
+  __device__ bool valid(int l) const {
+    return l < sl.ne || (l >= sl.odd0 && l < sl.odd0 + sl.no);
+  }
   __device__ float4 operator()(int k, int n0, int) const {
     const float* row = w2 + static_cast<size_t>(k) * F;
     float v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int l = n0 + j;
-      const bool ok = l < sl.ne || (l >= sl.odd0 && l < sl.odd0 + sl.no);
-      v[j] = ok ? __ldg(row + slice_feature(sl, l)) : 0.f;
+      v[j] = valid(l) ? __ldg(row + slice_feature(sl, l)) : 0.f;
     }
     return make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __device__ unsigned tf32(int k, int n) const {
+    return valid(n) ? tf32_bits(__ldg(w2 + static_cast<size_t>(k) * F +
+                                      slice_feature(sl, n)))
+                    : 0u;
   }
 };
 
@@ -436,6 +471,59 @@ __device__ inline void slice_gemm(int M, int N, int K, int a, int lda,
         }
       }
       epi(m, n, make_float4(c[0], c[1], c[2], c[3]));
+    }
+  }
+}
+
+// slice_gemm at the TF32 tier, with its operands and its epilogue: warp
+// tiles of 16 rows by 16 columns, two mma_tf32 (sweep_cluster.cuh) a k-step
+// of 8 (two independent chains sharing the A fragment), so each output is
+// one chain of mma over k = 0, 8, 16, ... (operands past K zero), whichever
+// rows a cluster holds. A is rounded to TF32 as its fragments are built, B
+// comes rounded from bl.tf32. The lanes of a pair swap half their
+// accumulators, so that each holds four consecutive columns of one row for
+// epi. Reads past an edge stay inside the tiles.
+template <typename BLoad, typename Epi>
+__device__ inline void slice_gemm_tf32(int M, int N, int K, int a, int lda,
+                                       BLoad bl, Epi epi) {
+  if (M <= 0 || N <= 0) return;
+  const float* const sm = sweep_smem;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int mt = (M + 15) / 16, nt = (N + 15) / 16;
+  for (int tile = warp; tile < mt * nt; tile += kSolveThreads / 32) {
+    const int m0 = (tile % mt) * 16, n0 = (tile / mt) * 16;
+    const int ra = a + min(m0 + g, M - 1) * lda;
+    const int rb = a + min(m0 + g + 8, M - 1) * lda;
+    const int nb[2] = {min(n0 + g, N - 1), min(n0 + 8 + g, N - 1)};
+    float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 2
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      const int ka = k0 + q, kb = ka + 4;
+      const int ca = min(ka, K - 1), cb = min(kb, K - 1);
+      const unsigned af[4] = {ka < K ? tf32_bits(sm[ra + ca]) : 0u,
+                              ka < K ? tf32_bits(sm[rb + ca]) : 0u,
+                              kb < K ? tf32_bits(sm[ra + cb]) : 0u,
+                              kb < K ? tf32_bits(sm[rb + cb]) : 0u};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned bf[2] = {ka < K ? bl.tf32(ca, nb[h]) : 0u,
+                                kb < K ? bl.tf32(cb, nb[h]) : 0u};
+        mma_tf32(d[h], af, bf);
+      }
+    }
+    // lane q even keeps row g and takes cols 2q + 2, 2q + 3 from lane q + 1;
+    // lane q odd keeps row g + 8 and takes cols 2q − 2, 2q − 1
+    const bool odd = (q & 1) != 0;
+    const int m = m0 + g + (odd ? 8 : 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? d[h][0] : d[h][2], 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? d[h][1] : d[h][3], 1);
+      const int nc = n0 + 8 * h + 2 * (q & 2);
+      if (m < M && nc < N)
+        epi(m, nc, odd ? make_float4(r0, r1, d[h][2], d[h][3])
+                       : make_float4(d[h][0], d[h][1], r0, r1));
     }
   }
 }
@@ -562,7 +650,8 @@ struct SolveClock {
 // register allocation of their own (inlined into the solve they spilled).
 // The output stays a pointer argument: the compiler then knows kernel 4's
 // is global (behind a struct its stores went generic, kernel 4 1% slower).
-template <bool kShared, typename Clock>
+// kTf32: both products at the TF32 tier.
+template <bool kShared, bool kTf32, typename Clock>
 __device__ __noinline__ void solve_eval(const TDMLP& w, const SolveSmem& s,
                                   const SolveSlice& sl, int rank, int nrows,
                                   float st, float* out, size_t rs,
@@ -580,7 +669,13 @@ __device__ __noinline__ void solve_eval(const TDMLP& w, const SolveSmem& s,
     auto epi = [=](int m, int n, float4 v) {
       push_hidden(inbox, len, q, m * H4 + n / 4, v);
     };
-    if constexpr (kShared) {
+    if constexpr (kTf32 && kShared) {
+      slice_gemm_tf32(nrows, H, K, s.xa + k0, s.ldX,
+                      SharedB{s.w1 + k0 * s.ldW, s.ldW}, epi);
+    } else if constexpr (kTf32) {
+      slice_gemm_tf32(nrows, H, K, s.xa + k0, s.ldX,
+                      GlobalW1{w.w1, H, sl.c, k0, s.odd0}, epi);
+    } else if constexpr (kShared) {
       slice_gemm<3, 1>(nrows, H, K, s.xa + k0, s.ldX,
                        SharedB{s.w1 + k0 * s.ldW, s.ldW}, epi);
     } else {
@@ -604,7 +699,11 @@ __device__ __noinline__ void solve_eval(const TDMLP& w, const SolveSmem& s,
         __fadd_rn(__fadd_rn(v.w, b.w), __fmul_rn(st, tw.w)));
     *reinterpret_cast<float4*>(out + m * rs + n) = y;
   };
-  if constexpr (kShared) {
+  if constexpr (kTf32 && kShared) {
+    slice_gemm_tf32(nrows, N, H, s.hb, s.ldW, SharedB{s.w2, s.ldX}, epi2);
+  } else if constexpr (kTf32) {
+    slice_gemm_tf32(nrows, N, H, s.hb, s.ldW, GlobalW2{w.w2, sl, w.F}, epi2);
+  } else if constexpr (kShared) {
     slice_gemm<2, 4, 1>(nrows, N, H, s.hb, s.ldW, SharedB{s.w2, s.ldX},
                         epi2);
   } else {
@@ -654,8 +753,9 @@ __device__ inline void solve_stage_input(const SolveSmem& s,
 // and u are at the block's row 0 in the segment layout (row stride rs);
 // the stage-6 input (g6) also goes to keep6 and the stage-7 input (u_new)
 // to keep7, each when not null. Kernel 4's attempt and kernel 2's step
-// run it. Returns synchronised.
-template <bool kShared, typename Clock>
+// run it (and kernel 8's replay at the TF32 tier); kTf32: the products at
+// that tier. Returns synchronised.
+template <bool kShared, bool kTf32, typename Clock>
 __device__ __forceinline__ void solve_stages(
     const TDMLP& w, const SolveSmem& s, const SolveSlice& sl, int rank,
     int nrows, float t, float dt, float* const* k, const float* u,
@@ -668,7 +768,7 @@ __device__ __forceinline__ void solve_stages(
   }
   __syncthreads();
   clk.mark(kSpStage + 0);
-  solve_eval<kShared>(w, s, sl, rank, nrows, t + C1 * dt, k[1], rs,
+  solve_eval<kShared, kTf32>(w, s, sl, rank, nrows, t + C1 * dt, k[1], rs,
                       clk, 0);
   {
     const float c[2] = {A31, A32};
@@ -676,7 +776,7 @@ __device__ __forceinline__ void solve_stages(
   }
   __syncthreads();
   clk.mark(kSpStage + 1);
-  solve_eval<kShared>(w, s, sl, rank, nrows, t + C2 * dt, k[2], rs,
+  solve_eval<kShared, kTf32>(w, s, sl, rank, nrows, t + C2 * dt, k[2], rs,
                       clk, 1);
   {
     const float c[3] = {A41, A42, A43};
@@ -684,7 +784,7 @@ __device__ __forceinline__ void solve_stages(
   }
   __syncthreads();
   clk.mark(kSpStage + 2);
-  solve_eval<kShared>(w, s, sl, rank, nrows, t + C3 * dt, k[3], rs,
+  solve_eval<kShared, kTf32>(w, s, sl, rank, nrows, t + C3 * dt, k[3], rs,
                       clk, 2);
   {
     const float c[4] = {A51, A52, A53, A54};
@@ -692,7 +792,7 @@ __device__ __forceinline__ void solve_stages(
   }
   __syncthreads();
   clk.mark(kSpStage + 3);
-  solve_eval<kShared>(w, s, sl, rank, nrows, t + C4 * dt, k[4], rs,
+  solve_eval<kShared, kTf32>(w, s, sl, rank, nrows, t + C4 * dt, k[4], rs,
                       clk, 3);
   {
     const float c[5] = {A61, A62, A63, A64, A65};
@@ -700,7 +800,7 @@ __device__ __forceinline__ void solve_stages(
   }
   __syncthreads();
   clk.mark(kSpStage + 4);
-  solve_eval<kShared>(w, s, sl, rank, nrows, t + dt, k[5], rs, clk,
+  solve_eval<kShared, kTf32>(w, s, sl, rank, nrows, t + dt, k[5], rs, clk,
                       4);
   {
     const float c[6] = {A71, A72, A73, A74, A75, A76};
@@ -708,8 +808,90 @@ __device__ __forceinline__ void solve_stages(
   }
   __syncthreads();
   clk.mark(kSpStage + 5);
-  solve_eval<kShared>(w, s, sl, rank, nrows, t + dt, k[6], rs, clk,
+  solve_eval<kShared, kTf32>(w, s, sl, rank, nrows, t + dt, k[6], rs, clk,
                       5);
+}
+
+// Kernel 4's error pass over this CTA's slice of a row block after an
+// attempt's stages (kr: k1..k7, ur: u, unr: u_new, at the block's row 0):
+// ũ and the scaled residuals, four segment positions a thread, pushed into
+// the residual tile (rt) of the CTA that sums their 8-row block (rank r / 8
+// of the cluster). Kernel 8's TF32 replay repeats it.
+__device__ __forceinline__ void solve_push_residuals(
+    const SolveSmem& s, const SolveSlice& sl, int rank, int nrows, float dt,
+    const float* const* kr, const float* ur, const float* unr, size_t rs,
+    float atol, float rtol) {
+  const unsigned rt_addr = smem_addr(sweep_smem + s.rt);
+  // groups of four segment positions a row: the even part's, then the odd
+  const int n_e4 = r4(sl.ne) / 4, n_g4 = n_e4 + r4(sl.no) / 4;
+  for (int i = threadIdx.x; i < nrows * n_g4; i += kSolveThreads) {
+    const size_t o = solve_group(s, sl, i, n_e4, n_g4, rs);
+    const int r = i / n_g4, l0 = static_cast<int>(o - r * rs);
+    float4 kv[7];
+#pragma unroll
+    for (int j = 0; j < 7; ++j)
+      kv[j] = *reinterpret_cast<const float4*>(kr[j] + o);
+    const float4 uv = *reinterpret_cast<const float4*>(ur + o);
+    const float4 nv = *reinterpret_cast<const float4*>(unr + o);
+    float res4[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float acc = BT1 * comp(kv[0], c);
+      acc = acc + BT2 * comp(kv[1], c);
+      acc = acc + BT3 * comp(kv[2], c);
+      acc = acc + BT4 * comp(kv[3], c);
+      acc = acc + BT5 * comp(kv[4], c);
+      acc = acc + BT6 * comp(kv[5], c);
+      acc = acc + BT7 * comp(kv[6], c);
+      const float ut = dt * acc;
+      res4[c] = ut / (atol + fmaxf(fabsf(comp(uv, c)),
+                                   fabsf(comp(nv, c))) * rtol);
+    }
+    st_cluster4(rt_addr + 4u * (((r % kRows) * kSweepCluster + rank) *
+                                    s.seg + l0),
+                r / kRows, make_float4(res4[0], res4[1], res4[2], res4[3]));
+  }
+}
+
+// After the cluster barrier that follows every CTA's pushes: this CTA's
+// 8-row block of the row block at row0 (when it has one, rank < the
+// blocks), summed as the first port's kernel summed it: its 1,024 strided
+// fmaf chains, two a thread (threads t and t + 512), then block_sum<1024>'s
+// tree, into the block's slot.
+__device__ __forceinline__ void solve_block_error(const SolveSmem& s,
+                                                  int rank, int nrows, int F,
+                                                  int row0, float* slots) {
+  const int tid = threadIdx.x;
+  const int n8 = (nrows + kRows - 1) / kRows;
+  if (rank >= n8) return;
+  const int n = min(kRows, nrows - rank * kRows) * F;
+  float* const sm = sweep_smem;
+  float err[2] = {0.f, 0.f};
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+    for (int i = tid + v * kSolveThreads; i < n; i += kThreads) {
+      // element i of the block, row-major: row r, feature f = 8m + c
+      const int r = i / F, f = i - r * F, m = f >> 3;
+      const float x = sm[s.rt + (r * kSweepCluster + (f & 7)) * s.seg +
+                         ((m & 1) ? s.odd0 : 0) + (m >> 1)];
+      err[v] = fmaf(x, x, err[v]);
+    }
+  }
+  // the tree's first level in registers, its last five in warp 0
+  float* const red = sm + s.red;
+  red[tid] = __fadd_rn(err[0], err[1]);
+  __syncthreads();
+  for (int st = kSolveThreads / 2; st >= 32; st >>= 1) {
+    if (tid < st) red[tid] = __fadd_rn(red[tid], red[tid + st]);
+    __syncthreads();
+  }
+  if (tid < 32) {
+    float v = red[tid];
+#pragma unroll
+    for (int st = 16; st > 0; st >>= 1)
+      v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, st));
+    if (tid == 0) __stcg(slots + row0 / kRows + rank, v);
+  }
 }
 
 // A 16-byte load from the shared memory of CTA `rank` of the cluster.
@@ -777,8 +959,10 @@ __device__ inline void store_item(float* row, const SegItem& it, int F,
 // cluster: each CTA loads a share of W2's rows as items and pushes each
 // float4 into its owner's slice. Returns after the cluster barrier that
 // precedes the first push (every CTA runs) with pushes in flight: the
-// caller's next cluster barrier completes them and shows the copies.
-template <bool kShared>
+// caller's next cluster barrier completes them and shows the copies. At the
+// TF32 tier the pushes carry W2 rounded, and each thread rounds the W1
+// entries it copied once its copies have landed.
+template <bool kShared, bool kTf32 = false>
 __device__ inline void load_eval_weights(const TDMLP& w, const SolveSmem& s,
                                          const SolveSlice& sl, int rank) {
   const int F = w.F, H = w.H;
@@ -800,6 +984,9 @@ __device__ inline void load_eval_weights(const TDMLP& w, const SolveSmem& s,
         v[b] = ok ? load_item(w.w2 + static_cast<size_t>(it[b].r) * F, it[b],
                               F)
                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (kTf32)
+          v[b] = make_float4(to_tf32(v[b].x), to_tf32(v[b].y),
+                             to_tf32(v[b].z), to_tf32(v[b].w));
       }
 #pragma unroll
       for (int b = 0; b < U; ++b)
@@ -808,6 +995,18 @@ __device__ inline void load_eval_weights(const TDMLP& w, const SolveSmem& s,
     }
   }
   copy_async_wait();
+  if constexpr (kShared && kTf32) {
+    // the W1 entries this thread copied (copy_w1_and_vectors' walk)
+    const int n = sl.ne + sl.no;
+    const int q = (H % 4 == 0 && reinterpret_cast<size_t>(w.w1) % 16 == 0)
+                      ? 4 : 1;
+    const int Hq = H / q;
+    for (int i = threadIdx.x; i < n * Hq; i += kSolveThreads) {
+      float* const p =
+          sweep_smem + s.w1 + solve_local(sl, i / Hq) * s.ldW + q * (i % Hq);
+      for (int j = 0; j < q; ++j) p[j] = to_tf32(p[j]);
+    }
+  }
 }
 
 // The launch configuration of a kernel on clusters of kSweepCluster CTAs,

@@ -31,7 +31,9 @@
 // barriers each, and no grid-wide barrier.
 //
 // Products are FP32 FFMA on 3 × 4 or 4 × 4 register tiles (tile_gemm),
-// their operands float4 reads of shared memory. The weight gradients
+// their operands float4 reads of shared memory; at the TF32 tier (the
+// reference's 'default' precision: kTierRecompute, kTierGrad below) they run
+// on the tensor cores instead (tile_gemm_tf32). The weight gradients
 // accumulate in shared memory over every step of the sweep; at the end each
 // cluster writes ONE partial (grad_floats), and reduce_partials
 // (tsit5_bwd.cuh) sums the clusters' partials in cluster order. No float
@@ -329,6 +331,112 @@ __device__ inline float comp(const float4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
+// ---- the TF32 tier
+//
+// The reference's 'default' precision (a dot at the backend's default, which
+// on this card is TF32): each operand of a product is rounded to TF32 with
+// cvt.rna.tf32.f32 (round to nearest, ties away from zero: 10 mantissa bits,
+// the low 13 cleared), the products run on the tensor cores (mma.sync
+// m16n8k8 with .tf32 operands) and accumulate in FP32. A product of two TF32
+// operands is exact in FP32, so a kernel at this tier and its plain version
+// (nn.basic.round_tf32 on both operands, then an FP32 product) differ only
+// in how their FP32 sums are ordered and rounded: the tensor cores round
+// their internal sums toward zero. Elementwise work (biases, the time
+// channel, tanh, the stage combinations, ũ, the error norm) stays FP32.
+//
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): not
+// the tensor cores but their feed, one scalar load and one cvt an operand
+// from shared memory; two chains a warp sharing the A fragment took K8's
+// TF32-gradient sweep from 13.6 to 12.6 ms, where its FFMA instantiation
+// takes 11.05 (16-byte loads into register tiles of twelve sums).
+//
+// The product tiers of a transposed step and of the sweeps, as bits of one
+// template argument: the stage recompute (k1 and the six stages), the
+// cotangent and weight-gradient products, and the two-level window replay.
+// A clear bit is FP32 FFMA, a set bit TF32.
+constexpr int kTierRecompute = 1, kTierGrad = 2, kTierReplay = 4;
+
+// x rounded to TF32 (its bit pattern, as mma.sync reads a .tf32 operand)
+__device__ __forceinline__ unsigned tf32_bits(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float to_tf32(float x) {
+  return __uint_as_float(tf32_bits(x));
+}
+
+// d += A·B for one warp: A 16 × 8 (a0: row g, col q; a1: row g + 8, col q;
+// a2: row g, col q + 4; a3: row g + 8, col q + 4), B 8 × 8 (b0: row q, col
+// g; b1: row q + 4, col g), d 16 × 8 (d0, d1: row g, cols 2q, 2q + 1; d2,
+// d3: row g + 8, the same cols), with g = lane / 4 and q = lane % 4.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(d[0]), "f"(d[1]), "f"(d[2]), "f"(d[3]));
+}
+
+// tile_gemm at the TF32 tier, with its operand layouts and its epilogue:
+// warp tiles of 16 rows by 16 columns, two mma_tf32 a k-step of 8 (two
+// independent chains sharing the A fragment), each output one chain of mma
+// over k = 0, 8, 16, ... in that order (the operands past K zero). Both
+// operands are rounded to TF32 as their fragments are built, so the FP32
+// tiers of the same launch read the same unrounded slices. Reads past an
+// edge stay inside the tiles; their outputs are not handed out.
+template <bool kAM, bool kBN, typename Epi>
+__device__ inline void tile_gemm_tf32(int M, int N, int K, int a, int lda,
+                                      int b, int ldb, Epi epi) {
+  if (M <= 0 || N <= 0) return;
+  const float* const sm = sweep_smem;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int mt = (M + 15) / 16, nt = (N + 15) / 16;
+  for (int tile = warp; tile < mt * nt; tile += kSweepThreads / 32) {
+    const int m0 = (tile % mt) * 16, n0 = (tile / mt) * 16;
+    const int ma = min(m0 + g, M - 1), mb = min(m0 + g + 8, M - 1);
+    const int nb[2] = {min(n0 + g, N - 1), min(n0 + 8 + g, N - 1)};
+    auto A = [&](int m, int k) {
+      return kAM ? sm[a + k * lda + m] : sm[a + m * lda + k];
+    };
+    auto Bk = [&](int k, int n) {
+      return kBN ? sm[b + k * ldb + n] : sm[b + n * ldb + k];
+    };
+    float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 2
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      const int ka = k0 + q, kb = ka + 4;
+      const int ca = min(ka, K - 1), cb = min(kb, K - 1);
+      const unsigned af[4] = {ka < K ? tf32_bits(A(ma, ca)) : 0u,
+                              ka < K ? tf32_bits(A(mb, ca)) : 0u,
+                              kb < K ? tf32_bits(A(ma, cb)) : 0u,
+                              kb < K ? tf32_bits(A(mb, cb)) : 0u};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned bf[2] = {ka < K ? tf32_bits(Bk(ca, nb[h])) : 0u,
+                                kb < K ? tf32_bits(Bk(cb, nb[h])) : 0u};
+        mma_tf32(d[h], af, bf);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int nc = n0 + 8 * h + 2 * q;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = m0 + g + 8 * r;
+        if (m >= M) continue;
+        if (nc < N) epi(m, nc, d[h][2 * r]);
+        if (nc + 1 < N) epi(m, nc + 1, d[h][2 * r + 1]);
+      }
+    }
+  }
+}
+
 // C(m, n) = Σ_k A(m, k)·B(k, n) for m < M, n < N, handed to epi(m, n, c),
 // with A and B in sweep_smem at offsets a and b, every leading dimension a
 // vec_ld: A(m, k) = [a + k·lda + m] (kAM, contiguous along m) or
@@ -502,18 +610,23 @@ __device__ inline void cluster_reduce(const Inbox& in, int hb, int H, int ldW,
 // input's slice in the tile xa: z (cluster sum), h = tanh(z + b1 + st·w1t)
 // into every CTA's hb (and, when hs is not null, into hs: (nrows, H), the
 // entries this CTA reduced), then k[:, S_c] = h·W2[:, S_c] + b2 + st·w2t
-// into out (row-major, stride F, already offset to the slice). The caller
-// synchronises the CTA after xa is written; this returns synchronised.
+// into out (row-major, stride F, already offset to the slice); both products
+// at the TF32 tier with kTf32. The caller synchronises the CTA after xa is
+// written; this returns synchronised.
+template <bool kTf32>
 __device__ inline void cluster_eval(const SweepSmem& s, const Inbox& in,
                                     SweepSlice sl, int H, int F, int nrows,
                                     float st, float* hs, float* out) {
   float* const sm = sweep_smem;
   const int b1 = s.b1, w1t = s.w1t, b2 = s.b2;
   const int w2t = s.w2 + H * s.ldS;
-  tile_gemm<3, false, true>(nrows, H, sl.n, s.xa, s.ldS, s.w1, s.ldW,
-                            [=](int m, int n, float v) {
-                              push_partial(in, m * H + n, v);
-                            });
+  auto push = [=](int m, int n, float v) { push_partial(in, m * H + n, v); };
+  if constexpr (kTf32) {
+    tile_gemm_tf32<false, true>(nrows, H, sl.n, s.xa, s.ldS, s.w1, s.ldW,
+                                push);
+  } else {
+    tile_gemm<3, false, true>(nrows, H, sl.n, s.xa, s.ldS, s.w1, s.ldW, push);
+  }
   cluster_reduce(in, s.hb, H, s.ldW, nrows * H, nullptr,
                  [=](int e, float z, float) {
     const int h = e % H;
@@ -521,11 +634,16 @@ __device__ inline void cluster_eval(const SweepSmem& s, const Inbox& in,
     if (hs != nullptr) hs[e] = hv;
     return hv;
   });
-  tile_gemm<3, false, true>(nrows, sl.n, H, s.hb, s.ldW, s.w2, s.ldS,
-                            [=](int m, int n, float v) {
-                              out[static_cast<size_t>(m) * F + n] =
-                                  fmaf(st, sm[w2t + n], __fadd_rn(v, sm[b2 + n]));
-                            });
+  auto store = [=](int m, int n, float v) {
+    out[static_cast<size_t>(m) * F + n] =
+        fmaf(st, sm[w2t + n], __fadd_rn(v, sm[b2 + n]));
+  };
+  if constexpr (kTf32) {
+    tile_gemm_tf32<false, true>(nrows, sl.n, H, s.hb, s.ldW, s.w2, s.ldS,
+                                store);
+  } else {
+    tile_gemm<3, false, true>(nrows, sl.n, H, s.hb, s.ldW, s.w2, s.ldS, store);
+  }
   __syncthreads();
 }
 
@@ -722,8 +840,9 @@ __device__ inline void finish_pass(const Seed& seed,
 // seed's cotangents (see above), with its weight gradient added into gs.
 // u, k1 and the seed are offset to the CTA's corner (row0, f0) of a (B, F)
 // array; k1 null recomputes k1 from u (the sweep's knots), otherwise it is
-// copied into the scratch (sweep_scratch_floats).
-template <bool kTime, bool kShared, typename Seed>
+// copied into the scratch (sweep_scratch_floats). kTiers: the recompute's
+// and the reverse's product tiers (kTierRecompute, kTierGrad).
+template <bool kTime, bool kShared, int kTiers, typename Seed>
 __device__ void transpose_rows(const TDMLP& w, const SweepSmem& s,
                                SweepSlice sl, const GradSink<kShared>& gs,
                                int rank, int B, int row0, int nrows, float t,
@@ -738,6 +857,8 @@ __device__ void transpose_rows(const TDMLP& w, const SweepSmem& s,
   const size_t BF = static_cast<size_t>(B) * F;
   const size_t BH = static_cast<size_t>(B) * H;
   // this CTA's corner (row0, f0) of a (B, F) array
+  constexpr bool kRec = (kTiers & kTierRecompute) != 0;
+  constexpr bool kGrad = (kTiers & kTierGrad) != 0;
   const size_t off = static_cast<size_t>(row0) * F + sl.f0;
   float* const ks = scratch + off;             // k1..k7: 7 (B, F)
   float* const dks = scratch + 7 * BF + off;   // cotangents on k1..k7
@@ -748,7 +869,7 @@ __device__ void transpose_rows(const TDMLP& w, const SweepSmem& s,
     // k1 of the step, recomputed from its knot
     load_tile(u, xa, ldS, nrows, Sn, F);
     __syncthreads();
-    cluster_eval(s, in, sl, H, F, nrows, t, nullptr, ks);
+    cluster_eval<kRec>(s, in, sl, H, F, nrows, t, nullptr, ks);
   } else {
     copy_slice(k1, ks, nrows, Sn, F);
     __syncthreads();
@@ -758,8 +879,8 @@ __device__ void transpose_rows(const TDMLP& w, const SweepSmem& s,
   for (int i = 0; i < 6; ++i) {
     stage_input_pass(i, dt, u, ks, BF, xs + i * BF, xa, ldS, nrows, Sn, F);
     __syncthreads();
-    cluster_eval(s, in, sl, H, F, nrows, stage_time(i, t, dt), hs + i * BH,
-                 ks + (i + 1) * BF);
+    cluster_eval<kRec>(s, in, sl, H, F, nrows, stage_time(i, t, dt),
+                       hs + i * BH, ks + (i + 1) * BF);
     clk.stage(i);
   }
   // (the seeds of the stage cotangents enter at stage 6 below)
@@ -774,9 +895,12 @@ __device__ void transpose_rows(const TDMLP& w, const SweepSmem& s,
       load_tile(dks + (i + 1) * BF, ka, ldS, nrows, Sn, F);
     }
     __syncthreads();
-    tile_gemm<3, false, false>(
-        nrows, H, Sn, ka, ldS, s.w2, ldS,
-        [=](int m, int n, float v) { push_partial(in, m * H + n, v); });
+    auto push = [=](int m, int n, float v) { push_partial(in, m * H + n, v); };
+    if constexpr (kGrad) {
+      tile_gemm_tf32<false, false>(nrows, H, Sn, ka, ldS, s.w2, ldS, push);
+    } else {
+      tile_gemm<3, false, false>(nrows, H, Sn, ka, ldS, s.w2, ldS, push);
+    }
     clk.rev(i, 0);
     // dz = dh·(1 − h²), from the h_i this CTA reduced in the recompute
     const float* const hsi = hs + i * BH;
@@ -786,9 +910,12 @@ __device__ void transpose_rows(const TDMLP& w, const SweepSmem& s,
                    });
     clk.rev(i, 1);
     // dx = dz·W1ᵀ on the slice, into xa; then its flow to u and k
-    tile_gemm<3, false, false>(
-        nrows, Sn, H, hb, ldW, s.w1, ldW,
-        [=](int m, int n, float v) { sm[xa + m * ldS + n] = v; });
+    auto put_dx = [=](int m, int n, float v) { sm[xa + m * ldS + n] = v; };
+    if constexpr (kGrad) {
+      tile_gemm_tf32<false, false>(nrows, Sn, H, hb, ldW, s.w1, ldW, put_dx);
+    } else {
+      tile_gemm<3, false, false>(nrows, Sn, H, hb, ldW, s.w1, ldW, put_dx);
+    }
     __syncthreads();
     dx_pass(i, dt, xa, ldS, seed, du, dks, BF, nrows, Sn, F);
     __syncthreads();
@@ -799,9 +926,12 @@ __device__ void transpose_rows(const TDMLP& w, const SweepSmem& s,
     __syncthreads();
     clk.rev(i, 2);
     // dW1[S_c, :] += x_iᵀ·dz_i; rank 0: db1 and dw1t
-    tile_gemm<4, true, true>(
-        Sn, H, nrows, xa, ldS, hb, ldW,
-        [=](int m, int n, float v) { gs.w1(m, n, v); });
+    auto add_w1 = [=](int m, int n, float v) { gs.w1(m, n, v); };
+    if constexpr (kGrad) {
+      tile_gemm_tf32<true, true>(Sn, H, nrows, xa, ldS, hb, ldW, add_w1);
+    } else {
+      tile_gemm<4, true, true>(Sn, H, nrows, xa, ldS, hb, ldW, add_w1);
+    }
     if (rank == 0) {
       for (int h = tid; h < H; h += kSweepThreads) {
         float sum = 0.f;
@@ -811,9 +941,12 @@ __device__ void transpose_rows(const TDMLP& w, const SweepSmem& s,
     }
     clk.grad(0);
     // dW2[:, S_c] += h_iᵀ·dk_i, with its time row and db2
-    tile_gemm<4, true, true>(
-        H, Sn, nrows, zp, ldW, ka, ldS,
-        [=](int m, int n, float v) { gs.w2(m, n, v); });
+    auto add_w2 = [=](int m, int n, float v) { gs.w2(m, n, v); };
+    if constexpr (kGrad) {
+      tile_gemm_tf32<true, true>(H, Sn, nrows, zp, ldW, ka, ldS, add_w2);
+    } else {
+      tile_gemm<4, true, true>(H, Sn, nrows, zp, ldW, ka, ldS, add_w2);
+    }
     for (int f = tid; f < Sn; f += kSweepThreads) {
       float sum = 0.f;
       for (int r = 0; r < nrows; ++r) sum += sm[ka + r * ldS + f];

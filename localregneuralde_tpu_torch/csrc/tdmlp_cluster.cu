@@ -44,6 +44,11 @@
 // g6 and k1..k7 there as kernel 4 does, and after a cluster barrier moves
 // the nine outputs (u_new, ũ, k2..k7, g6) out of it as items.
 //
+// The TF32 instantiations (kTf32: lrnde_tdmlp_tf32, lrnde_tsit5_step_tf32;
+// the reference's 'default' precision) round the weight slices to TF32 as
+// they load them and run solve_cluster.cuh's TF32 products; the layout, the
+// transposes and the elementwise work are the FP32 kernels'.
+//
 // What bounds them on an H100: the products are FP32 FFMA on register tiles
 // fed from shared memory (~2 FFMA a wavefront, solve_cluster.cuh), and each
 // evaluation has one cluster reduction with two cluster barriers, so an
@@ -56,7 +61,7 @@
 
 namespace lrnde {
 
-template <bool kShared>
+template <bool kShared, bool kTf32>
 __global__ void __launch_bounds__(kSolveThreads, 1)
 tdmlp_cluster_kernel(TDMLP w, const float* x, const float* s_ptr, float* out,
                      int B, int R) {
@@ -69,7 +74,7 @@ tdmlp_cluster_kernel(TDMLP w, const float* x, const float* s_ptr, float* out,
   const unsigned xa = smem_addr(sweep_smem + s.xa);
   const float st = *s_ptr;
   SolveClock<false> clk{nullptr};
-  load_eval_weights<kShared>(w, s, sl, rank);
+  load_eval_weights<kShared, kTf32>(w, s, sl, rank);
   for (int rb = blockIdx.x / kSweepCluster; rb < n_rb;
        rb += gridDim.x / kSweepCluster) {
     const int row0 = rb * R, nrows = min(R, B - row0);
@@ -84,8 +89,8 @@ tdmlp_cluster_kernel(TDMLP w, const float* x, const float* s_ptr, float* out,
     }
     cg::this_cluster().sync();
     // the outputs into the stage-input tile, then out of the owners' tiles
-    solve_eval<kShared>(w, s, sl, rank, nrows, st, sweep_smem + s.xa, s.ldX,
-                        clk, 0);
+    solve_eval<kShared, kTf32>(w, s, sl, rank, nrows, st, sweep_smem + s.xa,
+                               s.ldX, clk, 0);
     cg::this_cluster().sync();
     for (int j = seg_item0(rank); j < nrows * n_span * 16; j += kItemStride) {
       const SegItem it = seg_item(j, n_span, s.odd0);
@@ -115,7 +120,7 @@ __host__ __device__ inline size_t step_scratch_floats(int B, int F) {
   return 10 * static_cast<size_t>(B) * kSweepCluster * solve_seg(F);
 }
 
-template <bool kShared, bool kTime>
+template <bool kShared, bool kTime, bool kTf32>
 __global__ void __launch_bounds__(kSolveThreads, 1)
 step_cluster_kernel(StepArgs a) {
   const TDMLP& w = a.w;
@@ -137,7 +142,7 @@ step_cluster_kernel(StepArgs a) {
   float* const k1 = u + 3 * BS;
   const float t = a.sc[0], dt = a.sc[1];
   clk.start();
-  load_eval_weights<kShared>(w, s, sl, rank);
+  load_eval_weights<kShared, kTf32>(w, s, sl, rank);
   clk.mark(kStWeights);
   for (int rb = blockIdx.x / kSweepCluster; rb < n_rb;
        rb += gridDim.x / kSweepCluster) {
@@ -156,8 +161,8 @@ step_cluster_kernel(StepArgs a) {
     clk.mark(kStLayoutIn);
     float* kr[7];
     for (int j = 0; j < 7; ++j) kr[j] = k1 + j * BS + own;
-    solve_stages<kShared>(w, s, sl, rank, nrows, t, dt, kr, u + own,
-                          g6 + own, unew + own, rs, clk);
+    solve_stages<kShared, kTf32>(w, s, sl, rank, nrows, t, dt, kr, u + own,
+                                 g6 + own, unew + own, rs, clk);
     cg::this_cluster().sync();
     // ũ, and the nine outputs row-major, each CTA a share of the items
     for (int j = seg_item0(rank); j < nrows * n_span * 16; j += kItemStride) {
@@ -216,14 +221,15 @@ static cudaError_t eval_config(Kernel kernel, int B, int F, int H, int rows,
   return cluster_config(kernel, B, *R, smem, stream, attr, cfg, clusters);
 }
 
+template <bool kTf32 = false>
 static cudaError_t tdmlp_launch(const TDMLP& w, const float* x,
                                 const float* s, float* out, int B, int rows,
                                 cudaStream_t stream, int* R, int* clusters) {
   int rmax = 0;
   bool shared = false;
   if (!eval_plan(w.F, w.H, &rmax, &shared)) return cudaErrorInvalidValue;
-  auto kernel = shared ? tdmlp_cluster_kernel<true>
-                       : tdmlp_cluster_kernel<false>;
+  auto kernel = shared ? tdmlp_cluster_kernel<true, kTf32>
+                       : tdmlp_cluster_kernel<false, kTf32>;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
   cudaError_t err = eval_config(kernel, B, w.F, w.H, rows, shared, stream,
@@ -234,16 +240,22 @@ static cudaError_t tdmlp_launch(const TDMLP& w, const float* x,
   return cudaGetLastError();
 }
 
+template <bool kTf32 = false>
 static cudaError_t step_launch(StepArgs a, int rows, cudaStream_t stream,
                                int* R, int* clusters) {
   int rmax = 0;
   bool shared = false;
   if (!eval_plan(a.w.F, a.w.H, &rmax, &shared)) return cudaErrorInvalidValue;
+  // the TF32 tier has no clocked instantiation
   const bool timed = a.timing != nullptr;
-  auto kernel = shared ? (timed ? step_cluster_kernel<true, true>
-                                : step_cluster_kernel<true, false>)
-                       : (timed ? step_cluster_kernel<false, true>
-                                : step_cluster_kernel<false, false>);
+  if (kTf32 && timed) return cudaErrorInvalidValue;
+  auto kernel =
+      kTf32 ? (shared ? step_cluster_kernel<true, false, true>
+                      : step_cluster_kernel<false, false, true>)
+            : shared ? (timed ? step_cluster_kernel<true, true, false>
+                              : step_cluster_kernel<true, false, false>)
+                     : (timed ? step_cluster_kernel<false, true, false>
+                              : step_cluster_kernel<false, false, false>);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
   cudaError_t err = eval_config(kernel, a.B, a.w.F, a.w.H, rows, shared,
@@ -293,6 +305,36 @@ extern "C" int lrnde_tsit5_step(const float* u, const float* k1,
   int R = 0, clusters = 0;
   return step_launch(a, rows, static_cast<cudaStream_t>(stream), &R,
                      &clusters);
+}
+
+// lrnde_tdmlp and lrnde_tsit5_step (without timing) at the TF32 tier.
+extern "C" int lrnde_tdmlp_tf32(const float* x, const float* s,
+                                const float* w1, const float* b1,
+                                const float* w2, const float* b2, float* out,
+                                int B, int F, int H, int rows, void* stream) {
+  int R = 0, clusters = 0;
+  return lrnde::tdmlp_launch<true>(lrnde::TDMLP{w1, b1, w2, b2, F, H}, x, s,
+                                   out, B, rows,
+                                   static_cast<cudaStream_t>(stream), &R,
+                                   &clusters);
+}
+
+extern "C" int lrnde_tsit5_step_tf32(const float* u, const float* k1,
+                                     const float* sc, const float* w1,
+                                     const float* b1, const float* w2,
+                                     const float* b2, float* unew,
+                                     float* utilde, float* k2, float* k3,
+                                     float* k4, float* k5, float* k6,
+                                     float* k7, float* g6, float* scratch,
+                                     int B, int F, int H, int rows,
+                                     void* stream) {
+  using namespace lrnde;
+  const StepArgs a{u, k1, sc, TDMLP{w1, b1, w2, b2, F, H},
+                   {unew, utilde, k2, k3, k4, k5, k6, k7, g6}, scratch, B, 0,
+                   nullptr};
+  int R = 0, clusters = 0;
+  return step_launch<true>(a, rows, static_cast<cudaStream_t>(stream), &R,
+                           &clusters);
 }
 
 // The plan at (F, H), for the wrappers' (fused_solve.py::eval_plan) to

@@ -16,6 +16,11 @@
 // Cotangents for t and dt are not produced: the controller fence makes
 // them zero.
 //
+// Tiers (lrnde_tsit5_step_bwd_tiered; sweep_cluster.cuh's kTier bits): the
+// stage recompute at the forward's tier, the cotangent and weight-gradient
+// products at TF32 where the reference runs them at its default precision
+// ('grad_precision=None', always so on the model's routes).
+//
 // What bounds it (NVIDIA H100 80GB HBM3, 700 W): what bounds the sweep's
 // transposed step, whose cost it has: 0.394 ms at B = 512 (PERF.md §6),
 // against 1.11 ms for the design it replaced (a CTA of 8 rows streaming the
@@ -76,9 +81,10 @@ struct StepBwdArgs {
   float* scratch;   // sweep_scratch_floats(B, F, H)
   float* part;      // (clusters, grad_floats)
   int B;
+  float* d_w;       // grad_floats: the partials' sum
 };
 
-template <bool kShared>
+template <bool kShared, int kTiers>
 __global__ void __launch_bounds__(kSweepThreads)
 tsit5_step_bwd_kernel(StepBwdArgs a) {
   const int F = a.w.F, H = a.w.H, B = a.B;
@@ -102,9 +108,9 @@ tsit5_step_bwd_kernel(StepBwdArgs a) {
   for (int rb = cid; rb < n_rb; rb += ncl) {
     const int row0 = rb * kSweepRows;
     const size_t off = static_cast<size_t>(row0) * F + sl.f0;
-    transpose_rows(a.w, s, sl, gs, rank, B, row0, min(kSweepRows, B - row0),
-                   t, seed.dt, a.u + off, a.k1 + off, a.scratch, seed.at(off),
-                   clk);
+    transpose_rows<false, kShared, kTiers>(
+        a.w, s, sl, gs, rank, B, row0, min(kSweepRows, B - row0), t, seed.dt,
+        a.u + off, a.k1 + off, a.scratch, seed.at(off), clk);
   }
   if constexpr (kShared) {
     __syncthreads();
@@ -114,10 +120,10 @@ tsit5_step_bwd_kernel(StepBwdArgs a) {
 
 // One cluster per row block of kSweepRows rows (no grid barrier: the
 // clusters need not be resident at once), one gradient partial each.
-template <bool kShared>
+template <bool kShared, int kTiers>
 static cudaError_t launch_step_bwd(const StepBwdArgs& a, int F, int H,
                                    cudaStream_t stream, int clusters) {
-  auto kernel = tsit5_step_bwd_kernel<kShared>;
+  auto kernel = tsit5_step_bwd_kernel<kShared, kTiers>;
   const size_t smem = sweep_smem_floats(F, H) * sizeof(float);
   static size_t granted = 0;
   cudaError_t err = allow_smem(kernel, smem, &granted);
@@ -139,7 +145,49 @@ static cudaError_t launch_step_bwd(const StepBwdArgs& a, int F, int H,
   return cudaGetLastError();
 }
 
+template <int kTiers>
+static int step_bwd(const StepBwdArgs& a, int F, int H, cudaStream_t s) {
+  const int clusters = (a.B + kSweepRows - 1) / kSweepRows;
+  const cudaError_t err =
+      sweep_grads_shared(F, H)
+          ? launch_step_bwd<true, kTiers>(a, F, H, s, clusters)
+          : launch_step_bwd<false, kTiers>(a, F, H, s, clusters);
+  if (err != cudaSuccess) return err;
+  return reduce_partials(a.part, clusters, grad_floats(F, H), a.d_w, s);
+}
+
 }  // namespace lrnde
+
+// lrnde_tsit5_step_bwd at the product tiers `tiers` (sweep_cluster.cuh's
+// kTierRecompute | kTierGrad bits): 0 (all FP32), kTierGrad (the reference's
+// default-tier gradients behind an FP32 recompute) or both; any other value
+// fails with cudaErrorInvalidValue.
+extern "C" int lrnde_tsit5_step_bwd_tiered(
+    int tiers, const float* u, const float* k1, const float* sc,
+    const float* w1, const float* b1, const float* w2, const float* b2,
+    const float* d_unew, const float* d_utilde, const float* d_k2,
+    const float* d_k3, const float* d_k4, const float* d_k5,
+    const float* d_k6, const float* d_k7, const float* d_g6, float* d_u,
+    float* d_k1, float* d_w, float* scratch, float* part, int B, int F,
+    int H, void* stream) {
+  using namespace lrnde;
+  const StepBwdArgs a{u, k1, sc, TDMLP{w1, b1, w2, b2, F, H},
+                      StepSeed{d_unew, d_utilde,
+                               {d_k2, d_k3, d_k4, d_k5, d_k6, d_k7}, d_g6,
+                               d_u, d_k1, 0.f},
+                      scratch, part, B, d_w};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tiers) {
+    case 0:
+      return step_bwd<0>(a, F, H, s);
+    case kTierGrad:
+      return step_bwd<kTierGrad>(a, F, H, s);
+    case kTierRecompute | kTierGrad:
+      return step_bwd<kTierRecompute | kTierGrad>(a, F, H, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
 
 // VJP of one Tsit5 step from (u, t) with step dt and FSAL derivative k1;
 // sc = (t, dt) on the device. The nine cotangents are those of (u_new, ũ,
@@ -154,18 +202,7 @@ extern "C" int lrnde_tsit5_step_bwd(
     const float* d_k7, const float* d_g6, float* d_u, float* d_k1,
     float* d_w, float* scratch, float* part, int B, int F, int H,
     void* stream) {
-  using namespace lrnde;
-  const StepBwdArgs a{u, k1, sc, TDMLP{w1, b1, w2, b2, F, H},
-                      StepSeed{d_unew, d_utilde,
-                               {d_k2, d_k3, d_k4, d_k5, d_k6, d_k7}, d_g6,
-                               d_u, d_k1, 0.f},
-                      scratch, part, B};
-  const int clusters = (B + kSweepRows - 1) / kSweepRows;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      sweep_grads_shared(F, H)
-          ? launch_step_bwd<true>(a, F, H, s, clusters)
-          : launch_step_bwd<false>(a, F, H, s, clusters);
-  if (err != cudaSuccess) return err;
-  return reduce_partials(part, clusters, grad_floats(F, H), d_w, s);
+  return lrnde_tsit5_step_bwd_tiered(
+      0, u, k1, sc, w1, b1, w2, b2, d_unew, d_utilde, d_k2, d_k3, d_k4, d_k5,
+      d_k6, d_k7, d_g6, d_u, d_k1, d_w, scratch, part, B, F, H, stream);
 }

@@ -60,8 +60,25 @@ sweep kernel (dense, or two-level beyond ``knot_window``), and the
 regulariser step through the step kernel with the step-VJP kernel as its
 backward (``ops/cuda/fused_mlp_bwd.py``). Without ``use_persistent`` the
 loop calls the step kernel per attempt and the sweep the step-VJP kernel
-per accepted step. ``grad_precision='default'`` is accepted for the
-reference's configs; every tier computes in FP32 here.
+per accepted step.
+
+Precision tiers (the TD-MLP family; reference ``neural_ode.py:104-147``):
+``mm_precision`` is ``precision`` resolved at ``rtol`` ('auto': 'highest'
+below 1e-4, else None, the backend default), ``bwd_precision`` is
+``mm_precision`` under ``grad_precision='match'`` and None under
+``'default'``. ``nn.basic.product_tier`` maps each to what a product
+computes on the device: the default is TF32 on a card and FP32 on the CPU.
+The forward (kernels 1, 2 and 4, the sweep's window replay, the FSAL
+closure) runs at ``mm_precision``, the sweeps' and the step VJP's stage
+recompute at ``bwd_precision`` (the regulariser's and the direct adjoint's
+step VJP at ``mm_precision``, as the reference's fused step), and every
+cotangent and weight-gradient product of kernels 3, 7 and 8 at the default
+tier, the reference's ``grad_precision=None``. The plain route computes
+the dynamics' Dense products at ``mm_precision``'s tier, forward and
+backward (``nn.basic.product_tier_scope``), and warns that
+``grad_precision='default'`` does nothing there, as the reference does. A
+forward at the TF32 tier below rtol 1e-4 raises (the reference saturates
+``max_steps``). The other families compute FP32 at every tier for now.
 
 The other modes route each family as the reference does
 (``neural_ode.py:224-303``): on the TD-MLP's kernel route the dynamics is
@@ -83,10 +100,14 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import dataclasses
+import warnings
 
 import torch
 
-from ..nn.basic import Dense, resolve_solver_precision
+from ..nn.basic import (
+    Dense, check_product_tier, product_tier, product_tier_scope,
+    resolve_solver_precision,
+)
 from ..nn.module import Module
 from ..ode.controller import initial_step_size
 from ..ode.multistep import adams_solve
@@ -237,8 +258,16 @@ class NeuralODE(Module):
         self.use_persistent = bool(use_persistent)
         self.knot_window = None if knot_window is None else int(knot_window)
         self.rng_seed = int(rng_seed)
-        # recorded for parity with the reference; every tier is FP32 here
         self.mm_precision = resolve_solver_precision(precision, self.rtol)
+        self.bwd_precision = (self.mm_precision if grad_precision == "match"
+                              else None)
+        if (grad_precision == "default" and self.mm_precision is not None
+                and self.use_pallas == "off"):
+            warnings.warn(
+                "solver.grad_precision='default' has no effect with "
+                "use_pallas off: the plain backward runs at the forward's "
+                f"matmul precision ({self.mm_precision!r}). Only the fused "
+                "backward kernels honor the knob.", stacklevel=2)
 
     def init_state(self) -> dict:
         return {
@@ -299,11 +328,23 @@ class NeuralODE(Module):
         l0, l1 = self.model.layers.values()
         return TDMLPWeights(l0.w, l0.b, l1.w, l1.b)
 
+    def forward_tier(self, device) -> str:
+        """The tier of the dynamics' forward products on ``device``: the
+        TD-MLP family's ``mm_precision``; FP32 for the other families."""
+        if self.family != "tdmlp":
+            return "fp32"
+        return product_tier(self.mm_precision, device)
+
     def _call_model(self, u, t, st, training: bool, params=None):
         """The dynamics module at ``(u, t)`` with state ``st`` (with
-        ``params``, a name → tensor dict, through ``functional_call``);
-        under ``compute_dtype`` u and the float32 parameters are cast to
-        it and du back to u's dtype."""
+        ``params``, a name → tensor dict, through ``functional_call``),
+        its Dense products at ``forward_tier``; under ``compute_dtype`` u
+        and the float32 parameters are cast to it and du back to u's
+        dtype."""
+        with product_tier_scope(self.forward_tier(u.device)):
+            return self._call_module(u, t, st, training, params)
+
+    def _call_module(self, u, t, st, training: bool, params=None):
         cdt = self.compute_dtype
         u_in = u
         if cdt is not None:
@@ -347,12 +388,13 @@ class NeuralODE(Module):
         )
 
         w = self.tdmlp_weights()
+        prec = self.mm_precision
 
         def f(u, t, st):
-            return fused_tdmlp(w, u, t), st
+            return fused_tdmlp(w, u, t, prec), st
 
         def step(fn, u, t, dt, k1, f_st):
-            u_new, utilde, *ks, g6 = fused_tsit5_step(w, u, t, dt, k1)
+            u_new, utilde, *ks, g6 = fused_tsit5_step(w, u, t, dt, k1, prec)
             return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, f_st)
 
         def persistent(u0, tspan, *, saveat_arr, rtol, atol, max_steps,
@@ -362,7 +404,8 @@ class NeuralODE(Module):
                 return None  # decline: the loop with the step kernel runs
             out = persistent_tsit5_solve(
                 w, u0.contiguous(), tspan, rtol=rtol, atol=atol,
-                saveat_arr=saveat_arr, max_steps=max_steps, **record,
+                saveat_arr=saveat_arr, max_steps=max_steps, precision=prec,
+                **record,
             )
             # the fused family is stateless: its state passes through
             return _solution(out, f_state)
@@ -497,19 +540,23 @@ class NeuralODE(Module):
 
         B, F = x.shape
         H = self.tdmlp_weights().b1.shape[0]
-        step_bwd = tdmlp_step_vjp(F, H)
+        prec, bwd = self.mm_precision, self.bwd_precision
+        tier = product_tier(prec, x.device)
+        # the stage recompute at bwd_precision, the gradients at the
+        # default tier (the reference's grad_precision=None)
+        step_bwd = step_vjp_at(F, H, bwd, None)
 
         def f(u, t, params):
-            return fused_tdmlp(TDMLPWeights(*params), u, t)
+            return fused_tdmlp(TDMLPWeights(*params), u, t, prec)
 
         def fsal_fn(u, t, params):
-            # the closure of the FSAL chain is plain autograd, as the
-            # reference leaves it to XLA
-            return tdmlp_plain(TDMLPWeights(*params), u, t)
+            # the closure of the FSAL chain is plain autograd at the
+            # forward's tier, as the reference transposes its pure twin
+            return tdmlp_plain(TDMLPWeights(*params), u, t, tier)
 
         def step_fn(params, u, t, dt, k1):
             u_new, utilde, *ks, g6 = fused_tsit5_step(
-                TDMLPWeights(*params), u, t, dt, k1)
+                TDMLPWeights(*params), u, t, dt, k1, prec)
             return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, None)
 
         def step_vjp(params, u, t, dt, k1, d_unew, d_ks):
@@ -522,15 +569,22 @@ class NeuralODE(Module):
 
         def persistent_fn(u0, params, tspan, **kw):
             out = persistent_tsit5_solve(TDMLPWeights(*params),
-                                         u0.contiguous(), tspan, **kw)
+                                         u0.contiguous(), tspan,
+                                         precision=prec, **kw)
             return _solution(out, None)
+
+        # the replay at the forward's precision, the recompute at
+        # bwd_precision, the gradients at the default tier
+        tiers = dict(precision=prec, grad_precision=None,
+                     recompute_precision=bwd)
 
         def sweep_fn(params, knot_ts, knot_us, naccept, saveat_arr, ct_ys,
                      ct_y, two_level_ctx=None):
             w = TDMLPWeights(*params)
             if two_level_ctx is None:
                 a_u, a_k, d_w = persistent_stored_sweep(
-                    w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y)
+                    w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y,
+                    **tiers)
             else:
                 c = two_level_ctx
                 a_u, a_k, d_w = persistent_two_level_sweep(
@@ -538,7 +592,7 @@ class NeuralODE(Module):
                     c["ckpt_ts"], c["ckpt_us"], c["ckpt_ks"], c["ckpt_dts"],
                     c["ckpt_qolds"], t_end=c["t_end"], rtol=c["rtol"],
                     atol=c["atol"], max_steps=c["max_steps"],
-                    stride=c["stride"], dense_cap=c["dense_cap"],
+                    stride=c["stride"], dense_cap=c["dense_cap"], **tiers,
                 )
             return a_u, a_k, list(d_w)
 
@@ -573,6 +627,8 @@ class NeuralODE(Module):
 
     def apply_layer(self, x, state, *, training: bool = False):
         draws, state = pop_draws(state)
+        # every route's forward runs at this tier: refuse it below 1e-4
+        check_product_tier(self.forward_tier(x.device), self.rtol)
         if not training:
             return self._eval_solve(x, state)
         t2 = self.tspan[1]
@@ -664,14 +720,17 @@ class NeuralODE(Module):
         from ..ops.cuda import differentiable_step, differentiable_tdmlp
 
         w = self.tdmlp_weights()
-        vjp = tdmlp_step_vjp(w.b2.shape[0], w.b1.shape[0])
+        prec = self.mm_precision
+        # the fused step's VJP: recompute at the forward's precision,
+        # gradients at the default tier (reference fused_mlp.py:285-290)
+        vjp = step_vjp_at(w.b2.shape[0], w.b1.shape[0], prec, None)
 
         def f(u, t, st):
-            return differentiable_tdmlp(w, u.contiguous(), t), st
+            return differentiable_tdmlp(w, u.contiguous(), t, prec), st
 
         def step(fn, u, t, dt, k1, st):
             u_new, utilde, *ks, g6 = differentiable_step(
-                w, u.contiguous(), t, dt, k1.contiguous(), vjp)
+                w, u.contiguous(), t, dt, k1.contiguous(), vjp, prec)
             return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, st)
 
         return f, step
@@ -696,14 +755,16 @@ class NeuralODE(Module):
             TDMLPWeights, differentiable_tdmlp, fused_tsit5_step,
         )
 
+        prec = self.mm_precision
+
         def f(u, t, params, st):
             return differentiable_tdmlp(TDMLPWeights(*params),
-                                        u.contiguous(), t), st
+                                        u.contiguous(), t, prec), st
 
         def step_fn(params, u, t, dt, k1, st):
             u_new, utilde, *ks, g6 = fused_tsit5_step(
                 TDMLPWeights(*params), u.contiguous(), t, dt,
-                k1.contiguous())
+                k1.contiguous(), prec)
             return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, st)
 
         return dict(f=f, step_fn=step_fn)
@@ -736,13 +797,14 @@ class NeuralODE(Module):
         the generic step otherwise). Returns (step, dt); ``step.f_state`` is
         the state after the step."""
         t2 = self.tspan[1]
+        prec = self.mm_precision
         if family == "tdmlp":
             from ..ops.cuda import differentiable_step, fused_tdmlp
 
             w = self.tdmlp_weights()
 
             def f(u, t):
-                return fused_tdmlp(w, u, t)
+                return fused_tdmlp(w, u, t, prec)
         else:
             dyn = self._generic_dynamics(training=True)
 
@@ -756,7 +818,8 @@ class NeuralODE(Module):
         if family == "tdmlp":
             u_new, utilde, *ks, g6 = differentiable_step(
                 w, u1.contiguous(), t1, dt_r, k1,
-                tdmlp_step_vjp(w.b2.shape[0], w.b1.shape[0]))
+                step_vjp_at(w.b2.shape[0], w.b1.shape[0], prec, None),
+                prec)
             return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, st), dt_r
         if family == "conv":
             from ..ops.cuda import differentiable_conv_step
@@ -780,6 +843,24 @@ def tdmlp_step_vjp(F: int, H: int):
     )
 
     return fused_step_bwd if step_bwd_feasible(F, H) else fused_step_bwd_plain
+
+
+def step_vjp_at(F: int, H: int, precision, grad_precision):
+    """``tdmlp_step_vjp(F, H)`` with its stage recompute at ``precision``
+    and its transposed products at ``grad_precision``: ``vjp(w, u, t, dt,
+    k1, cts)``."""
+    from ..ops.cuda import fused_step_bwd
+    from ..ops.cuda.fused_mlp_bwd import step_bwd_tiers
+
+    fn = tdmlp_step_vjp(F, H)
+
+    def vjp(w, u, t, dt, k1, cts):
+        if fn is fused_step_bwd:
+            return fn(w, u, t, dt, k1, cts, precision, grad_precision)
+        return fn(w, u, t, dt, k1, cts,
+                  *step_bwd_tiers(precision, grad_precision, u.device))
+
+    return vjp
 
 
 def _solution(out, f_state) -> ODESolution:

@@ -9,6 +9,7 @@ reference's: batch-major ``(B, F)``, a Dense weight is ``(in, out)`` (not
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
 from typing import Callable, Optional
 
@@ -41,10 +42,7 @@ def resolve_activation(act) -> Callable:
 def resolve_solver_precision(precision, rtol: float):
     """Matmul precision tier of the solver path, as the reference names it:
     'auto' is 'highest' iff rtol < 1e-4, else None (the backend default).
-
-    On the H100 every tier computes in true FP32 in this port: the package
-    turns TF32 off, and the kernels use FP32 FFMA. A TF32 'default' tier is
-    later work, and must never run below rtol 1e-4.
+    ``product_tier`` says what each computes on a device.
     """
     if precision == "auto":
         return "highest" if rtol < 1e-4 else None
@@ -55,6 +53,105 @@ def resolve_solver_precision(precision, rtol: float):
     raise ValueError(
         f"unknown precision {precision!r}; one of auto/default/high/highest"
     )
+
+
+def product_tier(precision, device) -> str:
+    """What the products of a resolved ``precision`` compute on ``device``:
+    ``"tf32"`` exactly when it is the backend default (None or 'default',
+    which 'auto' resolves to at rtol ≥ 1e-4) and the device is CUDA, where
+    the backend default of an FP32 product is TF32 on the tensor cores;
+    ``"fp32"`` otherwise ('highest', 'high', and every tier on the CPU,
+    where JAX also computes FP32). The TF32 tier rounds each operand with
+    ``round_tf32`` and accumulates in FP32."""
+    if precision == "auto":
+        raise ValueError("product_tier takes a resolved precision: "
+                         "resolve_solver_precision('auto', rtol) first")
+    if precision not in (None, "default", "high", "highest"):
+        raise ValueError(
+            f"unknown precision {precision!r}; one of default/high/highest")
+    if precision in (None, "default") and torch.device(device).type == "cuda":
+        return "tf32"
+    return "fp32"
+
+
+def check_product_tier(tier: str, rtol: float) -> None:
+    """Raise for a forward solve at the TF32 tier below rtol 1e-4: TF32's
+    rounding noise in the embedded error estimate ũ then makes acceptance
+    impossible. The reference lets such a solve saturate ``max_steps``;
+    the port refuses it (README, documented deviations)."""
+    if tier == "tf32" and rtol < 1e-4:
+        raise ValueError(
+            f"rtol {rtol:g} < 1e-4 needs FP32 products, but the precision "
+            "resolves to the TF32 'default' tier on this device: pass "
+            "precision='highest' (or 'auto') or loosen the tolerance")
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it:
+    to the nearest value with 10 mantissa bits, ties away from zero (the low
+    13 bits cleared). Bitwise on finite inputs."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(a, b, tier: str):
+    if tier == "tf32":
+        return round_tf32(a) @ round_tf32(b)
+    return a @ b
+
+
+class TierMatmul(torch.autograd.Function):
+    """``a @ b`` of 2-D float32 operands at the product tier ``tier``, with
+    the two products of its backward at ``grad_tier``: at ``"tf32"`` each
+    product's operands are rounded with ``round_tf32`` and multiplied in
+    FP32. The tiers are saved at the forward: the backward runs later, on
+    autograd's own thread, where no scope around the forward reaches."""
+
+    @staticmethod
+    def forward(ctx, a, b, tier, grad_tier):
+        ctx.save_for_backward(a, b)
+        ctx.grad_tier = grad_tier
+        return _product(a, b, tier)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _product(g, b.t(), ctx.grad_tier)
+        if ctx.needs_input_grad[1]:
+            gb = _product(a.t(), g, ctx.grad_tier)
+        return ga, gb, None, None
+
+
+def tier_matmul(a, b, tier: str = "fp32", grad_tier: Optional[str] = None):
+    """``a @ b`` (2-D) at ``tier``, its backward at ``grad_tier`` (default:
+    ``tier``); both FP32 is the plain product."""
+    grad_tier = tier if grad_tier is None else grad_tier
+    if tier == grad_tier == "fp32":
+        return a @ b
+    return TierMatmul.apply(a, b, tier, grad_tier)
+
+
+def tf32_matmul(a, b):
+    """``a @ b`` at the TF32 tier, forward and backward."""
+    return TierMatmul.apply(a, b, "tf32", "tf32")
+
+
+_TIER = contextvars.ContextVar("product_tier", default="fp32")
+
+
+@contextlib.contextmanager
+def product_tier_scope(tier: str):
+    """Dense layers called inside the block compute their products at
+    ``tier`` (the counterpart of the reference's
+    ``jax.default_matmul_precision`` around its dynamics); their backward
+    keeps the tier they saved."""
+    token = _TIER.set(tier)
+    try:
+        yield
+    finally:
+        _TIER.reset(token)
 
 
 def check_fp32_products(rtol: float, device) -> None:
@@ -97,7 +194,9 @@ def glorot_uniform(shape, generator: Optional[torch.Generator] = None,
 
 class Dense(Module):
     """Affine layer ``y = act(x @ w + b)``, ``w`` of shape (in, out).
-    Glorot-uniform weight from ``generator``, zero bias (Lux defaults)."""
+    Glorot-uniform weight from ``generator``, zero bias (Lux defaults).
+    Inside ``product_tier_scope("tf32")`` a float32 product runs at the
+    TF32 tier (``tier_matmul``)."""
 
     def __init__(self, in_dim: int, out_dim: int, activation=None, *,
                  use_bias: bool = True, generator=None, device=None):
@@ -113,7 +212,12 @@ class Dense(Module):
             self.b = nn.Parameter(torch.zeros(out_dim, device=device))
 
     def apply_layer(self, x, state, *, training: bool = False):
-        y = x @ self.w
+        tier = _TIER.get()
+        if tier != "fp32" and x.dtype == torch.float32:
+            y = tier_matmul(x.reshape(-1, self.in_dim), self.w, tier).reshape(
+                x.shape[:-1] + (self.out_dim,))
+        else:
+            y = x @ self.w
         if self.use_bias:
             y = y + self.b
         return self.activation(y), state

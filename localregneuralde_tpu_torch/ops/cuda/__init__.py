@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
 
 Every wrapper keeps a plain-integer ``launches`` counter of kernel launches;
-``launch_counts`` reads them and ``reset_launch_counts`` zeroes them.
+``launch_counts`` reads them and ``reset_launch_counts`` zeroes them. The
+TD-MLP family's wrappers, which launch at the FP32 or the TF32 tier, also
+count by tier (``tier_launch_counts``).
 """
 from .conv_orient import conv_orient_im2col, conv_orient_plain, conv_orient_tap
 from .fused_conv import (
@@ -93,9 +95,20 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def tier_launch_counts() -> dict:
+    """Launches by product tier, for the wrappers that count them: a tier,
+    or for the VJP and the sweeps their tiers joined by ``/`` (the step
+    VJP's recompute/gradients; kernel 7's the same; kernel 8's
+    replay/recompute/gradients)."""
+    return {name: dict(fn.tier_launches) for name, fn in KERNELS.items()
+            if hasattr(fn, "tier_launches")}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "tier_launches"):
+            fn.tier_launches.clear()
 
 
 __all__ = [
@@ -153,6 +166,7 @@ __all__ = [
     "persistent_vpsde_solve_plain",
     "reset_launch_counts",
     "score_chain_params",
+    "tier_launch_counts",
     "td_score_eval_plain",
     "tdmlp_plain",
     "tsit5_step_plain",

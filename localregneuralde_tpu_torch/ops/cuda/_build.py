@@ -42,6 +42,17 @@ _SIGNATURES = {
         + [_P, _P, _I] + [_P] * 5 + [_I, _I] + [_P] * 2 + [_P, _P]
     ),
     "lrnde_tsit5_step_bwd": [_P] * 21 + [_I] * 3 + [_P],
+    "lrnde_tsit5_step_bwd_tiered": [_I] + [_P] * 21 + [_I] * 3 + [_P],
+    "lrnde_tdmlp_tf32": [_P] * 7 + [_I] * 4 + [_P],
+    "lrnde_tsit5_step_tf32": [_P] * 17 + [_I] * 4 + [_P],
+    "lrnde_persistent_tsit5_tf32": (
+        [_P] * 4 + [_I] + [_P] * 11 + [_I] * 4 + [_F] * 3
+        + [_P, _P, _I] + [_P] * 5 + [_I, _I] + [_P] * 2 + [_P]
+    ),
+    "lrnde_adjoint_sweep_tiered": (
+        [_I, _I] + [_P] * 8 + [_I] + [_P] * 7 + [_F] * 3 + [_I] * 3
+        + [_P] * 9 + [_I] * 3 + [_F] + [_P]
+    ),
     "lrnde_adjoint_sweep": (
         [_I] + [_P] * 8 + [_I] + [_P] * 7 + [_F] * 3 + [_I] * 3 + [_P] * 9
         + [_I] * 3 + [_F] + [_P]
@@ -121,6 +132,7 @@ _INTS = {
     "lrnde_eval_rows": [_I] * 2,
     "lrnde_eval_weights_shared": [_I] * 2,
     "lrnde_eval_grid": [_I] * 5 + [_P],
+    "lrnde_sweep_replay_rows": [_I] * 2,
 }
 
 # C entry -> argument types of the size queries, which return long long

@@ -21,6 +21,11 @@ a stride W > 1 every W-th accept also goes to the checkpoint buffers with
 and F is not padded. Recording only copies committed values, so it changes
 no accept decision.
 
+``precision`` (the reference's meaning; ``'highest'`` when not given, see
+``fused_mlp``) sets the tier of every product, the kernel's and the start's:
+on a card the default tier is kernel 4's TF32 instantiation, which refuses
+rtol < 1e-4 (``nn.basic.check_product_tier``).
+
 With ``reservoir`` (``max_steps`` uniforms, drawn in advance by the caller)
 the kernel keeps the biased regulariser's reservoir sample: an accepted
 attempt number ``natt`` takes its step start ``(t, u)`` when
@@ -48,7 +53,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ...nn.basic import check_fp32_products
+from ...nn.basic import check_fp32_products, check_product_tier, product_tier
 from ...ode.controller import initial_step_size
 from ...ode.solve import (
     KNOT_FIELDS,
@@ -62,8 +67,9 @@ from . import _build
 from .fused_mlp import (
     TDMLPWeights,
     check_operands,
+    count_launch,
     device_scalars,
-    fused_tdmlp,
+    tdmlp_at,
     tdmlp_plain,
     tsit5_step_plain,
 )
@@ -316,11 +322,12 @@ def _start(f, u0, t0: float, t_end: float, rtol, atol):
     return k1_0, torch.minimum(dt_init, span), 1 + extra
 
 
-def plain_step(w: TDMLPWeights):
-    """The plain TD-MLP step in the eager loop's ``step_fn`` contract."""
+def plain_step(w: TDMLPWeights, tier: str = "fp32"):
+    """The plain TD-MLP step at ``tier`` in the eager loop's ``step_fn``
+    contract."""
 
     def step(fn, u, t, dt, k1, f_st):
-        u_new, utilde, *ks, g6 = tsit5_step_plain(w, u, t, dt, k1)
+        u_new, utilde, *ks, g6 = tsit5_step_plain(w, u, t, dt, k1, tier)
         return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, f_st)
 
     return step
@@ -329,15 +336,17 @@ def plain_step(w: TDMLPWeights):
 def persistent_tsit5_solve_plain(w: TDMLPWeights, u0, tspan, *, rtol, atol,
                                  saveat_arr, max_steps, record_knots=False,
                                  knot_dense_cap=None, knot_stride=1,
-                                 reservoir=None):
+                                 reservoir=None, tier: str = "fp32"):
     """The plain version of the persistent solve: the eager loop of
-    ``ode/solve.py`` with the plain TD-MLP step, recording as the kernel
-    does (no k1 knots)."""
+    ``ode/solve.py`` with the plain TD-MLP step at ``tier``, recording as
+    the kernel does (no k1 knots)."""
+    check_product_tier(tier, rtol)
     return _plain_solve(
-        lambda u, t: tdmlp_plain(w, u, t), u0, tspan, rtol=rtol, atol=atol,
-        saveat_arr=saveat_arr, max_steps=max_steps, step_fn=plain_step(w),
-        record_knots=record_knots, knot_dense_cap=knot_dense_cap,
-        knot_stride=knot_stride, reservoir=reservoir,
+        lambda u, t: tdmlp_plain(w, u, t, tier), u0, tspan, rtol=rtol,
+        atol=atol, saveat_arr=saveat_arr, max_steps=max_steps,
+        step_fn=plain_step(w, tier), record_knots=record_knots,
+        knot_dense_cap=knot_dense_cap, knot_stride=knot_stride,
+        reservoir=reservoir,
     )
 
 
@@ -367,7 +376,7 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
                            rtol: float, atol: float, saveat_arr: torch.Tensor,
                            max_steps: int, record_knots=False,
                            knot_dense_cap=None, knot_stride=1,
-                           reservoir=None):
+                           reservoir=None, precision="highest"):
     """Run the whole adaptive solve of ``du/dt = tdmlp(u, t)``.
 
     Returns a dict of ``y_final``, ``ys`` (n_save, B, F), ``naccept``,
@@ -379,19 +388,23 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
     ``reservoir`` (float32, at least ``max_steps`` uniforms) also
     ``reservoir_t`` and ``reservoir_u``. A CUDA tensor launches the kernel
     (laid out by ``solve_plan``, which raises for a TD-MLP too wide for a
-    CTA); a CPU tensor runs ``persistent_tsit5_solve_plain``.
+    CTA) at ``precision``'s tier; a CPU tensor runs
+    ``persistent_tsit5_solve_plain``. The TF32 tier raises below rtol 1e-4.
     """
     check_reservoir(reservoir, max_steps)
+    tier = product_tier(precision, u0.device)
+    check_product_tier(tier, rtol)
     rec = dict(record_knots=record_knots, knot_dense_cap=knot_dense_cap,
                knot_stride=knot_stride, reservoir=reservoir)
     if u0.device.type == "cpu":
         return persistent_tsit5_solve_plain(
             w, u0, tspan, rtol=rtol, atol=atol, saveat_arr=saveat_arr,
-            max_steps=max_steps, **rec,
+            max_steps=max_steps, tier=tier, **rec,
         )
     out = _launch_solve(w, u0, tspan, rtol=rtol, atol=atol,
-                        saveat_arr=saveat_arr, max_steps=max_steps, **rec)
-    persistent_tsit5_solve.launches += 1
+                        saveat_arr=saveat_arr, max_steps=max_steps,
+                        tier=tier, **rec)
+    count_launch(persistent_tsit5_solve, tier)
     return out
 
 
@@ -413,8 +426,10 @@ def _solve_layout(B: int, F: int, H: int):
 
 def _launch_solve(w, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
                   record_knots=False, knot_dense_cap=None, knot_stride=1,
-                  reservoir=None, timing=None, scratch=None):
-    """One launch of kernel 4 on CUDA tensors; with ``timing`` (int64,
+                  reservoir=None, timing=None, scratch=None, tier="fp32"):
+    """One launch of kernel 4 on CUDA tensors at ``tier`` (its start, k1
+    and the Hairer probe, through kernel 1 at the same tier); with
+    ``timing`` (int64,
     ``lrnde_solve_phases() + 1``) the instantiation with the compile-time
     clock, which fills it with CTA 0's nanoseconds per phase and the number
     of attempts. ``scratch`` (``plan.scratch_floats``), when given, is the
@@ -425,8 +440,8 @@ def _launch_solve(w, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
     B, F, H = check_operands(w, u0)
     lib, plan = _solve_layout(B, F, H)
     t0, t_end = float(tspan[0]), float(tspan[1])
-    k1_0, dt_init, nfe0 = _start(lambda u, t: fused_tdmlp(w, u, t), u0, t0,
-                                 t_end, rtol, atol)
+    k1_0, dt_init, nfe0 = _start(lambda u, t: tdmlp_at(w, u, t, tier), u0,
+                                 t0, t_end, rtol, atol)
     sc = device_scalars([t0, t_end, dt_init], u0)
     saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
     n_save = saveat.shape[0]
@@ -453,7 +468,11 @@ def _launch_solve(w, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
     null = ctypes.c_void_p(0)
     kp = lambda k: p(knots[k]) if k in knots else null  # noqa: E731
     entry, clock = lib.lrnde_persistent_tsit5, []
-    if timing is not None:
+    if tier == "tf32":
+        if timing is not None:
+            raise ValueError("the TF32 solve has no clocked instantiation")
+        entry = lib.lrnde_persistent_tsit5_tf32
+    elif timing is not None:
         entry, clock = lib.lrnde_persistent_tsit5_timed, [p(timing)]
     err = entry(
         p(u0), p(k1_0), p(sc), p(saveat), n_save,
@@ -479,6 +498,7 @@ def _launch_solve(w, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
 
 
 persistent_tsit5_solve.launches = 0
+persistent_tsit5_solve.tier_launches = {}
 
 
 def check_reservoir(reservoir, max_steps: int) -> None:

@@ -18,6 +18,17 @@ of the features, with its slices of the weights and of their gradients in
 shared memory for the whole launch (a TD-MLP too wide for both adds its
 gradients into its cluster's partial in global memory).
 
+Tiers, as the reference's sweeps take them: ``precision`` is the window
+replay's (it must repeat the forward bitwise), ``recompute_precision`` the
+stage recompute's (``'match'``: ``precision``), ``grad_precision`` the
+cotangent and weight-gradient products' (``'match'``: ``precision``); all
+``'highest'`` when not given (see ``fused_mlp``). The model's routes pass
+the forward's precision, its ``bwd_precision`` and None (the default tier,
+TF32 on a card). The kernel has four instantiations (``csrc/
+adjoint_sweep.cu``): FP32 throughout, TF32 gradients, TF32 recompute and
+gradients, and TF32 throughout, whose replay runs kernel 4's TF32 attempt;
+another mix raises ValueError. The plain versions take the resolved tiers.
+
 Returns ``(a_u, a_k, d_w)``: the state cotangent at t0, the cotangent on
 k1_0 (the caller closes it through the VJP of f(u0, t0)), and the weight
 gradients as ``TDMLPWeights``. The plain versions are the eager sweeps of
@@ -40,10 +51,17 @@ import torch
 from ...ode.step import tsit5_step
 from ...ode.stored_adjoint import autograd_step_vjp, eager_sweep
 from . import _build
-from .fused_mlp import TDMLPWeights, check_operands, tdmlp_plain
+from ...nn.basic import product_tier
+from .fused_mlp import (
+    TDMLPWeights, check_operands, count_launch, tdmlp_plain,
+)
 from .fused_mlp_bwd import (
+    TIER_GRAD,
+    TIER_RECOMPUTE,
+    TIER_REPLAY,
     fused_step_bwd_plain,
     split_weight_grad,
+    tier_bits,
     weight_grad_size,
 )
 from .fused_solve import (
@@ -155,16 +173,34 @@ def sweep_layout(B: int, F: int, H: int, name: str):
     return lib, plan
 
 
+# the kernel's tier mixes: (replay, recompute, gradients)
+SWEEP_TIERS = (0, TIER_GRAD, TIER_RECOMPUTE | TIER_GRAD,
+               TIER_RECOMPUTE | TIER_GRAD | TIER_REPLAY)
+
+
+def sweep_tiers(precision, grad_precision, recompute_precision,
+                device) -> tuple:
+    """(replay, recompute, gradient) tiers of a sweep on ``device``."""
+    rep = product_tier(precision, device)
+
+    def tier(p):
+        return rep if p == "match" else product_tier(p, device)
+
+    return rep, tier(recompute_precision), tier(grad_precision)
+
+
 def _plain_sweep(w: TDMLPWeights, knots, naccept, saveat_arr, ct_ys, ct_y,
-                 **two_level):
+                 tiers=("fp32",) * 3, **two_level):
+    rep, rec, grad = tiers
+
     def step(params, u, t, dt, k1):
-        return plain_step(TDMLPWeights(*params))(None, u, t, dt, k1, None)
+        return plain_step(TDMLPWeights(*params), rep)(None, u, t, dt, k1, None)
 
     def step_vjp(params, u, t, dt, k1, d_unew, d_ks):
         zero = torch.zeros_like(u)
         d_w, d_u, d_k1 = fused_step_bwd_plain(
-            TDMLPWeights(*params), u, t, dt, k1, (d_unew, zero, *d_ks, zero)
-        )
+            TDMLPWeights(*params), u, t, dt, k1, (d_unew, zero, *d_ks, zero),
+            rec, grad)
         return list(d_w), d_u, d_k1
 
     a_u, a_k, a_p = eager_sweep(
@@ -175,45 +211,62 @@ def _plain_sweep(w: TDMLPWeights, knots, naccept, saveat_arr, ct_ys, ct_y,
         rtol=two_level.get("rtol"), atol=two_level.get("atol"),
         max_steps=two_level.get("max_steps"), stride=two_level.get("stride"),
         dense_cap=two_level.get("dense_cap"),
-        k1_of=lambda us, ts, ks, j: tdmlp_plain(w, us[j], ts[j]),
+        k1_of=lambda us, ts, ks, j: tdmlp_plain(w, us[j], ts[j], rec),
     )
     return a_u, a_k, TDMLPWeights(*a_p)
 
 
 def persistent_stored_sweep_plain(w, knot_ts, knot_us, naccept, saveat_arr,
-                                  ct_ys, ct_y):
-    """Plain version of the dense sweep."""
+                                  ct_ys, ct_y, *, recompute_tier="fp32",
+                                  grad_tier="fp32"):
+    """Plain version of the dense sweep, the stage recompute at
+    ``recompute_tier`` and the transposed products at ``grad_tier``."""
     knots = dict(knot_ts=knot_ts, knot_us=knot_us)
-    return _plain_sweep(w, knots, naccept, saveat_arr, ct_ys, ct_y)
+    return _plain_sweep(w, knots, naccept, saveat_arr, ct_ys, ct_y,
+                        ("fp32", recompute_tier, grad_tier))
 
 
 def persistent_two_level_sweep_plain(w, knot_ts, knot_us, naccept,
                                      saveat_arr, ct_ys, ct_y, ckpt_ts,
                                      ckpt_us, ckpt_ks, ckpt_dts, ckpt_qolds,
                                      *, t_end, rtol, atol, max_steps, stride,
-                                     dense_cap):
-    """Plain version of the two-level sweep."""
+                                     dense_cap, tier="fp32",
+                                     recompute_tier="fp32", grad_tier="fp32"):
+    """Plain version of the two-level sweep: the window replay at ``tier``
+    (the plain forward's), the recompute and the transposed products at
+    theirs."""
     knots = dict(knot_ts=knot_ts, knot_us=knot_us, ckpt_ts=ckpt_ts,
                  ckpt_us=ckpt_us, ckpt_ks=ckpt_ks, ckpt_dts=ckpt_dts,
                  ckpt_qolds=ckpt_qolds)
     return _plain_sweep(w, knots, naccept, saveat_arr, ct_ys, ct_y,
-                        t_end=t_end, rtol=rtol, atol=atol,
-                        max_steps=max_steps, stride=stride,
-                        dense_cap=dense_cap)
+                        (tier, recompute_tier, grad_tier), t_end=t_end,
+                        rtol=rtol, atol=atol, max_steps=max_steps,
+                        stride=stride, dense_cap=dense_cap)
 
 
 def _launch(w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y, tl=None,
-            return_replay=False, timing=None):
-    """One launch of kernel 7 or 8 (two-level with ``tl``); with ``timing``
-    (int64, ``lrnde_sweep_phases() + 1``) the instantiation with the
+            return_replay=False, timing=None, tiers=("fp32",) * 3):
+    """One launch of kernel 7 or 8 (two-level with ``tl``) at the (replay,
+    recompute, gradient) ``tiers``; with ``timing`` (int64,
+    ``lrnde_sweep_phases() + 1``; FP32 only) the instantiation with the
     compile-time clock, which fills it with CTA 0's nanoseconds per phase
     and the number of steps."""
+    rep, rec, grad = tiers
+    bits = tier_bits(replay=rep, recompute=rec, grad=grad)
+    if bits not in SWEEP_TIERS or (bits and timing is not None):
+        raise ValueError(f"adjoint_sweep: no kernel at replay {rep}, "
+                         f"recompute {rec}, gradients {grad}"
+                         + (" with a clock" if timing is not None else ""))
     ct_ys, ct_y = ct_ys.contiguous(), ct_y.contiguous()
     if not knot_us.is_contiguous():
         raise ValueError("knot_us: needs a contiguous buffer")
     B, F, H = check_operands(w, ct_y, *ct_ys, *knot_us[:1])
     dev = ct_y.device
     lib, plan = sweep_layout(B, F, H, "adjoint_sweep")
+    if (tl is not None and rep == "tf32"
+            and lib.lrnde_sweep_replay_rows(F, H) < 8):
+        raise ValueError(f"adjoint_sweep: (F, H) = ({F}, {H}): kernel 4's "
+                         "tiles fit no 8 rows of the TF32 replay")
     # the window replay's row blocks (slots) are the forward's
     n_blocks = -(-B // lib.lrnde_rows_per_block())
     two_level = tl is not None
@@ -244,12 +297,13 @@ def _launch(w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y, tl=None,
         ck, extra = [null] * 5, [null] * 4
         t_end = rtol = atol = 0.0
         max_steps = dense_cap = 0
-    entry = lib.lrnde_adjoint_sweep
-    clock = []
-    if timing is not None:
+    entry, lead, clock = lib.lrnde_adjoint_sweep, [], []
+    if bits:
+        entry, lead = lib.lrnde_adjoint_sweep_tiered, [bits]
+    elif timing is not None:
         entry, clock = lib.lrnde_adjoint_sweep_timed, [p(timing)]
     err = entry(
-        int(two_level), *[p(x) for x in w], p(knot_ts),
+        *lead, int(two_level), *[p(x) for x in w], p(knot_ts),
         p(knot_us), p(naccept), p(saveat), saveat.shape[0],
         p(ct_ys), p(ct_y), *ck, t_end, rtol, atol, max_steps,
         stride, dense_cap, p(a_u), p(a_k), p(d_w), p(scratch), p(part),
@@ -261,49 +315,67 @@ def _launch(w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y, tl=None,
 
 
 def persistent_stored_sweep(w: TDMLPWeights, knot_ts, knot_us, naccept,
-                            saveat_arr, ct_ys, ct_y):
+                            saveat_arr, ct_ys, ct_y, precision="highest",
+                            grad_precision="highest",
+                            recompute_precision="match"):
     """The dense sweep over ``naccept`` recorded steps (kernel 7) for CUDA
-    tensors; ``persistent_stored_sweep_plain`` for CPU tensors."""
+    tensors at the tiers (module docstring); ``persistent_stored_sweep_plain``
+    for CPU tensors."""
+    tiers = sweep_tiers(precision, grad_precision, recompute_precision,
+                        ct_y.device)
     if ct_y.device.type == "cpu":
         return persistent_stored_sweep_plain(
-            w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y)
-    out = _launch(w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y)
-    persistent_stored_sweep.launches += 1
+            w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y,
+            recompute_tier=tiers[1], grad_tier=tiers[2])
+    # no replay: the dense sweep takes the instantiation whose replay tier
+    # is its recompute's
+    tiers = (tiers[1], *tiers[1:])
+    out = _launch(w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y,
+                  tiers=tiers)
+    count_launch(persistent_stored_sweep, "/".join(tiers[1:]))
     return out
 
 
 persistent_stored_sweep.launches = 0
+persistent_stored_sweep.tier_launches = {}
 
 
 def persistent_two_level_sweep(w: TDMLPWeights, knot_ts, knot_us, naccept,
                                saveat_arr, ct_ys, ct_y, ckpt_ts, ckpt_us,
                                ckpt_ks, ckpt_dts, ckpt_qolds, *, t_end, rtol,
                                atol, max_steps, stride, dense_cap,
-                               return_replay=False):
+                               return_replay=False, precision="highest",
+                               grad_precision="highest",
+                               recompute_precision="match"):
     """The two-level sweep (kernel 8): dense when ``naccept <= dense_cap``,
     windowed replay from the checkpoints otherwise, chosen on the device.
     Valid only against a persistent forward of the same device kind, whose
     arithmetic the replay repeats. ``persistent_two_level_sweep_plain`` for
     CPU tensors. With ``return_replay`` (CUDA only) it also returns the
     replay buffer (stride + 1, B, F), which after a windowed sweep holds the
-    states replayed from checkpoint 0."""
+    states replayed from checkpoint 0. Tiers as in the module docstring: the
+    replay at ``precision``'s repeats a kernel-4 forward at the same tier."""
     tl = dict(ckpt_ts=ckpt_ts, ckpt_us=ckpt_us, ckpt_ks=ckpt_ks,
               ckpt_dts=ckpt_dts, ckpt_qolds=ckpt_qolds, t_end=t_end,
               rtol=rtol, atol=atol, max_steps=max_steps, stride=stride,
               dense_cap=dense_cap)
+    tiers = sweep_tiers(precision, grad_precision, recompute_precision,
+                        ct_y.device)
     if ct_y.device.type == "cpu":
         return persistent_two_level_sweep_plain(
             w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y, ckpt_ts,
             ckpt_us, ckpt_ks, ckpt_dts, ckpt_qolds, t_end=t_end, rtol=rtol,
             atol=atol, max_steps=max_steps, stride=stride,
-            dense_cap=dense_cap)
+            dense_cap=dense_cap, tier=tiers[0], recompute_tier=tiers[1],
+            grad_tier=tiers[2])
     out = _launch(w, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y, tl,
-                  return_replay)
-    persistent_two_level_sweep.launches += 1
+                  return_replay, tiers=tiers)
+    count_launch(persistent_two_level_sweep, "/".join(tiers))
     return out
 
 
 persistent_two_level_sweep.launches = 0
+persistent_two_level_sweep.tier_launches = {}
 
 
 # ---------------------------------------------------------------------------

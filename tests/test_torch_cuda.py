@@ -1577,3 +1577,146 @@ def test_k10_seed_in_device_memory_keeps_the_digest_on_card(cuda_device):
             saveat_arr=torch.tensor([0.5, 1.0], device=cuda_device),
             max_steps=10000, record_knots=True)
         cs.digest("K10", out)  # raises unless the stored digest
+
+
+# --------------------------------------------------- the TF32 tier (K1-K4,
+# K7, K8): each at precision None (the reference's default) against its
+# plain version at tier "tf32" on the same inputs. Both round every operand
+# of a product to TF32 (cvt.rna), whose products are exact in FP32, so they
+# differ only in their FP32 sums, which the tensor cores round toward zero:
+# a bias of up to K·2^-24 of a product's scale over its K terms, ``depth``
+# products in sequence adding up (chip_smoke.py::tf32_sum_tol).
+
+
+def _tier_launches(wrapper):
+    return dict(wrapper.tier_launches)
+
+
+def _sum_tol(depth, k=785):
+    return depth * k * 2.0 ** -24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 32, 16), (13, 40, 7), (512, 784, 100)])
+def test_tf32_kernels_match_plain_on_card(cuda_device, shape):
+    w, x = _card_setup(cuda_device, *shape)
+    before = _tier_launches(fused_tdmlp).get("tf32", 0)
+    y = fused_tdmlp(w, x, 0.3, precision=None)
+    assert _tier_launches(fused_tdmlp)["tf32"] == before + 1
+    assert _rel(y, tdmlp_plain(w, x, 0.3, "tf32")) <= _sum_tol(2)
+    assert torch.equal(y, fused_tdmlp(w, x, 0.3, precision="default"))
+    t = torch.tensor(0.2, device=cuda_device)
+    dt = torch.tensor(0.05, device=cuda_device)
+    k1 = tdmlp_plain(w, x, 0.2, "tf32")
+    ours = fused_tsit5_step(w, x, t, dt, k1, precision=None)
+    ref = tsit5_step_plain(w, x, t, dt, k1, "tf32")
+    for i, (a, b) in enumerate(zip(ours, ref)):
+        if i != 1:  # ũ cancels: held to dt·max|Δk| below
+            assert _rel(a, b) <= _sum_tol(12), i
+    dk = max(float((a - b).abs().max()) for a, b in zip(ours[2:8], ref[2:8]))
+    scale = max(float(b.abs().max()) for b in ref[2:8])
+    assert float((ours[1] - ref[1]).abs().max()) <= 0.05 * (dk + 1e-6 * scale)
+
+
+@pytest.mark.cuda
+def test_tf32_persistent_solve_on_card(cuda_device):
+    w, x = _card_setup(cuda_device, 64, 784, 100)
+    kw = dict(rtol=1e-4, atol=1e-4, max_steps=64,
+              saveat_arr=torch.tensor([0.0, 0.5, 1.0], device=cuda_device))
+    out = persistent_tsit5_solve(w, x, (0.0, 1.0), precision=None, **kw)
+    ref = persistent_tsit5_solve_plain(w, x, (0.0, 1.0), tier="tf32", **kw)
+    assert _rel(out["ys"], ref["ys"]) <= _sum_tol(2 * int(ref["nfe"]))
+    assert abs(int(out["naccept"]) - int(ref["naccept"])) <= 1
+    assert abs(int(out["nfe"]) - int(ref["nfe"])) <= 12
+    assert bool(out["success"]) and bool(ref["success"])
+    again = persistent_tsit5_solve(w, x, (0.0, 1.0), precision=None, **kw)
+    assert torch.equal(out["ys"], again["ys"])
+    with pytest.raises(ValueError, match="1e-4"):
+        persistent_tsit5_solve(w, x, (0.0, 1.0), precision=None,
+                               **{**kw, "rtol": 1e-6, "atol": 1e-6})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(13, 40, 7), (512, 784, 100)])
+@pytest.mark.parametrize("precision", [None, "highest"])
+def test_tf32_step_bwd_matches_plain_on_card(cuda_device, shape, precision):
+    """Kernel 3 with the reference's default-tier gradients, behind a TF32
+    or an FP32 recompute."""
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_step_bwd, fused_step_bwd_plain,
+    )
+
+    w, x = _card_setup(cuda_device, *shape)
+    t = torch.tensor(0.2, device=cuda_device)
+    dt = torch.tensor(0.05, device=cuda_device)
+    k1 = tdmlp_plain(w, x, t)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    cts = [torch.randn(x.shape, generator=g, device=cuda_device)
+           for _ in range(9)]
+    ours = fused_step_bwd(w, x, t, dt, k1, cts, precision=precision,
+                          grad_precision=None)
+    rec = "tf32" if precision is None else "fp32"
+    ref = fused_step_bwd_plain(w, x, t, dt, k1, cts, rec, "tf32")
+    for a, b in zip([ours[1], ours[2], *ours[0]], [ref[1], ref[2], *ref[0]]):
+        assert _rel(a, b) <= _sum_tol(25)
+    again = fused_step_bwd(w, x, t, dt, k1, cts, precision=precision,
+                           grad_precision=None)
+    for a, b in zip(again[0], ours[0]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_step_bwd(w, x, t, dt, k1, cts, precision=None,
+                       grad_precision="highest")
+
+
+@pytest.mark.cuda
+def test_tf32_sweeps_match_plain_on_card(cuda_device):
+    """Kernel 7 at TF32 over a TF32 forward's knots, kernel 8's TF32
+    gradients over an FP32 forward's, and kernel 8's replay at TF32, forced:
+    it repeats kernel 4's TF32 forward bitwise (kernel 4's attempt inside
+    the sweep), so its gradients equal the dense sweep's."""
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_stored_sweep, persistent_stored_sweep_plain,
+        persistent_two_level_sweep,
+    )
+
+    w, x = _card_setup(cuda_device, 64, 784, 100)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    ct_ys = torch.randn((2, 64, 784), generator=g, device=cuda_device)
+    ct_y = torch.randn((64, 784), generator=g, device=cuda_device)
+    saveat = torch.tensor([0.5, 1.0], device=cuda_device)
+    tf = dict(precision=None, grad_precision=None)
+
+    def args(r):
+        return (w, r["knot_ts"], r["knot_us"], r["naccept"], saveat, ct_ys,
+                ct_y)
+
+    def flat(o):
+        return [o[0], o[1], *o[2]]
+
+    rec = _recorded(w, x, 1e-4, knot_stride=4, precision=None)
+    n = int(rec["naccept"])
+    dense = persistent_stored_sweep(*args(rec), **tf)
+    ref = persistent_stored_sweep_plain(*args(rec), recompute_tier="tf32",
+                                        grad_tier="tf32")
+    for a, b in zip(flat(dense), flat(ref)):  # 27 products a step, chained
+        assert _rel(a, b) <= _sum_tol(27 * n)
+    win, replay = persistent_two_level_sweep(
+        *args(rec), rec["ckpt_ts"], rec["ckpt_us"], rec["ckpt_ks"],
+        rec["ckpt_dts"], rec["ckpt_qolds"], t_end=1.0, rtol=1e-4, atol=1e-4,
+        max_steps=64, stride=4, dense_cap=2, return_replay=True, **tf)
+    assert n > 2
+    m = min(n, 4)
+    assert torch.equal(replay[:m + 1], rec["knot_us"][:m + 1])
+    for a, b in zip(flat(win), flat(dense)):
+        assert _rel(a, b) <= 1e-6
+    rec = _recorded(w, x, 1e-6)
+    n = int(rec["naccept"])
+    for rp, rec_tier in (("highest", "fp32"), (None, "tf32")):
+        ours = persistent_stored_sweep(*args(rec), precision="highest",
+                                       grad_precision=None,
+                                       recompute_precision=rp)
+        ref = persistent_stored_sweep_plain(*args(rec),
+                                            recompute_tier=rec_tier,
+                                            grad_tier="tf32")
+        for a, b in zip(flat(ours), flat(ref)):
+            assert _rel(a, b) <= _sum_tol(27 * n)
