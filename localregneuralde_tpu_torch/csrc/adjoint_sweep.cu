@@ -558,12 +558,12 @@ extern "C" int lrnde_adjoint_sweep(
 }
 
 // lrnde_adjoint_sweep at the product tiers `tiers` (sweep_cluster.cuh's
-// kTier bits): 0 (all FP32), kTierGrad (the reference's default-tier
-// gradients behind an FP32 recompute and replay), kTierRecompute | kTierGrad
-// (also the recompute: grad_precision='default'), or all three (the forward
-// at TF32: its replay too); any other value, or a TF32 replay whose tiles
-// fit no 8 rows (lrnde_sweep_replay_rows = 0), fails with
-// cudaErrorInvalidValue.
+// kTier bits; all FP32 is lrnde_adjoint_sweep): kTierGrad (the reference's
+// default-tier gradients behind an FP32 recompute and replay),
+// kTierRecompute | kTierGrad (also the recompute: grad_precision='default'),
+// or all three (the forward at TF32: its replay too); any other value, or a
+// TF32 replay whose tiles fit no 8 rows (lrnde_sweep_replay_rows = 0), fails
+// with cudaErrorInvalidValue.
 extern "C" int lrnde_adjoint_sweep_tiered(
     int tiers, int two_level, const float* w1, const float* b1,
     const float* w2, const float* b2, const float* knot_ts,
@@ -584,8 +584,6 @@ extern "C" int lrnde_adjoint_sweep_tiered(
                           d_w, scratch, part, slots, barrier, local_ts,       \
                           local_us, B, F, H, inv_n, nullptr, stream)
   switch (tiers) {
-    case 0:
-      return LRNDE_SWEEP(0);
     case kTierGrad:
       return LRNDE_SWEEP(kTierGrad);
     case kTierRecompute | kTierGrad:

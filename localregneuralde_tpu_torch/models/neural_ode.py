@@ -100,6 +100,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import dataclasses
+import functools
 import warnings
 
 import torch
@@ -833,34 +834,19 @@ class NeuralODE(Module):
         return tsit5_step(dyn, u1, t1, dt_r, k1, st), dt_r
 
 
-def tdmlp_step_vjp(F: int, H: int):
-    """The TD-MLP step's VJP at (F, H): kernel 3 where its transposed step
-    fits a CTA, else its plain twin. The reference's VJP kernel takes any
-    width (its tile shrinks); kernel 3 has no plan for a wide one yet
-    (README, documented deviations)."""
-    from ..ops.cuda import (
-        fused_step_bwd, fused_step_bwd_plain, step_bwd_feasible,
-    )
-
-    return fused_step_bwd if step_bwd_feasible(F, H) else fused_step_bwd_plain
-
-
 def step_vjp_at(F: int, H: int, precision, grad_precision):
-    """``tdmlp_step_vjp(F, H)`` with its stage recompute at ``precision``
-    and its transposed products at ``grad_precision``: ``vjp(w, u, t, dt,
-    k1, cts)``."""
-    from ..ops.cuda import fused_step_bwd
-    from ..ops.cuda.fused_mlp_bwd import step_bwd_tiers
+    """The TD-MLP step's VJP at (F, H), ``vjp(w, u, t, dt, k1, cts)``, its
+    stage recompute at ``precision`` and its transposed products at
+    ``grad_precision``: kernel 3 where its transposed step fits a CTA, else
+    its plain twin. The reference's VJP kernel takes any width (its tile
+    shrinks); kernel 3 has no plan for a wide one yet (README, documented
+    deviations)."""
+    from ..ops.cuda import fused_step_bwd, step_bwd_feasible
+    from ..ops.cuda.fused_mlp_bwd import step_bwd_plain_at
 
-    fn = tdmlp_step_vjp(F, H)
-
-    def vjp(w, u, t, dt, k1, cts):
-        if fn is fused_step_bwd:
-            return fn(w, u, t, dt, k1, cts, precision, grad_precision)
-        return fn(w, u, t, dt, k1, cts,
-                  *step_bwd_tiers(precision, grad_precision, u.device))
-
-    return vjp
+    fn = fused_step_bwd if step_bwd_feasible(F, H) else step_bwd_plain_at
+    return functools.partial(fn, precision=precision,
+                             grad_precision=grad_precision)
 
 
 def _solution(out, f_state) -> ODESolution:

@@ -62,16 +62,36 @@ def product_tier(precision, device) -> str:
     the backend default of an FP32 product is TF32 on the tensor cores;
     ``"fp32"`` otherwise ('highest', 'high', and every tier on the CPU,
     where JAX also computes FP32). The TF32 tier rounds each operand with
-    ``round_tf32`` and accumulates in FP32."""
+    ``round_tf32`` and accumulates in FP32. Inside ``tiers_of(d)`` the
+    device is ``d``."""
     if precision == "auto":
         raise ValueError("product_tier takes a resolved precision: "
                          "resolve_solver_precision('auto', rtol) first")
     if precision not in (None, "default", "high", "highest"):
         raise ValueError(
             f"unknown precision {precision!r}; one of default/high/highest")
+    device = _TIER_DEVICE.get() or device
     if precision in (None, "default") and torch.device(device).type == "cuda":
         return "tf32"
     return "fp32"
+
+
+_TIER_DEVICE = contextvars.ContextVar("tier_device", default=None)
+
+
+@contextlib.contextmanager
+def tiers_of(device):
+    """Inside the block ``product_tier`` answers for ``device`` whatever
+    device a call's tensors lie on: a CPU run inside ``tiers_of("cuda")``
+    computes every product at the tier the card computes it at (the TF32
+    tier's operands rounded by ``round_tf32``, bitwise the card's), so it
+    is a plain reference at the card's tiers. Tiers are resolved where a
+    product is set up: keep the backward inside the block too."""
+    token = _TIER_DEVICE.set(device)
+    try:
+        yield
+    finally:
+        _TIER_DEVICE.reset(token)
 
 
 def check_product_tier(tier: str, rtol: float) -> None:
@@ -131,11 +151,6 @@ def tier_matmul(a, b, tier: str = "fp32", grad_tier: Optional[str] = None):
     if tier == grad_tier == "fp32":
         return a @ b
     return TierMatmul.apply(a, b, tier, grad_tier)
-
-
-def tf32_matmul(a, b):
-    """``a @ b`` at the TF32 tier, forward and backward."""
-    return TierMatmul.apply(a, b, "tf32", "tf32")
 
 
 _TIER = contextvars.ContextVar("product_tier", default="fp32")

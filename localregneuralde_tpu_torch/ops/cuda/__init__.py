@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
 
-Every wrapper keeps a plain-integer ``launches`` counter of kernel launches;
-``launch_counts`` reads them and ``reset_launch_counts`` zeroes them. The
-TD-MLP family's wrappers, which launch at the FP32 or the TF32 tier, also
-count by tier (``tier_launch_counts``).
+Every wrapper counts its kernel launches: a plain-integer ``launches``, or,
+for the TD-MLP family's wrappers, which launch at the FP32 or the TF32
+tier, ``tier_launches`` by tier (``tier_launch_counts``).
+``launch_counts`` reads them (a tiered wrapper's sum) and
+``reset_launch_counts`` zeroes them.
 """
 from .conv_orient import conv_orient_im2col, conv_orient_plain, conv_orient_tap
 from .fused_conv import (
@@ -92,7 +93,9 @@ KERNELS = {
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: (sum(fn.tier_launches.values())
+                   if hasattr(fn, "tier_launches") else fn.launches)
+            for name, fn in KERNELS.items()}
 
 
 def tier_launch_counts() -> dict:
@@ -106,9 +109,10 @@ def tier_launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
-        fn.launches = 0
         if hasattr(fn, "tier_launches"):
             fn.tier_launches.clear()
+        else:
+            fn.launches = 0
 
 
 __all__ = [

@@ -17,8 +17,8 @@ row a cluster, far past any the first port took.
 
 Each wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor; there is no fallback between the
-two. ``<wrapper>.launches`` counts the kernel launches, and
-``<wrapper>.tier_launches`` the same by product tier. ``FusedTDMLP``
+two. ``<wrapper>.tier_launches`` counts the kernel launches by product
+tier (``launch_counts`` sums them). ``FusedTDMLP``
 makes the evaluation differentiable: its backward is the autograd VJP of
 ``tdmlp_plain`` at the same tier, recomputed, as the reference's
 ``custom_vjp`` transposes its pure twin (``fused_mlp.py:196-216`` there).
@@ -106,7 +106,6 @@ def device_scalars(values, like: torch.Tensor) -> torch.Tensor:
 def count_launch(wrapper, tier: str) -> None:
     """One more launch of ``wrapper``'s kernel, at ``tier`` (a tier name, or
     the tiers of a kernel that mixes them joined by ``/``)."""
-    wrapper.launches += 1
     wrapper.tier_launches[tier] = wrapper.tier_launches.get(tier, 0) + 1
 
 
@@ -139,7 +138,6 @@ def tdmlp_at(w: TDMLPWeights, x: torch.Tensor, s, tier: str) -> torch.Tensor:
     return out
 
 
-fused_tdmlp.launches = 0
 fused_tdmlp.tier_launches = {}
 
 
@@ -169,7 +167,6 @@ def fused_tsit5_step(w: TDMLPWeights, u, t, dt, k1, precision="highest"):
     return tuple(outs)
 
 
-fused_tsit5_step.launches = 0
 fused_tsit5_step.tier_launches = {}
 
 

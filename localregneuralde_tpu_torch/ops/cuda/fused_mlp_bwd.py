@@ -62,6 +62,15 @@ def step_bwd_tiers(precision, grad_precision, device) -> tuple:
     return rec, grad
 
 
+def step_bwd_plain_at(w: TDMLPWeights, u, t, dt, k1, cts,
+                      precision="highest", grad_precision="match"):
+    """``fused_step_bwd_plain`` at the tiers ``precision`` and
+    ``grad_precision`` resolve to on ``u``'s device."""
+    return fused_step_bwd_plain(
+        w, u, t, dt, k1, cts,
+        *step_bwd_tiers(precision, grad_precision, u.device))
+
+
 def fused_step_bwd_plain(w: TDMLPWeights, u, t, dt, k1, cts,
                          tier: str = "fp32", grad_tier=None):
     """The plain version: the autograd VJP of ``tsit5_step_plain`` for the
@@ -101,9 +110,10 @@ def fused_step_bwd(w: TDMLPWeights, u, t, dt, k1, cts, precision="highest",
     ``grad_precision``. The CUDA kernel for CUDA tensors (FP32 throughout,
     TF32 gradients, or TF32 throughout; another mix raises ValueError),
     ``fused_step_bwd_plain`` for CPU tensors."""
-    rec, grad = step_bwd_tiers(precision, grad_precision, u.device)
     if u.device.type == "cpu":
-        return fused_step_bwd_plain(w, u, t, dt, k1, cts, rec, grad)
+        return step_bwd_plain_at(w, u, t, dt, k1, cts, precision,
+                                 grad_precision)
+    rec, grad = step_bwd_tiers(precision, grad_precision, u.device)
     from .fused_solve_bwd import sweep_layout
 
     bits = tier_bits(recompute=rec, grad=grad)
@@ -131,7 +141,6 @@ def fused_step_bwd(w: TDMLPWeights, u, t, dt, k1, cts, precision="highest",
     return split_weight_grad(d_w, F, H), d_u, d_k1
 
 
-fused_step_bwd.launches = 0
 fused_step_bwd.tier_launches = {}
 
 

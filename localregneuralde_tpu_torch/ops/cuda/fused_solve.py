@@ -497,7 +497,6 @@ def _launch_solve(w, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
     )
 
 
-persistent_tsit5_solve.launches = 0
 persistent_tsit5_solve.tier_launches = {}
 
 

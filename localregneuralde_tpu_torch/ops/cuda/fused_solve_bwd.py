@@ -336,7 +336,6 @@ def persistent_stored_sweep(w: TDMLPWeights, knot_ts, knot_us, naccept,
     return out
 
 
-persistent_stored_sweep.launches = 0
 persistent_stored_sweep.tier_launches = {}
 
 
@@ -374,7 +373,6 @@ def persistent_two_level_sweep(w: TDMLPWeights, knot_ts, knot_us, naccept,
     return out
 
 
-persistent_two_level_sweep.launches = 0
 persistent_two_level_sweep.tier_launches = {}
 
 

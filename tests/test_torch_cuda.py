@@ -78,6 +78,11 @@ def _rel(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
+def _launches(wrapper):
+    """A TD-MLP wrapper's kernel launches, summed over its tiers."""
+    return sum(wrapper.tier_launches.values())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 32, 16), (13, 40, 7), (512, 784, 100)])
 def test_step_bwd_matches_plain_on_card(cuda_device, shape):
@@ -1224,12 +1229,12 @@ def test_cluster_tdmlp_and_step_on_card(cuda_device, shape):
         batch, plan.clusters * plan.rows_max)
     t = torch.tensor(0.2, device=cuda_device)
     dt = torch.tensor(0.05, device=cuda_device)
-    before = (fused_tdmlp.launches, fused_tsit5_step.launches)
+    before = (_launches(fused_tdmlp), _launches(fused_tsit5_step))
     y = fused_tdmlp(w, x, 0.3)
     k1 = fused_tdmlp(w, x, t)
     out = fused_tsit5_step(w, x, t, dt, k1)
-    assert (fused_tdmlp.launches - before[0],
-            fused_tsit5_step.launches - before[1]) == (2, 1)
+    assert (_launches(fused_tdmlp) - before[0],
+            _launches(fused_tsit5_step) - before[1]) == (2, 1)
     torch.testing.assert_close(y, tdmlp_plain(w, x, 0.3), atol=1e-5, rtol=0)
     for a, b in zip(out, tsit5_step_plain(w, x, t, dt, k1)):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
@@ -1412,7 +1417,7 @@ def test_wide_tdmlp_trains_on_the_plain_route(cuda_device):
     names = ("persistent_tsit5_solve", "persistent_stored_sweep",
              "persistent_two_level_sweep", "fused_step_bwd",
              "fused_tsit5_step")
-    before = {n: getattr(ops.cuda, n).launches for n in names}
+    before = {n: _launches(getattr(ops.cuda, n)) for n in names}
     for i in range(2):
         batch = (torch.tensor(x_tr[i * 64:(i + 1) * 64], device=cuda_device),
                  torch.tensor(one_hot(y_tr[i * 64:(i + 1) * 64], 10),
@@ -1420,7 +1425,7 @@ def test_wide_tdmlp_trains_on_the_plain_route(cuda_device):
         ts, loss, stats = step(ts, batch, w_reg(i + 1), sched(i + 1))
         assert bool(torch.isfinite(loss))
         assert all(bool(torch.isfinite(p).all()) for p in ts.params.values())
-    launched = {n: getattr(ops.cuda, n).launches - before[n] for n in names}
+    launched = {n: _launches(getattr(ops.cuda, n)) - before[n] for n in names}
     assert launched["fused_tsit5_step"] > 0
     assert all(launched[n] == 0 for n in names[:4]), launched
 
@@ -1596,6 +1601,21 @@ def _sum_tol(depth, k=785):
     return depth * k * 2.0 ** -24
 
 
+def _on_cpu(args):
+    return tuple(type(a)(*[t.cpu() for t in a]) if isinstance(a, tuple)
+                 else a.cpu() for a in args)
+
+
+def _against_plains(ours, plain_card, plain_cpu):
+    """A TF32 sweep against its plain version on the card and on the CPU.
+    TF32 rounds every operand again after each sum, so two FP32 sum orders
+    of one TF32 computation part by TF32's rounding (a carried cotangent
+    ~1e-3 or more): each output is held to twice the two plains' distance,
+    and never below one swept step's truncated sums."""
+    for a, c, p in zip(ours, plain_card, plain_cpu):
+        assert _rel(a.cpu(), p) <= max(2 * _rel(c.cpu(), p), _sum_tol(27))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 32, 16), (13, 40, 7), (512, 784, 100)])
 def test_tf32_kernels_match_plain_on_card(cuda_device, shape):
@@ -1625,7 +1645,11 @@ def test_tf32_persistent_solve_on_card(cuda_device):
               saveat_arr=torch.tensor([0.0, 0.5, 1.0], device=cuda_device))
     out = persistent_tsit5_solve(w, x, (0.0, 1.0), precision=None, **kw)
     ref = persistent_tsit5_solve_plain(w, x, (0.0, 1.0), tier="tf32", **kw)
-    assert _rel(out["ys"], ref["ys"]) <= _sum_tol(2 * int(ref["nfe"]))
+    # the step controller reads TF32's noise in ũ, so the kernel and the
+    # loop take steps of their own and each solve's TF32 rounding is its
+    # own: the state, a dt-weighted sum of evaluations, moves by one
+    # evaluation's (two products, both operands rounded by 2^-11)
+    assert _rel(out["ys"], ref["ys"]) <= 2 * 2 * 2.0 ** -11
     assert abs(int(out["naccept"]) - int(ref["naccept"])) <= 1
     assert abs(int(out["nfe"]) - int(ref["nfe"])) <= 12
     assert bool(out["success"]) and bool(ref["success"])
@@ -1696,10 +1720,10 @@ def test_tf32_sweeps_match_plain_on_card(cuda_device):
     rec = _recorded(w, x, 1e-4, knot_stride=4, precision=None)
     n = int(rec["naccept"])
     dense = persistent_stored_sweep(*args(rec), **tf)
-    ref = persistent_stored_sweep_plain(*args(rec), recompute_tier="tf32",
-                                        grad_tier="tf32")
-    for a, b in zip(flat(dense), flat(ref)):  # 27 products a step, chained
-        assert _rel(a, b) <= _sum_tol(27 * n)
+    ref, cpu = (persistent_stored_sweep_plain(*a, recompute_tier="tf32",
+                                              grad_tier="tf32")
+                for a in (args(rec), _on_cpu(args(rec))))
+    _against_plains(flat(dense), flat(ref), flat(cpu))
     win, replay = persistent_two_level_sweep(
         *args(rec), rec["ckpt_ts"], rec["ckpt_us"], rec["ckpt_ks"],
         rec["ckpt_dts"], rec["ckpt_qolds"], t_end=1.0, rtol=1e-4, atol=1e-4,
@@ -1710,13 +1734,11 @@ def test_tf32_sweeps_match_plain_on_card(cuda_device):
     for a, b in zip(flat(win), flat(dense)):
         assert _rel(a, b) <= 1e-6
     rec = _recorded(w, x, 1e-6)
-    n = int(rec["naccept"])
     for rp, rec_tier in (("highest", "fp32"), (None, "tf32")):
         ours = persistent_stored_sweep(*args(rec), precision="highest",
                                        grad_precision=None,
                                        recompute_precision=rp)
-        ref = persistent_stored_sweep_plain(*args(rec),
-                                            recompute_tier=rec_tier,
-                                            grad_tier="tf32")
-        for a, b in zip(flat(ours), flat(ref)):
-            assert _rel(a, b) <= _sum_tol(27 * n)
+        ref, cpu = (persistent_stored_sweep_plain(*a, recompute_tier=rec_tier,
+                                                  grad_tier="tf32")
+                    for a in (args(rec), _on_cpu(args(rec))))
+        _against_plains(flat(ours), flat(ref), flat(cpu))

@@ -12,6 +12,7 @@ its scale to first order, the tolerance of every comparison across tiers
 below. ``round_tf32`` is held bitwise against ``jax.lax.reduce_precision``,
 which rounds ties to even where ``cvt.rna`` rounds them away from zero.
 """
+import contextlib
 import warnings
 
 import jax
@@ -38,7 +39,7 @@ from localregneuralde_tpu_torch.models import NeuralODE, TDChain, neural_ode
 from localregneuralde_tpu_torch.nn import Dense
 from localregneuralde_tpu_torch.nn.basic import (
     check_product_tier, product_tier, product_tier_scope,
-    resolve_solver_precision, round_tf32, tf32_matmul, tier_matmul,
+    resolve_solver_precision, round_tf32, tier_matmul, tiers_of,
 )
 from localregneuralde_tpu_torch.ops.cuda import (
     TDMLPWeights, fused_step_bwd_plain, persistent_stored_sweep_plain,
@@ -138,6 +139,57 @@ def test_product_tier(precision, rtol, device):
         product_tier("auto", device)
 
 
+@pytest.mark.parametrize("precision", [None, "default", "high", "highest"])
+def test_tiers_of_answers_for_the_named_device(precision):
+    """Inside ``tiers_of("cuda")`` a CPU tensor's products take the card's
+    tier; the scope nests and restores."""
+    cuda = torch.device("cuda")
+    assert product_tier(precision, "cpu") == "fp32"
+    with tiers_of("cuda"):
+        assert product_tier(precision, "cpu") == product_tier(precision,
+                                                              cuda)
+        with tiers_of("cpu"):
+            assert product_tier(precision, cuda) == "fp32"
+        assert product_tier(precision, "cpu") == product_tier(precision,
+                                                              cuda)
+    assert product_tier(precision, "cpu") == "fp32"
+
+
+def _node_grads(use_pallas, precision, rtol, scope):
+    torch.manual_seed(0)
+    node = NeuralODE(TDChain(Dense(F + 1, H, "tanh"), Dense(H + 1, F)),
+                     rtol=rtol, atol=rtol, max_steps=256, precision=precision,
+                     regularize="none", use_pallas=use_pallas)
+    x = torch.tensor(_weights()[2])
+    params = list(node.model.parameters())
+    with scope:
+        sol, _ = node(x, node.init_state(), training=True)
+        grads = torch.autograd.grad((sol.ys ** 2).sum(), params)
+    return sol.ys.detach(), grads
+
+
+@pytest.mark.parametrize("use_pallas", ["on", "off"])
+def test_tiers_of_routes_a_cpu_node_as_the_card(use_pallas):
+    """A CPU node inside ``tiers_of("cuda")`` routes the tiers as the card
+    does. At rtol 1e-6 ('auto' is FP32) the forward is bitwise the FP32
+    one; the kernel route's cotangent and weight-gradient products are TF32
+    (the reference's default tier), so its gradients leave the FP32 ones
+    by TF32's rounding, while the plain route transposes at the forward's
+    tier, bitwise FP32. At rtol 1e-3 ('auto' is the default tier) the
+    forward moves too."""
+    fp = _node_grads(use_pallas, "auto", 1e-6, contextlib.nullcontext())
+    card = _node_grads(use_pallas, "auto", 1e-6, tiers_of("cuda"))
+    assert torch.equal(card[0], fp[0])
+    same = [torch.equal(a, b) for a, b in zip(card[1], fp[1])]
+    assert all(same) == (use_pallas == "off")
+    assert max(_rel(a, b) for a, b in zip(card[1], fp[1])) <= tf32_tol(13)
+    fp = _node_grads(use_pallas, "auto", 1e-3, contextlib.nullcontext())
+    card = _node_grads(use_pallas, "auto", 1e-3, tiers_of("cuda"))
+    # the steps differ with the tier: one evaluation's TF32 rounding
+    assert not torch.equal(card[0], fp[0])
+    assert _rel(card[0], fp[0]) <= tf32_tol(2)
+
+
 def test_tf32_forward_refuses_tight_tolerances():
     """A forward at the TF32 tier below rtol 1e-4 raises (the reference
     saturates max_steps there); FP32 and rtol 1e-4 pass."""
@@ -178,12 +230,13 @@ def _rounded_product(ours, a, b):
 
 
 def test_tf32_matmul_backward_is_the_rounded_products():
-    """Forward and backward each round their operands."""
+    """``tier_matmul`` at TF32: forward and backward each round their
+    operands."""
     g = torch.Generator().manual_seed(0)
     a = torch.randn(9, 37, generator=g, requires_grad=True)
     b = torch.randn(37, 5, generator=g, requires_grad=True)
     ct = torch.randn(9, 5, generator=g)
-    y = tf32_matmul(a, b)
+    y = tier_matmul(a, b, "tf32")
     y.backward(ct)
     assert _rounded_product(y, a, b)
     assert _rounded_product(a.grad, ct, b.detach().T)

@@ -23,10 +23,10 @@ from localregneuralde_tpu_torch.models import NeuralODE, TDChain, neural_ode
 from localregneuralde_tpu_torch.nn import Dense
 from localregneuralde_tpu_torch.ops.cuda import (
     fused_step_bwd,
-    fused_step_bwd_plain,
     step_bwd_feasible,
     sweep_feasible,
 )
+from localregneuralde_tpu_torch.ops.cuda.fused_mlp_bwd import step_bwd_plain_at
 from localregneuralde_tpu_torch.ops.cuda.fused_solve_bwd import (
     SWEEP_MAX_SAVE,
     sweep_layout,
@@ -60,7 +60,8 @@ def test_wide_route_declines_solve_and_sweep(F, H):
 @pytest.mark.parametrize("F, H", WIDE)
 def test_wide_step_vjp_takes_its_twin(F, H):
     assert not step_bwd_feasible(F, H)
-    assert neural_ode.tdmlp_step_vjp(F, H) is fused_step_bwd_plain
+    assert neural_ode.step_vjp_at(F, H, "highest", "match").func is (
+        step_bwd_plain_at)
 
 
 def test_mlp_yaml_width_keeps_the_kernels():
@@ -68,7 +69,8 @@ def test_mlp_yaml_width_keeps_the_kernels():
     assert sweep_feasible(512, 784, 100, 2)
     kw = _route(784, 100)
     assert "persistent_fn" in kw and "sweep_fn" in kw
-    assert neural_ode.tdmlp_step_vjp(784, 100) is fused_step_bwd
+    assert neural_ode.step_vjp_at(784, 100, "highest", "match").func is (
+        fused_step_bwd)
 
 
 def test_sweep_limits():
