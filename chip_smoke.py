@@ -58,14 +58,16 @@ on the card:
     model's own augmenter and BatchNorm: the step in training mode, in eval
     mode with the running stats and with batch statistics, the VJP, both
     bitwise deterministic, and the plain step in FP32 against FP64;
-13. serves ``cnn.yaml`` through ``make_eval_step`` (three batches of 32) and
-    trains it for three steps per arm (``regularize`` none and unbiased)
-    through ``make_train_step``, with launches per batch and step, and holds
-    the first step's gradients and BatchNorm state against the plain path on
-    the card (each step-kernel call's EMA chain against the plain step's, and
-    each VJP-kernel call of the sweep, with the FP32 plain VJP, against the
-    FP64 one on the same knots) and the logits of four images against the
-    CPU;
+13. serves ``cnn.yaml`` as shipped (its ``'auto'`` takes the TF32 tier at
+    its rtol 1e-4) through ``make_eval_step`` (three batches of 32)
+    and trains it for three steps per arm (``regularize`` none and unbiased)
+    through ``make_train_step``, with launches per batch and step (and by
+    tier), and holds the first step's gradients and BatchNorm state against
+    the plain path on the card at the same tiers (each step-kernel call's
+    EMA chain against the plain step's at its tier, and each VJP-kernel call
+    of the sweep against the plain VJP at its tiers, or with FP32 products
+    against the FP64 one on the same knots) and the logits of four images
+    against the CPU at the card's tiers;
 14. holds the score samplers' kernels against their plain versions at the
     score demo's width (B = 4096, F = 2, TDChain 2 -> 64 -> 64 -> 2, random
     weights from seed 0): the reverse VP-SDE solve (kernel 11, SOSRI at
@@ -121,7 +123,19 @@ on the card:
     also the K-step capture of both paths. The model routes' TF32 gates
     (``logits_tol``, ``grads_tol``) bound one evaluation or one swept step,
     never their sum; the serving and training phases (4 and 6) hold the
-    card against the CPU at the card's tiers too.
+    card against the CPU at the card's tiers too. Then the conv family at
+    TF32 (``[tf32 conv ...]``): kernel 13 in its three modes and kernel 14
+    at both of its routes' tiers (TF32 throughout; FP32 recompute with TF32
+    gradients) as accurate against float64 as their TF32 plain versions
+    (``as_accurate``) and against FP32 across tiers, bitwise
+    repeatable, their five digests, device times beside the FP32
+    instantiations; the conv core's orientations at TF32 against cuDNN FP32
+    on rounded operands, timed beside the FFMA core and cuDNN's own TF32
+    (``{"conv_core_tf32": [...]}``); ``cnn.yaml``'s serving batch and a
+    ``none`` and an ``unbiased`` train step through ``'auto'`` and
+    ``'highest'``, each against the CPU at the card's tiers, with launches
+    by tier; with ``--only=tf32`` also ``[capture cifar]`` and ``[cifar
+    repeat]`` (bitwise at TF32).
 
 Beside those: each persistent kernel's outputs (kernels 4 at both
 tolerances, 5, 6, 8's replay and its gradients, 9, 10, 11 and 12, and
@@ -170,7 +184,8 @@ serving and training paths (``[slice ...]``, ``[train ...]``) and
 MNIST-SDE train steps (``[sde train ...]``), ``cifar`` the CIFAR-10
 serving and training paths (``[cifar ...]``), ``capture`` the K-step
 train calls (``[capture ...]``) and ``tf32`` the TF32 tier (``[tf32
-...]`` and the capture of the TD-MLP paths).
+...]``, ``[tf32 conv ...]``, the capture of the TD-MLP and CIFAR paths and
+``[cifar repeat]``).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
 kernel, the ``mlp.yaml`` serving batch by part (``[profile serve]``), the
@@ -179,8 +194,9 @@ step's kernels.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound (the TD-MLP
-family's at each tier: FP32 and ``_tf32`` rows, kernels 3, 7 and 8 by
-recompute and gradient tiers, launches by tier from the paths). A bound is
+and conv families' at each tier: FP32 and ``_tf32`` rows, kernels 3, 7, 8
+and 14 by recompute and gradient tiers, launches by tier from the paths).
+A bound is
 the larger of the kernel's product FLOPs (counted from its shapes and this
 run's step counts) over the H100's 67 TFLOP/s FP32 or 495 TFLOP/s TF32,
 each product at its tier's peak, and the bytes it must move (each input
@@ -190,6 +206,7 @@ too (``tree_bound``). Any
 failed check exits non-zero without that line, as does a machine without a
 CUDA device.
 """
+import contextlib
 import functools
 import gc
 import hashlib
@@ -312,28 +329,53 @@ EVAL_PRODUCTS = 2        # the products of one dynamics evaluation
 GRAD_PRODUCTS = 13       # the cotangent and weight-gradient products of one
                          # transposed step
 STEP_BWD_PRODUCTS = 27   # those and the stage recompute's 14
+# the conv family's (kernels 13 and 14): three convs an evaluation, six
+# evaluations a step; a transposed step's reverse chain (three data-gradient
+# products an evaluation and a weight gradient's) and with its recompute
+CONV_EVAL_PRODUCTS = 3
+CONV_STEP_PRODUCTS = 18
+CONV_GRAD_PRODUCTS = 19
+CONV_STEP_BWD_PRODUCTS = 37
+CONV_DEPTHS = dict(eval_products=CONV_EVAL_PRODUCTS,
+                   grad_products=CONV_GRAD_PRODUCTS,
+                   step_bwd_products=CONV_STEP_BWD_PRODUCTS)
 
 
-def logits_tol(tiers_a, tiers_b):
+def logits_tol(tiers_a, tiers_b, eval_products=EVAL_PRODUCTS, **_):
     """(tolerance, relative?) of two routes' logits at (forward, gradient)
     tiers ``tiers_a`` and ``tiers_b`` (``node_tiers``): FP32 forwards hold
     1e-4 max-abs; with a TF32 forward on either side, one evaluation's TF32
-    rounding relative to the logits' scale, ``tf32_tol(2)``."""
+    rounding relative to the logits' scale, ``tf32_tol(eval_products)``
+    (the TD-MLP's two, the conv family's three)."""
     if tiers_a[0] == tiers_b[0] == "fp32":
         return 1e-4, False
-    return tf32_tol(EVAL_PRODUCTS), True
+    return tf32_tol(eval_products), True
 
 
-def grads_tol(tiers_a, tiers_b, fp32_tol=1e-3, tf32_recompute=False):
+def cross_entropy_tol(tiers_a, tiers_b, logits, **depths):
+    """The cross-entropy's tolerance between two routes: CE_TOL; with a
+    TF32 forward on either side at least twice the logits' (a softmax
+    cross-entropy moves by at most twice its logits' largest change) at
+    the scale of ``logits``."""
+    tol, rel = logits_tol(tiers_a, tiers_b, **depths)
+    if not rel:
+        return CE_TOL
+    return max(CE_TOL, 2 * tol * float(logits.abs().max()))
+
+
+def grads_tol(tiers_a, tiers_b, fp32_tol=1e-3, tf32_recompute=False,
+              grad_products=GRAD_PRODUCTS,
+              step_bwd_products=STEP_BWD_PRODUCTS, **_):
     """The relative tolerance of two routes' gradients at (forward,
     gradient) tiers ``tiers_a`` and ``tiers_b``: ``fp32_tol`` when every
     product is FP32; else, same tiers or not, one transposed step's TF32
-    rounding: its 13 gradient products where either side's are TF32, and
-    the stage recompute's 14 where it is TF32 (a TF32 forward's, or
-    ``tf32_recompute``: grad_precision 'default'), ``fp32_tol`` at least."""
-    depth = GRAD_PRODUCTS if "tf32" in (tiers_a[1], tiers_b[1]) else 0
+    rounding: its gradient products (the TD-MLP's 13, the conv family's 19)
+    where either side's are TF32, and the stage recompute's (14, 18) where
+    it is TF32 (a TF32 forward's, or ``tf32_recompute``: grad_precision
+    'default'), ``fp32_tol`` at least."""
+    depth = grad_products if "tf32" in (tiers_a[1], tiers_b[1]) else 0
     if tf32_recompute or "tf32" in (tiers_a[0], tiers_b[0]):
-        depth += STEP_BWD_PRODUCTS - GRAD_PRODUCTS
+        depth += step_bwd_products - grad_products
     return max(fp32_tol, tf32_tol(depth)) if depth else fp32_tol
 
 
@@ -677,6 +719,20 @@ DIGESTS = {
         "961477859a879355648da38de3590b4eed13eab9c6a2c879b87c9924eb913e33",
     "K8 replay tf32":
         "d313b126d352c2491e3dd7666ccd9e9a3db03da258abcc9f41221cfe7f4957ab",
+    # the conv family's TF32 tier, taken on the first build of the TF32
+    # instantiations of conv_core.cuh ([tf32 conv ...]): kernel 13 in its
+    # three modes, kernel 14 TF32 throughout (cnn.yaml's route) and with an
+    # FP32 recompute ('highest''s)
+    "K13 train tf32":
+        "05f1a2c285d64596b7bd3b5577aeee4a741b118e2af22a307f059474d42186a0",
+    "K13 eval tf32":
+        "629818721592920a6f054752e21f33bb82aa44ef9c01eb76667f738d27bd0ac9",
+    "K13 eval batch tf32":
+        "f9597aef66319f00a0c1582f8f90f90d2ce3629ef060a7ef87b989a4b8ae3794",
+    "K14 tf32":
+        "c7e9aa43d103ef5c783858b908cbe5c33312bb6939602b4b0f939187095977a3",
+    "K14 grads tf32":
+        "5a3da083323d78801f169c2a9fdf08a79ca41acf9a60621260f4f470db47d374",
 }
 SEEN_DIGESTS = {}
 # Kernel 3's largest error relative to the float64 plain VJP, on the kernel
@@ -3126,16 +3182,13 @@ def conv_flops(B_, H_, W_, Cs, Ch):
     return 2 * B_ * H_ * W_ * 9 * (Cs * Ch + Ch * Ch + Ch * Cs)
 
 
-def phase_conv_kernels(device):
-    """Kernels 13 and 14 against their plain versions at cnn.yaml's full
-    width, on a state from the model's own augmenter and BatchNorm."""
+def _conv_inputs(device):
+    """Kernels 13 and 14's operands at cnn.yaml's full width: the
+    dynamics' weights and spec, a state from the model's own augmenter and
+    BatchNorm, its k1 (FP32), the running stats, t = 0.2 and dt = 0.05."""
     import torch
 
     from localregneuralde_tpu_torch.core import ArrayAndTime
-    from localregneuralde_tpu_torch.ops.cuda import (
-        _build, conv_step_plain, fused_conv_step, fused_conv_step_bwd,
-        fused_conv_step_bwd_plain,
-    )
     from localregneuralde_tpu_torch.ops.cuda.fused_conv import running_stats
 
     s = _cifar_setup(device)
@@ -3154,6 +3207,20 @@ def phase_conv_kernels(device):
         k1 = node.model(ArrayAndTime(u, t), dyn_st,
                         training=True)[0].array.contiguous()
         rstats = running_stats(spec, dyn_st)
+    return w, spec, u, k1, rstats, t, dt
+
+
+def phase_conv_kernels(device):
+    """Kernels 13 and 14 against their plain versions at cnn.yaml's full
+    width, on a state from the model's own augmenter and BatchNorm."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        _build, conv_step_plain, fused_conv_step, fused_conv_step_bwd,
+        fused_conv_step_bwd_plain,
+    )
+
+    w, spec, u, k1, rstats, t, dt = _conv_inputs(device)
     B_, H_, W_, Cs = u.shape
     Ch = spec.Ch
     res = {}
@@ -3231,8 +3298,8 @@ def phase_conv_kernels(device):
     scr14 = torch.empty(
         lib.lrnde_conv_step_bwd_scratch_floats(B_, H_, W_, Cs, Ch),
         device=device)
-    raw14 = raw_launch("lrnde_conv_step_bwd", u, k1, sc, *w, *cts, *grads,
-                       scr14, spec.eps, B_, H_, W_, Cs, Ch)
+    raw14 = raw_launch("lrnde_conv_step_bwd", 0, u, k1, sc, *w, *cts,
+                       *grads, scr14, spec.eps, B_, H_, W_, Cs, Ch)
     raw13_eval = raw_launch("lrnde_conv_step", u, k1, sc, *w, *outs, rs,
                             None, scr13, 1, spec.momentum,
                             1.0 - spec.momentum, spec.eps, B_, H_, W_, Cs, Ch)
@@ -3342,14 +3409,20 @@ def _bn_leaves(state, prefix=""):
 
 
 def phase_cifar(device, profile=False):
-    """cnn.yaml through construct_model -> make_eval_step / make_train_step:
-    three eval batches, three train steps per arm, launches per batch and
-    step; then the first step against the plain path and the CPU."""
+    """cnn.yaml through construct_model -> make_eval_step / make_train_step
+    as shipped ('auto' at rtol 1e-4: the TF32 tier): three eval
+    batches, three train steps per arm, launches per batch and step (and by
+    tier); then the first step against the plain path (at the same tiers)
+    and four images against the CPU at the card's tiers."""
     import torch
 
     from localregneuralde_tpu_torch.harness import accuracy, warmup_model
+    from localregneuralde_tpu_torch.nn import product_tier
     from localregneuralde_tpu_torch.ops.cuda import (
         launch_counts, reset_launch_counts,
+    )
+    from localregneuralde_tpu_torch.ops.cuda.fused_mlp_bwd import (
+        step_bwd_tiers,
     )
 
     test = _cifar_batches(device, "test", CIFAR_BATCHES)
@@ -3419,7 +3492,11 @@ def phase_cifar(device, profile=False):
               and n13 == attempts + extra // 8
               and 1 + extra // 8 <= n14 <= n13,
               f"cifar train {reg} step {i + 1}: launches {c}")
-    print(f"[cifar] launch counts { {k: v for k, v in counts.items() if v} }")
+    tiers = node_tiers(serve["model"], device)
+    print(f"[cifar] launch counts { {k: v for k, v in counts.items() if v} }"
+          f"; by tier { {k: v for k, v in tier_counts().items() if '[' in k} }"
+          f" (the route's forward/gradient tiers {'/'.join(tiers)})")
+    counts = tier_counts()
 
     # --- the first step against the plain path on the card (same t1: both
     # NeuralODEs draw it from a generator seeded with cfg.seed). Each of
@@ -3437,30 +3514,48 @@ def phase_cifar(device, profile=False):
     attempt = solve_mod.attempt
     ema_errs, vjp_errs = [], []
 
-    def held(w, spec, u, t, dt, k1, *, training, rstats=None):
-        out = k13(w, spec, u, t, dt, k1, training=training, rstats=rstats)
+    def held(w, spec, u, t, dt, k1, *, training, rstats=None,
+             precision="highest"):
+        """Kernel 13's EMA chain against the plain step's at its tier: FP32
+        within 1e-5; at TF32 (the statistics of one evaluation's convs)
+        within one evaluation's TF32 rounding."""
+        out = k13(w, spec, u, t, dt, k1, training=training, rstats=rstats,
+                  precision=precision)
         if training:
+            tier = product_tier(precision, u.device)
             ref = conv_step_plain(w, spec, u, t, dt, k1, training=True,
-                                  rstats=rstats)
-            ema_errs.append(max(max_abs(p, q) for p, q in zip(out[9], ref[9]))
-                            / max(float(r.abs().max()) for r in ref[9]))
+                                  rstats=rstats, tier=tier)
+            ema_errs.append((
+                max(max_abs(p, q) for p, q in zip(out[9], ref[9]))
+                / max(float(r.abs().max()) for r in ref[9]),
+                1e-5 if tier == "fp32" else tf32_tol(CONV_EVAL_PRODUCTS)))
         return out
 
-    def held_vjp(w, spec, u, t, dt, k1, cts):
-        """Kernel 14 and the FP32 plain VJP, each against the FP64 one: on
-        these cotangents d_k1 is a cancelling sum of the stages' a_ej terms,
-        so both FP32 versions carry more error there than on random ones."""
-        d_w, d_u, d_k1 = k14(w, spec, u, t, dt, k1, cts)
-        r_w, r_u, r_k1 = fused_conv_step_bwd_plain(w, spec, u, t, dt, k1, cts)
+    def held_vjp(w, spec, u, t, dt, k1, cts, precision="highest",
+                 grad_precision="match"):
+        """Kernel 14 and the plain VJP at its tiers, each against the FP64
+        one (on these cotangents d_k1 is a cancelling sum of the stages'
+        a_ej terms, so both carry more error there than on random ones):
+        the kernel within 1e-4 (with TF32 products, the tensor cores'
+        truncated sums through a transposed step, ``tf32_sum_tol``) or
+        twice the plain VJP's own error."""
+        d_w, d_u, d_k1 = k14(w, spec, u, t, dt, k1, cts, precision,
+                             grad_precision)
+        tiers = step_bwd_tiers(precision, grad_precision, u.device)
+        r_w, r_u, r_k1 = fused_conv_step_bwd_plain(w, spec, u, t, dt, k1,
+                                                   cts, *tiers)
         x_w, x_u, x_k1 = fused_conv_step_bwd_plain(
             type(w)(*(p.double() for p in w)), spec, u.double(),
             torch.as_tensor(t).double(), torch.as_tensor(dt).double(),
             k1.double(), [c.double() for c in cts])
+        floor = (1e-4 if tiers == ("fp32", "fp32") else tf32_sum_tol(
+            CONV_STEP_BWD_PRODUCTS, 9 * (spec.Ch + 1)))
         names = ["d_u", "d_k1", *("d_" + f for f in w._fields)]
-        vjp_errs.append({n: (rel_err(p.double(), x), rel_err(q.double(), x))
-                         for n, p, q, x in zip(names, (d_u, d_k1, *d_w),
-                                               (r_u, r_k1, *r_w),
-                                               (x_u, x_k1, *x_w))})
+        vjp_errs.append({
+            n: (rel_err(p.double(), x), max(floor, 2 * rel_err(q.double(),
+                                                               x)))
+            for n, p, q, x in zip(names, (d_u, d_k1, *d_w),
+                                  (r_u, r_k1, *r_w), (x_u, x_k1, *x_w))})
         return d_w, d_u, d_k1
 
     def logged(log):
@@ -3491,23 +3586,27 @@ def phase_cifar(device, profile=False):
         n_o, n_r = int(s_o["nfe"]), int(s_r["nfe"])
         ce_o = float(s_o["ce_loss"].detach())
         ce_r = float(s_r["ce_loss"].detach())
-        head = (f"[cifar train {reg}] first step vs the card's plain path: "
-                f"NFE {n_o} vs {n_r}, cross-entropy {ce_o:.6f} vs {ce_r:.6f}, "
+        ce_gate = max(1e-4 * max(1.0, abs(ce_r)), cross_entropy_tol(
+            tiers, tiers, s_r["y_pred"], **CONV_DEPTHS))
+        head = (f"[cifar train {reg}] first step vs the card's plain path "
+                f"(both at {'/'.join(tiers)}): "
+                f"NFE {n_o} vs {n_r}, cross-entropy {ce_o:.6f} vs {ce_r:.6f} "
+                f"(tolerance {ce_gate:.3e}), "
                 f"reg_val {float(s_o['reg_val'].detach()):.6e} vs "
                 f"{float(s_r['reg_val'].detach()):.6e}; kernel 13's running "
                 f"stats vs the plain EMA chain on the same inputs, "
-                f"{len(ema_errs)} calls, relative max-abs {max(ema_errs):.3e}; "
-                f"kernel 14 and the FP32 plain VJP against the FP64 one on "
+                f"{len(ema_errs)} calls, relative max-abs "
+                f"{max(e for e, _ in ema_errs):.3e} (tolerance "
+                f"{ema_errs[0][1]:.3e}); kernel 14 against the FP64 VJP on "
                 f"the kernel path's knots, {len(vjp_errs)} calls, relative "
-                f"max-abs (kernel, plain) "
+                f"max-abs and its gate (twice the plain VJP's at its tiers, "
+                f"at least 1e-4, or at TF32 the truncated sums) "
                 f"{ {n: tuple(float(f'{max(e[n][i] for e in vjp_errs):.3e}') for i in (0, 1)) for n in vjp_errs[0]} }")
         print(head)
-        # kernel 14 within 1e-4 of the FP64 VJP, or no worse than twice the
-        # FP32 plain VJP's own error
-        check(abs(ce_o - ce_r) <= 1e-4 * max(1.0, abs(ce_r))
-              and max(ema_errs) <= 1e-5
-              and all(ek <= max(1e-4, 2 * ep) for e in vjp_errs
-                      for ek, ep in e.values()),
+        check(abs(ce_o - ce_r) <= ce_gate
+              and all(e <= g for e, g in ema_errs)
+              and all(ek <= gate for e in vjp_errs
+                      for ek, gate in e.values()),
               f"cifar {reg}: cross-entropy, running stats or kernel 14 "
               f"disagree with the plain path; kernel 14 per call: {vjp_errs}")
         ema_errs.clear()
@@ -3529,25 +3628,33 @@ def phase_cifar(device, profile=False):
         bn_o, bn_r = _bn_leaves(st_o), _bn_leaves(st_r)
         rel_bn = (max(max_abs(bn_o[k], bn_r[k]) for k in bn_r)
                   / max(float(v.abs().max()) for v in bn_r.values()))
+        g_tol = grads_tol(tiers, node_tiers(plain["model"], device),
+                          **CONV_DEPTHS)
         print(f"[cifar train {reg}] first step: step sizes relative max-abs "
               f"{dt_rel:.3e}; gradients "
-              f"of the cross-entropy relative max-abs {rel:.3e}; BatchNorm "
+              f"of the cross-entropy relative max-abs {rel:.3e} (tolerance "
+              f"{g_tol:.3e}); BatchNorm "
               f"running stats after the step {rel_bn:.3e} (the statistics "
               f"are taken at the stages, so they follow the step sizes)")
-        check(rel <= 1e-3 and (rel_bn <= 1e-4 or dt_rel > 1e-5),
+        check(rel <= g_tol and (rel_bn <= 1e-4 or dt_rel > 1e-5),
               f"cifar {reg}: gradients or state disagree with the plain path")
-    # 4 test images: the card's kernel path against the CPU
+    # 4 test images: the card's kernel path against the CPU at the card's
+    # tiers
     cpu = _cifar_setup("cpu", [], {k: v.cpu() for k, v in
                                    serve["model"].state_dict().items()})
     small = (test[0][0][:4], test[0][1][:4])
     _, on_card = serve["eval"](serve["ts"], small, serve["w_reg"](1))
-    _, on_cpu = cpu["eval"](cpu["ts"], tuple(d.cpu() for d in small),
-                            cpu["w_reg"](1))
+    with tiers_of(device):
+        _, on_cpu = cpu["eval"](cpu["ts"], tuple(d.cpu() for d in small),
+                                cpu["w_reg"](1))
     err = rel_err(on_card["y_pred"].cpu(), on_cpu["y_pred"])
-    print(f"[cifar serve] 4 images, card kernels vs CPU plain: logits "
-          f"relative max-abs {err:.3e}, nfe {int(on_card['nfe'])} vs "
+    tol, _ = logits_tol(tiers, node_tiers(cpu["model"], device),
+                        **CONV_DEPTHS)
+    print(f"[cifar serve] 4 images, card kernels vs CPU plain at the card's "
+          f"tiers ({'/'.join(tiers)}): logits relative max-abs {err:.3e} "
+          f"(tolerance {tol:.3e}), nfe {int(on_card['nfe'])} vs "
           f"{int(on_cpu['nfe'])}")
-    check(err <= 1e-4, "cifar serve: the card disagrees with the CPU")
+    check(err <= tol, "cifar serve: the card disagrees with the CPU")
     if profile:
         _profile_cifar(arms, train)
     return counts
@@ -3880,8 +3987,8 @@ def phase_conv_core(device):
         scratch = torch.empty(
             lib.lrnde_conv_core_scratch_floats(orient, b, h, w, cin, cout),
             device=device)
-        raw = raw_launch("lrnde_conv_core", orient, *ops, sc, out, scratch, b,
-                         h, w, cin, cout)
+        raw = raw_launch("lrnde_conv_core", orient, 0, *ops, sc, out, scratch,
+                         b, h, w, cin, cout)
         check(raw() == 0, f"conv core {name}: launch failed")
         scale = float(ref.abs().max())
         err = max_abs(out, ref)
@@ -3900,10 +4007,10 @@ def phase_conv_core(device):
             check(s_err <= 1e-5, f"conv core {name}: statistics {s_err}")
             # the statistics' cost by level: tile moments, the groups' fold,
             # the final fold
-            cuts = [raw_launch("lrnde_conv_core", o, *ops, sc, out, scratch, b,
+            cuts = [raw_launch("lrnde_conv_core", o, 0, *ops, sc, out, scratch, b,
                                h, w, cin, cout) for o in (6, 7)]
             check(all(c() == 0 for c in cuts), f"conv core {name}: probe")
-            plain = raw_launch("lrnde_conv_core", 0, *ops, sc,
+            plain = raw_launch("lrnde_conv_core", 0, 0, *ops, sc,
                                torch.empty_like(out), scratch, b, h, w, cin,
                                cout)
             t_full, t_groups, t_tiles, t_plain = back_to_back_ms(
@@ -3915,7 +4022,7 @@ def phase_conv_core(device):
         if cout <= 8 and orient < 2:
             # the thin convs run on the halo tile: bitwise the gather tile
             out_g = torch.empty_like(out)
-            fns.append(raw_launch("lrnde_conv_core", orient + 3, *ops, sc,
+            fns.append(raw_launch("lrnde_conv_core", orient + 3, 0, *ops, sc,
                                   out_g, scratch, b, h, w, cin, cout))
             check(fns[-1]() == 0 and torch.equal(out, out_g),
                   f"conv core {name}: the halo tile differs from the gather "
@@ -4244,7 +4351,7 @@ def phase_conv_orient(device):
     out = torch.empty_like(ref)
     raws = [raw_launch(entry, x, wt, out, b, h, w, c, c)
             for entry in ("lrnde_conv_orient_tap", "lrnde_conv_orient_im2col")]
-    raws.append(raw_launch("lrnde_conv_core", 0, x, wt, sc, out,
+    raws.append(raw_launch("lrnde_conv_core", 0, 0, x, wt, sc, out,
                            torch.empty(1, device=device), b, h, w, c, c))
     check(all(r() == 0 for r in raws), "conv orient: raw launch failed")
     check(max_abs(out, ref) <= 1e-5 * scale, "conv core forward vs cuDNN")
@@ -5236,6 +5343,441 @@ def phase_tf32(device, w, x):
     return res, counts
 
 
+@contextlib.contextmanager
+def cudnn_tf32():
+    """cuDNN's own TF32 convolutions for the block only (the yardstick of
+    ``[tf32 conv core]``: timed, never on a path of the port), the caller's
+    flag restored after it."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def as_accurate(ours, plain, exact, floor):
+    """Each of a TF32 conv kernel's outputs against the float64 result
+    (``exact``), within twice its TF32 plain version's own distance from
+    it, and never below ``floor`` (the kernel's truncated sums): both round
+    the same operands, and TF32 rounds the activations again after each
+    sum, so their sum orders part by TF32's rounding, not FP32's, and the
+    tensor cores' sums round toward zero (a bias the plain version's sums
+    lack); the kernel must be as accurate as the plain version. Returns
+    (the worst output's share of its gate, its two distances)."""
+    worst, by = 0.0, None
+    for a, p, x in zip(ours, plain, exact):
+        e, e_p = rel_err(a.double(), x), rel_err(p.double(), x)
+        share = e / max(2 * e_p, floor)
+        if by is None or share > worst:
+            worst, by = share, (e, e_p)
+    return worst, by
+
+
+def phase_tf32_conv(device):
+    """The conv family at the TF32 tier (``[tf32 conv ...]``, the
+    reference's 'default', which cnn.yaml's 'auto' takes at rtol 1e-4):
+    kernel 13 in its three modes and kernel 14 at both of its routes' tiers
+    (TF32 throughout; FP32 recompute with TF32 gradients) as accurate as
+    their TF32 plain versions against float64 (``as_accurate``) and
+    against FP32 across tiers (``tf32_tol`` of the step's or the
+    transposed step's depth), bitwise repeatable, their five digests and
+    device times beside the FP32 instantiations; the conv core's
+    orientations at TF32 against cuDNN FP32 on rounded operands, timed
+    beside the FFMA core and cuDNN's own TF32; then cnn.yaml's serving batch
+    and a ``none`` and an ``unbiased`` train step through 'auto' (TF32) and
+    'highest' (FP32 forward, TF32 gradients) in one call, each against the
+    CPU at the card's tiers, with launches by tier (counted from zero
+    before each, read after it). Returns (the kernels line's TF32 rows, the
+    paths' launch counts with tiers)."""
+    import torch
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from localregneuralde_tpu_torch.harness import warmup_model
+    from localregneuralde_tpu_torch.nn import round_tf32
+    from localregneuralde_tpu_torch.ops.cuda import (
+        _build, conv_step_plain, fused_conv_step, fused_conv_step_bwd,
+        fused_conv_step_bwd_plain, reset_launch_counts,
+    )
+
+    res = {}
+    w, spec, u, k1, rstats, t, dt = _conv_inputs(device)
+    B_, H_, W_, Cs = u.shape
+    Ch = spec.Ch
+    w64, u64, k1_64, t64, dt64 = (type(w)(*(p.double() for p in w)),
+                                  u.double(), k1.double(), t.double(),
+                                  dt.double())
+    rs64 = tuple(r.double() for r in rstats)
+    k_conv = 9 * (Ch + 1)  # a conv's longest K
+    step_floor = tf32_sum_tol(CONV_STEP_PRODUCTS, k_conv)
+
+    # kernel 13 in its three modes
+    lib = _build.load_library()
+    sc = torch.stack([t, dt])
+    for mode in ("train", "running", "batch"):
+        sp = spec._replace(eval_stats="batch") if mode == "batch" else spec
+        training = mode == "train"
+        kw = dict(training=training, rstats=rstats)
+        with torch.no_grad():
+            out = fused_conv_step(w, sp, u, t, dt, k1, **kw, precision=None)
+            again = fused_conv_step(w, sp, u, t, dt, k1, **kw,
+                                    precision=None)
+            fp = fused_conv_step(w, sp, u, t, dt, k1, **kw)
+            ref = conv_step_plain(w, sp, u, t, dt, k1, **kw, tier="tf32")
+            exact = conv_step_plain(w64, sp, u64, t64, dt64, k1_64,
+                                    training=training, rstats=rs64)
+        pick = lambda o: [o[0], *o[2:9], *(o[9] or ())]  # noqa: E731
+        worst, (e, e_p) = as_accurate(pick(out), pick(ref), pick(exact),
+                                      step_floor)
+        ut_ok = utilde_ok(out[1], ref[1], out[2:8], ref[2:8], dt)
+        xt = max(rel_err(a, b) for a, b in zip(pick(out), pick(fp)))
+        ut_xt = utilde_ok(out[1], fp[1], out[2:8], fp[2:8], dt)
+        bitwise = all(torch.equal(a, b) for a, b in zip(out[:9], again[:9]))
+        digest({"train": "K13 train tf32", "running": "K13 eval tf32",
+                "batch": "K13 eval batch tf32"}[mode], *out[:9],
+               *(out[9] if training else ()))
+        print(f"[tf32 conv step {mode}] vs float64 relative max-abs "
+              f"{e:.3e}, the TF32 plain version's {e_p:.3e}: at most "
+              f"{worst:.3f} of the gate (twice the plain's, at least "
+              f"{step_floor:.3e}); ũ vs the TF32 plain within dt·max|Δk| "
+              f"{ut_ok}; "
+              f"bitwise repeatable {bitwise}; vs FP32 (across tiers) "
+              f"{xt:.3e}, tolerance {tf32_tol(CONV_STEP_PRODUCTS):.3e}, ũ "
+              f"within dt·max|Δk| {ut_xt}")
+        check(worst <= 1 and ut_ok and bitwise,
+              f"conv step tf32 {mode} disagrees with its plain version")
+        check(xt <= tf32_tol(CONV_STEP_PRODUCTS) and ut_xt,
+              f"conv step tf32 {mode} vs fp32: {xt}")
+        if training:
+            err13 = max(max_abs(a, b) for a, b in zip(out[:9], ref[:9]))
+    outs = [torch.empty_like(u) for _ in range(9)]
+    rs = torch.stack(rstats).contiguous()
+    scr13 = torch.empty(lib.lrnde_conv_step_scratch_floats(B_, H_, W_, Cs, Ch),
+                        device=device)
+
+    def raw13(entry, mode):
+        return raw_launch(entry, u, k1, sc, *w, *outs, rs,
+                          torch.empty_like(rs) if mode == 0 else None, scr13,
+                          mode, spec.momentum, 1.0 - spec.momentum, spec.eps,
+                          B_, H_, W_, Cs, Ch)
+
+    raws = [raw13(e, m) for m in (0, 1)
+            for e in ("lrnde_conv_step_tf32", "lrnde_conv_step")]
+    check(all(r() == 0 for r in raws), "conv step tf32: raw launch failed")
+    ms_t, ms_f, ms_te, ms_fe = back_to_back_ms(raws, n=20, warmup=3)
+    with torch.no_grad():
+        plain13, = median_ms([lambda: conv_step_plain(
+            w, spec, u, t, dt, k1, training=True, rstats=rstats,
+            tier="tf32")], n=10, warmup=2)
+    print(f"[tf32 conv attribution] kernel 13 back to back: train TF32 "
+          f"{ms_t:.4f} ms (FP32 {ms_f:.4f}), eval (running stats) TF32 "
+          f"{ms_te:.4f} (FP32 {ms_fe:.4f})")
+    sequence_split("tf32 conv attribution train", raws[0], conv_role, ms_t)
+    f13 = 6 * conv_flops(B_, H_, W_, Cs, Ch)
+    n_w = sum(p.numel() for p in w)
+    n_u = u.numel()
+    res["fused_conv_step_tf32"] = dict(
+        max_abs_err=err13, ms=ms_t, plain_ms=plain13,
+        **bound(f13, 4 * (11 * n_u + n_w), PEAK_TF32))
+
+    # kernel 14 at cnn.yaml's route (TF32 recompute and gradients) and at
+    # 'highest''s (FP32 recompute, TF32 gradients)
+    g = torch.Generator(device=device).manual_seed(17)
+    cts = [torch.randn(u.shape, generator=g, device=device) for _ in range(9)]
+    fp = fused_conv_step_bwd(w, spec, u, t, dt, k1, cts)
+    exact = fused_conv_step_bwd_plain(w64, spec, u64, t64, dt64, k1_64,
+                                      [c.double() for c in cts])
+
+    def flat(o):
+        return [o[1], o[2], *o[0]]
+
+    grads = [torch.empty_like(p) for p in (u, u, *w)]
+    scr14 = torch.empty(
+        lib.lrnde_conv_step_bwd_scratch_floats(B_, H_, W_, Cs, Ch),
+        device=device)
+    for label, prec, tiers in (("tf32", None, ("tf32", "tf32")),
+                               ("tf32grads", "highest", ("fp32", "tf32"))):
+        depth = CONV_GRAD_PRODUCTS + (CONV_STEP_PRODUCTS
+                                      if tiers[0] == "tf32" else 0)
+        ours = fused_conv_step_bwd(w, spec, u, t, dt, k1, cts,
+                                   precision=prec, grad_precision=None)
+        again = fused_conv_step_bwd(w, spec, u, t, dt, k1, cts,
+                                    precision=prec, grad_precision=None)
+        ref = fused_conv_step_bwd_plain(w, spec, u, t, dt, k1, cts, *tiers)
+        floor = tf32_sum_tol(depth, k_conv)
+        worst, (e, e_p) = as_accurate(flat(ours), flat(ref), flat(exact),
+                                      floor)
+        xt = max(rel_err(a, b) for a, b in zip(flat(ours), flat(fp)))
+        same = all(torch.equal(a, b) for a, b in zip(flat(again),
+                                                     flat(ours)))
+        print(f"[tf32 conv step_bwd {'/'.join(tiers)}] (recompute/gradients) "
+              f"vs float64 relative max-abs {e:.3e}, the TF32 plain "
+              f"version's {e_p:.3e}: at most {worst:.3f} of the gate (at "
+              f"least {floor:.3e}); bitwise "
+              f"repeatable {same}; vs FP32 (across tiers) {xt:.3e}, "
+              f"tolerance {tf32_tol(depth):.3e}")
+        check(worst <= 1 and same, f"conv step_bwd {label} vs plain")
+        check(xt <= tf32_tol(depth), f"conv step_bwd {label} vs fp32: {xt}")
+        digest("K14 tf32" if label == "tf32" else "K14 grads tf32",
+               *flat(ours))
+        bits = 3 if label == "tf32" else 2
+        raw = raw_launch("lrnde_conv_step_bwd", bits, u, k1, sc, *w,
+                         *cts, *grads, scr14, spec.eps, B_, H_, W_, Cs, Ch)
+        raw_fp = raw_launch("lrnde_conv_step_bwd", 0, u, k1, sc, *w,
+                            *cts, *grads, scr14, spec.eps, B_, H_, W_, Cs,
+                            Ch)
+        check(raw() == 0 and raw_fp() == 0, f"step_bwd {label}: raw launch")
+        ms, ms_fp = back_to_back_ms([raw, raw_fp], n=20, warmup=3)
+        plain, = median_ms([lambda: fused_conv_step_bwd_plain(
+            w, spec, u, t, dt, k1, cts, *tiers)], n=5, warmup=1)
+        print(f"[tf32 conv attribution] kernel 14 {'/'.join(tiers)} back to "
+              f"back {ms:.4f} ms (FP32 {ms_fp:.4f})")
+        err = max(max_abs(a, b) for a, b in zip(flat(ours), flat(ref)))
+        n_b = 4 * (13 * n_u + 2 * n_w)
+        res[f"fused_conv_step_bwd_{label}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain,
+            **(bound(3 * f13, n_b, PEAK_TF32) if label == "tf32"
+               else mixed_bound(f13, 2 * f13, n_b)))
+
+    # the conv core's orientations at TF32 (cnn.yaml's widths, B = 32, 32x32)
+    b, h, w_ = 32, 32, 32
+    M = b * h * w_
+    gen = torch.Generator().manual_seed(3)
+    nchw = lambda x_: x_.permute(0, 3, 1, 2)  # noqa: E731
+    sc0 = torch.tensor([0.37, 0.0], device=device)
+    rows = []
+    for name, orient, cin, cout in (("forward N=64", 0, 64, 64),
+                                    ("forward N=64 + BN statistics", 5, 64,
+                                     64),
+                                    ("forward N=8", 0, 64, 8),
+                                    ("data grad N=64", 1, 64, 64),
+                                    ("data grad N=8", 1, 64, 8),
+                                    ("weight grad N=64", 2, 64, 64),
+                                    ("weight grad N=8", 2, 64, 8)):
+        x = torch.randn(b, h, w_, cin, generator=gen).to(device)
+        if orient in (0, 5):
+            wt = (0.05 * torch.randn(3, 3, cin, cout, generator=gen)).to(device)
+
+            def conv(a_, b2):
+                return torch.nn.functional.conv2d(
+                    nchw(a_), b2.permute(3, 2, 0, 1), padding=1)
+
+            ops, k, out = (x, wt), 9 * cin, torch.empty(b, h, w_, cout,
+                                                        device=device)
+        elif orient == 1:
+            wt = (0.05 * torch.randn(3, 3, cout + 1, cin, generator=gen)).to(
+                device)
+
+            def conv(a_, b2):
+                return conv2d_input((b, cout, h, w_), b2[:, :, :cout].permute(
+                    3, 2, 0, 1).contiguous(), nchw(a_), padding=1)
+
+            ops, k, out = (x, wt), 9 * cin, torch.empty(b, h, w_, cout,
+                                                        device=device)
+        else:
+            dy = torch.randn(b, h, w_, cout, generator=gen).to(device)
+            s_ = torch.full((b, h, w_, 1), 0.37, device=device)
+
+            def conv(a_, d_):
+                return conv2d_weight(nchw(torch.cat([a_, s_], dim=-1)),
+                                     (cout, cin + 1, 3, 3), nchw(d_),
+                                     padding=1)
+
+            ops, k, out = (x, dy), M, torch.empty(3, 3, cin + 1, cout,
+                                                  device=device)
+        perm = (2, 3, 1, 0) if orient == 2 else (0, 2, 3, 1)
+        with torch.no_grad():
+            ref = conv(*(round_tf32(o) for o in ops)).permute(*perm)
+            mag = conv(*(round_tf32(o).abs() for o in ops)).permute(*perm)
+        scratch = torch.empty(
+            lib.lrnde_conv_core_scratch_floats(orient, b, h, w_, cin, cout),
+            device=device)
+        raw = raw_launch("lrnde_conv_core", orient, 1, *ops, sc0, out,
+                         scratch, b, h, w_, cin, cout)
+        raw_fp = raw_launch("lrnde_conv_core", orient, 0, *ops, sc0,
+                            torch.empty_like(out), scratch, b, h, w_, cin,
+                            cout)
+        check(raw() == 0 and raw_fp() == 0, f"tf32 conv core {name}: launch")
+        ok = bool(((out - ref).abs() <= 2 * k * 2.0 ** -24 * mag
+                   + 1e-30).all())
+        err = max_abs(out, ref)
+        first = out.clone()
+        check(ok and raw() == 0 and torch.equal(out, first),
+              f"tf32 conv core {name}: vs cuDNN on rounded operands {err}, "
+              f"or not bitwise repeatable")
+        if orient == 5:
+            z = out.reshape(-1, cout).double()
+            mean, var = z.mean(0), z.var(0, unbiased=False)
+            st_ = scratch[:2 * cout].double()
+            s_err = max(float(((st_[:cout] - mean).abs() / var.sqrt()).max()),
+                        float(((st_[cout:] - var).abs() / var).max()))
+            check(s_err <= 1e-5, f"tf32 conv core {name}: statistics {s_err}")
+        halo = ""
+        if cout <= 8 and orient < 2:
+            gather = raw_launch("lrnde_conv_core", orient + 3, 1, *ops, sc0,
+                                out, scratch, b, h, w_, cin, cout)
+            check(gather() == 0 and torch.equal(out, first),
+                  f"tf32 conv core {name}: halo tile vs gather tile")
+            halo = ", bitwise the gather tile"
+        lib_fn = lambda: conv(*ops)  # noqa: E731
+
+        def lib_tf32():
+            with cudnn_tf32():
+                return conv(*ops)
+
+        with torch.no_grad():
+            ms, ms_fp, lib_ms, lib_tf = back_to_back_ms(
+                [raw, raw_fp, lib_fn, lib_tf32], n=50, warmup=5)
+        flops = 2 * M * 9 * (cin + (orient == 2)) * cout
+        row = dict(name=name, ms=ms, ffma_ms=ms_fp, cudnn_fp32_ms=lib_ms,
+                   cudnn_tf32_ms=lib_tf, tflops=flops / ms / 1e9,
+                   max_abs_err=err)
+        print(f"[tf32 conv core] {name}: TF32 {1e3 * ms:.2f} µs "
+              f"({row['tflops']:.2f} TFLOP/s), FFMA {1e3 * ms_fp:.2f} | "
+              f"cuDNN FP32 {1e3 * lib_ms:.2f}, cuDNN TF32 {1e3 * lib_tf:.2f} "
+              f"µs | max-abs {err:.2e} vs cuDNN FP32 on rounded operands "
+              f"(within 2·K·2^-24 of the products' magnitudes), bitwise "
+              f"repeatable{halo}")
+        rows.append(row)
+    print(json.dumps({"conv_core_tf32": rows}))
+
+    # --- cnn.yaml: 'auto' (TF32) and 'highest' (FP32 forward, TF32
+    # gradients), serving and training, each against the CPU at the card's
+    # tiers
+    hi = ["--model.solver.precision=highest"]
+    counts = {}
+
+    def add(c):
+        for k_, v in c.items():
+            counts[k_] = counts.get(k_, 0) + v
+
+    test = _cifar_batches(device, "test", 1)[0]
+    data = _cifar_batches(device, "train", 2)
+    s_auto = _cifar_setup(device)
+    sd = {k_: v.detach().clone() for k_, v in s_auto["model"].state_dict()
+          .items()}
+    cpu_sd = {k_: v.cpu() for k_, v in sd.items()}
+    arms = {"auto": (s_auto, []), "highest": (_cifar_setup(device, hi, sd),
+                                               hi)}
+    served = {}
+    for arm, (st_, ov) in arms.items():
+        st_["eval"](st_["ts"], test, st_["w_reg"](1))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, stats = st_["eval"](st_["ts"], test, st_["w_reg"](1))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        c = tier_counts()
+        add(c)
+        tiers = node_tiers(st_["model"], device)
+        nfe = int(stats["nfe"])
+        cpu = _cifar_setup("cpu", ov, cpu_sd)
+        small = tuple(d[:4] for d in test)
+        _, on_card = st_["eval"](st_["ts"], small, st_["w_reg"](1))
+        with tiers_of(device):
+            _, on_host = cpu["eval"](cpu["ts"],
+                                     tuple(d.cpu() for d in small),
+                                     cpu["w_reg"](1))
+        err = rel_err(on_card["y_pred"].cpu(), on_host["y_pred"])
+        tol, _ = logits_tol(tiers, node_tiers(cpu["model"], device),
+                            **CONV_DEPTHS)
+        served[arm] = stats
+        print(f"[tf32 conv serve {arm}] ({'/'.join(tiers)}) loss "
+              f"{float(loss):.6f} NFE {nfe} success "
+              f"{bool(stats['solver_success'])} {ms:.3f} ms; 4 images vs the "
+              f"CPU at the card's tiers: logits relative max-abs {err:.3e} "
+              f"(tolerance {tol:.3e}), NFE {int(on_card['nfe'])} vs "
+              f"{int(on_host['nfe'])} | launches "
+              f"{ {k_: v for k_, v in c.items() if '[' in k_} }")
+        check(bool(stats["solver_success"]) and bool(torch.isfinite(loss))
+              and {k_: v for k_, v in c.items() if v} == {
+                  "fused_conv_step": (nfe - 2) // 6,
+                  f"fused_conv_step[{tiers[0]}]": (nfe - 2) // 6}
+              and err <= tol, f"tf32 conv serve {arm}: launches {c} or the "
+              f"CPU {err}")
+    rel = rel_err(served["auto"]["y_pred"], served["highest"]["y_pred"])
+    tol, _ = logits_tol(("tf32",), ("fp32",), **CONV_DEPTHS)
+    print(f"[tf32 conv serve] NFE auto {int(served['auto']['nfe'])} vs "
+          f"highest {int(served['highest']['nfe'])}; logits relative max-abs "
+          f"{rel:.3e} (across tiers, tolerance {tol:.3e})")
+    check(rel <= tol, f"tf32 conv serve: logits across tiers {rel}")
+
+    params0 = {k_: v.detach().clone() for k_, v in s_auto["ts"].params.items()}
+    cpu_p0 = {k_: v.cpu() for k_, v in params0.items()}
+    for reg in ("none", "unbiased"):
+        first = {}
+        for arm, (_, ov) in arms.items():
+            st_ = _cifar_setup(device, ov, sd, reg)
+            loss, _, stats, grads = _cifar_forward(
+                st_, params0, st_["model"].init_state(), data[0], 0.0)
+            first[arm] = (stats, grads)
+            warmup_model(st_["train"], None, st_["ts"], data[0],
+                         st_["w_reg"](1), st_["sched"](1))
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            ts, tl, tstats = st_["train"](st_["ts"], data[1], st_["w_reg"](2),
+                                          st_["sched"](2))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            c = tier_counts()
+            add(c)
+            tiers = node_tiers(st_["model"], device)
+            want = {f"fused_conv_step[{tiers[0]}]",
+                    f"fused_conv_step_bwd[{tiers[0]}/tf32]"}
+            # 2 images against the CPU at the card's tiers
+            cpu = _cifar_setup("cpu", ov, cpu_sd, reg)
+            small = tuple(d[:2] for d in data[0])
+            with tiers_of(device):
+                _, _, s_c, g_c = _cifar_forward(
+                    st_, params0, st_["model"].init_state(), small, 0.0)
+                _, _, s_r, g_r = _cifar_forward(
+                    cpu, cpu_p0, cpu["model"].init_state(),
+                    tuple(d.cpu() for d in small), 0.0)
+            g_tol = grads_tol(tiers, node_tiers(cpu["model"], device),
+                              **CONV_DEPTHS)
+            rel_c = (max(max_abs(g_c[k_].cpu(), g_r[k_]) for k_ in g_r)
+                     / max(float(v.abs().max()) for v in g_r.values()))
+            d_ce = abs(float(s_c["ce_loss"]) - float(s_r["ce_loss"]))
+            c_tol = cross_entropy_tol(tiers, tiers, s_r["y_pred"],
+                                      **CONV_DEPTHS)
+            print(f"[tf32 conv train {reg} {arm}] ({'/'.join(tiers)}) loss "
+                  f"{float(tl):.6f} NFE {int(tstats['nfe'])} success "
+                  f"{bool(tstats['solver_success'])} {ms:.3f} ms a step; "
+                  f"first step vs the CPU at the card's tiers (2 images): "
+                  f"NFE {int(s_c['nfe'])} vs {int(s_r['nfe'])}, cross-entropy "
+                  f"difference {d_ce:.3e} (tolerance {c_tol:.3e}), gradients "
+                  f"relative max-abs {rel_c:.3e} (tolerance {g_tol:.3e}) | "
+                  f"launches {({k_: v for k_, v in c.items() if '[' in k_})}")
+            check(bool(tstats["solver_success"]) and bool(torch.isfinite(tl))
+                  and {k_ for k_, v in c.items() if '[' in k_ and v} == want
+                  and d_ce <= c_tol and rel_c <= g_tol,
+                  f"tf32 conv train {reg} {arm}: launches {c}, expected "
+                  f"{want}; or the CPU: {d_ce}, {rel_c}")
+        (s_a, g_a), (s_h, g_h) = first["auto"], first["highest"]
+        rel = (max(max_abs(g_a[k_], g_h[k_]) for k_ in g_a)
+               / max(float(v.abs().max()) for v in g_h.values()))
+        d_ce = abs(float(s_a["ce_loss"]) - float(s_h["ce_loss"]))
+        c_tol = cross_entropy_tol(("tf32",), ("fp32",), s_h["y_pred"],
+                                  **CONV_DEPTHS)
+        print(f"[tf32 conv train {reg}] first step from one state (32 "
+              f"images): NFE auto {int(s_a['nfe'])} vs highest "
+              f"{int(s_h['nfe'])}, cross-entropy {float(s_a['ce_loss']):.6f} "
+              f"vs {float(s_h['ce_loss']):.6f} (across tiers, tolerance "
+              f"{c_tol:.3e}); gradients relative max-abs {rel:.3e} (the "
+              f"solves' steps differ with the tier's noise in ũ)")
+        check(d_ce <= c_tol, f"tf32 conv train {reg}: cross-entropy across "
+              f"tiers {d_ce}")
+    for name, r in res.items():
+        print(f"[tf32 kernel {name}] device ms a launch {r['ms']:.4f}, plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})")
+    return res, counts
+
+
 # ------------------------------------------------------------ solver modes
 
 MODES_STEPS = 3        # timed train steps a mode
@@ -5650,10 +6192,13 @@ def partial_run(device, parts, profile=False):
         phase_modes(device)
     if "tf32" in parts:
         phase_tf32(device, w, x)
+        phase_tf32_conv(device)
         if "capture" not in parts:
-            # the K-step call on both TD-MLP paths, bitwise its eager steps:
-            # the bench's at TF32, mlp.yaml's with TF32 gradients
-            phase_capture(device, only=("mlp.yaml", "bench"))
+            # the K-step call bitwise its eager steps: the bench's at TF32,
+            # mlp.yaml's with TF32 gradients, CIFAR's (eager) at TF32
+            phase_capture(device, only=("mlp.yaml", "bench", "cifar"))
+        if "modes" not in parts:
+            phase_cifar_repeat(device)
     print(json.dumps({"digests": SEEN_DIGESTS}))
     print(f"chip_smoke: partial run of {parts}, every check passed")
     return 0
@@ -5695,6 +6240,9 @@ def main():
     res.update(phase_conv_kernels(device))
     phase_conv_core(device)
     path_counts.append(phase_cifar(device, profile=profile))
+    conv_res, conv_counts = phase_tf32_conv(device)
+    res.update(conv_res)
+    path_counts.append(conv_counts)
     path_counts.append(phase_capture(device))
     path_counts.append(phase_modes(device))
     res.update(phase_score_kernels(device))
@@ -5771,9 +6319,10 @@ def main():
             "localregneuralde_tpu_torch/csrc/conv_orient.cu",
             "scripts/conv_orient_probe.py:120"),
     }
-    # the TD-MLP family's kernels at each tier: the FP32 instantiations and
-    # the TF32 ones (kernels 3, 7 and 8 by recompute/gradient tiers, and
-    # kernel 8's replay); each row's launches are its tier's on the paths
+    # the TD-MLP and conv families' kernels at each tier: the FP32
+    # instantiations and the TF32 ones (kernels 3, 7, 8 and 14 by
+    # recompute/gradient tiers, and kernel 8's replay); each row's launches
+    # are its tier's on the paths
     tier_rows = {
         "tdmlp": ("tdmlp", "fp32"), "tdmlp_tf32": ("tdmlp", "tf32"),
         "tsit5_step": ("tsit5_step", "fp32"),
@@ -5796,6 +6345,13 @@ def main():
             "persistent_two_level_sweep", "fp32/fp32/tf32"),
         "persistent_two_level_sweep_tf32": ("persistent_two_level_sweep",
                                             "tf32/tf32/tf32"),
+        # the conv family's, kernel 14 by recompute/gradient tiers
+        "fused_conv_step": ("fused_conv_step", "fp32"),
+        "fused_conv_step_tf32": ("fused_conv_step", "tf32"),
+        "fused_conv_step_bwd": ("fused_conv_step_bwd", "fp32/fp32"),
+        "fused_conv_step_bwd_tf32": ("fused_conv_step_bwd", "tf32/tf32"),
+        "fused_conv_step_bwd_tf32grads": ("fused_conv_step_bwd",
+                                          "fp32/tf32"),
     }
     for name, (wrapper, tier) in tier_rows.items():
         if name not in sources:

@@ -34,12 +34,17 @@
 // - The stage algebra rides on the convs: evaluation e's last conv writes
 //   k_{e+2} and, from it, the next evaluation's input (g6, u_new, and after
 //   the sixth ũ); only the first input has a launch of its own.
-// - Every product is FP32 FFMA; TF32, wgmma and TMA are later work.
+// - The products run at a tier (StepArgs::tf32): FP32 FFMA, or TF32 on the
+//   tensor cores (conv_core.cuh's kTf32 instantiations, the time maps' taps
+//   rounded), the reference's 'highest' and 'default' precisions. The
+//   BatchNorm statistics and apply, gelu, s·tmap and the stage algebra are
+//   FP32 at both.
 //
 // What bounds it on an H100: the products. One dynamics evaluation at
 // B = 32, 32x32, Cs 8, Ch 64 is 2*32768*(72*64 + 576*64 + 576*8) = 3.02 GFLOP
 // and moves ~30 MB (the activations stay in the 50 MB L2), so the step's
-// 18 GFLOP bound it at ~0.27 ms at 67 TFLOP/s.
+// 18 GFLOP bound it at ~0.27 ms at 67 TFLOP/s FP32, 0.037 ms at 495
+// TFLOP/s TF32 (where the bytes, ~0.06 ms at 3.35 TB/s, bound it instead).
 #pragma once
 
 #include "conv_core.cuh"
@@ -77,12 +82,14 @@ __host__ __device__ inline float stage_c(int e) {
 
 // The three layers' time maps, one after the other in tmap:
 // tmap_l[h, w, co] = sum over the taps inside the image at (h, w) of the
-// time channel's weight W_l[dy, dx, w_cin - 1, co]
+// time channel's weight W_l[dy, dx, w_cin - 1, co] (kTf32: each tap rounded
+// to TF32, the conv of a ones image at the TF32 tier)
 struct TimeMaps {
   const float* w[3];
   int w_cin[3], cout[3];
 };
 
+template <bool kTf32>
 static __global__ void time_map_kernel(TimeMaps m, int H, int W,
                                        float* __restrict__ tmap) {
   int idx = blockIdx.x * blockDim.x + threadIdx.x;
@@ -97,8 +104,10 @@ static __global__ void time_map_kernel(TimeMaps m, int H, int W,
   float s = 0.f;
   for (int tap = 0; tap < 9; ++tap) {
     const int hs = h + tap / 3 - 1, ws = x + tap % 3 - 1;
-    if (hs >= 0 && hs < H && ws >= 0 && ws < W)
-      s += w[(static_cast<size_t>(tap) * w_cin + (w_cin - 1)) * cout + co];
+    if (hs >= 0 && hs < H && ws >= 0 && ws < W) {
+      const float v = w[(static_cast<size_t>(tap) * w_cin + (w_cin - 1)) * cout + co];
+      s += kTf32 ? to_tf32(v) : v;
+    }
   }
   tmap[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
@@ -184,13 +193,17 @@ struct StepArgs {
   float* rstats_out;         // (4, Ch) EMA chain (training), may be null
   float mom, omm, eps;
   int B, H, W, Cs, Ch;
+  bool tf32;                 // the products (convs, time maps) at TF32
 };
 
 static inline cudaError_t time_maps(const StepArgs& a, cudaStream_t st) {
   const TimeMaps m{{a.w1, a.w2, a.w3}, {a.Cs + 1, a.Ch + 1, a.Ch + 1},
                    {a.Ch, a.Ch, a.Cs}};
   const long long n = static_cast<long long>(a.H) * a.W * (2 * a.Ch + a.Cs);
-  time_map_kernel<<<cdiv(n, kEw), kEw, 0, st>>>(m, a.H, a.W, a.tmap);
+  if (a.tf32)
+    time_map_kernel<true><<<cdiv(n, kEw), kEw, 0, st>>>(m, a.H, a.W, a.tmap);
+  else
+    time_map_kernel<false><<<cdiv(n, kEw), kEw, 0, st>>>(m, a.H, a.W, a.tmap);
   return cudaGetLastError();
 }
 
@@ -234,7 +247,7 @@ static inline cudaError_t conv_bn_layer(const StepArgs& a, int e, int layer,
     c.epi.beta = beta;
     c.epi.eps = a.eps;
   }
-  cudaError_t err = launch_conv(c, st);
+  cudaError_t err = launch_conv(c, st, a.tf32);
   if (err != cudaSuccess || !batch) return err;
   return bn_act(z, se, se + Ch, gamma, beta, a.eps, M, Ch, act, st);
 }
@@ -265,7 +278,7 @@ static inline cudaError_t forward_step(const StepArgs& a, cudaStream_t st) {
     ep.g6 = a.g6;
     ep.unew = a.unew;
     ep.utilde = a.utilde;
-    if ((err = launch_conv(c3, st)) != cudaSuccess) return err;
+    if ((err = launch_conv(c3, st, a.tf32)) != cudaSuccess) return err;
   }
   return cudaSuccess;
 }

@@ -15,7 +15,8 @@
 //   s is a constant, are border-corrected column sums of dy
 //   (wgrad_time_kernel).
 //
-// Design (FP32 FFMA only; no TF32, no float atomics, bitwise repeatable):
+// Design (no float atomics, bitwise repeatable; FP32 FFMA, and a TF32
+// instantiation of each product loop, below):
 // - Tap-major K: k = tap·cin + ci, so four consecutive k with cin % 4 == 0
 //   are four contiguous channels of one shifted pixel: one border test and
 //   one 16-byte cp.async per four elements, zero-filled outside the image
@@ -51,6 +52,27 @@
 //   evaluation, the running stats' EMA chain; or compute the next Tsit5
 //   stage input (and g6, u_new, ũ) from the k it writes. The statistics
 //   need the N = 64 tile (launch_conv routes them there).
+// - The TF32 tier (tf32.cuh; the reference's 'default' precision): each
+//   kernel has a kTf32 instantiation whose product loop is mma.sync
+//   m16n8k8 .tf32 over the same cp.async ring (the halo tile's staged halo
+//   and weight), and whose epilogue is the FFMA one: the warps' accumulator
+//   fragments go through shared memory into the FFMA micro-tile layout
+//   (stage_tf32), so the statistics, the BatchNorm-apply, the stage algebra
+//   and the weight gradient's partial slots are the same code. Each output
+//   is one chain of mma over k = 0, 8, 16, ... (zeros past K), so the gather
+//   and the halo tile agree bitwise at TF32 too (the halo tile takes TF32
+//   only at cin % 8 == 0, where its tap-by-tap k-steps are the gather
+//   tile's). mma.sync, not K15's wgmma core: the N = 8 convs are one n8
+//   tile, which a wgmma's 64-row, 8-column-step M x N x 8 suits no better,
+//   and mma.sync's fragments come from the existing ring and its epilogue.
+//   The TD-MLP family's TF32 products (PERF.md §6) showed that a chain fed
+//   one scalar load and one cvt per use is no faster than FFMA; here a
+//   warp's 64 x 32 tile (4 x 4 mma a k-step) reuses each A fragment four
+//   times and each B fragment four times, the loads are conflict-free (the
+//   ring's row strides are 8 banks apart, B's padded to BN + 8 at N = 64),
+//   and the halo tile rounds its halo and weight once where they are
+//   staged. The time maps sum TF32-rounded taps, the time rows of the
+//   weight gradient TF32-rounded dy (a tap mask is exact in TF32).
 //
 // What bounds it on an H100: the products (2·M·9·cin·cout FLOP, 36 µs a
 // 64 -> 64 conv at B = 32, 32x32 at 67 TFLOP/s) for N = 64; for N = 8 the
@@ -61,6 +83,7 @@
 #include <stdint.h>
 
 #include "tdmlp.cuh"
+#include "tf32.cuh"
 #include "tsit5_bwd.cuh"
 
 namespace lrnde {
@@ -68,6 +91,60 @@ namespace conv {
 
 __host__ __device__ inline int cdiv(long long a, long long b) {
   return static_cast<int>((a + b - 1) / b);
+}
+
+// ---------------------------------------------------------------------------
+// The TF32 product (mma.sync m16n8k8 .tf32): the warp tiling of a BM x BN
+// CTA tile of NT threads (warps of WN = min(BN, 32) columns and WM rows,
+// MI x NJ mma tiles a warp), the k-step, and the accumulators' way back
+// into the FFMA micro-tile layout.
+
+template <int BM, int BN, int NT>
+struct Tf32Warps {
+  static constexpr int NW = NT / 32, WN = BN < 32 ? BN : 32;
+  static constexpr int WARPS_N = BN / WN, WARPS_M = NW / WARPS_N;
+  static constexpr int WM = BM / WARPS_M, MI = WM / 16, NJ = WN / 8;
+  static_assert(NT % 32 == 0 && BN % WN == 0 && NW % WARPS_N == 0 &&
+                    BM % (16 * WARPS_M) == 0 && WN % 8 == 0,
+                "TF32 warp tiling");
+};
+
+// The row stride of a ring's operand tile read along its columns by a
+// fragment (lane (g, q) at row q, column g): 8 banks apart row to row.
+template <int N>
+__host__ __device__ constexpr int tf32_ld(int fp32_ld) {
+  return N % 32 == 0 ? N + 8 : fp32_ld;
+}
+
+// One k-step of 8: d[mi][nj] += A(mi) · B(nj), the fragments built by
+// a(mi, af) (4 TF32 words) and b(nj, bf) (2), each once a k-step.
+template <int MI, int NJ, typename AFrag, typename BFrag>
+__device__ __forceinline__ void mma_k8_tf32(float (&d)[MI][NJ][4], AFrag a, BFrag b) {
+  unsigned af[MI][4], bf[NJ][2];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) a(mi, af[mi]);
+#pragma unroll
+  for (int nj = 0; nj < NJ; ++nj) b(nj, bf[nj]);
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj) mma_tf32(d[mi][nj], af[mi], bf[nj]);
+}
+
+// A warp's accumulators (rows wm0 + 16 mi + g and + 8, columns wn0 + 8 nj +
+// 2q and + 1) into c[row * ldc + col].
+template <int MI, int NJ>
+__device__ __forceinline__ void stage_tf32(const float (&d)[MI][NJ][4], float* c,
+                                           int ldc, int wm0, int wn0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj) {
+      float* p = c + (wm0 + 16 * mi + g) * ldc + wn0 + 8 * nj + 2 * q;
+      *reinterpret_cast<float2*>(p) = make_float2(d[mi][nj][0], d[mi][nj][1]);
+      *reinterpret_cast<float2*>(p + 8 * ldc) = make_float2(d[mi][nj][2], d[mi][nj][3]);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -400,23 +477,26 @@ __device__ __forceinline__ void tile_stats(const ConvArgs& a,
   }
 }
 
-template <int BM, int BN, int BK, int ST>
+template <int BM, int BN, int BK, int ST, bool kTf32 = false>
 __host__ __device__ constexpr size_t gemm_smem_floats() {
-  return static_cast<size_t>(ST) * (BM * (BK + 4) + BK * BN);
+  return static_cast<size_t>(ST) *
+         (BM * (BK + 4) + BK * (kTf32 ? tf32_ld<BN>(BN) : BN));
 }
 
 // kEpi: the epilogue (ConvEpilogue) is compiled in; without it the plain
-// store, so the plain convs' code is the first port's.
-template <int BM, int BN, int TM, int BK, int ST, bool kVec, bool kEpi>
+// store, so the plain convs' code is the first port's. kTf32: the products
+// at the TF32 tier (mma.sync), the FP32 instantiations unchanged.
+template <int BM, int BN, int TM, int BK, int ST, bool kVec, bool kEpi, bool kTf32>
 static __global__ void __launch_bounds__((BM / TM) * (BN / 8))
 conv_gemm_kernel(ConvArgs a) {
   constexpr int TN = 8, NT = (BM / TM) * (BN / TN), LDA = BK + 4;
+  constexpr int LDB = kTf32 ? tf32_ld<BN>(BN) : BN;
   constexpr int KG = kVec ? BK / 4 : BK;  // A copies per pixel row and chunk
   static_assert(BK % 4 == 0 && NT % KG == 0 && (BM * KG) % NT == 0,
                 "A-tile mapping");
   extern __shared__ float4 smem4[];
   float* const As = reinterpret_cast<float*>(smem4);  // [ST][BM][LDA]
-  float* const Bs = As + ST * BM * LDA;               // [ST][BK][BN]
+  float* const Bs = As + ST * BM * LDA;               // [ST][BK][LDB]
   const int tid = threadIdx.x;
   const int H = a.H, W = a.W, HW = H * W, M = a.B * HW;
   const int cin = a.cin, K = 9 * cin, cout = a.cout;
@@ -441,7 +521,7 @@ conv_gemm_kernel(ConvArgs a) {
   auto load = [&](int chunk, int st) {
     const int k0 = chunk * BK;
     float* as = As + st * BM * LDA;
-    float* bs = Bs + st * BK * BN;
+    float* bs = Bs + st * BK * LDB;
     {
       const int kk = kVec ? 4 * kg : kg;
       const int k = k0 + kk;
@@ -467,8 +547,8 @@ conv_gemm_kernel(ConvArgs a) {
       const int tap = k / cin, ci = k - tap * cin;
       const float* src =
           ok ? a.w + (static_cast<size_t>(tap) * a.w_cin + ci) * cout + co : a.w;
-      if constexpr (kVec) cp_async16(bs + kk * BN + n, src, ok);
-      else cp_async4(bs + kk * BN + n, src, ok);
+      if constexpr (kVec) cp_async16(bs + kk * LDB + n, src, ok);
+      else cp_async4(bs + kk * LDB + n, src, ok);
     }
   };
 
@@ -478,6 +558,21 @@ conv_gemm_kernel(ConvArgs a) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  // the TF32 instantiation's warp tile, the lane's fragment row and
+  // column (fg, fq), and its accumulators
+  using TW = Tf32Warps<BM, BN, NT>;
+  [[maybe_unused]] const int fg = (tid & 31) >> 2, fq = tid & 3;
+  [[maybe_unused]] const int wm0 = (tid / 32 / TW::WARPS_N) * TW::WM;
+  [[maybe_unused]] const int wn0 = (tid / 32 % TW::WARPS_N) * TW::WN;
+  [[maybe_unused]] float d[TW::MI][TW::NJ][4];
+  if constexpr (kTf32) {
+#pragma unroll
+    for (int mi = 0; mi < TW::MI; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < TW::NJ; ++nj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) d[mi][nj][r] = 0.f;
+  }
 
 #pragma unroll
   for (int s = 0; s < ST - 1; ++s) {
@@ -493,7 +588,29 @@ conv_gemm_kernel(ConvArgs a) {
       cp_async_commit();
     }
     const float* as = As + (c % ST) * BM * LDA;
-    const float* bs = Bs + (c % ST) * BK * BN;
+    const float* bs = Bs + (c % ST) * BK * LDB;
+    if constexpr (kTf32) {
+      // A (pixel-major, rows wm0 + 16 mi + g) and B (k-major) as TF32
+      // fragments, each rounded once as it is built
+#pragma unroll
+      for (int k0 = 0; k0 < BK; k0 += 8) {
+        mma_k8_tf32(
+            d,
+            [&](int mi, unsigned(&f)[4]) {
+              const float* p = as + (wm0 + 16 * mi + fg) * LDA + k0 + fq;
+              f[0] = tf32_bits(p[0]);
+              f[1] = tf32_bits(p[8 * LDA]);
+              f[2] = tf32_bits(p[4]);
+              f[3] = tf32_bits(p[8 * LDA + 4]);
+            },
+            [&](int nj, unsigned(&f)[2]) {
+              const float* p = bs + (k0 + fq) * LDB + wn0 + 8 * nj + fg;
+              f[0] = tf32_bits(p[0]);
+              f[1] = tf32_bits(p[4 * LDB]);
+            });
+      }
+      continue;
+    }
 #pragma unroll 2
     for (int kk = 0; kk < BK; kk += 4) {
       float4 av[TM];
@@ -515,6 +632,17 @@ conv_gemm_kernel(ConvArgs a) {
     }
   }
   cp_async_wait<0>();
+  if constexpr (kTf32) {  // the fragments into the FFMA layout, via the ring
+    constexpr int LDC = BN + 4;
+    __syncthreads();
+    stage_tf32(d, As, LDC, wm0, wn0);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        acc[i][j] = As[(ty + i * (BM / TM)) * LDC + out_col<BN>(tx, j)];
+  }
 
   const float s = a.sc[0] + a.c * a.sc[1];
   if constexpr (!kEpi) {
@@ -625,10 +753,11 @@ conv_gemm_kernel(ConvArgs a) {
 constexpr int kConvBK = 32;  // k per chunk
 constexpr int kConvST = 3;   // cp.async stages
 
-template <int BM, int BN, int TM, bool kVec, bool kEpi>
+template <int BM, int BN, int TM, bool kVec, bool kEpi, bool kTf32>
 static inline cudaError_t launch_gemm(const ConvArgs& a, cudaStream_t st) {
-  auto kernel = conv_gemm_kernel<BM, BN, TM, kConvBK, kConvST, kVec, kEpi>;
-  const size_t smem = gemm_smem_floats<BM, BN, kConvBK, kConvST>() * sizeof(float);
+  auto kernel = conv_gemm_kernel<BM, BN, TM, kConvBK, kConvST, kVec, kEpi, kTf32>;
+  const size_t smem =
+      gemm_smem_floats<BM, BN, kConvBK, kConvST, kTf32>() * sizeof(float);
   static size_t granted = 0;
   cudaError_t err = allow_smem(kernel, smem, &granted);
   if (err != cudaSuccess) return err;
@@ -666,10 +795,75 @@ __host__ __device__ inline size_t halo_smem_floats(int W, int cin) {
          static_cast<size_t>(9) * cin * 8;
 }
 
+// The TF32 product of a halo CTA (cin % 8 == 0): warp w owns pixels m0 +
+// 32 w .. + 31, two m16 tiles of the one n8 tile, and runs the gather
+// tile's chain, tap by tap and 8 channels a k-step, over the halo and the
+// weight, both rounded to TF32 where they were staged. Returns the
+// thread's own pixel's 8 outputs (m0 + tid), through shared memory c
+// (kHaloPix x 12 floats; the halo is free by then).
+__device__ __forceinline__ void halo_mma_tf32(const ConvArgs& a, const float* halo,
+                                              const float* ws, int g0, float* c,
+                                              float (&acc)[8]) {
+  const int H = a.H, W = a.W, M = a.B * H * W, cin = a.cin, LDH = cin + 4;
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int base = blockIdx.x * kHaloPix + (tid & ~31);
+  // the lane's four pixel rows: tile mi, row g and g + 8
+  int gr[2][2], wc[2][2], hh[2][2];
+  bool in[2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int p = base + 16 * mi + 8 * r + g;
+      in[mi][r] = p < M;
+      gr[mi][r] = p / W;
+      wc[mi][r] = p - gr[mi][r] * W;
+      hh[mi][r] = gr[mi][r] % H;
+    }
+  float d[2][1][4] = {};
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    const float* ap[2][2];
+    bool ok[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        ok[mi][r] = in[mi][r] && hh[mi][r] + dy >= 0 && hh[mi][r] + dy < H &&
+                    wc[mi][r] + dx >= 0 && wc[mi][r] + dx < W;
+        ap[mi][r] = halo + static_cast<size_t>((gr[mi][r] - g0 + 1 + dy) * (W + 2) +
+                                               wc[mi][r] + 1 + dx) * LDH + q;
+      }
+    const float* bp = ws + (tap * cin + q) * 8 + g;
+#pragma unroll 2
+    for (int ci = 0; ci < cin; ci += 8) {
+      mma_k8_tf32(
+          d,
+          [&](int mi, unsigned(&f)[4]) {
+            f[0] = ok[mi][0] ? __float_as_uint(ap[mi][0][ci]) : 0u;
+            f[1] = ok[mi][1] ? __float_as_uint(ap[mi][1][ci]) : 0u;
+            f[2] = ok[mi][0] ? __float_as_uint(ap[mi][0][ci + 4]) : 0u;
+            f[3] = ok[mi][1] ? __float_as_uint(ap[mi][1][ci + 4]) : 0u;
+          },
+          [&](int, unsigned(&f)[2]) {
+            f[0] = __float_as_uint(bp[ci * 8]);
+            f[1] = __float_as_uint(bp[(ci + 4) * 8]);
+          });
+    }
+  }
+  constexpr int LDC = 12;
+  __syncthreads();  // every warp is done with the halo
+  stage_tf32(d, c, LDC, tid & ~31, 0);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = c[tid * LDC + j];
+}
+
 // out (M, cout <= 8) = conv3x3(in), pixel p = m0 + tid a thread: tap by tap
 // (k = tap·cin + ci ascending, the gather tile's order) from the halo,
 // zero where the tap leaves the image (the image's own rows: a tile may
-// span two images).
+// span two images). kTf32: the products at the TF32 tier (cin % 8 == 0).
+template <bool kTf32>
 static __global__ void __launch_bounds__(kHaloPix) conv_halo_kernel(ConvArgs a) {
   extern __shared__ float4 smem4[];
   const int H = a.H, W = a.W, HW = H * W, M = a.B * HW, G = a.B * H;
@@ -701,29 +895,43 @@ static __global__ void __launch_bounds__(kHaloPix) conv_halo_kernel(ConvArgs a) 
   __syncthreads();
 
   const int p = m0 + tid;
-  if (p >= M) return;
-  const int g = p / W, wc = p - g * W, h = g % H;
   float acc[8];
+  if constexpr (kTf32) {
+    // round the staged halo and weight once, then the tensor cores
+    for (int idx = tid; idx < n_halo + 9 * cin * 2; idx += kHaloPix) {
+      float4* v = reinterpret_cast<float4*>(
+          idx < n_halo ? halo + static_cast<size_t>(idx / c4) * LDH + 4 * (idx % c4)
+                       : ws + 4 * (idx - n_halo));
+      const float4 x = *v;
+      *v = make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
+    }
+    __syncthreads();
+    halo_mma_tf32(a, halo, ws, g0, halo, acc);
+    if (p >= M) return;
+  } else {
+    if (p >= M) return;
+    const int g = p / W, wc = p - g * W, h = g % H;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    const bool ok = h + dy >= 0 && h + dy < H && wc + dx >= 0 && wc + dx < W;
-    const float* ap =
-        halo + static_cast<size_t>((g - g0 + 1 + dy) * (W + 2) + wc + 1 + dx) * LDH;
-    const float* bp = ws + tap * cin * 8;
+    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+      const bool ok = h + dy >= 0 && h + dy < H && wc + dx >= 0 && wc + dx < W;
+      const float* ap =
+          halo + static_cast<size_t>((g - g0 + 1 + dy) * (W + 2) + wc + 1 + dx) * LDH;
+      const float* bp = ws + tap * cin * 8;
 #pragma unroll 4
-    for (int ci = 0; ci < cin; ci += 4) {
-      const float4 av = ok ? *reinterpret_cast<const float4*>(ap + ci)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int ci = 0; ci < cin; ci += 4) {
+        const float4 av = ok ? *reinterpret_cast<const float4*>(ap + ci)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 b0 = *reinterpret_cast<const float4*>(bp + (ci + q) * 8);
-        const float4 b1 = *reinterpret_cast<const float4*>(bp + (ci + q) * 8 + 4);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-        const float x = q == 0 ? av.x : q == 1 ? av.y : q == 2 ? av.z : av.w;
+        for (int q = 0; q < 4; ++q) {
+          const float4 b0 = *reinterpret_cast<const float4*>(bp + (ci + q) * 8);
+          const float4 b1 = *reinterpret_cast<const float4*>(bp + (ci + q) * 8 + 4);
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+          const float x = q == 0 ? av.x : q == 1 ? av.y : q == 2 ? av.z : av.w;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[j] = fmaf(x, bv[j], acc[j]);
+          for (int j = 0; j < 8; ++j) acc[j] = fmaf(x, bv[j], acc[j]);
+        }
       }
     }
   }
@@ -745,13 +953,14 @@ static __global__ void __launch_bounds__(kHaloPix) conv_halo_kernel(ConvArgs a) 
   }
 }
 
+template <bool kTf32>
 static inline cudaError_t launch_halo(const ConvArgs& a, cudaStream_t st) {
   const size_t smem = halo_smem_floats(a.W, a.cin) * sizeof(float);
   static size_t granted = 0;
-  cudaError_t err = allow_smem(conv_halo_kernel, smem, &granted);
+  cudaError_t err = allow_smem(conv_halo_kernel<kTf32>, smem, &granted);
   if (err != cudaSuccess) return err;
-  conv_halo_kernel<<<cdiv(static_cast<long long>(a.B) * a.H * a.W, kHaloPix),
-                     kHaloPix, smem, st>>>(a);
+  conv_halo_kernel<kTf32>
+      <<<cdiv(static_cast<long long>(a.B) * a.H * a.W, kHaloPix), kHaloPix, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -770,29 +979,36 @@ static inline bool conv_vec(const ConvArgs& a) {
 constexpr size_t kHaloSmemBytes = 113 * 1024;
 
 // The tile of a forward conv: the halo tile for a thin 16-byte conv whose
-// halo fits (unless gather is set), the N = 8 gather tile for another thin
-// one, the N = 64 tile otherwise and for every conv that takes BatchNorm
-// statistics.
-template <int BM, int BN, int TM>
+// halo fits (unless gather is set; at TF32 only for cin % 8 == 0), the
+// N = 8 gather tile for another thin one, the N = 64 tile otherwise and for
+// every conv that takes BatchNorm statistics. tf32: the products at the
+// TF32 tier.
+template <int BM, int BN, int TM, bool kTf32>
 static inline cudaError_t launch_tile(const ConvArgs& a, cudaStream_t st, bool vec,
                                       bool epi) {
   if (epi)
-    return vec ? launch_gemm<BM, BN, TM, true, true>(a, st)
-               : launch_gemm<BM, BN, TM, false, true>(a, st);
-  return vec ? launch_gemm<BM, BN, TM, true, false>(a, st)
-             : launch_gemm<BM, BN, TM, false, false>(a, st);
+    return vec ? launch_gemm<BM, BN, TM, true, true, kTf32>(a, st)
+               : launch_gemm<BM, BN, TM, false, true, kTf32>(a, st);
+  return vec ? launch_gemm<BM, BN, TM, true, false, kTf32>(a, st)
+             : launch_gemm<BM, BN, TM, false, false, kTf32>(a, st);
 }
 
-static inline cudaError_t launch_conv(const ConvArgs& a, cudaStream_t st,
-                                      bool gather = false) {
+template <bool kTf32>
+static inline cudaError_t launch_conv_at(const ConvArgs& a, cudaStream_t st, bool gather) {
   const bool vec = conv_vec(a);
   const bool epi = a.epi.part != nullptr || a.epi.bn_mean != nullptr || a.epi.stage > 0;
   if (a.cout <= 8 && a.epi.part == nullptr) {
-    if (vec && !gather && halo_smem_floats(a.W, a.cin) * sizeof(float) <= kHaloSmemBytes)
-      return launch_halo(a, st);
-    return launch_tile<128, 8, 1>(a, st, vec, epi);
+    if (vec && !gather && (!kTf32 || a.cin % 8 == 0) &&
+        halo_smem_floats(a.W, a.cin) * sizeof(float) <= kHaloSmemBytes)
+      return launch_halo<kTf32>(a, st);
+    return launch_tile<128, 8, 1, kTf32>(a, st, vec, epi);
   }
-  return launch_tile<128, 64, 8>(a, st, vec, epi);
+  return launch_tile<128, 64, 8, kTf32>(a, st, vec, epi);
+}
+
+static inline cudaError_t launch_conv(const ConvArgs& a, cudaStream_t st, bool tf32,
+                                      bool gather = false) {
+  return tf32 ? launch_conv_at<true>(a, st, gather) : launch_conv_at<false>(a, st, gather);
 }
 
 // The data gradient's weight: wt (3, 3, w_cout, w_cin − 1) with
@@ -852,9 +1068,10 @@ struct WgradArgs {
   int B, H, W;
 };
 
-template <int BM, int BN, int BK, int ST>
+template <int BM, int BN, int BK, int ST, bool kTf32 = false>
 __host__ __device__ constexpr size_t wgrad_smem_floats() {
-  return static_cast<size_t>(ST) * BK * ((BM + 4) + BN);
+  return static_cast<size_t>(ST) * BK *
+         (kTf32 ? tf32_ld<BM>(BM + 4) + tf32_ld<BN>(BN) : (BM + 4) + BN);
 }
 
 // Advance a pixel's (h, w) by n pixels (n < H·W is not needed: whole rows
@@ -867,15 +1084,19 @@ __device__ inline void advance_pixel(int& h, int& w, int n, int H, int W) {
   }
 }
 
-template <int BM, int BN, int TM, int BK, int ST, bool kVec>
+// kTf32: the products at the TF32 tier (mma.sync), the FP32
+// instantiations unchanged.
+template <int BM, int BN, int TM, int BK, int ST, bool kVec, bool kTf32>
 static __global__ void __launch_bounds__((BM / TM) * (BN / 8))
 wgrad_gemm_kernel(WgradArgs a) {
-  constexpr int TN = 8, NT = (BM / TM) * (BN / TN), LDA = BM + 4;
+  constexpr int TN = 8, NT = (BM / TM) * (BN / TN);
+  constexpr int LDA = kTf32 ? tf32_ld<BM>(BM + 4) : BM + 4;
+  constexpr int LDB = kTf32 ? tf32_ld<BN>(BN) : BN;
   constexpr int MG = kVec ? BM / 4 : BM;  // copies per pixel of the A tile
   static_assert(NT % MG == 0 && (BK * MG) % NT == 0, "A-tile mapping");
   extern __shared__ float4 smem4[];
   float* const As = reinterpret_cast<float*>(smem4);  // [ST][BK][LDA]
-  float* const Bs = As + ST * BK * LDA;               // [ST][BK][BN]
+  float* const Bs = As + ST * BK * LDA;               // [ST][BK][LDB]
   const int tid = threadIdx.x;
   const int H = a.H, W = a.W, HW = H * W, M = a.B * HW;
   const int cin = a.cin, R = 9 * cin, cout = a.cout;
@@ -903,7 +1124,7 @@ wgrad_gemm_kernel(WgradArgs a) {
   auto load = [&](int chunk, int st) {
     const int p0 = p_begin + chunk * BK;
     float* as = As + st * BK * LDA;
-    float* bs = Bs + st * BK * BN;
+    float* bs = Bs + st * BK * LDB;
 #pragma unroll
     for (int j = 0; j < GA; ++j) {
       const int kk = kk0 + j * KS, p = p0 + kk;
@@ -923,8 +1144,8 @@ wgrad_gemm_kernel(WgradArgs a) {
       const int p = p0 + kk, co = n0 + n;
       const bool ok = p < p_end && co < cout;
       const float* src = ok ? a.dy + static_cast<size_t>(p) * cout + co : a.dy;
-      if constexpr (kVec) cp_async16(bs + kk * BN + n, src, ok);
-      else cp_async4(bs + kk * BN + n, src, ok);
+      if constexpr (kVec) cp_async16(bs + kk * LDB + n, src, ok);
+      else cp_async4(bs + kk * LDB + n, src, ok);
     }
   };
 
@@ -934,6 +1155,21 @@ wgrad_gemm_kernel(WgradArgs a) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  // the TF32 instantiation's warp tile, the lane's fragment row and
+  // column (fg, fq), and its accumulators
+  using TW = Tf32Warps<BM, BN, NT>;
+  [[maybe_unused]] const int fg = (tid & 31) >> 2, fq = tid & 3;
+  [[maybe_unused]] const int wm0 = (tid / 32 / TW::WARPS_N) * TW::WM;
+  [[maybe_unused]] const int wn0 = (tid / 32 % TW::WARPS_N) * TW::WN;
+  [[maybe_unused]] float d[TW::MI][TW::NJ][4];
+  if constexpr (kTf32) {
+#pragma unroll
+    for (int mi = 0; mi < TW::MI; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < TW::NJ; ++nj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) d[mi][nj][r] = 0.f;
+  }
 
 #pragma unroll
   for (int s = 0; s < ST - 1; ++s) {
@@ -949,7 +1185,29 @@ wgrad_gemm_kernel(WgradArgs a) {
       cp_async_commit();
     }
     const float* as = As + (c % ST) * BK * LDA;
-    const float* bs = Bs + (c % ST) * BK * BN;
+    const float* bs = Bs + (c % ST) * BK * LDB;
+    if constexpr (kTf32) {
+      // A (k-major: pixel rows of (tap, ci) columns, read as rows wm0 + 16 mi
+      // + g of Aᵀ) and B as TF32 fragments, each rounded once as it is built
+#pragma unroll
+      for (int k0 = 0; k0 < BK; k0 += 8) {
+        mma_k8_tf32(
+            d,
+            [&](int mi, unsigned(&f)[4]) {
+              const float* p = as + (k0 + fq) * LDA + wm0 + 16 * mi + fg;
+              f[0] = tf32_bits(p[0]);
+              f[1] = tf32_bits(p[8]);
+              f[2] = tf32_bits(p[4 * LDA]);
+              f[3] = tf32_bits(p[4 * LDA + 8]);
+            },
+            [&](int nj, unsigned(&f)[2]) {
+              const float* p = bs + (k0 + fq) * LDB + wn0 + 8 * nj + fg;
+              f[0] = tf32_bits(p[0]);
+              f[1] = tf32_bits(p[4 * LDB]);
+            });
+      }
+      continue;
+    }
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
       float av[TM];
@@ -965,6 +1223,17 @@ wgrad_gemm_kernel(WgradArgs a) {
     }
   }
   cp_async_wait<0>();
+  if constexpr (kTf32) {  // the fragments into the FFMA layout, via the ring
+    constexpr int LDC = BN + 4;
+    __syncthreads();
+    stage_tf32(d, As, LDC, wm0, wn0);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        acc[i][j] = As[(ty + i * (BM / TM)) * LDC + out_col<BN>(tx, j)];
+  }
 
   float* part = a.part + static_cast<size_t>(blockIdx.z) * 9 * (cin + 1) * cout;
 #pragma unroll
@@ -1005,7 +1274,10 @@ constexpr int kTimeThreads = 1024;  // threads of wgrad_time_kernel
 // corner counted twice. One block per split; thread (lane, co) takes every
 // L-th pixel (L = kTimeThreads / cout lanes) into nine sums (all, top,
 // bottom, left, right rows and the four corners); the lanes' sums are added
-// in lane order. Needs cout <= kTimeThreads.
+// in lane order. Needs cout <= kTimeThreads. kTf32: the sums of dy rounded
+// to TF32 (the reference's product of the tap mask, exact, and dy at the
+// gradients' tier).
+template <bool kTf32>
 static __global__ void __launch_bounds__(kTimeThreads) wgrad_time_kernel(WgradArgs a) {
   __shared__ float red[kTimeThreads * 9];
   const int cout = a.cout, cin = a.cin, tid = threadIdx.x;
@@ -1030,7 +1302,7 @@ static __global__ void __launch_bounds__(kTimeThreads) wgrad_time_kernel(WgradAr
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (p0 + u * L >= p_end) break;
-        const float v = vs[u];
+        const float v = kTf32 ? to_tf32(vs[u]) : vs[u];
         acc[0] += v;
         if (h == 0) {
           acc[1] += v;
@@ -1076,12 +1348,13 @@ static __global__ void __launch_bounds__(kTimeThreads) wgrad_time_kernel(WgradAr
   }
 }
 
-template <int BN, int TM, bool kVec>
+template <int BN, int TM, bool kVec, bool kTf32>
 static inline cudaError_t launch_wgrad_gemm(const WgradArgs& a, int splits,
                                             cudaStream_t st) {
   constexpr int BM = kWgradBM;
-  auto kernel = wgrad_gemm_kernel<BM, BN, TM, kConvBK, kConvST, kVec>;
-  const size_t smem = wgrad_smem_floats<BM, BN, kConvBK, kConvST>() * sizeof(float);
+  auto kernel = wgrad_gemm_kernel<BM, BN, TM, kConvBK, kConvST, kVec, kTf32>;
+  const size_t smem =
+      wgrad_smem_floats<BM, BN, kConvBK, kConvST, kTf32>() * sizeof(float);
   static size_t granted = 0;
   cudaError_t err = allow_smem(kernel, smem, &granted);
   if (err != cudaSuccess) return err;
@@ -1090,22 +1363,28 @@ static inline cudaError_t launch_wgrad_gemm(const WgradArgs& a, int splits,
   return cudaGetLastError();
 }
 
-// dW of one conv into its partial slots: the GEMM over the image channels,
-// then the time channel's rows.
-static inline cudaError_t launch_wgrad(const WgradArgs& a, int splits, cudaStream_t st) {
+template <bool kTf32>
+static inline cudaError_t launch_wgrad_at(const WgradArgs& a, int splits, cudaStream_t st) {
   if (a.cout > kTimeThreads) return cudaErrorInvalidValue;
   const bool vec = a.cin % 4 == 0 && a.cout % 4 == 0 && aligned16(a.src) &&
                    aligned16(a.dy) && aligned16(a.part);
   cudaError_t err;
   if (a.cout <= 8)
-    err = vec ? launch_wgrad_gemm<8, 1, true>(a, splits, st)
-              : launch_wgrad_gemm<8, 1, false>(a, splits, st);
+    err = vec ? launch_wgrad_gemm<8, 1, true, kTf32>(a, splits, st)
+              : launch_wgrad_gemm<8, 1, false, kTf32>(a, splits, st);
   else
-    err = vec ? launch_wgrad_gemm<64, 8, true>(a, splits, st)
-              : launch_wgrad_gemm<64, 8, false>(a, splits, st);
+    err = vec ? launch_wgrad_gemm<64, 8, true, kTf32>(a, splits, st)
+              : launch_wgrad_gemm<64, 8, false, kTf32>(a, splits, st);
   if (err != cudaSuccess) return err;
-  wgrad_time_kernel<<<splits, kTimeThreads, 0, st>>>(a);
+  wgrad_time_kernel<kTf32><<<splits, kTimeThreads, 0, st>>>(a);
   return cudaGetLastError();
+}
+
+// dW of one conv into its partial slots: the GEMM over the image channels,
+// then the time channel's rows; tf32: at the TF32 tier.
+static inline cudaError_t launch_wgrad(const WgradArgs& a, int splits, cudaStream_t st,
+                                       bool tf32) {
+  return tf32 ? launch_wgrad_at<true>(a, splits, st) : launch_wgrad_at<false>(a, splits, st);
 }
 
 }  // namespace conv

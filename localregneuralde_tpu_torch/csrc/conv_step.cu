@@ -25,8 +25,14 @@
 // rstats_out), 1 eval with the running stats, 2 eval with batch statistics
 // (BatchNorm eval_stats='batch'; running stats untouched).
 //
+// Tiers: lrnde_conv_step computes its products in FP32 (the reference's
+// 'highest'), lrnde_conv_step_tf32 at the TF32 tier (its 'default', which
+// 'auto' takes at rtol >= 1e-4: the kernel built at mm_precision,
+// fused_conv.py:199 there), the same launch sequence on the core's TF32
+// instantiations.
+//
 // Bound: the products, 18.1 GFLOP per step at B = 32, 32x32, Cs 8, Ch 64
-// (0.27 ms at 67 TFLOP/s FP32); see conv.cuh.
+// (0.27 ms at 67 TFLOP/s FP32, 0.037 ms at 495 TFLOP/s TF32); see conv.cuh.
 #include "conv.cuh"
 
 namespace lrnde {
@@ -85,9 +91,10 @@ extern "C" long long lrnde_conv_step_offset(int which, int B, int H, int W,
 // One Tsit5 step from (u, t) with step dt and FSAL derivative k1, NHWC
 // (B, H, W, Cs); sc = (t, dt) on the device. Writes u_new, u~, k2..k7 and g6;
 // in training mode the EMA chain of rstats (4, Ch: mean1, var1, mean2, var2)
-// into rstats_out. Returns the first CUDA error.
-extern "C" int lrnde_conv_step(
-    const float* u, const float* k1, const float* sc, const float* w1,
+// into rstats_out. tf32: the products at the TF32 tier. Returns the first
+// CUDA error.
+static int conv_step_at(
+    bool tf32, const float* u, const float* k1, const float* sc, const float* w1,
     const float* g1, const float* b1, const float* w2, const float* g2,
     const float* b2, const float* w3, float* unew, float* utilde, float* k2,
     float* k3, float* k4, float* k5, float* k6, float* k7, float* g6,
@@ -142,5 +149,33 @@ extern "C" int lrnde_conv_step(
   a.W = W;
   a.Cs = Cs;
   a.Ch = Ch;
+  a.tf32 = tf32;
   return forward_step(a, st);
+}
+
+extern "C" int lrnde_conv_step(
+    const float* u, const float* k1, const float* sc, const float* w1,
+    const float* g1, const float* b1, const float* w2, const float* g2,
+    const float* b2, const float* w3, float* unew, float* utilde, float* k2,
+    float* k3, float* k4, float* k5, float* k6, float* k7, float* g6,
+    const float* rstats, float* rstats_out, float* scratch, int mode,
+    float mom, float omm, float eps, int B, int H, int W, int Cs, int Ch,
+    void* stream) {
+  return conv_step_at(false, u, k1, sc, w1, g1, b1, w2, g2, b2, w3, unew, utilde,
+                      k2, k3, k4, k5, k6, k7, g6, rstats, rstats_out, scratch,
+                      mode, mom, omm, eps, B, H, W, Cs, Ch, stream);
+}
+
+// lrnde_conv_step at the TF32 tier.
+extern "C" int lrnde_conv_step_tf32(
+    const float* u, const float* k1, const float* sc, const float* w1,
+    const float* g1, const float* b1, const float* w2, const float* g2,
+    const float* b2, const float* w3, float* unew, float* utilde, float* k2,
+    float* k3, float* k4, float* k5, float* k6, float* k7, float* g6,
+    const float* rstats, float* rstats_out, float* scratch, int mode,
+    float mom, float omm, float eps, int B, int H, int W, int Cs, int Ch,
+    void* stream) {
+  return conv_step_at(true, u, k1, sc, w1, g1, b1, w2, g2, b2, w3, unew, utilde,
+                      k2, k3, k4, k5, k6, k7, g6, rstats, rstats_out, scratch,
+                      mode, mom, omm, eps, B, H, W, Cs, Ch, stream);
 }

@@ -36,8 +36,17 @@
 // statistics from the convs' tile moments, its stage inputs from conv3's
 // epilogue, its thin data gradient (conv1^T, N = 8) on the halo tile.
 //
+// Tiers, as the reference's kernel (fused_conv_bwd.py:111, 132-147 there):
+// the recompute runs at one tier (its `precision`) and the data-gradient,
+// weight-gradient and time-row products at another (`grad_precision`), each
+// FP32 FFMA or TF32 (conv_core.cuh's kTf32 instantiations): bit 1 of
+// lrnde_conv_step_bwd's tiers the recompute at TF32, bit 2 the
+// gradients (ops/cuda/fused_mlp_bwd.py::tier_bits). The model's routes take
+// the gradients at TF32 always, the reference's grad_precision=None.
+//
 // Bound: the products, about three forward steps' worth (the recompute, the
-// data and the weight gradients): ~54 GFLOP, 0.8 ms at 67 TFLOP/s FP32.
+// data and the weight gradients): ~54 GFLOP, 0.8 ms at 67 TFLOP/s FP32,
+// 0.11 ms at 495 TFLOP/s TF32.
 #include "conv.cuh"
 
 namespace lrnde {
@@ -226,10 +235,11 @@ extern "C" long long lrnde_conv_step_bwd_scratch_floats(int B, int H, int W,
 // derivative k1 (NHWC (B, H, W, Cs)); sc = (t, dt) on the device. The nine
 // cotangents are those of (u_new, u~, k2..k7, g6). Writes d_u, d_k1, the
 // HWIO weight gradients d_w1 (3, 3, Cs+1, Ch), d_w2 (3, 3, Ch+1, Ch),
-// d_w3 (3, 3, Ch+1, Cs) and the BatchNorm affine gradients. Returns the
-// first CUDA error.
+// d_w3 (3, 3, Ch+1, Cs) and the BatchNorm affine gradients. tiers: bit 1
+// the recompute at TF32, bit 2 the gradient products. Returns the first
+// CUDA error.
 extern "C" int lrnde_conv_step_bwd(
-    const float* u, const float* k1, const float* sc, const float* w1,
+    int tiers, const float* u, const float* k1, const float* sc, const float* w1,
     const float* g1, const float* b1, const float* w2, const float* g2,
     const float* b2, const float* w3, const float* d_unew,
     const float* d_utilde, const float* d_k2, const float* d_k3,
@@ -240,7 +250,8 @@ extern "C" int lrnde_conv_step_bwd(
     int Cs, int Ch, void* stream) {
   using namespace lrnde;
   using namespace lrnde::conv;
-  if (Cs > kMaxC || Ch > kMaxC) return cudaErrorInvalidValue;
+  if (Cs > kMaxC || Ch > kMaxC || tiers < 0 || tiers > 3) return cudaErrorInvalidValue;
+  const bool grad = (tiers & 2) != 0;  // the gradient products at TF32
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * H * W;
   const size_t n = static_cast<size_t>(M) * Cs;
@@ -293,6 +304,7 @@ extern "C" int lrnde_conv_step_bwd(
   a.W = W;
   a.Cs = Cs;
   a.Ch = Ch;
+  a.tf32 = (tiers & 1) != 0;
   if ((err = forward_step(a, st)) != cudaSuccess) return err;
   // the data gradients' weights: taps flipped, channel axes swapped
   if ((err = transpose_w(w1, Cs + 1, Ch, l.wt1, st)) != cudaSuccess ||
@@ -328,9 +340,9 @@ extern "C" int lrnde_conv_step_bwd(
 
     // conv3^T
     WgradArgs wg3{act2, Ch, sc, c, dk, Cs, l.wp3, cdiv(M, S3), B, H, W};
-    if ((err = launch_wgrad(wg3, S3, st)) != cudaSuccess) return err;
+    if ((err = launch_wgrad(wg3, S3, st, grad)) != cudaSuccess) return err;
     ConvArgs dg3{dk, Cs, l.wt3, Cs, Ch, nullptr, sc, c, l.da, B, H, W};
-    if ((err = launch_conv(dg3, st)) != cudaSuccess) return err;
+    if ((err = launch_conv(dg3, st, grad)) != cudaSuccess) return err;
     // BN2 / gelu'
     bn_bwd_reduce_kernel<<<nstat, kBwdThreads, 0, st>>>(
         l.da, z2, m2, v2, g2, b2, eps, M, Ch, l.part, tk, l.sums, d_g2, d_b2);
@@ -339,9 +351,9 @@ extern "C" int lrnde_conv_step_bwd(
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     // conv2^T
     WgradArgs wg2{act1, Ch, sc, c, l.dz, Ch, l.wp2, cdiv(M, S2), B, H, W};
-    if ((err = launch_wgrad(wg2, S2, st)) != cudaSuccess) return err;
+    if ((err = launch_wgrad(wg2, S2, st, grad)) != cudaSuccess) return err;
     ConvArgs dg2{l.dz, Ch, l.wt2, Ch, Ch, nullptr, sc, c, l.da, B, H, W};
-    if ((err = launch_conv(dg2, st)) != cudaSuccess) return err;
+    if ((err = launch_conv(dg2, st, grad)) != cudaSuccess) return err;
     // BN1 / gelu'
     bn_bwd_reduce_kernel<<<nstat, kBwdThreads, 0, st>>>(
         l.da, z1, m1, v1, g1, b1, eps, M, Ch, l.part, tk + 1, l.sums, d_g1, d_b1);
@@ -350,9 +362,9 @@ extern "C" int lrnde_conv_step_bwd(
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     // conv1^T
     WgradArgs wg1{x, Cs, sc, c, l.dz, Ch, l.wp1, cdiv(M, S1), B, H, W};
-    if ((err = launch_wgrad(wg1, S1, st)) != cudaSuccess) return err;
+    if ((err = launch_wgrad(wg1, S1, st, grad)) != cudaSuccess) return err;
     ConvArgs dg1{l.dz, Ch, l.wt1, Ch, Cs, nullptr, sc, c, l.dx, B, H, W};
-    if ((err = launch_conv(dg1, st)) != cudaSuccess) return err;
+    if ((err = launch_conv(dg1, st, grad)) != cudaSuccess) return err;
     stage_bwd_kernel<<<cdiv(n, kEw), kEw, 0, st>>>(l.dx, d_unew, d_g6, sc, e,
                                                    d_u, dks, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -375,8 +387,9 @@ extern "C" int lrnde_conv_step_bwd(
 // tile (its outputs must be bitwise the halo tile's); 5, the forward with
 // the BatchNorm statistics epilogue (the tickets' memset included), the
 // statistics (mean, var) at scratch; 6 and 7, the same without the final
-// fold, and without the groups' fold either (timing probes). scratch holds
-// lrnde_conv_core_scratch_floats floats.
+// fold, and without the groups' fold either (timing probes). tf32: the
+// products at the TF32 tier. scratch holds lrnde_conv_core_scratch_floats
+// floats.
 extern "C" long long lrnde_conv_core_scratch_floats(int orient, int B, int H,
                                                     int W, int cin, int cout) {
   using namespace lrnde::conv;
@@ -388,7 +401,7 @@ extern "C" long long lrnde_conv_core_scratch_floats(int orient, int B, int H,
          (cin + 1) * cout;
 }
 
-extern "C" int lrnde_conv_core(int orient, const float* x, const float* w,
+extern "C" int lrnde_conv_core(int orient, int tf32, const float* x, const float* w,
                                const float* sc, float* out, float* scratch,
                                int B, int H, int W, int cin, int cout,
                                void* stream) {
@@ -407,16 +420,16 @@ extern "C" int lrnde_conv_core(int orient, const float* x, const float* w,
     if ((err = cudaMemsetAsync(a.epi.ticket, 0, kStatTickets * sizeof(unsigned), st)) !=
         cudaSuccess)
       return err;
-    return launch_conv(a, st);
+    return launch_conv(a, st, tf32 != 0);
   }
   if (orient == 0) {
     const ConvArgs a{x, cin, w, cin, cout, nullptr, sc, 0.f, out, B, H, W};
-    return launch_conv(a, st, gather);
+    return launch_conv(a, st, tf32 != 0, gather);
   }
   if (orient == 1) {
     if ((err = transpose_w(w, cout + 1, cin, scratch, st)) != cudaSuccess) return err;
     const ConvArgs a{x, cin, scratch, cin, cout, nullptr, sc, 0.f, out, B, H, W};
-    return launch_conv(a, st, gather);
+    return launch_conv(a, st, tf32 != 0, gather);
   }
   if (orient != 2) return cudaErrorInvalidValue;
   const int M = B * H * W, S = wgrad_splits(M, cin, cout);
@@ -424,6 +437,6 @@ extern "C" int lrnde_conv_core(int orient, const float* x, const float* w,
   if ((err = cudaMemsetAsync(scratch, 0, S * nw * sizeof(float), st)) != cudaSuccess)
     return err;
   const WgradArgs a{x, cin, sc, 0.f, w, cout, scratch, cdiv(M, S), B, H, W};
-  if ((err = launch_wgrad(a, S, st)) != cudaSuccess) return err;
+  if ((err = launch_wgrad(a, S, st, tf32 != 0)) != cudaSuccess) return err;
   return reduce_partials(scratch, S, nw, out, st);
 }

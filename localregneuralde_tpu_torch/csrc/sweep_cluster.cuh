@@ -61,6 +61,7 @@
 
 #include <cooperative_groups.h>
 
+#include "tf32.cuh"
 #include "tsit5_bwd.cuh"
 
 namespace lrnde {
@@ -331,18 +332,7 @@ __device__ inline float comp(const float4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
-// ---- the TF32 tier
-//
-// The reference's 'default' precision (a dot at the backend's default, which
-// on this card is TF32): each operand of a product is rounded to TF32 with
-// cvt.rna.tf32.f32 (round to nearest, ties away from zero: 10 mantissa bits,
-// the low 13 cleared), the products run on the tensor cores (mma.sync
-// m16n8k8 with .tf32 operands) and accumulate in FP32. A product of two TF32
-// operands is exact in FP32, so a kernel at this tier and its plain version
-// (nn.basic.round_tf32 on both operands, then an FP32 product) differ only
-// in how their FP32 sums are ordered and rounded: the tensor cores round
-// their internal sums toward zero. Elementwise work (biases, the time
-// channel, tanh, the stage combinations, ũ, the error norm) stays FP32.
+// ---- the TF32 tier (tf32.cuh: the rounding and the mma)
 //
 // What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): not
 // the tensor cores but their feed, one scalar load and one cvt an operand
@@ -355,32 +345,6 @@ __device__ inline float comp(const float4& v, int q) {
 // cotangent and weight-gradient products, and the two-level window replay.
 // A clear bit is FP32 FFMA, a set bit TF32.
 constexpr int kTierRecompute = 1, kTierGrad = 2, kTierReplay = 4;
-
-// x rounded to TF32 (its bit pattern, as mma.sync reads a .tf32 operand)
-__device__ __forceinline__ unsigned tf32_bits(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ float to_tf32(float x) {
-  return __uint_as_float(tf32_bits(x));
-}
-
-// d += A·B for one warp: A 16 × 8 (a0: row g, col q; a1: row g + 8, col q;
-// a2: row g, col q + 4; a3: row g + 8, col q + 4), B 8 × 8 (b0: row q, col
-// g; b1: row q + 4, col g), d 16 × 8 (d0, d1: row g, cols 2q, 2q + 1; d2,
-// d3: row g + 8, the same cols), with g = lane / 4 and q = lane % 4.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(d[0]), "f"(d[1]), "f"(d[2]), "f"(d[3]));
-}
 
 // tile_gemm at the TF32 tier, with its operand layouts and its epilogue:
 // warp tiles of 16 rows by 16 columns, two mma_tf32 a k-step of 8 (two

@@ -11,19 +11,21 @@ from __future__ import annotations
 import torch
 
 from ..core.containers import ArrayAndTime, get_array
-from ..nn.basic import Chain, Conv, conv2d_nhwc_td
+from ..nn.basic import Chain, Conv, conv2d_nhwc_td, scope_tier
 from ..nn.module import Module
 from ..ode.solve import host_to_device
 from .draws import pop_draws, to_device
 
 
 def _conv_split(conv: Conv, x, t):
-    """``conv(concat(x, t·1))`` without the concat (``conv2d_nhwc_td``); the
-    parameter layout is the concat's, the last input channel time. None
-    when the weight's input count is not C + 1."""
+    """``conv(concat(x, t·1))`` without the concat (``conv2d_nhwc_td``), at
+    the tier of ``nn.basic.product_tier_scope`` (the reference passes the
+    conv's precision to both of its convs); the parameter layout is the
+    concat's, the last input channel time. None when the weight's input
+    count is not C + 1."""
     if conv.w.shape[2] != x.shape[-1] + 1:
         return None
-    y = conv2d_nhwc_td(x, conv.w, t)
+    y = conv2d_nhwc_td(x, conv.w, t, scope_tier(x))
     if conv.use_bias:
         y = y + conv.b
     return conv.activation(y)

@@ -47,7 +47,8 @@ The conv family, as in the reference (``neural_ode.py:273-325, 349-353``),
 has a step kernel (13) and its VJP (14) and no persistent solve or sweep:
 every attempt of the eager loop, eval and training, and the regulariser's
 step run kernel 13, the sweep runs kernel 14 once per accepted step, and
-k1, the dt probe and the FSAL closure are the plain module (cuDNN, FP32).
+k1, the dt probe and the FSAL closure are the plain module (cuDNN on
+operands rounded to the forward's tier).
 
 Dynamics state (the conv family's BatchNorm running stats) is threaded
 through the solve's accepted steps, in training through the stored
@@ -62,23 +63,27 @@ backward (``ops/cuda/fused_mlp_bwd.py``). Without ``use_persistent`` the
 loop calls the step kernel per attempt and the sweep the step-VJP kernel
 per accepted step.
 
-Precision tiers (the TD-MLP family; reference ``neural_ode.py:104-147``):
-``mm_precision`` is ``precision`` resolved at ``rtol`` ('auto': 'highest'
-below 1e-4, else None, the backend default), ``bwd_precision`` is
-``mm_precision`` under ``grad_precision='match'`` and None under
-``'default'``. ``nn.basic.product_tier`` maps each to what a product
-computes on the device: the default is TF32 on a card and FP32 on the CPU.
-The forward (kernels 1, 2 and 4, the sweep's window replay, the FSAL
-closure) runs at ``mm_precision``, the sweeps' and the step VJP's stage
-recompute at ``bwd_precision`` (the regulariser's and the direct adjoint's
-step VJP at ``mm_precision``, as the reference's fused step), and every
-cotangent and weight-gradient product of kernels 3, 7 and 8 at the default
-tier, the reference's ``grad_precision=None``. The plain route computes
-the dynamics' Dense products at ``mm_precision``'s tier, forward and
-backward (``nn.basic.product_tier_scope``), and warns that
+Precision tiers (the TD-MLP and conv families; reference
+``neural_ode.py:104-147, 262-325``): ``mm_precision`` is ``precision``
+resolved at ``rtol`` ('auto': 'highest' below 1e-4, else None, the backend
+default), ``bwd_precision`` is ``mm_precision`` under
+``grad_precision='match'`` and None under ``'default'``.
+``nn.basic.product_tier`` maps each to what a product computes on the
+device: the default is TF32 on a card and FP32 on the CPU. The forward
+(kernels 1, 2, 4 and 13, the sweep's window replay, the plain module's k1,
+dt probe and FSAL closure) runs at ``mm_precision``, the sweeps' and the
+stored adjoint's step VJPs' recompute (kernels 3, 7, 8 and 14) at
+``bwd_precision`` (the regulariser's and the direct adjoint's step VJPs at
+``mm_precision``, as the reference's fused steps), and every cotangent,
+data-gradient and weight-gradient product of kernels 3, 7, 8 and 14 at the
+default tier, the reference's ``grad_precision=None``. The plain route
+computes the dynamics' Dense and Conv products at ``mm_precision``'s tier,
+forward and backward (``nn.basic.product_tier_scope``), and warns that
 ``grad_precision='default'`` does nothing there, as the reference does. A
 forward at the TF32 tier below rtol 1e-4 raises (the reference saturates
-``max_steps``). The other families compute FP32 at every tier for now.
+``max_steps``). The chain (latent ODE), SDE and score families compute
+FP32 at every tier for now, each until its own slice (ROADMAP Queue 1
+item 11b).
 
 The other modes route each family as the reference does
 (``neural_ode.py:224-303``): on the TD-MLP's kernel route the dynamics is
@@ -331,8 +336,9 @@ class NeuralODE(Module):
 
     def forward_tier(self, device) -> str:
         """The tier of the dynamics' forward products on ``device``: the
-        TD-MLP family's ``mm_precision``; FP32 for the other families."""
-        if self.family != "tdmlp":
+        TD-MLP and conv families' ``mm_precision``; FP32 for the other
+        families."""
+        if self.family not in ("tdmlp", "conv"):
             return "fp32"
         return product_tier(self.mm_precision, device)
 
@@ -438,16 +444,17 @@ class NeuralODE(Module):
     def _conv_solvers(self):
         """(dynamics, step_fn, None) of the conv family in eval mode: the
         plain module for k1 and the dt probe, kernel 13 for every attempt
-        (running stats, or batch statistics under ``eval_stats='batch'``);
-        the state passes through unchanged."""
+        (running stats, or batch statistics under ``eval_stats='batch'``),
+        both at ``mm_precision``; the state passes through unchanged."""
         from ..ops.cuda import fused_conv_step
 
-        w, spec = self.conv_weights(), self.conv
+        w, spec, prec = self.conv_weights(), self.conv, self.mm_precision
 
         def step(fn, u, t, dt, k1, f_st):
             u_new, utilde, *ks, g6, _ = fused_conv_step(
                 w, spec, u.contiguous(), t, dt, k1.contiguous(),
-                training=False, rstats=running_stats(spec, f_st))
+                training=False, rstats=running_stats(spec, f_st),
+                precision=prec)
             return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, f_st)
 
         return self._generic_dynamics(), step, None
@@ -463,17 +470,19 @@ class NeuralODE(Module):
     def _conv_stored_kwargs(self, names):
         """``stored_odesolve``'s callables for the conv family: the plain
         module (training mode) for k1, the dt probe and the FSAL closure,
-        kernel 13 for every attempt with the running stats threaded, kernel
-        14 for the transpose of every accepted step."""
+        kernel 13 for every attempt with the running stats threaded (all at
+        ``mm_precision``), kernel 14 for the transpose of every accepted
+        step, recomputing at ``bwd_precision`` with its gradient products at
+        the default tier (the reference's ``conv_step_vjp``)."""
         from ..ops.cuda import fused_conv_step, fused_conv_step_bwd
 
-        spec = self.conv
+        spec, prec, bwd = self.conv, self.mm_precision, self.bwd_precision
 
         def step_fn(params, u, t, dt, k1, st):
             u_new, utilde, *ks, g6, stats = fused_conv_step(
                 ConvWeights(*params), spec, u.contiguous(), t, dt,
                 k1.contiguous(), training=True,
-                rstats=running_stats(spec, st))
+                rstats=running_stats(spec, st), precision=prec)
             return Tsit5StepResult(u_new, utilde, (k1, *ks), g6,
                                    with_running_stats(spec, st, stats))
 
@@ -482,7 +491,8 @@ class NeuralODE(Module):
             d_w, d_u, d_k1 = fused_conv_step_bwd(
                 ConvWeights(*params), spec, u.contiguous(), t, dt,
                 k1.contiguous(),
-                [c.contiguous() for c in (d_unew, zero, *d_ks, zero)])
+                [c.contiguous() for c in (d_unew, zero, *d_ks, zero)],
+                precision=bwd, grad_precision=None)
             return list(d_w), d_u, d_k1
 
         return dict(f=self._train_dynamics(names), step_fn=step_fn,
@@ -708,12 +718,14 @@ class NeuralODE(Module):
         if self.family == "conv":
             from ..ops.cuda import differentiable_conv_step
 
-            w, spec = self.conv_weights(), self.conv
+            w, spec, prec = self.conv_weights(), self.conv, self.mm_precision
 
             def conv_step(fn, u, t, dt, k1, st):
+                # the fused step's VJP: recompute at the forward's
+                # precision, gradients at the default tier
                 u_new, utilde, *ks, g6, stats = differentiable_conv_step(
                     w, spec, u.contiguous(), t, dt, k1.contiguous(),
-                    running_stats(spec, st))
+                    running_stats(spec, st), prec, None)
                 return Tsit5StepResult(u_new, utilde, (k1, *ks), g6,
                                        with_running_stats(spec, st, stats))
 
@@ -828,7 +840,7 @@ class NeuralODE(Module):
             spec = self.conv
             u_new, utilde, *ks, g6, stats = differentiable_conv_step(
                 self.conv_weights(), spec, u1.contiguous(), t1, dt_r,
-                k1.contiguous(), running_stats(spec, st))
+                k1.contiguous(), running_stats(spec, st), prec, None)
             return Tsit5StepResult(u_new, utilde, (k1, *ks), g6,
                                    with_running_stats(spec, st, stats)), dt_r
         return tsit5_step(dyn, u1, t1, dt_r, k1, st), dt_r

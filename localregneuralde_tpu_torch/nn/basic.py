@@ -114,10 +114,18 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _at(x: torch.Tensor, tier: str) -> torch.Tensor:
+    """An operand of a product at ``tier``: rounded with ``round_tf32`` at
+    ``"tf32"`` (float32 only), as it is at ``"fp32"``."""
+    if tier != "tf32":
+        return x
+    if x.dtype != torch.float32:
+        raise ValueError(f"the TF32 tier takes float32 operands, not {x.dtype}")
+    return round_tf32(x)
+
+
 def _product(a, b, tier: str):
-    if tier == "tf32":
-        return round_tf32(a) @ round_tf32(b)
-    return a @ b
+    return _at(a, tier) @ _at(b, tier)
 
 
 class TierMatmul(torch.autograd.Function):
@@ -158,15 +166,22 @@ _TIER = contextvars.ContextVar("product_tier", default="fp32")
 
 @contextlib.contextmanager
 def product_tier_scope(tier: str):
-    """Dense layers called inside the block compute their products at
-    ``tier`` (the counterpart of the reference's
-    ``jax.default_matmul_precision`` around its dynamics); their backward
-    keeps the tier they saved."""
+    """Dense and Conv layers (and a TDChain's concat-free convs) called
+    inside the block compute their products at ``tier`` (the counterpart of
+    the reference's ``jax.default_matmul_precision`` around its dynamics);
+    their backward keeps the tier they saved."""
     token = _TIER.set(tier)
     try:
         yield
     finally:
         _TIER.reset(token)
+
+
+def scope_tier(x: torch.Tensor) -> str:
+    """The tier of a product of ``x`` inside ``product_tier_scope``: the
+    scope's for a float32 ``x``, FP32 for another dtype (the bfloat16
+    dynamics)."""
+    return _TIER.get() if x.dtype == torch.float32 else "fp32"
 
 
 def check_fp32_products(rtol: float, device) -> None:
@@ -227,8 +242,8 @@ class Dense(Module):
             self.b = nn.Parameter(torch.zeros(out_dim, device=device))
 
     def apply_layer(self, x, state, *, training: bool = False):
-        tier = _TIER.get()
-        if tier != "fp32" and x.dtype == torch.float32:
+        tier = scope_tier(x)
+        if tier != "fp32":
             y = tier_matmul(x.reshape(-1, self.in_dim), self.w, tier).reshape(
                 x.shape[:-1] + (self.out_dim,))
         else:
@@ -252,53 +267,116 @@ def deterministic_cudnn():
 
 
 class _DeterministicConv(torch.autograd.Function):
-    """A SAME, stride-1 NCHW convolution whose forward and backward both run
-    inside ``deterministic_cudnn``. The scope has to be entered in each
-    direction: the backward runs later, on autograd's own thread, outside
-    any block around the forward."""
+    """A SAME, stride-1 NCHW convolution at the product tier ``tier``, the
+    two products of its backward at ``grad_tier``: at ``"tf32"`` each
+    product's operands are rounded with ``round_tf32`` and convolved in
+    FP32 (never cuDNN's own TF32, whose operand rounding is the library's:
+    the CPU could not reproduce it). On the card both directions run inside
+    ``deterministic_cudnn``, entered in each: the backward runs later, on
+    autograd's own thread, outside any block around the forward, which is
+    also why the tiers are saved at the forward."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, tier, grad_tier):
         ctx.save_for_backward(x, w)
-        with deterministic_cudnn():
-            return nn.functional.conv2d(x, w, padding="same")
+        ctx.grad_tier = grad_tier
+        with _cudnn_scope(x):
+            return nn.functional.conv2d(_at(x, tier), _at(w, tier),
+                                        padding="same")
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
+        t = ctx.grad_tier
         kh, kw = w.shape[-2:]
-        with deterministic_cudnn():
+        with _cudnn_scope(x):
             gx, gw, _ = torch.ops.aten.convolution_backward(
-                gy, x, w, None, [1, 1], [(kh - 1) // 2, (kw - 1) // 2],
-                [1, 1], False, [0, 0], 1,
+                _at(gy, t), _at(x, t), _at(w, t), None, [1, 1],
+                [(kh - 1) // 2, (kw - 1) // 2], [1, 1], False, [0, 0], 1,
                 [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
-        return gx, gw
+        return gx, gw, None, None
 
 
-def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _cudnn_scope(x):
+    return deterministic_cudnn() if x.is_cuda else contextlib.nullcontext()
+
+
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, tier: str = "fp32",
+                grad_tier: Optional[str] = None) -> torch.Tensor:
     """SAME, stride-1 convolution of an NHWC ``x`` with an HWIO ``w`` (odd
-    kernel sizes), in PyTorch's NCHW convolution. It runs in FP32 on the
-    card: the package turns cuDNN's TF32 off when it is imported. On the
-    card it takes cuDNN's deterministic algorithms, forward and backward
-    (``_DeterministicConv``), so that a CIFAR training step repeats
-    bitwise run to run with no process-wide flag; on the CPU it is the
-    plain convolution."""
+    kernel sizes), in PyTorch's NCHW convolution, at the product tier
+    ``tier`` and under autograd at ``grad_tier`` (default ``tier``): FP32
+    (the package turns cuDNN's TF32 off when it is imported), or at
+    ``"tf32"`` on operands rounded with ``round_tf32``
+    (``_DeterministicConv``). On the card it takes cuDNN's deterministic
+    algorithms, forward and backward, so that a CIFAR training step repeats
+    bitwise run to run with no process-wide flag; on the CPU at FP32 it is
+    the plain convolution."""
+    grad_tier = tier if grad_tier is None else grad_tier
     xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
-    if x.is_cuda:
-        y = _DeterministicConv.apply(xc, wc)
+    if x.is_cuda or tier != "fp32" or grad_tier != "fp32":
+        y = _DeterministicConv.apply(xc, wc, tier, grad_tier)
     else:
         y = nn.functional.conv2d(xc, wc, padding="same")
     return y.permute(0, 2, 3, 1)
 
 
-def conv2d_nhwc_td(x: torch.Tensor, w: torch.Tensor, t) -> torch.Tensor:
+class _TimeChannel(torch.autograd.Function):
+    """``t·conv(1, w_t)`` over a batch of NHWC ``shape`` at the tiers:
+    forward the FP32 sum of the time taps rounded to ``tier`` (a ones image
+    is exact in TF32) times t unrounded; backward, at ``grad_tier``, ``w_t``'s
+    gradient t·Σ of the output cotangent rounded to ``grad_tier`` over the
+    pixels each tap reaches (the reference's ``s·(m ·_N dy)`` at
+    ``grad_precision``, ``fused_conv_bwd.py:144-148`` there, which rounds dy
+    before the sum). The output is the whole batch's, so the backward sees
+    each pixel's cotangent."""
+
+    @staticmethod
+    def forward(ctx, wt, t, shape, tier, grad_tier):
+        ones = wt.new_ones((1,) + tuple(shape[1:-1]) + (1,))
+        tmap = conv2d_nhwc(ones, _at(wt, tier))
+        is_tensor = isinstance(t, torch.Tensor)
+        ctx.save_for_backward(wt, tmap, t if is_tensor else None)
+        ctx.t, ctx.grad_tier = None if is_tensor else t, grad_tier
+        out = (t * tmap).expand(tuple(shape[:-1]) + (wt.shape[-1],))
+        return out.contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        wt, tmap, t = ctx.saved_tensors
+        t = ctx.t if t is None else t
+        d_wt = d_t = None
+        if ctx.needs_input_grad[0]:
+            gs = _at(g, ctx.grad_tier).sum(0, keepdim=True).permute(0, 3, 1, 2)
+            ones = gs.new_ones((1, 1) + gs.shape[2:])
+            kh, kw = wt.shape[:2]
+            with _cudnn_scope(g):
+                _, gw, _ = torch.ops.aten.convolution_backward(
+                    gs, ones, wt.permute(3, 2, 0, 1), None, [1, 1],
+                    [(kh - 1) // 2, (kw - 1) // 2], [1, 1], False, [0, 0], 1,
+                    [False, True, False])
+            d_wt = t * gw.permute(2, 3, 1, 0)
+        if ctx.needs_input_grad[1]:
+            d_t = (g * tmap).sum().reshape(t.shape)
+        return d_wt, d_t, None, None, None
+
+
+def conv2d_nhwc_td(x: torch.Tensor, w: torch.Tensor, t, tier: str = "fp32",
+                   grad_tier: Optional[str] = None) -> torch.Tensor:
     """``conv2d_nhwc(concat(x, t·1), w)`` without the concat: by linearity
     ``conv(x, W[:, :, :C]) + t·conv(1, W[:, :, C:])``, the time channel a
-    one-channel conv of a ones image (reference ``models/common.py:18-77``).
-    ``w``'s last input channel is the time channel."""
+    one-channel conv of a ones image (reference ``models/common.py:18-77``),
+    at the tiers of ``conv2d_nhwc``: the time map at ``tier`` is the FP32
+    sum of the rounded time taps, multiplied by t unrounded
+    (``_TimeChannel``). ``w``'s last input channel is the time channel."""
     c = x.shape[-1]
-    tmap = conv2d_nhwc(x.new_ones((1,) + x.shape[1:-1] + (1,)), w[:, :, c:, :])
-    return conv2d_nhwc(x, w[:, :, :c, :]) + t * tmap
+    grad_tier = tier if grad_tier is None else grad_tier
+    if tier == grad_tier == "fp32":
+        tmap = conv2d_nhwc(x.new_ones((1,) + x.shape[1:-1] + (1,)),
+                           w[:, :, c:, :])
+        return conv2d_nhwc(x, w[:, :, :c, :]) + t * tmap
+    return (conv2d_nhwc(x, w[:, :, :c, :], tier, grad_tier)
+            + _TimeChannel.apply(w[:, :, c:, :], t, x.shape, tier, grad_tier))
 
 
 class Conv(Module):
@@ -327,7 +405,7 @@ class Conv(Module):
             self.b = nn.Parameter(torch.zeros(out_channels, device=device))
 
     def apply_layer(self, x, state, *, training: bool = False):
-        y = conv2d_nhwc(x, self.w)
+        y = conv2d_nhwc(x, self.w, scope_tier(x))
         if self.use_bias:
             y = y + self.b
         return self.activation(y), state

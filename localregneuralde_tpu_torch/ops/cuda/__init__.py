@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
 
 Every wrapper counts its kernel launches: a plain-integer ``launches``, or,
-for the TD-MLP family's wrappers, which launch at the FP32 or the TF32
-tier, ``tier_launches`` by tier (``tier_launch_counts``).
+for the TD-MLP and conv families' wrappers, which launch at the FP32 or the
+TF32 tier, ``tier_launches`` by tier (``tier_launch_counts``).
 ``launch_counts`` reads them (a tiered wrapper's sum) and
 ``reset_launch_counts`` zeroes them.
 """
@@ -100,9 +100,9 @@ def launch_counts() -> dict:
 
 def tier_launch_counts() -> dict:
     """Launches by product tier, for the wrappers that count them: a tier,
-    or for the VJP and the sweeps their tiers joined by ``/`` (the step
-    VJP's recompute/gradients; kernel 7's the same; kernel 8's
-    replay/recompute/gradients)."""
+    or for the VJPs and the sweeps their tiers joined by ``/`` (the step
+    VJPs' recompute/gradients, kernels 3 and 14; kernel 7's the same;
+    kernel 8's replay/recompute/gradients)."""
     return {name: dict(fn.tier_launches) for name, fn in KERNELS.items()
             if hasattr(fn, "tier_launches")}
 

@@ -92,7 +92,8 @@ _SIGNATURES = {
     "lrnde_chain_solve_grid": [_P, _I, _I, _P],
     "lrnde_chain_sweep_grid": [_P, _I, _I, _I, _P],
     "lrnde_conv_step": [_P] * 22 + [_I] + [_F] * 3 + [_I] * 5 + [_P],
-    "lrnde_conv_step_bwd": [_P] * 29 + [_F] + [_I] * 5 + [_P],
+    "lrnde_conv_step_tf32": [_P] * 22 + [_I] + [_F] * 3 + [_I] * 5 + [_P],
+    "lrnde_conv_step_bwd": [_I] + [_P] * 29 + [_F] + [_I] * 5 + [_P],
     "lrnde_vpsde_solve": (
         [_I] + [_P] * 3 + [_I, _P, _P, _I, _U] + [_F] * 3 + [_P, _I]
         + [_P] * 9 + [_I] * 2 + [_F] * 4 + [_P]
@@ -101,7 +102,7 @@ _SIGNATURES = {
         [_I] + [_P] * 3 + [_I, _P, _P, _I, _U] + [_F] * 3 + [_P, _I]
         + [_P] * 9 + [_I] * 2 + [_F] * 4 + [_P, _P]
     ),
-    "lrnde_conv_core": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    "lrnde_conv_core": [_I, _I] + [_P] * 5 + [_I] * 5 + [_P],
     "lrnde_slot_sum": [_P, _I, _P, _P],
     "lrnde_persistent_pf": (
         [_P] * 4 + [_I, _P, _P, _I, _U] + [_F] * 3 + [_P] * 6 + [_I] * 2

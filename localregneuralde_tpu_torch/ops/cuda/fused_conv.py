@@ -23,7 +23,18 @@ two-pass mean and variance, so the two agree to float32 rounding, not
 bitwise. The weights are read in place.
 
 The wrapper runs the plain version for a tensor on the CPU and launches the
-kernel for a CUDA tensor; ``fused_conv_step.launches`` counts the launches.
+kernel for a CUDA tensor; ``fused_conv_step.tier_launches`` counts the
+launches by product tier.
+
+``precision`` has the reference's meaning (``'highest'``, ``'high'``, or
+None/``'default'``, the backend default, which on a card is TF32:
+``nn.basic.product_tier``). At TF32 every conv product, the time maps' taps
+included, runs on rounded operands (``lrnde_conv_step_tf32``; the plain
+version rounds them with ``nn.basic.round_tf32`` and convolves in FP32);
+the BatchNorm statistics and apply, gelu, ``s·tmap`` and the stage algebra
+stay FP32. The wrapper defaults to ``'highest'``, where the reference
+defaults to None: a call that names no tier keeps the FP32 kernel, and the
+model's routes name theirs. The plain versions take the resolved tier.
 
 One deviation from the reference: its fused step normalises with the running
 stats in eval mode whatever ``BatchNorm.eval_stats`` says
@@ -38,10 +49,12 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from ...nn.basic import _ACTIVATIONS, BatchNorm, Chain, Conv, conv2d_nhwc_td
+from ...nn.basic import (
+    _ACTIVATIONS, BatchNorm, Chain, Conv, conv2d_nhwc_td, product_tier,
+)
 from ...ode.step import tsit5_step
 from . import _build
-from .fused_mlp import device_scalars
+from .fused_mlp import count_launch, device_scalars
 
 
 class ConvFamilySpec(NamedTuple):
@@ -144,16 +157,21 @@ def _bn_gelu(z, gamma, beta, mean, var, eps):
 
 
 def conv_dynamics_plain(w: ConvWeights, spec: ConvFamilySpec, x, s,
-                        norm=None):
-    """One dynamics evaluation in plain PyTorch. ``norm`` gives the
+                        norm=None, tier: str = "fp32", grad_tier=None):
+    """One dynamics evaluation in plain PyTorch, its three convs at
+    ``tier`` and, under autograd, their transposes at ``grad_tier``
+    (default ``tier``; ``nn.basic.conv2d_nhwc_td``). ``norm`` gives the
     BatchNorm statistics ``(mean1, var1, mean2, var2)`` to normalise with;
     None normalises with the batch's. Returns ``(k, stats)`` with the
     statistics used."""
-    z1 = conv2d_nhwc_td(x, w.w1, s)
+    tiers = (tier, grad_tier)
+    z1 = conv2d_nhwc_td(x, w.w1, s, *tiers)
     m1, v1 = _batch_stats(z1) if norm is None else norm[:2]
-    z2 = conv2d_nhwc_td(_bn_gelu(z1, w.g1, w.b1, m1, v1, spec.eps), w.w2, s)
+    z2 = conv2d_nhwc_td(_bn_gelu(z1, w.g1, w.b1, m1, v1, spec.eps), w.w2, s,
+                        *tiers)
     m2, v2 = _batch_stats(z2) if norm is None else norm[2:]
-    k = conv2d_nhwc_td(_bn_gelu(z2, w.g2, w.b2, m2, v2, spec.eps), w.w3, s)
+    k = conv2d_nhwc_td(_bn_gelu(z2, w.g2, w.b2, m2, v2, spec.eps), w.w3, s,
+                       *tiers)
     return k, (m1, v1, m2, v2)
 
 
@@ -164,20 +182,24 @@ def default_rstats(spec: ConvFamilySpec, like: torch.Tensor) -> tuple:
 
 
 def conv_step_plain(w: ConvWeights, spec: ConvFamilySpec, u, t, dt, k1, *,
-                    training: bool, rstats=None):
+                    training: bool, rstats=None, tier: str = "fp32",
+                    grad_tier=None):
     """One Tsit5 step of the conv dynamics in plain PyTorch (the generic
-    step of ``ode/step.py``). Training normalises with batch statistics and
-    runs the running stats ``rstats`` through the EMA chain of the six
-    evaluations; eval normalises with ``rstats``, or with batch statistics
-    under ``eval_stats='batch'``. Returns ``(u_new, utilde, k2, ..., k7, g6,
-    stats)``, ``stats`` the new running stats in training, else None."""
+    step of ``ode/step.py``), its convs at ``tier`` and under autograd at
+    ``grad_tier`` (``conv_dynamics_plain``). Training normalises with batch
+    statistics and runs the running stats ``rstats`` through the EMA chain
+    of the six evaluations; eval normalises with ``rstats``, or with batch
+    statistics under ``eval_stats='batch'``. Returns ``(u_new, utilde, k2,
+    ..., k7, g6, stats)``, ``stats`` the new running stats in training,
+    else None."""
     if rstats is None:
         rstats = default_rstats(spec, u)
     batch = training or spec.eval_stats == "batch"
     m = spec.momentum
 
     def f(x, s, st):
-        k, used = conv_dynamics_plain(w, spec, x, s, None if batch else st)
+        k, used = conv_dynamics_plain(w, spec, x, s, None if batch else st,
+                                      tier, grad_tier)
         if training:
             st = tuple((1 - m) * r + m * b.detach() for r, b in zip(st, used))
         return k, st
@@ -216,13 +238,15 @@ def check_conv_operands(w: ConvWeights, spec: ConvFamilySpec, *states):
 
 
 def fused_conv_step(w: ConvWeights, spec: ConvFamilySpec, u, t, dt, k1, *,
-                    training: bool, rstats=None):
-    """One whole Tsit5 step of the conv dynamics, the contract of
-    ``conv_step_plain``: ``(u_new, utilde, k2, ..., k7, g6, stats)``. The
-    CUDA kernel for CUDA tensors, ``conv_step_plain`` for CPU tensors."""
+                    training: bool, rstats=None, precision="highest"):
+    """One whole Tsit5 step of the conv dynamics, its products at
+    ``precision``, the contract of ``conv_step_plain``: ``(u_new, utilde,
+    k2, ..., k7, g6, stats)``. The CUDA kernel for CUDA tensors,
+    ``conv_step_plain`` for CPU tensors."""
+    tier = product_tier(precision, u.device)
     if u.device.type == "cpu":
         return conv_step_plain(w, spec, u, t, dt, k1, training=training,
-                               rstats=rstats)
+                               rstats=rstats, tier=tier)
     B, H, W = check_conv_operands(w, spec, u, k1)
     mode = 0 if training else (2 if spec.eval_stats == "batch" else 1)
     if rstats is None:
@@ -238,15 +262,16 @@ def fused_conv_step(w: ConvWeights, spec: ConvFamilySpec, u, t, dt, k1, *,
         lib.lrnde_conv_step_scratch_floats(B, H, W, spec.Cs, spec.Ch),
         dtype=torch.float32, device=u.device)
     p = _build.ptr
-    err = lib.lrnde_conv_step(
+    entry = lib.lrnde_conv_step_tf32 if tier == "tf32" else lib.lrnde_conv_step
+    err = entry(
         p(u), p(k1), p(sc), *[p(x) for x in w], *[p(o) for o in outs], p(rs),
         None if rs_out is None else p(rs_out), p(scratch), mode,
         spec.momentum, 1.0 - spec.momentum, spec.eps, B, H, W, spec.Cs,
         spec.Ch, _build.stream_ptr(u.device),
     )
     _build.check(lib, err, "conv_step")
-    fused_conv_step.launches += 1
+    count_launch(fused_conv_step, tier)
     return (*outs, None if rs_out is None else tuple(rs_out.unbind(0)))
 
 
-fused_conv_step.launches = 0
+fused_conv_step.tier_launches = {}

@@ -824,8 +824,8 @@ def test_conv_core_orientations_on_card(cuda_device, orient, cin, cout):
     p = _build.ptr
 
     def run():
-        err = lib.lrnde_conv_core(code, p(ops[0]), p(ops[1]), p(sc), p(out),
-                                  p(scratch), b, h, w, cin, cout,
+        err = lib.lrnde_conv_core(code, 0, p(ops[0]), p(ops[1]), p(sc),
+                                  p(out), p(scratch), b, h, w, cin, cout,
                                   _build.stream_ptr(x.device))
         _build.check(lib, err, "conv_core")
         return out.clone()
@@ -1742,3 +1742,180 @@ def test_tf32_sweeps_match_plain_on_card(cuda_device):
                                                   grad_tier="tf32")
                     for a in (args(rec), _on_cpu(args(rec))))
         _against_plains(flat(ours), flat(ref), flat(cpu))
+
+
+# the conv family at the TF32 tier: the kernel and its TF32 plain version
+# round the same operands, but TF32 rounds the activations again after each
+# sum (BatchNorm's input, the next conv's operand), so two FP32 sum orders
+# of one TF32 step part by TF32's rounding, and the tensor cores' sums round
+# toward zero, a bias the plain version's lack: each output of the kernel is
+# held against float64 within twice its plain version's own distance from
+# it, and never below the truncated sums over the step's longest K
+# (9·(Ch + 1)) through its depth of products
+def _conv_as_accurate(ours, plain, exact, depth, k):
+    for a, p, x in zip(ours, plain, exact):
+        assert _rel(a.double(), x) <= max(2 * _rel(p.double(), x),
+                                          _sum_tol(depth, k))
+
+
+def _double(*ts):
+    return tuple(type(t)(*(p.double() for p in t)) if isinstance(t, tuple)
+                 else t.double() for t in ts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["train", "running", "batch"])
+@pytest.mark.parametrize("shape", [(3, 8, 12, 8, 16), (2, 32, 32, 8, 64)])
+def test_conv_step_tf32_matches_plain_on_card(cuda_device, shape, mode):
+    # kernel 13 at TF32 as accurate against float64 as its TF32 plain
+    # version (u_new, k2..k7, g6 and the running stats; ũ cancels: held to
+    # dt·max|Δk| of the plain version's), bitwise from run to run, launched
+    # at its tier
+    from localregneuralde_tpu_torch.ops.cuda import (
+        conv_step_plain, fused_conv_step,
+    )
+
+    w, spec, rstats, u = _conv_setup(cuda_device, *shape)
+    if mode == "batch":
+        spec = spec._replace(eval_stats="batch")
+    training = mode == "train"
+    t = torch.tensor(0.2, device=cuda_device)
+    dt = torch.tensor(0.05, device=cuda_device)
+    k1 = 0.5 * torch.randn_like(u)
+    before = _tier_launches(fused_conv_step).get("tf32", 0)
+    out = fused_conv_step(w, spec, u, t, dt, k1, training=training,
+                          rstats=rstats, precision=None)
+    assert _tier_launches(fused_conv_step)["tf32"] == before + 1
+    args = (w, spec, u, t, dt, k1)
+    kw = dict(training=training, rstats=rstats, tier="tf32")
+    ref = conv_step_plain(*args, **kw)
+    w64, u64, t64, dt64, k1_64 = _double(w, u, t, dt, k1)
+    exact = conv_step_plain(w64, spec, u64, t64, dt64, k1_64,
+                            training=training, rstats=_double(*rstats))
+    pick = lambda o: [o[0], *o[2:9], *(o[9] or ())]  # noqa: E731
+    _conv_as_accurate(pick(out), pick(ref), pick(exact), 18,
+                      9 * (shape[4] + 1))
+    dk = max(float((a - b).abs().max()) for a, b in zip(out[2:8], ref[2:8]))
+    scale = max(float(b.abs().max()) for b in ref[2:8])
+    assert float((out[1] - ref[1]).abs().max()) <= 0.05 * (dk + 1e-6 * scale)
+    again = fused_conv_step(w, spec, u, t, dt, k1, training=training,
+                            rstats=rstats, precision="default")
+    assert all(torch.equal(a, b) for a, b in zip(again[:9], out[:9]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 8, 12, 8, 16), (2, 32, 32, 8, 64)])
+@pytest.mark.parametrize("precision", [None, "highest"])
+def test_conv_step_bwd_tf32_matches_plain_on_card(cuda_device, shape,
+                                                  precision):
+    # kernel 14 with the reference's default-tier gradients behind a TF32
+    # (cnn.yaml's route) or an FP32 recompute ('highest''s), as accurate
+    # against float64 as its plain version at the same tiers, bitwise from
+    # run to run, counted by its tiers
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_conv_step_bwd, fused_conv_step_bwd_plain,
+    )
+
+    w, spec, _, u = _conv_setup(cuda_device, *shape)
+    t = torch.tensor(0.1, device=cuda_device)
+    dt = torch.tensor(0.08, device=cuda_device)
+    k1 = 0.5 * torch.randn_like(u)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    cts = [torch.randn(u.shape, generator=g, device=cuda_device)
+           for _ in range(9)]
+    rec = "tf32" if precision is None else "fp32"
+    before = _tier_launches(fused_conv_step_bwd).get(f"{rec}/tf32", 0)
+    ours = fused_conv_step_bwd(w, spec, u, t, dt, k1, cts,
+                               precision=precision, grad_precision=None)
+    assert _tier_launches(fused_conv_step_bwd)[f"{rec}/tf32"] == before + 1
+    args = (w, spec, u, t, dt, k1, cts)
+    ref = fused_conv_step_bwd_plain(*args, rec, "tf32")
+    w64, u64, t64, dt64, k1_64 = _double(w, u, t, dt, k1)
+    exact = fused_conv_step_bwd_plain(w64, spec, u64, t64, dt64, k1_64,
+                                      [c.double() for c in cts])
+    flat = lambda o: [o[1], o[2], *o[0]]  # noqa: E731
+    # the recompute's depth where it is TF32 and the reverse chain's 19
+    depth = 19 + (18 if rec == "tf32" else 0)
+    _conv_as_accurate(flat(ours), flat(ref), flat(exact), depth,
+                      9 * (shape[4] + 1))
+    again = fused_conv_step_bwd(w, spec, u, t, dt, k1, cts,
+                                precision=precision, grad_precision=None)
+    assert all(torch.equal(a, b) for a, b in zip(flat(again), flat(ours)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("orient", ["forward", "data grad", "weight grad"])
+@pytest.mark.parametrize("cin,cout", [(6, 8), (8, 16), (16, 6), (64, 64),
+                                      (64, 8), (16, 64)])
+def test_conv_core_orientations_tf32_on_card(cuda_device, orient, cin, cout):
+    # the core alone at TF32 (lrnde_conv_core's tensor-core instantiations)
+    # against cuDNN FP32 on the operands rounded to TF32 (the time channel's
+    # value s is not an operand of a product: the weight gradient's time
+    # row is s times the sums of the rounded cotangent): both sum exact
+    # products, in FP32 and with the tensor cores' truncated sums, so each
+    # output within 2·K·2^-24 of the sum of its products' magnitudes;
+    # bitwise from run to run, the thin convs' halo tile bitwise the gather
+    # tile
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from localregneuralde_tpu_torch.nn import round_tf32
+    from localregneuralde_tpu_torch.ops.cuda import _build
+
+    lib = _build.load_library()
+    b, h, w = 3, 7, 9
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(b, h, w, cin, generator=g).to(cuda_device)
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+    r = round_tf32
+    sc = torch.tensor([0.37, 0.0], device=cuda_device)
+    code = ("forward", "data grad", "weight grad").index(orient)
+    if code == 0:
+        wt = torch.randn(3, 3, cin, cout, generator=g).to(cuda_device)
+
+        def conv(a, b_):
+            return torch.nn.functional.conv2d(
+                nchw(a), b_.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+
+        ref, mag = conv(r(x), r(wt)), conv(r(x).abs(), r(wt).abs())
+        ops, k = (x, wt), 9 * cin
+        out = torch.empty(b, h, w, cout, device=cuda_device)
+    elif code == 1:
+        wt = torch.randn(3, 3, cout + 1, cin, generator=g).to(cuda_device)
+
+        def conv(a, b_):
+            return conv2d_input((b, cout, h, w), b_[:, :, :cout].permute(
+                3, 2, 0, 1), nchw(a), padding=1).permute(0, 2, 3, 1)
+
+        ref, mag = conv(r(x), r(wt)), conv(r(x).abs(), r(wt).abs())
+        ops, k = (x, wt), 9 * cin
+        out = torch.empty(b, h, w, cout, device=cuda_device)
+    else:
+        dy = torch.randn(b, h, w, cout, generator=g).to(cuda_device)
+        s_ = torch.full((b, h, w, 1), 0.37, device=cuda_device)
+
+        def conv(a, d):
+            return conv2d_weight(nchw(torch.cat([a, s_], dim=-1)),
+                                 (cout, cin + 1, 3, 3), nchw(d),
+                                 padding=1).permute(2, 3, 1, 0)
+
+        ref, mag = conv(r(x), r(dy)), conv(r(x).abs(), r(dy).abs())
+        ops, out, k = (x, dy), torch.empty(3, 3, cin + 1, cout,
+                                           device=cuda_device), b * h * w
+    scratch = torch.empty(
+        lib.lrnde_conv_core_scratch_floats(code, b, h, w, cin, cout),
+        device=cuda_device)
+    p = _build.ptr
+
+    def run(c=code):
+        err = lib.lrnde_conv_core(c, 1, p(ops[0]), p(ops[1]), p(sc), p(out),
+                                  p(scratch), b, h, w, cin, cout,
+                                  _build.stream_ptr(x.device))
+        _build.check(lib, err, "conv_core")
+        return out.clone()
+
+    first = run()
+    bound = 2 * k * 2.0 ** -24 * mag + 1e-30
+    assert bool(((first - ref).abs() <= bound).all())
+    assert torch.equal(run(), first)
+    if code < 2 and cout <= 8:
+        assert torch.equal(run(code + 3), first)
