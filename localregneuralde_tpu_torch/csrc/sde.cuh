@@ -18,6 +18,7 @@
 #include <stdint.h>
 
 #include "solve.cuh"
+#include "tf32.cuh"
 
 namespace lrnde {
 
@@ -308,5 +309,187 @@ __device__ inline void sde_stage(const SdeNet<kF, kH>& w,
 }
 
 inline int sde_row_blocks(int B) { return (B + kSdeRows - 1) / kSdeRows; }
+
+// ------------------------------------------------------------ the TF32 tier
+// A product out[n][m] = Σ_k x[n][k]·A[m][k] of a row block (its n <
+// kSdeRows rows as the columns of mma.sync m16n8k8, four of the eight live)
+// runs on one warp per 16 outputs m: a chain of one mma a k-step, in order,
+// so each output has the same bits whatever block its row lands in. A (M ×
+// K) is a weight matrix (the forward's Wᵀ, the sweep's transposed products'
+// W), fixed for the launch, so it is rounded to TF32 once, where it is
+// staged, into a fragment copy: for m-tile mt and k-step ks, lane l holds
+// tf32.cuh::mma_tf32's {a0, a1, a2, a3} as one uint4, zero past M and K,
+// and a k-step's A operand is one 16-byte load a lane. x, the row block's
+// activations in shared memory, is rounded as it is read.
+__host__ __device__ inline int sde_mtiles(int M) { return (M + 15) / 16; }
+__host__ __device__ inline int sde_ksteps(int K) { return (K + 7) / 8; }
+
+// Floats of the fragment copy of an M × K operand.
+__host__ __device__ inline size_t sde_frag_floats(int M, int K) {
+  return static_cast<size_t>(sde_mtiles(M)) * sde_ksteps(K) * 128;
+}
+
+// Floats of one set of the family's three fragment copies (forward: W1ᵀ H ×
+// F, W2ᵀ F × H, Wdᵀ F × F; transposed: W2 H × F, W1 F × H, Wd F × F).
+__host__ __device__ inline size_t sde_frag_set_floats(int F, int H) {
+  return sde_frag_floats(H, F) + sde_frag_floats(F, H) + sde_frag_floats(F, F);
+}
+
+// The three fragment copies of a product direction: a1 the H-wide outputs'
+// (the forward's first layer, the transpose's hidden cotangents), a2 the
+// F-wide outputs' over H (the forward's second layer, the transpose's
+// first-layer input cotangents), ad the diffusion's.
+struct SdeFrags {
+  const uint4 *a1, *a2, *ad;
+};
+
+// Stage A[m][k] = src[m·sm + k·sk] (M × K, in global memory) into its
+// fragment copy at dst. The caller synchronises.
+__device__ inline void stage_frag(uint4* dst, const float* src, int M, int K,
+                                  int sm, int sk) {
+  const int Kt = sde_ksteps(K), n = sde_mtiles(M) * Kt * 32;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int lane = i & 31, tile = i >> 5;
+    const int mt = tile / Kt, ks = tile - mt * Kt;
+    const int m = mt * 16 + (lane >> 2), k = ks * 8 + (lane & 3);
+    auto at = [&](int mm, int kk) {
+      return mm < M && kk < K ? tf32_bits(src[mm * sm + kk * sk]) : 0u;
+    };
+    dst[i] = make_uint4(at(m, k), at(m + 8, k), at(m, k + 4), at(m + 8, k + 4));
+  }
+}
+
+// Stage one set of fragment copies at base (16-byte aligned): the forward's
+// (transposed = false: A = Wᵀ) or the transposed products' (A = W).
+// Returns the first float after them. The caller synchronises.
+__device__ inline float* stage_sde_frags(const SdeWeights& w, float* base,
+                                         bool transposed, SdeFrags* f) {
+  const int F = w.F, H = w.H;
+  uint4* a1 = reinterpret_cast<uint4*>(base);
+  uint4* a2 = a1 + sde_frag_floats(H, F) / 4;
+  uint4* ad = a2 + sde_frag_floats(F, H) / 4;
+  if (transposed) {
+    stage_frag(a1, w.w2, H, F, F, 1);  // dh = dk·W2ᵀ: A[h][c] = W2[h][c]
+    stage_frag(a2, w.w1, F, H, H, 1);  // dx = dz·W1ᵀ: A[c][h] = W1[c][h]
+    stage_frag(ad, w.wd, F, F, F, 1);  // dx = dg·Wdᵀ: A[c][q] = Wd[c][q]
+  } else {
+    stage_frag(a1, w.w1, H, F, 1, H);  // z = x·W1: A[h][c] = W1[c][h]
+    stage_frag(a2, w.w2, F, H, 1, F);  // k = h·W2: A[j][h] = W2[h][j]
+    stage_frag(ad, w.wd, F, F, 1, F);  // g = x·Wd: A[j][c] = Wd[c][j]
+  }
+  f->a1 = a1;
+  f->a2 = a2;
+  f->ad = ad;
+  return reinterpret_cast<float*>(ad + sde_frag_floats(F, F) / 4);
+}
+
+// d = the 16 × 8 tile mt of out for rows n < nrows of x ([row][ldx], K
+// wide): one mma.sync chain over the k-steps, in order, on the calling warp.
+__device__ __forceinline__ void sde_tile_tf32(const uint4* frag, int mt,
+                                              int K, const float* x, int ldx,
+                                              int nrows, float (&d)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int Kt = sde_ksteps(K);
+  const bool live = g < nrows;
+  const float* xr = x + g * ldx;
+  const uint4* fr = frag + static_cast<size_t>(mt) * Kt * 32 + lane;
+  d[0] = d[1] = d[2] = d[3] = 0.f;
+  for (int ks = 0; ks < Kt; ++ks) {
+    const uint4 a4 = fr[ks * 32];
+    const int k0 = ks * 8 + q;
+    const unsigned a[4] = {a4.x, a4.y, a4.z, a4.w};
+    const unsigned b[2] = {live && k0 < K ? tf32_bits(xr[k0]) : 0u,
+                           live && k0 + 4 < K ? tf32_bits(xr[k0 + 4]) : 0u};
+    mma_tf32(d, a, b);
+  }
+}
+
+// The tile's outputs, out[row][m] for rows < nrows and m < M: lane (g, q <
+// 2) holds rows 2q and 2q + 1 of outputs mt·16 + g (d0, d1) and + 8 (d2,
+// d3). put(row, m, value) stores one.
+template <typename Put>
+__device__ __forceinline__ void sde_tile_put(const float (&d)[4], int mt,
+                                             int M, int nrows, Put put) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  if (q >= 2) return;  // columns 4..7: past the row block
+  const int m = mt * 16 + g, r = 2 * q;
+  if (m < M) {
+    if (r < nrows) put(r, m, d[0]);
+    if (r + 1 < nrows) put(r + 1, m, d[1]);
+  }
+  if (m + 8 < M) {
+    if (r < nrows) put(r, m + 8, d[2]);
+    if (r + 1 < nrows) put(r + 1, m + 8, d[3]);
+  }
+}
+
+// sde_stage_eval at the TF32 tier, the same contract: the hidden rows' tiles
+// on the hidden group's warps beside the diffusion's on the other group's,
+// then the drift's on all, each product's accumulator FP32 and the biases
+// and tanh FP32 after it. f holds the forward's fragment copies.
+__device__ __forceinline__ void sde_stage_eval_tf32(
+    const SdeSmemW& w, const SdeFrags& f, int F, int H, const float* xf,
+    const float* xg, float* hid, float* k, float* g, int nrows) {
+  constexpr int kHidWarps = kSdeHidThreads / 32;
+  constexpr int kDiffWarps = kSdeDiffThreads / 32;
+  const int warp = threadIdx.x >> 5;
+  float d[4];
+  if (warp < kHidWarps) {
+    for (int mt = warp; mt < sde_mtiles(H); mt += kHidWarps) {
+      sde_tile_tf32(f.a1, mt, F, xf, F, nrows, d);
+      sde_tile_put(d, mt, H, nrows, [&](int r, int m, float v) {
+        hid[r * H + m] = tanhf(v + w.b1[m]);
+      });
+    }
+  } else {
+    for (int mt = warp - kHidWarps; mt < sde_mtiles(F); mt += kDiffWarps) {
+      sde_tile_tf32(f.ad, mt, F, xg, F, nrows, d);
+      sde_tile_put(d, mt, F, nrows,
+                   [&](int r, int m, float v) { g[r * F + m] = v + w.bd[m]; });
+    }
+  }
+  __syncthreads();
+  for (int mt = warp; mt < sde_mtiles(F); mt += kHidWarps + kDiffWarps) {
+    sde_tile_tf32(f.a2, mt, H, hid, H, nrows, d);
+    sde_tile_put(d, mt, F, nrows,
+                 [&](int r, int m, float v) { k[r * F + m] = v + w.b2[m]; });
+  }
+  __syncthreads();
+}
+
+// Kernel 10's dynamics type at the TF32 tier: SdeNet's, its forward
+// fragment copies after the FP32 weights and the hidden rows.
+struct SdeMlpSharedTf32 : SdeMlpShared {
+  SdeFrags f;
+};
+
+template <int kF, int kH>
+struct SdeNetTf32 : SdeWeights {
+  using Shared = SdeMlpSharedTf32;
+};
+
+template <int kF, int kH>
+__host__ __device__ inline size_t sde_shared_floats(const SdeNetTf32<kF, kH>& w) {
+  return round_up4(sde_shared_floats(static_cast<const SdeWeights&>(w)))
+       + sde_frag_set_floats(w.F, w.H);
+}
+
+template <int kF, int kH>
+__device__ inline float* sde_carve_load(const SdeNetTf32<kF, kH>& w,
+                                        float* base, SdeMlpSharedTf32* s) {
+  float* p = sde_carve_load(static_cast<const SdeWeights&>(w), base,
+                            static_cast<SdeMlpShared*>(s));
+  return stage_sde_frags(w, base + round_up4(p - base), false, &s->f);
+}
+
+template <int kF, int kH>
+__device__ inline void sde_stage(const SdeNetTf32<kF, kH>& w,
+                                 const SdeMlpSharedTf32& s, const float* xf,
+                                 const float* xg, float /*tf*/,
+                                 float /*tg*/, float* k, float* g,
+                                 int nrows) {
+  sde_stage_eval_tf32(s.w, s.f, kF > 0 ? kF : w.F, kH > 0 ? kH : w.H, xf, xg,
+                      s.hid, k, g, nrows);
+}
 
 }  // namespace lrnde

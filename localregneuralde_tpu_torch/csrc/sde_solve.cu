@@ -61,6 +61,12 @@
 // chip_smoke.py's attribution phase) was 34 µs of slot sum and 20 of
 // descent of ~99 before the parallel slot loads and the spread descent;
 // the layer passes of its four stages now take most of an attempt.
+//
+// Kernel 10 at the TF32 tier (sde.cuh::SdeNetTf32, lrnde_sde_solve_tf32) is
+// the same kernel with the stage evaluator's products on mma.sync m16n8k8:
+// the weights rounded once into fragment copies beside the FP32 layout;
+// the draws, the stage combinations, the error partial (still the first
+// port's 64-thread order) and the controller are the FP32 kernel's.
 #include "score.cuh"
 #include "sde.cuh"
 
@@ -179,6 +185,12 @@ template <typename D>
 constexpr bool kWideSde = false;
 template <int kF, int kH>
 constexpr bool kWideSde<SdeNet<kF, kH>> = true;
+template <int kF, int kH>
+constexpr bool kWideSde<SdeNetTf32<kF, kH>> = true;
+template <typename D>
+constexpr bool kTf32Sde = false;
+template <int kF, int kH>
+constexpr bool kTf32Sde<SdeNetTf32<kF, kH>> = true;
 
 // Floats of dynamic shared memory per CTA: the dynamics type's, then the
 // step's row-block buffers (the last one the block reduction's, or kernel
@@ -604,6 +616,15 @@ extern "C" long long lrnde_sde_solve_smem_floats(int F, int H) {
   return static_cast<long long>(lrnde::sde_solve_smem_floats(w));
 }
 
+// The same at the TF32 tier: the forward's fragment copies beside the
+// weights.
+extern "C" long long lrnde_sde_solve_smem_floats_tf32(int F, int H) {
+  lrnde::SdeNetTf32<0, 0> w{};
+  w.F = F;
+  w.H = H;
+  return static_cast<long long>(lrnde::sde_solve_smem_floats(w));
+}
+
 // Threads of a kernel-10 CTA.
 extern "C" int lrnde_sde_solve_threads() { return lrnde::kSdeThreads; }
 
@@ -663,8 +684,8 @@ extern "C" int lrnde_sde_solve_grid(int F, int H, int B, int* out) {
 
 namespace lrnde {
 
-static int sde_solve(LRNDE_SDE_SOLVE_PARAMS, unsigned long long* timing,
-                     void* stream) {
+static int sde_solve(LRNDE_SDE_SOLVE_PARAMS, bool tf32,
+                     unsigned long long* timing, void* stream) {
   if ((rand == nullptr) != (res_u == nullptr) || depth < 0 || depth > kMaxDepth)
     return cudaErrorInvalidValue;
   const SdeWeights w{w1, b1, w2, b2, wd, bd, F, H};
@@ -674,17 +695,31 @@ static int sde_solve(LRNDE_SDE_SOLVE_PARAMS, unsigned long long* timing,
         u0, sc, saveat, n_save, net, seed, depth, u, ys, stats_i, stats_f,
         unew, wz0, wz1, slots, barrier, rand, res_u, knot_ts, knot_us,
         knot_dws, knot_dzs, timing, B, max_steps, rtol, atol, delta, inv_n};
-    return timing == nullptr ? launch_sde_solve<D, false>(sosri, &a, stream)
-                             : launch_sde_solve<D, true>(sosri, &a, stream);
+    if constexpr (kTf32Sde<D>)  // no clocked TF32 instantiation
+      return launch_sde_solve<D, false>(sosri, &a, stream);
+    else
+      return timing == nullptr ? launch_sde_solve<D, false>(sosri, &a, stream)
+                               : launch_sde_solve<D, true>(sosri, &a, stream);
   };
   // experiments/mnist_sde/mlp.yaml's widths at compile time
-  return F == 32 && H == 64 ? run(SdeNet<32, 64>{w}) : run(SdeNet<0, 0>{w});
+  const bool mnist = F == 32 && H == 64;
+  if (tf32)
+    return mnist ? run(SdeNetTf32<32, 64>{w}) : run(SdeNetTf32<0, 0>{w});
+  return mnist ? run(SdeNet<32, 64>{w}) : run(SdeNet<0, 0>{w});
 }
 
 }  // namespace lrnde
 
 extern "C" int lrnde_sde_solve(LRNDE_SDE_SOLVE_PARAMS, void* stream) {
-  return lrnde::sde_solve(LRNDE_SDE_SOLVE_ARGS, nullptr, stream);
+  return lrnde::sde_solve(LRNDE_SDE_SOLVE_ARGS, false, nullptr, stream);
+}
+
+// Kernel 10 at the TF32 tier (the reference's 'default'): lrnde_sde_solve's
+// contract, every drift and diffusion product on the tensor cores
+// (sde.cuh::sde_stage_eval_tf32) on operands rounded to TF32, accumulated
+// in FP32; the stage combinations, the error norm and the tree FP32.
+extern "C" int lrnde_sde_solve_tf32(LRNDE_SDE_SOLVE_PARAMS, void* stream) {
+  return lrnde::sde_solve(LRNDE_SDE_SOLVE_ARGS, true, nullptr, stream);
 }
 
 // Kernel 10 with its attempt's phases timed (sde_solve.cu's SdePhase, CTA
@@ -694,7 +729,7 @@ extern "C" int lrnde_sde_solve_timed(LRNDE_SDE_SOLVE_PARAMS,
                                      unsigned long long* timing,
                                      void* stream) {
   if (timing == nullptr) return cudaErrorInvalidValue;
-  return lrnde::sde_solve(LRNDE_SDE_SOLVE_ARGS, timing, stream);
+  return lrnde::sde_solve(LRNDE_SDE_SOLVE_ARGS, false, timing, stream);
 }
 
 // Batch rows per CTA of kernel 11.

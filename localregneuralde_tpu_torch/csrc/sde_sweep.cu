@@ -39,6 +39,15 @@
 //
 // The clocked instantiation (kTime) splits CTA 0's step by phase for
 // chip_smoke.py's [sde sweep attribution]; its arithmetic is the same.
+//
+// The TF32 tier (the reference's 'default'): the stage recompute (kRecTf32,
+// the reference's precision) and the eight transposed products and three
+// weight-gradient contractions of a stage set (kGradTf32, its
+// grad_precision, which NeuralDSDE leaves at the default tier whatever the
+// forward's) each run on mma.sync m16n8k8 (sde.cuh): the weights' fragment
+// copies staged once after the FP32 layout, one warp's chain an output
+// tile, the weight-gradient tiles' two k-steps (4 stages × 4 rows) added to
+// the same per-CTA partials, still summed in CTA order.
 #include "sde.cuh"
 #include "tsit5_bwd.cuh"
 
@@ -121,6 +130,22 @@ __host__ __device__ inline size_t sde_sweep_smem_floats(int F, int H) {
        + 2 * 4 * RH;       // hidden rows and their cotangents per stage
 }
 
+// The tiers of kernel 12 (lrnde_sde_sweep's first argument): the stage
+// recompute's products at TF32, the transposed and weight-gradient
+// products at TF32 (fused_mlp_bwd.py::tier_bits' bits).
+constexpr int kSdeTierRecompute = 1, kSdeTierGrad = 2;
+
+// With a TF32 tier, its fragment copies (sde.cuh) follow the FP32 layout,
+// 16-byte aligned: the forward's for the recompute, the transposed
+// products' for the gradients.
+__host__ __device__ inline size_t sde_sweep_smem_floats_at(int F, int H,
+                                                           bool rec_tf32,
+                                                           bool grad_tf32) {
+  const size_t base = sde_sweep_smem_floats(F, H);
+  if (!rec_tf32 && !grad_tf32) return base;
+  return round_up4(base) + (rec_tf32 + grad_tf32) * sde_frag_set_floats(F, H);
+}
+
 // g[i] += Σ_{e < 4, r < nrows} A[e·SA + r·LA + i / ncol] · Bv[e·SB + r·LB +
 // i % ncol] for the gradient elements i ≡ tid (mod kSdeThreads), i < n,
 // summed in that order (the first port's); two elements at a time, so two
@@ -146,9 +171,58 @@ __device__ __forceinline__ void grad_contract(const float* A, int SA, int LA,
   }
 }
 
+// grad_contract at the TF32 tier, for the M × N gradient elements g[m·N +
+// n] (A M wide, Bv N wide): 16 × 8 tiles over all warps, the K = 4 stages ×
+// kSdeRows rows of a step (k = e·kSdeRows + r, two k-steps) one mma.sync
+// chain a tile on operands rounded as they are read (zero past nrows), its
+// FP32 sum added to the partial once.
+__device__ __forceinline__ void grad_contract_tf32(const float* A, int SA,
+                                                   int LA, int M,
+                                                   const float* Bv, int SB,
+                                                   int LB, int N, int nrows,
+                                                   float* g) {
+  static_assert(kSdeRows == 4, "a k-step is two stages of four rows");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, q = lane & 3;
+  const int Nt = (N + 7) / 8, tiles = sde_mtiles(M) * Nt;
+  const bool live = q < nrows;
+  for (int t = warp; t < tiles; t += kSdeThreads / 32) {
+    const int mt = t / Nt, nt = t - mt * Nt;
+    const int m0 = mt * 16 + gr, m1 = m0 + 8, n = nt * 8 + gr;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const float* a0 = A + (2 * ks) * SA + q * LA;
+      const float* a1 = a0 + SA;
+      const float* b0 = Bv + (2 * ks) * SB + q * LB;
+      const float* b1 = b0 + SB;
+      const unsigned a[4] = {live && m0 < M ? tf32_bits(a0[m0]) : 0u,
+                             live && m1 < M ? tf32_bits(a0[m1]) : 0u,
+                             live && m0 < M ? tf32_bits(a1[m0]) : 0u,
+                             live && m1 < M ? tf32_bits(a1[m1]) : 0u};
+      const unsigned b[2] = {live && n < N ? tf32_bits(b0[n]) : 0u,
+                             live && n < N ? tf32_bits(b1[n]) : 0u};
+      mma_tf32(d, a, b);
+    }
+    const int c = nt * 8 + 2 * q;
+    if (m0 < M) {
+      if (c < N) g[m0 * N + c] += d[0];
+      if (c + 1 < N) g[m0 * N + c + 1] += d[1];
+    }
+    if (m1 < M) {
+      if (c < N) g[m1 * N + c] += d[2];
+      if (c + 1 < N) g[m1 * N + c + 1] += d[3];
+    }
+  }
+}
+
 // kF, kH > 0: the widths at compile time (the MNIST-SDE width), so the
 // products' loops unroll with immediate offsets; 0: read from the arguments.
-template <bool kSosri, bool kTime, int kF, int kH>
+// kRecTf32: the stage recompute at the TF32 tier; kGradTf32: the transposed
+// and weight-gradient products at the TF32 tier (the stage combinations,
+// the tanh derivative, the bias gradients and the partials FP32).
+template <bool kSosri, bool kTime, int kF, int kH, bool kRecTf32 = false,
+          bool kGradTf32 = false>
 __global__ void __launch_bounds__(kSdeThreads)
 sde_sweep_kernel(SdeSweepArgs a) {
   SdeClock<kTime> clk;
@@ -182,6 +256,13 @@ sde_sweep_kernel(SdeSweepArgs a) {
   float* hid = dg + 4 * RF;  // [4][RH]
   float* dzh = hid + 4 * RH;
   for (size_t i = tid; i < sde_grad_floats(F, H); i += kSdeThreads) gw1[i] = 0.f;
+  SdeFrags fwd{}, tr{};
+  if constexpr (kRecTf32 || kGradTf32) {
+    float* base = reinterpret_cast<float*>(smem_raw);
+    float* f = base + round_up4(dzh + 4 * RH - base);
+    if constexpr (kRecTf32) f = stage_sde_frags(a.w, f, false, &fwd);
+    if constexpr (kGradTf32) stage_sde_frags(a.w, f, true, &tr);
+  }
   const SriTableau T = sri_tableau(kSosri);
   const float sqrt3 = LRNDE_F(1.7320508075688772);
   const int n_steps = *a.naccept;
@@ -204,7 +285,10 @@ sde_sweep_kernel(SdeSweepArgs a) {
         xg[i] = u[i];
       }
       __syncthreads();
-      sde_stage_eval(w, F, H, xf, xg, hid, k, g, nrows);
+      if constexpr (kRecTf32)
+        sde_stage_eval_tf32(w, fwd, F, H, xf, xg, hid, k, g, nrows);
+      else
+        sde_stage_eval(w, F, H, xf, xg, hid, k, g, nrows);
       for (int e = 1; e < 4; ++e) {
         for (int i = tid; i < n; i += kSdeThreads) {
           const float chi2 = (dw[i] + dz[i] / sqrt3) / 2.f;
@@ -228,7 +312,11 @@ sde_sweep_kernel(SdeSweepArgs a) {
           xg[e * RF + i] = g_in;
         }
         __syncthreads();
-        sde_stage_eval(w, F, H, xf + e * RF, xg + e * RF, hid + e * RH,
+        if constexpr (kRecTf32)
+          sde_stage_eval_tf32(w, fwd, F, H, xf + e * RF, xg + e * RF,
+                              hid + e * RH, k + e * RF, g + e * RF, nrows);
+        else
+          sde_stage_eval(w, F, H, xf + e * RF, xg + e * RF, hid + e * RH,
                          k + e * RF, g + e * RF, nrows);
       }
       clk.mark(kSdeRecompute);
@@ -265,29 +353,59 @@ sde_sweep_kernel(SdeSweepArgs a) {
       for (int e = 3; e >= 0; --e) {
         const float* dke = dk + e * RF;
         const float* dge = dg + e * RF;
-        if (tid < kSdeHidThreads) {
-          for (int i = tid; i < nrows * H; i += kSdeHidThreads) {
-            const int r = i / H, h = i - r * H;
-            float acc = 0.f;
-            for (int c = 0; c < F; ++c) acc = fmaf(dke[r * F + c], w.w2[h * (F + 1) + c], acc);
-            const float hv = hid[e * RH + i];
-            dzh[e * RH + i] = acc * (1.f - hv * hv);
+        if constexpr (kGradTf32) {
+          // the same products on the tensor cores: the hidden cotangents'
+          // tiles beside the transposed diffusion's, then the first layer's
+          constexpr int kHidWarps = kSdeHidThreads / 32;
+          const int warp = tid >> 5;
+          float d[4];
+          if (warp < kHidWarps) {
+            for (int mt = warp; mt < sde_mtiles(H); mt += kHidWarps) {
+              sde_tile_tf32(tr.a1, mt, F, dke, F, nrows, d);
+              sde_tile_put(d, mt, H, nrows, [&](int r, int h, float v) {
+                const float hv = hid[e * RH + r * H + h];
+                dzh[e * RH + r * H + h] = v * (1.f - hv * hv);
+              });
+            }
+          } else {
+            for (int mt = warp - kHidWarps; mt < sde_mtiles(F);
+                 mt += kSdeDiffThreads / 32) {
+              sde_tile_tf32(tr.ad, mt, F, dge, F, nrows, d);
+              sde_tile_put(d, mt, F, nrows,
+                           [&](int r, int c, float v) { dxg[r * F + c] = v; });
+            }
+          }
+          __syncthreads();
+          for (int mt = warp; mt < sde_mtiles(F); mt += kSdeThreads / 32) {
+            sde_tile_tf32(tr.a2, mt, H, dzh + e * RH, H, nrows, d);
+            sde_tile_put(d, mt, F, nrows,
+                         [&](int r, int c, float v) { dxf[r * F + c] = v; });
           }
         } else {
-          for (int i = tid - kSdeHidThreads; i < n; i += kSdeDiffThreads) {
-            const int r = i / F, c = i - r * F;
-            float acc = 0.f;
-            for (int q = 0; q < F; ++q) acc = fmaf(dge[r * F + q], w.wd[c * (F + 1) + q], acc);
-            dxg[i] = acc;
+          if (tid < kSdeHidThreads) {
+            for (int i = tid; i < nrows * H; i += kSdeHidThreads) {
+              const int r = i / H, h = i - r * H;
+              float acc = 0.f;
+              for (int c = 0; c < F; ++c) acc = fmaf(dke[r * F + c], w.w2[h * (F + 1) + c], acc);
+              const float hv = hid[e * RH + i];
+              dzh[e * RH + i] = acc * (1.f - hv * hv);
+            }
+          } else {
+            for (int i = tid - kSdeHidThreads; i < n; i += kSdeDiffThreads) {
+              const int r = i / F, c = i - r * F;
+              float acc = 0.f;
+              for (int q = 0; q < F; ++q) acc = fmaf(dge[r * F + q], w.wd[c * (F + 1) + q], acc);
+              dxg[i] = acc;
+            }
           }
-        }
-        __syncthreads();
-        for (int i = tid; i < n; i += kSdeThreads) {
-          const int r = i / F, c = i - r * F;
-          const float* dzr = dzh + e * RH + r * H;
-          float acc = 0.f;
-          for (int h = 0; h < H; ++h) acc = fmaf(dzr[h], w.w1[c * (H + 1) + h], acc);
-          dxf[i] = acc;
+          __syncthreads();
+          for (int i = tid; i < n; i += kSdeThreads) {
+            const int r = i / F, c = i - r * F;
+            const float* dzr = dzh + e * RH + r * H;
+            float acc = 0.f;
+            for (int h = 0; h < H; ++h) acc = fmaf(dzr[h], w.w1[c * (H + 1) + h], acc);
+            dxf[i] = acc;
+          }
         }
         __syncthreads();
         for (int i = tid; i < n; i += kSdeThreads) {
@@ -310,9 +428,15 @@ sde_sweep_kernel(SdeSweepArgs a) {
       clk.mark(kSdeReverse);
       // ---- stage-batched weight gradients of this step: every element of
       // the partial on one thread, its K = 4 stages x rows sum as before
-      grad_contract(xf, RF, F, dzh, RH, H, H, F * H, nrows, gw1);
-      grad_contract(hid, RH, H, dk, RF, F, F, H * F, nrows, gw2);
-      grad_contract(xg, RF, F, dg, RF, F, F, F * F, nrows, gwd);
+      if constexpr (kGradTf32) {
+        grad_contract_tf32(xf, RF, F, F, dzh, RH, H, H, nrows, gw1);
+        grad_contract_tf32(hid, RH, H, H, dk, RF, F, F, nrows, gw2);
+        grad_contract_tf32(xg, RF, F, F, dg, RF, F, F, nrows, gwd);
+      } else {
+        grad_contract(xf, RF, F, dzh, RH, H, H, F * H, nrows, gw1);
+        grad_contract(hid, RH, H, dk, RF, F, F, H * F, nrows, gw2);
+        grad_contract(xg, RF, F, dg, RF, F, F, F * F, nrows, gwd);
+      }
       for (int i = tid; i < H; i += kSdeThreads) {
         float acc = 0.f;
         for (int e = 0; e < 4; ++e)
@@ -344,10 +468,11 @@ sde_sweep_kernel(SdeSweepArgs a) {
 // Batch rows per row block (one CTA's unit of work) of the SDE kernels.
 extern "C" int lrnde_sde_rows_per_block() { return lrnde::kSdeRows; }
 
-// Floats of dynamic shared memory per CTA, and of one weight-gradient
-// partial, at (F, H).
-extern "C" long long lrnde_sde_sweep_smem_floats(int F, int H) {
-  return static_cast<long long>(lrnde::sde_sweep_smem_floats(F, H));
+// Floats of dynamic shared memory per CTA at the tiers (lrnde_sde_sweep's
+// bits), and of one weight-gradient partial, at (F, H).
+extern "C" long long lrnde_sde_sweep_smem_floats(int tiers, int F, int H) {
+  return static_cast<long long>(lrnde::sde_sweep_smem_floats_at(
+      F, H, tiers & lrnde::kSdeTierRecompute, tiers & lrnde::kSdeTierGrad));
 }
 
 // Threads of a sweep CTA: the hidden group, then the diffusion group.
@@ -371,18 +496,20 @@ extern "C" long long lrnde_sde_grad_floats(int F, int H) {
 
 namespace lrnde {
 
-template <bool kTime>
+template <bool kTime, bool kRec = false, bool kGrad = false>
 static int sde_sweep(LRNDE_SDE_SWEEP_PARAMS, unsigned long long* timing,
                      void* stream) {
   SdeSweepArgs a{SdeWeights{w1, b1, w2, b2, wd, bd, F, H}, knot_ts, knot_us,
                  knot_dws, knot_dzs, naccept, saveat, n_save, ct_ys, ct_y,
                  a_u, part, B, timing};
-  const size_t smem = sde_sweep_smem_floats(F, H) * sizeof(float);
+  const size_t smem = sde_sweep_smem_floats_at(F, H, kRec, kGrad)
+                    * sizeof(float);
   const bool mnist = F == 32 && H == 64;  // experiments/mnist_sde/mlp.yaml
-  auto kernel = sosri ? (mnist ? sde_sweep_kernel<true, kTime, 32, 64>
-                               : sde_sweep_kernel<true, kTime, 0, 0>)
-                      : (mnist ? sde_sweep_kernel<false, kTime, 32, 64>
-                               : sde_sweep_kernel<false, kTime, 0, 0>);
+  auto kernel =
+      sosri ? (mnist ? sde_sweep_kernel<true, kTime, 32, 64, kRec, kGrad>
+                     : sde_sweep_kernel<true, kTime, 0, 0, kRec, kGrad>)
+            : (mnist ? sde_sweep_kernel<false, kTime, 32, 64, kRec, kGrad>
+                     : sde_sweep_kernel<false, kTime, 0, 0, kRec, kGrad>);
   static size_t granted[4] = {0, 0, 0, 0};
   cudaError_t err = allow_smem(kernel, smem, &granted[2 * sosri + mnist]);
   if (err != cudaSuccess) return err;
@@ -396,15 +523,33 @@ static int sde_sweep(LRNDE_SDE_SWEEP_PARAMS, unsigned long long* timing,
 }  // namespace lrnde
 
 // The reverse sweep over *naccept recorded SRI (sosri = 0) or SOSRI
-// (sosri = 1) steps: writes a_u and the flat weight gradient d_w
-// (dW1, db1, dW2, db2, dWd, dbd); part holds ceil(B / 4) partials. Two
-// launches on the stream: the sweep and the ordered sum of its partials.
-// Returns cudaGetLastError().
-extern "C" int lrnde_sde_sweep(LRNDE_SDE_SWEEP_PARAMS, void* stream) {
-  return lrnde::sde_sweep<false>(LRNDE_SDE_SWEEP_ARGS, nullptr, stream);
+// (sosri = 1) steps at the tiers (bit kSdeTierRecompute: the stage
+// recompute at TF32; kSdeTierGrad: the transposed and weight-gradient
+// products at TF32; 0: FP32 throughout): writes a_u and the flat weight
+// gradient d_w (dW1, db1, dW2, db2, dWd, dbd); part holds ceil(B / 4)
+// partials. Two launches on the stream: the sweep and the ordered sum of
+// its partials. Returns cudaGetLastError().
+extern "C" int lrnde_sde_sweep(int tiers, LRNDE_SDE_SWEEP_PARAMS,
+                               void* stream) {
+  using namespace lrnde;
+  switch (tiers) {
+    case 0:
+      return sde_sweep<false>(LRNDE_SDE_SWEEP_ARGS, nullptr, stream);
+    case kSdeTierRecompute:
+      return sde_sweep<false, true, false>(LRNDE_SDE_SWEEP_ARGS, nullptr,
+                                           stream);
+    case kSdeTierGrad:
+      return sde_sweep<false, false, true>(LRNDE_SDE_SWEEP_ARGS, nullptr,
+                                           stream);
+    case kSdeTierRecompute | kSdeTierGrad:
+      return sde_sweep<false, true, true>(LRNDE_SDE_SWEEP_ARGS, nullptr,
+                                          stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
-// The same sweep with CTA 0's nanoseconds per phase (kSdeSwPhases) and the
+// The FP32 sweep with CTA 0's nanoseconds per phase (kSdeSwPhases) and the
 // number of steps in timing. A separate instantiation.
 extern "C" int lrnde_sde_sweep_timed(LRNDE_SDE_SWEEP_PARAMS,
                                      unsigned long long* timing,

@@ -116,8 +116,20 @@ def _node_kwargs(cfg: ExperimentConfig):
     )
 
 
+# The layers outside the DE layers take the reference's precision=None:
+# called outside any ``jax.default_matmul_precision``, they compute at the
+# backend default there, TF32 on a GPU and FP32 on the CPU, forward and
+# backward. The port gives them the same keyword (``nn.basic.layer_tier``),
+# rather than a scope of the backend default around the model's call: a
+# scope would reach every layer the call runs, the latent model's and the
+# score net's too, whose families keep FP32 until their own tiers are
+# ported. The DE layers' dynamics take their solver's tier in their own
+# ``product_tier_scope``.
+OUTER = dict(precision=None)
+
+
 def _construct_mlp_ode(cfg: ExperimentConfig, device, generator):
-    """Flatten → NeuralODE(TDChain MLP) → classifier
+    """Flatten → NeuralODE(TDChain MLP) → classifier at the backend default
     (reference ``construct.jl:180-200``)."""
     m = cfg.model
     hsize = m.mlp_hidden_state_size
@@ -135,14 +147,15 @@ def _construct_mlp_ode(cfg: ExperimentConfig, device, generator):
         flatten=Flatten(),
         neural_ode=NeuralODE(dynamics, use_pallas=use_pallas, **_node_kwargs(cfg)),
         sol_to_arr=WrappedFunction(diffeqsol_to_array),
-        classifier=Dense(insize, m.num_classes, **kw),
+        classifier=Dense(insize, m.num_classes, **OUTER, **kw),
     )
 
 
 def _construct_mlp_sde(cfg: ExperimentConfig, device, generator):
     """Flatten → Dense(784 → 32) → NeuralDSDE(drift Chain(Dense(32 → 64,
-    tanh), Dense(64 → 32)), diffusion Dense(32 → 32)) → classifier
-    (reference ``construct.jl:202-210``)."""
+    tanh), Dense(64 → 32)), diffusion Dense(32 → 32)) → classifier, the
+    downsample and the classifier at the backend default (reference
+    ``construct.jl:202-210``)."""
     m = cfg.model
     s = m.solver
     insize = m.image_size[0] * m.image_size[1] * m.in_channels
@@ -151,7 +164,7 @@ def _construct_mlp_sde(cfg: ExperimentConfig, device, generator):
     diffusion = Dense(32, 32 * (m.sde_noise_dims or 1), **kw)
     return Chain(
         flatten=Flatten(),
-        downsample=Dense(insize, 32, **kw),
+        downsample=Dense(insize, 32, **OUTER, **kw),
         neural_dsde=NeuralDSDE(
             drift, diffusion, rtol=s.reltol, atol=s.abstol,
             max_steps=s.max_steps, checkpoint_every=s.checkpoint_every,
@@ -162,14 +175,15 @@ def _construct_mlp_sde(cfg: ExperimentConfig, device, generator):
             rng_seed=cfg.seed,
         ),
         sol_to_arr=WrappedFunction(diffeqsol_to_array),
-        classifier=Dense(32, m.num_classes, **kw),
+        classifier=Dense(32, m.num_classes, **OUTER, **kw),
     )
 
 
 def _construct_cifar10_cnn(cfg: ExperimentConfig, device, generator):
     """AugmenterLayer (conv 3 → 5, concatenated: 8 channels) → BatchNorm →
     NeuralODE(TDChain of convs, kernel 13's and 14's family) → conv
-    classifier (reference ``construct.jl:212-228``; NHWC here)."""
+    classifier, the augmenter's conv and the classifier at the backend
+    default (reference ``construct.jl:212-228``; NHWC here)."""
     m = cfg.model
     es = m.bn_eval_stats
     kw = dict(generator=generator, device=device)
@@ -182,13 +196,14 @@ def _construct_cifar10_cnn(cfg: ExperimentConfig, device, generator):
                        Conv((3, 3), 65, 8, use_bias=False, **kw))
     h, w = m.image_size
     return Chain(
-        augment=AugmenterLayer(Conv((3, 3), 3, 5, **kw)),
+        augment=AugmenterLayer(Conv((3, 3), 3, 5, **OUTER, **kw)),
         bn=BatchNorm(8, eval_stats=es, device=device),
         neural_ode=NeuralODE(dynamics, use_pallas=m.use_pallas,
                              **_node_kwargs(cfg)),
         sol_to_arr=WrappedFunction(diffeqsol_to_array),
-        classifier=Chain(Conv((3, 3), 8, 1, "gelu", **kw), Flatten(),
-                         Dense(h * w, m.num_classes, **kw)),
+        classifier=Chain(Conv((3, 3), 8, 1, "gelu", **OUTER, **kw),
+                         Flatten(), Dense(h * w, m.num_classes, **OUTER,
+                                          **kw)),
     )
 
 
@@ -198,7 +213,11 @@ def construct_time_series(cfg: ExperimentConfig, saveat, *, device=None,
     NeuralODE(the Dense-chain generative dynamics, saveat = the observation
     grid) → time series → decoder (reference ``construct.jl:230-252``),
     with weights drawn from ``generator`` (default: a CPU generator seeded
-    with ``cfg.seed``), on ``device`` (default: the CUDA device)."""
+    with ``cfg.seed``), on ``device`` (default: the CUDA device). Every
+    layer of the latent model computes FP32 at every tier for now: the
+    reference's ``rec_to_gen`` and ``gen_to_data`` take the backend default,
+    and move with the chain family's tier, whole (ROADMAP Queue 1 item
+    11b)."""
     m = cfg.model
     device = resolve_device(device)
     if generator is None:

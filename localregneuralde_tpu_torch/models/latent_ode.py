@@ -12,6 +12,11 @@ Both of the reference's as-is quirks are kept:
 2. the mask sums the second half of x, which includes the Δt channel
    (``latent_ode.jl:40``), so a step with no observation but Δt > 0 still
    updates.
+
+The reference's cell layers compute at the backend default (TF32 on a
+card); the port's compute FP32 at every tier until the chain family's tier
+is ported, with the latent model's other layers, whole (ROADMAP Queue 1
+item 11b).
 """
 from __future__ import annotations
 

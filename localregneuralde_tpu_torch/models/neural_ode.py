@@ -81,9 +81,9 @@ computes the dynamics' Dense and Conv products at ``mm_precision``'s tier,
 forward and backward (``nn.basic.product_tier_scope``), and warns that
 ``grad_precision='default'`` does nothing there, as the reference does. A
 forward at the TF32 tier below rtol 1e-4 raises (the reference saturates
-``max_steps``). The chain (latent ODE), SDE and score families compute
-FP32 at every tier for now, each until its own slice (ROADMAP Queue 1
-item 11b).
+``max_steps``). The SDE family's tiers are ``NeuralDSDE``'s. The chain
+(latent ODE) and score families compute FP32 at every tier for now, each
+until its own slice (ROADMAP Queue 1 item 11b).
 
 The other modes route each family as the reference does
 (``neural_ode.py:224-303``): on the TD-MLP's kernel route the dynamics is

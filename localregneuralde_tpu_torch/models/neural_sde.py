@@ -45,6 +45,24 @@ the direct adjoint runs the eager loop on the modules. The wrappers run their pl
 versions on CPU tensors. Otherwise the eager loop runs the drift and
 diffusion modules. The regulariser's step is plain PyTorch on either route,
 as the reference leaves it to XLA.
+
+Precision tiers (reference ``neural_sde.py:155-268``): ``mm_precision`` is
+``precision`` resolved at ``rtol`` ('auto': 'highest' below 1e-4, else
+None, the backend default), and ``nn.basic.product_tier`` maps it to what a
+product computes on the device: the default is TF32 on a card and FP32 on
+the CPU. Kernel 10 solves at ``mm_precision``, in eval and in the training
+forward; kernel 12 recomputes the stages at ``mm_precision`` and runs its
+transposed and weight-gradient products at the default tier whatever the
+forward's, the reference's ``grad_precision=None`` (so ``'highest'`` keeps
+FP32 forwards with TF32 gradient products on a card). The plain route (the
+eager SRI/SOSRI, Milstein and Lamba–Euler–Heun loops, the direct adjoint,
+the plain stored adjoint's step VJP) and the regulariser's step call the
+drift and diffusion modules inside ``product_tier_scope`` at
+``mm_precision``'s tier, their transposes at the same tier (JAX transposes
+a dot at its own precision). ``grad_precision='default'`` warns and does
+nothing, as the reference's. A forward at the TF32 tier below rtol 1e-4
+raises (``nn.basic.check_product_tier``; the reference saturates
+``max_steps``).
 """
 from __future__ import annotations
 
@@ -55,7 +73,15 @@ import dataclasses
 
 import torch
 
-from ..nn.basic import _ACTIVATIONS, Chain, Dense, resolve_solver_precision
+from ..nn.basic import (
+    _ACTIVATIONS,
+    Chain,
+    Dense,
+    check_product_tier,
+    product_tier,
+    product_tier_scope,
+    resolve_solver_precision,
+)
 from ..nn.module import Module
 from ..ode.solve import device_scalar
 from ..ops.residuals import internal_norm
@@ -184,7 +210,6 @@ class NeuralDSDE(Module):
         self.use_pallas = use_pallas if is_sde_family(drift, diffusion) else "off"
         self.use_persistent = bool(use_persistent)
         self.rng_seed = int(rng_seed)
-        # recorded for parity with the reference; every tier is FP32 here
         self.mm_precision = resolve_solver_precision(precision, self.rtol)
         if grad_precision == "default" and self.mm_precision is not None:
             warnings.warn(
@@ -255,20 +280,28 @@ class NeuralDSDE(Module):
         return self.use_pallas == "on" or (self.use_pallas == "auto"
                                            and x.is_cuda)
 
+    def forward_tier(self, device) -> str:
+        """The tier of the drift's and diffusion's forward products on
+        ``device``: ``mm_precision``'s."""
+        return product_tier(self.mm_precision, device)
+
     def _params(self):
         return (list(self.drift.named_parameters()),
                 list(self.diffusion.named_parameters()))
 
     def _dynamics(self):
         """``f(u, t, params)`` and ``g(u, t, params)`` of the modules, with
-        the drift's parameters first in ``params``."""
+        the drift's parameters first in ``params``, their products at
+        ``forward_tier`` (the reference's ``default_matmul_precision``
+        around them), their transposes at the same tier."""
         d_params, g_params = self._params()
         dn, gn = [n for n, _ in d_params], [n for n, _ in g_params]
         n_d = len(dn)
 
         def call(module, names, params, u, t):
-            y, _ = torch.func.functional_call(
-                module, dict(zip(names, params)), (u, module.init_state()))
+            with product_tier_scope(self.forward_tier(u.device)):
+                y, _ = torch.func.functional_call(
+                    module, dict(zip(names, params)), (u, module.init_state()))
             return y
 
         def f(u, t, params):
@@ -283,13 +316,18 @@ class NeuralDSDE(Module):
         return f, g
 
     def _kernel_fns(self):
-        """The kernel route's replacements: the persistent solve and its
-        sweep."""
+        """The kernel route's replacements: the persistent solve at
+        ``mm_precision`` and its sweep, recomputing at ``mm_precision``
+        with its gradient products at the default tier (the reference's
+        ``grad_precision=None``)."""
         from ..ops.cuda import SDEWeights, persistent_sde_solve, persistent_sde_sweep
+
+        prec = self.mm_precision
 
         def persistent_fn(u0, params, tspan, *, saveat_arr, **kw):
             out = persistent_sde_solve(SDEWeights(*params), u0.contiguous(),
-                                       tspan, saveat_arr=saveat_arr, **kw)
+                                       tspan, saveat_arr=saveat_arr,
+                                       precision=prec, **kw)
             return solution_from(out, saveat_arr)
 
         def sweep_fn(params, knot_ts, knot_us, knot_dws, knot_dzs, naccept,
@@ -297,13 +335,15 @@ class NeuralDSDE(Module):
             a_u, d_w = persistent_sde_sweep(
                 SDEWeights(*params), knot_ts, knot_us, knot_dws, knot_dzs,
                 naccept, saveat_arr, ct_ys, ct_y, solver=self.solver,
-                delta=self.delta)
+                delta=self.delta, precision=prec, grad_precision=None)
             return a_u, list(d_w)
 
         return persistent_fn, sweep_fn
 
     def apply_layer(self, x, state, *, training: bool = False):
         t2 = self.tspan[1]
+        # every route's forward runs at this tier: refuse it below 1e-4
+        check_product_tier(self.forward_tier(x.device), self.rtol)
         draws, state = pop_draws(state)
         if draws is None:
             draws = to_device(self.draw(state, x.shape[0], training), x)
@@ -375,14 +415,19 @@ class NeuralDSDE(Module):
         """``eest · dt`` of one step of the layer's solver from the fenced
         ``(u1, t1)`` with the fresh standard normals ``z`` (2, B, F), or
         (2, B, m) with matrix noise, differentiable in the parameters
-        only."""
+        only; the modules' products (the dt probe's too) at
+        ``forward_tier``, as the reference's step through its ``f`` and
+        ``g``."""
         t2 = self.tspan[1]
+        tier = self.forward_tier(x.device)
 
         def f(u, t):
-            return self.drift(u, self.drift.init_state())[0]
+            with product_tier_scope(tier):
+                return self.drift(u, self.drift.init_state())[0]
 
         def g(u, t):
-            gu = self.diffusion(u, self.diffusion.init_state())[0]
+            with product_tier_scope(tier):
+                gu = self.diffusion(u, self.diffusion.init_state())[0]
             if self.noise_dims is not None:
                 gu = gu.reshape(u.shape + (self.noise_dims,))
             return gu

@@ -26,6 +26,12 @@ from ``noise_source``, in that order, both from the caller's CPU
 ``torch.Generator``; tests replace the two functions to inject the
 reference's draws. Kernel 11 serves SRI/SOSRI only, as the reference's:
 ``'milstein'`` and ``'euler_heun'`` run the eager loop on any device.
+
+Tiers: the reference calls its samplers with no precision, so on a card
+their products take the backend default, TF32. The port's samplers, their
+kernels and the score net's Dense layers compute FP32 at every tier for
+now, until the score family's tier is ported whole (ROADMAP Queue 1 item
+11b).
 """
 from __future__ import annotations
 

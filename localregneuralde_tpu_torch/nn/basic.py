@@ -184,6 +184,23 @@ def scope_tier(x: torch.Tensor) -> str:
     return _TIER.get() if x.dtype == torch.float32 else "fp32"
 
 
+# A Dense or Conv layer's ``precision`` that follows ``product_tier_scope``
+SCOPE = "scope"
+
+
+def layer_tier(precision, x: torch.Tensor) -> str:
+    """The tier of a Dense or Conv layer's product of ``x`` at the layer's
+    ``precision``: ``SCOPE``, the enclosing ``product_tier_scope``'s
+    (``scope_tier``); a resolved precision, ``product_tier(precision,
+    x.device)`` for a float32 ``x`` (None is the reference's backend
+    default: TF32 on a card, FP32 on the CPU), FP32 for another dtype."""
+    if precision == SCOPE:
+        return scope_tier(x)
+    if x.dtype != torch.float32:
+        return "fp32"
+    return product_tier(precision, x.device)
+
+
 def check_fp32_products(rtol: float, device) -> None:
     """Raise if a solve at ``rtol`` below 1e-4 on a CUDA ``device`` would
     run its cuBLAS or cuDNN products in TF32.
@@ -225,16 +242,22 @@ def glorot_uniform(shape, generator: Optional[torch.Generator] = None,
 class Dense(Module):
     """Affine layer ``y = act(x @ w + b)``, ``w`` of shape (in, out).
     Glorot-uniform weight from ``generator``, zero bias (Lux defaults).
-    Inside ``product_tier_scope("tf32")`` a float32 product runs at the
-    TF32 tier (``tier_matmul``)."""
+    Its product (and under autograd its transposes) runs at
+    ``layer_tier(precision, x)``: with ``precision=SCOPE``, the default,
+    the tier of the enclosing ``product_tier_scope`` (FP32 outside one),
+    where the DE layers' dynamics and the families whose tier is not yet
+    ported compute; with the reference's ``precision=None`` the backend
+    default, TF32 on a card (``tier_matmul``), FP32 on the CPU."""
 
     def __init__(self, in_dim: int, out_dim: int, activation=None, *,
-                 use_bias: bool = True, generator=None, device=None):
+                 use_bias: bool = True, precision=SCOPE, generator=None,
+                 device=None):
         super().__init__()
         self.in_dim = in_dim
         self.out_dim = out_dim
         self.activation = resolve_activation(activation)
         self.use_bias = use_bias
+        self.precision = precision
         self.w = nn.Parameter(
             glorot_uniform((in_dim, out_dim), generator).to(device)
         )
@@ -242,7 +265,7 @@ class Dense(Module):
             self.b = nn.Parameter(torch.zeros(out_dim, device=device))
 
     def apply_layer(self, x, state, *, training: bool = False):
-        tier = scope_tier(x)
+        tier = layer_tier(self.precision, x)
         if tier != "fp32":
             y = tier_matmul(x.reshape(-1, self.in_dim), self.w, tier).reshape(
                 x.shape[:-1] + (self.out_dim,))
@@ -385,18 +408,20 @@ class Conv(Module):
     reference's ``pad=(1, 1)`` 3×3 convolutions, ``construct.jl:212-228``).
     Glorot-uniform weight with the fan over (kh, kw, in) → out, as the
     reference's ``glorot_uniform(in_axis=(0, 1, 2), out_axis=3)``; zero
-    bias. The reference's ``padding`` and ``stride`` options are not
-    carried: every conv of the model zoo is SAME with stride 1."""
+    bias. ``precision`` as ``Dense``'s (``layer_tier``). The reference's
+    ``padding`` and ``stride`` options are not carried: every conv of the
+    model zoo is SAME with stride 1."""
 
     def __init__(self, kernel_size, in_channels: int, out_channels: int,
-                 activation=None, *, use_bias: bool = True, generator=None,
-                 device=None):
+                 activation=None, *, use_bias: bool = True, precision=SCOPE,
+                 generator=None, device=None):
         super().__init__()
         self.kernel_size = tuple(kernel_size)
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.activation = resolve_activation(activation)
         self.use_bias = use_bias
+        self.precision = precision
         kh, kw = self.kernel_size
         self.w = nn.Parameter(glorot_uniform(
             (kh, kw, in_channels, out_channels), generator,
@@ -405,7 +430,7 @@ class Conv(Module):
             self.b = nn.Parameter(torch.zeros(out_channels, device=device))
 
     def apply_layer(self, x, state, *, training: bool = False):
-        y = conv2d_nhwc(x, self.w, scope_tier(x))
+        y = conv2d_nhwc(x, self.w, layer_tier(self.precision, x))
         if self.use_bias:
             y = y + self.b
         return self.activation(y), state

@@ -69,7 +69,13 @@ _SIGNATURES = {
         [_I] + [_P] * 3 + [_I] + [_P] * 7 + [_I] + [_P] * 15 + [_I] * 4
         + [_F] * 4 + [_P, _P]
     ),
-    "lrnde_sde_sweep": [_I] + [_P] * 12 + [_I] + [_P] * 5 + [_I] * 3 + [_P],
+    "lrnde_sde_solve_tf32": (
+        [_I] + [_P] * 3 + [_I] + [_P] * 7 + [_I] + [_P] * 15 + [_I] * 4
+        + [_F] * 4 + [_P]
+    ),
+    "lrnde_sde_sweep": (
+        [_I, _I] + [_P] * 12 + [_I] + [_P] * 5 + [_I] * 3 + [_P]
+    ),
     "lrnde_sde_sweep_timed": (
         [_I] + [_P] * 12 + [_I] + [_P] * 5 + [_I] * 3 + [_P, _P]
     ),
@@ -145,7 +151,8 @@ _SIZES = {
     "lrnde_eval_smem_floats": [_I] * 2,
     "lrnde_step_scratch_floats": [_I] * 2,
     "lrnde_sde_solve_smem_floats": [_I] * 2,
-    "lrnde_sde_sweep_smem_floats": [_I] * 2,
+    "lrnde_sde_sweep_smem_floats": [_I] * 3,
+    "lrnde_sde_solve_smem_floats_tf32": [_I] * 2,
     "lrnde_sde_grad_floats": [_I] * 2,
     "lrnde_chain_solve_smem_floats": [_P, _I],
     "lrnde_chain_sweep_smem_floats": [_P, _I],

@@ -25,6 +25,18 @@ tensor the noise source must be ``PhiloxNormals``, whose numbers the kernel
 draws itself (its uniforms bitwise, its normals to the inverse CDF's
 rounding).
 
+``precision`` has the reference's meaning (``'highest'``, ``'high'``, or
+None/``'default'``, the backend default, which 'auto' resolves to at rtol
+≥ 1e-4), and ``nn.basic.product_tier`` says what it computes on a device.
+At the TF32 tier every drift and diffusion product (the first dt's drift
+evaluation too) rounds its operands to TF32 and accumulates in FP32: the
+kernel's ``lrnde_sde_solve_tf32`` on the tensor cores, the plain version
+through ``nn.basic.tier_matmul``; the stage combinations, the error norm,
+the controller and the tree stay FP32. A TF32 solve below rtol 1e-4
+raises (``check_product_tier``). The wrapper's default is ``'highest'``:
+a call that names no tier keeps the FP32 kernel, and the model names its
+own; ``persistent_sde_solve.tier_launches`` counts the launches by tier.
+
 Kernel 11 (``persistent_vpsde_solve``, the same ``csrc/sde_solve.cu``
 instantiated for ``csrc/score.cuh::VpScore``) is the reference's
 ``persistent_vpsde_solve`` (family ``("vpsde", ...)``): the reverse-time
@@ -41,12 +53,17 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ...nn.basic import check_fp32_products
+from ...nn.basic import (
+    check_fp32_products,
+    check_product_tier,
+    product_tier,
+    tier_matmul,
+)
 from ...sde.brownian import PhiloxNormals
 from ...ode.solve import device_scalar
 from ...sde.solve import SRI_SOLVERS, initial_dt, sde_loop
 from . import _build
-from .fused_mlp import device_scalars
+from .fused_mlp import count_launch, device_scalars
 from .fused_solve import (
     CHAIN_MAX_LAYERS,
     CHAIN_SMEM_BYTES,
@@ -90,26 +107,43 @@ class SdeSolvePlan(NamedTuple):
     smem_bytes: int
 
 
-def sde_solve_smem_floats(F: int, H: int) -> int:
+def frag_floats(M: int, K: int) -> int:
+    """Floats of the TF32 fragment copy of an M × K product operand
+    (``csrc/sde.cuh::sde_frag_floats``): 16 × 8 tiles of 128 floats."""
+    return -(-M // 16) * -(-K // 8) * 128
+
+
+def frag_set_floats(F: int, H: int) -> int:
+    """Floats of one set of the family's three fragment copies (W1 and W2
+    and Wd, transposed or not)."""
+    return frag_floats(H, F) + frag_floats(F, H) + frag_floats(F, F)
+
+
+def sde_solve_smem_floats(F: int, H: int, tier: str = "fp32") -> int:
     """Floats of a kernel-10 CTA's dynamic shared memory
     (``csrc/sde_solve.cu::sde_solve_smem_floats``): the weights with rows
-    padded by one float and the hidden rows, the row block's 13 buffers of
+    padded by one float and the hidden rows (at ``"tf32"`` then, 16-byte
+    aligned, the forward's fragment copies), the row block's 13 buffers of
     R·F floats and the reduction's (or the residuals'), then the descent's
     normals, a float4 each (level, item)."""
     R = SDE_ROWS
     weights = F * (H + 1) + H + H * (F + 1) + F + F * (F + 1) + F + R * H
+    if tier == "tf32":
+        weights = round4(weights) + frag_set_floats(F, H)
     items = R * (-(-F // 2))
     descent = items * (SDE_MAX_DEPTH + 1) if items < SDE_THREADS else 0
     return (round4(weights + 13 * R * F + max(SDE_THREADS, R * F))
             + 4 * descent)
 
 
-def sde_solve_plan(B: int, F: int, H: int, resident=None) -> SdeSolvePlan:
-    """Kernel 10's layout for B rows at (F, H); ``resident(smem_bytes)`` is
-    the CTAs the card holds at once at that shared memory (the occupancy
-    query; None: every row block resident). Raises ValueError where a
-    CTA's shared memory exceeds an H100's block."""
-    smem = 4 * sde_solve_smem_floats(F, H)
+def sde_solve_plan(B: int, F: int, H: int, resident=None,
+                   tier: str = "fp32") -> SdeSolvePlan:
+    """Kernel 10's layout for B rows at (F, H) and the product ``tier``;
+    ``resident(smem_bytes)`` is the CTAs the card holds at once at that
+    shared memory (the occupancy query; None: every row block resident).
+    Raises ValueError where a CTA's shared memory exceeds an H100's
+    block."""
+    smem = 4 * sde_solve_smem_floats(F, H, tier)
     if smem > SDE_SMEM_BYTES:
         raise ValueError(
             f"persistent_sde_solve: F={F}, H={H} needs {smem} bytes of "
@@ -137,12 +171,19 @@ class SDEWeights(NamedTuple):
     bd: torch.Tensor
 
 
-def drift_plain(w: SDEWeights, x: torch.Tensor) -> torch.Tensor:
-    return torch.tanh(x @ w.w1 + w.b1) @ w.w2 + w.b2
+def drift_plain(w: SDEWeights, x: torch.Tensor, tier: str = "fp32",
+                grad_tier=None) -> torch.Tensor:
+    """The family's drift, its products at ``tier`` and under autograd
+    their transposes at ``grad_tier`` (default ``tier``;
+    ``nn.basic.tier_matmul``)."""
+    h = torch.tanh(tier_matmul(x, w.w1, tier, grad_tier) + w.b1)
+    return tier_matmul(h, w.w2, tier, grad_tier) + w.b2
 
 
-def diffusion_plain(w: SDEWeights, x: torch.Tensor) -> torch.Tensor:
-    return x @ w.wd + w.bd
+def diffusion_plain(w: SDEWeights, x: torch.Tensor, tier: str = "fp32",
+                    grad_tier=None) -> torch.Tensor:
+    """The family's diagonal diffusion at the tiers of ``drift_plain``."""
+    return tier_matmul(x, w.wd, tier, grad_tier) + w.bd
 
 
 def check_sde_operands(w: SDEWeights, *states: torch.Tensor) -> tuple:
@@ -168,13 +209,16 @@ def check_sde_operands(w: SDEWeights, *states: torch.Tensor) -> tuple:
 def persistent_sde_solve_plain(w: SDEWeights, u0, tspan, *, noise, rtol, atol,
                                solver, delta, saveat_arr, max_steps,
                                record_knots=False, reservoir=None,
-                               brownian_depth=24):
-    """The plain version: the eager loop with the plain family."""
+                               brownian_depth=24, tier: str = "fp32"):
+    """The plain version: the eager loop with the plain family, its
+    products at the resolved ``tier``."""
     check_fp32_products(rtol, u0.device)
+    check_product_tier(tier, rtol)
     t0, t_end = float(tspan[0]), float(tspan[1])
-    dt_init = initial_dt(u0, drift_plain(w, u0), rtol, atol, t0, t_end)
+    dt_init = initial_dt(u0, drift_plain(w, u0, tier), rtol, atol, t0, t_end)
     out = sde_loop(
-        lambda x, t: drift_plain(w, x), lambda x, t: diffusion_plain(w, x),
+        lambda x, t: drift_plain(w, x, tier),
+        lambda x, t: diffusion_plain(w, x, tier),
         u0, t0, t_end, dt_init, noise=noise, saveat=saveat_arr, rtol=rtol,
         atol=atol, solver=solver, delta=delta, max_steps=max_steps,
         reservoir=reservoir, brownian_depth=brownian_depth,
@@ -187,8 +231,9 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
                          rtol: float, atol: float, solver: str, delta: float,
                          saveat_arr: torch.Tensor, max_steps: int,
                          record_knots=False, reservoir=None,
-                         brownian_depth=24):
-    """Run the whole adaptive solve of the family from ``u0``.
+                         brownian_depth=24, precision="highest"):
+    """Run the whole adaptive solve of the family from ``u0``, its products
+    at ``precision``.
 
     Returns a dict of device tensors (no host sync): ``y_final``, ``ys``
     (n_save, B, F), ``naccept``, ``nreject``, ``natt``, ``success``,
@@ -198,14 +243,16 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
     (max_steps, B, F), valid up to ``naccept``. A CUDA tensor launches the
     kernel; a CPU tensor runs ``persistent_sde_solve_plain``.
     """
+    tier = product_tier(precision, u0.device)
     kw = dict(noise=noise, rtol=rtol, atol=atol, solver=solver, delta=delta,
               saveat_arr=saveat_arr, max_steps=max_steps,
               record_knots=record_knots, reservoir=reservoir,
               brownian_depth=brownian_depth)
     check_reservoir(reservoir, max_steps)
     if u0.device.type == "cpu":
-        return persistent_sde_solve_plain(w, u0, tspan, **kw)
+        return persistent_sde_solve_plain(w, u0, tspan, tier=tier, **kw)
     check_fp32_products(rtol, u0.device)
+    check_product_tier(tier, rtol)
     if solver not in SRI_SOLVERS:
         raise ValueError(f"the SDE kernel runs {SRI_SOLVERS}, not {solver!r}")
     if not isinstance(noise, PhiloxNormals):
@@ -216,15 +263,18 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
     B, F, H = check_sde_operands(w, u0)
     if noise.shape != (B, F):
         raise ValueError(f"noise source of shape {noise.shape}, state {(B, F)}")
-    plan = sde_solve_plan(B, F, H)
+    plan = sde_solve_plan(B, F, H, tier=tier)
+    tf32 = tier == "tf32"
     lib = _build.load_library()
+    smem_query = (lib.lrnde_sde_solve_smem_floats_tf32 if tf32
+                  else lib.lrnde_sde_solve_smem_floats)
     if (lib.lrnde_sde_rows_per_block(), lib.lrnde_sde_solve_threads(),
-            4 * lib.lrnde_sde_solve_smem_floats(F, H)) != (
+            4 * smem_query(F, H)) != (
             plan.rows, plan.threads, plan.smem_bytes):
         raise RuntimeError("persistent_sde_solve: the library's layout "
                            "differs from sde_solve_plan")
     t0, t_end = float(tspan[0]), float(tspan[1])
-    dt_init = initial_dt(u0, drift_plain(w, u0), rtol, atol, t0, t_end)
+    dt_init = initial_dt(u0, drift_plain(w, u0, tier), rtol, atol, t0, t_end)
     sc = device_scalars([t0, t_end, dt_init], u0)
     saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
     n_save = saveat.shape[0]
@@ -250,7 +300,8 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
     p = _build.ptr
     null = ctypes.c_void_p(0)
     opt = lambda t: null if t is None else p(t)  # noqa: E731
-    err = lib.lrnde_sde_solve(
+    entry = lib.lrnde_sde_solve_tf32 if tf32 else lib.lrnde_sde_solve
+    err = entry(
         int(solver == "sosri"), p(u0), p(sc), p(saveat), n_save,
         *[p(x) for x in w], p(seed), int(brownian_depth),
         p(y_final), p(ys), p(stats_i), p(stats_f), p(unew), p(wz[0]),
@@ -261,7 +312,7 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
         1.0 / float(B * F), _build.stream_ptr(dev),
     )
     _build.check(lib, err, "persistent_sde_solve")
-    persistent_sde_solve.launches += 1
+    count_launch(persistent_sde_solve, tier)
     return dict(
         y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
         natt=stats_i[3], success=stats_i[2].bool(), t_final=stats_f[0],
@@ -271,7 +322,7 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
     )
 
 
-persistent_sde_solve.launches = 0
+persistent_sde_solve.tier_launches = {}
 
 
 # ---------------------------------------------------------------------------

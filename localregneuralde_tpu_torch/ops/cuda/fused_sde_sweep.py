@@ -16,6 +16,16 @@ other), and its shared memory.
 Returns ``(a_u, d_w)``: the state cotangent at t0 and the weight gradients
 as ``SDEWeights``. The plain version is the eager sweep of
 ``sde/stored_adjoint.py`` with the autograd VJP of the plain step.
+
+Tiers, as the reference's ``persistent_sde_sweep``: ``precision`` is the
+stage recompute's, ``grad_precision`` the eight transposed products' and
+the three weight-gradient contractions' (``'match'``: ``precision``'s;
+``fused_mlp_bwd.step_bwd_tiers``). ``NeuralDSDE`` passes its forward's
+precision and ``grad_precision=None``, the default tier, whatever the
+forward's, as the reference does. The defaults keep the FP32 kernel. The
+kernel takes every pair of tiers (``lrnde_sde_sweep``'s first argument,
+``fused_mlp_bwd.tier_bits``); ``persistent_sde_sweep.tier_launches``
+counts its launches by ``recompute/gradients`` tier.
 """
 from __future__ import annotations
 
@@ -25,6 +35,8 @@ import torch
 
 from ...sde.stored_adjoint import autograd_step_vjp, eager_sde_sweep
 from . import _build
+from .fused_mlp import count_launch
+from .fused_mlp_bwd import step_bwd_tiers, tier_bits
 from .fused_sde_solve import (
     SDE_HID_THREADS,
     SDE_ROWS,
@@ -34,9 +46,9 @@ from .fused_sde_solve import (
     check_sde_operands,
     diffusion_plain,
     drift_plain,
+    frag_set_floats,
 )
-
-
+from .fused_solve import round4
 
 
 class SdeSweepPlan(NamedTuple):
@@ -60,13 +72,20 @@ def sde_grad_floats(F: int, H: int) -> int:
     return F * H + H + H * F + F + F * F + F
 
 
-def sde_sweep_plan(B: int, F: int, H: int) -> SdeSweepPlan:
-    """The CTA layout of kernel 12; raises ValueError where a CTA's shared
-    memory (the weights, the gradient partial, the row block's stage
-    buffers) exceeds an H100's block."""
+def sde_sweep_plan(B: int, F: int, H: int, tier: str = "fp32",
+                   grad_tier: str = "fp32") -> SdeSweepPlan:
+    """The CTA layout of kernel 12 at the recompute's ``tier`` and the
+    gradients' ``grad_tier``; raises ValueError where a CTA's shared memory
+    (the weights, the gradient partial, the row block's stage buffers, and
+    one set of TF32 fragment copies for each TF32 tier, 16-byte aligned
+    after them) exceeds an H100's block."""
     R = SDE_ROWS
-    smem = 4 * (F * (H + 1) + H + H * (F + 1) + F + F * (F + 1) + F
-                + sde_grad_floats(F, H) + 7 * R * F + 24 * R * F + 8 * R * H)
+    floats = (F * (H + 1) + H + H * (F + 1) + F + F * (F + 1) + F
+              + sde_grad_floats(F, H) + 7 * R * F + 24 * R * F + 8 * R * H)
+    n_sets = (tier == "tf32") + (grad_tier == "tf32")
+    if n_sets:
+        floats = round4(floats) + n_sets * frag_set_floats(F, H)
+    smem = 4 * floats
     if smem > SDE_SMEM_BYTES:
         raise ValueError(
             f"persistent_sde_sweep: F={F}, H={H} needs {smem} bytes of "
@@ -78,11 +97,15 @@ def sde_sweep_plan(B: int, F: int, H: int) -> SdeSweepPlan:
 
 def persistent_sde_sweep_plain(w: SDEWeights, knot_ts, knot_us, knot_dws,
                                knot_dzs, naccept, saveat_arr, ct_ys, ct_y, *,
-                               solver, delta):
-    """The plain version: the eager sweep with the plain family."""
+                               solver, delta, tier: str = "fp32",
+                               grad_tier=None):
+    """The plain version: the eager sweep with the plain family, each
+    step's recompute at the resolved ``tier`` and its ``autograd_step_vjp``
+    products (the transposes and the weight gradients) at ``grad_tier``
+    (default ``tier``)."""
     step_vjp = autograd_step_vjp(
-        lambda u, t, p: drift_plain(SDEWeights(*p), u),
-        lambda u, t, p: diffusion_plain(SDEWeights(*p), u),
+        lambda u, t, p: drift_plain(SDEWeights(*p), u, tier, grad_tier),
+        lambda u, t, p: diffusion_plain(SDEWeights(*p), u, tier, grad_tier),
         solver=solver, delta=delta, atol=1.0, rtol=1.0,
     )
     a_u, a_p = eager_sde_sweep(step_vjp, list(w), knot_ts, knot_us, knot_dws,
@@ -99,13 +122,18 @@ def split_sde_grad(d_w: torch.Tensor, F: int, H: int) -> SDEWeights:
 
 
 def persistent_sde_sweep(w: SDEWeights, knot_ts, knot_us, knot_dws, knot_dzs,
-                         naccept, saveat_arr, ct_ys, ct_y, *, solver, delta):
+                         naccept, saveat_arr, ct_ys, ct_y, *, solver, delta,
+                         precision="highest", grad_precision="match"):
     """The sweep over ``naccept`` recorded steps (kernel 12) for CUDA
-    tensors; ``persistent_sde_sweep_plain`` for CPU tensors."""
+    tensors, its recompute at ``precision`` and its transposed and
+    weight-gradient products at ``grad_precision``;
+    ``persistent_sde_sweep_plain`` for CPU tensors."""
+    rec, grad = step_bwd_tiers(precision, grad_precision, ct_y.device)
     if ct_y.device.type == "cpu":
         return persistent_sde_sweep_plain(
             w, knot_ts, knot_us, knot_dws, knot_dzs, naccept, saveat_arr,
-            ct_ys, ct_y, solver=solver, delta=delta)
+            ct_ys, ct_y, solver=solver, delta=delta, tier=rec,
+            grad_tier=grad)
     ct_ys, ct_y = ct_ys.contiguous(), ct_y.contiguous()
     B, F, H = check_sde_operands(w, ct_y, *ct_ys)
     for name, k in (("knot_us", knot_us), ("knot_dws", knot_dws),
@@ -113,11 +141,12 @@ def persistent_sde_sweep(w: SDEWeights, knot_ts, knot_us, knot_dws, knot_dzs,
         if not k.is_contiguous() or tuple(k.shape[1:]) != (B, F):
             raise ValueError(f"{name}: needs a contiguous (n, {B}, {F}) buffer")
     dev = ct_y.device
-    plan = sde_sweep_plan(B, F, H)
+    plan = sde_sweep_plan(B, F, H, rec, grad)
+    bits = tier_bits(recompute=rec, grad=grad)
     lib = _build.load_library()
     if (lib.lrnde_sde_rows_per_block(), lib.lrnde_sde_sweep_threads(),
             lib.lrnde_sde_sweep_hid_threads(),
-            4 * lib.lrnde_sde_sweep_smem_floats(F, H),
+            4 * lib.lrnde_sde_sweep_smem_floats(bits, F, H),
             lib.lrnde_sde_grad_floats(F, H)) != (
             plan.rows, plan.threads, plan.hid_threads, plan.smem_bytes,
             plan.grad_floats):
@@ -131,14 +160,14 @@ def persistent_sde_sweep(w: SDEWeights, knot_ts, knot_us, knot_dws, knot_dzs,
     knot_ts = knot_ts.contiguous()
     p = _build.ptr
     err = lib.lrnde_sde_sweep(
-        int(solver == "sosri"), *[p(x) for x in w], p(knot_ts),
+        bits, int(solver == "sosri"), *[p(x) for x in w], p(knot_ts),
         p(knot_us), p(knot_dws), p(knot_dzs), p(naccept), p(saveat),
         saveat.shape[0], p(ct_ys), p(ct_y), p(a_u), p(d_w), p(part), B, F, H,
         _build.stream_ptr(dev),
     )
     _build.check(lib, err, "persistent_sde_sweep")
-    persistent_sde_sweep.launches += 1
+    count_launch(persistent_sde_sweep, f"{rec}/{grad}")
     return a_u, split_sde_grad(d_w, F, H)
 
 
-persistent_sde_sweep.launches = 0
+persistent_sde_sweep.tier_launches = {}

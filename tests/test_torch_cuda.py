@@ -1569,9 +1569,7 @@ def test_k10_seed_in_device_memory_keeps_the_digest_on_card(cuda_device):
     node = model.neural_dsde
     w = SDEWeights(*(p.detach() for p in list(node.drift.parameters())
                      + list(node.diffusion.parameters())))
-    x = cs._mnist_batches(cuda_device, 1)[0][0]
-    with torch.no_grad():
-        u0 = model.downsample(model.flatten(x, {})[0], {})[0].contiguous()
+    u0 = cs._sde_input(model, cs._mnist_batches(cuda_device, 1)[0][0])
     word = torch.tensor([seed_to_word(1234)], dtype=torch.int32,
                         device=cuda_device)
     for seed in (1234, word):
@@ -1919,3 +1917,107 @@ def test_conv_core_orientations_tf32_on_card(cuda_device, orient, cin, cout):
     assert torch.equal(run(), first)
     if code < 2 and cout <= 8:
         assert torch.equal(run(code + 3), first)
+
+
+# ------------------------------------------ the SDE family's TF32 tier (K10,
+# K12): each at the reference's default tier against its plain version at
+# the same tiers, on the same Philox tree and the same knots.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, features, hidden",
+                         [(13, 32, 64), (512, 32, 64), (37, 13, 40)])
+def test_sde_solve_tf32_matches_plain_on_card(cuda_device, batch, features,
+                                              hidden):
+    # kernel 10 at TF32 (the MNIST-SDE widths' instantiation and the
+    # generic one): the same path gives step counts within two attempts,
+    # and with equal counts states within the FP32 test's 1e-3 plus one
+    # evaluation's TF32 rounding of their scale; each recorded step, from
+    # the kernel's own knot, as accurate against its float64 step as the
+    # TF32 plain step; bitwise from run to run, counted at its tier
+    from localregneuralde_tpu_torch.ops.cuda import (
+        SDEWeights, persistent_sde_solve, persistent_sde_solve_plain,
+    )
+    from localregneuralde_tpu_torch.ops.cuda.fused_sde_solve import (
+        diffusion_plain, drift_plain,
+    )
+    from localregneuralde_tpu_torch.sde import get_sri_tableau, sri_step
+
+    w, x = _sde_setup(cuda_device, batch, features=features, hidden=hidden)
+    kw = _sde_kw(cuda_device, batch, features=features, record_knots=True)
+    before = _tier_launches(persistent_sde_solve).get("tf32", 0)
+    out = persistent_sde_solve(w, x, (0.0, 1.0), precision=None, **kw)
+    assert _tier_launches(persistent_sde_solve)["tf32"] == before + 1
+    ref = persistent_sde_solve_plain(w, x, (0.0, 1.0), tier="tf32", **kw)
+    assert bool(out["success"]) and bool(ref["success"])
+    assert abs(int(out["natt"]) - int(ref["natt"])) <= 2
+    if int(out["natt"]) == int(ref["natt"]):
+        tol = 1e-3 + 4 * 2.0 ** -11 * float(ref["ys"].abs().max())
+        torch.testing.assert_close(out["ys"], ref["ys"], atol=tol, rtol=0)
+    n = int(out["naccept"])
+    ts, us = out["knot_ts"][: n + 1], out["knot_us"]
+    w64 = SDEWeights(*(p.double() for p in w))
+    tab = get_sri_tableau("sosri")
+    inc = {"kernel": [], "plain": [], "exact": []}
+    for j in range(n):
+        dt, dw, dz = ts[j + 1] - ts[j], out["knot_dws"][j], out["knot_dzs"][j]
+        st = sri_step(lambda v, t: drift_plain(w, v, "tf32"),
+                      lambda v, t: diffusion_plain(w, v, "tf32"), us[j],
+                      ts[j], dt, dw, dz, 0.14, 0.14, 1 / 6, tab)
+        st64 = sri_step(lambda v, t: drift_plain(w64, v),
+                        lambda v, t: diffusion_plain(w64, v), us[j].double(),
+                        ts[j].double(), dt.double(), dw.double(), dz.double(),
+                        0.14, 0.14, 1 / 6, tab)
+        inc["kernel"].append(us[j + 1] - us[j])
+        inc["plain"].append(st.u_new - us[j])
+        inc["exact"].append(st64.u_new - us[j].double())
+    k, p, e = (torch.stack(inc[n_]) for n_ in ("kernel", "plain", "exact"))
+    assert _rel(k.double(), e) <= max(2 * _rel(p.double(), e),
+                                      _sum_tol(8, hidden))
+    again = persistent_sde_solve(w, x, (0.0, 1.0), precision=None, **kw)
+    assert torch.equal(again["ys"], out["ys"])
+    assert torch.equal(again["knot_us"][: n + 1], us[: n + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("features, hidden", [(32, 64), (13, 40)])
+@pytest.mark.parametrize("precision", [None, "highest"])
+def test_sde_sweep_tf32_matches_plain_on_card(cuda_device, features, hidden,
+                                              precision):
+    # kernel 12 with the reference's default-tier gradients behind a TF32
+    # (mnist_sde's route) or an FP32 recompute ('highest''s), on kernel
+    # 10's knots, as accurate against the float64 plain sweep as its plain
+    # version at the same tiers (the recompute's 8 products in sequence
+    # where it is TF32 and the reverse chain's 9), bitwise from run to run,
+    # counted by its tiers
+    from localregneuralde_tpu_torch.ops.cuda import (
+        SDEWeights, persistent_sde_solve, persistent_sde_sweep,
+        persistent_sde_sweep_plain,
+    )
+
+    B = 64
+    w, x = _sde_setup(cuda_device, B, features=features, hidden=hidden)
+    kw = _sde_kw(cuda_device, B, features=features, record_knots=True)
+    out = persistent_sde_solve(w, x, (0.0, 1.0), precision=precision, **kw)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    args = (out["knot_ts"], out["knot_us"], out["knot_dws"], out["knot_dzs"],
+            out["naccept"], kw["saveat_arr"],
+            torch.randn((2, B, features), generator=g, device=cuda_device),
+            torch.randn((B, features), generator=g, device=cuda_device))
+    rec = "tf32" if precision is None else "fp32"
+    sw = dict(solver="sosri", delta=1 / 6)
+    before = _tier_launches(persistent_sde_sweep).get(f"{rec}/tf32", 0)
+    ours = persistent_sde_sweep(w, *args, **sw, precision=precision,
+                                grad_precision=None)
+    assert _tier_launches(persistent_sde_sweep)[f"{rec}/tf32"] == before + 1
+    ref = persistent_sde_sweep_plain(w, *args, **sw, tier=rec,
+                                     grad_tier="tf32")
+    args64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+    exact = persistent_sde_sweep_plain(
+        SDEWeights(*(p.double() for p in w)), *args64, **sw)
+    flat = lambda o: [o[0], *o[1]]  # noqa: E731
+    depth = 9 + (8 if rec == "tf32" else 0)
+    _conv_as_accurate(flat(ours), flat(ref), flat(exact), depth, hidden)
+    again = persistent_sde_sweep(w, *args, **sw, precision=precision,
+                                 grad_precision=None)
+    assert all(torch.equal(a, b) for a, b in zip(flat(again), flat(ours)))

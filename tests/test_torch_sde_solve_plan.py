@@ -21,6 +21,8 @@ from localregneuralde_tpu_torch.ops.cuda.fused_sde_solve import (
     SDE_ROWS,
     SDE_SMEM_BYTES,
     SDE_THREADS,
+    frag_floats,
+    frag_set_floats,
     sde_solve_plan,
     sde_solve_smem_floats,
 )
@@ -74,6 +76,25 @@ def test_generic_widths(F, H):
     # past 384 items a thread descends whole items on its own
     assert plan.buffered == (plan.items < SDE_THREADS)
     assert plan.smem_bytes == 4 * sde_solve_smem_floats(F, H)
+
+
+@pytest.mark.parametrize("F, H", [(32, 64), (13, 40), (33, 70)])
+def test_tf32_plan_adds_the_forward_fragment_copies(F, H):
+    """At the TF32 tier a CTA keeps, after the FP32 weights and the hidden
+    rows (16-byte aligned), the forward's fragment copies of W1ᵀ, W2ᵀ and
+    Wdᵀ (csrc/sde.cuh): 16 × 8 tiles of 128 floats, zero past M and K. At
+    the MNIST-SDE width they are the three matrices' 5,120 floats (20 KB),
+    and B = 512 still takes one CTA a row block, resident at once."""
+    frag = frag_set_floats(F, H)
+    assert frag == frag_floats(H, F) + frag_floats(F, H) + frag_floats(F, F)
+    assert frag % 128 == 0 and frag >= 2 * F * H + F * F
+    extra = sde_solve_smem_floats(F, H, "tf32") - sde_solve_smem_floats(F, H)
+    assert frag <= extra < frag + 4
+    plan = sde_solve_plan(512, F, H, resident(1), tier="tf32")
+    assert plan.smem_bytes == 4 * sde_solve_smem_floats(F, H, "tf32")
+    assert plan.smem_bytes <= SDE_SMEM_BYTES and plan.grid == 128
+    if (F, H) == (32, 64):
+        assert frag == 2 * F * H + F * F == 5120
 
 
 def test_plan_refuses_past_a_block():

@@ -66,6 +66,21 @@ def test_every_output_once_on_its_group(B, F, H):
         assert min(phases["diffusion"]) >= plan.hid_threads
 
 
+@pytest.mark.parametrize("tiers, sets", [
+    (("fp32", "fp32"), 0), (("tf32", "tf32"), 2), (("fp32", "tf32"), 1),
+    (("tf32", "fp32"), 1)])
+def test_tf32_plan_adds_a_fragment_set_per_tf32_tier(tiers, sets):
+    """Each TF32 tier (the recompute's, the gradients') adds one set of the
+    three weights' fragment copies (csrc/sde.cuh) after the FP32 layout:
+    the forward's for the recompute, the transposed products' for the
+    gradients, 5,120 floats each at the MNIST-SDE width, within a block."""
+    plan = sde_sweep_plan(512, 32, 64, *tiers)
+    fp32 = sde_sweep_plan(512, 32, 64)
+    assert plan.smem_bytes - fp32.smem_bytes == 4 * sets * 5120
+    assert plan.smem_bytes <= SDE_SMEM_BYTES
+    assert plan[:4] == fp32[:4]
+
+
 def test_plan_declines_where_shared_memory_overflows():
     """At F = 32 the widest hidden layer is H = 318, at H = 64 the widest
     state F = 96; past them the wrapper raises before the library loads."""
