@@ -145,12 +145,27 @@ on the card:
     serving batch and an ``unbiased`` train step through 'auto' (TF32) and
     'highest' (FP32 forwards, TF32 gradients), each against the CPU at the
     card's tiers, with launches by tier; and ``[capture mnist_sde]`` at
-    TF32. The layers outside the DE layers (the classifiers, the MNIST
-    SDE's downsample, CIFAR's augmenter) compute at the backend default,
-    TF32 on the card, so every model route's logits gate counts their
-    TF32 rounding (``logits_tol``); the kernel checks whose inputs those
-    layers make take them at FP32 (``nn.tiers_of("cpu")``), as their
-    digests were taken.
+    TF32. Then the score family (``[tf32 score ...]``, also
+    ``--only=tf32_score``): kernels 11 and 6 at TF32 against their TF32
+    plain versions and as accurate against float64, their digests and
+    times beside the FP32 instantiations, the refusal below rtol 1e-4, and
+    the samplers' draws (``[score sample ...]``, kernels 11 and 6 at the
+    backend default) against the CPU at the card's tiers; and the chain
+    family (``[tf32 chain ...]``, ``[tf32 latent ...]``, also
+    ``--only=tf32_chain``): kernel 5 at TF32 at rtol 1e-4, kernel 9 at
+    tiers 2 (physionet.yaml's route) and TF32 throughout, dense and
+    two-level (its replay kernel 5's TF32 attempt, bitwise the forward's
+    knots), their digests and times; PhysioNet at 'auto' and a 'default'
+    arm at rtol 1e-4 with the two-level replay forced, a training forward
+    and backward and an eval batch each with launches by tier, against the
+    CPU at the card's tiers; and ``[capture physionet]``. The layers
+    outside the DE layers (the classifiers, the MNIST SDE's downsample,
+    CIFAR's augmenter, the latent model's encoder, rec_to_gen and
+    gen_to_data) compute at the backend default, TF32 on the card, so
+    every model route's logits gate counts their TF32 rounding
+    (``logits_tol``); the kernel checks whose inputs those layers make
+    take them at FP32 (``nn.tiers_of("cpu")``), as their digests were
+    taken.
 
 Beside those: each persistent kernel's outputs (kernels 4 at both
 tolerances, 5, 6, 8's replay and its gradients, 9, 10, 11 and 12, and
@@ -199,9 +214,13 @@ serving and training paths (``[slice ...]``, ``[train ...]``) and
 MNIST-SDE train steps (``[sde train ...]``), ``cifar`` the CIFAR-10
 serving and training paths (``[cifar ...]``), ``capture`` the K-step
 train calls (``[capture ...]``), ``tf32_sde`` the SDE family's TF32 tier
-(``[tf32 sde ...]`` and ``[capture mnist_sde]``) and ``tf32`` the TF32
-tier whole (``[tf32 ...]``, ``[tf32 conv ...]``, ``[tf32 sde ...]``, the
-capture of the TD-MLP, MNIST-SDE and CIFAR paths and ``[cifar repeat]``).
+(``[tf32 sde ...]`` and ``[capture mnist_sde]``), ``tf32_score`` the score
+family's (``[tf32 score ...]`` and ``[score sample ...]``), ``tf32_chain``
+the chain family's (``[tf32 chain ...]``, ``[tf32 latent ...]`` and
+``[capture physionet]``) and ``tf32`` the TF32 tier whole (``[tf32
+...]``, ``[tf32 conv ...]``, ``[tf32 sde ...]``, the score and chain
+families', the capture of the TD-MLP, MNIST-SDE, PhysioNet and CIFAR
+paths and ``[cifar repeat]``).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of the train steps by
 kernel, the ``mlp.yaml`` serving batch by part (``[profile serve]``), the
@@ -209,10 +228,9 @@ latent encoder's share of the latent train step, and the CIFAR train
 step's kernels.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists every kernel with its launches, error, times and bound (the TD-MLP,
-conv and SDE families' at each tier: FP32 and ``_tf32`` rows, kernels 3,
-7, 8, 12 and 14 by recompute and gradient tiers, launches by tier from the
-paths).
+lists every kernel with its launches, error, times and bound (every
+family's at each tier: FP32 and ``_tf32`` rows, kernels 3, 7, 8, 9, 12
+and 14 by their tiers, launches by tier from the paths).
 A bound is
 the larger of the kernel's product FLOPs (counted from its shapes and this
 run's step counts) over the H100's 67 TFLOP/s FP32 or 495 TFLOP/s TF32,
@@ -376,6 +394,20 @@ SDE_DEPTHS = dict(eval_products=EVAL_PRODUCTS,
                   grad_products=SDE_GRAD_PRODUCTS,
                   step_bwd_products=SDE_STEP_BWD_PRODUCTS,
                   outer_products=2)
+
+
+# the score family's (kernels 11 and 6): an evaluation's three layers in
+# sequence (2 -> 64 -> 64 -> 2)
+SCORE_PRODUCTS = 3
+# the latent model's (kernels 5 and 9): an evaluation of the generative
+# chain's eight layers; the layers outside the DE layer on the path of the
+# predictions (an encoder gate chain's two, rec_to_gen's two, gen_to_data's
+# one); a transposed step's reverse chain (eight transposed products a
+# stage, the weight gradients' one, and the outer layers' transposes and
+# weight gradients) and with its recompute (seven evaluations of eight)
+LATENT_DEPTHS = dict(eval_products=8, grad_products=6 * 8 + 1 + 2 * 5,
+                     step_bwd_products=6 * 8 + 1 + 2 * 5 + 7 * 8,
+                     outer_products=5)
 
 
 def logits_tol(tiers_a, tiers_b, eval_products=EVAL_PRODUCTS,
@@ -800,6 +832,34 @@ DIGESTS = {
         "ba498a8bd93127a912fa62c5d52b4f560cb36d4da9913d5a6ffd14d076feedfd",
     "K12 grads tf32g":
         "d2a94f4f692db9b02f0e363b903cadea9e91d037460bd933854b8430d1e44ad9",
+    # the score and chain families' TF32 tier, taken on the first build of
+    # their TF32 instantiations ([tf32 score ...], [tf32 chain ...]): kernel
+    # 11 and kernel 6 at TF32; kernel 5 at TF32 at rtol 1e-4 (physionet.yaml's
+    # 1.4e-8 refuses the tier) at the training and the eval shapes and its
+    # recorded knots; kernel 9 at tiers 2 (FP32 replay and recompute, TF32
+    # gradients: physionet.yaml's route) on kernel 5's FP32 knots, at TF32
+    # throughout on kernel 5's TF32 knots, and its forced TF32 replay (equal
+    # to the knots it repeats)
+    "K11 tf32":
+        "c457b6d6c837f9104444d7738737e40fba35cd880b10ddea2b3bad9e1993f11c",
+    "K6 tf32":
+        "10807cdc1beab4383b69f35c2de76f414e2d168ddc912bd68e3839a76b637e8d",
+    "K5 rtol 1e-4 tf32":
+        "a77b6bb1a3feb63d1ff9ac4ea98e9cebb5610a3c25abb35b2ab5c7403802aa76",
+    "K5 eval tf32":
+        "a6680986cd1e94bee85d1dd206f5964c40984fdbc5acc4f8f8300fe3b0a7389f",
+    "K5 record tf32":
+        "0efd9c18f1a18fff0c0c8bb4a6a7c8f0eeff20ee3d335af68b2f684679a85a86",
+    "K9 state tf32g":
+        "5ea605ef0d8c2c374b63db8321cf05b8c46ffe82a5694ca4bce27796573dd7ba",
+    "K9 grads tf32g":
+        "b7636e77439d16ae112c7e3a7699f1085ef814cf141fb73058f3611064cd3cb9",
+    "K9 state tf32":
+        "de74362d89c505de55bb95e702969b5922a696374a959acc11bc6463161e143b",
+    "K9 grads tf32":
+        "f01428ac703eba568e36c22d8b93e9137363be160809ff50f80e702fca984016",
+    "K9 replay tf32":
+        "0efd9c18f1a18fff0c0c8bb4a6a7c8f0eeff20ee3d335af68b2f684679a85a86",
 }
 SEEN_DIGESTS = {}
 # Kernel 3's largest error relative to the float64 plain VJP, on the kernel
@@ -870,7 +930,8 @@ def phase_build():
     _build.load_library()
     print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
+        if ("Compiling entry" in line or "registers" in line
+                or "spill" in line or "compiled in" in line):
             print("[build]", line.strip())
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2623,9 +2684,12 @@ def chain_inputs(device):
     node = model.neural_ode
 
     def latents(arrays, n):
-        """The eval-mode latent states of the first n series."""
+        """The eval-mode latent states of the first n series, the encoder
+        and rec_to_gen (the backend default: TF32 on the card) at the CPU's
+        tiers (``tiers_of("cpu")``), so the digests keep the inputs they
+        were taken on."""
         x = torch.cat(_host_batch(arrays, device, n=n), dim=-1)
-        with torch.no_grad():
+        with torch.no_grad(), tiers_of("cpu"):
             st = model.init_state()
             h = model.gru(x, st["gru"])[0]
             h = model.rec_to_gen(h, st["rec_to_gen"])[0]
@@ -2885,9 +2949,10 @@ def _print_chain_grids(chain, *batches):
               f"{grids[1][0]} ({smem9} B a CTA at one block)")
 
 
-def chain_raw(params, chain, u, saveat, tol, record=False):
-    """A raw launch of kernel 5 (lrnde_persistent_chain, max_steps 10000)
-    from the wrapper's own start, with the stored adjoint's recording when
+def chain_raw(params, chain, u, saveat, tol, record=False, tier="fp32"):
+    """A raw launch of kernel 5 (lrnde_persistent_chain, or at the TF32
+    ``tier`` lrnde_persistent_chain_tf32; max_steps 10000) from the
+    wrapper's own start, with the stored adjoint's recording when
     ``record``, its grid barrier's counter zeroed before each launch: the
     kernel's device time without the wrapper's work."""
     import torch
@@ -2898,7 +2963,8 @@ def chain_raw(params, chain, u, saveat, tol, record=False):
     Bc, Fc = u.shape
     dev = u.device
     k1_0, dt0, _ = fused_solve._start(
-        lambda x, t: chain_eval(params, chain, x), u, 0.0, 1.0, tol, tol)
+        lambda x, t: chain_eval(params, chain, x, tier), u, 0.0, 1.0, tol,
+        tol)
     sc = fused_solve.device_scalars([0.0, 1.0, dt0], u)
     knots, stride = {}, 1
     if record:
@@ -2911,7 +2977,8 @@ def chain_raw(params, chain, u, saveat, tol, record=False):
     n_save = saveat.shape[0]
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = raw_launch(
-        "lrnde_persistent_chain", u, k1_0, sc, saveat.contiguous(), n_save,
+        "lrnde_persistent_chain" + ("_tf32" if tier == "tf32" else ""), u,
+        k1_0, sc, saveat.contiguous(), n_save,
         *fused_solve.chain_operands(params, chain), torch.empty_like(u),
         torch.empty((n_save, Bc, Fc), device=dev),
         torch.empty(4, dtype=torch.int32, device=dev),
@@ -3019,8 +3086,10 @@ def phase_chain_attribution(params, chain, u0, rec_kw, rec, args, runs=3):
 def phase_latent(device, profile=False):
     """physionet.yaml as shipped through the port's latent runner: three
     train steps and one eval pass, with launches per step and per eval
-    batch; then the first step's gradients against the plain path and the
-    eval MSE against the CPU."""
+    batch (by tier: kernel 5 FP32, kernel 9's gradient products TF32, the
+    reference's grad_precision=None); then the first step's gradients
+    against the plain path and the eval MSE against the CPU at the card's
+    tiers. Returns the launch counts with tiers."""
     import tempfile
 
     import torch
@@ -3028,6 +3097,7 @@ def phase_latent(device, profile=False):
     from localregneuralde_tpu_torch.harness import (
         define_configuration, latent_runner,
     )
+    from localregneuralde_tpu_torch.nn import product_tier
     from localregneuralde_tpu_torch.ops.cuda import (
         launch_counts, reset_launch_counts,
     )
@@ -3077,7 +3147,7 @@ def phase_latent(device, profile=False):
             # --- the main path: every launch from here to launch_counts()
             reset_launch_counts()
             summary = latent_runner.run_latent_ode_experiment(cfg, "physionet")
-            counts = launch_counts()
+            counts = tier_counts()
     finally:
         latent_runner.make_train_step = make
         latent_runner.eval_forward = evaluate
@@ -3108,6 +3178,13 @@ def phase_latent(device, profile=False):
           f"summary {summary}")
     print(f"[latent] runner summary {summary}; launch counts "
           f"{ {k: v for k, v in counts.items() if v} }")
+    grad = product_tier(None, device)
+    check(counts.get(f"persistent_chain_sweep[fp32/fp32/{grad}]", 0)
+          == LATENT_STEPS
+          and counts.get("persistent_chain_solve[fp32]", 0)
+          == LATENT_STEPS + 1,
+          f"latent: kernel 5 at FP32 and kernel 9 at fp32/fp32/{grad}: "
+          f"{counts}")
 
     # the first step's gradients against the plain path on the card, with
     # the same draws (t1 and ε from the same seeds); w_reg = 0: at the
@@ -3129,37 +3206,86 @@ def phase_latent(device, profile=False):
         n_o, n_r = int(s_o["nfe"]), int(s_r["nfe"])
         nll_o = float(s_o["neg_log_likelihood"].detach())
         nll_r = float(s_r["neg_log_likelihood"].detach())
-        head = (f"[latent train {name}] first step vs the card's plain path:"
+        # at 'auto' rtol 1e-4 resolves to the TF32 forward on both routes
+        # (kernel 5 and 9 at TF32, the plain chain at TF32): the two part
+        # by one evaluation's TF32 rounding (the cross-entropy's rule), and
+        # TF32's noise in ũ may set their steps apart; kernel 9's gradient
+        # products are TF32 at either tolerance, the plain route's the
+        # forward's: one transposed step's TF32 rounding (grads_tol)
+        tiers, p_tiers = node_tiers(model, device), node_tiers(plain_model,
+                                                               device)
+        tf32_fwd = tiers[0] == "tf32"
+        nll_tol = (max(1e-5, 2 * logits_tol(tiers, p_tiers,
+                                            **LATENT_DEPTHS)[0])
+                   if tf32_fwd else 1e-5)
+        head = (f"[latent train {name}] ({'/'.join(tiers)} vs "
+                f"{'/'.join(p_tiers)}) first step vs the card's plain path:"
                 f" NFE {n_o} vs {n_r}, NLL {nll_o:.6f} vs {nll_r:.6f}, "
                 f"reg_val {float(s_o['reg_val'].detach()):.6e} vs "
                 f"{float(s_r['reg_val'].detach()):.6e}")
-        check(abs(nll_o - nll_r) <= 1e-5 * max(1.0, abs(nll_r)),
+        check(abs(nll_o - nll_r) <= nll_tol * max(1.0, abs(nll_r)),
               f"latent {name}: NLL disagrees with the plain path")
         if n_o != n_r:
-            check(name != "rtol 1e-4",
+            check(name != "rtol 1e-4" or tf32_fwd,
                   f"latent {name}: NFE {n_o} vs {n_r}")
-            print(f"{head}; the step sequences differ (f32 noise in the "
-                  f"error estimate), gradients not compared")
+            print(f"{head}; the step sequences differ (f32 or TF32 noise in "
+                  f"the error estimate), gradients not compared")
             continue
         rel = max(rel_err(g_o[k], g_r[k]) for k in g_o)
-        print(f"{head}; gradients of NLL + 0.5 KL relative max-abs {rel:.3e}")
-        check(rel <= 1e-3, f"latent {name}: gradients disagree: {rel}")
-    # 8 test series: the card's kernel path against the CPU
+        g_tol = grads_tol(tiers, p_tiers, **LATENT_DEPTHS)
+        print(f"{head}; gradients of NLL + 0.5 KL relative max-abs {rel:.3e}"
+              f" (tolerance {g_tol:.3e})")
+        check(rel <= g_tol, f"latent {name}: gradients disagree: {rel}")
+    # 8 test series: the card's kernel path against the CPU at the card's
+    # tiers (physionet.yaml: the encoder and decoder at TF32)
     cpu = _latent_setup("cpu", [], {k: v.cpu() for k, v in sd.items()})[1]
-    small = _host_batch(test, device, n=8)
-    from localregneuralde_tpu_torch.harness import create_train_state
-
-    mse_card, nfe_card = eval_forward(model, create_train_state(model), small)
-    mse_cpu, nfe_cpu = eval_forward(cpu, create_train_state(cpu),
-                                    tuple(a.cpu() for a in small))
-    print(f"[latent eval] 8 series, card kernel vs CPU plain: masked MSE "
-          f"{float(mse_card):.7f} vs {float(mse_cpu):.7f}, nfe "
-          f"{int(nfe_card)} vs {int(nfe_cpu)}")
-    check(abs(float(mse_card) - float(mse_cpu)) <= 1e-4 * float(mse_cpu),
-          "latent eval: the card disagrees with the CPU")
+    _latent_vs_cpu("[latent eval]", model, cpu,
+                   _host_batch(test, device, n=8), device)
     if profile:
         _profile_latent(device)
     return counts
+
+
+def _latent_eval(model, batch):
+    """(masked MSE, NFE, predictions) of one eval-mode batch
+    (``latent_runner.eval_forward``'s, and the model's output)."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import create_train_state
+    from localregneuralde_tpu_torch.harness.latent_runner import eval_forward
+
+    ts = create_train_state(model)
+    mse, nfe = eval_forward(model, ts, batch)
+    with torch.no_grad():
+        y, _ = torch.func.functional_call(
+            model, ts.params, (torch.cat(batch, dim=-1), ts.state),
+            {"training": False})
+    return float(mse), int(nfe), y
+
+
+def _latent_vs_cpu(tag, model, cpu, batch, device):
+    """One eval batch on the card against the CPU model at the card's tiers
+    (``tiers_of``): the predictions within one evaluation's TF32 rounding
+    of the layers at TF32 (``logits_tol`` at LATENT_DEPTHS) on the same
+    steps, else 5e-2; the masked MSE within twice that (1e-4 at least).
+    Returns the card's (MSE, NFE)."""
+    mse_c, nfe_c, y_c = _latent_eval(model, batch)
+    with tiers_of(device):
+        mse_h, nfe_h, y_h = _latent_eval(cpu, tuple(a.cpu() for a in batch))
+    tiers = node_tiers(model, device)
+    tol, _ = logits_tol(tiers, node_tiers(cpu, device), **LATENT_DEPTHS)
+    same = nfe_c == nfe_h
+    err = rel_err(y_c.cpu(), y_h)
+    d_mse = abs(mse_c - mse_h) / mse_h
+    print(f"{tag} {batch[0].shape[0]} series ({'/'.join(tiers)}), card "
+          f"kernel vs CPU plain at the card's tiers: masked MSE {mse_c:.7f} "
+          f"vs {mse_h:.7f} (relative {d_mse:.3e}, tolerance "
+          f"{max(1e-4, 2 * tol):.3e}), nfe {nfe_c} vs {nfe_h}, predictions "
+          f"relative max-abs {err:.3e} (tolerance {tol:.3e} on the same "
+          f"steps, else 5e-2)")
+    check(d_mse <= max(1e-4, 2 * tol) and err <= (tol if same else 5e-2),
+          f"{tag}: the card disagrees with the CPU")
+    return mse_c, nfe_c
 
 
 def _profile_latent(device):
@@ -3835,10 +3961,12 @@ def score_flops(dims, b):
                        for i in range(len(dims) - 1))
 
 
-def _vpsde_raw_args(ps, chain, u0, span, saveat, sched, noise):
+def _vpsde_raw_args(ps, chain, u0, span, saveat, sched, noise,
+                    tier="fp32"):
     """Kernel 11's C operands (SOSRI at SCORE_TOL) with the wrapper's first
-    drift evaluation and dt heuristic run here, once. Returns the argument
-    list (without the stream), the grid barrier and the y_final buffer."""
+    drift evaluation and dt heuristic (at ``tier``) run here, once. Returns
+    the argument list (without the stream), the grid barrier and the
+    y_final buffer."""
     import torch
 
     from localregneuralde_tpu_torch.ops.cuda import _build
@@ -3849,7 +3977,7 @@ def _vpsde_raw_args(ps, chain, u0, span, saveat, sched, noise):
     n_blocks = -(-B // _build.load_library().lrnde_score_rows_per_block())
     new = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
         shape, dtype=dtype, device=u0.device)
-    drift, _ = fs.vpsde_dynamics(ps, chain, **sched)
+    drift, _ = fs.vpsde_dynamics(ps, chain, **sched, tier=tier)
     dt = fs.initial_dt(u0, drift(u0, t0), SCORE_TOL, SCORE_TOL, t0, te)
     bar = torch.zeros(1, dtype=torch.int32, device=u0.device)
     y = new(B, F)
@@ -3878,10 +4006,11 @@ def _score_raw(ps, chain, u0, span, saveat, sched, noise):
             (lambda: (bar6.zero_(), k6())[1])), (y11, y6)
 
 
-def _pf_raw_args(ps, chain, u0, span, saveat, sched):
+def _pf_raw_args(ps, chain, u0, span, saveat, sched, tier="fp32"):
     """Kernel 6's C operands (rtol 1e-4, atol 1e-6) as persistent_pf_solve
-    passes them, k1 and the dt heuristic run here, once; without the
-    stream. Returns the arguments, the grid barrier and y_final."""
+    passes them, k1 and the dt heuristic (at ``tier``) run here, once;
+    without the stream. Returns the arguments, the grid barrier and
+    y_final."""
     import torch
 
     from localregneuralde_tpu_torch.ops.cuda import fused_sde_solve as fs
@@ -3891,8 +4020,8 @@ def _pf_raw_args(ps, chain, u0, span, saveat, sched):
     t0, te = span
     new = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
         shape, dtype=dtype, device=u0.device)
-    k1, dt, _ = fo._start(fo.pf_dynamics(ps, chain, **sched), u0, t0, te,
-                          1e-4, 1e-6)
+    k1, dt, _ = fo._start(fo.pf_dynamics(ps, chain, **sched, tier=tier), u0,
+                          t0, te, 1e-4, 1e-6)
     bar = torch.zeros(1, dtype=torch.int32, device=u0.device)
     y = new(B, F)
     n_blocks = -(-B // PF_ERROR_ROWS)
@@ -4301,14 +4430,18 @@ def phase_score_kernels(device):
 
 
 def phase_score_sampling(device):
-    """The score samplers through their entry points at the demo config:
-    three draws each of sample_vpsde and sample_probability_flow with ms,
-    samples/s, NFE and launches; then a B = 256 draw against the CPU."""
+    """The score samplers through their entry points at the demo config, at
+    the reference's tiers (the backend default: kernels 11 and 6 at TF32 on
+    the card): three draws each of sample_vpsde and sample_probability_flow
+    with ms, samples/s, NFE and launches by tier; then a B = 256 draw
+    against the CPU at the card's tiers. Returns the launch counts with
+    tiers."""
     import torch
 
     from localregneuralde_tpu_torch.models import (
         sample_probability_flow, sample_vpsde,
     )
+    from localregneuralde_tpu_torch.nn import product_tier
     from localregneuralde_tpu_torch.ops.cuda import (
         launch_counts, reset_launch_counts,
     )
@@ -4341,6 +4474,7 @@ def phase_score_sampling(device):
                           {k: after[k] - before[k] for k in after
                            if after[k] != before[k]}))
     counts = launch_counts()
+    counts = tier_counts()
     for name, i, ms, s, sol, c in draws:
         nfe = (f"nfe drift {int(sol.nfe_drift)} diffusion "
                f"{int(sol.nfe_diffusion)}" if name == "vpsde"
@@ -4353,29 +4487,41 @@ def phase_score_sampling(device):
         check(bool(sol.success) and tuple(s.shape) == (SCORE_B, SCORE_F)
               and bool(torch.isfinite(s).all()) and c == {kernel: 1},
               f"score sample {name} draw {i}: bad output or launches {c}")
-    print(f"[score sample] launch counts {counts}")
+    print(f"[score sample] launch counts "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    tier = product_tier(None, device)
+    check(all(counts.get(f"{k}[{tier}]", 0) == SCORE_DRAWS
+              for _, _, k in samplers),
+          f"score sample: the draws' kernels at {tier}: {counts}")
 
-    # B = 256 on the card against the CPU, the same seed: the same draws,
-    # the same Philox path, so the same steps (the SDE exactly; the ODE
-    # within one accept, its state bound then ten times wider)
+    # B = 256 on the card against the CPU at the card's tiers, the same
+    # seed: the same draws, the same Philox path, so the same steps (the SDE
+    # exactly; the ODE within one accept, its state bound then ten times
+    # wider). At TF32 the two part by one evaluation's TF32 rounding more,
+    # and the flow's steps, which TF32's noise in ũ sets at rtol 1e-4, may
+    # differ: then the two draws are two solves of one ODE (5e-2 of max|y|)
     net_cpu = _score_net("cpu")
+    extra = tf32_tol(SCORE_PRODUCTS) if tier == "tf32" else 0.0
     for name, fn, _ in samplers:
         a, sa = fn(None, (256, SCORE_F), torch.Generator().manual_seed(5),
                    score_module=net, **kw)
-        b, sb = fn(None, (256, SCORE_F), torch.Generator().manual_seed(5),
-                   score_module=net_cpu, max_steps=SCORE_MAX_STEPS,
-                   device="cpu")
+        with tiers_of(device):
+            b, sb = fn(None, (256, SCORE_F), torch.Generator().manual_seed(5),
+                       score_module=net_cpu, max_steps=SCORE_MAX_STEPS,
+                       device="cpu")
         scale = float(b.abs().max())
         err = max_abs(a.cpu(), b)
         steps = [(int(x.naccept), int(x.nreject)) for x in (sa, sb)]
-        print(f"[score sample {name}] B = 256, card vs CPU: accepts/rejects "
-              f"{steps[0]} vs {steps[1]}, max-abs {err:.3e} of max|y| "
-              f"{scale:.3e}")
+        print(f"[score sample {name}] B = 256, card vs CPU at the card's "
+              f"tiers ({tier}): accepts/rejects {steps[0]} vs {steps[1]}, "
+              f"max-abs {err:.3e} of max|y| {scale:.3e}")
         if name == "vpsde":
-            ok = steps[0] == steps[1] and err <= 1e-3 * scale
+            ok = steps[0] == steps[1] and err <= (1e-3 + extra) * scale
         else:
             gap = abs(steps[0][0] - steps[1][0])
-            ok = gap <= 1 and err <= (5e-5 if gap == 0 else 5e-4) * scale
+            ok = (err <= (5e-5 + extra) * scale if gap == 0
+                  else gap <= 1 and err <= (5e-4 + extra) * scale
+                  if tier == "fp32" else err <= 5e-2 * scale)
         check(ok and bool(torch.isfinite(a).all()),
               f"score sample {name}: card disagrees with the CPU")
     return counts
@@ -6177,6 +6323,473 @@ def phase_tf32_sde(device):
     return res, counts
 
 
+def phase_tf32_score(device):
+    """The score family at the TF32 tier (``[tf32 score ...]``, the
+    reference samplers' backend default): kernels 11 and 6 at TF32 against
+    their TF32 plain versions on the card (the same Philox path and steps
+    for kernel 11; kernel 6's steps, which TF32's noise in ũ sets at rtol
+    1e-4, within two attempts) and as accurate against float64 as those
+    plain versions (``as_accurate``: kernel 11 against the float64 solve on
+    the same path, kernel 6 against the float64 solution of its ODE),
+    bitwise repeatable, their digests, device times beside the FP32
+    instantiations in the same call; the refusal of a TF32 solve below rtol
+    1e-4 (wrappers and samplers), with every score phase's tolerance at or
+    above it. Returns the kernels line's TF32 rows."""
+    import torch
+
+    from localregneuralde_tpu_torch.models import (
+        sample_probability_flow, sample_vpsde,
+    )
+    from localregneuralde_tpu_torch.ops.cuda import (
+        match_td_score_chain, persistent_pf_solve, persistent_pf_solve_plain,
+        persistent_vpsde_solve, persistent_vpsde_solve_plain,
+        score_chain_params,
+    )
+    from localregneuralde_tpu_torch.sde import PhiloxNormals
+
+    tols = (SCORE_TOL, 1e-4, *MODES_SCORE_TOL.values())
+    check(min(tols) >= 1e-4,
+          f"tf32 score: a score phase's tolerance below 1e-4: {tols}")
+    net = _score_net(device)
+    chain = match_td_score_chain(net)
+    ps = [p.detach() for p in score_chain_params(net, chain)]
+    p64 = [p.double() for p in ps]
+    u0 = torch.randn((SCORE_B, SCORE_F),
+                     generator=torch.Generator().manual_seed(0)).to(device)
+    span = (0.0, 1.0 - 1e-3)
+    saveat = torch.tensor([span[1]], device=device)
+    sched = dict(beta_min=0.1, beta_max=20.0, t1=1.0)
+    n_params = sum(p.numel() for p in ps)
+    floor = tf32_sum_tol(SCORE_PRODUCTS, max(chain.dims) + 1)
+    res = {}
+
+    # kernel 11 at TF32 against its TF32 plain version on the same path
+    noise = PhiloxNormals(1234, SCORE_B, SCORE_F, device=device)
+    kw = dict(noise=noise, rtol=SCORE_TOL, atol=SCORE_TOL, solver="sosri",
+              delta=1 / 6, saveat_arr=saveat, max_steps=SCORE_MAX_STEPS,
+              **sched)
+    out = persistent_vpsde_solve(ps, chain, u0, span, precision=None, **kw)
+    again = persistent_vpsde_solve(ps, chain, u0, span, precision=None, **kw)
+    fp = persistent_vpsde_solve(ps, chain, u0, span, **kw)
+    digest("K11 tf32", out)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = persistent_vpsde_solve_plain(ps, chain, u0, span, tier="tf32",
+                                       **kw)
+    torch.cuda.synchronize()
+    plain = 1e3 * (time.perf_counter() - t0)
+    ref64 = persistent_vpsde_solve_plain(p64, chain, u0.double(), span, **kw)
+    steps = [(int(o["naccept"]), int(o["nreject"]))
+             for o in (out, ref, ref64, fp)]
+    scale = float(ref["y_final"].abs().max())
+    err = max_abs(out["y_final"], ref["y_final"])
+    s_tol = (1e-3 + tf32_tol(SCORE_PRODUCTS)) * scale
+    bitwise = (torch.equal(again["y_final"], out["y_final"])
+               and int(again["natt"]) == int(out["natt"]))
+    same = steps[0] == steps[1] == steps[2]
+    worst, (e, e_p) = as_accurate([out["y_final"]], [ref["y_final"]],
+                                  [ref64["y_final"]], floor)
+    print(f"[tf32 score vpsde] kernel accepts/rejects {steps[0]}, TF32 plain "
+          f"{steps[1]}, float64 plain {steps[2]}, FP32 kernel {steps[3]}; "
+          f"y_final vs the TF32 plain max-abs {err:.3e} (tolerance "
+          f"{s_tol:.3e}: the FP32 route's band and one evaluation's TF32 "
+          f"rounding); vs float64 relative {e:.3e}, the TF32 plain's "
+          f"{e_p:.3e}: {worst:.3f} of the gate (at least {floor:.3e}); "
+          f"bitwise repeatable {bitwise}; vs FP32 (across tiers) max-abs "
+          f"{max_abs(out['y_final'], fp['y_final']):.3e}")
+    check(bool(out["success"]) and bool(ref["success"]) and bitwise
+          and steps[0] == steps[1] and err <= s_tol,
+          f"tf32 score vpsde vs its plain version: {steps}, {err}")
+    check(not same or worst <= 1,
+          f"tf32 score vpsde vs float64: {e} (plain {e_p})")
+    args_t, bar_t, y_t = _vpsde_raw_args(ps, chain, u0, span, saveat, sched,
+                                         noise, "tf32")
+    args_f, bar_f, _ = _vpsde_raw_args(ps, chain, u0, span, saveat, sched,
+                                       noise)
+    raw_t = raw_launch("lrnde_vpsde_solve_tf32", *args_t)
+    raw_f = raw_launch("lrnde_vpsde_solve", *args_f)
+    check((bar_t.zero_(), raw_t())[1] == 0
+          and torch.equal(y_t, out["y_final"]),
+          "tf32 score vpsde: the raw launch differs from the wrapper's")
+    ms_t, ms_f = back_to_back_ms([lambda: (bar_t.zero_(), raw_t())[1],
+                                  lambda: (bar_f.zero_(), raw_f())[1]],
+                                 n=5, warmup=1)
+    natt = sum(steps[0])
+    print(f"[tf32 score attribution] kernel 11 back to back: TF32 "
+          f"{ms_t:.4f} ms ({1e3 * ms_t / natt:.2f} µs an attempt), FP32 "
+          f"{ms_f:.4f} ({1e3 * ms_f / sum(steps[3]):.2f} µs an attempt)")
+    res["persistent_vpsde_solve_tf32"] = dict(
+        max_abs_err=err, ms=ms_t, plain_ms=plain,
+        **tree_bound(natt * 25 * SCORE_B * (-(-SCORE_F // 2)),
+                     4 * natt * score_flops(chain.dims, SCORE_B),
+                     4 * (3 * SCORE_B * SCORE_F + n_params), PEAK_TF32))
+
+    # kernel 6 at TF32: the flow's steps follow TF32's noise in ũ
+    pkw = dict(rtol=1e-4, atol=1e-6, saveat_arr=saveat,
+               max_steps=SCORE_MAX_STEPS, **sched)
+    out = persistent_pf_solve(ps, chain, u0, span, precision=None, **pkw)
+    again = persistent_pf_solve(ps, chain, u0, span, precision=None, **pkw)
+    fp = persistent_pf_solve(ps, chain, u0, span, **pkw)
+    digest("K6 tf32", out)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = persistent_pf_solve_plain(ps, chain, u0, span, tier="tf32", **pkw)
+    torch.cuda.synchronize()
+    plain = 1e3 * (time.perf_counter() - t0)
+    # the float64 solution at rtol = atol 1e-8 (tighter, the float32 clock
+    # of the loop's t and dt stalls it)
+    exact = persistent_pf_solve_plain(
+        p64, chain, u0.double(), span,
+        **dict(pkw, rtol=1e-8, atol=1e-8, max_steps=20000))
+    nfe = [int(o["nfe"]) for o in (out, ref, fp, exact)]
+    scale = float(ref["y_final"].abs().max())
+    err = max_abs(out["y_final"], ref["y_final"])
+    bitwise = (torch.equal(again["y_final"], out["y_final"])
+               and int(again["nfe"]) == nfe[0])
+    worst, (e, e_p) = as_accurate([out["y_final"]], [ref["y_final"]],
+                                  [exact["y_final"]], floor)
+    print(f"[tf32 score pf] NFE kernel {nfe[0]}, TF32 plain {nfe[1]}, FP32 "
+          f"kernel {nfe[2]}, float64 at rtol 1e-8 {nfe[3]}; y_final vs the "
+          f"TF32 plain max-abs {err:.3e} of max|y| {scale:.3e}; vs the "
+          f"float64 solution relative {e:.3e}, the TF32 plain's {e_p:.3e}: "
+          f"{worst:.3f} of the gate (at least {floor:.3e}); bitwise "
+          f"repeatable {bitwise}; vs FP32 (across tiers) max-abs "
+          f"{max_abs(out['y_final'], fp['y_final']):.3e}")
+    check(bool(out["success"]) and bool(ref["success"]) and bitwise
+          and bool(exact["success"]) and abs(nfe[0] - nfe[1]) <= 12
+          and worst <= 1,
+          f"tf32 score pf vs its plain version: NFE {nfe}, {e} (plain {e_p})")
+    args_t, bar_t, y_t = _pf_raw_args(ps, chain, u0, span, saveat, sched,
+                                      "tf32")
+    args_f, bar_f, _ = _pf_raw_args(ps, chain, u0, span, saveat, sched)
+    raw_t = raw_launch("lrnde_persistent_pf_tf32", *args_t)
+    raw_f = raw_launch("lrnde_persistent_pf", *args_f)
+    check((bar_t.zero_(), raw_t())[1] == 0
+          and torch.equal(y_t, out["y_final"]),
+          "tf32 score pf: the raw launch differs from the wrapper's")
+    ms_t, ms_f = back_to_back_ms([lambda: (bar_t.zero_(), raw_t())[1],
+                                  lambda: (bar_f.zero_(), raw_f())[1]],
+                                 n=10, warmup=1)
+    att, att_f = (nfe[0] - 2) // 6, (nfe[2] - 2) // 6
+    print(f"[tf32 score attribution] kernel 6 back to back: TF32 {ms_t:.4f} "
+          f"ms ({1e3 * ms_t / att:.2f} µs an attempt, {att} attempts), FP32 "
+          f"{ms_f:.4f} ({1e3 * ms_f / att_f:.2f} µs, {att_f})")
+    res["persistent_pf_solve_tf32"] = dict(
+        max_abs_err=err, ms=ms_t, plain_ms=plain,
+        **bound(6 * att * score_flops(chain.dims, SCORE_B),
+                4 * (4 * SCORE_B * SCORE_F + n_params), PEAK_TF32))
+
+    # the refusal: a TF32 solve below rtol 1e-4, at the wrappers and the
+    # samplers (the module's products at the backend default)
+    refused = 0
+    for call in (
+            lambda: persistent_vpsde_solve(ps, chain, u0, span, precision=None,
+                                           **dict(kw, rtol=1e-5)),
+            lambda: persistent_pf_solve(ps, chain, u0, span, precision=None,
+                                        **dict(pkw, rtol=1e-5)),
+            lambda: sample_vpsde(None, (64, SCORE_F),
+                                 torch.Generator().manual_seed(0),
+                                 score_module=net, rtol=1e-5, device=device),
+            lambda: sample_probability_flow(
+                None, (64, SCORE_F), torch.Generator().manual_seed(0),
+                score_module=net, rtol=1e-5, device=device)):
+        try:
+            call()
+        except ValueError:
+            refused += 1
+    print(f"[tf32 score refusal] {refused} of 4 TF32 calls below rtol 1e-4 "
+          f"refused; the score phases' tolerances {tols} are at or above it")
+    check(refused == 4, "tf32 score: a TF32 solve below rtol 1e-4 ran")
+    for name, r in res.items():
+        print(f"[tf32 kernel {name}] device ms a launch {r['ms']:.4f}, plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']})")
+    return res
+
+
+def phase_tf32_chain(device):
+    """The chain family at the TF32 tier (``[tf32 chain ...]``): kernel 5 at
+    TF32 (rtol 1e-4, where 'auto' and 'default' take it; physionet.yaml's
+    1.4e-8 refuses it) against its TF32 plain version and as accurate
+    against the float64 solution of its ODE (``as_accurate``), at the
+    training and the eval shapes and recording, bitwise repeatable; kernel
+    9 at tiers 2 (FP32 recompute and replay, TF32 gradients: physionet.yaml's
+    shipped route) on kernel 5's FP32 knots and at TF32 throughout on kernel
+    5's TF32 knots, dense and two-level (forced, its replay kernel 5's TF32
+    attempt, bitwise the forward's knots), each as accurate against the
+    float64 plain sweep on the same knots as its TF32 plain version and
+    within one transposed step's TF32 rounding of FP32; their digests and
+    device times beside the FP32 instantiations. Then the latent model
+    through its entry points: physionet.yaml at 'auto' (kernel 5 FP32,
+    kernel 9 at fp32/fp32/tf32) and a 'default' arm at rtol 1e-4 with the
+    two-level replay forced (knot_window 8: kernels 5 and 9 at TF32), a
+    training forward and backward and an eval batch each, with launches by
+    tier, against the CPU at the card's tiers. Returns (the kernels line's
+    TF32 rows, the paths' launch counts with tiers)."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import create_train_state
+    from localregneuralde_tpu_torch.harness.latent_runner import eval_forward
+    from localregneuralde_tpu_torch.ode.stored_adjoint import knot_layout
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_chain_solve, persistent_chain_solve_plain,
+        persistent_chain_sweep, persistent_chain_sweep_plain,
+        reset_launch_counts,
+    )
+
+    params, chain, u0, saveat, latents, test, tgrid = chain_inputs(device)
+    p64 = [p.double() for p in params]
+    Bc, Fc = u0.shape
+    n_save = saveat.shape[0]
+    L = len(chain.dims) - 1
+    floor = tf32_sum_tol(L, max(chain.dims))
+    res = {}
+
+    # kernel 5 at TF32 at the training shape, the eval shape and recording
+    kw = dict(rtol=1e-4, atol=1e-4, saveat_arr=saveat, max_steps=10000)
+    dense_cap, _, stride = knot_layout(10000)
+    u_ev = latents(test, test[0].shape[0])
+    kw_ev = dict(kw, saveat_arr=torch.from_numpy(tgrid).to(device))
+    rec_kw = dict(kw, record_knots=True, knot_dense_cap=dense_cap,
+                  knot_stride=stride)
+    errs, solved = [], {}
+    for case, u, k_ in (("rtol 1e-4", u0, kw), ("eval", u_ev, kw_ev)):
+        out = persistent_chain_solve(params, chain, u, (0.0, 1.0),
+                                     precision=None, **k_)
+        again = persistent_chain_solve(params, chain, u, (0.0, 1.0),
+                                       precision=None, **k_)
+        fp = persistent_chain_solve(params, chain, u, (0.0, 1.0), **k_)
+        digest(f"K5 {case} tf32", out)
+        ref = persistent_chain_solve_plain(params, chain, u, (0.0, 1.0),
+                                           tier="tf32", **k_)
+        exact = persistent_chain_solve_plain(
+            p64, chain, u.double(), (0.0, 1.0),
+            **dict(k_, rtol=1e-10, atol=1e-10))
+        nfe = [int(o["nfe"]) for o in (out, ref, fp, exact)]
+        err = max_abs(out["ys"], ref["ys"])
+        bitwise = (torch.equal(again["ys"], out["ys"])
+                   and int(again["nfe"]) == nfe[0])
+        worst, (e, e_p) = as_accurate([out["ys"]], [ref["ys"]],
+                                      [exact["ys"]], floor)
+        print(f"[tf32 chain solve {case}] B = {u.shape[0]}: NFE kernel "
+              f"{nfe[0]}, TF32 plain {nfe[1]}, FP32 kernel {nfe[2]}, float64 "
+              f"at rtol 1e-10 {nfe[3]}; ys vs the TF32 plain max-abs "
+              f"{err:.3e}; vs the float64 solution relative {e:.3e}, the "
+              f"TF32 plain's {e_p:.3e}: {worst:.3f} of the gate (at least "
+              f"{floor:.3e}); bitwise repeatable {bitwise}; vs FP32 (across "
+              f"tiers) max-abs {max_abs(out['ys'], fp['ys']):.3e}")
+        check(bool(out["success"]) and bool(ref["success"]) and bitwise
+              and torch.equal(out["ys"][0], u) and abs(nfe[0] - nfe[1]) <= 12
+              and worst <= 1,
+              f"tf32 chain solve {case} vs its plain version: NFE {nfe}, "
+              f"{e} (plain {e_p})")
+        errs.append(err)
+        solved[case] = (out, fp)
+    rec_t = persistent_chain_solve(params, chain, u0, (0.0, 1.0),
+                                   precision=None, **rec_kw)
+    out = solved["rtol 1e-4"][0]
+    n_t = int(rec_t["naccept"])
+    check(torch.equal(rec_t["ys"], out["ys"]) and int(rec_t["nfe"])
+          == int(out["nfe"]), "tf32 chain: recording changed the solve")
+    digest("K5 record tf32", rec_t["knot_us"][:n_t + 1])
+    raws = [chain_raw(params, chain, u0, saveat, 1e-4, tier="tf32"),
+            chain_raw(params, chain, u0, saveat, 1e-4)]
+    check(all(r() == 0 for r in raws), "tf32 chain solve: raw launch failed")
+    ms_t, ms_f = back_to_back_ms(raws, n=20, warmup=2)
+    plain, = median_ms([lambda: persistent_chain_solve_plain(
+        params, chain, u0, (0.0, 1.0), tier="tf32", **kw)], n=3, warmup=1)
+    att = (int(out["nfe"]) - 2) // 6
+    att_f = (int(solved["rtol 1e-4"][1]["nfe"]) - 2) // 6
+    print(f"[tf32 chain attribution] kernel 5 at rtol 1e-4 back to back: "
+          f"TF32 {ms_t:.4f} ms ({1e3 * ms_t / att:.2f} µs an attempt, {att} "
+          f"attempts), FP32 {ms_f:.4f} ({1e3 * ms_f / att_f:.2f} µs, "
+          f"{att_f})")
+    n_params = sum(p.numel() for p in params)
+    BF = u0.numel()
+    res["persistent_chain_solve_tf32"] = dict(
+        max_abs_err=max(errs), ms=ms_t, plain_ms=plain,
+        **bound(6 * att * chain_flops(chain.dims),
+                4 * ((2 + n_save + 1) * BF + n_params), PEAK_TF32))
+
+    # kernel 9: tiers 2 on kernel 5's FP32 knots (physionet.yaml), TF32
+    # throughout on kernel 5's TF32 knots (rtol 1e-4), dense and two-level
+    g = torch.Generator(device=device).manual_seed(13)
+    ct_ys = torch.randn((n_save, Bc, Fc), generator=g, device=device)
+    ct_y = torch.randn(u0.shape, generator=g, device=device)
+    rec32 = persistent_chain_solve(
+        params, chain, u0, (0.0, 1.0),
+        **dict(rec_kw, rtol=LATENT_TOL, atol=LATENT_TOL))
+    flat = lambda o: [o[0], o[1], *o[2]]  # noqa: E731
+    cases = (("tf32g", rec32, dict(precision="highest", grad_precision=None),
+              ("fp32", "fp32", "tf32")),
+             ("tf32", rec_t, dict(precision=None, grad_precision=None),
+              ("tf32", "tf32", "tf32")))
+    for label, rec, prec, tiers in cases:
+        n = int(rec["naccept"])
+        args = (params, chain, rec["knot_ts"], rec["knot_us"],
+                rec["naccept"], saveat, ct_ys, ct_y)
+        args64 = (p64, chain) + tuple(
+            a_.double() if a_.is_floating_point() else a_ for a_ in args[2:])
+        exact = flat(persistent_chain_sweep_plain(*args64))
+        fp32 = flat(persistent_chain_sweep(*args))
+        ours = flat(persistent_chain_sweep(*args, **prec))
+        again = flat(persistent_chain_sweep(*args, **prec))
+        plain_s = flat(persistent_chain_sweep_plain(*args, tiers=tiers))
+        digest(f"K9 state {label}", ours[0], ours[1])
+        digest(f"K9 grads {label}", *ours[2:])
+        depth = (LATENT_DEPTHS["step_bwd_products"] if tiers[1] == "tf32"
+                 else LATENT_DEPTHS["grad_products"]) - 2 * 5
+        # the tensor cores' truncated sums bias every product of the sweep's
+        # sequential chain (a_u runs through all n steps' transposes, and
+        # every gradient sums over them): n steps' worth
+        g_floor = tf32_sum_tol(n * depth, max(chain.dims))
+        worst, (e, e_p) = as_accurate(ours, plain_s, exact, g_floor)
+        names = ["a_u", "a_k"] + [f"{'W' if i % 2 == 0 else 'b'}{i // 2}"
+                                  for i in range(len(ours) - 2)]
+        print(f"[tf32 chain sweep {label}] per output vs float64, kernel / "
+              f"TF32 plain / kernel vs plain: " + ", ".join(
+                  f"{nm} {rel_err(a_.double(), x_):.2e}/"
+                  f"{rel_err(p_.double(), x_):.2e}/{rel_err(a_, p_):.2e}"
+                  for nm, a_, p_, x_ in zip(names, ours, plain_s, exact)))
+        xt = max(rel_err(a_, b_) for a_, b_ in zip(ours, fp32))
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(ours, again))
+        print(f"[tf32 chain sweep {'/'.join(tiers)}] (replay/recompute/"
+              f"gradients) {n} steps: vs float64 relative max-abs {e:.3e}, "
+              f"the TF32 plain version's {e_p:.3e}: at most {worst:.3f} of "
+              f"the gate (at least {g_floor:.3e}); bitwise repeatable "
+              f"{same}; vs FP32 (across tiers) {xt:.3e}, tolerance "
+              f"{tf32_tol(depth):.3e}")
+        check(worst <= 1 and same, f"tf32 chain sweep {label} vs plain")
+        check(xt <= tf32_tol(depth), f"tf32 chain sweep {label} vs fp32: {xt}")
+        sweep = lambda: persistent_chain_sweep(*args, **prec)  # noqa: E731
+        sweep_f = lambda: persistent_chain_sweep(*args)  # noqa: E731
+        timed = [sweep, sweep_f]
+        if label == "tf32":
+            # the two-level branch, forced: its replay is kernel 5's TF32
+            # attempt, so it repeats the TF32 forward's knots bitwise
+            ctx = {k: rec[k] for k in rec if k.startswith("ckpt_")}
+            ctx.update(t_end=1.0, rtol=1e-4, atol=1e-4, max_steps=10000,
+                       stride=stride, dense_cap=min(8, n - 1))
+            win, replay = persistent_chain_sweep(
+                *args, two_level_ctx=ctx, return_replay=True, **prec)
+            m = min(n, stride)
+            digest("K9 replay tf32", replay[:m + 1])
+            rel_w = max(rel_err(p, q) for p, q in zip(flat(win), ours))
+            print(f"[tf32 chain sweep two-level] {n} accepts replayed from "
+                  f"{(n - 1) // stride + 1} checkpoint(s) with kernel 5's "
+                  f"TF32 attempt: bitwise equal to the forward's knots "
+                  f"{torch.equal(replay[:m + 1], rec['knot_us'][:m + 1])}; "
+                  f"gradients vs the dense branch relative max-abs "
+                  f"{rel_w:.3e}")
+            check(torch.equal(replay[:m + 1], rec["knot_us"][:m + 1])
+                  and rel_w <= 1e-6,
+                  "tf32 chain replay does not repeat the TF32 forward")
+            timed.append(lambda: persistent_chain_sweep(
+                *args, two_level_ctx=ctx, **prec))
+        ms = back_to_back_ms(timed, n=10, warmup=2)
+        plain, = median_ms([lambda: persistent_chain_sweep_plain(
+            *args, tiers=tiers)], n=3, warmup=1)
+        print(f"[tf32 chain attribution] kernel 9 {'/'.join(tiers)} back to "
+              f"back {ms[0]:.4f} ms ({1e3 * ms[0] / n:.2f} µs a step), FP32 "
+              f"{ms[1]:.4f}" + (f", two-level (replay forced) {ms[2]:.4f}"
+                                if len(ms) > 2 else ""))
+        err = max(max_abs(a_, b_) for a_, b_ in zip(ours, plain_s))
+        f_eval = n * chain_flops(chain.dims)
+        n_b = 4 * ((n + 1 + n_save + 1 + 2) * BF + 2 * n_params)
+        res[f"persistent_chain_sweep_{label}"] = dict(
+            max_abs_err=err, ms=ms[0], plain_ms=plain,
+            **(bound(19 * f_eval, n_b, PEAK_TF32) if label == "tf32"
+               else mixed_bound(7 * f_eval, 12 * f_eval, n_b)))
+        if label == "tf32":
+            att_r = (int(rec["nfe"]) - 2) // 6
+            res["persistent_chain_sweep_replay_tf32"] = dict(
+                max_abs_err=err, ms=ms[2], plain_ms=plain,
+                **bound(19 * f_eval + 6 * att_r * chain_flops(chain.dims),
+                        n_b, PEAK_TF32))
+
+    # --- the latent model: physionet.yaml 'auto' and the 'default' arm
+    counts = {}
+
+    def add(c):
+        for k_, v in c.items():
+            counts[k_] = counts.get(k_, 0) + v
+
+    arms = (("auto", []),
+            ("default", ["--model.solver.precision=default",
+                         "--model.solver.reltol=1e-4",
+                         "--model.solver.abstol=1e-4",
+                         "--model.solver.knot_window=8"]))
+    _, model0, _, train, test, _ = _latent_setup(device)
+    sd = {k_: v.detach().clone() for k_, v in model0.state_dict().items()}
+    cpu_sd = {k_: v.cpu() for k_, v in sd.items()}
+    batch = _host_batch(train, device, shuffle=True)
+    small = tuple(a_[:8] for a_ in batch)
+    ev = _host_batch(test, device, n=test[0].shape[0])
+    w = (0.0, 0.5)
+    for arm, ov in arms:
+        _, m_, (loss_fn, _), _, _, _ = _latent_setup(device, ov, sd)
+        tiers = node_tiers(m_, device)
+        fwd = tiers[0]
+        params_ = {k_: v.detach() for k_, v in m_.named_parameters()}
+        _grads(m_, loss_fn, params_, batch, w)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, st, _ = _grads(m_, loss_fn, params_, batch, w)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        c = tier_counts()
+        add(c)
+        want = {f"persistent_chain_solve[{fwd}]",
+                f"persistent_chain_sweep[{fwd}/{fwd}/{tiers[1]}]"}
+        got = {k_ for k_, v in c.items() if "[" in k_ and v}
+        nfe = int(st["nfe"])
+        cpu = _latent_setup("cpu", ov, cpu_sd)
+        with tiers_of(device):
+            _, s_c, g_c = _grads(m_, loss_fn, params_, small, w)
+            _, s_r, g_r = _grads(cpu[1], cpu[2][0],
+                                 {k_: v.cpu() for k_, v in params_.items()},
+                                 tuple(a_.cpu() for a_ in small), w)
+        same_path = int(s_c["nfe"]) == int(s_r["nfe"])
+        g_tol = grads_tol(tiers, node_tiers(cpu[1], device), **LATENT_DEPTHS)
+        rel_c = max(rel_err(g_c[k_].cpu(), g_r[k_]) for k_ in g_r)
+        print(f"[tf32 latent train {arm}] ({'/'.join(tiers)}) a training "
+              f"forward and backward of {Bc} series: {ms:.3f} ms, NFE {nfe}, "
+              f"NLL {float(st['neg_log_likelihood'].detach()):.6f}, success "
+              f"{bool(st['solver_success'])} | launches "
+              f"{ {k_: v for k_, v in c.items() if '[' in k_ and v} }; 8 "
+              f"series vs the CPU at the card's tiers: NFE "
+              f"{int(s_c['nfe'])} vs {int(s_r['nfe'])}, gradients relative "
+              f"max-abs {rel_c:.3e} (tolerance {g_tol:.3e} on the same "
+              f"steps, else 5e-2)")
+        check(bool(st["solver_success"]) and got == want
+              and rel_c <= (g_tol if same_path else 5e-2),
+              f"tf32 latent train {arm}: launches {got}, expected {want}; or "
+              f"the CPU {rel_c}")
+        ts_ = create_train_state(m_)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        mse, nfe_ev = eval_forward(m_, ts_, ev)
+        mse, nfe_ev = float(mse), int(nfe_ev)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        c = tier_counts()
+        add(c)
+        print(f"[tf32 latent eval {arm}] batch of {ev[0].shape[0]}: masked "
+              f"MSE {mse:.6f}, NFE {nfe_ev}, {ms:.3f} ms | launches "
+              f"{ {k_: v for k_, v in c.items() if '[' in k_ and v} }")
+        check({k_: v for k_, v in c.items() if "[" in k_ and v}
+              == {f"persistent_chain_solve[{fwd}]": 1} and mse == mse,
+              f"tf32 latent eval {arm}: launches {c}")
+        _latent_vs_cpu(f"[tf32 latent eval {arm}]", m_, cpu[1],
+                       tuple(a_[:8] for a_ in ev), device)
+    for name, r in res.items():
+        print(f"[tf32 kernel {name}] device ms a launch {r['ms']:.4f}, plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})")
+    return res, counts
+
+
 # ------------------------------------------------------------ solver modes
 
 MODES_STEPS = 3        # timed train steps a mode
@@ -6546,7 +7159,8 @@ def phase_modes(device):
 
 PARTS = ("kernels", "backward", "sde", "chain", "latent", "conv",
          "conv_core", "score", "attribution", "orient", "solve", "ode",
-         "cifar", "sde_train", "capture", "modes", "tf32", "tf32_sde")
+         "cifar", "sde_train", "capture", "modes", "tf32", "tf32_sde",
+         "tf32_score", "tf32_chain")
 
 
 def partial_run(device, parts, profile=False):
@@ -6602,15 +7216,22 @@ def partial_run(device, parts, profile=False):
         phase_tf32_conv(device)
         if "modes" not in parts:
             phase_cifar_repeat(device)
+    capture = []
     if "tf32" in parts or "tf32_sde" in parts:
         phase_tf32_sde(device)
-        if "capture" not in parts:
-            # the K-step call bitwise its eager steps: the bench's at TF32,
-            # mlp.yaml's with TF32 gradients, the MNIST SDE's and CIFAR's
-            # (eager) at TF32
-            phase_capture(device, only=(
-                ("mlp.yaml", "bench", "mnist_sde", "cifar") if "tf32" in parts
-                else ("mnist_sde",)))
+        capture += (["mlp.yaml", "bench", "mnist_sde", "cifar"]
+                    if "tf32" in parts else ["mnist_sde"])
+    if "tf32" in parts or "tf32_score" in parts:
+        phase_tf32_score(device)
+        phase_score_sampling(device)
+    if "tf32" in parts or "tf32_chain" in parts:
+        phase_tf32_chain(device)
+        capture.append("physionet")
+    if capture and "capture" not in parts:
+        # the K-step call bitwise its eager steps: the bench's at TF32,
+        # mlp.yaml's with TF32 gradients, the MNIST SDE's and CIFAR's
+        # (eager) at TF32, PhysioNet's with kernel 9's TF32 gradients
+        phase_capture(device, only=tuple(capture))
     print(json.dumps({"digests": SEEN_DIGESTS}))
     print(f"chip_smoke: partial run of {parts}, every check passed")
     return 0
@@ -6652,6 +7273,9 @@ def main():
     path_counts.append(phase_ode_biased(device))
     res.update(phase_chain_kernels(device))
     path_counts.append(phase_latent(device, profile=profile))
+    chain_res, chain_counts = phase_tf32_chain(device)
+    res.update(chain_res)
+    path_counts.append(chain_counts)
     res.update(phase_conv_kernels(device))
     phase_conv_core(device)
     path_counts.append(phase_cifar(device, profile=profile))
@@ -6663,6 +7287,7 @@ def main():
     res.update(phase_score_kernels(device))
     phase_vpsde_attribution(device)
     path_counts.append(phase_score_sampling(device))
+    res.update(phase_tf32_score(device))
     orient, orient_counts = phase_conv_orient(device)
     res.update(orient)
     path_counts.append(orient_counts)
@@ -6774,6 +7399,23 @@ def main():
         "persistent_sde_sweep_tf32": ("persistent_sde_sweep", "tf32/tf32"),
         "persistent_sde_sweep_tf32grads": ("persistent_sde_sweep",
                                            "fp32/tf32"),
+        # the score family's and the chain family's, kernel 9 by replay/
+        # recompute/gradient tiers (the dense and the two-level TF32 rows
+        # share the tiers, so their launches)
+        "persistent_vpsde_solve": ("persistent_vpsde_solve", "fp32"),
+        "persistent_vpsde_solve_tf32": ("persistent_vpsde_solve", "tf32"),
+        "persistent_pf_solve": ("persistent_pf_solve", "fp32"),
+        "persistent_pf_solve_tf32": ("persistent_pf_solve", "tf32"),
+        "persistent_chain_solve": ("persistent_chain_solve", "fp32"),
+        "persistent_chain_solve_tf32": ("persistent_chain_solve", "tf32"),
+        "persistent_chain_sweep": ("persistent_chain_sweep",
+                                   "fp32/fp32/fp32"),
+        "persistent_chain_sweep_tf32g": ("persistent_chain_sweep",
+                                         "fp32/fp32/tf32"),
+        "persistent_chain_sweep_tf32": ("persistent_chain_sweep",
+                                        "tf32/tf32/tf32"),
+        "persistent_chain_sweep_replay_tf32": ("persistent_chain_sweep",
+                                               "tf32/tf32/tf32"),
     }
     for name, (wrapper, tier) in tier_rows.items():
         if name not in sources:

@@ -27,10 +27,21 @@
 //    threads (block_error), then the blocks' partials in block order
 //    (solve.cuh::ordered_slot_sum) after a grid barrier.
 // So the outputs, the step counts and the recordings keep every bit.
+//
+// The TF32 tier (the reference's 'default'; warp_chain_tf32, chain_attempt
+// <true>): a warp's row is one column of mma.sync m16n8k8 tiles, each
+// layer's outputs in m-tiles of 16 on the warp, one k-chain an output in
+// order, the A operands from fragment copies of W_lᵀ rounded to TF32 once
+// at load (chain_frags), the row's activations rounded as they are read;
+// the bias and tanh FP32. One live column of eight keeps kernel 5's blocks,
+// its warp a row and its error sums, and with them kernel 9's replay of
+// kernel 5's attempt (the same function): an output's bits depend only on
+// its own row.
 #pragma once
 
 #include "chain.cuh"
 #include "solve.cuh"
+#include "tf32.cuh"
 #include "tsit5_bwd.cuh"
 
 namespace lrnde {
@@ -255,6 +266,81 @@ __device__ inline void warp_chain(const ChainNet& w, const ChainMeta& meta,
   }
 }
 
+// Floats of the chain's fragment copies: the forward's A = W_lᵀ (d_{l+1} ×
+// d_l), layer after layer (transposed: the transpose's A = W_l, d_l ×
+// d_{l+1}).
+template <int R, int T, bool TR>
+__host__ __device__ inline size_t chain_frag_floats(
+    const DenseChainT<R, T, TR>& w, bool transposed = false) {
+  size_t n = 0;
+  for (int l = 0; l < w.L; ++l)
+    n += transposed ? frag_floats(w.dims[l], w.dims[l + 1])
+                    : frag_floats(w.dims[l + 1], w.dims[l]);
+  return n;
+}
+
+// Stage the fragment copies at frag (16-byte aligned) from the weights in
+// global memory: the forward's (A[o][k] = W_l[k][o]) or the transpose's
+// (A[k][o] = W_l[k][o]). The caller synchronises.
+__device__ inline void stage_chain_frags(const ChainNet& w, float* frag,
+                                         bool transposed) {
+  for (int l = 0; l < w.L; ++l) {
+    const int din = w.dims[l], dout = w.dims[l + 1];
+    uint4* dst = reinterpret_cast<uint4*>(frag);
+    if (transposed) {
+      stage_frag(dst, w.wp[l], din, dout, dout, 1);
+      frag += frag_floats(din, dout);
+    } else {
+      stage_frag(dst, w.wp[l], dout, din, 1, dout);
+      frag += frag_floats(dout, din);
+    }
+  }
+}
+
+// warp_chain at the TF32 tier, the same contract: each layer's products on
+// the warp's mma.sync tiles (the row the one live column) from the
+// forward's fragment copies at frag, then the bias and tanh.
+template <typename Act>
+__device__ inline void warp_chain_tf32(const ChainNet& w,
+                                       const ChainMeta& meta,
+                                       const float* fwd, const float* frag,
+                                       Act act, float* out) {
+  const int L = w.L;
+  const unsigned int acts = w.acts;
+  for (int l = 0; l < L; ++l) {
+    const int4 m = meta.layer[l];
+    const int din = m.x, dout = m.y;
+    const float* bl = fwd + m.z + dout * chain_ld(din);
+    const float* ain = act(l);
+    float* aout = l + 1 < L ? act(l + 1) : out;
+    const bool tanh_l = (acts >> l) & 1u;
+    const uint4* fr = reinterpret_cast<const uint4*>(frag);
+    for (int mt = 0; mt < frag_mtiles(dout); ++mt) {
+      float d[4];
+      tile_tf32(fr, mt, din, ain, 0, 1, d);
+      tile_put<1>(d, mt, dout, 1, [&](int, int o, float z) {
+        z = z + bl[o];
+        if (tanh_l) z = tanhf(z);
+        aout[o] = z;
+      });
+    }
+    frag += frag_floats(dout, din);
+    __syncwarp();
+  }
+}
+
+// One evaluation of the row at the tier kTf32 names: warp_chain_tf32 from
+// the forward's fragment copies at frag, or warp_chain.
+template <bool kTf32, typename Act>
+__device__ inline void warp_chain_at(const ChainNet& w, const ChainMeta& meta,
+                                     const float* fwd, const float* frag,
+                                     Act act, float* out, int lane) {
+  if constexpr (kTf32)
+    warp_chain_tf32(w, meta, fwd, frag, act, out);
+  else
+    warp_chain(w, meta, fwd, act, out, lane);
+}
+
 // The attribution clock of a clocked instantiation: CTA 0's %globaltimer
 // nanoseconds summed by phase (N phases) in shared memory, recorded by
 // thread 0 after a warp barrier (warp) or a CTA barrier (cta). Off, every
@@ -344,55 +430,56 @@ __device__ inline void warp_stage_input(const ChainNet& w, const ChainRow& p,
 // One Tsit5 step of one row by its warp (tdmlp.cuh::tsit5_rows): the six
 // stage evaluations into k2..k7, u_new, and the row's scaled residuals
 // ũ / (atol + max(|u|, |u_new|)·rtol) into res. act holds the warp's two
-// ping-pong activation buffers of aw floats.
-template <typename Clock>
+// ping-pong activation buffers of aw floats. kTf32: the evaluations at the
+// TF32 tier from the fragment copies at frag.
+template <bool kTf32, typename Clock>
 __device__ inline void warp_step(const ChainNet& w, const ChainMeta& meta,
                                  const float* W, const ChainRow& p, float* act,
                                  int aw,
                                  float dt, float atol, float rtol, float* res,
-                                 int lane, Clock& clk) {
+                                 int lane, Clock& clk, const float* frag) {
   auto acts = [&](int l) { return act + (l & 1) * aw; };
   {
     const float a[1] = {A21};
     warp_stage_input(w, p, a, dt, act, nullptr, lane);
   }
   clk.warp(kCsStage);
-  warp_chain(w, meta, W, acts, p.k[1], lane);
+  warp_chain_at<kTf32>(w, meta, W, frag, acts, p.k[1], lane);
   clk.warp(kCsLayers);
   {
     const float a[2] = {A31, A32};
     warp_stage_input(w, p, a, dt, act, nullptr, lane);
   }
   clk.warp(kCsStage);
-  warp_chain(w, meta, W, acts, p.k[2], lane);
+  warp_chain_at<kTf32>(w, meta, W, frag, acts, p.k[2], lane);
   clk.warp(kCsLayers);
   {
     const float a[3] = {A41, A42, A43};
     warp_stage_input(w, p, a, dt, act, nullptr, lane);
   }
   clk.warp(kCsStage);
-  warp_chain(w, meta, W, acts, p.k[3], lane);
+  warp_chain_at<kTf32>(w, meta, W, frag, acts, p.k[3], lane);
   clk.warp(kCsLayers);
   {
     const float a[4] = {A51, A52, A53, A54};
     warp_stage_input(w, p, a, dt, act, nullptr, lane);
   }
   clk.warp(kCsStage);
-  warp_chain(w, meta, W, acts, p.k[4], lane);
+  warp_chain_at<kTf32>(w, meta, W, frag, acts, p.k[4], lane);
   clk.warp(kCsLayers);
   {
     const float a[5] = {A61, A62, A63, A64, A65};
     warp_stage_input(w, p, a, dt, act, nullptr, lane);
   }
   clk.warp(kCsStage);
-  warp_chain(w, meta, W, acts, p.k[5], lane);
+  warp_chain_at<kTf32>(w, meta, W, frag, acts, p.k[5], lane);
   clk.warp(kCsLayers);
   {
     const float a[6] = {A71, A72, A73, A74, A75, A76};
     warp_stage_input(w, p, a, dt, act, p.unew, lane);
   }
   clk.warp(kCsStage);
-  warp_chain(w, meta, W, acts, p.k[6], lane);
+  warp_chain_at<kTf32>(w, meta, W, frag, acts, p.k[6], lane);
   clk.warp(kCsLayers);
   const float* const* k = p.k;
   for (int c = lane; c < w.F; c += 32) {
@@ -419,6 +506,7 @@ __device__ inline float block_error(const float* res, int n, int lane) {
 // What an attempt needs of a CTA: its shared buffers and its blocks.
 struct ChainCta {
   const float* W;  // the forward's weights (ChainLayout::fwd)
+  const float* frag;  // the TF32 tier: the forward's fragment copies
   float* act;      // [kChainRows][2][aw] the warps' activations
   int aw;
   float* state;    // [nb][9][kChainRows][F] the blocks' rows
@@ -437,8 +525,9 @@ __device__ inline int block_rows(const ChainCta& c, int j) {
 // the slots in block order. Returns the scaled error norm in thread 0 (0
 // elsewhere). The slots are double-buffered by the parity of the barrier
 // count, so a CTA that runs ahead into the next attempt never overwrites
-// slots another is still summing.
-template <typename Clock>
+// slots another is still summing. kTf32: the steps at the TF32 tier, from
+// the forward's fragment copies at c.frag.
+template <bool kTf32, typename Clock>
 __device__ inline float chain_attempt(const ChainNet& w,
                                       const ChainMeta& meta,
                                       const ChainCta& c, int par, float dt,
@@ -452,10 +541,11 @@ __device__ inline float chain_attempt(const ChainNet& w,
     const int nrows = block_rows(c, j);
     float* const res = c.res + static_cast<size_t>(j) * kChainRows * F;
     if (warp < nrows)
-      warp_step(w, meta, c.W,
-                chain_row(c.state + j * chain_block_floats(F), F, warp, par),
-                c.act + warp * 2 * c.aw, c.aw, dt, atol, rtol, res + warp * F,
-                lane, clk);
+      warp_step<kTf32>(
+          w, meta, c.W,
+          chain_row(c.state + j * chain_block_floats(F), F, warp, par),
+          c.act + warp * 2 * c.aw, c.aw, dt, atol, rtol, res + warp * F, lane,
+          clk, c.frag);
     clk.cta(kCsErrorWait);
     __syncthreads();
     if (warp == 0) {
@@ -490,7 +580,7 @@ inline cudaError_t chain_occupancy(const void* kernel, size_t bytes,
     size_t bytes;
   };
   static Entry cache[8] = {};
-  static Granted granted[16] = {};
+  static Granted granted[32] = {};  // every kernel that asks
   static int next = 0;
   for (const Entry& e : cache)
     if (e.fn == kernel && e.bytes == bytes) {

@@ -32,6 +32,15 @@
 //
 // The clocked instantiation (kTime) splits CTA 0's attempt by phase for
 // chip_smoke.py's [chain solve attribution]; its arithmetic is the same.
+//
+// At the TF32 tier (kTf32, lrnde_persistent_chain_tf32; the reference's
+// 'default', which 'auto' takes at rtol ≥ 1e-4) every layer's product runs
+// on mma.sync m16n8k8 (chain_rows.cuh::warp_chain_tf32, a warp's row the
+// one live column), from the forward's fragment copies staged once after
+// the FP32 layout (which keeps the biases); the stage inputs, ũ, the error
+// norm, the controller and the recording are the FP32 kernel's. TF32's
+// noise in ũ swamps the controller below rtol 1e-4, where the wrapper
+// refuses the tier.
 #include "chain_rows.cuh"
 
 namespace lrnde {
@@ -72,12 +81,14 @@ struct ChainSolveArgs {
 
 // Floats of a kernel-5 CTA's dynamic shared memory at J blocks: the
 // forward's weights, the warps' activations, the blocks' state and
-// residuals.
+// residuals; with tf32, then the forward's fragment copies.
 __host__ __device__ inline size_t chain_solve_smem_floats(const ChainNet& w,
-                                                          int J) {
-  return chain_layout(w).n_fwd +
+                                                          int J,
+                                                          bool tf32 = false) {
+  const size_t n = chain_layout(w).n_fwd +
          2 * static_cast<size_t>(kChainRows) * chain_act_width(w) +
          J * (chain_block_floats(w.F) + static_cast<size_t>(kChainRows) * w.F);
+  return tf32 ? round_up4(n) + chain_frag_floats(w) : n;
 }
 
 __device__ inline ChainCta carve_chain_cta(const ChainNet& w,
@@ -93,10 +104,11 @@ __device__ inline ChainCta carve_chain_cta(const ChainNet& w,
   c.first = blockIdx.x * J;
   c.nb = max(0, min(J, c.n_blk - c.first));
   c.B = B;
+  c.frag = nullptr;
   return c;
 }
 
-template <bool kTime>
+template <bool kTime, bool kTf32 = false>
 __global__ void __launch_bounds__(kChainThreads)
 chain_solve_kernel(ChainSolveArgs a) {
   extern __shared__ float4 smem_raw[];
@@ -107,11 +119,15 @@ chain_solve_kernel(ChainSolveArgs a) {
   const ChainNet& w = a.w;
   const int F = w.F, B = a.B, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const ChainCta c =
+  ChainCta c =
       carve_chain_cta(w, a.lay, reinterpret_cast<float*>(smem_raw), a.J, B);
+  if constexpr (kTf32)
+    c.frag = reinterpret_cast<float*>(smem_raw)
+           + round_up4(chain_solve_smem_floats(w, a.J));
   const size_t BF = static_cast<size_t>(B) * F;
   const float t_end = a.sc[1];
   load_chain_weights(w, a.lay, const_cast<float*>(c.W), nullptr, meta);
+  if constexpr (kTf32) stage_chain_frags(w, const_cast<float*>(c.frag), false);
 
   // each of this warp's rows: fn(block index j, global row, row state)
   int par = 0;
@@ -164,8 +180,9 @@ chain_solve_kernel(ChainSolveArgs a) {
     const float t = ctl.t;
     const AttemptPlan plan = plan_attempt(t, ctl.dt, t_end);
     const float dt = plan.dt_c, t_new = plan.t_new;
-    const float eest = chain_attempt(w, meta, c, par, dt, a.atol, a.rtol,
-                                     a.inv_n, a.slots, a.barrier, epoch, clk);
+    const float eest =
+        chain_attempt<kTf32>(w, meta, c, par, dt, a.atol, a.rtol, a.inv_n,
+                             a.slots, a.barrier, epoch, clk);
     if (tid == 0) {
       const bool accept = eest <= 1.f;
       float dt_acc, dt_rej, qold_acc;
@@ -268,16 +285,17 @@ chain_solve_kernel(ChainSolveArgs a) {
 constexpr int kChainMaxJ = 128;
 
 // The grid of kernel 5 for B rows: J blocks a CTA and the CTAs.
+template <bool kTf32 = false>
 static cudaError_t chain_solve_grid(const ChainNet& c, int B, int* J,
                                     int* grid) {
   const int n_blk = (B + kChainRows - 1) / kChainRows;
   return chain_grid(
-      reinterpret_cast<const void*>(chain_solve_kernel<false>), n_blk,
-      [&](int j) { return chain_solve_smem_floats(c, j); }, kChainMaxJ, J,
-      grid);
+      reinterpret_cast<const void*>(chain_solve_kernel<false, kTf32>), n_blk,
+      [&](int j) { return chain_solve_smem_floats(c, j, kTf32); }, kChainMaxJ,
+      J, grid);
 }
 
-template <bool kTime>
+template <bool kTime, bool kTf32 = false>
 static int persistent_chain(
     const float* u0, const float* k10, const float* sc, const float* saveat,
     int n_save, const void* const* wb, const int* dims, int L,
@@ -294,11 +312,11 @@ static int persistent_chain(
       || (kTime && timing == nullptr))
     return cudaErrorInvalidValue;
   int J = 0, grid = 0;
-  cudaError_t err = chain_solve_grid(c, B, &J, &grid);
+  cudaError_t err = chain_solve_grid<kTf32>(c, B, &J, &grid);
   if (err != cudaSuccess) return err;
-  const size_t smem = chain_solve_smem_floats(c, J);
+  const size_t smem = chain_solve_smem_floats(c, J, kTf32);
   int per_sm = 0;  // the timed kernel's own opt-in
-  auto kernel = chain_solve_kernel<kTime>;
+  auto kernel = chain_solve_kernel<kTime, kTf32>;
   err = chain_occupancy(reinterpret_cast<const void*>(kernel),
                         smem * sizeof(float), &per_sm);
   if (err != cudaSuccess) return err;
@@ -328,6 +346,16 @@ extern "C" long long lrnde_chain_solve_smem_floats(const int* dims, int L) {
   return static_cast<long long>(chain_solve_smem_floats(c, 1));
 }
 
+// The same at the TF32 tier: the forward's fragment copies after the rest.
+extern "C" long long lrnde_chain_solve_smem_floats_tf32(const int* dims,
+                                                        int L) {
+  using namespace lrnde;
+  ChainNet c;
+  const void* none[2 * kChainMaxLayers] = {};
+  if (!make_chain(&c, none, dims, L, 0u, 0)) return 0;
+  return static_cast<long long>(chain_solve_smem_floats(c, 1, true));
+}
+
 // Kernel 5's grid for B rows: out = (error blocks a CTA, CTAs). Returns
 // cudaGetLastError() of the occupancy query, or the refusal.
 extern "C" int lrnde_chain_solve_grid(const int* dims, int L, int B,
@@ -338,6 +366,17 @@ extern "C" int lrnde_chain_solve_grid(const int* dims, int L, int B,
   if (!make_chain(&c, none, dims, L, 0u, 0) || B < 1)
     return cudaErrorInvalidValue;
   return chain_solve_grid(c, B, out, out + 1);
+}
+
+// The same for the TF32 instantiation.
+extern "C" int lrnde_chain_solve_grid_tf32(const int* dims, int L, int B,
+                                           int* out) {
+  using namespace lrnde;
+  ChainNet c;
+  const void* none[2 * kChainMaxLayers] = {};
+  if (!make_chain(&c, none, dims, L, 0u, 0) || B < 1)
+    return cudaErrorInvalidValue;
+  return chain_solve_grid<true>(c, B, out, out + 1);
 }
 
 // The whole adaptive solve of the chain from (u0, k1_0) with sc = (t0,
@@ -356,6 +395,26 @@ extern "C" int lrnde_persistent_chain(
     float* ckpt_ks, float* ckpt_dts, float* ckpt_qolds, int n_ckpt,
     int stride, const float* rand, float* res_u, void* stream) {
   return lrnde::persistent_chain<false>(
+      u0, k10, sc, saveat, n_save, wb, dims, L, acts, lead, u, ys, stats_i,
+      stats_f, slots, barrier, B, max_steps, rtol, atol, inv_n, knot_ts,
+      knot_us, n_dense, ckpt_ts, ckpt_us, ckpt_ks, ckpt_dts, ckpt_qolds,
+      n_ckpt, stride, rand, res_u, nullptr, stream);
+}
+
+// Kernel 5 at the TF32 tier: lrnde_persistent_chain's contract, every
+// layer's product on the tensor cores (chain_rows.cuh::warp_chain_tf32) on
+// operands rounded to TF32, accumulated in FP32; the biases, tanh, the
+// stage combinations, the error norm and the controller FP32.
+extern "C" int lrnde_persistent_chain_tf32(
+    const float* u0, const float* k10, const float* sc, const float* saveat,
+    int n_save, const void* const* wb, const int* dims, int L,
+    unsigned int acts, int lead, float* u, float* ys, int* stats_i,
+    float* stats_f, float* slots, unsigned int* barrier, int B,
+    int max_steps, float rtol, float atol, float inv_n, float* knot_ts,
+    float* knot_us, int n_dense, float* ckpt_ts, float* ckpt_us,
+    float* ckpt_ks, float* ckpt_dts, float* ckpt_qolds, int n_ckpt,
+    int stride, const float* rand, float* res_u, void* stream) {
+  return lrnde::persistent_chain<false, true>(
       u0, k10, sc, saveat, n_save, wb, dims, L, acts, lead, u, ys, stats_i,
       stats_f, slots, barrier, B, max_steps, rtol, atol, inv_n, knot_ts,
       knot_us, n_dense, ckpt_ts, ckpt_us, ckpt_ks, ckpt_dts, ckpt_qolds,

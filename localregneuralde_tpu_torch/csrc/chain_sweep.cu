@@ -50,11 +50,29 @@
 //
 // The clocked instantiation (kTime) splits CTA 0's step by phase for
 // chip_smoke.py's [chain sweep attribution]; its arithmetic is the same.
+//
+// The TF32 tier (the reference's 'default'), by the bits of kTiers
+// (lrnde_chain_sweep_tiered): kChainTierGrad puts the transposed products
+// (dz_l·W_lᵀ, a warp's row the one live column of mma.sync m16n8k8 tiles
+// from fragment copies of W_l rounded once at load) and the weight
+// gradients (a block's Σ over its 24 (row, stage) items of a_lᵀ·dz_l, one
+// 16 × 8 tile of a gradient a warp, three k-steps, added to the CTA's
+// partial in a fixed order: no atomics) on the tensor cores, as the
+// reference's grad_precision=None does whatever the forward's tier;
+// kChainTierRecompute the recompute of k1 and the six stages
+// (chain_rows.cuh::warp_chain_tf32); kChainTierReplay the two-level
+// replay, which runs kernel 5's own TF32 attempt (chain_attempt<true>), so
+// it repeats a TF32 forward bitwise. The bias gradients, the seeding, the
+// tanh derivatives and the carries stay FP32.
 #include "chain_rows.cuh"
 
 namespace lrnde {
 
 constexpr int kChainMaxSave = 64;
+// The tier bits of kTiers (ops/cuda/fused_mlp_bwd.py::tier_bits): a set bit
+// is TF32 on mma.sync, a clear one FP32 FFMA.
+constexpr int kChainTierRecompute = 1, kChainTierGrad = 2,
+              kChainTierReplay = 4;
 
 // The stash of one row and stage: a_l at aoff[l] and dz_l at zoff[l], l <
 // L, each rounded up to 4 floats (the flush reads dz four outputs at a
@@ -133,18 +151,28 @@ struct ChainSweepSmem {
   float* res;    // [J][rows][F] their scaled residuals
   float* wt;     // [kChainMaxSave][7] dt·b_m(θ) of the saveat times hit
   int* hit;      // [kChainMaxSave] their indexes
+  float* ffrag;  // TF32 recompute or replay: the forward's fragment copies
+  float* rfrag;  // TF32 gradients: the transpose's fragment copies
 };
 
+// Floats of a sweep CTA's shared memory at J blocks; with TF32 tiers, then
+// the forward's fragment copies (the recompute's or the replay's) and the
+// transpose's (the gradients').
 __host__ __device__ inline size_t chain_sweep_smem_floats(const ChainNet& w,
-                                                          int J) {
+                                                          int J,
+                                                          int tiers = 0) {
   const ChainStash st = chain_stash(w);
   const size_t F4 = (w.F + 3) & ~3;
   const ChainLayout lay = chain_layout(w);
-  return lay.n_fwd + lay.n_rev + round_up4(w.n_params) +
+  const size_t n = lay.n_fwd + lay.n_rev + round_up4(w.n_params) +
          kChainRows * (6 * static_cast<size_t>(stash_stage_floats(w, st)) +
                        15 * F4 + 2 * static_cast<size_t>(chain_act_width(w))) +
          J * (chain_block_floats(w.F) + static_cast<size_t>(kChainRows) * w.F) +
          8 * kChainMaxSave;
+  if (tiers == 0) return n;
+  const bool fwd = (tiers & (kChainTierRecompute | kChainTierReplay)) != 0;
+  return round_up4(n) + (fwd ? chain_frag_floats(w) : 0) +
+         ((tiers & kChainTierGrad) != 0 ? chain_frag_floats(w, true) : 0);
 }
 
 __device__ inline ChainSweepSmem carve_chain_sweep(const ChainNet& w,
@@ -163,6 +191,8 @@ __device__ inline ChainSweepSmem carve_chain_sweep(const ChainNet& w,
   s.res = s.state + J * chain_block_floats(w.F);
   s.wt = s.res + J * kChainRows * w.F;
   s.hit = reinterpret_cast<int*>(s.wt + 7 * kChainMaxSave);
+  s.ffrag = raw + round_up4(chain_sweep_smem_floats(w, J));
+  s.rfrag = s.ffrag;  // after the forward's, where the tiers have them
   return s;
 }
 
@@ -173,8 +203,9 @@ struct ChainStep {
 
 // Recompute and transpose one accepted step of one row (this warp's) from
 // its start state u (global, F floats) with step dt, seeded from the saveat
-// cotangents in s.wt / s.hit; update the carries a_u, a_k of the row.
-template <typename Clock>
+// cotangents in s.wt / s.hit; update the carries a_u, a_k of the row. The
+// recompute and the transposed products at the tiers of kTiers.
+template <int kTiers, typename Clock>
 __device__ void chain_row_bwd(const ChainSweepArgs& a, const ChainSweepSmem& s,
                               int r, int row, const float* u, float dt,
                               int n_hit, Clock& clk) {
@@ -188,6 +219,7 @@ __device__ void chain_row_bwd(const ChainSweepArgs& a, const ChainSweepSmem& s,
   float* const buf = s.act + r * 2 * aw;
   float* const stash = s.stash + r * 6 * SS;
   auto pingpong = [&](int l) { return buf + (l & 1) * aw; };
+  constexpr bool kRecTf32 = (kTiers & kChainTierRecompute) != 0;
 
   // ---- k1 of the step, recomputed from its knot
   for (int c = lane; c < F; c += 32) {
@@ -195,7 +227,7 @@ __device__ void chain_row_bwd(const ChainSweepArgs& a, const ChainSweepSmem& s,
     buf[c] = w.lead ? tanhf(v) : v;
   }
   __syncwarp();
-  warp_chain(w, *s.meta, s.W, pingpong, ks, lane);
+  warp_chain_at<kRecTf32>(w, *s.meta, s.W, s.ffrag, pingpong, ks, lane);
 
   // ---- stage cotangents from the saveat hits, and the FSAL carry on k7
   for (int c = lane; c < F; c += 32) {
@@ -220,9 +252,10 @@ __device__ void chain_row_bwd(const ChainSweepArgs& a, const ChainSweepSmem& s,
       keep[c] = w.lead ? tanhf(v) : v;
     }
     __syncwarp();
-    warp_chain(w, *s.meta, s.W,
-               [&](int l) { return keep + s.meta->stash[l].x; },
-               ks + (si + 1) * F4, lane);
+    warp_chain_at<kRecTf32>(
+        w, *s.meta, s.W, s.ffrag,
+        [&](int l) { return keep + s.meta->stash[l].x; }, ks + (si + 1) * F4,
+        lane);
   }
   clk.warp(kSwRecompute);
 
@@ -233,6 +266,8 @@ __device__ void chain_row_bwd(const ChainSweepArgs& a, const ChainSweepSmem& s,
     for (int c = lane; c < F; c += 32) buf[c] = dks[(si + 1) * F4 + c];
     __syncwarp();
     int cur = 0;
+    // the transpose's fragment copies, layer L - 1 first
+    int rfo = static_cast<int>(chain_frag_floats(w, true));
     int4 m = s.meta->layer[L - 1];
     for (int l = L - 1; l >= 0; --l) {
       const int din = m.x, dout = m.y;
@@ -257,7 +292,16 @@ __device__ void chain_row_bwd(const ChainSweepArgs& a, const ChainSweepSmem& s,
       // 33 to 64 wide
       const int ldo = chain_ld(dout);
       float* dout_ct = pingpong(cur ^ 1);
-      if (din > 32 && din <= 64) {
+      if constexpr ((kTiers & kChainTierGrad) != 0) {
+        rfo -= static_cast<int>(frag_floats(din, dout));
+        const uint4* fr = reinterpret_cast<const uint4*>(s.rfrag + rfo);
+        for (int mt = 0; mt < frag_mtiles(din); ++mt) {
+          float d[4];
+          tile_tf32(fr, mt, dout, dzl, 0, 1, d);
+          tile_put<1>(d, mt, din, 1,
+                      [&](int, int k, float v) { dout_ct[k] = v; });
+        }
+      } else if (din > 32 && din <= 64) {
         const int k1 = min(lane + 32, din - 1);
         const float* const ws[2] = {Wl + lane * ldo, Wl + k1 * ldo};
         float d[2];
@@ -299,12 +343,55 @@ __device__ void chain_row_bwd(const ChainSweepArgs& a, const ChainSweepSmem& s,
   clk.warp(kSwTranspose);
 }
 
+// A weight gradient's block contribution at the TF32 tier: gW (din × dout)
+// += Σ_e a_e ⊗ dz_e over the block's 6·kChainRows (row, stage) items e
+// (stash item e = r·6 + s at e·SS: a at ao, dz at zo), one 16 × 8 tile of
+// gW a warp (the items three k-steps of 8), its sums added to the CTA's
+// partial by the one lane that holds them.
+__device__ inline void flush_tf32(const float* stash, int SS, int ao, int zo,
+                                  int din, int dout, float* gW) {
+  static_assert(6 * kChainRows == 24, "three k-steps of (row, stage) items");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int Nt = (dout + 7) / 8, tiles = frag_mtiles(din) * Nt;
+  for (int tile = warp; tile < tiles; tile += kChainThreads / 32) {
+    const int mt = tile / Nt, nt = tile - mt * Nt;
+    const int m = mt * 16 + g, n = nt * 8 + g;
+    auto av = [&](int mm, int e) {
+      return mm < din ? tf32_bits(stash[e * SS + ao + mm]) : 0u;
+    };
+    auto zv = [&](int e) {
+      return n < dout ? tf32_bits(stash[e * SS + zo + n]) : 0u;
+    };
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks) {
+      const int e = ks * 8 + q;
+      const unsigned A[4] = {av(m, e), av(m + 8, e), av(m, e + 4),
+                             av(m + 8, e + 4)};
+      const unsigned Bf[2] = {zv(e), zv(e + 4)};
+      mma_tf32(d, A, Bf);
+    }
+    // d0, d1: row m, columns nt·8 + 2q, + 1; d2, d3: row m + 8
+    const int o = nt * 8 + 2 * q;
+    auto add = [&](int k, int oo, float v) {
+      if (k < din && oo < dout) gW[k * dout + oo] += v;
+    };
+    add(m, o, d[0]);
+    add(m, o + 1, d[1]);
+    add(m + 8, o, d[2]);
+    add(m + 8, o + 1, d[3]);
+  }
+}
+
 // The stage-batched weight gradients of a block's rows into the CTA's
 // partial: each weight's sum over the stages, then over the kChainRows rows,
 // in one fmaf chain (the old kernel's order), four outputs a thread, every
 // load of the chain issued ahead of its sums. A row past the block's end
 // has a zero stash (chain_sweep_range), so it adds fmaf(a, 0, acc) = acc,
-// as the old kernel's zero rows did.
+// as the old kernel's zero rows did. With kChainTierGrad the weights' sums
+// run on mma.sync (flush_tf32); the biases' stay FP32.
+template <int kTiers>
 __device__ inline void chain_flush(const ChainSweepArgs& a,
                                    const ChainSweepSmem& s) {
   const ChainNet& w = a.w;
@@ -314,37 +401,41 @@ __device__ inline void chain_flush(const ChainSweepArgs& a,
     float* gW = s.g + w.off[l];
     float* gb = gW + din * dout;
     const int ao = a.st.aoff[l], zo = a.st.aoff[L] + a.st.zoff[l];
-    for (int e = threadIdx.x; e < din * q4; e += kChainThreads) {
-      const int k = e / q4, o0 = 4 * (e - k * q4);
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      const float* sa = s.stash + ao + k;
-      const float* sz = s.stash + zo + o0;
-      // two stages' loads at a time, all in flight before their sums
+    if constexpr ((kTiers & kChainTierGrad) != 0) {
+      flush_tf32(s.stash, SS, ao, zo, din, dout, gW);
+    } else {
+      for (int e = threadIdx.x; e < din * q4; e += kChainThreads) {
+        const int k = e / q4, o0 = 4 * (e - k * q4);
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        const float* sa = s.stash + ao + k;
+        const float* sz = s.stash + zo + o0;
+        // two stages' loads at a time, all in flight before their sums
 #pragma unroll
-      for (int s2 = 0; s2 < 6; s2 += 2) {
-        float av[2][kChainRows];
-        float4 z[2][kChainRows];
+        for (int s2 = 0; s2 < 6; s2 += 2) {
+          float av[2][kChainRows];
+          float4 z[2][kChainRows];
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int r = 0; r < kChainRows; ++r) {
-            const int st = (r * 6 + s2 + h) * SS;
-            av[h][r] = sa[st];
-            z[h][r] = *reinterpret_cast<const float4*>(sz + st);
-          }
+            for (int r = 0; r < kChainRows; ++r) {
+              const int st = (r * 6 + s2 + h) * SS;
+              av[h][r] = sa[st];
+              z[h][r] = *reinterpret_cast<const float4*>(sz + st);
+            }
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int r = 0; r < kChainRows; ++r) {
-            acc[0] = fmaf(av[h][r], z[h][r].x, acc[0]);
-            acc[1] = fmaf(av[h][r], z[h][r].y, acc[1]);
-            acc[2] = fmaf(av[h][r], z[h][r].z, acc[2]);
-            acc[3] = fmaf(av[h][r], z[h][r].w, acc[3]);
-          }
+            for (int r = 0; r < kChainRows; ++r) {
+              acc[0] = fmaf(av[h][r], z[h][r].x, acc[0]);
+              acc[1] = fmaf(av[h][r], z[h][r].y, acc[1]);
+              acc[2] = fmaf(av[h][r], z[h][r].z, acc[2]);
+              acc[3] = fmaf(av[h][r], z[h][r].w, acc[3]);
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (o0 + q < dout) gW[k * dout + o0 + q] += acc[q];
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (o0 + q < dout) gW[k * dout + o0 + q] += acc[q];
     }
     for (int o = threadIdx.x; o < dout; o += kChainThreads) {
       float sb = 0.f;
@@ -362,8 +453,8 @@ __device__ inline void chain_flush(const ChainSweepArgs& a,
 }
 
 // Transpose accepted steps n_hi-1 .. 0, whose start times are ts[j] and
-// start states us + j·BF, for this CTA's blocks.
-template <typename Clock>
+// start states us + j·BF, for this CTA's blocks, at the tiers of kTiers.
+template <int kTiers, typename Clock>
 __device__ void chain_sweep_range(const ChainSweepArgs& a,
                                   const ChainSweepSmem& s, const ChainCta& c,
                                   ChainStep& st, int n_hi, const float* ts,
@@ -409,7 +500,8 @@ __device__ void chain_sweep_range(const ChainSweepArgs& a,
       const int nrows = block_rows(c, b);
       const int row = (c.first + b) * kChainRows + warp;
       if (warp < nrows) {
-        chain_row_bwd(a, s, warp, row, us + j * BF + row * F, dt, n_hit, clk);
+        chain_row_bwd<kTiers>(a, s, warp, row, us + j * BF + row * F, dt,
+                              n_hit, clk);
       } else {
         // a row past the batch's end (the last block): a zero stash
         float* const st = s.stash + warp * 6 * stash_stage_floats(a.w, a.st);
@@ -419,7 +511,7 @@ __device__ void chain_sweep_range(const ChainSweepArgs& a,
       }
       clk.cta(kSwFlushWait);
       __syncthreads();
-      chain_flush(a, s);
+      chain_flush<kTiers>(a, s);
       __syncthreads();
       clk.cta(kSwFlush);
     }
@@ -430,7 +522,9 @@ __device__ void chain_sweep_range(const ChainSweepArgs& a,
 // attempt (chain_attempt) until n_steps are accepted or max_steps
 // attempted, recording the accepted states of this CTA's rows in local_us
 // (W + 1, B, F) and their times in lts (thread 0 of each CTA keeps its
-// own copy). Returns the number of steps accepted.
+// own copy). Returns the number of steps accepted. kTf32: kernel 5's TF32
+// attempt, from the forward's fragment copies at c.frag.
+template <bool kTf32>
 __device__ inline int chain_replay(const ChainSweepArgs& a,
                                    const ChainMeta& meta, const ChainCta& c,
                                    int win, int n_steps, unsigned int& epoch,
@@ -465,9 +559,9 @@ __device__ inline int chain_replay(const ChainSweepArgs& a,
   ChainClock<false, kCsPhases> off{nullptr};
   while (rc.i < n_steps && rc.att < a.max_steps) {
     const AttemptPlan plan = plan_attempt(rc.t, rc.dt, a.t_end);
-    const float eest = chain_attempt(w, meta, c, par, plan.dt_c, a.atol,
-                                     a.rtol,
-                                     a.inv_n, a.slots, a.barrier, epoch, off);
+    const float eest = chain_attempt<kTf32>(w, meta, c, par, plan.dt_c,
+                                            a.atol, a.rtol, a.inv_n, a.slots,
+                                            a.barrier, epoch, off);
     if (threadIdx.x == 0) {
       const bool accept = eest <= 1.f;
       float dt_acc, dt_rej, qold_acc;
@@ -496,9 +590,11 @@ __device__ inline int chain_replay(const ChainSweepArgs& a,
   return rc.i;
 }
 
-template <bool kTime>
+template <bool kTime, int kTiers = 0>
 __global__ void __launch_bounds__(kChainThreads)
 chain_sweep_kernel(ChainSweepArgs a) {
+  constexpr bool kFwdTf32 =
+      (kTiers & (kChainTierRecompute | kChainTierReplay)) != 0;
   extern __shared__ float4 smem_raw[];
   __shared__ ChainMeta meta;
   __shared__ ChainStep st;
@@ -523,6 +619,12 @@ chain_sweep_kernel(ChainSweepArgs a) {
   const int n = *a.naccept;
 
   load_chain_weights(w, a.lay, s.W, s.Wr, meta);
+  if constexpr (kFwdTf32) stage_chain_frags(w, s.ffrag, false);
+  if constexpr ((kTiers & kChainTierGrad) != 0) {
+    if constexpr (kFwdTf32) s.rfrag = s.ffrag + chain_frag_floats(w);
+    stage_chain_frags(w, s.rfrag, true);
+  }
+  if constexpr ((kTiers & kChainTierReplay) != 0) c.frag = s.ffrag;
   for (int l = tid; l <= kChainMaxLayers; l += kChainThreads)
     meta.stash[l] = make_int2(a.st.aoff[l], a.st.zoff[l]);
   for (int e = tid; e < w.n_params; e += kChainThreads) s.g[e] = 0.f;
@@ -539,7 +641,7 @@ chain_sweep_kernel(ChainSweepArgs a) {
   clk.start();
 
   if (!a.two_level || n <= a.dense_cap) {
-    chain_sweep_range(a, s, c, st, n, a.knot_ts, a.knot_us, clk);
+    chain_sweep_range<kTiers>(a, s, c, st, n, a.knot_ts, a.knot_us, clk);
   } else {
     // ---- windowed replay from the checkpoints, last window first
     const int W = a.stride;
@@ -547,11 +649,13 @@ chain_sweep_kernel(ChainSweepArgs a) {
     unsigned int epoch = 0;
     for (int win = (n - 1) / W; win >= 0; --win) {
       const int n_steps = min(max(n - win * W, 0), W);
-      const int got = chain_replay(a, meta, c, win, n_steps, epoch, rc, lts);
+      const int got = chain_replay<(kTiers & kChainTierReplay) != 0>(
+          a, meta, c, win, n_steps, epoch, rc, lts);
       clk.cta(kSwReplay);
       // sweep what the replay accepted: an accept flip must not sweep
       // slots it never wrote
-      chain_sweep_range(a, s, c, st, min(got, n_steps), lts, a.local_us, clk);
+      chain_sweep_range<kTiers>(a, s, c, st, min(got, n_steps), lts,
+                                a.local_us, clk);
     }
   }
   __syncthreads();
@@ -565,26 +669,29 @@ constexpr int kChainSweepMaxJ = 32;
 
 // The grid of kernel 9 for B rows: dense, a CTA a block; two-level, the
 // fewest blocks a CTA (J) whose grid is resident at once.
+template <int kTiers = 0>
 static cudaError_t chain_sweep_grid(const ChainNet& c, int B, int two_level,
                                     int* J, int* grid) {
   const int n_blk = (B + kChainRows - 1) / kChainRows;
+  const void* kernel =
+      reinterpret_cast<const void*>(chain_sweep_kernel<false, kTiers>);
   if (!two_level) {
     *J = 1;
     *grid = n_blk;
     int per_sm = 0;  // the opt-in above 48 KB, and the fit
     cudaError_t err = chain_occupancy(
-        reinterpret_cast<const void*>(chain_sweep_kernel<false>),
-        chain_sweep_smem_floats(c, 1) * sizeof(float), &per_sm);
+        kernel, chain_sweep_smem_floats(c, 1, kTiers) * sizeof(float),
+        &per_sm);
     if (err != cudaSuccess) return err;
     return per_sm > 0 ? cudaSuccess : cudaErrorInvalidValue;
   }
   return chain_grid(
-      reinterpret_cast<const void*>(chain_sweep_kernel<false>), n_blk,
-      [&](int j) { return chain_sweep_smem_floats(c, j); }, kChainSweepMaxJ,
-      J, grid);
+      kernel, n_blk,
+      [&](int j) { return chain_sweep_smem_floats(c, j, kTiers); },
+      kChainSweepMaxJ, J, grid);
 }
 
-template <bool kTime>
+template <bool kTime, int kTiers = 0>
 static int chain_sweep(
     int two_level, const void* const* wb, const int* dims, int L,
     unsigned int acts, int lead, const float* knot_ts, const float* knot_us,
@@ -600,10 +707,10 @@ static int chain_sweep(
       || (two_level && stride < 1) || B < 1 || (kTime && timing == nullptr))
     return cudaErrorInvalidValue;
   int J = 0, grid = 0;
-  cudaError_t err = chain_sweep_grid(c, B, two_level, &J, &grid);
+  cudaError_t err = chain_sweep_grid<kTiers>(c, B, two_level, &J, &grid);
   if (err != cudaSuccess) return err;
-  const size_t smem = chain_sweep_smem_floats(c, J);
-  auto kernel = chain_sweep_kernel<kTime>;
+  const size_t smem = chain_sweep_smem_floats(c, J, kTiers);
+  auto kernel = chain_sweep_kernel<kTime, kTiers>;
   int per_sm = 0;  // the timed kernel's own opt-in
   err = chain_occupancy(reinterpret_cast<const void*>(kernel),
                         smem * sizeof(float), &per_sm);
@@ -638,6 +745,17 @@ extern "C" long long lrnde_chain_sweep_smem_floats(const int* dims, int L) {
   return static_cast<long long>(chain_sweep_smem_floats(c, 1));
 }
 
+// The same at the tier bits `tiers` (lrnde_chain_sweep_tiered's).
+extern "C" long long lrnde_chain_sweep_smem_floats_tiered(int tiers,
+                                                          const int* dims,
+                                                          int L) {
+  using namespace lrnde;
+  ChainNet c;
+  const void* none[2 * kChainMaxLayers] = {};
+  if (!make_chain(&c, none, dims, L, 0u, 0)) return 0;
+  return static_cast<long long>(chain_sweep_smem_floats(c, 1, tiers));
+}
+
 // Kernel 9's grid for B rows: out = (error blocks a CTA, CTAs, which is the
 // number of gradient partials). Returns cudaGetLastError() of the occupancy
 // query, or the refusal.
@@ -649,6 +767,30 @@ extern "C" int lrnde_chain_sweep_grid(const int* dims, int L, int B,
   if (!make_chain(&c, none, dims, L, 0u, 0) || B < 1)
     return cudaErrorInvalidValue;
   return chain_sweep_grid(c, B, two_level, out, out + 1);
+}
+
+// The same for the instantiation at the tier bits `tiers`.
+extern "C" int lrnde_chain_sweep_grid_tiered(int tiers, const int* dims,
+                                             int L, int B, int two_level,
+                                             int* out) {
+  using namespace lrnde;
+  ChainNet c;
+  const void* none[2 * kChainMaxLayers] = {};
+  if (!make_chain(&c, none, dims, L, 0u, 0) || B < 1)
+    return cudaErrorInvalidValue;
+  switch (tiers) {
+    case kChainTierGrad:
+      return chain_sweep_grid<kChainTierGrad>(c, B, two_level, out, out + 1);
+    case kChainTierRecompute | kChainTierGrad:
+      return chain_sweep_grid<kChainTierRecompute | kChainTierGrad>(
+          c, B, two_level, out, out + 1);
+    case kChainTierRecompute | kChainTierGrad | kChainTierReplay:
+      return chain_sweep_grid<kChainTierRecompute | kChainTierGrad |
+                              kChainTierReplay>(c, B, two_level, out,
+                                                out + 1);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 #define LRNDE_CHAIN_SWEEP_PARAMS                                             \
@@ -678,6 +820,32 @@ extern "C" int lrnde_chain_sweep_grid(const int* dims, int L, int B,
 // Returns cudaGetLastError().
 extern "C" int lrnde_chain_sweep(LRNDE_CHAIN_SWEEP_PARAMS, void* stream) {
   return lrnde::chain_sweep<false>(LRNDE_CHAIN_SWEEP_ARGS, nullptr, stream);
+}
+
+// lrnde_chain_sweep at the product tiers `tiers` (kChainTier bits; all
+// FP32 is lrnde_chain_sweep): kChainTierGrad (the reference's default-tier
+// gradients behind an FP32 recompute and replay: physionet.yaml's route),
+// kChainTierRecompute | kChainTierGrad (also the recompute:
+// grad_precision='default'), or all three (the forward at TF32: its replay
+// too, kernel 5's TF32 attempt); any other value fails with
+// cudaErrorInvalidValue.
+extern "C" int lrnde_chain_sweep_tiered(int tiers, LRNDE_CHAIN_SWEEP_PARAMS,
+                                        void* stream) {
+  using namespace lrnde;
+  switch (tiers) {
+    case kChainTierGrad:
+      return chain_sweep<false, kChainTierGrad>(LRNDE_CHAIN_SWEEP_ARGS,
+                                                nullptr, stream);
+    case kChainTierRecompute | kChainTierGrad:
+      return chain_sweep<false, kChainTierRecompute | kChainTierGrad>(
+          LRNDE_CHAIN_SWEEP_ARGS, nullptr, stream);
+    case kChainTierRecompute | kChainTierGrad | kChainTierReplay:
+      return chain_sweep<false, kChainTierRecompute | kChainTierGrad |
+                                    kChainTierReplay>(
+          LRNDE_CHAIN_SWEEP_ARGS, nullptr, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The same sweep with CTA 0's nanoseconds per phase (kSwPhases) and the

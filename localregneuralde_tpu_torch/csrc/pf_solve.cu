@@ -42,6 +42,14 @@
 //
 // The clocked instantiation (kTime) splits CTA 0's attempt by phase for
 // chip_smoke.py's [pf solve attribution]; its arithmetic is the same.
+//
+// At the TF32 tier (PfTf32, lrnde_persistent_pf_tf32; the reference's
+// 'default', which its sampler takes) each warp's four rows go through the
+// layers as four of the eight columns of mma.sync m16n8k8 tiles
+// (score_rows.cuh::warp_score_rows_tf32), the network's weights rounded
+// once into fragment copies after the FP32 layout (which keeps the time
+// rows and biases); the stage inputs, ũ, the error norm and the controller
+// are the FP32 kernel's.
 #include <type_traits>
 
 #include "score_rows.cuh"
@@ -58,17 +66,20 @@ constexpr int kPfMaxJ = 128;
 // kSplit the last layer's (two outputs) accumulators on four lanes
 // (score_rows.cuh::split_layer), the other layers a lane an output; with
 // kRegW the 64 -> 64 layer's weights in each lane's registers. The
-// kernel's, PfMain, is the fastest of chip_smoke.py's [pf probe].
-template <int RW, bool kSplit, bool kRegW>
+// kernel's, PfMain, is the fastest of chip_smoke.py's [pf probe]. With
+// kTf32 the layers run at the TF32 tier (neither registers nor the split).
+template <int RW, bool kSplit, bool kRegW, bool kTf32 = false>
 struct PfCfg {
   static constexpr int rows = RW;
   static constexpr int warps = kPfCtaRows / RW;
   static constexpr int threads = 32 * warps;
   static constexpr int groups = kPfErrorRows / RW;  // groups a block
   static constexpr bool split = kSplit;
+  static constexpr bool tf32 = kTf32;
   using Reg = typename std::conditional<kRegW, RegW64, NoRegW>::type;
 };
 using PfMain = PfCfg<4, true, true>;
+using PfTf32 = PfCfg<4, false, false, true>;
 
 // The attribution phases of an attempt (CTA 0, warp 0's groups and the
 // CTA's barriers): the stage inputs, the three kinds of layer pass
@@ -100,6 +111,7 @@ struct PfSolveArgs {
   float rtol, atol, inv_n;  // inv_n = 1 / (B·F)
   int reg_l;            // the 64 -> 64 layer (register weights), or -1
   unsigned long long* timing;  // kTime: (kPfPhases + 1 + CTAs)
+  ScoreFragLayout fl;   // the TF32 tier's fragment copies
 };
 
 // Floats of one error block's resident state, [9][kPfErrorRows][F] (u,
@@ -109,11 +121,12 @@ __host__ __device__ inline size_t pf_block_floats(int F) {
 }
 
 // Floats of a kernel-6 CTA's dynamic shared memory at J blocks: the
-// network, each warp's stage-input rows and two activation buffers (the
-// same for every layout: kPfCtaRows rows), the blocks' state and
-// residuals.
-__host__ __device__ inline size_t pf_smem_floats(const ScoreNet& w, int J) {
-  return score_layout(w).n
+// network (and at the TF32 tier its frags floats of fragment copies), each
+// warp's stage-input rows and two activation buffers (the same for every
+// layout: kPfCtaRows rows), the blocks' state and residuals.
+__host__ __device__ inline size_t pf_smem_floats(const ScoreNet& w, int J,
+                                                 int frags = 0) {
+  return score_layout(w).n + frags
        + static_cast<size_t>(kPfCtaRows)
              * (score_in_width(w) + 2 * score_act_width(w))
        + J * pf_block_floats(w.F);
@@ -180,7 +193,7 @@ __device__ inline void pf_group_step(
     const PfScore& w, const ScoreMeta& meta, const float* W,
     const typename Cfg::Reg& reg, const PfGroup& g, int par, float* xs,
     float* act, float t, float dt, float atol, float rtol, int lane,
-    Clock& clk) {
+    Clock& clk, const float* frag, const ScoreFragLayout& fl) {
   constexpr int RW = Cfg::rows;
   const int F = w.F, xw = score_in_width(w), aw = score_act_width(w);
   // the six stages run through one copy of the evaluation (six inlined
@@ -233,12 +246,17 @@ __device__ inline void pf_group_step(
     // k_{s+2} = ½β(τ)·(x + s_θ(x, τ)) at the stage time, τ = t1 − time
     const float tr = score_time(w, st);
     const float hb = __fmul_rn(0.5f, score_beta(w, tr));
-    warp_score_rows<RW, Cfg::split>(
-        w, meta, W, xs, xw, act, aw, tr, g.nrows, lane, reg, clk,
-        kPfLayerIn, [&](int r, int c, float z) {
-          pf_k(g.block, F, g.r0 + r, par, s + 1)[c] =
-              __fmul_rn(hb, __fadd_rn(xs[r * xw + c], z));
-        });
+    auto fin = [&](int r, int c, float z) {
+      pf_k(g.block, F, g.r0 + r, par, s + 1)[c] =
+          __fmul_rn(hb, __fadd_rn(xs[r * xw + c], z));
+    };
+    if constexpr (Cfg::tf32)
+      warp_score_rows_tf32<RW>(w, meta, W, frag, fl, xs, xw, act, aw, tr,
+                               g.nrows, clk, kPfLayerIn, fin);
+    else
+      warp_score_rows<RW, Cfg::split>(w, meta, W, xs, xw, act, aw, tr,
+                                      g.nrows, lane, reg, clk, kPfLayerIn,
+                                      fin);
   }
   for (int i = lane; i < g.nrows * F; i += 32) {
     const int r = i / F, c = i - r * F;
@@ -272,15 +290,18 @@ pf_solve_kernel(PfSolveArgs a) {
   const int warp = tid >> 5, lane = tid & 31;
   const int xw = score_in_width(w), aw = score_act_width(w);
   float* const W = reinterpret_cast<float*>(smem_raw);
-  float* const xs = W + a.lay.n + warp * RW * (xw + 2 * aw);
+  float* const frag = W + a.lay.n;  // the TF32 tier's fragment copies
+  float* const rows = frag + (Cfg::tf32 ? a.fl.n : 0);
+  float* const xs = rows + warp * RW * (xw + 2 * aw);
   float* const act = xs + RW * xw;
-  float* const state = W + a.lay.n + kPfCtaRows * (xw + 2 * aw);
+  float* const state = rows + kPfCtaRows * (xw + 2 * aw);
   const int n_blk = (B + kPfErrorRows - 1) / kPfErrorRows;
   const int first = blockIdx.x * a.J;
   const int nb = max(0, min(a.J, n_blk - first));
   const size_t BF = static_cast<size_t>(B) * F;
   const float t_end = a.sc[1];
   load_score_weights<Cfg::threads>(w, a.lay, W, meta);
+  if constexpr (Cfg::tf32) stage_score_frags(w, a.fl, frag);
 
   auto block_rows = [&](int j) {
     return min(kPfErrorRows, B - (first + j) * kPfErrorRows);
@@ -332,7 +353,7 @@ pf_solve_kernel(PfSolveArgs a) {
     float* const slot = a.slots + (epoch & 1u) * n_blk;
     each_group([&](const PfGroup& g, int) {
       pf_group_step<Cfg>(w, meta, W, reg, g, par, xs, act, t, dt, a.atol,
-                         a.rtol, lane, clk);
+                         a.rtol, lane, clk, frag, a.fl);
     });
     clk.cta(kPfErrorWait);
     __syncthreads();
@@ -432,9 +453,10 @@ static cudaError_t pf_grid(const PfScore& c, int B, int* J_out,
   const int n_blk = (B + kPfErrorRows - 1) / kPfErrorRows;
   const void* kernel =
       reinterpret_cast<const void*>(pf_solve_kernel<Cfg, false>);
+  const int frags = Cfg::tf32 ? score_frags(c).n : 0;
   for (int J = max(1, (n_blk + n_sm - 1) / n_sm); J <= kPfMaxJ; ++J) {
     int per_sm = 0;
-    err = chain_occupancy(kernel, pf_smem_floats(c, J) * sizeof(float),
+    err = chain_occupancy(kernel, pf_smem_floats(c, J, frags) * sizeof(float),
                           &per_sm, Cfg::threads);
     if (err != cudaSuccess) return err;
     if (per_sm == 0) break;  // larger J only needs more shared memory
@@ -469,7 +491,8 @@ static int persistent_pf(LRNDE_PF_PARAMS, unsigned long long* timing,
   int J = 0, grid = 0;
   cudaError_t err = pf_grid<Cfg>(c, B, &J, &grid);
   if (err != cudaSuccess) return err;
-  const size_t smem = pf_smem_floats(c, J);
+  const ScoreFragLayout fl = score_frags(c);
+  const size_t smem = pf_smem_floats(c, J, Cfg::tf32 ? fl.n : 0);
   int per_sm = 0;  // the timed kernel's own opt-in
   const void* kernel =
       reinterpret_cast<const void*>(pf_solve_kernel<Cfg, kTime>);
@@ -480,7 +503,7 @@ static int persistent_pf(LRNDE_PF_PARAMS, unsigned long long* timing,
     if (dims[l] == 64 && dims[l + 1] == 64) reg_l = l;
   PfSolveArgs a{u0, k10, sc, saveat, n_save, c, score_layout(c), u, ys,
                 stats_i, stats_f, slots, barrier, B, J, max_steps, rtol,
-                atol, inv_n, reg_l, timing};
+                atol, inv_n, reg_l, timing, fl};
   void* kargs[] = {&a};
   err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(Cfg::threads),
                                     kargs, smem * sizeof(float),
@@ -507,6 +530,15 @@ extern "C" long long lrnde_pf_solve_smem_floats(const int* dims, int L) {
   return static_cast<long long>(pf_smem_floats(c, 1));
 }
 
+// The same at the TF32 tier: the layers' fragment copies after the network.
+extern "C" long long lrnde_pf_solve_smem_floats_tf32(const int* dims, int L) {
+  using namespace lrnde;
+  PfScore c;
+  const void* none[2 * kChainMaxLayers] = {};
+  if (!make_score(&c, none, dims, L, 0u, 0.f, 0.f, 0.f)) return 0;
+  return static_cast<long long>(pf_smem_floats(c, 1, score_frags(c).n));
+}
+
 // Kernel 6's grid for B rows: out = (error blocks a CTA, CTAs). Returns the
 // occupancy query's error, or the refusal.
 extern "C" int lrnde_pf_solve_grid(const int* dims, int L, int B, int* out) {
@@ -518,6 +550,17 @@ extern "C" int lrnde_pf_solve_grid(const int* dims, int L, int B, int* out) {
   return pf_grid<PfMain>(c, B, out, out + 1);
 }
 
+// The same for the TF32 instantiation.
+extern "C" int lrnde_pf_solve_grid_tf32(const int* dims, int L, int B,
+                                        int* out) {
+  using namespace lrnde;
+  PfScore c;
+  const void* none[2 * kChainMaxLayers] = {};
+  if (!make_score(&c, none, dims, L, 0u, 0.f, 0.f, 0.f) || B < 1)
+    return cudaErrorInvalidValue;
+  return pf_grid<PfTf32>(c, B, out, out + 1);
+}
+
 // The whole adaptive solve from (u0, k1_0) with sc = (t0, t_end, dt0) on the
 // device, without recording: the score network given by wb (2L pointers:
 // W_0, b_0, W_1, ...; W_l the (d_l + 1, d_{l+1}) TD matrix), dims (L + 1)
@@ -526,6 +569,16 @@ extern "C" int lrnde_pf_solve_grid(const int* dims, int L, int B, int* out) {
 // floats. Returns cudaGetLastError().
 extern "C" int lrnde_persistent_pf(LRNDE_PF_PARAMS, void* stream) {
   return lrnde::persistent_pf<lrnde::PfMain, false>(LRNDE_PF_ARGS, nullptr,
+                                                    stream);
+}
+
+// Kernel 6 at the TF32 tier (the reference's 'default', which its sampler
+// takes): lrnde_persistent_pf's contract, every layer's product on the
+// tensor cores (score_rows.cuh::warp_score_rows_tf32) on operands rounded
+// to TF32, accumulated in FP32; the time terms, the biases, β, the stage
+// combinations and the error norm FP32.
+extern "C" int lrnde_persistent_pf_tf32(LRNDE_PF_PARAMS, void* stream) {
+  return lrnde::persistent_pf<lrnde::PfTf32, false>(LRNDE_PF_ARGS, nullptr,
                                                     stream);
 }
 

@@ -22,6 +22,14 @@
 // before: an output is kChainAcc = 4 interleaved FFMA accumulators over k
 // in increasing k, added (0+1)+(2+3), then the time term t·W_l[d_l, o]
 // rounded on its own, then the bias, then tanh, whichever lane sums it.
+//
+// At the TF32 tier (warp_score_rows_tf32) a warp's RW rows are RW of the
+// eight columns of mma.sync m16n8k8 tiles: each layer's outputs in m-tiles
+// of 16 on the warp, one k-chain each in order, the A operands from the
+// fragment copies of score.cuh::stage_score_frags (rounded once at load),
+// the activations rounded as they are read; then the same time term, bias
+// and tanh in FP32. The 2 -> 64 and 64 -> 2 layers pad to the tile's K = 8
+// and M = 16 with zeros.
 #pragma once
 
 #include "chain_rows.cuh"
@@ -354,6 +362,44 @@ __device__ __forceinline__ void warp_score_rows(
 #pragma unroll
         for (int r = 0; r < RW; ++r) finish(r, o, z[r][0]);
       }
+    }
+    __syncwarp();
+    clk.warp(p0 + (l == 0 ? kScLayerIn : last ? kScLayerOut : kScLayerMid));
+  }
+}
+
+// warp_score_rows at the TF32 tier: the same contract (no register weights,
+// no split layer), each layer's products on the warp's mma.sync tiles from
+// the fragment copies at frag (laid out by fl).
+template <int RW, typename Clock, typename Fin>
+__device__ __forceinline__ void warp_score_rows_tf32(
+    const ScoreNet& w, const ScoreMeta& meta, const float* W,
+    const float* frag, const ScoreFragLayout& fl, const float* xs, int xw,
+    float* act, int aw, float t, int nrows, Clock& clk, int p0, Fin fin) {
+  const int L = w.L;
+  for (int l = 0; l < L; ++l) {
+    const int4 m = meta.layer[l];
+    const int din = m.x, dout = m.y, ld = chain_ld(din);
+    const float* tw = W + m.z + dout * ld;
+    const float* bl = tw + ((dout + 3) & ~3);
+    const bool tanh_l = m.w != 0;
+    const float* ain = l == 0 ? xs : act + ((l - 1) & 1) * RW * aw;
+    const int iw = l == 0 ? xw : aw;
+    float* aout = act + (l & 1) * RW * aw;
+    const bool last = l + 1 == L;
+    const uint4* fr = reinterpret_cast<const uint4*>(frag + fl.off[l]);
+    for (int mt = 0; mt < frag_mtiles(dout); ++mt) {
+      float d[4];
+      tile_tf32(fr, mt, din, ain, iw, RW, d);
+      tile_put<RW>(d, mt, dout, RW, [&](int r, int o, float z) {
+        z = __fadd_rn(z, __fmul_rn(t, tw[o]));
+        z = z + bl[o];
+        if (tanh_l) z = tanhf(z);
+        if (!last)
+          aout[r * aw + o] = z;
+        else if (r < nrows)
+          fin(r, o, z);
+      });
     }
     __syncwarp();
     clk.warp(p0 + (l == 0 ? kScLayerIn : last ? kScLayerOut : kScLayerMid));

@@ -313,26 +313,18 @@ inline int sde_row_blocks(int B) { return (B + kSdeRows - 1) / kSdeRows; }
 // ------------------------------------------------------------ the TF32 tier
 // A product out[n][m] = Σ_k x[n][k]·A[m][k] of a row block (its n <
 // kSdeRows rows as the columns of mma.sync m16n8k8, four of the eight live)
-// runs on one warp per 16 outputs m: a chain of one mma a k-step, in order,
-// so each output has the same bits whatever block its row lands in. A (M ×
-// K) is a weight matrix (the forward's Wᵀ, the sweep's transposed products'
-// W), fixed for the launch, so it is rounded to TF32 once, where it is
-// staged, into a fragment copy: for m-tile mt and k-step ks, lane l holds
-// tf32.cuh::mma_tf32's {a0, a1, a2, a3} as one uint4, zero past M and K,
-// and a k-step's A operand is one 16-byte load a lane. x, the row block's
-// activations in shared memory, is rounded as it is read.
-__host__ __device__ inline int sde_mtiles(int M) { return (M + 15) / 16; }
-__host__ __device__ inline int sde_ksteps(int K) { return (K + 7) / 8; }
-
-// Floats of the fragment copy of an M × K operand.
-__host__ __device__ inline size_t sde_frag_floats(int M, int K) {
-  return static_cast<size_t>(sde_mtiles(M)) * sde_ksteps(K) * 128;
-}
+// runs on one warp per 16 outputs m (tf32.cuh::tile_tf32: a chain of one
+// mma a k-step, in order, so each output has the same bits whatever block
+// its row lands in). A (M × K) is a weight matrix (the forward's Wᵀ, the
+// sweep's transposed products' W), fixed for the launch, so it is rounded
+// to TF32 once, where it is staged, into a fragment copy
+// (tf32.cuh::stage_frag). x, the row block's activations in shared memory,
+// is rounded as it is read.
 
 // Floats of one set of the family's three fragment copies (forward: W1ᵀ H ×
 // F, W2ᵀ F × H, Wdᵀ F × F; transposed: W2 H × F, W1 F × H, Wd F × F).
 __host__ __device__ inline size_t sde_frag_set_floats(int F, int H) {
-  return sde_frag_floats(H, F) + sde_frag_floats(F, H) + sde_frag_floats(F, F);
+  return frag_floats(H, F) + frag_floats(F, H) + frag_floats(F, F);
 }
 
 // The three fragment copies of a product direction: a1 the H-wide outputs'
@@ -343,22 +335,6 @@ struct SdeFrags {
   const uint4 *a1, *a2, *ad;
 };
 
-// Stage A[m][k] = src[m·sm + k·sk] (M × K, in global memory) into its
-// fragment copy at dst. The caller synchronises.
-__device__ inline void stage_frag(uint4* dst, const float* src, int M, int K,
-                                  int sm, int sk) {
-  const int Kt = sde_ksteps(K), n = sde_mtiles(M) * Kt * 32;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int lane = i & 31, tile = i >> 5;
-    const int mt = tile / Kt, ks = tile - mt * Kt;
-    const int m = mt * 16 + (lane >> 2), k = ks * 8 + (lane & 3);
-    auto at = [&](int mm, int kk) {
-      return mm < M && kk < K ? tf32_bits(src[mm * sm + kk * sk]) : 0u;
-    };
-    dst[i] = make_uint4(at(m, k), at(m + 8, k), at(m, k + 4), at(m + 8, k + 4));
-  }
-}
-
 // Stage one set of fragment copies at base (16-byte aligned): the forward's
 // (transposed = false: A = Wᵀ) or the transposed products' (A = W).
 // Returns the first float after them. The caller synchronises.
@@ -366,8 +342,8 @@ __device__ inline float* stage_sde_frags(const SdeWeights& w, float* base,
                                          bool transposed, SdeFrags* f) {
   const int F = w.F, H = w.H;
   uint4* a1 = reinterpret_cast<uint4*>(base);
-  uint4* a2 = a1 + sde_frag_floats(H, F) / 4;
-  uint4* ad = a2 + sde_frag_floats(F, H) / 4;
+  uint4* a2 = a1 + frag_floats(H, F) / 4;
+  uint4* ad = a2 + frag_floats(F, H) / 4;
   if (transposed) {
     stage_frag(a1, w.w2, H, F, F, 1);  // dh = dk·W2ᵀ: A[h][c] = W2[h][c]
     stage_frag(a2, w.w1, F, H, H, 1);  // dx = dz·W1ᵀ: A[c][h] = W1[c][h]
@@ -380,47 +356,7 @@ __device__ inline float* stage_sde_frags(const SdeWeights& w, float* base,
   f->a1 = a1;
   f->a2 = a2;
   f->ad = ad;
-  return reinterpret_cast<float*>(ad + sde_frag_floats(F, F) / 4);
-}
-
-// d = the 16 × 8 tile mt of out for rows n < nrows of x ([row][ldx], K
-// wide): one mma.sync chain over the k-steps, in order, on the calling warp.
-__device__ __forceinline__ void sde_tile_tf32(const uint4* frag, int mt,
-                                              int K, const float* x, int ldx,
-                                              int nrows, float (&d)[4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int Kt = sde_ksteps(K);
-  const bool live = g < nrows;
-  const float* xr = x + g * ldx;
-  const uint4* fr = frag + static_cast<size_t>(mt) * Kt * 32 + lane;
-  d[0] = d[1] = d[2] = d[3] = 0.f;
-  for (int ks = 0; ks < Kt; ++ks) {
-    const uint4 a4 = fr[ks * 32];
-    const int k0 = ks * 8 + q;
-    const unsigned a[4] = {a4.x, a4.y, a4.z, a4.w};
-    const unsigned b[2] = {live && k0 < K ? tf32_bits(xr[k0]) : 0u,
-                           live && k0 + 4 < K ? tf32_bits(xr[k0 + 4]) : 0u};
-    mma_tf32(d, a, b);
-  }
-}
-
-// The tile's outputs, out[row][m] for rows < nrows and m < M: lane (g, q <
-// 2) holds rows 2q and 2q + 1 of outputs mt·16 + g (d0, d1) and + 8 (d2,
-// d3). put(row, m, value) stores one.
-template <typename Put>
-__device__ __forceinline__ void sde_tile_put(const float (&d)[4], int mt,
-                                             int M, int nrows, Put put) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  if (q >= 2) return;  // columns 4..7: past the row block
-  const int m = mt * 16 + g, r = 2 * q;
-  if (m < M) {
-    if (r < nrows) put(r, m, d[0]);
-    if (r + 1 < nrows) put(r + 1, m, d[1]);
-  }
-  if (m + 8 < M) {
-    if (r < nrows) put(r, m + 8, d[2]);
-    if (r + 1 < nrows) put(r + 1, m + 8, d[3]);
-  }
+  return reinterpret_cast<float*>(ad + frag_floats(F, F) / 4);
 }
 
 // sde_stage_eval at the TF32 tier, the same contract: the hidden rows' tiles
@@ -435,24 +371,26 @@ __device__ __forceinline__ void sde_stage_eval_tf32(
   const int warp = threadIdx.x >> 5;
   float d[4];
   if (warp < kHidWarps) {
-    for (int mt = warp; mt < sde_mtiles(H); mt += kHidWarps) {
-      sde_tile_tf32(f.a1, mt, F, xf, F, nrows, d);
-      sde_tile_put(d, mt, H, nrows, [&](int r, int m, float v) {
+    for (int mt = warp; mt < frag_mtiles(H); mt += kHidWarps) {
+      tile_tf32(f.a1, mt, F, xf, F, nrows, d);
+      tile_put<kSdeRows>(d, mt, H, nrows, [&](int r, int m, float v) {
         hid[r * H + m] = tanhf(v + w.b1[m]);
       });
     }
   } else {
-    for (int mt = warp - kHidWarps; mt < sde_mtiles(F); mt += kDiffWarps) {
-      sde_tile_tf32(f.ad, mt, F, xg, F, nrows, d);
-      sde_tile_put(d, mt, F, nrows,
-                   [&](int r, int m, float v) { g[r * F + m] = v + w.bd[m]; });
+    for (int mt = warp - kHidWarps; mt < frag_mtiles(F); mt += kDiffWarps) {
+      tile_tf32(f.ad, mt, F, xg, F, nrows, d);
+      tile_put<kSdeRows>(d, mt, F, nrows, [&](int r, int m, float v) {
+        g[r * F + m] = v + w.bd[m];
+      });
     }
   }
   __syncthreads();
-  for (int mt = warp; mt < sde_mtiles(F); mt += kHidWarps + kDiffWarps) {
-    sde_tile_tf32(f.a2, mt, H, hid, H, nrows, d);
-    sde_tile_put(d, mt, F, nrows,
-                 [&](int r, int m, float v) { k[r * F + m] = v + w.b2[m]; });
+  for (int mt = warp; mt < frag_mtiles(F); mt += kHidWarps + kDiffWarps) {
+    tile_tf32(f.a2, mt, H, hid, H, nrows, d);
+    tile_put<kSdeRows>(d, mt, F, nrows, [&](int r, int m, float v) {
+      k[r * F + m] = v + w.b2[m];
+    });
   }
   __syncthreads();
 }

@@ -66,7 +66,12 @@
 // the same kernel with the stage evaluator's products on mma.sync m16n8k8:
 // the weights rounded once into fragment copies beside the FP32 layout;
 // the draws, the stage combinations, the error partial (still the first
-// port's 64-thread order) and the controller are the FP32 kernel's.
+// port's 64-thread order) and the controller are the FP32 kernel's. Kernel
+// 11 at the TF32 tier (score.cuh::VpScoreTf32, lrnde_vpsde_solve_tf32) is
+// kernel 11 with its layers' products on mma.sync, its eight rows a CTA the
+// columns of each tile.
+#include <type_traits>
+
 #include "score.cuh"
 #include "sde.cuh"
 
@@ -745,6 +750,18 @@ extern "C" long long lrnde_vpsde_solve_smem_floats(const int* dims, int L) {
   return static_cast<long long>(sde_solve_smem_floats(c));
 }
 
+// The same at the TF32 tier: the layers' fragment copies beside the
+// weights.
+extern "C" long long lrnde_vpsde_solve_smem_floats_tf32(const int* dims,
+                                                        int L) {
+  using namespace lrnde;
+  VpScoreTf32 c;
+  const void* none[2 * kChainMaxLayers] = {};
+  if (!make_score(&c, none, dims, L, 0u, 0.f, 0.f, 0.f)) return 0;
+  c.fl = score_frags(c);
+  return static_cast<long long>(sde_solve_smem_floats(c));
+}
+
 // Kernel 11: the whole adaptive SRI or SOSRI solve of the reverse VP-SDE on
 // the τ clock from u0 with sc = (t0, t_end, dt0), the score network given by
 // wb (2L pointers: W_0, b_0, W_1, ...; W_l the (d_l + 1, d_{l+1}) TD
@@ -759,19 +776,32 @@ static int vpsde_solve(
     const unsigned int* seed, int depth, float* u, float* ys, int* stats_i,
     float* stats_f, float* unew, float* wz0, float* wz1, float* slots,
     unsigned int* barrier, int B, int max_steps, float rtol, float atol,
-    float delta, float inv_n, unsigned long long* timing, void* stream) {
+    float delta, float inv_n, unsigned long long* timing, bool tf32,
+    void* stream) {
   using namespace lrnde;
-  VpScore c;
+  VpScoreTf32 c;
   if (!make_score(&c, wb, dims, L, acts, beta_min, d_beta, t1) || depth < 0
-      || depth > kMaxDepth)
+      || depth > kMaxDepth || (tf32 && timing != nullptr))
     return cudaErrorInvalidValue;
-  SdeSolveArgs<VpScore> a{u0, sc, saveat, n_save, c, seed, depth, u, ys,
-                          stats_i, stats_f, unew, wz0, wz1, slots, barrier,
-                          nullptr, nullptr, nullptr, nullptr, nullptr,
-                          nullptr, timing, B, max_steps, rtol, atol, delta,
-                          inv_n};
-  return timing == nullptr ? launch_sde_solve<VpScore, false>(sosri, &a, stream)
-                           : launch_sde_solve<VpScore, true>(sosri, &a, stream);
+  auto run = [&](auto net) {
+    using D = decltype(net);
+    SdeSolveArgs<D> a{u0, sc, saveat, n_save, net, seed, depth, u, ys,
+                      stats_i, stats_f, unew, wz0, wz1, slots, barrier,
+                      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      timing, B, max_steps, rtol, atol, delta, inv_n};
+    if constexpr (std::is_same_v<D, VpScoreTf32>)  // no clocked TF32 kernel
+      return launch_sde_solve<D, false>(sosri, &a, stream);
+    else
+      return timing == nullptr ? launch_sde_solve<D, false>(sosri, &a, stream)
+                               : launch_sde_solve<D, true>(sosri, &a, stream);
+  };
+  if (tf32) {
+    c.fl = score_frags(c);
+    return run(c);
+  }
+  VpScore fp;
+  static_cast<ScoreNet&>(fp) = c;
+  return run(fp);
 }
 
 extern "C" int lrnde_vpsde_solve(
@@ -785,7 +815,26 @@ extern "C" int lrnde_vpsde_solve(
   return vpsde_solve(sosri, u0, sc, saveat, n_save, wb, dims, L, acts,
                      beta_min, d_beta, t1, seed, depth, u, ys, stats_i,
                      stats_f, unew, wz0, wz1, slots, barrier, B, max_steps,
-                     rtol, atol, delta, inv_n, nullptr, stream);
+                     rtol, atol, delta, inv_n, nullptr, false, stream);
+}
+
+// Kernel 11 at the TF32 tier (the reference's 'default', which its sampler
+// takes): lrnde_vpsde_solve's contract, every layer's product on the tensor
+// cores (score.cuh::chain_forward_tf32) on operands rounded to TF32,
+// accumulated in FP32; the time terms, the biases, the drift's β
+// arithmetic, the error norm and the tree FP32.
+extern "C" int lrnde_vpsde_solve_tf32(
+    int sosri, const float* u0, const float* sc, const float* saveat,
+    int n_save, const void* const* wb, const int* dims, int L,
+    unsigned int acts, float beta_min, float d_beta, float t1,
+    const unsigned int* seed, int depth, float* u, float* ys, int* stats_i,
+    float* stats_f, float* unew, float* wz0, float* wz1, float* slots,
+    unsigned int* barrier, int B, int max_steps, float rtol, float atol,
+    float delta, float inv_n, void* stream) {
+  return vpsde_solve(sosri, u0, sc, saveat, n_save, wb, dims, L, acts,
+                     beta_min, d_beta, t1, seed, depth, u, ys, stats_i,
+                     stats_f, unew, wz0, wz1, slots, barrier, B, max_steps,
+                     rtol, atol, delta, inv_n, nullptr, true, stream);
 }
 
 // Kernel 11 with its attempt's phases timed: lrnde_vpsde_solve's contract,
@@ -805,7 +854,7 @@ extern "C" int lrnde_vpsde_solve_timed(
   return vpsde_solve(sosri, u0, sc, saveat, n_save, wb, dims, L, acts,
                      beta_min, d_beta, t1, seed, depth, u, ys, stats_i,
                      stats_f, unew, wz0, wz1, slots, barrier, B, max_steps,
-                     rtol, atol, delta, inv_n, timing, stream);
+                     rtol, atol, delta, inv_n, timing, false, stream);
 }
 
 // The number of attribution phases of lrnde_vpsde_solve_timed.

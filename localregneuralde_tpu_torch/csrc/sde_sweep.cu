@@ -184,7 +184,7 @@ __device__ __forceinline__ void grad_contract_tf32(const float* A, int SA,
   static_assert(kSdeRows == 4, "a k-step is two stages of four rows");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, q = lane & 3;
-  const int Nt = (N + 7) / 8, tiles = sde_mtiles(M) * Nt;
+  const int Nt = (N + 7) / 8, tiles = frag_mtiles(M) * Nt;
   const bool live = q < nrows;
   for (int t = warp; t < tiles; t += kSdeThreads / 32) {
     const int mt = t / Nt, nt = t - mt * Nt;
@@ -360,26 +360,28 @@ sde_sweep_kernel(SdeSweepArgs a) {
           const int warp = tid >> 5;
           float d[4];
           if (warp < kHidWarps) {
-            for (int mt = warp; mt < sde_mtiles(H); mt += kHidWarps) {
-              sde_tile_tf32(tr.a1, mt, F, dke, F, nrows, d);
-              sde_tile_put(d, mt, H, nrows, [&](int r, int h, float v) {
+            for (int mt = warp; mt < frag_mtiles(H); mt += kHidWarps) {
+              tile_tf32(tr.a1, mt, F, dke, F, nrows, d);
+              tile_put<kSdeRows>(d, mt, H, nrows, [&](int r, int h, float v) {
                 const float hv = hid[e * RH + r * H + h];
                 dzh[e * RH + r * H + h] = v * (1.f - hv * hv);
               });
             }
           } else {
-            for (int mt = warp - kHidWarps; mt < sde_mtiles(F);
+            for (int mt = warp - kHidWarps; mt < frag_mtiles(F);
                  mt += kSdeDiffThreads / 32) {
-              sde_tile_tf32(tr.ad, mt, F, dge, F, nrows, d);
-              sde_tile_put(d, mt, F, nrows,
-                           [&](int r, int c, float v) { dxg[r * F + c] = v; });
+              tile_tf32(tr.ad, mt, F, dge, F, nrows, d);
+              tile_put<kSdeRows>(d, mt, F, nrows, [&](int r, int c, float v) {
+                dxg[r * F + c] = v;
+              });
             }
           }
           __syncthreads();
-          for (int mt = warp; mt < sde_mtiles(F); mt += kSdeThreads / 32) {
-            sde_tile_tf32(tr.a2, mt, H, dzh + e * RH, H, nrows, d);
-            sde_tile_put(d, mt, F, nrows,
-                         [&](int r, int c, float v) { dxf[r * F + c] = v; });
+          for (int mt = warp; mt < frag_mtiles(F); mt += kSdeThreads / 32) {
+            tile_tf32(tr.a2, mt, H, dzh + e * RH, H, nrows, d);
+            tile_put<kSdeRows>(d, mt, F, nrows, [&](int r, int c, float v) {
+              dxf[r * F + c] = v;
+            });
           }
         } else {
           if (tid < kSdeHidThreads) {

@@ -119,11 +119,11 @@ def _node_kwargs(cfg: ExperimentConfig):
 # The layers outside the DE layers take the reference's precision=None:
 # called outside any ``jax.default_matmul_precision``, they compute at the
 # backend default there, TF32 on a GPU and FP32 on the CPU, forward and
-# backward. The port gives them the same keyword (``nn.basic.layer_tier``),
-# rather than a scope of the backend default around the model's call: a
-# scope would reach every layer the call runs, the latent model's and the
-# score net's too, whose families keep FP32 until their own tiers are
-# ported. The DE layers' dynamics take their solver's tier in their own
+# backward. The port gives them the same keyword (``nn.basic.layer_tier``)
+# rather than a scope of the backend default around the model's call, so
+# that no scope reaches a layer the reference does not build with it: the
+# latent model's encoder cell, ``rec_to_gen`` and ``gen_to_data`` take it
+# too. The DE layers' dynamics take their solver's tier in their own
 # ``product_tier_scope``.
 OUTER = dict(precision=None)
 
@@ -213,19 +213,21 @@ def construct_time_series(cfg: ExperimentConfig, saveat, *, device=None,
     NeuralODE(the Dense-chain generative dynamics, saveat = the observation
     grid) → time series → decoder (reference ``construct.jl:230-252``),
     with weights drawn from ``generator`` (default: a CPU generator seeded
-    with ``cfg.seed``), on ``device`` (default: the CUDA device). Every
-    layer of the latent model computes FP32 at every tier for now: the
-    reference's ``rec_to_gen`` and ``gen_to_data`` take the backend default,
-    and move with the chain family's tier, whole (ROADMAP Queue 1 item
-    11b)."""
+    with ``cfg.seed``), on ``device`` (default: the CUDA device). The
+    encoder's ``LatentGRUCell``, ``rec_to_gen`` and ``gen_to_data`` take the
+    reference's ``precision=None`` (``OUTER``: TF32 on a card, FP32 on the
+    CPU, as the reference's Dense layers, called outside any precision
+    scope); the generative dynamics take their solver's tier in the DE
+    layer's scope."""
     m = cfg.model
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     kw = dict(generator=generator, device=device)
     N, H, L = m.ts_node_dims, m.ts_hidden_dims, m.ts_latent_dims
-    gru = Recurrence(LatentGRUCell(m.ts_in_dims, H, L, **kw))
-    rec_to_gen = Chain(Dense(2 * L, L, "tanh", **kw), Dense(L, 2 * N, **kw))
+    gru = Recurrence(LatentGRUCell(m.ts_in_dims, H, L, **OUTER, **kw))
+    rec_to_gen = Chain(Dense(2 * L, L, "tanh", **OUTER, **kw),
+                       Dense(L, 2 * N, **OUTER, **kw))
     gen_dynamics = Chain(
         Lambda(torch.tanh),
         *[Dense(N, H, "tanh", **kw) if i % 2 == 0 else Dense(H, N, "tanh", **kw)
@@ -240,7 +242,7 @@ def construct_time_series(cfg: ExperimentConfig, saveat, *, device=None,
         neural_ode=NeuralODE(gen_dynamics, saveat=saveat,
                              use_pallas=m.use_pallas, **_node_kwargs(cfg)),
         sol_to_ts=WrappedFunction(diffeqsol_to_timeseries),
-        gen_to_data=Dense(N, m.ts_in_dims, **kw),
+        gen_to_data=Dense(N, m.ts_in_dims, **OUTER, **kw),
     )
 
 

@@ -13,28 +13,28 @@ Both of the reference's as-is quirks are kept:
    (``latent_ode.jl:40``), so a step with no observation but Δt > 0 still
    updates.
 
-The reference's cell layers compute at the backend default (TF32 on a
-card); the port's compute FP32 at every tier until the chain family's tier
-is ported, with the latent model's other layers, whole (ROADMAP Queue 1
-item 11b).
+The cell's six Dense layers take ``precision`` (``nn.basic.layer_tier``):
+``construct_time_series`` builds them with the reference's None, the
+backend default its cell layers compute at, TF32 on a card and FP32 on the
+CPU; the default, ``SCOPE``, follows the enclosing ``product_tier_scope``.
 """
 from __future__ import annotations
 
 import torch
 
-from ..nn.basic import Chain, Dense
+from ..nn.basic import SCOPE, Chain, Dense
 from ..nn.module import Module
 
 
 class LatentGRUCell(Module):
     def __init__(self, in_dim: int, h_dim: int, latent_dim: int, *,
-                 generator=None, device=None):
+                 precision=SCOPE, generator=None, device=None):
         super().__init__()
         self.in_dim = in_dim
         self.h_dim = h_dim
         self.latent_dim = latent_dim
         n_in = latent_dim * 2 + in_dim * 2 + 1
-        kw = dict(generator=generator, device=device)
+        kw = dict(precision=precision, generator=generator, device=device)
         self.update_gate = Chain(Dense(n_in, h_dim, "tanh", **kw),
                                  Dense(h_dim, latent_dim, "sigmoid", **kw))
         self.reset_gate = Chain(Dense(n_in, h_dim, "tanh", **kw),

@@ -63,27 +63,27 @@ backward (``ops/cuda/fused_mlp_bwd.py``). Without ``use_persistent`` the
 loop calls the step kernel per attempt and the sweep the step-VJP kernel
 per accepted step.
 
-Precision tiers (the TD-MLP and conv families; reference
-``neural_ode.py:104-147, 262-325``): ``mm_precision`` is ``precision``
-resolved at ``rtol`` ('auto': 'highest' below 1e-4, else None, the backend
-default), ``bwd_precision`` is ``mm_precision`` under
+Precision tiers (the TD-MLP, conv and chain families; reference
+``neural_ode.py:104-147, 262-325, 408-469``): ``mm_precision`` is
+``precision`` resolved at ``rtol`` ('auto': 'highest' below 1e-4, else
+None, the backend default), ``bwd_precision`` is ``mm_precision`` under
 ``grad_precision='match'`` and None under ``'default'``.
 ``nn.basic.product_tier`` maps each to what a product computes on the
 device: the default is TF32 on a card and FP32 on the CPU. The forward
-(kernels 1, 2, 4 and 13, the sweep's window replay, the plain module's k1,
-dt probe and FSAL closure) runs at ``mm_precision``, the sweeps' and the
-stored adjoint's step VJPs' recompute (kernels 3, 7, 8 and 14) at
-``bwd_precision`` (the regulariser's and the direct adjoint's step VJPs at
-``mm_precision``, as the reference's fused steps), and every cotangent,
-data-gradient and weight-gradient product of kernels 3, 7, 8 and 14 at the
-default tier, the reference's ``grad_precision=None``. The plain route
-computes the dynamics' Dense and Conv products at ``mm_precision``'s tier,
-forward and backward (``nn.basic.product_tier_scope``), and warns that
+(kernels 1, 2, 4, 5 and 13, the sweep's window replay, the plain module's
+or chain's k1, dt probe and FSAL closure) runs at ``mm_precision``, the
+sweeps' and the stored adjoint's step VJPs' recompute (kernels 3, 7, 8, 9
+and 14) at ``bwd_precision`` (the regulariser's and the direct adjoint's
+step VJPs at ``mm_precision``, as the reference's fused steps), and every
+cotangent, data-gradient and weight-gradient product of kernels 3, 7, 8,
+9 and 14 at the default tier, the reference's ``grad_precision=None``. The
+plain route computes the dynamics' Dense and Conv products at
+``mm_precision``'s tier, forward and backward
+(``nn.basic.product_tier_scope``), and warns that
 ``grad_precision='default'`` does nothing there, as the reference does. A
 forward at the TF32 tier below rtol 1e-4 raises (the reference saturates
-``max_steps``). The SDE family's tiers are ``NeuralDSDE``'s. The chain
-(latent ODE) and score families compute FP32 at every tier for now, each
-until its own slice (ROADMAP Queue 1 item 11b).
+``max_steps``). The SDE family's tiers are ``NeuralDSDE``'s; the score
+samplers' are ``models/score_sde.py``'s.
 
 The other modes route each family as the reference does
 (``neural_ode.py:224-303``): on the TD-MLP's kernel route the dynamics is
@@ -315,8 +315,12 @@ class NeuralODE(Module):
             self.regularize == "unbiased")
         if self.family == "chain":
             from ..ops.cuda import chain_sweep_feasible
+            from ..ops.cuda.fused_solve_bwd import sweep_tiers
 
-            return chain_sweep_feasible(self.chain, n_save, device)
+            return chain_sweep_feasible(
+                self.chain, n_save, device,
+                sweep_tiers(self.mm_precision, None, self.bwd_precision,
+                            device))
         from ..ops.cuda import sweep_feasible
 
         w = self.tdmlp_weights()
@@ -336,9 +340,9 @@ class NeuralODE(Module):
 
     def forward_tier(self, device) -> str:
         """The tier of the dynamics' forward products on ``device``: the
-        TD-MLP and conv families' ``mm_precision``; FP32 for the other
-        families."""
-        if self.family not in ("tdmlp", "conv"):
+        TD-MLP, conv and chain families' ``mm_precision``; FP32 for the
+        other families."""
+        if self.family not in ("tdmlp", "conv", "chain"):
             return "fp32"
         return product_tier(self.mm_precision, device)
 
@@ -421,13 +425,16 @@ class NeuralODE(Module):
 
     def _chain_solvers(self):
         """(dynamics, step_fn, persistent_fn) of the chain family: the plain
-        chain for the loop, kernel 5 for the whole solve."""
+        chain for the loop, kernel 5 for the whole solve, both at
+        ``mm_precision``."""
         from ..ops.cuda import chain_eval, persistent_chain_solve
 
         params, chain = self.chain_params(), self.chain
+        prec = self.mm_precision
 
         def f(u, t, st):
-            return chain_eval(params, chain, u), st
+            tier = self.forward_tier(u.device)
+            return chain_eval(params, chain, u, tier), st
 
         def persistent(u0, tspan, *, saveat_arr, rtol, atol, max_steps,
                        f_state, **record):
@@ -435,7 +442,8 @@ class NeuralODE(Module):
                 return None  # decline: the eager loop runs
             out = persistent_chain_solve(
                 params, chain, u0.contiguous(), tspan, rtol=rtol, atol=atol,
-                saveat_arr=saveat_arr, max_steps=max_steps, **record,
+                saveat_arr=saveat_arr, max_steps=max_steps, precision=prec,
+                **record,
             )
             return _solution(out, f_state)
 
@@ -499,33 +507,42 @@ class NeuralODE(Module):
                     step_vjp=step_vjp, stateful=True)
 
     def _chain_stored_kwargs(self):
-        """``stored_odesolve``'s callables for the chain family: the plain
-        chain for f (and so for the FSAL closure and any eager step), kernel
-        5 for the recorded forward and kernel 9 for the sweep. The forward
-        declines where the sweep cannot run, so an eager forward is swept
-        by the eager sweep."""
+        """``stored_odesolve``'s callables for the chain family, routed as
+        the reference's: the plain chain for f (and so for the FSAL closure
+        and any eager step) and kernel 5 for the recorded forward at
+        ``mm_precision``, kernel 9 for the sweep with its replay at
+        ``mm_precision``, its recompute at ``bwd_precision`` and its
+        gradient products at the default tier (``grad_precision=None``),
+        whatever the forward's tier. The forward declines where the sweep
+        cannot run, so an eager forward is swept by the eager sweep."""
         from ..ops.cuda import (
             chain_eval, chain_sweep_feasible, persistent_chain_solve,
             persistent_chain_sweep,
         )
+        from ..ops.cuda.fused_solve_bwd import sweep_tiers
 
-        chain = self.chain
+        chain, prec = self.chain, self.mm_precision
+        tiers = dict(precision=prec, grad_precision=None,
+                     recompute_precision=self.bwd_precision)
 
         def f(u, t, params):
-            return chain_eval(params, chain, u)
+            return chain_eval(params, chain, u, self.forward_tier(u.device))
 
         def persistent_fn(u0, params, tspan, *, saveat_arr, **kw):
-            if not chain_sweep_feasible(chain, saveat_arr.shape[0], u0.device):
+            if not chain_sweep_feasible(chain, saveat_arr.shape[0], u0.device,
+                                        sweep_tiers(**tiers,
+                                                    device=u0.device)):
                 return None
             out = persistent_chain_solve(list(params), chain, u0.contiguous(),
-                                         tspan, saveat_arr=saveat_arr, **kw)
+                                         tspan, saveat_arr=saveat_arr,
+                                         precision=prec, **kw)
             return _solution(out, None)
 
         def sweep_fn(params, knot_ts, knot_us, naccept, saveat_arr, ct_ys,
                      ct_y, two_level_ctx=None):
             return persistent_chain_sweep(
                 list(params), chain, knot_ts, knot_us, naccept, saveat_arr,
-                ct_ys, ct_y, two_level_ctx=two_level_ctx)
+                ct_ys, ct_y, two_level_ctx=two_level_ctx, **tiers)
 
         kw = dict(f=f)
         if self.use_persistent:
@@ -714,7 +731,8 @@ class NeuralODE(Module):
             from ..ops.cuda import chain_eval
 
             params, chain = self.chain_params(), self.chain
-            return (lambda u, t, st: (chain_eval(params, chain, u), st)), None
+            return (lambda u, t, st: (chain_eval(
+                params, chain, u, self.forward_tier(u.device)), st)), None
         if self.family == "conv":
             from ..ops.cuda import differentiable_conv_step
 
@@ -760,7 +778,8 @@ class NeuralODE(Module):
 
             chain = self.chain
             return dict(f=lambda u, t, params, st: (
-                chain_eval(params, chain, u), st))
+                chain_eval(params, chain, u, self.forward_tier(u.device)),
+                st))
         if self.family == "conv":
             kw = self._conv_stored_kwargs(names)
             return dict(f=kw["f"], step_fn=kw["step_fn"])

@@ -27,11 +27,16 @@ from ``noise_source``, in that order, both from the caller's CPU
 reference's draws. Kernel 11 serves SRI/SOSRI only, as the reference's:
 ``'milstein'`` and ``'euler_heun'`` run the eager loop on any device.
 
-Tiers: the reference calls its samplers with no precision, so on a card
-their products take the backend default, TF32. The port's samplers, their
-kernels and the score net's Dense layers compute FP32 at every tier for
-now, until the score family's tier is ported whole (ROADMAP Queue 1 item
-11b).
+Tiers: the reference calls its samplers' kernels with no precision and
+evaluates the score module outside any precision scope, so on a card every
+product takes the backend default, TF32; so do the port's. Both samplers
+pass the reference's ``precision=None`` to kernels 11 and 6 (TF32 on a
+card: ``lrnde_vpsde_solve_tf32``, ``lrnde_persistent_pf_tf32``; FP32 on
+the CPU), and evaluate the score module (the eager loops of SRI, Milstein
+and Euler–Heun, and the dt heuristic) inside
+``product_tier_scope(product_tier(None, device))``. A TF32 forward below
+rtol 1e-4 raises (``nn.basic.check_product_tier``; README, documented
+deviations): the samplers' defaults (1e-2, 1e-4) are at or above it.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from typing import Callable, Optional
 import torch
 
 from ..core.containers import ArrayAndTime, get_array
+from ..nn.basic import check_product_tier, product_tier, product_tier_scope
 from ..ode.solve import ODESolution, odesolve
 from ..sde.brownian import PhiloxNormals
 from ..sde.solve import SRI_SOLVERS, sdesolve, solution_from
@@ -135,10 +141,13 @@ def noise_source(generator: torch.Generator, u: torch.Tensor):
     return lambda node: src(node).reshape((2,) + tuple(u.shape))
 
 
-def _start(shape, generator, device, score_fn, score_module):
+def _start(shape, generator, device, score_fn, score_module, rtol):
     from ..harness.construct import resolve_device
 
     device = resolve_device(device)
+    if score_module is not None:
+        # the module's products take the backend default: TF32 on a card
+        check_product_tier(product_tier(None, device), rtol)
     if score_module is not None and next(score_module.parameters(),
                                          None) is not None:
         on = next(score_module.parameters()).device
@@ -196,7 +205,7 @@ def sample_vpsde(
     """
     sde = sde or VPSDE()
     device, score, u_init = _start(shape, generator, device, score_fn,
-                                   score_module)
+                                   score_module, rtol)
     noise = noise_source(generator, u_init)
 
     def drift(u, tau):
@@ -218,14 +227,17 @@ def sample_vpsde(
                           **kw):
             out = persistent_vpsde_solve(
                 *kernel, u0, tspan, saveat_arr=saveat_arr,
-                beta_min=sde.beta_min, beta_max=sde.beta_max, t1=t1, **kw)
+                beta_min=sde.beta_min, beta_max=sde.beta_max, t1=t1,
+                precision=None, **kw)
             return solution_from(out, saveat_arr)
 
-    sol = sdesolve(
-        drift, diffusion, u_init, (0.0, t1 - t0), noise=noise, rtol=rtol,
-        atol=atol, solver=solver, max_steps=max_steps, adjoint="none",
-        persistent_fn=persistent_fn,
-    )
+    # the module's products at the backend default, as the reference's
+    with product_tier_scope(product_tier(None, device)):
+        sol = sdesolve(
+            drift, diffusion, u_init, (0.0, t1 - t0), noise=noise,
+            rtol=rtol, atol=atol, solver=solver, max_steps=max_steps,
+            adjoint="none", persistent_fn=persistent_fn,
+        )
     return sol.y_final, sol
 
 
@@ -256,7 +268,7 @@ def sample_probability_flow(
     """
     sde = sde or VPSDE()
     device, score, u_init = _start(shape, generator, device, score_fn,
-                                   score_module)
+                                   score_module, rtol)
 
     def dynamics(u, tau):
         t = t1 - tau
@@ -273,7 +285,8 @@ def sample_probability_flow(
             out = persistent_pf_solve(
                 *kernel, u0, tspan, rtol=rtol, atol=atol,
                 saveat_arr=saveat_arr, max_steps=max_steps,
-                beta_min=sde.beta_min, beta_max=sde.beta_max, t1=t1)
+                beta_min=sde.beta_min, beta_max=sde.beta_max, t1=t1,
+                precision=None)
             return ODESolution(
                 ts=saveat_arr, ys=out["ys"], t_final=out["t_final"],
                 y_final=out["y_final"], nfe=out["nfe"],
@@ -281,8 +294,9 @@ def sample_probability_flow(
                 success=out["success"], f_state=f_state,
             )
 
-    sol = odesolve(
-        dynamics, u_init, (0.0, t1 - t0), rtol=rtol, atol=atol,
-        max_steps=max_steps, adjoint="none", persistent_fn=persistent_fn,
-    )
+    with product_tier_scope(product_tier(None, device)):
+        sol = odesolve(
+            dynamics, u_init, (0.0, t1 - t0), rtol=rtol, atol=atol,
+            max_steps=max_steps, adjoint="none", persistent_fn=persistent_fn,
+        )
     return sol.y_final, sol

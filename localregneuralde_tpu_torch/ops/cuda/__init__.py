@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
 
 Every wrapper counts its kernel launches: a plain-integer ``launches``, or,
-for the TD-MLP, conv and SDE families' wrappers, which launch at the FP32
-or the TF32 tier, ``tier_launches`` by tier (``tier_launch_counts``).
+for the wrappers that launch at the FP32 or the TF32 tier (every family's
+but kernel 15's), ``tier_launches`` by tier (``tier_launch_counts``).
 ``launch_counts`` reads them (a tiered wrapper's sum) and
 ``reset_launch_counts`` zeroes them.
 """
@@ -102,7 +102,7 @@ def tier_launch_counts() -> dict:
     """Launches by product tier, for the wrappers that count them: a tier,
     or for the VJPs and the sweeps their tiers joined by ``/`` (the step
     VJPs' recompute/gradients, kernels 3 and 14; kernels 7's and 12's the
-    same; kernel 8's replay/recompute/gradients)."""
+    same; kernels 8's and 9's replay/recompute/gradients)."""
     return {name: dict(fn.tier_launches) for name, fn in KERNELS.items()
             if hasattr(fn, "tier_launches")}
 

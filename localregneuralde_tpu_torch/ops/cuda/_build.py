@@ -9,12 +9,14 @@ unchanged one is reused. Nothing here runs at import time.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -97,6 +99,8 @@ _SIGNATURES = {
     ),
     "lrnde_chain_solve_grid": [_P, _I, _I, _P],
     "lrnde_chain_sweep_grid": [_P, _I, _I, _I, _P],
+    "lrnde_chain_solve_grid_tf32": [_P, _I, _I, _P],
+    "lrnde_chain_sweep_grid_tiered": [_I, _P, _I, _I, _I, _P],
     "lrnde_conv_step": [_P] * 22 + [_I] + [_F] * 3 + [_I] * 5 + [_P],
     "lrnde_conv_step_tf32": [_P] * 22 + [_I] + [_F] * 3 + [_I] * 5 + [_P],
     "lrnde_conv_step_bwd": [_I] + [_P] * 29 + [_F] + [_I] * 5 + [_P],
@@ -123,12 +127,21 @@ _SIGNATURES = {
         + [_I] * 2 + [_F] * 3 + [_P]
     ),
     "lrnde_pf_solve_grid": [_P, _I, _I, _P],
+    "lrnde_pf_solve_grid_tf32": [_P, _I, _I, _P],
     "lrnde_sde_solve_grid": [_I, _I, _I, _P],
     "lrnde_conv_orient_tap": [_P] * 3 + [_I] * 5 + [_P],
     "lrnde_conv_orient_im2col": [_P] * 3 + [_I] * 5 + [_P],
     "lrnde_conv_orient_probe": [_I, _I] + [_P] * 3 + [_I] * 5 + [_P, _P],
     "lrnde_conv_orient_tile_test": [_P] * 3 + [_I, _I, _P],
 }
+
+# the TF32 instantiations take their FP32 entries' arguments
+_SIGNATURES.update({
+    "lrnde_persistent_chain_tf32": _SIGNATURES["lrnde_persistent_chain"],
+    "lrnde_chain_sweep_tiered": [_I] + _SIGNATURES["lrnde_chain_sweep"],
+    "lrnde_vpsde_solve_tf32": _SIGNATURES["lrnde_vpsde_solve"],
+    "lrnde_persistent_pf_tf32": _SIGNATURES["lrnde_persistent_pf"],
+})
 
 # C entry -> argument types of the integer queries
 _INTS = {
@@ -152,6 +165,10 @@ _SIZES = {
     "lrnde_step_scratch_floats": [_I] * 2,
     "lrnde_sde_solve_smem_floats": [_I] * 2,
     "lrnde_sde_sweep_smem_floats": [_I] * 3,
+    "lrnde_chain_solve_smem_floats_tf32": [_P, _I],
+    "lrnde_chain_sweep_smem_floats_tiered": [_I, _P, _I],
+    "lrnde_vpsde_solve_smem_floats_tf32": [_P, _I],
+    "lrnde_pf_solve_smem_floats_tf32": [_P, _I],
     "lrnde_sde_solve_smem_floats_tf32": [_I] * 2,
     "lrnde_sde_grad_floats": [_I] * 2,
     "lrnde_chain_solve_smem_floats": [_P, _I],
@@ -194,8 +211,8 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists.
     The sources compile in parallel, one ``nvcc`` each; the ptxas reports
-    (registers, shared memory, spills) are kept beside the library as
-    ``.log``."""
+    (registers, shared memory, spills) and each source's compile seconds
+    are kept beside the library as ``.log``."""
     lib = library_path()
     if lib.exists():
         return lib
@@ -206,11 +223,20 @@ def build() -> Path:
     nvcc = _nvcc()
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
             for src, o in zip(cu, objs)]
+    start = time.monotonic()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
-    log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
+
+    def finish(p):
+        out = p.communicate()[0]
+        return out, time.monotonic() - start
+
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        done = list(pool.map(finish, procs))
+    outs = [o for o, _ in done]
+    log = [f"{' '.join(c)}\n[{src.name} compiled in {sec:.1f} s]\n{o}"
+           for c, src, (o, sec) in zip(cmds, cu, done)]
     failed = [o for p, o in zip(procs, outs) if p.returncode != 0]
     tmp = lib.with_name(f"{tag}.tmp")
     if not failed:

@@ -44,7 +44,13 @@ VP-SDE of the score sampler on the clock τ = t1 − t, with drift
 ½β(t)·u + β(t)·s_θ(u, t) and diffusion √β(t), s_θ a TDChain of Dense layers
 (``match_td_score_chain``). It records no knots and keeps no reservoir; the
 first drift evaluation and the dt heuristic run outside at τ = t0. The
-kernels take any batch size (the reference declines B % 8 ≠ 0).
+kernels take any batch size (the reference declines B % 8 ≠ 0). Its
+``precision`` is the family's (default ``'highest'``); at the TF32 tier
+(``lrnde_vpsde_solve_tf32``, the reference sampler's backend default)
+each layer's a·W_l[:-1] rounds its operands to TF32 and accumulates in
+FP32; the time term t·W_l[-1], the biases and the β arithmetic stay FP32,
+as in the reference's kernel and its pure twin
+(``td_score_eval_plain(..., tier)``).
 """
 from __future__ import annotations
 
@@ -380,15 +386,17 @@ def score_chain_params(module, chain: ScoreChainSpec) -> list:
     return [p for key in chain.keys for p in (layers[key].w, layers[key].b)]
 
 
-def td_score_eval_plain(params, chain: ScoreChainSpec, x: torch.Tensor, t):
+def td_score_eval_plain(params, chain: ScoreChainSpec, x: torch.Tensor, t,
+                        tier: str = "fp32"):
     """The score chain at time ``t`` (the reference's ``td_score_eval_pure``):
     layer i is ``act(a·W_i[:-1] + t·W_i[-1] + b_i)``, the TD matrix's last
-    row the time weight. The plain versions of kernels 6 and 11 and their
-    first evaluations outside the kernels."""
+    row the time weight, the product a·W_i[:-1] at ``tier``
+    (``nn.basic.tier_matmul``) and the time term FP32. The plain versions
+    of kernels 6 and 11 and their first evaluations outside the kernels."""
     a = x
     for i, act in enumerate(chain.acts):
         w = params[2 * i]
-        z = a @ w[:-1] + t * w[-1] + params[2 * i + 1]
+        z = tier_matmul(a, w[:-1], tier) + t * w[-1] + params[2 * i + 1]
         a = torch.tanh(z) if act else z
     return a
 
@@ -442,17 +450,19 @@ def score_operands(params, chain: ScoreChainSpec, beta_min, beta_max, t1):
         float(beta_min), float(beta_max) - float(beta_min), float(t1))
 
 
-def vpsde_dynamics(params, chain: ScoreChainSpec, beta_min, beta_max, t1):
+def vpsde_dynamics(params, chain: ScoreChainSpec, beta_min, beta_max, t1,
+                   tier: str = "fp32"):
     """Kernel 11's drift and diffusion on the τ clock, ``f(x, τ)`` and
     ``g(x, τ)``: with t = t1 − τ and β = β_min + t·Δβ, the drift
     ½β·x + β·s_θ(x, t) (the reference sampler's −(−½β·x − β·s), rounded
-    alike) and the diffusion √β."""
+    alike; the score's products at ``tier``) and the diffusion √β."""
     d_beta = float(beta_max) - float(beta_min)
 
     def drift(x, tau):
         t = float(t1) - device_scalar(tau, x)
         b = float(beta_min) + t * d_beta
-        return (0.5 * b) * x + b * td_score_eval_plain(params, chain, x, t)
+        return (0.5 * b) * x + b * td_score_eval_plain(params, chain, x, t,
+                                                        tier)
 
     def diffusion(x, tau):
         t = float(t1) - device_scalar(tau, x)
@@ -464,12 +474,15 @@ def vpsde_dynamics(params, chain: ScoreChainSpec, beta_min, beta_max, t1):
 def persistent_vpsde_solve_plain(params, chain: ScoreChainSpec, u0, tspan, *,
                                  noise, rtol, atol, solver, delta, saveat_arr,
                                  max_steps, beta_min, beta_max, t1,
-                                 brownian_depth=24):
+                                 brownian_depth=24, tier: str = "fp32"):
     """The plain version of kernel 11: the eager SDE loop with the plain
-    score chain and the same noise source."""
+    score chain, its products at the resolved ``tier``, and the same noise
+    source."""
     check_fp32_products(rtol, u0.device)
+    check_product_tier(tier, rtol)
     t0, t_end = float(tspan[0]), float(tspan[1])
-    drift, diffusion = vpsde_dynamics(params, chain, beta_min, beta_max, t1)
+    drift, diffusion = vpsde_dynamics(params, chain, beta_min, beta_max, t1,
+                                      tier)
     dt_init = initial_dt(u0, drift(u0, t0), rtol, atol, t0, t_end)
     out = sde_loop(
         drift, diffusion, u0, t0, t_end, dt_init, noise=noise,
@@ -483,8 +496,9 @@ def persistent_vpsde_solve(params, chain: ScoreChainSpec, u0: torch.Tensor,
                            tspan, *, noise, rtol: float, atol: float,
                            solver: str, delta: float, saveat_arr: torch.Tensor,
                            max_steps: int, beta_min: float, beta_max: float,
-                           t1: float, brownian_depth=24):
-    """Run the whole adaptive reverse VP-SDE solve from ``u0`` (kernel 11).
+                           t1: float, brownian_depth=24, precision="highest"):
+    """Run the whole adaptive reverse VP-SDE solve from ``u0`` (kernel 11),
+    the score's products at ``precision``.
 
     ``params`` are the score chain's ``[W_0, b_0, ...]`` and ``chain`` its
     ``match_td_score_chain`` spec. Returns a dict of device tensors (no host
@@ -494,14 +508,18 @@ def persistent_vpsde_solve(params, chain: ScoreChainSpec, u0: torch.Tensor,
     launches the kernel, which draws the Brownian tree of the
     ``PhiloxNormals`` source ``noise`` itself; a CPU tensor runs
     ``persistent_vpsde_solve_plain``. Any batch size and number of saveat
-    times.
+    times. A TF32 solve below rtol 1e-4 raises (``check_product_tier``).
     """
+    tier = product_tier(precision, u0.device)
     kw = dict(noise=noise, rtol=rtol, atol=atol, solver=solver, delta=delta,
               saveat_arr=saveat_arr, max_steps=max_steps, beta_min=beta_min,
               beta_max=beta_max, t1=t1, brownian_depth=brownian_depth)
     if u0.device.type == "cpu":
-        return persistent_vpsde_solve_plain(params, chain, u0, tspan, **kw)
+        return persistent_vpsde_solve_plain(params, chain, u0, tspan,
+                                            tier=tier, **kw)
     check_fp32_products(rtol, u0.device)
+    check_product_tier(tier, rtol)
+    tf32 = tier == "tf32"
     if solver not in SRI_SOLVERS:
         raise ValueError(f"the SDE kernel runs {SRI_SOLVERS}, not {solver!r}")
     if not isinstance(noise, PhiloxNormals):
@@ -509,13 +527,14 @@ def persistent_vpsde_solve(params, chain: ScoreChainSpec, u0: torch.Tensor,
             "the SDE kernel draws its own Philox noise: a CUDA solve takes "
             f"a PhiloxNormals source, not {type(noise).__name__}"
         )
-    B, F = check_score_operands(params, chain, u0,
-                                "lrnde_vpsde_solve_smem_floats")
+    B, F = check_score_operands(
+        params, chain, u0,
+        "lrnde_vpsde_solve_smem_floats" + ("_tf32" if tf32 else ""))
     if noise.shape != (B, F):
         raise ValueError(f"noise source of shape {noise.shape}, state {(B, F)}")
     lib = _build.load_library()
     t0, t_end = float(tspan[0]), float(tspan[1])
-    drift, _ = vpsde_dynamics(params, chain, beta_min, beta_max, t1)
+    drift, _ = vpsde_dynamics(params, chain, beta_min, beta_max, t1, tier)
     dt_init = initial_dt(u0, drift(u0, t0), rtol, atol, t0, t_end)
     sc = device_scalars([t0, t_end, dt_init], u0)
     saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
@@ -532,7 +551,8 @@ def persistent_vpsde_solve(params, chain: ScoreChainSpec, u0: torch.Tensor,
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
     seed = noise.seed_word(dev)
     p = _build.ptr
-    err = lib.lrnde_vpsde_solve(
+    entry = lib.lrnde_vpsde_solve_tf32 if tf32 else lib.lrnde_vpsde_solve
+    err = entry(
         int(solver == "sosri"), p(u0), p(sc), p(saveat), n_save,
         *score_operands(params, chain, beta_min, beta_max, t1), p(seed),
         int(brownian_depth), p(y_final), p(ys), p(stats_i), p(stats_f),
@@ -541,7 +561,7 @@ def persistent_vpsde_solve(params, chain: ScoreChainSpec, u0: torch.Tensor,
         _build.stream_ptr(dev),
     )
     _build.check(lib, err, "persistent_vpsde_solve")
-    persistent_vpsde_solve.launches += 1
+    count_launch(persistent_vpsde_solve, tier)
     return dict(
         y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
         natt=stats_i[3], success=stats_i[2].bool(), t_final=stats_f[0],
@@ -549,4 +569,4 @@ def persistent_vpsde_solve(params, chain: ScoreChainSpec, u0: torch.Tensor,
     )
 
 
-persistent_vpsde_solve.launches = 0
+persistent_vpsde_solve.tier_launches = {}

@@ -36,14 +36,19 @@ solve for the autonomous Dense chain of the latent ODE (the reference's
 ``persistent_chain_solve``, family ``("chain", dims, acts, lead)``), with
 the same recording and reservoir, a warp a row (``chain_plan`` models its
 layout); its plain version is the eager loop with the plain chain
-(``chain_eval``).
+(``chain_eval``). ``precision`` as for kernel 4: at the TF32 tier
+(``lrnde_persistent_chain_tf32``, the reference's 'default') every layer's
+product rounds its operands to TF32 and accumulates in FP32, the kernel's
+on the tensor cores, the plain chain's through ``nn.basic.tier_matmul``.
 
 Kernel 6 (``persistent_pf_solve``, ``csrc/pf_solve.cu``) is the same solve
 for the probability-flow ODE of the score sampler, du/dτ = ½β(t)·(u +
 s_θ(u, t)) with t = t1 − τ (the reference's ``persistent_pf_solve``, family
 ``("pfode", ...)``), without knots or reservoir; the score network is
 kernel 11's (``fused_sde_solve.match_td_score_chain``), evaluated a warp a
-group of ``PF_WARP_ROWS`` rows (``pf_plan`` models its grid).
+group of ``PF_WARP_ROWS`` rows (``pf_plan`` models its grid); at the TF32
+tier (``lrnde_persistent_pf_tf32``, the reference sampler's backend
+default) its layers' products as kernel 11's (``fused_sde_solve``).
 """
 from __future__ import annotations
 
@@ -53,7 +58,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ...nn.basic import check_fp32_products, check_product_tier, product_tier
+from ...nn.basic import (
+    check_fp32_products,
+    check_product_tier,
+    product_tier,
+    tier_matmul,
+)
 from ...ode.controller import initial_step_size
 from ...ode.solve import (
     KNOT_FIELDS,
@@ -581,12 +591,31 @@ def _stage_stash(dims) -> int:
     return sum(round4(dims[l]) + round4(dims[l + 1]) for l in range(L))
 
 
-def chain_smem_floats(dims, J: int, sweep: bool = False) -> int:
+def frag_floats(M: int, K: int) -> int:
+    """Floats of an M × K weight's TF32 fragment copy: 16-row m-tiles by
+    8-deep k-steps of 128 floats (``csrc/tf32.cuh::frag_floats``)."""
+    return -(-M // 16) * -(-K // 8) * 128
+
+
+def chain_frag_floats(dims, transposed: bool = False) -> int:
+    """Floats of a layered network's fragment copies: the forward's W_lᵀ
+    (d_{l+1} × d_l) or the transpose's W_l (``csrc/chain_rows.cuh::
+    chain_frag_floats``)."""
+    return sum(frag_floats(dims[l], dims[l + 1]) if transposed
+               else frag_floats(dims[l + 1], dims[l])
+               for l in range(len(dims) - 1))
+
+
+def chain_smem_floats(dims, J: int, sweep: bool = False,
+                      tiers: tuple = ("fp32",) * 3) -> int:
     """A CTA's dynamic shared memory (floats) at J error blocks: kernel 5's
     (``chain_solve_smem_floats``) or kernel 9's
     (``chain_sweep_smem_floats``). The weights are held as W_lᵀ with b_l
     (the forward) and, in kernel 9, as W_l (the transpose), each row padded
-    to ``vec_ld`` (``csrc/chain_rows.cuh::ChainLayout``)."""
+    to ``vec_ld`` (``csrc/chain_rows.cuh::ChainLayout``). At the TF32 tiers
+    (replay or forward, recompute, gradients; kernel 5 reads the first) the
+    fragment copies follow: the forward's for a TF32 forward, replay or
+    recompute, the transpose's for TF32 gradients."""
     L, F, R = len(dims) - 1, dims[0], CHAIN_ROWS
     n_params = sum(dims[l] * dims[l + 1] + dims[l + 1] for l in range(L))
     fwd = sum(dims[l + 1] * vec_ld(dims[l]) + round4(dims[l + 1])
@@ -594,27 +623,34 @@ def chain_smem_floats(dims, J: int, sweep: bool = False) -> int:
     aw = round4(max(dims))
     blocks = J * (9 * R * F + R * F)
     if not sweep:
-        return fwd + 2 * R * aw + blocks
+        n = fwd + 2 * R * aw + blocks
+        return (round4(n) + chain_frag_floats(dims) if tiers[0] == "tf32"
+                else n)
     rev = sum(dims[l] * vec_ld(dims[l + 1]) for l in range(L))
-    return (fwd + rev + round4(n_params)
-            + R * (6 * _stage_stash(dims) + 15 * round4(F) + 2 * aw)
-            + blocks + 8 * CHAIN_MAX_SAVE)
+    n = (fwd + rev + round4(n_params)
+         + R * (6 * _stage_stash(dims) + 15 * round4(F) + 2 * aw)
+         + blocks + 8 * CHAIN_MAX_SAVE)
+    if "tf32" not in tiers:
+        return n
+    return (round4(n) + ("tf32" in tiers[:2]) * chain_frag_floats(dims)
+            + (tiers[2] == "tf32") * chain_frag_floats(dims, True))
 
 
 def chain_plan(B: int, dims, resident, *, sweep=False,
-               two_level=True) -> ChainPlan:
-    """The grid of kernel 5 (or, with ``sweep``, kernel 9) for B rows:
-    CTAs of ``CHAIN_ROWS`` warps, each owning J consecutive error blocks of
-    ``CHAIN_ROWS`` rows, J the least that lets every CTA be resident at
-    once, where ``resident(smem_bytes)`` is the CTAs an H100 holds at that
-    shared memory (the card's occupancy query). Kernel 9's dense mode
-    needs no residency: a CTA a block. Raises ValueError where no J fits."""
+               two_level=True, tiers: tuple = ("fp32",) * 3) -> ChainPlan:
+    """The grid of kernel 5 (or, with ``sweep``, kernel 9) for B rows at
+    the product ``tiers`` (``chain_smem_floats``): CTAs of ``CHAIN_ROWS``
+    warps, each owning J consecutive error blocks of ``CHAIN_ROWS`` rows, J
+    the least that lets every CTA be resident at once, where
+    ``resident(smem_bytes)`` is the CTAs an H100 holds at that shared
+    memory (the card's occupancy query). Kernel 9's dense mode needs no
+    residency: a CTA a block. Raises ValueError where no J fits."""
     n_blk = -(-B // CHAIN_ROWS)
     max_J = CHAIN_SWEEP_MAX_J if sweep else CHAIN_MAX_J
     if sweep and not two_level:
         max_J = 1
     for J in range(1, max_J + 1):
-        smem = 4 * chain_smem_floats(dims, J, sweep)
+        smem = 4 * chain_smem_floats(dims, J, sweep, tiers)
         fits = smem <= CHAIN_SMEM_BYTES and resident(smem) > 0
         if not fits:
             break
@@ -674,12 +710,16 @@ def match_dense_chain(model) -> Optional[DenseChainSpec]:
     return DenseChainSpec(tuple(dims), tuple(acts), lead)
 
 
-def chain_eval(params, chain: DenseChainSpec, x: torch.Tensor) -> torch.Tensor:
+def chain_eval(params, chain: DenseChainSpec, x: torch.Tensor,
+               tier: str = "fp32", grad_tier: Optional[str] = None
+               ) -> torch.Tensor:
     """The plain chain evaluation (the reference's ``chain_eval_pure``):
-    k1_0, the dt probe, and the plain versions of kernels 5 and 9."""
+    k1_0, the dt probe, and the plain versions of kernels 5 and 9; its
+    products at ``tier`` and under autograd their transposes at
+    ``grad_tier`` (default ``tier``; ``nn.basic.tier_matmul``)."""
     a = torch.tanh(x) if chain.lead else x
     for i, act in enumerate(chain.acts):
-        z = a @ params[2 * i] + params[2 * i + 1]
+        z = tier_matmul(a, params[2 * i], tier, grad_tier) + params[2 * i + 1]
         a = torch.tanh(z) if act else z
     return a
 
@@ -694,33 +734,45 @@ def chain_param_sizes(chain: DenseChainSpec):
 
 
 @functools.lru_cache(maxsize=None)
-def smem_bytes(dims: tuple, query: str) -> int:
+def smem_bytes(dims: tuple, query) -> int:
     """A CTA's dynamic shared memory for the network of widths ``dims``
     (the Dense chain's or the score chain's), from the library's C size
-    query ``query``; asked once per network."""
+    query ``query`` (or ``(query, tier bits)`` for a tiered one); asked
+    once per network."""
     lib = _build.load_library()
     L = len(dims) - 1
     arr = (ctypes.c_int * (L + 1))(*dims)
-    return 4 * getattr(lib, query)(ctypes.cast(arr, ctypes.c_void_p), L)
+    lead = ()
+    if isinstance(query, tuple):
+        query, bits = query
+        lead = (bits,)
+    return 4 * getattr(lib, query)(*lead, ctypes.cast(arr, ctypes.c_void_p),
+                                   L)
 
 
-def chain_limits(chain: DenseChainSpec, n_save=None, *,
-                 cuda=True) -> Optional[str]:
+def chain_limits(chain: DenseChainSpec, n_save=None, *, cuda=True,
+                 tiers: tuple = ("fp32",) * 3) -> Optional[str]:
     """Why the chain kernels cannot take ``chain``, or None when they can:
     kernel 5 alone, or kernels 5 and 9 for a sweep of ``n_save`` saveat
-    times. The limits: 1 to ``CHAIN_MAX_LAYERS`` layers, at most
+    times, at the product ``tiers`` (replay or forward, recompute,
+    gradients). The limits: 1 to ``CHAIN_MAX_LAYERS`` layers, at most
     ``CHAIN_MAX_SAVE`` saveat times in the sweep, and each kernel's shared
     memory within ``CHAIN_SMEM_BYTES`` (left out with ``cuda=False``, where
     the plain versions run)."""
+    from .fused_mlp_bwd import tier_bits
+
     L = len(chain.dims) - 1
     if not 1 <= L <= CHAIN_MAX_LAYERS:
         return f"chain: {L} layers, the kernels take 1 to {CHAIN_MAX_LAYERS}"
-    queries = ["lrnde_chain_solve_smem_floats"]
+    queries = ["lrnde_chain_solve_smem_floats"
+               + ("_tf32" if tiers[0] == "tf32" else "")]
     if n_save is not None:
         if n_save > CHAIN_MAX_SAVE:
             return (f"{n_save} saveat times, kernel 9 takes at most "
                     f"{CHAIN_MAX_SAVE}")
-        queries.append("lrnde_chain_sweep_smem_floats")
+        bits = tier_bits(replay=tiers[0], recompute=tiers[1], grad=tiers[2])
+        queries.append(("lrnde_chain_sweep_smem_floats_tiered", bits) if bits
+                       else "lrnde_chain_sweep_smem_floats")
     for q in queries if cuda else ():
         need = smem_bytes(chain.dims, q)
         if not 0 < need <= CHAIN_SMEM_BYTES:
@@ -743,13 +795,13 @@ def check_tensors(named, state: torch.Tensor) -> None:
 
 
 def check_chain_operands(params, chain: DenseChainSpec, *states,
-                         n_save=None) -> tuple:
+                         n_save=None, tiers=("fp32",) * 3) -> tuple:
     """Validate the chain's kernel operands: float32, contiguous, on one
     CUDA device, states (B, F), weights matching ``chain.dims``, and the
-    chain (with a sweep's ``n_save``) inside ``chain_limits``. Returns
-    (B, F)."""
+    chain (with a sweep's ``n_save``) inside ``chain_limits`` at
+    ``tiers``. Returns (B, F)."""
     B, F = states[0].shape
-    reason = chain_limits(chain, n_save)
+    reason = chain_limits(chain, n_save, tiers=tiers)
     if reason is not None:
         raise ValueError(reason)
     shapes = chain_param_sizes(chain)
@@ -785,12 +837,14 @@ def chain_operands(params, chain: DenseChainSpec):
 def persistent_chain_solve_plain(params, chain: DenseChainSpec, u0, tspan, *,
                                  rtol, atol, saveat_arr, max_steps,
                                  record_knots=False, knot_dense_cap=None,
-                                 knot_stride=1, reservoir=None):
+                                 knot_stride=1, reservoir=None,
+                                 tier: str = "fp32"):
     """The plain version of kernel 5: the eager loop of ``ode/solve.py``
-    (``adaptive_loop``) with the generic Tsit5 step of the plain chain,
-    recording as the kernel does (no k1 knots)."""
+    (``adaptive_loop``) with the generic Tsit5 step of the plain chain at
+    the resolved ``tier``, recording as the kernel does (no k1 knots)."""
+    check_product_tier(tier, rtol)
     return _plain_solve(
-        lambda u, t: chain_eval(params, chain, u), u0, tspan, rtol=rtol,
+        lambda u, t: chain_eval(params, chain, u, tier), u0, tspan, rtol=rtol,
         atol=atol, saveat_arr=saveat_arr, max_steps=max_steps,
         record_knots=record_knots, knot_dense_cap=knot_dense_cap,
         knot_stride=knot_stride, reservoir=reservoir,
@@ -801,8 +855,10 @@ def persistent_chain_solve(params, chain: DenseChainSpec, u0: torch.Tensor,
                            tspan, *, rtol: float, atol: float,
                            saveat_arr: torch.Tensor, max_steps: int,
                            record_knots=False, knot_dense_cap=None,
-                           knot_stride=1, reservoir=None):
-    """Run the whole adaptive solve of ``du/dt = chain(u)`` (kernel 5).
+                           knot_stride=1, reservoir=None,
+                           precision="highest"):
+    """Run the whole adaptive solve of ``du/dt = chain(u)`` (kernel 5), its
+    products (the kernel's and the start's) at ``precision``.
 
     The contract and return dict of ``persistent_tsit5_solve``: ``params``
     are the chain's ``[W_0, b_0, ...]`` and ``chain`` its
@@ -817,36 +873,45 @@ def persistent_chain_solve(params, chain: DenseChainSpec, u0: torch.Tensor,
     8 layers 20 ↔ 40, takes 31 KB a 4-row block). Any batch size the card
     holds resident (``chain_plan``: a CTA takes more blocks when the grid
     would not fit), any number of saveat times, unsorted; times ≤ t0
-    return u0.
+    return u0. A TF32 solve below rtol 1e-4 raises
+    (``check_product_tier``).
     """
+    tier = product_tier(precision, u0.device)
     check_reservoir(reservoir, max_steps)
     rec = dict(record_knots=record_knots, knot_dense_cap=knot_dense_cap,
                knot_stride=knot_stride, reservoir=reservoir)
     if u0.device.type == "cpu":
         return persistent_chain_solve_plain(
             params, chain, u0, tspan, rtol=rtol, atol=atol,
-            saveat_arr=saveat_arr, max_steps=max_steps, **rec,
+            saveat_arr=saveat_arr, max_steps=max_steps, tier=tier, **rec,
         )
     out = _launch_chain(params, chain, u0, tspan, rtol=rtol, atol=atol,
-                        saveat_arr=saveat_arr, max_steps=max_steps, **rec)
-    persistent_chain_solve.launches += 1
+                        saveat_arr=saveat_arr, max_steps=max_steps, tier=tier,
+                        **rec)
+    count_launch(persistent_chain_solve, tier)
     return out
 
 
 def _launch_chain(params, chain, u0, tspan, *, rtol, atol, saveat_arr,
                   max_steps, record_knots=False, knot_dense_cap=None,
-                  knot_stride=1, reservoir=None, timing=None):
-    """One launch of kernel 5 on CUDA tensors; with ``timing`` (int64,
-    one entry a phase of ``lrnde_chain_solve_phase_names`` and one more) the
+                  knot_stride=1, reservoir=None, timing=None, tier="fp32"):
+    """One launch of kernel 5 on CUDA tensors at the resolved ``tier``; with
+    ``timing`` (int64, one entry a phase of
+    ``lrnde_chain_solve_phase_names`` and one more; FP32 only) the
     instantiation with the compile-time clock, which fills it with CTA 0's
     nanoseconds per phase and the number of attempts."""
     check_fp32_products(rtol, u0.device)
-    B, F = check_chain_operands(params, chain, u0)
+    check_product_tier(tier, rtol)
+    tf32 = tier == "tf32"
+    if tf32 and timing is not None:
+        raise ValueError("kernel 5 has no clocked TF32 instantiation")
+    B, F = check_chain_operands(params, chain, u0, tiers=(tier,) * 3)
     lib = _build.load_library()
     chain_args = chain_operands(params, chain)
     t0, t_end = float(tspan[0]), float(tspan[1])
-    k1_0, dt_init, nfe0 = _start(lambda u, t: chain_eval(params, chain, u),
-                                 u0, t0, t_end, rtol, atol)
+    k1_0, dt_init, nfe0 = _start(
+        lambda u, t: chain_eval(params, chain, u, tier), u0, t0, t_end, rtol,
+        atol)
     sc = device_scalars([t0, t_end, dt_init], u0)
     saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
     n_save = saveat.shape[0]
@@ -867,7 +932,8 @@ def _launch_chain(params, chain, u0, tspan, *, rtol, atol, saveat_arr,
     p = _build.ptr
     null = ctypes.c_void_p(0)
     kp = lambda k: p(knots[k]) if k in knots else null  # noqa: E731
-    entry, clock = lib.lrnde_persistent_chain, []
+    entry, clock = (lib.lrnde_persistent_chain_tf32 if tf32
+                    else lib.lrnde_persistent_chain), []
     if timing is not None:
         entry, clock = lib.lrnde_persistent_chain_timed, [p(timing)]
     err = entry(
@@ -892,7 +958,7 @@ def _launch_chain(params, chain, u0, tspan, *, rtol, atol, saveat_arr,
     )
 
 
-persistent_chain_solve.launches = 0
+persistent_chain_solve.tier_launches = {}
 
 
 # ---------------------------------------------------------------------------
@@ -925,30 +991,34 @@ class PfPlan(NamedTuple):
     smem_bytes: int        # dynamic shared memory of a CTA
 
 
-def pf_smem_floats(dims, J: int) -> int:
+def pf_smem_floats(dims, J: int, tier: str = "fp32") -> int:
     """A kernel-6 CTA's dynamic shared memory (floats) at J error blocks:
     the network (W_lᵀ with rows of ``vec_ld(d_l)`` floats, the time row and
-    the bias, each padded to 4; ``csrc/score_rows.cuh::score_layout``), each
-    warp's stage-input rows (padded to 4) and two activation buffers (rows
-    of ``vec_ld`` of the widest layer), the blocks' state (u, k1..k7, u_new)
+    the bias, each padded to 4; ``csrc/score_rows.cuh::score_layout``; at
+    the TF32 ``tier`` then the layers' fragment copies), each warp's
+    stage-input rows (padded to 4) and two activation buffers (rows of
+    ``vec_ld`` of the widest layer), the blocks' state (u, k1..k7, u_new)
     and scaled residuals."""
     L, F = len(dims) - 1, dims[0]
     net = sum(dims[l + 1] * vec_ld(dims[l]) + 2 * round4(dims[l + 1])
               for l in range(L))
+    if tier == "tf32":
+        net += chain_frag_floats(dims)
     warps = PF_WARPS * PF_WARP_ROWS * (round4(F) + 2 * vec_ld(max(dims)))
     return net + warps + J * 10 * PF_ERROR_ROWS * F
 
 
-def pf_plan(B: int, dims, resident, n_sm: int = H100_SMS) -> PfPlan:
-    """The grid of kernel 6 for B rows: J error blocks a CTA, the least
-    that keeps the grid within one CTA an SM (fewer grid arrivals an
-    attempt), raised until every CTA is resident at once, where
+def pf_plan(B: int, dims, resident, n_sm: int = H100_SMS,
+            tier: str = "fp32") -> PfPlan:
+    """The grid of kernel 6 for B rows at ``tier``: J error blocks a CTA,
+    the least that keeps the grid within one CTA an SM (fewer grid arrivals
+    an attempt), raised until every CTA is resident at once, where
     ``resident(smem_bytes)`` is the CTAs the card holds at that shared
     memory (the occupancy query). Raises ValueError where no J up to
     ``PF_MAX_J`` fits."""
     n_blk = -(-B // PF_ERROR_ROWS)
     for J in range(max(1, -(-n_blk // n_sm)), PF_MAX_J + 1):
-        smem = 4 * pf_smem_floats(dims, J)
+        smem = 4 * pf_smem_floats(dims, J, tier)
         if smem > CHAIN_SMEM_BYTES or resident(smem) <= 0:
             break
         grid = -(-n_blk // J)
@@ -960,10 +1030,10 @@ def pf_plan(B: int, dims, resident, n_sm: int = H100_SMS) -> PfPlan:
                      f"resident CTAs of kernel 6")
 
 
-def pf_dynamics(params, chain, beta_min, beta_max, t1):
+def pf_dynamics(params, chain, beta_min, beta_max, t1, tier: str = "fp32"):
     """Kernel 6's dynamics on the τ clock, ``f(u, τ)``: with t = t1 − τ and
     β = β_min + t·Δβ, ½β·(u + s_θ(u, t)) (the reference sampler's
-    −(−½β·(u + s)), rounded alike)."""
+    −(−½β·(u + s)), rounded alike; the score's products at ``tier``)."""
     from .fused_sde_solve import td_score_eval_plain
 
     d_beta = float(beta_max) - float(beta_min)
@@ -971,17 +1041,20 @@ def pf_dynamics(params, chain, beta_min, beta_max, t1):
     def f(u, tau):
         t = float(t1) - device_scalar(tau, u)
         b = float(beta_min) + t * d_beta
-        return (0.5 * b) * (u + td_score_eval_plain(params, chain, u, t))
+        return (0.5 * b) * (u + td_score_eval_plain(params, chain, u, t,
+                                                     tier))
 
     return f
 
 
 def persistent_pf_solve_plain(params, chain, u0, tspan, *, rtol, atol,
-                              saveat_arr, max_steps, beta_min, beta_max, t1):
+                              saveat_arr, max_steps, beta_min, beta_max, t1,
+                              tier: str = "fp32"):
     """The plain version of kernel 6: the eager loop of ``ode/solve.py``
-    with the plain score chain."""
+    with the plain score chain at the resolved ``tier``."""
+    check_product_tier(tier, rtol)
     return _plain_solve(
-        pf_dynamics(params, chain, beta_min, beta_max, t1), u0, tspan,
+        pf_dynamics(params, chain, beta_min, beta_max, t1, tier), u0, tspan,
         rtol=rtol, atol=atol, saveat_arr=saveat_arr, max_steps=max_steps,
     )
 
@@ -989,9 +1062,9 @@ def persistent_pf_solve_plain(params, chain, u0, tspan, *, rtol, atol,
 def persistent_pf_solve(params, chain, u0: torch.Tensor, tspan, *,
                         rtol: float, atol: float, saveat_arr: torch.Tensor,
                         max_steps: int, beta_min: float, beta_max: float,
-                        t1: float):
+                        t1: float, precision="highest"):
     """Run the whole adaptive Tsit5 solve of the probability-flow ODE
-    (kernel 6).
+    (kernel 6), the score's products at ``precision``.
 
     ``params`` are the score chain's ``[W_0, b_0, ...]`` and ``chain`` its
     ``fused_sde_solve.match_td_score_chain`` spec. The return dict of
@@ -999,30 +1072,33 @@ def persistent_pf_solve(params, chain, u0: torch.Tensor, tspan, *,
     reference, k1 and the Hairer probe run outside the kernel, so NFE =
     1 + 1 + 6·attempts. A CUDA tensor launches the kernel; a CPU tensor runs
     ``persistent_pf_solve_plain``. Any batch size and number of saveat
-    times.
+    times. A TF32 solve below rtol 1e-4 raises (``check_product_tier``).
     """
     from .fused_sde_solve import check_score_operands, score_operands
 
+    tier = product_tier(precision, u0.device)
     kw = dict(rtol=rtol, atol=atol, saveat_arr=saveat_arr,
               max_steps=max_steps, beta_min=beta_min, beta_max=beta_max,
               t1=t1)
     if u0.device.type == "cpu":
-        return persistent_pf_solve_plain(params, chain, u0, tspan, **kw)
+        return persistent_pf_solve_plain(params, chain, u0, tspan, tier=tier,
+                                         **kw)
     check_fp32_products(rtol, u0.device)
-    B, F = check_score_operands(params, chain, u0,
-                                "lrnde_pf_solve_smem_floats")
+    check_product_tier(tier, rtol)
+    tf32 = tier == "tf32"
+    query = "lrnde_pf_solve_smem_floats" + ("_tf32" if tf32 else "")
+    B, F = check_score_operands(params, chain, u0, query)
     lib = _build.load_library()
     if (lib.lrnde_pf_error_rows(), lib.lrnde_pf_solve_threads(),
-            lib.lrnde_pf_warp_rows(),
-            smem_bytes(chain.dims, "lrnde_pf_solve_smem_floats")) != (
+            lib.lrnde_pf_warp_rows(), smem_bytes(chain.dims, query)) != (
             PF_ERROR_ROWS, PF_THREADS, PF_WARP_ROWS,
-            4 * pf_smem_floats(chain.dims, 1)):
+            4 * pf_smem_floats(chain.dims, 1, tier)):
         raise RuntimeError("persistent_pf_solve: the library's layout "
                            "differs from pf_plan's")
     t0, t_end = float(tspan[0]), float(tspan[1])
     k1_0, dt_init, nfe0 = _start(
-        pf_dynamics(params, chain, beta_min, beta_max, t1), u0, t0, t_end,
-        rtol, atol)
+        pf_dynamics(params, chain, beta_min, beta_max, t1, tier), u0, t0,
+        t_end, rtol, atol)
     sc = device_scalars([t0, t_end, dt_init], u0)
     saveat = saveat_arr.to(device=u0.device, dtype=torch.float32).contiguous()
     n_save = saveat.shape[0]
@@ -1035,7 +1111,8 @@ def persistent_pf_solve(params, chain, u0: torch.Tensor, tspan, *,
     slots = torch.empty(2 * n_blocks, dtype=torch.float32, device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
     p = _build.ptr
-    err = lib.lrnde_persistent_pf(
+    entry = lib.lrnde_persistent_pf_tf32 if tf32 else lib.lrnde_persistent_pf
+    err = entry(
         p(u0), p(k1_0), p(sc), p(saveat), n_save,
         *score_operands(params, chain, beta_min, beta_max, t1),
         p(y_final), p(ys), p(stats_i), p(stats_f), p(slots), p(barrier), B,
@@ -1043,7 +1120,7 @@ def persistent_pf_solve(params, chain, u0: torch.Tensor, tspan, *,
         _build.stream_ptr(dev),
     )
     _build.check(lib, err, "persistent_pf_solve")
-    persistent_pf_solve.launches += 1
+    count_launch(persistent_pf_solve, tier)
     return dict(
         y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
         success=stats_i[2].bool(), nfe=nfe0 + 6 * stats_i[3],
@@ -1051,4 +1128,4 @@ def persistent_pf_solve(params, chain, u0: torch.Tensor, tspan, *,
     )
 
 
-persistent_pf_solve.launches = 0
+persistent_pf_solve.tier_launches = {}

@@ -38,11 +38,14 @@ replay repeats the plain forward (``persistent_tsit5_solve_plain``) there.
 Kernel 9 (``persistent_chain_sweep``, ``csrc/chain_sweep.cu``) is the same
 sweep, dense and two-level, for the autonomous Dense chain of the latent
 ODE, a warp a row; its two-level replay runs kernel 5's attempt code. It
-returns the gradients of the chain's ``[W_0, b_0, ...]``.
+returns the gradients of the chain's ``[W_0, b_0, ...]``, and takes the
+tiers as kernel 8 does (``lrnde_chain_sweep_tiered``: the same
+``SWEEP_TIERS`` mixes, its TF32 replay kernel 5's TF32 attempt).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -379,44 +382,57 @@ persistent_two_level_sweep.tier_launches = {}
 # ---------------------------------------------------------------------------
 # kernel 9: the sweep of the autonomous Dense chain
 
-def chain_sweep_feasible(chain: DenseChainSpec, n_save: int, device) -> bool:
+def chain_sweep_feasible(chain: DenseChainSpec, n_save: int, device,
+                         tiers: tuple = ("fp32",) * 3) -> bool:
     """Whether kernels 5 and 9 take this chain and saveat count on
-    ``device`` (``chain_limits``; on the CPU, where the plain versions run,
-    without the shared-memory plan): the recorded forward declines when the
-    sweep cannot run, as the reference's ``chain_sweep_feasible`` makes
-    it."""
-    return chain_limits(chain, n_save,
+    ``device`` at the (replay or forward, recompute, gradient) ``tiers``
+    (``chain_limits``; on the CPU, where the plain versions run, without
+    the shared-memory plan): the recorded forward declines when the sweep
+    cannot run, as the reference's ``chain_sweep_feasible`` makes it."""
+    return chain_limits(chain, n_save, tiers=tiers,
                         cuda=torch.device(device).type != "cpu") is None
 
 
 def persistent_chain_sweep_plain(params, chain: DenseChainSpec, knot_ts,
                                  knot_us, naccept, saveat_arr, ct_ys, ct_y, *,
-                                 two_level_ctx=None):
+                                 two_level_ctx=None,
+                                 tiers: tuple = ("fp32",) * 3):
     """Plain version of kernel 9: the eager sweep of
     ``ode/stored_adjoint.py`` with the generic Tsit5 step of the plain chain
     and its autograd VJP, k1 recomputed from each knot; two-level when
-    ``two_level_ctx`` is given (the replay repeats the plain forward)."""
+    ``two_level_ctx`` is given (the replay repeats the plain forward). The
+    resolved ``tiers`` (``sweep_tiers``): the replay's products, the
+    recompute's (k1 and the stages) and the gradients' (the VJP's
+    transposed and weight-gradient products)."""
+    rep, rec, grad = tiers
 
-    def step(ps, u, t, dt, k1):
-        return tsit5_step(lambda u_, t_, st: (chain_eval(ps, chain, u_), st),
-                          u, t, dt, k1, None)
+    def step_at(tier, grad_tier=None):
+        def step(ps, u, t, dt, k1):
+            return tsit5_step(
+                lambda u_, t_, st: (chain_eval(ps, chain, u_, tier,
+                                               grad_tier), st),
+                u, t, dt, k1, None)
+
+        return step
 
     c = two_level_ctx or {}
     knots = dict(knot_ts=knot_ts, knot_us=knot_us,
                  **{k: c[k] for k in c if k.startswith("ckpt_")})
     return eager_sweep(
-        step, autograd_step_vjp(step), list(params), knots, naccept,
-        saveat_arr, ct_ys, ct_y, two_level=bool(c),
+        step_at(rep), autograd_step_vjp(step_at(rec, grad)), list(params),
+        knots, naccept, saveat_arr, ct_ys, ct_y, two_level=bool(c),
         t_end=torch.full((), float(c.get("t_end", 1.0)), device=ct_y.device),
         rtol=c.get("rtol"), atol=c.get("atol"), max_steps=c.get("max_steps"),
         stride=c.get("stride"), dense_cap=c.get("dense_cap"),
-        k1_of=lambda us, ts, ks, j: chain_eval(params, chain, us[j]),
+        k1_of=lambda us, ts, ks, j: chain_eval(params, chain, us[j], rec),
     )
 
 
 def persistent_chain_sweep(params, chain: DenseChainSpec, knot_ts, knot_us,
                            naccept, saveat_arr, ct_ys, ct_y, *,
-                           two_level_ctx=None, return_replay=False):
+                           two_level_ctx=None, return_replay=False,
+                           precision="highest", grad_precision="highest",
+                           recompute_precision="match"):
     """The stored-adjoint sweep of the chain (kernel 9), dense and two-level
     in one entry point as in the reference (``fused_solve_bwd.py:850``):
     without ``two_level_ctx`` (or with ``naccept <= dense_cap``, decided on
@@ -432,43 +448,63 @@ def persistent_chain_sweep(params, chain: DenseChainSpec, knot_ts, knot_us,
     + 1, B, F), which after a windowed sweep holds the states replayed from
     checkpoint 0. A CPU tensor runs ``persistent_chain_sweep_plain``.
 
+    ``precision``, ``grad_precision`` and ``recompute_precision`` have the
+    reference's meanings (``fused_solve_bwd.py:850-853``; resolved by
+    ``sweep_tiers``): the two-level replay at ``precision`` (at TF32
+    kernel 5's own TF32 attempt, which repeats a TF32 forward bitwise), the
+    recompute of k1 and the stages at ``recompute_precision`` ('match':
+    ``precision``), the transposed and weight-gradient products at
+    ``grad_precision``. The default keeps every product FP32; the model
+    passes the reference's (``precision``, None, its ``bwd_precision``).
+    ``persistent_chain_sweep.tier_launches`` counts the launches by
+    replay/recompute/gradient tier.
+
     Limits (``chain_limits``; it raises outside them): those of
     ``persistent_chain_solve``, at most ``CHAIN_MAX_SAVE`` saveat times, and
     the backward's shared memory (the weights and their transpose, the
     gradient partial and every stage's activations and layer cotangents of
-    a 4-row block; 137 KB for the PhysioNet chain) within
+    a 4-row block, and at TF32 tiers their fragment copies; 139 KB for the
+    PhysioNet chain at FP32, 217 KB with every tier TF32) within
     ``CHAIN_SMEM_BYTES``.
     """
+    tiers = sweep_tiers(precision, grad_precision, recompute_precision,
+                        ct_y.device)
     if ct_y.device.type == "cpu":
         return persistent_chain_sweep_plain(
             params, chain, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y,
-            two_level_ctx=two_level_ctx)
+            two_level_ctx=two_level_ctx, tiers=tiers)
     a_u, a_k, grads, local_us = _launch_chain_sweep(
         params, chain, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y,
-        two_level_ctx=two_level_ctx)
-    persistent_chain_sweep.launches += 1
+        two_level_ctx=two_level_ctx, tiers=tiers)
+    count_launch(persistent_chain_sweep, "/".join(tiers))
     out = a_u, a_k, grads
     return (out, local_us) if return_replay else out
 
 
 def _launch_chain_sweep(params, chain, knot_ts, knot_us, naccept, saveat_arr,
-                        ct_ys, ct_y, *, two_level_ctx=None, timing=None):
-    """One launch of kernel 9 on CUDA tensors: ``(a_u, a_k, grads,
-    local_us)``; with ``timing`` (int64, one entry a phase of
-    ``lrnde_chain_sweep_phase_names`` and one more) the instantiation with
-    the compile-time clock, which fills it with CTA 0's nanoseconds per
-    phase and the number of steps."""
+                        ct_ys, ct_y, *, two_level_ctx=None, timing=None,
+                        tiers=("fp32",) * 3):
+    """One launch of kernel 9 on CUDA tensors at the resolved (replay,
+    recompute, gradient) ``tiers``: ``(a_u, a_k, grads, local_us)``; with
+    ``timing`` (int64, one entry a phase of
+    ``lrnde_chain_sweep_phase_names`` and one more; all FP32 only) the
+    instantiation with the compile-time clock, which fills it with CTA 0's
+    nanoseconds per phase and the number of steps."""
+    bits = tier_bits(replay=tiers[0], recompute=tiers[1], grad=tiers[2])
+    if bits not in SWEEP_TIERS or (bits and timing is not None):
+        raise ValueError(f"kernel 9 has no instantiation at the tiers "
+                         f"{tiers}" + (" with a clock" if bits else ""))
     ct_ys, ct_y = ct_ys.contiguous(), ct_y.contiguous()
     if not knot_us.is_contiguous():
         raise ValueError("knot_us: needs a contiguous buffer")
     n_save = ct_ys.shape[0]
     B, F = check_chain_operands(params, chain, ct_y, *ct_ys, *knot_us[:1],
-                                n_save=n_save)
+                                n_save=n_save, tiers=tiers)
     dev = ct_y.device
     lib = _build.load_library()
     chain_args = chain_operands(params, chain)
     tl = two_level_ctx
-    grid = _chain_sweep_grid(lib, chain, B, tl is not None)
+    grid = _chain_sweep_grid(lib, chain, B, tl is not None, bits)
     n_blocks = -(-B // lib.lrnde_chain_error_rows())
     sizes = chain_param_sizes(chain)
     n_params = sum(math.prod(s) for s in sizes)
@@ -497,6 +533,8 @@ def _launch_chain_sweep(params, chain, knot_ts, knot_us, naccept, saveat_arr,
         extra = [p(part), null, null, null, null]
         scalars = (0.0, 0.0, 0.0, 0, 1, 0)
     entry, clock = lib.lrnde_chain_sweep, []
+    if bits:
+        entry = functools.partial(lib.lrnde_chain_sweep_tiered, bits)
     if timing is not None:
         entry, clock = lib.lrnde_chain_sweep_timed, [p(timing)]
     err = entry(
@@ -515,17 +553,19 @@ def _launch_chain_sweep(params, chain, knot_ts, knot_us, naccept, saveat_arr,
 
 
 def _chain_sweep_grid(lib, chain: DenseChainSpec, B: int,
-                      two_level: bool) -> int:
-    """Kernel 9's CTAs at B rows (one gradient partial each), from the
-    library's plan (``lrnde_chain_sweep_grid``)."""
+                      two_level: bool, bits: int = 0) -> int:
+    """Kernel 9's CTAs at B rows (one gradient partial each) at the tier
+    ``bits``, from the library's plan (``lrnde_chain_sweep_grid``, or
+    ``lrnde_chain_sweep_grid_tiered``)."""
     L = len(chain.dims) - 1
     dims = (ctypes.c_int * (L + 1))(*chain.dims)
     out = (ctypes.c_int * 2)()
-    err = lib.lrnde_chain_sweep_grid(ctypes.cast(dims, ctypes.c_void_p), L,
-                                     B, int(two_level),
-                                     ctypes.cast(out, ctypes.c_void_p))
+    args = (ctypes.cast(dims, ctypes.c_void_p), L, B, int(two_level),
+            ctypes.cast(out, ctypes.c_void_p))
+    err = (lib.lrnde_chain_sweep_grid_tiered(bits, *args) if bits
+           else lib.lrnde_chain_sweep_grid(*args))
     _build.check(lib, err, "persistent_chain_sweep: the grid")
     return out[1]
 
 
-persistent_chain_sweep.launches = 0
+persistent_chain_sweep.tier_launches = {}

@@ -2021,3 +2021,177 @@ def test_sde_sweep_tf32_matches_plain_on_card(cuda_device, features, hidden,
     again = persistent_sde_sweep(w, *args, **sw, precision=precision,
                                  grad_precision=None)
     assert all(torch.equal(a, b) for a, b in zip(flat(again), flat(ours)))
+
+
+# ------------------------------------ the score and chain families at TF32
+# Kernels 11, 6, 5 and 9 at the TF32 tier against their TF32 plain versions
+# on the same inputs (both round every operand as cvt.rna does, their FP32
+# sums in other orders): as accurate against float64 as the plain versions
+# (_conv_as_accurate: within twice the plain's error, the tensor cores'
+# truncated sums a floor), bitwise from run to run, launched at their tier.
+
+
+@pytest.mark.cuda
+def test_vpsde_solve_tf32_matches_plain_on_card(cuda_device):
+    # kernel 11 at TF32 on the same Philox path as its TF32 plain version
+    # and a float64 solve: the same accepts and rejects, y_final as
+    # accurate as the plain version's
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_vpsde_solve, persistent_vpsde_solve_plain,
+    )
+    from localregneuralde_tpu_torch.sde import PhiloxNormals
+
+    params, chain, x = _score_setup(cuda_device, 1000)
+    kw = dict(noise=PhiloxNormals(7, 1000, 2, device=cuda_device), rtol=1e-2,
+              atol=1e-2, solver="sosri", delta=1 / 6, max_steps=4096,
+              saveat_arr=torch.tensor([0.5, 0.999], device=cuda_device),
+              **SCHEDULE)
+    before = _tier_launches(persistent_vpsde_solve).get("tf32", 0)
+    out = persistent_vpsde_solve(params, chain, x, (0.0, 0.999),
+                                 precision=None, **kw)
+    assert _tier_launches(persistent_vpsde_solve)["tf32"] == before + 1
+    ref = persistent_vpsde_solve_plain(params, chain, x, (0.0, 0.999),
+                                       tier="tf32", **kw)
+    exact = persistent_vpsde_solve_plain([p.double() for p in params], chain,
+                                         x.double(), (0.0, 0.999), **kw)
+    assert bool(out["success"]) and bool(ref["success"])
+    steps = [(int(o["naccept"]), int(o["nreject"])) for o in (out, ref,
+                                                                exact)]
+    assert steps[0] == steps[1] == steps[2]
+    _conv_as_accurate([out["y_final"]], [ref["y_final"]], [exact["y_final"]],
+                      3, 65)
+    again = persistent_vpsde_solve(params, chain, x, (0.0, 0.999),
+                                   precision=None, **kw)
+    assert torch.equal(out["ys"], again["ys"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1001, 4096])
+def test_pf_solve_tf32_matches_plain_on_card(cuda_device, batch):
+    # kernel 6 at TF32: its steps follow TF32's noise in ũ as its plain
+    # version's do, so the two sum orders take other steps (within two
+    # attempts or a tenth of the NFE; at B = 24 the error norm averages too
+    # few elements and they part by three), y_final as accurate against
+    # the float64 solution as the plain version's
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_pf_solve, persistent_pf_solve_plain,
+    )
+
+    params, chain, x = _score_setup(cuda_device, batch)
+    kw = dict(rtol=1e-4, atol=1e-6, max_steps=2048,
+              saveat_arr=torch.tensor([0.5, 0.999], device=cuda_device),
+              **SCHEDULE)
+    before = _tier_launches(persistent_pf_solve).get("tf32", 0)
+    out = persistent_pf_solve(params, chain, x, (0.0, 0.999), precision=None,
+                              **kw)
+    assert _tier_launches(persistent_pf_solve)["tf32"] == before + 1
+    ref = persistent_pf_solve_plain(params, chain, x, (0.0, 0.999),
+                                    tier="tf32", **kw)
+    exact = persistent_pf_solve_plain(
+        [p.double() for p in params], chain, x.double(), (0.0, 0.999),
+        **dict(kw, rtol=1e-8, atol=1e-8, max_steps=20000))
+    assert bool(out["success"]) and bool(ref["success"])
+    assert abs(int(out["nfe"]) - int(ref["nfe"])) <= max(
+        12, 0.1 * int(ref["nfe"]))
+    _conv_as_accurate([out["y_final"]], [ref["y_final"]], [exact["y_final"]],
+                      3, 65)
+    again = persistent_pf_solve(params, chain, x, (0.0, 0.999),
+                                precision=None, **kw)
+    assert torch.equal(out["ys"], again["ys"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [7, 512])
+def test_chain_solve_tf32_matches_plain_on_card(cuda_device, batch):
+    # kernel 5 at TF32 (rtol 1e-4): NFE within two attempts of its TF32
+    # plain version, ys as accurate against the float64 solution as the
+    # plain version's; below rtol 1e-4 the tier is refused
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_chain_solve, persistent_chain_solve_plain,
+    )
+
+    params, chain, x = _chain_setup(cuda_device, batch)
+    saveat = torch.tensor([1.0, 0.0, 0.3, 0.7, 0.5], device=cuda_device)
+    kw = dict(rtol=1e-4, atol=1e-4, max_steps=512, saveat_arr=saveat)
+    before = _tier_launches(persistent_chain_solve).get("tf32", 0)
+    out = persistent_chain_solve(params, chain, x, (0.0, 1.0), precision=None,
+                                 **kw)
+    assert _tier_launches(persistent_chain_solve)["tf32"] == before + 1
+    ref = persistent_chain_solve_plain(params, chain, x, (0.0, 1.0),
+                                       tier="tf32", **kw)
+    exact = persistent_chain_solve_plain(
+        [p.double() for p in params], chain, x.double(), (0.0, 1.0),
+        **dict(kw, rtol=1e-10, atol=1e-10))
+    assert bool(out["success"]) and bool(ref["success"])
+    assert abs(int(out["nfe"]) - int(ref["nfe"])) <= 12
+    assert torch.equal(out["ys"][1], x)
+    _conv_as_accurate([out["ys"]], [ref["ys"]], [exact["ys"]], 8, 40)
+    again = persistent_chain_solve(params, chain, x, (0.0, 1.0),
+                                   precision=None, **kw)
+    assert torch.equal(out["ys"], again["ys"])
+    with pytest.raises(ValueError, match="1e-4"):
+        persistent_chain_solve(params, chain, x, (0.0, 1.0), precision=None,
+                               **dict(kw, rtol=1e-5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", [
+    ("highest", "highest"), (None, None), ("highest", "default"),
+], ids=["tiers 2", "tiers 7", "tiers 3"])
+def test_chain_sweep_tf32_matches_plain_on_card(cuda_device, tiers):
+    # kernel 9 at the route's tier mixes (precision, recompute_precision;
+    # the gradient products at the default tier: TF32) on kernel 5's knots
+    # at that forward tier, checkpoints every 2 accepts: as accurate
+    # against the float64 plain sweep as its plain version at the same
+    # tiers (the tensor cores' truncated sums over the sweep's steps a
+    # floor), bitwise from run to run; its two-level branch (capacity 1)
+    # replays the forward bitwise (a TF32 forward with kernel 5's TF32
+    # attempt)
+    from localregneuralde_tpu_torch.ops.cuda import (
+        persistent_chain_solve, persistent_chain_sweep,
+        persistent_chain_sweep_plain,
+    )
+    from localregneuralde_tpu_torch.ops.cuda.fused_solve_bwd import (
+        sweep_tiers,
+    )
+
+    precision, recompute = tiers
+    params, chain, x = _chain_setup(cuda_device, 64)
+    saveat = torch.linspace(0.0, 1.0, 7, device=cuda_device)
+    stride = 2
+    rec = persistent_chain_solve(
+        params, chain, x, (0.0, 1.0), rtol=1e-4, atol=1e-4,
+        saveat_arr=saveat, max_steps=512, record_knots=True,
+        knot_stride=stride, precision=precision)
+    n = int(rec["naccept"])
+    assert n > stride
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    ct_ys = torch.randn((7, 64, 20), generator=g, device=cuda_device)
+    ct_y = torch.randn((64, 20), generator=g, device=cuda_device)
+    args = (params, chain, rec["knot_ts"], rec["knot_us"], rec["naccept"],
+            saveat, ct_ys, ct_y)
+    kw = dict(precision=precision, grad_precision=None,
+              recompute_precision=recompute)
+    t = sweep_tiers(precision, None, recompute, cuda_device)
+    key = "/".join(t)
+    before = _tier_launches(persistent_chain_sweep).get(key, 0)
+    ours = persistent_chain_sweep(*args, **kw)
+    assert _tier_launches(persistent_chain_sweep)[key] == before + 1
+    ref = persistent_chain_sweep_plain(*args, tiers=t)
+    args64 = ([p.double() for p in params], chain) + tuple(
+        a.double() if a.is_floating_point() else a for a in args[2:])
+    exact = persistent_chain_sweep_plain(*args64)
+    flat = lambda o: [o[0], o[1], *o[2]]  # noqa: E731
+    depth = 6 * 8 + 1 + (7 * 8 if t[1] == "tf32" else 0)
+    _conv_as_accurate(flat(ours), flat(ref), flat(exact), n * depth, 40)
+    again = persistent_chain_sweep(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(flat(again), flat(ours)))
+    ctx = {k: rec[k] for k in rec if k.startswith("ckpt_")}
+    ctx.update(t_end=1.0, rtol=1e-4, atol=1e-4, max_steps=512,
+               stride=stride, dense_cap=1)
+    win, replay = persistent_chain_sweep(*args, two_level_ctx=ctx,
+                                         return_replay=True, **kw)
+    m = min(n, stride)
+    assert torch.equal(replay[:m + 1], rec["knot_us"][:m + 1])
+    for a, b in zip(flat(win), flat(ours)):
+        assert _rel(a, b) <= 1e-6
