@@ -2,9 +2,9 @@
 ``localregneuralde_tpu`` for NVIDIA Hopper GPUs.
 
 It mirrors the JAX package's layout and names (``ode/``, ``nn/``,
-``models/``, ``ops/``, ``harness/``) and keeps its public shapes: states are
-batch-major ``(B, F)``, a Dense weight is ``(in, out)``, and the time channel
-is the last input row. The JAX package is the reference the port is tested
+``models/``, ``ops/``, ``harness/``, ``utils/``) and keeps its public
+shapes: states are batch-major ``(B, F)``, a Dense weight is ``(in, out)``,
+and the time channel is the last input row. The JAX package is the reference the port is tested
 against; this package never imports JAX.
 
 Ported so far, with hand-written CUDA kernels (``csrc/``) on every path:
@@ -27,6 +27,10 @@ Ported so far, with hand-written CUDA kernels (``csrc/``) on every path:
   network; beside them, on no path, the conv-orientation probe's two conv
   kernels (``ops/cuda/conv_orient.py``).
 
+``utils/`` holds the phase timers and the profiler trace, and the serving
+export on ``torch.export``, whose programs record the solves of kernels 4,
+10 and 6 as registered operators (``ops/cuda/serving.py``).
+
 The entry points build on the CUDA device unless the caller passes
 ``device="cpu"``.
 
@@ -41,11 +45,33 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .core import ArrayAndTime, get_array  # noqa: E402
-from .models import NeuralODE, TDChain, diffeqsol_to_array  # noqa: E402
-from .ode import ODESolution, PIController, odesolve  # noqa: E402
-
 __version__ = "0.1.0"
+
+# the top-level names, imported on first use: a serving process that
+# imports ``utils/`` to load an artifact imports no model code
+# (``models/``)
+_LAZY = {
+    "ArrayAndTime": "core",
+    "get_array": "core",
+    "NeuralODE": "models",
+    "TDChain": "models",
+    "diffeqsol_to_array": "models",
+    "ODESolution": "ode",
+    "PIController": "ode",
+    "odesolve": "ode",
+}
+
+
+def __getattr__(name):
+    import importlib
+
+    if name in _LAZY:
+        value = getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                        name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "ArrayAndTime",

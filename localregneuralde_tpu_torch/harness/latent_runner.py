@@ -24,8 +24,10 @@ JAX runner's auto rule with the captured call in the TPU's place.
 ``train.grad_accumulation`` and ``train.ema_decay`` work as in the
 classification runner (``loop.py``); with an EMA, evaluation and the best
 checkpoint see the averaged weights. ``data_parallel`` (ROADMAP Queue 1 item
-14) raises. The reference's per-window phase probes are not run; the
-``fwd_time``, ``bwd_time`` and ``opt_time`` columns read NaN.
+14) raises. Once a print window the phase probes
+(``train.make_phase_probes``) time a forward and a forward with its
+backward on the eager step body, outside the window's wall time, for the
+``fwd_time``, ``bwd_time`` and ``opt_time`` columns.
 """
 from __future__ import annotations
 
@@ -66,6 +68,7 @@ from .train import (
     create_train_state,
     init_ema,
     make_multi_train_step,
+    make_phase_probes,
     make_train_step,
     swap_ema_params,
 )
@@ -219,14 +222,21 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
     best = np.inf if restored_best is None else float(restored_best)
     final_mse, final_nfe = np.inf, 0.0
 
-    def print_window(step, sums, window_n, ok, wall, data_time, bs):
+    # the per-window phase probes (fwd/bwd/opt columns)
+    measure_phases = make_phase_probes(model, loss_fn, optimizer)
+
+    def print_window(step, sums, window_n, ok, wall, data_time, bs, ts, batch,
+                     w):
         for k, v in zip(_STAT_KEYS, sums):
             tm[k].update(v / window_n, window_n * bs)
-        tm["batch_time"].update(wall / window_n, window_n)
+        t_fwd, t_fwdbwd = measure_phases(ts, batch, w)
+        step_time = wall / window_n
+        tm["batch_time"].update(step_time, window_n)
         tm["data_time"].update(data_time / window_n, window_n)
-        tm["step_time"].update(wall / window_n, window_n)
-        for k in ("fwd_time", "bwd_time", "opt_time"):
-            tm[k].update(float("nan"), window_n)
+        tm["step_time"].update(step_time, window_n)
+        tm["fwd_time"].update(t_fwd, window_n)
+        tm["bwd_time"].update(max(t_fwdbwd - t_fwd, 0.0), window_n)
+        tm["opt_time"].update(max(step_time - t_fwdbwd, 0.0), window_n)
         if not ok:
             print(f"WARNING [{step}]: adaptive solve exhausted max_steps "
                   "within this window", flush=True)
@@ -292,7 +302,7 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
             if step % cfg.train.print_frequency == 0:
                 print_window(step, sums.tolist(), window_n, bool(ok),
                              time.perf_counter() - t_window, data_time,
-                             int(batch[0].shape[0]))
+                             int(batch[0].shape[0]), ts, batch, w)
                 sums, ok, window_n, data_time = None, None, 0, 0.0
                 t_window = time.perf_counter()
             if step % cfg.train.evaluate_every == 0 or step == total_steps:

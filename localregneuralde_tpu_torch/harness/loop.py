@@ -104,8 +104,10 @@ def run_block_loop(multi_step, ts, stacks, *, initial_step: int,
     its steps' ``w_of(steps)`` and ``lr_of(steps)``; the reduction (a
     ``"row"`` of window stats and an ``"n_fail"`` count) is summed on the
     device and read once a print window. ``on_window(step, sums, n,
-    all_ok, wall, data_time, rows)`` logs a window, ``on_eval(step, w,
-    ts)`` evaluates and checkpoints, at the single-step loop's steps.
+    all_ok, wall, data_time, rows, ts, batch, w)`` logs a window (``wall``
+    taken before the call, so what it runs counts in no window; ``batch``
+    and ``w`` the window's last step's, for the phase probes), ``on_eval(step,
+    w, ts)`` evaluates and checkpoints, at the single-step loop's steps.
     Returns the final train state."""
     sums = fails = None
     window_n, data_time = 0, 0.0
@@ -123,16 +125,17 @@ def run_block_loop(multi_step, ts, stacks, *, initial_step: int,
         fails = red["n_fail"] if fails is None else fails + red["n_fail"]
         window_n += bk
         step += bk
+        last = (tuple(float(x[-1]) for x in w) if isinstance(w, tuple)
+                else float(w[-1]))
         if step % print_frequency == 0:
             host = torch.cat([sums, fails.reshape(1)]).tolist()
             on_window(step, host[:-1], window_n, host[-1] == 0.0,
                       time.perf_counter() - t_window, data_time,
-                      int(stack[0].shape[1]))
+                      int(stack[0].shape[1]), ts,
+                      tuple(a[-1] for a in stack), last)
             sums = fails = None
             window_n, data_time = 0, 0.0
             t_window = time.perf_counter()
         if step % evaluate_every == 0 or step == total_steps:
-            last = (tuple(float(x[-1]) for x in w) if isinstance(w, tuple)
-                    else float(w[-1]))
             on_eval(step, last, ts)
     return ts

@@ -27,8 +27,10 @@ place (``loop.resolve_steps_per_call``). ``train.grad_accumulation`` splits
 each batch into sequential microbatches with one update on their mean
 gradient; ``train.ema_decay`` keeps a params-EMA, which evaluation and the
 best checkpoint use. ``data_parallel`` (ROADMAP Queue 1 item 14) raises.
-The reference's per-window phase probes are not run; the ``fwd_time``,
-``bwd_time`` and ``opt_time`` columns read NaN.
+Once a print window the phase probes (``train.make_phase_probes``) time a
+forward and a forward with its backward on the eager step body, outside
+the window's wall time, for the ``fwd_time``, ``bwd_time`` and
+``opt_time`` columns.
 """
 from __future__ import annotations
 
@@ -76,6 +78,7 @@ from .train import (
     init_ema,
     make_eval_step,
     make_multi_train_step,
+    make_phase_probes,
     make_train_step,
     swap_ema_params,
     warmup_model,
@@ -204,14 +207,21 @@ def run_classification_experiment(
     best = -np.inf if restored_best is None else float(restored_best)
     final_eval: dict = {}
 
-    def print_window(step, sums, window_n, ok, wall, data_time, n_rows):
+    # the per-window phase probes (fwd/bwd/opt columns)
+    measure_phases = make_phase_probes(model, loss_fn, optimizer)
+
+    def print_window(step, sums, window_n, ok, wall, data_time, n_rows, ts,
+                     batch, w_reg):
         for k, v in zip(keys, sums):
             tm[k].update(v / window_n, window_n * n_rows)
-        tm["batch_time"].update(wall / window_n, window_n)
+        t_fwd, t_fwdbwd = measure_phases(ts, batch, w_reg)
+        step_time = wall / window_n
+        tm["batch_time"].update(step_time, window_n)
         tm["data_time"].update(data_time / window_n, window_n)
-        tm["step_time"].update(wall / window_n, window_n)
-        for k in ("fwd_time", "bwd_time", "opt_time"):
-            tm[k].update(float("nan"), window_n)
+        tm["step_time"].update(step_time, window_n)
+        tm["fwd_time"].update(t_fwd, window_n)
+        tm["bwd_time"].update(max(t_fwdbwd - t_fwd, 0.0), window_n)
+        tm["opt_time"].update(max(step_time - t_fwdbwd, 0.0), window_n)
         if not ok:
             print(f"WARNING [{step}]: adaptive solve exhausted max_steps "
                   "within this window (integration truncated; raise "
@@ -296,7 +306,7 @@ def run_classification_experiment(
         if step % cfg.train.print_frequency == 0:
             print_window(step, sums.tolist(), window_n, bool(ok),
                          time.perf_counter() - t_window, data_time,
-                         int(batch[0].shape[0]))
+                         int(batch[0].shape[0]), ts, batch, w_reg)
             sums, ok, window_n, data_time = None, None, 0, 0.0
             t_window = time.perf_counter()
         if step % cfg.train.evaluate_every == 0 or step == total_steps:

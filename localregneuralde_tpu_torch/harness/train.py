@@ -1,5 +1,6 @@
-"""Train state, the train step, the K-step train call, warmup and the eval
-step (reference ``experiments/src/utils.jl:104-153``); counterpart of
+"""Train state, the train step, the K-step train call, warmup, the eval
+step and the per-window phase probes (reference
+``experiments/src/utils.jl:104-153``); counterpart of
 ``localregneuralde_tpu/harness/train.py``, with microbatched gradients
 (``grad_accumulation``) and the params-EMA (``ema_decay``).
 
@@ -16,13 +17,16 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from ..models.draws import stage_draws, to_device, with_draws
+from ..models.draws import (
+    cloned_generators, stage_draws, to_device, with_draws,
+)
 from .optim import device_scalar_like
 
 
@@ -231,6 +235,56 @@ def make_multi_train_step(model, loss_fn, optimizer,
     return KStepCall(model, step_body(model, loss_fn, optimizer,
                                       grad_accumulation, ema_decay),
                      reduce_fn or default_reduce)
+
+
+def make_phase_probes(model, loss_fn, optimizer=None) -> Callable:
+    """Per-phase wall-clock metrics (reference ``utils.jl:107-121`` logs
+    forward, backward and optimizer separately; JAX ``train.py:275-322``).
+    The training step is one call (one CUDA-graph replay under the K-step
+    call), so the phases are probed on the eager step body, once per print
+    window: ``measure(ts, data, w_reg) -> (t_fwd, t_fwdbwd)`` times a
+    forward alone and a forward with its backward (``torch.autograd.grad``,
+    no update), each run once to warm up and once timed, each closed by a
+    fence on the device (``utils.profiling.fence``)::
+
+        fwd_time = t_fwd
+        bwd_time = t_fwdbwd - t_fwd
+        opt_time = step time - t_fwdbwd     (by the caller)
+
+    The probe leaves the run as it was: it works on a copy of the layer
+    state (the CIFAR BatchNorm's running statistics are written by a
+    training forward) whose generators are copies, so its draws take
+    nothing from the layers' generators, and it updates no parameter, no
+    optimizer state and no EMA. ``optimizer`` is unused (the reference's
+    signature)."""
+    from ..utils.profiling import fence
+
+    def run(ts: TrainState, data, w, backward: bool):
+        like = next(iter(ts.params.values()))
+        state = cloned_generators(ts.state)
+        state = with_draws(state, to_device(
+            stage_draws(model, state, data[0].shape[0]), like))
+        w = device_w(w, like)
+        if not backward:
+            with torch.no_grad():
+                return loss_fn(model, ts.params, state, data, w,
+                               training=True)[0]
+        loss = loss_fn(model, ts.params, state, data, w, training=True)[0]
+        params = list(ts.params.values())
+        return [g for g in torch.autograd.grad(loss, params, allow_unused=True)
+                if g is not None]
+
+    def timed(ts, data, w, backward: bool) -> float:
+        fence(run(ts, data, w, backward))  # warm-up
+        t0 = time.perf_counter()
+        fence(run(ts, data, w, backward))
+        return time.perf_counter() - t0
+
+    def measure(ts: TrainState, data, w_reg):
+        """``(t_fwd, t_fwdbwd)`` in seconds."""
+        return timed(ts, data, w_reg, False), timed(ts, data, w_reg, True)
+
+    return measure
 
 
 def make_eval_step(model, loss_fn) -> Callable:

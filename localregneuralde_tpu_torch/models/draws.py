@@ -84,3 +84,34 @@ def _set(tree, path, draws):
         return tree
     tree[path[0]] = _set(tree[path[0]], path[1:], draws)
     return tree
+
+
+def cloned_generators(state):
+    """``state`` with each ``torch.Generator`` replaced by a copy at the
+    same position (``get_state``/``set_state``), and each tensor by a
+    copy: draws staged from it, or a call on it, leave ``state`` as it
+    was."""
+    if isinstance(state, torch.Generator):
+        g = torch.Generator(device=state.device)
+        g.set_state(state.get_state())
+        return g
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    if isinstance(state, dict):
+        return {k: cloned_generators(v) for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return type(state)(cloned_generators(v) for v in state)
+    return state
+
+
+def stage_eval_draws(model, state, rows: int) -> Staged:
+    """One eval call's draws of every stochastic layer for a batch of
+    ``rows``, on the host; advances the layers' generators. Only the
+    layers whose ``draw`` takes ``training`` draw in eval (the NeuralDSDE's
+    Brownian seed); the NeuralODE's t1 or reservoir and the
+    reparameterisation's ε are training draws."""
+    import inspect
+
+    return {path: layer.draw(st, rows, training=False)
+            for path, layer, st in stochastic_layers(model, state)
+            if "training" in inspect.signature(layer.draw).parameters}

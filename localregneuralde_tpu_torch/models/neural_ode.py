@@ -633,7 +633,9 @@ class NeuralODE(Module):
         return kw
 
     def _eval_solve(self, x, state):
-        if self.uses_kernels(x):
+        if torch.compiler.is_exporting():
+            self._check_exportable(x)
+        if self.uses_kernels(x) or torch.compiler.is_exporting():
             f, step_fn, persistent_fn = self._kernel_solvers()
         else:
             f, step_fn, persistent_fn = self._generic_dynamics(), None, None
@@ -652,6 +654,29 @@ class NeuralODE(Module):
                          reg_val=torch.zeros((), device=x.device),
                          success=sol.success)
         return sol, new_state
+
+    def _check_exportable(self, x):
+        """Raise unless ``torch.export`` can trace this layer's eval solve
+        from ``x``: the TD-MLP family's persistent solve (kernel 4, its
+        registered operator ``lrnde::tsit5_solve``). The eager loop accepts
+        steps on the host, and so does the conv family's around kernel 13;
+        the chain family's kernel 5 has no operator yet."""
+        if (self.family != "tdmlp" or self.solver != "tsit5"
+                or not self.use_persistent or self.use_pallas == "off"):
+            raise NotImplementedError(
+                "torch.export takes a NeuralODE whose eval solve is kernel "
+                "4 (the TD-MLP family, Tsit5, use_persistent, use_pallas "
+                f"not 'off'); this layer's family is {self.family!r} with "
+                f"solver {self.solver!r}, whose adaptive loop accepts steps "
+                "on the host")
+        from ..ops.cuda import solve_feasible
+
+        w = self.tdmlp_weights()
+        if x.ndim != 2 or not solve_feasible(x.shape[0], w.b2.shape[0],
+                                             w.b1.shape[0]):
+            raise NotImplementedError(
+                f"torch.export: kernel 4 declines a state of shape "
+                f"{tuple(x.shape)} at H = {w.b1.shape[0]}")
 
     def apply_layer(self, x, state, *, training: bool = False):
         draws, state = pop_draws(state)

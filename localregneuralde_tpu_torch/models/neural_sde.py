@@ -340,12 +340,47 @@ class NeuralDSDE(Module):
 
         return persistent_fn, sweep_fn
 
+    def _serving_fn(self, params, seed, x):
+        """The eval solve's replacement on the kernel route (and whenever
+        ``torch.export`` traces the layer, which cannot trace the eager
+        loop): kernel 10 with its tree from the staged ``seed``, through
+        the registered operator ``lrnde::sde_solve``
+        (``ops/cuda/serving.py``); None where the eager loop runs."""
+        if not (self.uses_kernels(x) or torch.compiler.is_exporting()):
+            return None
+        if not self.kernel_mode():
+            raise NotImplementedError(
+                "torch.export of a NeuralDSDE takes the persistent SDE "
+                "solve (kernel 10: SRI/SOSRI, diagonal noise, "
+                "use_persistent); this layer's solver runs the eager loop")
+        from ..ops.cuda import SDEWeights
+        from ..ops.cuda.serving import sde_solve
+
+        tier = product_tier(self.mm_precision, x.device)
+        check_product_tier(tier, self.rtol)
+
+        def solve(u0, tspan, *, saveat_arr, rtol, atol, solver, delta,
+                  max_steps, brownian_depth, **_):
+            # the tree is the seed word's (the eval solve records nothing)
+            out = sde_solve(SDEWeights(*params), u0.contiguous(), seed, tspan,
+                            rtol=rtol, atol=atol, solver=solver, delta=delta,
+                            saveat_arr=saveat_arr, max_steps=max_steps,
+                            tier=tier, brownian_depth=brownian_depth)
+            return solution_from(out, saveat_arr)
+
+        return solve
+
     def apply_layer(self, x, state, *, training: bool = False):
         t2 = self.tspan[1]
         # every route's forward runs at this tier: refuse it below 1e-4
         check_product_tier(self.forward_tier(x.device), self.rtol)
         draws, state = pop_draws(state)
         if draws is None:
+            if torch.compiler.is_exporting():
+                raise ValueError(
+                    "torch.export cannot trace a NeuralDSDE's draw from its "
+                    "CPU generator: stage the call's draws in the state "
+                    "(utils/export.py's export_model does)")
             draws = to_device(self.draw(state, x.shape[0], training), x)
         noise = (noise_source(draws["seed"], x) if self.noise_dims is None
                  else noise_source(draws["seed"], x, self.noise_dims))
@@ -367,9 +402,7 @@ class NeuralDSDE(Module):
                 sol = sdesolve(
                     lambda u, t: f(u, t, params), lambda u, t: g(u, t, params),
                     x, self.tspan, saveat=saveat, adjoint="none",
-                    persistent_fn=None if persistent_fn is None else (
-                        lambda u0, tspan, **kw: persistent_fn(u0, params,
-                                                              tspan, **kw)),
+                    persistent_fn=self._serving_fn(params, draws["seed"], x),
                     **common,
                 )
             return sol, self._new_state(state, sol, x)

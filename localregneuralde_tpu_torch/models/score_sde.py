@@ -141,7 +141,8 @@ def noise_source(generator: torch.Generator, u: torch.Tensor):
     return lambda node: src(node).reshape((2,) + tuple(u.shape))
 
 
-def _start(shape, generator, device, score_fn, score_module, rtol):
+def _start(shape, generator, device, score_fn, score_module, rtol,
+           u_init=None):
     from ..harness.construct import resolve_device
 
     device = resolve_device(device)
@@ -154,7 +155,14 @@ def _start(shape, generator, device, score_fn, score_module, rtol):
         if on != device:
             raise ValueError(f"score_module on {on}, sampling on {device}")
     score = _resolve_score_fn(score_fn, score_module)
-    return device, score, sample_u_init(generator, shape, device)
+    if u_init is None:
+        return device, score, sample_u_init(generator, shape, device)
+    if (tuple(u_init.shape) != tuple(shape)
+            or u_init.device.type != device.type):
+        raise ValueError(f"u_init of shape {tuple(u_init.shape)} on "
+                         f"{u_init.device}, sampling {tuple(shape)} on "
+                         f"{device}")
+    return device, score, u_init
 
 
 def _score_chain(score_module, use_pallas):
@@ -257,6 +265,7 @@ def sample_probability_flow(
     score_module=None,
     use_pallas: bool = True,
     device=None,
+    u_init: Optional[torch.Tensor] = None,
 ):
     """The deterministic probability-flow ODE sampler (adaptive Tsit5):
     du/dt = −½β(t)·(u + s_θ(u, t)) from u(t1) ~ N(0, I) down to t0.
@@ -265,10 +274,15 @@ def sample_probability_flow(
     NFE. With a ``score_module`` the kernels take, the solve is one launch
     of kernel 6 on a CUDA device (its plain version on the CPU). Runs on
     ``device`` (default CUDA; without a GPU pass ``device='cpu'``).
+    ``u_init``, the starting noise u(t1) on ``device``, is drawn from
+    ``generator`` when None; given, the draw is a function of it alone, as
+    the reference's is of its key, so that ``utils.export.export_fn``
+    takes the sampler with its noise as an input (a generator cannot enter
+    an exported program).
     """
     sde = sde or VPSDE()
     device, score, u_init = _start(shape, generator, device, score_fn,
-                                   score_module, rtol)
+                                   score_module, rtol, u_init)
 
     def dynamics(u, tau):
         t = t1 - tau

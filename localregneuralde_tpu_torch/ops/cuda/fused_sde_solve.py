@@ -247,28 +247,46 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
     ``reservoir``), and with ``record_knots`` ``knot_ts`` (max_steps + 1),
     ``knot_us`` (max_steps + 1, B, F), ``knot_dws`` and ``knot_dzs``
     (max_steps, B, F), valid up to ``naccept``. A CUDA tensor launches the
-    kernel; a CPU tensor runs ``persistent_sde_solve_plain``.
+    kernel; a CPU tensor runs ``persistent_sde_solve_plain``. (A serving
+    solve from a staged seed word is ``serving.sde_solve``, the registered
+    operator ``lrnde::sde_solve`` that ``torch.export`` records.)
     """
     tier = product_tier(precision, u0.device)
-    kw = dict(noise=noise, rtol=rtol, atol=atol, solver=solver, delta=delta,
+    kw = dict(rtol=rtol, atol=atol, solver=solver, delta=delta,
               saveat_arr=saveat_arr, max_steps=max_steps,
               record_knots=record_knots, reservoir=reservoir,
               brownian_depth=brownian_depth)
     check_reservoir(reservoir, max_steps)
     if u0.device.type == "cpu":
-        return persistent_sde_solve_plain(w, u0, tspan, tier=tier, **kw)
-    check_fp32_products(rtol, u0.device)
-    check_product_tier(tier, rtol)
-    if solver not in SRI_SOLVERS:
-        raise ValueError(f"the SDE kernel runs {SRI_SOLVERS}, not {solver!r}")
+        return persistent_sde_solve_plain(w, u0, tspan, noise=noise,
+                                          tier=tier, **kw)
     if not isinstance(noise, PhiloxNormals):
         raise ValueError(
             "the SDE kernel draws its own Philox noise: a CUDA solve takes "
             f"a PhiloxNormals source, not {type(noise).__name__}"
         )
+    if noise.shape != tuple(u0.shape):
+        raise ValueError(f"noise source of shape {noise.shape}, state "
+                         f"{tuple(u0.shape)}")
+    out = _launch_sde_solve(w, u0, noise.seed_word(u0.device), tspan,
+                            tier=tier, **kw)
+    count_launch(persistent_sde_solve, tier)
+    return out
+
+
+def _launch_sde_solve(w: SDEWeights, u0, seed, tspan, *, rtol, atol, solver,
+                      delta, saveat_arr, max_steps, record_knots=False,
+                      reservoir=None, brownian_depth=24, tier="fp32"):
+    """One launch of kernel 10 on CUDA tensors at ``tier``, its Brownian
+    tree drawn from the seed word ``seed`` (a one-element int32 tensor on
+    the device); the return dict of ``persistent_sde_solve`` and
+    ``stats``, the kernel's int32 counters (naccept, nreject, success,
+    attempts), which the serving operator returns whole."""
+    check_fp32_products(rtol, u0.device)
+    check_product_tier(tier, rtol)
+    if solver not in SRI_SOLVERS:
+        raise ValueError(f"the SDE kernel runs {SRI_SOLVERS}, not {solver!r}")
     B, F, H = check_sde_operands(w, u0)
-    if noise.shape != (B, F):
-        raise ValueError(f"noise source of shape {noise.shape}, state {(B, F)}")
     plan = sde_solve_plan(B, F, H, tier=tier)
     tf32 = tier == "tf32"
     lib = _build.load_library()
@@ -293,7 +311,6 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
     wz = torch.empty((2, 2, B, F), device=dev)
     slots = torch.empty(2 * plan.n_blocks, device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
-    seed = noise.seed_word(dev)
     rand, res_u = reservoir_operands(reservoir, u0)
     knots = {}
     if record_knots:
@@ -318,11 +335,10 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
         1.0 / float(B * F), _build.stream_ptr(dev),
     )
     _build.check(lib, err, "persistent_sde_solve")
-    count_launch(persistent_sde_solve, tier)
     return dict(
         y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
         natt=stats_i[3], success=stats_i[2].bool(), t_final=stats_f[0],
-        ts=saveat_arr,
+        ts=saveat_arr, stats=stats_i,
         reservoir_t=stats_f[1] if reservoir is not None else None,
         reservoir_u=res_u, **knots,
     )

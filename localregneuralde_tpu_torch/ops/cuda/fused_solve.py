@@ -376,6 +376,7 @@ def _plain_solve(f, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
         y_final=out["y_final"], ys=out["ys"], naccept=out["naccept"],
         nreject=out["nreject"], success=out["success"],
         nfe=nfe0 + 6 * out["natt"], t_final=out["t_final"], ts=saveat_arr,
+        natt=out["natt"],
     )
     res.update({k: out.get(k) for k in KNOT_FIELDS + RESERVOIR_FIELDS
                 if k != "knot_ks"})
@@ -400,10 +401,19 @@ def persistent_tsit5_solve(w: TDMLPWeights, u0: torch.Tensor, tspan, *,
     (laid out by ``solve_plan``, which raises for a TD-MLP too wide for a
     CTA) at ``precision``'s tier; a CPU tensor runs
     ``persistent_tsit5_solve_plain``. The TF32 tier raises below rtol 1e-4.
+    A solve without knots or reservoir (serving) goes through the
+    registered operator ``lrnde::tsit5_solve`` (``ops/cuda/serving.py``),
+    which dispatches the same way and which ``torch.export`` records.
     """
     check_reservoir(reservoir, max_steps)
     tier = product_tier(precision, u0.device)
     check_product_tier(tier, rtol)
+    if not record_knots and reservoir is None:
+        from .serving import tsit5_solve
+
+        return tsit5_solve(w, u0, tspan, rtol=rtol, atol=atol,
+                           saveat_arr=saveat_arr, max_steps=max_steps,
+                           tier=tier)
     rec = dict(record_knots=record_knots, knot_dense_cap=knot_dense_cap,
                knot_stride=knot_stride, reservoir=reservoir)
     if u0.device.type == "cpu":
@@ -445,7 +455,9 @@ def _launch_solve(w, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
     of attempts. ``scratch`` (``plan.scratch_floats``), when given, is the
     kernel's global scratch, so that a check can read its buffers after
     the launch: u, u_new and k1..k7 in the segment layout (each (B, 8 ·
-    seg); accepting swaps only the kernel's pointers)."""
+    seg); accepting swaps only the kernel's pointers). The dict also holds
+    ``stats``, the kernel's int32 counters (naccept, nreject, success,
+    attempts), which the serving operator returns whole."""
     check_fp32_products(rtol, u0.device)
     B, F, H = check_operands(w, u0)
     lib, plan = _solve_layout(B, F, H)
@@ -501,7 +513,7 @@ def _launch_solve(w, u0, tspan, *, rtol, atol, saveat_arr, max_steps,
     return dict(
         y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
         success=stats_i[2].bool(), nfe=nfe0 + 6 * stats_i[3],
-        t_final=stats_f[0], ts=saveat_arr, **knots,
+        t_final=stats_f[0], ts=saveat_arr, stats=stats_i, **knots,
         **(dict(reservoir_t=stats_f[1], reservoir_u=res_u)
            if res_u is not None else {}),
     )
@@ -1071,18 +1083,27 @@ def persistent_pf_solve(params, chain, u0: torch.Tensor, tspan, *,
     ``persistent_tsit5_solve`` without knots or reservoir. As in the
     reference, k1 and the Hairer probe run outside the kernel, so NFE =
     1 + 1 + 6·attempts. A CUDA tensor launches the kernel; a CPU tensor runs
-    ``persistent_pf_solve_plain``. Any batch size and number of saveat
-    times. A TF32 solve below rtol 1e-4 raises (``check_product_tier``).
+    ``persistent_pf_solve_plain``, both through the registered operator
+    ``lrnde::pf_solve`` (``ops/cuda/serving.py``), which ``torch.export``
+    records. Any batch size and number of saveat times. A TF32 solve below
+    rtol 1e-4 raises (``check_product_tier``).
     """
+    tier = product_tier(precision, u0.device)
+    check_product_tier(tier, rtol)
+    from .serving import pf_solve
+
+    return pf_solve(params, chain, u0, tspan, rtol=rtol, atol=atol,
+                    saveat_arr=saveat_arr, max_steps=max_steps,
+                    beta_min=beta_min, beta_max=beta_max, t1=t1, tier=tier)
+
+
+def _launch_pf(params, chain, u0, tspan, *, rtol, atol, saveat_arr,
+               max_steps, beta_min, beta_max, t1, tier="fp32"):
+    """One launch of kernel 6 on CUDA tensors at ``tier`` (its start, k1
+    and the Hairer probe, through the plain score chain at the same
+    tier), with ``stats`` as ``_launch_solve``'s."""
     from .fused_sde_solve import check_score_operands, score_operands
 
-    tier = product_tier(precision, u0.device)
-    kw = dict(rtol=rtol, atol=atol, saveat_arr=saveat_arr,
-              max_steps=max_steps, beta_min=beta_min, beta_max=beta_max,
-              t1=t1)
-    if u0.device.type == "cpu":
-        return persistent_pf_solve_plain(params, chain, u0, tspan, tier=tier,
-                                         **kw)
     check_fp32_products(rtol, u0.device)
     check_product_tier(tier, rtol)
     tf32 = tier == "tf32"
@@ -1120,11 +1141,10 @@ def persistent_pf_solve(params, chain, u0: torch.Tensor, tspan, *,
         _build.stream_ptr(dev),
     )
     _build.check(lib, err, "persistent_pf_solve")
-    count_launch(persistent_pf_solve, tier)
     return dict(
         y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
         success=stats_i[2].bool(), nfe=nfe0 + 6 * stats_i[3],
-        t_final=stats_f[0], ts=saveat_arr,
+        t_final=stats_f[0], ts=saveat_arr, stats=stats_i,
     )
 
 

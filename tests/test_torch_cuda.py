@@ -2195,3 +2195,114 @@ def test_chain_sweep_tf32_matches_plain_on_card(cuda_device, tiers):
     assert torch.equal(replay[:m + 1], rec["knot_us"][:m + 1])
     for a, b in zip(flat(win), flat(ours)):
         assert _rel(a, b) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_solve_operators_pass_opcheck_on_card(cuda_device):
+    """The registered serving operators (``ops/cuda/serving.py``) with
+    CUDA inputs: schema, fake implementation and dispatch
+    (``torch.library.opcheck``), each launching its kernel."""
+    from localregneuralde_tpu_torch.ops.cuda import serving
+
+    g = torch.Generator().manual_seed(0)
+
+    def r(*s):
+        return (0.3 * torch.randn(*s, generator=g)).to(cuda_device)
+
+    F, H, B = 32, 64, 40
+    saveat = torch.tensor([0.5, 1.0], device=cuda_device)
+    for tier in ("fp32", "tf32"):
+        torch.library.opcheck(serving._tsit5_op, (
+            r(F + 1, H), r(H), r(H + 1, F), r(F), r(B, F), saveat, 0.0, 1.0,
+            1e-3, 1e-3, 64, tier))
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda_device)
+    torch.library.opcheck(serving._sde_op, (
+        r(F, H), r(H), r(H, F), r(F), r(F, F), r(F), r(B, F), seed, saveat,
+        0.0, 1.0, 0.14, 0.14, 1e-3, "sosri", 256, 24, "tf32"))
+    torch.library.opcheck(serving._pf_op, (
+        [r(3, 16), r(16), r(17, 2), r(2)], r(B, 2), saveat, [2, 16, 2],
+        [True, False], 0.0, 0.999, 1e-3, 1e-3, 256, 0.1, 20.0, 1.0, "tf32"))
+
+
+@pytest.mark.cuda
+def test_serving_operators_never_run_a_plain_version(cuda_device,
+                                                     monkeypatch):
+    """A CUDA input reaches the kernel through each operator, never its
+    plain version (made to raise here), and counts one launch."""
+    from localregneuralde_tpu_torch.ops.cuda import (
+        SDEWeights, ScoreChainSpec, persistent_pf_solve, reset_launch_counts,
+        tier_launch_counts,
+    )
+    from localregneuralde_tpu_torch.ops.cuda import serving
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA input reached a plain version")
+
+    for name in ("persistent_tsit5_solve_plain", "persistent_sde_solve_plain",
+                 "persistent_pf_solve_plain"):
+        monkeypatch.setattr(serving, name, refuse)
+    w, x = _card_setup(cuda_device, 64, 32, 16)
+    g = torch.Generator().manual_seed(1)
+    sw = SDEWeights(*[(0.3 * torch.randn(s, generator=g)).to(cuda_device)
+                      for s in ((32, 16), (16,), (16, 32), (32,), (32, 32),
+                                (32,))])
+    saveat = torch.tensor([1.0], device=cuda_device)
+    reset_launch_counts()
+    persistent_tsit5_solve(w, x, (0.0, 1.0), rtol=1e-4, atol=1e-4,
+                           max_steps=64, saveat_arr=saveat)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda_device)
+    serving.sde_solve(sw, x, seed, (0.0, 1.0), rtol=0.14, atol=0.14,
+                      solver="sosri", delta=1e-3, saveat_arr=saveat,
+                      max_steps=256, tier="fp32")
+    params = [p.to(cuda_device) for p in (
+        0.3 * torch.randn(3, 16, generator=g), torch.zeros(16),
+        0.3 * torch.randn(17, 2, generator=g), torch.zeros(2))]
+    persistent_pf_solve(params, ScoreChainSpec((2, 16, 2), (True, False),
+                                               ("a", "b")),
+                        torch.rand(64, 2, generator=g).to(cuda_device),
+                        (0.0, 0.999),
+                        rtol=1e-3, atol=1e-3, saveat_arr=saveat,
+                        max_steps=256, beta_min=0.1, beta_max=20.0, t1=1.0)
+    counts = tier_launch_counts()
+    assert counts["persistent_tsit5_solve"] == {"fp32": 1}
+    assert counts["persistent_sde_solve"] == {"fp32": 1}
+    assert counts["persistent_pf_solve"] == {"fp32": 1}
+
+
+@pytest.mark.cuda
+def test_export_on_card_equals_the_live_model(cuda_device, tmp_path):
+    """A tiny TD-MLP classifier on the card: its loaded artifact is
+    ``torch.equal`` to the live model, NFE included, through kernel 4."""
+    from localregneuralde_tpu_torch.models import (
+        NeuralODE, TDChain, diffeqsol_to_array,
+    )
+    from localregneuralde_tpu_torch.nn import (
+        Chain, Dense, Flatten, WrappedFunction,
+    )
+    from localregneuralde_tpu_torch.ops.cuda import (
+        reset_launch_counts, tier_launch_counts,
+    )
+    from localregneuralde_tpu_torch.utils import (
+        export_model, load_exported, save_exported,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    model = Chain(
+        flatten=Flatten(),
+        neural_ode=NeuralODE(TDChain(Dense(13, 8, "tanh", generator=g),
+                                     Dense(9, 12, generator=g)),
+                             rtol=1e-3, atol=1e-3, max_steps=64),
+        sol_to_arr=WrappedFunction(diffeqsol_to_array),
+        classifier=Dense(12, 3, generator=g)).to(cuda_device)
+    st = model.init_state()
+    x = torch.rand(40, 3, 4, 1, generator=g).to(cuda_device)
+    save_exported(export_model(model, None, st, x, with_state=True),
+                  str(tmp_path / "m.lrnde"))
+    fn = load_exported(str(tmp_path / "m.lrnde"))
+    reset_launch_counts()
+    y, st_out = fn(x)
+    assert tier_launch_counts()["persistent_tsit5_solve"] == {"tf32": 1}
+    with torch.no_grad():
+        y_live, st_live = model(x, st, training=False)
+    assert torch.equal(y, y_live)
+    assert int(st_out["neural_ode"]["nfe"]) == int(st_live["neural_ode"]["nfe"])

@@ -34,6 +34,13 @@ def test_imports_with_jax_blocked():
         "import localregneuralde_tpu_torch.harness.logging\n"
         "import localregneuralde_tpu_torch.models.latent_ode\n"
         "import localregneuralde_tpu_torch.nn.recurrence\n"
+        "import localregneuralde_tpu_torch.utils\n"
+        "import localregneuralde_tpu_torch.utils.export\n"
+        "import localregneuralde_tpu_torch.utils.profiling\n"
+        "import localregneuralde_tpu_torch.ops.cuda.serving\n"
+        "from localregneuralde_tpu_torch.utils import (PhaseTimer, trace,\n"
+        "    export_fn, export_model, export_model_multi, save_exported,\n"
+        "    load_exported)\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

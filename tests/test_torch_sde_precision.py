@@ -74,6 +74,7 @@ from localregneuralde_tpu_torch.ops.cuda import (
     persistent_sde_solve_plain,
     persistent_sde_sweep,
     persistent_sde_sweep_plain,
+    serving,
 )
 from localregneuralde_tpu_torch.ops.cuda.fused_mlp_bwd import step_bwd_tiers
 from localregneuralde_tpu_torch.ops.cuda.fused_sde_solve import (
@@ -326,16 +327,23 @@ ROUTE_KW = dict(rtol=TOL, atol=TOL, max_steps=64)
 class _Recorder:
     """Wraps kernel 10's and 12's wrappers and ``nn.basic.layer_tier``, and
     records the tiers each is called at (resolved where it is called): the
-    wrappers', and the drift's and diffusion's Dense layers'."""
+    wrappers' (kernel 10's eval solve is the serving operator's,
+    ``serving.sde_solve``, its tier resolved by the layer), and the drift's
+    and diffusion's Dense layers'."""
 
     def __init__(self, monkeypatch):
         self.k10, self.k12, self.dense = [], [], []
         k10, k12 = ops.cuda.persistent_sde_solve, ops.cuda.persistent_sde_sweep
+        k10_eval = serving.sde_solve
         layer_tier = basic.layer_tier
 
         def rec10(*a, precision="highest", **kw):
             self.k10.append(product_tier(precision, a[1].device))
             return k10(*a, precision=precision, **kw)
+
+        def rec10_eval(*a, tier, **kw):
+            self.k10.append(tier)
+            return k10_eval(*a, tier=tier, **kw)
 
         def rec12(*a, precision="highest", grad_precision="match", **kw):
             self.k12.append("/".join(step_bwd_tiers(precision, grad_precision,
@@ -349,6 +357,7 @@ class _Recorder:
             return tier
 
         monkeypatch.setattr(ops.cuda, "persistent_sde_solve", rec10)
+        monkeypatch.setattr(serving, "sde_solve", rec10_eval)
         monkeypatch.setattr(ops.cuda, "persistent_sde_sweep", rec12)
         monkeypatch.setattr(basic, "layer_tier", rec_tier)
 
