@@ -180,7 +180,22 @@ on the card:
     once, no plain version's loop) and prints ms a call both ways; then
     the phase probes (``[export probes]``): a captured bench training run
     through ``run_classification_experiment`` with finite fwd/bwd/opt
-    columns, bitwise the run without probes.
+    columns, bitwise the run without probes;
+21. data parallelism (``parallel/``, ``[dp ...]``, also ``--only=dp``) at
+    ``mlp.yaml``'s full width with the regulariser on: world 1 over NCCL
+    in this process (the per-rank step bitwise the single-device step, the
+    global-grid step bitwise the non-persistent kernel route's, kernels 2
+    and 3); world 2 over Gloo as two processes on this card (this script
+    with ``--dp-worker``): the per-rank step bitwise the two half-batch
+    steps averaged, the global grid at 'highest' rtol 1e-4 against the
+    single-device step (NFE within 12, loss within ``DP_LOSS_RTOL``,
+    gradients within ``DP_GRAD_REL`` of the largest), its 'auto' tier and
+    ``mlp.yaml``'s rtol printed, each rank's kernels under
+    ``torch.profiler`` (kernels 4 and 8, or 2 and 3, and no GEMM beyond
+    the single-device route's: no plain version), ms a DP step beside the
+    single-device step with the all-reduce's share; then both runners
+    (``mlp.yaml``, ``physionet.yaml``) for a few steps on two ranks:
+    rc 0, equal windows, rank 0's checkpoint.
 
 Beside those: each persistent kernel's outputs (kernels 4 at both
 tolerances, 5, 6, 8's replay and its gradients, 9, 10, 11 and 12, and
@@ -233,8 +248,8 @@ train calls (``[capture ...]``), ``tf32_sde`` the SDE family's TF32 tier
 family's (``[tf32 score ...]`` and ``[score sample ...]``), ``tf32_chain``
 the chain family's (``[tf32 chain ...]``, ``[tf32 latent ...]`` and
 ``[capture physionet]``), ``export`` the serving export and the phase
-probes (``[export ...]``) and ``tf32`` the TF32 tier whole (``[tf32
-...]``, ``[tf32 conv ...]``, ``[tf32 sde ...]``, the score and chain
+probes (``[export ...]``), ``dp`` data parallelism (``[dp ...]``) and
+``tf32`` the TF32 tier whole (``[tf32 ...]``, ``[tf32 conv ...]``, ``[tf32 sde ...]``, the score and chain
 families', the capture of the TD-MLP, MNIST-SDE, PhysioNet and CIFAR
 paths and ``[cifar repeat]``).
 
@@ -954,6 +969,8 @@ def phase_build():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    global CARD
+    CARD = smi
 
 
 def phase_kernels(device):
@@ -7698,10 +7715,558 @@ def phase_probes(device):
           "export probes: bad time columns or the probes moved the run")
 
 
+# ---------------------------------------------------------------- [dp ...]
+# Data parallelism (localregneuralde_tpu_torch/parallel) at mlp.yaml's full
+# width (784 -> 100 -> 784, B = 512, the regulariser on): world 1 over NCCL
+# in this process, world 2 over Gloo as two processes on this card (this
+# script with --dp-worker), and both runners on two ranks.
+
+DP_STEPS = 3
+# the global grid's gated check: 'highest' (FP32) at rtol 1e-4, where the
+# error estimate is well above its rounding noise
+DP_HIGHEST = ["--model.solver.reltol=1e-4", "--model.solver.abstol=1e-4",
+              "--model.solver.max_steps=64",
+              "--model.solver.precision=highest"]
+DP_AUTO = ["--model.solver.reltol=1e-4", "--model.solver.abstol=1e-4",
+           "--model.solver.max_steps=64"]
+# the regulariser's gradient is gated where its error estimate stands well
+# above float32 rounding (rtol 3e-2, tests/test_torch_train.py); at 1e-4
+# it is rounding noise, so there the cross-entropy's gradient is gated
+DP_REG = ["--model.solver.reltol=3e-2", "--model.solver.abstol=3e-2",
+          "--model.solver.max_steps=64", "--model.solver.precision=highest"]
+# (tag, overrides, the parts gated against the single device)
+DP_GLOBAL = (("highest", DP_HIGHEST, ("ce",)), ("reg", DP_REG, ("loss",)),
+             ("auto", DP_AUTO, ()), ("mlp.yaml", [], ()))
+DP_LOSS_RTOL = 1e-5   # the global grid's loss against the single device
+DP_GRAD_REL = 1e-3    # its gradients, relative to the largest
+CARD = ""             # nvidia-smi's name and power limit (phase_build)
+
+
+def _dp_model(overrides, device):
+    from localregneuralde_tpu_torch.harness import (
+        construct_loss, construct_model, construct_optimizer,
+        create_train_state, define_configuration,
+    )
+
+    cfg = define_configuration(overrides + ["--model.regularize=unbiased"],
+                               CONFIG)
+    model = construct_model(cfg, device=device)
+    loss_fn, w_reg = construct_loss(cfg)
+    opt, sched = construct_optimizer(cfg)
+    return model, loss_fn, opt, create_train_state(model, opt), w_reg, sched
+
+
+def _dp_batches(device, rows=B, n=DP_STEPS + 1):
+    import torch
+
+    from localregneuralde_tpu_torch.harness import (
+        one_hot, synthetic_classification,
+    )
+
+    x, y, _, _ = synthetic_classification((28, 28), 1, 10, seed=0)
+    return [(torch.tensor(x[i * rows:(i + 1) * rows], device=device),
+             torch.tensor(one_hot(y[i * rows:(i + 1) * rows], 10),
+                          device=device))
+            for i in range(n)]
+
+
+def _rank_mean(values, n):
+    acc = values[0]
+    for v in values[1:]:
+        acc = acc + v
+    return acc / n
+
+
+def _per_rank_by_hand(model, loss_fn, opt, ts, batch, w, lr, n):
+    """The per-rank estimator by hand, on one device: rank r's rows through
+    the single-device forward and backward with rank r's draws
+    (``parallel.rank_state``), the rank means in rank order, one update of
+    a copy of ``ts``. Returns (ts', loss, the ranks' NFE)."""
+    import copy
+
+    from localregneuralde_tpu_torch.harness.train import device_w, step_grads
+    from localregneuralde_tpu_torch.models.draws import (
+        cloned_generators, stage_draws, to_device,
+    )
+    from localregneuralde_tpu_torch.parallel import rank_state
+
+    rows = int(batch[0].shape[0]) // n
+    like = next(iter(ts.params.values()))
+    res = []
+    for r in range(n):
+        st = rank_state(cloned_generators(ts.state), r)
+        draws = [to_device(stage_draws(model, st, rows), like)]
+        part = tuple(a[r * rows:(r + 1) * rows] for a in batch)
+        res.append(step_grads(model, loss_fn, 1, ts, part, device_w(w, like),
+                              draws))
+    grads = [_rank_mean([x[3][i] for x in res], n)
+             for i in range(len(res[0][3]))]
+    ts2 = copy.deepcopy(ts)
+    opt.apply(ts2.opt_state, list(ts2.params.values()), grads, lr)
+    return (ts2, _rank_mean([x[0] for x in res], n),
+            [int(x[2]["nfe"]) for x in res])
+
+
+def _global_grads(model, loss_fn, ts, batch, w, dp=None):
+    """Loss, NFE and gradients of one training step without the update,
+    its draws from a copy of the generators (so each call takes the same
+    t1): the single-device step's on ``batch``, or with ``dp`` the global
+    grid's on this rank's rows (its reductions included)."""
+    from localregneuralde_tpu_torch.harness.train import (
+        device_w, stage_step, step_grads,
+    )
+    from localregneuralde_tpu_torch.models.draws import (
+        cloned_generators, to_device,
+    )
+    from localregneuralde_tpu_torch.parallel.sharded_train import (
+        GlobalGridSync, check_global_grid,
+    )
+
+    like = next(iter(ts.params.values()))
+    draws = [to_device(d, like) for d in stage_step(
+        model, cloned_generators(ts.state), int(batch[0].shape[0]), 1)]
+    sync = None
+    if dp is not None:
+        sync = GlobalGridSync(dp, check_global_grid(model))
+    loss, state, stats, grads = step_grads(
+        model, loss_fn, 1, ts, batch, device_w(w, like), draws,
+        None if sync is None else sync.state_in)
+    if sync is not None:
+        loss, state, stats, grads = sync.reduce(loss, state, stats, grads)
+    return loss, int(stats["nfe"]), [g.detach() for g in grads]
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _timed_steps(step, ts, batches, w_reg, sched):
+    """``step`` over ``batches`` from ``ts``: ms and NFE of each step (host
+    clock, closed by a synchronise)."""
+    ms, nfe = [], []
+    dev = batches[0][0].device
+    for i, data in enumerate(batches):
+        _sync(dev)
+        t0 = time.perf_counter()
+        ts, loss, stats = step(ts, data, w_reg(i + 1), sched(i + 1))
+        _sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        nfe.append(float(stats["nfe"]))
+    return ts, ms, nfe
+
+
+def _all_kernels(fn):
+    """Every device kernel ``fn`` launches (``torch.profiler``, the window
+    between two bursts of int16 marker fills)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():  # a rehearsal on the CPU
+        fn()
+        return {}
+    marker = torch.zeros(1, dtype=torch.int16, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_EDGE):
+            marker.fill_(1)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_GUARD_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_GUARD_S)
+        for _ in range(PROFILE_EDGE):
+            marker.fill_(4)
+        torch.cuda.synchronize()
+    return dict(collections.Counter(
+        e.name.split("(")[0][:80] for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "FillFunctor<short>" not in e.name))
+
+
+def _plain_gemms(names):
+    """The dense-product library kernels among ``names`` (cuBLAS and
+    CUTLASS GEMMs): the plain TD-MLP's products would launch these."""
+    return {k: v for k, v in names.items()
+            if any(s in k.lower() for s in ("gemm", "xmma", "cutlass"))}
+
+
+def _check_kernel_route(tag, dp_names, ref_names, want):
+    """The DP step's device kernels: ``want`` (the port's) launched, and no
+    GEMM beyond the single-device kernel route's (the classifier's own):
+    no plain version of a kernel ran."""
+    ours = {k: v for k, v in dp_names.items() if "lrnde" in k}
+    extra = {k: v - _plain_gemms(ref_names).get(k, 0)
+             for k, v in _plain_gemms(dp_names).items()
+             if v > _plain_gemms(ref_names).get(k, 0)}
+    print(f"[dp {tag}] profile: port kernels {ours}; GEMMs "
+          f"{_plain_gemms(dp_names)} (single device "
+          f"{_plain_gemms(ref_names)})")
+    check(all(any(w in k for k in ours) for w in want) and not extra,
+          f"dp {tag}: kernels {ours} lack {want} or extra GEMMs {extra}")
+
+
+def dp_worker(job_file, rank, port, device="cuda:0"):
+    """One rank of the world-2 checks, on ``device`` over Gloo: the per-rank
+    step at mlp.yaml and the global grid's gradients at 'highest' rtol 1e-4
+    (checked by the parent), timings, profiles and the NFE of the global
+    grid at the 'auto' tier and mlp.yaml's rtol."""
+    import copy
+
+    import torch
+
+    from localregneuralde_tpu_torch.harness import warmup_model
+    from localregneuralde_tpu_torch.ops.cuda import reset_launch_counts
+    from localregneuralde_tpu_torch.parallel import (
+        make_dp_group, make_sharded_train_step, make_shardmap_train_step,
+        multihost, shard_batch,
+    )
+    from localregneuralde_tpu_torch.parallel.mesh import mean_over_ranks
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    multihost.initialize(rank=rank, world_size=2, master_port=port,
+                         backend="gloo", device=device)
+    dp = make_dp_group()
+    job = torch.load(job_file)
+    extra = job["extra"]
+    batches = _dp_batches(device, job["rows"])
+    data = [shard_batch(b, dp) for b in batches]
+    out = {}
+
+    model, loss_fn, opt, ts, w_reg, sched = _dp_model(extra, device)
+    multihost.place_train_state(ts, dp)
+    step = make_shardmap_train_step(model, loss_fn, opt, dp)
+    warmup_model(step, None, ts, data[0], w_reg(1), sched(1))
+    _sync(device)
+    reset_launch_counts()
+    ts1, loss, stats = step(ts, data[0], w_reg(1), sched(1))
+    counts = tier_counts()
+    out["per_rank"] = dict(
+        loss=loss.detach().cpu().clone(), nfe=float(stats["nfe"]),
+        launches=counts,
+        params={k: v.detach().cpu().clone() for k, v in ts1.params.items()})
+    names = _all_kernels(lambda: step(copy.deepcopy(ts1), data[1], w_reg(2),
+                                      sched(2)))
+    _, ms, nfe = _timed_steps(step, ts1, data[1:], w_reg, sched)
+    flat = torch.cat([loss.reshape(1)] + [p.detach().reshape(-1)
+                                          for p in ts1.params.values()])
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        mean_over_ranks(flat, dp)
+    _sync(device)
+    # host clock: Gloo stages a CUDA tensor through host memory
+    reduce_ms = 1e3 * (time.perf_counter() - t0) / 20
+    out["per_rank"].update(ms=ms, nfe_steps=nfe, kernels=names,
+                           reduce_ms=reduce_ms)
+
+    for tag, overrides, gated in DP_GLOBAL:
+        model, loss_fn, opt, ts, w_reg, sched = _dp_model(overrides + extra,
+                                                          device)
+        res = {}
+        for part, w in (("ce", 0.0), ("loss", w_reg(1))):
+            if part in gated or part == "loss":
+                loss, nfe, grads = _global_grads(model, loss_fn, ts, data[0],
+                                                 w, dp)
+                res[part] = dict(loss=loss.cpu(), nfe=nfe,
+                                 grads=[g.cpu() for g in grads])
+        if tag == "highest":
+            step = make_sharded_train_step(model, loss_fn, opt, dp)
+            warmup_model(step, None, ts, data[0], w_reg(1), sched(1))
+            before = tier_counts()
+            ts1, _, _ = step(copy.deepcopy(ts), data[0], w_reg(1), sched(1))
+            after = tier_counts()
+            res["launches"] = {k: after[k] - before[k] for k in after}
+            res["kernels"] = _all_kernels(
+                lambda: step(copy.deepcopy(ts), data[1], w_reg(2), sched(2)))
+            _, res["ms"], res["nfe_steps"] = _timed_steps(
+                step, ts, data[1:], w_reg, sched)
+            res["reduce_ms"] = reduce_ms
+        out[f"global_{tag}"] = res
+    torch.save(out, f"{job_file}.rank{rank}")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _spawn(args_of, n=2, timeout=900, env_of=None):
+    """``n`` processes of ``args_of(rank, port)``; returns their (rc,
+    stdout, stderr) after all have ended."""
+    from localregneuralde_tpu_torch.parallel.multihost import free_port
+
+    port = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        args_of(r, port), cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=dict(
+            os.environ, **({} if env_of is None else env_of(r, port))))
+        for r in range(n)]
+    outs, deadline = [], time.monotonic() + timeout
+    for p in procs:
+        try:
+            o, e = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.communicate()
+            check(False, "dp: a rank did not end in time")
+            return []
+        outs.append((p.returncode, o, e))
+    return outs
+
+
+def _dp_runner(module, config, extra, tmp, device):
+    """Both ranks of a runner on this card over Gloo, ``torchrun``'s
+    variables set: rc 0 on both, the same train-window values, and rank
+    0's checkpoint at the canonical place."""
+    import ast
+
+    args = [config, "--train.data_parallel=shardmap", "--dp_backend=gloo",
+            f"--device={device}",
+            "--train.print_frequency=2", f"--train.checkpoint_dir={tmp}/ck",
+            f"--train.log_dir={tmp}/lg"] + extra
+    t0 = time.perf_counter()
+    outs = _spawn(
+        lambda r, port: [sys.executable, "-m",
+                         f"localregneuralde_tpu_torch.harness.{module}",
+                         *args],
+        env_of=lambda r, port: dict(
+            RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
+            LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+            MASTER_PORT=str(port)))
+    wall = time.perf_counter() - t0
+    for r, (rc, o, e) in enumerate(outs):
+        if rc != 0:
+            print(e[-3000:], file=sys.stderr)
+        check(rc == 0, f"dp {module}: rank {r} exited {rc}")
+    summaries, windows = [], []
+    for _, o, _ in outs:
+        lines = o.splitlines()
+        summaries.append(ast.literal_eval(
+            [ln for ln in lines if ln.startswith("summary:")][0]
+            .split(":", 1)[1].strip()))
+        windows.append([" ".join(t for t in ln.split()
+                                 if not t.split("=")[0].endswith("_time"))
+                        for ln in lines if ln.startswith("[") and "/" in
+                        ln.split()[0] and "]" in ln.split()[0]])
+    ck = os.path.join(summaries[0]["ckpt_dir"], "model_current.ckpt")
+    print(f"[dp {module}] two ranks over Gloo on one card, {wall:.1f} s: "
+          f"windows {windows[0]}; ranks {[s['rank'] for s in summaries]}; "
+          f"rank 0's checkpoint {os.path.exists(ck)}")
+    check(windows[0] and windows[0] == windows[1]
+          and summaries[1]["ckpt_dir"].endswith("proc1")
+          and "proc" not in summaries[0]["ckpt_dir"] and os.path.exists(ck),
+          f"dp {module}: the ranks' windows differ or no checkpoint")
+
+
+def phase_dp(device, extra=(), rows=B, latent_extra=()):
+    """``[dp ...]``: data parallelism at mlp.yaml's full width (``extra``
+    overrides and ``rows`` a batch narrow it for a rehearsal on the CPU).
+    Returns the launch counts of its steps (this process's world-1 steps
+    and the two world-2 ranks')."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from localregneuralde_tpu_torch.harness import warmup_model
+    from localregneuralde_tpu_torch.ops.cuda import reset_launch_counts
+    from localregneuralde_tpu_torch.parallel import (
+        make_dp_group, make_sharded_train_step, make_shardmap_train_step,
+        multihost,
+    )
+
+    extra, latent_extra = list(extra), list(latent_extra)
+    batches = _dp_batches(device, rows)
+    path = {}
+
+    def add(c):
+        for k, v in c.items():
+            path[k] = path.get(k, 0) + v
+
+    # --- world 1 over NCCL (Gloo off the card), in this process
+    multihost.initialize(rank=0, world_size=1, device=device,
+                         master_port=multihost.free_port())
+    dp = make_dp_group()
+    model, loss_fn, opt, ts, w_reg, sched = _dp_model(extra, device)
+    step = make_shardmap_train_step(model, loss_fn, opt, dp)
+    warmup_model(step, None, ts, batches[0], w_reg(1), sched(1))
+    ref, ref_loss, _ = _per_rank_by_hand(model, loss_fn, opt, ts, batches[0],
+                                         w_reg(1), sched(1), 1)
+    reset_launch_counts()
+    ts1, loss, stats = step(ts, batches[0], w_reg(1), sched(1))
+    _sync(device)
+    add(tier_counts())
+    same = bool(torch.equal(loss, ref_loss)) and all(
+        torch.equal(ts1.params[k], ref.params[k]) for k in ref.params)
+    print(f"[dp world1 per-rank] {dp.backend}, B = {rows}: loss {float(loss):.6f}, NFE "
+          f"{float(stats['nfe'])}; bitwise the single-device step {same}")
+    check(same, "dp world1: the per-rank step is not the single-device one")
+
+    model, loss_fn, opt, ts, w_reg, sched = _dp_model(extra, device)
+    plain = _dp_model(["--model.solver.use_persistent=false"] + extra, device)
+    step = make_sharded_train_step(model, loss_fn, opt, dp)
+    single = make_train_step_of(plain)
+    warmup_model(step, None, ts, batches[0], w_reg(1), sched(1))
+    warmup_model(single, None, plain[3], batches[0], w_reg(1), sched(1))
+    reset_launch_counts()
+    ts1, loss, stats = step(ts, batches[0], w_reg(1), sched(1))
+    _sync(device)
+    counts = tier_counts()
+    add(counts)
+    ts2, loss2, stats2 = single(plain[3], batches[0], w_reg(1), sched(1))
+    same = bool(torch.equal(loss, loss2)) and all(
+        torch.equal(ts1.params[k], ts2.params[k]) for k in ts1.params)
+    k2 = counts.get("tsit5_step", 0)
+    k3 = counts.get("tsit5_step_bwd", 0)
+    print(f"[dp world1 global] {dp.backend}, B = {rows}: loss {float(loss):.6f}, NFE "
+          f"{int(stats['nfe'])} (non-persistent route {int(stats2['nfe'])}); "
+          f"launches K2 {k2}, K3 {k3}, K4 "
+          f"{counts.get('persistent_tsit5_solve', 0)}; bitwise the "
+          f"non-persistent kernel route's step {same}")
+    check(same and k2 > 0 and k3 > 0
+          and counts.get("persistent_tsit5_solve", 0) == 0,
+          "dp world1: the global-grid step is not the non-persistent route's")
+    torch.distributed.destroy_process_group()
+
+    # --- single-device steps to set the DP steps beside
+    model, loss_fn, opt, ts, w_reg, sched = _dp_model(extra, device)
+    single = make_train_step_of((model, loss_fn, opt, ts))
+    warmup_model(single, None, ts, batches[0], w_reg(1), sched(1))
+    _, ms_single, nfe_single = _timed_steps(single, ts, batches[1:], w_reg,
+                                            sched)
+    ref_names = {}
+    half = (batches[0][0][:rows // 2], batches[0][1][:rows // 2])
+    ref_names["per_rank"] = _all_kernels(lambda: single(
+        copy.deepcopy(ts), half, w_reg(1), sched(1)))
+    hi = _dp_model(DP_HIGHEST + ["--model.solver.use_persistent=false"]
+                   + extra, device)
+    single_hi = make_train_step_of(hi)
+    warmup_model(single_hi, None, hi[3], batches[0], w_reg(1), sched(1))
+    _, ms_hi, nfe_hi = _timed_steps(single_hi, hi[3], batches[1:], w_reg,
+                                    sched)
+    ref_names["global"] = _all_kernels(lambda: single_hi(
+        copy.deepcopy(hi[3]), half, w_reg(1), sched(1)))
+
+    # --- world 2 over Gloo: two processes on this card
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "dp")
+        torch.save({"extra": extra, "rows": rows}, job)
+        outs = _spawn(lambda r, port: [
+            sys.executable, os.path.abspath(__file__), "--dp-worker", job,
+            str(r), str(port), str(device)])
+        for r, (rc, o, e) in enumerate(outs):
+            if rc != 0:
+                print(e[-3000:], file=sys.stderr)
+            check(rc == 0, f"dp world2: rank {r} exited {rc}")
+        ranks = [torch.load(f"{job}.rank{r}") for r in range(2)]
+        for tmp_name, module, config, args in (
+                ("r1", "runner", CONFIG, [
+                    "--train.total_steps=4", "--train.evaluate_every=4",
+                    "--model.regularize=unbiased"] + extra),
+                ("r2", "latent_runner", LATENT_CONFIG, [
+                    "--train.total_steps=2", "--train.evaluate_every=2"]
+                 + latent_extra)):
+            _dp_runner(module, config, args, os.path.join(tmp, tmp_name),
+                       device)
+
+    # the per-rank step: bitwise the two half-batch steps averaged
+    model, loss_fn, opt, ts, w_reg, sched = _dp_model(extra, device)
+    ref, ref_loss, ref_nfe = _per_rank_by_hand(model, loss_fn, opt, ts,
+                                               batches[0], w_reg(1),
+                                               sched(1), 2)
+    for r, res in enumerate(ranks):
+        pr = res["per_rank"]
+        add(pr["launches"])
+        same = bool(torch.equal(pr["loss"], ref_loss.cpu())) and all(
+            torch.equal(pr["params"][k], ref.params[k].cpu())
+            for k in ref.params)
+        print(f"[dp world2 per-rank] rank {r}: loss {float(pr['loss']):.6f}, "
+              f"NFE {pr['nfe']} (ranks {ref_nfe}); bitwise the two "
+              f"half-batch steps averaged {same}; launches of the step "
+              f"{ {k: v for k, v in pr['launches'].items() if v} }")
+        check(same, f"dp world2 rank {r}: the per-rank step is not the mean "
+              "of the half-batch steps")
+        _check_kernel_route(f"world2 per-rank rank {r}", pr["kernels"],
+                            ref_names["per_rank"],
+                            ("cluster_solve_kernel", "adjoint_sweep_kernel"))
+    # the global grid: the single-device step's loss and gradients
+    for tag, overrides, gated in DP_GLOBAL:
+        ref = _dp_model(overrides + extra, device)
+        for part, w in (("ce", 0.0), ("loss", ref[4](1))):
+            got = [res[f"global_{tag}"].get(part) for res in ranks]
+            if got[0] is None:
+                continue
+            loss_ref, nfe_ref, g_ref = _global_grads(ref[0], ref[1], ref[3],
+                                                     batches[0], w)
+            scale = max(float(g.abs().max()) for g in g_ref)
+            for r, g in enumerate(got):
+                err = max(float((a - b.cpu()).abs().max())
+                          for a, b in zip(g["grads"], g_ref)) / scale
+                lerr = (abs(float(g["loss"]) - float(loss_ref))
+                        / abs(float(loss_ref)))
+                gate = part in gated
+                print(f"[dp world2 global {tag}] rank {r}, "
+                      f"{'cross-entropy' if part == 'ce' else 'loss'}: "
+                      f"{float(g['loss']):.7f} vs single device "
+                      f"{float(loss_ref):.7f} (rel {lerr:.2e}), NFE "
+                      f"{g['nfe']} vs {nfe_ref}, gradients max-abs / largest "
+                      f"{err:.2e}" + (
+                          f" (tolerances {DP_LOSS_RTOL}, {DP_GRAD_REL})"
+                          if gate else " (not gated: the regulariser's "
+                          "error estimate is rounding noise here)"))
+                check(abs(g["nfe"] - nfe_ref) <= 12 and (not gate or (
+                    lerr <= DP_LOSS_RTOL and err <= DP_GRAD_REL)),
+                      f"dp world2 rank {r}: the global grid ({tag}, {part}) "
+                      "disagrees with the single-device step")
+            check(got[0]["nfe"] == got[1]["nfe"],
+                  f"dp world2: the ranks' NFE differ on the global grid "
+                  f"({tag})")
+    for r, res in enumerate(ranks):
+        g = res["global_highest"]
+        add(g["launches"])
+        print(f"[dp world2 global highest] rank {r}: launches of the step "
+              f"{ {k: v for k, v in g['launches'].items() if v} }")
+        check(g["launches"].get("persistent_tsit5_solve", 0) == 0
+              and g["launches"].get("tsit5_step", 0) > 0
+              and g["launches"].get("tsit5_step_bwd", 0) > 0,
+              f"dp world2 rank {r}: the global grid's launches {g['launches']}")
+        _check_kernel_route(f"world2 global rank {r}", g["kernels"],
+                            ref_names["global"], ("step_cluster_kernel",
+                                                  "tsit5_step_bwd_kernel"))
+    pr, gh = ranks[0]["per_rank"], ranks[0]["global_highest"]
+    for tag, dp_ms, dp_nfe, sd_ms, sd_nfe in (
+            ("per-rank mlp.yaml", pr["ms"], pr["nfe_steps"], ms_single,
+             nfe_single),
+            ("global highest rtol 1e-4", gh["ms"], gh["nfe_steps"], ms_hi,
+             nfe_hi)):
+        med = statistics.median(dp_ms)
+        print(f"[dp time {tag}] {CARD}: a DP step (2 ranks on one card, "
+              f"Gloo) {med:.3f} ms (steps {[round(m, 3) for m in dp_ms]}), "
+              f"its all-reduce {pr['reduce_ms']:.3f} ms "
+              f"({100 * pr['reduce_ms'] / med:.1f}%), NFE {dp_nfe}; the "
+              f"single-device step at B = {rows} "
+              f"{statistics.median(sd_ms):.3f} ms, NFE {sd_nfe}")
+    return path
+
+
+def make_train_step_of(setup):
+    """``make_train_step`` of a ``_dp_model`` (model, loss_fn, opt, ...)."""
+    from localregneuralde_tpu_torch.harness import make_train_step
+
+    return make_train_step(setup[0], setup[1], setup[2])
+
+
 PARTS = ("kernels", "backward", "sde", "chain", "latent", "conv",
          "conv_core", "score", "attribution", "orient", "solve", "ode",
          "cifar", "sde_train", "capture", "modes", "tf32", "tf32_sde",
-         "tf32_score", "tf32_chain", "export")
+         "tf32_score", "tf32_chain", "export", "dp")
 
 
 def partial_run(device, parts, profile=False):
@@ -7770,6 +8335,8 @@ def partial_run(device, parts, profile=False):
         capture.append("physionet")
     if "export" in parts:
         phase_export(device)
+    if "dp" in parts:
+        phase_dp(device)
     if capture and "capture" not in parts:
         # the K-step call bitwise its eager steps: the bench's at TF32,
         # mlp.yaml's with TF32 gradients, the MNIST SDE's and CIFAR's
@@ -7783,6 +8350,12 @@ def partial_run(device, parts, profile=False):
 def main():
     import torch
 
+    if "--dp-worker" in sys.argv[1:]:
+        # one rank of phase_dp's world-2 checks, started by phase_dp
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        i = sys.argv.index("--dp-worker")
+        job, rank, port, dev = sys.argv[i + 1:i + 5]
+        return dp_worker(job, int(rank), int(port), dev)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -7832,6 +8405,7 @@ def main():
     path_counts.append(phase_score_sampling(device))
     res.update(phase_tf32_score(device))
     path_counts.append(phase_export(device))
+    path_counts.append(phase_dp(device))
     orient, orient_counts = phase_conv_orient(device)
     res.update(orient)
     path_counts.append(orient_counts)

@@ -3,9 +3,11 @@ deterministic synthetic stand-ins (classification and PhysioNet-like
 series), one-hot labels and the shuffling batcher.
 
 Copied from ``localregneuralde_tpu/harness/data.py`` (numpy only, so the
-two packages make the same arrays and batches from the same seed). The
-batcher is the Python one; the reference's native C++ loader is not ported
-(ROADMAP Queue 1 item 7).
+two packages make the same arrays and batches from the same seed).
+``make_dataloader`` returns the port's native C++ loader
+(``native/loader.py``) at ``backend='auto'``, as the JAX package does, so
+the runners train on the JAX runners' batches; ``'python'`` names the
+Python loader, whose epochs are shuffled in another order.
 """
 from __future__ import annotations
 
@@ -203,13 +205,19 @@ def synthetic_physionet(
 
 
 def make_dataloader(arrays, batch_size, *, backend: str = "auto", **kwargs):
-    """The batch loader: the Python ``Dataloader`` (``backend`` 'auto' or
-    'python'; the reference's native loader is not ported)."""
-    if backend not in ("auto", "python"):
-        raise NotImplementedError(
-            f"dataloader backend {backend!r} is not ported: only the Python "
-            "loader is (ROADMAP Queue 1 item 7)"
-        )
+    """The batch loader of the JAX package's backends: ``'auto'`` and
+    ``'native'`` the native C++ loader (built at first use; a failed build
+    raises rather than hand over to the Python loader, whose batches
+    differ), ``'python'`` the Python ``Dataloader``. Both have one iterator
+    contract."""
+    if backend in ("auto", "native"):
+        from ..native import NativeDataloader
+
+        return NativeDataloader(arrays, batch_size, **kwargs)
+    if backend != "python":
+        raise ValueError(
+            f"dataloader backend must be 'auto', 'native' or 'python', got "
+            f"{backend!r}")
     return Dataloader(arrays, batch_size, **kwargs)
 
 
@@ -219,8 +227,9 @@ class Dataloader:
     ``utils.jl:155-166``). ``cycle=True`` repeats forever; epoch e is
     shuffled with ``RandomState(seed + e)``. ``skip_batches`` fast-forwards
     the stream by whole batches (exact resume from a checkpoint). A loader
-    that does not cycle and skips all its batches yields nothing (the
-    reference's loader yields a later epoch there, ROADMAP Queue 3)."""
+    that does not cycle and skips all its batches yields nothing, as the
+    port's native loader does (the JAX package's native loader yields a
+    later epoch there; README, documented deviations)."""
 
     def __init__(
         self,

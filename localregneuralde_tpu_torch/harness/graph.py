@@ -21,7 +21,8 @@ steps would (``models/draws.py``). Then:
   train state whose tensors are not the captured ones (a restored
   checkpoint, a copy) is captured anew.
 - **Eager** (the CPU, the CIFAR conv family, whose adaptive loop accepts
-  steps on the host, or a declined route): the K bodies
+  steps on the host, a declined route, or a data-parallel step, whose
+  collectives Gloo cannot run inside a captured graph): the K bodies
   run one after another in the call, on the same staged inputs.
 
 Both run the single step's body (``train.step_body``), so a captured call
@@ -41,11 +42,14 @@ from ..models.draws import to_device
 from .train import stage_step
 
 
-def capturable(model, rows: int, device) -> bool:
+def capturable(model, rows: int, device, dp=None) -> bool:
     """Whether a training step of ``model`` on a batch of ``rows`` runs
     every solve and sweep as a persistent kernel on CUDA (each DE layer's
     ``persistent_step``): TD-MLP K4 with K8 or K7, chain K5 with K9, SDE
-    K10 with K12."""
+    K10 with K12. A data-parallel step (``dp``, a ``parallel.DPGroup``) is
+    not: its collectives cannot be captured over Gloo."""
+    if dp is not None:
+        return False
     layers = [m for m in model.modules() if hasattr(m, "persistent_step")]
     return bool(layers) and all(m.persistent_step(rows, device)
                                 for m in layers)
@@ -120,10 +124,12 @@ class KStepCall:
     """``multi_step(ts, data_stack, w_regs, lrs) -> (ts', last_loss, red)``
     (``train.make_multi_train_step``). ``w_regs`` is a (K,) array, or for
     the latent model a tuple ``(w_regs, w_kls)`` of them; ``captured`` says
-    whether the last call replayed a graph."""
+    whether the last call replayed a graph. ``dp`` (a data-parallel
+    step's group) makes every call eager."""
 
-    def __init__(self, model, body, reduce_fn):
+    def __init__(self, model, body, reduce_fn, dp=None):
         self.model, self.body, self.reduce_fn = model, body, reduce_fn
+        self.dp = dp
         self.captured = False
         self._graphs = {}
         self._routes = {}  # (rows, device) -> capturable, decided once
@@ -140,7 +146,7 @@ class KStepCall:
                 for _ in range(K)]
         route = (rows // n_micro, like.device)
         if route not in self._routes:
-            self._routes[route] = capturable(self.model, *route)
+            self._routes[route] = capturable(self.model, *route, self.dp)
         self.captured = self._routes[route]
         if not self.captured:
             draws = [[to_device(d, like) for d in step] for step in host]

@@ -23,8 +23,11 @@ and the optimizer in one graph), on the CPU K eager steps; 0 picks K by the
 JAX runner's auto rule with the captured call in the TPU's place.
 ``train.grad_accumulation`` and ``train.ema_decay`` work as in the
 classification runner (``loop.py``); with an EMA, evaluation and the best
-checkpoint see the averaged weights. ``data_parallel`` (ROADMAP Queue 1 item
-14) raises. Once a print window the phase probes
+checkpoint see the averaged weights. ``train.data_parallel='shardmap'``
+trains over the ranks of ``torchrun``, each rank its own grid on its rows
+(kernels 5 and 9 on every rank; ``runner._wire_data_parallel``), every rank
+evaluating the whole test split; 'gspmd' raises for the chain family
+(ROADMAP Queue 1 item 14a). Once a print window the phase probes
 (``train.make_phase_probes``) time a forward and a forward with its
 backward on the eager step body, outside the window's wall time, for the
 ``fwd_time``, ``bwd_time`` and ``opt_time`` columns.
@@ -49,7 +52,6 @@ from .construct import (
     construct_loss,
     construct_optimizer,
     construct_time_series,
-    resolve_device,
 )
 from .data import make_dataloader, synthetic_physionet
 from .graph import capturable
@@ -110,15 +112,27 @@ def build_physionet_arrays(cfg: ExperimentConfig):
 
 
 def check_supported(cfg: ExperimentConfig) -> None:
-    """Raise for the train-loop options the port does not run yet: the
-    parallel layer."""
+    """The parallel options of ``cfg.train``, with the JAX runners' checks:
+    ``data_parallel`` one of 'none', 'gspmd', 'shardmap'; 'shardmap' with
+    neither gradient accumulation nor an explicit K > 1 (the JAX package
+    refuses both there). Tensor parallelism raises ``NotImplementedError``:
+    it is not ported (ROADMAP Queue 1 item 14d)."""
     t = cfg.train
-    if t.data_parallel != "none" or int(t.tensor_parallel) != 1:
+    if t.data_parallel not in ("none", "gspmd", "shardmap"):
+        raise ValueError("train.data_parallel must be 'none', 'gspmd' or "
+                         f"'shardmap', got {t.data_parallel!r}")
+    if int(t.tensor_parallel) != 1:
         raise NotImplementedError(
-            f"train.data_parallel={t.data_parallel!r}, tensor_parallel="
-            f"{t.tensor_parallel}: the parallel layer is not ported (ROADMAP "
-            "Queue 1 item 14); the runner uses one device"
-        )
+            f"train.tensor_parallel={t.tensor_parallel}: tensor parallelism "
+            "is not ported (ROADMAP Queue 1 item 14d); the parallel layer is "
+            "data-parallel only")
+    if t.data_parallel == "shardmap":
+        if int(t.grad_accumulation) > 1:
+            raise ValueError("train.grad_accumulation > 1 supports "
+                             "data_parallel='none' or 'gspmd' (not 'shardmap')")
+        if int(t.steps_per_call) > 1:
+            raise ValueError("train.steps_per_call > 1 supports "
+                             "data_parallel='none' or 'gspmd' (not 'shardmap')")
 
 
 def train_state_to_host(ts: TrainState) -> dict:
@@ -162,19 +176,24 @@ def eval_forward(model, ts: TrainState, batch):
 
 def run_latent_ode_experiment(cfg: ExperimentConfig,
                               config_name: str = "physionet", *,
-                              device=None) -> dict:
+                              device=None, dp_backend=None) -> dict:
     """Train and evaluate the latent ODE of ``cfg`` on ``device`` (default:
     the CUDA device). Returns the summary of the reference's runner: the
     best and final masked MSE, the final eval NFE, whether the data is
     real, the checkpoint and log directories, ``steps_per_call`` and
-    whether the K-step calls were ``captured`` CUDA graphs."""
+    whether the K-step calls were ``captured`` CUDA graphs. Data
+    parallelism and ``dp_backend`` as in the classification runner."""
+    from ..parallel.multihost import checkpoint_subdir
+    from .runner import _wire_data_parallel, start_data_parallel
+
     check_supported(cfg)
     ga, ed = check_train_options(cfg)
-    device = resolve_device(device)
+    dp, device = start_data_parallel(cfg, device, dp_backend)
     name = experiment_name(cfg, config_name)
-    ckpt_dir = os.path.join(cfg.train.checkpoint_dir, cfg.train.expt_subdir,
-                            name)
-    log_dir = os.path.join(cfg.train.log_dir, cfg.train.expt_subdir, name)
+    ckpt_dir = checkpoint_subdir(os.path.join(
+        cfg.train.checkpoint_dir, cfg.train.expt_subdir, name), dp)
+    log_dir = checkpoint_subdir(os.path.join(
+        cfg.train.log_dir, cfg.train.expt_subdir, name), dp)
 
     train_arrays, test_arrays, tgrid, is_real = build_physionet_arrays(cfg)
     model = construct_time_series(cfg, saveat=torch.from_numpy(tgrid),
@@ -182,12 +201,16 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
     loss_fn, (w_reg_sched, w_kl_sched) = construct_loss(cfg)
     optimizer, lr_sched = construct_optimizer(cfg)
     ts = create_train_state(model, optimizer)
-    train_step = make_train_step(model, loss_fn, optimizer,
-                                 grad_accumulation=ga, ema_decay=ed)
+    par = _wire_data_parallel(
+        cfg, model, loss_fn, optimizer, ts, dp, device,
+        train_step=make_train_step(model, loss_fn, optimizer,
+                                   grad_accumulation=ga, ema_decay=ed),
+        eval_step=None)
+    train_step = par.train_step
     spc = resolve_steps_per_call(
         cfg.train.steps_per_call, cfg.train.print_frequency,
         cfg.train.evaluate_every,
-        capturable(model, cfg.dataset.train_batchsize // ga, device))
+        capturable(model, par.rows // ga, device, dp))
     check_steps_per_call(cfg, spc)
     if int(cfg.train.steps_per_call) == 0 and spc > 1:
         print(f"steps_per_call=auto -> K={spc} (one CUDA-graph replay a "
@@ -199,7 +222,9 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
     if os.path.exists(resume_path):
         restored = load_checkpoint(resume_path)
         if restored is not None:
-            ts = restore_train_state(ts, restored["tstate"], device)
+            ts = par.restored(
+                restore_train_state(ts, restored["tstate"], device),
+                cfg.dataset.train_batchsize)
             initial_step = int(restored["step"]) + 1
             restored_best = restored.get("best")
     if ed > 0.0 and ts.ema is None:
@@ -251,7 +276,7 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
         nonlocal best, final_mse, final_nfe
         best, final_mse, final_nfe = _eval_and_checkpoint(
             model, ts, test_arrays, eval_bs, step, best, loggers, ckpt_dir,
-            device)
+            device, par.gathered(ts))
 
     def stat_row(loss, stats):
         return torch.stack([loss, stats["neg_log_likelihood"],
@@ -260,16 +285,21 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
 
     summary = {"real_data": bool(is_real), "ckpt_dir": ckpt_dir,
                "log_dir": log_dir, "steps_per_call": spc, "captured": False}
+    if dp is not None:
+        summary.update(data_parallel=par.mode, world_size=dp.size,
+                       rank=dp.rank)
     data_iter = iter(train_loader)
     if spc > 1:
-        multi_step = make_multi_train_step(
-            model, loss_fn, optimizer,
-            lambda loss, stats, data: {
-                "row": stat_row(loss, stats),
-                "n_fail": (~stats["solver_success"]).float()},
-            grad_accumulation=ga, ema_decay=ed)
+        reduce_fn = (lambda loss, stats, data: {
+            "row": stat_row(loss, stats),
+            "n_fail": (~stats["solver_success"]).float()})
+        multi_step = (make_multi_train_step(
+            model, loss_fn, optimizer, reduce_fn, grad_accumulation=ga,
+            ema_decay=ed) if par.make_block is None
+            else par.make_block(reduce_fn))
         stacks = device_batches(
-            host_stacks(data_iter, initial_step, total_steps, spc), device,
+            (par.host_stack(s) for s in host_stacks(
+                data_iter, initial_step, total_steps, spc)), device,
             int(cfg.train.device_prefetch))
         run_block_loop(
             multi_step, ts, stacks, initial_step=initial_step,
@@ -281,7 +311,8 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
                 np.asarray([w_kl_sched(s) for s in steps], np.float32)),
             lr_of=lambda steps: np.asarray([lr_sched(s) for s in steps],
                                            np.float32),
-            on_window=print_window, on_eval=eval_and_checkpoint)
+            on_window=print_window, on_eval=eval_and_checkpoint,
+            reduce_window=par.window)
         summary["captured"] = bool(multi_step.captured)
     else:
         sums = ok = None
@@ -289,7 +320,7 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
         t_window = time.perf_counter()
         for step in range(initial_step, total_steps + 1):
             t0 = time.perf_counter()
-            batch = batch_to_device(next(data_iter), device)
+            batch = batch_to_device(par.host(next(data_iter)), device)
             data_time += time.perf_counter() - t0
             w = (float(w_reg_sched(step)), float(w_kl_sched(step)))
             ts, loss, stats = train_step(ts, batch, w, float(lr_sched(step)))
@@ -300,7 +331,8 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
             ok = success if ok is None else ok & success
             window_n += 1
             if step % cfg.train.print_frequency == 0:
-                print_window(step, sums.tolist(), window_n, bool(ok),
+                print_window(step, par.window(sums).tolist(), window_n,
+                             bool(ok),
                              time.perf_counter() - t_window, data_time,
                              int(batch[0].shape[0]), ts, batch, w)
                 sums, ok, window_n, data_time = None, None, 0, 0.0
@@ -313,10 +345,11 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
 
 
 def _eval_and_checkpoint(model, ts, test_arrays, eval_bs, step, best,
-                         loggers, ckpt_dir, device):
+                         loggers, ckpt_dir, device, saved=None):
     """The masked MSE over the test split, then the step's checkpoint
-    (``model_best`` when its MSE is the lowest so far). Returns the best
-    MSE, this evaluation's MSE and its mean NFE."""
+    (``model_best`` when its MSE is the lowest so far) of ``saved`` (the
+    train state with its gathered layer state; default ``ts``). Returns
+    the best MSE, this evaluation's MSE and its mean NFE."""
     mses, nfes, count = 0.0, 0.0, 0
     # with an EMA, evaluation and the best checkpoint see the averaged
     # weights; the checkpoint keeps both
@@ -334,7 +367,8 @@ def _eval_and_checkpoint(model, ts, test_arrays, eval_bs, step, best,
     is_best = eval_mse <= best
     best = min(best, eval_mse)
     save_checkpoint(
-        {"tstate": train_state_to_host(ts), "step": step, "best": float(best)},
+        {"tstate": train_state_to_host(ts if saved is None else saved),
+         "step": step, "best": float(best)},
         fdir=ckpt_dir, fname=f"model_step_{step}.ckpt", is_best=is_best,
     )
     return best, eval_mse, nfes / count
@@ -344,17 +378,17 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0].startswith("--"):
         print("usage: python -m localregneuralde_tpu_torch.harness."
-              "latent_runner CONFIG.yaml [--a.b.c=value ...] [--device=cpu]",
+              "latent_runner CONFIG.yaml [--a.b.c=value ...] [--device=cpu] "
+              "[--dp_backend=gloo|nccl]",
               file=sys.stderr)
         return 2
-    device = None
-    for arg in list(argv[1:]):
-        if arg.startswith("--device="):
-            device = arg.split("=", 1)[1]
-            argv.remove(arg)
+    from .runner import pop_run_options
+
+    device, backend = pop_run_options(argv)
     cfg = define_configuration(argv[1:], argv[0])
     config_name = os.path.splitext(os.path.basename(argv[0]))[0]
-    summary = run_latent_ode_experiment(cfg, config_name, device=device)
+    summary = run_latent_ode_experiment(cfg, config_name, device=device,
+                                        dp_backend=backend)
     print("summary:", summary, flush=True)
     return 0
 

@@ -98,7 +98,8 @@ def host_stacks(data_iter, initial_step: int, total_steps: int, spc: int):
 def run_block_loop(multi_step, ts, stacks, *, initial_step: int,
                    total_steps: int, print_frequency: int,
                    evaluate_every: int, w_of: Callable, lr_of: Callable,
-                   on_window: Callable, on_eval: Callable):
+                   on_window: Callable, on_eval: Callable,
+                   reduce_window: Callable = None):
     """The K-steps-per-call training loop (JAX ``_run_block_loop``): each
     K-stack of device batches ``stacks`` yields goes to ``multi_step`` with
     its steps' ``w_of(steps)`` and ``lr_of(steps)``; the reduction (a
@@ -108,7 +109,8 @@ def run_block_loop(multi_step, ts, stacks, *, initial_step: int,
     taken before the call, so what it runs counts in no window; ``batch``
     and ``w`` the window's last step's, for the phase probes), ``on_eval(step,
     w, ts)`` evaluates and checkpoints, at the single-step loop's steps.
-    Returns the final train state."""
+    ``reduce_window`` (data parallelism: the rank mean) maps the window's
+    summed row before it is read. Returns the final train state."""
     sums = fails = None
     window_n, data_time = 0, 0.0
     t_window = time.perf_counter()
@@ -128,6 +130,8 @@ def run_block_loop(multi_step, ts, stacks, *, initial_step: int,
         last = (tuple(float(x[-1]) for x in w) if isinstance(w, tuple)
                 else float(w[-1]))
         if step % print_frequency == 0:
+            if reduce_window is not None:
+                sums = reduce_window(sums)
             host = torch.cat([sums, fails.reshape(1)]).tolist()
             on_window(step, host[:-1], window_n, host[-1] == 0.0,
                       time.perf_counter() - t_window, data_time,

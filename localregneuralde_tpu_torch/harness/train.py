@@ -108,18 +108,21 @@ def _zeros_for_none(grads, params):
             for g, p in zip(grads, params)]
 
 
-def _microbatched_grads(model, loss_fn, n_micro, ts, data, w, draws):
+def _microbatched_grads(model, loss_fn, n_micro, ts, data, w, draws,
+                        state_in=None):
     """Gradient accumulation over ``n_micro`` sequential microbatches (JAX
     ``train.py:90-127``): the layer state threads through them as
     ``n_micro`` smaller steps would, each microbatch solves on its own
-    adaptive grid, and the gradient is the mean of theirs. Returns
-    ``(mean loss, state, merged stats, grads)``."""
+    adaptive grid, and the gradient is the mean of theirs. ``state_in``
+    prepares each microbatch's input state (the global grid's group).
+    Returns ``(mean loss, state, merged stats, grads)``."""
     m = data[0].shape[0] // n_micro
     params = list(ts.params.values())
     state, gsum, losses, stats = ts.state, None, [], []
     for i in range(n_micro):
         md = tuple(a[i * m:(i + 1) * m] for a in data)
-        loss, st_, st = loss_fn(model, ts.params, with_draws(state, draws[i]),
+        st_in = state if state_in is None else state_in(state)
+        loss, st_, st = loss_fn(model, ts.params, with_draws(st_in, draws[i]),
                                 md, w, training=True)
         g = _zeros_for_none(
             torch.autograd.grad(loss, params, allow_unused=True), params)
@@ -158,27 +161,43 @@ def stage_step(model, state, rows: int, n_micro: int):
             for _ in range(n_micro)]
 
 
+def step_grads(model, loss_fn, n_micro: int, ts: TrainState, data, w,
+               draws, state_in=None):
+    """A step's forward and backward without the update: ``(loss, state,
+    stats, grads)``, the gradients a list in ``ts.params``' order (zeros
+    where a parameter gets none). ``state_in`` prepares the loss's input
+    state (the global grid's group)."""
+    params = list(ts.params.values())
+    if n_micro > 1:
+        return _microbatched_grads(model, loss_fn, n_micro, ts, data, w,
+                                   draws, state_in)
+    st_in = ts.state if state_in is None else state_in(ts.state)
+    loss, st_, stats = loss_fn(model, ts.params, with_draws(st_in, draws[0]),
+                               data, w, training=True)
+    grads = _zeros_for_none(
+        torch.autograd.grad(loss, params, allow_unused=True), params)
+    return loss.detach(), _detached(st_), _detached(stats), grads
+
+
 def step_body(model, loss_fn, optimizer, grad_accumulation: int = 1,
-              ema_decay: float = 0.0) -> Callable:
+              ema_decay: float = 0.0, sync=None) -> Callable:
     """``body(ts, data, w, lr, draws) -> (ts', loss, stats)``: one forward,
     backward and optimizer update on device inputs (``w`` and ``lr`` 0-d
     tensors, ``draws`` a device ``Staged`` per microbatch). The shared
-    body of the single-step and K-step calls (JAX ``_fused_step_body``)."""
+    body of the single-step and K-step calls (JAX ``_fused_step_body``).
+    A data-parallel step gives ``sync`` (``parallel/``): its ``state_in``
+    prepares the loss's input state, and its ``reduce(loss, state, stats,
+    grads)`` reduces them over the ranks before the update."""
     n_micro = int(grad_accumulation)
     ema_decay = float(ema_decay)
 
     def body(ts: TrainState, data, w, lr, draws):
         params = list(ts.params.values())
-        if n_micro > 1:
-            loss, state, stats, grads = _microbatched_grads(
-                model, loss_fn, n_micro, ts, data, w, draws)
-        else:
-            loss, st_, stats = loss_fn(
-                model, ts.params, with_draws(ts.state, draws[0]), data, w,
-                training=True)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            loss, state, stats = (loss.detach(), _detached(st_),
-                                  _detached(stats))
+        loss, state, stats, grads = step_grads(
+            model, loss_fn, n_micro, ts, data, w, draws,
+            None if sync is None else sync.state_in)
+        if sync is not None:
+            loss, state, stats, grads = sync.reduce(loss, state, stats, grads)
         optimizer.apply(ts.opt_state, params, grads, lr)
         if ema_decay > 0.0:
             _ema_update(ts.ema, ts.params, ema_decay)

@@ -40,18 +40,24 @@ def pop_draws(state: dict):
     return state.pop(DRAWS), state
 
 
-def stochastic_layers(model, state, path=()):
-    """``(path, layer, layer state)`` of every layer of ``model`` with a
-    ``draw`` method, found by walking the children whose names key the
+def layers_with(model, state, attr: str, path=()):
+    """``(path, layer, layer state)`` of every layer of ``model`` with the
+    attribute ``attr``, found by walking the children whose names key the
     state tree."""
-    if hasattr(model, "draw"):
+    if hasattr(model, attr):
         yield path, model, state
         return
     if not isinstance(state, dict):
         return
     for name, child in model.named_children():
         if name in state:
-            yield from stochastic_layers(child, state[name], path + (name,))
+            yield from layers_with(child, state[name], attr, path + (name,))
+
+
+def stochastic_layers(model, state):
+    """``(path, layer, layer state)`` of every layer with a ``draw``
+    method."""
+    return layers_with(model, state, "draw")
 
 
 def stage_draws(model, state, rows: int) -> Staged:
@@ -73,16 +79,18 @@ def with_draws(state, staged: Staged):
     """The state tree with each layer's draws under its ``"draws"`` key;
     the dicts on the way are copied, the tensors shared."""
     for path, draws in staged.items():
-        state = _set(state, path, draws)
+        state = with_key(state, path, DRAWS, draws)
     return state
 
 
-def _set(tree, path, draws):
+def with_key(tree, path, key: str, value):
+    """The state tree with ``value`` under ``key`` in the layer state at
+    ``path``; the dicts on the way are copied."""
     tree = dict(tree)
     if not path:
-        tree[DRAWS] = draws
+        tree[key] = value
         return tree
-    tree[path[0]] = _set(tree[path[0]], path[1:], draws)
+    tree[path[0]] = with_key(tree[path[0]], path[1:], key, value)
     return tree
 
 

@@ -99,6 +99,17 @@ float32; reference ``neural_ode.py:146-171``): it refuses rtol < 1e-4,
 ``use_pallas='on'`` raises and ``'auto'`` declines to the plain route.
 None of these modes is a persistent step (``persistent_step``), so a
 K-step call of a model that uses them runs eagerly.
+
+The global grid of data parallelism (``parallel/sharded_train.py``) gives
+the layer a ``DPGroup`` under its state's ``"dp_group"`` key (``GROUP``):
+the layer's input is then one rank's rows of a batch spread over the
+group's ranks, and every norm of the solve and of the regulariser is over
+all their rows (``ops/residuals.py``), so the ranks take one grid. The
+persistent solve takes no part in a collective, so the kernel route runs
+the loop with the step kernel per attempt and the step-VJP kernel per
+accepted step (kernels 2 and 3); after each solve the ranks' accept and
+reject counts are held equal. The TD-MLP and the generic dynamics take it
+under the stored and the direct adjoint with Tsit5 (``check_global_grid``).
 """
 from __future__ import annotations
 
@@ -131,6 +142,18 @@ _VALID_REG_TYPE = ("error_estimate", "stiffness_estimate")
 _VALID_USE_PALLAS = ("auto", "on", "off")
 _VALID_SOLVERS = ("tsit5", "vcab3", "vcabm3")
 _VALID_ADJOINTS = ("stored", "direct", "interpolating", "backsolve")
+
+# the state key under which the global grid's step gives the layer its
+# DPGroup (``parallel/sharded_train.py``)
+GROUP = "dp_group"
+
+
+def pop_group(state: dict):
+    """``(group, state without it)``; None when the state carries none."""
+    if GROUP not in state:
+        return None, state
+    state = dict(state)
+    return state.pop(GROUP), state
 
 
 def sample_t1(generator: torch.Generator, t0: float, t2: float) -> float:
@@ -325,6 +348,22 @@ class NeuralODE(Module):
 
         w = self.tdmlp_weights()
         return sweep_feasible(rows, w.b2.shape[0], w.b1.shape[0], n_save)
+
+    def check_global_grid(self) -> None:
+        """Raise ``NotImplementedError`` where the global grid of data
+        parallelism is not ported: the chain and conv families and the
+        solver modes other than Tsit5 under the stored or direct adjoint."""
+        if self.family in ("chain", "conv"):
+            item = "14a" if self.family == "chain" else "14c"
+            raise NotImplementedError(
+                f"data_parallel='gspmd' (the global grid) for the {self.family}"
+                f" family is not ported (ROADMAP Queue 1 item {item}); "
+                "data_parallel='shardmap' (the per-rank grid) runs it")
+        if self.solver != "tsit5" or self.adjoint not in ("stored", "direct"):
+            raise NotImplementedError(
+                f"data_parallel='gspmd' with solver {self.solver!r} and "
+                f"adjoint {self.adjoint!r} is not ported (ROADMAP Queue 1 "
+                "item 14e): Tsit5 under the stored or direct adjoint is")
 
     def uses_kernels(self, x: torch.Tensor) -> bool:
         """Whether a solve from ``x`` goes through the kernel family."""
@@ -632,7 +671,7 @@ class NeuralODE(Module):
             kw.update(persistent_fn=persistent_fn, sweep_fn=sweep_fn)
         return kw
 
-    def _eval_solve(self, x, state):
+    def _eval_solve(self, x, state, group=None):
         if torch.compiler.is_exporting():
             self._check_exportable(x)
         if self.uses_kernels(x) or torch.compiler.is_exporting():
@@ -647,7 +686,7 @@ class NeuralODE(Module):
                 f, x, self.tspan, rtol=self.rtol, atol=self.atol,
                 saveat=saveat, max_steps=self.max_steps, adjoint="none",
                 stateful=True, f_state=state["model"], step_fn=step_fn,
-                persistent_fn=persistent_fn,
+                persistent_fn=persistent_fn, group=group,
             )
         new_state = dict(state)
         new_state.update(model=sol.f_state, nfe=sol.nfe,
@@ -680,10 +719,15 @@ class NeuralODE(Module):
 
     def apply_layer(self, x, state, *, training: bool = False):
         draws, state = pop_draws(state)
+        group, state = pop_group(state)
+        if group is not None:
+            self.check_global_grid()
         # every route's forward runs at this tier: refuse it below 1e-4
         check_product_tier(self.forward_tier(x.device), self.rtol)
         if not training:
-            return self._eval_solve(x, state)
+            sol, new_state = self._eval_solve(x, state, group)
+            _agree(sol, group)
+            return sol, new_state
         t2 = self.tspan[1]
         kernels = self.uses_kernels(x)
         names, params = zip(*self.model.named_parameters())
@@ -704,11 +748,13 @@ class NeuralODE(Module):
                 kw.pop("f"), x, self.tspan, rtol=self.rtol, atol=self.atol,
                 saveat=saveat, max_steps=self.max_steps, adjoint="stored",
                 params=list(params), knot_window=self.knot_window,
-                reservoir=reservoir, f_state=state["model"], **kw,
+                reservoir=reservoir, f_state=state["model"], group=group,
+                **kw,
             )
         else:
             sol = self._mode_solve(x, state["model"], saveat, reservoir,
-                                   kernels, names, params)
+                                   kernels, names, params, group)
+        _agree(sol, group)
         # the stateless kernel families return no state: theirs passes
         model_state = state["model"] if sol.f_state is None else sol.f_state
         new_state = dict(state)
@@ -726,11 +772,12 @@ class NeuralODE(Module):
         # generic one, as in the reference
         step, dt_r = self._reg_step(
             x, u1, t1, model_state,
-            self.family if kernels and self.family != "chain" else None)
+            self.family if kernels and self.family != "chain" else None,
+            group)
         new_state.update(
             model=step.f_state,
             reg_val=regularization_value(self.regularize_type, step, u1,
-                                         dt_r, self.atol, self.rtol),
+                                         dt_r, self.atol, self.rtol, group),
             nfe=sol.nfe + 8,  # 6 stages + k1 + the dt probe
         )
         return sol, new_state
@@ -826,10 +873,11 @@ class NeuralODE(Module):
 
         return dict(f=f, step_fn=step_fn)
 
-    def _mode_solve(self, x, st, saveat, reservoir, kernels, names, params):
+    def _mode_solve(self, x, st, saveat, reservoir, kernels, names, params,
+                    group=None):
         """A training solve other than the stored adjoint's Tsit5: the
-        Adams solvers under ``'direct'``, the direct adjoint, or a
-        continuous adjoint."""
+        Adams solvers under ``'direct'``, the direct adjoint (on the global
+        grid with ``group``), or a continuous adjoint."""
         if self.solver != "tsit5":
             f, _ = self._direct_solvers(kernels)
             return self._adams(f, x, st, saveat, reservoir, "direct")
@@ -838,7 +886,8 @@ class NeuralODE(Module):
             return odesolve(
                 f, x, self.tspan, rtol=self.rtol, atol=self.atol,
                 saveat=saveat, max_steps=self.max_steps, adjoint="direct",
-                stateful=True, f_state=st, step_fn=step, reservoir=reservoir)
+                stateful=True, f_state=st, step_fn=step, reservoir=reservoir,
+                group=group)
         kw = self._continuous_kwargs(kernels, names)
         return odesolve(
             kw.pop("f"), x, self.tspan, rtol=self.rtol, atol=self.atol,
@@ -846,13 +895,14 @@ class NeuralODE(Module):
             params=list(params), stateful=True, f_state=st,
             reservoir=reservoir, **kw)
 
-    def _reg_step(self, x, u1, t1, st, family):
+    def _reg_step(self, x, u1, t1, st, family, group=None):
         """The regulariser's step from the fenced ``(u1, t1)`` and the
         dynamics state ``st`` after the solve: k1 and dt under no_grad, then
         one differentiable Tsit5 step in training mode (the step kernel with
         its VJP kernel on the kernel route of the TD-MLP and conv families,
         the generic step otherwise). Returns (step, dt); ``step.f_state`` is
-        the state after the step."""
+        the state after the step. On the global grid (``group``) the dt
+        probe's norms are over every rank's rows."""
         t2 = self.tspan[1]
         prec = self.mm_precision
         if family == "tdmlp":
@@ -870,7 +920,7 @@ class NeuralODE(Module):
         with torch.no_grad():
             k1 = f(u1, t1)
             dt_r, _ = initial_step_size(f, u1, t1, order=5, rtol=self.rtol,
-                                        atol=self.atol, f0=k1)
+                                        atol=self.atol, f0=k1, group=group)
             dt_r = torch.minimum(dt_r, device_scalar(t2, x) - t1)
         if family == "tdmlp":
             u_new, utilde, *ks, g6 = differentiable_step(
@@ -903,6 +953,16 @@ def step_vjp_at(F: int, H: int, precision, grad_precision):
     fn = fused_step_bwd if step_bwd_feasible(F, H) else step_bwd_plain_at
     return functools.partial(fn, precision=precision,
                              grad_precision=grad_precision)
+
+
+def _agree(sol: ODESolution, group) -> None:
+    """On the global grid, raise unless every rank took this solve's
+    accepts and rejects (one collective of the two counts)."""
+    if group is not None:
+        from ..parallel.mesh import agree
+
+        agree(torch.stack([sol.naccept, sol.nreject]), group,
+              "the solve's accepts and rejects")
 
 
 def _solution(out, f_state) -> ODESolution:

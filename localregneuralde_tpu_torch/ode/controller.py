@@ -40,18 +40,19 @@ class PIController(NamedTuple):
 
 
 def initial_step_size(f: Callable, u0, t0, order: int, rtol, atol, f0,
-                      direction: float = 1.0):
+                      direction: float = 1.0, group=None):
     """Hairer–Nørsett–Wanner automatic initial step size (HNW II.4), given
     the derivative ``f0 = f(u0, t0)``; ``f(u, t)`` returns the derivative.
-    Costs one dynamics evaluation. Returns ``(dt0, 1)``."""
+    Costs one dynamics evaluation. Returns ``(dt0, 1)``. With a
+    ``DPGroup`` the norms are those of the whole distributed batch."""
     sc = atol + torch.abs(u0) * rtol
-    d0 = internal_norm(u0 / sc)
-    d1 = internal_norm(f0 / sc)
+    d0 = internal_norm(u0 / sc, group)
+    d1 = internal_norm(f0 / sc, group)
     small = (d0 < 1e-5) | (d1 < 1e-5)
     dt0 = torch.where(small, 1e-6, 0.01 * d0 / torch.where(d1 == 0, 1.0, d1))
     u1 = u0 + direction * dt0 * f0
     f1 = f(u1, t0 + direction * dt0)
-    d2 = internal_norm((f1 - f0) / sc) / dt0
+    d2 = internal_norm((f1 - f0) / sc, group) / dt0
     dmax = torch.maximum(d1, d2)
     dt1 = torch.where(
         dmax <= 1e-15,

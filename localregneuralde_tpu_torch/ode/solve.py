@@ -4,7 +4,10 @@ Counterpart of ``localregneuralde_tpu/ode/solve.py`` for ``adjoint='none'``
 (inference): the while-loop with early exit, PI control, the Hairer initial
 dt, dense output onto ``saveat``, the ``max_steps`` cap and NFE statistics
 (2 initial evaluations + 6 per attempted step). One dt and one RMS error
-norm are shared by the whole batch.
+norm are shared by the whole batch; with a data-parallel ``group`` (the
+global grid, ``parallel/sharded_train.py``) by the batch spread over its
+ranks, whose every norm is one scalar over all their rows, so every rank
+takes the same accept decisions.
 
 The loop runs on the host and reads the accept decision once per attempt.
 It is the plain version that the persistent CUDA solve
@@ -106,7 +109,7 @@ class Attempt(NamedTuple):
 
 
 def attempt(step, controller, u, t, dt, qold, t_end, k1, f_st, *, atol,
-            rtol) -> Attempt:
+            rtol, group=None) -> Attempt:
     """One attempt of the adaptive loop: clip dt to the span, take the step
     ``step(u, t, dt_c, k1, f_st)`` and let the controller judge it. The
     forward loop and the two-level window replay of the stored adjoint both
@@ -115,7 +118,8 @@ def attempt(step, controller, u, t, dt, qold, t_end, k1, f_st, *, atol,
     dt_c = torch.minimum(dt, t_rem)
     is_last = bool(dt >= t_rem)
     res = step(u, t, dt_c, k1, f_st)
-    eest = scaled_error_norm(res.utilde, u, res.u_new, atol, rtol).detach()
+    eest = scaled_error_norm(res.utilde, u, res.u_new, atol, rtol,
+                             group).detach()
     dt_acc, dt_rej, qold_acc = controller.propose(eest, dt_c, qold)
     t_new = t_end if is_last else t + dt_c
     return Attempt(res, dt_c, t_new, is_last, bool(eest <= 1.0), dt_acc,
@@ -183,7 +187,7 @@ def adaptive_loop(fn: Callable, u0, k1_0, f_st0, t0, t_end, dt_init, *,
                   step_fn: Optional[Callable] = None,
                   record_knots: bool = False, knot_dense_cap=None,
                   knot_stride: int = 1, reservoir=None,
-                  on_accept: Optional[Callable] = None):
+                  on_accept: Optional[Callable] = None, group=None):
     """The accept/reject loop from ``(u0, k1_0)`` at ``t0`` with first step
     ``dt_init``; ``fn(u, t, st) -> (du, st)``. Returns a dict with ``ys``,
     ``y_final``, ``t_final``, ``naccept``, ``nreject``, ``natt``,
@@ -191,7 +195,8 @@ def adaptive_loop(fn: Callable, u0, k1_0, f_st0, t0, t_end, dt_init, *,
     checkpoint buffers of ``_knot_buffers``, and with ``reservoir`` (one
     uniform per attempt) ``reservoir_t`` and ``reservoir_u``.
     ``on_accept(a)`` sees every accepted ``Attempt`` (the interpolating
-    adjoint's knots, held only as far as the solve goes)."""
+    adjoint's knots, held only as far as the solve goes). ``group``: the
+    error norm's ``DPGroup`` (global grid), or None."""
     controller = PIController()
     t = device_scalar(t0, u0)
     t_end = device_scalar(t_end, u0)
@@ -217,7 +222,7 @@ def adaptive_loop(fn: Callable, u0, k1_0, f_st0, t0, t_end, dt_init, *,
     while not done and naccept + nreject < max_steps:
         natt = naccept + nreject
         a = attempt(step, controller, u, t, dt, qold, t_end, k1, f_st,
-                    atol=atol, rtol=rtol)
+                    atol=atol, rtol=rtol, group=group)
         if not a.accept:
             nreject += 1
             dt = a.dt_rej
@@ -266,6 +271,7 @@ def odesolve(
     knot_dense_cap: Optional[int] = None,
     knot_stride: int = 1,
     reservoir: Optional[torch.Tensor] = None,
+    group=None,
     **stored_kwargs,
 ) -> ODESolution:
     """Integrate ``du/dt = f(u, t)`` over ``tspan`` with adaptive Tsit5.
@@ -303,6 +309,11 @@ def odesolve(
         checkpoint every W-th accept (``_knot_buffers``).
       reservoir: ``max_steps`` uniforms for the reservoir sample of the
         accepted step starts (the biased regulariser), or None.
+      group: a ``parallel.DPGroup`` for the global grid: ``u0`` is this
+        rank's rows of a batch spread over its ranks, and every norm of the
+        solve is over all of them (``'none'``, ``'direct'`` and
+        ``'stored'``; ``persistent_fn`` is not used, since a kernel cannot
+        take part in a collective mid-solve).
 
     On a CUDA tensor it raises below rtol 1e-4 while TF32 is on
     (``nn.basic.check_fp32_products``).
@@ -315,8 +326,13 @@ def odesolve(
             f, u0, tspan, rtol=rtol, atol=atol, saveat=saveat,
             max_steps=max_steps, step_fn=step_fn, persistent_fn=persistent_fn,
             reservoir=reservoir, stateful=stateful, f_state=f_state,
-            **stored_kwargs,
+            group=group, **stored_kwargs,
         )
+    if group is not None and adjoint != "direct" and adjoint != "none":
+        raise NotImplementedError(
+            f"adjoint {adjoint!r} on the global grid of data parallelism is "
+            "not ported (ROADMAP Queue 1 item 14e): the stored and the "
+            "direct adjoint are")
     if adjoint in ("interpolating", "backsolve"):
         from .adjoint import continuous_odesolve
 
@@ -335,7 +351,7 @@ def odesolve(
     )
     record = dict(record_knots=record_knots, knot_dense_cap=knot_dense_cap,
                   knot_stride=knot_stride, reservoir=reservoir)
-    if persistent_fn is not None and adjoint == "none":
+    if persistent_fn is not None and adjoint == "none" and group is None:
         sol = persistent_fn(
             u0, (t0, t_end), saveat_arr=saveat_arr, rtol=rtol, atol=atol,
             max_steps=max_steps, f_state=f_state, **record,
@@ -345,26 +361,28 @@ def odesolve(
 
     return loop_solve(fn, u0, t0, t_end, saveat_arr, f_state=f_state,
                       rtol=rtol, atol=atol, max_steps=max_steps,
-                      step_fn=step_fn, **record)
+                      step_fn=step_fn, group=group, **record)
 
 
 def loop_solve(fn: Callable, u0, t0: float, t_end: float, saveat_arr, *,
-               f_state, rtol, atol, max_steps, step_fn=None,
+               f_state, rtol, atol, max_steps, step_fn=None, group=None,
                **record) -> ODESolution:
     """The eager solve of ``odesolve``: k1 at t0 (in the graph), the Hairer
     dt probe (fenced), then ``adaptive_loop``; ``fn(u, t, st) -> (du,
-    st)``, ``record`` as ``adaptive_loop``'s keywords."""
+    st)``, ``record`` as ``adaptive_loop``'s keywords, ``group`` the
+    norms' ``DPGroup`` or None."""
     k1_0, f_st0 = fn(u0, t0, f_state)
     with torch.no_grad():  # the dt probe is fenced
         dt_init, nfe_dt = initial_step_size(
             lambda u, t: fn(u, t, f_state)[0], u0, device_scalar(t0, u0),
-            order=5, rtol=rtol, atol=atol, f0=k1_0,
+            order=5, rtol=rtol, atol=atol, f0=k1_0, group=group,
         )
         dt_init = torch.minimum(dt_init, device_scalar(t_end - t0, u0))
     nfe0 = 1 + nfe_dt
     out = adaptive_loop(
         fn, u0, k1_0, f_st0, t0, t_end, dt_init, saveat=saveat_arr,
-        rtol=rtol, atol=atol, max_steps=max_steps, step_fn=step_fn, **record,
+        rtol=rtol, atol=atol, max_steps=max_steps, step_fn=step_fn,
+        group=group, **record,
     )
     return ODESolution(
         ts=saveat_arr, ys=out["ys"], t_final=out["t_final"],

@@ -54,7 +54,7 @@ def tsit5_step(f: Callable, u, t, dt, k1, f_state) -> Tsit5StepResult:
 
 
 def regularization_value(reg_type: str, step: Tsit5StepResult, u_prev, dt,
-                         atol, rtol) -> torch.Tensor:
+                         atol, rtol, group=None) -> torch.Tensor:
     """The local regulariser of one step.
 
     ``error_estimate``: rms(ũ / (atol + max(|u₀|, |u₁|)·rtol)) · dt.
@@ -62,18 +62,23 @@ def regularization_value(reg_type: str, step: Tsit5StepResult, u_prev, dt,
     stability_size, not scaled by dt, and 0 where the denominator is zero
     or an operand is not finite. The fence sits on the norm inputs and on
     the output (a double ``where``), so the zeroed branch has zero, not NaN,
-    gradients.
+    gradients. With a ``DPGroup`` (the global grid) every norm is over the
+    rows of all its ranks, and the finiteness test too.
     """
     if reg_type == "error_estimate":
         res = error_residuals(step.utilde, u_prev, step.u_new, atol, rtol)
-        return internal_norm(res) * dt
+        return internal_norm(res, group) * dt
     if reg_type == "stiffness_estimate":
         eps = torch.finfo(step.u_new.dtype).eps
         num_x = step.ks[6] - step.ks[5]
         den_x = step.u_new - step.g6
         finite_in = torch.isfinite(num_x).all() & torch.isfinite(den_x).all()
-        num = internal_norm(torch.where(finite_in, num_x, 0.0))
-        den = internal_norm(torch.where(finite_in, den_x, 1.0))
+        if group is not None:
+            from ..parallel.mesh import all_ranks
+
+            finite_in = all_ranks(finite_in, group)
+        num = internal_norm(torch.where(finite_in, num_x, 0.0), group)
+        den = internal_norm(torch.where(finite_in, den_x, 1.0), group)
         bad = ~finite_in | (den == 0.0) | ~torch.isfinite(num + den)
         num_s = torch.where(bad, 0.0, num)
         den_s = torch.where(bad, 1.0, den)

@@ -111,7 +111,7 @@ def sweep_steps(step_vjp: Callable, params, ts, us, k1_of: Callable, n: int,
 
 
 def replay_window(step: Callable, ckpt, w: int, n_steps: int, t_end,
-                  max_steps: int, *, rtol, atol):
+                  max_steps: int, *, rtol, atol, group=None):
     """Re-integrate the ≤ ``n_steps`` accepted steps of window ``w`` from
     its checkpoint with ``attempt``, the forward loop's own attempt, so the
     accept and dt sequence repeats the forward's. ``step(u, t, dt, k1)``.
@@ -124,7 +124,7 @@ def replay_window(step: Callable, ckpt, w: int, n_steps: int, t_end,
     while i < n_steps and att < max_steps:
         a = attempt(lambda u_, t_, dt_, k1_, _: step(u_, t_, dt_, k1_),
                     controller, u, t, dt, qold, t_end, k1, None,
-                    atol=atol, rtol=rtol)
+                    atol=atol, rtol=rtol, group=group)
         att += 1
         if a.accept:
             i += 1
@@ -140,11 +140,13 @@ def replay_window(step: Callable, ckpt, w: int, n_steps: int, t_end,
 
 def eager_sweep(step: Callable, step_vjp: Callable, params, knots, naccept,
                 saveat, ct_ys, ct_y, *, two_level, t_end, rtol, atol,
-                max_steps, stride, dense_cap, k1_of=None):
+                max_steps, stride, dense_cap, k1_of=None, group=None):
     """The whole reverse sweep on the host: dense over the recorded knots,
     or window by window from the checkpoints when the solve outgrew
     ``dense_cap``. ``k1_of(us, ts, ks, j)`` gives a step's FSAL derivative
-    (default: the recorded ``ks[j]``). Returns ``(a_u, a_k, a_p)``."""
+    (default: the recorded ``ks[j]``). A window replay on the global grid
+    (``group``) takes its forward's collectives again, on every rank in the
+    same order. Returns ``(a_u, a_k, a_p)``."""
     if k1_of is None:
         def k1_of(us, ts, ks, j):  # noqa: F811
             return ks[j]
@@ -158,7 +160,7 @@ def eager_sweep(step: Callable, step_vjp: Callable, params, knots, naccept,
         n_steps = min(max(n - w * stride, 0), stride)
         ts, us, ks, got = replay_window(
             lambda u, t, dt, k1: step(params, u, t, dt, k1), knots, w,
-            n_steps, t_end, max_steps, rtol=rtol, atol=atol,
+            n_steps, t_end, max_steps, rtol=rtol, atol=atol, group=group,
         )
         # sweep what the replay accepted: an accept flip must not sweep
         # slots it never wrote
@@ -199,7 +201,7 @@ class _StoredSolve(torch.autograd.Function):
                 sol.ts, ct_ys, ct_y, two_level=spec.two_level,
                 t_end=device_scalar(spec.t_end, u0), rtol=spec.rtol,
                 atol=spec.atol, max_steps=spec.max_steps, stride=spec.stride,
-                dense_cap=spec.dense_cap,
+                dense_cap=spec.dense_cap, group=spec.group,
             )
         # close the FSAL chain: k1_0 = f(u0, t0, params), plain autograd
         with torch.enable_grad():
@@ -251,7 +253,7 @@ class _Spec:
         """The forward solve with knots; returns ``(sol, from_kernel)``."""
         rec = dict(record_knots=True, knot_dense_cap=self.dense_cap,
                    knot_stride=self.stride, reservoir=self.reservoir)
-        if self.persistent_fn is not None:
+        if self.persistent_fn is not None and self.group is None:
             sol = self.persistent_fn(
                 u0, params, (self.t0, self.t_end), saveat_arr=self.saveat_arr,
                 rtol=self.rtol, atol=self.atol, max_steps=self.max_steps,
@@ -270,7 +272,7 @@ class _Spec:
         dt_init, nfe_dt = initial_step_size(
             lambda u, t: self.f_pure(u, t, params), u0,
             device_scalar(self.t0, u0), order=5, rtol=self.rtol,
-            atol=self.atol, f0=k1_0,
+            atol=self.atol, f0=k1_0, group=self.group,
         )
         dt_init = torch.minimum(
             dt_init, device_scalar(self.t_end - self.t0, u0)
@@ -285,7 +287,8 @@ class _Spec:
         out = adaptive_loop(
             fn, u0, k1_0, st0, self.t0, self.t_end, dt_init,
             saveat=self.saveat_arr, rtol=self.rtol, atol=self.atol,
-            max_steps=self.max_steps, step_fn=step_fn, **rec,
+            max_steps=self.max_steps, step_fn=step_fn, group=self.group,
+            **rec,
         )
         return ODESolution(
             ts=self.saveat_arr, ys=out["ys"], t_final=out["t_final"],
@@ -324,6 +327,7 @@ def stored_odesolve(
     reservoir: Optional[torch.Tensor] = None,
     stateful: bool = False,
     f_state=None,
+    group=None,
 ) -> ODESolution:
     """Integrate ``du/dt = f(u, t, params)`` with gradients with respect to
     ``u0`` and ``params`` through the stored adjoint.
@@ -354,6 +358,11 @@ def stored_odesolve(
     u, t, dt, k1, st) -> Tsit5StepResult`` with the state after the step.
     The forward threads it on accepted steps and returns it as
     ``f_state``; ``fsal_fn`` and the backward see the initial state.
+
+    With a ``DPGroup`` (``group``, the global grid of data parallelism)
+    ``u0`` is this rank's rows and every norm of the forward (and of a
+    window replay) is over all the ranks' rows; ``persistent_fn`` is not
+    used and the backward sweeps this rank's rows on the shared steps.
     """
     t0, t_end = float(tspan[0]), float(tspan[1])
     saveat_arr = (
@@ -366,7 +375,7 @@ def stored_odesolve(
         max_steps=max_steps, dense_cap=dense_cap, two_level=two_level,
         stride=stride, step_fn=step_fn, persistent_fn=persistent_fn,
         sweep_fn=sweep_fn, fsal_fn=fsal_fn, reservoir=reservoir,
-        stateful=stateful, f_state=f_state, sol=None,
+        stateful=stateful, f_state=f_state, group=group, sol=None,
     )
     if spec.fsal_fn is None:
         spec.fsal_fn = spec.f_pure

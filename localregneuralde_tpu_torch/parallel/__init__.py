@@ -1,0 +1,26 @@
+"""Data parallelism over ``torch.distributed``, one rank a process
+(counterpart of ``localregneuralde_tpu/parallel/``): the group and the
+batch's rows (``mesh``), the process plumbing (``multihost``), the per-rank
+grid (``shardmap_train``, ``train.data_parallel='shardmap'``) and the
+global grid (``sharded_train``, ``'gspmd'``). Tensor parallelism is not
+ported (ROADMAP Queue 1 item 14d)."""
+from . import multihost
+from .mesh import DPGroup, make_dp_group, shard_batch
+from .sharded_train import (
+    make_sharded_eval_step,
+    make_sharded_multi_train_step,
+    make_sharded_train_step,
+)
+from .shardmap_train import make_shardmap_train_step, rank_state
+
+__all__ = [
+    "DPGroup",
+    "make_dp_group",
+    "make_sharded_eval_step",
+    "make_sharded_multi_train_step",
+    "make_sharded_train_step",
+    "make_shardmap_train_step",
+    "multihost",
+    "rank_state",
+    "shard_batch",
+]

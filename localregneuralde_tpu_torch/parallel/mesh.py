@@ -1,0 +1,167 @@
+"""The data-parallel group: one rank a process over ``torch.distributed``.
+
+Counterpart of ``localregneuralde_tpu/parallel/mesh.py``: a process group of
+world size n stands for JAX's ``data`` mesh axis, one rank a process (and a
+device). ``shard_batch`` takes this rank's rows of a host batch, as JAX's
+``shard_batch`` places a batch's leading dimension over the axis.
+
+Every collective of the layer goes through ``gather_slots``: each rank
+writes its tensor into its own slot of a zeroed ``(n, ...)`` buffer and one
+all-reduce fills every slot on every rank. Adding zeros is exact, so each
+rank then holds every rank's tensor bitwise (up to the sign of a zero), and
+``ordered_sum`` adds the slots in rank order: every rank gets the same bytes
+from the same order whatever the backend's reduction algorithm. It takes an
+all-reduce only, which Gloo runs on CUDA tensors as well as on CPU ones
+(its all-gather takes CPU tensors only), and NCCL on its devices.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+
+@dataclass(frozen=True)
+class DPGroup:
+    """The data-parallel group: ``group`` the process group (None: the
+    default one), ``rank`` this process's rank in it and ``size`` its
+    world size, the data-parallel degree."""
+
+    group: Any
+    rank: int
+    size: int
+
+    @property
+    def backend(self) -> str:
+        return dist.get_backend(self.group)
+
+
+def make_dp_group(tensor_parallel: int = 1, group=None) -> DPGroup:
+    """The data-parallel group over the initialised default process group
+    (``multihost.initialize``), or over ``group``. Tensor parallelism is
+    not ported: ``tensor_parallel`` > 1 raises."""
+    if int(tensor_parallel) != 1:
+        raise NotImplementedError(
+            f"train.tensor_parallel={tensor_parallel}: tensor parallelism is "
+            "not ported (ROADMAP Queue 1 item 14d); the parallel layer is "
+            "data-parallel only")
+    if not dist.is_initialized():
+        raise RuntimeError("torch.distributed is not initialised: call "
+                           "parallel.multihost.initialize() first")
+    return DPGroup(group=group, rank=dist.get_rank(group),
+                   size=dist.get_world_size(group))
+
+
+def local_rows(global_rows: int, dp: DPGroup, n_micro: int = 1) -> list:
+    """This rank's rows of a global batch of ``global_rows``: a slice of
+    each of its ``n_micro`` microbatches (see ``shard_batch``)."""
+    if global_rows % (n_micro * dp.size):
+        raise ValueError(
+            f"a batch of {global_rows} rows does not split into {n_micro} "
+            f"microbatch(es) over the data-parallel degree {dp.size}")
+    m = global_rows // n_micro
+    b = m // dp.size
+    return [slice(i * m + dp.rank * b, i * m + (dp.rank + 1) * b)
+            for i in range(n_micro)]
+
+
+def shard_batch(batch, dp: DPGroup, n_micro: int = 1):
+    """This rank's rows of a host (or device) batch: its contiguous slice
+    of the leading dimension; with ``n_micro`` microbatches its slice of
+    each microbatch, in order, so that the step's microbatch i over the
+    ranks is the global batch's microbatch i."""
+    pieces = local_rows(int(batch[0].shape[0]), dp, n_micro)
+
+    def take(a):
+        if len(pieces) == 1:
+            return a[pieces[0]]
+        parts = [a[p] for p in pieces]
+        if isinstance(a, torch.Tensor):
+            return torch.cat(parts)
+        import numpy as np
+
+        return np.concatenate(parts)
+
+    return tuple(take(a) for a in batch)
+
+
+def is_batch_leaf(x, rows: int) -> bool:
+    """Whether a state or stats leaf holds rows of the batch: a tensor at
+    least 2-D with this rank's ``rows`` leading (the latent model's ``mu``
+    and ``logvar``, the classifier's ``y_pred``). The port's other leaves
+    are 0-D counters and 1-D statistics."""
+    return isinstance(x, torch.Tensor) and x.ndim >= 2 and x.shape[0] == rows
+
+
+def tensor_leaves(tree) -> list:
+    """The tensors of a state or stats tree (dicts, tuples, lists), in
+    order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tensor_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tensor_leaves(v)]
+    return []
+
+
+def map_tensors(fn, tree):
+    """``tree`` with each tensor ``t`` replaced by ``fn(t)``, in
+    ``tensor_leaves``' order; other leaves (generators) kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    return tree
+
+
+def gather_slots(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
+    """Every rank's ``x`` on every rank, ``(n,) + x.shape``, in rank order:
+    one all-reduce of a zeroed buffer holding ``x`` in this rank's slot.
+    Booleans travel as float32 and integers as float64 (exact below
+    2**53), the types every backend reduces on every device."""
+    dtype = x.dtype
+    if dtype == torch.bool:
+        x = x.to(torch.float32)
+    elif not x.is_floating_point():
+        x = x.to(torch.float64)
+    buf = torch.zeros((dp.size,) + tuple(x.shape), dtype=x.dtype,
+                      device=x.device)
+    buf[dp.rank] = x
+    dist.all_reduce(buf, group=dp.group)
+    return buf.to(dtype)
+
+
+def ordered_sum(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
+    """The sum over the ranks of ``x``, added in rank order: the same bytes
+    on every rank."""
+    slots = gather_slots(x, dp)
+    acc = slots[0]
+    for k in range(1, dp.size):
+        acc = acc + slots[k]
+    return acc
+
+
+def mean_over_ranks(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
+    """The mean over the ranks of a floating ``x`` (``ordered_sum / n``)."""
+    return ordered_sum(x, dp) / dp.size
+
+
+def all_ranks(flag: torch.Tensor, dp: DPGroup) -> torch.Tensor:
+    """The AND over the ranks of a boolean."""
+    return torch.all(gather_slots(flag.reshape(()), dp))
+
+
+def agree(counts: torch.Tensor, dp: DPGroup, what: str) -> None:
+    """Raise unless ``counts`` (an integer vector) is equal on every rank:
+    one collective, each count's minimum against its maximum."""
+    slots = gather_slots(counts.to(torch.int64), dp)
+    lo, hi = slots.min(dim=0).values, slots.max(dim=0).values
+    if not torch.equal(lo, hi):
+        raise RuntimeError(
+            f"the ranks of the global grid parted: {what} range over "
+            f"{slots.tolist()} (rank order)")

@@ -38,6 +38,10 @@ def test_imports_with_jax_blocked():
         "import localregneuralde_tpu_torch.utils.export\n"
         "import localregneuralde_tpu_torch.utils.profiling\n"
         "import localregneuralde_tpu_torch.ops.cuda.serving\n"
+        "import localregneuralde_tpu_torch.native, localregneuralde_tpu_torch.native.loader\n"
+        "import localregneuralde_tpu_torch.parallel\n"
+        "from localregneuralde_tpu_torch.parallel import (mesh, multihost,\n"
+        "    sharded_train, shardmap_train)\n"
         "from localregneuralde_tpu_torch.utils import (PhaseTimer, trace,\n"
         "    export_fn, export_model, export_model_multi, save_exported,\n"
         "    load_exported)\n"
@@ -122,6 +126,41 @@ def test_no_module_imports_jax():
             ), f"{path} imports {names}"
 
 
+def test_no_module_loads_the_jax_packages_native_library():
+    """Neither the port nor ``chip_smoke.py`` names the JAX package's
+    native library or imports its module: the port builds and loads its
+    own (``libnativeloader_<hash>.so`` under ``build/``)."""
+    files = list(PKG.rglob("*.py")) + list(PKG.rglob("*.cpp")) + [
+        ROOT / "chip_smoke.py"]
+    for path in files:
+        text = path.read_text()
+        assert "libnativeloader.so" not in text, path
+        assert "localregneuralde_tpu.native" not in text, path
+
+
+def test_chip_smoke_imports_no_jax():
+    for node in ast.walk(ast.parse((ROOT / "chip_smoke.py").read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        assert not any(
+            n == "jax" or n.startswith(("jax.", "localregneuralde_tpu."))
+            or n == "localregneuralde_tpu" for n in names), names
+
+
+def test_native_loader_builds_under_build_not_beside_its_source():
+    """The loader's library goes to ``build/`` at the repository root under
+    a name hashed from its source, never into the package."""
+    from localregneuralde_tpu_torch.native import loader
+
+    lib = loader.build()
+    assert lib.parent == ROOT / "build" and lib.exists()
+    assert lib.name.startswith("libnativeloader_")
+    assert not list((PKG / "native").glob("*.so"))
+
+
 def _schema(module):
     def default(f):
         v = (f.default if f.default is not dataclasses.MISSING
@@ -160,8 +199,8 @@ def test_unported_paths_raise():
     """The solver modes and SDE solvers the port once lacked build and run
     from a config or the layers (vcab3, the direct adjoint, Milstein with
     and without sde_noise_dims, Euler–Heun, the score sampler's solvers);
-    what is still unported (the parallel layer, the native loader) raises
-    and cites its ROADMAP item."""
+    what is still unported (tensor parallelism, the global grid for the
+    SDE, conv and chain families) raises and cites its ROADMAP item."""
     cfg = torch_config.define_configuration(
         ["--model.solver.ode_solver=vcab3"], None
     )
@@ -192,18 +231,36 @@ def test_unported_paths_raise():
                               solver=solver, rtol=0.5, atol=0.5,
                               device="cpu")
         assert s.shape == (4, 2) and int(sol.nfe_drift) > 0
-    # still unported: the parallel layer and the native loader
-    from localregneuralde_tpu_torch.harness.data import make_dataloader
+    # still unported: tensor parallelism, and the global grid of data
+    # parallelism for the SDE, conv and chain families
     from localregneuralde_tpu_torch.harness.latent_runner import (
         check_supported,
     )
+    from localregneuralde_tpu_torch.parallel.sharded_train import (
+        check_global_grid,
+    )
 
-    dp = torch_config.define_configuration(
-        ["--train.data_parallel=gspmd"], None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        check_supported(dp)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        make_dataloader((torch.zeros(4, 2).numpy(),), 2, backend="native")
+    tp = torch_config.define_configuration(
+        ["--train.data_parallel=gspmd", "--train.tensor_parallel=2"], None)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14d"):
+        check_supported(tp)
+    for extra, item in ((["--model.model_type=cifar10_cnn"], "14c"),
+                        ([], "14b")):
+        cfg = torch_config.define_configuration(
+            ["--train.data_parallel=gspmd"] + extra, None)
+        cfg.model.sde = not extra
+        model = construct_model(cfg, device="cpu")
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1 item {item}"):
+            check_global_grid(model, model.init_state())
+    from localregneuralde_tpu_torch.harness import construct_time_series
+
+    latent = torch_config.define_configuration(
+        ["--train.data_parallel=gspmd"], "experiments/physionet/physionet.yaml")
+    model = construct_time_series(latent, saveat=torch.linspace(0, 1, 5),
+                                  device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14a"):
+        check_global_grid(model, model.init_state())
 
 
 def test_kernel_dispatch():
