@@ -195,7 +195,22 @@ on the card:
     the single-device route's: no plain version), ms a DP step beside the
     single-device step with the all-reduce's share; then both runners
     (``mlp.yaml``, ``physionet.yaml``) for a few steps on two ranks:
-    rc 0, equal windows, rank 0's checkpoint.
+    rc 0, equal windows, rank 0's checkpoint. The global grid of the chain
+    and SDE families (``[dp world1|world2 physionet|mnist_sde|
+    mnist_sde_reg]``) at ``physionet.yaml``'s and ``mnist_sde/mlp.yaml``'s
+    full width, B = 512, the last with its unbiased regulariser on (weight
+    1000): kernels 5 and 10 solve the whole batch on every rank, kernels 9
+    and 12 sweep the rank's rows. World 1 bitwise the single-device
+    shipped route's loss and NFE; world 1 and both world-2 ranks against
+    it (NFE equal, loss and gradients within ``DP_LOSS_RTOL`` and
+    ``DP_GRAD_REL``, the latent model's with the regulariser's weight at
+    0, its error estimate being float32 noise at rtol 1.4e-8); the solve
+    and the sweep launched once a step, no plain sweep run, each rank's
+    profile with both kernels, kernel 9 and 12 on the step's own knots
+    held against their plain versions, ms a DP step beside the
+    single-device step with the all-reduce's share; then both runners
+    under ``'gspmd'`` (``physionet.yaml``, ``mnist_sde/mlp.yaml``) on two
+    ranks.
 
 Beside those: each persistent kernel's outputs (kernels 4 at both
 tolerances, 5, 6, 8's replay and its gradients, 9, 10, 11 and 12, and
@@ -3161,10 +3176,10 @@ def phase_latent(device, profile=False):
 
         return timed
 
-    def timed_eval(model, ts, batch):
+    def timed_eval(model, ts, batch, *dp):
         torch.cuda.synchronize()
         before, t0 = launch_counts(), time.perf_counter()
-        mse, nfe = evaluate(model, ts, batch)
+        mse, nfe = evaluate(model, ts, batch, *dp)
         torch.cuda.synchronize()
         evals.append((1e3 * (time.perf_counter() - t0), delta(before),
                       float(mse), int(nfe), int(batch[0].shape[0])))
@@ -7824,7 +7839,7 @@ def _global_grads(model, loss_fn, ts, batch, w, dp=None):
 
     like = next(iter(ts.params.values()))
     draws = [to_device(d, like) for d in stage_step(
-        model, cloned_generators(ts.state), int(batch[0].shape[0]), 1)]
+        model, cloned_generators(ts.state), int(batch[0].shape[0]), 1, dp)]
     sync = None
     if dp is not None:
         sync = GlobalGridSync(dp, check_global_grid(model))
@@ -7833,7 +7848,13 @@ def _global_grads(model, loss_fn, ts, batch, w, dp=None):
         None if sync is None else sync.state_in)
     if sync is not None:
         loss, state, stats, grads = sync.reduce(loss, state, stats, grads)
-    return loss, int(stats["nfe"]), [g.detach() for g in grads]
+    return loss, _drift_nfe(stats), [g.detach() for g in grads]
+
+
+def _drift_nfe(stats) -> int:
+    """A step's NFE (the SDE's drift NFE: its stats hold a pair)."""
+    nfe = stats["nfe"]
+    return int(nfe[0] if isinstance(nfe, (tuple, list)) else nfe)
 
 
 def _sync(device):
@@ -7854,7 +7875,7 @@ def _timed_steps(step, ts, batches, w_reg, sched):
         ts, loss, stats = step(ts, data, w_reg(i + 1), sched(i + 1))
         _sync(dev)
         ms.append(1e3 * (time.perf_counter() - t0))
-        nfe.append(float(stats["nfe"]))
+        nfe.append(_drift_nfe(stats))
     return ts, ms, nfe
 
 
@@ -7908,6 +7929,259 @@ def _check_kernel_route(tag, dp_names, ref_names, want):
           f"{_plain_gemms(ref_names)})")
     check(all(any(w in k for k in ours) for w in want) and not extra,
           f"dp {tag}: kernels {ours} lack {want} or extra GEMMs {extra}")
+
+
+# --- the global grid of the chain and SDE families at full width
+# (physionet.yaml, mnist_sde/mlp.yaml): world 1 in this process, world 2
+# in the dp workers, both runners under 'gspmd'
+
+# each case's config and its overrides: mnist_sde_reg is mnist_sde/mlp.yaml
+# with its unbiased regulariser on (at the config's weight, 1000), so the
+# regulariser's group norms and its normals staged by global row run
+DP_FAMILIES = {"physionet": LATENT_CONFIG, "mnist_sde": SDE_CONFIG,
+               "mnist_sde_reg": SDE_CONFIG}
+DP_CASE_ARGS = {"mnist_sde_reg": ["--model.regularize=unbiased"]}
+# each case's sweep and solve wrappers and their kernels' symbols
+DP_SWEEP = {"physionet": ("persistent_chain_sweep", "chain_sweep_kernel"),
+            "mnist_sde": ("persistent_sde_sweep", "sde_sweep_kernel"),
+            "mnist_sde_reg": ("persistent_sde_sweep", "sde_sweep_kernel")}
+DP_SOLVE = {"physionet": ("persistent_chain_solve", "chain_solve_kernel"),
+            "mnist_sde": ("persistent_sde_solve", "sde_solve_kernel"),
+            "mnist_sde_reg": ("persistent_sde_solve", "sde_solve_kernel")}
+
+
+def _dp_family(family, overrides, device, rows=B, n=DP_STEPS + 1):
+    """``(model, loss_fn, opt, ts, w_of, sched, batches)`` of the family's
+    config with random weights from its seed: ``w_of(step)`` the loss's
+    weight (the latent model's (w_reg, w_kl)), ``n`` training batches of
+    ``rows`` (the runner's loader's first for PhysioNet)."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import (
+        construct_loss, construct_model, construct_optimizer,
+        construct_time_series, create_train_state, define_configuration,
+        make_dataloader, one_hot, synthetic_classification,
+    )
+    from localregneuralde_tpu_torch.harness.latent_runner import (
+        build_physionet_arrays,
+    )
+
+    cfg = define_configuration(list(overrides), DP_FAMILIES[family])
+    if family == "physionet":
+        train, _, tgrid, _ = build_physionet_arrays(cfg)
+        model = construct_time_series(cfg, saveat=torch.from_numpy(tgrid),
+                                      device=device)
+        loss_fn, (w_reg, w_kl) = construct_loss(cfg)
+        loader = iter(make_dataloader(train, rows, shuffle=True, cycle=True,
+                                      seed=cfg.seed))
+        batches = [tuple(torch.from_numpy(a).to(device)
+                         for a in next(loader)) for _ in range(n)]
+
+        def w_of(step):
+            return float(w_reg(step)), float(w_kl(step))
+    else:
+        model = construct_model(cfg, device=device)
+        loss_fn, w_reg = construct_loss(cfg)
+        x, y, _, _ = synthetic_classification((28, 28), 1, 10, seed=0)
+        batches = [(torch.tensor(x[i * rows:(i + 1) * rows], device=device),
+                    torch.tensor(one_hot(y[i * rows:(i + 1) * rows], 10),
+                                 device=device)) for i in range(n)]
+
+        def w_of(step):
+            return float(w_reg(step))
+    opt, sched = construct_optimizer(cfg)
+    return (model, loss_fn, opt, create_train_state(model, opt), w_of, sched,
+            batches)
+
+
+def _dp_gated_w(family, w_of):
+    """The loss weight of the gated comparisons: the latent model's with
+    the regulariser's weight at 0 (its error estimate is float32 noise at
+    physionet.yaml's rtol 1.4e-8, PERF.md §6), the SDE's as it is
+    (1000; mnist_sde/mlp.yaml trains without the regulariser, the
+    mnist_sde_reg case with it)."""
+    return (0.0, w_of(1)[1]) if family == "physionet" else w_of(1)
+
+
+@contextlib.contextmanager
+def _sweep_spy(family, record):
+    """Within the block: ``record["plain"]`` counts the plain sweeps run
+    (the eager stored-adjoint sweeps and the kernels' plain versions), and
+    ``record["args"]`` keeps the family's last kernel-sweep call (its
+    tensors cloned), ``(args, kwargs)``."""
+    import torch
+
+    from localregneuralde_tpu_torch.ode import stored_adjoint as ode_sa
+    from localregneuralde_tpu_torch.ops import cuda
+    from localregneuralde_tpu_torch.ops.cuda import (
+        fused_sde_sweep, fused_solve_bwd,
+    )
+    from localregneuralde_tpu_torch.sde import stored_adjoint as sde_sa
+
+    record.setdefault("plain", 0)
+    plains = [(ode_sa, "eager_sweep"), (sde_sa, "eager_sde_sweep"),
+              (fused_solve_bwd, "persistent_chain_sweep_plain"),
+              (fused_sde_sweep, "persistent_sde_sweep_plain")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in plains]
+    wrapper = DP_SWEEP[family][0]
+    real = getattr(cuda, wrapper)
+
+    def counted(fn):
+        def plain(*a, **kw):
+            record["plain"] += 1
+            return fn(*a, **kw)
+
+        return plain
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().clone()
+        if isinstance(x, (list, tuple)):
+            vals = [clone(v) for v in x]
+            return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
+        return x
+
+    def sweep(*a, **kw):
+        record["args"] = (clone(a), clone(kw))
+        return real(*a, **kw)
+
+    for mod, name, fn in saved:
+        setattr(mod, name, counted(fn))
+    setattr(cuda, wrapper, sweep)
+    try:
+        yield record
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        setattr(cuda, wrapper, real)
+
+
+def _dp_global_family(family, setup, dp):
+    """One global-grid step's loss, NFE and gradients (``_global_grads``
+    at ``_dp_gated_w``) on this rank's rows of the first batch, with the
+    launches it made, its plain sweeps and its kernel sweep's arguments."""
+    from localregneuralde_tpu_torch.ops.cuda import reset_launch_counts
+    from localregneuralde_tpu_torch.parallel import shard_batch
+
+    model, loss_fn, _, ts, w_of, _, batches = setup
+    record = {}
+    with _sweep_spy(family, record):
+        reset_launch_counts()
+        loss, nfe, grads = _global_grads(
+            model, loss_fn, ts, shard_batch(batches[0], dp),
+            _dp_gated_w(family, w_of), dp)
+        _sync(batches[0][0].device)
+        counts = tier_counts()
+    return dict(loss=loss, nfe=nfe, grads=grads, launches=counts,
+                plain=record["plain"], args=record.get("args"))
+
+
+def _check_dp_family_route(tag, family, got):
+    """The global grid's launches: the family's persistent solve (on the
+    whole batch) and its sweep kernel once each, no plain sweep."""
+    sweep, solve = DP_SWEEP[family][0], DP_SOLVE[family][0]
+    launches = {k: v for k, v in got["launches"].items() if v}
+    print(f"[dp {tag}] launches of the step {launches}; plain sweeps run "
+          f"{got['plain']}")
+    check(got["launches"].get(sweep, 0) == 1
+          and got["launches"].get(solve, 0) == 1 and got["plain"] == 0,
+          f"dp {tag}: the global grid's route {launches}, plain sweeps "
+          f"{got['plain']}")
+
+
+def _check_dp_family_grads(tag, family, got, ref):
+    """A global-grid step (``got``) against the single-device shipped
+    route's (``ref``, ``_global_grads``' triple): NFE equal (the persistent
+    solve runs on the same whole batch), loss and gradients within
+    ``DP_LOSS_RTOL`` and ``DP_GRAD_REL``."""
+    loss_rtol, grad_rel = DP_LOSS_RTOL, DP_GRAD_REL
+    loss_ref, nfe_ref, g_ref = ref
+    scale = max(float(g.abs().max()) for g in g_ref)
+    err = max(float((a.to(b.device) - b).abs().max())
+              for a, b in zip(got["grads"], g_ref)) / scale
+    lerr = abs(float(got["loss"]) - float(loss_ref)) / abs(float(loss_ref))
+    print(f"[dp {tag}] vs the single-device shipped route: loss "
+          f"{float(got['loss']):.7f} vs {float(loss_ref):.7f} (rel "
+          f"{lerr:.2e}, tolerance {loss_rtol}), NFE {got['nfe']} vs "
+          f"{nfe_ref}, gradients max-abs / largest {err:.2e} (tolerance "
+          f"{grad_rel})")
+    check(got["nfe"] == nfe_ref and lerr <= loss_rtol and err <= grad_rel,
+          f"dp {tag}: the global grid disagrees with the single-device step")
+
+
+def _check_dp_sweep(tag, family, args, device):
+    """The family's sweep kernel on the global-grid step's own knots and
+    cotangents against its plain version at its tiers and the float64
+    plain sweep (``as_accurate``; the kernels' TF32 gradient products,
+    gated on this one draw at ``K9_WORST`` as kernel 9's worst seed);
+    prints the kernel's and the plain version's ms a call."""
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        SDEWeights, persistent_chain_sweep, persistent_chain_sweep_plain,
+        persistent_sde_sweep, persistent_sde_sweep_plain,
+    )
+    from localregneuralde_tpu_torch.ops.cuda.fused_mlp_bwd import (
+        step_bwd_tiers,
+    )
+    from localregneuralde_tpu_torch.ops.cuda.fused_solve_bwd import (
+        sweep_tiers,
+    )
+
+    check(args is not None, f"dp {tag}: no kernel sweep ran")
+    if args is None:  # a rehearsal off the kernel route
+        return
+    a, kw = args
+    d64 = lambda xs: [x.double() if isinstance(x, torch.Tensor)  # noqa: E731
+                      and x.is_floating_point() else x for x in xs]
+    if family == "physionet":
+        flat = lambda o: [o[0], o[1], *o[2]]  # noqa: E731
+        params, chain, *rest = a
+        tiers = sweep_tiers(kw["precision"], kw["grad_precision"],
+                            kw["recompute_precision"], device)
+        ours = flat(persistent_chain_sweep(*a, **kw))
+        plain = flat(persistent_chain_sweep_plain(*a, tiers=tiers))
+        exact = flat(persistent_chain_sweep_plain(d64(params), chain,
+                                                  *d64(rest)))
+        depth = (LATENT_DEPTHS["step_bwd_products"] if tiers[1] == "tf32"
+                 else LATENT_DEPTHS["grad_products"]) - 2 * 5
+        floor = tf32_sum_tol(depth, max(chain.dims))
+        fn = lambda: persistent_chain_sweep(*a, **kw)  # noqa: E731
+        plain_fn = lambda: persistent_chain_sweep_plain(  # noqa: E731
+            *a, tiers=tiers)
+    else:
+        flat = lambda o: [o[0], *o[1]]  # noqa: E731
+        w, *rest = a
+        sw = dict(solver=kw["solver"], delta=kw["delta"])
+        rec, grad = step_bwd_tiers(kw["precision"], kw["grad_precision"],
+                                   device)
+        ours = flat(persistent_sde_sweep(*a, **kw))
+        plain = flat(persistent_sde_sweep_plain(*a, **sw, tier=rec,
+                                                grad_tier=grad))
+        exact = flat(persistent_sde_sweep_plain(SDEWeights(*d64(w)),
+                                                *d64(rest), **sw))
+        depth = (SDE_STEP_BWD_PRODUCTS if rec == "tf32"
+                 else SDE_GRAD_PRODUCTS)
+        floor = tf32_sum_tol(depth, w.b1.shape[0])
+        tiers = (rec, grad)
+        fn = lambda: persistent_sde_sweep(*a, **kw)  # noqa: E731
+        plain_fn = lambda: persistent_sde_sweep_plain(  # noqa: E731
+            *a, **sw, tier=rec, grad_tier=grad)
+    worst, (e, e_p) = as_accurate(ours, plain, exact, floor)
+    print(f"[dp {tag}] {DP_SWEEP[family][0]} {'/'.join(tiers)} on the "
+          f"global grid's knots (naccept {int(rest[2] if family == 'physionet' else rest[4])}): "
+          f"vs float64 {e:.3e}, its plain version's {e_p:.3e}: "
+          f"{worst:.3f} of the gate (gate {K9_WORST}, at least "
+          f"{floor:.3e})")
+    check(worst <= K9_WORST, f"dp {tag}: the sweep kernel on the global "
+          "grid's knots against its plain version")
+    if torch.device(device).type != "cuda":  # a rehearsal: no card to time
+        return
+    ms, = median_ms([fn], n=10, warmup=2)
+    plain_ms, = median_ms([plain_fn], n=3, warmup=1)
+    print(f"[dp {tag}] {CARD}: the sweep kernel {ms:.4f} ms a call (one "
+          f"wrapper call, CUDA events), its plain version {plain_ms:.4f}; "
+          f"max-abs {max(max_abs(x, y) for x, y in zip(ours, plain)):.3e}")
 
 
 def dp_worker(job_file, rank, port, device="cuda:0"):
@@ -7989,6 +8263,31 @@ def dp_worker(job_file, rank, port, device="cuda:0"):
                 step, ts, data[1:], w_reg, sched)
             res["reduce_ms"] = reduce_ms
         out[f"global_{tag}"] = res
+
+    # the chain and SDE families on the global grid
+    for family, overrides in job["families"].items():
+        setup = _dp_family(family, overrides, device, job["rows"])
+        got = _dp_global_family(family, setup, dp)
+        res = dict(loss=got["loss"].cpu(), nfe=got["nfe"],
+                   grads=[g.cpu() for g in got["grads"]],
+                   launches=got["launches"], plain=got["plain"])
+        model, loss_fn, opt, ts, w_of, sched, batches = setup
+        data = [shard_batch(b, dp) for b in batches]
+        step = make_sharded_train_step(model, loss_fn, opt, dp)
+        warmup_model(step, None, ts, data[0], w_of(1), sched(1))
+        res["kernels"] = _all_kernels(lambda: step(
+            copy.deepcopy(ts), data[1], w_of(2), sched(2)))
+        _, res["ms"], res["nfe_steps"] = _timed_steps(step, ts, data[1:],
+                                                      w_of, sched)
+        flat = torch.cat([got["loss"].reshape(1)]
+                         + [g.reshape(-1) for g in got["grads"]])
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            mean_over_ranks(flat, dp)
+        _sync(device)
+        res["reduce_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+        out[f"family_{family}"] = res
     torch.save(out, f"{job_file}.rank{rank}")
     torch.distributed.destroy_process_group()
     return 0
@@ -8021,13 +8320,14 @@ def _spawn(args_of, n=2, timeout=900, env_of=None):
     return outs
 
 
-def _dp_runner(module, config, extra, tmp, device):
+def _dp_runner(module, config, extra, tmp, device, mode="shardmap"):
     """Both ranks of a runner on this card over Gloo, ``torchrun``'s
-    variables set: rc 0 on both, the same train-window values, and rank
-    0's checkpoint at the canonical place."""
+    variables set, with ``train.data_parallel=mode``: rc 0 on both, the
+    same train-window values, and rank 0's checkpoint at the canonical
+    place."""
     import ast
 
-    args = [config, "--train.data_parallel=shardmap", "--dp_backend=gloo",
+    args = [config, f"--train.data_parallel={mode}", "--dp_backend=gloo",
             f"--device={device}",
             "--train.print_frequency=2", f"--train.checkpoint_dir={tmp}/ck",
             f"--train.log_dir={tmp}/lg"] + extra
@@ -8056,7 +8356,8 @@ def _dp_runner(module, config, extra, tmp, device):
                         for ln in lines if ln.startswith("[") and "/" in
                         ln.split()[0] and "]" in ln.split()[0]])
     ck = os.path.join(summaries[0]["ckpt_dir"], "model_current.ckpt")
-    print(f"[dp {module}] two ranks over Gloo on one card, {wall:.1f} s: "
+    print(f"[dp {module} {mode}] two ranks over Gloo on one card, "
+          f"{wall:.1f} s: "
           f"windows {windows[0]}; ranks {[s['rank'] for s in summaries]}; "
           f"rank 0's checkpoint {os.path.exists(ck)}")
     check(windows[0] and windows[0] == windows[1]
@@ -8065,11 +8366,13 @@ def _dp_runner(module, config, extra, tmp, device):
           f"dp {module}: the ranks' windows differ or no checkpoint")
 
 
-def phase_dp(device, extra=(), rows=B, latent_extra=()):
-    """``[dp ...]``: data parallelism at mlp.yaml's full width (``extra``
-    overrides and ``rows`` a batch narrow it for a rehearsal on the CPU).
-    Returns the launch counts of its steps (this process's world-1 steps
-    and the two world-2 ranks')."""
+def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
+    """``[dp ...]``: data parallelism at mlp.yaml's full width, and the
+    global grid of the chain and SDE families at physionet.yaml's and
+    mnist_sde/mlp.yaml's (``extra``, ``latent_extra`` and
+    ``family_extra``'s overrides by family, and ``rows`` a batch, narrow
+    them for a rehearsal on the CPU). Returns the launch counts of its
+    steps (this process's world-1 steps and the two world-2 ranks')."""
     import copy
     import tempfile
 
@@ -8083,6 +8386,9 @@ def phase_dp(device, extra=(), rows=B, latent_extra=()):
     )
 
     extra, latent_extra = list(extra), list(latent_extra)
+    family_extra = {f: DP_CASE_ARGS.get(f, [])
+                    + list((family_extra or {}).get(f, ()))
+                    for f in DP_FAMILIES}
     batches = _dp_batches(device, rows)
     path = {}
 
@@ -8133,6 +8439,28 @@ def phase_dp(device, extra=(), rows=B, latent_extra=()):
     check(same and k2 > 0 and k3 > 0
           and counts.get("persistent_tsit5_solve", 0) == 0,
           "dp world1: the global-grid step is not the non-persistent route's")
+    family_refs = {}
+    for family, overrides in family_extra.items():
+        setup = _dp_family(family, overrides, device, rows)
+        got = _dp_global_family(family, setup, dp)
+        add(got["launches"])
+        tag = f"world1 {family}"
+        _check_dp_family_route(tag, family, got)
+        # one rank runs the single device's kernels on the same batch
+        ref = _global_grads(setup[0], setup[1], setup[3], setup[6][0],
+                            _dp_gated_w(family, setup[4]))
+        family_refs[family] = ref
+        same = bool(torch.equal(got["loss"], ref[0])) and got["nfe"] == ref[1]
+        grads_same = all(torch.equal(a, b)
+                         for a, b in zip(got["grads"], ref[2]))
+        print(f"[dp {tag}] {dp.backend}, B = {rows}: loss "
+              f"{float(got['loss']):.7f}, NFE {got['nfe']}; bitwise the "
+              f"single-device shipped route's loss and NFE {same}, "
+              f"gradients {grads_same} (not gated)")
+        check(same, f"dp {tag}: the global grid's forward is not the "
+              "single-device shipped route's")
+        _check_dp_family_grads(tag, family, got, ref)
+        _check_dp_sweep(tag, family, got["args"], device)
     torch.distributed.destroy_process_group()
 
     # --- single-device steps to set the DP steps beside
@@ -8157,7 +8485,8 @@ def phase_dp(device, extra=(), rows=B, latent_extra=()):
     # --- world 2 over Gloo: two processes on this card
     with tempfile.TemporaryDirectory() as tmp:
         job = os.path.join(tmp, "dp")
-        torch.save({"extra": extra, "rows": rows}, job)
+        torch.save({"extra": extra, "rows": rows,
+                    "families": family_extra}, job)
         outs = _spawn(lambda r, port: [
             sys.executable, os.path.abspath(__file__), "--dp-worker", job,
             str(r), str(port), str(device)])
@@ -8175,6 +8504,12 @@ def phase_dp(device, extra=(), rows=B, latent_extra=()):
                  + latent_extra)):
             _dp_runner(module, config, args, os.path.join(tmp, tmp_name),
                        device)
+        for tmp_name, module, family in (("r3", "latent_runner", "physionet"),
+                                         ("r4", "runner", "mnist_sde")):
+            _dp_runner(module, DP_FAMILIES[family], [
+                "--train.total_steps=2", "--train.evaluate_every=2"]
+                + family_extra[family], os.path.join(tmp, tmp_name), device,
+                mode="gspmd")
 
     # the per-rank step: bitwise the two half-batch steps averaged
     model, loss_fn, opt, ts, w_reg, sched = _dp_model(extra, device)
@@ -8240,6 +8575,36 @@ def phase_dp(device, extra=(), rows=B, latent_extra=()):
         _check_kernel_route(f"world2 global rank {r}", g["kernels"],
                             ref_names["global"], ("step_cluster_kernel",
                                                   "tsit5_step_bwd_kernel"))
+    # the chain and SDE families' global grid on two ranks
+    for family, overrides in family_extra.items():
+        got = [res[f"family_{family}"] for res in ranks]
+        for r, g in enumerate(got):
+            tag = f"world2 {family} rank {r}"
+            add(g["launches"])
+            _check_dp_family_route(tag, family, g)
+            _check_dp_family_grads(tag, family, g, family_refs[family])
+            names = g["kernels"]
+            ours = {k: v for k, v in names.items() if "lrnde" in k}
+            print(f"[dp {tag}] profile: port kernels {ours}")
+            check(all(any(sym in k for k in names) for sym in (
+                DP_SWEEP[family][1], DP_SOLVE[family][1])),
+                  f"dp {tag}: the profile {ours} lacks "
+                  f"{DP_SWEEP[family][1]} or {DP_SOLVE[family][1]}")
+        check(got[0]["nfe"] == got[1]["nfe"],
+              f"dp world2 {family}: the ranks' NFE differ")
+        model, loss_fn, opt, ts, w_of, sched, fb = _dp_family(
+            family, overrides, device, rows)
+        single = make_train_step_of((model, loss_fn, opt))
+        warmup_model(single, None, ts, fb[0], w_of(1), sched(1))
+        _, sd_ms, sd_nfe = _timed_steps(single, ts, fb[1:], w_of, sched)
+        med = statistics.median(got[0]["ms"])
+        print(f"[dp time {family} global] {CARD}: a DP step (2 ranks on one "
+              f"card, Gloo) {med:.3f} ms (steps "
+              f"{[round(m, 3) for m in got[0]['ms']]}), its all-reduce "
+              f"{got[0]['reduce_ms']:.3f} ms "
+              f"({100 * got[0]['reduce_ms'] / med:.1f}%), NFE "
+              f"{got[0]['nfe_steps']}; the single-device step at B = {rows} "
+              f"{statistics.median(sd_ms):.3f} ms, NFE {sd_nfe}")
     pr, gh = ranks[0]["per_rank"], ranks[0]["global_highest"]
     for tag, dp_ms, dp_nfe, sd_ms, sd_nfe in (
             ("per-rank mlp.yaml", pr["ms"], pr["nfe_steps"], ms_single,

@@ -124,8 +124,9 @@ class KStepCall:
     """``multi_step(ts, data_stack, w_regs, lrs) -> (ts', last_loss, red)``
     (``train.make_multi_train_step``). ``w_regs`` is a (K,) array, or for
     the latent model a tuple ``(w_regs, w_kls)`` of them; ``captured`` says
-    whether the last call replayed a graph. ``dp`` (a data-parallel
-    step's group) makes every call eager."""
+    whether the last call replayed a graph. ``dp`` (the global grid's
+    group) makes every call eager and stages each step's draws by global
+    row (``train.stage_step``)."""
 
     def __init__(self, model, body, reduce_fn, dp=None):
         self.model, self.body, self.reduce_fn = model, body, reduce_fn
@@ -142,7 +143,7 @@ class KStepCall:
               if isinstance(w_regs, tuple) else _device_vector(w_regs, like))
         lrs = _device_vector(lrs, like)
         n_micro = self.body.n_micro
-        host = [stage_step(self.model, ts.state, rows, n_micro)
+        host = [stage_step(self.model, ts.state, rows, n_micro, self.dp)
                 for _ in range(K)]
         route = (rows // n_micro, like.device)
         if route not in self._routes:

@@ -26,11 +26,23 @@ classification runner (``loop.py``); with an EMA, evaluation and the best
 checkpoint see the averaged weights. ``train.data_parallel='shardmap'``
 trains over the ranks of ``torchrun``, each rank its own grid on its rows
 (kernels 5 and 9 on every rank; ``runner._wire_data_parallel``), every rank
-evaluating the whole test split; 'gspmd' raises for the chain family
-(ROADMAP Queue 1 item 14a). Once a print window the phase probes
-(``train.make_phase_probes``) time a forward and a forward with its
-backward on the eager step body, outside the window's wall time, for the
-``fwd_time``, ``bwd_time`` and ``opt_time`` columns.
+evaluating the whole test split. ``'gspmd'`` trains and evaluates on the
+global grid (``parallel.make_sharded_train_step``, its K-step call and an
+eval solve over the ranks): the batch spread over the ranks, every norm
+over all their rows, kernel 5 solving the whole batch on every rank and
+kernel 9 sweeping the rank's rows of its knots; as the JAX runner's pod
+mode, the eval batch (clamped to the test split) is rounded down to the
+data-parallel degree, and each eval batch's masked MSE is the whole
+batch's::
+
+    torchrun --nproc_per_node=N -m \\
+        localregneuralde_tpu_torch.harness.latent_runner \\
+        experiments/physionet/physionet.yaml --train.data_parallel=gspmd
+
+Once a print window the phase probes (``train.make_phase_probes``) time a
+forward and a forward with its backward on the eager step body, outside
+the window's wall time, for the ``fwd_time``, ``bwd_time`` and
+``opt_time`` columns.
 """
 from __future__ import annotations
 
@@ -158,20 +170,59 @@ def restore_train_state(ts: TrainState, host: dict, device) -> TrainState:
                       ema=None if ema is None else from_host(ema, device))
 
 
-def eval_forward(model, ts: TrainState, batch):
+def eval_forward(model, ts: TrainState, batch, dp=None):
     """The masked MSE of one batch, summed per series over time and
     features, divided by its observed count, averaged over the batch
-    (``latent_runner.py:117-125`` of the reference), and the batch's NFE."""
+    (``latent_runner.py:117-125`` of the reference), and the batch's NFE.
+    With a ``DPGroup`` (``dp``, the global grid) ``batch`` is this rank's
+    rows of an eval batch spread over the ranks: one solve over all of
+    them, and the whole batch's MSE (the ranks' sums added in rank
+    order)."""
     data, mask, dt = batch
     x = torch.cat([data, mask, dt], dim=-1)
+    state = ts.state
+    if dp is not None:
+        from ..parallel.sharded_train import GlobalGridSync, check_global_grid
+
+        state = GlobalGridSync(dp, check_global_grid(model, state)).state_in(
+            state)
     with torch.no_grad():
         y, st_ = torch.func.functional_call(
-            model, ts.params, (x, ts.state), {"training": False})
-    mse = torch.sum(
+            model, ts.params, (x, state), {"training": False})
+    total = torch.sum(
         torch.sum(torch.square((y - data) * mask), dim=(1, 2))
         / torch.sum(mask, dim=(1, 2))
-    ) / data.shape[0]
-    return mse, st_["neural_ode"]["nfe"]
+    )
+    if dp is None:
+        return total / data.shape[0], st_["neural_ode"]["nfe"]
+    from ..parallel.mesh import ordered_sum
+
+    return (ordered_sum(total, dp) / (data.shape[0] * dp.size),
+            st_["neural_ode"]["nfe"])
+
+
+def round_eval_batch(eval_bs: int, n_test: int, n_data: int) -> int:
+    """The global grid's eval batch, as the JAX runner's pod mode takes it
+    (``latent_runner.py:175-200`` there): ``eval_bs`` (already clamped to
+    the ``n_test`` series of the test split) rounded down to the
+    data-parallel degree ``n_data``; raises when that leaves none. A
+    rounding is printed with the samples it skips beside a
+    single-process run's."""
+    rounded = eval_bs - eval_bs % n_data
+    if rounded == 0:
+        raise ValueError(
+            f"test split ({n_test} samples) is smaller than the "
+            f"data-parallel degree {n_data}; the global grid's latent eval "
+            "needs at least one full global batch")
+    if rounded != eval_bs:
+        # with drop_last a single process also skips its tail batch, so
+        # the delta is what the rounding costs
+        skipped, single = n_test % rounded, n_test % eval_bs
+        print(f"[latent eval] eval batch rounded {eval_bs} -> {rounded} for "
+              f"data-parallel degree {n_data}; {skipped} of {n_test} test "
+              f"samples skipped per eval pass ({skipped - single:+d} vs a "
+              "single-process run)", flush=True)
+    return rounded
 
 
 def run_latent_ode_experiment(cfg: ExperimentConfig,
@@ -237,8 +288,13 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
         seed=cfg.seed, skip_batches=initial_step - 1,
     )
     # the eval batch is clamped to the test split (with drop_last a larger
-    # one would yield no batch: 410 series at the shipped eval size 512)
-    eval_bs = min(int(cfg.dataset.eval_batchsize), int(test_arrays[0].shape[0]))
+    # one would yield no batch: 410 series at the shipped eval size 512);
+    # the global grid spreads each eval batch over the ranks
+    n_test = int(test_arrays[0].shape[0])
+    eval_bs = min(int(cfg.dataset.eval_batchsize), n_test)
+    eval_dp = dp if par.mode == "gspmd" else None
+    if eval_dp is not None:
+        eval_bs = round_eval_batch(eval_bs, n_test, dp.size)
 
     total_steps = cfg.train.total_steps
     loggers = create_logger(log_dir, total_steps, latent_ode=True,
@@ -276,7 +332,7 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
         nonlocal best, final_mse, final_nfe
         best, final_mse, final_nfe = _eval_and_checkpoint(
             model, ts, test_arrays, eval_bs, step, best, loggers, ckpt_dir,
-            device, par.gathered(ts))
+            device, par.gathered(ts), eval_dp)
 
     def stat_row(loss, stats):
         return torch.stack([loss, stats["neg_log_likelihood"],
@@ -345,17 +401,24 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
 
 
 def _eval_and_checkpoint(model, ts, test_arrays, eval_bs, step, best,
-                         loggers, ckpt_dir, device, saved=None):
+                         loggers, ckpt_dir, device, saved=None, dp=None):
     """The masked MSE over the test split, then the step's checkpoint
     (``model_best`` when its MSE is the lowest so far) of ``saved`` (the
-    train state with its gathered layer state; default ``ts``). Returns
-    the best MSE, this evaluation's MSE and its mean NFE."""
+    train state with its gathered layer state; default ``ts``). With a
+    ``DPGroup`` (``dp``) each eval batch is spread over the ranks and
+    solved on the global grid. Returns the best MSE, this evaluation's MSE
+    and its mean NFE."""
     mses, nfes, count = 0.0, 0.0, 0
     # with an EMA, evaluation and the best checkpoint see the averaged
     # weights; the checkpoint keeps both
     for host_batch in make_dataloader(test_arrays, eval_bs, drop_last=True):
+        part = host_batch
+        if dp is not None:
+            from ..parallel import shard_batch
+
+            part = shard_batch(host_batch, dp)
         mse, nfe = eval_forward(model, swap_ema_params(ts),
-                                batch_to_device(host_batch, device))
+                                batch_to_device(part, device), dp)
         bs = host_batch[0].shape[0]
         mses += float(mse) * bs
         nfes += float(nfe) * bs

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..models.draws import (
-    cloned_generators, stage_draws, to_device, with_draws,
+    cloned_generators, rows_of, stage_draws, to_device, with_draws,
 )
 from .optim import device_scalar_like
 
@@ -154,11 +154,18 @@ def device_w(w, like: torch.Tensor):
     return device_scalar_like(w, like)
 
 
-def stage_step(model, state, rows: int, n_micro: int):
+def stage_step(model, state, rows: int, n_micro: int, dp=None):
     """One step's draws on the host, a ``Staged`` per microbatch of
-    ``rows // n_micro`` rows, in the order the step uses them."""
-    return [stage_draws(model, state, rows // n_micro)
-            for _ in range(n_micro)]
+    ``rows // n_micro`` rows, in the order the step uses them. With a
+    ``DPGroup`` (``dp``, the global grid) ``rows`` is this rank's: each
+    microbatch's draws are staged for the whole microbatch over the ranks
+    and cut to this rank's rows of it (``draws.rows_of``)."""
+    b = rows // n_micro
+    if dp is None:
+        return [stage_draws(model, state, b) for _ in range(n_micro)]
+    piece = slice(dp.rank * b, (dp.rank + 1) * b)
+    return [rows_of(model, state, stage_draws(model, state, b * dp.size),
+                    piece) for _ in range(n_micro)]
 
 
 def step_grads(model, loss_fn, n_micro: int, ts: TrainState, data, w,

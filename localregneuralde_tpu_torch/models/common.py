@@ -116,6 +116,9 @@ class ReparameterizeLayer(Module):
     (``common.py:184``). ``latent_dims``, the width of μ₀, lets a train
     step stage ε before the call (``models/draws.py``)."""
 
+    # ε has the batch's rows on its first axis (models/draws.py::rows_of)
+    draw_row_axes = {"eps": 0}
+
     def __init__(self, rng_seed: int = 0, latent_dims: int = None):
         super().__init__()
         self.rng_seed = int(rng_seed)

@@ -17,6 +17,13 @@ the K-step call can capture K steps in one CUDA graph and feed each replay
 new draws, with the arithmetic of the eager step. The generators advance as
 the eager calls would have advanced them: the same draws, in the same
 order.
+
+A draw with a row of the batch on an axis (the reparameterisation's ε,
+the SDE regulariser's normals) is named in its layer's ``draw_row_axes``.
+The global grid of data parallelism stages the whole batch's draws on
+every rank, the same from the same replicated generators, and gives each
+rank its rows of them (``rows_of``): a rank's rows draw what the
+single-device step's would.
 """
 from __future__ import annotations
 
@@ -65,6 +72,23 @@ def stage_draws(model, state, rows: int) -> Staged:
     ``rows``, on the host; advances the layers' generators."""
     return {path: layer.draw(st, rows)
             for path, layer, st in stochastic_layers(model, state)}
+
+
+def rows_of(model, state, staged: Staged, piece: slice) -> Staged:
+    """``staged`` with each draw a layer names in its ``draw_row_axes``
+    (draw name → the axis of the batch's rows) cut to the rows ``piece``;
+    the other draws as they are."""
+    axes = {path: getattr(layer, "draw_row_axes", {})
+            for path, layer, _ in stochastic_layers(model, state)}
+    out = {}
+    for path, draws in staged.items():
+        out[path] = {}
+        for k, v in draws.items():
+            if k in axes[path]:
+                idx = (slice(None),) * axes[path][k] + (piece,)
+                v = v[idx].contiguous()
+            out[path][k] = v
+    return out
 
 
 def to_device(draws, like: torch.Tensor):

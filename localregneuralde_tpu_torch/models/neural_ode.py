@@ -105,11 +105,16 @@ the layer a ``DPGroup`` under its state's ``"dp_group"`` key (``GROUP``):
 the layer's input is then one rank's rows of a batch spread over the
 group's ranks, and every norm of the solve and of the regulariser is over
 all their rows (``ops/residuals.py``), so the ranks take one grid. The
-persistent solve takes no part in a collective, so the kernel route runs
-the loop with the step kernel per attempt and the step-VJP kernel per
-accepted step (kernels 2 and 3); after each solve the ranks' accept and
-reject counts are held equal. The TD-MLP and the generic dynamics take it
-under the stored and the direct adjoint with Tsit5 (``check_global_grid``).
+persistent solves take no part in a collective. The TD-MLP's kernel route
+runs the loop with the step kernel per attempt and the step-VJP kernel per
+accepted step (kernels 2 and 3). The chain family's runs kernel 5 as GSPMD
+runs a replicated custom call: on the whole batch, gathered from the
+ranks, on every rank, each keeping its rows (``parallel.mesh.replicated``);
+kernel 9 sweeps the rank's rows of the knots (``ode/stored_adjoint.py``).
+The regulariser's step and its dt probe take the group's norms. After each
+solve the ranks' accept and reject counts are held equal. The TD-MLP,
+chain and generic dynamics take it under the stored and the direct adjoint
+with Tsit5 (``check_global_grid``).
 """
 from __future__ import annotations
 
@@ -351,13 +356,12 @@ class NeuralODE(Module):
 
     def check_global_grid(self) -> None:
         """Raise ``NotImplementedError`` where the global grid of data
-        parallelism is not ported: the chain and conv families and the
-        solver modes other than Tsit5 under the stored or direct adjoint."""
-        if self.family in ("chain", "conv"):
-            item = "14a" if self.family == "chain" else "14c"
+        parallelism is not ported: the conv family and the solver modes
+        other than Tsit5 under the stored or direct adjoint."""
+        if self.family == "conv":
             raise NotImplementedError(
-                f"data_parallel='gspmd' (the global grid) for the {self.family}"
-                f" family is not ported (ROADMAP Queue 1 item {item}); "
+                "data_parallel='gspmd' (the global grid) for the conv family "
+                "is not ported (ROADMAP Queue 1 item 14c); "
                 "data_parallel='shardmap' (the per-rank grid) runs it")
         if self.solver != "tsit5" or self.adjoint not in ("stored", "direct"):
             raise NotImplementedError(
@@ -553,7 +557,9 @@ class NeuralODE(Module):
         ``mm_precision``, its recompute at ``bwd_precision`` and its
         gradient products at the default tier (``grad_precision=None``),
         whatever the forward's tier. The forward declines where the sweep
-        cannot run, so an eager forward is swept by the eager sweep."""
+        cannot run, so an eager forward is swept by the eager sweep. On the
+        global grid ``stored_odesolve`` runs both on the whole batch's
+        solve (``ode/stored_adjoint.py``)."""
         from ..ops.cuda import (
             chain_eval, chain_sweep_feasible, persistent_chain_solve,
             persistent_chain_sweep,
@@ -588,11 +594,13 @@ class NeuralODE(Module):
             kw.update(persistent_fn=persistent_fn, sweep_fn=sweep_fn)
         return kw
 
-    def _stored_kwargs(self, kernels: bool, names, x, n_save: int):
+    def _stored_kwargs(self, kernels: bool, names, x, n_save: int,
+                       group=None):
         """The dynamics and replacements ``stored_odesolve`` takes, for the
         kernel route or the generic one, for a solve from ``x`` with
-        ``n_save`` saveat times; every callable gets the parameters
-        explicitly, since the backward runs after the caller returns."""
+        ``n_save`` saveat times (on the global grid of ``group``); every
+        callable gets the parameters explicitly, since the backward runs
+        after the caller returns."""
         if not kernels:
             return dict(f=self._train_dynamics(names), stateful=True)
         if self.family == "chain":
@@ -666,8 +674,10 @@ class NeuralODE(Module):
         kw = dict(f=f, fsal_fn=fsal_fn, step_fn=step_fn, step_vjp=step_vjp)
         # a planned decline, as the reference's: where kernel 4 or the sweep
         # cannot take the width, neither runs, so the plain loop records
-        # unpadded knots for the plain sweep
-        if self.use_persistent and sweep_feasible(B, F, H, n_save):
+        # unpadded knots for the plain sweep; the global grid runs kernels
+        # 2 and 3
+        if (self.use_persistent and group is None
+                and sweep_feasible(B, F, H, n_save)):
             kw.update(persistent_fn=persistent_fn, sweep_fn=sweep_fn)
         return kw
 
@@ -676,6 +686,8 @@ class NeuralODE(Module):
             self._check_exportable(x)
         if self.uses_kernels(x) or torch.compiler.is_exporting():
             f, step_fn, persistent_fn = self._kernel_solvers()
+            if group is not None and self.family != "chain":
+                persistent_fn = None  # the TD-MLP's global grid: kernel 2
         else:
             f, step_fn, persistent_fn = self._generic_dynamics(), None, None
         saveat = device_saveat(self, x.device)
@@ -726,7 +738,7 @@ class NeuralODE(Module):
         check_product_tier(self.forward_tier(x.device), self.rtol)
         if not training:
             sol, new_state = self._eval_solve(x, state, group)
-            _agree(sol, group)
+            agree_counts(sol, group)
             return sol, new_state
         t2 = self.tspan[1]
         kernels = self.uses_kernels(x)
@@ -743,7 +755,8 @@ class NeuralODE(Module):
             t1 = draws["t1"]
             saveat = torch.cat([user_saveat, t1.reshape(1)])
         if self.solver == "tsit5" and self.adjoint == "stored":
-            kw = self._stored_kwargs(kernels, names, x, saveat.shape[0])
+            kw = self._stored_kwargs(kernels, names, x, saveat.shape[0],
+                                     group)
             sol = odesolve(
                 kw.pop("f"), x, self.tspan, rtol=self.rtol, atol=self.atol,
                 saveat=saveat, max_steps=self.max_steps, adjoint="stored",
@@ -754,7 +767,7 @@ class NeuralODE(Module):
         else:
             sol = self._mode_solve(x, state["model"], saveat, reservoir,
                                    kernels, names, params, group)
-        _agree(sol, group)
+        agree_counts(sol, group)
         # the stateless kernel families return no state: theirs passes
         model_state = state["model"] if sol.f_state is None else sol.f_state
         new_state = dict(state)
@@ -955,7 +968,7 @@ def step_vjp_at(F: int, H: int, precision, grad_precision):
                              grad_precision=grad_precision)
 
 
-def _agree(sol: ODESolution, group) -> None:
+def agree_counts(sol, group) -> None:
     """On the global grid, raise unless every rank took this solve's
     accepts and rejects (one collective of the two counts)."""
     if group is not None:

@@ -63,6 +63,21 @@ a dot at its own precision). ``grad_precision='default'`` warns and does
 nothing, as the reference's. A forward at the TF32 tier below rtol 1e-4
 raises (``nn.basic.check_product_tier``; the reference saturates
 ``max_steps``).
+
+The global grid of data parallelism (``parallel/sharded_train.py``) gives
+the layer a ``DPGroup`` under its state's ``"dp_group"`` key: the input is
+then one rank's rows of a batch spread over the group's ranks. Every norm
+of the solve, of its first dt and of the regulariser's step is over all
+their rows (``ops/residuals.py``), the tree draws this rank's rows of the
+whole batch's (``noise_source``'s ``row_offset``: the rank's offset in its
+microbatch), and the regulariser's normals are this rank's rows of the
+whole batch's (staged by global row, ``draw_row_axes``). Kernel 10 takes no
+part in a collective, so on the kernel route it runs as GSPMD runs a
+replicated custom call: on the whole batch, gathered from the ranks, with
+the whole batch's tree, on every rank, each keeping its rows
+(``sde.solve.replicated_sde``); kernel 12 sweeps the rank's rows of the
+knots. The eager route's loop takes the group's norms. After each solve
+the ranks' accept and reject counts are held equal.
 """
 from __future__ import annotations
 
@@ -96,7 +111,10 @@ from ..sde.solve import (
 )
 from ..sde.step import step_nfe
 from .draws import pop_draws, to_device
-from .neural_ode import device_saveat, sample_reservoir_uniforms, sample_t1
+from .neural_ode import (
+    agree_counts, device_saveat, pop_group, sample_reservoir_uniforms,
+    sample_t1,
+)
 
 _VALID_REGULARIZE = ("none", "unbiased", "biased")
 _VALID_USE_PALLAS = ("auto", "on", "off")
@@ -108,13 +126,16 @@ def sample_noise_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2 ** 32, (), generator=generator))
 
 
-def noise_source(seed, x: torch.Tensor, width: Optional[int] = None):
+def noise_source(seed, x: torch.Tensor, width: Optional[int] = None,
+                 row_offset: int = 0):
     """The normal source of the tree of a solve from ``x``, of ``(B,
     width)`` increments (default the state's width; ``noise_dims`` for
     matrix noise); ``seed`` is the one-element int32 tensor ``draw``
-    staged (or a number)."""
+    staged (or a number). On the global grid of data parallelism ``x`` is
+    rows ``row_offset ..`` of the batch, and the source draws those rows
+    of the whole batch's tree."""
     return PhiloxNormals(seed, x.shape[0], width or x.shape[-1],
-                         device=x.device)
+                         device=x.device, row_offset=row_offset)
 
 
 def sample_reg_noise(generator: torch.Generator, shape) -> torch.Tensor:
@@ -145,6 +166,10 @@ def is_sde_family(drift, diffusion) -> bool:
 
 
 class NeuralDSDE(Module):
+    # the draws with a row of the batch on an axis: the regulariser step's
+    # normals (2, rows, F) (models/draws.py::rows_of)
+    draw_row_axes = {"reg_noise": 1}
+
     def __init__(
         self,
         drift: Module,
@@ -266,6 +291,13 @@ class NeuralDSDE(Module):
             self.kernel_mode() and self.adjoint == "stored"
             and self.use_pallas != "off")
 
+    def check_global_grid(self) -> None:
+        """Every solver, noise and adjoint of the layer takes the global
+        grid of data parallelism (``parallel/sharded_train.py``): the
+        eager loop with the group's norms and the tree by global row, or
+        on the kernel route kernel 10 on the whole batch on every rank and
+        kernel 12 on the rank's rows of its knots."""
+
     def kernel_mode(self) -> bool:
         """Whether the persistent SDE kernels serve this layer's solver and
         noise (SRI/SOSRI, diagonal), as the reference's gate."""
@@ -375,6 +407,7 @@ class NeuralDSDE(Module):
         # every route's forward runs at this tier: refuse it below 1e-4
         check_product_tier(self.forward_tier(x.device), self.rtol)
         draws, state = pop_draws(state)
+        group, state = pop_group(state)
         if draws is None:
             if torch.compiler.is_exporting():
                 raise ValueError(
@@ -382,8 +415,12 @@ class NeuralDSDE(Module):
                     "CPU generator: stage the call's draws in the state "
                     "(utils/export.py's export_model does)")
             draws = to_device(self.draw(state, x.shape[0], training), x)
-        noise = (noise_source(draws["seed"], x) if self.noise_dims is None
-                 else noise_source(draws["seed"], x, self.noise_dims))
+        # on the global grid x is rows rank·B .. of the whole batch (of
+        # this microbatch), whose tree the rank draws its rows of
+        at = {} if group is None else {"row_offset": group.rank * x.shape[0]}
+        noise = (noise_source(draws["seed"], x, **at)
+                 if self.noise_dims is None
+                 else noise_source(draws["seed"], x, self.noise_dims, **at))
         params = [p for _, p in self._params()[0] + self._params()[1]]
         # on the kernel route the replacements run the whole solve and
         # sweep, and the modules' dynamics are never called
@@ -394,7 +431,8 @@ class NeuralDSDE(Module):
                        else (x.shape[0], self.noise_dims))
         common = dict(noise=noise, rtol=self.rtol, atol=self.atol,
                       solver=self.solver, delta=self.delta,
-                      max_steps=self.max_steps, noise_shape=noise_shape)
+                      max_steps=self.max_steps, noise_shape=noise_shape,
+                      group=group)
         saveat = device_saveat(self, x.device)
         mode = self.regularize if training else "none"
         if not training:
@@ -405,6 +443,7 @@ class NeuralDSDE(Module):
                     persistent_fn=self._serving_fn(params, draws["seed"], x),
                     **common,
                 )
+            agree_counts(sol, group)
             return sol, self._new_state(state, sol, x)
         user_saveat = (saveat if saveat is not None
                        else device_scalar(t2, x).reshape(1))
@@ -427,6 +466,7 @@ class NeuralDSDE(Module):
                 params=params, persistent_fn=persistent_fn,
                 sweep_fn=sweep_fn, reservoir=reservoir, **common,
             )
+        agree_counts(sol, group)
         if mode == "none":
             return sol, self._new_state(state, sol, x)
         if mode == "unbiased":
@@ -434,7 +474,7 @@ class NeuralDSDE(Module):
             sol = dataclasses.replace(sol, ys=sol.ys[:-1], ts=user_saveat)
         else:
             u1, t1 = sol.reservoir_u.detach(), sol.reservoir_t.detach()
-        reg_val = self._reg_value(u1, t1, draws["reg_noise"], x)
+        reg_val = self._reg_value(u1, t1, draws["reg_noise"], x, group)
         new_state = self._new_state(state, sol, x)
         nf, ng = step_nfe(self.solver, self.noise_dims)
         new_state.update(
@@ -444,13 +484,14 @@ class NeuralDSDE(Module):
         )
         return sol, new_state
 
-    def _reg_value(self, u1, t1, z, x):
+    def _reg_value(self, u1, t1, z, x, group=None):
         """``eest · dt`` of one step of the layer's solver from the fenced
         ``(u1, t1)`` with the fresh standard normals ``z`` (2, B, F), or
         (2, B, m) with matrix noise, differentiable in the parameters
         only; the modules' products (the dt probe's too) at
         ``forward_tier``, as the reference's step through its ``f`` and
-        ``g``."""
+        ``g``. On the global grid (``group``) the dt probe's norms and
+        ``eest`` are over every rank's rows."""
         t2 = self.tspan[1]
         tier = self.forward_tier(x.device)
 
@@ -468,13 +509,14 @@ class NeuralDSDE(Module):
         with torch.no_grad():
             f0 = f(u1, t1)
             sc = self.atol + torch.abs(u1) * self.rtol
-            d0, d1 = internal_norm(u1 / sc), internal_norm(f0 / sc)
+            d0 = internal_norm(u1 / sc, group)
+            d1 = internal_norm(f0 / sc, group)
             dt = torch.where((d0 < 1e-5) | (d1 < 1e-5), 1e-6,
                              0.01 * d0 / torch.where(d1 == 0, 1.0, d1))
             dt = torch.minimum(dt, device_scalar(t2, x) - t1)
         sqdt = torch.sqrt(dt)
         noise_shape = None if self.noise_dims is None else tuple(z.shape[1:])
-        step = sde_step(self.solver, noise_shape, self.delta)(
+        step = sde_step(self.solver, noise_shape, self.delta, group)(
             f, g, u1, t1, dt, z[0] * sqdt, z[1] * sqdt, self.atol, self.rtol)
         return step.eest * dt
 

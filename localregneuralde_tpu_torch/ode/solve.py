@@ -312,8 +312,9 @@ def odesolve(
       group: a ``parallel.DPGroup`` for the global grid: ``u0`` is this
         rank's rows of a batch spread over its ranks, and every norm of the
         solve is over all of them (``'none'``, ``'direct'`` and
-        ``'stored'``; ``persistent_fn`` is not used, since a kernel cannot
-        take part in a collective mid-solve).
+        ``'stored'``). A kernel takes part in no collective mid-solve, so
+        ``persistent_fn`` solves the whole batch, gathered from the ranks,
+        on every rank, and each keeps its rows (``parallel.mesh.replicated``).
 
     On a CUDA tensor it raises below rtol 1e-4 while TF32 is on
     (``nn.basic.check_fp32_products``).
@@ -351,11 +352,19 @@ def odesolve(
     )
     record = dict(record_knots=record_knots, knot_dense_cap=knot_dense_cap,
                   knot_stride=knot_stride, reservoir=reservoir)
-    if persistent_fn is not None and adjoint == "none" and group is None:
-        sol = persistent_fn(
-            u0, (t0, t_end), saveat_arr=saveat_arr, rtol=rtol, atol=atol,
-            max_steps=max_steps, f_state=f_state, **record,
-        )
+    if persistent_fn is not None and adjoint == "none":
+        def solve(u):
+            return persistent_fn(
+                u, (t0, t_end), saveat_arr=saveat_arr, rtol=rtol, atol=atol,
+                max_steps=max_steps, f_state=f_state, **record,
+            )
+
+        if group is None:
+            sol = solve(u0)
+        else:
+            from ..parallel.mesh import replicated
+
+            _, sol = replicated(solve, u0, group)
         if sol is not None:
             return sol
 

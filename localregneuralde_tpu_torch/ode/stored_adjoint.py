@@ -18,6 +18,14 @@ Counterpart of ``localregneuralde_tpu/ode/stored_adjoint.py``.
   sweeps it. The replay must repeat its own forward's arithmetic bitwise,
   so a kernel forward is swept only by the kernel sweep (``sweep_fn``) and
   an eager forward only by the eager sweep below.
+- **The global grid** of data parallelism (``group``): the eager loop
+  takes the group's norms; a kernel forward takes part in no collective,
+  so it solves the whole batch, gathered from the ranks, on every rank
+  (``parallel.mesh.replicated``), and each rank keeps its rows. A dense
+  sweep takes no accept decision, so each rank sweeps its rows' knots; a
+  two-level sweep replays the whole batch's windows, so each rank sweeps
+  the whole batch with every rank's cotangents and keeps its rows and
+  1/n of the parameters' gradients (the step's rank mean adds the shares).
 
 Rejected attempts contribute nothing (their outputs are discarded), and
 t, dt and the controller get no cotangents: the reference's fences.
@@ -170,6 +178,26 @@ def eager_sweep(step: Callable, step_vjp: Callable, params, knots, naccept,
     return a
 
 
+def _whole_batch_sweep(spec, params, ct_ys, ct_y):
+    """The kernel sweep of a kernel forward on the global grid whose
+    accepts outgrew the dense knots: its windows replay the whole batch's
+    forward, so every rank sweeps the whole batch (``spec.whole``) with
+    every rank's cotangents and keeps its rows of ``(a_u, a_k)`` and 1/n
+    of the parameters' gradients, which the step's rank mean adds up to
+    the whole batch's."""
+    from ..parallel.mesh import gather_rows, rank_rows
+
+    dp, whole = spec.group, spec.whole
+    knots = {k: getattr(whole, k) for k in KNOT_FIELDS}
+    a_u, a_k, a_p = spec.sweep_fn(
+        params, whole.knot_ts, whole.knot_us, whole.naccept, whole.ts,
+        gather_rows(ct_ys, dp, 1), gather_rows(ct_y, dp),
+        two_level_ctx=spec.two_level_ctx(knots),
+    )
+    return (rank_rows(a_u, dp), rank_rows(a_k, dp),
+            [p / dp.size for p in a_p])
+
+
 class _StoredSolve(torch.autograd.Function):
     """``(u0, *params) -> (ys, y_final)`` with the stored adjoint as its
     backward. ``spec`` carries the solver and its callbacks; the fenced
@@ -190,7 +218,10 @@ class _StoredSolve(torch.autograd.Function):
         spec, sol = ctx.spec, ctx.spec.sol
         u0, *params = ctx.saved_tensors
         knots = {k: getattr(sol, k) for k in KNOT_FIELDS}
-        if ctx.from_kernel:
+        if ctx.from_kernel and spec.whole is not None and (
+                int(sol.naccept) > spec.dense_cap):
+            a_u, a_k, a_p = _whole_batch_sweep(spec, params, ct_ys, ct_y)
+        elif ctx.from_kernel:
             a_u, a_k, a_p = spec.sweep_fn(
                 params, sol.knot_ts, sol.knot_us, sol.naccept, sol.ts, ct_ys,
                 ct_y, two_level_ctx=spec.two_level_ctx(knots),
@@ -253,12 +284,22 @@ class _Spec:
         """The forward solve with knots; returns ``(sol, from_kernel)``."""
         rec = dict(record_knots=True, knot_dense_cap=self.dense_cap,
                    knot_stride=self.stride, reservoir=self.reservoir)
-        if self.persistent_fn is not None and self.group is None:
-            sol = self.persistent_fn(
-                u0, params, (self.t0, self.t_end), saveat_arr=self.saveat_arr,
-                rtol=self.rtol, atol=self.atol, max_steps=self.max_steps,
-                **rec,
-            )
+        if self.persistent_fn is not None:
+            def solve(u):
+                return self.persistent_fn(
+                    u, params, (self.t0, self.t_end),
+                    saveat_arr=self.saveat_arr, rtol=self.rtol,
+                    atol=self.atol, max_steps=self.max_steps, **rec,
+                )
+
+            if self.group is None:
+                sol = solve(u0)
+            else:
+                from ..parallel.mesh import replicated
+
+                whole, sol = replicated(solve, u0, self.group)
+                # a two-level sweep replays the whole batch's windows
+                self.whole = whole if self.two_level else None
             if sol is not None:
                 return sol, True
         if self.stateful:
@@ -361,8 +402,10 @@ def stored_odesolve(
 
     With a ``DPGroup`` (``group``, the global grid of data parallelism)
     ``u0`` is this rank's rows and every norm of the forward (and of a
-    window replay) is over all the ranks' rows; ``persistent_fn`` is not
-    used and the backward sweeps this rank's rows on the shared steps.
+    window replay) is over all the ranks' rows; ``persistent_fn`` solves
+    the whole batch on every rank and ``sweep_fn`` sweeps this rank's rows
+    of its knots, or the whole batch where its windows replay (the
+    module's docstring).
     """
     t0, t_end = float(tspan[0]), float(tspan[1])
     saveat_arr = (
@@ -375,7 +418,7 @@ def stored_odesolve(
         max_steps=max_steps, dense_cap=dense_cap, two_level=two_level,
         stride=stride, step_fn=step_fn, persistent_fn=persistent_fn,
         sweep_fn=sweep_fn, fsal_fn=fsal_fn, reservoir=reservoir,
-        stateful=stateful, f_state=f_state, group=group, sol=None,
+        stateful=stateful, f_state=f_state, group=group, whole=None, sol=None,
     )
     if spec.fsal_fn is None:
         spec.fsal_fn = spec.f_pure

@@ -265,9 +265,10 @@ def persistent_sde_solve(w: SDEWeights, u0: torch.Tensor, tspan, *, noise,
             "the SDE kernel draws its own Philox noise: a CUDA solve takes "
             f"a PhiloxNormals source, not {type(noise).__name__}"
         )
-    if noise.shape != tuple(u0.shape):
-        raise ValueError(f"noise source of shape {noise.shape}, state "
-                         f"{tuple(u0.shape)}")
+    if noise.shape != tuple(u0.shape) or noise.row_offset:
+        raise ValueError(f"noise source of shape {noise.shape} from row "
+                         f"{noise.row_offset}, state {tuple(u0.shape)}: the "
+                         "kernel's counter rows start at 0")
     out = _launch_sde_solve(w, u0, noise.seed_word(u0.device), tspan,
                             tier=tier, **kw)
     count_launch(persistent_sde_solve, tier)
@@ -546,8 +547,10 @@ def persistent_vpsde_solve(params, chain: ScoreChainSpec, u0: torch.Tensor,
     B, F = check_score_operands(
         params, chain, u0,
         "lrnde_vpsde_solve_smem_floats" + ("_tf32" if tf32 else ""))
-    if noise.shape != (B, F):
-        raise ValueError(f"noise source of shape {noise.shape}, state {(B, F)}")
+    if noise.shape != (B, F) or noise.row_offset:
+        raise ValueError(f"noise source of shape {noise.shape} from row "
+                         f"{noise.row_offset}, state {(B, F)}: the kernel's "
+                         "counter rows start at 0")
     lib = _build.load_library()
     t0, t_end = float(tspan[0]), float(tspan[1])
     drift, _ = vpsde_dynamics(params, chain, beta_min, beta_max, t1, tier)

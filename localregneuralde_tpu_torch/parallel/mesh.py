@@ -165,3 +165,51 @@ def agree(counts: torch.Tensor, dp: DPGroup, what: str) -> None:
         raise RuntimeError(
             f"the ranks of the global grid parted: {what} range over "
             f"{slots.tolist()} (rank order)")
+
+
+def gather_rows(x: torch.Tensor, dp: DPGroup, axis: int = 0) -> torch.Tensor:
+    """The whole batch from every rank's rows ``x`` (the batch on
+    ``axis``), in rank order: bitwise each rank's rows, the same bytes on
+    every rank (``gather_slots``)."""
+    return torch.cat(gather_slots(x, dp).unbind(0), dim=axis)
+
+
+def rank_rows(x: torch.Tensor, dp: DPGroup, axis: int = 0) -> torch.Tensor:
+    """This rank's rows of a whole batch ``x`` (the batch on ``axis``),
+    contiguous: the inverse of ``gather_rows``."""
+    b = x.shape[axis] // dp.size
+    return x.narrow(axis, dp.rank * b, b).contiguous()
+
+
+# the fields of a solve's result (ode.solve.ODESolution,
+# sde.solve.SDESolution) that hold rows of the batch, by the batch's axis:
+# the states at 0, the saved and recorded ones behind a time axis at 1
+ROW_FIELDS = {"y_final": 0, "reservoir_u": 0, "ys": 1, "knot_us": 1,
+              "knot_ks": 1, "ckpt_us": 1, "ckpt_ks": 1, "knot_dws": 1,
+              "knot_dzs": 1}
+
+
+def rank_solution(sol, dp: DPGroup):
+    """A solve's result on the whole batch with this rank's rows of every
+    field that holds rows (``ROW_FIELDS``); the counts, times and flags
+    are the whole batch's, the same on every rank."""
+    import dataclasses
+
+    rows = {k: rank_rows(getattr(sol, k), dp, a)
+            for k, a in ROW_FIELDS.items()
+            if getattr(sol, k, None) is not None}
+    return dataclasses.replace(sol, **rows)
+
+
+def replicated(solve, u0: torch.Tensor, dp: DPGroup):
+    """``solve(u)``, a kernel's whole solve (which takes no part in a
+    collective), on the global grid as GSPMD runs a replicated custom call:
+    on the whole batch, gathered from every rank's rows ``u0``, on every
+    rank. Its norms are then over all the rows by construction, and every
+    rank takes the same decisions from the same bytes. Returns ``(whole,
+    this rank's)`` results (``rank_solution``), or ``(None, None)`` where
+    ``solve`` declines."""
+    whole = solve(gather_rows(u0, dp))
+    if whole is None:
+        return None, None
+    return whole, rank_solution(whole, dp)

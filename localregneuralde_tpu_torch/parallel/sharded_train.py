@@ -9,28 +9,39 @@ ranks' rows (``ops/residuals.internal_norm`` with the group), added in rank
 order, so every rank takes the same accept decisions from the same bytes;
 after each solve the ranks' accept and reject counts are held equal
 (``NeuralODE``). The group reaches the layers through their state
-(``models.neural_ode.GROUP``), inserted by the step; the persistent kernels
-take no part in a collective, so the TD-MLP runs its non-persistent kernel
-route: kernel 2 on every attempt, kernel 3 on every accepted step.
+(``models.neural_ode.GROUP``), inserted by the step. The persistent solves
+take no part in a collective. The TD-MLP runs kernel 2 on every attempt
+and kernel 3 on every accepted step. The chain family (the latent ODE) and
+the SDE family run kernels 5 and 10 as GSPMD runs a replicated custom
+call: on the whole batch, gathered from the ranks, on every rank, which
+keeps its rows (``mesh.replicated``; the SDE's tree is the whole batch's).
+A dense sweep takes no accept decision, so each rank sweeps its rows of
+the knots on kernel 9 or 12; kernel 9's two-level sweep replays the whole
+batch's windows, so there every rank sweeps the whole batch
+(``ode/stored_adjoint.py``). The eager routes (``use_pallas='off'``) take
+the group's norms in their loops, the SDE's tree drawn by global row.
 
 The gradients are the single-device step's on the global batch. The
 cross-entropy is a mean over this rank's rows, so its gradient's rank mean
 is the global mean's gradient; the regulariser is one function of the
 global norm, whose backward gives each rank n times its rows' share
-(``residuals._GlobalRMS``), so the same rank mean sums the shares. One
+(``residuals._RankSum``), so the same rank mean sums the shares. One
 all-reduce of the rank mean (loss and gradients flattened into one buffer,
-added in rank order) thus gives every term its single-device gradient. The
-unbiased t1 and the biased reservoir's uniforms are drawn from the carried,
-replicated generators, the same on every rank.
+added in rank order) thus gives every term its single-device gradient. A
+step's draws (t1, the reservoir's uniforms, the tree's seed, the
+reparameterisation's ε, the SDE regulariser's normals) are staged for the
+whole batch from the carried, replicated generators, the same on every
+rank, and each rank takes its rows of those with rows
+(``harness.train.stage_step``).
 
 With ``grad_accumulation`` N each rank holds its slice of each of the N
 microbatches (``mesh.shard_batch(..., n_micro=N)``), so microbatch i over
 the ranks is the global batch's microbatch i, solved on one grid.
 
-The chain (latent ODE), SDE and conv families, and the solver modes other
-than Tsit5 under the stored or direct adjoint, raise ``NotImplementedError``
-(ROADMAP Queue 1 items 14a-14c, 14e); the per-rank grid runs them all.
-Tensor parallelism is not ported (item 14d).
+The conv family and the ODE solver modes other than Tsit5 under the
+stored or direct adjoint raise ``NotImplementedError`` (ROADMAP Queue 1
+items 14c, 14e); the per-rank grid runs them all. Tensor parallelism is
+not ported (item 14d).
 """
 from __future__ import annotations
 
@@ -50,24 +61,20 @@ from .mesh import DPGroup, mean_over_ranks
 
 def check_global_grid(model, state=None) -> list:
     """The state paths of ``model``'s DE layers (those with
-    ``persistent_step``) that take the global grid; raises
+    ``persistent_step``: ``NeuralODE``, ``NeuralDSDE``) that take the
+    global grid; each layer's ``check_global_grid`` raises
     ``NotImplementedError`` (with its ROADMAP item) for a family or mode
     that does not. ``state`` defaults to the model's initial state."""
     if state is None:
         state = model.init_state()
     paths = []
     for path, layer, _ in layers_with(model, state, "persistent_step"):
-        if not hasattr(layer, "check_global_grid"):
-            raise NotImplementedError(
-                f"data_parallel='gspmd' (the global grid) for the SDE family "
-                f"({type(layer).__name__}) is not ported (ROADMAP Queue 1 "
-                "item 14b); data_parallel='shardmap' (the per-rank grid) "
-                "runs it")
         layer.check_global_grid()
         paths.append(path)
     if not paths:
         raise NotImplementedError(
-            "data_parallel='gspmd' needs a model with a NeuralODE layer")
+            "data_parallel='gspmd' needs a model with a NeuralODE or "
+            "NeuralDSDE layer")
     return paths
 
 
@@ -129,7 +136,7 @@ def make_sharded_train_step(model, loss_fn, optimizer, dp: DPGroup, *,
     def train_step(ts: TrainState, data, w_reg, lr):
         like = next(iter(ts.params.values()))
         draws = [to_device(d, like) for d in stage_step(
-            model, ts.state, data[0].shape[0], body.n_micro)]
+            model, ts.state, data[0].shape[0], body.n_micro, dp)]
         return body(ts, data, device_w(w_reg, like),
                     device_scalar_like(lr, like), draws)
 

@@ -114,15 +114,29 @@ class PhiloxNormals:
     ``seed`` is a number, or a one-element int32 tensor holding its 32 bits
     (a training step's draw, staged on the device). The CUDA solves read
     it as ``seed_word``, one word in device memory; the eager draws here
-    read its value once, on first use."""
+    read its value once, on first use.
 
-    def __init__(self, seed, batch: int, features: int, device=None):
+    ``row_offset`` is the counter's row of the first of the B rows: a rank
+    of the global grid of data parallelism holds rows ``row_offset ..
+    row_offset + B − 1`` of a batch spread over the ranks, and its normals
+    are bitwise those rows of the whole batch's."""
+
+    def __init__(self, seed, batch: int, features: int, device=None,
+                 row_offset: int = 0):
         self._seed = seed
         self._seed_int = None
         self.shape = (batch, features)
+        self.row_offset = int(row_offset)
         pairs = -(-features // 2)
         self._pair = torch.arange(pairs, dtype=torch.int64, device=device)[None, :]
-        self._row = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
+        self._row = torch.arange(self.row_offset, self.row_offset + batch,
+                                 dtype=torch.int64, device=device)[:, None]
+
+    def rows(self, batch: int, row_offset: int = 0) -> "PhiloxNormals":
+        """The source of rows ``row_offset .. row_offset + batch − 1`` of
+        the same tree (a rank's source gives the whole batch's)."""
+        return PhiloxNormals(self._seed, batch, self.shape[1],
+                             device=self._row.device, row_offset=row_offset)
 
     @property
     def seed(self) -> int:

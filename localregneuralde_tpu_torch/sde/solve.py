@@ -23,6 +23,13 @@ increments, the diffusion returns ``u.shape + (m,)``, and the solver must
 be ``'milstein'`` (the reference's only non-diagonal branch,
 ``sde/solve.py:147-152`` there).
 
+With a data-parallel ``group`` (the global grid,
+``parallel/sharded_train.py``) the batch is spread over the group's ranks:
+every norm of the solve (each attempt's error estimate, the first dt's) is
+one scalar over all their rows, so every rank takes the same accept
+decisions, and each rank's tree draws its own rows of the whole batch's
+(``brownian.PhiloxNormals``' ``row_offset``).
+
 The loop runs on the host and reads the accept decision once per attempt.
 It is the plain version the persistent CUDA solve
 (``ops/cuda/fused_sde_solve.py``, SRI/SOSRI with diagonal noise) is held
@@ -97,29 +104,32 @@ def sde_controller(solver: str = "sri") -> PIController:
                         beta1=1.0 / (SOLVERS[solver] + 1.0), beta2=0.0)
 
 
-def sde_step(solver: str, noise_shape=None, delta: float = 1 / 6):
+def sde_step(solver: str, noise_shape=None, delta: float = 1 / 6,
+             group=None):
     """``step(f, g, u, t, dt, dW, dZ, atol, rtol) -> SDEStepResult`` of
-    ``solver`` (the non-diagonal Milstein step with ``noise_shape``)."""
+    ``solver`` (the non-diagonal Milstein step with ``noise_shape``), its
+    error norm over the ranks of ``group``."""
     if solver in SRI_SOLVERS:
         tableau = get_sri_tableau(solver)
         return lambda f, g, u, t, dt, dW, dZ, atol, rtol: sri_step(
-            f, g, u, t, dt, dW, dZ, atol, rtol, delta, tableau)
+            f, g, u, t, dt, dW, dZ, atol, rtol, delta, tableau, group)
     if solver == "milstein":
         step = (milstein_commute_step if noise_shape is None
                 else milstein_commute_step_nondiag)
         return lambda f, g, u, t, dt, dW, dZ, atol, rtol: step(
-            f, g, u, t, dt, dW, atol, rtol)
+            f, g, u, t, dt, dW, atol, rtol, group=group)
     return lambda f, g, u, t, dt, dW, dZ, atol, rtol: lamba_euler_heun_step(
-        f, g, u, t, dt, dW, atol, rtol, delta)
+        f, g, u, t, dt, dW, atol, rtol, delta, group)
 
 
-def initial_dt(u0, f0, rtol, atol, t0: float, t_end: float):
+def initial_dt(u0, f0, rtol, atol, t0: float, t_end: float, group=None):
     """The first step: 0.01·‖u0‖/‖f0‖ in the tolerance-scaled RMS norm
-    (1e-6 when either is below 1e-5), at most half the span. Detached."""
+    (1e-6 when either is below 1e-5), at most half the span; both norms
+    over the ranks of ``group``. Detached."""
     span = device_scalar(t_end, u0) - device_scalar(t0, u0)
     sc = atol + torch.abs(u0) * rtol
-    d0 = internal_norm(u0 / sc)
-    d1 = internal_norm(f0 / sc)
+    d0 = internal_norm(u0 / sc, group)
+    d1 = internal_norm(f0 / sc, group)
     dt = torch.where((d0 < 1e-5) | (d1 < 1e-5), 1e-6,
                      0.01 * d0 / torch.where(d1 == 0, 1.0, d1))
     return torch.minimum(dt, span / 2).detach()
@@ -128,16 +138,17 @@ def initial_dt(u0, f0, rtol, atol, t0: float, t_end: float):
 def sde_loop(f: Callable, g: Callable, u0, t0: float, t_end: float, dt_init,
              *, noise, saveat, rtol, atol, solver, delta, max_steps,
              reservoir=None, brownian_depth=24, record_knots=False,
-             noise_shape=None):
+             noise_shape=None, group=None):
     """The accept/reject loop from ``u0`` at ``t0`` with first step
-    ``dt_init``; ``f(u, t)``, ``g(u, t)``. Returns a dict with ``ys``,
+    ``dt_init``; ``f(u, t)``, ``g(u, t)``; the error norms over the ranks
+    of ``group``. Returns a dict with ``ys``,
     ``y_final``, ``t_final``, ``naccept``, ``nreject``, ``natt``,
     ``success``, ``reservoir_t``, ``reservoir_u`` and, with
     ``record_knots``, ``knot_ts`` (naccept + 1), ``knot_us`` (naccept + 1,
     B, F), ``knot_dws`` and ``knot_dzs`` (naccept, and the noise shape:
     ``noise_shape``, default the state's)."""
     controller = sde_controller(solver)
-    step = sde_step(solver, noise_shape, delta)
+    step = sde_step(solver, noise_shape, delta, group)
     w_shape = tuple(u0.shape if noise_shape is None else noise_shape)
     tree = VirtualBrownianTree(noise, t0, t_end, brownian_depth)
     t = device_scalar(t0, u0)
@@ -219,6 +230,21 @@ def saveat_array(saveat, t_end: float, like: torch.Tensor) -> torch.Tensor:
     return torch.atleast_1d(device_scalar(saveat, like))
 
 
+def replicated_sde(solve: Callable, u0, group, *, noise, **kw):
+    """``solve(u, noise=..., **kw)``, a kernel's whole solve, from this
+    rank's rows ``u0``: on one device as it is; on the global grid
+    (``group``) on the whole batch, gathered from the ranks, with the
+    whole batch's tree (``noise.rows``, from row 0), on every rank, which
+    keeps its rows of the result (``parallel.mesh.replicated``)."""
+    if group is None:
+        return solve(u0, noise=noise, **kw)
+    from ..parallel.mesh import replicated
+
+    _, sol = replicated(
+        lambda u: solve(u, noise=noise.rows(u.shape[0]), **kw), u0, group)
+    return sol
+
+
 def sdesolve(
     f: Callable,
     g: Callable,
@@ -238,6 +264,7 @@ def sdesolve(
     record_knots: bool = False,
     persistent_fn: Optional[Callable] = None,
     noise_shape=None,
+    group=None,
     **stored_kwargs,
 ) -> SDESolution:
     """Integrate ``du = f(u, t) dt + g(u, t) dW`` over ``tspan`` (Itô;
@@ -258,6 +285,12 @@ def sdesolve(
         sample of accepted step starts; None for no reservoir.
       persistent_fn: whole-solve replacement (the persistent CUDA solve)
         for ``adjoint='none'``; when given, the eager loop does not run.
+      group: a ``parallel.DPGroup`` for the global grid: ``u0`` is this
+        rank's rows of a batch spread over its ranks, ``noise`` draws
+        those rows of the whole batch's tree, and every norm is over all
+        the rows. A kernel takes part in no collective mid-solve, so
+        ``persistent_fn`` solves the whole batch on every rank
+        (``replicated_sde``).
 
     On a CUDA tensor it raises below rtol 1e-4 while TF32 is on
     (``nn.basic.check_fp32_products``).
@@ -272,7 +305,7 @@ def sdesolve(
             solver=solver, delta=delta, saveat=saveat, max_steps=max_steps,
             reservoir=reservoir, brownian_depth=brownian_depth,
             persistent_fn=persistent_fn, noise_shape=noise_shape,
-            **stored_kwargs,
+            group=group, **stored_kwargs,
         )
     if adjoint not in ("none", "direct"):
         raise ValueError(f"unknown SDE adjoint {adjoint!r}")
@@ -283,16 +316,18 @@ def sdesolve(
               record_knots=record_knots, reservoir=reservoir,
               brownian_depth=brownian_depth)
     if persistent_fn is not None and adjoint == "none":
-        return persistent_fn(u0, (t0, t_end), **kw)
+        return replicated_sde(
+            lambda u, **k: persistent_fn(u, (t0, t_end), **k), u0, group,
+            **kw)
     with torch.no_grad():  # the first dt is fenced
         dt_init = initial_dt(u0, f(u0, device_scalar(t0, u0)), rtol, atol,
-                             t0, t_end)
+                             t0, t_end, group)
     out = sde_loop(
         f, g, u0, t0, t_end, dt_init, noise=noise, saveat=saveat_arr,
         rtol=rtol, atol=atol, solver=solver, delta=delta,
         max_steps=max_steps, reservoir=reservoir,
         brownian_depth=brownian_depth, record_knots=record_knots,
-        noise_shape=noise_shape,
+        noise_shape=noise_shape, group=group,
     )
     m = None if noise_shape is None else noise_shape[-1]
     return solution_from(out, saveat_arr, step_nfe(solver, m))

@@ -13,6 +13,10 @@ Dynamics: ``f(u, t) -> du`` and ``g(u, t) -> gu``, with ``gu`` shaped like
 noise-rate matrix ``u.shape + (m,)``. Evaluations per step (drift,
 diffusion): SRI (4, 4), Milstein (1, 2), non-diagonal Milstein (1, 1 + m),
 Lamba–Euler–Heun (3, 3); ``STEP_NFE`` holds them.
+
+With a ``DPGroup`` (``group``, the global grid of data parallelism) ``u``
+is one rank's rows of a batch spread over its ranks, and ``eest`` is the
+norm over all their rows (``ops/residuals.internal_norm``).
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ class SDEStepResult(NamedTuple):
 
 
 def sri_step(f, g, u, t, dt, dW, dZ, atol, rtol, delta: float = 1 / 6,
-             tableau=None) -> SDEStepResult:
+             tableau=None, group=None) -> SDEStepResult:
     """One SRI step from ``(u, t)`` over ``dt`` with the Brownian
     increments ``(dW, dZ)``; the expressions and their order are the JAX
     package's, so both round alike."""
@@ -96,12 +100,13 @@ def sri_step(f, g, u, t, dt, dW, dZ, atol, rtol, delta: float = 1 / 6,
     )
     E1 = dt * (k1 + k2 + k3 + k4)
     eest = internal_norm(sde_error_residuals(E1, E2, u, u_new, atol, rtol,
-                                             delta))
+                                             delta), group)
     return SDEStepResult(u_new, eest)
 
 
 def milstein_commute_step(f, g, u, t, dt, dW, atol, rtol, *,
-                          interpretation: str = "ito") -> SDEStepResult:
+                          interpretation: str = "ito",
+                          group=None) -> SDEStepResult:
     """The diagonal-noise commutative Milstein step (reference
     ``src/perform_step.jl:108-170``, diagonal branch). As in the
     reference, ``eest`` is the tolerance-scaled RMS of ``u_new − u``: the
@@ -119,12 +124,12 @@ def milstein_commute_step(f, g, u, t, dt, dW, atol, rtol, *,
     Dgj = (gtmp - L) / sqdt
     u_new = K + L * dW + Dgj * J
     return SDEStepResult(u_new, internal_norm(
-        difference_residuals(u, u_new, atol, rtol)))
+        difference_residuals(u, u_new, atol, rtol), group))
 
 
 def milstein_commute_step_nondiag(f, g, u, t, dt, dW, atol, rtol, *,
-                                  interpretation: str = "ito"
-                                  ) -> SDEStepResult:
+                                  interpretation: str = "ito",
+                                  group=None) -> SDEStepResult:
     """The non-diagonal (matrix) commutative-noise Milstein step (reference
     ``src/perform_step.jl:126-160``). ``u`` is (..., d), ``dW`` (..., m)
     and ``g`` returns the noise-rate matrix (..., d, m). The iterated
@@ -150,11 +155,11 @@ def milstein_commute_step_nondiag(f, g, u, t, dt, dW, atol, rtol, *,
         correction = c if correction is None else correction + c
     u_new = K + torch.einsum("...dm,...m->...d", L, dW) + correction
     return SDEStepResult(u_new, internal_norm(
-        difference_residuals(u, u_new, atol, rtol)))
+        difference_residuals(u, u_new, atol, rtol), group))
 
 
 def lamba_euler_heun_step(f, g, u, t, dt, dW, atol, rtol,
-                          delta: float = 1 / 6) -> SDEStepResult:
+                          delta: float = 1 / 6, group=None) -> SDEStepResult:
     """The Stratonovich predictor–corrector (Lamba) Euler–Heun step
     (reference ``src/perform_step.jl:172-206``, diagonal branch)."""
     sqdt = torch.sqrt(torch.abs(dt))
@@ -171,4 +176,4 @@ def lamba_euler_heun_step(f, g, u, t, dt, dW, atol, rtol,
     g_ut = g(u + L * sqdt, t)
     En = ((g_ut - L) / sqdt) * (dW ** 2) / 2
     return SDEStepResult(u_new, internal_norm(
-        sde_error_residuals(Ed, En, u, u_new, atol, rtol, delta)))
+        sde_error_residuals(Ed, En, u, u_new, atol, rtol, delta), group))

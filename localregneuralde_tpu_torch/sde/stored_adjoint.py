@@ -33,6 +33,7 @@ import torch
 from .solve import (
     SDESolution,
     initial_dt,
+    replicated_sde,
     saveat_array,
     sde_loop,
     sde_step,
@@ -143,17 +144,21 @@ class _Spec:
                   record_knots=True, reservoir=self.reservoir,
                   brownian_depth=self.brownian_depth)
         if self.persistent_fn is not None:
-            return self.persistent_fn(u0, params, (self.t0, self.t_end), **kw)
+            return replicated_sde(
+                lambda u, **k: self.persistent_fn(u, params,
+                                                  (self.t0, self.t_end), **k),
+                u0, self.group, **kw)
         f = lambda u, t: self.f(u, t, params)  # noqa: E731
         g = lambda u, t: self.g(u, t, params)  # noqa: E731
         dt_init = initial_dt(u0, f(u0, self.t0), self.rtol, self.atol,
-                             self.t0, self.t_end)
+                             self.t0, self.t_end, self.group)
         out = sde_loop(
             f, g, u0, self.t0, self.t_end, dt_init, noise=self.noise,
             saveat=self.saveat_arr, rtol=self.rtol, atol=self.atol,
             solver=self.solver, delta=self.delta, max_steps=self.max_steps,
             reservoir=self.reservoir, brownian_depth=self.brownian_depth,
             record_knots=True, noise_shape=self.noise_shape,
+            group=self.group,
         )
         m = None if self.noise_shape is None else self.noise_shape[-1]
         return solution_from(out, self.saveat_arr, step_nfe(self.solver, m))
@@ -178,6 +183,7 @@ def stored_sdesolve(
     persistent_fn: Optional[Callable] = None,
     sweep_fn: Optional[Callable] = None,
     noise_shape=None,
+    group=None,
 ) -> SDESolution:
     """Integrate ``du = f(u, t, params) dt + g(u, t, params) dW`` with
     gradients with respect to ``u0`` and ``params`` through the stored
@@ -191,6 +197,14 @@ def stored_sdesolve(
     ct_y) -> (a_u, d_params)`` for the sweep. When given they replace the
     eager loop and the autograd sweep; ``f`` and ``g`` are then not called.
     ``noise_shape`` as ``sdesolve``'s (non-diagonal Milstein).
+
+    With a ``DPGroup`` (``group``, the global grid of data parallelism)
+    ``u0`` is this rank's rows and every norm of the forward is over all
+    the ranks' rows: the eager loop takes the group's norms, and
+    ``persistent_fn`` solves the whole batch, gathered from the ranks, on
+    every rank (``solve.replicated_sde``). The backward (``sweep_fn`` where
+    given) transposes this rank's rows of the shared steps, taking no
+    collective.
     """
     t0, t_end = float(tspan[0]), float(tspan[1])
     saveat_arr = saveat_array(saveat, t_end, u0)
@@ -199,7 +213,7 @@ def stored_sdesolve(
         atol=atol, solver=solver, delta=delta, max_steps=max_steps,
         noise=noise, reservoir=reservoir, brownian_depth=brownian_depth,
         persistent_fn=persistent_fn, sweep_fn=sweep_fn,
-        noise_shape=noise_shape, sol=None,
+        noise_shape=noise_shape, group=group, sol=None,
     )
     ys, y_final = _StoredSDESolve.apply(spec, u0, *params)
     sol = spec.sol

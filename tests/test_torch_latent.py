@@ -600,9 +600,11 @@ def test_runner_resumes_the_uninterrupted_run(tmp_path, monkeypatch):
 
 
 def test_runner_refuses_unported_options(tmp_path):
-    """The parallel layer is not ported: data_parallel raises."""
-    cfg = define_configuration(["--train.data_parallel=gspmd"], CONFIG)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    """Tensor parallelism is not ported: the runner raises before anything
+    runs (data parallelism runs, ``tests/test_torch_parallel_families.py``)."""
+    cfg = define_configuration(["--train.data_parallel=gspmd",
+                                "--train.tensor_parallel=2"], CONFIG)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14d"):
         run_latent_ode_experiment(cfg, device="cpu")
 
 

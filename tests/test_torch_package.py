@@ -232,7 +232,7 @@ def test_unported_paths_raise():
                               device="cpu")
         assert s.shape == (4, 2) and int(sol.nfe_drift) > 0
     # still unported: tensor parallelism, and the global grid of data
-    # parallelism for the SDE, conv and chain families
+    # parallelism for the conv family; the SDE and chain families take it
     from localregneuralde_tpu_torch.harness.latent_runner import (
         check_supported,
     )
@@ -245,11 +245,15 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14d"):
         check_supported(tp)
     for extra, item in ((["--model.model_type=cifar10_cnn"], "14c"),
-                        ([], "14b")):
+                        ([], None)):
         cfg = torch_config.define_configuration(
             ["--train.data_parallel=gspmd"] + extra, None)
         cfg.model.sde = not extra
         model = construct_model(cfg, device="cpu")
+        if item is None:
+            assert check_global_grid(model, model.init_state()) == [
+                ("neural_dsde",)]
+            continue
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP Queue 1 item {item}"):
             check_global_grid(model, model.init_state())
@@ -259,8 +263,7 @@ def test_unported_paths_raise():
         ["--train.data_parallel=gspmd"], "experiments/physionet/physionet.yaml")
     model = construct_time_series(latent, saveat=torch.linspace(0, 1, 5),
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14a"):
-        check_global_grid(model, model.init_state())
+    assert check_global_grid(model, model.init_state()) == [("neural_ode",)]
 
 
 def test_kernel_dispatch():
