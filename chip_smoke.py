@@ -210,7 +210,16 @@ on the card:
     held against their plain versions, ms a DP step beside the
     single-device step with the all-reduce's share; then both runners
     under ``'gspmd'`` (``physionet.yaml``, ``mnist_sde/mlp.yaml``) on two
-    ranks.
+    ranks. The conv family (``[dp world1|world2 cifar]``) at ``cnn.yaml``'s
+    full width, B = 32, ``unbiased`` at its weight 2.5, at 'highest':
+    kernel 13 on every attempt and kernel 14 on every accepted step (and
+    the regulariser's step), both on the whole batch on every rank; world 1
+    bitwise the single-device shipped route in loss, NFE, gradients and
+    running stats, and at its tier-wise launch counts; world 2 NFE within
+    12, loss and gradients within ``DP_LOSS_RTOL`` and ``DP_GRAD_REL``, no
+    plain conv step, each rank's profile with both kernels; 'auto' (TF32)
+    printed with its NFE beside the single device's; the classification
+    runner under ``'gspmd'`` with ``cnn.yaml`` on two ranks.
 
 Beside those: each persistent kernel's outputs (kernels 4 at both
 tolerances, 5, 6, 8's replay and its gradients, 9, 10, 11 and 12, and
@@ -7754,6 +7763,14 @@ DP_GLOBAL = (("highest", DP_HIGHEST, ("ce",)), ("reg", DP_REG, ("loss",)),
              ("auto", DP_AUTO, ()), ("mlp.yaml", [], ()))
 DP_LOSS_RTOL = 1e-5   # the global grid's loss against the single device
 DP_GRAD_REL = 1e-3    # its gradients, relative to the largest
+# the conv family's gates are these or twice the single device's own
+# rounding floor, whichever is larger: its loss and gradients' change under
+# a DP_FLOOR_REL relative change of the batch (DP_FLOOR_DRAWS draws of a
+# sign an element), the change in the outer BatchNorm's moments that the
+# ranks' order of addition makes; the TF32 products of the layers outside
+# the NeuralODE (the backend default) and of kernel 14's gradients round
+# it up to ~1e-3 (PERF.md §6)
+DP_FLOOR_REL, DP_FLOOR_DRAWS = 1e-7, 2
 CARD = ""             # nvidia-smi's name and power limit (phase_build)
 
 
@@ -7822,11 +7839,12 @@ def _per_rank_by_hand(model, loss_fn, opt, ts, batch, w, lr, n):
             [int(x[2]["nfe"]) for x in res])
 
 
-def _global_grads(model, loss_fn, ts, batch, w, dp=None):
+def _global_grads(model, loss_fn, ts, batch, w, dp=None, out=None):
     """Loss, NFE and gradients of one training step without the update,
     its draws from a copy of the generators (so each call takes the same
     t1): the single-device step's on ``batch``, or with ``dp`` the global
-    grid's on this rank's rows (its reductions included)."""
+    grid's on this rank's rows (its reductions included). ``out["state"]``
+    gets the step's new layer state."""
     from localregneuralde_tpu_torch.harness.train import (
         device_w, stage_step, step_grads,
     )
@@ -7834,7 +7852,7 @@ def _global_grads(model, loss_fn, ts, batch, w, dp=None):
         cloned_generators, to_device,
     )
     from localregneuralde_tpu_torch.parallel.sharded_train import (
-        GlobalGridSync, check_global_grid,
+        GlobalGridSync, group_paths,
     )
 
     like = next(iter(ts.params.values()))
@@ -7842,12 +7860,14 @@ def _global_grads(model, loss_fn, ts, batch, w, dp=None):
         model, cloned_generators(ts.state), int(batch[0].shape[0]), 1, dp)]
     sync = None
     if dp is not None:
-        sync = GlobalGridSync(dp, check_global_grid(model))
+        sync = GlobalGridSync(dp, group_paths(model))
     loss, state, stats, grads = step_grads(
         model, loss_fn, 1, ts, batch, device_w(w, like), draws,
         None if sync is None else sync.state_in)
     if sync is not None:
         loss, state, stats, grads = sync.reduce(loss, state, stats, grads)
+    if out is not None:
+        out["state"] = state
     return loss, _drift_nfe(stats), [g.detach() for g in grads]
 
 
@@ -7937,24 +7957,34 @@ def _check_kernel_route(tag, dp_names, ref_names, want):
 
 # each case's config and its overrides: mnist_sde_reg is mnist_sde/mlp.yaml
 # with its unbiased regulariser on (at the config's weight, 1000), so the
-# regulariser's group norms and its normals staged by global row run
+# regulariser's group norms and its normals staged by global row run;
+# cifar is cnn.yaml (B = 32) with the unbiased regulariser at its weight,
+# 2.5, at 'highest' (FP32 forwards; 'auto', TF32, is its ungated arm,
+# DP_CIFAR_AUTO)
 DP_FAMILIES = {"physionet": LATENT_CONFIG, "mnist_sde": SDE_CONFIG,
-               "mnist_sde_reg": SDE_CONFIG}
-DP_CASE_ARGS = {"mnist_sde_reg": ["--model.regularize=unbiased"]}
-# each case's sweep and solve wrappers and their kernels' symbols
+               "mnist_sde_reg": SDE_CONFIG, "cifar": CIFAR_CONFIG}
+DP_CASE_ARGS = {"mnist_sde_reg": ["--model.regularize=unbiased"],
+                "cifar": ["--model.regularize=unbiased",
+                          "--model.solver.precision=highest"]}
+DP_CIFAR_AUTO = ["--model.solver.precision=auto"]
+# each case's sweep and solve wrappers and their kernels' symbols (the conv
+# family's: kernel 14 on every accepted step, kernel 13 on every attempt)
 DP_SWEEP = {"physionet": ("persistent_chain_sweep", "chain_sweep_kernel"),
             "mnist_sde": ("persistent_sde_sweep", "sde_sweep_kernel"),
-            "mnist_sde_reg": ("persistent_sde_sweep", "sde_sweep_kernel")}
+            "mnist_sde_reg": ("persistent_sde_sweep", "sde_sweep_kernel"),
+            "cifar": ("fused_conv_step_bwd", "bn_bwd_reduce_kernel")}
 DP_SOLVE = {"physionet": ("persistent_chain_solve", "chain_solve_kernel"),
             "mnist_sde": ("persistent_sde_solve", "sde_solve_kernel"),
-            "mnist_sde_reg": ("persistent_sde_solve", "sde_solve_kernel")}
+            "mnist_sde_reg": ("persistent_sde_solve", "sde_solve_kernel"),
+            "cifar": ("fused_conv_step", "bn_act_kernel")}
 
 
 def _dp_family(family, overrides, device, rows=B, n=DP_STEPS + 1):
     """``(model, loss_fn, opt, ts, w_of, sched, batches)`` of the family's
     config with random weights from its seed: ``w_of(step)`` the loss's
     weight (the latent model's (w_reg, w_kl)), ``n`` training batches of
-    ``rows`` (the runner's loader's first for PhysioNet)."""
+    ``rows`` (the runner's loader's first for PhysioNet; CIFAR's of its
+    config's batch, normalised as the runner does)."""
     import torch
 
     from localregneuralde_tpu_torch.harness import (
@@ -7979,6 +8009,21 @@ def _dp_family(family, overrides, device, rows=B, n=DP_STEPS + 1):
 
         def w_of(step):
             return float(w_reg(step)), float(w_kl(step))
+    elif family == "cifar":
+        from localregneuralde_tpu_torch.harness import get_classification_data
+        from localregneuralde_tpu_torch.harness.runner import cifar_normalize
+
+        model = construct_model(cfg, device=device)
+        loss_fn, w_reg = construct_loss(cfg)
+        x, y, _, _, _ = get_classification_data(cfg)
+        rows = int(cfg.dataset.train_batchsize)
+        batches = [(torch.tensor(cifar_normalize(x[i * rows:(i + 1) * rows]),
+                                 device=device),
+                    torch.tensor(one_hot(y[i * rows:(i + 1) * rows], 10),
+                                 device=device)) for i in range(n)]
+
+        def w_of(step):
+            return float(w_reg(step))
     else:
         model = construct_model(cfg, device=device)
         loss_fn, w_reg = construct_loss(cfg)
@@ -8006,7 +8051,9 @@ def _dp_gated_w(family, w_of):
 @contextlib.contextmanager
 def _sweep_spy(family, record):
     """Within the block: ``record["plain"]`` counts the plain sweeps run
-    (the eager stored-adjoint sweeps and the kernels' plain versions), and
+    (the eager stored-adjoint sweeps and the kernels' plain versions; for
+    the conv family, whose kernel route sweeps with kernel 14 in the eager
+    sweep, the plain versions of kernels 13 and 14), and
     ``record["args"]`` keeps the family's last kernel-sweep call (its
     tensors cloned), ``(args, kwargs)``."""
     import torch
@@ -8014,14 +8061,17 @@ def _sweep_spy(family, record):
     from localregneuralde_tpu_torch.ode import stored_adjoint as ode_sa
     from localregneuralde_tpu_torch.ops import cuda
     from localregneuralde_tpu_torch.ops.cuda import (
-        fused_sde_sweep, fused_solve_bwd,
+        fused_conv, fused_conv_bwd, fused_sde_sweep, fused_solve_bwd,
     )
     from localregneuralde_tpu_torch.sde import stored_adjoint as sde_sa
 
     record.setdefault("plain", 0)
-    plains = [(ode_sa, "eager_sweep"), (sde_sa, "eager_sde_sweep"),
-              (fused_solve_bwd, "persistent_chain_sweep_plain"),
-              (fused_sde_sweep, "persistent_sde_sweep_plain")]
+    plains = ([(fused_conv, "conv_step_plain"),
+               (fused_conv_bwd, "fused_conv_step_bwd_plain")]
+              if family == "cifar" else
+              [(ode_sa, "eager_sweep"), (sde_sa, "eager_sde_sweep"),
+               (fused_solve_bwd, "persistent_chain_sweep_plain"),
+               (fused_sde_sweep, "persistent_sde_sweep_plain")])
     saved = [(mod, name, getattr(mod, name)) for mod, name in plains]
     wrapper = DP_SWEEP[family][0]
     real = getattr(cuda, wrapper)
@@ -8064,25 +8114,98 @@ def _dp_global_family(family, setup, dp):
     from localregneuralde_tpu_torch.parallel import shard_batch
 
     model, loss_fn, _, ts, w_of, _, batches = setup
-    record = {}
+    record, out = {}, {}
     with _sweep_spy(family, record):
         reset_launch_counts()
         loss, nfe, grads = _global_grads(
             model, loss_fn, ts, shard_batch(batches[0], dp),
-            _dp_gated_w(family, w_of), dp)
+            _dp_gated_w(family, w_of), dp, out)
         _sync(batches[0][0].device)
         counts = tier_counts()
     return dict(loss=loss, nfe=nfe, grads=grads, launches=counts,
-                plain=record["plain"], args=record.get("args"))
+                plain=record["plain"], args=record.get("args"),
+                stats=_running_stats(out["state"]))
 
 
-def _check_dp_family_route(tag, family, got):
+def _running_stats(state):
+    """Every BatchNorm running stat of a layer state, in the tree's order
+    (the CIFAR model's; none for the other families)."""
+    if not isinstance(state, dict):
+        return []
+    here = [state[k] for k in ("mean", "var") if k in state]
+    return here + [x for k, v in state.items() if k not in ("mean", "var")
+                   for x in _running_stats(v)]
+
+
+def _dp_single_family(family, setup):
+    """The single-device step of ``_dp_global_family`` on the whole first
+    batch: its loss, NFE, gradients (and their parameters' names),
+    launches and running stats; for the conv family also its rounding
+    floor (``_dp_floor``)."""
+    from localregneuralde_tpu_torch.ops.cuda import reset_launch_counts
+
+    model, loss_fn, _, ts, w_of, _, batches = setup
+    out = {}
+    reset_launch_counts()
+    loss, nfe, grads = _global_grads(model, loss_fn, ts, batches[0],
+                                     _dp_gated_w(family, w_of), out=out)
+    _sync(batches[0][0].device)
+    ref = dict(loss=loss, nfe=nfe, grads=grads, launches=tier_counts(),
+               stats=_running_stats(out["state"]), names=list(ts.params))
+    if family == "cifar":
+        ref["floor"] = _dp_floor(family, setup, ref)
+    return ref
+
+
+def _dp_floor(family, setup, ref):
+    """The single-device step's own change under ``DP_FLOOR_DRAWS``
+    ``DP_FLOOR_REL`` relative changes of the batch's inputs: the largest
+    relative loss change and gradient change over the largest gradient,
+    with its parameter."""
+    import torch
+
+    model, loss_fn, _, ts, w_of, _, batches = setup
+    x, y = batches[0]
+    scale = max(float(g.abs().max()) for g in ref["grads"])
+    gen = torch.Generator(device=x.device).manual_seed(1)
+    floor = dict(loss=0.0, grads=0.0, worst=None)
+    for _ in range(DP_FLOOR_DRAWS):
+        sign = torch.randint(0, 2, x.shape, generator=gen, device=x.device)
+        moved = x * (1 + DP_FLOOR_REL * (2 * sign.to(x.dtype) - 1))
+        loss, _, grads = _global_grads(model, loss_fn, ts, (moved, y),
+                                       _dp_gated_w(family, w_of))
+        floor["loss"] = max(floor["loss"], abs(float(loss - ref["loss"]))
+                            / abs(float(ref["loss"])))
+        for name, a, b in zip(ref["names"], grads, ref["grads"]):
+            e = float((a - b).abs().max()) / scale
+            if e > floor["grads"]:
+                floor["grads"], floor["worst"] = e, name
+    return floor
+
+
+def _check_dp_family_route(tag, family, got, ref=None):
     """The global grid's launches: the family's persistent solve (on the
-    whole batch) and its sweep kernel once each, no plain sweep."""
+    whole batch) and its sweep kernel once each, no plain sweep; for the
+    conv family kernels 13 and 14 at the tier-wise counts of the single
+    device's step (``ref``'s launches) where the NFE is its, else at the
+    counts its own NFE implies, and no plain conv step."""
     sweep, solve = DP_SWEEP[family][0], DP_SOLVE[family][0]
     launches = {k: v for k, v in got["launches"].items() if v}
-    print(f"[dp {tag}] launches of the step {launches}; plain sweeps run "
+    print(f"[dp {tag}] launches of the step {launches}; plain "
+          f"{'conv steps' if family == 'cifar' else 'sweeps'} run "
           f"{got['plain']}")
+    if family == "cifar":
+        want = {k: v for k, v in ref["launches"].items() if v}
+        attempts = (got["nfe"] - 2 - 8) // 6
+        n13, n14 = launches.get(solve, 0), launches.get(sweep, 0)
+        print(f"[dp {tag}] the single device's step {want} at NFE "
+              f"{ref['nfe']}")
+        check(got["plain"] == 0 and set(launches) == set(want) and (
+            launches == want if got["nfe"] == ref["nfe"]
+            else n13 == attempts + 1 and 2 <= n14 <= n13),
+              f"dp {tag}: the global grid's launches {launches}, plain conv "
+              f"steps {got['plain']}")
+        return
     check(got["launches"].get(sweep, 0) == 1
           and got["launches"].get(solve, 0) == 1 and got["plain"] == 0,
           f"dp {tag}: the global grid's route {launches}, plain sweeps "
@@ -8091,21 +8214,33 @@ def _check_dp_family_route(tag, family, got):
 
 def _check_dp_family_grads(tag, family, got, ref):
     """A global-grid step (``got``) against the single-device shipped
-    route's (``ref``, ``_global_grads``' triple): NFE equal (the persistent
-    solve runs on the same whole batch), loss and gradients within
-    ``DP_LOSS_RTOL`` and ``DP_GRAD_REL``."""
+    route's (``ref``, ``_dp_single_family``'s dict): NFE equal (the
+    persistent solve runs on the same whole batch; the conv family's
+    within 12, its outer BatchNorm's moments added in another order), loss
+    and gradients within ``DP_LOSS_RTOL`` and ``DP_GRAD_REL`` (the conv
+    family's, or twice its rounding floor where that is larger)."""
     loss_rtol, grad_rel = DP_LOSS_RTOL, DP_GRAD_REL
-    loss_ref, nfe_ref, g_ref = ref
+    floor = ref.get("floor")
+    if floor is not None:
+        loss_rtol = max(loss_rtol, 2 * floor["loss"])
+        grad_rel = max(grad_rel, 2 * floor["grads"])
+    loss_ref, nfe_ref, g_ref = ref["loss"], ref["nfe"], ref["grads"]
     scale = max(float(g.abs().max()) for g in g_ref)
-    err = max(float((a.to(b.device) - b).abs().max())
-              for a, b in zip(got["grads"], g_ref)) / scale
+    errs = [float((a.to(b.device) - b).abs().max()) / scale
+            for a, b in zip(got["grads"], g_ref)]
+    err = max(errs)
+    worst = ref["names"][errs.index(err)]
     lerr = abs(float(got["loss"]) - float(loss_ref)) / abs(float(loss_ref))
     print(f"[dp {tag}] vs the single-device shipped route: loss "
           f"{float(got['loss']):.7f} vs {float(loss_ref):.7f} (rel "
-          f"{lerr:.2e}, tolerance {loss_rtol}), NFE {got['nfe']} vs "
-          f"{nfe_ref}, gradients max-abs / largest {err:.2e} (tolerance "
-          f"{grad_rel})")
-    check(got["nfe"] == nfe_ref and lerr <= loss_rtol and err <= grad_rel,
+          f"{lerr:.2e}, tolerance {loss_rtol:.3g}), NFE {got['nfe']} vs "
+          f"{nfe_ref}, gradients max-abs / largest {err:.2e} at {worst} "
+          f"(tolerance {grad_rel:.3g})" + ("" if floor is None else (
+              f"; the single device's floor: loss {floor['loss']:.2e}, "
+              f"gradients {floor['grads']:.2e} at {floor['worst']}")))
+    nfe_ok = (abs(got["nfe"] - nfe_ref) <= 12 if family == "cifar"
+              else got["nfe"] == nfe_ref)
+    check(nfe_ok and lerr <= loss_rtol and err <= grad_rel,
           f"dp {tag}: the global grid disagrees with the single-device step")
 
 
@@ -8130,6 +8265,10 @@ def _check_dp_sweep(tag, family, args, device):
 
     check(args is not None, f"dp {tag}: no kernel sweep ran")
     if args is None:  # a rehearsal off the kernel route
+        return
+    if family == "cifar":
+        # kernel 14 is held against its plain version at this shape (the
+        # whole batch of cnn.yaml) in [conv step_bwd] and [tf32 conv ...]
         return
     a, kw = args
     d64 = lambda xs: [x.double() if isinstance(x, torch.Tensor)  # noqa: E731
@@ -8287,6 +8426,13 @@ def dp_worker(job_file, rank, port, device="cuda:0"):
             mean_over_ranks(flat, dp)
         _sync(device)
         res["reduce_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+        if family == "cifar":
+            # 'auto' (TF32): u~ is noise there, so its NFE follows rounding
+            auto = _dp_family(family, overrides + DP_CIFAR_AUTO, device,
+                              job["rows"])
+            res["auto_nfe"] = _global_grads(
+                auto[0], auto[1], auto[3], shard_batch(auto[6][0], dp),
+                auto[4](1), dp)[1]
         out[f"family_{family}"] = res
     torch.save(out, f"{job_file}.rank{rank}")
     torch.distributed.destroy_process_group()
@@ -8368,10 +8514,10 @@ def _dp_runner(module, config, extra, tmp, device, mode="shardmap"):
 
 def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
     """``[dp ...]``: data parallelism at mlp.yaml's full width, and the
-    global grid of the chain and SDE families at physionet.yaml's and
-    mnist_sde/mlp.yaml's (``extra``, ``latent_extra`` and
+    global grid of the chain, SDE and conv families at physionet.yaml's,
+    mnist_sde/mlp.yaml's and cnn.yaml's (``extra``, ``latent_extra`` and
     ``family_extra``'s overrides by family, and ``rows`` a batch, narrow
-    them for a rehearsal on the CPU). Returns the launch counts of its
+    them for a rehearsal on the CPU; CIFAR's batch is its config's). Returns the launch counts of its
     steps (this process's world-1 steps and the two world-2 ranks')."""
     import copy
     import tempfile
@@ -8445,20 +8591,27 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
         got = _dp_global_family(family, setup, dp)
         add(got["launches"])
         tag = f"world1 {family}"
-        _check_dp_family_route(tag, family, got)
         # one rank runs the single device's kernels on the same batch
-        ref = _global_grads(setup[0], setup[1], setup[3], setup[6][0],
-                            _dp_gated_w(family, setup[4]))
+        ref = _dp_single_family(family, setup)
         family_refs[family] = ref
-        same = bool(torch.equal(got["loss"], ref[0])) and got["nfe"] == ref[1]
+        _check_dp_family_route(tag, family, got, ref)
+        same = (bool(torch.equal(got["loss"], ref["loss"]))
+                and got["nfe"] == ref["nfe"])
         grads_same = all(torch.equal(a, b)
-                         for a, b in zip(got["grads"], ref[2]))
-        print(f"[dp {tag}] {dp.backend}, B = {rows}: loss "
-              f"{float(got['loss']):.7f}, NFE {got['nfe']}; bitwise the "
+                         for a, b in zip(got["grads"], ref["grads"]))
+        stats_same = len(got["stats"]) == len(ref["stats"]) and all(
+            torch.equal(a, b) for a, b in zip(got["stats"], ref["stats"]))
+        # the conv family's whole solve is the single device's by
+        # construction, its outer BatchNorm's moments a rank mean of one
+        gated = family == "cifar"
+        print(f"[dp {tag}] {dp.backend}, B = {int(setup[6][0][0].shape[0])}: "
+              f"loss {float(got['loss']):.7f}, NFE {got['nfe']}; bitwise the "
               f"single-device shipped route's loss and NFE {same}, "
-              f"gradients {grads_same} (not gated)")
-        check(same, f"dp {tag}: the global grid's forward is not the "
-              "single-device shipped route's")
+              f"gradients {grads_same}, {len(ref['stats'])} running stats "
+              f"{stats_same}{'' if gated else ' (not gated)'}")
+        check(same and (not gated or (grads_same and stats_same)),
+              f"dp {tag}: the global grid's step is not the single-device "
+              "shipped route's")
         _check_dp_family_grads(tag, family, got, ref)
         _check_dp_sweep(tag, family, got["args"], device)
     torch.distributed.destroy_process_group()
@@ -8505,7 +8658,8 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
             _dp_runner(module, config, args, os.path.join(tmp, tmp_name),
                        device)
         for tmp_name, module, family in (("r3", "latent_runner", "physionet"),
-                                         ("r4", "runner", "mnist_sde")):
+                                         ("r4", "runner", "mnist_sde"),
+                                         ("r5", "runner", "cifar")):
             _dp_runner(module, DP_FAMILIES[family], [
                 "--train.total_steps=2", "--train.evaluate_every=2"]
                 + family_extra[family], os.path.join(tmp, tmp_name), device,
@@ -8581,7 +8735,7 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
         for r, g in enumerate(got):
             tag = f"world2 {family} rank {r}"
             add(g["launches"])
-            _check_dp_family_route(tag, family, g)
+            _check_dp_family_route(tag, family, g, family_refs[family])
             _check_dp_family_grads(tag, family, g, family_refs[family])
             names = g["kernels"]
             ours = {k: v for k, v in names.items() if "lrnde" in k}
@@ -8592,6 +8746,16 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
                   f"{DP_SWEEP[family][1]} or {DP_SOLVE[family][1]}")
         check(got[0]["nfe"] == got[1]["nfe"],
               f"dp world2 {family}: the ranks' NFE differ")
+        if family == "cifar":
+            auto = _dp_family(family, overrides + DP_CIFAR_AUTO, device, rows)
+            sd_nfe = _global_grads(auto[0], auto[1], auto[3], auto[6][0],
+                                   auto[4](1))[1]
+            print(f"[dp world2 cifar auto] 'auto' (TF32, not gated: u~ is "
+                  f"rounding noise there, so NFE follows rounding): NFE of "
+                  f"the ranks {[g['auto_nfe'] for g in got]}, the single "
+                  f"device's {sd_nfe}")
+            check(got[0]["auto_nfe"] == got[1]["auto_nfe"],
+                  "dp world2 cifar auto: the ranks' NFE differ")
         model, loss_fn, opt, ts, w_of, sched, fb = _dp_family(
             family, overrides, device, rows)
         single = make_train_step_of((model, loss_fn, opt))
@@ -8603,8 +8767,9 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
               f"{[round(m, 3) for m in got[0]['ms']]}), its all-reduce "
               f"{got[0]['reduce_ms']:.3f} ms "
               f"({100 * got[0]['reduce_ms'] / med:.1f}%), NFE "
-              f"{got[0]['nfe_steps']}; the single-device step at B = {rows} "
-              f"{statistics.median(sd_ms):.3f} ms, NFE {sd_nfe}")
+              f"{got[0]['nfe_steps']}; the single-device step at B = "
+              f"{int(fb[0][0].shape[0])} {statistics.median(sd_ms):.3f} ms, "
+              f"NFE {sd_nfe}")
     pr, gh = ranks[0]["per_rank"], ranks[0]["global_highest"]
     for tag, dp_ms, dp_nfe, sd_ms, sd_nfe in (
             ("per-rank mlp.yaml", pr["ms"], pr["nfe_steps"], ms_single,

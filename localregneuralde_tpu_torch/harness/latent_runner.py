@@ -182,10 +182,9 @@ def eval_forward(model, ts: TrainState, batch, dp=None):
     x = torch.cat([data, mask, dt], dim=-1)
     state = ts.state
     if dp is not None:
-        from ..parallel.sharded_train import GlobalGridSync, check_global_grid
+        from ..parallel.sharded_train import GlobalGridSync, group_paths
 
-        state = GlobalGridSync(dp, check_global_grid(model, state)).state_in(
-            state)
+        state = GlobalGridSync(dp, group_paths(model, state)).state_in(state)
     with torch.no_grad():
         y, st_ = torch.func.functional_call(
             model, ts.params, (x, state), {"training": False})

@@ -40,9 +40,10 @@ A process started alone runs a group of one. Rank 0 keeps the canonical log
 and checkpoint layout, rank r > 0 writes under ``proc{r}``; a checkpoint
 keeps the whole (gathered) state. Under 'gspmd' each eval batch (rounded
 down to the data-parallel degree) is solved on the global grid over the
-ranks; under 'shardmap' every rank evaluates whole eval batches itself, the
-single-device solve. ``tensor_parallel`` > 1 raises (ROADMAP Queue 1 item
-14d).
+ranks (CIFAR-10's conv solve on the whole batch on every rank, its
+BatchNorms' moments over the ranks); under 'shardmap' every rank evaluates
+whole eval batches itself, the single-device solve. ``tensor_parallel`` > 1
+raises (ROADMAP Queue 1 item 14d).
 Once a print window the phase probes (``train.make_phase_probes``) time a
 forward and a forward with its backward on the eager step body, outside
 the window's wall time, for the ``fwd_time``, ``bwd_time`` and

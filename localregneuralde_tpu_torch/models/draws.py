@@ -47,11 +47,13 @@ def pop_draws(state: dict):
     return state.pop(DRAWS), state
 
 
-def layers_with(model, state, attr: str, path=()):
+def layers_with(model, state, attr, path=()):
     """``(path, layer, layer state)`` of every layer of ``model`` with the
-    attribute ``attr``, found by walking the children whose names key the
-    state tree."""
-    if hasattr(model, attr):
+    attribute ``attr`` (or one of a tuple of them), found by walking the
+    children whose names key the state tree; a layer found is not walked
+    into."""
+    attrs = (attr,) if isinstance(attr, str) else tuple(attr)
+    if any(hasattr(model, a) for a in attrs):
         yield path, model, state
         return
     if not isinstance(state, dict):

@@ -111,10 +111,18 @@ accepted step (kernels 2 and 3). The chain family's runs kernel 5 as GSPMD
 runs a replicated custom call: on the whole batch, gathered from the
 ranks, on every rank, each keeping its rows (``parallel.mesh.replicated``);
 kernel 9 sweeps the rank's rows of the knots (``ode/stored_adjoint.py``).
-The regulariser's step and its dt probe take the group's norms. After each
-solve the ranks' accept and reject counts are held equal. The TD-MLP,
-chain and generic dynamics take it under the stored and the direct adjoint
-with Tsit5 (``check_global_grid``).
+The conv family's kernel route runs its whole solve so, kernel 13 with its
+BatchNorm statistics on every attempt, the plain k1, dt probe and FSAL
+closure, the sweep with kernel 14 on every accepted step
+(``stored_odesolve(whole_batch=True)``; the direct adjoint differentiates
+through the gather, ``mesh.gather_rows_grad``) and the regulariser's step:
+their batch statistics are the whole batch's by construction, and the
+dynamics' running stats the same on every rank. The eager routes give the
+dynamics' BatchNorms the group in every evaluation, so their moments are
+over all the rows (``nn.basic.BatchNorm``). The regulariser's step and its
+dt probe take the group's norms. After each solve the ranks' accept and
+reject counts are held equal. Every family takes the global grid under
+the stored and the direct adjoint with Tsit5 (``check_global_grid``).
 """
 from __future__ import annotations
 
@@ -127,30 +135,26 @@ import warnings
 import torch
 
 from ..nn.basic import (
-    Dense, check_product_tier, product_tier, product_tier_scope,
+    GROUP, Dense, check_product_tier, product_tier, product_tier_scope,
     resolve_solver_precision,
 )
 from ..nn.module import Module
 from ..ode.controller import initial_step_size
 from ..ode.multistep import adams_solve
-from ..ode.solve import ODESolution, device_scalar, odesolve
+from ..ode.solve import ODESolution, device_scalar, loop_solve, odesolve
 from ..ode.step import Tsit5StepResult, regularization_value, tsit5_step
 from ..core.containers import ArrayAndTime, get_array
 from ..ops.cuda.fused_conv import (
     ConvWeights, match_conv_family, running_stats, with_running_stats,
 )
 from .common import TDChain
-from .draws import pop_draws, to_device
+from .draws import layers_with, pop_draws, to_device, with_key
 
 _VALID_REGULARIZE = ("none", "unbiased", "biased")
 _VALID_REG_TYPE = ("error_estimate", "stiffness_estimate")
 _VALID_USE_PALLAS = ("auto", "on", "off")
 _VALID_SOLVERS = ("tsit5", "vcab3", "vcabm3")
 _VALID_ADJOINTS = ("stored", "direct", "interpolating", "backsolve")
-
-# the state key under which the global grid's step gives the layer its
-# DPGroup (``parallel/sharded_train.py``)
-GROUP = "dp_group"
 
 
 def pop_group(state: dict):
@@ -356,13 +360,8 @@ class NeuralODE(Module):
 
     def check_global_grid(self) -> None:
         """Raise ``NotImplementedError`` where the global grid of data
-        parallelism is not ported: the conv family and the solver modes
-        other than Tsit5 under the stored or direct adjoint."""
-        if self.family == "conv":
-            raise NotImplementedError(
-                "data_parallel='gspmd' (the global grid) for the conv family "
-                "is not ported (ROADMAP Queue 1 item 14c); "
-                "data_parallel='shardmap' (the per-rank grid) runs it")
+        parallelism is not ported: the solver modes other than Tsit5 under
+        the stored or direct adjoint."""
         if self.solver != "tsit5" or self.adjoint not in ("stored", "direct"):
             raise NotImplementedError(
                 f"data_parallel='gspmd' with solver {self.solver!r} and "
@@ -389,12 +388,18 @@ class NeuralODE(Module):
             return "fp32"
         return product_tier(self.mm_precision, device)
 
-    def _call_model(self, u, t, st, training: bool, params=None):
+    def _call_model(self, u, t, st, training: bool, params=None,
+                    group=None):
         """The dynamics module at ``(u, t)`` with state ``st`` (with
         ``params``, a name → tensor dict, through ``functional_call``),
         its Dense products at ``forward_tier``; under ``compute_dtype`` u
         and the float32 parameters are cast to it and du back to u's
-        dtype."""
+        dtype. With a ``group`` (the global grid's eager route) each
+        BatchNorm of the dynamics gets it, for moments over every rank's
+        rows; the state it returns carries none."""
+        if group is not None:
+            for path, _, _ in layers_with(self.model, st, "group_moments"):
+                st = with_key(st, path, GROUP, group)
         with product_tier_scope(self.forward_tier(u.device)):
             return self._call_module(u, t, st, training, params)
 
@@ -417,9 +422,9 @@ class NeuralODE(Module):
         du = get_array(y)
         return (du if cdt is None else du.to(u.dtype)), st_new
 
-    def _generic_dynamics(self, training: bool = False):
+    def _generic_dynamics(self, training: bool = False, group=None):
         def f(u, t, st):
-            return self._call_model(u, t, st, training)
+            return self._call_model(u, t, st, training, group=group)
 
         return f
 
@@ -430,12 +435,14 @@ class NeuralODE(Module):
         """The chain family's parameters, ``[W_0, b_0, W_1, ...]``."""
         return [p for _, p in self.model.named_parameters()]
 
-    def _kernel_solvers(self):
-        """(dynamics, step_fn, persistent_fn) of the kernel family."""
+    def _kernel_solvers(self, group=None):
+        """(dynamics, step_fn, persistent_fn) of the kernel family (for the
+        global grid of ``group``: the TD-MLP's loop of kernel 2, the conv
+        family's whole-batch solve)."""
         if self.family == "chain":
             return self._chain_solvers()
         if self.family == "conv":
-            return self._conv_solvers()
+            return self._conv_solvers(group)
         from ..ops.cuda import (
             fused_tdmlp, fused_tsit5_step, persistent_tsit5_solve,
             solve_feasible,
@@ -464,7 +471,8 @@ class NeuralODE(Module):
             # the fused family is stateless: its state passes through
             return _solution(out, f_state)
 
-        return f, step, (persistent if self.use_persistent else None)
+        return f, step, (persistent if self.use_persistent
+                         and group is None else None)
 
     def _chain_solvers(self):
         """(dynamics, step_fn, persistent_fn) of the chain family: the plain
@@ -492,14 +500,18 @@ class NeuralODE(Module):
 
         return f, None, (persistent if self.use_persistent else None)
 
-    def _conv_solvers(self):
-        """(dynamics, step_fn, None) of the conv family in eval mode: the
+    def _conv_solvers(self, group=None):
+        """(dynamics, step_fn, whole) of the conv family in eval mode: the
         plain module for k1 and the dt probe, kernel 13 for every attempt
         (running stats, or batch statistics under ``eval_stats='batch'``),
-        both at ``mm_precision``; the state passes through unchanged."""
+        both at ``mm_precision``; the state passes through unchanged. On
+        the global grid (``group``) ``whole`` is that loop as a whole solve,
+        which ``odesolve`` runs on the whole batch on every rank; else
+        None."""
         from ..ops.cuda import fused_conv_step
 
         w, spec, prec = self.conv_weights(), self.conv, self.mm_precision
+        f = self._generic_dynamics()
 
         def step(fn, u, t, dt, k1, f_st):
             u_new, utilde, *ks, g6, _ = fused_conv_step(
@@ -508,23 +520,34 @@ class NeuralODE(Module):
                 precision=prec)
             return Tsit5StepResult(u_new, utilde, (k1, *ks), g6, f_st)
 
-        return self._generic_dynamics(), step, None
+        def whole(u0, tspan, *, saveat_arr, rtol, atol, max_steps, f_state,
+                  **record):
+            return loop_solve(f, u0, *tspan, saveat_arr, f_state=f_state,
+                              rtol=rtol, atol=atol, max_steps=max_steps,
+                              step_fn=step, **record)
 
-    def _train_dynamics(self, names):
+        return f, step, (None if group is None else whole)
+
+    def _train_dynamics(self, names, group=None):
         """The dynamics module in training mode as the stored adjoint's
-        stateful ``f(u, t, params, st) -> (du, st)``."""
+        stateful ``f(u, t, params, st) -> (du, st)`` (its BatchNorms'
+        moments over the ranks of ``group``)."""
         def f(u, t, params, st):
-            return self._call_model(u, t, st, True, dict(zip(names, params)))
+            return self._call_model(u, t, st, True, dict(zip(names, params)),
+                                    group)
 
         return f
 
-    def _conv_stored_kwargs(self, names):
+    def _conv_stored_kwargs(self, names, group=None):
         """``stored_odesolve``'s callables for the conv family: the plain
         module (training mode) for k1, the dt probe and the FSAL closure,
         kernel 13 for every attempt with the running stats threaded (all at
         ``mm_precision``), kernel 14 for the transpose of every accepted
         step, recomputing at ``bwd_precision`` with its gradient products at
-        the default tier (the reference's ``conv_step_vjp``)."""
+        the default tier (the reference's ``conv_step_vjp``). On the global
+        grid (``group``) the whole forward and sweep run on the whole batch
+        on every rank (``whole_batch``): kernel 13's statistics are in
+        every step."""
         from ..ops.cuda import fused_conv_step, fused_conv_step_bwd
 
         spec, prec, bwd = self.conv, self.mm_precision, self.bwd_precision
@@ -547,7 +570,8 @@ class NeuralODE(Module):
             return list(d_w), d_u, d_k1
 
         return dict(f=self._train_dynamics(names), step_fn=step_fn,
-                    step_vjp=step_vjp, stateful=True)
+                    step_vjp=step_vjp, stateful=True,
+                    whole_batch=group is not None)
 
     def _chain_stored_kwargs(self):
         """``stored_odesolve``'s callables for the chain family, routed as
@@ -602,11 +626,11 @@ class NeuralODE(Module):
         callable gets the parameters explicitly, since the backward runs
         after the caller returns."""
         if not kernels:
-            return dict(f=self._train_dynamics(names), stateful=True)
+            return dict(f=self._train_dynamics(names, group), stateful=True)
         if self.family == "chain":
             return self._chain_stored_kwargs()
         if self.family == "conv":
-            return self._conv_stored_kwargs(names)
+            return self._conv_stored_kwargs(names, group)
         from ..ops.cuda import (
             TDMLPWeights, fused_tdmlp, fused_tsit5_step,
             persistent_stored_sweep, persistent_tsit5_solve,
@@ -685,11 +709,10 @@ class NeuralODE(Module):
         if torch.compiler.is_exporting():
             self._check_exportable(x)
         if self.uses_kernels(x) or torch.compiler.is_exporting():
-            f, step_fn, persistent_fn = self._kernel_solvers()
-            if group is not None and self.family != "chain":
-                persistent_fn = None  # the TD-MLP's global grid: kernel 2
+            f, step_fn, persistent_fn = self._kernel_solvers(group)
         else:
-            f, step_fn, persistent_fn = self._generic_dynamics(), None, None
+            f, step_fn, persistent_fn = (self._generic_dynamics(group=group),
+                                         None, None)
         saveat = device_saveat(self, x.device)
         if self.solver != "tsit5":
             sol = self._adams(f, x, state["model"], saveat, None, "none")
@@ -783,10 +806,13 @@ class NeuralODE(Module):
             u1, t1 = sol.reservoir_u.detach(), sol.reservoir_t.detach()
         # the chain family has no step kernel: its regulariser step is the
         # generic one, as in the reference
-        step, dt_r = self._reg_step(
-            x, u1, t1, model_state,
-            self.family if kernels and self.family != "chain" else None,
-            group)
+        family = self.family if kernels and self.family != "chain" else None
+        if family == "conv" and group is not None:
+            # kernel 13's statistics: the whole batch's step on every rank
+            from ..parallel.mesh import gather_rows
+
+            u1, group = gather_rows(u1, group), None
+        step, dt_r = self._reg_step(x, u1, t1, model_state, family, group)
         new_state.update(
             model=step.f_state,
             reg_val=regularization_value(self.regularize_type, step, u1,
@@ -803,15 +829,16 @@ class NeuralODE(Module):
             max_steps=self.max_steps, adjoint=adjoint, stateful=True,
             f_state=st, reservoir=reservoir)
 
-    def _direct_solvers(self, kernels: bool):
+    def _direct_solvers(self, kernels: bool, group=None):
         """``(f(u, t, st) -> (du, st), step_fn)`` that autograd runs
         through, on the live parameters: on the kernel route kernel 1
         (``FusedTDMLP``) and kernels 2 + 3 (``FusedTsit5Step``) for the
         TD-MLP, the plain module and kernels 13 + 14 for the conv family,
         the plain chain and generic steps for the chain; else the module
-        and generic steps."""
+        (its BatchNorms' moments over the ranks of ``group``) and generic
+        steps."""
         if not kernels:
-            return self._generic_dynamics(training=True), None
+            return self._generic_dynamics(training=True, group=group), None
         if self.family == "chain":
             from ..ops.cuda import chain_eval
 
@@ -895,12 +922,20 @@ class NeuralODE(Module):
             f, _ = self._direct_solvers(kernels)
             return self._adams(f, x, st, saveat, reservoir, "direct")
         if self.adjoint == "direct":
-            f, step = self._direct_solvers(kernels)
-            return odesolve(
+            f, step = self._direct_solvers(kernels, group)
+            whole = kernels and self.family == "conv" and group is not None
+            if whole:
+                # kernel 13's statistics: the whole batch on every rank,
+                # each rank's loss differentiated through the gather
+                from ..parallel.mesh import gather_rows_grad, rank_solution
+
+                x, dp, group = gather_rows_grad(x, group), group, None
+            sol = odesolve(
                 f, x, self.tspan, rtol=self.rtol, atol=self.atol,
                 saveat=saveat, max_steps=self.max_steps, adjoint="direct",
                 stateful=True, f_state=st, step_fn=step, reservoir=reservoir,
                 group=group)
+            return rank_solution(sol, dp) if whole else sol
         kw = self._continuous_kwargs(kernels, names)
         return odesolve(
             kw.pop("f"), x, self.tspan, rtol=self.rtol, atol=self.atol,
@@ -915,7 +950,8 @@ class NeuralODE(Module):
         its VJP kernel on the kernel route of the TD-MLP and conv families,
         the generic step otherwise). Returns (step, dt); ``step.f_state`` is
         the state after the step. On the global grid (``group``) the dt
-        probe's norms are over every rank's rows."""
+        probe's norms are over every rank's rows, and so are the generic
+        dynamics' BatchNorm moments."""
         t2 = self.tspan[1]
         prec = self.mm_precision
         if family == "tdmlp":
@@ -926,7 +962,7 @@ class NeuralODE(Module):
             def f(u, t):
                 return fused_tdmlp(w, u, t, prec)
         else:
-            dyn = self._generic_dynamics(training=True)
+            dyn = self._generic_dynamics(training=True, group=group)
 
             def f(u, t):
                 return dyn(u, t, st)[0]

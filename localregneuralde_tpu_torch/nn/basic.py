@@ -436,6 +436,11 @@ class Conv(Module):
         return self.activation(y), state
 
 
+# the layer-state key under which the global grid of data parallelism
+# (``parallel/sharded_train.py``) gives a layer its ``DPGroup``
+GROUP = "dp_group"
+
+
 class BatchNorm(Module):
     """Batch normalisation over every axis but the last (the channels).
 
@@ -445,7 +450,19 @@ class BatchNorm(Module):
     wrapped). Eval mode normalises with the running stats, or with
     ``eval_stats='batch'`` with the batch's own (the reference's escape
     hatch for BatchNorm inside ODE dynamics; running stats kept). The
-    reference's ``affine=False`` is not carried: no model uses it."""
+    reference's ``affine=False`` is not carried: no model uses it.
+
+    On the global grid of data parallelism the state carries a
+    ``DPGroup`` under ``GROUP`` (``group_moments``): the input is then one
+    rank's rows of a batch spread over the group's ranks, and the batch's
+    moments are over all their rows, each the rank mean of the ranks'
+    moments in the same two passes (``parallel.mesh.group_mean``: added in
+    rank order, the cotangents summed over the ranks in the backward). Every
+    rank then normalises with the same bytes and writes the same running
+    stats. The returned state carries no group."""
+
+    # the global grid gives the layer its group (``parallel.sharded_train``)
+    group_moments = True
 
     def __init__(self, features: int, activation=None, *,
                  momentum: float = 0.1, eps: float = 1e-5,
@@ -469,9 +486,18 @@ class BatchNorm(Module):
 
     def apply_layer(self, x, state, *, training: bool = False):
         axes = tuple(range(x.ndim - 1))
+        group = state.get(GROUP)
+        if group is not None:
+            state = {k: v for k, v in state.items() if k != GROUP}
         if training or self.eval_stats == "batch":
             mean = x.mean(dim=axes)
+            if group is not None:
+                from ..parallel.mesh import group_mean
+
+                mean = group_mean(mean, group)
             var = torch.square(x - mean).mean(dim=axes)
+            if group is not None:
+                var = group_mean(var, group)
         else:
             mean, var = state["mean"], state["var"]
         new_state = state

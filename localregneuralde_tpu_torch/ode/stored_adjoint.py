@@ -26,6 +26,10 @@ Counterpart of ``localregneuralde_tpu/ode/stored_adjoint.py``.
   two-level sweep replays the whole batch's windows, so each rank sweeps
   the whole batch with every rank's cotangents and keeps its rows and
   1/n of the parameters' gradients (the step's rank mean adds the shares).
+  Where every step reads batch statistics (the conv family's kernels 13
+  and 14, ``whole_batch``), the whole solve, forward and backward, runs
+  so: the loop on the whole batch on every rank, then the sweep and the
+  FSAL closure with every rank's cotangents.
 
 Rejected attempts contribute nothing (their outputs are discarded), and
 t, dt and the controller get no cotangents: the reference's fences.
@@ -198,6 +202,59 @@ def _whole_batch_sweep(spec, params, ct_ys, ct_y):
             [p / dp.size for p in a_p])
 
 
+def _whole_batch_adjoint(spec, params, ct_ys, ct_y, from_kernel):
+    """The backward of a ``whole_batch`` solve on the global grid: the
+    adjoint of the whole batch's forward (``spec.whole``) with every rank's
+    cotangents; this rank's rows of the input's cotangent and 1/n of the
+    parameters', which the step's rank mean adds up to the whole batch's."""
+    from ..parallel.mesh import gather_rows, rank_rows
+
+    dp = spec.group
+    d_u0, d_params = _adjoint(spec, spec.whole, from_kernel, spec.whole_u0,
+                              params, gather_rows(ct_ys, dp, 1),
+                              gather_rows(ct_y, dp), None)
+    return rank_rows(d_u0, dp), [p / dp.size for p in d_params]
+
+
+def _adjoint(spec, sol, from_kernel, u0, params, ct_ys, ct_y, group):
+    """``(d_u0, d_params)`` of the solve ``sol`` from ``u0``: the sweep of
+    its knots (the kernel's, or the eager one with the norms of
+    ``group``), then the closure of the FSAL chain at t0."""
+    knots = {k: getattr(sol, k) for k in KNOT_FIELDS}
+    if from_kernel and spec.whole is not None and not spec.whole_batch and (
+            int(sol.naccept) > spec.dense_cap):
+        a_u, a_k, a_p = _whole_batch_sweep(spec, params, ct_ys, ct_y)
+    elif from_kernel:
+        a_u, a_k, a_p = spec.sweep_fn(
+            params, sol.knot_ts, sol.knot_us, sol.naccept, sol.ts, ct_ys,
+            ct_y, two_level_ctx=spec.two_level_ctx(knots),
+        )
+    else:
+        a_u, a_k, a_p = eager_sweep(
+            spec.raw_step, spec.step_vjp, params, knots, sol.naccept,
+            sol.ts, ct_ys, ct_y, two_level=spec.two_level,
+            t_end=device_scalar(spec.t_end, u0), rtol=spec.rtol,
+            atol=spec.atol, max_steps=spec.max_steps, stride=spec.stride,
+            dense_cap=spec.dense_cap, group=group,
+        )
+    # close the FSAL chain: k1_0 = f(u0, t0, params), plain autograd
+    with torch.enable_grad():
+        u0_ = u0.detach().requires_grad_()
+        ps = [p.detach().requires_grad_() for p in params]
+        k1_0 = spec.fsal_fn(u0_, device_scalar(spec.t0, u0), ps)
+        grads = torch.autograd.grad(k1_0, [u0_] + ps, a_k,
+                                    allow_unused=True)
+    grads = _zeros_for_none(grads, [u0_] + ps)
+    # saveat entries the forward never wrote hold u0: times ≤ t0, and
+    # times past the last accepted step of a truncated solve
+    unwritten = ((sol.ts <= spec.t0) | (sol.ts > sol.t_final)).to(u0.dtype)
+    d_u0_pre = torch.sum(
+        ct_ys * unwritten.reshape((-1,) + (1,) * u0.ndim), dim=0
+    )
+    d_u0 = a_u + grads[0] + d_u0_pre
+    return d_u0, [a + g for a, g in zip(a_p, grads[1:])]
+
+
 class _StoredSolve(torch.autograd.Function):
     """``(u0, *params) -> (ys, y_final)`` with the stored adjoint as its
     backward. ``spec`` carries the solver and its callbacks; the fenced
@@ -215,41 +272,14 @@ class _StoredSolve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_ys, ct_y):
-        spec, sol = ctx.spec, ctx.spec.sol
+        spec = ctx.spec
         u0, *params = ctx.saved_tensors
-        knots = {k: getattr(sol, k) for k in KNOT_FIELDS}
-        if ctx.from_kernel and spec.whole is not None and (
-                int(sol.naccept) > spec.dense_cap):
-            a_u, a_k, a_p = _whole_batch_sweep(spec, params, ct_ys, ct_y)
-        elif ctx.from_kernel:
-            a_u, a_k, a_p = spec.sweep_fn(
-                params, sol.knot_ts, sol.knot_us, sol.naccept, sol.ts, ct_ys,
-                ct_y, two_level_ctx=spec.two_level_ctx(knots),
-            )
+        if spec.whole_batch and spec.group is not None:
+            d_u0, d_params = _whole_batch_adjoint(spec, params, ct_ys, ct_y,
+                                                  ctx.from_kernel)
         else:
-            a_u, a_k, a_p = eager_sweep(
-                spec.raw_step, spec.step_vjp, params, knots, sol.naccept,
-                sol.ts, ct_ys, ct_y, two_level=spec.two_level,
-                t_end=device_scalar(spec.t_end, u0), rtol=spec.rtol,
-                atol=spec.atol, max_steps=spec.max_steps, stride=spec.stride,
-                dense_cap=spec.dense_cap, group=spec.group,
-            )
-        # close the FSAL chain: k1_0 = f(u0, t0, params), plain autograd
-        with torch.enable_grad():
-            u0_ = u0.detach().requires_grad_()
-            ps = [p.detach().requires_grad_() for p in params]
-            k1_0 = spec.fsal_fn(u0_, device_scalar(spec.t0, u0), ps)
-            grads = torch.autograd.grad(k1_0, [u0_] + ps, a_k,
-                                        allow_unused=True)
-        grads = _zeros_for_none(grads, [u0_] + ps)
-        # saveat entries the forward never wrote hold u0: times ≤ t0, and
-        # times past the last accepted step of a truncated solve
-        unwritten = ((sol.ts <= spec.t0) | (sol.ts > sol.t_final)).to(u0.dtype)
-        d_u0_pre = torch.sum(
-            ct_ys * unwritten.reshape((-1,) + (1,) * u0.ndim), dim=0
-        )
-        d_u0 = a_u + grads[0] + d_u0_pre
-        d_params = [a + g for a, g in zip(a_p, grads[1:])]
+            d_u0, d_params = _adjoint(spec, spec.sol, ctx.from_kernel, u0,
+                                      params, ct_ys, ct_y, spec.group)
         # the outputs are sol's tensors, whose grad_fn is this node: drop
         # the spec, so that the knots go with the step, not at the next
         # cyclic garbage collection
@@ -281,7 +311,20 @@ class _Spec:
                           u, t, dt, k1, None)
 
     def run(self, u0, params):
-        """The forward solve with knots; returns ``(sol, from_kernel)``."""
+        """The forward solve with knots; returns ``(sol, from_kernel)``. A
+        ``whole_batch`` solve on the global grid solves the whole batch,
+        gathered from the ranks, on every rank and keeps it for the
+        backward (``spec.whole``); ``sol`` is this rank's rows of it."""
+        if self.whole_batch and self.group is not None:
+            from ..parallel.mesh import gather_rows, rank_solution
+
+            self.whole_u0 = gather_rows(u0, self.group)
+            self.whole, from_kernel = self._run(self.whole_u0, params, None)
+            return rank_solution(self.whole, self.group), from_kernel
+        return self._run(u0, params, self.group)
+
+    def _run(self, u0, params, group):
+        """``run`` from ``u0`` with the norms of ``group``."""
         rec = dict(record_knots=True, knot_dense_cap=self.dense_cap,
                    knot_stride=self.stride, reservoir=self.reservoir)
         if self.persistent_fn is not None:
@@ -292,12 +335,12 @@ class _Spec:
                     atol=self.atol, max_steps=self.max_steps, **rec,
                 )
 
-            if self.group is None:
+            if group is None:
                 sol = solve(u0)
             else:
                 from ..parallel.mesh import replicated
 
-                whole, sol = replicated(solve, u0, self.group)
+                whole, sol = replicated(solve, u0, group)
                 # a two-level sweep replays the whole batch's windows
                 self.whole = whole if self.two_level else None
             if sol is not None:
@@ -313,7 +356,7 @@ class _Spec:
         dt_init, nfe_dt = initial_step_size(
             lambda u, t: self.f_pure(u, t, params), u0,
             device_scalar(self.t0, u0), order=5, rtol=self.rtol,
-            atol=self.atol, f0=k1_0, group=self.group,
+            atol=self.atol, f0=k1_0, group=group,
         )
         dt_init = torch.minimum(
             dt_init, device_scalar(self.t_end - self.t0, u0)
@@ -328,7 +371,7 @@ class _Spec:
         out = adaptive_loop(
             fn, u0, k1_0, st0, self.t0, self.t_end, dt_init,
             saveat=self.saveat_arr, rtol=self.rtol, atol=self.atol,
-            max_steps=self.max_steps, step_fn=step_fn, group=self.group,
+            max_steps=self.max_steps, step_fn=step_fn, group=group,
             **rec,
         )
         return ODESolution(
@@ -369,6 +412,7 @@ def stored_odesolve(
     stateful: bool = False,
     f_state=None,
     group=None,
+    whole_batch: bool = False,
 ) -> ODESolution:
     """Integrate ``du/dt = f(u, t, params)`` with gradients with respect to
     ``u0`` and ``params`` through the stored adjoint.
@@ -405,7 +449,9 @@ def stored_odesolve(
     window replay) is over all the ranks' rows; ``persistent_fn`` solves
     the whole batch on every rank and ``sweep_fn`` sweeps this rank's rows
     of its knots, or the whole batch where its windows replay (the
-    module's docstring).
+    module's docstring). With ``whole_batch`` every rank solves and sweeps
+    the whole batch, gathered from the ranks, with no group (dynamics
+    whose every step reads the batch's statistics).
     """
     t0, t_end = float(tspan[0]), float(tspan[1])
     saveat_arr = (
@@ -419,6 +465,7 @@ def stored_odesolve(
         stride=stride, step_fn=step_fn, persistent_fn=persistent_fn,
         sweep_fn=sweep_fn, fsal_fn=fsal_fn, reservoir=reservoir,
         stateful=stateful, f_state=f_state, group=group, whole=None, sol=None,
+        whole_batch=bool(whole_batch),
     )
     if spec.fsal_fn is None:
         spec.fsal_fn = spec.f_pure

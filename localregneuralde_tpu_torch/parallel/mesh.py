@@ -151,6 +151,31 @@ def mean_over_ranks(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
     return ordered_sum(x, dp) / dp.size
 
 
+class _GroupSum(torch.autograd.Function):
+    """``ordered_sum`` with its transpose as the backward: the cotangent of
+    the sum summed over the ranks, in rank order. A rank's term then gets
+    every rank's cotangent, and the step's rank mean of the gradients
+    turns each rank's share into the gradient of the mean of the ranks'
+    losses, whatever each rank's loss does with the sum."""
+
+    @staticmethod
+    def forward(ctx, x, dp):
+        ctx.dp = dp
+        return ordered_sum(x, dp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ordered_sum(g.contiguous(), ctx.dp), None
+
+
+def group_mean(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
+    """The differentiable mean over the ranks of ``x``, each rank's
+    statistic of an equal share of the batch's rows: the batch's statistic
+    over every rank's rows (BatchNorm's moments on the global grid). A
+    group of one gives ``x`` bitwise, forward and backward."""
+    return _GroupSum.apply(x, dp) / dp.size
+
+
 def all_ranks(flag: torch.Tensor, dp: DPGroup) -> torch.Tensor:
     """The AND over the ranks of a boolean."""
     return torch.all(gather_slots(flag.reshape(()), dp))
@@ -172,6 +197,29 @@ def gather_rows(x: torch.Tensor, dp: DPGroup, axis: int = 0) -> torch.Tensor:
     ``axis``), in rank order: bitwise each rank's rows, the same bytes on
     every rank (``gather_slots``)."""
     return torch.cat(gather_slots(x, dp).unbind(0), dim=axis)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``gather_rows`` differentiable: the backward takes this rank's rows
+    of the whole batch's cotangent summed over the ranks, in rank order,
+    since every rank's loss reaches every rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, dp):
+        ctx.dp = dp
+        return gather_rows(x, dp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return rank_rows(ordered_sum(g.contiguous(), ctx.dp), ctx.dp), None
+
+
+def gather_rows_grad(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
+    """``gather_rows`` (the batch on axis 0) with autograd through it: a
+    computation that each rank runs on the whole batch then differentiates
+    each rank's loss alone, and the step's rank mean of the gradients is
+    the gradient of the mean of the ranks' losses."""
+    return _GatherRows.apply(x, dp)
 
 
 def rank_rows(x: torch.Tensor, dp: DPGroup, axis: int = 0) -> torch.Tensor:

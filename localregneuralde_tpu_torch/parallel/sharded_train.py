@@ -9,17 +9,25 @@ ranks' rows (``ops/residuals.internal_norm`` with the group), added in rank
 order, so every rank takes the same accept decisions from the same bytes;
 after each solve the ranks' accept and reject counts are held equal
 (``NeuralODE``). The group reaches the layers through their state
-(``models.neural_ode.GROUP``), inserted by the step. The persistent solves
-take no part in a collective. The TD-MLP runs kernel 2 on every attempt
-and kernel 3 on every accepted step. The chain family (the latent ODE) and
-the SDE family run kernels 5 and 10 as GSPMD runs a replicated custom
-call: on the whole batch, gathered from the ranks, on every rank, which
-keeps its rows (``mesh.replicated``; the SDE's tree is the whole batch's).
-A dense sweep takes no accept decision, so each rank sweeps its rows of
-the knots on kernel 9 or 12; kernel 9's two-level sweep replays the whole
-batch's windows, so there every rank sweeps the whole batch
-(``ode/stored_adjoint.py``). The eager routes (``use_pallas='off'``) take
-the group's norms in their loops, the SDE's tree drawn by global row.
+(``nn.basic.GROUP``), inserted by the step into each DE layer's and each
+BatchNorm's outside them (``group_paths``); a BatchNorm then takes its
+batch moments over every rank's rows (the CIFAR model's outer
+``BatchNorm(8)``, and through the layer the conv dynamics' on the eager
+route). The persistent solves take no part in a collective. The TD-MLP
+runs kernel 2 on every attempt and kernel 3 on every accepted step. The
+chain family (the latent ODE) and the SDE family run kernels 5 and 10 as
+GSPMD runs a replicated custom call: on the whole batch, gathered from the
+ranks, on every rank, which keeps its rows (``mesh.replicated``; the SDE's
+tree is the whole batch's). A dense sweep takes no accept decision, so
+each rank sweeps its rows of the knots on kernel 9 or 12; kernel 9's
+two-level sweep replays the whole batch's windows, so there every rank
+sweeps the whole batch (``ode/stored_adjoint.py``). The conv family's
+kernels 13 and 14 compute BatchNorm statistics inside every step, so its
+whole solve runs so, as GSPMD runs the Pallas step and its VJP: the loop
+of kernel 13 on the whole batch on every rank, then the sweep of kernel 14
+with every rank's cotangents, and the regulariser's step. The eager routes
+(``use_pallas='off'``) take the group's norms and BatchNorm moments in
+their loops, the SDE's tree drawn by global row.
 
 The gradients are the single-device step's on the global batch. The
 cross-entropy is a mean over this rank's rows, so its gradient's rank mean
@@ -38,10 +46,9 @@ With ``grad_accumulation`` N each rank holds its slice of each of the N
 microbatches (``mesh.shard_batch(..., n_micro=N)``), so microbatch i over
 the ranks is the global batch's microbatch i, solved on one grid.
 
-The conv family and the ODE solver modes other than Tsit5 under the
-stored or direct adjoint raise ``NotImplementedError`` (ROADMAP Queue 1
-items 14c, 14e); the per-rank grid runs them all. Tensor parallelism is
-not ported (item 14d).
+The ODE solver modes other than Tsit5 under the stored or direct adjoint
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 14e); the per-rank
+grid runs them all. Tensor parallelism is not ported (item 14d).
 """
 from __future__ import annotations
 
@@ -55,7 +62,7 @@ from ..harness.train import (
     TrainState, default_reduce, device_w, stage_step, step_body,
 )
 from ..models.draws import layers_with, to_device, with_key
-from ..models.neural_ode import GROUP
+from ..nn.basic import GROUP
 from .mesh import DPGroup, mean_over_ranks
 
 
@@ -78,10 +85,23 @@ def check_global_grid(model, state=None) -> list:
     return paths
 
 
+def group_paths(model, state=None) -> list:
+    """The state paths the global grid's step gives the group: the DE
+    layers' (``check_global_grid``, which raises where the grid is not
+    ported) and those of the BatchNorms outside them (``group_moments``;
+    a DE layer hands it on to its dynamics' itself)."""
+    if state is None:
+        state = model.init_state()
+    paths = check_global_grid(model, state)
+    return paths + [path for path, layer, _ in layers_with(
+        model, state, ("persistent_step", "group_moments"))
+        if not hasattr(layer, "persistent_step")]
+
+
 class GlobalGridSync:
     """The global grid's part of the step (``train.step_body``'s ``sync``):
-    the group into each DE layer's input state, then the rank mean of the
-    loss, the gradients and the float scalar stats."""
+    the group into the input state at ``paths`` (``group_paths``), then the
+    rank mean of the loss, the gradients and the float scalar stats."""
 
     def __init__(self, dp: DPGroup, paths):
         self.dp, self.paths = dp, paths
@@ -115,7 +135,7 @@ def global_grid_body(model, loss_fn, optimizer, dp: DPGroup, *,
                      grad_accumulation: int = 1, ema_decay: float = 0.0):
     """The single-device step body (``train.step_body``) on the global
     grid of ``dp``."""
-    sync = GlobalGridSync(dp, check_global_grid(model))
+    sync = GlobalGridSync(dp, group_paths(model))
     return step_body(model, loss_fn, optimizer, grad_accumulation, ema_decay,
                      sync=sync)
 
@@ -147,7 +167,7 @@ def make_sharded_eval_step(model, loss_fn, dp: DPGroup) -> Callable:
     """``eval_step(ts, (x, y), w_reg) -> (loss, stats)`` on the global grid:
     ``(x, y)`` this rank's rows of an eval batch, one solve of the whole
     batch over the ranks."""
-    sync = GlobalGridSync(dp, check_global_grid(model))
+    sync = GlobalGridSync(dp, group_paths(model))
 
     @torch.no_grad()
     def eval_step(ts: TrainState, data, w_reg):

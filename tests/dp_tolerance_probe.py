@@ -1,6 +1,7 @@
 """The rounding floor under the tolerances of
-``tests/test_torch_parallel_families.py`` (the global grid of the chain
-and SDE families on the CPU).
+``tests/test_torch_parallel_families.py`` and
+``tests/test_torch_parallel_conv.py`` (the global grid of the chain, SDE
+and conv families on the CPU).
 
     python tests/dp_tolerance_probe.py
 
@@ -16,7 +17,9 @@ prints two tables, each number the largest over its cases:
   step (and from JAX's sharded step) in the same measures, at each
   comparison the tests make.
 
-``spread`` is also what ``test_rounding_floor_of_the_tolerances`` checks.
+``spread`` is also what ``test_rounding_floor_of_the_tolerances`` and
+``test_rounding_floor_of_the_conv_tolerances`` check. ``--conv`` prints
+the conv family's rows only.
 """
 from __future__ import annotations
 
@@ -49,6 +52,13 @@ SETTINGS = (
     ("sde, eager route", "sde", 0, None, (), "off", False),
     ("sde, kernel route", "sde", 0, None, (), "on", False),
 )
+# the CIFAR model of tests/test_torch_parallel_conv.py (its dynamics'
+# weights tripled), by route and regulariser: (label, use_pallas,
+# regularize)
+CONV_SETTINGS = tuple(
+    (f"cifar {up}, {reg}", up, reg)
+    for up in ("on", "off") for reg in ("none", "unbiased"))
+CONV_LABELS = tuple(s[0] for s in CONV_SETTINGS)
 
 
 def _measures(step, ref):
@@ -80,10 +90,43 @@ def _step(family, params, use_pallas, extra, batch, tgrid=None):
     return W.host(ts2.params), float(loss), W.host(stats), p0
 
 
+def _worst(step, batch):
+    """The largest (reg_val, loss, updates) change of ``step(batch)`` under
+    ``N_DRAWS`` 1e-7 relative changes of ``batch[0]``."""
+    ref = step(batch)
+    rng = np.random.RandomState(0)
+    worst = np.zeros(3)
+    for _ in range(N_DRAWS):
+        sign = torch.from_numpy(rng.choice(
+            [-1.0, 1.0], batch[0].shape).astype(np.float32))
+        moved = (batch[0] * (1 + REL * sign),) + tuple(batch[1:])
+        worst = np.maximum(worst, _measures(step(moved), ref))
+    return worst
+
+
+def _conv_step(params, use_pallas, regularize, batch):
+    from localregneuralde_tpu_torch.harness import make_train_step
+    from tests import torch_dp_conv_worker as CW
+
+    model, loss_fn, opt, ts, w = CW.cifar_setup(params, use_pallas,
+                                                regularize)
+    p0 = CW.host(ts.params)
+    ts2, loss, stats = make_train_step(model, loss_fn, opt)(ts, batch, w,
+                                                            CW.LR)
+    return CW.host(ts2.params), float(loss), CW.host(stats), p0
+
+
 def spread(label):
     """The largest (reg_val, loss, updates) change of the single-device
     step under ``N_DRAWS`` 1e-7 relative changes of the data, at the
-    setting ``label`` of ``SETTINGS``."""
+    setting ``label`` of ``SETTINGS`` or ``CONV_SETTINGS``."""
+    if label in CONV_LABELS:
+        import test_torch_parallel_conv as C
+
+        _, up, reg = next(s for s in CONV_SETTINGS if s[0] == label)
+        params = C._jax_side()["params"]
+        batch = tuple(torch.from_numpy(a) for a in C._batch(7))
+        return _worst(lambda b: _conv_step(params, up, reg, b), batch)
     import test_torch_parallel_families as T
 
     from localregneuralde_tpu_torch.models import common, neural_ode
@@ -100,15 +143,8 @@ def spread(label):
         common.reparam_noise = lambda g, shape, like: torch.tensor(
             side["eps"])
     try:
-        ref = _step(family, params, up, extra, batch, tgrid)
-        rng = np.random.RandomState(0)
-        worst = np.zeros(3)
-        for _ in range(N_DRAWS):
-            sign = torch.from_numpy(rng.choice(
-                [-1.0, 1.0], batch[0].shape).astype(np.float32))
-            moved = (batch[0] * (1 + REL * sign),) + batch[1:]
-            got = _step(family, params, up, extra, moved, tgrid)
-            worst = np.maximum(worst, _measures(got, ref))
+        worst = _worst(lambda b: _step(family, params, up, extra, b, tgrid),
+                       batch)
     finally:
         neural_ode.sample_t1, common.reparam_noise = real
     return worst
@@ -182,6 +218,25 @@ def parted(fam):
     return out
 
 
+def parted_conv(conv):
+    """The conv family's global grid's (reg_val, loss, updates) distance
+    from the single-device step at each of its tests' comparisons, on
+    ``conv``'s ranks (``test_torch_parallel_conv.conv``), by label."""
+    import test_torch_parallel_conv as C
+
+    inp, out = conv["inp"], {}
+    for up in ("on", "off"):
+        for reg in ("none", "unbiased"):
+            key = f"step_{up}_{reg}"
+            params, loss, stats, _, p0 = C._single(inp, up, reg)
+            ref = (params, float(loss), W.host(stats), p0)
+            out[f"cifar {key}"] = np.max([_measures(
+                (r["steps"][key]["params"], r["steps"][key]["loss"],
+                 r["steps"][key]["stats"], p0), ref)
+                for r in conv["ranks"]], axis=0)
+    return out
+
+
 def _row(label, m):
     return f"| {label} | {m[0]:.3e} | {m[1]:.3e} | {m[2]:.3e} |"
 
@@ -195,19 +250,36 @@ def main():
     import test_torch_parallel_families as T
 
     torch.set_num_threads(1)
+    conv_only = "--conv" in sys.argv[1:]
     head = "| case | reg_val | loss | updates |\n|---|---|---|---|"
     print(f"spread: the single device under a {REL:g} relative change of "
           f"the data ({N_DRAWS} draws)")
     print(head)
-    for label, *_ in SETTINGS:
+    for label in ((() if conv_only else tuple(s[0] for s in SETTINGS))
+                  + CONV_LABELS):
         print(_row(label, spread(label)))
-    with tempfile.TemporaryDirectory() as d:
-        fam = T.rank_results(Path(d))
     print("parted: the two-rank global grid against the single device "
           "(and JAX's sharded step)")
     print(head)
-    for label, m in parted(fam).items():
+    with tempfile.TemporaryDirectory() as d:
+        import test_torch_parallel_conv as C
+
+        for sub in ("fam", "conv"):
+            (Path(d) / sub).mkdir()
+        rows = {} if conv_only else parted(T.rank_results(Path(d) / "fam"))
+        rows.update(parted_conv(C.conv.__wrapped__(_Dir(Path(d) / "conv"))))
+    for label, m in rows.items():
         print(_row(label, m))
+
+
+class _Dir:
+    """A ``tmp_path_factory`` that makes every directory at ``path``."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def mktemp(self, name):
+        return self.path
 
 
 if __name__ == "__main__":

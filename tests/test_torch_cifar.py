@@ -620,10 +620,13 @@ def test_runner_resumes_the_uninterrupted_run(tmp_path, monkeypatch):
 
 
 def test_runner_refuses_unported_options(tmp_path):
-    """The parallel layer is not ported: data_parallel raises."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    """Tensor parallelism is not ported: the global grid with
+    ``tensor_parallel=2`` raises (the global grid itself runs CIFAR,
+    ``tests/test_torch_parallel_conv.py``)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14d"):
         runner.run_classification_experiment(
-            _runner_cfg(tmp_path, 1, ["--train.data_parallel=gspmd"]),
+            _runner_cfg(tmp_path, 1, ["--train.data_parallel=gspmd",
+                                      "--train.tensor_parallel=2"]),
             device="cpu")
 
 

@@ -199,8 +199,9 @@ def test_unported_paths_raise():
     """The solver modes and SDE solvers the port once lacked build and run
     from a config or the layers (vcab3, the direct adjoint, Milstein with
     and without sde_noise_dims, Euler–Heun, the score sampler's solvers);
-    what is still unported (tensor parallelism, the global grid for the
-    SDE, conv and chain families) raises and cites its ROADMAP item."""
+    what is still unported (tensor parallelism) raises and cites its
+    ROADMAP item; the global grid takes the SDE, conv and chain
+    families."""
     cfg = torch_config.define_configuration(
         ["--model.solver.ode_solver=vcab3"], None
     )
@@ -231,8 +232,8 @@ def test_unported_paths_raise():
                               solver=solver, rtol=0.5, atol=0.5,
                               device="cpu")
         assert s.shape == (4, 2) and int(sol.nfe_drift) > 0
-    # still unported: tensor parallelism, and the global grid of data
-    # parallelism for the conv family; the SDE and chain families take it
+    # still unported: tensor parallelism; the global grid of data
+    # parallelism takes the SDE, conv and chain families
     from localregneuralde_tpu_torch.harness.latent_runner import (
         check_supported,
     )
@@ -244,19 +245,13 @@ def test_unported_paths_raise():
         ["--train.data_parallel=gspmd", "--train.tensor_parallel=2"], None)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14d"):
         check_supported(tp)
-    for extra, item in ((["--model.model_type=cifar10_cnn"], "14c"),
-                        ([], None)):
+    for extra, path in ((["--model.model_type=cifar10_cnn"], "neural_ode"),
+                        ([], "neural_dsde")):
         cfg = torch_config.define_configuration(
             ["--train.data_parallel=gspmd"] + extra, None)
         cfg.model.sde = not extra
         model = construct_model(cfg, device="cpu")
-        if item is None:
-            assert check_global_grid(model, model.init_state()) == [
-                ("neural_dsde",)]
-            continue
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 item {item}"):
-            check_global_grid(model, model.init_state())
+        assert check_global_grid(model, model.init_state()) == [(path,)]
     from localregneuralde_tpu_torch.harness import construct_time_series
 
     latent = torch_config.define_configuration(

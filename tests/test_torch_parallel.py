@@ -515,10 +515,11 @@ def test_rows_of_each_rank_and_the_primary():
 # ---------------------------------------------------------------- refusals
 
 def test_unported_parallel_modes_raise_with_their_items():
-    """Tensor parallelism (item 14d) and the global grid for the conv
-    family (14c) raise NotImplementedError; so does the global grid for an
-    Adams solver (14e). The chain (14a) and SDE (14b) families take the
-    global grid (``tests/test_torch_parallel_families.py``)."""
+    """Tensor parallelism (item 14d) and the global grid for an Adams
+    solver (14e) raise NotImplementedError. The chain (14a), SDE (14b) and
+    conv (14c) families take the global grid
+    (``tests/test_torch_parallel_families.py``,
+    ``tests/test_torch_parallel_conv.py``)."""
     from localregneuralde_tpu_torch.harness import (
         construct_model, define_configuration,
     )
@@ -531,16 +532,15 @@ def test_unported_parallel_modes_raise_with_their_items():
         make_dp_group(tensor_parallel=2)
     model, *_ = W.latent_setup()
     assert check_global_grid(model, model.init_state()) == [("neural_ode",)]
-    for extra, item in ((["--model.sde=true"], None),
-                        (["--model.model_type=cifar10_cnn"], "14c"),
+    for extra, item in ((["--model.sde=true"], ("neural_dsde",)),
+                        (["--model.model_type=cifar10_cnn"], ("neural_ode",)),
                         (["--model.solver.ode_solver=vcab3"], "14e")):
         cfg = define_configuration(extra, None)
         if extra[0].startswith("--model.sde"):
             cfg.model.sde = True
         model = construct_model(cfg, device="cpu")
-        if item is None:
-            assert check_global_grid(model, model.init_state()) == [
-                ("neural_dsde",)]
+        if isinstance(item, tuple):
+            assert check_global_grid(model, model.init_state()) == [item]
             continue
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             check_global_grid(model, model.init_state())
