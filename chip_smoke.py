@@ -172,12 +172,17 @@ on the card:
     1.4e-8 (kernel 4 FP32) and 1e-4 'auto' (kernel 4 at TF32), the MNIST
     SDE frozen and threaded (kernel 10 at TF32), a probability-flow draw
     of the score demo's network (kernel 6 at TF32) and a ladder of B = 512
-    and 1024 served 700 rows; loads every artifact through
-    ``load_exported`` in one fresh process that imports no model code
-    (none of ``models/``, ``harness/``), holds each
-    ``torch.equal`` to the live model (NFE included), its device kernels
-    under ``torch.profiler`` against the live call's (the solve's kernel
-    once, no plain version's loop) and prints ms a call both ways; then
+    and 1024 served 700 rows; ``physionet.yaml``'s latent ODE on the
+    410-series eval batch at rtol 1.4e-8 (kernel 5 FP32) and 1e-4
+    'default' (kernel 5 at TF32, ``[export latent ...]``) and ``cnn.yaml``
+    at B = 32 at 'auto' (kernel 13 at TF32), 'highest' (FP32), on batch
+    statistics and as a B = 32/64 ladder served 40 images (``[export
+    cifar ...]``); loads every artifact through ``load_exported`` in one
+    fresh process that imports no model code (none of ``models/``,
+    ``harness/``), holds each ``torch.equal`` to the live model (NFE
+    included), its device kernels under ``torch.profiler`` against the
+    live call's (the solve's kernel once, kernel 13's every attempt, no
+    plain version's loop) and prints ms a call both ways; then
     the phase probes (``[export probes]``): a captured bench training run
     through ``run_classification_experiment`` with finite fwd/bwd/opt
     columns, bitwise the run without probes;
@@ -7399,7 +7404,8 @@ from localregneuralde_tpu_torch.ops.cuda import serving
 from localregneuralde_tpu_torch.utils import load_exported
 ''' + _KERNEL_NAMES_SRC + '''
 WRAPPERS = (serving.persistent_tsit5_solve, serving.persistent_sde_solve,
-            serving.persistent_pf_solve)
+            serving.persistent_pf_solve, serving.persistent_chain_solve,
+            serving.fused_conv_step)
 
 
 def launches():
@@ -7444,6 +7450,21 @@ sys.exit(1 if zoo else 0)
 '''
 
 
+# the serving export's latent and CIFAR cases: physionet.yaml at its rtol
+# 1.4e-8 (kernel 5 FP32) and at rtol 1e-4 'default' (kernel 5 at TF32);
+# cnn.yaml at 'auto' (kernel 13 at TF32), 'highest' (FP32) and with the
+# BatchNorms on the batch's statistics
+EXPORT_LATENT = {
+    "latent physionet.yaml": [],
+    "latent default": ["--model.solver.reltol=1e-4",
+                       "--model.solver.abstol=1e-4",
+                       "--model.solver.precision=default"]}
+EXPORT_CIFAR = {
+    "cifar auto": [],
+    "cifar highest": ["--model.solver.precision=highest"],
+    "cifar batch": ["--model.bn_eval_stats=batch"]}
+
+
 def _live_ms(fn, n=20, warmup=3):
     """Median ms a call of ``fn`` between CUDA events (the serving
     process's method)."""
@@ -7480,7 +7501,15 @@ def phase_export(device):
     a fresh process that imports no model code, held torch.equal to the
     live model (NFE included), its kernels under torch.profiler the live
     model's (the solve's kernel, no plain version's), and its ms a call
-    beside the live model's. Then the phase probes (``[export probes]``):
+    beside the live model's. The latent ODE and the CIFAR classifier too
+    (``[export latent ...]``, ``[export cifar ...]``): physionet.yaml on
+    the 410-series eval batch at its rtol 1.4e-8 (kernel 5 FP32) and at
+    rtol 1e-4 'default' (kernel 5 at TF32), cnn.yaml at B = 32 at 'auto'
+    (kernel 13 at TF32), at 'highest' (kernel 13 FP32) and with
+    ``eval_stats='batch'``, and a B = 32 and 64 ladder served 40 images;
+    each held as the others, its kernels the live call's (kernel 5 once,
+    kernel 13's every attempt, no plain version's). Then the phase probes
+    (``[export probes]``):
     a short captured bench training run through
     ``run_classification_experiment`` with finite times in its CSV, its
     losses and parameters bitwise those of the same run without probes.
@@ -7571,6 +7600,29 @@ def phase_export(device):
     save_exported(export_fn(draw, u0), path("pf draw"))
     pf_ref = draw(u0)
     jobs.append(dict(name="pf draw", path=path("pf draw"), args=(u0,)))
+    # kernel 5 and kernel 13's solve: the latent ODE on the runner's eval
+    # batch (the whole test split), the CIFAR classifier at B = 32
+    families = {}
+    for name, overrides in EXPORT_LATENT.items():
+        _, f_model, _, _, test, _ = _latent_setup(device, overrides)
+        x_lat = torch.cat(_host_batch(test, device, n=test[0].shape[0]), -1)
+        families[name] = (f_model, f_model.init_state(), x_lat)
+    x_cif = torch.cat([b[0] for b in _cifar_batches(device, "test", 2)])
+    for name, overrides in EXPORT_CIFAR.items():
+        f_model = model_of(CIFAR_CONFIG, overrides)
+        families[name] = (f_model, f_model.init_state(), x_cif[:32])
+    for name, (f_model, f_st, inp) in families.items():
+        expect[name] = (f_model, f_st, (inp,), live(f_model, f_st, inp), None)
+        save_exported(export_model(f_model, None, f_st, inp,
+                                   with_state=True), path(name))
+        jobs.append(dict(name=name, path=path(name), args=(inp,)))
+    f_model, f_st, _ = families["cifar auto"]
+    save_exported(export_model_multi(f_model, None, f_st, x_cif[:32],
+                                     (32, 64), with_state=True),
+                  path("cifar ladder"))
+    jobs.append(dict(name="cifar ladder", path=path("cifar ladder"),
+                     args=(x_cif[:40],)))
+    expect["cifar ladder"] = (f_model, f_st, (x_cif[:40],), None, None)
 
     res = _serve_in_fresh_process(jobs, tmp)
     counts = tier_counts()
@@ -7671,7 +7723,58 @@ def phase_export(device):
           and torch.equal(s, pf_ref[0]) and int(nfe) == int(pf_ref[1])
           and r["launches"] == {"persistent_pf_solve[tf32]": 1},
           "export pf draw: not the live draw")
-    print(json.dumps({"export": {k_: dict(ms=r["ms"], launches=r["launches"])
+    # kernel 5 and kernel 13's solve
+    live_ms = {}
+    for name in (*families, "cifar ladder"):
+        model, m_st, args, ref_out, _ = expect[name]
+        r = res[name]
+        y, st_out = r["out"]
+        nfe = int(st_out["neural_ode"]["nfe"])
+        inp = args[0]
+        if name == "cifar ladder":
+            # the 40 images rode the B = 64 program, zero-padded
+            inp = torch.cat([inp, inp.new_zeros((24,) + tuple(inp.shape[1:]))])
+            y_ref, st_ref = live(model, m_st, inp)
+            y_ref = y_ref[:40]
+        else:
+            y_ref, st_ref = ref_out
+        nfe_ref = int(st_ref["neural_ode"]["nfe"])
+        _, live_k = kernel_names(lambda: live(model, m_st, inp))
+        st_serve = model.init_state()
+        live_ms[name] = _live_ms(lambda: serve(model, st_serve, inp))
+        tier = node_tiers(model, device)[0]
+        if name.startswith("latent"):
+            want = {f"persistent_chain_solve[{tier}]": 1}
+        else:
+            want = {f"fused_conv_step[{tier}]": (nfe - 2) // 6}
+        ours = {k_: v for k_, v in r["kernels"].items() if "lrnde" in k_}
+        ours_live = {k_: v for k_, v in live_k.items() if "lrnde" in k_}
+        others = sum(v for k_, v in r["kernels"].items() if "lrnde" not in k_)
+        others_live = sum(v for k_, v in live_k.items()
+                          if "lrnde" not in k_)
+        padding = 2 * (name == "cifar ladder")
+        # kernel 5's launch, or kernel 13's stage algebra (one an attempt)
+        mark = "chain_solve_kernel" if name.startswith("latent") \
+            else "conv::stage_kernel"
+        print(f"[export {name}] B = {args[0].shape[0]}: loaded in a fresh "
+              f"process, equal to the live model {torch.equal(y, y_ref)}, "
+              f"NFE {nfe} (live {nfe_ref}); launches {r['launches']}; port "
+              f"kernels the live call's {ours == ours_live} "
+              f"({sum(ours.values())} launches), other kernels {others} (the "
+              f"live call's {others_live}"
+              + (f" and the padding's {padding}" if padding else "")
+              + f"); ms a call live {live_ms[name]:.3f}, loaded "
+              f"{r['ms']:.3f}")
+        check(torch.equal(y, y_ref) and nfe == nfe_ref
+              and r["launches"] == want and ours == ours_live
+              and any(mark in k_ for k_ in ours)
+              and others <= others_live + padding,
+              f"export {name}: the artifact is not the live model: launches "
+              f"{r['launches']} (want {want}), kernels {r['kernels']} "
+              f"against {live_k}")
+    print(json.dumps({"export": {k_: dict(ms=r["ms"], launches=r["launches"],
+                                          **({"live_ms": live_ms[k_]}
+                                             if k_ in live_ms else {}))
                                  for k_, r in res.items()}}))
     phase_probes(device)
     return counts

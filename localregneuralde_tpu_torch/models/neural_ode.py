@@ -50,6 +50,14 @@ step run kernel 13, the sweep runs kernel 14 once per accepted step, and
 k1, the dt probe and the FSAL closure are the plain module (cuDNN on
 operands rounded to the forward's tier).
 
+The eval solve of each kernel family on one device is one registered
+operator (``ops/cuda/serving.py``), live and under ``torch.export`` alike,
+so that an exported model runs the live model's code path: the TD-MLP's
+kernel 4 (``lrnde::tsit5_solve``), the chain's kernel 5
+(``lrnde::chain_solve``) and the conv family's loop around kernel 13
+(``lrnde::conv_solve``, its k1 and dt probe on the plain dynamics, the
+module's computation op for op).
+
 Dynamics state (the conv family's BatchNorm running stats) is threaded
 through the solve's accepted steps, in training through the stored
 adjoint as a fenced output, and then through the regulariser's step; in
@@ -504,10 +512,13 @@ class NeuralODE(Module):
         """(dynamics, step_fn, whole) of the conv family in eval mode: the
         plain module for k1 and the dt probe, kernel 13 for every attempt
         (running stats, or batch statistics under ``eval_stats='batch'``),
-        both at ``mm_precision``; the state passes through unchanged. On
-        the global grid (``group``) ``whole`` is that loop as a whole solve,
-        which ``odesolve`` runs on the whole batch on every rank; else
-        None."""
+        both at ``mm_precision``; the state passes through unchanged.
+        ``whole`` is that loop as a whole solve: on one device the
+        registered operator ``lrnde::conv_solve`` (``ops/cuda/serving.py``:
+        the same loop on the plain dynamics, which is the module's
+        computation op for op), which ``torch.export`` records; on the
+        global grid (``group``) the loop itself, which ``odesolve`` runs on
+        the whole batch on every rank."""
         from ..ops.cuda import fused_conv_step
 
         w, spec, prec = self.conv_weights(), self.conv, self.mm_precision
@@ -526,7 +537,18 @@ class NeuralODE(Module):
                               rtol=rtol, atol=atol, max_steps=max_steps,
                               step_fn=step, **record)
 
-        return f, step, (None if group is None else whole)
+        def served(u0, tspan, *, saveat_arr, rtol, atol, max_steps, f_state,
+                   **record):
+            from ..ops.cuda.serving import conv_solve
+
+            out = conv_solve(w, spec, running_stats(spec, f_state),
+                             u0.contiguous(), tspan, rtol=rtol, atol=atol,
+                             saveat_arr=saveat_arr, max_steps=max_steps,
+                             tier=product_tier(prec, u0.device))
+            # eval leaves the running stats alone: the state passes through
+            return _solution(out, f_state)
+
+        return f, step, (served if group is None else whole)
 
     def _train_dynamics(self, names, group=None):
         """The dynamics module in training mode as the stored adjoint's
@@ -731,23 +753,34 @@ class NeuralODE(Module):
 
     def _check_exportable(self, x):
         """Raise unless ``torch.export`` can trace this layer's eval solve
-        from ``x``: the TD-MLP family's persistent solve (kernel 4, its
-        registered operator ``lrnde::tsit5_solve``). The eager loop accepts
-        steps on the host, and so does the conv family's around kernel 13;
-        the chain family's kernel 5 has no operator yet."""
-        if (self.family != "tdmlp" or self.solver != "tsit5"
-                or not self.use_persistent or self.use_pallas == "off"):
+        from ``x``: one registered operator (``ops/cuda/serving.py``), the
+        TD-MLP family's persistent solve (kernel 4, ``lrnde::tsit5_solve``),
+        the chain family's (kernel 5, ``lrnde::chain_solve``) or the conv
+        family's eval loop around kernel 13 (``lrnde::conv_solve``). The
+        eager loop of a generic dynamics accepts steps on the host and has
+        no operator."""
+        ops = {"tdmlp": self.use_persistent, "chain": self.use_persistent,
+               "conv": True}
+        if (not ops.get(self.family) or self.solver != "tsit5"
+                or self.use_pallas == "off"):
             raise NotImplementedError(
-                "torch.export takes a NeuralODE whose eval solve is kernel "
-                "4 (the TD-MLP family, Tsit5, use_persistent, use_pallas "
-                f"not 'off'); this layer's family is {self.family!r} with "
-                f"solver {self.solver!r}, whose adaptive loop accepts steps "
-                "on the host")
+                "torch.export takes a NeuralODE whose eval solve is one "
+                "registered operator: kernel 4 (the TD-MLP family, "
+                "use_persistent), kernel 5 (the latent ODE's Dense chain, "
+                "use_persistent) or the conv family's loop around kernel 13,"
+                " each with Tsit5 and use_pallas not 'off'; this layer's "
+                f"family is {self.family!r} with solver {self.solver!r}, "
+                "whose adaptive loop accepts steps on the host")
+        if x.ndim != (4 if self.family == "conv" else 2):
+            raise NotImplementedError(
+                f"torch.export: the {self.family} family's operator takes no "
+                f"state of shape {tuple(x.shape)}")
+        if self.family != "tdmlp":
+            return
         from ..ops.cuda import solve_feasible
 
         w = self.tdmlp_weights()
-        if x.ndim != 2 or not solve_feasible(x.shape[0], w.b2.shape[0],
-                                             w.b1.shape[0]):
+        if not solve_feasible(x.shape[0], w.b2.shape[0], w.b1.shape[0]):
             raise NotImplementedError(
                 f"torch.export: kernel 4 declines a state of shape "
                 f"{tuple(x.shape)} at H = {w.b1.shape[0]}")

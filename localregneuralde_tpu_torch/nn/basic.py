@@ -266,11 +266,17 @@ class Dense(Module):
 
     def apply_layer(self, x, state, *, training: bool = False):
         tier = layer_tier(self.precision, x)
+        # one product over the rows flattened, whatever the weight's
+        # requires_grad: ``torch.matmul`` folds a batched, non-contiguous
+        # input into one product only for a weight that does not require
+        # grad, so a program with the weights baked (utils/export.py) would
+        # part from the live layer by rounding
+        rows = x.reshape(-1, self.in_dim)
         if tier != "fp32":
-            y = tier_matmul(x.reshape(-1, self.in_dim), self.w, tier).reshape(
-                x.shape[:-1] + (self.out_dim,))
+            y = tier_matmul(rows, self.w, tier)
         else:
-            y = x @ self.w
+            y = rows @ self.w
+        y = y.reshape(x.shape[:-1] + (self.out_dim,))
         if self.use_bias:
             y = y + self.b
         return self.activation(y), state

@@ -238,12 +238,15 @@ def check_conv_operands(w: ConvWeights, spec: ConvFamilySpec, *states):
 
 
 def fused_conv_step(w: ConvWeights, spec: ConvFamilySpec, u, t, dt, k1, *,
-                    training: bool, rstats=None, precision="highest"):
+                    training: bool, rstats=None, precision="highest",
+                    tier: Optional[str] = None):
     """One whole Tsit5 step of the conv dynamics, its products at
-    ``precision``, the contract of ``conv_step_plain``: ``(u_new, utilde,
-    k2, ..., k7, g6, stats)``. The CUDA kernel for CUDA tensors,
-    ``conv_step_plain`` for CPU tensors."""
-    tier = product_tier(precision, u.device)
+    ``precision`` (or at ``tier``, already resolved, where the caller gives
+    one: the serving solve's operator), the contract of
+    ``conv_step_plain``: ``(u_new, utilde, k2, ..., k7, g6, stats)``. The
+    CUDA kernel for CUDA tensors, ``conv_step_plain`` for CPU tensors."""
+    if tier is None:
+        tier = product_tier(precision, u.device)
     if u.device.type == "cpu":
         return conv_step_plain(w, spec, u, t, dt, k1, training=training,
                                rstats=rstats, tier=tier)

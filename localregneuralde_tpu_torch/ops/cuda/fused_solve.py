@@ -886,10 +886,20 @@ def persistent_chain_solve(params, chain: DenseChainSpec, u0: torch.Tensor,
     holds resident (``chain_plan``: a CTA takes more blocks when the grid
     would not fit), any number of saveat times, unsorted; times ≤ t0
     return u0. A TF32 solve below rtol 1e-4 raises
-    (``check_product_tier``).
+    (``check_product_tier``). A solve without knots or reservoir (the eval
+    route, serving) goes through the registered operator
+    ``lrnde::chain_solve`` (``ops/cuda/serving.py``), which dispatches the
+    same way and which ``torch.export`` records.
     """
     tier = product_tier(precision, u0.device)
+    check_product_tier(tier, rtol)
     check_reservoir(reservoir, max_steps)
+    if not record_knots and reservoir is None:
+        from .serving import chain_solve
+
+        return chain_solve(params, chain, u0, tspan, rtol=rtol, atol=atol,
+                           saveat_arr=saveat_arr, max_steps=max_steps,
+                           tier=tier)
     rec = dict(record_knots=record_knots, knot_dense_cap=knot_dense_cap,
                knot_stride=knot_stride, reservoir=reservoir)
     if u0.device.type == "cpu":
@@ -964,7 +974,7 @@ def _launch_chain(params, chain, u0, tspan, *, rtol, atol, saveat_arr,
     return dict(
         y_final=y_final, ys=ys, naccept=stats_i[0], nreject=stats_i[1],
         success=stats_i[2].bool(), nfe=nfe0 + 6 * stats_i[3],
-        t_final=stats_f[0], ts=saveat_arr, **knots,
+        t_final=stats_f[0], ts=saveat_arr, stats=stats_i, **knots,
         **(dict(reservoir_t=stats_f[1], reservoir_u=res_u)
            if res_u is not None else {}),
     )

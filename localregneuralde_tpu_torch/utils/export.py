@@ -16,15 +16,23 @@ that loading imports::
 
 Design notes:
 
-- **The solves are operators.** The adaptive loops of kernels 4, 10 and 6
-  accept steps inside the kernel; each is one registered operator
-  (``lrnde::tsit5_solve``, ``lrnde::sde_solve``, ``lrnde::pf_solve``) that
-  the program records as one node, with the tier the live model resolved.
-  On CUDA it launches the kernel, on the CPU it runs the plain version.
-  The eager loop (host accepts) cannot be traced: a NeuralODE exports on
-  the TD-MLP family's kernel 4 only, a NeuralDSDE on kernel 10; the CIFAR
-  conv family (host accepts around kernel 13) and the latent model's chain
-  (kernel 5, no operator yet) raise ``NotImplementedError``.
+- **The solves are operators.** The adaptive loops of kernels 4, 5, 10
+  and 6 accept steps inside the kernel; each is one registered operator
+  (``lrnde::tsit5_solve``, ``lrnde::chain_solve``, ``lrnde::sde_solve``,
+  ``lrnde::pf_solve``) that the program records as one node, with the tier
+  the live model resolved. On CUDA it launches the kernel, on the CPU it
+  runs the plain version. The conv family's eval solve, whose accepts are
+  read on the host around kernel 13, is one operator too
+  (``lrnde::conv_solve``): the live eval route's loop inside it, run when
+  the program is called. So the MNIST classifiers, the PhysioNet latent
+  ODE (its unrolled GRU encoder, the eval mean of the reparameterisation,
+  kernel 5 and the decoder) and the CIFAR-10 conv classifier (augmenter,
+  BatchNorm, the conv solve, classifier) export, and a loaded program runs
+  the live model's kernels. A generic dynamics on the eager loop cannot be
+  traced and raises ``NotImplementedError``.
+- **Convolutions** run cuDNN's deterministic algorithms in a loaded
+  program, as the live model's do (``nn.basic.conv2d_nhwc``): the program
+  is called inside ``nn.basic.deterministic_cudnn``.
 - **Static shapes**, as the reference's: one program per batch size;
   ``export_model_multi`` packs a ladder into one artifact and dispatch
   picks by leading dim.
@@ -316,6 +324,22 @@ class MultiExported:
             f"batch {b} exceeds largest exported size {max(self.by_batch)}")
 
 
+class _Served(torch.nn.Module):
+    """A loaded program, called inside ``deterministic_cudnn``: its
+    convolutions take cuDNN's deterministic algorithms, as the live
+    model's do, whatever the process's flags."""
+
+    def __init__(self, program: torch.nn.Module):
+        super().__init__()
+        self.program = program
+
+    def forward(self, *args):
+        from ..nn.basic import deterministic_cudnn
+
+        with deterministic_cudnn():
+            return self.program(*args)
+
+
 def load_exported(path: str) -> Any:
     """Load an artifact saved by ``save_exported``: a callable module for a
     single export (its baked weights need no gradient), a
@@ -331,7 +355,7 @@ def load_exported(path: str) -> Any:
     def load(blob):
         module = torch.export.load(io.BytesIO(blob)).module()
         module.requires_grad_(False)  # serving: baked weights are constants
-        return module
+        return _Served(module)
 
     if len(blobs) == 1 and blobs[0][0] == "single":
         return load(blobs[0][1])

@@ -50,7 +50,7 @@ from localregneuralde_tpu_torch.ops.cuda import (
     ConvWeights, conv_step_plain, fused_conv_step, fused_conv_step_bwd,
     fused_conv_step_bwd_plain, match_conv_family,
 )
-from localregneuralde_tpu_torch.ops.cuda import fused_conv_bwd
+from localregneuralde_tpu_torch.ops.cuda import fused_conv_bwd, serving
 from localregneuralde_tpu_torch.ops.cuda.fused_mlp_bwd import step_bwd_tiers
 from localregneuralde_tpu_torch.parity import load_jax_params, state_from_jax
 
@@ -319,18 +319,28 @@ RB, RHW, RCs, RCh = 2, 6, 4, 8
 
 class _Recorder:
     """Wraps the conv family's wrappers and the plain module's convs and
-    records the tiers each is called at (resolved where it is called)."""
+    records the tiers each is called at (resolved where it is called). The
+    eval route's solve is the operator ``lrnde::conv_solve``, whose loop
+    (``ops/cuda/serving.py``) calls kernel 13's wrapper with the resolved
+    tier and the plain dynamics (the module's computation) for k1 and the
+    dt probe: both are wrapped where that loop looks them up."""
 
     def __init__(self, monkeypatch):
         self.k13, self.k14, self.convs = [], [], []
         k13, k14 = ops.cuda.fused_conv_step, ops.cuda.fused_conv_step_bwd
         td = common.conv2d_nhwc_td
+        dynamics = serving.conv_dynamics_plain
 
         def rec13(w, spec, u, t, dt, k1, *, training, rstats=None,
-                  precision="highest"):
-            self.k13.append(product_tier(precision, u.device))
+                  precision="highest", tier=None):
+            self.k13.append(tier or product_tier(precision, u.device))
             return k13(w, spec, u, t, dt, k1, training=training,
-                       rstats=rstats, precision=precision)
+                       rstats=rstats, precision=precision, tier=tier)
+
+        def rec_dynamics(w, spec, x, s, norm=None, tier="fp32",
+                         grad_tier=None):
+            self.convs.append(tier)
+            return dynamics(w, spec, x, s, norm, tier, grad_tier)
 
         def rec14(w, spec, u, t, dt, k1, cts, precision="highest",
                   grad_precision="match"):
@@ -345,6 +355,8 @@ class _Recorder:
         for mod in (ops.cuda, fused_conv_bwd):
             monkeypatch.setattr(mod, "fused_conv_step", rec13)
             monkeypatch.setattr(mod, "fused_conv_step_bwd", rec14)
+        monkeypatch.setattr(serving, "fused_conv_step", rec13)
+        monkeypatch.setattr(serving, "conv_dynamics_plain", rec_dynamics)
         monkeypatch.setattr(common, "conv2d_nhwc_td", rec_td)
 
 

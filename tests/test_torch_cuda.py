@@ -2222,25 +2222,41 @@ def test_solve_operators_pass_opcheck_on_card(cuda_device):
     torch.library.opcheck(serving._pf_op, (
         [r(3, 16), r(16), r(17, 2), r(2)], r(B, 2), saveat, [2, 16, 2],
         [True, False], 0.0, 0.999, 1e-3, 1e-3, 256, 0.1, 20.0, 1.0, "tf32"))
+    for tier in ("fp32", "tf32"):
+        torch.library.opcheck(serving._chain_op, (
+            [r(20, 40), r(40), r(40, 20), r(20)], [20, 40, 20],
+            [True, True], True, r(B, 20), saveat, 0.0, 1.0, 1e-3, 1e-3, 64,
+            tier))
+    Cs, Ch = 8, 16
+    weights = [r(3, 3, Cs + 1, Ch), 1 + r(Ch), r(Ch), r(3, 3, Ch + 1, Ch),
+               1 + r(Ch), r(Ch), r(3, 3, Ch + 1, Cs)]
+    for eval_stats, tier in (("running", "fp32"), ("running", "tf32"),
+                             ("batch", "tf32")):
+        torch.library.opcheck(serving._conv_op, (
+            weights, [r(Ch), 1 + r(Ch).abs(), r(Ch), 1 + r(Ch).abs()],
+            r(4, 8, 8, Cs), saveat, Cs, Ch, 0.1, 1e-5, eval_stats, 0.0, 1.0,
+            1e-3, 1e-3, 64, tier))
 
 
 @pytest.mark.cuda
 def test_serving_operators_never_run_a_plain_version(cuda_device,
                                                      monkeypatch):
     """A CUDA input reaches the kernel through each operator, never its
-    plain version (made to raise here), and counts one launch."""
+    plain version (made to raise here), and counts one launch (the conv
+    family's solve: kernel 13's, one an attempt)."""
     from localregneuralde_tpu_torch.ops.cuda import (
-        SDEWeights, ScoreChainSpec, persistent_pf_solve, reset_launch_counts,
-        tier_launch_counts,
+        DenseChainSpec, SDEWeights, ScoreChainSpec, fused_conv,
+        persistent_chain_solve, persistent_pf_solve, reset_launch_counts,
+        serving, tier_launch_counts,
     )
-    from localregneuralde_tpu_torch.ops.cuda import serving
 
     def refuse(*a, **k):
         raise AssertionError("a CUDA input reached a plain version")
 
     for name in ("persistent_tsit5_solve_plain", "persistent_sde_solve_plain",
-                 "persistent_pf_solve_plain"):
+                 "persistent_pf_solve_plain", "persistent_chain_solve_plain"):
         monkeypatch.setattr(serving, name, refuse)
+    monkeypatch.setattr(fused_conv, "conv_step_plain", refuse)
     w, x = _card_setup(cuda_device, 64, 32, 16)
     g = torch.Generator().manual_seed(1)
     sw = SDEWeights(*[(0.3 * torch.randn(s, generator=g)).to(cuda_device)
@@ -2250,6 +2266,26 @@ def test_serving_operators_never_run_a_plain_version(cuda_device,
     reset_launch_counts()
     persistent_tsit5_solve(w, x, (0.0, 1.0), rtol=1e-4, atol=1e-4,
                            max_steps=64, saveat_arr=saveat)
+    persistent_chain_solve(
+        [p.to(cuda_device) for p in (
+            0.3 * torch.randn(32, 16, generator=g), torch.zeros(16),
+            0.3 * torch.randn(16, 32, generator=g), torch.zeros(32))],
+        DenseChainSpec((32, 16, 32), (True, True), True), x, (0.0, 1.0),
+        rtol=1e-4, atol=1e-4, saveat_arr=saveat, max_steps=64)
+    Cs, Ch = 8, 16
+    cw = [(0.2 * torch.randn(s, generator=g)).to(cuda_device)
+          for s in ((3, 3, Cs + 1, Ch), (Ch,), (Ch,), (3, 3, Ch + 1, Ch),
+                    (Ch,), (Ch,), (3, 3, Ch + 1, Cs))]
+    spec = fused_conv.ConvFamilySpec(Cs, Ch, 0.1, 1e-5, "running", ())
+    out = serving.conv_solve(
+        fused_conv.ConvWeights(*cw), spec, fused_conv.default_rstats(spec, x),
+        torch.rand(4, 8, 8, Cs, generator=g).to(cuda_device), (0.0, 1.0),
+        rtol=1e-3, atol=1e-3, saveat_arr=saveat, max_steps=64, tier="fp32")
+    counts = tier_launch_counts()
+    assert counts["persistent_tsit5_solve"] == {"fp32": 1}
+    assert counts["persistent_chain_solve"] == {"fp32": 1}
+    assert counts["fused_conv_step"] == {
+        "fp32": int(out["naccept"]) + int(out["nreject"])}
     seed = torch.tensor([3], dtype=torch.int32, device=cuda_device)
     serving.sde_solve(sw, x, seed, (0.0, 1.0), rtol=0.14, atol=0.14,
                       solver="sosri", delta=1e-3, saveat_arr=saveat,
@@ -2264,7 +2300,6 @@ def test_serving_operators_never_run_a_plain_version(cuda_device,
                         rtol=1e-3, atol=1e-3, saveat_arr=saveat,
                         max_steps=256, beta_min=0.1, beta_max=20.0, t1=1.0)
     counts = tier_launch_counts()
-    assert counts["persistent_tsit5_solve"] == {"fp32": 1}
     assert counts["persistent_sde_solve"] == {"fp32": 1}
     assert counts["persistent_pf_solve"] == {"fp32": 1}
 
@@ -2306,3 +2341,63 @@ def test_export_on_card_equals_the_live_model(cuda_device, tmp_path):
         y_live, st_live = model(x, st, training=False)
     assert torch.equal(y, y_live)
     assert int(st_out["neural_ode"]["nfe"]) == int(st_live["neural_ode"]["nfe"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["latent", "cifar"])
+def test_export_on_card_families(family, cuda_device, tmp_path):
+    """The latent ODE (``physionet.yaml`` at small widths) and the CIFAR
+    classifier (``cnn.yaml`` at 8×8 images) on the card: each loaded
+    artifact is ``torch.equal`` to the live model, NFE included, and runs
+    the live model's kernel launches: kernel 5 once, kernel 13 once an
+    attempt of the solve."""
+    import os
+
+    from localregneuralde_tpu_torch.harness import (
+        construct_model, construct_time_series, define_configuration,
+    )
+    from localregneuralde_tpu_torch.ops.cuda import (
+        reset_launch_counts, tier_launch_counts,
+    )
+    from localregneuralde_tpu_torch.utils import (
+        export_model, load_exported, save_exported,
+    )
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    g = torch.Generator().manual_seed(0)
+    if family == "latent":
+        cfg = define_configuration([
+            "--model.ts_in_dims=5", "--model.ts_hidden_dims=8",
+            "--model.ts_latent_dims=6", "--model.ts_node_dims=4",
+            "--model.solver.reltol=1e-3", "--model.solver.abstol=1e-3",
+            "--model.solver.max_steps=64"],
+            os.path.join(root, "experiments", "physionet", "physionet.yaml"))
+        model = construct_time_series(
+            cfg, saveat=torch.linspace(0.0, 1.0, 7), device=cuda_device)
+        x = torch.rand(16, 7, 11, generator=g).to(cuda_device)
+        wrapper = "persistent_chain_solve"
+    else:
+        cfg = define_configuration([
+            "--model.solver.reltol=1e-2", "--model.solver.abstol=1e-2",
+            "--model.solver.max_steps=64"],
+            os.path.join(root, "experiments", "cifar10", "cnn.yaml"))
+        cfg.model.image_size = [8, 8]
+        model = construct_model(cfg, device=cuda_device)
+        x = torch.rand(8, 8, 8, 3, generator=g).to(cuda_device)
+        wrapper = "fused_conv_step"
+    st = model.init_state()
+    ep = export_model(model, None, st, x, with_state=True)
+    save_exported(ep, str(tmp_path / "m.lrnde"))
+    fn = load_exported(str(tmp_path / "m.lrnde"))
+    reset_launch_counts()
+    with torch.no_grad():
+        y, st_out = fn(x)
+    served = tier_launch_counts()[wrapper]
+    reset_launch_counts()
+    with torch.no_grad():
+        y_live, st_live = model(x, st, training=False)
+    assert tier_launch_counts()[wrapper] == served
+    nfe = int(st_out["neural_ode"]["nfe"])
+    assert torch.equal(y, y_live)
+    assert nfe == int(st_live["neural_ode"]["nfe"])
+    assert served == {"tf32": 1 if family == "latent" else (nfe - 2) // 6}

@@ -66,6 +66,7 @@ from localregneuralde_tpu_torch.utils import (
     save_exported,
 )
 from localregneuralde_tpu_torch.utils.export import export_state
+import test_torch_export_families as export_families
 from test_export import _tiny_model
 from test_torch_sde import xla_tree_source
 
@@ -311,15 +312,25 @@ def test_export_fn_score_sde_sampler(tmp_path):
     assert not torch.allclose(fn(u.flip(0))[0], s)
 
 
-def test_export_artifact_loads_in_a_fresh_process(tiny, tmp_path):
+@pytest.mark.parametrize("family", ["tdmlp", "latent", "cifar"])
+def test_export_artifact_loads_in_a_fresh_process(family, tiny, tmp_path):
     """The counterpart of JAX's multi-platform artifact: the artifact is
     portable in the sense the port has (no ``platforms``: it runs on the
     device it was traced on) — a process with JAX blocked loads it through
     ``load_exported`` and runs it, equal to the live model and close to
     JAX's portable artifact, having imported no model code (``models/``,
-    ``harness/``)."""
-    jm, jp, js, model, st = tiny
-    x = _x(5)
+    ``harness/``). The TD-MLP classifier here (kernel 4's operator), the
+    latent ODE (kernel 5's) and the CIFAR conv classifier (the conv
+    family's solve operator) of ``tests/test_torch_export_families.py``,
+    each held to JAX's as there (1e-5 of the largest output)."""
+    if family == "tdmlp":
+        jm, jp, js, model, st = tiny
+        x = _x(5)
+    else:
+        f = (export_families._latent() if family == "latent"
+             else export_families._cifar())
+        jm, jp, js, model, st, x = (f[k] for k in ("jm", "jp", "js", "model",
+                                                   "st", "x"))
     jax_save(jax_export_model(jm, jp, js, jnp.asarray(x),
                               platforms=("cpu", "tpu")),
              str(tmp_path / "portable.stablehlo"))
@@ -346,7 +357,10 @@ def test_export_artifact_loads_in_a_fresh_process(tiny, tmp_path):
     assert out.returncode == 0, out.stderr
     y = torch.load(tmp_path / "y.pt")
     assert torch.equal(y, _live(model, st, x)[0])
-    _close(y, y_jax, LOGIT_TOL)
+    if family == "tdmlp":
+        _close(y, y_jax, LOGIT_TOL)
+    else:
+        export_families._close_rel(y, y_jax, export_families.REL)
 
 
 def test_export_artifact_rejects_garbage(tmp_path):
@@ -380,9 +394,11 @@ def test_export_routes_through_the_solve_operator(tiny):
 
 
 def test_solve_operators_pass_opcheck():
-    """The three registered operators: schema, fake implementation (shapes
+    """The five registered operators: schema, fake implementation (shapes
     and dtypes from the inputs alone) and dispatch, by
-    ``torch.library.opcheck`` on small CPU inputs."""
+    ``torch.library.opcheck`` on small CPU inputs (the chain's and the
+    conv family's recorded in their families' programs:
+    ``tests/test_torch_export_families.py``)."""
     from localregneuralde_tpu_torch.ops.cuda import serving
 
     g = torch.Generator().manual_seed(0)
@@ -399,3 +415,14 @@ def test_solve_operators_pass_opcheck():
     torch.library.opcheck(serving._pf_op, (
         [r(F + 1, H), r(H), r(H + 1, F), r(F)], r(B, F), saveat, [F, H, F],
         [True, False], 0.0, 0.999, 1e-3, 1e-3, 64, 0.1, 20.0, 1.0, "fp32"))
+    torch.library.opcheck(serving._chain_op, (
+        [r(F, H), r(H), r(H, F), r(F)], [F, H, F], [True, False], True,
+        r(B, F), saveat, 0.0, 1.0, 1e-3, 1e-3, 32, "fp32"))
+    Cs, Ch = 2, 3
+    weights = [r(3, 3, Cs + 1, Ch), 1 + r(Ch), r(Ch), r(3, 3, Ch + 1, Ch),
+               1 + r(Ch), r(Ch), r(3, 3, Ch + 1, Cs)]
+    for eval_stats in ("running", "batch"):
+        torch.library.opcheck(serving._conv_op, (
+            weights, [r(Ch), 1 + r(Ch).abs(), r(Ch), 1 + r(Ch).abs()],
+            r(B, 4, 4, Cs), saveat, Cs, Ch, 0.1, 1e-5, eval_stats, 0.0, 1.0,
+            1e-3, 1e-3, 32, "fp32"))
