@@ -301,6 +301,7 @@ too (``tree_bound``). Any
 failed check exits non-zero without that line, as does a machine without a
 CUDA device.
 """
+import concurrent.futures
 import contextlib
 import functools
 import gc
@@ -325,7 +326,7 @@ LATENT_CONFIG = "experiments/physionet/physionet.yaml"
 LATENT_TOL = 1.4e-8  # the rtol = atol of LATENT_CONFIG
 LATENT_STEPS = 3
 CIFAR_CONFIG = "experiments/cifar10/cnn.yaml"
-CIFAR_BATCHES = 3  # eval batches of 32
+CIFAR_BATCHES = 2  # eval batches of 32
 CIFAR_STEPS = 3    # train steps per arm
 # NVIDIA H100 SXM, dense (NVIDIA's data sheet): FP32 outside the tensor
 # cores, TF32 on them, and HBM3
@@ -2153,6 +2154,60 @@ def _mnist_batches(device, n, train=False):
             for i in range(n)]
 
 
+def phase_sde_width(device):
+    """``[sde solve width]``: kernel 10's generic instantiation at F = 32,
+    H = 16, the width whose launch once failed (its dynamic shared memory
+    under 48 KB, not beside its static control block, so no opt-in was
+    made and no CTA was resident): each instantiation's static shared
+    memory, registers, the dynamic shared-memory attribute and the
+    resident CTAs an SM before and after the opt-in, then one SOSRI solve
+    at B = 64 against its plain version (the same Philox path: accepts
+    within one)."""
+    import ctypes
+
+    import torch
+
+    from localregneuralde_tpu_torch.ops.cuda import (
+        SDEWeights, _build, persistent_sde_solve, persistent_sde_solve_plain,
+    )
+    from localregneuralde_tpu_torch.sde import PhiloxNormals
+
+    lib = _build.load_library()
+    F, H, rows = 32, 16, 64
+    out = (ctypes.c_int * 7)()
+    for sosri in (1, 0):
+        for tf32 in (0, 1):
+            err = lib.lrnde_sde_solve_occupancy(F, H, sosri, tf32,
+                                                ctypes.cast(out,
+                                                            ctypes.c_void_p))
+            check(err == 0, f"sde solve width: occupancy query error {err}")
+            static, regs, attr0, before, after, dyn, attr1 = list(out)
+            print(f"[sde solve width] F = {F}, H = {H}, "
+                  f"{'SOSRI' if sosri else 'SRIW1'} "
+                  f"{'tf32' if tf32 else 'fp32'}: static {static} B, "
+                  f"dynamic {dyn} B (together {static + dyn}, the no-opt-in "
+                  f"limit 49152), {regs} registers a thread; attribute "
+                  f"{attr0} -> {attr1}, resident CTAs an SM {before} -> "
+                  f"{after}")
+            check(after >= 1, "sde solve width: no CTA resident")
+    g = torch.Generator().manual_seed(5)
+    w = SDEWeights(*[(0.3 * torch.randn(sh, generator=g)).to(device)
+                     for sh in ((F, H), (H,), (H, F), (F,), (F, F), (F,))])
+    u0 = torch.randn(rows, F, generator=g).to(device)
+    kw = dict(noise=PhiloxNormals(77, rows, F, device=device), rtol=0.14,
+              atol=0.14, solver="sosri", delta=1e-3,
+              saveat_arr=torch.tensor([1.0], device=device), max_steps=256)
+    got = persistent_sde_solve(w, u0, (0.0, 1.0), **kw)
+    ref = persistent_sde_solve_plain(w, u0, (0.0, 1.0), **kw)
+    na, nb = int(got["naccept"]), int(ref["naccept"])
+    print(f"[sde solve width] B = {rows}: kernel {na} accepts, plain loop "
+          f"{nb}, success {bool(got['success'])}, y finite "
+          f"{bool(torch.isfinite(got['y_final']).all())}")
+    check(bool(got["success"]) and abs(na - nb) <= 1
+          and bool(torch.isfinite(got["y_final"]).all()),
+          "sde solve width: kernel 10 at F = 32, H = 16")
+
+
 def phase_sde_kernels(device, ode_w, ode_x):
     """Kernels 10 and 12 against their plain versions at the MNIST-SDE
     width on the layer's real input (the downsampled images), and kernel
@@ -2171,6 +2226,7 @@ def phase_sde_kernels(device, ode_w, ode_x):
         PhiloxNormals, get_sri_tableau, sri_step,
     )
 
+    phase_sde_width(device)
     res = {}
     model, _, _, _ = _sde_model(device)
     node = model.neural_dsde
@@ -7427,7 +7483,7 @@ with torch.no_grad():
         _, res["kernels"] = kernel_names(lambda: fn(*args))
         res["launches"] = launches()
         times = []
-        for i in range(23):
+        for i in range(13):
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -7465,7 +7521,7 @@ EXPORT_CIFAR = {
     "cifar batch": ["--model.bn_eval_stats=batch"]}
 
 
-def _live_ms(fn, n=20, warmup=3):
+def _live_ms(fn, n=10, warmup=3):
     """Median ms a call of ``fn`` between CUDA events (the serving
     process's method)."""
     return median_ms([fn], n=n, warmup=warmup)[0]
@@ -7848,7 +7904,7 @@ def phase_probes(device):
 # in this process, world 2 over Gloo as two processes on this card (this
 # script with --dp-worker), and both runners on two ranks.
 
-DP_STEPS = 3
+DP_STEPS = 2
 # the global grid's gated check: 'highest' (FP32) at rtol 1e-4, where the
 # error estimate is well above its rounding noise
 DP_HIGHEST = ["--model.solver.reltol=1e-4", "--model.solver.abstol=1e-4",
@@ -7861,9 +7917,19 @@ DP_AUTO = ["--model.solver.reltol=1e-4", "--model.solver.abstol=1e-4",
 # it is rounding noise, so there the cross-entropy's gradient is gated
 DP_REG = ["--model.solver.reltol=3e-2", "--model.solver.abstol=3e-2",
           "--model.solver.max_steps=64", "--model.solver.precision=highest"]
-# (tag, overrides, the parts gated against the single device)
+# (tag, overrides, the parts gated against the single device); the 'auto'
+# (TF32) and mlp.yaml (rtol 1.4e-8) arms, where the regulariser's error
+# estimate is rounding noise, against the single device's own kernel
+# route (K2 per attempt, K3 per accepted step: use_persistent off) at
+# DP_LOSS_RTOL and DP_GRAD_REL or twice that part's rounding floor
+# (_dp_floor), whichever is larger (DP_FLOORED): the whole loss, whose
+# gradient floor there is the regulariser's noise (its gradient gate then
+# holds nothing, PERF.md), and the cross-entropy, whose gradient is free
+# of it
 DP_GLOBAL = (("highest", DP_HIGHEST, ("ce",)), ("reg", DP_REG, ("loss",)),
-             ("auto", DP_AUTO, ()), ("mlp.yaml", [], ()))
+             ("auto", DP_AUTO, ("ce", "loss")),
+             ("mlp.yaml", [], ("ce", "loss")))
+DP_FLOORED = ("auto", "mlp.yaml")
 DP_LOSS_RTOL = 1e-5   # the global grid's loss against the single device
 DP_GRAD_REL = 1e-3    # its gradients, relative to the largest
 # the conv family's gates are these or twice the single device's own
@@ -7874,6 +7940,7 @@ DP_GRAD_REL = 1e-3    # its gradients, relative to the largest
 # the NeuralODE (the backend default) and of kernel 14's gradients round
 # it up to ~1e-3 (PERF.md §6)
 DP_FLOOR_REL, DP_FLOOR_DRAWS = 1e-7, 2
+DP_RUNNERS_AT_ONCE = 3  # runner jobs (two ranks each) started together
 CARD = ""             # nvidia-smi's name and power limit (phase_build)
 
 
@@ -8064,19 +8131,30 @@ def _check_kernel_route(tag, dp_names, ref_names, want):
 # cifar is cnn.yaml (B = 32) with the unbiased regulariser at its weight,
 # 2.5, at 'highest' (FP32 forwards; 'auto', TF32, is its ungated arm,
 # DP_CIFAR_AUTO)
-DP_FAMILIES = {"physionet": LATENT_CONFIG, "mnist_sde": SDE_CONFIG,
-               "mnist_sde_reg": SDE_CONFIG, "cifar": CIFAR_CONFIG}
-DP_CASE_ARGS = {"mnist_sde_reg": ["--model.regularize=unbiased"],
+# physionet_reg is physionet.yaml at rtol 3e-2 with its regulariser's
+# weight on (100 at step 1): its error estimate stands above float32
+# rounding there, so the regulariser's group branch (its step's dt probe
+# and error norm over the ranks) is gated, as DP_REG gates the TD-MLP's
+DP_FAMILIES = {"physionet": LATENT_CONFIG, "physionet_reg": LATENT_CONFIG,
+               "mnist_sde": SDE_CONFIG, "mnist_sde_reg": SDE_CONFIG,
+               "cifar": CIFAR_CONFIG}
+DP_CASE_ARGS = {"physionet_reg": ["--model.solver.reltol=3e-2",
+                                  "--model.solver.abstol=3e-2"],
+                "mnist_sde_reg": ["--model.regularize=unbiased"],
                 "cifar": ["--model.regularize=unbiased",
                           "--model.solver.precision=highest"]}
 DP_CIFAR_AUTO = ["--model.solver.precision=auto"]
 # each case's sweep and solve wrappers and their kernels' symbols (the conv
 # family's: kernel 14 on every accepted step, kernel 13 on every attempt)
 DP_SWEEP = {"physionet": ("persistent_chain_sweep", "chain_sweep_kernel"),
+            "physionet_reg": ("persistent_chain_sweep",
+                              "chain_sweep_kernel"),
             "mnist_sde": ("persistent_sde_sweep", "sde_sweep_kernel"),
             "mnist_sde_reg": ("persistent_sde_sweep", "sde_sweep_kernel"),
             "cifar": ("fused_conv_step_bwd", "bn_bwd_reduce_kernel")}
 DP_SOLVE = {"physionet": ("persistent_chain_solve", "chain_solve_kernel"),
+            "physionet_reg": ("persistent_chain_solve",
+                              "chain_solve_kernel"),
             "mnist_sde": ("persistent_sde_solve", "sde_solve_kernel"),
             "mnist_sde_reg": ("persistent_sde_solve", "sde_solve_kernel"),
             "cifar": ("fused_conv_step", "bn_act_kernel")}
@@ -8100,7 +8178,7 @@ def _dp_family(family, overrides, device, rows=B, n=DP_STEPS + 1):
     )
 
     cfg = define_configuration(list(overrides), DP_FAMILIES[family])
-    if family == "physionet":
+    if family.startswith("physionet"):
         train, _, tgrid, _ = build_physionet_arrays(cfg)
         model = construct_time_series(cfg, saveat=torch.from_numpy(tgrid),
                                       device=device)
@@ -8145,9 +8223,9 @@ def _dp_family(family, overrides, device, rows=B, n=DP_STEPS + 1):
 def _dp_gated_w(family, w_of):
     """The loss weight of the gated comparisons: the latent model's with
     the regulariser's weight at 0 (its error estimate is float32 noise at
-    physionet.yaml's rtol 1.4e-8, PERF.md §6), the SDE's as it is
-    (1000; mnist_sde/mlp.yaml trains without the regulariser, the
-    mnist_sde_reg case with it)."""
+    physionet.yaml's rtol 1.4e-8, PERF.md §6; physionet_reg, at rtol 3e-2,
+    keeps it), the SDE's as it is (1000; mnist_sde/mlp.yaml trains
+    without the regulariser, the mnist_sde_reg case with it)."""
     return (0.0, w_of(1)[1]) if family == "physionet" else w_of(1)
 
 
@@ -8264,7 +8342,8 @@ def _dp_floor(family, setup, ref):
     """The single-device step's own change under ``DP_FLOOR_DRAWS``
     ``DP_FLOOR_REL`` relative changes of the batch's inputs: the largest
     relative loss change and gradient change over the largest gradient,
-    with its parameter."""
+    with its parameter. ``setup`` is ``_dp_family``'s tuple (a TD-MLP
+    arm's: ``_dp_model``'s with its loss weight and batches)."""
     import torch
 
     model, loss_fn, _, ts, w_of, _, batches = setup
@@ -8376,7 +8455,7 @@ def _check_dp_sweep(tag, family, args, device):
     a, kw = args
     d64 = lambda xs: [x.double() if isinstance(x, torch.Tensor)  # noqa: E731
                       and x.is_floating_point() else x for x in xs]
-    if family == "physionet":
+    if family.startswith("physionet"):
         flat = lambda o: [o[0], o[1], *o[2]]  # noqa: E731
         params, chain, *rest = a
         tiers = sweep_tiers(kw["precision"], kw["grad_precision"],
@@ -8411,7 +8490,7 @@ def _check_dp_sweep(tag, family, args, device):
             *a, **sw, tier=rec, grad_tier=grad)
     worst, (e, e_p) = as_accurate(ours, plain, exact, floor)
     print(f"[dp {tag}] {DP_SWEEP[family][0]} {'/'.join(tiers)} on the "
-          f"global grid's knots (naccept {int(rest[2] if family == 'physionet' else rest[4])}): "
+          f"global grid's knots (naccept {int(rest[2] if family.startswith('physionet') else rest[4])}): "
           f"vs float64 {e:.3e}, its plain version's {e_p:.3e}: "
           f"{worst:.3f} of the gate (gate {K9_WORST}, at least "
           f"{floor:.3e})")
@@ -8530,24 +8609,125 @@ def dp_worker(job_file, rank, port, device="cuda:0"):
         _sync(device)
         res["reduce_ms"] = 1e3 * (time.perf_counter() - t0) / 20
         if family == "cifar":
-            # 'auto' (TF32): u~ is noise there, so its NFE follows rounding
+            # 'auto' (TF32), gated against the single device at its floor
             auto = _dp_family(family, overrides + DP_CIFAR_AUTO, device,
                               job["rows"])
-            res["auto_nfe"] = _global_grads(
+            loss, nfe, grads = _global_grads(
                 auto[0], auto[1], auto[3], shard_batch(auto[6][0], dp),
-                auto[4](1), dp)[1]
+                auto[4](1), dp)
+            res["auto"] = dict(loss=loss.cpu(), nfe=nfe,
+                               grads=[g.cpu() for g in grads])
         out[f"family_{family}"] = res
+    if job.get("tp"):
+        out["tp"] = _dp_tp_worker(job, device)
     torch.save(out, f"{job_file}.rank{rank}")
     torch.distributed.destroy_process_group()
     return 0
 
 
-def _spawn(args_of, n=2, timeout=900, env_of=None):
-    """``n`` processes of ``args_of(rank, port)``; returns their (rc,
-    stdout, stderr) after all have ended."""
-    from localregneuralde_tpu_torch.parallel.multihost import free_port
+def _whole_grads(ts, grads, dp):
+    """The gradients of a ``ts`` sharded by ``dp.specs`` gathered over the
+    model group."""
+    from localregneuralde_tpu_torch.parallel.mesh import model_cat
 
-    port = free_port()
+    return [g.cpu() if dp.specs.get(k) is None
+            else model_cat(g, dp, dp.specs[k]).cpu()
+            for k, g in zip(ts.params, grads)]
+
+
+def _dp_tp_worker(job, device):
+    """``[dp world2 tp ...]``, one rank's part: a 1 × 2 grid (data 1, model
+    2) over the two ranks, the parameters sharded by JAX's rules, at
+    mlp.yaml's full width at DP_HIGHEST (B = 512, ``unbiased``) and at
+    physionet.yaml's (B = 512): one step's loss, NFE and gathered
+    gradients, a full step's gathered parameters and launches, this rank's
+    shard shapes (parameters and moments), the kernels of a step under
+    torch.profiler and ms a step."""
+    import copy
+
+    import torch
+
+    from localregneuralde_tpu_torch.harness import warmup_model
+    from localregneuralde_tpu_torch.ops.cuda import reset_launch_counts
+    from localregneuralde_tpu_torch.parallel import (
+        make_dp_group, make_sharded_train_step, shard_batch,
+        shard_train_state, train_state_shardings, whole_train_state,
+    )
+
+    grid = make_dp_group(2)
+    out = {}
+    for case in ("mlp.yaml", "physionet"):
+        if case == "mlp.yaml":
+            model, loss_fn, opt, ts, w_reg, sched = _dp_model(
+                DP_HIGHEST + job["extra"], device)
+            batches = _dp_batches(device, job["rows"])
+            setup = (model, loss_fn, opt, ts, w_reg, sched, batches)
+            w_of = w_reg
+        else:
+            setup = _dp_family("physionet", job["families"]["physionet"],
+                               device, job["rows"])
+            model, loss_fn, opt, ts, w_of, sched, batches = setup
+        # the grid carrying this model's parameter specs
+        dp = train_state_shardings(ts, grid)
+        shard_train_state(ts, dp)
+        data = [shard_batch(b, dp) for b in batches]
+        if case == "physionet":
+            got = _dp_global_family(case, setup, dp)
+        else:
+            reset_launch_counts()
+            loss, nfe, grads = _global_grads(model, loss_fn, ts, data[0],
+                                             w_of(1), dp)
+            _sync(device)
+            got = dict(loss=loss, nfe=nfe, grads=grads,
+                       launches=tier_counts(), plain=0)
+        res = dict(loss=got["loss"].cpu(), nfe=got["nfe"],
+                   grads=_whole_grads(ts, got["grads"], dp),
+                   launches=got["launches"], plain=got["plain"],
+                   specs=dp.specs,
+                   shapes={k: tuple(p.shape) for k, p in ts.params.items()},
+                   moments={k: [tuple(ts.opt_state.state[p][s].shape)
+                                for s in ts.opt_state.slots]
+                            for k, p in ts.params.items()})
+        step = make_sharded_train_step(model, loss_fn, opt, dp)
+        warmup_model(step, None, ts, data[0], w_of(1), sched(1))
+        _sync(device)
+        before = tier_counts()
+        ts1, loss1, stats1 = step(copy.deepcopy(ts), data[0], w_of(1),
+                                  sched(1))
+        _sync(device)
+        after = tier_counts()
+        whole = whole_train_state(ts1, dp, opt)
+        res.update(step_loss=loss1.cpu(), step_nfe=_drift_nfe(stats1),
+                   params={k: v.cpu() for k, v in whole.params.items()},
+                   step_launches={k: after[k] - before.get(k, 0)
+                                  for k in after})
+        res["kernels"] = _all_kernels(lambda: step(
+            copy.deepcopy(ts), data[1], w_of(2), sched(2)))
+        _, res["ms"], res["nfe_steps"] = _timed_steps(step, ts, data[1:],
+                                                      w_of, sched)
+        out[case] = res
+    return out
+
+
+def free_ports(n):
+    """``n`` distinct free TCP ports on this host (every socket held open
+    until all are chosen)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _spawn(args_of, n=2, timeout=900, env_of=None, port=None):
+    """``n`` processes of ``args_of(rank, port)`` (``port`` default a free
+    one); returns their (rc, stdout, stderr) after all have ended."""
+    port = port or free_ports(1)[0]
     here = os.path.dirname(os.path.abspath(__file__))
     procs = [subprocess.Popen(
         args_of(r, port), cwd=here, stdout=subprocess.PIPE,
@@ -8569,11 +8749,12 @@ def _spawn(args_of, n=2, timeout=900, env_of=None):
     return outs
 
 
-def _dp_runner(module, config, extra, tmp, device, mode="shardmap"):
+def _dp_runner(module, config, extra, tmp, device, mode="shardmap",
+               tag=None, port=None):
     """Both ranks of a runner on this card over Gloo, ``torchrun``'s
     variables set, with ``train.data_parallel=mode``: rc 0 on both, the
     same train-window values, and rank 0's checkpoint at the canonical
-    place."""
+    place. Returns the ranks' summaries."""
     import ast
 
     args = [config, f"--train.data_parallel={mode}", "--dp_backend=gloo",
@@ -8588,7 +8769,7 @@ def _dp_runner(module, config, extra, tmp, device, mode="shardmap"):
         env_of=lambda r, port: dict(
             RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
             LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
-            MASTER_PORT=str(port)))
+            MASTER_PORT=str(port)), port=port)
     wall = time.perf_counter() - t0
     for r, (rc, o, e) in enumerate(outs):
         if rc != 0:
@@ -8605,7 +8786,8 @@ def _dp_runner(module, config, extra, tmp, device, mode="shardmap"):
                         for ln in lines if ln.startswith("[") and "/" in
                         ln.split()[0] and "]" in ln.split()[0]])
     ck = os.path.join(summaries[0]["ckpt_dir"], "model_current.ckpt")
-    print(f"[dp {module} {mode}] two ranks over Gloo on one card, "
+    print(f"[dp {tag or f'{module} {mode}'}] two ranks over Gloo on one "
+          "card, "
           f"{wall:.1f} s: "
           f"windows {windows[0]}; ranks {[s['rank'] for s in summaries]}; "
           f"rank 0's checkpoint {os.path.exists(ck)}")
@@ -8613,6 +8795,144 @@ def _dp_runner(module, config, extra, tmp, device, mode="shardmap"):
           and summaries[1]["ckpt_dir"].endswith("proc1")
           and "proc" not in summaries[0]["ckpt_dir"] and os.path.exists(ck),
           f"dp {module}: the ranks' windows differ or no checkpoint")
+    return summaries
+
+
+def _dp_runner_tp(tmp, device, extra, port=None):
+    """``[dp runner tp]``: the classification runner with mlp.yaml under
+    'gspmd' with ``tensor_parallel=2`` on two ranks (a 1 × 2 grid) for two
+    steps (``_dp_runner``'s checks), then rank 0's checkpoint loaded into a
+    single-device model: every array whole, finite, and an eval step on
+    it."""
+    import torch
+
+    from localregneuralde_tpu_torch.harness import (
+        construct_loss, construct_model, construct_optimizer,
+        create_train_state, define_configuration, make_eval_step,
+    )
+    from localregneuralde_tpu_torch.harness.checkpoint import load_checkpoint
+    from localregneuralde_tpu_torch.harness.latent_runner import (
+        restore_train_state,
+    )
+
+    args = ["--model.regularize=unbiased"] + list(extra)
+    summaries = _dp_runner("runner", CONFIG, [
+        "--train.total_steps=2", "--train.evaluate_every=2",
+        "--train.tensor_parallel=2"] + args, tmp, device, mode="gspmd",
+        tag="runner tp", port=port)
+    if not summaries:
+        return
+    ck = load_checkpoint(os.path.join(summaries[0]["ckpt_dir"],
+                                      "model_current.ckpt"))
+    cfg = define_configuration(args, CONFIG)
+    model = construct_model(cfg, device=device)
+    loss_fn, w_reg = construct_loss(cfg)
+    opt, _ = construct_optimizer(cfg)
+    ts = restore_train_state(create_train_state(model, opt), ck["tstate"],
+                             device)
+    whole = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    shapes = {k: tuple(v.shape) for k, v in ts.params.items()}
+    finite = all(bool(torch.isfinite(v).all()) for v in ts.params.values())
+    batch = _dp_batches(device, B, 1)[0]
+    loss, stats = make_eval_step(model, loss_fn)(ts, batch, w_reg(1))
+    print(f"[dp runner tp] summaries: tensor_parallel "
+          f"{[s.get('tensor_parallel') for s in summaries]}, world "
+          f"{[s['world_size'] for s in summaries]}; rank 0's checkpoint at "
+          f"step {ck['step']}: neural_ode.model.layer_0.w "
+          f"{shapes['neural_ode.model.layer_0.w']}, every array whole "
+          f"{shapes == whole}, finite {finite}; a single-device eval step "
+          f"on it: loss {float(loss):.6f}, NFE {int(stats['nfe'])}")
+    check(all(s.get("tensor_parallel") == 2 for s in summaries)
+          and shapes == whole and finite and bool(torch.isfinite(loss)),
+          "dp runner tp: the checkpoint is not a single device's")
+
+
+def _check_dp_tp(ranks, world1, ref_names, add):
+    """``[dp world2 tp mlp.yaml|physionet]``: each rank's step on the 1 × 2
+    grid (``_dp_tp_worker``) bitwise the world-1 global grid's (loss, NFE,
+    the gathered gradients; for mlp.yaml also a whole step's loss, NFE,
+    gathered parameters and launches), its shards of JAX's specs, the
+    kernels of the route in its profile and no plain version; ms a TP
+    step beside the world-1 global grid's (mlp.yaml) or the data-parallel
+    and single-device steps' (physionet)."""
+    import torch
+
+    for case in ("mlp.yaml", "physionet"):
+        ref = world1[case]
+        for r, res in enumerate(ranks):
+            g = res["tp"][case]
+            tag = f"world2 tp {case} rank {r}"
+            add(g["launches"])
+            sharded = {k: g["shapes"][k] for k, d in g["specs"].items()
+                       if d is not None}
+            moments_cut = all(m == [g["shapes"][k]] * len(m)
+                              for k, m in g["moments"].items())
+            same = (bool(torch.equal(g["loss"], ref["loss"].cpu()))
+                    and g["nfe"] == ref["nfe"] and all(
+                        torch.equal(a, b.cpu())
+                        for a, b in zip(g["grads"], ref["grads"])))
+            if case == "mlp.yaml":
+                want_shards = {"neural_ode.model.layer_0.w": (785, 50),
+                               "neural_ode.model.layer_0.b": (50,)}
+                step_same = (bool(torch.equal(g["step_loss"],
+                                              ref["step_loss"]))
+                             and g["step_nfe"] == ref["step_nfe"] and all(
+                                 torch.equal(g["params"][k], v)
+                                 for k, v in ref["params"].items()))
+                launches = {k: v for k, v in g["step_launches"].items() if v}
+                ref_launches = {k: v for k, v in ref["step_launches"].items()
+                                if v}
+                step_same = step_same and launches == ref_launches
+                route = (launches.get("tsit5_step", 0) > 0
+                         and launches.get("tsit5_step_bwd", 0) > 0
+                         and not launches.get("persistent_tsit5_solve"))
+                print(f"[dp {tag}] shards {sharded} (moments alike "
+                      f"{moments_cut}); gradient step: loss "
+                      f"{float(g['loss']):.7f}, NFE {g['nfe']}, bitwise the "
+                      f"world-1 global grid's loss, NFE and gathered "
+                      f"gradients {same}; a whole step bitwise (loss, NFE, "
+                      f"gathered parameters, launches {launches}) {step_same}")
+                check(sharded == want_shards and moments_cut and same
+                      and step_same and route,
+                      f"dp {tag}: the TP step is not the world-1 global "
+                      "grid's")
+                _check_kernel_route(tag, g["kernels"],
+                                    ref_names["global whole"],
+                                    ("step_cluster_kernel",
+                                     "tsit5_step_bwd_kernel"))
+            else:
+                rows_halved = sharded and all(
+                    2 * sh[0] in (20, 40) and sh[1] in (20, 40)
+                    for sh in sharded.values()) and len(sharded) == 8
+                print(f"[dp {tag}] shards {sharded} (moments alike "
+                      f"{moments_cut}); loss {float(g['loss']):.7f}, NFE "
+                      f"{g['nfe']}: bitwise the world-1 global grid's loss, "
+                      f"NFE and gathered gradients {same}")
+                check(rows_halved and moments_cut and same,
+                      f"dp {tag}: the TP step is not the world-1 global "
+                      "grid's")
+                _check_dp_family_route(tag, "physionet", g)
+                names = g["kernels"]
+                ours = {k: v for k, v in names.items() if "lrnde" in k}
+                print(f"[dp {tag}] profile: port kernels {ours}")
+                check(all(any(sym in k for k in names) for sym in (
+                    DP_SWEEP["physionet"][1], DP_SOLVE["physionet"][1])),
+                      f"dp {tag}: the profile {ours} lacks kernels 5 and 9")
+        g = ranks[0]["tp"][case]
+        med = statistics.median(g["ms"])
+        if case == "mlp.yaml":
+            beside = (f"the world-1 global grid's step (NCCL, one process) "
+                      f"{statistics.median(ref['ms']):.3f} ms, NFE "
+                      f"{ref['nfe_steps']}")
+        else:
+            dpg = ranks[0]["family_physionet"]
+            beside = (f"the 2 × 1 data-parallel step "
+                      f"{statistics.median(dpg['ms']):.3f} ms, NFE "
+                      f"{dpg['nfe_steps']}")
+        print(f"[dp time tp {case}] {CARD}: a 1 × 2 TP step (2 ranks on one "
+              f"card, Gloo) {med:.3f} ms (steps "
+              f"{[round(m, 3) for m in g['ms']]}), NFE {g['nfe_steps']}; "
+              + beside)
 
 
 def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
@@ -8634,6 +8954,7 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
         multihost,
     )
 
+    clock = Clock()
     extra, latent_extra = list(extra), list(latent_extra)
     family_extra = {f: DP_CASE_ARGS.get(f, [])
                     + list((family_extra or {}).get(f, ()))
@@ -8688,10 +9009,33 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
     check(same and k2 > 0 and k3 > 0
           and counts.get("persistent_tsit5_solve", 0) == 0,
           "dp world1: the global-grid step is not the non-persistent route's")
+    # the world-1 global grid at DP_HIGHEST: the reference of the tensor-
+    # parallel steps (their data degree is 1), a gradient step and a full
+    # one, its launches and ms a step
+    hi1 = _dp_model(DP_HIGHEST + extra, device)
+    loss_g, nfe_g, grads_g = _global_grads(hi1[0], hi1[1], hi1[3], batches[0],
+                                           hi1[4](1), dp)
+    step = make_sharded_train_step(hi1[0], hi1[1], hi1[2], dp)
+    warmup_model(step, None, hi1[3], batches[0], hi1[4](1), hi1[5](1))
+    _sync(device)
+    before = tier_counts()
+    ts_h, loss_h, stats_h = step(copy.deepcopy(hi1[3]), batches[0],
+                                 hi1[4](1), hi1[5](1))
+    _sync(device)
+    after = tier_counts()
+    world1 = {"mlp.yaml": dict(
+        loss=loss_g.cpu(), nfe=nfe_g, grads=[g.cpu() for g in grads_g],
+        step_loss=loss_h.cpu(), step_nfe=int(stats_h["nfe"]),
+        params={k: v.detach().cpu() for k, v in ts_h.params.items()},
+        step_launches={k: after[k] - before.get(k, 0) for k in after})}
+    add(world1["mlp.yaml"]["step_launches"])
+    _, world1["mlp.yaml"]["ms"], world1["mlp.yaml"]["nfe_steps"] = (
+        _timed_steps(step, hi1[3], batches[1:], hi1[4], hi1[5]))
     family_refs = {}
     for family, overrides in family_extra.items():
         setup = _dp_family(family, overrides, device, rows)
         got = _dp_global_family(family, setup, dp)
+        world1[family] = got
         add(got["launches"])
         tag = f"world1 {family}"
         # one rank runs the single device's kernels on the same batch
@@ -8718,6 +9062,7 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
         _check_dp_family_grads(tag, family, got, ref)
         _check_dp_sweep(tag, family, got["args"], device)
     torch.distributed.destroy_process_group()
+    clock("dp world1")
 
     # --- single-device steps to set the DP steps beside
     model, loss_fn, opt, ts, w_reg, sched = _dp_model(extra, device)
@@ -8737,12 +9082,15 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
                                     sched)
     ref_names["global"] = _all_kernels(lambda: single_hi(
         copy.deepcopy(hi[3]), half, w_reg(1), sched(1)))
+    # the tensor-parallel steps' rows: the whole batch (data degree 1)
+    ref_names["global whole"] = _all_kernels(lambda: single_hi(
+        copy.deepcopy(hi[3]), batches[0], w_reg(1), sched(1)))
 
     # --- world 2 over Gloo: two processes on this card
     with tempfile.TemporaryDirectory() as tmp:
         job = os.path.join(tmp, "dp")
         torch.save({"extra": extra, "rows": rows,
-                    "families": family_extra}, job)
+                    "families": family_extra, "tp": True}, job)
         outs = _spawn(lambda r, port: [
             sys.executable, os.path.abspath(__file__), "--dp-worker", job,
             str(r), str(port), str(device)])
@@ -8751,22 +9099,31 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
                 print(e[-3000:], file=sys.stderr)
             check(rc == 0, f"dp world2: rank {r} exited {rc}")
         ranks = [torch.load(f"{job}.rank{r}") for r in range(2)]
-        for tmp_name, module, config, args in (
-                ("r1", "runner", CONFIG, [
-                    "--train.total_steps=4", "--train.evaluate_every=4",
-                    "--model.regularize=unbiased"] + extra),
-                ("r2", "latent_runner", LATENT_CONFIG, [
-                    "--train.total_steps=2", "--train.evaluate_every=2"]
-                 + latent_extra)):
-            _dp_runner(module, config, args, os.path.join(tmp, tmp_name),
-                       device)
+        clock("dp single device and world2 ranks")
+        # the runners, DP_RUNNERS_AT_ONCE jobs of two ranks at a time (each
+        # mostly host time: start-up, set-up, data), each on a port of its
+        # own; their printed walls include the others' share of the card
+        runs = [(_dp_runner, ("runner", CONFIG, [
+            "--train.total_steps=4", "--train.evaluate_every=4",
+            "--model.regularize=unbiased"] + extra, os.path.join(tmp, "r1"),
+            device)), (_dp_runner, ("latent_runner", LATENT_CONFIG, [
+                "--train.total_steps=2", "--train.evaluate_every=2"]
+                + latent_extra, os.path.join(tmp, "r2"), device))]
         for tmp_name, module, family in (("r3", "latent_runner", "physionet"),
                                          ("r4", "runner", "mnist_sde"),
                                          ("r5", "runner", "cifar")):
-            _dp_runner(module, DP_FAMILIES[family], [
+            runs.append((_dp_runner, (module, DP_FAMILIES[family], [
                 "--train.total_steps=2", "--train.evaluate_every=2"]
                 + family_extra[family], os.path.join(tmp, tmp_name), device,
-                mode="gspmd")
+                "gspmd")))
+        runs.append((_dp_runner_tp, (os.path.join(tmp, "r6"), device,
+                                     extra)))
+        ports = free_ports(len(runs))
+        with concurrent.futures.ThreadPoolExecutor(DP_RUNNERS_AT_ONCE) as ex:
+            for f in [ex.submit(fn, *a, port=port)
+                      for (fn, a), port in zip(runs, ports)]:
+                f.result()
+        clock("dp runners")
 
     # the per-rank step: bitwise the two half-batch steps averaged
     model, loss_fn, opt, ts, w_reg, sched = _dp_model(extra, device)
@@ -8790,31 +9147,46 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
                             ("cluster_solve_kernel", "adjoint_sweep_kernel"))
     # the global grid: the single-device step's loss and gradients
     for tag, overrides, gated in DP_GLOBAL:
-        ref = _dp_model(overrides + extra, device)
+        floored = tag in DP_FLOORED
+        ref = _dp_model(overrides + extra + (
+            ["--model.solver.use_persistent=false"] if floored else []),
+            device)
         for part, w in (("ce", 0.0), ("loss", ref[4](1))):
             got = [res[f"global_{tag}"].get(part) for res in ranks]
             if got[0] is None:
                 continue
             loss_ref, nfe_ref, g_ref = _global_grads(ref[0], ref[1], ref[3],
                                                      batches[0], w)
+            loss_rtol, grad_rel, floor_note = DP_LOSS_RTOL, DP_GRAD_REL, ""
+            gate = part in gated
+            if gate and floored:
+                floor = _dp_floor("tdmlp", ref[:4] + (
+                    lambda step, w=w: w, ref[5], batches), dict(
+                        loss=loss_ref, grads=g_ref, names=list(ref[3].params)))
+                loss_rtol = max(loss_rtol, 2 * floor["loss"])
+                grad_rel = max(grad_rel, 2 * floor["grads"])
+                floor_note = (f"; the single device's floor: loss "
+                              f"{floor['loss']:.2e}, gradients "
+                              f"{floor['grads']:.2e} at {floor['worst']}")
             scale = max(float(g.abs().max()) for g in g_ref)
             for r, g in enumerate(got):
                 err = max(float((a - b.cpu()).abs().max())
                           for a, b in zip(g["grads"], g_ref)) / scale
                 lerr = (abs(float(g["loss"]) - float(loss_ref))
                         / abs(float(loss_ref)))
-                gate = part in gated
                 print(f"[dp world2 global {tag}] rank {r}, "
                       f"{'cross-entropy' if part == 'ce' else 'loss'}: "
-                      f"{float(g['loss']):.7f} vs single device "
+                      f"{float(g['loss']):.7f} vs single device"
+                      f"{' (K2/K3 route)' if floored else ''} "
                       f"{float(loss_ref):.7f} (rel {lerr:.2e}), NFE "
                       f"{g['nfe']} vs {nfe_ref}, gradients max-abs / largest "
                       f"{err:.2e}" + (
-                          f" (tolerances {DP_LOSS_RTOL}, {DP_GRAD_REL})"
-                          if gate else " (not gated: the regulariser's "
-                          "error estimate is rounding noise here)"))
+                          f" (tolerances {loss_rtol:.3g}, {grad_rel:.3g}"
+                          f"{floor_note})" if gate else " (not gated: the "
+                          "regulariser's error estimate is rounding noise "
+                          "here)"))
                 check(abs(g["nfe"] - nfe_ref) <= 12 and (not gate or (
-                    lerr <= DP_LOSS_RTOL and err <= DP_GRAD_REL)),
+                    lerr <= loss_rtol and err <= grad_rel)),
                       f"dp world2 rank {r}: the global grid ({tag}, {part}) "
                       "disagrees with the single-device step")
             check(got[0]["nfe"] == got[1]["nfe"],
@@ -8850,14 +9222,13 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
         check(got[0]["nfe"] == got[1]["nfe"],
               f"dp world2 {family}: the ranks' NFE differ")
         if family == "cifar":
+            # 'auto' (TF32): against the single device at twice its floor
             auto = _dp_family(family, overrides + DP_CIFAR_AUTO, device, rows)
-            sd_nfe = _global_grads(auto[0], auto[1], auto[3], auto[6][0],
-                                   auto[4](1))[1]
-            print(f"[dp world2 cifar auto] 'auto' (TF32, not gated: u~ is "
-                  f"rounding noise there, so NFE follows rounding): NFE of "
-                  f"the ranks {[g['auto_nfe'] for g in got]}, the single "
-                  f"device's {sd_nfe}")
-            check(got[0]["auto_nfe"] == got[1]["auto_nfe"],
+            auto_ref = _dp_single_family(family, auto)
+            for r, g in enumerate(got):
+                _check_dp_family_grads(f"world2 cifar auto rank {r}", family,
+                                       g["auto"], auto_ref)
+            check(got[0]["auto"]["nfe"] == got[1]["auto"]["nfe"],
                   "dp world2 cifar auto: the ranks' NFE differ")
         model, loss_fn, opt, ts, w_of, sched, fb = _dp_family(
             family, overrides, device, rows)
@@ -8873,6 +9244,7 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
               f"{got[0]['nfe_steps']}; the single-device step at B = "
               f"{int(fb[0][0].shape[0])} {statistics.median(sd_ms):.3f} ms, "
               f"NFE {sd_nfe}")
+    _check_dp_tp(ranks, world1, ref_names, add)
     pr, gh = ranks[0]["per_rank"], ranks[0]["global_highest"]
     for tag, dp_ms, dp_nfe, sd_ms, sd_nfe in (
             ("per-rank mlp.yaml", pr["ms"], pr["nfe_steps"], ms_single,
@@ -8886,6 +9258,7 @@ def phase_dp(device, extra=(), rows=B, latent_extra=(), family_extra=None):
               f"({100 * pr['reduce_ms'] / med:.1f}%), NFE {dp_nfe}; the "
               f"single-device step at B = {rows} "
               f"{statistics.median(sd_ms):.3f} ms, NFE {sd_nfe}")
+    clock("dp checks")
     return path
 
 
@@ -8980,6 +9353,20 @@ def partial_run(device, parts, profile=False):
     return 0
 
 
+class Clock:
+    """``clock(name)`` prints the seconds since the last call (the phases'
+    share of the run) and since the first."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        print(f"[clock] {name} {now - self.last:.1f} s (run {now - self.start:.1f} s)",
+              flush=True)
+        self.last = now
+
+
 def main():
     import torch
 
@@ -9000,46 +9387,77 @@ def main():
     only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:]
             if a.startswith("--only=")]
 
+    clock = Clock()
     phase_build()
+    clock("build")
     if only:
         return partial_run(device, only[0], profile)
     w, x, res = phase_kernels(device)
+    clock("kernels")
     phase_determinism(w, x)
+    clock("determinism")
     phase_solve_attribution(w, x)
+    clock("solve_attribution")
     phase_tdmlp_attribution(w, x)
+    clock("tdmlp_attribution")
     path_counts = [phase_slice(device, profile=profile)]
+    clock("slice")
     res.update(phase_backward_kernels(device, w, x))
+    clock("backward_kernels")
     path_counts.append(phase_train(device, profile=profile))
+    clock("train")
     tf32_res, tf32_counts = phase_tf32(device, w, x)
+    clock("tf32")
     res.update(tf32_res)
     path_counts.append(tf32_counts)
     res.update(phase_sde_kernels(device, w, x))
+    clock("sde_kernels")
     path_counts.append(phase_sde_serving(device))
+    clock("sde_serving")
     path_counts.append(phase_sde_train(device, profile=profile))
+    clock("sde_train")
     sde_res, sde_counts = phase_tf32_sde(device)
+    clock("tf32_sde")
     res.update(sde_res)
     path_counts.append(sde_counts)
     path_counts.append(phase_ode_biased(device))
+    clock("ode_biased")
     res.update(phase_chain_kernels(device))
+    clock("chain_kernels")
     path_counts.append(phase_latent(device, profile=profile))
+    clock("latent")
     chain_res, chain_counts = phase_tf32_chain(device)
+    clock("tf32_chain")
     res.update(chain_res)
     path_counts.append(chain_counts)
     res.update(phase_conv_kernels(device))
+    clock("conv_kernels")
     phase_conv_core(device)
+    clock("conv_core")
     path_counts.append(phase_cifar(device, profile=profile))
+    clock("cifar")
     conv_res, conv_counts = phase_tf32_conv(device)
+    clock("tf32_conv")
     res.update(conv_res)
     path_counts.append(conv_counts)
     path_counts.append(phase_capture(device))
+    clock("capture")
     path_counts.append(phase_modes(device))
+    clock("modes")
     res.update(phase_score_kernels(device))
+    clock("score_kernels")
     phase_vpsde_attribution(device)
+    clock("vpsde_attribution")
     path_counts.append(phase_score_sampling(device))
+    clock("score_sampling")
     res.update(phase_tf32_score(device))
+    clock("tf32_score")
     path_counts.append(phase_export(device))
+    clock("export")
     path_counts.append(phase_dp(device))
+    clock("dp")
     orient, orient_counts = phase_conv_orient(device)
+    clock("conv_orient")
     res.update(orient)
     path_counts.append(orient_counts)
     for name in ("persistent_chain_solve", "persistent_chain_sweep"):

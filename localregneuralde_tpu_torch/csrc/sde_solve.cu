@@ -663,6 +663,52 @@ extern "C" int lrnde_sde_solve_grid(int F, int H, int B, int* out) {
   return cudaSuccess;
 }
 
+// Kernel 10's residency at (F, H), for the instantiation a launch at those
+// widths takes (SRIW1 or SOSRI, FP32 or TF32): out = (static shared memory
+// bytes, registers a thread, the dynamic shared memory attribute before the
+// opt-in, CTAs an SM resident at the dynamic bytes before the opt-in, the
+// same after it, the dynamic bytes, the attribute after). Grants the opt-in
+// as a launch does. Returns the first CUDA error.
+extern "C" int lrnde_sde_solve_occupancy(int F, int H, int sosri, int tf32,
+                                         int* out) {
+  using namespace lrnde;
+  auto query = [&](auto net) -> int {
+    using D = decltype(net);
+    net.F = F;
+    net.H = H;
+    const size_t smem = sde_solve_smem_floats(net) * sizeof(float);
+    const void* kernel =
+        sosri ? reinterpret_cast<const void*>(sde_solve_kernel<D, true, false>)
+              : reinterpret_cast<const void*>(
+                    sde_solve_kernel<D, false, false>);
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    int before = 0, after = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&before, kernel,
+                                                        kSdeThreads, smem);
+    if (err != cudaSuccess) return err;
+    size_t granted = 0;
+    if ((err = allow_smem(kernel, smem, &granted)) != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&after, kernel,
+                                                        kSdeThreads, smem);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes now;
+    if ((err = cudaFuncGetAttributes(&now, kernel)) != cudaSuccess) return err;
+    out[0] = static_cast<int>(attr.sharedSizeBytes);
+    out[1] = attr.numRegs;
+    out[2] = attr.maxDynamicSharedSizeBytes;
+    out[3] = before;
+    out[4] = after;
+    out[5] = static_cast<int>(smem);
+    out[6] = now.maxDynamicSharedSizeBytes;
+    return cudaSuccess;
+  };
+  const bool mnist = F == 32 && H == 64;
+  if (tf32) return mnist ? query(SdeNetTf32<32, 64>{}) : query(SdeNetTf32<0, 0>{});
+  return mnist ? query(SdeNet<32, 64>{}) : query(SdeNet<0, 0>{});
+}
+
 // Kernel 10: the whole adaptive SRI (sosri = 0) or SOSRI (sosri = 1) solve
 // from u0 with sc = (t0, t_end, dt0) on the device. unew holds B·F floats,
 // wz0 and wz1 2·B·F each, slots 2·ceil(B / 4), barrier one zeroed unsigned

@@ -201,17 +201,26 @@ struct StepRows {
 // carved after them can take float4 reads and 16-byte copies.
 __host__ __device__ inline size_t round_up4(size_t n) { return (n + 3) & ~size_t{3}; }
 
-// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
-// *granted remembers the largest size opted in, so the call (tens of
-// microseconds of host time) is made once, not at every launch.
+// A CTA's shared memory above the 48 KB default needs an opt-in per
+// kernel: the limit holds the kernel's static shared memory and its dynamic
+// bytes together, so a dynamic size just under 48 KB beside a static
+// control block needs the opt-in too. *granted remembers the largest
+// dynamic size made launchable, so the calls (tens of microseconds of host
+// time) are made once, not at every launch.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* granted) {
-  if (bytes <= 48 * 1024 || bytes <= *granted) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err == cudaSuccess) *granted = bytes;
-  return err;
+  if (bytes <= *granted) return cudaSuccess;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (bytes + attr.sharedSizeBytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
+  *granted = bytes;
+  return cudaSuccess;
 }
 
 }  // namespace lrnde

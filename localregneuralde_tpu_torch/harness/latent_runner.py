@@ -124,20 +124,27 @@ def build_physionet_arrays(cfg: ExperimentConfig):
 
 
 def check_supported(cfg: ExperimentConfig) -> None:
-    """The parallel options of ``cfg.train``, with the JAX runners' checks:
-    ``data_parallel`` one of 'none', 'gspmd', 'shardmap'; 'shardmap' with
-    neither gradient accumulation nor an explicit K > 1 (the JAX package
-    refuses both there). Tensor parallelism raises ``NotImplementedError``:
-    it is not ported (ROADMAP Queue 1 item 14d)."""
+    """The parallel options of ``cfg.train``, with the JAX runners' checks
+    and messages (``runner.py:67-120`` there): ``data_parallel`` one of
+    'none', 'gspmd', 'shardmap'; ``tensor_parallel`` at least 1, and above
+    1 with 'gspmd' only (its divisibility of the ranks, and of the batch by
+    the data-parallel degree, are checked where the grid is made); 'shardmap'
+    with neither gradient accumulation nor an explicit K > 1 (the JAX
+    package refuses both there)."""
     t = cfg.train
     if t.data_parallel not in ("none", "gspmd", "shardmap"):
         raise ValueError("train.data_parallel must be 'none', 'gspmd' or "
                          f"'shardmap', got {t.data_parallel!r}")
-    if int(t.tensor_parallel) != 1:
-        raise NotImplementedError(
-            f"train.tensor_parallel={t.tensor_parallel}: tensor parallelism "
-            "is not ported (ROADMAP Queue 1 item 14d); the parallel layer is "
-            "data-parallel only")
+    tp = int(t.tensor_parallel)
+    if tp < 1:
+        raise ValueError(f"train.tensor_parallel must be >= 1, got {tp}")
+    if tp > 1 and t.data_parallel == "none":
+        raise ValueError(
+            "train.tensor_parallel > 1 requires data_parallel='gspmd'")
+    if tp > 1 and t.data_parallel == "shardmap":
+        raise ValueError(
+            "train.tensor_parallel > 1 requires data_parallel='gspmd' "
+            "(the shardmap mode is data-parallel only)")
     if t.data_parallel == "shardmap":
         if int(t.grad_accumulation) > 1:
             raise ValueError("train.grad_accumulation > 1 supports "
@@ -257,6 +264,7 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
                                    grad_accumulation=ga, ema_decay=ed),
         eval_step=None)
     train_step = par.train_step
+    dp = par.dp  # with the parameters' specs under tensor parallelism
     spc = resolve_steps_per_call(
         cfg.train.steps_per_call, cfg.train.print_frequency,
         cfg.train.evaluate_every,
@@ -272,9 +280,8 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
     if os.path.exists(resume_path):
         restored = load_checkpoint(resume_path)
         if restored is not None:
-            ts = par.restored(
-                restore_train_state(ts, restored["tstate"], device),
-                cfg.dataset.train_batchsize)
+            ts = par.restored(ts, restored["tstate"], device,
+                              cfg.dataset.train_batchsize)
             initial_step = int(restored["step"]) + 1
             restored_best = restored.get("best")
     if ed > 0.0 and ts.ema is None:
@@ -303,7 +310,8 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
     final_mse, final_nfe = np.inf, 0.0
 
     # the per-window phase probes (fwd/bwd/opt columns)
-    measure_phases = make_phase_probes(model, loss_fn, optimizer)
+    measure_phases = make_phase_probes(model, par.probe_loss(loss_fn),
+                                       optimizer)
 
     def print_window(step, sums, window_n, ok, wall, data_time, bs, ts, batch,
                      w):
@@ -341,8 +349,8 @@ def run_latent_ode_experiment(cfg: ExperimentConfig,
     summary = {"real_data": bool(is_real), "ckpt_dir": ckpt_dir,
                "log_dir": log_dir, "steps_per_call": spc, "captured": False}
     if dp is not None:
-        summary.update(data_parallel=par.mode, world_size=dp.size,
-                       rank=dp.rank)
+        summary.update(data_parallel=par.mode, world_size=dp.world_size,
+                       rank=dp.world_rank, tensor_parallel=dp.model_size)
     data_iter = iter(train_loader)
     if spc > 1:
         reduce_fn = (lambda loss, stats, data: {

@@ -38,7 +38,7 @@ The optimizers are ``torch.optim.Optimizer`` subclasses for their
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -200,15 +200,20 @@ class OptimizerSpec:
 
     @torch.no_grad()
     def apply(self, opt: DeviceOptimizer, params: Sequence[torch.Tensor],
-              grads: Sequence[torch.Tensor], lr) -> None:
+              grads: Sequence[torch.Tensor], lr,
+              norm_sq: Optional[Callable] = None) -> None:
         """One update of ``params`` in place with ``grads`` (None: zero) at
-        learning rate ``lr``, a number or a 0-d tensor."""
+        learning rate ``lr``, a number or a 0-d tensor. ``norm_sq(grads)``
+        gives the whole gradient's squared norm for the clipping where the
+        gradients are tensor-parallel shards (default: the sum of their
+        squares)."""
         params = list(params)
         lr = device_scalar_like(lr, params[0])
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         if self.gradient_clip_norm:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads)
+                              if norm_sq is None else norm_sq(grads))
             scale = torch.where(norm < self.gradient_clip_norm, 1.0,
                                 self.gradient_clip_norm / norm)
             grads = [g * scale for g in grads]

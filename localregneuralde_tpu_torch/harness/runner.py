@@ -42,8 +42,16 @@ keeps the whole (gathered) state. Under 'gspmd' each eval batch (rounded
 down to the data-parallel degree) is solved on the global grid over the
 ranks (CIFAR-10's conv solve on the whole batch on every rank, its
 BatchNorms' moments over the ranks); under 'shardmap' every rank evaluates
-whole eval batches itself, the single-device solve. ``tensor_parallel`` > 1
-raises (ROADMAP Queue 1 item 14d).
+whole eval batches itself, the single-device solve.
+``train.tensor_parallel`` = tp > 1 (with 'gspmd' only, as the JAX runner
+has it) lays the ranks out as world / tp data ranks by tp model ranks and
+shards the parameters by JAX's rules (``parallel/sharded_train.py``); the
+batch and the eval batch are spread over the data ranks, and a checkpoint
+keeps whole arrays::
+
+    torchrun --nproc_per_node=4 -m localregneuralde_tpu_torch.harness.runner \
+        CONFIG.yaml --train.data_parallel=gspmd --train.tensor_parallel=2
+
 Once a print window the phase probes (``train.make_phase_probes``) time a
 forward and a forward with its backward on the eager step body, outside
 the window's wall time, for the ``fwd_time``, ``bwd_time`` and
@@ -116,11 +124,20 @@ def start_data_parallel(cfg: ExperimentConfig, device=None, backend=None):
     'gspmd' or 'shardmap' this process joins the process group
     (``parallel.multihost.initialize``: the ``torchrun`` variables, or a
     group of one) on its device (``multihost.local_device`` unless the
-    caller names one); with 'none' no group."""
+    caller names one), laid out as ``train.tensor_parallel`` asks (which
+    must divide the ranks: checked before any group is made); with 'none'
+    no group."""
     if cfg.train.data_parallel == "none":
         return None, resolve_device(device)
-    from ..parallel import make_dp_group, multihost
+    import torch.distributed as dist
 
+    from ..parallel import make_dp_group, multihost
+    from ..parallel.mesh import check_grid
+
+    # the grid's shape, before any process group is made
+    check_grid(int(cfg.train.tensor_parallel),
+               dist.get_world_size() if dist.is_initialized()
+               else int(os.environ.get("WORLD_SIZE", 1)))
     if device is None:
         device = resolve_device(multihost.local_device("cuda"))
         torch.cuda.set_device(device)
@@ -132,13 +149,31 @@ def start_data_parallel(cfg: ExperimentConfig, device=None, backend=None):
 class DataParallel:
     """A runner's data-parallel wiring (``_wire_data_parallel``): the train
     and eval steps, the maker of the K-step call, and how a host batch, a
-    K-stack, the window's stats and the checkpoint's state are placed."""
+    K-stack, the window's stats and the checkpoint's state are placed.
+    Under tensor parallelism ``dp`` carries the parameters' specs
+    (``dp.specs``), ``optimizer`` is the ``OptimizerSpec`` (for the
+    checkpoint's whole optimizer) and ``state_in`` gives a forward outside
+    the step (the phase probes, ``probe_loss``) the grid."""
 
     def __init__(self, dp, mode, rows, n_micro, train_step, eval_step,
-                 make_block):
+                 make_block, optimizer=None, state_in=None):
         self.dp, self.mode, self.rows, self.n_micro = dp, mode, rows, n_micro
         self.train_step, self.eval_step = train_step, eval_step
         self.make_block = make_block
+        self.optimizer, self.state_in = optimizer, state_in
+
+    def probe_loss(self, loss_fn):
+        """``loss_fn`` for the phase probes, a forward outside the step:
+        under tensor parallelism with the grid in its state (the
+        parameters are shards)."""
+        if self.state_in is None:
+            return loss_fn
+
+        def fn(model, params, state, data, w, training=True):
+            return loss_fn(model, params, self.state_in(state), data, w,
+                           training=training)
+
+        return fn
 
     def host(self, batch):
         """This rank's rows of a host batch (all of it without a group)."""
@@ -167,19 +202,31 @@ class DataParallel:
 
     def gathered(self, ts):
         """``ts`` with its batch-shaped layer state gathered from every
-        rank, for the checkpoint."""
+        data rank and, under tensor parallelism, its parameters, moments
+        and EMA from every model rank: the whole state, for the
+        checkpoint."""
         if self.dp is None:
             return ts
         import dataclasses
 
         from ..parallel.multihost import gather_to_host
+        from ..parallel.sharded_train import whole_train_state
 
+        if self.dp.specs:
+            ts = whole_train_state(ts, self.dp, self.optimizer)
         return dataclasses.replace(ts, state=gather_to_host(
             ts.state, self.dp, self.rows // self.n_micro))
 
-    def restored(self, ts, global_rows: int):
-        """A restored ``ts`` with its batch-shaped state cut to this rank's
-        rows."""
+    def restored(self, ts, host: dict, device, global_rows: int):
+        """``ts`` with a checkpoint's values (``host``, whole arrays: any
+        run's, a single device's included), its parameters, moments and
+        EMA cut to this rank's shards under tensor parallelism and its
+        batch-shaped state to this rank's rows."""
+        if self.dp is not None and self.dp.specs:
+            from ..parallel.sharded_train import shard_host_state
+
+            host = shard_host_state(host, self.dp)
+        ts = restore_train_state(ts, host, device)
         if self.dp is None:
             return ts
         import dataclasses
@@ -218,6 +265,17 @@ def _wire_data_parallel(cfg, model, loss_fn, optimizer, ts, dp, device, *,
             + (f" times grad_accumulation {ga}" if ga > 1 else ""))
     multihost.place_train_state(ts, dp)
     rows = bs // dp.size
+    state_in = None
+    if dp.model_size > 1:
+        from ..parallel.sharded_train import (
+            GlobalGridSync, group_paths, shard_train_state,
+            train_state_shardings,
+        )
+
+        # JAX's runner shards by its rules whenever tp > 1
+        dp = train_state_shardings(ts, dp)
+        shard_train_state(ts, dp)
+        state_in = GlobalGridSync(dp, group_paths(model)).state_in
     if mode == "gspmd":
         n_micro = ga
         step = make_sharded_train_step(model, loss_fn, optimizer, dp,
@@ -240,8 +298,14 @@ def _wire_data_parallel(cfg, model, loss_fn, optimizer, ts, dp, device, *,
                   "a persistent kernel declines it, so every rank runs the "
                   "eager loop of its route", flush=True)
     print(f"data_parallel={mode}: {dp.size} rank(s) over {dp.backend}, "
-          f"{rows} rows a rank, this rank {dp.rank}", flush=True)
-    return DataParallel(dp, mode, rows, n_micro, step, evals, make_block)
+          f"{rows} rows a rank, this rank {dp.rank}"
+          + (f"; tensor_parallel={dp.model_size}, model rank "
+             f"{dp.model_rank}, "
+             f"{sum(d is not None for d in dp.specs.values())}"
+             " parameter(s) sharded" if dp.model_size > 1 else ""),
+          flush=True)
+    return DataParallel(dp, mode, rows, n_micro, step, evals, make_block,
+                        optimizer, state_in)
 
 
 def _stat_keys(sde: bool):
@@ -328,6 +392,7 @@ def run_classification_experiment(
                                    grad_accumulation=ga, ema_decay=ed),
         eval_step=make_eval_step(model, loss_fn))
     train_step, eval_step = par.train_step, par.eval_step
+    dp = par.dp  # with the parameters' specs under tensor parallelism
     eval_dp = dp if par.mode == "gspmd" else None
     bs = cfg.dataset.train_batchsize
     spc = resolve_steps_per_call(
@@ -351,8 +416,7 @@ def run_classification_experiment(
     if os.path.exists(resume_path):
         restored = load_checkpoint(resume_path)
         if restored is not None:
-            ts = par.restored(
-                restore_train_state(ts, restored["tstate"], device), bs)
+            ts = par.restored(ts, restored["tstate"], device, bs)
             initial_step = int(restored["step"]) + 1
             restored_best = restored.get("best")
             print(f"resumed from {resume_path} at step {initial_step}",
@@ -390,7 +454,8 @@ def run_classification_experiment(
     final_eval: dict = {}
 
     # the per-window phase probes (fwd/bwd/opt columns)
-    measure_phases = make_phase_probes(model, loss_fn, optimizer)
+    measure_phases = make_phase_probes(model, par.probe_loss(loss_fn),
+                                       optimizer)
 
     def print_window(step, sums, window_n, ok, wall, data_time, n_rows, ts,
                      batch, w_reg):
@@ -445,8 +510,8 @@ def run_classification_experiment(
                "ckpt_dir": ckpt_dir, "log_dir": log_dir,
                "steps_per_call": spc, "captured": False}
     if dp is not None:
-        summary.update(data_parallel=par.mode, world_size=dp.size,
-                       rank=dp.rank)
+        summary.update(data_parallel=par.mode, world_size=dp.world_size,
+                       rank=dp.world_rank, tensor_parallel=dp.model_size)
     if spc > 1:
         def window_reduce(loss, stats, data):
             return {"row": _stat_row(loss, stats, data[1], sde),

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
@@ -193,8 +194,11 @@ def step_body(model, loss_fn, optimizer, grad_accumulation: int = 1,
     tensors, ``draws`` a device ``Staged`` per microbatch). The shared
     body of the single-step and K-step calls (JAX ``_fused_step_body``).
     A data-parallel step gives ``sync`` (``parallel/``): its ``state_in``
-    prepares the loss's input state, and its ``reduce(loss, state, stats,
-    grads)`` reduces them over the ranks before the update."""
+    prepares the loss's input state, its ``reduce(loss, state, stats,
+    grads)`` reduces them over the ranks before the update, and its
+    ``norm_sq(grads, names)``, where it has one, is the whole gradient's
+    squared norm for the optimizer's clipping (tensor parallelism's
+    shards)."""
     n_micro = int(grad_accumulation)
     ema_decay = float(ema_decay)
 
@@ -203,9 +207,13 @@ def step_body(model, loss_fn, optimizer, grad_accumulation: int = 1,
         loss, state, stats, grads = step_grads(
             model, loss_fn, n_micro, ts, data, w, draws,
             None if sync is None else sync.state_in)
+        norm_sq = None
         if sync is not None:
             loss, state, stats, grads = sync.reduce(loss, state, stats, grads)
-        optimizer.apply(ts.opt_state, params, grads, lr)
+            if hasattr(sync, "norm_sq"):
+                norm_sq = functools.partial(sync.norm_sq,
+                                            names=list(ts.params))
+        optimizer.apply(ts.opt_state, params, grads, lr, norm_sq=norm_sq)
         if ema_decay > 0.0:
             _ema_update(ts.ema, ts.params, ema_decay)
         return (dataclasses.replace(ts, state=state, step=ts.step + 1),

@@ -156,7 +156,7 @@ from ..ops.cuda.fused_conv import (
     ConvWeights, match_conv_family, running_stats, with_running_stats,
 )
 from .common import TDChain
-from .draws import layers_with, pop_draws, to_device, with_key
+from .draws import DRAWS, layers_with, pop_draws, to_device, with_key
 
 _VALID_REGULARIZE = ("none", "unbiased", "biased")
 _VALID_REG_TYPE = ("error_estimate", "stiffness_estimate")
@@ -408,6 +408,11 @@ class NeuralODE(Module):
         if group is not None:
             for path, _, _ in layers_with(self.model, st, "group_moments"):
                 st = with_key(st, path, GROUP, group)
+            if group.model_size > 1:
+                for path, _, _ in layers_with(self.model, st,
+                                              "model_parallel"):
+                    st = with_key(st, path, GROUP,
+                                  group.under(("model",) + path))
         with product_tier_scope(self.forward_tier(u.device)):
             return self._call_module(u, t, st, training, params)
 
@@ -785,11 +790,51 @@ class NeuralODE(Module):
                 f"torch.export: kernel 4 declines a state of shape "
                 f"{tuple(x.shape)} at H = {w.b1.shape[0]}")
 
+    def gathered_shards(self, group, kernels: bool) -> dict:
+        """Under tensor parallelism, the whole weights of the parameters
+        that ``group.specs`` shards (``mesh.model_gather``, once a call,
+        its backward this rank's slice of the cotangent), by the dynamics'
+        parameter name: every shard on a kernel route (the kernels take
+        whole weights, as GSPMD gathers the operands of a Pallas call), on
+        the plain route those no ``Dense`` computes on in place. Empty
+        where nothing is sharded."""
+        from ..nn.basic import Dense
+        from ..parallel.mesh import model_gather
+
+        out = {}
+        if group is None or group.model_size == 1:
+            return out
+        for name, p in self.model.named_parameters():
+            dim = group.specs.get(f"model.{name}")
+            if dim is None:
+                continue
+            owner = self.model.get_submodule(name.rpartition(".")[0])
+            if not kernels and isinstance(owner, Dense):
+                continue
+            out[name] = model_gather(p, group, dim)
+        return out
+
     def apply_layer(self, x, state, *, training: bool = False):
         draws, state = pop_draws(state)
         group, state = pop_group(state)
         if group is not None:
             self.check_global_grid()
+            whole = self.gathered_shards(group, self.uses_kernels(x))
+            if whole:
+                # the call again on the whole weights; on a kernel route
+                # the model ranks then compute alike, on the data axis
+                if self.uses_kernels(x):
+                    group = group.data_axis()
+                else:
+                    group = dataclasses.replace(group, specs={
+                        k: d for k, d in group.specs.items()
+                        if k.partition(".")[2] not in whole})
+                state = dict(state, **{GROUP: group})
+                if draws is not None:
+                    state[DRAWS] = draws
+                return torch.func.functional_call(
+                    self, {f"model.{k}": v for k, v in whole.items()},
+                    (x, state), {"training": training}, strict=False)
         # every route's forward runs at this tier: refuse it below 1e-4
         check_product_tier(self.forward_tier(x.device), self.rtol)
         if not training:

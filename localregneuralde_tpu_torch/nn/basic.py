@@ -264,7 +264,15 @@ class Dense(Module):
         if use_bias:
             self.b = nn.Parameter(torch.zeros(out_dim, device=device))
 
+    #: takes the process grid under ``GROUP`` in its state (tensor
+    #: parallelism's weight shards by the grid's ``specs``,
+    #: ``_model_parallel``)
+    model_parallel = True
+
     def apply_layer(self, x, state, *, training: bool = False):
+        group = state.get(GROUP)
+        if group is not None:
+            state = {k: v for k, v in state.items() if k != GROUP}
         tier = layer_tier(self.precision, x)
         # one product over the rows flattened, whatever the weight's
         # requires_grad: ``torch.matmul`` folds a batched, non-contiguous
@@ -272,14 +280,44 @@ class Dense(Module):
         # grad, so a program with the weights baked (utils/export.py) would
         # part from the live layer by rounding
         rows = x.reshape(-1, self.in_dim)
-        if tier != "fp32":
-            y = tier_matmul(rows, self.w, tier)
-        else:
-            y = rows @ self.w
+        dim = None if group is None else group.specs.get("w")
+        if dim is not None:
+            y = self._model_parallel(rows, group, tier, dim)
+            return y.reshape(x.shape[:-1] + (self.out_dim,)), state
+        y = self._product(rows, self.w, tier)
         y = y.reshape(x.shape[:-1] + (self.out_dim,))
         if self.use_bias:
             y = y + self.b
         return self.activation(y), state
+
+    @staticmethod
+    def _product(rows, w, tier):
+        return tier_matmul(rows, w, tier) if tier != "fp32" else rows @ w
+
+    def _model_parallel(self, rows, group, tier, dim):
+        """The layer on this model rank's weight shard, cut along ``dim``
+        (the grid's spec of ``w``, JAX's tensor parallelism,
+        ``parallel/sharded_train.py``): a column shard (dim 1: the weight's
+        and the bias's output columns) multiplies the whole input, which
+        enters through ``model_copy``, and the activated features are
+        gathered over the model group; a row shard (dim 0) multiplies this
+        rank's slice of the input features, and the partial products are
+        added over the model group in rank order before the (whole) bias
+        and the activation."""
+        from ..parallel.mesh import (
+            model_copy, model_gather, model_reduce, model_slice,
+        )
+
+        if dim == 0:
+            y = model_reduce(self._product(model_slice(rows, group, 1),
+                                           self.w, tier), group)
+            if self.use_bias:
+                y = y + self.b
+            return self.activation(y)
+        y = self._product(model_copy(rows, group), self.w, tier)
+        if self.use_bias:
+            y = y + self.b
+        return model_gather(self.activation(y), group, 1)
 
 
 @contextlib.contextmanager

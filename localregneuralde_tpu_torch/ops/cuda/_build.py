@@ -129,6 +129,7 @@ _SIGNATURES = {
     "lrnde_pf_solve_grid": [_P, _I, _I, _P],
     "lrnde_pf_solve_grid_tf32": [_P, _I, _I, _P],
     "lrnde_sde_solve_grid": [_I, _I, _I, _P],
+    "lrnde_sde_solve_occupancy": [_I, _I, _I, _I, _P],
     "lrnde_conv_orient_tap": [_P] * 3 + [_I] * 5 + [_P],
     "lrnde_conv_orient_im2col": [_P] * 3 + [_I] * 5 + [_P],
     "lrnde_conv_orient_probe": [_I, _I] + [_P] * 3 + [_I] * 5 + [_P, _P],

@@ -93,6 +93,10 @@ SDE_HID_THREADS, SDE_THREADS = 256, 384
 SDE_OLD_THREADS = 64
 SDE_MAX_DEPTH = 30
 SDE_SMEM_BYTES = 232448
+# kernel 10's static shared memory (its control block, ``SdeCtl``, as
+# ptxas reports it for every instantiation): a CTA's dynamic bytes and
+# these together must fit a block (``lrnde_sde_solve_occupancy``)
+SDE_STATIC_SMEM_BYTES = 2368
 
 
 class SdeSolvePlan(NamedTuple):
@@ -147,14 +151,16 @@ def sde_solve_plan(B: int, F: int, H: int, resident=None,
     """Kernel 10's layout for B rows at (F, H) and the product ``tier``;
     ``resident(smem_bytes)`` is the CTAs the card holds at once at that
     shared memory (the occupancy query; None: every row block resident).
-    Raises ValueError where a CTA's shared memory exceeds an H100's
+    Raises ValueError where a CTA's shared memory, its dynamic bytes and
+    the kernel's static ``SDE_STATIC_SMEM_BYTES``, exceeds an H100's
     block."""
     smem = 4 * sde_solve_smem_floats(F, H, tier)
-    if smem > SDE_SMEM_BYTES:
+    if smem + SDE_STATIC_SMEM_BYTES > SDE_SMEM_BYTES:
         raise ValueError(
             f"persistent_sde_solve: F={F}, H={H} needs {smem} bytes of "
-            f"shared memory a CTA, over {SDE_SMEM_BYTES} (the weights stay "
-            f"in shared memory)")
+            f"shared memory a CTA beside the kernel's static "
+            f"{SDE_STATIC_SMEM_BYTES}, over {SDE_SMEM_BYTES} (the weights "
+            f"stay in shared memory)")
     n_blocks = -(-B // SDE_ROWS)
     grid = n_blocks if resident is None else min(n_blocks, resident(smem))
     if grid < 1:

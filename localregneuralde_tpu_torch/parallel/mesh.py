@@ -1,23 +1,32 @@
-"""The data-parallel group: one rank a process over ``torch.distributed``.
+"""The process grid: one rank a process over ``torch.distributed``.
 
-Counterpart of ``localregneuralde_tpu/parallel/mesh.py``: a process group of
-world size n stands for JAX's ``data`` mesh axis, one rank a process (and a
-device). ``shard_batch`` takes this rank's rows of a host batch, as JAX's
-``shard_batch`` places a batch's leading dimension over the axis.
+Counterpart of ``localregneuralde_tpu/parallel/mesh.py``: a world of n
+ranks stands for JAX's ``{"data": n / tp, "model": tp}`` mesh, laid out as
+``make_mesh`` reshapes the devices, row-major, so world rank = d·tp + m.
+The **data** subgroups are the ranks with equal m (JAX's ``data`` axis: the
+batch's rows spread over them), the **model** subgroups the ranks with
+equal d (the ``model`` axis: tensor parallelism's weight shards). With tp =
+1 the data group is the whole world. ``shard_batch`` takes this rank's
+rows of a host batch, as JAX's ``shard_batch`` places a batch's leading
+dimension over the data axis; the ranks of a model group take the same
+rows.
 
-Every collective of the layer goes through ``gather_slots``: each rank
-writes its tensor into its own slot of a zeroed ``(n, ...)`` buffer and one
+Every collective of the layer goes through ``gather_slots`` (over the data
+group) or ``model_slots`` (over the model group): each rank writes its
+tensor into its own slot of a zeroed ``(n, ...)`` buffer and one
 all-reduce fills every slot on every rank. Adding zeros is exact, so each
 rank then holds every rank's tensor bitwise (up to the sign of a zero), and
-``ordered_sum`` adds the slots in rank order: every rank gets the same bytes
-from the same order whatever the backend's reduction algorithm. It takes an
-all-reduce only, which Gloo runs on CUDA tensors as well as on CPU ones
-(its all-gather takes CPU tensors only), and NCCL on its devices.
+``ordered_sum`` and ``model_sum`` add the slots in rank order: every rank
+gets the same bytes from the same order whatever the backend's reduction
+algorithm. It takes an all-reduce only, which Gloo runs on CUDA tensors as
+well as on CPU ones (its all-gather takes CPU tensors only), and NCCL on
+its devices.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -25,33 +34,101 @@ import torch.distributed as dist
 
 @dataclass(frozen=True)
 class DPGroup:
-    """The data-parallel group: ``group`` the process group (None: the
-    default one), ``rank`` this process's rank in it and ``size`` its
-    world size, the data-parallel degree."""
+    """The process grid as this rank sees it: ``group`` the data subgroup
+    (None: the default process group), ``rank`` this process's rank in it
+    and ``size`` its size, the data-parallel degree; ``model_group``,
+    ``model_rank`` and ``model_size`` the same of the model subgroup (the
+    tensor-parallel degree; a size of 1 and no group without tensor
+    parallelism); ``world_rank`` and ``world_size`` this process's rank in
+    the whole grid and its size. ``specs`` are tensor parallelism's
+    parameter specs (``sharded_train.train_state_shardings``, ``{dotted
+    name: sharded dimension or None}``), named from the module this grid
+    is handed to (``under``); empty without tensor parallelism."""
 
     group: Any
     rank: int
     size: int
+    model_group: Any = None
+    model_rank: int = 0
+    model_size: int = 1
+    world_rank: Optional[int] = None
+    world_size: Optional[int] = None
+    specs: Dict[str, Optional[int]] = field(default_factory=dict,
+                                            compare=False, hash=False)
+
+    def __post_init__(self):
+        if self.world_rank is None:
+            object.__setattr__(self, "world_rank", self.rank)
+        if self.world_size is None:
+            object.__setattr__(self, "world_size", self.size)
 
     @property
     def backend(self) -> str:
         return dist.get_backend(self.group)
 
+    def data_axis(self) -> "DPGroup":
+        """This grid with its model axis dropped: the group of a
+        computation that every rank of a model group runs alike on whole
+        weights (the kernel routes under tensor parallelism)."""
+        return dataclasses.replace(self, model_group=None, model_rank=0,
+                                   model_size=1, specs={})
+
+    def under(self, path) -> "DPGroup":
+        """This grid as the submodule at ``path`` (a tuple of names) sees
+        it: ``specs`` of its parameters only, named from it."""
+        if not self.specs or not path:
+            return self
+        prefix = ".".join(path) + "."
+        return dataclasses.replace(self, specs={
+            k[len(prefix):]: d for k, d in self.specs.items()
+            if k.startswith(prefix)})
+
+    def world(self) -> "DPGroup":
+        """The whole grid as one data group (the default process group)."""
+        if self.model_size == 1:
+            return self
+        return DPGroup(group=None, rank=self.world_rank,
+                       size=self.world_size)
+
+
+def check_grid(tp: int, world: Optional[int] = None) -> None:
+    """JAX's runner's checks of the tensor-parallel degree: at least 1, and
+    a divisor of the ``world`` ranks (where given)."""
+    if tp < 1:
+        raise ValueError(f"train.tensor_parallel must be >= 1, got {tp}")
+    if world is not None and world % tp:
+        raise ValueError(
+            f"tensor_parallel={tp} does not divide the {world} ranks")
+
 
 def make_dp_group(tensor_parallel: int = 1, group=None) -> DPGroup:
-    """The data-parallel group over the initialised default process group
-    (``multihost.initialize``), or over ``group``. Tensor parallelism is
-    not ported: ``tensor_parallel`` > 1 raises."""
-    if int(tensor_parallel) != 1:
-        raise NotImplementedError(
-            f"train.tensor_parallel={tensor_parallel}: tensor parallelism is "
-            "not ported (ROADMAP Queue 1 item 14d); the parallel layer is "
-            "data-parallel only")
+    """The process grid over the initialised default process group
+    (``multihost.initialize``), or over ``group``: ``tensor_parallel`` =
+    tp model ranks by world / tp data ranks, world rank = d·tp + m (JAX's
+    ``make_mesh({"data": world / tp, "model": tp})``). With tp > 1 every
+    rank makes every data and model subgroup, in the same order (Gloo
+    needs that). Raises ``ValueError`` where tp is below 1 or does not
+    divide the world."""
+    tp = int(tensor_parallel)
+    check_grid(tp)
     if not dist.is_initialized():
         raise RuntimeError("torch.distributed is not initialised: call "
                            "parallel.multihost.initialize() first")
-    return DPGroup(group=group, rank=dist.get_rank(group),
-                   size=dist.get_world_size(group))
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    check_grid(tp, world)
+    if tp == 1:
+        return DPGroup(group=group, rank=rank, size=world)
+    ranks = (list(range(world)) if group is None
+             else dist.get_process_group_ranks(group))
+    n_data = world // tp
+    data = [dist.new_group([ranks[d * tp + m] for d in range(n_data)])
+            for m in range(tp)]
+    model = [dist.new_group([ranks[d * tp + m] for m in range(tp)])
+             for d in range(n_data)]
+    d, m = divmod(rank, tp)
+    return DPGroup(group=data[m], rank=d, size=n_data, model_group=model[d],
+                   model_rank=m, model_size=tp, world_rank=rank,
+                   world_size=world)
 
 
 def local_rows(global_rows: int, dp: DPGroup, n_micro: int = 1) -> list:
@@ -119,31 +196,51 @@ def map_tensors(fn, tree):
     return tree
 
 
-def gather_slots(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
-    """Every rank's ``x`` on every rank, ``(n,) + x.shape``, in rank order:
-    one all-reduce of a zeroed buffer holding ``x`` in this rank's slot.
-    Booleans travel as float32 and integers as float64 (exact below
-    2**53), the types every backend reduces on every device."""
+def _slots(x: torch.Tensor, group, rank: int, size: int) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` on every rank, ``(size,) +
+    x.shape``, in rank order: one all-reduce of a zeroed buffer holding
+    ``x`` in this rank's slot. Booleans travel as float32 and integers as
+    float64 (exact below 2**53), the types every backend reduces on every
+    device."""
     dtype = x.dtype
     if dtype == torch.bool:
         x = x.to(torch.float32)
     elif not x.is_floating_point():
         x = x.to(torch.float64)
-    buf = torch.zeros((dp.size,) + tuple(x.shape), dtype=x.dtype,
+    buf = torch.zeros((size,) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
-    buf[dp.rank] = x
-    dist.all_reduce(buf, group=dp.group)
+    buf[rank] = x
+    dist.all_reduce(buf, group=group)
     return buf.to(dtype)
 
 
-def ordered_sum(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
-    """The sum over the ranks of ``x``, added in rank order: the same bytes
-    on every rank."""
-    slots = gather_slots(x, dp)
+def _in_order(slots: torch.Tensor) -> torch.Tensor:
     acc = slots[0]
-    for k in range(1, dp.size):
+    for k in range(1, slots.shape[0]):
         acc = acc + slots[k]
     return acc
+
+
+def gather_slots(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
+    """Every data rank's ``x`` on every rank, ``(n,) + x.shape``, in rank
+    order (``_slots`` over the data group)."""
+    return _slots(x, dp.group, dp.rank, dp.size)
+
+
+def model_slots(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
+    """``gather_slots`` over the model group: every model rank's ``x``."""
+    return _slots(x, dp.model_group, dp.model_rank, dp.model_size)
+
+
+def ordered_sum(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
+    """The sum over the data ranks of ``x``, added in rank order: the same
+    bytes on every rank."""
+    return _in_order(gather_slots(x, dp))
+
+
+def model_sum(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
+    """``ordered_sum`` over the model group."""
+    return _in_order(model_slots(x, dp))
 
 
 def mean_over_ranks(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
@@ -227,6 +324,101 @@ def rank_rows(x: torch.Tensor, dp: DPGroup, axis: int = 0) -> torch.Tensor:
     contiguous: the inverse of ``gather_rows``."""
     b = x.shape[axis] // dp.size
     return x.narrow(axis, dp.rank * b, b).contiguous()
+
+
+# --- the model axis (tensor parallelism)
+
+def model_shard(x: torch.Tensor, dp: DPGroup, dim: int) -> torch.Tensor:
+    """This model rank's contiguous slice of a whole ``x`` along ``dim``."""
+    n = x.shape[dim] // dp.model_size
+    return x.narrow(dim, dp.model_rank * n, n).contiguous()
+
+
+def model_cat(x: torch.Tensor, dp: DPGroup, dim: int) -> torch.Tensor:
+    """The whole tensor from every model rank's slice ``x`` along ``dim``,
+    in rank order: bitwise each rank's slice, the same bytes on every
+    rank (``model_slots``)."""
+    return torch.cat(model_slots(x.contiguous(), dp).unbind(0), dim=dim)
+
+
+class _ModelGather(torch.autograd.Function):
+    """``model_cat`` differentiable: every model rank computes alike on the
+    whole tensor, so each holds the same cotangent of it, and the backward
+    takes this rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, x, dp, dim):
+        ctx.dp, ctx.dim = dp, dim
+        return model_cat(x, dp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_shard(g, ctx.dp, ctx.dim), None, None
+
+
+def model_gather(x: torch.Tensor, dp: DPGroup, dim: int) -> torch.Tensor:
+    """The whole tensor from this model rank's slice ``x`` (a weight
+    shard, or a column-parallel layer's features), with autograd through
+    it (``_ModelGather``)."""
+    return _ModelGather.apply(x, dp, dim)
+
+
+class _ModelCopy(torch.autograd.Function):
+    """The identity, whose backward sums the cotangent over the model group
+    in rank order: the input of a column-parallel product, which each
+    model rank multiplies by its own columns."""
+
+    @staticmethod
+    def forward(ctx, x, dp):
+        ctx.dp = dp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_sum(g.contiguous(), ctx.dp), None
+
+
+def model_copy(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
+    return _ModelCopy.apply(x, dp)
+
+
+class _ModelSlice(torch.autograd.Function):
+    """This model rank's slice of a whole ``x`` along ``dim`` (the input of
+    a row-parallel product); the backward puts each rank's slice of the
+    cotangent in its place, summed over the model group (``model_cat``:
+    the slices are disjoint, so the sum of the zero-padded slots is their
+    concatenation)."""
+
+    @staticmethod
+    def forward(ctx, x, dp, dim):
+        ctx.dp, ctx.dim = dp, dim
+        return model_shard(x, dp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_cat(g, ctx.dp, ctx.dim), None, None
+
+
+def model_slice(x: torch.Tensor, dp: DPGroup, dim: int) -> torch.Tensor:
+    return _ModelSlice.apply(x, dp, dim)
+
+
+class _ModelReduce(torch.autograd.Function):
+    """``model_sum`` of a row-parallel product's partial sums, whose
+    backward is the identity: each rank's partial gets the sum's cotangent,
+    the same on every model rank."""
+
+    @staticmethod
+    def forward(ctx, x, dp):
+        return model_sum(x, dp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def model_reduce(x: torch.Tensor, dp: DPGroup) -> torch.Tensor:
+    return _ModelReduce.apply(x, dp)
 
 
 # the fields of a solve's result (ode.solve.ODESolution,

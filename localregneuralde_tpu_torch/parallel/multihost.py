@@ -12,8 +12,9 @@ two ranks on one device). A process started alone runs a group of one.
 
 Replicated state is built from the same seed on every rank and checked once
 against rank 0's (``place_train_state``); ``gather_to_host`` all-gathers
-the batch-shaped layer state so that every rank holds, and rank 0 writes,
-the whole state.
+the batch-shaped layer state over the data group so that every rank
+holds, and world rank 0 writes, the whole state (the parameters' model
+shards are gathered by ``sharded_train.whole_train_state``).
 """
 from __future__ import annotations
 
@@ -100,9 +101,10 @@ def place_replicated(tree: Any, dp: DPGroup) -> Any:
 
 def place_train_state(ts, dp: DPGroup):
     """Check once that the replicated train state starts identical on every
-    rank (the parameters, built from the same seed): rank 0's values are
-    broadcast and compared bitwise; a rank that differs raises. Returns
-    ``ts``."""
+    rank of the whole grid (the parameters, built from the same seed, whole:
+    before tensor parallelism cuts them): rank 0's values are broadcast and
+    compared bitwise; a rank that differs raises. Returns ``ts``."""
+    dp = dp.world()
     params = list(ts.params.values())
     theirs = [p.detach().clone() for p in params]
     place_replicated(theirs, dp)
@@ -137,9 +139,10 @@ def local_state(tree: Any, dp: DPGroup, global_rows: int) -> Any:
 
 
 def checkpoint_subdir(path: str, dp: Optional[DPGroup]) -> str:
-    """Rank 0 keeps ``path``; rank r > 0 writes under ``path/proc{r}``, so
-    nothing clobbers on a shared filesystem (JAX ``runner.py:289-294``)."""
-    if dp is None or dp.rank == 0:
+    """World rank 0 keeps ``path``; rank r > 0 writes under
+    ``path/proc{r}``, so nothing clobbers on a shared filesystem (JAX
+    ``runner.py:289-294``)."""
+    if dp is None or dp.world_rank == 0:
         return path
-    return os.path.join(path, f"proc{dp.rank}")
+    return os.path.join(path, f"proc{dp.world_rank}")
 

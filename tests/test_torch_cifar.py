@@ -620,14 +620,20 @@ def test_runner_resumes_the_uninterrupted_run(tmp_path, monkeypatch):
 
 
 def test_runner_refuses_unported_options(tmp_path):
-    """Tensor parallelism is not ported: the global grid with
-    ``tensor_parallel=2`` raises (the global grid itself runs CIFAR,
-    ``tests/test_torch_parallel_conv.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14d"):
+    """The JAX runner's check of the grid: ``tensor_parallel=2`` on the
+    global grid of one process raises ValueError before a process group is
+    made, its degree not dividing the ranks (tensor parallelism keeps every
+    CIFAR leaf whole, ``tests/test_torch_parallel_tp.py``; the global grid
+    runs CIFAR, ``tests/test_torch_parallel_conv.py``)."""
+    import torch.distributed as dist
+
+    initialised = dist.is_initialized()
+    with pytest.raises(ValueError, match="does not divide the"):
         runner.run_classification_experiment(
             _runner_cfg(tmp_path, 1, ["--train.data_parallel=gspmd",
                                       "--train.tensor_parallel=2"]),
             device="cpu")
+    assert dist.is_initialized() == initialised
 
 
 def test_runner_k_steps_with_accumulation_and_ema(tmp_path, monkeypatch):

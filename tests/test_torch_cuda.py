@@ -322,6 +322,35 @@ def test_sde_solve_odd_widths_on_card(cuda_device, features, hidden):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("features, hidden", [(32, 16), (32, 64), (13, 40)])
+def test_sde_solve_is_resident_beside_its_static_block(cuda_device, features,
+                                                       hidden):
+    # kernel 10's static shared memory is the plan's, and every
+    # instantiation a launch takes is resident once its opt-in is granted:
+    # at F = 32, H = 16 the dynamic bytes stay under 48 KB but not beside
+    # the static control block
+    import ctypes
+
+    from localregneuralde_tpu_torch.ops.cuda import _build
+    from localregneuralde_tpu_torch.ops.cuda.fused_sde_solve import (
+        SDE_STATIC_SMEM_BYTES, sde_solve_plan,
+    )
+
+    lib = _build.load_library()
+    out = (ctypes.c_int * 7)()
+    op = ctypes.cast(out, ctypes.c_void_p)
+    for sosri in (0, 1):
+        for tier in ("fp32", "tf32"):
+            assert lib.lrnde_sde_solve_occupancy(
+                features, hidden, sosri, int(tier == "tf32"), op) == 0
+            static, _, _, _, after, dyn, _ = list(out)
+            assert static == SDE_STATIC_SMEM_BYTES
+            assert dyn == sde_solve_plan(64, features, hidden,
+                                         tier=tier).smem_bytes
+            assert after >= 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("features, hidden", [(32, 64), (13, 40)])
 def test_sde_solve_grid_matches_plan_on_card(cuda_device, features, hidden):
     # kernel 10's grid at the resident CTAs the card reports, against

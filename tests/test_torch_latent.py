@@ -600,12 +600,16 @@ def test_runner_resumes_the_uninterrupted_run(tmp_path, monkeypatch):
 
 
 def test_runner_refuses_unported_options(tmp_path):
-    """Tensor parallelism is not ported: the runner raises before anything
-    runs (data parallelism runs, ``tests/test_torch_parallel_families.py``)."""
-    cfg = define_configuration(["--train.data_parallel=gspmd",
-                                "--train.tensor_parallel=2"], CONFIG)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14d"):
-        run_latent_ode_experiment(cfg, device="cpu")
+    """The JAX runner's checks raise before anything runs: tensor
+    parallelism with 'shardmap', and a tensor-parallel degree that does
+    not divide the ranks of the global grid (one process here; tensor
+    parallelism runs, ``tests/test_torch_parallel_tp.py``)."""
+    for mode, match in (("shardmap", "shardmap mode"),
+                        ("gspmd", "does not divide the 1 ranks")):
+        cfg = define_configuration([f"--train.data_parallel={mode}",
+                                    "--train.tensor_parallel=2"], CONFIG)
+        with pytest.raises(ValueError, match=match):
+            run_latent_ode_experiment(cfg, device="cpu")
 
 
 def test_runner_runs_the_train_loop_options(tmp_path):

@@ -232,8 +232,9 @@ def test_unported_paths_raise():
                               solver=solver, rtol=0.5, atol=0.5,
                               device="cpu")
         assert s.shape == (4, 2) and int(sol.nfe_drift) > 0
-    # still unported: tensor parallelism; the global grid of data
-    # parallelism takes the SDE, conv and chain families
+    # tensor parallelism takes 'gspmd' only, as the JAX runner has it; the
+    # global grid of data parallelism takes the SDE, conv and chain
+    # families
     from localregneuralde_tpu_torch.harness.latent_runner import (
         check_supported,
     )
@@ -243,8 +244,13 @@ def test_unported_paths_raise():
 
     tp = torch_config.define_configuration(
         ["--train.data_parallel=gspmd", "--train.tensor_parallel=2"], None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14d"):
-        check_supported(tp)
+    check_supported(tp)
+    for mode in ("none", "shardmap"):
+        tp = torch_config.define_configuration(
+            [f"--train.data_parallel={mode}", "--train.tensor_parallel=2"],
+            None)
+        with pytest.raises(ValueError, match="requires data_parallel='gspmd'"):
+            check_supported(tp)
     for extra, path in ((["--model.model_type=cifar10_cnn"], "neural_ode"),
                         ([], "neural_dsde")):
         cfg = torch_config.define_configuration(

@@ -515,8 +515,10 @@ def test_rows_of_each_rank_and_the_primary():
 # ---------------------------------------------------------------- refusals
 
 def test_unported_parallel_modes_raise_with_their_items():
-    """Tensor parallelism (item 14d) and the global grid for an Adams
-    solver (14e) raise NotImplementedError. The chain (14a), SDE (14b) and
+    """The global grid for an Adams solver (14e) raises
+    NotImplementedError; a tensor-parallel degree below 1 raises the JAX
+    runner's ValueError (tensor parallelism, item 14d, is ported:
+    ``tests/test_torch_parallel_tp.py``). The chain (14a), SDE (14b) and
     conv (14c) families take the global grid
     (``tests/test_torch_parallel_families.py``,
     ``tests/test_torch_parallel_conv.py``)."""
@@ -528,8 +530,8 @@ def test_unported_parallel_modes_raise_with_their_items():
         check_global_grid,
     )
 
-    with pytest.raises(NotImplementedError, match="item 14d"):
-        make_dp_group(tensor_parallel=2)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        make_dp_group(tensor_parallel=0)
     model, *_ = W.latent_setup()
     assert check_global_grid(model, model.init_state()) == [("neural_ode",)]
     for extra, item in ((["--model.sde=true"], ("neural_dsde",)),
@@ -655,17 +657,44 @@ def test_latent_runner_on_two_ranks(tmp_path):
 
 
 def test_runner_refuses_what_the_jax_runner_refuses():
-    """Per-rank grid with gradient accumulation or an explicit K > 1, and
-    tensor parallelism, raise before anything runs."""
+    """The JAX runner's checks (``runner.py:67-120`` there), raised before
+    anything runs: the per-rank grid with gradient accumulation, an
+    explicit K > 1 or tensor parallelism; tensor parallelism without a
+    grid, or at a degree below 1, or one that does not divide the ranks
+    (here one); a batch that does not divide the data-parallel degree
+    (times the microbatches)."""
     from localregneuralde_tpu_torch.harness import define_configuration
     from localregneuralde_tpu_torch.harness.latent_runner import (
         check_supported,
     )
+    from localregneuralde_tpu_torch.harness.runner import (
+        _wire_data_parallel, start_data_parallel,
+    )
+    from localregneuralde_tpu_torch.parallel import DPGroup
 
-    for extra, err in ((["--train.grad_accumulation=2"], ValueError),
-                       (["--train.steps_per_call=2"], ValueError),
-                       (["--train.tensor_parallel=2"], NotImplementedError)):
+    for mode, extra, match in (
+            ("shardmap", ["--train.grad_accumulation=2"], "grad_acc"),
+            ("shardmap", ["--train.steps_per_call=2"], "steps_per_call"),
+            ("shardmap", ["--train.tensor_parallel=2"], "shardmap mode"),
+            ("none", ["--train.tensor_parallel=2"], "requires"),
+            ("gspmd", ["--train.tensor_parallel=0"], "must be >= 1")):
         cfg = define_configuration(
-            ["--train.data_parallel=shardmap"] + extra, None)
-        with pytest.raises(err):
+            [f"--train.data_parallel={mode}"] + extra, None)
+        with pytest.raises(ValueError, match=match):
             check_supported(cfg)
+    cfg = define_configuration(["--train.data_parallel=gspmd",
+                                "--train.tensor_parallel=2"], None)
+    check_supported(cfg)
+    with pytest.raises(ValueError, match="does not divide the 1 ranks"):
+        start_data_parallel(cfg, "cpu")
+    # a 4 × 2 grid: 6 rows do not split over 4 data ranks, nor 4 rows
+    # over 4 data ranks times 2 microbatches
+    grid = DPGroup(group=None, rank=0, size=4, model_size=2)
+    for bs, ga in ((6, 1), (4, 2)):
+        cfg = define_configuration([
+            "--train.data_parallel=gspmd", "--train.tensor_parallel=2",
+            f"--dataset.train_batchsize={bs}",
+            f"--train.grad_accumulation={ga}"], None)
+        with pytest.raises(ValueError, match="data-parallel degree 4"):
+            _wire_data_parallel(cfg, None, None, None, None, grid, "cpu",
+                                train_step=None, eval_step=None)

@@ -20,6 +20,7 @@ from localregneuralde_tpu_torch.ops.cuda.fused_sde_solve import (
     SDE_OLD_THREADS,
     SDE_ROWS,
     SDE_SMEM_BYTES,
+    SDE_STATIC_SMEM_BYTES,
     SDE_THREADS,
     frag_floats,
     frag_set_floats,
@@ -97,14 +98,19 @@ def test_tf32_plan_adds_the_forward_fragment_copies(F, H):
         assert frag == 2 * F * H + F * F == 5120
 
 
+def fits(F, H):
+    """A CTA's dynamic shared memory beside the kernel's static control
+    block within 227 KB."""
+    return 4 * sde_solve_smem_floats(F, H) + SDE_STATIC_SMEM_BYTES <= (
+        SDE_SMEM_BYTES)
+
+
 def test_plan_refuses_past_a_block():
     """The widest hidden layer at F = 32 and the widest state at H = 64
-    whose CTA fits 227 KB; one unit wider is refused before the library
-    loads."""
-    H = max(h for h in range(64, 2000)
-            if 4 * sde_solve_smem_floats(32, h) <= SDE_SMEM_BYTES)
-    F = max(f for f in range(32, 400)
-            if 4 * sde_solve_smem_floats(f, 64) <= SDE_SMEM_BYTES)
+    whose CTA, static shared memory included, fits 227 KB; one unit wider
+    is refused before the library loads."""
+    H = max(h for h in range(64, 2000) if fits(32, h))
+    F = max(f for f in range(32, 400) if fits(f, 64))
     assert sde_solve_plan(512, 32, H).smem_bytes <= SDE_SMEM_BYTES
     assert sde_solve_plan(512, F, 64).smem_bytes <= SDE_SMEM_BYTES
     for f, h in ((32, H + 1), (F + 1, 64)):
@@ -112,6 +118,24 @@ def test_plan_refuses_past_a_block():
             sde_solve_plan(512, f, h)
     with pytest.raises(ValueError, match="resident"):
         sde_solve_plan(512, 32, 64, lambda smem: 0)
+
+
+def test_plan_refuses_a_width_that_fits_only_without_the_static_block():
+    """A width whose dynamic shared memory alone fits 227 KB but not beside
+    the kernel's static control block is refused at plan time with its
+    reason, before any launch; and the width that once failed its launch
+    (F = 32, H = 16: 49,024 dynamic bytes, under the 48 KB that needs no
+    opt-in, 51,392 with the static block) is planned, its launch opting in
+    (csrc/tdmlp.cuh::allow_smem)."""
+    gap = [h for h in range(64, 2000)
+           if 4 * sde_solve_smem_floats(32, h) <= SDE_SMEM_BYTES
+           and not fits(32, h)]
+    assert gap
+    with pytest.raises(ValueError, match="static"):
+        sde_solve_plan(512, 32, gap[0])
+    plan = sde_solve_plan(64, 32, 16)
+    assert plan.smem_bytes == 49024 <= 48 * 1024
+    assert plan.smem_bytes + SDE_STATIC_SMEM_BYTES > 48 * 1024
 
 
 # ---- the error partial
